@@ -8,17 +8,30 @@ Phases, each printing its own line; any failure exits non-zero:
 
 1. card -- ``nvidia-smi`` name and power limit, ``torch.cuda`` device
    name; TF32 turned off for matmuls and cuDNN.
-2. build -- both CUDA kernels compiled from ``horovod_tpu_torch/ops/csrc``
-   with ``nvcc`` for ``sm_90a``.
+2. build -- every CUDA source in ``horovod_tpu_torch/ops/csrc`` compiled
+   with ``nvcc`` for ``sm_90a``, one process per source, all at once.
 3. kernels -- each kernel against its plain PyTorch version on the card
-   at the serving path's shapes, with its time, the plain version's
-   time, one PyTorch library call's time for the same function, and the
-   least time the card could take (``bound_ms``).
+   at its path's shapes (serving: flash forward and decode; training:
+   the flash backward's dq and dk/dv), with its time, the plain
+   version's time, one PyTorch library call's time for the same
+   function, and the least time the card could take (``bound_ms``).
 4. serve -- Llama-3 8B at full width and depth (random bf16 weights from
    a seed) serves 8 requests through ``ServingEngine``; the kernels'
    launch counters must show the main path went through them, and the
    first request's first-token logits must match the same prefill run
    through the plain attention.
+5. grad -- Llama-3 8B at full width, 2 layers, LoRA rank 8 with non-zero
+   adapters: one loss and backward through the kernels against the same
+   through the plain attention (loss within 1e-2 relative, every LoRA
+   gradient within 2e-2 of its max |value|).
+6. train -- Llama-3 8B at full width and depth, frozen bf16 base, LoRA
+   rank 8 on all seven projections: ``init`` (world 1, NCCL) ->
+   ``broadcast_parameters`` -> ``DistributedOptimizer(AdamW,
+   compression=bf16)`` -> ``make_train_step``, one warm-up and five timed
+   steps on a 2 x 2048-token batch.  The loss must stay finite and fall,
+   every adapter change, every base tensor stay bitwise the same, each
+   step launch 32 flash forwards and 32 of each backward kernel, and the
+   optimizer send as many buckets per step as ``plan_buckets`` plans.
 
 Then one JSON line of per-kernel numbers, the card line, and last the
 ``{"ok": true, "device": ...}`` line.  Without a GPU, or without the rest
@@ -28,6 +41,8 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -41,6 +56,7 @@ import torch.nn.functional as F
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak (NVIDIA data sheet)
 H100_HBM_BYTES = 3.35e12   # HBM3 bytes/s (NVIDIA data sheet)
 F32_TOL = 1e-5             # f32: absolute, the sums only reorder
+F32_GRAD_TOL = 1e-5        # f32 gradients: relative to max |reference grad|
 BF16_TOL = 2e-2            # bf16: relative to max |reference output|
 
 
@@ -239,8 +255,123 @@ def check_decode(attn, dev) -> dict:
     return head
 
 
+def check_flash_bwd(attn, dev) -> tuple:
+    """The backward's dq and dk/dv kernels at the training shapes (b=2,
+    h=32, h_kv=8, d=128, causal); returns the JSON entries of both at the
+    headline case (bf16, t=2048)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, h, hkv, d = 2, 32, 8, 128
+    cases = [dict(tq=t, tk=t) for t in (37, 512, 2048)]
+    cases.append(dict(tq=256, tk=1280))
+    cases.append(dict(tq=512, tk=512, seg=True))
+    cases.append(dict(tq=512, tk=512, f32=True))
+    heads = None
+    for case in cases:
+        tq, tk = case["tq"], case["tk"]
+        dtype = torch.float32 if case.get("f32") else torch.bfloat16
+        q, do = (torch.randn(b, h, tq, d, generator=gen, device=dev
+                             ).to(dtype) for _ in range(2))
+        k, v = (torch.randn(b, hkv, tk, d, generator=gen, device=dev
+                            ).to(dtype) for _ in range(2))
+        kw = dict(causal=True)
+        if case.get("seg"):
+            # Two packed segments; the last 6 query rows carry an id no
+            # key has (DEAD rows: dq exactly 0) and the last 4 keys an id
+            # no query has (dk, dv exactly 0).
+            qs = torch.zeros(b, tq, dtype=torch.int32, device=dev)
+            qs[:, 256:] = 1
+            qs[:, -6:] = 7
+            ks = torch.zeros(b, tk, dtype=torch.int32, device=dev)
+            ks[:, 256:] = 1
+            ks[:, -4:] = 8
+            kw.update(segment_ids=qs, kv_segment_ids=ks)
+        o, lse = attn.flash_attention(q, k, v, return_lse=True, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, lse, delta)
+        got = (attn.flash_backward_dq(*args, **kw),
+               *attn.flash_backward_dkv(*args, **kw))
+        want = (attn.flash_backward_dq(*args, force_reference=True, **kw),
+                *attn.flash_backward_dkv(*args, force_reference=True, **kw))
+        torch.cuda.synchronize()
+        rel = F32_GRAD_TOL if dtype == torch.float32 else BF16_TOL
+        errs, tols = [], []
+        ok = True
+        for g, w in zip(got, want):
+            errs.append((g.float() - w.float()).abs().max().item())
+            tols.append(rel * w.float().abs().max().item())
+            ok = ok and errs[-1] <= tols[-1] and bool(
+                torch.isfinite(g.float()).all())
+        if case.get("seg"):
+            ok = ok and got[0][:, :, -6:].abs().max().item() == 0.0 and \
+                max(x[:, :, -4:].abs().max().item() for x in got[1:]) == 0.0
+        rec = {"phase": "kernel", "kernel": "flash_bwd",
+               "dtype": str(dtype).replace("torch.", ""), "tq": tq,
+               "tk": tk, "segments": bool(case.get("seg")),
+               "max_abs_err": dict(zip(("dq", "dk", "dv"), errs)),
+               "tol": dict(zip(("dq", "dk", "dv"), tols)), "ok": ok}
+        if dtype == torch.bfloat16 and tq == tk == 2048:
+            rec["timing"], heads = time_flash_bwd(attn, args, errs)
+        log(rec)
+        if not ok:
+            raise AssertionError(f"flash_bwd disagrees: {rec}")
+        del q, k, v, do, o, lse, delta, args, got, want
+    return heads
+
+
+def time_flash_bwd(attn, args, errs) -> tuple:
+    """Kernel, plain and bound times of dq and dk/dv at the headline
+    shape, and the library yardstick: the backward of one SDPA call
+    (``autograd.grad`` of its output, forward timed apart and
+    subtracted), which computes dq, dk and dv together."""
+    q, k, v, do, lse, delta = args
+    b, h, t, d = q.shape
+    hkv = k.shape[1]
+    esz = q.element_size()
+    stats = 2 * 4 * b * h * t                       # lse + delta, f32
+    ms_dq = time_ms(lambda: attn.flash_backward_dq(*args, causal=True),
+                    reps=10)
+    ms_dkv = time_ms(lambda: attn.flash_backward_dkv(*args, causal=True),
+                     reps=10)
+    plain_dq = time_ms(lambda: attn.flash_backward_dq(
+        *args, causal=True, force_reference=True), reps=3, warmup=1)
+    plain_dkv = time_ms(lambda: attn.flash_backward_dkv(
+        *args, causal=True, force_reference=True), reps=3, warmup=1)
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                              enable_gqa=True)
+
+    fwd = time_ms(sdpa)
+    both = time_ms(lambda: torch.autograd.grad(sdpa(), (qr, kr, vr), do))
+    lib = both - fwd
+    # dq reads q, dO, k, v, lse, delta and writes dq; dk/dv reads the same
+    # and writes dk, dv.
+    q_bytes = (3 * b * h * t * d + 2 * b * hkv * t * d) * esz + stats
+    kv_bytes = (2 * b * h * t * d + 4 * b * hkv * t * d) * esz + stats
+    b_dq, by_dq = bound_ms(attn.attention_flops(b, h, t, t, d, True, 3),
+                           q_bytes)
+    b_dkv, by_dkv = bound_ms(attn.attention_flops(b, h, t, t, d, True, 4),
+                             kv_bytes)
+    src = "horovod_tpu_torch/ops/csrc/flash_bwd.cu"
+    entries = (
+        {"name": "flash_bwd_dq", "route": "cuda", "source": src,
+         "replaces": "horovod_tpu/ops/attention.py:622",
+         "max_abs_err": errs[0], "ms": ms_dq, "plain_ms": plain_dq,
+         "bound_ms": b_dq, "bound_by": by_dq, "library_ms": lib},
+        {"name": "flash_bwd_dkv", "route": "cuda", "source": src,
+         "replaces": "horovod_tpu/ops/attention.py:655",
+         "max_abs_err": max(errs[1:]), "ms": ms_dkv, "plain_ms": plain_dkv,
+         "bound_ms": b_dkv, "bound_by": by_dkv, "library_ms": lib})
+    timing = {"dq_ms": ms_dq, "dkv_ms": ms_dkv, "plain_dq_ms": plain_dq,
+              "plain_dkv_ms": plain_dkv, "sdpa_fwd_ms": fwd,
+              "sdpa_fwd_bwd_ms": both, "library_bwd_ms": lib,
+              "bound_dq_ms": b_dq, "bound_dkv_ms": b_dkv}
+    return timing, entries
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: the slice end to end
+# Phase 4: the serving slice end to end
 # ---------------------------------------------------------------------------
 
 
@@ -306,6 +437,166 @@ def serve_llama(dev, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phases 5-6: the training slice
+# ---------------------------------------------------------------------------
+
+
+def free_device() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lora_model(cfg, dev, seed: int, nonzero_b: bool):
+    """Llama at ``cfg`` with random bf16 base weights and f32 LoRA rank-8
+    adapters from ``seed``; ``nonzero_b`` draws ``lora_b`` too (else zero,
+    the standard init).  The base is frozen."""
+    from horovod_tpu_torch.models import (LlamaLM, freeze_base,
+                                          init_llama_params)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_llama_params(cfg, generator=gen, dtype=torch.bfloat16,
+                               device=dev, lora_rank=8)
+    if nonzero_b:
+        for name, t in params.items():
+            if name.endswith(".lora_b"):
+                t.normal_(0.0, 0.02, generator=gen)
+    model = LlamaLM.from_params(cfg, params, dtype=torch.bfloat16,
+                                lora_rank=8)
+    return model, freeze_base(model)
+
+
+def batch(cfg, dev, seed: int) -> torch.Tensor:
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 2048))).to(
+        dev)
+
+
+def check_grad(dev) -> None:
+    """One loss and backward at full width, 2 layers, through the kernels
+    and through the plain attention."""
+    from horovod_tpu_torch.models import LLAMA3_8B
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.training import next_token_loss
+
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=2)
+    model, named = lora_model(cfg, dev, seed=4, nonzero_b=True)
+    tokens = batch(cfg, dev, seed=1)
+    runs = []
+    for ref in (False, True):
+        model.zero_grad(set_to_none=True)
+        registry.reset_launch_counts()
+        loss = next_token_loss(model(tokens, force_reference=ref), tokens)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append((loss.item(), {n: p.grad.float().clone()
+                                   for n, p in named},
+                     registry.launch_counts()))
+    (loss_k, g_k, c_k), (loss_r, g_r, c_r) = runs
+    worst = max(((g_k[n] - g_r[n]).abs().max().item()
+                 / max(g_r[n].abs().max().item(), 1e-30), n) for n in g_r)
+    loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+    ok = (loss_rel <= 1e-2 and worst[0] <= BF16_TOL
+          and all(torch.isfinite(g).all() for g in g_k.values())
+          and all(c_k[f] == cfg.num_layers for f in
+                  ("flash", "flash_bwd_dq", "flash_bwd_dkv"))
+          and not any(c_r.values()))
+    log({"phase": "grad", "layers": cfg.num_layers, "lora_rank": 8,
+         "tensors": len(g_r), "loss": loss_k, "loss_plain": loss_r,
+         "loss_rel_err": loss_rel, "worst_grad_rel_err": worst[0],
+         "worst_grad": worst[1], "tol": BF16_TOL, "launches": c_k,
+         "launches_plain": c_r, "ok": ok})
+    if not ok:
+        raise AssertionError("LoRA gradients through the kernels disagree "
+                             "with the plain attention")
+    del model, named, g_k, g_r
+
+
+def train_llama(dev, card: str) -> dict:
+    """Full-depth Llama-3 8B LoRA fine-tune through the port's Horovod
+    path; returns the kernels' launch counts over the timed steps."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.controller.fusion import plan_buckets
+    from horovod_tpu_torch.models import LLAMA3_8B
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.timeline.metrics import exchange_totals
+    from horovod_tpu_torch.training import causal_lm_loss, make_train_step
+
+    cfg, steps = LLAMA3_8B, 5
+    hvd.init()
+    t0 = time.perf_counter()
+    model, named = lora_model(cfg, dev, seed=0, nonzero_b=False)
+    torch.cuda.synchronize()
+    base = {n: p for n, p in model.named_parameters() if not p.requires_grad}
+    base_host = {n: p.detach().to("cpu") for n, p in base.items()}
+    lora_before = {n: p.detach().clone() for n, p in named}
+    log({"phase": "train_init", "config": "LLAMA3_8B",
+         "layers": cfg.num_layers, "seconds": time.perf_counter() - t0,
+         "world": hvd.size(),
+         "backend": torch.distributed.get_backend(),
+         "base_bytes": sum(p.numel() * p.element_size()
+                           for p in base.values()),
+         "trainable_tensors": len(named),
+         "trainable_values": sum(p.numel() for _, p in named)})
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW([p for _, p in named], lr=1e-3,
+                          weight_decay=1e-4),
+        named_parameters=named, compression=hvd.Compression.bf16)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    step = make_train_step(model, causal_lm_loss, opt)
+    tokens = batch(cfg, dev, seed=0)
+
+    losses = [step(tokens).item()]                  # warm-up
+    planned = len(plan_buckets([p for _, p in named], 64 * 1024 * 1024,
+                               reverse=True).buffers)
+    before = exchange_totals()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(step(tokens).item())
+        times.append(time.perf_counter() - t)
+    counts = registry.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: (v - before[k]) / steps
+                for k, v in exchange_totals().items()}
+    step_ms = 1e3 * sum(times) / steps
+    changed = sum(not torch.equal(p, lora_before[n]) for n, p in named)
+    base_same = sum(torch.equal(p.detach().cpu(), base_host[n])
+                    for n, p in base.items())
+    log({"phase": "train", "card": card, "steps": steps, "batch": [2, 2048],
+         "losses": losses, "step_ms": step_ms,
+         "step_ms_each": [1e3 * x for x in times],
+         "tokens_per_s": 2 * 2048 / (step_ms / 1e3),
+         "peak_mem_bytes": peak, "exchange_per_step": per_step,
+         "plan_buckets": planned, "launches": counts,
+         "lora_changed": changed, "lora_tensors": len(named),
+         "base_unchanged": base_same, "base_tensors": len(base)})
+    want = cfg.num_layers * steps
+    fails = []
+    if not all(np.isfinite(losses)):
+        fails.append("a loss is not finite")
+    if not losses[-1] < losses[0]:
+        fails.append(f"loss did not fall: {losses}")
+    if changed != len(named):
+        fails.append(f"{len(named) - changed} LoRA tensors unchanged")
+    if base_same != len(base):
+        fails.append(f"{len(base) - base_same} base tensors changed")
+    for f in ("flash", "flash_bwd_dq", "flash_bwd_dkv"):
+        if counts[f] != want:
+            fails.append(f"{f} launches {counts[f]} != {want}")
+    if per_step["buckets"] != planned or per_step["handles"] != planned:
+        fails.append(f"buckets/handles per step {per_step} != planned "
+                     f"{planned}")
+    if fails:
+        raise AssertionError("train: " + "; ".join(fails))
+    hvd.shutdown()
+    del model, named, opt, step, base, base_host, lora_before
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -327,13 +618,23 @@ def main() -> int:
 
     flash = check_flash(attn, dev)
     decode = check_decode(attn, dev)
-    counts = serve_llama(dev, card)
-    flash["launches"] = counts["flash"]
-    decode["launches"] = counts["flash_decode"]
+    dq, dkv = check_flash_bwd(attn, dev)
+    free_device()
+    serve = serve_llama(dev, card)
+    free_device()
+    check_grad(dev)
+    free_device()
+    train = train_llama(dev, card)
+    # The flash forward runs on both paths: its launches are the sum.
+    flash["launches"] = serve["flash"] + train["flash"]
+    decode["launches"] = serve["flash_decode"]
+    dq["launches"] = train["flash_bwd_dq"]
+    dkv["launches"] = train["flash_bwd_dkv"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    log({"kernels": [{k: e[k] for k in keys} for e in (flash, decode)]})
+    log({"kernels": [{k: e[k] for k in keys}
+                     for e in (flash, decode, dq, dkv)]})
     print(card, flush=True)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                 "count": torch.cuda.device_count()}})

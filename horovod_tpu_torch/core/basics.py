@@ -1,0 +1,150 @@
+"""Lifecycle and identity: ``init/shutdown/rank/size/...``.
+
+Counterpart of ``horovod_tpu/core/basics.py``, over ``torch.distributed``
+instead of a JAX mesh: one process is one rank and drives one device.
+NCCL carries the collectives when the device is CUDA (the default), gloo
+when the caller asks for the CPU.
+
+``init()`` takes its world from, in order: a process group the caller
+already initialized; an explicit ``store`` (e.g. a ``FileStore``) with
+``rank`` and ``size``; the launcher's environment (``HOROVOD_RANK`` /
+``HOROVOD_SIZE``, else torchrun's ``RANK`` / ``WORLD_SIZE``, meeting at
+``MASTER_ADDR``/``MASTER_PORT``).  With none of these it is a world of
+size 1, as Horovod's is, rendezvousing through an in-process
+``HashStore`` (no port is opened).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Union
+
+import torch
+import torch.distributed as dist
+
+from .config import load_config
+from .device import resolve_device
+from .exceptions import NotInitializedError
+from .state import global_state
+
+
+def _first(*vals: int) -> int:
+    """The first value that is set (>= 0), else -1."""
+    for v in vals:
+        if v is not None and v >= 0:
+            return int(v)
+    return -1
+
+
+def _os_int(name: str) -> int:
+    v = os.environ.get(name, "")
+    return int(v) if v.strip() else -1
+
+
+def init(*, device: Optional[Union[str, torch.device]] = None,
+         store=None, rank: Optional[int] = None,
+         size: Optional[int] = None) -> None:
+    """Initialize the framework (``hvd.init()`` parity).
+
+    ``device`` is where this rank's tensors live: ``cuda`` unless the
+    caller asks for ``"cpu"`` (with no GPU and no explicit CPU, it
+    raises).  On CUDA the device is ``cuda:<local_rank>`` and the
+    backend NCCL; on the CPU, gloo.  ``store`` with ``rank`` and
+    ``size`` names a world explicitly.
+    """
+    st = global_state()
+    with st.lock:
+        if st.initialized:
+            return
+        cfg = load_config()
+        dev = resolve_device(device)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        local_rank = _first(cfg.env_local_rank, _os_int("LOCAL_RANK"), 0)
+        if dev.type == "cuda":
+            if dev.index is None:
+                dev = torch.device("cuda",
+                                   local_rank % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        owns = False
+        if dist.is_initialized():
+            r, n = dist.get_rank(), dist.get_world_size()
+        else:
+            r = _first(rank, cfg.env_rank, _os_int("RANK"))
+            n = _first(size, cfg.env_size, _os_int("WORLD_SIZE"))
+            if store is None and n in (-1, 1):
+                r, n, store = 0, 1, dist.HashStore()
+            if r < 0 or n < 1:
+                raise ValueError(f"init: rank {r} / size {n} not given")
+            kw = {"store": store} if store is not None else \
+                {"init_method": "env://"}
+            dist.init_process_group(backend, rank=r, world_size=n, **kw)
+            owns = True
+        st.config = cfg
+        st.device = dev
+        st.rank, st.size = r, n
+        st.local_rank = local_rank
+        st.local_size = _first(cfg.env_local_size,
+                               _os_int("LOCAL_WORLD_SIZE"), n)
+        st.cross_rank = _first(cfg.env_cross_rank, r // max(st.local_size,
+                                                            1))
+        st.cross_size = _first(cfg.env_cross_size,
+                               -(-n // max(st.local_size, 1)))
+        st.owns_group = owns
+        st.initialized = True
+
+
+def shutdown() -> None:
+    """Tear down framework state (``hvd.shutdown()`` parity); destroys
+    the process group if ``init()`` created it."""
+    st = global_state()
+    with st.lock:
+        if not st.initialized:
+            return
+        owns = st.owns_group
+        st.reset()
+    if owns and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def is_initialized() -> bool:
+    return global_state().initialized
+
+
+def _require_init():
+    st = global_state()
+    if not st.initialized:
+        raise NotInitializedError()
+    return st
+
+
+def size() -> int:
+    """Number of ranks (one device each)."""
+    return _require_init().size
+
+
+def rank() -> int:
+    return _require_init().rank
+
+
+def local_rank() -> int:
+    return _require_init().local_rank
+
+
+def local_size() -> int:
+    return _require_init().local_size
+
+
+def cross_rank() -> int:
+    return _require_init().cross_rank
+
+
+def cross_size() -> int:
+    return _require_init().cross_size
+
+
+def nccl_built() -> bool:
+    return bool(dist.is_available() and dist.is_nccl_available())
+
+
+def cuda_built() -> bool:
+    return torch.version.cuda is not None

@@ -4,10 +4,13 @@ Counterpart of ``horovod_tpu/core/config.py`` (``_env``/``_env_int``/
 ``_env_bool``): both the historical ``HOROVOD_*`` names and the
 ``HVD_TPU_*`` overrides are honoured, the latter winning when both are
 set, so one environment drives either package identically.
+:class:`Config` is the subset of the JAX package's ``Config`` that the
+training path reads.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -31,3 +34,40 @@ def _env_bool(name: str, default: bool = False) -> bool:
     if v in (None, ""):
         return default
     return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+_MiB = 1024 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """The runtime knobs the training path reads (a subset of the JAX
+    package's ``Config``, same names and defaults)."""
+
+    # Gradient bucketing threshold in bytes (HOROVOD_FUSION_THRESHOLD,
+    # default 64 MiB, as in the reference).
+    fusion_threshold: int = 64 * _MiB
+    # Bound on the bucket-plan LRU (HOROVOD_CACHE_CAPACITY).
+    cache_capacity: int = 1024
+    # Launcher-provided identity (HOROVOD_RANK / _SIZE / _LOCAL_RANK /
+    # _LOCAL_SIZE / _CROSS_RANK / _CROSS_SIZE); -1 = not set.
+    env_rank: int = -1
+    env_size: int = -1
+    env_local_rank: int = -1
+    env_local_size: int = -1
+    env_cross_rank: int = -1
+    env_cross_size: int = -1
+
+
+def load_config() -> Config:
+    """A :class:`Config` from the environment."""
+    return Config(
+        fusion_threshold=_env_int("FUSION_THRESHOLD", 64 * _MiB),
+        cache_capacity=_env_int("CACHE_CAPACITY", 1024),
+        env_rank=_env_int("RANK", -1),
+        env_size=_env_int("SIZE", -1),
+        env_local_rank=_env_int("LOCAL_RANK", -1),
+        env_local_size=_env_int("LOCAL_SIZE", -1),
+        env_cross_rank=_env_int("CROSS_RANK", -1),
+        env_cross_size=_env_int("CROSS_SIZE", -1),
+    )

@@ -4,7 +4,9 @@ A flax ``LlamaLM`` param tree (``{"params": {"layer_0": {"attn": {"wq":
 {"kernel": ...}}}, "tok_embed": ..., "final_norm": {"scale": ...}}}``),
 given as numpy arrays, becomes the port's flat ``{dotted name: tensor}``
 dict.  Both sides keep ``Dense`` kernels ``[in, out]``, so the
-conversion is a rename: no transpose, no reshape.
+conversion is a rename: no transpose, no reshape.  A LoRA model's
+``lora_a`` ``[in, r]`` / ``lora_b`` ``[r, out]`` leaves carry across the
+same way, under ``...wq.lora_a`` etc., and stay f32.
 """
 
 from __future__ import annotations

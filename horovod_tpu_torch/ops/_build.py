@@ -34,17 +34,19 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
 
-# C entry point per source: (symbol, argtypes).  Every pointer and the
-# stream are c_void_p (ctypes would cut a Python int to 32 bits).
-SIGNATURES = {
-    "flash_fwd": ("hvd_flash_fwd", [
+# C entry points: name -> (source, symbol, argtypes).  A source may
+# export several entry points (``flash_bwd.cu``: dq and dk/dv).  Every
+# pointer and the stream are c_void_p (ctypes would cut a Python int to
+# 32 bits).
+ENTRIES = {
+    "flash_fwd": ("flash_fwd", "hvd_flash_fwd", [
         _P, _P, _P,          # q, k, v
         _P, _P,              # q/kv segment ids (int32) or NULL
         _P, _P,              # o, lse
         _I, _I, _I, _I, _I, _I,   # b, h, h_kv, tq, tk, d
         _I, _I, _F,          # dtype (0 f32, 1 bf16), causal, scale
         _P]),                # stream
-    "flash_decode": ("hvd_flash_decode", [
+    "flash_decode": ("flash_decode", "hvd_flash_decode", [
         _P, _P, _P,          # q, k, v
         _P, _P,              # page_table (int32) or NULL, lengths (int32)
         _P, _P, _P, _P,      # o, m/l/acc partials (f32 scratch)
@@ -54,7 +56,26 @@ SIGNATURES = {
         _I, _I,              # splits, keys per split
         _I, _F,              # dtype, scale
         _P]),                # stream
+    "flash_bwd_dq": ("flash_bwd", "hvd_flash_bwd_dq", [
+        _P, _P, _P, _P,      # q, k, v, dO
+        _P, _P,              # lse, delta (f32)
+        _P, _P,              # q/kv segment ids (int32) or NULL
+        _P,                  # dq
+        _I, _I, _I, _I, _I, _I,   # b, h, h_kv, tq, tk, d
+        _I, _I, _F,          # dtype, causal, scale
+        _P]),                # stream
+    "flash_bwd_dkv": ("flash_bwd", "hvd_flash_bwd_dkv", [
+        _P, _P, _P, _P,      # q, k, v, dO
+        _P, _P,              # lse, delta (f32)
+        _P, _P,              # q/kv segment ids (int32) or NULL
+        _P, _P,              # dk, dv
+        _I, _I, _I, _I, _I, _I,   # b, h, h_kv, tq, tk, d
+        _I, _I, _F,          # dtype, causal, scale
+        _P]),                # stream
 }
+
+# The sources, in the order they are first named above.
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in ENTRIES.values()))
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -96,7 +117,7 @@ def build_all() -> float:
         os.makedirs(BUILD_DIR, exist_ok=True)
         t0 = time.perf_counter()
         procs = []
-        for name in SIGNATURES:
+        for name in SOURCES:
             out = library_path(name)
             if os.path.exists(out):
                 continue
@@ -119,7 +140,7 @@ def build_all() -> float:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu`` (built on first use),
-    with ``argtypes``/``restype`` set on its entry point."""
+    with ``argtypes``/``restype`` set on each of its entry points."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
@@ -130,14 +151,16 @@ def library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(path)
-            sym, argtypes = SIGNATURES[name]
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for src, sym, argtypes in ENTRIES.values():
+                if src == name:
+                    fn = getattr(lib, sym)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             _libs[name] = lib
     return lib
 
 
 def entry(name: str):
-    """The C entry point of ``csrc/<name>.cu``."""
-    return getattr(library(name), SIGNATURES[name][0])
+    """The C entry point ``name`` of :data:`ENTRIES`."""
+    src, sym, _ = ENTRIES[name]
+    return getattr(library(src), sym)

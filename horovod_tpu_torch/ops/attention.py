@@ -22,9 +22,15 @@ Kernels (``ops/csrc``):
   ``_flash_fwd``.  Every sequence length goes through it: the kernel
   masks the ragged edge itself, so the JAX dispatcher's fallback to the
   reference for lengths with no 8-multiple block divisor (a 37-token
-  prompt) has no counterpart here.  Forward only: a CUDA call on
-  inputs that require grad raises (the backward kernels are a later
-  slice).
+  prompt) has no counterpart here.
+* ``flash_bwd.cu`` -- :func:`flash_attention`'s backward, replacing
+  ``_flash_bwd``: :func:`flash_backward_dq` (``_dq_kernel``) and
+  :func:`flash_backward_dkv` (``_dkv_kernel``, with the GQA group sum
+  inside the kernel).  ``delta = rowsum(dO * O)`` is plain PyTorch, as
+  the JAX package computes it outside Pallas.  The autograd function
+  around :func:`flash_attention` saves ``q, k, v, o, lse`` and the
+  segment ids; its backward runs the kernels on CUDA tensors and
+  :func:`flash_attention_backward_reference` on CPU tensors.
 * ``flash_decode.cu`` -- :func:`paged_decode_attention` (reads K/V
   through the page table) and :func:`decode_attention` (contiguous
   cache view), replacing ``_flash_decode``.
@@ -163,11 +169,6 @@ def _raise_on_error(name: str, err: int) -> None:
 
 def _flash_fwd_cuda(q, k, v, qseg, kseg, *, scale: float, causal: bool):
     """Kernel A: ``(o, lse)`` for CUDA tensors."""
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_attention on CUDA is forward only: the backward kernels "
-            "(horovod_tpu/ops/attention.py::_flash_bwd, dq and dk/dv) are "
-            "ported in a later slice; use force_reference=True for autograd")
     _check_cuda("flash_attention", q.device, q.dtype, q, k, v)
     _check_kv("flash_attention", q, k, v, kv_batch_dim=0)
     b, h, tq, d = q.shape
@@ -193,20 +194,63 @@ def _flash_fwd_cuda(q, k, v, qseg, kseg, *, scale: float, causal: bool):
     return o, lse
 
 
-def flash_attention(q, k, v, *, causal: bool = False,
-                    scale: Optional[float] = None,
-                    segment_ids=None, kv_segment_ids=None,
-                    force_reference: bool = False,
-                    return_lse: bool = False):
-    """Fused attention forward. q: (b, h, t, d); k, v: (b, h_kv, s, d).
+def _flash_forward(q, k, v, qseg, kseg, *, scale, causal):
+    if q.device.type == "cpu":
+        kr, vr = _repeat_kv(q, k, v)
+        return _reference(q, kr, vr, causal=causal, scale=scale,
+                          segment_ids=qseg, kv_segment_ids=kseg)
+    if q.device.type == "cuda":
+        return _flash_fwd_cuda(q, k, v, qseg, kseg, scale=scale,
+                               causal=causal)
+    raise ValueError(f"flash_attention: unsupported device {q.device}")
 
-    ``causal=True`` requires ``t <= s`` and masks bottom-right aligned.
-    ``segment_ids`` (``(b, t)`` int) restricts each query to keys with an
-    equal id; ``kv_segment_ids`` (``(b, s)``) defaults to it when
-    ``t == s``.  ``return_lse=True`` also returns the f32 logsumexp
-    ``(b, h, t)`` (``+1e30`` on dead rows), the residual the backward
-    kernels will read.
-    """
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward by kernel A (plain on the CPU); backward by the dq and
+    dk/dv kernels (plain on the CPU), from the saved ``lse``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qseg, kseg, scale, causal):
+        o, lse = _flash_forward(q, k, v, qseg, kseg, scale=scale,
+                                causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse, qseg, kseg)
+        ctx.scale, ctx.causal = scale, causal
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse, qseg, kseg = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
+            scale=ctx.scale, segment_ids=qseg, kv_segment_ids=kseg)
+        return dq, dk, dv, None, None, None, None
+
+
+def _normalize_segments(q, k, segment_ids, kv_segment_ids):
+    """Validated int32 ``(segment_ids, kv_segment_ids)``, or Nones."""
+    tq, tk = q.shape[2], k.shape[2]
+    if segment_ids is None:
+        if kv_segment_ids is not None:
+            raise ValueError("kv_segment_ids given without segment_ids")
+        return None, None
+    if kv_segment_ids is None:
+        if tq != tk:
+            raise ValueError(
+                f"kv_segment_ids is required when tq != tk "
+                f"({tq} != {tk})")
+        kv_segment_ids = segment_ids
+    if tuple(segment_ids.shape) != (q.shape[0], tq):
+        raise ValueError(f"segment_ids must be (batch, {tq}), got "
+                         f"{tuple(segment_ids.shape)}")
+    if tuple(kv_segment_ids.shape) != (q.shape[0], tk):
+        raise ValueError(f"kv_segment_ids must be (batch, {tk}), got "
+                         f"{tuple(kv_segment_ids.shape)}")
+    return (segment_ids.to(torch.int32).contiguous(),
+            kv_segment_ids.to(torch.int32).contiguous())
+
+
+def _check_shapes(q, k, causal):
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"query heads {q.shape[1]} not a multiple of "
                          f"kv heads {k.shape[1]}")
@@ -214,38 +258,190 @@ def flash_attention(q, k, v, *, causal: bool = False,
         raise ValueError(
             f"causal attention requires tq <= tk, got {q.shape[2]} > "
             f"{k.shape[2]}")
+
+
+def flash_attention(q, k, v, *, causal: bool = False,
+                    scale: Optional[float] = None,
+                    segment_ids=None, kv_segment_ids=None,
+                    force_reference: bool = False,
+                    return_lse: bool = False):
+    """Fused attention. q: (b, h, t, d); k, v: (b, h_kv, s, d).
+
+    ``causal=True`` requires ``t <= s`` and masks bottom-right aligned.
+    ``segment_ids`` (``(b, t)`` int) restricts each query to keys with an
+    equal id; ``kv_segment_ids`` (``(b, s)``) defaults to it when
+    ``t == s``.  ``return_lse=True`` also returns the f32 logsumexp
+    ``(b, h, t)`` (``+1e30`` on dead rows), the residual the backward
+    reads.  Differentiable in ``q, k, v``: the backward runs the dq and
+    dk/dv kernels on CUDA tensors; ``force_reference=True`` runs plain
+    attention under autograd instead.
+    """
+    _check_shapes(q, k, causal)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    tq, tk = q.shape[2], k.shape[2]
-    if segment_ids is not None:
-        if kv_segment_ids is None:
-            if tq != tk:
-                raise ValueError(
-                    f"kv_segment_ids is required when tq != tk "
-                    f"({tq} != {tk})")
-            kv_segment_ids = segment_ids
-        if tuple(segment_ids.shape) != (q.shape[0], tq):
-            raise ValueError(f"segment_ids must be (batch, {tq}), got "
-                             f"{tuple(segment_ids.shape)}")
-        if tuple(kv_segment_ids.shape) != (q.shape[0], tk):
-            raise ValueError(f"kv_segment_ids must be (batch, {tk}), got "
-                             f"{tuple(kv_segment_ids.shape)}")
-        segment_ids = segment_ids.to(torch.int32).contiguous()
-        kv_segment_ids = kv_segment_ids.to(torch.int32).contiguous()
-    elif kv_segment_ids is not None:
-        raise ValueError("kv_segment_ids given without segment_ids")
-
-    if force_reference or q.device.type == "cpu":
+    segment_ids, kv_segment_ids = _normalize_segments(
+        q, k, segment_ids, kv_segment_ids)
+    if force_reference:
         kr, vr = _repeat_kv(q, k, v)
         o, lse = _reference(q, kr, vr, causal=causal, scale=scale,
                             segment_ids=segment_ids,
                             kv_segment_ids=kv_segment_ids)
-    elif q.device.type == "cuda":
-        o, lse = _flash_fwd_cuda(q, k, v, segment_ids, kv_segment_ids,
-                                 scale=float(scale), causal=bool(causal))
     else:
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+        o, lse = _FlashAttention.apply(q, k, v, segment_ids, kv_segment_ids,
+                                       float(scale), bool(causal))
     return (o, lse) if return_lse else o
+
+
+# ---------------------------------------------------------------------------
+# Flash attention backward
+# ---------------------------------------------------------------------------
+
+
+def _bwd_probs(q, k, v, do, lse, delta, *, causal, scale, segment_ids,
+               kv_segment_ids):
+    """Plain ``(p, ds)`` per query head, f32 ``(b, h, tq, tk)``, and the
+    repeated K/V: ``p = exp(s * scale - lse)`` on live pairs, 0 on masked
+    ones (and on dead rows, whose ``lse`` is +1e30)."""
+    kr, vr = _repeat_kv(q, k, v)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * scale
+    tq, tk = s.shape[-2], s.shape[-1]
+    live = None
+    if causal:
+        live = torch.ones(tq, tk, dtype=torch.bool,
+                          device=q.device).tril(diagonal=tk - tq)
+    if segment_ids is not None:
+        seg = segment_ids[:, None, :, None] == kv_segment_ids[:, None, None, :]
+        live = seg if live is None else live & seg
+    p = torch.exp(s - lse[..., None])
+    if live is not None:
+        p = torch.where(live, p, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), vr.float())
+    ds = p * (dp - delta[..., None]) * scale
+    return p, ds, kr, vr
+
+
+def _group_sum(x, h_kv):
+    """``(b, h, t, d)`` per query head -> ``(b, h_kv, t, d)``."""
+    b, h, t, d = x.shape
+    return x.view(b, h_kv, h // h_kv, t, d).sum(2)
+
+
+def _bwd_cuda_args(name, q, k, v, do, lse, delta, qseg, kseg):
+    _check_cuda(name, q.device, q.dtype, q, k, v, do)
+    _check_kv(name, q, k, v, kv_batch_dim=0)
+    b, h, tq, d = q.shape
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} not in {_HEAD_DIMS}")
+    if tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"{name}: dO {tuple(do.shape)} != q "
+                         f"{tuple(q.shape)}")
+    for nm, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or t.device != q.device
+                or tuple(t.shape) != (b, h, tq) or not t.is_contiguous()):
+            raise ValueError(f"{name}: {nm} must be contiguous f32 "
+                             f"{(b, h, tq)} on {q.device}")
+    tk = k.shape[2]
+    if qseg is not None:
+        _check_index("segment_ids", qseg, q.device, (b, tq))
+        _check_index("kv_segment_ids", kseg, q.device, (b, tk))
+    return [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            None if qseg is None else qseg.data_ptr(),
+            None if kseg is None else kseg.data_ptr()]
+
+
+def _bwd_dims(q, k, causal, scale):
+    b, h, tq, d = q.shape
+    return [b, h, k.shape[1], tq, k.shape[2], d, _DTYPES[q.dtype],
+            int(causal), float(scale), _stream(q)]
+
+
+def flash_backward_dq(q, k, v, do, lse, delta, *, causal: bool = False,
+                      scale: Optional[float] = None, segment_ids=None,
+                      kv_segment_ids=None, force_reference: bool = False):
+    """``dq = sum_k ds K`` in q's dtype.  ``lse`` is the forward's f32
+    logsumexp and ``delta = rowsum(dO * O)`` (both ``(b, h, tq)`` f32);
+    segment ids as normalized by :func:`flash_attention` (int32)."""
+    _check_shapes(q, k, causal)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if force_reference or q.device.type == "cpu":
+        _, ds, kr, _ = _bwd_probs(q, k, v, do, lse, delta, causal=causal,
+                                  scale=scale, segment_ids=segment_ids,
+                                  kv_segment_ids=kv_segment_ids)
+        return torch.einsum("bhqk,bhkd->bhqd", ds, kr.float()).to(q.dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_backward_dq: unsupported device {q.device}")
+    args = _bwd_cuda_args("flash_backward_dq", q, k, v, do, lse, delta,
+                          segment_ids, kv_segment_ids)
+    dq = torch.empty_like(q)
+    err = entry("flash_bwd_dq")(*args, dq.data_ptr(),
+                                *_bwd_dims(q, k, causal, scale))
+    _raise_on_error("flash_bwd_dq", err)
+    registry.note_launch("flash_bwd_dq")
+    return dq
+
+
+def flash_backward_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
+                       scale: Optional[float] = None, segment_ids=None,
+                       kv_segment_ids=None, force_reference: bool = False):
+    """``(dk, dv)`` in k's dtype: ``dv = sum_q p^T dO``, ``dk = sum_q
+    ds^T Q``, summed over the query heads of each GQA group."""
+    _check_shapes(q, k, causal)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if force_reference or q.device.type == "cpu":
+        p, ds, _, _ = _bwd_probs(q, k, v, do, lse, delta, causal=causal,
+                                 scale=scale, segment_ids=segment_ids,
+                                 kv_segment_ids=kv_segment_ids)
+        h_kv = k.shape[1]
+        dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+        dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
+        return (_group_sum(dk, h_kv).to(k.dtype),
+                _group_sum(dv, h_kv).to(v.dtype))
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"flash_backward_dkv: unsupported device {q.device}")
+    args = _bwd_cuda_args("flash_backward_dkv", q, k, v, do, lse, delta,
+                          segment_ids, kv_segment_ids)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = entry("flash_bwd_dkv")(*args, dk.data_ptr(), dv.data_ptr(),
+                                 *_bwd_dims(q, k, causal, scale))
+    _raise_on_error("flash_bwd_dkv", err)
+    registry.note_launch("flash_bwd_dkv")
+    return dk, dv
+
+
+def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = False,
+                             scale: Optional[float] = None,
+                             segment_ids=None, kv_segment_ids=None,
+                             force_reference: bool = False):
+    """``(dq, dk, dv)`` of :func:`flash_attention` from its saved ``o`` and
+    ``lse``: ``delta = rowsum(dO * O)`` in f32, then the dq and dk/dv
+    kernels (their plain versions on the CPU or with
+    ``force_reference``)."""
+    delta = (do.float() * o.float()).sum(-1)
+    kw = dict(causal=causal, scale=scale, segment_ids=segment_ids,
+              kv_segment_ids=kv_segment_ids,
+              force_reference=force_reference)
+    dq = flash_backward_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, *,
+                                       causal: bool = False,
+                                       scale: Optional[float] = None,
+                                       segment_ids=None,
+                                       kv_segment_ids=None):
+    """Plain ``(dq, dk, dv)`` from the saved ``lse``, by the kernels'
+    formula (``_flash_bwd``'s): ``p = exp(s * scale - lse)``, ``ds = p *
+    (dO V^T - delta) * scale``; dead rows (``lse = +1e30``) get exactly
+    zero."""
+    return flash_attention_backward(
+        q, k, v, o, lse, do, causal=causal, scale=scale,
+        segment_ids=segment_ids, kv_segment_ids=kv_segment_ids,
+        force_reference=True)
 
 
 # ---------------------------------------------------------------------------
@@ -385,17 +581,22 @@ def paged_decode_attention(q, k_pool_l, v_pool_l, page_table, lengths, *,
 
 
 def attention_flops(b: int, h: int, tq: int, tk: int, d: int,
-                    causal: bool) -> float:
-    """Multiply-add work of one forward call, counted as 2 FLOP each:
-    ``QK^T`` and ``PV`` over the pairs the mask keeps."""
+                    causal: bool, products: int = 2) -> float:
+    """Multiply-add work over the pairs the mask keeps, counted as 2 FLOP
+    each: ``products`` matrix products of depth ``d`` per kept pair and
+    head -- 2 for the forward (``QK^T``, ``PV``), 3 for the dq kernel
+    (``s``, ``dp``, ``ds K``), 4 for the dk/dv kernel (``s``, ``dp``,
+    ``p^T dO``, ``ds^T Q``)."""
     if causal:
         off = tk - tq
         pairs = sum(min(tk, i + off + 1) for i in range(tq))
     else:
         pairs = tq * tk
-    return 4.0 * b * h * pairs * d
+    return 2.0 * products * b * h * pairs * d
 
 
-__all__ = ["attention_reference", "flash_attention", "decode_attention",
+__all__ = ["attention_reference", "flash_attention", "flash_backward_dq",
+           "flash_backward_dkv", "flash_attention_backward",
+           "flash_attention_backward_reference", "decode_attention",
            "paged_decode_attention", "gather_pages", "decode_splits",
            "attention_flops"]

@@ -1,0 +1,407 @@
+// FlashAttention-2 backward for Hopper (sm_90a): two kernels, dq and dk/dv.
+//
+// Replaces: horovod_tpu/ops/attention.py::_flash_bwd, whose two Pallas TPU
+// kernels are _dq_kernel (dq, accumulated over kv blocks) and _dkv_kernel
+// (dk/dv, accumulated over q blocks per QUERY head in f32 and summed over
+// each GQA group outside the kernel).  Same function, to the conventions of
+// flash_fwd.cu: p = exp(s * scale - lse) is recomputed from the forward's
+// logsumexp, delta = rowsum(dO * O) comes in precomputed (the JAX package
+// also computes it outside its kernels), ds = p * (dp - delta) * scale with
+// dp = dO V^T; causal masking is bottom-right (query i sits at absolute
+// position tk - tq + i), segment ids mask unequal pairs, GQA reads kv head
+// h / rep in place, and a DEAD row (lse = +1e30) gets p = 0 everywhere, so
+// its gradients are exactly 0.  Masked pairs take p = 0 outright.  Inputs
+// are f32 or bf16; every sum accumulates in f32.
+//
+// What bounds it on the H100: at the training shape (b=2, h=32, h_kv=8,
+// t=2048, d=128, causal) dq does 3 products per kept pair and head (s, dp,
+// ds K) and dk/dv 4 (s, dp, p^T dO, ds^T Q): 103 and 137 GFLOP against
+// ~100 MB of q/k/v/dO/dq/dk/dv, far above the card's ~295 FLOP/byte balance
+// point, so both are bound by arithmetic (104 and 139 us at the 989 TFLOP/s
+// bf16 tensor-core peak).  This first version does its products on the CUDA
+// cores in f32, like flash_fwd.cu, so it runs far above that bound.  What
+// the design does instead of the TPU's sequential grid:
+//   * the Pallas kernels carry dq (or dk/dv) in VMEM scratch across a
+//     sequential grid axis; GPU blocks run in no order and carry nothing, so
+//     each CTA loops over the other sequence itself and keeps its sums in
+//     registers (32 f32 per thread per accumulated tensor);
+//   * dq: one CTA per (batch, query head, 64 query rows), 256 threads, four
+//     per row; 32-key K/V tiles stream through shared memory, only the tiles
+//     the causal mask leaves live are loaded;
+//   * dk/dv: one CTA per (batch, KV head, 64 keys) loops over the rep query
+//     heads of its group and over the 32-row query tiles that can see its
+//     keys, so dk/dv are summed over the group in registers and written
+//     once in k's dtype.  This replaces the JAX design's f32 per-query-head
+//     partials (2 x 67 MB at the training shape) and its group sum outside
+//     the kernel;
+//   * shared rows are padded by four floats so every float4 read is
+//     conflict-free; p and ds of a tile go through shared memory between
+//     the score pass and the accumulate pass, read back only by the four
+//     lanes of the row that wrote them;
+//   * the ragged edge (any tq, any tk) is masked in the kernel: rows and keys
+//     past the end load as zero, take p = 0 and are not stored.  There is no
+//     fallback to a plain path for any length.
+
+#include <math.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int NT = 256;         // threads per CTA: 64 rows x 4 lanes
+constexpr int DQ_BQ = 64;       // dq: query rows per CTA
+constexpr int DQ_BK = 32;       // dq: keys per tile
+constexpr int KV_BK = 64;       // dk/dv: keys per CTA
+constexpr int KV_BQ = 32;       // dk/dv: query rows per tile
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(float) * (2 * DQ_BQ * (D + 4) + 2 * DQ_BK * (D + 4) +
+                          DQ_BQ * (DQ_BK + 1)) +
+         sizeof(int) * DQ_BK;
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return sizeof(float) * (2 * KV_BK * (D + 4) + 2 * KV_BQ * (D + 4) +
+                          2 * KV_BK * (KV_BQ + 1) + 2 * KV_BQ) +
+         sizeof(int) * KV_BQ;
+}
+
+// Rows [r0, r0 + rows) of a (n, D) matrix into a padded f32 tile; rows past
+// n load as zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, int r0,
+                                          int n, int rows,
+                                          float* __restrict__ dst) {
+  constexpr int CH = D / 8;
+  for (int i = threadIdx.x; i < rows * CH; i += NT) {
+    const int r = i / CH, c = (i % CH) * 8;
+    if (r0 + r < n)
+      hvd::load8(src + (size_t)(r0 + r) * D + c, dst + r * (D + 4) + c);
+    else
+      hvd::zero8(dst + r * (D + 4) + c);
+  }
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ const float4& f4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// ---------------------------------------------------------------------------
+// dq = sum over keys of ds K
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int* __restrict__ qseg,
+                        const int* __restrict__ kseg, T* __restrict__ dq,
+                        int h, int h_kv, int tq, int tk, int causal,
+                        float scale) {
+  constexpr int BQ = DQ_BQ, BK = DQ_BK;
+  constexpr int SD = D + 4;      // padded row of every tile
+  constexpr int NJ = BK / 4;     // scores per thread per tile
+  constexpr int NG = D / 16;     // float4 groups of dq per thread
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;              // [BQ][SD]
+  float* sDO = sQ + BQ * SD;     // [BQ][SD]
+  float* sK = sDO + BQ * SD;     // [BK][SD]
+  float* sV = sK + BK * SD;      // [BK][SD]
+  float* sDS = sV + BK * SD;     // [BQ][BK + 1]
+  int* sKseg = reinterpret_cast<int*>(sDS + BQ * (BK + 1));  // [BK]
+
+  const int q0 = blockIdx.x * BQ;
+  const int hh = blockIdx.y, bb = blockIdx.z;
+  const int kvh = hh / (h / h_kv);
+  const int tid = threadIdx.x, row = tid >> 2, l4 = tid & 3;
+  const int off = tk - tq;
+  const size_t qbase = (size_t)(bb * h + hh) * tq;
+  const size_t kbase = (size_t)(bb * h_kv + kvh) * tk;
+  const bool has_seg = qseg != nullptr;
+
+  load_tile<T, D>(q + qbase * D, q0, tq, BQ, sQ);
+  load_tile<T, D>(dout + qbase * D, q0, tq, BQ, sDO);
+  const int qrow = q0 + row;
+  const bool row_ok = qrow < tq;
+  const float my_lse = row_ok ? lse[qbase + qrow] : 0.f;
+  const float my_delta = row_ok ? delta[qbase + qrow] : 0.f;
+  const int my_seg = (has_seg && row_ok) ? qseg[bb * tq + qrow] : 0;
+
+  float acc[NG * 4];
+#pragma unroll
+  for (int i = 0; i < NG * 4; ++i) acc[i] = 0.f;
+
+  // Keys past the causal diagonal of this tile's last row never load.
+  const int kv_end = causal ? min(tk, q0 + BQ + off) : tk;
+  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+    __syncthreads();  // every reader of the previous tile is done
+    load_tile<T, D>(k + kbase * D, k0, tk, BK, sK);
+    load_tile<T, D>(v + kbase * D, k0, tk, BK, sV);
+    if (has_seg && tid < BK)
+      sKseg[tid] = (k0 + tid < tk) ? kseg[bb * tk + k0 + tid] : 0;
+    __syncthreads();
+
+    float s[NJ], dp[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[j] = dp[j] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < D; kk += 4) {
+      const float4 qv = f4(sQ + row * SD + kk);
+      const float4 ov = f4(sDO + row * SD + kk);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        s[j] = dot4(qv, f4(sK + (l4 + 4 * j) * SD + kk), s[j]);
+        dp[j] = dot4(ov, f4(sV + (l4 + 4 * j) * SD + kk), dp[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int cl = l4 + 4 * j, col = k0 + cl;
+      bool live = row_ok && col < tk;
+      if (causal && col > qrow + off) live = false;
+      if (has_seg && sKseg[cl] != my_seg) live = false;
+      const float p = live ? expf(s[j] * scale - my_lse) : 0.f;
+      sDS[row * (BK + 1) + cl] = p * (dp[j] - my_delta) * scale;
+    }
+    __syncwarp();  // a row's ds is written and read by its own 4 lanes
+
+    for (int c = 0; c < BK; ++c) {
+      const float ds = sDS[row * (BK + 1) + c];
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const float4 kv = f4(sK + c * SD + 16 * g + 4 * l4);
+        acc[4 * g + 0] = fmaf(ds, kv.x, acc[4 * g + 0]);
+        acc[4 * g + 1] = fmaf(ds, kv.y, acc[4 * g + 1]);
+        acc[4 * g + 2] = fmaf(ds, kv.z, acc[4 * g + 2]);
+        acc[4 * g + 3] = fmaf(ds, kv.w, acc[4 * g + 3]);
+      }
+    }
+  }
+
+  if (!row_ok) return;
+  T* out = dq + (qbase + qrow) * D;
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      out[16 * g + 4 * l4 + e] = hvd::from_float<T>(acc[4 * g + e]);
+}
+
+// ---------------------------------------------------------------------------
+// dv = sum over queries of p^T dO, dk = sum over queries of ds^T Q, summed
+// over the rep query heads that share the KV head
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const int* __restrict__ qseg,
+                         const int* __restrict__ kseg, T* __restrict__ dk,
+                         T* __restrict__ dv, int h, int h_kv, int tq, int tk,
+                         int causal, float scale) {
+  constexpr int BK = KV_BK, BQ = KV_BQ;
+  constexpr int SD = D + 4;
+  constexpr int NJ = BQ / 4;     // queries per thread per tile
+  constexpr int NG = D / 16;
+  constexpr int SP = BQ + 1;     // padded row of sP / sDS
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;              // [BK][SD]
+  float* sV = sK + BK * SD;      // [BK][SD]
+  float* sQ = sV + BK * SD;      // [BQ][SD]
+  float* sDO = sQ + BQ * SD;     // [BQ][SD]
+  float* sP = sDO + BQ * SD;     // [BK][SP]
+  float* sDS = sP + BK * SP;     // [BK][SP]
+  float* sLse = sDS + BK * SP;   // [BQ]
+  float* sDelta = sLse + BQ;     // [BQ]
+  int* sQseg = reinterpret_cast<int*>(sDelta + BQ);  // [BQ]
+
+  const int k0 = blockIdx.x * BK;
+  const int kvh = blockIdx.y, bb = blockIdx.z;
+  const int rep = h / h_kv;
+  const int tid = threadIdx.x, krow = tid >> 2, l4 = tid & 3;
+  const int off = tk - tq;
+  const size_t kbase = (size_t)(bb * h_kv + kvh) * tk;
+  const bool has_seg = qseg != nullptr;
+
+  load_tile<T, D>(k + kbase * D, k0, tk, BK, sK);
+  load_tile<T, D>(v + kbase * D, k0, tk, BK, sV);
+  const int kcol = k0 + krow;
+  const bool key_ok = kcol < tk;
+  const int my_seg = (has_seg && key_ok) ? kseg[bb * tk + kcol] : 0;
+
+  float acc_k[NG * 4], acc_v[NG * 4];
+#pragma unroll
+  for (int i = 0; i < NG * 4; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  // Query rows before k0 - off see none of these keys (causal).
+  const int q_begin = causal ? max(0, k0 - off) / BQ * BQ : 0;
+  for (int r = 0; r < rep; ++r) {
+    const size_t qbase = (size_t)(bb * h + kvh * rep + r) * tq;
+    for (int q0 = q_begin; q0 < tq; q0 += BQ) {
+      __syncthreads();  // every reader of the previous tile is done
+      load_tile<T, D>(q + qbase * D, q0, tq, BQ, sQ);
+      load_tile<T, D>(dout + qbase * D, q0, tq, BQ, sDO);
+      if (tid < BQ) {
+        const bool ok = q0 + tid < tq;
+        sLse[tid] = ok ? lse[qbase + q0 + tid] : 0.f;
+        sDelta[tid] = ok ? delta[qbase + q0 + tid] : 0.f;
+        if (has_seg) sQseg[tid] = ok ? qseg[bb * tq + q0 + tid] : 0;
+      }
+      __syncthreads();
+
+      float s[NJ], dp[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s[j] = dp[j] = 0.f;
+#pragma unroll 4
+      for (int kk = 0; kk < D; kk += 4) {
+        const float4 kv = f4(sK + krow * SD + kk);
+        const float4 vv = f4(sV + krow * SD + kk);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          s[j] = dot4(kv, f4(sQ + (l4 + 4 * j) * SD + kk), s[j]);
+          dp[j] = dot4(vv, f4(sDO + (l4 + 4 * j) * SD + kk), dp[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int ql = l4 + 4 * j, qi = q0 + ql;
+        bool live = key_ok && qi < tq;
+        if (causal && kcol > qi + off) live = false;
+        if (has_seg && sQseg[ql] != my_seg) live = false;
+        const float p = live ? expf(s[j] * scale - sLse[ql]) : 0.f;
+        sP[krow * SP + ql] = p;
+        sDS[krow * SP + ql] = p * (dp[j] - sDelta[ql]) * scale;
+      }
+      __syncwarp();  // a key's p / ds are written and read by its 4 lanes
+
+      for (int c = 0; c < BQ; ++c) {
+        const float p = sP[krow * SP + c];
+        const float ds = sDS[krow * SP + c];
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          const float4 ov = f4(sDO + c * SD + 16 * g + 4 * l4);
+          const float4 qv = f4(sQ + c * SD + 16 * g + 4 * l4);
+          acc_v[4 * g + 0] = fmaf(p, ov.x, acc_v[4 * g + 0]);
+          acc_v[4 * g + 1] = fmaf(p, ov.y, acc_v[4 * g + 1]);
+          acc_v[4 * g + 2] = fmaf(p, ov.z, acc_v[4 * g + 2]);
+          acc_v[4 * g + 3] = fmaf(p, ov.w, acc_v[4 * g + 3]);
+          acc_k[4 * g + 0] = fmaf(ds, qv.x, acc_k[4 * g + 0]);
+          acc_k[4 * g + 1] = fmaf(ds, qv.y, acc_k[4 * g + 1]);
+          acc_k[4 * g + 2] = fmaf(ds, qv.z, acc_k[4 * g + 2]);
+          acc_k[4 * g + 3] = fmaf(ds, qv.w, acc_k[4 * g + 3]);
+        }
+      }
+    }
+  }
+
+  if (!key_ok) return;
+  T* dk_row = dk + (kbase + kcol) * D;
+  T* dv_row = dv + (kbase + kcol) * D;
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk_row[16 * g + 4 * l4 + e] = hvd::from_float<T>(acc_k[4 * g + e]);
+      dv_row[16 * g + 4 * l4 + e] = hvd::from_float<T>(acc_v[4 * g + e]);
+    }
+}
+
+template <typename K>
+cudaError_t opt_in(K kernel, size_t smem, bool* configured) {
+  if (*configured) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) *configured = true;
+  return err;
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      const void* qseg, const void* kseg, void* dq, int b,
+                      int h, int h_kv, int tq, int tk, int causal,
+                      float scale, cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes<D>();
+  static bool configured = false;  // one opt-in per instantiation
+  cudaError_t err = opt_in(flash_bwd_dq_kernel<T, D>, smem, &configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tq + DQ_BQ - 1) / DQ_BQ, h, b);
+  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(qseg), static_cast<const int*>(kseg),
+      static_cast<T*>(dq), h, h_kv, tq, tk, causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       const void* qseg, const void* kseg, void* dk, void* dv,
+                       int b, int h, int h_kv, int tq, int tk, int causal,
+                       float scale, cudaStream_t stream) {
+  constexpr size_t smem = dkv_smem_bytes<D>();
+  static bool configured = false;
+  cudaError_t err = opt_in(flash_bwd_dkv_kernel<T, D>, smem, &configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tk + KV_BK - 1) / KV_BK, h_kv, b);
+  flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(qseg), static_cast<const int*>(kseg),
+      static_cast<T*>(dk), static_cast<T*>(dv), h, h_kv, tq, tk, causal,
+      scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+#define HVD_DISPATCH(FN, ...)                                               \
+  do {                                                                     \
+    if (dtype == hvd::kBF16 && d == 128)                                   \
+      return FN<__nv_bfloat16, 128>(__VA_ARGS__);                          \
+    if (dtype == hvd::kBF16 && d == 64)                                    \
+      return FN<__nv_bfloat16, 64>(__VA_ARGS__);                           \
+    if (dtype == hvd::kF32 && d == 128) return FN<float, 128>(__VA_ARGS__); \
+    if (dtype == hvd::kF32 && d == 64) return FN<float, 64>(__VA_ARGS__);   \
+    return (int)cudaErrorInvalidValue;                                     \
+  } while (0)
+
+extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, const void* qseg,
+                                const void* kseg, void* dq, int b, int h,
+                                int h_kv, int tq, int tk, int d, int dtype,
+                                int causal, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  HVD_DISPATCH(launch_dq, q, k, v, dout, lse, delta, qseg, kseg, dq, b, h,
+               h_kv, tq, tk, causal, scale, s);
+}
+
+extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, const void* qseg,
+                                 const void* kseg, void* dk, void* dv, int b,
+                                 int h, int h_kv, int tq, int tk, int d,
+                                 int dtype, int causal, float scale,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  HVD_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, qseg, kseg, dk, dv, b,
+               h, h_kv, tq, tk, causal, scale, s);
+}

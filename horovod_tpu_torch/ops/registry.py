@@ -21,7 +21,23 @@ KERNEL_CONTRACTS = {
         "source": "horovod_tpu_torch/ops/csrc/flash_fwd.cu",
         "site": "ops.attention.flash_attention",
         "replaces": "horovod_tpu/ops/attention.py::_flash_fwd",
-        "note": "FlashAttention-2 forward (O and logsumexp); forward only",
+        "note": "FlashAttention-2 forward (O and logsumexp)",
+    },
+    "flash_bwd_dq": {
+        "source": "horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+        "site": "ops.attention.flash_backward_dq (flash_attention's "
+                "backward)",
+        "replaces": "horovod_tpu/ops/attention.py::_flash_bwd (_dq_kernel)",
+        "note": "dq = sum over keys of ds K, ds = p (dp - delta) scale",
+    },
+    "flash_bwd_dkv": {
+        "source": "horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+        "site": "ops.attention.flash_backward_dkv (flash_attention's "
+                "backward)",
+        "replaces": "horovod_tpu/ops/attention.py::_flash_bwd "
+                    "(_dkv_kernel)",
+        "note": "dv = p^T dO, dk = ds^T Q, summed over each GQA group "
+                "inside the kernel",
     },
     "flash_decode": {
         "source": "horovod_tpu_torch/ops/csrc/flash_decode.cu",

@@ -1,8 +1,8 @@
 """Process-wide metrics registry.
 
 Counterpart of ``horovod_tpu/timeline/metrics.py``, cut to what the
-serving scheduler uses: labelled counter, gauge and fixed-bucket
-histogram families in one thread-safe registry.  ``HOROVOD_METRICS=0``
+serving scheduler and the gradient exchange use: labelled counter, gauge
+and fixed-bucket histogram families in one thread-safe registry.  ``HOROVOD_METRICS=0``
 turns every family into a shared no-op object, as in the reference.
 """
 
@@ -172,6 +172,10 @@ class _Family:
     def observe(self, v: float) -> None:
         self._solo().observe(v)
 
+    @property
+    def value(self) -> float:
+        return self._solo().value
+
     def samples(self):
         with self._lock:
             return sorted(self._children.items())
@@ -250,3 +254,28 @@ def reset_metrics() -> None:
     global _registry
     with _registry_lock:
         _registry = None
+
+
+_EXCHANGE = {
+    "buckets": ("horovod_exchange_buckets_total",
+                "fused gradient buckets allreduced"),
+    "wire_bytes": ("horovod_exchange_wire_bytes_total",
+                   "bytes one rank put on the wire for gradient buckets"),
+    "handles": ("horovod_exchange_handles_total",
+                "async allreduce handles issued for gradient buckets"),
+}
+
+
+def exchange_counters() -> Dict[str, object]:
+    """The gradient-exchange counters the DistributedOptimizer feeds:
+    fused buckets sent, bytes on the wire (after compression, one rank's
+    payload) and async allreduce handles issued."""
+    reg = registry()
+    return {k: reg.counter(name, help) for k, (name, help)
+            in _EXCHANGE.items()}
+
+
+def exchange_totals() -> Dict[str, float]:
+    """The exchange counters' values (0 when ``HOROVOD_METRICS=0``); a
+    caller takes differences around the steps it wants to read."""
+    return {k: c.value for k, c in exchange_counters().items()}

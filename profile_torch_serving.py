@@ -36,7 +36,11 @@ def _card() -> str:
     return out.stdout.strip()
 
 
-def _window(name: str, fn, top: int = 12) -> dict:
+def _window(name: str, fn, top: int = 12, groups=None) -> dict:
+    """Profile one call of ``fn``: wall, device busy and idle share, the
+    top GPU kernels, and (``groups``: ``{group: substrings}``) device time
+    summed per group of kernel names, the first matching group winning,
+    the rest under ``other``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -62,9 +66,17 @@ def _window(name: str, fn, top: int = 12) -> dict:
                      "device_ms": dev_us / 1e3})
     rows.sort(key=lambda r: -r["device_ms"])
     busy = busy_us / 1e6
-    return {"window": name, "wall_s": wall, "device_busy_s": busy,
-            "device_idle_share": max(0.0, 1.0 - busy / wall),
-            "top": rows[:top]}
+    out = {"window": name, "wall_s": wall, "device_busy_s": busy,
+           "device_idle_share": max(0.0, 1.0 - busy / wall),
+           "top": rows[:top]}
+    if groups:
+        sums = dict.fromkeys(list(groups) + ["other"], 0.0)
+        for r in rows:
+            g = next((g for g, subs in groups.items()
+                      if any(x in r["kernel"] for x in subs)), "other")
+            sums[g] += r["device_ms"]
+        out["groups_ms"] = sums
+    return out
 
 
 def main() -> int:

@@ -250,16 +250,19 @@ def test_attention_flops_counts_kept_pairs():
 def test_cpu_path_never_counts_a_launch():
     registry.reset_launch_counts()
     q, k, v = map(_t, _qkv(9, 1, 4, 2, 8, 8, 16))
-    tattn.flash_attention(q, k, v, causal=True)
+    tattn.flash_attention(q.requires_grad_(), k, v, causal=True).sum(
+        ).backward()
     qd, kd, vd, lengths = _decode_inputs(9)
     tattn.decode_attention(_t(qd), _t(kd), _t(vd), lengths=_t(lengths))
-    assert registry.launch_counts() == {"flash": 0, "flash_decode": 0}
-    assert set(registry.KERNEL_CONTRACTS) == {"flash", "flash_decode"}
+    families = {"flash", "flash_decode", "flash_bwd_dq", "flash_bwd_dkv"}
+    assert registry.launch_counts() == dict.fromkeys(families, 0)
+    assert set(registry.KERNEL_CONTRACTS) == families
 
 
 def test_build_command_targets_sm90a_without_running_nvcc():
     out = os.path.join(_build.BUILD_DIR, "x.so")
-    for name in _build.SIGNATURES:
+    assert set(_build.SOURCES) == {"flash_fwd", "flash_decode", "flash_bwd"}
+    for name in _build.SOURCES:
         cmd = _build.nvcc_command(name, out)
         joined = " ".join(cmd)
         assert "-gencode arch=compute_90a,code=sm_90a" in joined
@@ -275,8 +278,8 @@ def test_build_command_targets_sm90a_without_running_nvcc():
 def test_cuda_sources_export_the_bound_symbols():
     """Every C entry point the ctypes binding declares is defined
     ``extern "C"`` in its source, with as many parameters as argtypes."""
-    for name, (sym, argtypes) in _build.SIGNATURES.items():
-        src = open(os.path.join(_build.CSRC, f"{name}.cu")).read()
+    for name, (source, sym, argtypes) in _build.ENTRIES.items():
+        src = open(os.path.join(_build.CSRC, f"{source}.cu")).read()
         head = src.split(f'extern "C" int {sym}(', 1)
         assert len(head) == 2, sym
         params = head[1].split(")", 1)[0]
