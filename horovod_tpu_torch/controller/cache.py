@@ -3,7 +3,9 @@
 Counterpart of ``horovod_tpu/controller/cache.py::ExecutableCache`` (the
 reference's ResponseCache analogue).  There it holds compiled
 executables; here it holds bucket plans, which are pure in (shapes,
-dtypes, threshold).  ``HOROVOD_CACHE_CAPACITY`` (default 1024) bounds it.
+dtypes, threshold).  The planner keeps one of 1024 entries (the reference's
+``HOROVOD_CACHE_CAPACITY`` default); nothing on the port's path sets
+another bound.
 """
 
 from __future__ import annotations

@@ -57,15 +57,15 @@ def fusion_threshold() -> int:
         DEFAULT_FUSION_THRESHOLD
 
 
+PLAN_CACHE_CAPACITY = 1024
+
 _plan_cache: Optional[LRUCache] = None
 
 
 def _get_plan_cache() -> LRUCache:
     global _plan_cache
-    cfg = global_state().config
-    cap = cfg.cache_capacity if cfg is not None else 1024
-    if _plan_cache is None or _plan_cache.capacity != cap:
-        _plan_cache = LRUCache(capacity=cap)
+    if _plan_cache is None:
+        _plan_cache = LRUCache(capacity=PLAN_CACHE_CAPACITY)
     return _plan_cache
 
 

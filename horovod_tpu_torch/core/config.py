@@ -47,8 +47,6 @@ class Config:
     # Gradient bucketing threshold in bytes (HOROVOD_FUSION_THRESHOLD,
     # default 64 MiB, as in the reference).
     fusion_threshold: int = 64 * _MiB
-    # Bound on the bucket-plan LRU (HOROVOD_CACHE_CAPACITY).
-    cache_capacity: int = 1024
     # Launcher-provided identity (HOROVOD_RANK / _SIZE / _LOCAL_RANK /
     # _LOCAL_SIZE / _CROSS_RANK / _CROSS_SIZE); -1 = not set.
     env_rank: int = -1
@@ -63,7 +61,6 @@ def load_config() -> Config:
     """A :class:`Config` from the environment."""
     return Config(
         fusion_threshold=_env_int("FUSION_THRESHOLD", 64 * _MiB),
-        cache_capacity=_env_int("CACHE_CAPACITY", 1024),
         env_rank=_env_int("RANK", -1),
         env_size=_env_int("SIZE", -1),
         env_local_rank=_env_int("LOCAL_RANK", -1),

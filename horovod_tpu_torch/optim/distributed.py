@@ -29,7 +29,7 @@ Counterpart of ``horovod_tpu/optim/distributed.py`` (the flat branch of
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,6 +39,27 @@ from ..collectives.reduce_op import Average, ReduceOp
 from ..controller.fusion import (pack_bucket, plan_buckets, unpack,
                                  unpack_bucket)
 from ..timeline.metrics import exchange_counters
+
+
+def _launch_bucket(grads, lspecs, op: ReduceOp, compression,
+                   prescale_factor: float, postscale_factor: float,
+                   divisor: int = 1) -> Tuple[Any, Any]:
+    """Pack one bucket's gradients (``grads[s.index]`` for each leaf spec)
+    into a new flat buffer, divide it by ``divisor`` (the accumulated
+    passes), compress it and launch its async allreduce.  Returns
+    ``(handle, ctx)``; ``compression.decompress(handle.wait(), ctx)`` is
+    the reduced bucket.  Feeds the exchange counters."""
+    buf = pack_bucket(grads, lspecs)
+    if divisor > 1:
+        buf.div_(divisor)
+    wire, ctx = compression.compress(buf)
+    handle = allreduce_async_(wire, op, prescale_factor=prescale_factor,
+                              postscale_factor=postscale_factor)
+    m = exchange_counters()
+    m["buckets"].inc()
+    m["handles"].inc()
+    m["wire_bytes"].inc(wire.numel() * wire.element_size())
+    return handle, ctx
 
 
 def allreduce_gradients(grads: Sequence[torch.Tensor],
@@ -53,12 +74,9 @@ def allreduce_gradients(grads: Sequence[torch.Tensor],
     in the input order; the inputs are left as they are."""
     grads = list(grads)
     spec = plan_buckets(grads, fusion_threshold)
-    pending = []
-    for _, lspecs in spec.buffers:
-        c, ctx = compression.compress(pack_bucket(grads, lspecs))
-        pending.append((allreduce_async_(
-            c, op, prescale_factor=prescale_factor,
-            postscale_factor=postscale_factor), ctx))
+    pending = [_launch_bucket(grads, lspecs, op, compression,
+                              prescale_factor, postscale_factor)
+               for _, lspecs in spec.buffers]
     return unpack([compression.decompress(h.wait(), ctx)
                    for h, ctx in pending], spec)
 
@@ -104,7 +122,6 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._counter = [0] * len(self._trainable)
         self._ready: List[set] = [set() for _ in self.bucket_plan.buffers]
         self._handles: Dict[int, tuple] = {}
-        self._metrics = exchange_counters()
         for p in self._trainable:
             p.register_post_accumulate_grad_hook(self._hook)
 
@@ -126,18 +143,21 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     def _launch(self, b: int) -> None:
         _, lspecs = self.bucket_plan.buffers[b]
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in (self._trainable[s.index] for s in lspecs)]
-        buf = torch.cat([g.reshape(-1) for g in grads])
-        if self.backward_passes_per_step > 1:
-            buf.div_(self.backward_passes_per_step)
-        wire, ctx = self._compression.compress(buf)
-        self._handles[b] = (allreduce_async_(
-            wire, self._op, prescale_factor=self._prescale,
-            postscale_factor=self._postscale), ctx)
-        self._metrics["buckets"].inc()
-        self._metrics["handles"].inc()
-        self._metrics["wire_bytes"].inc(wire.numel() * wire.element_size())
+        grads = {}
+        for s in lspecs:
+            p = self._trainable[s.index]
+            grads[s.index] = p.grad if p.grad is not None \
+                else torch.zeros_like(p)
+        self._handles[b] = _launch_bucket(
+            grads, lspecs, self._op, self._compression, self._prescale,
+            self._postscale, divisor=self.backward_passes_per_step)
+
+    @property
+    def exchange_ready(self) -> bool:
+        """True once ``backward_passes_per_step`` backward passes have run
+        since the last ``synchronize()``: the pass that completes the
+        accumulation, after which ``step()`` applies the exchanged mean."""
+        return max(self._counter, default=0) >= self.backward_passes_per_step
 
     # -- sync -------------------------------------------------------------
     def synchronize(self) -> None:

@@ -7,8 +7,9 @@ mesh; here the module and the optimizer hold the state, so
 backward (whose gradient hooks launch the fused allreduces of a
 :func:`~horovod_tpu_torch.optim.DistributedOptimizer`), then the
 optimizer step.  With ``backward_passes_per_step = n`` on the optimizer,
-the step runs the optimizer on every ``n``-th call only, and the
-gradients of the ``n`` calls are averaged first -- the JAX wrap's
+the step runs the optimizer only once the optimizer reports ``n``
+backward passes since its last exchange (``exchange_ready``), and the
+gradients of those passes are averaged first -- the JAX wrap's
 accumulate-then-update.  The returned loss is averaged over every rank.
 
 :func:`causal_lm_loss` is the next-token cross-entropy that
@@ -54,14 +55,12 @@ def make_train_step(model: torch.nn.Module,
     each rank on its own).  The returned 0-dim tensor is the mean of the
     ranks' losses; reading it synchronizes with the device.
     """
-    passes = getattr(optimizer, "backward_passes_per_step", 1)
-    calls = [0]
 
     def step(batch) -> torch.Tensor:
         loss = loss_fn(model, batch)
         loss.backward()
-        calls[0] += 1
-        if calls[0] % passes == 0:
+        # The optimizer counts the passes; a plain one steps every call.
+        if getattr(optimizer, "exchange_ready", True):
             optimizer.step()
             optimizer.zero_grad(set_to_none=True)
         return allreduce(loss.detach(), Average)

@@ -111,6 +111,8 @@ def test_plan_cache_memoizes_by_key():
     assert a is b and a is not c
     st = tfusion.plan_cache_stats()
     assert (st["hits"], st["misses"], st["size"]) == (1, 2, 2)
+    assert tfusion._get_plan_cache().capacity == \
+        tfusion.PLAN_CACHE_CAPACITY == 1024
     assert tfusion.plan_buckets(leaves).buffers == tfusion.plan_buckets(
         leaves, 64 * 1024 * 1024).buffers
 

@@ -248,6 +248,33 @@ def test_backward_passes_per_step_equals_doubled_batch(world1):
     assert sent == len(opt.bucket_plan.buffers)
 
 
+def test_step_follows_the_optimizers_pass_count(world1):
+    """The step function steps when the optimizer's accumulation is
+    complete, even after the caller ran synchronize() outside it."""
+    _, params = _flax_lora_params(seed=8)
+    toks = _tokens(8, 16, seed=9)
+    _, whole, _ = _port_steps(params, [toks], inner=_sgd)
+    model, named = _port_model(params)
+    opt = thvd.DistributedOptimizer(_sgd(named), named_parameters=named,
+                                    backward_passes_per_step=2)
+    step = make_train_step(model, causal_lm_loss, opt)
+    start = {n: p.detach().clone() for n, p in named}
+    step(torch.from_numpy(_tokens(8, 16, seed=10)).long())
+    assert not opt.exchange_ready
+    opt.synchronize()                     # the caller drops this pass
+    opt.zero_grad(set_to_none=True)
+    assert not opt.exchange_ready
+    step(torch.from_numpy(toks[:4]).long())
+    assert not opt.exchange_ready
+    for n, p in named:                    # one pass of two: no step yet
+        assert torch.equal(p.detach(), start[n]), n
+    step(torch.from_numpy(toks[4:]).long())
+    assert not opt.exchange_ready
+    for n, p in named:
+        np.testing.assert_allclose(p.detach().numpy(), whole[n].numpy(),
+                                   atol=PARAM_ATOL, rtol=0, err_msg=n)
+
+
 def test_buckets_follow_the_plan_and_count_the_wire(world1):
     _, params = _flax_lora_params(seed=4)
     model, named = _port_model(params)
