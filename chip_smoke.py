@@ -12,7 +12,9 @@ Phases, each printing its own line; any failure exits non-zero:
    with ``nvcc`` for ``sm_90a``, one process per source, all at once.
 3. kernels -- each kernel against its plain PyTorch version on the card
    at its path's shapes (serving: flash forward and decode; training:
-   the flash backward's dq and dk/dv), with its time, the plain
+   the flash backward's dq and dk/dv; ResNet: the BatchNorm backward's
+   two passes, at a ragged N, a C below one vector and three ResNet-50
+   sites at batch 256, bitwise repeatable), with its time, the plain
    version's time, one PyTorch library call's time for the same
    function, and the least time the card could take (``bound_ms``).
 4. serve -- Llama-3 8B at full width and depth (random bf16 weights from
@@ -32,6 +34,21 @@ Phases, each printing its own line; any failure exits non-zero:
    every adapter change, every base tensor stay bitwise the same, each
    step launch 32 flash forwards and 32 of each backward kernel, and the
    optimizer send as many buckets per step as ``plan_buckets`` plans.
+7. resnet_grad -- ResNet-50 at full width and depth (s2d stem, every BN
+   scale from N(1, 0.1)) on 32 images: one loss and backward through the
+   BN kernels and one through their plain versions, in bf16 and in f32
+   from the same weights.  Losses bitwise equal; 53 launches of each BN
+   kernel, 0 on the plain runs; f32 gradients within 1e-3 of their max;
+   no bf16 gradient moved by the kernels as much as bf16 moves it from
+   f32 (see ``check_resnet_grad``).
+8. resnet_train -- ``bench.py``'s ResNet-50 configuration: 256 images of
+   224 x 224, bf16 compute, ``init`` -> ``broadcast_parameters`` ->
+   ``DistributedOptimizer(SGD(0.1, momentum 0.9))`` ->
+   ``make_flax_train_step``, one warm-up and five timed steps.  Losses
+   finite and falling, every parameter and running statistic changed,
+   53 launches of each BN kernel a step, buckets as planned.
+9. lenet -- ten LeNet steps on a synthetic MNIST-like batch with
+   ``examples/mnist_lenet.py``'s SGD(0.01, momentum 0.9); the loss falls.
 
 Then one JSON line of per-kernel numbers, the card line, and last the
 ``{"ok": true, "device": ...}`` line.  Without a GPU, or without the rest
@@ -54,10 +71,13 @@ import torch
 import torch.nn.functional as F
 
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak (NVIDIA data sheet)
+H100_F32_FLOPS = 67e12     # f32 outside the tensor cores (NVIDIA data sheet)
 H100_HBM_BYTES = 3.35e12   # HBM3 bytes/s (NVIDIA data sheet)
 F32_TOL = 1e-5             # f32: absolute, the sums only reorder
 F32_GRAD_TOL = 1e-5        # f32 gradients: relative to max |reference grad|
 BF16_TOL = 2e-2            # bf16: relative to max |reference output|
+BN_SUM_TOL = 1e-4          # BN dgamma/dbeta: relative to max |reference|,
+                           # sums over up to 3.2 M rows in another order
 
 
 def log(obj) -> None:
@@ -80,8 +100,9 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple:
-    t_ops = flops / H100_BF16_FLOPS
+def bound_ms(flops: float, nbytes: float,
+             peak_flops: float = H100_BF16_FLOPS) -> tuple:
+    t_ops = flops / peak_flops
     t_bytes = nbytes / H100_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -370,6 +391,119 @@ def time_flash_bwd(attn, args, errs) -> tuple:
     return timing, entries
 
 
+# The BN cases: a ragged N with C below one vector and not a multiple of
+# 8, a C of exactly one vector, and three ResNet-50 sites at batch 256
+# (the stem, stage 1's widest, stage 4).
+BN_CASES = ((37, 3), (1000, 8), (3211264, 64), (802816, 256), (12544, 2048))
+BN_HEADLINE = (802816, 256)        # [256 x 56 x 56, 256], bf16
+
+
+def check_bn_bwd(bn, dev) -> tuple:
+    """The BatchNorm backward's two kernels against their plain versions
+    on every case of ``BN_CASES``, bf16 and f32; returns the JSON entries
+    of both at the headline case (bf16 ``[802816 x 256]``)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    heads = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for n, c in BN_CASES:
+            x = (2.0 * torch.randn(n, c, generator=gen, device=dev)
+                 + 0.5).to(dtype)
+            dy = torch.randn(n, c, generator=gen, device=dev).to(dtype)
+            scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+            mean, var = bn.batch_stats(x)
+            inv = torch.rsqrt(var + 1e-5)
+            got = bn.fused_bn_backward(x, scale, mean, var, dy, eps=1e-5)
+            want = bn.fused_bn_backward(x, scale, mean, var, dy, eps=1e-5,
+                                        force_reference=True)
+            torch.cuda.synchronize()
+            rels = (BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
+                    BN_SUM_TOL, BN_SUM_TOL)
+            errs = [(g.float() - w.float()).abs().max().item()
+                    for g, w in zip(got, want)]
+            tols = [r * w.float().abs().max().item()
+                    for r, w in zip(rels, want)]
+            ok = all(e <= t for e, t in zip(errs, tols)) and all(
+                bool(torch.isfinite(g.float()).all()) for g in got) and \
+                got[0].dtype == dtype and got[1].dtype == torch.float32
+            rec = {"phase": "kernel", "kernel": "bn_bwd",
+                   "dtype": str(dtype).replace("torch.", ""), "n": n,
+                   "c": c, "chunks": bn.reduce_chunks(n, c),
+                   "max_abs_err": dict(zip(("dx", "dgamma", "dbeta"), errs)),
+                   "tol": dict(zip(("dx", "dgamma", "dbeta"), tols)),
+                   "ok": ok}
+            if dtype == torch.bfloat16 and (n, c) == BN_HEADLINE:
+                rec["timing"], heads = time_bn_bwd(bn, x, dy, mean, var,
+                                                   inv, scale, got, errs)
+                ok = ok and rec["timing"]["deterministic"]
+                rec["ok"] = ok
+            log(rec)
+            if not ok:
+                raise AssertionError(f"bn_bwd disagrees: {rec}")
+            del x, dy, got, want
+    return heads
+
+
+def time_bn_bwd(bn, x, dy, mean, var, inv, scale, got, errs) -> tuple:
+    """Kernel, plain and bound times of both passes at the headline shape,
+    a repeat launch that must give bitwise the same results, and the
+    library yardstick: one ``native_batch_norm_backward`` on the
+    channels-last 4-D view with the saved mean and inverse std, train
+    mode, all three outputs (it computes both passes, so both rows carry
+    its time)."""
+    n, c = x.shape
+    esz = x.element_size()
+    dx, dgamma, dbeta = got
+    again = bn.fused_bn_backward(x, scale, mean, var, dy, eps=1e-5)
+    deterministic = all(torch.equal(a, b) for a, b in zip(again, got))
+    ms_red = time_ms(lambda: bn.bn_backward_reduce(x, dy, mean, inv))
+    ms_dx = time_ms(lambda: bn.bn_backward_dx(x, dy, mean, inv, scale,
+                                              dbeta, dgamma))
+    plain_red = time_ms(lambda: bn.bn_backward_reduce(
+        x, dy, mean, inv, force_reference=True), reps=5)
+    plain_dx = time_ms(lambda: bn.bn_backward_dx(
+        x, dy, mean, inv, scale, dbeta, dgamma, force_reference=True),
+        reps=5)
+    side = int(round((n // 256) ** 0.5))
+    lib_dtype = str(x.dtype).replace("torch.", "")
+
+    def library(xl, dyl):
+        x4 = xl.view(256, side, side, c).permute(0, 3, 1, 2)
+        dy4 = dyl.view(256, side, side, c).permute(0, 3, 1, 2)
+        return lambda: torch.ops.aten.native_batch_norm_backward(
+            dy4, x4, scale, None, None, mean, inv, True, 1e-5,
+            [True, True, True])
+    try:
+        lib = time_ms(library(x, dy))
+    except RuntimeError:
+        # bf16 input with an f32 weight refused: time it on f32 copies.
+        lib_dtype = "float32"
+        lib = time_ms(library(x.float(), dy.float()))
+    rows = 4 * c
+    # Pass 1 reads x, dy, mean, inv and writes dbeta, dgamma; pass 2 reads
+    # x, dy and five rows and writes dx.  f32 work per element: xhat (2),
+    # two sums (3); pass 2 xhat (2) and dx (4).
+    b_red, by_red = bound_ms(5.0 * n * c, 2 * n * c * esz + 4 * rows,
+                             H100_F32_FLOPS)
+    b_dx, by_dx = bound_ms(6.0 * n * c, 3 * n * c * esz + 5 * rows,
+                           H100_F32_FLOPS)
+    src = "horovod_tpu_torch/ops/csrc/bn_bwd.cu"
+    entries = (
+        {"name": "bn_bwd_reduce", "route": "cuda", "source": src,
+         "replaces": "horovod_tpu/ops/bn.py:107",
+         "max_abs_err": max(errs[1:]), "ms": ms_red, "plain_ms": plain_red,
+         "bound_ms": b_red, "bound_by": by_red, "library_ms": lib},
+        {"name": "bn_bwd_dx", "route": "cuda", "source": src,
+         "replaces": "horovod_tpu/ops/bn.py:116",
+         "max_abs_err": errs[0], "ms": ms_dx, "plain_ms": plain_dx,
+         "bound_ms": b_dx, "bound_by": by_dx, "library_ms": lib})
+    timing = {"reduce_ms": ms_red, "dx_ms": ms_dx,
+              "plain_reduce_ms": plain_red, "plain_dx_ms": plain_dx,
+              "library_ms": lib, "library_dtype": lib_dtype,
+              "bound_reduce_ms": b_red, "bound_dx_ms": b_dx,
+              "deterministic": deterministic}
+    return timing, entries
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the serving slice end to end
 # ---------------------------------------------------------------------------
@@ -597,6 +731,237 @@ def train_llama(dev, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phases 7-9: the ResNet-50 and LeNet slice
+# ---------------------------------------------------------------------------
+
+
+RESNET50_BN_SITES = 53     # stem + 16 blocks x 3 + 4 projections
+RESNET_F32_GRAD_TOL = 1e-3  # f32 roundoff through the 53-site backward,
+                            # relative to max |plain grad|
+
+
+def resnet50(dev, seed: int, dtype=torch.bfloat16):
+    """ResNet-50 as ``bench.py`` times it (1000 classes, bf16 compute,
+    space-to-depth stem) with flax-initialised random weights."""
+    from horovod_tpu_torch.models import ResNet50, init_resnet_params
+    model = ResNet50(num_classes=1000, dtype=dtype, space_to_depth=True,
+                     device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model.load_state_dict(init_resnet_params(model, generator=gen))
+    return model, gen
+
+
+def images(gen, dev, n: int, classes: int, side: int = 224) -> tuple:
+    x = torch.randn(n, side, side, 3, generator=gen, device=dev).to(
+        torch.bfloat16)
+    y = torch.randint(0, classes, (n,), generator=gen, device=dev)
+    return x, y
+
+
+def check_resnet_grad(dev) -> None:
+    """One loss and backward of ResNet-50 at full width and depth on 32
+    images, through the BN kernels and through their plain versions, in
+    bf16 (the training configuration) and in f32 from the same weights.
+
+    Every BN scale is drawn from N(1, 0.1), so no gradient is 0 by
+    construction -- and every residual branch is live, which makes the
+    backward chaotic: bf16 rounding alone moves most gradients by more
+    than their size (bf16 plain against f32 plain).  So the kernels are
+    held to f32 roundoff in f32 (``RESNET_F32_GRAD_TOL`` of each
+    gradient's max |value|), and in bf16 to bf16's own noise: replacing
+    the plain backward by the kernels must move no bf16 gradient by as
+    much as bf16 moves it from f32.  The forward never touches a kernel,
+    so both losses of a dtype are bitwise equal."""
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.ops.bn import BatchNorm
+    from horovod_tpu_torch.training import softmax_xent
+
+    model, gen = resnet50(dev, seed=5)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.scale.normal_(1.0, 0.1, generator=gen)
+    x, y = images(gen, dev, 32, 1000)
+    m32, _ = resnet50(dev, seed=5, dtype=torch.float32)
+    m32.load_state_dict(model.state_dict())
+    runs = {}
+    for dtype, mod in (("bf16", model), ("f32", m32)):
+        for ref in (False, True):
+            mod.zero_grad(set_to_none=True)
+            registry.reset_launch_counts()
+            loss = softmax_xent(mod(x, force_reference=ref), y)
+            loss.backward()
+            torch.cuda.synchronize()
+            runs[dtype, ref] = (loss.item(), {
+                n: p.grad.float().clone() for n, p in mod.named_parameters()},
+                registry.launch_counts())
+
+    def rel(a, b):
+        return {n: (a[n] - b[n]).abs().max().item()
+                / max(b[n].abs().max().item(), 1e-30) for n in b}
+
+    e_bf16 = rel(runs["bf16", False][1], runs["bf16", True][1])
+    e_f32 = rel(runs["f32", False][1], runs["f32", True][1])
+    floor = rel(runs["bf16", True][1], runs["f32", True][1])
+    want = RESNET50_BN_SITES
+    counts_ok = all(
+        runs[d, False][2]["bn_bwd_reduce"] == want
+        and runs[d, False][2]["bn_bwd_dx"] == want
+        and not any(runs[d, True][2].values()) for d in ("bf16", "f32"))
+    losses_equal = all(runs[d, False][0] == runs[d, True][0]
+                       for d in ("bf16", "f32"))
+    worst_f32 = max((v, n) for n, v in e_f32.items())
+    worst_bf16 = max((v, n) for n, v in e_bf16.items())
+    margin = min((floor[n] / max(v, 1e-30), n) for n, v in e_bf16.items())
+    ok = (losses_equal and counts_ok and len(e_f32) == 161
+          and worst_f32[0] <= RESNET_F32_GRAD_TOL and margin[0] >= 1.0
+          and all(torch.isfinite(g).all() for d in ("bf16", "f32")
+                  for g in runs[d, False][1].values()))
+    log({"phase": "resnet_grad", "config": "ResNet50 s2d",
+         "batch": list(x.shape), "tensors": len(e_f32),
+         "loss_bf16": runs["bf16", False][0],
+         "loss_bf16_plain": runs["bf16", True][0],
+         "loss_f32": runs["f32", False][0],
+         "loss_f32_plain": runs["f32", True][0],
+         "losses_bitwise_equal": losses_equal,
+         "f32_worst_grad_rel_err": worst_f32[0], "f32_worst_grad":
+             worst_f32[1], "f32_tol": RESNET_F32_GRAD_TOL,
+         "bf16_worst_grad_rel_err": worst_bf16[0],
+         "bf16_worst_grad": worst_bf16[1],
+         "bf16_grads_over_2e-2": sum(v > BF16_TOL for v in e_bf16.values()),
+         "bf16_vs_f32_median_rel_err": float(np.median(list(
+             floor.values()))),
+         "bf16_noise_margin": margin[0], "bf16_noise_margin_grad": margin[1],
+         "launches": {d: runs[d, False][2] for d in ("bf16", "f32")},
+         "launches_plain": {d: runs[d, True][2] for d in ("bf16", "f32")},
+         "ok": ok})
+    if not ok:
+        raise AssertionError("ResNet-50 gradients through the BN kernels "
+                             "disagree with the plain backward")
+    del model, m32, runs
+
+
+def train_resnet(dev, card: str) -> dict:
+    """``bench.py``'s ResNet-50 configuration through the port's Horovod
+    path: 256 images of 224 x 224, one warm-up and five timed steps;
+    returns the kernels' launch counts over the timed steps."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.controller.fusion import plan_buckets
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.timeline.metrics import exchange_totals
+    from horovod_tpu_torch.training import make_flax_train_step
+
+    batch_size, steps = 256, 5
+    hvd.init()
+    t0 = time.perf_counter()
+    model, _ = resnet50(dev, seed=0)
+    named = list(model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD([p for _, p in named], lr=0.1, momentum=0.9),
+        named_parameters=named)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    step = make_flax_train_step(model, opt)
+    batch = images(torch.Generator(device=dev).manual_seed(0), dev,
+                   batch_size, 1000)
+    torch.cuda.synchronize()
+    before_p = {n: p.detach().clone() for n, p in named}
+    before_s = {n: b.clone() for n, b in model.named_buffers()}
+    log({"phase": "resnet_init", "config": "ResNet50 s2d bf16",
+         "seconds": time.perf_counter() - t0, "world": hvd.size(),
+         "backend": torch.distributed.get_backend(),
+         "param_tensors": len(named),
+         "param_values": sum(p.numel() for _, p in named),
+         "bn_sites": RESNET50_BN_SITES})
+
+    losses = [step(batch).item()]                  # warm-up
+    planned = len(plan_buckets([p for _, p in named], 64 * 1024 * 1024,
+                               reverse=True).buffers)
+    before = exchange_totals()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(step(batch).item())
+        times.append(time.perf_counter() - t)
+    counts = registry.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: (v - before[k]) / steps
+                for k, v in exchange_totals().items()}
+    step_ms = 1e3 * sum(times) / steps
+    changed = sum(not torch.equal(p, before_p[n]) for n, p in named)
+    stats = dict(model.named_buffers())
+    stats_moved = sum(not torch.equal(b, before_s[n])
+                      and bool(torch.isfinite(b).all())
+                      for n, b in stats.items())
+    log({"phase": "resnet_train", "card": card, "steps": steps,
+         "batch": list(batch[0].shape), "losses": losses,
+         "step_ms": step_ms, "step_ms_each": [1e3 * t for t in times],
+         "images_per_s": batch_size / (step_ms / 1e3),
+         "peak_mem_bytes": peak, "exchange_per_step": per_step,
+         "plan_buckets": planned, "launches": counts,
+         "params_changed": changed, "param_tensors": len(named),
+         "stats_changed_finite": stats_moved, "stat_tensors": len(stats)})
+    want = RESNET50_BN_SITES * steps
+    fails = []
+    if not all(np.isfinite(losses)):
+        fails.append("a loss is not finite")
+    if not losses[-1] < losses[0]:
+        fails.append(f"loss did not fall: {losses}")
+    if changed != len(named):
+        fails.append(f"{len(named) - changed} parameters unchanged")
+    if stats_moved != len(stats):
+        fails.append(f"{len(stats) - stats_moved} running statistics "
+                     f"unchanged or not finite")
+    for f in ("bn_bwd_reduce", "bn_bwd_dx"):
+        if counts[f] != want:
+            fails.append(f"{f} launches {counts[f]} != {want}")
+    if per_step["buckets"] != planned or per_step["handles"] != planned:
+        fails.append(f"buckets/handles per step {per_step} != planned "
+                     f"{planned}")
+    if fails:
+        raise AssertionError("resnet_train: " + "; ".join(fails))
+    hvd.shutdown()
+    del model, named, opt, step, batch, before_p, before_s, stats
+    return counts
+
+
+def train_lenet(dev) -> None:
+    """A few LeNet steps on a synthetic MNIST-like batch (10 gaussian
+    centers, as ``examples/mnist_lenet.py``) with that example's
+    optimizer, SGD(0.01, momentum 0.9), through the same step."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import LeNet, init_params
+    from horovod_tpu_torch.training import make_flax_train_step
+
+    hvd.init()
+    model = LeNet(device=dev)
+    model.load_state_dict(init_params(
+        model, generator=torch.Generator(device=dev).manual_seed(0)))
+    named = list(model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD([p for _, p in named], lr=0.01, momentum=0.9),
+        named_parameters=named)
+    step = make_flax_train_step(model, opt)
+    rng = np.random.RandomState(42)
+    centers = rng.randn(10, 28 * 28).astype(np.float32)
+    y = rng.randint(0, 10, size=256)
+    x = centers[y] + 0.5 * rng.randn(256, 28 * 28).astype(np.float32)
+    batch = (torch.from_numpy(x.reshape(-1, 28, 28, 1)).to(dev),
+             torch.from_numpy(y).to(dev))
+    losses = [step(batch).item() for _ in range(10)]
+    ok = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    log({"phase": "lenet", "batch": [256, 28, 28, 1], "losses": losses,
+         "ok": ok})
+    if not ok:
+        raise AssertionError(f"lenet: the loss did not fall: {losses}")
+    hvd.shutdown()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -604,6 +969,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import attention as attn
+    from horovod_tpu_torch.ops import bn
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -620,21 +986,31 @@ def main() -> int:
     decode = check_decode(attn, dev)
     dq, dkv = check_flash_bwd(attn, dev)
     free_device()
+    bn_red, bn_dx = check_bn_bwd(bn, dev)
+    free_device()
     serve = serve_llama(dev, card)
     free_device()
     check_grad(dev)
     free_device()
     train = train_llama(dev, card)
+    free_device()
+    check_resnet_grad(dev)
+    free_device()
+    resnet = train_resnet(dev, card)
+    free_device()
+    train_lenet(dev)
     # The flash forward runs on both paths: its launches are the sum.
     flash["launches"] = serve["flash"] + train["flash"]
     decode["launches"] = serve["flash_decode"]
     dq["launches"] = train["flash_bwd_dq"]
     dkv["launches"] = train["flash_bwd_dkv"]
+    bn_red["launches"] = resnet["bn_bwd_reduce"]
+    bn_dx["launches"] = resnet["bn_bwd_dx"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     log({"kernels": [{k: e[k] for k in keys}
-                     for e in (flash, decode, dq, dkv)]})
+                     for e in (flash, decode, dq, dkv, bn_red, bn_dx)]})
     print(card, flush=True)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                 "count": torch.cuda.device_count()}})

@@ -1,18 +1,22 @@
 """horovod_tpu_torch: the PyTorch/CUDA port of ``horovod_tpu``.
 
-A second package beside the JAX one, for an NVIDIA H100.  Two slices are
-ported so far:
+A second package beside the JAX one, for an NVIDIA H100.  Three slices
+are ported so far:
 
 * serving: requests in, tokens out, through
   :class:`~horovod_tpu_torch.serving.ServingEngine`;
 * data-parallel LoRA fine-tuning through Horovod's own hot path:
   :func:`init` -> :func:`DistributedOptimizer` over fused,
   optionally compressed allreduce buckets -> the wrapped optimizer, with
-  :func:`~horovod_tpu_torch.training.make_train_step`.
+  :func:`~horovod_tpu_torch.training.make_train_step`;
+* data-parallel ResNet-50 (and LeNet) training on the same path, with
+  :func:`~horovod_tpu_torch.training.make_flax_train_step`, which also
+  averages the BatchNorm running statistics over the ranks.
 
-Attention runs through kernels hand-written in CUDA C++ for ``sm_90a``
-(``ops/csrc``): the flash forward and decode kernels, and the flash
-backward's dq and dk/dv kernels.  The layout mirrors ``horovod_tpu``
+Kernels hand-written in CUDA C++ for ``sm_90a`` (``ops/csrc``) carry
+attention -- the flash forward and decode kernels, the flash backward's
+dq and dk/dv kernels -- and the train-mode BatchNorm backward's two
+passes.  The layout mirrors ``horovod_tpu``
 (``core/``, ``collectives/``, ``controller/``, ``optim/``, ``timeline/``,
 ``models/``, ``ops/``, ``serving/``, ``training.py``) so each module's
 counterpart is easy to find.

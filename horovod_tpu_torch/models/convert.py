@@ -1,4 +1,4 @@
-"""Carry flax Llama weights across into the port.
+"""Carry flax weights across into the port.
 
 A flax ``LlamaLM`` param tree (``{"params": {"layer_0": {"attn": {"wq":
 {"kernel": ...}}}, "tok_embed": ..., "final_norm": {"scale": ...}}}``),
@@ -7,6 +7,12 @@ dict.  Both sides keep ``Dense`` kernels ``[in, out]``, so the
 conversion is a rename: no transpose, no reshape.  A LoRA model's
 ``lora_a`` ``[in, r]`` / ``lora_b`` ``[r, out]`` leaves carry across the
 same way, under ``...wq.lora_a`` etc., and stay f32.
+
+A flax ResNet's or LeNet's ``{"params": ..., "batch_stats": ...}``
+becomes a ``state_dict`` through :func:`resnet_state_from_jax`: the same
+rename, plus HWIO -> OIHW for the 4-D convolution kernels; the
+``batch_stats`` ``mean``/``var`` leaves become the BatchNorm buffers of
+the same dotted names.
 """
 
 from __future__ import annotations
@@ -51,4 +57,26 @@ def params_from_jax(tree_of_numpy: Mapping[str, Any], *,
         if dtype is not None and name.endswith(".kernel"):
             t = t.to(dtype)
         out[name] = t
+    return out
+
+
+def resnet_state_from_jax(variables: Mapping[str, Any], *,
+                          device: Optional[Union[str, torch.device]] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """Flax ``{"params", "batch_stats"}`` of a ResNet or LeNet (numpy
+    leaves) -> the port model's ``state_dict``.
+
+    Convolution kernels go from flax's HWIO to the port's OIHW; ``Dense``
+    kernels stay ``[in, out]``; ``batch_stats/<site>/{mean,var}`` become
+    the buffers ``<site>.mean`` / ``<site>.var``.  Every tensor is an
+    explicit copy: nothing aliases the caller's arrays.
+    """
+    dev = resolve_device(device)
+    out: Dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for name, leaf in _flatten(variables.get(collection, {})).items():
+            a = np.array(leaf, copy=True)
+            if name.rsplit(".", 1)[-1] == "kernel" and a.ndim == 4:
+                a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
+            out[name] = torch.tensor(a, device=dev)
     return out

@@ -309,11 +309,12 @@ class LlamaLM(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> None:
+def _lecun_normal_(t: torch.Tensor, generator: torch.Generator,
+                   fan_in: Optional[int] = None) -> None:
     """flax ``lecun_normal``: truncated normal in [-2, 2] standard
-    deviations, variance ``1 / fan_in`` after truncation (fan_in = the
-    kernel's first dim, ``[in, out]`` layout)."""
-    fan_in = t.shape[0]
+    deviations, variance ``1 / fan_in`` after truncation (fan_in defaults
+    to the kernel's first dim, the ``[in, out]`` layout)."""
+    fan_in = t.shape[0] if fan_in is None else fan_in
     # Std of a unit normal truncated to [-2, 2] (flax's constant).
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,

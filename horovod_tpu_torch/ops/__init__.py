@@ -1,6 +1,9 @@
-"""Attention kernels (CUDA, built on first use) and their plain versions."""
+"""The ported kernels (CUDA, built on first use) and their plain versions:
+attention and the BatchNorm backward."""
 
 from .attention import (attention_reference, decode_attention,  # noqa: F401
                         flash_attention, paged_decode_attention)
+from .bn import (BatchNorm, batch_stats, bn_train,  # noqa: F401
+                 fused_bn_backward)
 from .registry import (KERNEL_CONTRACTS, launch_counts,  # noqa: F401
                        reset_launch_counts)

@@ -22,6 +22,8 @@ import threading
 import time
 from typing import Dict, List
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -35,7 +37,8 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 
 # C entry points: name -> (source, symbol, argtypes).  A source may
-# export several entry points (``flash_bwd.cu``: dq and dk/dv).  Every
+# export several entry points (``flash_bwd.cu``: dq and dk/dv;
+# ``bn_bwd.cu``: the BatchNorm backward's two passes).  Every
 # pointer and the stream are c_void_p (ctypes would cut a Python int to
 # 32 bits).
 ENTRIES = {
@@ -71,6 +74,21 @@ ENTRIES = {
         _P, _P,              # dk, dv
         _I, _I, _I, _I, _I, _I,   # b, h, h_kv, tq, tk, d
         _I, _I, _F,          # dtype, causal, scale
+        _P]),                # stream
+    "bn_bwd_reduce": ("bn_bwd", "hvd_bn_bwd_reduce", [
+        _P, _P,              # x, dy
+        _P, _P,              # mean, inv (f32)
+        _P, _P, _P,          # workspace, dbeta, dgamma (f32)
+        _L, _I, _I,          # n, c, chunks
+        _I, _I,              # vec (16-byte path), dtype
+        _P]),                # stream
+    "bn_bwd_dx": ("bn_bwd", "hvd_bn_bwd_dx", [
+        _P, _P,              # x, dy
+        _P, _P, _P,          # mean, inv, scale (f32)
+        _P, _P,              # dbeta, dgamma (f32)
+        _P,                  # dx
+        _L, _I, _I,          # n, c, chunks
+        _I, _I,              # vec, dtype
         _P]),                # stream
 }
 
@@ -164,3 +182,17 @@ def entry(name: str):
     """The C entry point ``name`` of :data:`ENTRIES`."""
     src, sym, _ = ENTRIES[name]
     return getattr(library(src), sym)
+
+
+def stream(t) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, as the handle an
+    entry point takes (a launch never synchronizes)."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if an entry point returned a CUDA error: a refused launch
+    never runs, and no later synchronize reports it."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{err}")

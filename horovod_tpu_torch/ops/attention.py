@@ -43,7 +43,7 @@ from typing import Optional
 import torch
 
 from . import registry
-from ._build import entry
+from ._build import check_launch, entry, stream
 
 _NEG_INF = -1e30      # softmax mask value (finite: no NaN on empty rows)
 _DEAD_LSE = 1e30      # logsumexp of a dead row
@@ -114,10 +114,6 @@ def _repeat_kv(q, k, v):
 # ---------------------------------------------------------------------------
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _check_cuda(name: str, device: torch.device, dtype, *tensors):
     for t in tensors:
         if t.device != device:
@@ -156,12 +152,6 @@ def _check_index(name: str, t: torch.Tensor, device, shape):
                          f"{tuple(t.shape)}")
 
 
-def _raise_on_error(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
-                           f"{err}")
-
-
 # ---------------------------------------------------------------------------
 # Flash attention forward
 # ---------------------------------------------------------------------------
@@ -188,8 +178,8 @@ def _flash_fwd_cuda(q, k, v, qseg, kseg, *, scale: float, causal: bool):
         None if qseg is None else qseg.data_ptr(),
         None if kseg is None else kseg.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, h, h_kv, tq, tk, d,
-        _DTYPES[q.dtype], int(causal), float(scale), _stream(q))
-    _raise_on_error("flash_fwd", err)
+        _DTYPES[q.dtype], int(causal), float(scale), stream(q))
+    check_launch("flash_fwd", err)
     registry.note_launch("flash")
     return o, lse
 
@@ -353,7 +343,7 @@ def _bwd_cuda_args(name, q, k, v, do, lse, delta, qseg, kseg):
 def _bwd_dims(q, k, causal, scale):
     b, h, tq, d = q.shape
     return [b, h, k.shape[1], tq, k.shape[2], d, _DTYPES[q.dtype],
-            int(causal), float(scale), _stream(q)]
+            int(causal), float(scale), stream(q)]
 
 
 def flash_backward_dq(q, k, v, do, lse, delta, *, causal: bool = False,
@@ -377,7 +367,7 @@ def flash_backward_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     dq = torch.empty_like(q)
     err = entry("flash_bwd_dq")(*args, dq.data_ptr(),
                                 *_bwd_dims(q, k, causal, scale))
-    _raise_on_error("flash_bwd_dq", err)
+    check_launch("flash_bwd_dq", err)
     registry.note_launch("flash_bwd_dq")
     return dq
 
@@ -407,7 +397,7 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = entry("flash_bwd_dkv")(*args, dk.data_ptr(), dv.data_ptr(),
                                  *_bwd_dims(q, k, causal, scale))
-    _raise_on_error("flash_bwd_dkv", err)
+    check_launch("flash_bwd_dkv", err)
     registry.note_launch("flash_bwd_dkv")
     return dk, dv
 
@@ -491,8 +481,8 @@ def _decode_cuda(q, k, v, lengths, page_table, *, scale: float,
         lengths.data_ptr(), o.data_ptr(), m_part.data_ptr(),
         l_part.data_ptr(), acc_part.data_ptr(), b, h, h_kv, d,
         page_size, pps, *strides, splits, per, _DTYPES[q.dtype],
-        float(scale), _stream(q))
-    _raise_on_error("flash_decode", err)
+        float(scale), stream(q))
+    check_launch("flash_decode", err)
     registry.note_launch("flash_decode")
     return o
 

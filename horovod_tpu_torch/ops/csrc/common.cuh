@@ -1,5 +1,5 @@
-// Helpers shared by the attention kernels: f32/bf16 conversion, 16-byte
-// vector loads of eight elements into f32, and warp reductions.
+// Helpers shared by the kernels: f32/bf16 conversion, 16-byte vector
+// loads and stores of eight elements as f32, and warp reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,6 +44,26 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ p,
     dst[2 * i] = f.x;
     dst[2 * i + 1] = f.y;
   }
+}
+
+// Eight f32 values to eight consecutive elements at a 16-byte aligned
+// address (bf16: rounded to nearest even, as from_float).
+__device__ __forceinline__ void store8(float* __restrict__ p,
+                                       const float* __restrict__ src) {
+  reinterpret_cast<float4*>(p)[0] =
+      make_float4(src[0], src[1], src[2], src[3]);
+  reinterpret_cast<float4*>(p)[1] =
+      make_float4(src[4], src[5], src[6], src[7]);
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* __restrict__ p,
+                                       const float* __restrict__ src) {
+  uint4 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = raw;
 }
 
 __device__ __forceinline__ void zero8(float* dst) {

@@ -46,6 +46,22 @@ KERNEL_CONTRACTS = {
         "note": "split-KV single-token attention read through the page "
                 "table, plus a log-sum-exp merge pass",
     },
+    "bn_bwd_reduce": {
+        "source": "horovod_tpu_torch/ops/csrc/bn_bwd.cu",
+        "site": "ops.bn.bn_backward_reduce (bn_train's backward, every "
+                "BatchNorm site in train mode)",
+        "replaces": "horovod_tpu/ops/bn.py::_bn_bwd_kernels "
+                    "(_reduce_kernel)",
+        "note": "per channel dbeta = sum(dy), dgamma = sum(dy * xhat): "
+                "per-chunk partials, then a fixed-order finishing launch "
+                "(counted with it, once per call)",
+    },
+    "bn_bwd_dx": {
+        "source": "horovod_tpu_torch/ops/csrc/bn_bwd.cu",
+        "site": "ops.bn.bn_backward_dx (bn_train's backward)",
+        "replaces": "horovod_tpu/ops/bn.py::_bn_bwd_kernels (_dx_kernel)",
+        "note": "dx = scale * inv * (dy - dbeta / n - xhat * dgamma / n)",
+    },
 }
 
 _launches: Dict[str, int] = {name: 0 for name in KERNEL_CONTRACTS}

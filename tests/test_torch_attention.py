@@ -254,14 +254,16 @@ def test_cpu_path_never_counts_a_launch():
         ).backward()
     qd, kd, vd, lengths = _decode_inputs(9)
     tattn.decode_attention(_t(qd), _t(kd), _t(vd), lengths=_t(lengths))
-    families = {"flash", "flash_decode", "flash_bwd_dq", "flash_bwd_dkv"}
+    families = {"flash", "flash_decode", "flash_bwd_dq", "flash_bwd_dkv",
+                "bn_bwd_reduce", "bn_bwd_dx"}
     assert registry.launch_counts() == dict.fromkeys(families, 0)
     assert set(registry.KERNEL_CONTRACTS) == families
 
 
 def test_build_command_targets_sm90a_without_running_nvcc():
     out = os.path.join(_build.BUILD_DIR, "x.so")
-    assert set(_build.SOURCES) == {"flash_fwd", "flash_decode", "flash_bwd"}
+    assert set(_build.SOURCES) == {"flash_fwd", "flash_decode", "flash_bwd",
+                                   "bn_bwd"}
     for name in _build.SOURCES:
         cmd = _build.nvcc_command(name, out)
         joined = " ".join(cmd)

@@ -11,7 +11,9 @@ no JAX; run it there without the suite's JAX conftest::
 Tolerances: f32 atol 1e-5 (the kernels only reorder the sums), and 1e-5
 of max |grad| for the backward's gradients; bf16 2e-2 of the reference's
 largest |value| (one bf16 rounding of the output, plus f32 sums in
-another order).
+another order).  The BatchNorm backward: dx within 1e-5 (f32) or 2e-2
+(bf16) of max |dx|, dgamma and dbeta within 1e-4 of their max |value|
+(sums over up to 3.2 M rows in another order).
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 
 from horovod_tpu_torch.models.transformer import tied_readout
 from horovod_tpu_torch.ops import attention as tattn
+from horovod_tpu_torch.ops import bn as tbn
 from horovod_tpu_torch.ops import registry
 
 ATOL = 1e-5
@@ -156,7 +159,7 @@ def test_cuda_flash_autograd_matches_plain_autograd(cuda):
         n = 0 if ref else 1
         assert registry.launch_counts() == {
             "flash": n, "flash_decode": 0, "flash_bwd_dq": n,
-            "flash_bwd_dkv": n}
+            "flash_bwd_dkv": n, "bn_bwd_reduce": 0, "bn_bwd_dx": 0}
         grads.append((q.grad, k.grad, v.grad))
     for g, w in zip(*grads):
         assert (g - w).abs().max().item() <= 1e-4
@@ -211,3 +214,121 @@ def test_cuda_readout_stays_f32_under_tf32(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
     assert (got - want).abs().max().item() < 1e-3
+
+
+BN_SUM_REL = 1e-4
+
+
+def _bn_inputs(rng, n, c, dtype, cuda):
+    """x with an offset (so xhat differs from x), dy, scale near 1."""
+    x = (2.0 * _randn(rng, n, c) + 0.5).to(cuda, dtype)
+    dy = _randn(rng, n, c).to(cuda, dtype)
+    scale = (1.0 + 0.1 * _randn(rng, c)).to(cuda)
+    return x, dy, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c", [(37, 3), (1000, 8), (3211264, 64),
+                                 (802816, 256), (12544, 2048)])
+def test_cuda_bn_backward_kernels_match_plain(cuda, dtype, n, c):
+    """Both BN backward kernels against the plain closed form: a ragged N
+    with C below one vector, C of one vector, and three ResNet-50 sites
+    at batch 256 (the stem, stage 1's widest, stage 4)."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(16)
+    x, dy, scale = _bn_inputs(rng, n, c, dt, cuda)
+    mean, var = tbn.batch_stats(x)
+    registry.reset_launch_counts()
+    got = tbn.fused_bn_backward(x, scale, mean, var, dy, eps=1e-5)
+    assert registry.launches("bn_bwd_reduce") == 1
+    assert registry.launches("bn_bwd_dx") == 1
+    want = tbn.fused_bn_backward(x, scale, mean, var, dy, eps=1e-5,
+                                 force_reference=True)
+    assert registry.launches("bn_bwd_reduce") == 1
+    assert got[0].dtype == dt and got[1].dtype == got[2].dtype == \
+        torch.float32
+    rels = (ATOL if dt == torch.float32 else BF16_REL, BN_SUM_REL,
+            BN_SUM_REL)
+    for g, w, rel in zip(got, want, rels):
+        assert g.shape == w.shape
+        assert (g.float() - w.float()).abs().max().item() <= \
+            rel * w.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_bn_backward_is_deterministic(cuda):
+    """No atomics: two launches give bitwise the same dx, dgamma, dbeta."""
+    rng = np.random.RandomState(17)
+    x, dy, scale = _bn_inputs(rng, 802816, 256, torch.bfloat16, cuda)
+    mean, var = tbn.batch_stats(x)
+    first = tbn.fused_bn_backward(x, scale, mean, var, dy, eps=1e-5)
+    second = tbn.fused_bn_backward(x, scale, mean, var, dy, eps=1e-5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_bn_backward_scalar_path_on_unaligned_views(cuda):
+    """A view 2 bytes off 16-byte alignment takes the one-element path
+    and still agrees with the plain version."""
+    rng = np.random.RandomState(18)
+    base = _randn(rng, 1 + 512 * 16).to(cuda, torch.bfloat16)
+    x = base[1:].view(512, 16)
+    dy = _randn(rng, 1 + 512 * 16).to(cuda, torch.bfloat16)[1:].view(
+        512, 16)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    scale = (1.0 + 0.1 * _randn(rng, 16)).to(cuda)
+    mean, var = tbn.batch_stats(x)
+    got = tbn.fused_bn_backward(x, scale, mean, var, dy, eps=1e-5)
+    want = tbn.fused_bn_backward(x, scale, mean, var, dy, eps=1e-5,
+                                 force_reference=True)
+    for g, w, rel in zip(got, want, (BF16_REL, BN_SUM_REL, BN_SUM_REL)):
+        assert (g.float() - w.float()).abs().max().item() <= \
+            rel * w.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_resnet_bn_sites_launch_the_kernels(cuda, monkeypatch):
+    """A small bf16 ResNet in train mode on the card: one launch of each
+    BN kernel per BN site, every site's input and gradient contiguous as
+    they arrive (nothing to copy), and gradients within 2e-2 of max |grad|
+    of the same backward through the plain versions."""
+    from horovod_tpu_torch.models import ResNet, init_resnet_params
+    from horovod_tpu_torch.models.resnet import BottleneckBlock
+    from horovod_tpu_torch.training import softmax_xent
+    model = ResNet(stage_sizes=[1, 1], block_cls=BottleneckBlock,
+                   num_classes=10, num_filters=16, space_to_depth=True,
+                   device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model.load_state_dict(init_resnet_params(model, generator=gen))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, tbn.BatchNorm):
+                m.scale.normal_(1.0, 0.1, generator=gen)
+    seen = []
+    real = tbn.fused_bn_backward
+
+    def spy(x, scale, mean, var, dy, **kw):
+        seen.append(x.is_contiguous() and dy.is_contiguous())
+        return real(x, scale, mean, var, dy, **kw)
+
+    monkeypatch.setattr(tbn, "fused_bn_backward", spy)
+    rng = np.random.RandomState(19)
+    x = _randn(rng, 4, 32, 32, 3).to(cuda)
+    y = torch.from_numpy(rng.randint(0, 10, 4)).to(cuda)
+    sites = sum(isinstance(m, tbn.BatchNorm) for m in model.modules())
+    grads = []
+    for ref in (False, True):
+        model.zero_grad(set_to_none=True)
+        registry.reset_launch_counts()
+        softmax_xent(model(x, force_reference=ref), y).backward()
+        n = 0 if ref else sites
+        assert registry.launches("bn_bwd_reduce") == n
+        assert registry.launches("bn_bwd_dx") == n
+        grads.append({k: p.grad.float() for k, p in
+                      model.named_parameters()})
+    assert len(seen) == 2 * sites and all(seen)
+    for k, w in grads[1].items():
+        assert (grads[0][k] - w).abs().max().item() <= \
+            BF16_REL * max(w.abs().max().item(), 1e-30), k
