@@ -14,9 +14,12 @@ Phases, each printing its own line; any failure exits non-zero:
    at its path's shapes (serving: flash forward and decode; training:
    the flash backward's dq and dk/dv; ResNet: the BatchNorm backward's
    two passes, at a ragged N, a C below one vector and three ResNet-50
-   sites at batch 256, bitwise repeatable), with its time, the plain
-   version's time, one PyTorch library call's time for the same
-   function, and the least time the card could take (``bound_ms``).
+   sites at batch 256, bitwise repeatable; PowerSGD: the three
+   ``fused_update`` stages at both ResNet-50 bucket shapes, r = 1 and
+   4, with and without a residual, Average and Sum with a postscale,
+   bitwise repeatable), with its time, the plain version's time, one
+   PyTorch library call's time for the same function where one exists,
+   and the least time the card could take (``bound_ms``).
 4. serve -- Llama-3 8B at full width and depth (random bf16 weights from
    a seed) serves 8 requests through ``ServingEngine``; the kernels'
    launch counters must show the main path went through them, and the
@@ -47,7 +50,16 @@ Phases, each printing its own line; any failure exits non-zero:
    ``make_flax_train_step``, one warm-up and five timed steps.  Losses
    finite and falling, every parameter and running statistic changed,
    53 launches of each BN kernel a step, buckets as planned.
-9. lenet -- ten LeNet steps on a synthetic MNIST-like batch with
+9. resnet_powersgd -- the same with ``compression="powersgd:4"``
+   (``bench.py``'s ``HOROVOD_COMPRESSION=powersgd:4`` variant): the
+   rank-4 PowerSGD exchange with its error-feedback residuals, each
+   bucket through the three ``fused_update`` kernels and two factor
+   allreduces.  One warm-up step, whose two real buckets are exchanged
+   again through the plain versions (out and new residual within 1e-4 of
+   their max), and five timed steps: losses finite and falling, 161 of
+   161 parameters changed, residuals finite and non-zero, 2 buckets, 4
+   handles and 227,888 wire bytes a step, 10 launches of each stage.
+10. lenet -- ten LeNet steps on a synthetic MNIST-like batch with
    ``examples/mnist_lenet.py``'s SGD(0.01, momentum 0.9); the loss falls.
 
 Then one JSON line of per-kernel numbers, the card line, and last the
@@ -504,6 +516,164 @@ def time_bn_bwd(bn, x, dy, mean, var, inv, scale, got, errs) -> tuple:
     return timing, entries
 
 
+# ResNet-50's two error-feedback buckets under powersgd:4 (forward flax
+# leaf order, 64 MiB threshold): 76 leaves of 15,053,824 values, viewed as
+# [3880, 3880] (pad 576), and 85 of 10,506,088 as [3242, 3241] (pad 1234).
+POWERSGD_RANK = 4
+POWERSGD_BUCKETS = (15053824, 10506088)
+POWERSGD_WIRE_BYTES = 227888   # 4 r (m + c) f32 over both buckets a step
+POWERSGD_TOL = 1e-5            # stages: relative to max |plain|, sums of up
+                               # to 3,880 terms in another order
+POWERSGD_STEP_TOL = 1e-4       # a step's whole exchange, kernels vs plain
+# Stage-3 scalings: Average at world 1, and Sum's n with a postscale.
+POWERSGD_SCALINGS = (("average", 1.0, 1.0, 1.0),
+                     ("sum_postscale", 0.5, 2.0, 0.25))
+
+
+def powersgd_stage_pairs(fu, x, res, q0, m, size, pre, n_scale, post):
+    """The three PowerSGD stages through the kernels and through their
+    plain versions, each kernel fed the plain chain's inputs; a mean Q
+    unlike this rank's own feeds stage 3.  Returns ``(kernel outputs,
+    plain outputs)``: acc, p, p_orth, q_local, out, residual."""
+    acc_w, p_w = fu.matricize_p(x, res, q0, rows=m, prescale=pre,
+                                force_reference=True)
+    po_w, ql_w = fu.orthonormalize_q(acc_w, p_w, force_reference=True)
+    q = ql_w * 0.75 + 0.01
+    out_w, res_w = fu.reconstruct_residual(
+        acc_w, po_w, q, ql_w, size=size, n_scale=n_scale, postscale=post,
+        force_reference=True)
+    acc, p = fu.matricize_p(x, res, q0, rows=m, prescale=pre)
+    po, ql = fu.orthonormalize_q(acc_w, p_w)
+    out, new_res = fu.reconstruct_residual(acc_w, po_w, q, ql_w, size=size,
+                                           n_scale=n_scale, postscale=post)
+    return ((acc, p, po, ql, out, new_res),
+            (acc_w, p_w, po_w, ql_w, out_w, res_w), q)
+
+
+def check_fused_update(dev) -> tuple:
+    """The PowerSGD exchange's three kernels against their plain versions
+    at both ResNet-50 bucket shapes, with and without a residual, r = 1
+    and r = 4, Average and Sum with a postscale; returns the JSON entries
+    of the three at the headline case (the 3880 x 3880 bucket, r = 4,
+    with a residual, Average)."""
+    from horovod_tpu_torch.collectives.compression import \
+        powersgd_matrix_shape
+    from horovod_tpu_torch.collectives.ops import _powersgd_seed_matrix
+    from horovod_tpu_torch.ops import fused_update as fu
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    names = ("acc", "p", "p_orth", "q_local", "out", "residual")
+    worst = dict.fromkeys(names, 0.0)
+    heads = None
+    for size in POWERSGD_BUCKETS:
+        m, c = powersgd_matrix_shape(size)
+        for r in (1, POWERSGD_RANK):
+            q0 = _powersgd_seed_matrix(c, r, dev)
+            for residual in (False, True):
+                x = torch.randn(size, generator=gen, device=dev)
+                res = torch.randn(size, generator=gen, device=dev) \
+                    if residual else None
+                for scaling, pre, n_scale, post in POWERSGD_SCALINGS:
+                    got, want, q = powersgd_stage_pairs(
+                        fu, x, res, q0, m, size, pre, n_scale, post)
+                    torch.cuda.synchronize()
+                    errs = {n: (g - w).abs().max().item()
+                            for n, g, w in zip(names, got, want)}
+                    tols = {n: 0.0 if n == "acc" else
+                            POWERSGD_TOL * w.abs().max().item()
+                            for n, w in zip(names, want)}
+                    ok = all(errs[n] <= tols[n] for n in names) and all(
+                        bool(torch.isfinite(g).all()) for g in got) and \
+                        bool((got[0].reshape(-1)[size:] == 0).all())
+                    rec = {"phase": "kernel", "kernel": "fused_update",
+                           "size": size, "m": m, "c": c, "r": r,
+                           "residual": residual, "scaling": scaling,
+                           "chunks": fu.q_chunks(m, c), "max_abs_err": errs,
+                           "tol": tols, "ok": ok}
+                    for n in names:
+                        worst[n] = max(worst[n], errs[n])
+                    if (size, r, residual, scaling) == (
+                            POWERSGD_BUCKETS[0], POWERSGD_RANK, True,
+                            "average"):
+                        rec["timing"], heads = time_fused_update(
+                            fu, x, res, q0, m, size, got, want, q)
+                        ok = ok and rec["timing"]["deterministic"]
+                        rec["ok"] = ok
+                    log(rec)
+                    if not ok:
+                        raise AssertionError(f"fused_update disagrees: "
+                                             f"{rec}")
+                    del got, want, q
+                del x, res
+    errs = (max(worst["acc"], worst["p"]),
+            max(worst["p_orth"], worst["q_local"]),
+            max(worst["out"], worst["residual"]))
+    for e, err in zip(heads, errs):
+        e["max_abs_err"] = err
+    return heads
+
+
+def time_fused_update(fu, x, res, q0, m, size, got, want, q) -> tuple:
+    """Kernel, plain and bound times of the three stages at the headline
+    case, a repeat launch of each that must give bitwise the same outputs,
+    and -- as information only, since no one PyTorch call computes any of
+    the three -- cuBLAS-backed ``torch.add`` + ``torch.mm`` chains that do
+    each stage's arithmetic."""
+    c, r = q0.shape
+    acc_w, p_w, po_w, ql_w = want[:4]
+    again = (*fu.matricize_p(x, res, q0, rows=m),
+             *fu.orthonormalize_q(acc_w, p_w),
+             *fu.reconstruct_residual(acc_w, po_w, q, ql_w, size=size))
+    deterministic = all(torch.equal(a, b) for a, b in zip(again, got))
+    ms = (time_ms(lambda: fu.matricize_p(x, res, q0, rows=m)),
+          time_ms(lambda: fu.orthonormalize_q(acc_w, p_w)),
+          time_ms(lambda: fu.reconstruct_residual(acc_w, po_w, q, ql_w,
+                                                  size=size)))
+    plain = (time_ms(lambda: fu.matricize_p(x, res, q0, rows=m,
+                                            force_reference=True), reps=5),
+             time_ms(lambda: fu.orthonormalize_q(acc_w, p_w,
+                                                 force_reference=True),
+                     reps=5),
+             time_ms(lambda: fu.reconstruct_residual(
+                 acc_w, po_w, q, ql_w, size=size, force_reference=True),
+                 reps=5))
+    x_mat = F.pad(x, (0, m * c - size)).view(m, c)
+    res_mat = F.pad(res, (0, m * c - size)).view(m, c)
+    lib = (time_ms(lambda: torch.mm(torch.add(x_mat, res_mat), q0)),
+           time_ms(lambda: torch.mm(acc_w.T, po_w)),
+           time_ms(lambda: (torch.mm(po_w, q.T),
+                            torch.sub(acc_w, torch.mm(po_w, ql_w.T)))))
+    # Bytes each stage must move, each input read once and each output
+    # written once; f32 work: stage 1 the residual add and r products
+    # (2 r), stage 2 the projection (2 r) and Gram-Schmidt's r (r + 1) / 2
+    # dot products and updates over m rows, stage 3 two r-term sums and
+    # the subtraction.  All f32, off the tensor cores.
+    mc, fac_m, fac_c = m * c, 4 * m * r, 4 * c * r
+    nbytes = (size * (x.element_size() + 4) + 4 * mc + fac_c + fac_m,
+              4 * mc + 3 * fac_m + fac_c,
+              12 * size + fac_m + 2 * fac_c)
+    flops = (size + 2.0 * r * mc,
+             2.0 * r * mc + 4.0 * m * r * (r + 1) / 2 + 3.0 * m * r,
+             (4.0 * r + 1) * size)
+    bounds = [bound_ms(f, b, H100_F32_FLOPS) for f, b in zip(flops, nbytes)]
+    src = "horovod_tpu_torch/ops/csrc/fused_update.cu"
+    rows = (("fused_update_matricize_p", 99),
+            ("fused_update_orthonormalize_q", 152),
+            ("fused_update_reconstruct", 205))
+    entries = tuple(
+        {"name": name, "route": "cuda", "source": src,
+         "replaces": f"horovod_tpu/ops/fused_update.py:{line}",
+         "ms": t, "plain_ms": pt, "bound_ms": b[0], "bound_by": b[1],
+         "library_ms": None}
+        for (name, line), t, pt, b in zip(rows, ms, plain, bounds))
+    timing = {"matricize_p_ms": ms[0], "orthonormalize_q_ms": ms[1],
+              "reconstruct_ms": ms[2], "plain_ms": list(plain),
+              "bound_ms": [b[0] for b in bounds],
+              "bound_by": [b[1] for b in bounds], "bytes": list(nbytes),
+              "add_mm_info_ms": list(lib), "deterministic": deterministic}
+    return timing, entries
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the serving slice end to end
 # ---------------------------------------------------------------------------
@@ -732,11 +902,12 @@ def train_llama(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 7-9: the ResNet-50 and LeNet slice
+# Phases 7-10: the ResNet-50 (plain and PowerSGD) and LeNet slices
 # ---------------------------------------------------------------------------
 
 
 RESNET50_BN_SITES = 53     # stem + 16 blocks x 3 + 4 projections
+RESNET50_PARAM_TENSORS = 161
 RESNET_F32_GRAD_TOL = 1e-3  # f32 roundoff through the 53-site backward,
                             # relative to max |plain grad|
 
@@ -814,7 +985,8 @@ def check_resnet_grad(dev) -> None:
     worst_f32 = max((v, n) for n, v in e_f32.items())
     worst_bf16 = max((v, n) for n, v in e_bf16.items())
     margin = min((floor[n] / max(v, 1e-30), n) for n, v in e_bf16.items())
-    ok = (losses_equal and counts_ok and len(e_f32) == 161
+    ok = (losses_equal and counts_ok
+          and len(e_f32) == RESNET50_PARAM_TENSORS
           and worst_f32[0] <= RESNET_F32_GRAD_TOL and margin[0] >= 1.0
           and all(torch.isfinite(g).all() for d in ("bf16", "f32")
                   for g in runs[d, False][1].values()))
@@ -860,7 +1032,7 @@ def train_resnet(dev, card: str) -> dict:
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     opt = hvd.DistributedOptimizer(
         torch.optim.SGD([p for _, p in named], lr=0.1, momentum=0.9),
-        named_parameters=named)
+        named_parameters=named, compression=hvd.Compression.none)
     hvd.broadcast_optimizer_state(opt, root_rank=0)
     step = make_flax_train_step(model, opt)
     batch = images(torch.Generator(device=dev).manual_seed(0), dev,
@@ -929,6 +1101,140 @@ def train_resnet(dev, card: str) -> dict:
     return counts
 
 
+def train_resnet_powersgd(dev, card: str) -> dict:
+    """``resnet_train``'s configuration with ``compression="powersgd:4"``:
+    the rank-4 PowerSGD exchange with error feedback, each bucket through
+    the three fused_update kernels and two factor allreduces.  The first
+    (warm-up) step's real buckets are exchanged again through the plain
+    versions and compared; returns the kernels' launch counts over the
+    five timed steps."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.collectives.compression import wire_payload_bytes
+    from horovod_tpu_torch.collectives.ops import powersgd_allreduce
+    from horovod_tpu_torch.ops import fused_update as fu
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.timeline.metrics import (exchange_totals,
+                                                    registry as metrics)
+    from horovod_tpu_torch.training import make_flax_train_step
+
+    batch_size, steps = 256, 5
+    hvd.init()
+    t0 = time.perf_counter()
+    model, _ = resnet50(dev, seed=0)
+    named = list(model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD([p for _, p in named], lr=0.1, momentum=0.9),
+        named_parameters=named, compression=f"powersgd:{POWERSGD_RANK}")
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    step = make_flax_train_step(model, opt)
+    batch = images(torch.Generator(device=dev).manual_seed(0), dev,
+                   batch_size, 1000)
+    sizes = [sum(s.size for s in lspecs)
+             for _, lspecs in opt.bucket_plan.buffers]
+    wire = sum(wire_payload_bytes(opt._compression, n) for n in sizes)
+    torch.cuda.synchronize()
+    before_p = {n: p.detach().clone() for n, p in named}
+    log({"phase": "resnet_powersgd_init", "config": "ResNet50 s2d bf16",
+         "compression": opt._compression.__name__,
+         "seconds": time.perf_counter() - t0, "world": hvd.size(),
+         "backend": torch.distributed.get_backend(),
+         "bucket_values": sizes,
+         "bucket_leaves": [len(l) for _, l in opt.bucket_plan.buffers],
+         "wire_bytes_per_step": wire,
+         "compression_ratio": metrics().gauge(
+             "horovod_compression_ratio").value})
+
+    # The warm-up step, with every exchange's stage-1 inputs and stage-3
+    # outputs recorded (paired through their acc arena).
+    seen = []
+    real_mp, real_rr = fu.matricize_p, fu.reconstruct_residual
+
+    def matricize_p(x, residual, q0, **kw):
+        acc, p = real_mp(x, residual, q0, **kw)
+        seen.append({"acc": acc, "x": x, "residual": residual})
+        return acc, p
+
+    def reconstruct_residual(acc, *args, **kw):
+        out = real_rr(acc, *args, **kw)
+        next(e for e in seen if e["acc"] is acc)["got"] = out
+        return out
+
+    fu.matricize_p, fu.reconstruct_residual = (matricize_p,
+                                               reconstruct_residual)
+    try:
+        losses = [step(batch).item()]
+    finally:
+        fu.matricize_p, fu.reconstruct_residual = real_mp, real_rr
+    first = []
+    for e in seen:
+        want = powersgd_allreduce(e["x"], hvd.Average, rank=POWERSGD_RANK,
+                                  residual=e["residual"],
+                                  force_reference=True)
+        errs = [(g - w).abs().max().item() for g, w in zip(e["got"], want)]
+        tols = [POWERSGD_STEP_TOL * w.abs().max().item() for w in want]
+        first.append({"size": e["x"].numel(), "out_err": errs[0],
+                      "out_tol": tols[0], "residual_err": errs[1],
+                      "residual_tol": tols[1],
+                      "ok": all(a <= b for a, b in zip(errs, tols))})
+    del seen
+
+    before = exchange_totals()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(step(batch).item())
+        times.append(time.perf_counter() - t)
+    counts = registry.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: (v - before[k]) / steps
+                for k, v in exchange_totals().items()}
+    step_ms = 1e3 * sum(times) / steps
+    changed = sum(not torch.equal(p, before_p[n]) for n, p in named)
+    residuals = [{"values": r.numel(), "finite": bool(torch.isfinite(r).all()),
+                  "max_abs": r.abs().max().item()} for r in opt.residuals]
+    log({"phase": "resnet_powersgd", "card": card, "steps": steps,
+         "batch": list(batch[0].shape), "losses": losses,
+         "step_ms": step_ms, "step_ms_each": [1e3 * t for t in times],
+         "images_per_s": batch_size / (step_ms / 1e3),
+         "peak_mem_bytes": peak, "exchange_per_step": per_step,
+         "launches": counts, "params_changed": changed,
+         "param_tensors": len(named), "residuals": residuals,
+         "first_step_exchange": first})
+    fails = []
+    if not all(np.isfinite(losses)):
+        fails.append("a loss is not finite")
+    if not losses[-1] < losses[0]:
+        fails.append(f"loss did not fall: {losses}")
+    if changed != len(named) or len(named) != RESNET50_PARAM_TENSORS:
+        fails.append(f"{changed} of {len(named)} parameters changed")
+    if not all(r["finite"] and r["max_abs"] > 0 for r in residuals):
+        fails.append(f"a residual is zero or not finite: {residuals}")
+    if sizes != list(POWERSGD_BUCKETS) or wire != POWERSGD_WIRE_BYTES:
+        fails.append(f"EF plan {sizes}, {wire} wire bytes")
+    nb = len(POWERSGD_BUCKETS)
+    if per_step != {"buckets": nb, "wire_bytes": POWERSGD_WIRE_BYTES,
+                    "handles": 2 * nb}:
+        fails.append(f"exchange per step {per_step}")
+    for f in ("fused_update_matricize_p", "fused_update_orthonormalize_q",
+              "fused_update_reconstruct"):
+        if counts[f] != nb * steps:
+            fails.append(f"{f} launches {counts[f]} != {nb * steps}")
+    for f in ("bn_bwd_reduce", "bn_bwd_dx"):
+        if counts[f] != RESNET50_BN_SITES * steps:
+            fails.append(f"{f} launches {counts[f]}")
+    if len(first) != nb or not all(e["ok"] for e in first):
+        fails.append(f"first step's exchange vs plain: {first}")
+    if fails:
+        raise AssertionError("resnet_powersgd: " + "; ".join(fails))
+    hvd.shutdown()
+    del model, named, opt, step, batch, before_p
+    return counts
+
+
 def train_lenet(dev) -> None:
     """A few LeNet steps on a synthetic MNIST-like batch (10 gaussian
     centers, as ``examples/mnist_lenet.py``) with that example's
@@ -988,6 +1294,8 @@ def main() -> int:
     free_device()
     bn_red, bn_dx = check_bn_bwd(bn, dev)
     free_device()
+    fused = check_fused_update(dev)
+    free_device()
     serve = serve_llama(dev, card)
     free_device()
     check_grad(dev)
@@ -998,6 +1306,8 @@ def main() -> int:
     free_device()
     resnet = train_resnet(dev, card)
     free_device()
+    powersgd = train_resnet_powersgd(dev, card)
+    free_device()
     train_lenet(dev)
     # The flash forward runs on both paths: its launches are the sum.
     flash["launches"] = serve["flash"] + train["flash"]
@@ -1006,11 +1316,14 @@ def main() -> int:
     dkv["launches"] = train["flash_bwd_dkv"]
     bn_red["launches"] = resnet["bn_bwd_reduce"]
     bn_dx["launches"] = resnet["bn_bwd_dx"]
+    for e in fused:
+        e["launches"] = powersgd[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     log({"kernels": [{k: e[k] for k in keys}
-                     for e in (flash, decode, dq, dkv, bn_red, bn_dx)]})
+                     for e in (flash, decode, dq, dkv, bn_red, bn_dx,
+                               *fused)]})
     print(card, flush=True)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                 "count": torch.cuda.device_count()}})

@@ -1,6 +1,6 @@
 """horovod_tpu_torch: the PyTorch/CUDA port of ``horovod_tpu``.
 
-A second package beside the JAX one, for an NVIDIA H100.  Three slices
+A second package beside the JAX one, for an NVIDIA H100.  Four slices
 are ported so far:
 
 * serving: requests in, tokens out, through
@@ -11,13 +11,16 @@ are ported so far:
   :func:`~horovod_tpu_torch.training.make_train_step`;
 * data-parallel ResNet-50 (and LeNet) training on the same path, with
   :func:`~horovod_tpu_torch.training.make_flax_train_step`, which also
-  averages the BatchNorm running statistics over the ranks.
+  averages the BatchNorm running statistics over the ranks;
+* the compressed exchange ``compression="powersgd:<r>"``
+  (``Compression.powersgd(r)``): rank-``r`` PowerSGD factor allreduces
+  with the error-feedback residual carried by the optimizer.
 
 Kernels hand-written in CUDA C++ for ``sm_90a`` (``ops/csrc``) carry
 attention -- the flash forward and decode kernels, the flash backward's
-dq and dk/dv kernels -- and the train-mode BatchNorm backward's two
-passes.  The layout mirrors ``horovod_tpu``
-(``core/``, ``collectives/``, ``controller/``, ``optim/``, ``timeline/``,
+dq and dk/dv kernels -- the train-mode BatchNorm backward's two
+passes, and the three stages of the PowerSGD exchange.  The layout
+mirrors ``horovod_tpu`` (``core/``, ``collectives/``, ``controller/``, ``optim/``, ``timeline/``,
 ``models/``, ``ops/``, ``serving/``, ``training.py``) so each module's
 counterpart is easy to find.
 

@@ -3,9 +3,10 @@
 Counterpart of ``horovod_tpu/collectives/ops.py``'s eager surface:
 :func:`allreduce` with ``prescale_factor`` / ``postscale_factor``,
 :func:`grouped_allreduce`, :func:`allgather`, :func:`broadcast` and
-:func:`barrier`.  Each synchronous op has an ``*_async`` twin that returns
-a :class:`Handle` around the ``torch.distributed`` work object; the
-result is ready after ``handle.wait()``.
+:func:`barrier`, and the PowerSGD exchange :func:`powersgd_allreduce`.
+Each synchronous op has an ``*_async`` twin that returns a
+:class:`Handle` around the ``torch.distributed`` work object; the result
+is ready after ``handle.wait()``.
 
 Arithmetic follows the JAX ops: ``Average`` is a sum followed by a
 division in the tensor's own dtype (truncating for integers), with the
@@ -16,13 +17,15 @@ that the DistributedOptimizer uses on its own fusion buffers.
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from ..core.basics import _require_init
 from ..core.exceptions import HorovodInternalError
+from ..ops import fused_update as fu
+from .compression import powersgd_effective_rank, powersgd_matrix_shape
 from .reduce_op import Average, Max, Min, Product, ReduceOp, Sum
 
 _TORCH_OPS = {
@@ -176,6 +179,97 @@ def broadcast_(tensor: torch.Tensor, root_rank: int = 0) -> torch.Tensor:
     return broadcast_async_(tensor, root_rank).wait()
 
 
+_SEED_MATRICES: Dict[Tuple[int, int, str], torch.Tensor] = {}
+
+
+def _powersgd_seed_matrix(cols: int, rank: int,
+                          device: Union[str, torch.device] = "cpu"
+                          ) -> torch.Tensor:
+    """The deterministic right-factor init ``Q0`` (``[cols, rank]`` f32)
+    that every rank starts its power iteration from:
+    ``cos(i * (j + 1) * 0.9182736 + (j + 1) * 0.3717)``.
+
+    Computed as the JAX package computes it -- f32, the same operation
+    order -- on the CPU, then moved to ``device`` and cached per
+    ``(cols, rank, device)``.  Not on the card: at ``cols = 3880`` the
+    argument reaches ~14,000 rad, where one rounding of a faster ``cos``
+    moves the result by ~1e-3."""
+    key = (int(cols), int(rank), str(torch.device(device)))
+    q0 = _SEED_MATRICES.get(key)
+    if q0 is None:
+        i = torch.arange(cols, dtype=torch.float32)[:, None]
+        j = torch.arange(rank, dtype=torch.float32)[None, :]
+        q0 = torch.cos(i * (j + 1.0) * 0.9182736 + (j + 1.0) * 0.3717)
+        q0 = _SEED_MATRICES[key] = q0.to(device)
+    return q0
+
+
+def powersgd_allreduce_async(x: torch.Tensor, op: ReduceOp = Average, *,
+                             rank: int,
+                             residual: Optional[torch.Tensor] = None,
+                             prescale_factor: float = 1.0,
+                             postscale_factor: float = 1.0,
+                             force_reference: bool = False) -> Handle:
+    """Start a rank-``rank`` PowerSGD allreduce of ``x`` (Vogels et al.,
+    2019): stage 1 (:func:`~horovod_tpu_torch.ops.fused_update.
+    matricize_p`) and the async allreduce of the ``[m, r]`` left factor P.
+    ``handle.wait()`` runs the rest -- ``/ n``, stage 2, the allreduce of
+    the ``[c, r]`` right factor Q, ``/ n``, stage 3 -- and returns ``(out,
+    new_residual)``: ``out`` in x's shape and dtype, ``new_residual`` flat
+    f32, ``(x * prescale + residual) - P_orth Q_local^T``.
+
+    Counterpart of ``horovod_tpu/collectives/ops.py::powersgd_allreduce``
+    with the JAX package's operation order: the factor allreduces are
+    ``SUM`` followed by a division by the world size.  ``residual`` of
+    ``None`` means zeros (stateless use).  Floating inputs, Sum/Average.
+    Wire bytes: ``4 * r * (m + c)`` against ``4 * m * c`` uncompressed.
+    ``force_reference=True`` runs the three stages' plain versions on any
+    device (the check of the kernels on the card).
+    """
+    if op not in (Sum, Average):
+        raise ValueError(f"powersgd_allreduce supports Sum/Average, got {op}")
+    if not x.dtype.is_floating_point:
+        raise ValueError(
+            f"powersgd wire needs a floating dtype, got {x.dtype}")
+    n = _require_init().size
+    size = x.numel()
+    m, c = powersgd_matrix_shape(size)
+    r = powersgd_effective_rank(size, rank)
+    plain = dict(force_reference=force_reference)
+    acc, p = fu.matricize_p(x, residual, _powersgd_seed_matrix(c, r,
+                                                                x.device),
+                            rows=m, prescale=prescale_factor, **plain)
+    work = dist.all_reduce(p, op=dist.ReduceOp.SUM, async_op=True)
+
+    def finish():
+        p.div_(n)
+        p_orth, q_local = fu.orthonormalize_q(acc, p, **plain)
+        q = q_local.clone()
+        dist.all_reduce(q, op=dist.ReduceOp.SUM)
+        q.div_(n)
+        out, new_residual = fu.reconstruct_residual(
+            acc, p_orth, q, q_local, size=size,
+            n_scale=float(n) if op is Sum else 1.0,
+            postscale=postscale_factor, **plain)
+        return out.view(x.shape).to(x.dtype), new_residual
+
+    return Handle(work, finish)
+
+
+def powersgd_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
+                       rank: int, residual: Optional[torch.Tensor] = None,
+                       prescale_factor: float = 1.0,
+                       postscale_factor: float = 1.0,
+                       force_reference: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, new_residual)`` of a rank-``rank`` PowerSGD allreduce (see
+    :func:`powersgd_allreduce_async`)."""
+    return powersgd_allreduce_async(
+        x, op, rank=rank, residual=residual, prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor,
+        force_reference=force_reference).wait()
+
+
 def barrier() -> None:
     """Block until every rank has reached this point."""
     _require_init()
@@ -185,4 +279,5 @@ def barrier() -> None:
 __all__ = ["Handle", "allreduce", "allreduce_async", "allreduce_async_",
            "grouped_allreduce", "grouped_allreduce_async", "allgather",
            "allgather_async", "broadcast", "broadcast_", "broadcast_async",
-           "broadcast_async_", "barrier"]
+           "broadcast_async_", "barrier", "powersgd_allreduce",
+           "powersgd_allreduce_async"]

@@ -47,6 +47,17 @@ class Config:
     # Gradient bucketing threshold in bytes (HOROVOD_FUSION_THRESHOLD,
     # default 64 MiB, as in the reference).
     fusion_threshold: int = 64 * _MiB
+    # Default gradient-exchange codec (HOROVOD_COMPRESSION): a spec string
+    # parsed by ``collectives.compression.parse_compression`` --
+    # none|fp16|bf16|powersgd:<rank>.  Applies to DistributedOptimizer
+    # wraps built without an explicit ``compression`` argument; None = no
+    # compression.
+    compression: Optional[str] = None
+    # Error-feedback residual carry for the powersgd codec
+    # (HOROVOD_EF_RESIDUAL, default on).  Off drops each step's
+    # compression error instead of feeding it back -- ablation only, it
+    # biases convergence.
+    ef_residual: bool = True
     # Launcher-provided identity (HOROVOD_RANK / _SIZE / _LOCAL_RANK /
     # _LOCAL_SIZE / _CROSS_RANK / _CROSS_SIZE); -1 = not set.
     env_rank: int = -1
@@ -61,6 +72,8 @@ def load_config() -> Config:
     """A :class:`Config` from the environment."""
     return Config(
         fusion_threshold=_env_int("FUSION_THRESHOLD", 64 * _MiB),
+        compression=_env("COMPRESSION"),
+        ef_residual=_env_bool("EF_RESIDUAL", True),
         env_rank=_env_int("RANK", -1),
         env_size=_env_int("SIZE", -1),
         env_local_rank=_env_int("LOCAL_RANK", -1),

@@ -1,7 +1,9 @@
 """The port's models: the Llama-3 family with LoRA, ResNet and LeNet;
 seeded init, and the flax weight converters."""
 
-from .convert import params_from_jax, resnet_state_from_jax  # noqa: F401
+from .convert import (flax_leaf_order, from_flax_layout,  # noqa: F401
+                      params_from_jax, resnet_state_from_jax,
+                      to_flax_layout)
 from .layers import init_params  # noqa: F401
 from .lenet import LeNet  # noqa: F401
 from .resnet import (BasicBlock, BottleneckBlock, ResNet,  # noqa: F401

@@ -13,11 +13,18 @@ becomes a ``state_dict`` through :func:`resnet_state_from_jax`: the same
 rename, plus HWIO -> OIHW for the 4-D convolution kernels; the
 ``batch_stats`` ``mean``/``var`` leaves become the BatchNorm buffers of
 the same dotted names.
+
+:func:`flax_leaf_order`, :func:`to_flax_layout` and
+:func:`from_flax_layout` go the other way for code that must see the
+port's parameters as the JAX package sees its own -- the PowerSGD
+exchange, whose matricized bucket IS the matrix it approximates: the
+order in which ``jax.tree.leaves`` visits a flax tree (keys sorted at
+every level) and flax's HWIO layout of a 4-D kernel.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -80,3 +87,28 @@ def resnet_state_from_jax(variables: Mapping[str, Any], *,
                 a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
             out[name] = torch.tensor(a, device=dev)
     return out
+
+
+def flax_leaf_order(names: Sequence[str]) -> List[int]:
+    """Positions of ``names`` (flax dotted paths, e.g.
+    ``BottleneckBlock_10.Conv_0.kernel``) in the order ``jax.tree.leaves``
+    visits the flax tree they name: dict keys sorted at every level, so
+    ``BottleneckBlock_10`` comes before ``BottleneckBlock_2`` and
+    ``conv_init`` after every capitalised name."""
+    return sorted(range(len(names)), key=lambda i: tuple(names[i].split(".")))
+
+
+def _is_conv_kernel(name: str, t: torch.Tensor) -> bool:
+    return t.dim() == 4 and name.rsplit(".", 1)[-1] == "kernel"
+
+
+def to_flax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
+    """A view of the port's tensor ``name`` in flax's layout: HWIO for a
+    4-D ``.kernel`` (the port's OIHW), ``t`` itself otherwise."""
+    return t.permute(2, 3, 1, 0) if _is_conv_kernel(name, t) else t
+
+
+def from_flax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`to_flax_layout`: a view of a flax-layout
+    tensor in the port's layout (OIHW for a 4-D ``.kernel``)."""
+    return t.permute(3, 2, 0, 1) if _is_conv_kernel(name, t) else t

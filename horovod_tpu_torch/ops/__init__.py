@@ -1,5 +1,6 @@
 """The ported kernels (CUDA, built on first use) and their plain versions:
-attention and the BatchNorm backward."""
+attention, the BatchNorm backward, and the PowerSGD exchange's three
+stages (``fused_update``)."""
 
 from .attention import (attention_reference, decode_attention,  # noqa: F401
                         flash_attention, paged_decode_attention)

@@ -38,7 +38,8 @@ _F = ctypes.c_float
 
 # C entry points: name -> (source, symbol, argtypes).  A source may
 # export several entry points (``flash_bwd.cu``: dq and dk/dv;
-# ``bn_bwd.cu``: the BatchNorm backward's two passes).  Every
+# ``bn_bwd.cu``: the BatchNorm backward's two passes; ``fused_update.cu``:
+# the three PowerSGD stages).  Every
 # pointer and the stream are c_void_p (ctypes would cut a Python int to
 # 32 bits).
 ENTRIES = {
@@ -89,6 +90,24 @@ ENTRIES = {
         _P,                  # dx
         _L, _I, _I,          # n, c, chunks
         _I, _I,              # vec, dtype
+        _P]),                # stream
+    "fused_update_matricize_p": ("fused_update", "hvd_fused_matricize_p", [
+        _P, _P, _P,          # x (flat bucket), residual (f32) or NULL, q0
+        _P, _P,              # acc [m, c], p [m, r] (f32)
+        _L, _I, _I, _I,      # size, m, c, r
+        _F, _I,              # prescale, dtype
+        _P]),                # stream
+    "fused_update_orthonormalize_q": (
+        "fused_update", "hvd_fused_orthonormalize_q", [
+            _P, _P,          # acc [m, c], mean p [m, r]
+            _P, _P, _P,      # p_orth [m, r], workspace, q_local [c, r]
+            _I, _I, _I, _I,  # m, c, r, chunks
+            _P]),            # stream
+    "fused_update_reconstruct": ("fused_update", "hvd_fused_reconstruct", [
+        _P, _P, _P, _P,      # acc, p_orth, q (mean), q_local
+        _P, _P,              # out, residual (flat, f32)
+        _L, _I, _I, _I,      # size, m, c, r
+        _F, _F,              # n_scale, postscale
         _P]),                # stream
 }
 

@@ -62,6 +62,30 @@ KERNEL_CONTRACTS = {
         "replaces": "horovod_tpu/ops/bn.py::_bn_bwd_kernels (_dx_kernel)",
         "note": "dx = scale * inv * (dy - dbeta / n - xhat * dgamma / n)",
     },
+    "fused_update_matricize_p": {
+        "source": "horovod_tpu_torch/ops/csrc/fused_update.cu",
+        "site": "ops.fused_update.matricize_p (powersgd_allreduce stage 1)",
+        "replaces": "horovod_tpu/ops/fused_update.py::matricize_p",
+        "note": "acc = x * prescale (+ residual) over the [m, c] view of "
+                "the flat bucket (zero past its end), P = acc @ Q0",
+    },
+    "fused_update_orthonormalize_q": {
+        "source": "horovod_tpu_torch/ops/csrc/fused_update.cu",
+        "site": "ops.fused_update.orthonormalize_q (stage 2, after the P "
+                "allreduce)",
+        "replaces": "horovod_tpu/ops/fused_update.py::orthonormalize_q",
+        "note": "modified Gram-Schmidt of the mean P (one CTA), then "
+                "Q_local = acc^T @ P_orth as per-chunk partials and a "
+                "fixed-order finishing launch (counted once per call)",
+    },
+    "fused_update_reconstruct": {
+        "source": "horovod_tpu_torch/ops/csrc/fused_update.cu",
+        "site": "ops.fused_update.reconstruct_residual (stage 3, after "
+                "the Q allreduce)",
+        "replaces": "horovod_tpu/ops/fused_update.py::reconstruct_residual",
+        "note": "out = (P_orth Q^T) * n_scale * postscale, residual = acc "
+                "- P_orth Q_local^T, at the bucket's flat length",
+    },
 }
 
 _launches: Dict[str, int] = {name: 0 for name in KERNEL_CONTRACTS}

@@ -269,7 +269,9 @@ _EXCHANGE = {
 def exchange_counters() -> Dict[str, object]:
     """The gradient-exchange counters the DistributedOptimizer feeds:
     fused buckets sent, bytes on the wire (after compression, one rank's
-    payload) and async allreduce handles issued."""
+    payload) and async allreduce handles issued.  A PowerSGD bucket counts
+    one bucket, two handles (its P and Q factor allreduces) and ``4 * r *
+    (m + c)`` wire bytes."""
     reg = registry()
     return {k: reg.counter(name, help) for k, (name, help)
             in _EXCHANGE.items()}
@@ -279,3 +281,21 @@ def exchange_totals() -> Dict[str, float]:
     """The exchange counters' values (0 when ``HOROVOD_METRICS=0``); a
     caller takes differences around the steps it wants to read."""
     return {k: c.value for k, c in exchange_counters().items()}
+
+
+def note_compression_ratio(uncompressed: int, wire: int) -> None:
+    """Set the compression gauges of one optimizer step's exchange (the
+    JAX package's ``_note_compression_ratio``): wire and uncompressed
+    bytes per step and their ratio.  Set, not incremented: they describe
+    the plan, which a wrap fixes once."""
+    if wire <= 0:
+        return
+    reg = registry()
+    reg.gauge("horovod_compression_ratio",
+              "uncompressed / wire bytes of the gradient exchange"
+              ).set(uncompressed / wire)
+    reg.gauge("horovod_wire_bytes_per_step",
+              "Per-rank exchange wire bytes per optimizer step").set(wire)
+    reg.gauge("horovod_uncompressed_bytes_per_step",
+              "Equivalent uncompressed exchange bytes per optimizer step"
+              ).set(uncompressed)

@@ -4,6 +4,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100::
 
     python3 profile_torch_training.py                   # Llama-3 8B LoRA
     python3 profile_torch_training.py --model resnet50  # ResNet-50
+    python3 profile_torch_training.py --model resnet50 --compression powersgd:4
 
 ``llama`` (the default) builds the trainer of ``chip_smoke.py``'s train
 phase -- Llama-3 8B at full width and depth, random bf16 base from seed
@@ -13,7 +14,12 @@ compression=bf16)`` in a world of one over NCCL, a 2 x 2048-token batch.
 the space-to-depth stem, bf16 compute, 1000 classes, random weights from
 seed 0, ``DistributedOptimizer(SGD(0.1, momentum 0.9))`` in a world of
 one, 256 images of 224 x 224 from seed 0 -- with
-``make_flax_train_step``.  Either takes one warm-up step, then profiles
+``make_flax_train_step``.  ``--compression`` gives the optimizer another
+codec spec (``none``, ``fp16``, ``bf16`` or ``powersgd:<r>``; by default
+each model's own: bf16 for the LoRA adapters, none for ResNet-50);
+``powersgd:4`` is the PowerSGD cell of ``chip_smoke.py``'s
+``resnet_powersgd`` phase, whose three exchange stages are grouped as
+``fused_update``.  Either takes one warm-up step, then profiles
 two steps with ``torch.profiler``.  It prints one JSON line for the
 window: host wall time, device busy time (sum of GPU kernel time), the
 device's idle share, device time per group of kernels and the top
@@ -49,6 +55,9 @@ GROUPS = {
     "resnet50": {
         "bn_bwd_reduce": ("bn_bwd_reduce_kernel", "bn_bwd_finish_kernel"),
         "bn_bwd_dx": ("bn_bwd_dx_kernel",),
+        "fused_update": ("matricize_p_kernel", "gram_schmidt_kernel",
+                         "q_partial_kernel", "q_finish_kernel",
+                         "reconstruct_kernel"),
         "conv": ("fprop", "dgrad", "wgrad", "conv", "cudnn",
                  "implicit_gemm"),
         "nccl": NCCL,
@@ -57,7 +66,7 @@ GROUPS = {
 }
 
 
-def llama_step(dev, hvd):
+def llama_step(dev, hvd, compression):
     from horovod_tpu_torch.models import (LLAMA3_8B, LlamaLM, freeze_base,
                                           init_llama_params)
     from horovod_tpu_torch.training import causal_lm_loss, make_train_step
@@ -73,7 +82,7 @@ def llama_step(dev, hvd):
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW([p for _, p in named], lr=1e-3,
                           weight_decay=1e-4),
-        named_parameters=named, compression=hvd.Compression.bf16)
+        named_parameters=named, compression=compression or "bf16")
     step = make_train_step(model, causal_lm_loss, opt)
     tokens = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (2, 2048))).to(dev)
@@ -81,7 +90,7 @@ def llama_step(dev, hvd):
     return (lambda: step(tokens)), opt, info
 
 
-def resnet_step(dev, hvd):
+def resnet_step(dev, hvd, compression):
     from horovod_tpu_torch.models import ResNet50, init_resnet_params
     from horovod_tpu_torch.training import make_flax_train_step
 
@@ -92,7 +101,7 @@ def resnet_step(dev, hvd):
     named = list(model.named_parameters())
     opt = hvd.DistributedOptimizer(
         torch.optim.SGD([p for _, p in named], lr=0.1, momentum=0.9),
-        named_parameters=named)
+        named_parameters=named, compression=compression or "none")
     step = make_flax_train_step(model, opt)
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(256, 224, 224, 3, generator=gen, device=dev).to(
@@ -105,6 +114,9 @@ def resnet_step(dev, hvd):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--model", choices=sorted(GROUPS), default="llama")
+    parser.add_argument("--compression", default=None,
+                        help="codec spec for the optimizer (default: the "
+                             "model's own)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_training: no CUDA device", file=sys.stderr)
@@ -119,7 +131,7 @@ def main() -> int:
     dev = torch.device("cuda")
     hvd.init()
     build = resnet_step if args.model == "resnet50" else llama_step
-    step, opt, info = build(dev, hvd)
+    step, opt, info = build(dev, hvd, args.compression)
     warm = step().item()
     torch.cuda.reset_peak_memory_stats()
 
@@ -131,6 +143,7 @@ def main() -> int:
                   groups=GROUPS[args.model])
     out.update(card=_card(), model=args.model, **info, warm_loss=warm,
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               compression=opt._compression.__name__,
                bucket_bytes=opt.bucket_plan.bucket_bytes())
     print(json.dumps(out), flush=True)
     hvd.shutdown()

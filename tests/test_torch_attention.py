@@ -255,7 +255,8 @@ def test_cpu_path_never_counts_a_launch():
     qd, kd, vd, lengths = _decode_inputs(9)
     tattn.decode_attention(_t(qd), _t(kd), _t(vd), lengths=_t(lengths))
     families = {"flash", "flash_decode", "flash_bwd_dq", "flash_bwd_dkv",
-                "bn_bwd_reduce", "bn_bwd_dx"}
+                "bn_bwd_reduce", "bn_bwd_dx", "fused_update_matricize_p",
+                "fused_update_orthonormalize_q", "fused_update_reconstruct"}
     assert registry.launch_counts() == dict.fromkeys(families, 0)
     assert set(registry.KERNEL_CONTRACTS) == families
 
@@ -263,7 +264,7 @@ def test_cpu_path_never_counts_a_launch():
 def test_build_command_targets_sm90a_without_running_nvcc():
     out = os.path.join(_build.BUILD_DIR, "x.so")
     assert set(_build.SOURCES) == {"flash_fwd", "flash_decode", "flash_bwd",
-                                   "bn_bwd"}
+                                   "bn_bwd", "fused_update"}
     for name in _build.SOURCES:
         cmd = _build.nvcc_command(name, out)
         joined = " ".join(cmd)

@@ -13,16 +13,22 @@ of max |grad| for the backward's gradients; bf16 2e-2 of the reference's
 largest |value| (one bf16 rounding of the output, plus f32 sums in
 another order).  The BatchNorm backward: dx within 1e-5 (f32) or 2e-2
 (bf16) of max |dx|, dgamma and dbeta within 1e-4 of their max |value|
-(sums over up to 3.2 M rows in another order).
+(sums over up to 3.2 M rows in another order).  The PowerSGD stages:
+``acc`` bitwise (one f32 multiply and one add on both sides), every
+other output within 1e-5 of its max |value| (sums over up to 3,880 terms
+in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from horovod_tpu_torch.collectives.compression import powersgd_matrix_shape
+from horovod_tpu_torch.collectives.ops import _powersgd_seed_matrix
 from horovod_tpu_torch.models.transformer import tied_readout
 from horovod_tpu_torch.ops import attention as tattn
 from horovod_tpu_torch.ops import bn as tbn
+from horovod_tpu_torch.ops import fused_update as tfu
 from horovod_tpu_torch.ops import registry
 
 ATOL = 1e-5
@@ -158,8 +164,8 @@ def test_cuda_flash_autograd_matches_plain_autograd(cuda):
         (out * base[3]).sum().backward()
         n = 0 if ref else 1
         assert registry.launch_counts() == {
-            "flash": n, "flash_decode": 0, "flash_bwd_dq": n,
-            "flash_bwd_dkv": n, "bn_bwd_reduce": 0, "bn_bwd_dx": 0}
+            **dict.fromkeys(registry.KERNEL_CONTRACTS, 0),
+            "flash": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
         grads.append((q.grad, k.grad, v.grad))
     for g, w in zip(*grads):
         assert (g - w).abs().max().item() <= 1e-4
@@ -332,3 +338,86 @@ def test_cuda_resnet_bn_sites_launch_the_kernels(cuda, monkeypatch):
     for k, w in grads[1].items():
         assert (grads[0][k] - w).abs().max().item() <= \
             BF16_REL * max(w.abs().max().item(), 1e-30), k
+
+
+# ---------------------------------------------------------------------------
+# The PowerSGD stages (fused_update.cu)
+# ---------------------------------------------------------------------------
+
+POWERSGD_REL = 1e-5
+
+
+def _powersgd_stages(size, r, dtype, residual, cuda, seed, **kw):
+    """The three stages on the card, each fed the plain chain's inputs:
+    ``(kernel outputs, plain outputs)``, five tensors each."""
+    rng = np.random.RandomState(seed)
+    m, c = powersgd_matrix_shape(size)
+    x = _randn(rng, size).to(cuda, dtype)
+    res = _randn(rng, size).to(cuda) if residual else None
+    q0 = _powersgd_seed_matrix(c, r, cuda)
+    acc_w, p_w = tfu.matricize_p(x, res, q0, rows=m, prescale=0.5,
+                                 force_reference=True)
+    po_w, ql_w = tfu.orthonormalize_q(acc_w, p_w, force_reference=True)
+    q = ql_w * 0.75 + 0.01             # a mean Q unlike this rank's own
+    out_w, res_w = tfu.reconstruct_residual(
+        acc_w, po_w, q, ql_w, size=size, force_reference=True, **kw)
+    acc, p = tfu.matricize_p(x, res, q0, rows=m, prescale=0.5)
+    po, ql = tfu.orthonormalize_q(acc_w, p_w)
+    out, new_res = tfu.reconstruct_residual(acc_w, po_w, q, ql_w, size=size,
+                                            **kw)
+    return (acc, p, po, ql, out, new_res), (acc_w, p_w, po_w, ql_w, out_w,
+                                            res_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size,r", [(37, 1), (1000, 4), (100003, 4),
+                                    (100003, 8), (1000003, 9), (64, 1)])
+def test_cuda_powersgd_stages_match_plain(cuda, dtype, size, r):
+    """Ragged tails (size < m * c), r = 1 / 4 / 8 and r = 9 (two passes
+    of the kernels' 8 register columns): each kernel against its plain
+    version on the same inputs, one launch of each family per call."""
+    registry.reset_launch_counts()
+    got, want = _powersgd_stages(size, r, dtype, True, cuda, seed=size + r,
+                                 n_scale=2.0, postscale=0.25)
+    torch.cuda.synchronize()
+    assert registry.launch_counts()["fused_update_matricize_p"] == 1
+    assert registry.launch_counts()["fused_update_orthonormalize_q"] == 1
+    assert registry.launch_counts()["fused_update_reconstruct"] == 1
+    m, c = powersgd_matrix_shape(size)
+    assert torch.equal(got[0], want[0])
+    if m * c > size:                   # the pad reads as zeros
+        assert got[0].reshape(-1)[size:].abs().max().item() == 0.0
+    for name, g, w in zip(("p", "p_orth", "q_local", "out", "residual"),
+                          got[1:], want[1:]):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert bool(torch.isfinite(g).all()), name
+        err = (g - w).abs().max().item()
+        assert err <= POWERSGD_REL * w.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_cuda_powersgd_stages_without_residual_and_deterministic(cuda):
+    """No residual (the first step), and no atomics: two launches of each
+    stage give bitwise the same outputs, at ResNet-50's second bucket."""
+    size = 10506088
+    first, want = _powersgd_stages(size, 4, torch.float32, False, cuda, 21)
+    second, _ = _powersgd_stages(size, 4, torch.float32, False, cuda, 21)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    for g, w in zip(first[1:], want[1:]):
+        assert (g - w).abs().max().item() <= \
+            POWERSGD_REL * w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_powersgd_stages_refuse_what_they_cannot_take(cuda):
+    q0 = _powersgd_seed_matrix(4, 2, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        tfu.matricize_p(torch.zeros(16, device=cuda, dtype=torch.float16),
+                        None, q0, rows=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfu.matricize_p(torch.zeros(32, device=cuda)[::2], None, q0, rows=4)
+    with pytest.raises(ValueError, match="do not fit"):
+        tfu.matricize_p(torch.zeros(17, device=cuda), None, q0, rows=4)
