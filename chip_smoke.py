@@ -9,10 +9,15 @@ Phases, each printing its own line; any failure exits non-zero:
 1. card -- ``nvidia-smi`` name and power limit, ``torch.cuda`` device
    name; TF32 turned off for matmuls and cuDNN.
 2. build -- every CUDA source in ``horovod_tpu_torch/ops/csrc`` compiled
-   with ``nvcc`` for ``sm_90a``, one process per source, all at once.
+   with ``nvcc`` for ``sm_90a``, one process per source, all at once;
+   the registers and spill stack of the bf16 tensor-core kernels.
 3. kernels -- each kernel against its plain PyTorch version on the card
    at its path's shapes (serving: flash forward and decode; training:
-   the flash backward's dq and dk/dv; ResNet: the BatchNorm backward's
+   the flash backward's dq and dk/dv -- the forward and dk/dv run on the
+   tensor cores in bf16 and on the CUDA cores in f32; cases from 37 to
+   2048 tokens, a ragged 1000, tq < tk, segments with dead rows and
+   keys, head dims 128 and 64, and two launches bitwise equal, with the
+   TFLOP/s of the headline case; ResNet: the BatchNorm backward's
    two passes, at a ragged N, a C below one vector and three ResNet-50
    sites at batch 256, bitwise repeatable; PowerSGD: the three
    ``fused_update`` stages at both ResNet-50 bucket shapes, r = 1 and
@@ -74,6 +79,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -130,6 +136,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def mma_resources(build) -> dict:
+    """Registers per thread and local-memory stack (spills) of the bf16
+    tensor-core kernels, from ``cuobjdump`` of the built libraries."""
+    out = {}
+    for src, kernel in (("flash_fwd", "flash_fwd_mma_kernel"),
+                        ("flash_bwd", "flash_bwd_dkv_mma_kernel")):
+        for sym, u in build.resource_usage(src).items():
+            m = re.search(kernel + r"ILi(\d+)E", sym)
+            if m:
+                out[f"{kernel}<{m.group(1)}>"] = {
+                    "registers": u["REG"], "stack_bytes": u.get("STACK", 0)}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -139,14 +159,15 @@ def check_flash(attn, dev) -> dict:
     """Kernel A cases; returns the JSON entry at the headline shape
     (bf16, b=1, h=32, h_kv=8, d=128, causal, t=2048)."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    b, h, hkv, d = 1, 32, 8, 128
-    cases = [dict(tq=t, tk=t) for t in (37, 512, 2048)]
+    b, h, hkv = 1, 32, 8
+    cases = [dict(tq=t, tk=t) for t in (37, 512, 1000, 2048)]
     cases.append(dict(tq=256, tk=1280))
     cases.append(dict(tq=512, tk=512, seg=True))
+    cases.append(dict(tq=1000, tk=1000, d=64))
     head = None
     for dtype in (torch.bfloat16, torch.float32):
         for case in cases:
-            tq, tk = case["tq"], case["tk"]
+            tq, tk, d = case["tq"], case["tk"], case.get("d", 128)
             q = torch.randn(b, h, tq, d, generator=gen, device=dev).to(dtype)
             k = torch.randn(b, hkv, tk, d, generator=gen, device=dev
                             ).to(dtype)
@@ -175,11 +196,16 @@ def check_flash(attn, dev) -> dict:
             if case.get("seg"):
                 ok = ok and o[:, :, -6:].abs().max().item() == 0.0 and bool(
                     (lse[:, :, -6:] == 1e30).all())
+            # No atomics, a fixed order of sums: a second launch repeats
+            # the bits.
+            o2, lse2 = attn.flash_attention(q, k, v, **kw)
+            repeat = torch.equal(o, o2) and torch.equal(lse, lse2)
+            ok = ok and repeat
             rec = {"phase": "kernel", "kernel": "flash_fwd",
                    "dtype": str(dtype).replace("torch.", ""), "tq": tq,
-                   "tk": tk, "segments": bool(case.get("seg")),
+                   "tk": tk, "d": d, "segments": bool(case.get("seg")),
                    "max_abs_err": err, "tol": tol, "lse_err": lse_err,
-                   "ok": ok}
+                   "bitwise_repeat": repeat, "ok": ok}
             if dtype == torch.bfloat16 and tq == tk == 2048:
                 flops = attn.attention_flops(b, h, tq, tk, d, True)
                 nbytes = (2 * q.numel() + k.numel() + v.numel()
@@ -192,7 +218,8 @@ def check_flash(attn, dev) -> dict:
                 lib = time_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, enable_gqa=True))
                 rec.update(ms=ms, plain_ms=plain, library_ms=lib,
-                           bound_ms=bms, bound_by=by)
+                           bound_ms=bms, bound_by=by,
+                           tflops=flops / ms / 1e9)
                 head = {"name": "flash_fwd", "route": "cuda",
                         "source": "horovod_tpu_torch/ops/csrc/flash_fwd.cu",
                         "replaces": "horovod_tpu/ops/attention.py:469",
@@ -293,14 +320,15 @@ def check_flash_bwd(attn, dev) -> tuple:
     h=32, h_kv=8, d=128, causal); returns the JSON entries of both at the
     headline case (bf16, t=2048)."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    b, h, hkv, d = 2, 32, 8, 128
-    cases = [dict(tq=t, tk=t) for t in (37, 512, 2048)]
+    b, h, hkv = 2, 32, 8
+    cases = [dict(tq=t, tk=t) for t in (37, 512, 1000, 2048)]
     cases.append(dict(tq=256, tk=1280))
     cases.append(dict(tq=512, tk=512, seg=True))
+    cases.append(dict(tq=1000, tk=1000, d=64))
     cases.append(dict(tq=512, tk=512, f32=True))
     heads = None
     for case in cases:
-        tq, tk = case["tq"], case["tk"]
+        tq, tk, d = case["tq"], case["tk"], case.get("d", 128)
         dtype = torch.float32 if case.get("f32") else torch.bfloat16
         q, do = (torch.randn(b, h, tq, d, generator=gen, device=dev
                              ).to(dtype) for _ in range(2))
@@ -337,17 +365,23 @@ def check_flash_bwd(attn, dev) -> tuple:
         if case.get("seg"):
             ok = ok and got[0][:, :, -6:].abs().max().item() == 0.0 and \
                 max(x[:, :, -4:].abs().max().item() for x in got[1:]) == 0.0
+        # dk/dv sum over the GQA group inside one CTA, with no atomics: a
+        # second launch repeats the bits.
+        again = attn.flash_backward_dkv(*args, **kw)
+        repeat = all(torch.equal(x, y) for x, y in zip(got[1:], again))
+        ok = ok and repeat
         rec = {"phase": "kernel", "kernel": "flash_bwd",
                "dtype": str(dtype).replace("torch.", ""), "tq": tq,
-               "tk": tk, "segments": bool(case.get("seg")),
+               "tk": tk, "d": d, "segments": bool(case.get("seg")),
                "max_abs_err": dict(zip(("dq", "dk", "dv"), errs)),
-               "tol": dict(zip(("dq", "dk", "dv"), tols)), "ok": ok}
+               "tol": dict(zip(("dq", "dk", "dv"), tols)),
+               "dkv_bitwise_repeat": repeat, "ok": ok}
         if dtype == torch.bfloat16 and tq == tk == 2048:
             rec["timing"], heads = time_flash_bwd(attn, args, errs)
         log(rec)
         if not ok:
             raise AssertionError(f"flash_bwd disagrees: {rec}")
-        del q, k, v, do, o, lse, delta, args, got, want
+        del q, k, v, do, o, lse, delta, args, got, want, again
     return heads
 
 
@@ -382,10 +416,10 @@ def time_flash_bwd(attn, args, errs) -> tuple:
     # and writes dk, dv.
     q_bytes = (3 * b * h * t * d + 2 * b * hkv * t * d) * esz + stats
     kv_bytes = (2 * b * h * t * d + 4 * b * hkv * t * d) * esz + stats
-    b_dq, by_dq = bound_ms(attn.attention_flops(b, h, t, t, d, True, 3),
-                           q_bytes)
-    b_dkv, by_dkv = bound_ms(attn.attention_flops(b, h, t, t, d, True, 4),
-                             kv_bytes)
+    fl_dq = attn.attention_flops(b, h, t, t, d, True, 3)
+    fl_dkv = attn.attention_flops(b, h, t, t, d, True, 4)
+    b_dq, by_dq = bound_ms(fl_dq, q_bytes)
+    b_dkv, by_dkv = bound_ms(fl_dkv, kv_bytes)
     src = "horovod_tpu_torch/ops/csrc/flash_bwd.cu"
     entries = (
         {"name": "flash_bwd_dq", "route": "cuda", "source": src,
@@ -399,7 +433,9 @@ def time_flash_bwd(attn, args, errs) -> tuple:
     timing = {"dq_ms": ms_dq, "dkv_ms": ms_dkv, "plain_dq_ms": plain_dq,
               "plain_dkv_ms": plain_dkv, "sdpa_fwd_ms": fwd,
               "sdpa_fwd_bwd_ms": both, "library_bwd_ms": lib,
-              "bound_dq_ms": b_dq, "bound_dkv_ms": b_dkv}
+              "bound_dq_ms": b_dq, "bound_dkv_ms": b_dkv,
+              "dq_tflops": fl_dq / ms_dq / 1e9,
+              "dkv_tflops": fl_dkv / ms_dkv / 1e9}
     return timing, entries
 
 
@@ -1286,7 +1322,8 @@ def main() -> int:
          "count": torch.cuda.device_count(), "torch": torch.__version__,
          "cuda": torch.version.cuda})
     log({"phase": "build", "seconds": _build.build_all(),
-         "nvcc": _build.nvcc_path(), "flags": _build.NVCC_FLAGS})
+         "nvcc": _build.nvcc_path(), "flags": _build.NVCC_FLAGS,
+         "tensor_core_kernels": mma_resources(_build)})
 
     flash = check_flash(attn, dev)
     decode = check_decode(attn, dev)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -195,6 +196,28 @@ def library(name: str) -> ctypes.CDLL:
                     fn.restype = ctypes.c_int
             _libs[name] = lib
     return lib
+
+
+def resource_usage(name: str) -> Dict[str, Dict[str, int]]:
+    """``{kernel symbol: {"REG": n, "STACK": n, "LOCAL": n, ...}}`` of the
+    built library for ``csrc/<name>.cu``, read with ``cuobjdump
+    --dump-resource-usage`` beside ``nvcc``.  A kernel that spills has a
+    non-zero STACK (its local-memory frame)."""
+    library(name)  # built on first use
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "--dump-resource-usage",
+                          library_path(name)], capture_output=True,
+                         text=True, check=True).stdout
+    usage, kernel = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            kernel, line = m.group(1), line[m.end():]
+        if kernel and "REG:" in line:
+            usage[kernel] = {k: int(v) for k, v in
+                             re.findall(r"\b([A-Z]+):(\d+)", line)}
+            kernel = None
+    return usage
 
 
 def entry(name: str):

@@ -18,33 +18,52 @@
 // ds K) and dk/dv 4 (s, dp, p^T dO, ds^T Q): 103 and 137 GFLOP against
 // ~100 MB of q/k/v/dO/dq/dk/dv, far above the card's ~295 FLOP/byte balance
 // point, so both are bound by arithmetic (104 and 139 us at the 989 TFLOP/s
-// bf16 tensor-core peak).  This first version does its products on the CUDA
-// cores in f32, like flash_fwd.cu, so it runs far above that bound.  What
-// the design does instead of the TPU's sequential grid:
-//   * the Pallas kernels carry dq (or dk/dv) in VMEM scratch across a
-//     sequential grid axis; GPU blocks run in no order and carry nothing, so
-//     each CTA loops over the other sequence itself and keeps its sums in
-//     registers (32 f32 per thread per accumulated tensor);
+// bf16 tensor-core peak).  What the designs do instead of the TPU's
+// sequential grid: the Pallas kernels carry dq (or dk/dv) in VMEM scratch
+// across a sequential grid axis; GPU blocks run in no order and carry
+// nothing, so each CTA loops over the other sequence itself and keeps its
+// sums in registers.  dk/dv are summed over the GQA group inside the CTA
+// and written once in k's dtype, replacing the JAX design's f32
+// per-query-head partials (2 x 67 MB at the training shape) and its group
+// sum outside the kernel; there are no atomics, so results repeat bit for
+// bit.  The ragged edge (any tq, any tk) is masked in the kernel: rows and
+// keys past the end load as zero, take p = 0 and are not stored.  There is
+// no fallback to a plain path for any length.
+//
+// dk/dv, bf16 -- flash_bwd_dkv_mma_kernel, on the tensor cores (mma.sync
+// m16n8k16, f32 accumulators; mma.cuh):
+//   * one CTA per (batch, KV head, 64 keys), 8 warps; K and V stay resident
+//     in shared memory; the CTA loops over the rep query heads of the group
+//     and the 64-row query tiles that can see its keys, with Q, dO, lse,
+//     delta and the query segment ids in a 2-stage cp.async ring
+//     (XOR-swizzled rows: conflict-free cp.async and ldmatrix); 113.5 KB
+//     at d = 128, one CTA an SM;
+//   * S^T = K Q^T and dP^T = V dO^T on the tensor cores; then
+//     P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) scale in
+//     f32 on the fragments, written to shared memory as bf16 (the only
+//     roundings: every sum stays f32); then dV += P^T dO and dK += dS^T Q,
+//     dK and dV split over the 8 warps (16 keys x d/2 columns each) in f32
+//     registers for the whole loop;
+//   * key block 0, which the most query tiles see under the causal mask, is
+//     dispatched first.
+//
+// dq (bf16 and f32) and dk/dv in f32 -- the first versions, products on
+// the CUDA cores in f32 (f32 inputs keep them: their 1e-5 tolerance is
+// beyond a TF32 or bf16 tensor core):
 //   * dq: one CTA per (batch, query head, 64 query rows), 256 threads, four
 //     per row; 32-key K/V tiles stream through shared memory, only the tiles
 //     the causal mask leaves live are loaded;
-//   * dk/dv: one CTA per (batch, KV head, 64 keys) loops over the rep query
-//     heads of its group and over the 32-row query tiles that can see its
-//     keys, so dk/dv are summed over the group in registers and written
-//     once in k's dtype.  This replaces the JAX design's f32 per-query-head
-//     partials (2 x 67 MB at the training shape) and its group sum outside
-//     the kernel;
+//   * dk/dv: one CTA per (batch, KV head, 64 keys) over the group's query
+//     heads and the 32-row query tiles that can see its keys;
 //   * shared rows are padded by four floats so every float4 read is
 //     conflict-free; p and ds of a tile go through shared memory between
 //     the score pass and the accumulate pass, read back only by the four
-//     lanes of the row that wrote them;
-//   * the ragged edge (any tq, any tk) is masked in the kernel: rows and keys
-//     past the end load as zero, take p = 0 and are not stored.  There is no
-//     fallback to a plain path for any length.
+//     lanes of the row that wrote them.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -370,6 +389,254 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// dk/dv in bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_BK = 64;     // keys per CTA
+constexpr int MMA_BQ = 64;     // query rows per tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) *
+             (2 * MMA_BK * D + 2 * 2 * MMA_BQ * D + 2 * MMA_BK * MMA_BQ) +
+         sizeof(float) * 2 * 2 * MMA_BQ + sizeof(int) * 2 * MMA_BQ;
+}
+
+// Warp roles (8 warps, w = warp):
+//  * S^T and dP^T (64 keys x 64 queries): keys 16 (w % 4) .. +16, queries
+//    32 (w / 4) .. +32 -- four 16 x 8 accumulator tiles each;
+//  * dK and dV (64 keys x D): the same 16 keys, columns (w / 4) D/2 .. +D/2
+//    -- D/16 tiles each, held in f32 registers across the whole loop.
+template <int D>
+__global__ void __launch_bounds__(NT, D == 64 ? 2 : 1)
+    flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             const int* __restrict__ qseg,
+                             const int* __restrict__ kseg,
+                             __nv_bfloat16* __restrict__ dk,
+                             __nv_bfloat16* __restrict__ dv, int b, int h,
+                             int h_kv, int tq, int tk, int causal,
+                             float scale) {
+  using namespace hvd::mma;
+  constexpr int CH = D / 8;             // 16-byte chunks per row
+  constexpr int NG = D / 16;            // dK / dV n-tiles per warp
+  constexpr int TILE = MMA_BQ * D * 2;  // bytes of one Q or dO stage
+  extern __shared__ __align__(128) unsigned char mma_smem[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(mma_smem);  // [BK][D]
+  __nv_bfloat16* sV = sK + MMA_BK * D;                  // [BK][D]
+  __nv_bfloat16* sQ = sV + MMA_BK * D;                  // [2][BQ][D]
+  __nv_bfloat16* sDO = sQ + 2 * MMA_BQ * D;             // [2][BQ][D]
+  __nv_bfloat16* sPt = sDO + 2 * MMA_BQ * D;            // [BK][BQ]
+  __nv_bfloat16* sDSt = sPt + MMA_BK * MMA_BQ;          // [BK][BQ]
+  float* sLse = reinterpret_cast<float*>(sDSt + MMA_BK * MMA_BQ);  // [2][BQ]
+  float* sDelta = sLse + 2 * MMA_BQ;                    // [2][BQ]
+  int* sQseg = reinterpret_cast<int*>(sDelta + 2 * MMA_BQ);  // [2][BQ]
+
+  // One flat grid with the key block slowest: key block 0, which the most
+  // query tiles see under the causal mask, is dispatched first.
+  const int bkv = blockIdx.x % (b * h_kv);
+  const int k0 = blockIdx.x / (b * h_kv) * MMA_BK;
+  const int kvh = bkv % h_kv, bb = bkv / h_kv;
+  const int rep = h / h_kv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const int off = tk - tq;
+  const size_t kbase = (size_t)(bb * h_kv + kvh) * tk;
+  const bool has_seg = qseg != nullptr;
+  const uint32_t aK = smem_addr(sK), aV = smem_addr(sV);
+  const uint32_t aQ = smem_addr(sQ), aDO = smem_addr(sDO);
+  const uint32_t aPt = smem_addr(sPt), aDSt = smem_addr(sDSt);
+  const uint32_t aLse = smem_addr(sLse), aDelta = smem_addr(sDelta);
+  const uint32_t aSeg = smem_addr(sQseg);
+
+  for (int i = tid; i < MMA_BK * CH; i += NT) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = k0 + r < tk;
+    const size_t row = (kbase + (ok ? k0 + r : 0)) * D + c * 8;
+    cp_async16(aK + swizzle<D>(r, c), k + row, ok);
+    cp_async16(aV + swizzle<D>(r, c), v + row, ok);
+  }
+
+  // Query rows before k0 - off see none of these keys (causal).
+  const int q_begin = causal ? max(0, k0 - off) / MMA_BQ * MMA_BQ : 0;
+  const int n_qt = (tq - q_begin + MMA_BQ - 1) / MMA_BQ;
+  const int n_it = rep * n_qt;
+  // Q, dO, lse, delta and segment ids of iteration `it` (query head
+  // kvh * rep + it / n_qt, rows from q_begin + (it % n_qt) * BQ) into ring
+  // stage st; rows past tq are zero-filled.
+  auto load_q = [&](int it, int st) {
+    const size_t qbase = (size_t)(bb * h + kvh * rep + it / n_qt) * tq;
+    const int q0 = q_begin + (it % n_qt) * MMA_BQ;
+    for (int i = tid; i < MMA_BQ * CH; i += NT) {
+      const int r = i / CH, c = i % CH;
+      const bool ok = q0 + r < tq;
+      const size_t row = (qbase + (ok ? q0 + r : 0)) * D + c * 8;
+      cp_async16(aQ + st * TILE + swizzle<D>(r, c), q + row, ok);
+      cp_async16(aDO + st * TILE + swizzle<D>(r, c), dout + row, ok);
+    }
+    if (tid < MMA_BQ) {
+      const bool ok = q0 + tid < tq;
+      const size_t row = qbase + (ok ? q0 + tid : 0);
+      const uint32_t so = 4 * (st * MMA_BQ + tid);
+      cp_async4(aLse + so, lse + row, ok);
+      cp_async4(aDelta + so, delta + row, ok);
+      if (has_seg)
+        cp_async4(aSeg + so, qseg + (size_t)bb * tq + (ok ? q0 + tid : 0),
+                  ok);
+    }
+  };
+  load_q(0, 0);
+  cp_async_commit();
+
+  const int kw = (warp & 3) * 16;          // this warp's first key
+  const int qw = (warp >> 2) * 32;         // its first query (S^T, dP^T)
+  const int dw = (warp >> 2) * (D / 2);    // its first column (dK, dV)
+  const int keys[2] = {k0 + kw + g, k0 + kw + g + 8};
+  int my_seg[2] = {0, 0};
+  if (has_seg) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (keys[i] < tk) my_seg[i] = kseg[(size_t)bb * tk + keys[i]];
+  }
+  float acc_k[NG][4], acc_v[NG][4];
+#pragma unroll
+  for (int n = 0; n < NG; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  const float sl2 = scale * kLog2e;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile `it` has landed; everyone is done with it - 1
+    if (it + 1 < n_it) load_q(it + 1, (it + 1) & 1);
+    cp_async_commit();
+    const int st = it & 1;
+    const int q0 = q_begin + (it % n_qt) * MMA_BQ;
+    const uint32_t sq = aQ + st * TILE, sdo = aDO + st * TILE;
+
+    // S^T = K Q^T and dP^T = V dO^T for 16 keys x 32 queries.
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4], bf[4];
+      ldmatrix_x4(a, a_frag_addr<D>(aK, kw, kk, lane));
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) {
+        ldmatrix_x4(bf, b_frag_addr<D>(sq, qw + nn * 16, kk, lane));
+        mma_bf16(s[2 * nn], a, bf[0], bf[1]);
+        mma_bf16(s[2 * nn + 1], a, bf[2], bf[3]);
+      }
+      ldmatrix_x4(a, a_frag_addr<D>(aV, kw, kk, lane));
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) {
+        ldmatrix_x4(bf, b_frag_addr<D>(sdo, qw + nn * 16, kk, lane));
+        mma_bf16(dp[2 * nn], a, bf[0], bf[1]);
+        mma_bf16(dp[2 * nn + 1], a, bf[2], bf[3]);
+      }
+    }
+
+    // P^T = exp(S^T scale - lse) on live pairs (0 elsewhere, and on dead
+    // rows, whose lse is +1e30); dS^T = P^T (dP^T - delta) scale.  Both
+    // to shared memory as bf16 pairs.
+    const float* lse_t = sLse + st * MMA_BQ;
+    const float* delta_t = sDelta + st * MMA_BQ;
+    const int* seg_t = sQseg + st * MMA_BQ;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = qw + 8 * n + c2 + (e & 1), qi = q0 + ql;
+        const int key = keys[e >> 1];
+        bool live = key < tk && qi < tq;
+        if (causal && key > qi + off) live = false;
+        if (has_seg && seg_t[ql] != my_seg[e >> 1]) live = false;
+        p[e] = live ? exp2f(s[n][e] * sl2 - lse_t[ql] * kLog2e) : 0.f;
+        ds[e] = p[e] * (dp[n][e] - delta_t[ql]) * scale;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t at = swizzle<MMA_BQ>(kw + g + 8 * i, (qw >> 3) + n) +
+                            2 * c2;
+        *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(sPt) +
+                                     at) = pack_bf16(p[2 * i], p[2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(sDSt) +
+                                     at) = pack_bf16(ds[2 * i], ds[2 * i + 1]);
+      }
+    }
+    __syncthreads();  // P^T and dS^T complete
+
+    // dV += P^T dO and dK += dS^T Q over the tile's 64 queries.
+#pragma unroll
+    for (int kk = 0; kk < MMA_BQ / 16; ++kk) {
+      uint32_t ap[4], ads[4];
+      ldmatrix_x4(ap, a_frag_addr<MMA_BQ>(aPt, kw, kk, lane));
+      ldmatrix_x4(ads, a_frag_addr<MMA_BQ>(aDSt, kw, kk, lane));
+#pragma unroll
+      for (int nn = 0; nn < NG / 2; ++nn) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(
+            bf, a_frag_addr<D>(sdo, kk * 16, (dw >> 4) + nn, lane));
+        mma_bf16(acc_v[2 * nn], ap, bf[0], bf[1]);
+        mma_bf16(acc_v[2 * nn + 1], ap, bf[2], bf[3]);
+        ldmatrix_x4_trans(
+            bf, a_frag_addr<D>(sq, kk * 16, (dw >> 4) + nn, lane));
+        mma_bf16(acc_k[2 * nn], ads, bf[0], bf[1]);
+        mma_bf16(acc_k[2 * nn + 1], ads, bf[2], bf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();  // nothing may be left in flight at exit
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (keys[i] >= tk) continue;
+    __nv_bfloat16* dk_row = dk + (kbase + keys[i]) * D + dw;
+    __nv_bfloat16* dv_row = dv + (kbase + keys[i]) * D + dw;
+#pragma unroll
+    for (int n = 0; n < NG; ++n) {
+      *reinterpret_cast<uint32_t*>(dk_row + 8 * n + c2) =
+          pack_bf16(acc_k[n][2 * i], acc_k[n][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dv_row + 8 * n + c2) =
+          pack_bf16(acc_v[n][2 * i], acc_v[n][2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, const void* qseg,
+                           const void* kseg, void* dk, void* dv, int b, int h,
+                           int h_kv, int tq, int tk, int causal, float scale,
+                           cudaStream_t stream) {
+  constexpr size_t smem = dkv_mma_smem_bytes<D>();
+  static bool configured = false;
+  cudaError_t err = opt_in(flash_bwd_dkv_mma_kernel<D>, smem, &configured);
+  if (err != cudaSuccess) return err;
+  const int n_k = (tk + MMA_BK - 1) / MMA_BK;
+  flash_bwd_dkv_mma_kernel<D><<<n_k * b * h_kv, NT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(qseg), static_cast<const int*>(kseg),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), b, h,
+      h_kv, tq, tk, causal, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 #define HVD_DISPATCH(FN, ...)                                               \
@@ -402,6 +669,17 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int dtype, int causal, float scale,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  HVD_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, qseg, kseg, dk, dv, b,
-               h, h_kv, tq, tk, causal, scale, s);
+  if (dtype == hvd::kBF16 && d == 128)
+    return launch_dkv_mma<128>(q, k, v, dout, lse, delta, qseg, kseg, dk, dv,
+                               b, h, h_kv, tq, tk, causal, scale, s);
+  if (dtype == hvd::kBF16 && d == 64)
+    return launch_dkv_mma<64>(q, k, v, dout, lse, delta, qseg, kseg, dk, dv,
+                              b, h, h_kv, tq, tk, causal, scale, s);
+  if (dtype == hvd::kF32 && d == 128)
+    return launch_dkv<float, 128>(q, k, v, dout, lse, delta, qseg, kseg, dk,
+                                  dv, b, h, h_kv, tq, tk, causal, scale, s);
+  if (dtype == hvd::kF32 && d == 64)
+    return launch_dkv<float, 64>(q, k, v, dout, lse, delta, qseg, kseg, dk,
+                                 dv, b, h, h_kv, tq, tk, causal, scale, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -26,6 +26,7 @@ import torch
 from horovod_tpu_torch.collectives.compression import powersgd_matrix_shape
 from horovod_tpu_torch.collectives.ops import _powersgd_seed_matrix
 from horovod_tpu_torch.models.transformer import tied_readout
+from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.ops import attention as tattn
 from horovod_tpu_torch.ops import bn as tbn
 from horovod_tpu_torch.ops import fused_update as tfu
@@ -169,6 +170,129 @@ def test_cuda_flash_autograd_matches_plain_autograd(cuda):
         grads.append((q.grad, k.grad, v.grad))
     for g, w in zip(*grads):
         assert (g - w).abs().max().item() <= 1e-4
+
+
+# The bf16 tensor-core kernels (flash_fwd_mma_kernel, 128-row query tiles
+# over 64-key tiles; flash_bwd_dkv_mma_kernel, 64-key blocks over 64-row
+# query tiles): shapes spanning several tiles with ragged ends, both head
+# dims, GQA and not, causal and not.
+MMA_SHAPES = [(300, 300), (1000, 1000), (200, 1000)]
+
+
+def _mma_inputs(seed, rep, tq, tk, d, cuda):
+    rng = np.random.RandomState(seed)
+    return _bwd_inputs(rng, 1, 2 * rep, 2, tq, tk, d, torch.bfloat16, cuda)
+
+
+def _mma_segments(tq, tk, cuda):
+    """Two packed segments; the last 5 query rows carry an id no key has
+    (DEAD rows) and the last 7 keys an id no query has (dead keys)."""
+    qs = torch.zeros(1, tq, dtype=torch.int32, device=cuda)
+    qs[:, tq // 3:] = 1
+    qs[:, -5:] = 9
+    ks = torch.zeros(1, tk, dtype=torch.int32, device=cuda)
+    ks[:, tk - (2 * tq) // 3:] = 1
+    ks[:, -7:] = 8
+    return qs, ks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tq,tk", MMA_SHAPES)
+def test_cuda_flash_mma_forward_matches_plain(cuda, tq, tk, d, rep, causal):
+    q, k, v, _ = _mma_inputs(20, rep, tq, tk, d, cuda)
+    registry.reset_launch_counts()
+    got, lse = tattn.flash_attention(q, k, v, causal=causal,
+                                     return_lse=True)
+    assert registry.launches("flash") == 1
+    want, want_lse = tattn.flash_attention(q, k, v, causal=causal,
+                                           return_lse=True,
+                                           force_reference=True)
+    assert bool(torch.isfinite(got.float()).all())
+    assert (got.float() - want.float()).abs().max().item() <= \
+        _tol(want, torch.bfloat16)
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tq,tk", MMA_SHAPES)
+def test_cuda_flash_mma_dkv_matches_plain(cuda, tq, tk, d, rep, causal):
+    q, k, v, do = _mma_inputs(21, rep, tq, tk, d, cuda)
+    o, lse = tattn.flash_attention(q, k, v, causal=causal, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    registry.reset_launch_counts()
+    got = tattn.flash_backward_dkv(*args, causal=causal)
+    assert registry.launches("flash_bwd_dkv") == 1
+    want = tattn.flash_backward_dkv(*args, causal=causal,
+                                    force_reference=True)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all())
+        assert (g.float() - w.float()).abs().max().item() <= \
+            _grad_tol(w, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tq,tk", MMA_SHAPES)
+def test_cuda_flash_mma_segments_dead_rows_and_keys(cuda, tq, tk, d):
+    """Dead rows: O exactly 0 and lse +1e30; dead keys: dk and dv exactly
+    0; the rest within the bf16 tolerance of the plain versions."""
+    q, k, v, do = _mma_inputs(22, 4, tq, tk, d, cuda)
+    qs, ks = _mma_segments(tq, tk, cuda)
+    kw = dict(causal=True, segment_ids=qs, kv_segment_ids=ks)
+    o, lse = tattn.flash_attention(q, k, v, return_lse=True, **kw)
+    o_ref, lse_ref = tattn.flash_attention(q, k, v, return_lse=True,
+                                           force_reference=True, **kw)
+    assert (o.float() - o_ref.float()).abs().max().item() <= \
+        _tol(o_ref, torch.bfloat16)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    assert o[:, :, -5:].abs().max().item() == 0.0
+    assert bool((lse[:, :, -5:] == 1e30).all())
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    got = tattn.flash_backward_dkv(*args, **kw)
+    want = tattn.flash_backward_dkv(*args, force_reference=True, **kw)
+    for g, w in zip(got, want):
+        assert (g.float() - w.float()).abs().max().item() <= \
+            _grad_tol(w, torch.bfloat16)
+        assert g[:, :, -7:].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_flash_mma_kernels_repeat_bitwise(cuda):
+    """No atomics and a fixed order of sums: two launches of each bf16
+    kernel give the same bits."""
+    q, k, v, do = _mma_inputs(23, 4, 1000, 1000, 128, cuda)
+    o1, lse1 = tattn.flash_attention(q, k, v, causal=True, return_lse=True)
+    o2, lse2 = tattn.flash_attention(q, k, v, causal=True, return_lse=True)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    delta = (do.float() * o1.float()).sum(-1)
+    args = (q, k, v, do, lse1, delta)
+    dk1, dv1 = tattn.flash_backward_dkv(*args, causal=True)
+    dk2, dv2 = tattn.flash_backward_dkv(*args, causal=True)
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_mma_kernels_do_not_spill(cuda):
+    """Both bf16 tensor-core kernels, at both head dims, keep everything
+    in registers: no local-memory stack and no spill stores or loads."""
+    found = {}
+    for src, kernel in (("flash_fwd", "flash_fwd_mma_kernel"),
+                        ("flash_bwd", "flash_bwd_dkv_mma_kernel")):
+        usage = _build.resource_usage(src)
+        mine = {n: u for n, u in usage.items() if kernel in n}
+        assert len(mine) == 2, (kernel, sorted(usage))   # d = 64 and 128
+        found.update(mine)
+    for name, u in found.items():
+        assert u.get("STACK", 0) == 0 and u.get("LOCAL", 0) == 0, (name, u)
 
 
 @pytest.mark.cuda
