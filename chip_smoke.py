@@ -12,8 +12,10 @@ Phases, each printing its own line; any failure exits non-zero:
    with ``nvcc`` for ``sm_90a``, one process per source, all at once;
    the registers and spill stack of the bf16 tensor-core kernels.
 3. kernels -- each kernel against its plain PyTorch version on the card
-   at its path's shapes (serving: flash forward and decode; training:
-   the flash backward's dq and dk/dv -- the forward and dk/dv run on the
+   at its path's shapes (serving: flash forward and decode, the decode at
+   lengths either side of a page and of a split, timed as device time by
+   replaying a CUDA graph, as is its SDPA yardstick; training: the flash
+   backward's dq and dk/dv -- the forward, dq and dk/dv run on the
    tensor cores in bf16 and on the CUDA cores in f32; cases from 37 to
    2048 tokens, a ragged 1000, tq < tk, segments with dead rows and
    keys, head dims 128 and 64, and two launches bitwise equal, with the
@@ -118,6 +120,34 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Mean device time of one ``fn`` call: ``calls`` calls captured in
+    one CUDA graph, replayed ``replays`` times between CUDA events.  The
+    replay launches every kernel from the device's own queue, so this
+    reads kernel time where ``time_ms`` of a ~0.05 ms call would read the
+    host's enqueue rate."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
 def bound_ms(flops: float, nbytes: float,
              peak_flops: float = H100_BF16_FLOPS) -> tuple:
     t_ops = flops / peak_flops
@@ -141,7 +171,8 @@ def mma_resources(build) -> dict:
     tensor-core kernels, from ``cuobjdump`` of the built libraries."""
     out = {}
     for src, kernel in (("flash_fwd", "flash_fwd_mma_kernel"),
-                        ("flash_bwd", "flash_bwd_dkv_mma_kernel")):
+                        ("flash_bwd", "flash_bwd_dkv_mma_kernel"),
+                        ("flash_bwd", "flash_bwd_dq_mma_kernel")):
         for sym, u in build.resource_usage(src).items():
             m = re.search(kernel + r"ILi(\d+)E", sym)
             if m:
@@ -245,7 +276,7 @@ def check_decode(attn, dev) -> dict:
     head = None
     for dtype in (torch.bfloat16, torch.float32):
         for name, lens in (
-                ("edges", [0, 1, 15, 16, 17, 1000, 2048, 4096]),
+                ("edges", [0, 1, 15, 17, 511, 512, 513, 4096]),
                 ("main", [2048] * slots)):
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
             # Large finite garbage everywhere, then live keys below each
@@ -267,6 +298,9 @@ def check_decode(attn, dev) -> dict:
             o = attn.paged_decode_attention(q, kp, vp, table, lengths)
             o_ref = attn.paged_decode_attention(q, kp, vp, table, lengths,
                                                 force_reference=True)
+            # No atomics: a second launch repeats the bits.
+            repeat = torch.equal(
+                o, attn.paged_decode_attention(q, kp, vp, table, lengths))
             kc = attn.gather_pages(kp, table).contiguous()
             vc = attn.gather_pages(vp, table).contiguous()
             oc = attn.decode_attention(q, kc, vc, lengths=lengths)
@@ -277,19 +311,21 @@ def check_decode(attn, dev) -> dict:
             tol = F32_TOL if dtype == torch.float32 else BF16_TOL * scale
             zero = [i for i, n in enumerate(lens) if n == 0]
             ok = err <= tol and bool(torch.isfinite(o.float()).all()) and \
-                all(o[i].abs().max().item() == 0.0 for i in zero)
+                all(o[i].abs().max().item() == 0.0 for i in zero) and repeat
             rec = {"phase": "kernel", "kernel": "flash_decode",
                    "dtype": str(dtype).replace("torch.", ""),
                    "lengths": lens, "max_abs_err": err, "tol": tol,
-                   "ok": ok}
+                   "bitwise_repeat": repeat, "ok": ok}
             if dtype == torch.bfloat16 and name == "main":
                 live = sum(lens)
                 nbytes = (2 * live * hkv * d + 2 * q.numel()
                           ) * q.element_size() + 4 * slots * (pps + 1)
                 flops = 4.0 * h * live * d
                 bms, by = bound_ms(flops, nbytes)
-                ms = time_ms(lambda: attn.paged_decode_attention(
-                    q, kp, vp, table, lengths), reps=50)
+                # Device time (split + merge) from a replayed graph, and
+                # the library call timed the same way.
+                ms = graph_ms(lambda: attn.paged_decode_attention(
+                    q, kp, vp, table, lengths))
                 plain = time_ms(lambda: attn.paged_decode_attention(
                     q, kp, vp, table, lengths, force_reference=True),
                     reps=5)
@@ -297,8 +333,8 @@ def check_decode(attn, dev) -> dict:
                 # gathered contiguous view, length mask as attn_mask.
                 mask = (pos[None, None, None, :]
                         < lengths[:, None, None, None])
-                lib = time_ms(lambda: F.scaled_dot_product_attention(
-                    q, kc, vc, attn_mask=mask, enable_gqa=True), reps=50)
+                lib = graph_ms(lambda: F.scaled_dot_product_attention(
+                    q, kc, vc, attn_mask=mask, enable_gqa=True))
                 rec.update(ms=ms, plain_ms=plain, library_ms=lib,
                            bound_ms=bms, bound_by=by)
                 head = {"name": "flash_decode", "route": "cuda",
@@ -365,17 +401,18 @@ def check_flash_bwd(attn, dev) -> tuple:
         if case.get("seg"):
             ok = ok and got[0][:, :, -6:].abs().max().item() == 0.0 and \
                 max(x[:, :, -4:].abs().max().item() for x in got[1:]) == 0.0
-        # dk/dv sum over the GQA group inside one CTA, with no atomics: a
-        # second launch repeats the bits.
-        again = attn.flash_backward_dkv(*args, **kw)
-        repeat = all(torch.equal(x, y) for x, y in zip(got[1:], again))
+        # No atomics (dk/dv sum over the GQA group inside one CTA): a
+        # second launch of each repeats the bits.
+        again = (attn.flash_backward_dq(*args, **kw),
+                 *attn.flash_backward_dkv(*args, **kw))
+        repeat = all(torch.equal(x, y) for x, y in zip(got, again))
         ok = ok and repeat
         rec = {"phase": "kernel", "kernel": "flash_bwd",
                "dtype": str(dtype).replace("torch.", ""), "tq": tq,
                "tk": tk, "d": d, "segments": bool(case.get("seg")),
                "max_abs_err": dict(zip(("dq", "dk", "dv"), errs)),
                "tol": dict(zip(("dq", "dk", "dv"), tols)),
-               "dkv_bitwise_repeat": repeat, "ok": ok}
+               "bitwise_repeat": repeat, "ok": ok}
         if dtype == torch.bfloat16 and tq == tk == 2048:
             rec["timing"], heads = time_flash_bwd(attn, args, errs)
         log(rec)

@@ -189,17 +189,22 @@ def _powersgd_seed_matrix(cols: int, rank: int,
     that every rank starts its power iteration from:
     ``cos(i * (j + 1) * 0.9182736 + (j + 1) * 0.3717)``.
 
-    Computed as the JAX package computes it -- f32, the same operation
-    order -- on the CPU, then moved to ``device`` and cached per
-    ``(cols, rank, device)``.  Not on the card: at ``cols = 3880`` the
-    argument reaches ~14,000 rad, where one rounding of a faster ``cos``
-    moves the result by ~1e-3."""
+    The argument is built as the JAX package builds it -- f32, the same
+    operation order -- on the CPU; its cosine is taken in float64 and
+    rounded once to f32, so each entry is within half an f32 ulp of the
+    exact cosine of that argument (an f32 ``cos`` is only within about
+    one ulp, and two such within-one-ulp results can differ by two).
+    Then moved to ``device`` and cached per ``(cols, rank, device)``.
+    Not on the card: at ``cols = 3880`` the argument reaches ~14,000
+    rad, where one rounding of a faster ``cos`` moves the result by
+    ~1e-3."""
     key = (int(cols), int(rank), str(torch.device(device)))
     q0 = _SEED_MATRICES.get(key)
     if q0 is None:
         i = torch.arange(cols, dtype=torch.float32)[:, None]
         j = torch.arange(rank, dtype=torch.float32)[None, :]
-        q0 = torch.cos(i * (j + 1.0) * 0.9182736 + (j + 1.0) * 0.3717)
+        arg = i * (j + 1.0) * 0.9182736 + (j + 1.0) * 0.3717
+        q0 = torch.cos(arg.double()).float()
         q0 = _SEED_MATRICES[key] = q0.to(device)
     return q0
 

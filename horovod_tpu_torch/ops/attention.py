@@ -49,8 +49,9 @@ _NEG_INF = -1e30      # softmax mask value (finite: no NaN on empty rows)
 _DEAD_LSE = 1e30      # logsumexp of a dead row
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_DECODE_SPLIT_MIN = 256   # keys per split of the decode kernel, at least
+_DECODE_SPLIT_MIN = 512   # keys per split of the decode kernel, at least
 _DECODE_MAX_SPLITS = 16
+_DECODE_ROUND = 64        # the kernel's 4 warps x 16-key tiles
 
 
 # ---------------------------------------------------------------------------
@@ -441,11 +442,15 @@ def flash_attention_backward_reference(q, k, v, o, lse, do, *,
 
 def decode_splits(capacity: int) -> tuple:
     """``(splits, keys per split)`` for a slot of ``capacity`` keys: at
-    least ``_DECODE_SPLIT_MIN`` keys per split, at most
-    ``_DECODE_MAX_SPLITS`` splits, split length a multiple of 32 (the
-    kernel's key tile)."""
+    least ``_DECODE_SPLIT_MIN`` keys per split (eight 16-key tiles for
+    each of the kernel's 4 warps), at most ``_DECODE_MAX_SPLITS`` splits,
+    split length a multiple of 64.  Sized from the capacity, not the live
+    length (which only the device knows): the kernel's CTAs past a slot's
+    length exit at once and the merge skips them, so at 8 slots x 2048
+    live keys of 4096 the 256 live CTAs fill the card's 132 SMs (two a
+    SM) in one wave."""
     per = max(_DECODE_SPLIT_MIN, -(-capacity // _DECODE_MAX_SPLITS))
-    per = -(-per // 32) * 32
+    per = -(-per // _DECODE_ROUND) * _DECODE_ROUND
     return -(-capacity // per), per
 
 

@@ -47,9 +47,31 @@
 //   * key block 0, which the most query tiles see under the causal mask, is
 //     dispatched first.
 //
-// dq (bf16 and f32) and dk/dv in f32 -- the first versions, products on
-// the CUDA cores in f32 (f32 inputs keep them: their 1e-5 tolerance is
-// beyond a TF32 or bf16 tensor core):
+// dq, bf16 -- flash_bwd_dq_mma_kernel, on the tensor cores:
+//   * one CTA per (batch, query head, 128 query rows), 8 warps of 16 rows;
+//     CTAs of the last query tiles (the most causal work) launch first;
+//     Q and dO stay resident in swizzled shared memory, lse and delta in
+//     registers; K/V stream as 64-key tiles through a 2-stage cp.async
+//     ring (the next tile loads while this one is used); 128.5 KB at
+//     d = 128, one CTA an SM;
+//   * S = Q K^T and dP = dO V^T, one mma chain each per warp (K and V are
+//     n-major B operands by plain ldmatrix); P and dS = P (dP - delta)
+//     scale are formed in the f32 accumulator fragments, and dS goes from
+//     those registers straight to the bf16 A operand of dS K (K's k-major
+//     B fragments by ldmatrix.trans of the same tile), as the forward
+//     feeds P to P V: dS never touches shared memory;
+//   * dq stays in f32 registers (64 a thread at d = 128) for the whole
+//     key loop and is written once as bf16;
+//   * precision: dS is rounded to bf16 once, as dk/dv rounds dS^T
+//     (tests/test_torch_flash_precision.py emulates it on the CPU within
+//     the 2e-2 x max bound the chip checks hold the kernel to);
+//   * key tiles wholly above the causal diagonal are never loaded, and a
+//     warp skips the tiles above the diagonal of all its 16 rows (exact:
+//     p = 0 there).
+//
+// dq and dk/dv in f32 -- the first versions, products on the CUDA cores
+// in f32 (f32 inputs keep them: their 1e-5 tolerance is beyond a TF32 or
+// bf16 tensor core):
 //   * dq: one CTA per (batch, query head, 64 query rows), 256 threads, four
 //     per row; 32-key K/V tiles stream through shared memory, only the tiles
 //     the causal mask leaves live are loaded;
@@ -637,18 +659,228 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// dq in bf16 on the tensor cores
+// ---------------------------------------------------------------------------
 
-#define HVD_DISPATCH(FN, ...)                                               \
-  do {                                                                     \
-    if (dtype == hvd::kBF16 && d == 128)                                   \
-      return FN<__nv_bfloat16, 128>(__VA_ARGS__);                          \
-    if (dtype == hvd::kBF16 && d == 64)                                    \
-      return FN<__nv_bfloat16, 64>(__VA_ARGS__);                           \
-    if (dtype == hvd::kF32 && d == 128) return FN<float, 128>(__VA_ARGS__); \
-    if (dtype == hvd::kF32 && d == 64) return FN<float, 64>(__VA_ARGS__);   \
-    return (int)cudaErrorInvalidValue;                                     \
-  } while (0)
+constexpr int DQM_BQ = 128;    // query rows per CTA: 8 warps x 16
+constexpr int DQM_BK = 64;     // keys per K/V tile
+
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (2 * DQM_BQ * D + 2 * 2 * DQM_BK * D) +
+         sizeof(int) * 2 * DQM_BK;
+}
+
+// Warp w owns query rows 16 w .. +16 of the tile: S and dP (16 x 64 keys,
+// eight 16 x 8 accumulator tiles each), then dS packed to bf16 A fragments
+// in registers, and dq (16 x D) in f32 registers across the whole key loop.
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+    flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const __nv_bfloat16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            const int* __restrict__ qseg,
+                            const int* __restrict__ kseg,
+                            __nv_bfloat16* __restrict__ dq, int b, int h,
+                            int h_kv, int tq, int tk, int causal,
+                            float scale) {
+  using namespace hvd::mma;
+  constexpr int CH = D / 8;          // 16-byte chunks per row
+  constexpr int NS = DQM_BK / 8;     // S / dP n-tiles per warp
+  constexpr int NO = D / 8;          // dq n-tiles per warp
+  constexpr uint32_t STAGE = DQM_BK * D * 2;  // bytes of one K or V stage
+  extern __shared__ __align__(128) unsigned char mma_smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(mma_smem);  // [BQ][D]
+  __nv_bfloat16* sDO = sQ + DQM_BQ * D;                 // [BQ][D]
+  __nv_bfloat16* sK = sDO + DQM_BQ * D;                 // [2][BK][D]
+  __nv_bfloat16* sV = sK + 2 * DQM_BK * D;              // [2][BK][D]
+  int* sKseg = reinterpret_cast<int*>(sV + 2 * DQM_BK * D);  // [2][BK]
+
+  // One flat grid, the query tile slowest and reversed: the last tiles
+  // (the most keys under the causal mask) are dispatched first.
+  const int bh = blockIdx.x % (b * h);
+  const int q0 = (gridDim.x / (b * h) - 1 - blockIdx.x / (b * h)) * DQM_BQ;
+  const int hh = bh % h, bb = bh / h;
+  const int kvh = hh / (h / h_kv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const int off = tk - tq;
+  const size_t qbase = (size_t)(bb * h + hh) * tq;
+  const __nv_bfloat16* kb = k + (size_t)(bb * h_kv + kvh) * tk * D;
+  const __nv_bfloat16* vb = v + (size_t)(bb * h_kv + kvh) * tk * D;
+  const bool has_seg = qseg != nullptr;
+  const uint32_t aQ = smem_addr(sQ), aDO = smem_addr(sDO);
+  const uint32_t aK = smem_addr(sK), aV = smem_addr(sV);
+  const uint32_t aSeg = smem_addr(sKseg);
+
+  for (int i = tid; i < DQM_BQ * CH; i += NT) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = q0 + r < tq;
+    const size_t row = (qbase + (ok ? q0 + r : 0)) * D + c * 8;
+    cp_async16(aQ + swizzle<D>(r, c), q + row, ok);
+    cp_async16(aDO + swizzle<D>(r, c), dout + row, ok);
+  }
+  // K/V tile of keys [k0, k0 + BK) into ring stage st; keys past tk are
+  // zero-filled.
+  auto load_kv = [&](int k0, int st) {
+    for (int i = tid; i < DQM_BK * CH; i += NT) {
+      const int r = i / CH, c = i % CH;
+      const bool ok = k0 + r < tk;
+      const size_t row = (size_t)(ok ? k0 + r : 0) * D + c * 8;
+      cp_async16(aK + st * STAGE + swizzle<D>(r, c), kb + row, ok);
+      cp_async16(aV + st * STAGE + swizzle<D>(r, c), vb + row, ok);
+    }
+    if (has_seg && tid < DQM_BK) {
+      const bool ok = k0 + tid < tk;
+      cp_async4(aSeg + 4 * (st * DQM_BK + tid),
+                kseg + (size_t)bb * tk + (ok ? k0 + tid : 0), ok);
+    }
+  };
+
+  // Keys past the causal diagonal of this tile's last row never load.
+  const int kv_end = causal ? min(tk, q0 + DQM_BQ + off) : tk;
+  const int n_tiles = (kv_end + DQM_BK - 1) / DQM_BK;
+  load_kv(0, 0);
+  cp_async_commit();
+
+  const int w0 = q0 + warp * 16;             // first row of this warp
+  const int rows[2] = {w0 + g, w0 + g + 8};  // this thread's two rows
+  float lse2[2], dlt[2];                     // lse in log2 units, delta
+  int my_seg[2] = {0, 0};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool ok = rows[i] < tq;
+    lse2[i] = ok ? lse[qbase + rows[i]] * kLog2e : 0.f;
+    dlt[i] = ok ? delta[qbase + rows[i]] : 0.f;
+    if (has_seg && ok) my_seg[i] = qseg[(size_t)bb * tq + rows[i]];
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float sl2 = scale * kLog2e;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile `it` has landed; stage it^1 is free again
+    if (it + 1 < n_tiles) load_kv((it + 1) * DQM_BK, (it + 1) & 1);
+    cp_async_commit();
+    const int st = it & 1;
+    const uint32_t sk = aK + st * STAGE, sv = aV + st * STAGE;
+    const int* seg_t = sKseg + st * DQM_BK;
+    const int k0 = it * DQM_BK;
+    // Every key of this tile lies above the diagonal of all 16 rows: p = 0
+    // there, nothing to add.
+    if (causal && k0 > w0 + 15 + off) continue;
+
+    // S = Q K^T and dP = dO V^T for 16 rows x 64 keys.
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ado[4];
+      ldmatrix_x4(aq, a_frag_addr<D>(aQ, warp * 16, kk, lane));
+      ldmatrix_x4(ado, a_frag_addr<D>(aDO, warp * 16, kk, lane));
+#pragma unroll
+      for (int nn = 0; nn < NS / 2; ++nn) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, b_frag_addr<D>(sk, nn * 16, kk, lane));
+        mma_bf16(s[2 * nn], aq, bf[0], bf[1]);
+        mma_bf16(s[2 * nn + 1], aq, bf[2], bf[3]);
+        ldmatrix_x4(bf, b_frag_addr<D>(sv, nn * 16, kk, lane));
+        mma_bf16(dp[2 * nn], ado, bf[0], bf[1]);
+        mma_bf16(dp[2 * nn + 1], ado, bf[2], bf[3]);
+      }
+    }
+
+    // P = exp(S scale - lse) on live pairs (0 elsewhere, and on dead rows,
+    // whose lse is +1e30), then dS = P (dP - delta) scale, in place of S.
+    // Only tiles at the ragged end, on the causal diagonal or with segment
+    // ids need the per-element mask; rows past tq have zero Q and dO, so
+    // their dS is 0 and they are never stored.
+    const bool masked = has_seg || k0 + DQM_BK > tk ||
+                        (causal && k0 + DQM_BK - 1 > w0 + off);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = exp2f(s[n][e] * sl2 - lse2[i]);
+        if (masked) {
+          const int cl = 8 * n + c2 + (e & 1), col = k0 + cl;
+          bool live = col < tk;
+          if (causal && col > rows[i] + off) live = false;
+          if (has_seg && seg_t[cl] != my_seg[i]) live = false;
+          if (!live) p = 0.f;
+        }
+        s[n][e] = p * (dp[n][e] - dlt[i]) * scale;
+      }
+
+    // dq += dS K: dS from the C fragments straight to bf16 A fragments
+    // (one rounding), K's k-major B fragments by ldmatrix.trans of the
+    // same swizzled tile.
+#pragma unroll
+    for (int kk = 0; kk < DQM_BK / 16; ++kk) {
+      uint32_t a[4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)   // rows g, g + 8
+          a[2 * half + i] = pack_bf16(s[2 * kk + half][2 * i],
+                                      s[2 * kk + half][2 * i + 1]);
+#pragma unroll
+      for (int nn = 0; nn < NO / 2; ++nn) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, a_frag_addr<D>(sk, kk * 16, nn, lane));
+        mma_bf16(acc[2 * nn], a, bf[0], bf[1]);
+        mma_bf16(acc[2 * nn + 1], a, bf[2], bf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();  // nothing may be left in flight at exit
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= tq) continue;
+    __nv_bfloat16* out = dq + (qbase + rows[i]) * D;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(out + 8 * n + c2) =
+          pack_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, const void* qseg,
+                          const void* kseg, void* dq, int b, int h, int h_kv,
+                          int tq, int tk, int causal, float scale,
+                          cudaStream_t stream) {
+  constexpr size_t smem = dq_mma_smem_bytes<D>();
+  static bool configured = false;
+  cudaError_t err = opt_in(flash_bwd_dq_mma_kernel<D>, smem, &configured);
+  if (err != cudaSuccess) return err;
+  const int n_q = (tq + DQM_BQ - 1) / DQM_BQ;
+  flash_bwd_dq_mma_kernel<D><<<n_q * b * h, NT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(qseg), static_cast<const int*>(kseg),
+      static_cast<__nv_bfloat16*>(dq), b, h, h_kv, tq, tk, causal, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
@@ -657,8 +889,19 @@ extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int h_kv, int tq, int tk, int d, int dtype,
                                 int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  HVD_DISPATCH(launch_dq, q, k, v, dout, lse, delta, qseg, kseg, dq, b, h,
-               h_kv, tq, tk, causal, scale, s);
+  if (dtype == hvd::kBF16 && d == 128)
+    return launch_dq_mma<128>(q, k, v, dout, lse, delta, qseg, kseg, dq, b,
+                              h, h_kv, tq, tk, causal, scale, s);
+  if (dtype == hvd::kBF16 && d == 64)
+    return launch_dq_mma<64>(q, k, v, dout, lse, delta, qseg, kseg, dq, b, h,
+                             h_kv, tq, tk, causal, scale, s);
+  if (dtype == hvd::kF32 && d == 128)
+    return launch_dq<float, 128>(q, k, v, dout, lse, delta, qseg, kseg, dq,
+                                 b, h, h_kv, tq, tk, causal, scale, s);
+  if (dtype == hvd::kF32 && d == 64)
+    return launch_dq<float, 64>(q, k, v, dout, lse, delta, qseg, kseg, dq, b,
+                                h, h_kv, tq, tk, causal, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,

@@ -44,7 +44,7 @@ GEMM = ("gemm", "nvjet", "cutlass", "Kernel2", "sm90_xmma", "sm80_xmma")
 GROUPS = {
     "llama": {
         "flash_fwd": ("flash_fwd_mma_kernel", "flash_fwd_kernel"),
-        "flash_bwd_dq": ("flash_bwd_dq_kernel",),
+        "flash_bwd_dq": ("flash_bwd_dq_mma_kernel", "flash_bwd_dq_kernel"),
         "flash_bwd_dkv": ("flash_bwd_dkv_mma_kernel", "flash_bwd_dkv_kernel"),
         "nccl": NCCL,
         "gemm": GEMM,

@@ -228,10 +228,11 @@ def test_decode_validation():
 
 
 @pytest.mark.parametrize("capacity,splits,per", [
-    (4096, 16, 256), (64, 1, 256), (1000, 4, 256), (8192, 16, 512)])
+    (4096, 8, 512), (64, 1, 512), (1000, 2, 512), (8192, 16, 512),
+    (20000, 16, 1280)])
 def test_decode_split_plan(capacity, splits, per):
     assert tattn.decode_splits(capacity) == (splits, per)
-    assert splits * per >= capacity and per % 32 == 0
+    assert splits * per >= capacity and per % 64 == 0
 
 
 def test_attention_flops_counts_kept_pairs():

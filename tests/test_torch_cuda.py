@@ -266,6 +266,48 @@ def test_cuda_flash_mma_segments_dead_rows_and_keys(cuda, tq, tk, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tq,tk", MMA_SHAPES)
+def test_cuda_flash_mma_dq_matches_plain(cuda, tq, tk, d, rep, causal):
+    """flash_bwd_dq_mma_kernel (128-row query tiles over 64-key tiles)
+    against the plain dq on the same saved ``lse`` and ``delta``."""
+    q, k, v, do = _mma_inputs(24, rep, tq, tk, d, cuda)
+    o, lse = tattn.flash_attention(q, k, v, causal=causal, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    registry.reset_launch_counts()
+    got = tattn.flash_backward_dq(*args, causal=causal)
+    assert registry.launches("flash_bwd_dq") == 1
+    want = tattn.flash_backward_dq(*args, causal=causal,
+                                   force_reference=True)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got.float()).all())
+    assert (got.float() - want.float()).abs().max().item() <= \
+        _grad_tol(want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tq,tk", MMA_SHAPES)
+def test_cuda_flash_mma_dq_segments_dead_rows(cuda, tq, tk, d):
+    """Dead rows (lse +1e30) get dq exactly 0; the rest within the bf16
+    tolerance of the plain dq."""
+    q, k, v, do = _mma_inputs(25, 4, tq, tk, d, cuda)
+    qs, ks = _mma_segments(tq, tk, cuda)
+    kw = dict(causal=True, segment_ids=qs, kv_segment_ids=ks)
+    o, lse = tattn.flash_attention(q, k, v, return_lse=True, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    got = tattn.flash_backward_dq(*args, **kw)
+    want = tattn.flash_backward_dq(*args, force_reference=True, **kw)
+    assert (got.float() - want.float()).abs().max().item() <= \
+        _grad_tol(want, torch.bfloat16)
+    assert got[:, :, -5:].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
 def test_cuda_flash_mma_kernels_repeat_bitwise(cuda):
     """No atomics and a fixed order of sums: two launches of each bf16
     kernel give the same bits."""
@@ -278,15 +320,19 @@ def test_cuda_flash_mma_kernels_repeat_bitwise(cuda):
     dk1, dv1 = tattn.flash_backward_dkv(*args, causal=True)
     dk2, dv2 = tattn.flash_backward_dkv(*args, causal=True)
     assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    dq1 = tattn.flash_backward_dq(*args, causal=True)
+    dq2 = tattn.flash_backward_dq(*args, causal=True)
+    assert torch.equal(dq1, dq2)
 
 
 @pytest.mark.cuda
 def test_cuda_flash_mma_kernels_do_not_spill(cuda):
-    """Both bf16 tensor-core kernels, at both head dims, keep everything
+    """The bf16 tensor-core kernels, at both head dims, keep everything
     in registers: no local-memory stack and no spill stores or loads."""
     found = {}
     for src, kernel in (("flash_fwd", "flash_fwd_mma_kernel"),
-                        ("flash_bwd", "flash_bwd_dkv_mma_kernel")):
+                        ("flash_bwd", "flash_bwd_dkv_mma_kernel"),
+                        ("flash_bwd", "flash_bwd_dq_mma_kernel")):
         usage = _build.resource_usage(src)
         mine = {n: u for n, u in usage.items() if kernel in n}
         assert len(mine) == 2, (kernel, sorted(usage))   # d = 64 and 128
@@ -326,6 +372,89 @@ def test_cuda_paged_decode_kernel_matches_plain(cuda, dtype):
     assert (got.float() - want.float()).abs().max().item() <= tol
     assert (view.float() - want.float()).abs().max().item() <= tol
     assert got[0].abs().max().item() == 0.0
+
+
+# Serving shapes (page 16, max_len 4096, 512-key splits of 64-key warp
+# rounds): lengths at 0, one key, either side of a page and of a warp
+# tile, either side of a split, and the whole slot.
+DECODE_LENGTHS = [0, 1, 15, 16, 17, 64, 511, 512, 513, 4096]
+
+
+def _decode_pool(rng, lengths, table, ps, h_kv, d, dtype, cuda):
+    """K/V pools full of large finite garbage, with random live keys below
+    each slot's length: any leak past a length shows as a huge error."""
+    npages = table.numel()
+    kp = torch.full((npages + 1, ps, h_kv, d), 3e4)
+    vp = torch.full_like(kp, -3e4)
+    tab = table.cpu()
+    for s, n in enumerate(lengths):
+        pos = torch.arange(n)
+        pg, of = tab[s].long()[pos // ps], pos % ps
+        kp[pg, of] = _randn(rng, n, h_kv, d)
+        vp[pg, of] = _randn(rng, n, h_kv, d)
+    return kp.to(cuda, dtype), vp.to(cuda, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,h,h_kv", [(128, 32, 8), (64, 8, 1),
+                                      (128, 8, 8)])
+def test_cuda_decode_kernel_at_length_edges(cuda, dtype, d, h, h_kv):
+    """The paged and the contiguous decode against the plain version at
+    the edge lengths, with garbage past every length; a slot of length 0
+    gives exactly 0."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(26)
+    ps, max_len = 16, 4096
+    slots, pps = len(DECODE_LENGTHS), max_len // ps
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=cuda)
+    table = torch.from_numpy(rng.permutation(slots * pps).astype(np.int32)
+                             ).view(slots, pps).to(cuda)
+    kp, vp = _decode_pool(rng, DECODE_LENGTHS, table, ps, h_kv, d, dt, cuda)
+    q = _randn(rng, slots, h, 1, d).to(cuda, dt)
+    registry.reset_launch_counts()
+    got = tattn.paged_decode_attention(q, kp, vp, table, lengths)
+    view = tattn.decode_attention(
+        q, tattn.gather_pages(kp, table).contiguous(),
+        tattn.gather_pages(vp, table).contiguous(), lengths=lengths)
+    assert registry.launches("flash_decode") == 2
+    want = tattn.paged_decode_attention(q, kp, vp, table, lengths,
+                                        force_reference=True)
+    tol = _tol(want, dt)
+    for out in (got, view):
+        assert bool(torch.isfinite(out.float()).all())
+        assert (out.float() - want.float()).abs().max().item() <= tol
+        assert out[0].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_decode_kernel_repeats_bitwise(cuda):
+    """No atomics, a fixed order of sums: two launches of the decode
+    kernels at 8 slots x 2048 keys give the same bits."""
+    rng = np.random.RandomState(27)
+    ps, pps, slots = 16, 256, 8
+    lens = [2048] * slots
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    table = torch.from_numpy(rng.permutation(slots * pps).astype(np.int32)
+                             ).view(slots, pps).to(cuda)
+    kp, vp = _decode_pool(rng, lens, table, ps, 8, 128, torch.bfloat16,
+                          cuda)
+    q = _randn(rng, slots, 32, 1, 128).to(cuda, torch.bfloat16)
+    first = tattn.paged_decode_attention(q, kp, vp, table, lengths)
+    second = tattn.paged_decode_attention(q, kp, vp, table, lengths)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_kernels_do_not_spill(cuda):
+    """Every decode instantiation (two dtypes x two head dims x four group
+    sizes, and the merges) keeps everything in registers."""
+    usage = _build.resource_usage("flash_decode")
+    split = [n for n in usage if "decode_split_kernel" in n]
+    merge = [n for n in usage if "decode_merge_kernel" in n]
+    assert len(split) == 16 and len(merge) == 4, sorted(usage)
+    for name, u in usage.items():
+        assert u.get("STACK", 0) == 0 and u.get("LOCAL", 0) == 0, (name, u)
 
 
 @pytest.mark.cuda

@@ -48,6 +48,7 @@ NEG = -1e30         # masked logit (finite)
 DEAD_LSE = 1e30
 FWD_BQ, FWD_BK = 128, 64     # flash_fwd_mma_kernel's tiles
 DKV_BK, DKV_BQ = 64, 64      # flash_bwd_dkv_mma_kernel's tiles
+DQ_BQ, DQ_BK = 128, 64       # flash_bwd_dq_mma_kernel's tiles
 
 
 def _bf16(x):
@@ -140,6 +141,40 @@ def emulate_dkv(q, k, v, do, lse, delta, *, causal, scale, qseg=None,
                 dk[:, :, cols] += torch.einsum("bhkq,bhqd->bhkd",
                                                _bf16(ds), qt)
     return _bf16(dk), _bf16(dv)
+
+
+def emulate_dq(q, k, v, do, lse, delta, *, causal, scale, qseg=None,
+               kseg=None):
+    """``dq`` as the bf16 dq kernel computes it: per 128-row query tile,
+    over the 64-key tiles up to the tile's causal end, f32 ``S`` and
+    ``dP``, ``dS = P (dP - delta) scale`` rounded once to bf16 before
+    ``dS K``, the sum in f32 and one rounding of the result."""
+    b, h, tq, d = q.shape
+    rep, tk = h // k.shape[1], k.shape[2]
+    kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    off = tk - tq
+    dq = torch.zeros(b, h, tq, d)
+    for q0 in range(0, tq, DQ_BQ):
+        rows = torch.arange(q0, min(q0 + DQ_BQ, tq))
+        kv_end = min(tk, q0 + DQ_BQ + off) if causal else tk
+        for k0 in range(0, kv_end, DQ_BK):
+            cols = torch.arange(k0, min(k0 + DQ_BK, tk))
+            s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, rows],
+                             kr[:, :, cols]) * scale
+            live = torch.ones(len(rows), len(cols), dtype=torch.bool)
+            if causal:
+                live = live & (cols[None, :] <= rows[:, None] + off)
+            live = live[None, None].expand(b, h, -1, -1)
+            if qseg is not None:
+                live = live & (qseg[:, None, rows, None]
+                               == kseg[:, None, None, cols])
+            p = torch.where(live, torch.exp(s - lse[:, :, rows, None]), 0.0)
+            dp = torch.einsum("bhqd,bhkd->bhqk", do[:, :, rows],
+                              vr[:, :, cols])
+            ds = p * (dp - delta[:, :, rows, None]) * scale
+            dq[:, :, rows] += torch.einsum("bhqk,bhkd->bhqd", _bf16(ds),
+                                           kr[:, :, cols])
+    return _bf16(dq)
 
 
 CASES = [
@@ -259,3 +294,22 @@ def test_bf16_dkv_emulation_within_tolerance(name, causal, tq, tk,
     if seg is not None:
         assert torch.equal(dk[:, :, -7:], torch.zeros_like(dk[:, :, -7:]))
         assert torch.equal(dv[:, :, -7:], torch.zeros_like(dv[:, :, -7:]))
+
+
+@pytest.mark.parametrize("name,causal,tq,tk,segments", CASES)
+def test_bf16_dq_emulation_within_tolerance(name, causal, tq, tk, segments):
+    q, k, v, do, seg = _case(2, tq, tk, segments)
+    scale = D ** -0.5
+    tq_, tk_, tv_, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    tseg = {} if seg is None else dict(
+        qseg=torch.from_numpy(seg[0]), kseg=torch.from_numpy(seg[1]))
+    o, lse = emulate_forward(tq_, tk_, tv_, causal=causal, scale=scale,
+                             **tseg)
+    delta = (tdo * o).sum(-1)
+    dq = emulate_dq(tq_, tk_, tv_, tdo, lse, delta, causal=causal,
+                    scale=scale, **tseg)
+    _, (want_dq, _, _) = _jax_vjp(q, k, v, do, seg, causal)
+    assert dq.shape == want_dq.shape
+    assert 0.0 < _rel_err(dq, want_dq) <= REL
+    if seg is not None:
+        assert torch.equal(dq[:, :, -5:], torch.zeros_like(dq[:, :, -5:]))

@@ -227,15 +227,48 @@ def test_ef_optimizer_rejects_what_jax_rejects():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("cols,rank", [(3880, 4), (3241, 4), (8, 3),
-                                       (7, 1)])
+SEED_CASES = [(3880, 4), (3241, 4), (8, 3), (7, 1)]
+
+
+def _seed_cos64(cols, rank):
+    """The exact (float64) cosine of Q0's f32 argument, built in the
+    reference's operation order."""
+    i = np.arange(cols, dtype=np.float32)[:, None]
+    j = np.arange(rank, dtype=np.float32)[None, :]
+    arg = i * (j + np.float32(1.0)) * np.float32(0.9182736) + \
+        (j + np.float32(1.0)) * np.float32(0.3717)
+    assert arg.dtype == np.float32
+    return np.cos(arg.astype(np.float64))
+
+
+@pytest.mark.parametrize("cols,rank", SEED_CASES)
 def test_seed_matrix_matches_jax(cols, rank):
     from horovod_tpu.collectives.ops import _powersgd_seed_matrix as jq0
     got = tops._powersgd_seed_matrix(cols, rank)
     assert got.dtype == torch.float32 and tuple(got.shape) == (cols, rank)
-    np.testing.assert_allclose(got.numpy(), np.asarray(jq0(cols, rank)),
-                               rtol=0, atol=Q0_ULP)
+    port, ref = got.numpy(), np.asarray(jq0(cols, rank))
+    diff = np.abs(port.astype(np.float64) - ref.astype(np.float64))
+    worst = np.unravel_index(int(np.argmax(diff)), diff.shape)
+    exact = _seed_cos64(cols, rank)[worst]
+    assert diff[worst] <= Q0_ULP, (
+        f"Q0 at {tuple(int(x) for x in worst)}: port {port[worst]!r}, "
+        f"jax {ref[worst]!r}, |diff| {diff[worst]:.3e} > {Q0_ULP}; the "
+        f"jax side is {abs(float(ref[worst]) - exact):.3e} and the port "
+        f"{abs(float(port[worst]) - exact):.3e} from the float64 cosine "
+        f"{exact!r}")
     assert tops._powersgd_seed_matrix(cols, rank) is got      # cached
+
+
+@pytest.mark.parametrize("cols,rank", SEED_CASES)
+def test_seed_matrix_within_half_ulp_of_float64_cosine(cols, rank):
+    """One rounding of the float64 cosine: every entry within half an f32
+    ulp of the exact cosine of its f32 argument, so any reference within
+    one ulp of the exact value is within ``Q0_ULP`` of the port."""
+    got = tops._powersgd_seed_matrix(cols, rank).numpy()
+    exact = _seed_cos64(cols, rank)
+    half_ulp = np.spacing(np.abs(got)).astype(np.float64) / 2
+    err = np.abs(got.astype(np.float64) - exact)
+    assert bool((err <= half_ulp).all()), float((err / half_ulp).max())
 
 
 def _stage_inputs(size, rank, seed):
