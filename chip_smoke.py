@@ -24,7 +24,8 @@ Phases, each printing its own line; any failure exits non-zero:
    sites at batch 256, bitwise repeatable; PowerSGD: the three
    ``fused_update`` stages at both ResNet-50 bucket shapes, r = 1 and
    4, with and without a residual, Average and Sum with a postscale,
-   bitwise repeatable), with its time, the plain version's time, one
+   bitwise repeatable, timed from a replayed CUDA graph), with its time,
+   the plain version's time, one
    PyTorch library call's time for the same function where one exists,
    and the least time the card could take (``bound_ms``).
 4. serve -- Llama-3 8B at full width and depth (random bf16 weights from
@@ -68,6 +69,8 @@ Phases, each printing its own line; any failure exits non-zero:
    handles and 227,888 wire bytes a step, 10 launches of each stage.
 10. lenet -- ten LeNet steps on a synthetic MNIST-like batch with
    ``examples/mnist_lenet.py``'s SGD(0.01, momentum 0.9); the loss falls.
+11. fused_update_launches -- each PowerSGD stage launch's own device
+   time at the headline case, from ``torch.profiler`` (information).
 
 Then one JSON line of per-kernel numbers, the card line, and last the
 ``{"ok": true, "device": ...}`` line.  Without a GPU, or without the rest
@@ -146,6 +149,61 @@ def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * calls)
+
+
+def fused_update_launches(dev, card: str) -> None:
+    """Each PowerSGD stage launch's own device time at the headline case
+    (the 3880 x 3880 bucket, r = 4, f32 with a residual), as information:
+    stage 2 is two launches.  Run last: run in phase 3, the
+    ``torch.profiler`` session slowed phase 9's first timed step to 0.40 s
+    (the others 0.13 s) on an H100."""
+    from horovod_tpu_torch.collectives.compression import \
+        powersgd_matrix_shape
+    from horovod_tpu_torch.collectives.ops import _powersgd_seed_matrix
+    from horovod_tpu_torch.ops import fused_update as fu
+
+    size = POWERSGD_BUCKETS[0]
+    m, c = powersgd_matrix_shape(size)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(size, generator=gen, device=dev)
+    res = torch.randn(size, generator=gen, device=dev)
+    q0 = _powersgd_seed_matrix(c, POWERSGD_RANK, dev)
+    acc, p = fu.matricize_p(x, res, q0, rows=m)
+    po, ql = fu.orthonormalize_q(acc, p)
+    q = ql * 0.75 + 0.01
+    log({"phase": "fused_update_launches", "card": card, "m": m, "c": c,
+         "r": POWERSGD_RANK, "launch_ms": {
+             "matricize_p": launch_ms(
+                 lambda: fu.matricize_p(x, res, q0, rows=m)),
+             "orthonormalize_q": launch_ms(
+                 lambda: fu.orthonormalize_q(acc, p)),
+             "reconstruct": launch_ms(lambda: fu.reconstruct_residual(
+                 acc, po, q, ql, size=size))}})
+
+
+def launch_ms(fn, calls: int = 20) -> dict:
+    """Device time of each kernel ``fn`` launches, in ms a call of ``fn``
+    (``torch.profiler`` over ``calls`` calls after a warm-up), keyed by the
+    kernel's name with its template arguments."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        m = re.search(r"(\w+_kernel(<[^>(]*>)?)", ev.key)
+        name = m.group(1) if m else ev.key[:60]
+        out[name] = out.get(name, 0.0) + us / 1e3 / calls
+    return out
 
 
 def bound_ms(flops: float, nbytes: float,
@@ -661,7 +719,7 @@ def check_fused_update(dev) -> tuple:
                     rec = {"phase": "kernel", "kernel": "fused_update",
                            "size": size, "m": m, "c": c, "r": r,
                            "residual": residual, "scaling": scaling,
-                           "chunks": fu.q_chunks(m, c), "max_abs_err": errs,
+                           "max_abs_err": errs,
                            "tol": tols, "ok": ok}
                     for n in names:
                         worst[n] = max(worst[n], errs[n])
@@ -691,17 +749,20 @@ def time_fused_update(fu, x, res, q0, m, size, got, want, q) -> tuple:
     case, a repeat launch of each that must give bitwise the same outputs,
     and -- as information only, since no one PyTorch call computes any of
     the three -- cuBLAS-backed ``torch.add`` + ``torch.mm`` chains that do
-    each stage's arithmetic."""
+    each stage's arithmetic.  A stage's time is device time from a
+    replayed CUDA graph (``graph_ms``): CUDA events around back-to-back
+    wrapper calls of a 0.03 ms stage read the host's launch rate."""
     c, r = q0.shape
     acc_w, p_w, po_w, ql_w = want[:4]
     again = (*fu.matricize_p(x, res, q0, rows=m),
              *fu.orthonormalize_q(acc_w, p_w),
              *fu.reconstruct_residual(acc_w, po_w, q, ql_w, size=size))
     deterministic = all(torch.equal(a, b) for a, b in zip(again, got))
-    ms = (time_ms(lambda: fu.matricize_p(x, res, q0, rows=m)),
-          time_ms(lambda: fu.orthonormalize_q(acc_w, p_w)),
-          time_ms(lambda: fu.reconstruct_residual(acc_w, po_w, q, ql_w,
-                                                  size=size)))
+    stages = (lambda: fu.matricize_p(x, res, q0, rows=m),
+              lambda: fu.orthonormalize_q(acc_w, p_w),
+              lambda: fu.reconstruct_residual(acc_w, po_w, q, ql_w,
+                                              size=size))
+    ms = tuple(graph_ms(fn) for fn in stages)
     plain = (time_ms(lambda: fu.matricize_p(x, res, q0, rows=m,
                                             force_reference=True), reps=5),
              time_ms(lambda: fu.orthonormalize_q(acc_w, p_w,
@@ -743,7 +804,8 @@ def time_fused_update(fu, x, res, q0, m, size, got, want, q) -> tuple:
               "reconstruct_ms": ms[2], "plain_ms": list(plain),
               "bound_ms": [b[0] for b in bounds],
               "bound_by": [b[1] for b in bounds], "bytes": list(nbytes),
-              "add_mm_info_ms": list(lib), "deterministic": deterministic}
+              "add_mm_info_ms": list(lib),
+              "deterministic": deterministic}
     return timing, entries
 
 
@@ -1383,6 +1445,8 @@ def main() -> int:
     powersgd = train_resnet_powersgd(dev, card)
     free_device()
     train_lenet(dev)
+    free_device()
+    fused_update_launches(dev, card)
     # The flash forward runs on both paths: its launches are the sum.
     flash["launches"] = serve["flash"] + train["flash"]
     decode["launches"] = serve["flash_decode"]

@@ -101,8 +101,8 @@ ENTRIES = {
     "fused_update_orthonormalize_q": (
         "fused_update", "hvd_fused_orthonormalize_q", [
             _P, _P,          # acc [m, c], mean p [m, r]
-            _P, _P, _P,      # p_orth [m, r], workspace, q_local [c, r]
-            _I, _I, _I, _I,  # m, c, r, chunks
+            _P, _P,          # p_orth [m, r], q_local [c, r]
+            _I, _I, _I,      # m, c, r
             _P]),            # stream
     "fused_update_reconstruct": ("fused_update", "hvd_fused_reconstruct", [
         _P, _P, _P, _P,      # acc, p_orth, q (mean), q_local

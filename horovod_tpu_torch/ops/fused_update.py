@@ -38,19 +38,6 @@ from . import registry
 from ._build import check_launch, entry, stream
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMS = 132                 # H100 SXM streaming multiprocessors
-_CTAS_PER_SM = 8           # stage 2 projection CTAs aimed at per SM
-_TILE_COLUMNS = 128        # stage 2 projection: columns per CTA
-_MIN_ROWS_PER_CHUNK = 16
-
-
-def q_chunks(m: int, c: int) -> int:
-    """Row chunks of the stage-2 projection for an ``[m, c]`` arena:
-    enough CTAs (column tiles x chunks) to give every SM
-    ``_CTAS_PER_SM``, but at least ``_MIN_ROWS_PER_CHUNK`` rows a chunk."""
-    tiles = -(-c // _TILE_COLUMNS)
-    want = max(1, _SMS * _CTAS_PER_SM // tiles)
-    return max(1, min(want, -(-m // _MIN_ROWS_PER_CHUNK)))
 
 
 def _gram_schmidt(p: torch.Tensor) -> torch.Tensor:
@@ -165,15 +152,11 @@ def orthonormalize_q(acc: torch.Tensor, p_mean: torch.Tensor, *,
         return p_orth, acc.float().T @ p_orth
     _check_cuda("orthonormalize_q", acc, acc.device)
     _check_cuda("orthonormalize_q", p_mean, acc.device)
-    chunks = q_chunks(m, c)
     p_orth = torch.empty((m, r), dtype=torch.float32, device=acc.device)
-    workspace = torch.empty((chunks, c, r), dtype=torch.float32,
-                            device=acc.device)
     q_local = torch.empty((c, r), dtype=torch.float32, device=acc.device)
     err = entry("fused_update_orthonormalize_q")(
         acc.data_ptr(), p_mean.data_ptr(), p_orth.data_ptr(),
-        workspace.data_ptr(), q_local.data_ptr(), m, c, r, chunks,
-        stream(acc))
+        q_local.data_ptr(), m, c, r, stream(acc))
     check_launch("fused_update_orthonormalize_q", err)
     registry.note_launch("fused_update_orthonormalize_q")
     return p_orth, q_local
@@ -226,5 +209,4 @@ def reconstruct_residual(acc: torch.Tensor, p_orth: torch.Tensor,
     return out, new_residual
 
 
-__all__ = ["matricize_p", "orthonormalize_q", "reconstruct_residual",
-           "q_chunks"]
+__all__ = ["matricize_p", "orthonormalize_q", "reconstruct_residual"]

@@ -55,9 +55,8 @@ GROUPS = {
     "resnet50": {
         "bn_bwd_reduce": ("bn_bwd_reduce_kernel", "bn_bwd_finish_kernel"),
         "bn_bwd_dx": ("bn_bwd_dx_kernel",),
-        "fused_update": ("matricize_p_kernel", "gram_schmidt_kernel",
-                         "q_partial_kernel", "q_finish_kernel",
-                         "reconstruct_kernel"),
+        "fused_update": ("matricize_p_kernel", "gram_schmidt",
+                         "q_project_kernel", "reconstruct_kernel"),
         "conv": ("fprop", "dgrad", "wgrad", "conv", "cudnn",
                  "implicit_gemm"),
         "nccl": NCCL,

@@ -625,11 +625,18 @@ def _powersgd_stages(size, r, dtype, residual, cuda, seed, **kw):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("size,r", [(37, 1), (1000, 4), (100003, 4),
-                                    (100003, 8), (1000003, 9), (64, 1)])
+                                    (100003, 8), (1000003, 9), (64, 1),
+                                    (1000003, 64), (15053824, 128),
+                                    (13000000, 8), (52000000, 4)])
 def test_cuda_powersgd_stages_match_plain(cuda, dtype, size, r):
-    """Ragged tails (size < m * c), r = 1 / 4 / 8 and r = 9 (two passes
-    of the kernels' 8 register columns): each kernel against its plain
-    version on the same inputs, one launch of each family per call."""
+    """Ragged tails (size < m * c), r = 1 / 4, and r = 8 / 9 / 64 / 128
+    (passes of the kernels' 4 factor columns): each kernel against its
+    plain version on the same inputs, one launch of each family per call.
+    Gram-Schmidt: P's rows in registers (r <= 8, m <= 4096), [1001, 9] in
+    shared memory, [1001, 64] and [3880, 128] past its 220 KB in device
+    memory.  At [7212, 7211] r = 4, P is Gram-Schmidt in shared memory
+    (m > 4096), Q0 (c x 4 f32) is staged in two column segments and each
+    projection CTA stages its 902 rows of P_orth twice."""
     registry.reset_launch_counts()
     got, want = _powersgd_stages(size, r, dtype, True, cuda, seed=size + r,
                                  n_scale=2.0, postscale=0.25)
@@ -662,6 +669,43 @@ def test_cuda_powersgd_stages_without_residual_and_deterministic(cuda):
     for g, w in zip(first[1:], want[1:]):
         assert (g - w).abs().max().item() <= \
             POWERSGD_REL * w.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_off,res_off", [(1, 0), (4, 0), (0, 3), (2, 2)])
+def test_cuda_matricize_p_takes_any_alignment(cuda, dtype, x_off, res_off):
+    """Flat x and residual that start off a 16-byte boundary (views into
+    larger buffers): stage 1 streams vectors only where x, the residual
+    and acc share their phase, and gives the plain version's acc bitwise
+    either way."""
+    rng = np.random.RandomState(x_off * 8 + res_off)
+    size = 100003
+    m, c = powersgd_matrix_shape(size)
+    x = _randn(rng, size + 8).to(cuda, dtype)[x_off:x_off + size]
+    res = _randn(rng, size + 8).to(cuda)[res_off:res_off + size]
+    q0 = _powersgd_seed_matrix(c, 4, cuda)
+    acc, p = tfu.matricize_p(x, res, q0, rows=m, prescale=0.5)
+    acc_w, p_w = tfu.matricize_p(x, res, q0, rows=m, prescale=0.5,
+                                 force_reference=True)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, acc_w)
+    assert (p - p_w).abs().max().item() <= \
+        POWERSGD_REL * p_w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_fused_update_kernels_do_not_spill(cuda):
+    """Every PowerSGD stage kernel (stage 1: two dtypes; Gram-Schmidt in
+    shared or device memory and in registers; the projection: two load
+    widths; stage 3) keeps everything in registers."""
+    usage = _build.resource_usage("fused_update")
+    for kernel, n in (("matricize_p_kernel", 2), ("gram_schmidt_kernel", 1),
+                      ("gram_schmidt_regs_kernel", 1),
+                      ("q_project_kernel", 2), ("reconstruct_kernel", 1)):
+        assert len([k for k in usage if kernel in k]) == n, sorted(usage)
+    for name, u in usage.items():
+        assert u.get("STACK", 0) == 0 and u.get("LOCAL", 0) == 0, (name, u)
 
 
 @pytest.mark.cuda
