@@ -27,7 +27,11 @@ Phases, each printing its own line; any failure exits non-zero:
    bitwise repeatable, timed from a replayed CUDA graph), with its time,
    the plain version's time, one
    PyTorch library call's time for the same function where one exists,
-   and the least time the card could take (``bound_ms``).
+   and the least time the card could take (``bound_ms``).  BERT: the
+   forward, dq and dk/dv at BERT-Large's heads (16 of 64, bidirectional)
+   at 64 x 128 tokens and at 4 x 512 packed with two segments a row,
+   against their plain versions, and -- on a line of their own -- their
+   times beside SDPA's and their bounds.
 4. serve -- Llama-3 8B at full width and depth (random bf16 weights from
    a seed) serves 8 requests through ``ServingEngine``; the kernels'
    launch counters must show the main path went through them, and the
@@ -69,7 +73,27 @@ Phases, each printing its own line; any failure exits non-zero:
    handles and 227,888 wire bytes a step, 10 launches of each stage.
 10. lenet -- ten LeNet steps on a synthetic MNIST-like batch with
    ``examples/mnist_lenet.py``'s SGD(0.01, momentum 0.9); the loss falls.
-11. fused_update_launches -- each PowerSGD stage launch's own device
+11. bert_grad -- BERT at BERT-Large's width, 2 layers, bf16, on 4 x 512
+   tokens packed with two segments a row: one loss and backward through
+   the attention kernels against the same through the plain attention
+   (loss within 1e-2 relative, every gradient within 2e-2 of its max
+   |value| -- ``wk.bias``'s, zero in exact arithmetic, of its layer's
+   ``wk.kernel`` gradient's), 2 launches of each kernel, none on the
+   plain run; both runs against the model in f32 as information.
+12. bert_train -- BERT-Large at full width and depth
+   (``examples/bert_pretrain.py --large``), bf16 compute: ``init`` ->
+   ``broadcast_parameters`` -> ``DistributedAdasumOptimizer(AdamW,
+   compression=fp16)`` -> ``make_train_step(bert_pretrain_loss)``, one
+   warm-up and five timed steps on 64 x 128 tokens, then four more.
+   Losses finite and the last below the first (AdamW at lr 1e-3 with no
+   learning-rate warm-up first drives the loss up; the same ten steps
+   through the plain attention are logged beside them), all 399 tensors
+   changed, 24 launches of each attention kernel a timed step, the
+   buckets of the flax-ordered plan with 672,395,268 fp16 wire bytes a
+   step, and the warm-up step's every reduced bucket bitwise the fp16
+   round trip of its packed gradient (Adasum over one rank is the
+   identity).
+13. fused_update_launches -- each PowerSGD stage launch's own device
    time at the headline case, from ``torch.profiler`` (information).
 
 Then one JSON line of per-kernel numbers, the card line, and last the
@@ -532,6 +556,97 @@ def time_flash_bwd(attn, args, errs) -> tuple:
               "dq_tflops": fl_dq / ms_dq / 1e9,
               "dkv_tflops": fl_dkv / ms_dkv / 1e9}
     return timing, entries
+
+
+# BERT's attention: BERT-Large's 16 heads of 64, bidirectional; phase-1
+# pretraining (b = 64, t = 128) and phase 2's longest rows (b = 4, t = 512)
+# packed with two segments of unequal lengths.
+BERT_ATTN_CASES = ((64, 128, False), (4, 512, True))
+
+
+def bert_segments(b: int, t: int, dev) -> torch.Tensor:
+    """Two packed segments of unequal lengths a row, the split moving
+    from row to row (at 3/8 of the row, then 16 tokens later a row)."""
+    seg = torch.zeros(b, t, dtype=torch.int32, device=dev)
+    for r in range(b):
+        seg[r, 3 * t // 8 + 16 * r:] = 1
+    return seg
+
+
+def check_bert_attention(attn, dev, card: str) -> None:
+    """The forward, dq and dk/dv kernels at BERT's shapes against their
+    plain versions (bf16), and -- as information -- their times beside
+    SDPA's and their bounds.  With segments the bounds count the pairs
+    this run's segments keep.  Every time is device time from a replayed
+    CUDA graph (``graph_ms``): CUDA events around back-to-back calls of a
+    0.05 ms kernel read the host's launch rate."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    h, d = 16, 64
+    cases = []
+    for b, t, seg in BERT_ATTN_CASES:
+        q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device=dev
+                                   ).to(torch.bfloat16) for _ in range(4))
+        kw = dict(causal=False)
+        mask = None
+        pairs = b * t * t
+        if seg:
+            ids = bert_segments(b, t, dev)
+            kw.update(segment_ids=ids, kv_segment_ids=ids)
+            mask = ids[:, None, :, None] == ids[:, None, None, :]
+            pairs = int(mask.sum())
+        o, lse = attn.flash_attention(q, k, v, return_lse=True, **kw)
+        o_ref, lse_ref = attn.flash_attention(q, k, v, return_lse=True,
+                                              force_reference=True, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, lse, delta)
+        got = (o, attn.flash_backward_dq(*args, **kw),
+               *attn.flash_backward_dkv(*args, **kw))
+        want = (o_ref, attn.flash_backward_dq(*args, force_reference=True,
+                                              **kw),
+                *attn.flash_backward_dkv(*args, force_reference=True, **kw))
+        torch.cuda.synchronize()
+        errs = [(g.float() - w.float()).abs().max().item()
+                for g, w in zip(got, want)]
+        tols = [BF16_TOL * w.float().abs().max().item() for w in want]
+        lse_err = (lse - lse_ref).abs().max().item()
+        ok = all(e <= tl for e, tl in zip(errs, tols)) and \
+            lse_err <= 1e-3 and all(bool(torch.isfinite(g.float()).all())
+                                    for g in got)
+        ms = {"fwd": graph_ms(lambda: attn.flash_attention(q, k, v, **kw)),
+              "dq": graph_ms(lambda: attn.flash_backward_dq(*args, **kw)),
+              "dkv": graph_ms(lambda: attn.flash_backward_dkv(*args, **kw))}
+        qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask)
+
+        sdpa_fwd = graph_ms(sdpa)
+        sdpa_bwd = graph_ms(lambda: torch.autograd.grad(
+            sdpa(), (qr, kr, vr), do)) - sdpa_fwd
+        esz, stats = q.element_size(), 2 * 4 * b * h * t
+        ids_bytes = 2 * 4 * b * t if seg else 0
+        tensor = b * h * t * d * esz
+        bounds = {
+            "fwd": bound_ms(4.0 * h * d * pairs,
+                            4 * tensor + 4 * b * h * t + ids_bytes),
+            "dq": bound_ms(6.0 * h * d * pairs, 5 * tensor + stats
+                           + ids_bytes),
+            "dkv": bound_ms(8.0 * h * d * pairs, 6 * tensor + stats
+                            + ids_bytes)}
+        cases.append({
+            "b": b, "h": h, "t": t, "d": d, "causal": False,
+            "segments": seg, "pairs": pairs,
+            "max_abs_err": dict(zip(("o", "dq", "dk", "dv"), errs)),
+            "tol": dict(zip(("o", "dq", "dk", "dv"), tols)),
+            "lse_err": lse_err, "ms": ms,
+            "bound_ms": {n: x[0] for n, x in bounds.items()},
+            "bound_by": {n: x[1] for n, x in bounds.items()},
+            "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd, "ok": ok})
+        del q, k, v, do, o, lse, o_ref, lse_ref, delta, args, got, want
+        del qr, kr, vr, mask
+    log({"phase": "bert_attention", "card": card, "cases": cases})
+    if not all(c["ok"] for c in cases):
+        raise AssertionError("attention kernels disagree at BERT's shapes")
 
 
 # The BN cases: a ragged N with C below one vector and not a multiple of
@@ -1403,6 +1518,254 @@ def train_lenet(dev) -> None:
     hvd.shutdown()
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-12: BERT-Large pretraining with Adasum and fp16 compression
+# ---------------------------------------------------------------------------
+
+
+BERT_LARGE_TENSORS = 399
+BERT_LARGE_VALUES = 336_197_634   # jax.eval_shape of the flax Bert init
+BERT_WIRE_BYTES = 2 * BERT_LARGE_VALUES   # fp16 on the wire, every bucket
+
+
+def bert_model(cfg, dev, seed: int):
+    from horovod_tpu_torch.models import Bert, init_bert_params
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return Bert.from_params(cfg, init_bert_params(cfg, generator=gen,
+                                                  device=dev),
+                            dtype=torch.bfloat16)
+
+
+def bert_batch(cfg, dev, b: int, t: int, seed: int) -> tuple:
+    rng = np.random.RandomState(seed)
+    tokens = rng.randint(0, cfg.vocab_size, (b, t))
+    nsp = rng.randint(0, 2, (b,))
+    return (torch.from_numpy(tokens).to(dev), torch.from_numpy(nsp).to(dev))
+
+
+def check_bert_grad(dev) -> None:
+    """One loss and backward of BERT at BERT-Large's width, 2 layers, bf16,
+    on 4 x 512 tokens packed with two segments a row, through the
+    attention kernels and through the plain attention.  ``wk.bias``'s
+    gradient is zero in exact arithmetic (a key bias shifts every logit of
+    a query alike), so both runs hold roundoff there: its difference is
+    held to the same bound relative to its layer's ``wk.kernel``
+    gradient, the sum over the same tokens that carries its scale.  As
+    information, both bf16 runs against the same model in f32 through the
+    plain attention: how far each path is from the f32 gradients."""
+    from horovod_tpu_torch.models import BERT_LARGE, Bert
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.training import mlm_nsp_loss
+
+    cfg = dataclasses.replace(BERT_LARGE, num_layers=2)
+    model = bert_model(cfg, dev, seed=8)
+    tokens, nsp = bert_batch(cfg, dev, 4, 512, seed=2)
+    seg = bert_segments(4, 512, dev)
+    runs = []
+    for ref in (False, True):
+        model.zero_grad(set_to_none=True)
+        registry.reset_launch_counts()
+        mlm, nsp_logits = model(tokens, pack_segment_ids=seg,
+                                force_reference=ref)
+        loss = mlm_nsp_loss(mlm, nsp_logits, tokens, nsp)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append((loss.item(), {n: p.grad.float().clone()
+                                   for n, p in model.named_parameters()},
+                     registry.launch_counts()))
+        del mlm, nsp_logits, loss
+    (loss_k, g_k, c_k), (loss_r, g_r, c_r) = runs
+    m32 = Bert.from_params(cfg, {n: t.detach().clone() for n, t in
+                                 model.state_dict().items()})
+    mlm, nsp_logits = m32(tokens, pack_segment_ids=seg, force_reference=True)
+    mlm_nsp_loss(mlm, nsp_logits, tokens, nsp).backward()
+    g_32 = {n: p.grad for n, p in m32.named_parameters()}
+    del mlm, nsp_logits
+
+    def scale(g, n):
+        if n.endswith(".wk.bias"):
+            n = n[:-len("bias")] + "kernel"
+        return max(g[n].abs().max().item(), 1e-30)
+
+    def worst_of(a, b):
+        return max(((a[n] - b[n]).abs().max().item() / scale(b, n), n)
+                   for n in b)
+
+    worst = worst_of(g_k, g_r)
+    vs_f32 = {"kernels": worst_of(g_k, g_32), "plain": worst_of(g_r, g_32)}
+    del m32, g_32
+    loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+    ok = (loss_rel <= 1e-2 and worst[0] <= BF16_TOL
+          and all(torch.isfinite(g).all() for g in g_k.values())
+          and all(c_k[f] == cfg.num_layers for f in
+                  ("flash", "flash_bwd_dq", "flash_bwd_dkv"))
+          and not any(c_r.values()))
+    log({"phase": "bert_grad", "layers": cfg.num_layers,
+         "batch": list(tokens.shape), "segments_per_row": 2,
+         "tensors": len(g_r), "loss": loss_k, "loss_plain": loss_r,
+         "loss_rel_err": loss_rel, "worst_grad_rel_err": worst[0],
+         "worst_grad": worst[1], "tol": BF16_TOL,
+         "worst_grad_rel_err_vs_f32": {k: v[0] for k, v in vs_f32.items()},
+         "worst_grad_vs_f32": {k: v[1] for k, v in vs_f32.items()},
+         "launches": c_k, "launches_plain": c_r, "ok": ok})
+    if not ok:
+        raise AssertionError("BERT gradients through the kernels disagree "
+                             "with the plain attention")
+    del model, g_k, g_r
+
+
+BERT_EXTRA_STEPS = 4   # untimed, after the timed ones: see train_bert
+
+
+def bert_trainer(cfg, dev, plain: bool = False):
+    """``(step, model, named, opt)``: BERT at ``cfg`` from seed 0, bf16,
+    ``DistributedAdasumOptimizer(AdamW(lr 1e-3, weight_decay 1e-4),
+    compression=fp16)`` (``examples/bert_pretrain.py``'s defaults) and
+    ``make_train_step``; ``plain`` runs attention through the plain
+    version instead of the kernels."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.training import (bert_pretrain_loss,
+                                            make_train_step, mlm_nsp_loss)
+    model = bert_model(cfg, dev, seed=0)
+    named = list(model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedAdasumOptimizer(
+        torch.optim.AdamW([p for _, p in named], lr=1e-3, weight_decay=1e-4),
+        named_parameters=named, compression=hvd.Compression.fp16)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+
+    def plain_loss(m, b):
+        return mlm_nsp_loss(*m(b[0], force_reference=True), *b)
+
+    step = make_train_step(model, plain_loss if plain else
+                           bert_pretrain_loss, opt)
+    return step, model, named, opt
+
+
+def train_bert(dev, card: str) -> dict:
+    """BERT-Large MLM + NSP pretraining through the port's Adasum path
+    (``examples/bert_pretrain.py --large``): full width and depth, bf16
+    compute, 64 x 128 tokens, ``DistributedAdasumOptimizer(AdamW,
+    compression=fp16)``, one warm-up and five timed steps.  In the
+    warm-up step every bucket's packed gradient is recorded with its
+    reduced result: at world 1 Adasum is the identity, so the result must
+    be the packed gradient's fp16 round trip, bitwise.
+
+    AdamW at lr 1e-3 with no learning-rate warm-up first drives the loss
+    up (every weight moves by ~lr in its gradient's sign at once) and
+    then down, through the plain attention as through the kernels; so
+    ``BERT_EXTRA_STEPS`` untimed steps follow the timed ones, and the loss
+    must end below where it started.  The same ten steps through the
+    plain attention, from the same weights, are logged beside them.
+    Returns the kernels' launch counts over the timed steps."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.controller.fusion import plan_buckets
+    from horovod_tpu_torch.models import BERT_LARGE, flax_leaf_order
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.optim import distributed
+    from horovod_tpu_torch.timeline.metrics import exchange_totals
+
+    cfg, (b, t), steps = BERT_LARGE, (64, 128), 5
+    hvd.init()
+    t0 = time.perf_counter()
+    step, model, named, opt = bert_trainer(cfg, dev)
+    batch = bert_batch(cfg, dev, b, t, seed=0)
+    # The JAX flat exchange's plan: forward over jax.tree.leaves order.
+    order = flax_leaf_order([n for n, _ in named])
+    planned = len(plan_buckets([named[i][1] for i in order],
+                               64 * 1024 * 1024).buffers)
+    torch.cuda.synchronize()
+    before_p = {n: p.detach().clone() for n, p in named}
+    tensors, values = len(named), sum(p.numel() for _, p in named)
+    compression = opt._compression.__name__
+    log({"phase": "bert_init", "config": "BERT_LARGE",
+         "layers": cfg.num_layers, "seconds": time.perf_counter() - t0,
+         "world": hvd.size(), "backend": torch.distributed.get_backend(),
+         "param_tensors": tensors, "param_values": values,
+         "buckets": len(opt.bucket_plan.buffers),
+         "bucket_bytes": opt.bucket_plan.bucket_bytes()})
+
+    packed, reduced = [], []
+    real_pack, real_unpack = distributed.pack_bucket, distributed.unpack_bucket
+
+    def pack_bucket(leaves, lspecs):
+        buf = real_pack(leaves, lspecs)
+        packed.append(buf.clone())
+        return buf
+
+    def unpack_bucket(buf, lspecs):
+        reduced.append(buf)
+        return real_unpack(buf, lspecs)
+
+    distributed.pack_bucket, distributed.unpack_bucket = (pack_bucket,
+                                                          unpack_bucket)
+    try:
+        losses = [step(batch).item()]               # warm-up
+    finally:
+        distributed.pack_bucket, distributed.unpack_bucket = (real_pack,
+                                                              real_unpack)
+    identity = len(packed) == len(reduced) == planned and all(
+        torch.equal(r, p.half().float()) for p, r in zip(packed, reduced))
+    del packed, reduced
+
+    before = exchange_totals()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(step(batch).item())
+        times.append(time.perf_counter() - t1)
+    counts = registry.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: (v - before[k]) / steps
+                for k, v in exchange_totals().items()}
+    step_ms = 1e3 * sum(times) / steps
+    changed = sum(not torch.equal(p, before_p[n]) for n, p in named)
+    losses += [step(batch).item() for _ in range(BERT_EXTRA_STEPS)]
+    del model, named, opt, step, before_p
+    free_device()
+    step, *_ = bert_trainer(cfg, dev, plain=True)
+    plain = [step(batch).item() for _ in losses]
+    del step
+    log({"phase": "bert_train", "card": card, "steps": steps,
+         "batch": [b, t], "compression": compression,
+         "losses": losses, "losses_plain_attention": plain,
+         "step_ms": step_ms,
+         "step_ms_each": [1e3 * x for x in times],
+         "sequences_per_s": b / (step_ms / 1e3),
+         "tokens_per_s": b * t / (step_ms / 1e3),
+         "peak_mem_bytes": peak, "exchange_per_step": per_step,
+         "plan_buckets": planned, "launches": counts,
+         "params_changed": changed, "param_tensors": tensors,
+         "warmup_exchange_is_fp16_round_trip": identity})
+    want = cfg.num_layers * steps
+    fails = []
+    if not all(np.isfinite(losses)):
+        fails.append("a loss is not finite")
+    if not losses[-1] < losses[0]:
+        fails.append(f"loss did not fall: {losses}")
+    if (tensors, values) != (BERT_LARGE_TENSORS, BERT_LARGE_VALUES):
+        fails.append(f"{tensors} tensors of {values} values, not "
+                     f"{BERT_LARGE_TENSORS} of {BERT_LARGE_VALUES}")
+    if changed != tensors:
+        fails.append(f"{tensors - changed} parameters unchanged")
+    for f in ("flash", "flash_bwd_dq", "flash_bwd_dkv"):
+        if counts[f] != want:
+            fails.append(f"{f} launches {counts[f]} != {want}")
+    if per_step != {"buckets": planned, "wire_bytes": BERT_WIRE_BYTES,
+                    "handles": planned}:
+        fails.append(f"exchange per step {per_step}, planned {planned} "
+                     f"buckets and {BERT_WIRE_BYTES} wire bytes")
+    if not identity:
+        fails.append("the warm-up exchange is not the fp16 round trip")
+    if fails:
+        raise AssertionError("bert_train: " + "; ".join(fails))
+    hvd.shutdown()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1428,6 +1791,8 @@ def main() -> int:
     decode = check_decode(attn, dev)
     dq, dkv = check_flash_bwd(attn, dev)
     free_device()
+    check_bert_attention(attn, dev, card)
+    free_device()
     bn_red, bn_dx = check_bn_bwd(bn, dev)
     free_device()
     fused = check_fused_update(dev)
@@ -1446,12 +1811,17 @@ def main() -> int:
     free_device()
     train_lenet(dev)
     free_device()
+    check_bert_grad(dev)
+    free_device()
+    bert = train_bert(dev, card)
+    free_device()
     fused_update_launches(dev, card)
-    # The flash forward runs on both paths: its launches are the sum.
-    flash["launches"] = serve["flash"] + train["flash"]
+    # The attention kernels run on several paths: their launches are the
+    # sums.
+    flash["launches"] = serve["flash"] + train["flash"] + bert["flash"]
     decode["launches"] = serve["flash_decode"]
-    dq["launches"] = train["flash_bwd_dq"]
-    dkv["launches"] = train["flash_bwd_dkv"]
+    dq["launches"] = train["flash_bwd_dq"] + bert["flash_bwd_dq"]
+    dkv["launches"] = train["flash_bwd_dkv"] + bert["flash_bwd_dkv"]
     bn_red["launches"] = resnet["bn_bwd_reduce"]
     bn_dx["launches"] = resnet["bn_bwd_dx"]
     for e in fused:

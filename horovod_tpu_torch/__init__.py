@@ -1,6 +1,6 @@
 """horovod_tpu_torch: the PyTorch/CUDA port of ``horovod_tpu``.
 
-A second package beside the JAX one, for an NVIDIA H100.  Four slices
+A second package beside the JAX one, for an NVIDIA H100.  Five slices
 are ported so far:
 
 * serving: requests in, tokens out, through
@@ -14,14 +14,19 @@ are ported so far:
   averages the BatchNorm running statistics over the ranks;
 * the compressed exchange ``compression="powersgd:<r>"``
   (``Compression.powersgd(r)``): rank-``r`` PowerSGD factor allreduces
-  with the error-feedback residual carried by the optimizer.
+  with the error-feedback residual carried by the optimizer;
+* BERT pretraining (MLM + NSP, :func:`~horovod_tpu_torch.training.
+  bert_pretrain_loss`) through :func:`DistributedAdasumOptimizer`: each
+  fusion bucket, optionally fp16-compressed, combined by Adasum's
+  vector-halving, distance-doubling exchange (``op=Adasum``).
 
 Kernels hand-written in CUDA C++ for ``sm_90a`` (``ops/csrc``) carry
 attention -- the flash forward and decode kernels, the flash backward's
 dq and dk/dv kernels -- the train-mode BatchNorm backward's two
 passes, and the three stages of the PowerSGD exchange.  The layout
-mirrors ``horovod_tpu`` (``core/``, ``collectives/``, ``controller/``, ``optim/``, ``timeline/``,
-``models/``, ``ops/``, ``serving/``, ``training.py``) so each module's
+mirrors ``horovod_tpu`` (``core/``, ``adasum/``, ``collectives/``,
+``controller/``, ``optim/``, ``timeline/``, ``models/``, ``ops/``,
+``serving/``, ``training.py``) so each module's
 counterpart is easy to find.
 
 The package imports ``torch`` and ``numpy`` only -- nothing of JAX and
@@ -30,14 +35,18 @@ caller passes ``device="cpu"``; with no GPU they raise rather than fall
 back.  Kernels build with ``nvcc`` on first use, never at import.
 """
 
-from .collectives import (Average, Compression, Max, Min,  # noqa: F401
-                          Product, Sum, allgather, allreduce,
+from .collectives import (Adasum, Average, Compression, Max,  # noqa: F401
+                          Min, Product, Sum, allgather, allreduce,
                           allreduce_async, barrier, broadcast,
                           grouped_allreduce)
 from .core import (cross_rank, cross_size, cuda_built, init,  # noqa: F401
                    is_initialized, local_rank, local_size, nccl_built, rank,
                    shutdown, size)
-from .optim import (DistributedOptimizer, broadcast_object,  # noqa: F401
+from .models import (BERT_BASE, BERT_LARGE, BERT_TINY, Bert,  # noqa: F401
+                     BertConfig)
+from .optim import (DistributedAdasumOptimizer,  # noqa: F401
+                    DistributedOptimizer, broadcast_object,
                     broadcast_optimizer_state, broadcast_parameters)
+from .training import bert_pretrain_loss  # noqa: F401
 
 __version__ = "0.2.0"

@@ -7,4 +7,5 @@ from .ops import (Handle, allgather, allgather_async,  # noqa: F401
                   broadcast, broadcast_, broadcast_async, broadcast_async_,
                   grouped_allreduce, grouped_allreduce_async,
                   powersgd_allreduce, powersgd_allreduce_async)
-from .reduce_op import Average, Max, Min, Product, ReduceOp, Sum  # noqa: F401
+from .reduce_op import (Adasum, Average, Max, Min, Product,  # noqa: F401
+                        ReduceOp, Sum)

@@ -6,7 +6,10 @@ Counterpart of ``horovod_tpu/collectives/ops.py``'s eager surface:
 :func:`barrier`, and the PowerSGD exchange :func:`powersgd_allreduce`.
 Each synchronous op has an ``*_async`` twin that returns a
 :class:`Handle` around the ``torch.distributed`` work object; the result
-is ready after ``handle.wait()``.
+is ready after ``handle.wait()``.  ``op=Adasum`` has no single work
+object: its handle's ``wait()`` runs the whole exchange
+(:func:`~horovod_tpu_torch.adasum.vhdd.adasum_allreduce`), so every rank
+must wait on its Adasum handles in the same order.
 
 Arithmetic follows the JAX ops: ``Average`` is a sum followed by a
 division in the tensor's own dtype (truncating for integers), with the
@@ -26,7 +29,8 @@ from ..core.basics import _require_init
 from ..core.exceptions import HorovodInternalError
 from ..ops import fused_update as fu
 from .compression import powersgd_effective_rank, powersgd_matrix_shape
-from .reduce_op import Average, Max, Min, Product, ReduceOp, Sum
+from ..adasum.vhdd import adasum_allreduce
+from .reduce_op import Adasum, Average, Max, Min, Product, ReduceOp, Sum
 
 _TORCH_OPS = {
     Sum: dist.ReduceOp.SUM,
@@ -73,11 +77,21 @@ def allreduce_async_(tensor: torch.Tensor, op: ReduceOp = Average, *,
                      prescale_factor: float = 1.0,
                      postscale_factor: float = 1.0) -> Handle:
     """Allreduce ``tensor`` IN PLACE; the handle returns ``tensor``."""
-    if op not in _TORCH_OPS:
+    if op not in _TORCH_OPS and op is not Adasum:
         raise NotImplementedError(f"reduce op {op} is not ported")
     n = _require_init().size
     if prescale_factor != 1.0:
         tensor.mul_(prescale_factor)
+    if op is Adasum:
+        def adasum():
+            y = adasum_allreduce(tensor)
+            if y is not tensor:
+                tensor.copy_(y)
+            if postscale_factor != 1.0:
+                tensor.mul_(postscale_factor)
+            return tensor
+
+        return Handle(None, adasum)
     work = dist.all_reduce(tensor, op=_TORCH_OPS[op], async_op=True)
 
     def finish():

@@ -1,7 +1,9 @@
-"""Reduction-op constants (``hvd.Sum / Average / Min / Max / Product``).
+"""Reduction-op constants (``hvd.Sum / Average / Adasum / Min / Max /
+Product``).
 
-Counterpart of ``horovod_tpu/collectives/reduce_op.py``.  ``Adasum`` is
-not ported yet (it needs the VHDD exchange of ``adasum/``).
+Counterpart of ``horovod_tpu/collectives/reduce_op.py``.  ``Adasum`` runs
+the vector-halving, distance-doubling exchange of
+:mod:`horovod_tpu_torch.adasum.vhdd`.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ class ReduceOp(enum.Enum):
     MIN = "min"
     MAX = "max"
     PRODUCT = "product"
+    ADASUM = "adasum"
 
     def __str__(self) -> str:  # pragma: no cover - cosmetic
         return self.value
@@ -25,3 +28,4 @@ Sum = ReduceOp.SUM
 Min = ReduceOp.MIN
 Max = ReduceOp.MAX
 Product = ReduceOp.PRODUCT
+Adasum = ReduceOp.ADASUM

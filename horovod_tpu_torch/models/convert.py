@@ -6,7 +6,10 @@ given as numpy arrays, becomes the port's flat ``{dotted name: tensor}``
 dict.  Both sides keep ``Dense`` kernels ``[in, out]``, so the
 conversion is a rename: no transpose, no reshape.  A LoRA model's
 ``lora_a`` ``[in, r]`` / ``lora_b`` ``[r, out]`` leaves carry across the
-same way, under ``...wq.lora_a`` etc., and stay f32.
+same way, under ``...wq.lora_a`` etc., and stay f32.  A flax ``Bert``
+tree (``layer_{i}.wq.kernel`` / ``.bias``, the LayerNorms' ``scale`` /
+``bias``, ``tok_embed``, ``pos_embed``, ``type_embed``) goes through
+:func:`params_from_jax` the same way, into ``Bert.from_params``.
 
 A flax ResNet's or LeNet's ``{"params": ..., "batch_stats": ...}``
 becomes a ``state_dict`` through :func:`resnet_state_from_jax`: the same
@@ -47,8 +50,8 @@ def params_from_jax(tree_of_numpy: Mapping[str, Any], *,
                     dtype: Optional[torch.dtype] = None,
                     device: Optional[Union[str, torch.device]] = None
                     ) -> Dict[str, torch.Tensor]:
-    """Flax ``LlamaLM`` params (numpy leaves, with or without the
-    ``"params"`` wrapper) -> the port's flat param dict.
+    """Flax ``LlamaLM`` or ``Bert`` params (numpy leaves, with or without
+    the ``"params"`` wrapper) -> the port's flat param dict.
 
     ``dtype`` (optional) is the storage dtype for the ``Dense`` kernels;
     the embedding and norm scales keep their own dtype, as in

@@ -1,10 +1,13 @@
-"""Llama-3 family decoder LM with LoRA adapters, in PyTorch.
+"""Llama-3 family decoder LM with LoRA adapters, and the BERT encoder,
+in PyTorch.
 
 Counterpart of ``horovod_tpu/models/transformer.py``: ``LlamaConfig`` and
 its presets, ``Dense`` with its rank-``r`` LoRA pair, ``RMSNorm``,
 ``rotary_embedding``, ``LlamaLM``, and the LoRA helpers
 :func:`lora_parameters` / :func:`freeze_base` (the counterparts of
-``lora_mask`` / ``split_frozen``).  Parameter
+``lora_mask`` / ``split_frozen``); ``BertConfig`` and its presets,
+flax's ``LayerNorm``, ``EncoderBlock`` and ``Bert`` (MLM + NSP heads),
+with :func:`init_bert_params`.  Parameter
 names and layouts follow the flax tree exactly -- ``layer_{i}.attn.wq.
 kernel`` is ``[in, out]`` as flax's ``Dense`` stores it, ``tok_embed`` is
 the tied ``[vocab, d_model]`` table -- so converting a flax tree is a
@@ -22,12 +25,16 @@ tied-embedding readout runs in f32.  The frozen base may be stored in the
 compute dtype (bf16 on the GPU): the flax ``Dense`` casts its f32 kernel to
 the compute dtype before every product, so a bf16-stored base computes the
 same function and halves its memory.
+
+BERT trains every tensor: its dense layers are flax's ``Dense`` with a
+bias (:class:`horovod_tpu_torch.models.layers.Dense`), ``LayerNorm``
+normalizes in f32 with flax's fast variance, the embeddings are summed
+in f32 before the cast, and the tied MLM readout runs in f32.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
@@ -35,6 +42,8 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..ops.attention import flash_attention
+from . import layers
+from .layers import _lecun_normal_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,19 +318,6 @@ class LlamaLM(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _lecun_normal_(t: torch.Tensor, generator: torch.Generator,
-                   fan_in: Optional[int] = None) -> None:
-    """flax ``lecun_normal``: truncated normal in [-2, 2] standard
-    deviations, variance ``1 / fan_in`` after truncation (fan_in defaults
-    to the kernel's first dim, the ``[in, out]`` layout)."""
-    fan_in = t.shape[0] if fan_in is None else fan_in
-    # Std of a unit normal truncated to [-2, 2] (flax's constant).
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
-                          generator=generator)
-    t.mul_(std)
-
-
 def param_shapes(config: LlamaConfig,
                  lora_rank: int = 0) -> Dict[str, tuple]:
     """Flat ``{dotted name: shape}`` of a ``LlamaLM``'s parameters; with
@@ -412,3 +408,212 @@ def freeze_base(model: nn.Module) -> List[Tuple[str, nn.Parameter]]:
     for name, p in model.named_parameters():
         p.requires_grad_(is_lora_name(name))
     return lora_parameters(model)
+
+
+# ---------------------------------------------------------------------------
+# BERT encoder
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    num_layers: int = 24
+    num_heads: int = 16
+    d_model: int = 1024
+    ffn_hidden: int = 4096
+    max_seq_len: int = 512
+    type_vocab_size: int = 2
+
+
+# BERT-Large (Devlin et al., 2018: 24 layers, 16 heads, d_model 1024, FFN
+# 4096, WordPiece vocab 30522, 512 positions, 2 token types).
+BERT_LARGE = BertConfig()
+BERT_BASE = BertConfig(num_layers=12, num_heads=12, d_model=768,
+                       ffn_hidden=3072)
+BERT_TINY = BertConfig(vocab_size=256, num_layers=2, num_heads=4,
+                       d_model=64, ffn_hidden=128, max_seq_len=128)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              dtype, epsilon: float = 1e-12) -> torch.Tensor:
+    """``flax.linen.LayerNorm`` over the last dim: statistics in f32 with
+    flax's fast variance ``E[x^2] - E[x]^2`` clamped at 0, then ``(x -
+    mean) * (rsqrt(var + eps) * scale) + bias`` in f32, cast to
+    ``dtype``."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean,
+                      min=0.0)
+    mul = torch.rsqrt(var + epsilon) * scale.float()
+    return ((x32 - mean) * mul + bias.float()).to(dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax's ``LayerNorm`` (f32 ``scale`` and ``bias``, output in
+    ``dtype``); see :func:`layernorm`."""
+
+    def __init__(self, dim: int, dtype, epsilon: float = 1e-12,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x):
+        return layernorm(x, self.scale, self.bias, self.dtype, self.epsilon)
+
+
+class EncoderBlock(nn.Module):
+    """Pre-LN BERT block: ``x + wo(attention(attn_norm(x)))``, then ``x +
+    w_out(gelu(w_in(mlp_norm(x))))`` with the tanh GELU.  Attention is
+    bidirectional over the flash kernels; ``segment_ids`` (packed
+    sequences) keeps each token to keys of its own segment."""
+
+    def __init__(self, cfg: BertConfig, dtype, device=None):
+        super().__init__()
+        d, f = cfg.d_model, cfg.ffn_hidden
+        self.num_heads = cfg.num_heads
+        self.attn_norm = LayerNorm(d, dtype, device=device)
+        for name in ("wq", "wk", "wv", "wo"):
+            setattr(self, name,
+                    layers.Dense(d, d, dtype=dtype, device=device))
+        self.mlp_norm = LayerNorm(d, dtype, device=device)
+        self.w_in = layers.Dense(d, f, dtype=dtype, device=device)
+        self.w_out = layers.Dense(f, d, dtype=dtype, device=device)
+
+    def forward(self, x, segment_ids=None, force_reference: bool = False):
+        b, t, d = x.shape
+        shape = (b, t, self.num_heads, d // self.num_heads)
+        h = self.attn_norm(x)
+        q, k, v = (w(h).view(shape).transpose(1, 2).contiguous()
+                   for w in (self.wq, self.wk, self.wv))
+        o = flash_attention(q, k, v, causal=False, segment_ids=segment_ids,
+                            force_reference=force_reference)
+        x = x + self.wo(o.transpose(1, 2).reshape(b, t, d))
+        h = nn.functional.gelu(self.w_in(self.mlp_norm(x)),
+                               approximate="tanh")
+        return x + self.w_out(h)
+
+
+class Bert(nn.Module):
+    """BERT encoder with the MLM and NSP heads (the pretraining
+    objective), the flax ``Bert``'s parameters under its names.
+
+    ``dtype`` is the compute dtype; every parameter is f32.  Returns
+    ``(mlm_logits [b, t, vocab], nsp_logits [b, 2])``, both f32: the MLM
+    readout is ``mlm_norm(gelu(mlm_transform(x))) @ tok_embed.T`` in f32,
+    NSP reads ``tanh(pooler(x[:, 0]))``.
+    """
+
+    def __init__(self, config: BertConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        self.config = config
+        self.dtype = dtype
+        c = config
+        dev = device if str(device) == "meta" else resolve_device(device)
+        self.tok_embed = nn.Parameter(torch.empty(c.vocab_size, c.d_model,
+                                                  device=dev))
+        self.pos_embed = nn.Parameter(torch.empty(c.max_seq_len, c.d_model,
+                                                  device=dev))
+        self.type_embed = nn.Parameter(torch.empty(
+            c.type_vocab_size, c.d_model, device=dev))
+        self.embed_norm = LayerNorm(c.d_model, dtype, device=dev)
+        for i in range(c.num_layers):
+            self.add_module(f"layer_{i}", EncoderBlock(c, dtype, dev))
+        self.final_norm = LayerNorm(c.d_model, dtype, device=dev)
+        self.mlm_transform = layers.Dense(c.d_model, c.d_model, dtype=dtype,
+                                          device=dev)
+        self.mlm_norm = LayerNorm(c.d_model, dtype, device=dev)
+        self.pooler = layers.Dense(c.d_model, c.d_model, dtype=dtype,
+                                   device=dev)
+        self.nsp = layers.Dense(c.d_model, 2, dtype=dtype, device=dev)
+
+    @classmethod
+    def from_params(cls, config: BertConfig, params: Dict[str, torch.Tensor],
+                    dtype=torch.float32) -> "Bert":
+        """A model holding ``params`` (a flat dict, e.g. from
+        :func:`init_bert_params`) as its parameters, without a copy."""
+        model = cls(config, dtype, device="meta")
+        model.load_state_dict(params, strict=True, assign=True)
+        return model
+
+    def forward(self, tokens, token_types=None, *, pack_segment_ids=None,
+                force_reference: bool = False):
+        """``token_types`` is BERT's sentence A/B input (zeros when
+        ``None``); ``pack_segment_ids`` the attention isolation of packed
+        sequences.  ``force_reference=True`` runs attention through the
+        plain version under autograd instead of the kernels."""
+        t = tokens.shape[1]
+        if token_types is None:
+            token_types = torch.zeros_like(tokens)
+        x = (self.tok_embed[tokens] + self.pos_embed[None, :t]
+             + self.type_embed[token_types]).to(self.dtype)
+        x = self.embed_norm(x)
+        for i in range(self.config.num_layers):
+            x = getattr(self, f"layer_{i}")(x, pack_segment_ids,
+                                            force_reference)
+        x = self.final_norm(x)
+        h = nn.functional.gelu(self.mlm_transform(x), approximate="tanh")
+        mlm_logits = tied_readout(self.mlm_norm(h), self.tok_embed)
+        cls = torch.tanh(self.pooler(x[:, 0]))
+        return mlm_logits, self.nsp(cls).float()
+
+
+def bert_param_shapes(config: BertConfig) -> Dict[str, tuple]:
+    """Flat ``{dotted name: shape}`` of a ``Bert``'s parameters (the flax
+    tree's paths)."""
+    c = config
+    d, f = c.d_model, c.ffn_hidden
+    shapes = {"tok_embed": (c.vocab_size, d), "pos_embed": (c.max_seq_len, d),
+              "type_embed": (c.type_vocab_size, d)}
+
+    def norm(name):
+        shapes[f"{name}.scale"] = shapes[f"{name}.bias"] = (d,)
+
+    def dense(name, fan_in, fan_out):
+        shapes[f"{name}.kernel"] = (fan_in, fan_out)
+        shapes[f"{name}.bias"] = (fan_out,)
+
+    norm("embed_norm")
+    for i in range(c.num_layers):
+        p = f"layer_{i}"
+        norm(f"{p}.attn_norm")
+        for w in ("wq", "wk", "wv", "wo"):
+            dense(f"{p}.{w}", d, d)
+        norm(f"{p}.mlp_norm")
+        dense(f"{p}.w_in", d, f)
+        dense(f"{p}.w_out", f, d)
+    norm("final_norm")
+    dense("mlm_transform", d, d)
+    norm("mlm_norm")
+    dense("pooler", d, d)
+    dense("nsp", d, 2)
+    return shapes
+
+
+def init_bert_params(config: BertConfig, *, generator: torch.Generator,
+                     device: Optional[Union[str, torch.device]] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Random f32 weights from ``generator`` with flax's initialisers:
+    ``normal(0.02)`` for the three embeddings, ``lecun_normal`` for the
+    ``Dense`` kernels, zero biases, LayerNorm scales one and biases zero.
+    ``generator`` must live on ``device``.  The numbers differ from
+    flax's for the same seed."""
+    dev = resolve_device(device)
+    out: Dict[str, torch.Tensor] = {}
+    for name, shape in bert_param_shapes(config).items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "kernel":
+            t = torch.empty(shape, device=dev)
+            _lecun_normal_(t, generator)
+        elif leaf == "scale":
+            t = torch.ones(shape, device=dev)
+        elif leaf == "bias":
+            t = torch.zeros(shape, device=dev)
+        else:
+            t = torch.empty(shape, device=dev)
+            t.normal_(0.0, 0.02, generator=generator)
+        out[name] = t
+    return out

@@ -48,6 +48,7 @@ ENTRIES = {
         _P, _P, _P,          # q, k, v
         _P, _P,              # q/kv segment ids (int32) or NULL
         _P, _P,              # o, lse
+        _P,                  # o_lo (bf16 O's rounding residual) or NULL
         _I, _I, _I, _I, _I, _I,   # b, h, h_kv, tq, tk, d
         _I, _I, _F,          # dtype (0 f32, 1 bf16), causal, scale
         _P]),                # stream

@@ -59,8 +59,10 @@ _DECODE_ROUND = 64        # the kernel's 4 warps x 16-key tiles
 # ---------------------------------------------------------------------------
 
 
-def _reference(q, k, v, *, causal, scale, segment_ids, kv_segment_ids):
-    """Plain attention returning ``(out, lse)``; heads already match."""
+def _reference(q, k, v, *, causal, scale, segment_ids, kv_segment_ids,
+               out_dtype=None):
+    """Plain attention returning ``(out, lse)``; heads already match.
+    ``out`` in ``out_dtype`` (v's dtype when ``None``)."""
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if causal:
         tq, tk = logits.shape[-2], logits.shape[-1]
@@ -84,7 +86,7 @@ def _reference(q, k, v, *, causal, scale, segment_ids, kv_segment_ids):
         probs = torch.where(alive, probs, 0.0)
         lse = torch.where(alive[..., 0], lse, _DEAD_LSE)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float())
-    return out.to(v.dtype), lse
+    return out.to(out_dtype or v.dtype), lse
 
 
 def attention_reference(q, k, v, *, causal: bool = False,
@@ -158,8 +160,10 @@ def _check_index(name: str, t: torch.Tensor, device, shape):
 # ---------------------------------------------------------------------------
 
 
-def _flash_fwd_cuda(q, k, v, qseg, kseg, *, scale: float, causal: bool):
-    """Kernel A: ``(o, lse)`` for CUDA tensors."""
+def _flash_fwd_cuda(q, k, v, qseg, kseg, *, scale: float, causal: bool,
+                    residual: bool = False):
+    """Kernel A: ``(o, lse, o_lo)`` for CUDA tensors; ``o_lo`` is bf16 O's
+    rounding residual when ``residual`` (else ``None``)."""
     _check_cuda("flash_attention", q.device, q.dtype, q, k, v)
     _check_kv("flash_attention", q, k, v, kv_batch_dim=0)
     b, h, tq, d = q.shape
@@ -174,47 +178,61 @@ def _flash_fwd_cuda(q, k, v, qseg, kseg, *, scale: float, causal: bool):
         _check_index("kv_segment_ids", kseg, q.device, (b, tk))
     o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    o_lo = torch.empty_like(q) if residual else None
     err = entry("flash_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if qseg is None else qseg.data_ptr(),
         None if kseg is None else kseg.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), b, h, h_kv, tq, tk, d,
+        o.data_ptr(), lse.data_ptr(),
+        None if o_lo is None else o_lo.data_ptr(), b, h, h_kv, tq, tk, d,
         _DTYPES[q.dtype], int(causal), float(scale), stream(q))
     check_launch("flash_fwd", err)
     registry.note_launch("flash")
-    return o, lse
+    return o, lse, o_lo
 
 
-def _flash_forward(q, k, v, qseg, kseg, *, scale, causal):
+def _flash_forward(q, k, v, qseg, kseg, *, scale, causal, residual=False):
+    """``(o, lse, o_lo)``: ``o_lo = O - o`` in o's dtype, O's rounding
+    residual, when ``residual`` and o is narrower than f32 (else
+    ``None``)."""
+    residual = residual and q.dtype != torch.float32
     if q.device.type == "cpu":
         kr, vr = _repeat_kv(q, k, v)
-        return _reference(q, kr, vr, causal=causal, scale=scale,
-                          segment_ids=qseg, kv_segment_ids=kseg)
+        o32, lse = _reference(q, kr, vr, causal=causal, scale=scale,
+                              segment_ids=qseg, kv_segment_ids=kseg,
+                              out_dtype=torch.float32)
+        o = o32.to(v.dtype)
+        return o, lse, (o32 - o.float()).to(v.dtype) if residual else None
     if q.device.type == "cuda":
         return _flash_fwd_cuda(q, k, v, qseg, kseg, scale=scale,
-                               causal=causal)
+                               causal=causal, residual=residual)
     raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
 class _FlashAttention(torch.autograd.Function):
     """Forward by kernel A (plain on the CPU); backward by the dq and
-    dk/dv kernels (plain on the CPU), from the saved ``lse``."""
+    dk/dv kernels (plain on the CPU), from the saved ``lse``.  When a
+    gradient is wanted, a bf16 forward also saves O's rounding residual,
+    so that the backward's ``delta = rowsum(dO * O)`` sees O to ~16 bits
+    (see :func:`flash_attention_backward`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, qseg, kseg, scale, causal):
-        o, lse = _flash_forward(q, k, v, qseg, kseg, scale=scale,
-                                causal=causal)
-        ctx.save_for_backward(q, k, v, o, lse, qseg, kseg)
+        o, lse, o_lo = _flash_forward(
+            q, k, v, qseg, kseg, scale=scale, causal=causal,
+            residual=any(ctx.needs_input_grad[:3]))
+        ctx.save_for_backward(q, k, v, o, lse, qseg, kseg, o_lo)
         ctx.scale, ctx.causal = scale, causal
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
-        q, k, v, o, lse, qseg, kseg = ctx.saved_tensors
+        q, k, v, o, lse, qseg, kseg, o_lo = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(
             q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
-            scale=ctx.scale, segment_ids=qseg, kv_segment_ids=kseg)
+            scale=ctx.scale, segment_ids=qseg, kv_segment_ids=kseg,
+            o_lo=o_lo)
         return dq, dk, dv, None, None, None, None
 
 
@@ -406,12 +424,19 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
 def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = False,
                              scale: Optional[float] = None,
                              segment_ids=None, kv_segment_ids=None,
-                             force_reference: bool = False):
+                             force_reference: bool = False, o_lo=None):
     """``(dq, dk, dv)`` of :func:`flash_attention` from its saved ``o`` and
     ``lse``: ``delta = rowsum(dO * O)`` in f32, then the dq and dk/dv
     kernels (their plain versions on the CPU or with
-    ``force_reference``)."""
-    delta = (do.float() * o.float()).sum(-1)
+    ``force_reference``).  ``o_lo``, O's rounding residual, makes delta
+    see O as ``o + o_lo``: dS = P (dP - delta) sums to zero over a query's
+    keys only with delta from the unrounded O, and where every key shares
+    a large component what it misses leaks into dq (and into the key
+    projection's gradient)."""
+    if o_lo is not None:
+        delta = (do.float() * (o.float() + o_lo.float())).sum(-1)
+    else:
+        delta = (do.float() * o.float()).sum(-1)
     kw = dict(causal=causal, scale=scale, segment_ids=segment_ids,
               kv_segment_ids=kv_segment_ids,
               force_reference=force_reference)

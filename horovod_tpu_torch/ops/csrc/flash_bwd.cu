@@ -36,14 +36,25 @@
 //     in shared memory; the CTA loops over the rep query heads of the group
 //     and the 64-row query tiles that can see its keys, with Q, dO, lse,
 //     delta and the query segment ids in a 2-stage cp.async ring
-//     (XOR-swizzled rows: conflict-free cp.async and ldmatrix); 113.5 KB
+//     (XOR-swizzled rows: conflict-free cp.async and ldmatrix); 121.5 KB
 //     at d = 128, one CTA an SM;
 //   * S^T = K Q^T and dP^T = V dO^T on the tensor cores; then
 //     P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) scale in
-//     f32 on the fragments, written to shared memory as bf16 (the only
-//     roundings: every sum stays f32); then dV += P^T dO and dK += dS^T Q,
-//     dK and dV split over the 8 warps (16 keys x d/2 columns each) in f32
-//     registers for the whole loop;
+//     f32 on the fragments, written to shared memory as bf16 -- P^T once,
+//     dS^T in two parts, hi = bf16(dS^T) and lo = bf16(dS^T - hi) (the
+//     only roundings: every sum stays f32); then dV += P^T dO and
+//     dK += dS^T Q as hi Q + lo Q, dK and dV split over the 8 warps (16
+//     keys x d/2 columns each) in f32 registers for the whole loop;
+//   * precision: dS sums to zero over each query's keys, so a component
+//     every key shares cancels out of dq, and since the dk rows then sum
+//     to zero, a component every input of the key projection shares
+//     cancels out of its weights' gradient.  Where such a component is
+//     large -- BERT's second layer, after a near-uniform bidirectional
+//     attention, in chip_smoke.py's bert_grad phase -- the true gradient
+//     is the small remainder, and one bf16 rounding of dS (2^-9 of each
+//     element, no longer summing to zero) leaks into it uncancelled, to
+//     several times the plain bf16 path's error (PERF.md, PR 8).  hi + lo
+//     carries dS to ~16 bits, at one more product;
 //   * key block 0, which the most query tiles see under the causal mask, is
 //     dispatched first.
 //
@@ -62,9 +73,9 @@
 //     feeds P to P V: dS never touches shared memory;
 //   * dq stays in f32 registers (64 a thread at d = 128) for the whole
 //     key loop and is written once as bf16;
-//   * precision: dS is rounded to bf16 once, as dk/dv rounds dS^T
-//     (tests/test_torch_flash_precision.py emulates it on the CPU within
-//     the 2e-2 x max bound the chip checks hold the kernel to);
+//   * precision: dS enters dS K in two bf16 parts, hi + lo, as dk/dv's
+//     dS^T does (see there; tests/test_torch_flash_precision.py emulates
+//     both kernels' roundings on the CPU against the JAX package);
 //   * key tiles wholly above the causal diagonal are never loaded, and a
 //     warp skips the tiles above the diagonal of all its 16 rows (exact:
 //     p = 0 there).
@@ -422,7 +433,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int D>
 constexpr size_t dkv_mma_smem_bytes() {
   return sizeof(__nv_bfloat16) *
-             (2 * MMA_BK * D + 2 * 2 * MMA_BQ * D + 2 * MMA_BK * MMA_BQ) +
+             (2 * MMA_BK * D + 2 * 2 * MMA_BQ * D + 3 * MMA_BK * MMA_BQ) +
          sizeof(float) * 2 * 2 * MMA_BQ + sizeof(int) * 2 * MMA_BQ;
 }
 
@@ -455,8 +466,9 @@ __global__ void __launch_bounds__(NT, D == 64 ? 2 : 1)
   __nv_bfloat16* sQ = sV + MMA_BK * D;                  // [2][BQ][D]
   __nv_bfloat16* sDO = sQ + 2 * MMA_BQ * D;             // [2][BQ][D]
   __nv_bfloat16* sPt = sDO + 2 * MMA_BQ * D;            // [BK][BQ]
-  __nv_bfloat16* sDSt = sPt + MMA_BK * MMA_BQ;          // [BK][BQ]
-  float* sLse = reinterpret_cast<float*>(sDSt + MMA_BK * MMA_BQ);  // [2][BQ]
+  __nv_bfloat16* sDSt = sPt + MMA_BK * MMA_BQ;          // [BK][BQ] hi
+  __nv_bfloat16* sDStLo = sDSt + MMA_BK * MMA_BQ;       // [BK][BQ] lo
+  float* sLse = reinterpret_cast<float*>(sDStLo + MMA_BK * MMA_BQ);  // [2][BQ]
   float* sDelta = sLse + 2 * MMA_BQ;                    // [2][BQ]
   int* sQseg = reinterpret_cast<int*>(sDelta + 2 * MMA_BQ);  // [2][BQ]
 
@@ -474,6 +486,7 @@ __global__ void __launch_bounds__(NT, D == 64 ? 2 : 1)
   const uint32_t aK = smem_addr(sK), aV = smem_addr(sV);
   const uint32_t aQ = smem_addr(sQ), aDO = smem_addr(sDO);
   const uint32_t aPt = smem_addr(sPt), aDSt = smem_addr(sDSt);
+  const uint32_t aDStLo = smem_addr(sDStLo);
   const uint32_t aLse = smem_addr(sLse), aDelta = smem_addr(sDelta);
   const uint32_t aSeg = smem_addr(sQseg);
 
@@ -569,7 +582,7 @@ __global__ void __launch_bounds__(NT, D == 64 ? 2 : 1)
 
     // P^T = exp(S^T scale - lse) on live pairs (0 elsewhere, and on dead
     // rows, whose lse is +1e30); dS^T = P^T (dP^T - delta) scale.  Both
-    // to shared memory as bf16 pairs.
+    // to shared memory as bf16 pairs, dS^T as hi and lo parts.
     const float* lse_t = sLse + st * MMA_BQ;
     const float* delta_t = sDelta + st * MMA_BQ;
     const int* seg_t = sQseg + st * MMA_BQ;
@@ -592,18 +605,25 @@ __global__ void __launch_bounds__(NT, D == 64 ? 2 : 1)
                             2 * c2;
         *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(sPt) +
                                      at) = pack_bf16(p[2 * i], p[2 * i + 1]);
+        const uint32_t hi = pack_bf16(ds[2 * i], ds[2 * i + 1]);
+        const float2 r = unpack_bf16(hi);
         *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(sDSt) +
-                                     at) = pack_bf16(ds[2 * i], ds[2 * i + 1]);
+                                     at) = hi;
+        *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(sDStLo) +
+                                     at) =
+            pack_bf16(ds[2 * i] - r.x, ds[2 * i + 1] - r.y);
       }
     }
     __syncthreads();  // P^T and dS^T complete
 
-    // dV += P^T dO and dK += dS^T Q over the tile's 64 queries.
+    // dV += P^T dO and dK += dS^T Q (hi, then lo) over the tile's 64
+    // queries.
 #pragma unroll
     for (int kk = 0; kk < MMA_BQ / 16; ++kk) {
-      uint32_t ap[4], ads[4];
+      uint32_t ap[4], ads[4], alo[4];
       ldmatrix_x4(ap, a_frag_addr<MMA_BQ>(aPt, kw, kk, lane));
       ldmatrix_x4(ads, a_frag_addr<MMA_BQ>(aDSt, kw, kk, lane));
+      ldmatrix_x4(alo, a_frag_addr<MMA_BQ>(aDStLo, kw, kk, lane));
 #pragma unroll
       for (int nn = 0; nn < NG / 2; ++nn) {
         uint32_t bf[4];
@@ -615,6 +635,8 @@ __global__ void __launch_bounds__(NT, D == 64 ? 2 : 1)
             bf, a_frag_addr<D>(sq, kk * 16, (dw >> 4) + nn, lane));
         mma_bf16(acc_k[2 * nn], ads, bf[0], bf[1]);
         mma_bf16(acc_k[2 * nn + 1], ads, bf[2], bf[3]);
+        mma_bf16(acc_k[2 * nn], alo, bf[0], bf[1]);
+        mma_bf16(acc_k[2 * nn + 1], alo, bf[2], bf[3]);
       }
     }
   }
@@ -824,23 +846,30 @@ __global__ void __launch_bounds__(NT, 1)
       }
 
     // dq += dS K: dS from the C fragments straight to bf16 A fragments
-    // (one rounding), K's k-major B fragments by ldmatrix.trans of the
-    // same swizzled tile.
+    // in two parts, hi = bf16(dS) and lo = bf16(dS - hi), both multiplied
+    // by K's k-major B fragments (ldmatrix.trans of the same swizzled
+    // tile).
 #pragma unroll
     for (int kk = 0; kk < DQM_BK / 16; ++kk) {
-      uint32_t a[4];
+      uint32_t hi[4], lo[4];
 #pragma unroll
       for (int half = 0; half < 2; ++half)
 #pragma unroll
-        for (int i = 0; i < 2; ++i)   // rows g, g + 8
-          a[2 * half + i] = pack_bf16(s[2 * kk + half][2 * i],
-                                      s[2 * kk + half][2 * i + 1]);
+        for (int i = 0; i < 2; ++i) {   // rows g, g + 8
+          const float d0 = s[2 * kk + half][2 * i];
+          const float d1 = s[2 * kk + half][2 * i + 1];
+          hi[2 * half + i] = pack_bf16(d0, d1);
+          const float2 r = unpack_bf16(hi[2 * half + i]);
+          lo[2 * half + i] = pack_bf16(d0 - r.x, d1 - r.y);
+        }
 #pragma unroll
       for (int nn = 0; nn < NO / 2; ++nn) {
         uint32_t bf[4];
         ldmatrix_x4_trans(bf, a_frag_addr<D>(sk, kk * 16, nn, lane));
-        mma_bf16(acc[2 * nn], a, bf[0], bf[1]);
-        mma_bf16(acc[2 * nn + 1], a, bf[2], bf[3]);
+        mma_bf16(acc[2 * nn], hi, bf[0], bf[1]);
+        mma_bf16(acc[2 * nn + 1], hi, bf[2], bf[3]);
+        mma_bf16(acc[2 * nn], lo, bf[0], bf[1]);
+        mma_bf16(acc[2 * nn + 1], lo, bf[2], bf[3]);
       }
     }
   }

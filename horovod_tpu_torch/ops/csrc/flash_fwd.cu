@@ -52,6 +52,14 @@
 // 256 threads, four per query row; 32-key K/V tiles through padded f32
 // shared rows, every float4 read feeding 4-8 FMAs from registers.
 //
+// The bf16 body can also write O's rounding residual, o_lo =
+// bf16(O - bf16(O)) (hvd_flash_fwd's o_lo, NULL to skip it): the backward
+// forms delta = rowsum(dO * O) from hi + lo.  delta from the bf16 O
+// alone is off by ~2^-9, and dS = P (dP - delta) then no longer sums to
+// zero over a query's keys, so a component every key shares (BERT's
+// second layer, chip_smoke.py bert_grad) leaks into dq and into the key
+// weights' gradient; the plain attention's autograd has the f32 O.
+//
 // Both mask the ragged edge in the kernel (any tk, any tq -- e.g. a
 // 37-token prompt): keys past tk count as -inf, rows past tq are not
 // stored.  There is no fallback to a plain path for any length.  Blocks
@@ -240,8 +248,9 @@ __global__ void __launch_bounds__(NT, 1)
                          const int* __restrict__ qseg,
                          const int* __restrict__ kseg,
                          __nv_bfloat16* __restrict__ o,
-                         float* __restrict__ lse, int b, int h, int h_kv,
-                         int tq, int tk, int causal, float scale) {
+                         float* __restrict__ lse,
+                         __nv_bfloat16* __restrict__ o_lo, int b, int h,
+                         int h_kv, int tq, int tk, int causal, float scale) {
   using namespace hvd::mma;
   constexpr int CH = D / 8;        // 16-byte chunks per row
   constexpr int NS = MMA_BK / 8;   // S n-tiles per warp (keys / 8)
@@ -425,11 +434,18 @@ __global__ void __launch_bounds__(NT, 1)
     // Dead row (segment ids only): no key ever rose above the mask floor.
     const bool dead = has_seg && (m[i] <= kNeg * 0.5f);
     const float inv = dead ? 0.f : 1.f / l_safe;
-    __nv_bfloat16* ob = o + ((size_t)(bb * h + hh) * tq + rows[i]) * D;
+    const size_t row = ((size_t)(bb * h + hh) * tq + rows[i]) * D;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(ob + 8 * n + c2) =
-          pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    for (int n = 0; n < NO; ++n) {
+      const float o0 = acc[n][2 * i] * inv, o1 = acc[n][2 * i + 1] * inv;
+      const uint32_t hi = pack_bf16(o0, o1);
+      *reinterpret_cast<uint32_t*>(o + row + 8 * n + c2) = hi;
+      if (o_lo != nullptr) {
+        const float2 r = unpack_bf16(hi);
+        *reinterpret_cast<uint32_t*>(o_lo + row + 8 * n + c2) =
+            pack_bf16(o0 - r.x, o1 - r.y);
+      }
+    }
     if (c2 == 0)
       lse[(size_t)(bb * h + hh) * tq + rows[i]] =
           dead ? 1e30f : m[i] + logf(l_safe);
@@ -439,8 +455,8 @@ __global__ void __launch_bounds__(NT, 1)
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* qseg, const void* kseg, void* o, void* lse,
-                       int b, int h, int h_kv, int tq, int tk, int causal,
-                       float scale, cudaStream_t stream) {
+                       void* o_lo, int b, int h, int h_kv, int tq, int tk,
+                       int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D>();
   static bool configured = false;  // one opt-in per instantiation
   if (!configured) {
@@ -456,7 +472,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qseg),
       static_cast<const int*>(kseg), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), b, h, h_kv, tq, tk, causal, scale);
+      static_cast<float*>(lse), static_cast<__nv_bfloat16*>(o_lo), b, h,
+      h_kv, tq, tk, causal, scale);
   return cudaGetLastError();
 }
 
@@ -485,18 +502,21 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// o_lo: bf16 only (an f32 O has no rounding to carry); NULL skips it.
 extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
                              const void* qseg, const void* kseg, void* o,
-                             void* lse, int b, int h, int h_kv, int tq,
-                             int tk, int d, int dtype, int causal,
+                             void* lse, void* o_lo, int b, int h, int h_kv,
+                             int tq, int tk, int d, int dtype, int causal,
                              float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (o_lo != nullptr && dtype != hvd::kBF16)
+    return (int)cudaErrorInvalidValue;
   if (dtype == hvd::kBF16 && d == 128)
-    return launch_mma<128>(q, k, v, qseg, kseg, o, lse, b, h, h_kv, tq, tk,
-                           causal, scale, s);
+    return launch_mma<128>(q, k, v, qseg, kseg, o, lse, o_lo, b, h, h_kv,
+                           tq, tk, causal, scale, s);
   if (dtype == hvd::kBF16 && d == 64)
-    return launch_mma<64>(q, k, v, qseg, kseg, o, lse, b, h, h_kv, tq, tk,
-                          causal, scale, s);
+    return launch_mma<64>(q, k, v, qseg, kseg, o, lse, o_lo, b, h, h_kv,
+                          tq, tk, causal, scale, s);
   if (dtype == hvd::kF32 && d == 128)
     return launch<float, 128>(q, k, v, qseg, kseg, o, lse, b, h, h_kv, tq,
                               tk, causal, scale, s);

@@ -36,6 +36,19 @@ flat f32 residual per bucket (zero at wrap time), launches each bucket's
 stage 1 and P allreduce from the hook of its last gradient, and finishes
 the exchange in ``synchronize()``; the residual is replaced only once its
 whole bucket has been exchanged and written back.
+
+``op=Adasum`` (:func:`DistributedAdasumOptimizer`) mixes each fusion
+bucket with its own Adasum coefficients, so which leaves share a bucket
+changes the result at world > 1: the buckets are planned as the JAX
+package's flat exchange plans them -- forward over the leaves in
+``jax.tree.leaves`` order (given ``named_parameters``), at the fusion
+threshold.  Each bucket is packed, compressed (the fp16 / bf16 cast),
+Adasum-reduced and decompressed.  The exchanges run in bucket order from
+``synchronize()``, not from the hooks: every rank must issue the
+exchange's point-to-point and gather calls in the same order, so Adasum
+gives up the overlap with the backward pass.  As in the JAX package,
+Adasum is applied to the gradients, not (as upstream Horovod's
+``DistributedAdasumOptimizer`` does) to the optimizer's update.
 """
 
 from __future__ import annotations
@@ -49,7 +62,7 @@ from ..collectives.compression import (Compression, is_error_feedback,
                                        wire_payload_bytes)
 from ..collectives.ops import (Handle, allreduce_async_,
                                powersgd_allreduce_async)
-from ..collectives.reduce_op import Average, ReduceOp, Sum
+from ..collectives.reduce_op import Adasum, Average, ReduceOp, Sum
 from ..controller.fusion import (FusionSpec, pack_bucket, plan_buckets,
                                  unpack, unpack_bucket)
 from ..core.state import global_state
@@ -138,7 +151,8 @@ def allreduce_gradients(grads: Sequence[torch.Tensor],
 
     An error-feedback codec runs its exchange here WITHOUT residual state
     (the stateful path is the ``DistributedOptimizer``'s): each bucket's
-    compression error is dropped."""
+    compression error is dropped.  ``op=Adasum`` mixes each bucket with
+    its own coefficients, the buckets exchanged in order."""
     grads = list(grads)
     compression = parse_compression(compression)
     spec = plan_buckets(grads, fusion_threshold,
@@ -271,14 +285,15 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._compression = compression
         self._op = op
         self._ef = is_error_feedback(compression)
+        self._adasum = op is Adasum
         self.backward_passes_per_step = backward_passes_per_step
         self._trainable = [p for group in self.param_groups
                            for p in group["params"] if p.requires_grad]
         # The flax names of the trainable parameters, in _trainable's
-        # order: only an EF wrap with names uses them (its buckets follow
-        # the JAX package's leaf order and layout).
+        # order: only an EF or Adasum wrap with names uses them (its
+        # buckets follow the JAX package's leaf order and layout).
         self._names: Optional[List[str]] = None
-        if self._ef and named_parameters is not None:
+        if (self._ef or self._adasum) and named_parameters is not None:
             name_of = {id(p): k for k, p in named_parameters}
             names = [name_of[id(p)] for p in self._trainable]
             order = flax_leaf_order(names)
@@ -295,6 +310,11 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             self._residuals = list(ef_init_residuals(
                 leaves, fusion_threshold, compression))
             _note_plan_bytes(self.bucket_plan, compression)
+        elif self._adasum:
+            # The JAX flat exchange's plan: forward over the leaves.
+            self.bucket_plan = plan_buckets(
+                [self._flax_view(i, p) for i, p in enumerate(self._trainable)],
+                fusion_threshold, extra=(compression.__name__,))
         else:
             # The fusion buckets of the trainable parameters, indexed in
             # optimizer order, first bucket first to be ready.
@@ -323,11 +343,14 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         if self._counter[i] < self.backward_passes_per_step:
             return  # local accumulation pass: no communication
         self._ready[b].add(i)
-        if len(self._ready[b]) == len(self.bucket_plan.buffers[b][1]):
+        # Adasum buckets wait for synchronize(), which runs them in order.
+        if len(self._ready[b]) == len(self.bucket_plan.buffers[b][1]) \
+                and not self._adasum:
             self._launch(b)
 
     def _flax_view(self, i: int, t: torch.Tensor) -> torch.Tensor:
-        """Leaf ``i``'s tensor ``t`` as the EF bucket holds it."""
+        """Leaf ``i``'s tensor ``t`` as its bucket holds it (flax's
+        layout once the wrap has flax names)."""
         return t if self._names is None else \
             to_flax_layout(self._names[i], t)
 
@@ -336,12 +359,10 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         grads = {}
         for s in lspecs:
             p = self._trainable[s.index]
-            grads[s.index] = p.grad if p.grad is not None \
-                else torch.zeros_like(p)
+            grads[s.index] = self._flax_view(
+                s.index, p.grad if p.grad is not None else torch.zeros_like(p))
         if self._ef:
             feed = _ef_enabled()
-            for s in lspecs:
-                grads[s.index] = self._flax_view(s.index, grads[s.index])
             self._handles[b] = (_launch_ef_bucket(
                 grads, lspecs, self._op, self._compression,
                 self._residuals[b] if feed else None, self._prescale,
@@ -366,8 +387,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     # -- sync -------------------------------------------------------------
     def synchronize(self) -> None:
-        """Launch the buckets still waiting, drain every handle, and
-        write the averaged gradients into ``p.grad``.
+        """Launch the buckets still waiting, drain every handle in bucket
+        order, and write the reduced gradients into ``p.grad``.
 
         Drains EVERY handle even when one fails, then re-raises the first
         error: stopping at the first would leave later handles pending and
@@ -434,7 +455,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     ``"powersgd:4"``, ...) or ``None`` to follow ``HOROVOD_COMPRESSION``.
     The error-feedback codec ``Compression.powersgd(r)`` carries one
     residual per bucket (``optimizer.residuals``; ``HOROVOD_EF_RESIDUAL``)
-    and supports Sum/Average with one backward pass per step."""
+    and supports Sum/Average with one backward pass per step.
+    ``op=Adasum`` needs a power-of-two world (see the module docstring)."""
     if backward_passes_per_step < 1:
         raise ValueError("backward_passes_per_step must be >= 1")
     compression = _resolve_compression(compression)
@@ -460,3 +482,14 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                                 backward_passes_per_step,
                                 gradient_predivide_factor, fusion_threshold)
     return optimizer
+
+
+def DistributedAdasumOptimizer(optimizer: torch.optim.Optimizer,
+                               named_parameters: Optional[Iterable] = None,
+                               **kwargs) -> torch.optim.Optimizer:
+    """:func:`DistributedOptimizer` with ``op=Adasum``
+    (``hvd.DistributedAdasumOptimizer``): each fusion bucket of gradients
+    is combined by Adasum, and the wrapped optimizer steps on the
+    result."""
+    kwargs["op"] = Adasum
+    return DistributedOptimizer(optimizer, named_parameters, **kwargs)

@@ -14,7 +14,8 @@ accumulate-then-update.  The returned loss is averaged over every rank.
 
 :func:`causal_lm_loss` is the next-token cross-entropy that
 ``examples/llama_lora.py`` trains: ``logits[:, :-1]`` against
-``tokens[:, 1:]``, mean, in f32.
+``tokens[:, 1:]``, mean, in f32.  :func:`bert_pretrain_loss` is the
+MLM + NSP objective of ``examples/bert_pretrain.py``.
 
 :func:`make_flax_train_step` (the counterpart of the JAX function of that
 name) is the step of a model with batch statistics -- ResNet, LeNet --
@@ -48,6 +49,26 @@ def causal_lm_loss(model: torch.nn.Module,
                    tokens: torch.Tensor) -> torch.Tensor:
     """``next_token_loss(model(tokens), tokens)``."""
     return next_token_loss(model(tokens), tokens)
+
+
+def mlm_nsp_loss(mlm_logits: torch.Tensor, nsp_logits: torch.Tensor,
+                 tokens: torch.Tensor,
+                 nsp_labels: torch.Tensor) -> torch.Tensor:
+    """BERT's pretraining loss as ``examples/bert_pretrain.py`` computes
+    it: the mean MLM cross-entropy of ``mlm_logits`` ``[b, t, vocab]``
+    against the token identity (the synthetic objective: real masking
+    needs a corpus) plus the mean NSP cross-entropy of ``nsp_logits``
+    ``[b, 2]``, both in f32."""
+    vocab = mlm_logits.shape[-1]
+    return (softmax_xent(mlm_logits.reshape(-1, vocab), tokens.reshape(-1))
+            + softmax_xent(nsp_logits, nsp_labels))
+
+
+def bert_pretrain_loss(model: torch.nn.Module, batch) -> torch.Tensor:
+    """:func:`mlm_nsp_loss` of ``model(tokens)`` on a ``(tokens,
+    nsp_labels)`` batch."""
+    tokens, nsp_labels = batch
+    return mlm_nsp_loss(*model(tokens), tokens, nsp_labels)
 
 
 def make_train_step(model: torch.nn.Module,

@@ -53,8 +53,11 @@ def _window(name: str, fn, top: int = 12, groups=None) -> dict:
     rows = []
     busy_us = 0.0
     for ev in prof.key_averages():
-        # GPU kernel rows only: the CPU operator rows repeat their time.
-        if ev.device_type != DeviceType.CUDA:
+        # GPU kernel rows only: the CPU operator rows repeat their time,
+        # and a user annotation on the GPU timeline (the optimizer's
+        # ``Optimizer.step#...`` range) spans kernels already counted.
+        if ev.device_type != DeviceType.CUDA or getattr(
+                ev, "is_user_annotation", False):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:

@@ -5,6 +5,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100::
     python3 profile_torch_training.py                   # Llama-3 8B LoRA
     python3 profile_torch_training.py --model resnet50  # ResNet-50
     python3 profile_torch_training.py --model resnet50 --compression powersgd:4
+    python3 profile_torch_training.py --model bert-large  # BERT-Large Adasum
 
 ``llama`` (the default) builds the trainer of ``chip_smoke.py``'s train
 phase -- Llama-3 8B at full width and depth, random bf16 base from seed
@@ -14,9 +15,15 @@ compression=bf16)`` in a world of one over NCCL, a 2 x 2048-token batch.
 the space-to-depth stem, bf16 compute, 1000 classes, random weights from
 seed 0, ``DistributedOptimizer(SGD(0.1, momentum 0.9))`` in a world of
 one, 256 images of 224 x 224 from seed 0 -- with
-``make_flax_train_step``.  ``--compression`` gives the optimizer another
+``make_flax_train_step``.  ``bert-large`` builds that of its
+``bert_train`` phase -- BERT-Large at full width and depth, bf16
+compute, random weights from seed 0, ``DistributedAdasumOptimizer(AdamW,
+compression=fp16)`` in a world of one, 64 x 128 tokens with NSP labels
+from seed 0, ``make_train_step(bert_pretrain_loss)``.  ``--compression``
+gives the optimizer another
 codec spec (``none``, ``fp16``, ``bf16`` or ``powersgd:<r>``; by default
-each model's own: bf16 for the LoRA adapters, none for ResNet-50);
+each model's own: bf16 for the LoRA adapters, none for ResNet-50, fp16
+for BERT-Large);
 ``powersgd:4`` is the PowerSGD cell of ``chip_smoke.py``'s
 ``resnet_powersgd`` phase, whose three exchange stages are grouped as
 ``fused_update``.  Either takes one warm-up step, then profiles
@@ -63,6 +70,7 @@ GROUPS = {
         "gemm": GEMM,
     },
 }
+GROUPS["bert-large"] = GROUPS["llama"]
 
 
 def llama_step(dev, hvd, compression):
@@ -110,6 +118,30 @@ def resnet_step(dev, hvd, compression):
     return (lambda: step((x, y))), opt, info
 
 
+def bert_step(dev, hvd, compression):
+    from horovod_tpu_torch.models import BERT_LARGE, Bert, init_bert_params
+    from horovod_tpu_torch.training import bert_pretrain_loss, \
+        make_train_step
+
+    cfg = BERT_LARGE
+    params = init_bert_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    model = Bert.from_params(cfg, params, dtype=torch.bfloat16)
+    del params
+    named = list(model.named_parameters())
+    opt = hvd.DistributedAdasumOptimizer(
+        torch.optim.AdamW([p for _, p in named], lr=1e-3, weight_decay=1e-4),
+        named_parameters=named, compression=compression or "fp16")
+    step = make_train_step(model, bert_pretrain_loss, opt)
+    rng = np.random.RandomState(0)
+    batch = (torch.from_numpy(rng.randint(0, cfg.vocab_size, (64, 128))
+                              ).to(dev),
+             torch.from_numpy(rng.randint(0, 2, (64,))).to(dev))
+    info = {"layers": cfg.num_layers, "batch": [64, 128]}
+    return (lambda: step(batch)), opt, info
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--model", choices=sorted(GROUPS), default="llama")
@@ -129,7 +161,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     hvd.init()
-    build = resnet_step if args.model == "resnet50" else llama_step
+    build = {"llama": llama_step, "resnet50": resnet_step,
+             "bert-large": bert_step}[args.model]
     step, opt, info = build(dev, hvd, args.compression)
     warm = step().item()
     torch.cuda.reset_peak_memory_stats()

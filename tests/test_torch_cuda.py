@@ -718,3 +718,117 @@ def test_cuda_powersgd_stages_refuse_what_they_cannot_take(cuda):
         tfu.matricize_p(torch.zeros(32, device=cuda)[::2], None, q0, rows=4)
     with pytest.raises(ValueError, match="do not fit"):
         tfu.matricize_p(torch.zeros(17, device=cuda), None, q0, rows=4)
+
+
+# ---------------------------------------------------------------------------
+# BERT: the attention kernels at BERT-Large's heads, and one encoder block
+# ---------------------------------------------------------------------------
+
+
+def _bert_segments(b, t, cuda):
+    """Two packed segments of unequal lengths a row."""
+    seg = torch.zeros(b, t, dtype=torch.int32, device=cuda)
+    for r in range(b):
+        seg[r, 3 * t // 8 + 16 * r:] = 1
+    return seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [False, True])
+@pytest.mark.parametrize("t", [128, 512])
+def test_cuda_attention_kernels_at_bert_shapes(cuda, t, segments):
+    """Forward, dq and dk/dv at BERT-Large's 16 heads of 64,
+    bidirectional, against their plain versions (bf16)."""
+    rng = np.random.RandomState(30 + t)
+    q, k, v, do = _bwd_inputs(rng, 2, 16, 16, t, t, 64, torch.bfloat16,
+                              cuda)
+    kw = dict(causal=False)
+    if segments:
+        seg = _bert_segments(2, t, cuda)
+        kw.update(segment_ids=seg, kv_segment_ids=seg)
+    registry.reset_launch_counts()
+    o, lse = tattn.flash_attention(q, k, v, return_lse=True, **kw)
+    o_ref, lse_ref = tattn.flash_attention(q, k, v, return_lse=True,
+                                           force_reference=True, **kw)
+    assert (o.float() - o_ref.float()).abs().max().item() <= \
+        _tol(o_ref, torch.bfloat16)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    got = (tattn.flash_backward_dq(*args, **kw),
+           *tattn.flash_backward_dkv(*args, **kw))
+    want = (tattn.flash_backward_dq(*args, force_reference=True, **kw),
+            *tattn.flash_backward_dkv(*args, force_reference=True, **kw))
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g.float()).all())
+        assert (g.float() - w.float()).abs().max().item() <= \
+            _grad_tol(w, torch.bfloat16)
+    assert {f: registry.launches(f) for f in
+            ("flash", "flash_bwd_dq", "flash_bwd_dkv")} == dict.fromkeys(
+                ("flash", "flash_bwd_dq", "flash_bwd_dkv"), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bert_encoder_block_matches_plain_attention(cuda, dtype):
+    """One ``EncoderBlock`` at BERT-Large's width (d 1024, 16 heads, FFN
+    4096) on 2 x 256 tokens packed with two segments a row: output and
+    every gradient through the kernels against the same block through
+    the plain attention.  ``wk.bias``'s gradient is zero in exact
+    arithmetic, so its difference is held relative to ``wk.kernel``'s."""
+    from horovod_tpu_torch.models import BERT_LARGE
+    from horovod_tpu_torch.models.transformer import EncoderBlock
+    dt = getattr(torch, dtype)
+    block = EncoderBlock(BERT_LARGE, dt, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            if name.endswith("kernel"):
+                p.normal_(0.0, p.shape[0] ** -0.5, generator=gen)
+            else:
+                p.normal_(1.0 if name.endswith("scale") else 0.0, 0.1,
+                          generator=gen)
+    x = torch.randn(2, 256, 1024, generator=gen, device=cuda).to(dt)
+    seg = _bert_segments(2, 256, cuda)
+    dy = torch.randn(2, 256, 1024, generator=gen, device=cuda).to(dt)
+    runs = []
+    for ref in (False, True):
+        block.zero_grad(set_to_none=True)
+        xr = x.clone().requires_grad_()
+        y = block(xr, seg, force_reference=ref)
+        y.backward(dy)
+        runs.append((y.detach().float(), xr.grad.float(),
+                     {n: p.grad.float() for n, p in block.named_parameters()}))
+    (y, dx, g), (y_w, dx_w, g_w) = runs
+    rel = F32_GRAD_REL if dt == torch.float32 else BF16_REL
+    assert (y - y_w).abs().max().item() <= rel * y_w.abs().max().item()
+    assert (dx - dx_w).abs().max().item() <= rel * dx_w.abs().max().item()
+    for n in g_w:
+        scale = g_w["wk.kernel" if n == "wk.bias" else n].abs().max().item()
+        assert bool(torch.isfinite(g[n]).all()), n
+        assert (g[n] - g_w[n]).abs().max().item() <= rel * scale, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h_kv", [(64, 16), (128, 4)])
+def test_cuda_flash_forward_writes_o_residual_for_the_backward(cuda, d,
+                                                              h_kv):
+    """With a gradient wanted, the bf16 forward also saves O's rounding
+    residual: ``o + o_lo`` is the kernel's f32 O, within 1e-3 of max |O|
+    of the f32 plain attention (one bf16 rounding of O is up to 2^-9 of
+    each value); without a gradient (serving) nothing is written."""
+    rng = np.random.RandomState(40 + d)
+    q, k, v, _ = _bwd_inputs(rng, 2, 16, h_kv, 256, 256, d, torch.bfloat16,
+                             cuda)
+    o, lse, o_lo = tattn._flash_forward(q, k, v, None, None, scale=d ** -0.5,
+                                        causal=False, residual=True)
+    want = tattn.attention_reference(
+        q.float(), *(x.float().repeat_interleave(16 // h_kv, 1)
+                     for x in (k, v)))
+    top = want.abs().max().item()
+    assert o_lo is not None and o_lo.dtype == torch.bfloat16
+    assert (o.float() + o_lo.float() - want).abs().max().item() <= 1e-3 * top
+    assert torch.equal(o, tattn._flash_forward(
+        q, k, v, None, None, scale=d ** -0.5, causal=False)[0])
+    assert tattn._flash_forward(q, k, v, None, None, scale=d ** -0.5,
+                                causal=False)[2] is None
