@@ -19,9 +19,12 @@ Phases, each printing its own line; any failure exits non-zero:
    tensor cores in bf16 and on the CUDA cores in f32; cases from 37 to
    2048 tokens, a ragged 1000, tq < tk, segments with dead rows and
    keys, head dims 128 and 64, and two launches bitwise equal, with the
-   TFLOP/s of the headline case; ResNet: the BatchNorm backward's
-   two passes, at a ragged N, a C below one vector and three ResNet-50
-   sites at batch 256, bitwise repeatable; PowerSGD: the three
+   TFLOP/s of the headline case; ResNet and Inception: the BatchNorm
+   backward's two passes, at a ragged N, a C below one vector, three
+   ResNet-50 sites at batch 256 and four Inception-v3 sites at batch 32,
+   bitwise repeatable, timed from a replayed CUDA graph at ResNet's
+   headline site and at Inception's most rows and widest channels, as is
+   their ``native_batch_norm_backward`` yardstick; PowerSGD: the three
    ``fused_update`` stages at both ResNet-50 bucket shapes, r = 1 and
    4, with and without a residual, Average and Sum with a postscale,
    bitwise repeatable, timed from a replayed CUDA graph), with its time,
@@ -93,7 +96,28 @@ Phases, each printing its own line; any failure exits non-zero:
    step, and the warm-up step's every reduced bucket bitwise the fp16
    round trip of its packed gradient (Adasum over one rank is the
    identity).
-13. fused_update_launches -- each PowerSGD stage launch's own device
+13. bn_sync -- synchronized BatchNorm at world 1 (5 warm-up and 20
+   timed steps each): ``sync_batch_norm`` against the plain
+   ``ops.bn.BatchNorm`` at ResNet-50's ``[256, 56, 56, 256]`` and
+   Inception's ``[32, 147, 147, 32]`` bf16 -- output, running
+   statistics, dx, dgamma and dbeta bitwise equal (the allreduces of one
+   rank are identities), both within phase 3's BN bounds of the backward
+   through the plain versions, one launch of each BN kernel and two
+   allreduces a step; ``hvd.SyncBatchNorm`` on channels_last bf16 ``[32,
+   64, 147, 147]`` against autograd of the f32 formula, with no layout
+   copy, timed beside cuDNN's ``BatchNorm2d``; ``bn_backward_dx`` with
+   ``count`` four times its rows against its plain version.
+14. inception_train -- Inception-v3 through the synthetic benchmark's own
+   setup (``python -m horovod_tpu_torch.synthetic_benchmark --model
+   inception_v3``: 32 images of 299 x 299, bf16, 1000 classes,
+   ``DistributedOptimizer(SGD(0.01, momentum 0.9))``), one warm-up and
+   five timed steps: losses finite and falling, every parameter and
+   running statistic changed, 94 launches of each BN kernel a step,
+   buckets and handles as planned, 4 wire bytes a parameter.
+15. vgg_train -- VGG-16 the same way at 224 x 224: 553,430,176 wire
+   bytes a step (138,357,544 f32 gradients, one tensor of 411 MB), the
+   planned buckets, and no kernel launch (the classic VGG has no BN).
+16. fused_update_launches -- each PowerSGD stage launch's own device
    time at the headline case, from ``torch.profiler`` (information).
 
 Then one JSON line of per-kernel numbers, the card line, and last the
@@ -650,10 +674,19 @@ def check_bert_attention(attn, dev, card: str) -> None:
 
 
 # The BN cases: a ragged N with C below one vector and not a multiple of
-# 8, a C of exactly one vector, and three ResNet-50 sites at batch 256
-# (the stem, stage 1's widest, stage 4).
-BN_CASES = ((37, 3), (1000, 8), (3211264, 64), (802816, 256), (12544, 2048))
+# 8, a C of exactly one vector, three ResNet-50 sites at batch 256 (the
+# stem, stage 1's widest, stage 4) and six Inception-v3 sites at batch 32
+# (the first stem site; C = 80, 192, 2048 on the 8 x 8 grid; and two
+# widths that span two 256-channel tiles and end in a partial one: 448 on
+# the 8 x 8 grid and 384 on the 17 x 17 grid).
+BN_CASES = ((37, 3), (1000, 8), (3211264, 64), (802816, 256), (12544, 2048),
+            (710432, 32), (2048, 80), (2048, 192), (2048, 2048), (2048, 448),
+            (9248, 384))
 BN_HEADLINE = (802816, 256)        # [256 x 56 x 56, 256], bf16
+# The timed cases and their [batch, h, w] (the library call's 4-D view):
+# the headline, and Inception's most rows and widest channels.
+BN_TIMED = {BN_HEADLINE: (256, 56, 56), (710432, 32): (32, 149, 149),
+            (2048, 2048): (32, 8, 8)}
 
 
 def check_bn_bwd(bn, dev) -> tuple:
@@ -689,9 +722,12 @@ def check_bn_bwd(bn, dev) -> tuple:
                    "max_abs_err": dict(zip(("dx", "dgamma", "dbeta"), errs)),
                    "tol": dict(zip(("dx", "dgamma", "dbeta"), tols)),
                    "ok": ok}
-            if dtype == torch.bfloat16 and (n, c) == BN_HEADLINE:
-                rec["timing"], heads = time_bn_bwd(bn, x, dy, mean, var,
-                                                   inv, scale, got, errs)
+            if dtype == torch.bfloat16 and (n, c) in BN_TIMED:
+                rec["timing"], entries = time_bn_bwd(
+                    bn, x, dy, mean, var, inv, scale, got, errs,
+                    BN_TIMED[n, c])
+                if (n, c) == BN_HEADLINE:
+                    heads = entries
                 ok = ok and rec["timing"]["deterministic"]
                 rec["ok"] = ok
             log(rec)
@@ -701,41 +737,44 @@ def check_bn_bwd(bn, dev) -> tuple:
     return heads
 
 
-def time_bn_bwd(bn, x, dy, mean, var, inv, scale, got, errs) -> tuple:
-    """Kernel, plain and bound times of both passes at the headline shape,
-    a repeat launch that must give bitwise the same results, and the
+def time_bn_bwd(bn, x, dy, mean, var, inv, scale, got, errs,
+                view: tuple) -> tuple:
+    """Kernel, plain and bound times of both passes at one shape, a
+    repeat launch that must give bitwise the same results, and the
     library yardstick: one ``native_batch_norm_backward`` on the
-    channels-last 4-D view with the saved mean and inverse std, train
-    mode, all three outputs (it computes both passes, so both rows carry
-    its time)."""
+    channels-last 4-D view ``[batch, h, w, c]`` with the saved mean and
+    inverse std, train mode, all three outputs (it computes both passes,
+    so both rows carry its time).  The kernels' and the library call's
+    times are device time from a replayed CUDA graph: at Inception's
+    8 x 8 grid a pass is a few microseconds, and CUDA events around
+    back-to-back calls would read the host's launch rate."""
     n, c = x.shape
     esz = x.element_size()
     dx, dgamma, dbeta = got
     again = bn.fused_bn_backward(x, scale, mean, var, dy, eps=1e-5)
     deterministic = all(torch.equal(a, b) for a, b in zip(again, got))
-    ms_red = time_ms(lambda: bn.bn_backward_reduce(x, dy, mean, inv))
-    ms_dx = time_ms(lambda: bn.bn_backward_dx(x, dy, mean, inv, scale,
-                                              dbeta, dgamma))
+    ms_red = graph_ms(lambda: bn.bn_backward_reduce(x, dy, mean, inv))
+    ms_dx = graph_ms(lambda: bn.bn_backward_dx(x, dy, mean, inv, scale,
+                                               dbeta, dgamma))
     plain_red = time_ms(lambda: bn.bn_backward_reduce(
         x, dy, mean, inv, force_reference=True), reps=5)
     plain_dx = time_ms(lambda: bn.bn_backward_dx(
         x, dy, mean, inv, scale, dbeta, dgamma, force_reference=True),
         reps=5)
-    side = int(round((n // 256) ** 0.5))
     lib_dtype = str(x.dtype).replace("torch.", "")
 
     def library(xl, dyl):
-        x4 = xl.view(256, side, side, c).permute(0, 3, 1, 2)
-        dy4 = dyl.view(256, side, side, c).permute(0, 3, 1, 2)
+        x4 = xl.view(*view, c).permute(0, 3, 1, 2)
+        dy4 = dyl.view(*view, c).permute(0, 3, 1, 2)
         return lambda: torch.ops.aten.native_batch_norm_backward(
             dy4, x4, scale, None, None, mean, inv, True, 1e-5,
             [True, True, True])
     try:
-        lib = time_ms(library(x, dy))
+        lib = graph_ms(library(x, dy))
     except RuntimeError:
         # bf16 input with an f32 weight refused: time it on f32 copies.
         lib_dtype = "float32"
-        lib = time_ms(library(x.float(), dy.float()))
+        lib = graph_ms(library(x.float(), dy.float()))
     rows = 4 * c
     # Pass 1 reads x, dy, mean, inv and writes dbeta, dgamma; pass 2 reads
     # x, dy and five rows and writes dx.  f32 work per element: xhat (2),
@@ -1766,6 +1805,333 @@ def train_bert(dev, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-15: sync BN, Inception-v3 and VGG-16 (after BERT, before the
+# profiler of phase 16)
+# ---------------------------------------------------------------------------
+
+
+# sync_batch_norm against the plain layer at ResNet-50's widest BN site and
+# Inception's second stem site (NHWC, bf16, batch 256 and 32); the
+# torch-style layer at Inception's stem width after the third conv
+# (channels_last NCHW, bf16); pass 2 with the sums of four ranks.
+BN_SYNC_CASES = ((256, 56, 56, 256), (32, 147, 147, 32))
+SYNC_BN_TORCH_SHAPE = (32, 64, 147, 147)
+BN_COUNT_CASE = (2048, 192, 4)          # rows, channels, ranks summed
+INCEPTION_BN_SITES = 94
+VGG16_VALUES = 138_357_544              # jax.eval_shape of the flax VGG16
+VGG16_WIRE_BYTES = 4 * VGG16_VALUES     # f32 on the wire, uncompressed
+
+
+def _bn_step(m, x, dy, ref: bool = False) -> tuple:
+    """One train-mode forward and backward of ``m`` on ``x``:
+    ``(y, dx, dscale, dbias)``."""
+    m.zero_grad(set_to_none=True)
+    xt = x.detach().requires_grad_(True)
+    y = m(xt, force_reference=ref) if ref else m(xt)
+    y.backward(dy)
+    grads = [p.grad for p in m.parameters()]
+    return (y.detach(), xt.grad, *grads)
+
+
+def _rel_errs(got, want) -> list:
+    return [(g.float() - w.float()).abs().max().item()
+            / max(w.float().abs().max().item(), 1e-30)
+            for g, w in zip(got, want)]
+
+
+def check_bn_sync(dev, card: str) -> None:
+    """Synchronized BatchNorm at world 1 on the card, as information and
+    check (5 warm-up and 20 timed forward + backward steps each):
+
+    * ``sync_batch_norm`` against the plain ``ops.bn.BatchNorm``: output,
+      running statistics, dx, dgamma and dbeta bitwise equal (at world 1
+      both allreduces are identities), one launch of each BN kernel and
+      two allreduces a step; both within the BN bounds of phase 3 of the
+      backward through the plain versions;
+    * ``hvd.SyncBatchNorm`` on a channels_last bf16 input against the
+      plain PyTorch layer (autograd of the f32 formula), no layout copy,
+      timed beside cuDNN's ``BatchNorm2d`` (the library yardstick);
+    * ``bn_backward_dx`` with ``count`` four times the rows (sums of four
+      ranks) against its plain version."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import bn, registry
+    from horovod_tpu_torch.timeline.metrics import sync_bn_totals
+    from horovod_tpu_torch.training import sync_batch_norm
+
+    hvd.init()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    fails, cases = [], []
+    for shape in BN_SYNC_CASES:
+        c = shape[-1]
+        x = (2.0 * torch.randn(*shape, generator=gen, device=dev)
+             + 0.5).to(torch.bfloat16)
+        dy = torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+        state = {"scale": 1.0 + 0.1 * torch.randn(c, generator=gen,
+                                                  device=dev),
+                 "bias": 0.1 * torch.randn(c, generator=gen, device=dev),
+                 "mean": torch.zeros(c, device=dev),
+                 "var": torch.ones(c, device=dev)}
+        sync = sync_batch_norm(features=c, momentum=0.9,
+                               dtype=torch.bfloat16, device=dev)
+        plain = bn.BatchNorm(c, momentum=0.9, dtype=torch.bfloat16,
+                             device=dev)
+        runs = {}
+        for name, m, ref in (("sync", sync, False), ("plain", plain, False),
+                             ("reference", plain, True)):
+            m.load_state_dict(state)
+            registry.reset_launch_counts()
+            before = sync_bn_totals()["allreduces"]
+            out = _bn_step(m, x, dy, ref)
+            torch.cuda.synchronize()
+            runs[name] = (out, (m.mean.clone(), m.var.clone()),
+                          registry.launch_counts(),
+                          sync_bn_totals()["allreduces"] - before)
+        bitwise = all(torch.equal(a, b) for a, b in zip(
+            runs["sync"][0] + runs["sync"][1],
+            runs["plain"][0] + runs["plain"][1]))
+        errs = _rel_errs(runs["sync"][0][1:], runs["reference"][0][1:])
+        tols = (BF16_TOL, BN_SUM_TOL, BN_SUM_TOL)
+        launches = {k: runs["sync"][2][k] for k in ("bn_bwd_reduce",
+                                                    "bn_bwd_dx")}
+        ms = {name: time_ms(lambda m=m: _bn_step(m, x, dy), reps=20,
+                            warmup=5) for name, m in (("sync", sync),
+                                                      ("plain", plain))}
+        rec = {"shape": list(shape), "dtype": "bfloat16",
+               "bitwise_equal_at_world_1": bitwise,
+               "rel_err_vs_plain_backward": dict(zip(
+                   ("dx", "dgamma", "dbeta"), errs)),
+               "tol": dict(zip(("dx", "dgamma", "dbeta"), tols)),
+               "launches": launches,
+               "sync_allreduces": runs["sync"][3],
+               "step_ms": ms}
+        cases.append(rec)
+        if not bitwise:
+            fails.append(f"{shape}: sync and plain layers differ at world 1")
+        if any(e > t for e, t in zip(errs, tols)):
+            fails.append(f"{shape}: sync vs plain backward {errs}")
+        if launches != {"bn_bwd_reduce": 1, "bn_bwd_dx": 1}:
+            fails.append(f"{shape}: launches {launches}")
+        if runs["sync"][3] != 2 or runs["plain"][3] != 0:
+            fails.append(f"{shape}: sync allreduces {runs['sync'][3]}")
+        del x, dy, runs, sync, plain
+        free_device()
+    torch_rec = check_hvd_sync_batch_norm(dev, gen, fails)
+    count_rec = check_bn_dx_count(bn, dev, gen, fails)
+    log({"phase": "bn_sync", "card": card, "world": hvd.size(),
+         "sync_batch_norm": cases, "hvd_SyncBatchNorm": torch_rec,
+         "bn_backward_dx_count": count_rec, "ok": not fails})
+    if fails:
+        raise AssertionError("bn_sync: " + "; ".join(fails))
+    hvd.shutdown()
+
+
+def check_hvd_sync_batch_norm(dev, gen, fails: list) -> dict:
+    """``hvd.SyncBatchNorm`` on ``SYNC_BN_TORCH_SHAPE`` channels_last bf16
+    against autograd of the f32 formula, timed beside cuDNN."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.timeline.metrics import sync_bn_totals
+
+    n, c, h, w = SYNC_BN_TORCH_SHAPE
+    cl = dict(memory_format=torch.channels_last)
+    x = (2.0 * torch.randn(n, c, h, w, generator=gen, device=dev)
+         + 0.5).to(torch.bfloat16).contiguous(**cl)
+    dy = torch.randn(n, c, h, w, generator=gen, device=dev).to(
+        torch.bfloat16).contiguous(**cl)
+    m = hvd.SyncBatchNorm(c, momentum=0.1, device=dev)
+    with torch.no_grad():
+        m.weight.normal_(1.0, 0.1, generator=gen)
+        m.bias.normal_(0.0, 0.1, generator=gen)
+    eps, dims = m.eps, (0, 2, 3)
+
+    def layer():
+        m.zero_grad(set_to_none=True)
+        xt = x.detach().requires_grad_(True)
+        y = m(xt)
+        y.backward(dy)
+        return y.detach(), xt.grad, m.weight.grad, m.bias.grad
+
+    def reference():
+        xt = x.detach().float().requires_grad_(True)
+        wt = m.weight.detach().clone().requires_grad_(True)
+        bt = m.bias.detach().clone().requires_grad_(True)
+        mean = xt.mean(dims, keepdim=True)
+        var = (xt.square().mean(dims, keepdim=True)
+               - mean.square()).clamp_min(0.0)
+        y = ((xt - mean) * torch.rsqrt(var + eps) * wt.view(1, c, 1, 1)
+             + bt.view(1, c, 1, 1))
+        y.backward(dy.float())
+        return y.detach(), xt.grad, wt.grad, bt.grad
+
+    before = sync_bn_totals()
+    registry.reset_launch_counts()
+    got = layer()
+    counts = registry.launch_counts()
+    moved = {k: v - before[k] for k, v in sync_bn_totals().items()}
+    want = reference()
+    torch.cuda.synchronize()
+    errs = _rel_errs(got, want)
+    tols = (BF16_TOL, BF16_TOL, BN_SUM_TOL, BN_SUM_TOL)
+    ms = time_ms(layer, reps=20, warmup=5)
+    plain_ms = time_ms(reference, reps=20, warmup=5)
+    lib = torch.nn.BatchNorm2d(c, device=dev)
+    lib.load_state_dict(m.state_dict())
+    lib_dtype = "bfloat16"
+
+    def library(xl, dyl):
+        def run():
+            lib.zero_grad(set_to_none=True)
+            xt = xl.detach().requires_grad_(True)
+            lib(xt).backward(dyl)
+        return run
+    try:
+        lib_ms = time_ms(library(x, dy), reps=20, warmup=5)
+    except RuntimeError:
+        lib_dtype = "float32"
+        lib_ms = time_ms(library(x.float().contiguous(**cl),
+                                 dy.float().contiguous(**cl)),
+                         reps=20, warmup=5)
+    launches = {k: counts[k] for k in ("bn_bwd_reduce", "bn_bwd_dx")}
+    rec = {"shape": list(SYNC_BN_TORCH_SHAPE), "layout": "channels_last",
+           "dtype": "bfloat16",
+           "rel_err_vs_plain": dict(zip(("y", "dx", "dweight", "dbias"),
+                                        errs)),
+           "tol": dict(zip(("y", "dx", "dweight", "dbias"), tols)),
+           "launches": launches, "sync_bn_counters": moved,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library": f"torch.nn.BatchNorm2d (cuDNN), {lib_dtype}"}
+    if any(e > t for e, t in zip(errs, tols)):
+        fails.append(f"SyncBatchNorm vs plain {errs}")
+    if launches != {"bn_bwd_reduce": 1, "bn_bwd_dx": 1}:
+        fails.append(f"SyncBatchNorm launches {launches}")
+    if moved["allreduces"] != 2 or moved["layout_copies"] != 0:
+        fails.append(f"SyncBatchNorm counters {moved}")
+    del x, dy, got, want, m, lib
+    free_device()
+    return rec
+
+
+def check_bn_dx_count(bn, dev, gen, fails: list) -> dict:
+    """Pass 2 with sums of ``ranks`` ranks and the global count, kernel
+    against plain."""
+    rows, c, ranks = BN_COUNT_CASE
+    x = (2.0 * torch.randn(rows, c, generator=gen, device=dev)
+         + 0.5).to(torch.bfloat16)
+    dy = torch.randn(rows, c, generator=gen, device=dev).to(torch.bfloat16)
+    scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+    mean, var = bn.batch_stats(x)
+    inv = torch.rsqrt(var + 1e-3)
+    dbeta, dgamma = bn.bn_backward_reduce(x, dy, mean, inv)
+    sums = [s * ranks + torch.randn(c, generator=gen, device=dev)
+            for s in (dbeta, dgamma)]
+    count = rows * ranks
+    got = bn.bn_backward_dx(x, dy, mean, inv, scale, *sums, count=count)
+    want = bn.bn_backward_dx(x, dy, mean, inv, scale, *sums, count=count,
+                             force_reference=True)
+    local = bn.bn_backward_dx(x, dy, mean, inv, scale, *sums)
+    torch.cuda.synchronize()
+    err = _rel_errs([got], [want])[0]
+    apart = _rel_errs([local], [want])[0]
+    rec = {"rows": rows, "c": c, "count": count, "dtype": "bfloat16",
+           "rel_err": err, "tol": BF16_TOL,
+           "rel_diff_of_count_rows": apart}
+    if not err <= BF16_TOL or not apart > BF16_TOL:
+        fails.append(f"bn_backward_dx(count={count}): {rec}")
+    return rec
+
+
+def train_cnn(phase: str, name: str, dev, card: str, sites: int) -> dict:
+    """``name`` through the synthetic benchmark's own setup
+    (``horovod_tpu_torch.synthetic_benchmark.setup``: batch 32 at the
+    model's image size, bf16, 1000 classes, ``DistributedOptimizer(
+    SGD(0.01, momentum 0.9))``, dropout 0): one warm-up and five timed
+    steps.  Losses finite and falling, every parameter and running
+    statistic changed and finite, ``sites`` launches of each BN kernel a
+    step, the planned buckets, one handle each and every f32 gradient's
+    4 bytes on the wire a step.  Returns the launch counts over the
+    timed steps."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import synthetic_benchmark as sb
+    from horovod_tpu_torch.controller.fusion import plan_buckets
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.timeline.metrics import exchange_totals
+
+    steps, batch_size = 5, 32
+    hvd.init()
+    t0 = time.perf_counter()
+    bench = sb.setup(name, batch_size=batch_size)
+    model, step = bench.model, bench.step
+    named = list(model.named_parameters())
+    values = sum(p.numel() for _, p in named)
+    planned = len(plan_buckets([p for _, p in named], 64 * 1024 * 1024,
+                               reverse=True).buffers)
+    torch.cuda.synchronize()
+    before_p = {n: p.detach().clone() for n, p in named}
+    before_s = {n: b.clone() for n, b in model.named_buffers()}
+    log({"phase": f"{phase}_init", "model": name,
+         "seconds": time.perf_counter() - t0, "world": hvd.size(),
+         "backend": torch.distributed.get_backend(),
+         "image_size": bench.image_size, "param_tensors": len(named),
+         "param_values": values, "bn_sites": sites,
+         "bucket_bytes": bench.optimizer.bucket_plan.bucket_bytes()})
+
+    losses = [step(bench.batch).item()]            # warm-up
+    before = exchange_totals()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(step(bench.batch).item())
+        times.append(time.perf_counter() - t)
+    counts = registry.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: (v - before[k]) / steps
+                for k, v in exchange_totals().items()}
+    step_ms = 1e3 * sum(times) / steps
+    changed = sum(not torch.equal(p, before_p[n]) for n, p in named)
+    stats = dict(model.named_buffers())
+    stats_moved = sum(not torch.equal(b, before_s[n])
+                      and bool(torch.isfinite(b).all())
+                      for n, b in stats.items())
+    log({"phase": phase, "card": card, "steps": steps,
+         "batch": list(bench.batch[0].shape), "losses": losses,
+         "step_ms": step_ms, "step_ms_each": [1e3 * t for t in times],
+         "images_per_s": batch_size / (step_ms / 1e3),
+         "peak_mem_bytes": peak, "exchange_per_step": per_step,
+         "plan_buckets": planned, "launches": counts,
+         "params_changed": changed, "param_tensors": len(named),
+         "stats_changed_finite": stats_moved, "stat_tensors": len(stats)})
+    fails = []
+    if not all(np.isfinite(losses)):
+        fails.append("a loss is not finite")
+    if not losses[-1] < losses[0]:
+        fails.append(f"loss did not fall: {losses}")
+    if changed != len(named):
+        fails.append(f"{len(named) - changed} parameters unchanged")
+    if stats_moved != len(stats):
+        fails.append(f"{len(stats) - stats_moved} running statistics "
+                     f"unchanged or not finite")
+    for f, n in counts.items():
+        want = sites * steps if f in ("bn_bwd_reduce", "bn_bwd_dx") else 0
+        if n != want:
+            fails.append(f"{f} launches {n} != {want}")
+    if per_step != {"buckets": planned, "wire_bytes": 4 * values,
+                    "handles": planned}:
+        fails.append(f"exchange per step {per_step}, planned {planned} "
+                     f"buckets and {4 * values} wire bytes")
+    if name == "vgg16" and 4 * values != VGG16_WIRE_BYTES:
+        fails.append(f"VGG-16 has {values} values, not {VGG16_VALUES}")
+    if fails:
+        raise AssertionError(f"{phase}: " + "; ".join(fails))
+    hvd.shutdown()
+    del model, step, bench, named, before_p, before_s, stats
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1815,6 +2181,13 @@ def main() -> int:
     free_device()
     bert = train_bert(dev, card)
     free_device()
+    check_bn_sync(dev, card)
+    free_device()
+    inception = train_cnn("inception_train", "inception_v3", dev, card,
+                          INCEPTION_BN_SITES)
+    free_device()
+    train_cnn("vgg_train", "vgg16", dev, card, 0)
+    free_device()
     fused_update_launches(dev, card)
     # The attention kernels run on several paths: their launches are the
     # sums.
@@ -1822,8 +2195,8 @@ def main() -> int:
     decode["launches"] = serve["flash_decode"]
     dq["launches"] = train["flash_bwd_dq"] + bert["flash_bwd_dq"]
     dkv["launches"] = train["flash_bwd_dkv"] + bert["flash_bwd_dkv"]
-    bn_red["launches"] = resnet["bn_bwd_reduce"]
-    bn_dx["launches"] = resnet["bn_bwd_dx"]
+    bn_red["launches"] = resnet["bn_bwd_reduce"] + inception["bn_bwd_reduce"]
+    bn_dx["launches"] = resnet["bn_bwd_dx"] + inception["bn_bwd_dx"]
     for e in fused:
         e["launches"] = powersgd[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -1,7 +1,7 @@
 """horovod_tpu_torch: the PyTorch/CUDA port of ``horovod_tpu``.
 
-A second package beside the JAX one, for an NVIDIA H100.  Five slices
-are ported so far:
+A second package beside the JAX one, for an NVIDIA H100.  Slices
+ported so far:
 
 * serving: requests in, tokens out, through
   :class:`~horovod_tpu_torch.serving.ServingEngine`;
@@ -19,6 +19,13 @@ are ported so far:
   bert_pretrain_loss`) through :func:`DistributedAdasumOptimizer`: each
   fusion bucket, optionally fp16-compressed, combined by Adasum's
   vector-halving, distance-doubling exchange (``op=Adasum``).
+* the CNN half of Horovod's headline workloads through the synthetic
+  benchmark (``python -m horovod_tpu_torch.synthetic_benchmark``):
+  VGG-16/19 and Inception-v3 beside ResNet and LeNet, and synchronized
+  BatchNorm -- :func:`~horovod_tpu_torch.training.sync_batch_norm`
+  (flax-style, for the port's NHWC models) and :class:`SyncBatchNorm`
+  (torch-style) -- whose backward
+  sums the BN kernels' first pass over the ranks before the second.
 
 Kernels hand-written in CUDA C++ for ``sm_90a`` (``ops/csrc``) carry
 attention -- the flash forward and decode kernels, the flash backward's
@@ -47,6 +54,7 @@ from .models import (BERT_BASE, BERT_LARGE, BERT_TINY, Bert,  # noqa: F401
 from .optim import (DistributedAdasumOptimizer,  # noqa: F401
                     DistributedOptimizer, broadcast_object,
                     broadcast_optimizer_state, broadcast_parameters)
+from .sync_batch_norm import SyncBatchNorm  # noqa: F401
 from .training import bert_pretrain_loss  # noqa: F401
 
 __version__ = "0.2.0"

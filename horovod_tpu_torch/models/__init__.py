@@ -1,9 +1,10 @@
-"""The port's models: the Llama-3 family with LoRA, BERT, ResNet and
-LeNet; seeded init, and the flax weight converters."""
+"""The port's models: the Llama-3 family with LoRA, BERT, ResNet, VGG,
+Inception-v3 and LeNet; seeded init, and the flax weight converters."""
 
-from .convert import (flax_leaf_order, from_flax_layout,  # noqa: F401
-                      params_from_jax, resnet_state_from_jax,
-                      to_flax_layout)
+from .convert import (flax_leaf_order, flax_state_from_jax,  # noqa: F401
+                      from_flax_layout, params_from_jax,
+                      resnet_state_from_jax, to_flax_layout)
+from .inception import InceptionV3  # noqa: F401
 from .layers import init_params  # noqa: F401
 from .lenet import LeNet  # noqa: F401
 from .resnet import (BasicBlock, BottleneckBlock, ResNet,  # noqa: F401
@@ -16,3 +17,4 @@ from .transformer import (BERT_BASE, BERT_LARGE, BERT_TINY,  # noqa: F401
                           LlamaLM, RMSNorm, freeze_base, init_bert_params,
                           init_llama_params, lora_parameters,
                           rotary_embedding)
+from .vgg import VGG, VGG16, VGG19  # noqa: F401

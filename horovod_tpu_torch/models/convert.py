@@ -11,11 +11,12 @@ tree (``layer_{i}.wq.kernel`` / ``.bias``, the LayerNorms' ``scale`` /
 ``bias``, ``tok_embed``, ``pos_embed``, ``type_embed``) goes through
 :func:`params_from_jax` the same way, into ``Bert.from_params``.
 
-A flax ResNet's or LeNet's ``{"params": ..., "batch_stats": ...}``
-becomes a ``state_dict`` through :func:`resnet_state_from_jax`: the same
-rename, plus HWIO -> OIHW for the 4-D convolution kernels; the
-``batch_stats`` ``mean``/``var`` leaves become the BatchNorm buffers of
-the same dotted names.
+A flax convolutional model's ``{"params": ..., "batch_stats": ...}``
+(ResNet, LeNet, VGG, Inception-v3) becomes a ``state_dict`` through
+:func:`flax_state_from_jax` (:func:`resnet_state_from_jax` is the same
+function under its older name): the same rename, plus HWIO -> OIHW for
+the 4-D convolution kernels; the ``batch_stats`` ``mean``/``var`` leaves
+become the BatchNorm buffers of the same dotted names.
 
 :func:`flax_leaf_order`, :func:`to_flax_layout` and
 :func:`from_flax_layout` go the other way for code that must see the
@@ -70,11 +71,12 @@ def params_from_jax(tree_of_numpy: Mapping[str, Any], *,
     return out
 
 
-def resnet_state_from_jax(variables: Mapping[str, Any], *,
-                          device: Optional[Union[str, torch.device]] = None
-                          ) -> Dict[str, torch.Tensor]:
-    """Flax ``{"params", "batch_stats"}`` of a ResNet or LeNet (numpy
-    leaves) -> the port model's ``state_dict``.
+def flax_state_from_jax(variables: Mapping[str, Any], *,
+                        device: Optional[Union[str, torch.device]] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """Any flax ``{"params", "batch_stats"}`` tree of a convolutional
+    model -- ResNet, LeNet, VGG, Inception-v3 (numpy leaves) -- -> the
+    port model's ``state_dict``.
 
     Convolution kernels go from flax's HWIO to the port's OIHW; ``Dense``
     kernels stay ``[in, out]``; ``batch_stats/<site>/{mean,var}`` become
@@ -90,6 +92,14 @@ def resnet_state_from_jax(variables: Mapping[str, Any], *,
                 a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
             out[name] = torch.tensor(a, device=dev)
     return out
+
+
+def resnet_state_from_jax(variables: Mapping[str, Any], *,
+                          device: Optional[Union[str, torch.device]] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """A flax ResNet's or LeNet's variables -> the port model's
+    ``state_dict``: :func:`flax_state_from_jax`."""
+    return flax_state_from_jax(variables, device=device)
 
 
 def flax_leaf_order(names: Sequence[str]) -> List[int]:

@@ -11,8 +11,8 @@ take.
 1) * stride + k - in, 0)`` is split ``(total // 2, total - total // 2)``,
 more at the bottom and right.  A symmetric ``padding=k // 2`` gives the
 same output shape but another convolution, so SAME is applied with
-``F.pad`` before a ``padding=0`` convolution (or pool, padded with
--inf).
+``F.pad`` before a ``padding=0`` convolution or pool: the max-pool pads
+with -inf, the average pool with zeros that count in its divisor.
 
 Parameters keep flax's names and f32: a ``Conv`` kernel is stored OIHW
 (the flax HWIO kernel transposed), a ``Dense`` kernel ``[in, out]`` as
@@ -83,6 +83,21 @@ def max_pool(x: torch.Tensor, window: Union[int, Sequence[int]],
     return y.permute(0, 2, 3, 1)
 
 
+def avg_pool(x: torch.Tensor, window: Union[int, Sequence[int]],
+             strides: Union[int, Sequence[int]],
+             padding: str = "VALID") -> torch.Tensor:
+    """``flax.linen.avg_pool`` on NHWC ``x`` (``count_include_pad=True``):
+    SAME pads with zeros and every window divides by its full size,
+    padded zeros included."""
+    window, strides = _pair(window), _pair(strides)
+    if padding == "SAME":
+        x = pad_same(x, window, strides)
+    elif padding != "VALID":
+        raise ValueError(f"padding {padding!r} not in ('SAME', 'VALID')")
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, strides)
+    return y.permute(0, 2, 3, 1)
+
+
 class Conv(nn.Module):
     """``flax.linen.Conv`` on NHWC input: ``kernel`` (OIHW, f32), optional
     ``bias``; input and kernel are cast to ``dtype`` (x's when ``None``)
@@ -136,6 +151,33 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.dtype or x.dtype
         return x.to(dtype) @ self.kernel.to(dtype) + self.bias.to(dtype)
+
+
+class Dropout(nn.Module):
+    """``flax.linen.Dropout``: inverted dropout.  In train mode each value
+    is kept with probability ``1 - rate`` and the kept ones are divided
+    by ``1 - rate``; in eval mode, or at rate 0, ``x`` passes through.
+    The mask is drawn from the ``torch.Generator`` handed to ``forward``
+    (flax's ``dropout`` rng): train mode at a rate above 0 without one
+    raises, as flax does without the rng.  The masks differ from flax's
+    for the same seed."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        if generator is None:
+            raise ValueError("Dropout in train mode needs a generator")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def init_params(model: nn.Module, *,

@@ -92,6 +92,7 @@ ENTRIES = {
         _P,                  # dx
         _L, _I, _I,          # n, c, chunks
         _I, _I,              # vec, dtype
+        _F,                  # count (the rows dbeta and dgamma sum over)
         _P]),                # stream
     "fused_update_matricize_p": ("fused_update", "hvd_fused_matricize_p", [
         _P, _P, _P,          # x (flat bucket), residual (f32) or NULL, q0

@@ -11,16 +11,24 @@ the statistics run over every other axis, i.e. over the rows of the
 * :func:`fused_bn_backward` -- ``(dx, dgamma, dbeta)`` of the train-mode
   normalize, in two passes: :func:`bn_backward_reduce` (``dbeta =
   sum(dy)``, ``dgamma = sum(dy * xhat)``) and :func:`bn_backward_dx`
-  (``dx = scale * inv * (dy - dbeta / n - xhat * dgamma / n)``), with
-  ``inv = rsqrt(var + eps)`` computed once by the wrapper for both.
-  ``x``/``dy`` keep their dtype (bf16 on the ResNet path), ``dx`` comes
-  back in x's dtype and ``dgamma``/``dbeta`` in f32.
-* :func:`bn_train` -- the normalize with batch statistics under autograd:
-  its forward is plain PyTorch in f32, cast back to x's dtype (the JAX
-  package leaves it to XLA), its backward :func:`fused_bn_backward`.
+  (``dx = scale * inv * (dy - dbeta / count - xhat * dgamma / count)``,
+  ``count`` the rows ``dbeta`` and ``dgamma`` sum over), with ``inv =
+  rsqrt(var + eps)`` computed once by the wrapper for both.  ``x``/``dy``
+  keep their dtype (bf16 on the ResNet path), ``dx`` comes back in x's
+  dtype and ``dgamma``/``dbeta`` in f32.  Synchronized BatchNorm hands it
+  an ``allreduce`` that sums pass 1's rows over the ranks, and the global
+  ``count``: the one seam between the passes.
+* :func:`bn_train` / :func:`bn_train_with_stats` -- the normalize with
+  batch statistics under autograd: its forward is plain PyTorch in f32,
+  cast back to x's dtype (the JAX package leaves it to XLA), its backward
+  :func:`fused_bn_backward`.  Sync BN hands it an ``average`` for the
+  local moments too.
 * :class:`BatchNorm` -- the flax-compatible module: parameters ``scale``
   and ``bias`` (f32), buffers ``mean`` and ``var`` (flax's
-  ``batch_stats``), flax's running-stat update.
+  ``batch_stats``), flax's running-stat update.  ``sync=True`` is flax's
+  ``BatchNorm(axis_name=...)`` over every rank: its train-mode normalize
+  is :func:`horovod_tpu_torch.sync_batch_norm.sync_bn_train`, which holds
+  the rank exchange (this module imports no collective).
 
 Dispatch, as in :mod:`~horovod_tpu_torch.ops.attention`: a CPU tensor
 takes the plain PyTorch version; a CUDA tensor launches the kernels of
@@ -34,7 +42,7 @@ every BN site sees the contiguous NHWC output of a convolution.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -50,14 +58,27 @@ _TILE_CHANNELS = 256       # channels per CTA tile (bn_bwd.cu)
 _MIN_ROWS_PER_CHUNK = 64
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in at least f32 (f64 stays f64), as flax promotes its BN
+    arithmetic."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _moments(xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(E[x], E[x^2])`` over every axis but the last."""
+    dims = tuple(range(xf.dim() - 1))
+    return xf.mean(dims), xf.square().mean(dims)
+
+
+def _fast_var(mean: torch.Tensor, meansq: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(meansq - mean.square(), 0.0)
+
+
 def batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """f32 ``(mean, var)`` over every axis but the last; the variance is
     the fast ``E[x^2] - E[x]^2``, clamped at 0 (flax's default)."""
-    xf = x.float()
-    dims = tuple(range(x.dim() - 1))
-    mean = xf.mean(dims)
-    var = torch.clamp_min(xf.square().mean(dims) - mean.square(), 0.0)
-    return mean, var
+    mean, meansq = _moments(_wide(x))
+    return mean, _fast_var(mean, meansq)
 
 
 # ---------------------------------------------------------------------------
@@ -77,7 +98,7 @@ def _rows(name: str, x: torch.Tensor, dy: torch.Tensor) -> Tuple[int, int]:
 
 
 def _xhat(x2, mean, inv):
-    return (x2.float() - mean.float()) * inv
+    return (_wide(x2) - _wide(mean)) * inv
 
 
 def reduce_chunks(n: int, c: int) -> int:
@@ -127,7 +148,7 @@ def bn_backward_reduce(x: torch.Tensor, dy: torch.Tensor,
     ``mean`` and ``inv`` are f32 ``(C,)``."""
     n, c = _rows("bn_backward_reduce", x, dy)
     if force_reference or x.device.type == "cpu":
-        dyf = dy.reshape(n, c).float()
+        dyf = _wide(dy.reshape(n, c))
         xhat = _xhat(x.reshape(n, c), mean, inv)
         return dyf.sum(0), (dyf * xhat).sum(0)
     _check_device("bn_backward_reduce", x)
@@ -148,15 +169,23 @@ def bn_backward_reduce(x: torch.Tensor, dy: torch.Tensor,
 def bn_backward_dx(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
                    inv: torch.Tensor, scale: torch.Tensor,
                    dbeta: torch.Tensor, dgamma: torch.Tensor, *,
+                   count: Optional[float] = None,
                    force_reference: bool = False) -> torch.Tensor:
-    """Pass 2: ``dx = scale * inv * (dy - dbeta / n - xhat * dgamma / n)``
-    in x's dtype and shape; every per-channel row is f32 ``(C,)``."""
+    """Pass 2: ``dx = scale * inv * (dy - dbeta / count - xhat * dgamma /
+    count)`` in x's dtype and shape; every per-channel row is f32
+    ``(C,)``.  ``count`` is the number of rows ``dbeta`` and ``dgamma``
+    sum over: the ``n`` rows of x's ``[n, C]`` view (the default), or,
+    when they are sums over every rank (sync BN), the global row count.
+    It is handed to the kernel as an f32 scalar."""
     n, c = _rows("bn_backward_dx", x, dy)
+    count = float(n if count is None else count)
+    if not count > 0:
+        raise ValueError(f"bn_backward_dx: count must be > 0, got {count}")
     if force_reference or x.device.type == "cpu":
-        dyf = dy.reshape(n, c).float()
+        dyf = _wide(dy.reshape(n, c))
         xhat = _xhat(x.reshape(n, c), mean, inv)
-        dx = (scale.float() * inv
-              * (dyf - dbeta / n - xhat * dgamma / n)).to(x.dtype)
+        dx = (_wide(scale) * inv
+              * (dyf - dbeta / count - xhat * dgamma / count)).to(x.dtype)
         return dx.reshape(x.shape)
     _check_device("bn_backward_dx", x)
     n, c, chunks, vec = _cuda_args("bn_backward_dx", x, dy,
@@ -165,26 +194,43 @@ def bn_backward_dx(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
     err = entry("bn_bwd_dx")(
         x.data_ptr(), dy.data_ptr(), mean.data_ptr(), inv.data_ptr(),
         scale.data_ptr(), dbeta.data_ptr(), dgamma.data_ptr(), dx.data_ptr(),
-        n, c, chunks, vec, _DTYPES[x.dtype], stream(x))
+        n, c, chunks, vec, _DTYPES[x.dtype], count, stream(x))
     check_launch("bn_bwd_dx", err)
     registry.note_launch("bn_bwd_dx")
     return dx
 
 
+Rows = Callable[[torch.Tensor], torch.Tensor]
+
+
 def fused_bn_backward(x: torch.Tensor, scale: torch.Tensor,
                       mean: torch.Tensor, var: torch.Tensor,
                       dy: torch.Tensor, *, eps: float,
+                      count: Optional[float] = None,
+                      allreduce: Optional[Rows] = None,
                       force_reference: bool = False):
     """``(dx, dgamma, dbeta)`` for train-mode BN over the last axis, from
     the forward's f32 batch ``mean`` and ``var``: the two passes, sharing
     ``inv = rsqrt(var + eps)``.  ``dx`` has x's dtype; ``dgamma`` and
-    ``dbeta`` are f32."""
-    inv = torch.rsqrt(var.float() + eps)
-    mean = mean.float()
+    ``dbeta`` are f32.
+
+    Sync BN (``mean`` and ``var`` are then the global statistics) passes
+    ``allreduce``, a function that returns the f32 ``[2C]`` rows ``(dbeta,
+    dgamma)`` summed over every rank, and ``count``, the global row count
+    those sums cover: pass 1's sums go through ``allreduce`` between the
+    passes and pass 2 divides them by ``count``.  The returned ``dgamma``
+    and ``dbeta`` stay this rank's own sums."""
+    inv = torch.rsqrt(_wide(var) + eps)
+    mean = _wide(mean)
     kw = dict(force_reference=force_reference)
     dbeta, dgamma = bn_backward_reduce(x, dy, mean, inv, **kw)
-    dx = bn_backward_dx(x, dy, mean, inv, scale.float(), dbeta, dgamma,
-                        **kw)
+    sum_beta, sum_gamma = dbeta, dgamma
+    if allreduce is not None:
+        c = dbeta.numel()
+        sums = allreduce(torch.cat([dbeta, dgamma]))
+        sum_beta, sum_gamma = sums[:c], sums[c:]
+    dx = bn_backward_dx(x, dy, mean, inv, _wide(scale), sum_beta,
+                        sum_gamma, count=count, **kw)
     return dx, dgamma, dbeta
 
 
@@ -193,26 +239,38 @@ def fused_bn_backward(x: torch.Tensor, scale: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _normalize(x, mean, inv, scale, bias, dtype):
+def normalize(x, mean, inv, scale, bias, dtype):
     """``(x - mean) * inv * scale + bias`` in f32 (in place on the one
     full-size temporary), cast to ``dtype``."""
-    y = x.float() - mean
-    return y.mul_(inv).mul_(scale.float()).add_(bias.float()).to(dtype)
+    y = _wide(x) - mean
+    return y.mul_(inv).mul_(_wide(scale)).add_(_wide(bias)).to(dtype)
 
 
 class _BNTrain(torch.autograd.Function):
     """Forward: batch statistics and the normalize, plain PyTorch in f32;
     also returns the f32 ``(mean, var)`` (non-differentiable) for the
-    running-stat update.  Backward: :func:`fused_bn_backward`."""
+    running-stat update.  Backward: :func:`fused_bn_backward`.  For sync
+    BN, ``average`` averages the local ``(mean, mean of squares)`` over
+    the ranks, ``allreduce`` sums pass 1's rows over them and the batch
+    spans ``ranks`` equal shares (as under flax's ``pmean``)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, force_reference):
-        xf = x.float()               # one f32 copy for both uses
-        mean, var = batch_stats(xf)
-        y = _normalize(xf, mean, torch.rsqrt(var + eps), scale, bias,
-                       x.dtype)
+    def forward(ctx, x, scale, bias, eps, force_reference, average,
+                allreduce, ranks):
+        xf = _wide(x)                # one f32 copy for both uses
+        mean, meansq = _moments(xf)
+        count = None
+        if average is not None:
+            c = mean.numel()
+            moments = average(torch.cat([mean, meansq]))
+            mean, meansq = moments[:c], moments[c:]
+            count = (x.numel() // c) * ranks
+        var = _fast_var(mean, meansq)
+        y = normalize(xf, mean, torch.rsqrt(var + eps), scale, bias,
+                      x.dtype)
         ctx.save_for_backward(x, scale, mean, var)
         ctx.eps, ctx.force_reference = eps, force_reference
+        ctx.count, ctx.allreduce = count, allreduce
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -222,10 +280,27 @@ class _BNTrain(torch.autograd.Function):
         # No .contiguous(): on the GPU the kernels refuse a strided dy
         # rather than copy it (every ResNet site's dy arrives contiguous).
         dx, dgamma, dbeta = fused_bn_backward(
-            x, scale, mean, var, dy, eps=ctx.eps,
-            force_reference=ctx.force_reference)
+            x, scale, mean, var, dy, eps=ctx.eps, count=ctx.count,
+            allreduce=ctx.allreduce, force_reference=ctx.force_reference)
         return (dx, dgamma.to(scale.dtype), dbeta.to(scale.dtype), None,
-                None)
+                None, None, None, None)
+
+
+def bn_train_with_stats(x: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor, eps: float, *,
+                        force_reference: bool = False,
+                        average: Optional[Rows] = None,
+                        allreduce: Optional[Rows] = None, ranks: int = 1
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`bn_train`, and the f32 batch ``(mean, var)`` it normalized
+    with (for the running statistics).  Sync BN passes ``average`` and
+    ``allreduce`` (each maps f32 ``[2C]`` rows to their average, or sum,
+    over the ``ranks`` ranks that each hold an equal batch)."""
+    if (average is None) != (allreduce is None):
+        raise ValueError("bn_train_with_stats: average and allreduce go "
+                         "together")
+    return _BNTrain.apply(x, scale, bias, float(eps), bool(force_reference),
+                          average, allreduce, int(ranks))
 
 
 def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -235,8 +310,8 @@ def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     Differentiable in ``x``, ``scale`` and ``bias``: the backward runs
     the two kernels on CUDA tensors (the plain version on CPU tensors or
     with ``force_reference``)."""
-    return _BNTrain.apply(x, scale, bias, float(eps),
-                          bool(force_reference))[0]
+    return bn_train_with_stats(x, scale, bias, eps,
+                               force_reference=force_reference)[0]
 
 
 class BatchNorm(nn.Module):
@@ -251,15 +326,18 @@ class BatchNorm(nn.Module):
     variance (``torch.nn.BatchNorm2d`` weights ``momentum`` the other way
     round and keeps the unbiased variance).  In eval mode it normalizes
     with the running statistics.  The output is in ``dtype`` (x's dtype
-    when ``None``).
+    when ``None``).  ``sync=True`` takes the batch statistics over every
+    rank's batch (:func:`~horovod_tpu_torch.training.sync_batch_norm`);
+    it needs ``hvd.init()``.
     """
 
     def __init__(self, features: int, *, momentum: float = 0.99,
                  epsilon: float = 1e-5, dtype: Optional[torch.dtype] = None,
-                 scale_init: float = 1.0, device=None):
+                 scale_init: float = 1.0, sync: bool = False, device=None):
         super().__init__()
         dev = resolve_device(device)
         self.momentum, self.epsilon, self.dtype = momentum, epsilon, dtype
+        self.sync = bool(sync)
         self.scale_init = float(scale_init)
         self.scale = nn.Parameter(torch.full((features,), self.scale_init,
                                              device=dev))
@@ -272,11 +350,19 @@ class BatchNorm(nn.Module):
         dtype = self.dtype or x.dtype
         if not self.training:
             inv = torch.rsqrt(self.var + self.epsilon)
-            return _normalize(x, self.mean, inv, self.scale, self.bias,
-                              dtype)
-        y, mean, var = _BNTrain.apply(x, self.scale, self.bias,
-                                      float(self.epsilon),
-                                      bool(force_reference))
+            return normalize(x, self.mean, inv, self.scale, self.bias,
+                             dtype)
+        if self.sync:
+            # The rank exchange lives with the collectives, above this
+            # module.
+            from ..sync_batch_norm import sync_bn_train
+            y, mean, var = sync_bn_train(x, self.scale, self.bias,
+                                         self.epsilon,
+                                         force_reference=force_reference)
+        else:
+            y, mean, var = bn_train_with_stats(
+                x, self.scale, self.bias, self.epsilon,
+                force_reference=force_reference)
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_(m * self.mean + (1.0 - m) * mean)
@@ -285,4 +371,5 @@ class BatchNorm(nn.Module):
 
 
 __all__ = ["batch_stats", "bn_backward_reduce", "bn_backward_dx",
-           "fused_bn_backward", "bn_train", "BatchNorm", "reduce_chunks"]
+           "fused_bn_backward", "bn_train", "bn_train_with_stats",
+           "normalize", "BatchNorm", "reduce_chunks"]

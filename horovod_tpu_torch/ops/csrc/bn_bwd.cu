@@ -5,7 +5,10 @@
 // kernels are _reduce_kernel (pass 1: per channel dbeta = sum(dy) and
 // dgamma = sum(dy * xhat), xhat = (x - mean) * inv, summed in VMEM scratch
 // across a sequential grid) and _dx_kernel (pass 2: dx = scale * inv *
-// (dy - dbeta / n - xhat * dgamma / n)).  Same function: x and dy are f32
+// (dy - dbeta / n - xhat * dgamma / n)).  Pass 2 here divides by `count`,
+// which is n for one process; with synchronized BatchNorm dbeta and dgamma
+// are sums over every rank and count the global row count (the allreduce
+// runs between the two passes).  Same function: x and dy are f32
 // or bf16 (bf16 on the ResNet path) and are read in their own type, every
 // sum is f32, mean / inv / scale come in as f32 rows, dbeta and dgamma go
 // out f32 and dx in x's type.
@@ -31,7 +34,8 @@
 //     at an odd offset).  Neighbouring threads hold neighbouring channel
 //     groups, so a warp reads contiguous bytes;
 //   * pass 2 computes each channel's coefficients once per thread
-//     (scale * inv, dbeta / n, dgamma / n, mean, inv) and then runs one
+//     (scale * inv, dbeta / count, dgamma / count, mean, inv) and then
+//     runs one
 //     vectorised elementwise pass, keeping the plain formula's order of
 //     operations;
 //   * row offsets are 64-bit: n * c reaches 2.1e8 at the ResNet-50 stem.
@@ -177,7 +181,8 @@ __global__ void __launch_bounds__(NT)
   dgamma[ch] = s;
 }
 
-// Pass 2: dx = (scale * inv) * ((dy - dbeta / n) - xhat * (dgamma / n)).
+// Pass 2: dx = (scale * inv) * ((dy - dbeta / count) -
+//                                xhat * (dgamma / count)).
 template <typename T, int VEC>
 __global__ void __launch_bounds__(NT)
     bn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
@@ -186,21 +191,20 @@ __global__ void __launch_bounds__(NT)
                      const float* __restrict__ scale,
                      const float* __restrict__ dbeta,
                      const float* __restrict__ dgamma, T* __restrict__ dx,
-                     int64_t n, int c, int64_t rows_per_chunk) {
+                     int64_t n, int c, int64_t rows_per_chunk, float count) {
   const Geometry<VEC> geo(c);
   const int g = threadIdx.x % geo.groups;
   const int slot = threadIdx.x / geo.groups;
   const int c0 = (blockIdx.x * geo.groups + g) * VEC;
   if (slot >= geo.slots || c0 >= c) return;
-  const float nf = (float)n;
   float m[VEC], iv[VEC], a[VEC], b[VEC], gn[VEC];
 #pragma unroll
   for (int j = 0; j < VEC; ++j) {
     m[j] = mean[c0 + j];
     iv[j] = inv[c0 + j];
     a[j] = scale[c0 + j] * iv[j];
-    b[j] = dbeta[c0 + j] / nf;
-    gn[j] = dgamma[c0 + j] / nf;
+    b[j] = dbeta[c0 + j] / count;
+    gn[j] = dgamma[c0 + j] / count;
   }
   const int64_t start = blockIdx.y * rows_per_chunk;
   const int64_t end =
@@ -252,7 +256,7 @@ template <typename T, int VEC>
 cudaError_t launch_dx(const void* x, const void* dy, const void* mean,
                       const void* inv, const void* scale, const void* dbeta,
                       const void* dgamma, void* dx, int64_t n, int c,
-                      int chunks, cudaStream_t s) {
+                      int chunks, float count, cudaStream_t s) {
   const Geometry<VEC> geo(c);
   const int64_t rows_per_chunk = (n + chunks - 1) / chunks;
   bn_bwd_dx_kernel<T, VEC><<<dim3(geo.tiles, chunks), NT, 0, s>>>(
@@ -260,7 +264,7 @@ cudaError_t launch_dx(const void* x, const void* dy, const void* mean,
       static_cast<const float*>(mean), static_cast<const float*>(inv),
       static_cast<const float*>(scale), static_cast<const float*>(dbeta),
       static_cast<const float*>(dgamma), static_cast<T*>(dx), n, c,
-      rows_per_chunk);
+      rows_per_chunk, count);
   return cudaGetLastError();
 }
 
@@ -294,23 +298,28 @@ extern "C" int hvd_bn_bwd_reduce(const void* x, const void* dy,
 }
 
 // Pass 2: dx ([n, c], x's dtype) from x, dy, the [c] f32 rows mean, inv,
-// scale and pass 1's dbeta, dgamma.  One launch on `stream`.
+// scale and pass 1's dbeta, dgamma (local, or summed over the ranks), each
+// sum divided by `count` (n, or the global row count; > 0).  One launch on
+// `stream`.
 extern "C" int hvd_bn_bwd_dx(const void* x, const void* dy, const void* mean,
                              const void* inv, const void* scale,
                              const void* dbeta, const void* dgamma, void* dx,
                              int64_t n, int c, int chunks, int vec, int dtype,
-                             void* stream) {
-  if (bad_shape(n, c, chunks, vec, x, dy, dx)) return cudaErrorInvalidValue;
+                             float count, void* stream) {
+  if (bad_shape(n, c, chunks, vec, x, dy, dx) || !(count > 0.f))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == hvd::kBF16)
     return vec ? launch_dx<__nv_bfloat16, 8>(x, dy, mean, inv, scale, dbeta,
-                                             dgamma, dx, n, c, chunks, s)
+                                             dgamma, dx, n, c, chunks, count,
+                                             s)
                : launch_dx<__nv_bfloat16, 1>(x, dy, mean, inv, scale, dbeta,
-                                             dgamma, dx, n, c, chunks, s);
+                                             dgamma, dx, n, c, chunks, count,
+                                             s);
   if (dtype == hvd::kF32)
     return vec ? launch_dx<float, 8>(x, dy, mean, inv, scale, dbeta, dgamma,
-                                     dx, n, c, chunks, s)
+                                     dx, n, c, chunks, count, s)
                : launch_dx<float, 1>(x, dy, mean, inv, scale, dbeta, dgamma,
-                                     dx, n, c, chunks, s);
+                                     dx, n, c, chunks, count, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -53,6 +53,7 @@ Adasum is applied to the gradients, not (as upstream Horovod's
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
@@ -327,8 +328,19 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._counter = [0] * len(self._trainable)
         self._ready: List[set] = [set() for _ in self.bucket_plan.buffers]
         self._handles: Dict[int, tuple] = {}
+        # The hook holds the optimizer weakly: torch's garbage collector
+        # does not follow a parameter's post-accumulate-grad hooks, so a
+        # bound method there would keep the optimizer, its state and its
+        # parameters alive after their last user dropped them.
+        ref = weakref.ref(self)
+
+        def hook(p: torch.Tensor) -> None:
+            opt = ref()
+            if opt is not None:
+                opt._hook(p)
+
         for p in self._trainable:
-            p.register_post_accumulate_grad_hook(self._hook)
+            p.register_post_accumulate_grad_hook(hook)
 
     # -- hooks ------------------------------------------------------------
     def _hook(self, p: torch.Tensor) -> None:

@@ -283,6 +283,40 @@ def exchange_totals() -> Dict[str, float]:
     return {k: c.value for k, c in exchange_counters().items()}
 
 
+_SYNC_BN = {
+    "allreduces": ("horovod_exchange_sync_bn_allreduces_total",
+                   "allreduces of synchronized BatchNorm's per-channel "
+                   "statistics and gradient sums"),
+    "wire_bytes": ("horovod_exchange_sync_bn_wire_bytes_total",
+                   "bytes one rank put on the wire for synchronized "
+                   "BatchNorm"),
+    "layout_copies": ("horovod_sync_bn_layout_copies_total",
+                      "channels-last copies SyncBatchNorm made of an input "
+                      "or gradient that was not channels-last"),
+}
+
+
+def sync_bn_counters() -> Dict[str, object]:
+    """The synchronized-BatchNorm exchange counters: allreduces issued
+    (two a site per training step -- the forward's statistics and the
+    backward's gradient sums -- at every world size), their bytes, and
+    the explicit channels-last copies ``SyncBatchNorm`` made."""
+    reg = registry()
+    return {k: reg.counter(name, help) for k, (name, help)
+            in _SYNC_BN.items()}
+
+
+def sync_bn_totals() -> Dict[str, float]:
+    """The sync-BN counters' values (0 when ``HOROVOD_METRICS=0``)."""
+    return {k: c.value for k, c in sync_bn_counters().items()}
+
+
+def note_sync_bn_allreduce(nbytes: int) -> None:
+    m = sync_bn_counters()
+    m["allreduces"].inc()
+    m["wire_bytes"].inc(nbytes)
+
+
 def note_compression_ratio(uncompressed: int, wire: int) -> None:
     """Set the compression gauges of one optimizer step's exchange (the
     JAX package's ``_note_compression_ratio``): wire and uncompressed

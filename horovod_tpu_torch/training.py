@@ -22,6 +22,7 @@ name) is the step of a model with batch statistics -- ResNet, LeNet --
 on ``(x, y)`` batches: :func:`make_train_step` with :func:`softmax_xent`
 in train mode, then the BatchNorm running statistics averaged over the
 ranks.  :func:`make_eval_step` averages a metric over the ranks.
+:func:`sync_batch_norm` is the JAX package's cross-replica BatchNorm.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch.nn.functional as F
 
 from .collectives.ops import allreduce, grouped_allreduce
 from .collectives.reduce_op import Average
+from .ops.bn import BatchNorm
 
 
 def next_token_loss(logits: torch.Tensor,
@@ -98,8 +100,9 @@ def make_train_step(model: torch.nn.Module,
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy of ``logits`` ``[N, classes]`` against integer
     ``labels`` ``[N]`` (``optax.softmax_cross_entropy_with_integer_labels
-    (...).mean()``), computed in f32."""
-    return F.cross_entropy(logits.float(), labels.long())
+    (...).mean()``), computed in f32 (f64 logits stay f64)."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    return F.cross_entropy(logits, labels.long())
 
 
 def make_flax_train_step(model: torch.nn.Module,
@@ -133,6 +136,26 @@ def make_flax_train_step(model: torch.nn.Module,
         return loss
 
     return step
+
+
+def sync_batch_norm(axes=None, **kwargs) -> BatchNorm:
+    """A :class:`~horovod_tpu_torch.ops.bn.BatchNorm` whose batch
+    statistics span every rank: the counterpart of the JAX package's
+    ``sync_batch_norm`` (flax's ``BatchNorm(axis_name=...)``, a ``pmean``
+    of the statistics over the mesh).  ``kwargs`` are the module's
+    (``features``, ``momentum``, ``epsilon``, ``dtype``, ...), and its
+    parameter and ``batch_stats`` names are the plain module's, so
+    checkpoints convert alike.  The forward averages the local f32
+    ``(mean, mean of squares)`` over the ranks; the backward sums the two
+    gradient statistics between the BN kernels' passes; ``scale`` and
+    ``bias`` get local sums, which the DistributedOptimizer averages.
+    ``axes`` (a sub-mesh of named axes) is not ported: the statistics
+    always span every rank."""
+    if axes is not None:
+        raise NotImplementedError(
+            "sync_batch_norm(axes=...) over a sub-mesh is not ported: it "
+            "needs the named mesh axes of ROADMAP item 1.12")
+    return BatchNorm(sync=True, **kwargs)
 
 
 def make_eval_step(metric_fn: Callable[[torch.nn.Module, Any], Any]

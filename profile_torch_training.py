@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100::
     python3 profile_torch_training.py --model resnet50  # ResNet-50
     python3 profile_torch_training.py --model resnet50 --compression powersgd:4
     python3 profile_torch_training.py --model bert-large  # BERT-Large Adasum
+    python3 profile_torch_training.py --model inception_v3  # or vgg16
 
 ``llama`` (the default) builds the trainer of ``chip_smoke.py``'s train
 phase -- Llama-3 8B at full width and depth, random bf16 base from seed
@@ -19,11 +20,17 @@ one, 256 images of 224 x 224 from seed 0 -- with
 ``bert_train`` phase -- BERT-Large at full width and depth, bf16
 compute, random weights from seed 0, ``DistributedAdasumOptimizer(AdamW,
 compression=fp16)`` in a world of one, 64 x 128 tokens with NSP labels
-from seed 0, ``make_train_step(bert_pretrain_loss)``.  ``--compression``
+from seed 0, ``make_train_step(bert_pretrain_loss)``.  ``inception_v3``
+and ``vgg16`` build the synthetic benchmark's own setup
+(``horovod_tpu_torch.synthetic_benchmark.setup``), as ``chip_smoke.py``'s
+``inception_train`` and ``vgg_train`` phases do: 32 images of 299 x 299
+(224 x 224) from a seed, bf16 compute, 1000 classes, random weights from
+seed 0, ``DistributedOptimizer(SGD(0.01, momentum 0.9))``, dropout 0,
+``make_flax_train_step``.  ``--compression``
 gives the optimizer another
 codec spec (``none``, ``fp16``, ``bf16`` or ``powersgd:<r>``; by default
-each model's own: bf16 for the LoRA adapters, none for ResNet-50, fp16
-for BERT-Large);
+each model's own: bf16 for the LoRA adapters, fp16 for BERT-Large, none
+for ResNet-50 and the other CNNs);
 ``powersgd:4`` is the PowerSGD cell of ``chip_smoke.py``'s
 ``resnet_powersgd`` phase, whose three exchange stages are grouped as
 ``fused_update``.  Either takes one warm-up step, then profiles
@@ -71,6 +78,7 @@ GROUPS = {
     },
 }
 GROUPS["bert-large"] = GROUPS["llama"]
+GROUPS["inception_v3"] = GROUPS["vgg16"] = GROUPS["resnet50"]
 
 
 def llama_step(dev, hvd, compression):
@@ -142,6 +150,16 @@ def bert_step(dev, hvd, compression):
     return (lambda: step(batch)), opt, info
 
 
+def cnn_step(name):
+    def build(dev, hvd, compression):
+        from horovod_tpu_torch import synthetic_benchmark as sb
+        bench = sb.setup(name, batch_size=32,
+                         compression=compression or "none")
+        info = {"batch": list(bench.batch[0].shape)}
+        return (lambda: bench.step(bench.batch)), bench.optimizer, info
+    return build
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--model", choices=sorted(GROUPS), default="llama")
@@ -162,7 +180,8 @@ def main() -> int:
     dev = torch.device("cuda")
     hvd.init()
     build = {"llama": llama_step, "resnet50": resnet_step,
-             "bert-large": bert_step}[args.model]
+             "bert-large": bert_step, "inception_v3": cnn_step(args.model),
+             "vgg16": cnn_step(args.model)}[args.model]
     step, opt, info = build(dev, hvd, args.compression)
     warm = step().item()
     torch.cuda.reset_peak_memory_stats()

@@ -489,11 +489,17 @@ def _bn_inputs(rng, n, c, dtype, cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,c", [(37, 3), (1000, 8), (3211264, 64),
-                                 (802816, 256), (12544, 2048)])
+                                 (802816, 256), (12544, 2048),
+                                 (2048, 80), (2048, 192), (2048, 2048),
+                                 (710432, 32), (2048, 448), (9248, 384)])
 def test_cuda_bn_backward_kernels_match_plain(cuda, dtype, n, c):
     """Both BN backward kernels against the plain closed form: a ragged N
-    with C below one vector, C of one vector, and three ResNet-50 sites
-    at batch 256 (the stem, stage 1's widest, stage 4)."""
+    with C below one vector, C of one vector, three ResNet-50 sites at
+    batch 256 (the stem, stage 1's widest, stage 4), and Inception-v3's
+    widths at batch 32: C = 80, 192 and 2048 at the 2,048 rows of its
+    8 x 8 grid, and its first stem site, 710,432 rows of 32; and two of its
+    widths that span two 256-channel tiles and end in a partial one, 448
+    on the 8 x 8 grid and 384 on the 17 x 17 grid (9,248 rows)."""
     dt = getattr(torch, dtype)
     rng = np.random.RandomState(16)
     x, dy, scale = _bn_inputs(rng, n, c, dt, cuda)
@@ -591,6 +597,105 @@ def test_cuda_resnet_bn_sites_launch_the_kernels(cuda, monkeypatch):
     for k, w in grads[1].items():
         assert (grads[0][k] - w).abs().max().item() <= \
             BF16_REL * max(w.abs().max().item(), 1e-30), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bn_backward_dx_takes_the_global_count(cuda, dtype):
+    """Pass 2 with sums over four ranks and their global count (sync BN)
+    against the plain version; the count changes dx."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(60)
+    x, dy, scale = _bn_inputs(rng, 2048, 192, dt, cuda)
+    mean, var = tbn.batch_stats(x)
+    inv = torch.rsqrt(var + 1e-3)
+    dbeta, dgamma = tbn.bn_backward_reduce(x, dy, mean, inv)
+    sums = [4 * s + _randn(rng, 192).to(cuda) for s in (dbeta, dgamma)]
+    registry.reset_launch_counts()
+    got = tbn.bn_backward_dx(x, dy, mean, inv, scale, *sums, count=8192)
+    assert registry.launches("bn_bwd_dx") == 1
+    want = tbn.bn_backward_dx(x, dy, mean, inv, scale, *sums, count=8192,
+                              force_reference=True)
+    local = tbn.bn_backward_dx(x, dy, mean, inv, scale, *sums)
+    tol = _tol(want, dt)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert (local.float() - want.float()).abs().max().item() > tol
+    with pytest.raises(ValueError, match="count"):
+        tbn.bn_backward_dx(x, dy, mean, inv, scale, *sums, count=0)
+
+
+@pytest.fixture
+def world1_cuda(cuda):
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    yield hvd
+    hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_sync_batch_norm_at_world_one_is_the_plain_layer(world1_cuda):
+    """Flax-style sync BN on the card at world 1 (NCCL): output, dx,
+    dgamma, dbeta and running statistics bitwise the plain layer's, one
+    launch of each BN kernel; Inception's stem width, bf16."""
+    from horovod_tpu_torch.training import sync_batch_norm
+    rng = np.random.RandomState(61)
+    shape = (8, 37, 37, 32)
+    x = (2.0 * _randn(rng, *shape) + 0.5).to("cuda", torch.bfloat16)
+    dy = _randn(rng, *shape).to("cuda", torch.bfloat16)
+    outs = []
+    for sync in (False, True):
+        m = (sync_batch_norm if sync else tbn.BatchNorm)(
+            features=32, momentum=0.9, epsilon=1e-3, dtype=torch.bfloat16)
+        registry.reset_launch_counts()
+        xt = x.detach().requires_grad_(True)
+        y = m(xt)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        assert registry.launches("bn_bwd_reduce") == 1
+        assert registry.launches("bn_bwd_dx") == 1
+        outs.append((y, xt.grad, m.scale.grad, m.bias.grad, m.mean, m.var))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_hvd_sync_batch_norm_channels_last_matches_plain(world1_cuda):
+    """``hvd.SyncBatchNorm`` on a channels_last bf16 input: the kernels'
+    backward on the ``[rows, C]`` view (no copy) against autograd of the
+    f32 formula; dx within 2e-2 of max |dx|, weight / bias gradients
+    within 1e-4."""
+    from horovod_tpu_torch.timeline.metrics import sync_bn_totals
+    rng = np.random.RandomState(62)
+    cl = dict(memory_format=torch.channels_last)
+    x = (2.0 * _randn(rng, 8, 64, 37, 37) + 0.5).to(
+        "cuda", torch.bfloat16).contiguous(**cl)
+    dy = _randn(rng, 8, 64, 37, 37).to("cuda", torch.bfloat16).contiguous(
+        **cl)
+    m = world1_cuda.SyncBatchNorm(64)
+    with torch.no_grad():
+        m.weight.copy_(1.0 + 0.1 * _randn(rng, 64))
+        m.bias.copy_(0.1 * _randn(rng, 64))
+    copies = sync_bn_totals()["layout_copies"]
+    registry.reset_launch_counts()
+    xt = x.detach().requires_grad_(True)
+    y = m(xt)
+    y.backward(dy)
+    assert registry.launches("bn_bwd_reduce") == 1
+    assert registry.launches("bn_bwd_dx") == 1
+    assert sync_bn_totals()["layout_copies"] == copies
+    xf = x.detach().float().requires_grad_(True)
+    w = m.weight.detach().clone().requires_grad_(True)
+    b = m.bias.detach().clone().requires_grad_(True)
+    mean = xf.mean((0, 2, 3), keepdim=True)
+    var = (xf.square().mean((0, 2, 3), keepdim=True) - mean.square())
+    want = ((xf - mean) * torch.rsqrt(var + m.eps) * w.view(1, -1, 1, 1)
+            + b.view(1, -1, 1, 1))
+    want.backward(dy.float())
+    for got, ref, rel in ((y, want, BF16_REL), (xt.grad, xf.grad, BF16_REL),
+                          (m.weight.grad, w.grad, BN_SUM_REL),
+                          (m.bias.grad, b.grad, BN_SUM_REL)):
+        assert (got.float() - ref.detach()).abs().max().item() <= \
+            rel * ref.detach().abs().max().item()
 
 
 # ---------------------------------------------------------------------------

@@ -343,6 +343,28 @@ def test_optimizer_validation(world1):
         thvd.DistributedOptimizer(_adamw(named), backward_passes_per_step=0)
 
 
+@pytest.mark.parametrize("compression", ["none", "powersgd:2"])
+def test_dropped_optimizer_frees_its_model(world1, compression):
+    """The gradient hooks hold the optimizer weakly: once the caller
+    drops the model and the wrapped optimizer (after a step, with state
+    and buffers), nothing of them stays alive.  torch's garbage collector
+    does not follow post-accumulate-grad hooks, so a strong reference
+    there kept every wrapped model for the life of the process."""
+    import gc
+    import weakref
+    _, params = _flax_lora_params(seed=7)
+    model, named = _port_model(params)
+    opt = thvd.DistributedOptimizer(
+        torch.optim.SGD([p for _, p in named], lr=0.1, momentum=0.9),
+        named_parameters=named, compression=compression)
+    make_train_step(model, causal_lm_loss, opt)(
+        torch.from_numpy(_tokens(2, 8)).long())
+    refs = [weakref.ref(x) for x in (model, opt, named[0][1])]
+    del model, named, opt
+    gc.collect()
+    assert all(r() is None for r in refs)
+
+
 def _train_worker(rank: int, store_path: str, params_path: str,
                   out: str) -> None:
     """One rank of the two-rank training world: two steps on its half."""
