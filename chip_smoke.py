@@ -119,6 +119,26 @@ Phases, each printing its own line; any failure exits non-zero:
    planned buckets, and no kernel launch (the classic VGG has no BN).
 16. fused_update_launches -- each PowerSGD stage launch's own device
    time at the headline case, from ``torch.profiler`` (information).
+17. torch_api -- the ``horovod.torch`` surface on NCCL at world 1, on the
+   global set and on a one-member ``add_process_set([0])``: reducescatter
+   (every op, dims 0 and 1), alltoall even and with ``splits``, the
+   grouped allgather and reducescatter, ``sparse_allreduce_async``,
+   ``allgather_object``, process-set and hierarchical Adasum, integer
+   handles through ``synchronize`` and ``poll``, each held exactly to its
+   definition (at world 1 an identity or a slice); then each op's ms on a
+   64 MiB f32 buffer.
+18. torch_mnist -- ``python -m horovod_tpu_torch.examples.pytorch_mnist``'s
+   ``main()`` (the stock Horovod script, fp16 compression) for 30 steps:
+   the losses, the last below 0.7 of the first, the step ms.
+19. torch_resnet50 -- ``horovod_tpu_torch.examples.torch_resnet50`` at
+   full width: 256 images of 224 x 224, NCHW module code run
+   channels_last under bf16 autocast, 53 ``hvd.SyncBatchNorm(
+   process_set=ps)`` sites on the BN kernels, ``DistributedOptimizer(
+   SGD(0.1, momentum 0.9), compression=fp16, process_set=ps)``; one
+   warm-up and five timed steps: losses finite and falling, every
+   parameter changed, 53 launches of each BN kernel and 106 sync-BN
+   allreduces a step, the planned buckets with 51,114,064 wire bytes a
+   step, and the layout copies a step (expected 0).
 
 Then one JSON line of per-kernel numbers, the card line, and last the
 ``{"ok": true, "device": ...}`` line.  Without a GPU, or without the rest
@@ -2132,6 +2152,247 @@ def train_cnn(phase: str, name: str, dev, card: str, sites: int) -> dict:
     return counts
 
 
+TORCH_API_BYTES = 64 * 1024 * 1024       # the timed buffer: 64 MiB of f32
+TORCH_MNIST_STEPS = 30
+TORCH_RN50_VALUES = 25_557_032           # the torch-idiom ResNet-50
+TORCH_RN50_TENSORS = 161
+TORCH_RN50_WIRE_BYTES = 2 * TORCH_RN50_VALUES   # fp16 on the wire
+
+
+def _exact(fails: list, what: str, got, want) -> None:
+    """``got`` equal to ``want`` bitwise (tensors, lists of them, or
+    anything ``==`` compares)."""
+    if torch.is_tensor(want):
+        same = (torch.is_tensor(got) and got.shape == want.shape
+                and got.dtype == want.dtype and torch.equal(got, want))
+    elif isinstance(want, (list, tuple)) and want and \
+            torch.is_tensor(want[0]):
+        same = len(got) == len(want) and all(
+            g.shape == w.shape and torch.equal(g, w)
+            for g, w in zip(got, want))
+    else:
+        same = got == want
+    if not same:
+        fails.append(what)
+
+
+def check_torch_api(dev, card: str) -> None:
+    """The ``horovod.torch`` surface on NCCL at world 1, on the global set
+    and on ``add_process_set([0])``: every op held to its definition
+    exactly (at world 1 each is an identity or a slice), then each timed
+    on a 64 MiB f32 buffer (CUDA events, 10 calls after 2)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.adasum.vhdd import adasum_allreduce_hierarchical
+    from horovod_tpu_torch.timeline.metrics import collective_totals
+
+    hvd.init()
+    one = hvd.add_process_set([0])
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(64, 48, generator=gen, device=dev)
+    xi = torch.randint(-50, 50, (64, 48), generator=gen, device=dev,
+                       dtype=torch.int32)
+    fails, ops_checked = [], 0
+    for name, ps in (("global", None), ("one_member", one)):
+        kw = dict(process_set=ps)
+        for t in (x, xi):
+            for op in (hvd.Sum, hvd.Average, hvd.Min, hvd.Max,
+                       hvd.Product):
+                _exact(fails, f"{name} reducescatter {op} {t.dtype}",
+                       hvd.reducescatter(t, op=op, **kw), t)
+                _exact(fails, f"{name} reducescatter axis 1 {op}",
+                       hvd.reducescatter(t, op=op, scatter_axis=1, **kw), t)
+                _exact(fails, f"{name} allreduce {op} {t.dtype}",
+                       hvd.allreduce(t, op=op, **kw), t)
+                ops_checked += 3
+        _exact(fails, f"{name} alltoall", hvd.alltoall(x, **kw), x)
+        got, splits = hvd.alltoall(x, splits=[64], **kw)
+        _exact(fails, f"{name} alltoall splits", got, x)
+        _exact(fails, f"{name} alltoall received splits", splits.tolist(),
+               [64])
+        _exact(fails, f"{name} grouped_allgather",
+               hvd.grouped_allgather([x, xi[:5]], **kw), [x, xi[:5]])
+        _exact(fails, f"{name} grouped_reducescatter",
+               hvd.grouped_reducescatter([x, x[:8]], op=hvd.Sum, **kw),
+               [x, x[:8]])
+        sp = (x * (x > 1.0)).to_sparse()
+        for op in (hvd.Sum, hvd.Average):
+            got = hvd.synchronize(hvd.sparse_allreduce_async(sp, op=op,
+                                                             **kw))
+            _exact(fails, f"{name} sparse_allreduce {op}", got.to_dense(),
+                   sp.to_dense())
+        _exact(fails, f"{name} allgather_object",
+               hvd.allgather_object({"rank": 0, "set": name}, **kw),
+               [{"rank": 0, "set": name}])
+        _exact(fails, f"{name} Adasum",
+               hvd.allreduce(x, op=hvd.Adasum, **kw), x)
+        h = hvd.allreduce_async(x, op=hvd.Sum, **kw)
+        _exact(fails, f"{name} handle", hvd.synchronize(h), x)
+        try:
+            hvd.poll(h)
+            fails.append(f"{name}: a spent handle polled")
+        except ValueError:
+            pass
+        hg = hvd.grouped_allreduce_async([x, xi], op=hvd.Sum, **kw)
+        deadline = time.monotonic() + 60
+        while not hvd.poll(hg):
+            if time.monotonic() > deadline:
+                fails.append(f"{name}: poll never turned true")
+                break
+        _exact(fails, f"{name} grouped handle", hvd.synchronize(hg),
+               [x, xi])
+        hvd.barrier(**kw)
+        ops_checked += 14
+    _exact(fails, "hierarchical Adasum (local_size 1)",
+           adasum_allreduce_hierarchical(x, local_size=1), x)
+    torch.cuda.synchronize()
+
+    big = torch.randn(TORCH_API_BYTES // 4, generator=gen, device=dev)
+    rows = big.view(-1, 1024)
+    timed = {
+        "allreduce": lambda: hvd.allreduce(big, op=hvd.Sum),
+        "allreduce_one_member_set": lambda: hvd.allreduce(
+            big, op=hvd.Sum, process_set=one),
+        "reducescatter": lambda: hvd.reducescatter(big, op=hvd.Sum),
+        "reducescatter_one_member_set": lambda: hvd.reducescatter(
+            big, op=hvd.Sum, process_set=one),
+        "alltoall": lambda: hvd.alltoall(rows),
+        "alltoall_splits": lambda: hvd.alltoall(rows,
+                                                splits=[rows.shape[0]]),
+        "allgather": lambda: hvd.allgather(rows),
+        "broadcast": lambda: hvd.broadcast(big, 0),
+        "grouped_allgather": lambda: hvd.grouped_allgather([rows]),
+        # Yardsticks, not the port: one torch.distributed call, and the
+        # copy an out-of-place op makes.
+        "torch_distributed_all_reduce": lambda: torch.distributed.all_reduce(
+            big),
+        "clone": lambda: big.clone(),
+    }
+    ms = {k: time_ms(fn, reps=10, warmup=2) for k, fn in timed.items()}
+    totals = {f"{op}/{ps}": v for (op, ps), v in collective_totals().items()}
+    log({"phase": "torch_api", "card": card, "world": hvd.size(),
+         "backend": torch.distributed.get_backend(),
+         "sets": hvd.process_set_names(), "checks": ops_checked,
+         "buffer_bytes": TORCH_API_BYTES, "ms": ms,
+         "collective_counters": totals, "ok": not fails})
+    if fails:
+        raise AssertionError("torch_api: " + "; ".join(fails))
+    hvd.remove_process_set(one)
+    hvd.shutdown()
+    del x, xi, big, rows
+
+
+def train_torch_mnist(card: str) -> None:
+    """``python -m horovod_tpu_torch.examples.pytorch_mnist``'s ``main()``
+    on the card for 30 steps: the last loss below 0.7 of the first."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import pytorch_mnist
+
+    run = pytorch_mnist.main(["--steps", str(TORCH_MNIST_STEPS)])
+    step_ms = [1e3 * t for t in run.step_s]
+    log({"phase": "torch_mnist", "card": card, "world": hvd.size(),
+         "steps": TORCH_MNIST_STEPS, "losses": run.losses,
+         "step_ms_after_first": sum(step_ms[1:]) / (len(step_ms) - 1),
+         "step_ms_first": step_ms[0]})
+    if not all(np.isfinite(run.losses)) or \
+            not run.losses[-1] < 0.7 * run.losses[0]:
+        raise AssertionError(f"torch_mnist: losses {run.losses}")
+    hvd.shutdown()
+
+
+def train_torch_resnet50(dev, card: str) -> dict:
+    """``python -m horovod_tpu_torch.examples.torch_resnet50``'s setup at
+    full width (224 x 224, batch 256, 53 ``SyncBatchNorm(process_set=ps)``
+    sites, bf16 autocast, channels_last, ``DistributedOptimizer(SGD(0.1,
+    momentum 0.9), compression=fp16, process_set=ps)``): one warm-up and
+    five timed steps ending in a device sync.  Losses finite and falling,
+    every parameter changed, 53 launches of each BN kernel and two sync-BN
+    allreduces a site a step, the planned buckets with 2 bytes a value on
+    the wire; the layout copies a step are printed (expected 0).  Returns
+    the launch counts over the timed steps."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.controller.fusion import plan_buckets
+    from horovod_tpu_torch.examples import torch_resnet50 as ex
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.timeline.metrics import (exchange_totals,
+                                                    sync_bn_totals)
+
+    steps = 5
+    args = ex.parse_args([])
+    t0 = time.perf_counter()
+    bench = ex.setup(args)
+    model = bench.model
+    named = list(model.named_parameters())
+    values = sum(p.numel() for _, p in named)
+    sites = sum(isinstance(m, hvd.SyncBatchNorm) for m in model.modules())
+    planned = len(plan_buckets([p for _, p in named], 64 * 1024 * 1024,
+                               reverse=True).buffers)
+    torch.cuda.synchronize()
+    before_p = {n: p.detach().clone() for n, p in named}
+    log({"phase": "torch_resnet50_init", "seconds": time.perf_counter() - t0,
+         "world": hvd.size(), "backend": torch.distributed.get_backend(),
+         "process_set": bench.process_set.name,
+         "param_tensors": len(named), "param_values": values,
+         "sync_bn_sites": sites, "batch": list(bench.batch[0].shape),
+         "channels_last": bench.batch[0].is_contiguous(
+             memory_format=torch.channels_last)})
+
+    losses = [bench.step().item()]                 # warm-up
+    before, before_bn = exchange_totals(), sync_bn_totals()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(bench.step().item())
+        times.append(time.perf_counter() - t)
+    counts = registry.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: (v - before[k]) / steps
+                for k, v in exchange_totals().items()}
+    bn_per_step = {k: (v - before_bn[k]) / steps
+                   for k, v in sync_bn_totals().items()}
+    step_ms = 1e3 * sum(times) / steps
+    changed = sum(not torch.equal(p, before_p[n]) for n, p in named)
+    log({"phase": "torch_resnet50", "card": card, "steps": steps,
+         "losses": losses, "step_ms": step_ms,
+         "step_ms_each": [1e3 * t for t in times],
+         "images_per_s": args.batch_size / (step_ms / 1e3),
+         "peak_mem_bytes": peak, "exchange_per_step": per_step,
+         "plan_buckets": planned, "launches": counts,
+         "bn_launches_per_step": {k: counts[k] / steps for k in
+                                  ("bn_bwd_reduce", "bn_bwd_dx")},
+         "sync_bn_per_step": bn_per_step,
+         "params_changed": changed, "param_tensors": len(named)})
+    fails = []
+    if not all(np.isfinite(losses)):
+        fails.append("a loss is not finite")
+    if not losses[-1] < losses[0]:
+        fails.append(f"loss did not fall: {losses}")
+    if changed != len(named):
+        fails.append(f"{len(named) - changed} parameters unchanged")
+    if (values, len(named), sites) != (TORCH_RN50_VALUES,
+                                       TORCH_RN50_TENSORS,
+                                       RESNET50_BN_SITES):
+        fails.append(f"model has {values} values in {len(named)} tensors "
+                     f"and {sites} sync-BN sites")
+    for f in ("bn_bwd_reduce", "bn_bwd_dx"):
+        if counts[f] != RESNET50_BN_SITES * steps:
+            fails.append(f"{f} launches {counts[f]} != "
+                         f"{RESNET50_BN_SITES * steps}")
+    if bn_per_step["allreduces"] != 2 * RESNET50_BN_SITES:
+        fails.append(f"sync-BN allreduces a step {bn_per_step}")
+    if per_step != {"buckets": planned, "wire_bytes": TORCH_RN50_WIRE_BYTES,
+                    "handles": planned}:
+        fails.append(f"exchange per step {per_step}, planned {planned} "
+                     f"buckets and {TORCH_RN50_WIRE_BYTES} wire bytes")
+    if fails:
+        raise AssertionError("torch_resnet50: " + "; ".join(fails))
+    hvd.shutdown()
+    del model, named, bench, before_p
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2189,14 +2450,23 @@ def main() -> int:
     train_cnn("vgg_train", "vgg16", dev, card, 0)
     free_device()
     fused_update_launches(dev, card)
-    # The attention kernels run on several paths: their launches are the
-    # sums.
+    free_device()
+    check_torch_api(dev, card)
+    free_device()
+    train_torch_mnist(card)
+    free_device()
+    torch_rn50 = train_torch_resnet50(dev, card)
+    free_device()
+    # The attention and BN kernels run on several paths: their launches
+    # are the sums.
     flash["launches"] = serve["flash"] + train["flash"] + bert["flash"]
     decode["launches"] = serve["flash_decode"]
     dq["launches"] = train["flash_bwd_dq"] + bert["flash_bwd_dq"]
     dkv["launches"] = train["flash_bwd_dkv"] + bert["flash_bwd_dkv"]
-    bn_red["launches"] = resnet["bn_bwd_reduce"] + inception["bn_bwd_reduce"]
-    bn_dx["launches"] = resnet["bn_bwd_dx"] + inception["bn_bwd_dx"]
+    bn_red["launches"] = (resnet["bn_bwd_reduce"] + inception["bn_bwd_reduce"]
+                          + torch_rn50["bn_bwd_reduce"])
+    bn_dx["launches"] = (resnet["bn_bwd_dx"] + inception["bn_bwd_dx"]
+                         + torch_rn50["bn_bwd_dx"])
     for e in fused:
         e["launches"] = powersgd[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

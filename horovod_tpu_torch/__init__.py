@@ -25,7 +25,18 @@ ported so far:
   BatchNorm -- :func:`~horovod_tpu_torch.training.sync_batch_norm`
   (flax-style, for the port's NHWC models) and :class:`SyncBatchNorm`
   (torch-style) -- whose backward
-  sums the BN kernels' first pass over the ranks before the second.
+  sums the BN kernels' first pass over the ranks before the second;
+* the ``horovod.torch`` API surface, so a stock Horovod PyTorch script
+  runs with ``import horovod_tpu_torch as hvd``: process sets
+  (:func:`add_process_set`; every op, the optimizer and
+  :class:`SyncBatchNorm` take ``process_set=``), ``reducescatter``,
+  ``alltoall`` (with ``splits``), the grouped ops, sparse and object
+  collectives, Horovod's keywords (``average=``, ``name=``, ...) and its
+  integer handles (``*_async`` -> :func:`synchronize` / :func:`poll`),
+  with the ``pytorch_mnist`` and torch-idiom ResNet-50 examples
+  (``python -m horovod_tpu_torch.examples.pytorch_mnist``).  ``join``
+  (ROADMAP item 1.8) and the timeline (item 1.11) raise
+  ``NotImplementedError``.
 
 Kernels hand-written in CUDA C++ for ``sm_90a`` (``ops/csrc``) carry
 attention -- the flash forward and decode kernels, the flash backward's
@@ -42,19 +53,39 @@ caller passes ``device="cpu"``; with no GPU they raise rather than fall
 back.  Kernels build with ``nvcc`` on first use, never at import.
 """
 
-from .collectives import (Adasum, Average, Compression, Max,  # noqa: F401
-                          Min, Product, Sum, allgather, allreduce,
-                          allreduce_async, barrier, broadcast,
-                          grouped_allreduce)
-from .core import (cross_rank, cross_size, cuda_built, init,  # noqa: F401
-                   is_initialized, local_rank, local_size, nccl_built, rank,
-                   shutdown, size)
+from .collectives import Compression  # noqa: F401
+from .collectives.handles import (allgather_async,  # noqa: F401
+                                  allreduce_async, allreduce_async_,
+                                  alltoall_async, broadcast_async,
+                                  broadcast_async_, grouped_allgather_async,
+                                  grouped_allreduce_async,
+                                  grouped_allreduce_async_, poll,
+                                  grouped_reducescatter_async,
+                                  reducescatter_async,
+                                  sparse_allreduce_async, synchronize)
+from .collectives.ops import (allgather, allreduce,  # noqa: F401
+                              allreduce_, alltoall, barrier, broadcast,
+                              broadcast_, grouped_allgather,
+                              grouped_allreduce, grouped_allreduce_,
+                              grouped_reducescatter, reducescatter)
+from .collectives.reduce_op import (Adasum, Average, Max,  # noqa: F401
+                                    Min, Product, ReduceOp, Sum)
+from .core import (HorovodInternalError,  # noqa: F401
+                   HostsUpdatedInterrupt, ProcessSet, ProcessSetError,
+                   add_process_set, cross_rank, cross_size, cuda_built,
+                   get_process_set, gloo_built, init, is_homogeneous,
+                   is_initialized, join, local_rank, local_size, mpi_built,
+                   mpi_threads_supported, nccl_built, process_set_names,
+                   rank, remove_process_set, rocm_built, shutdown, size,
+                   start_timeline, steps_per_execution, stop_timeline,
+                   tpu_built)
 from .models import (BERT_BASE, BERT_LARGE, BERT_TINY, Bert,  # noqa: F401
                      BertConfig)
 from .optim import (DistributedAdasumOptimizer,  # noqa: F401
-                    DistributedOptimizer, broadcast_object,
-                    broadcast_optimizer_state, broadcast_parameters)
+                    DistributedOptimizer, allgather_object,
+                    broadcast_object, broadcast_optimizer_state,
+                    broadcast_parameters)
 from .sync_batch_norm import SyncBatchNorm  # noqa: F401
 from .training import bert_pretrain_loss  # noqa: F401
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

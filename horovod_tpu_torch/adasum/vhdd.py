@@ -15,16 +15,23 @@ does.  A reverse distance-halving allgather rebuilds the whole vector.
 Every rank must call :func:`adasum_allreduce` on the same sizes in the
 same order: its point-to-point and gather calls pair up across ranks.
 
-Not ported: the hierarchical two-level variant, the process-set
-(``members=``) variant, and the fp8 wire codec.
+The process-set variant (``members=``, or a set's ``group``) runs the
+same schedule among the members, paired by their position in the set;
+:func:`adasum_allreduce_hierarchical` is the two-level variant (a mean
+reduce-scatter within each node, Adasum across the nodes on each shard,
+an allgather within the node).  Not ported: the fp8 wire codec (ROADMAP
+item 1.9).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from ..core.state import global_state
 
 _TOL = 1e-30
 
@@ -59,40 +66,59 @@ def adasum_local_tree(vectors):
                        adasum_local_tree(vectors[half:]))
 
 
-def _exchange(send: torch.Tensor, peer: int) -> torch.Tensor:
-    """Swap ``send`` with ``peer``'s tensor of the same shape.  The send
-    and the receive are posted together: a blocking send on both
-    partners deadlocks on gloo."""
+def _exchange(send: torch.Tensor, peer: int, group=None) -> torch.Tensor:
+    """Swap ``send`` with global rank ``peer``'s tensor of the same shape.
+    The send and the receive are posted together: a blocking send on
+    both partners deadlocks on gloo."""
     recv = torch.empty_like(send)
-    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, peer),
-                                   dist.P2POp(dist.irecv, recv, peer)])
+    reqs = dist.batch_isend_irecv(
+        [dist.P2POp(dist.isend, send, peer, group=group),
+         dist.P2POp(dist.irecv, recv, peer, group=group)])
     for r in reqs:
         r.wait()
     return recv
 
 
-def adasum_allreduce(x: torch.Tensor, group=None, members=None,
+def _members_group(members: Sequence[int]):
+    """The group of the registered process set whose members are
+    ``members`` (a set is registered collectively, never here)."""
+    from ..core.process_sets import process_set_of_ranks
+    return process_set_of_ranks(members).group
+
+
+def adasum_allreduce(x: torch.Tensor, group=None,
+                     members: Optional[Sequence[int]] = None,
                      wire_codec=None) -> torch.Tensor:
     """Adasum of ``x`` over every rank of ``group`` (the default group
     when ``None``); a new tensor of x's shape and dtype.
 
-    The rank count must be a power of two.  A world of one returns ``x``
-    itself with no communication.  The flat vector is padded with zeros
-    to a multiple of the rank count, so it halves evenly at every level;
-    each level moves half of what the last did, O(n) bytes a rank in all,
-    plus the 3 f32 partial dot products of every rank
-    (``all_gather`` of an ``[n, 3]`` tensor) that the merged group sums.
+    ``members`` (global ranks, the JAX ``members=``) names a registered
+    process set instead: the exchange runs over its group, between
+    members paired by their position in the set, and a non-member raises
+    ``ValueError``.  The member count must be a power of two.  One
+    member returns ``x`` itself with no communication.  The flat vector
+    is padded with zeros to a multiple of the member count, so it halves
+    evenly at every level; each level moves half of what the last did,
+    O(n) bytes a rank in all, plus the 3 f32 partial dot products of
+    every member (``all_gather`` of an ``[n, 3]`` tensor) that the merged
+    group sums.
 
-    ``members`` (the process-set variant) and ``wire_codec="fp8"`` are
-    not ported and raise ``NotImplementedError``.
+    ``wire_codec="fp8"`` is not ported and raises ``NotImplementedError``.
     """
-    if members is not None:
-        raise NotImplementedError(
-            "process-set Adasum (members=) is not ported (ROADMAP item 1.2)")
     if wire_codec is not None:
         raise NotImplementedError(
             f"the {wire_codec!r} Adasum wire codec is not ported (ROADMAP "
             f"item 1.9)")
+    if members is not None:
+        members = tuple(sorted(int(r) for r in members))
+        if len(members) & (len(members) - 1) != 0:
+            raise ValueError(f"Adasum requires a power-of-two member "
+                             f"count, got {len(members)}")
+        if dist.get_rank() not in members:
+            raise ValueError(f"rank {dist.get_rank()} is not among the "
+                             f"Adasum members {members}")
+        if group is None:
+            group = _members_group(members)
     m = dist.get_world_size(group)
     if m & (m - 1) != 0:
         raise ValueError(f"Adasum requires a power-of-two member count, "
@@ -118,7 +144,7 @@ def adasum_allreduce(x: torch.Tensor, group=None, members=None,
         # The lower position keeps the first half, its partner the
         # second: retained pieces cover the same index range.
         mine, give = (y[:half], y[half:]) if is_lo else (y[half:], y[:half])
-        recv = _exchange(give.contiguous(), peer(pos ^ bit))
+        recv = _exchange(give.contiguous(), peer(pos ^ bit), group)
         a, b = (mine, recv) if is_lo else (recv, mine)
         a32, b32 = a.float(), b.float()
         partial = torch.stack([a32 @ b32, a32 @ a32, b32 @ b32])
@@ -133,15 +159,78 @@ def adasum_allreduce(x: torch.Tensor, group=None, members=None,
     # Distance-halving allgather, inverting the split order.
     for k in reversed(range(levels)):
         bit = 1 << k
-        recv = _exchange(y, peer(pos ^ bit))
+        recv = _exchange(y, peer(pos ^ bit), group)
         y = torch.cat([y, recv] if (pos & bit) == 0 else [recv, y])
     if pad:
         y = y[:-pad]
     return y.view(x.shape)
 
 
-def adasum_allreduce_hierarchical(x: torch.Tensor, *args, **kwargs):
-    """Not ported: the two-level (intra-node reduce-scatter, cross-node
-    Adasum, intra-node allgather) variant."""
-    raise NotImplementedError(
-        "hierarchical Adasum is not ported (ROADMAP item 1.2)")
+def _hierarchy(local: int):
+    """This rank's ``(node group, cross group)`` for nodes of ``local``
+    consecutive ranks, made once per ``local`` and cached in the global
+    state.  ``new_group`` is collective over the world, so every rank
+    makes every node group and every cross group, in the same order (a
+    rank's first hierarchical Adasum call does it)."""
+    st = global_state()
+    with st.lock:
+        got = st.hierarchy.get(local)
+        if got is None:
+            n, me = dist.get_world_size(), dist.get_rank()
+            node = cross = None
+            for c in range(n // local):
+                g = dist.new_group(list(range(c * local, (c + 1) * local)))
+                if me // local == c:
+                    node = g
+            for lr in range(local):
+                g = dist.new_group(list(range(lr, n, local)))
+                if me % local == lr:
+                    cross = g
+            got = st.hierarchy[local] = (node, cross)
+        return got
+
+
+def adasum_allreduce_hierarchical(x: torch.Tensor,
+                                  local_size: Optional[int] = None,
+                                  wire_codec=None) -> torch.Tensor:
+    """Two-level Adasum (``horovod_tpu/adasum/xla.py::
+    adasum_allreduce_hierarchical``; the reference's hybrid
+    ``adasum_gpu_operations.cc``).  The world is split into nodes of
+    ``local_size`` consecutive ranks (``hvd.local_size()`` when ``None``;
+    it must divide the world, and the node count must be a power of
+    two): a reduce-scatter within the node takes the MEAN of the node's
+    vectors (zero-padded to a multiple of ``local_size``; divided in the
+    tensor's dtype), Adasum runs across the nodes on each shard (the
+    ranks of one local rank form a cross group; the coefficients are per
+    shard, as in the reference), and an allgather within the node
+    rebuilds the vector.  With one rank a node this is
+    :func:`adasum_allreduce` over the world; with one node, the mean."""
+    if wire_codec is not None:
+        raise NotImplementedError(
+            f"the {wire_codec!r} Adasum wire codec is not ported (ROADMAP "
+            f"item 1.9)")
+    local = int(local_size or global_state().local_size or 1)
+    n = dist.get_world_size()
+    if local < 1 or n % local:
+        raise ValueError(f"local_size {local} does not divide the world "
+                         f"size {n}")
+    if local == 1:
+        return adasum_allreduce(x)
+    node, cross = _hierarchy(local)
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % local
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    flat = flat.contiguous()
+    shard = flat.new_empty(flat.numel() // local)
+    dist.reduce_scatter_tensor(shard, flat, group=node)
+    if shard.dtype.is_floating_point:
+        shard.div_(local)
+    else:
+        shard.copy_(torch.div(shard, local, rounding_mode="trunc"))
+    mixed = adasum_allreduce(shard, group=cross).contiguous()
+    out = flat.new_empty(flat.numel())
+    dist.all_gather_into_tensor(out, mixed, group=node)
+    if pad:
+        out = out[:-pad]
+    return out.view(x.shape)

@@ -1,5 +1,7 @@
 """Collectives over ``torch.distributed``, reduce ops, and the codecs
-(casts and PowerSGD)."""
+(casts and PowerSGD).  The ``*_async`` names here return the op layer's
+:class:`Handle`; the package's top level returns Horovod's integer
+handles (:mod:`.handles`)."""
 
 from .compression import Compression  # noqa: F401
 from .ops import (Handle, allgather, allgather_async,  # noqa: F401

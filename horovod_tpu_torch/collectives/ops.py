@@ -1,35 +1,66 @@
 """Collective operations over ``torch.distributed``.
 
-Counterpart of ``horovod_tpu/collectives/ops.py``'s eager surface:
-:func:`allreduce` with ``prescale_factor`` / ``postscale_factor``,
-:func:`grouped_allreduce`, :func:`allgather`, :func:`broadcast` and
-:func:`barrier`, and the PowerSGD exchange :func:`powersgd_allreduce`.
-Each synchronous op has an ``*_async`` twin that returns a
-:class:`Handle` around the ``torch.distributed`` work object; the result
-is ready after ``handle.wait()``.  ``op=Adasum`` has no single work
-object: its handle's ``wait()`` runs the whole exchange
-(:func:`~horovod_tpu_torch.adasum.vhdd.adasum_allreduce`), so every rank
-must wait on its Adasum handles in the same order.
+Counterpart of ``horovod_tpu/collectives/ops.py``'s eager surface and of
+the shim ``horovod_tpu/torch_api/__init__.py``: :func:`allreduce` (Sum,
+Average, Min, Max, Product, Adasum) with ``prescale_factor`` /
+``postscale_factor`` and ``compression``, :func:`grouped_allreduce`,
+:func:`allgather` (ragged first dims), :func:`grouped_allgather`,
+:func:`broadcast`, :func:`reducescatter`, :func:`grouped_reducescatter`,
+:func:`alltoall` (even, or uneven with ``splits``),
+:func:`sparse_allreduce_async`, :func:`barrier`, and the PowerSGD
+exchange :func:`powersgd_allreduce`.  Each op has an ``*_async`` twin
+that returns a :class:`Handle` around the ``torch.distributed`` work
+object; the result is ready after ``handle.wait()``, and
+``handle.poll()`` says whether the work is done.  (The package's top
+level wraps these handles in Horovod's integer handles:
+:mod:`~horovod_tpu_torch.collectives.handles`.)
+
+``process_set=`` (``None`` for the global set, a name or a
+:class:`~horovod_tpu_torch.core.process_sets.ProcessSet`) runs an op on
+the set's group: members only, ``Average`` divides by the set's size,
+ranks and roots are global ranks, and the ``splits`` of ``alltoall`` are
+indexed by set position.  A rank that is not a member raises
+``ValueError`` (the JAX in-step model gives it an unspecified value; in
+the per-rank model it never calls).
+
+Horovod's keywords are accepted: ``average=``, ``name=`` (a label for
+error messages; nothing is keyed on it), ``op=``, ``compression=``,
+``prescale_factor=``, ``postscale_factor=``, ``process_set=``.  **The
+second positional parameter** of ``allreduce`` and its variants is
+Horovod's ``average``; a :class:`ReduceOp` given there is taken as
+``op`` (the port's earlier order, ``allreduce(x, Sum)``), a bool as
+``average`` (``False``: Sum).  Giving an op both ways, or ``average``
+beside ``op``, raises ``ValueError``.
 
 Arithmetic follows the JAX ops: ``Average`` is a sum followed by a
 division in the tensor's own dtype (truncating for integers), with the
-prescale applied before the reduction and the postscale after.  The
-inputs are never modified, except by the in-place ``allreduce_async_``
-that the DistributedOptimizer uses on its own fusion buffers.
+prescale applied before the reduction and the postscale after.
+``reducescatter`` of Min, Max and Product reduces the whole tensor and
+keeps this rank's shard, as the JAX op does; a scattered dim that does
+not divide by the set's size raises ``ValueError`` (upstream Horovod
+hands the low ranks one extra row).  ``op=Adasum`` runs its whole
+exchange when it is called
+(:func:`~horovod_tpu_torch.adasum.vhdd.adasum_allreduce`), so every rank
+must issue its Adasum calls in the same order.  The inputs are never
+modified, except by the in-place ``*_`` variants.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
+from ..adasum.vhdd import adasum_allreduce
 from ..core.basics import _require_init
 from ..core.exceptions import HorovodInternalError
+from ..core.process_sets import ProcessSet, get_process_set
 from ..ops import fused_update as fu
-from .compression import powersgd_effective_rank, powersgd_matrix_shape
-from ..adasum.vhdd import adasum_allreduce
+from ..timeline.metrics import note_collective
+from .compression import (Compression, is_error_feedback, parse_compression,
+                          powersgd_effective_rank, powersgd_matrix_shape)
 from .reduce_op import Adasum, Average, Max, Min, Product, ReduceOp, Sum
 
 _TORCH_OPS = {
@@ -43,14 +74,30 @@ _TORCH_OPS = {
 
 class Handle:
     """An in-flight collective: ``wait()`` blocks until it is done and
-    returns its result.  A failure of the collective surfaces from
-    ``wait()`` as :class:`HorovodInternalError`."""
+    returns its result; ``poll()`` is True once its work (and every part
+    of a grouped handle) has completed.  A failure of the collective
+    surfaces from ``wait()`` as :class:`HorovodInternalError`."""
 
-    def __init__(self, work, finish: Callable[[], object]):
+    def __init__(self, work, finish: Callable[[], object],
+                 parts: Sequence["Handle"] = (), name: Optional[str] = None):
         self._work = work
         self._finish = finish
+        self._parts = tuple(parts)
+        self._name = name
         self._done = False
         self._result = None
+
+    @classmethod
+    def completed(cls, result) -> "Handle":
+        h = cls(None, lambda: result)
+        h.wait()
+        return h
+
+    def poll(self) -> bool:
+        if self._done:
+            return True
+        return (self._work is None or self._work.is_completed()) and \
+            all(p.poll() for p in self._parts)
 
     def wait(self):
         if not self._done:
@@ -58,11 +105,27 @@ class Handle:
                 try:
                     self._work.wait()
                 except Exception as e:
+                    label = f" {self._name!r}" if self._name else ""
                     raise HorovodInternalError(
-                        f"collective failed: {e}") from e
+                        f"collective{label} failed: {e}") from e
             self._result = self._finish()
             self._done = True
         return self._result
+
+
+def _member_set(process_set, op: str,
+                tensor: Optional[torch.Tensor] = None) -> ProcessSet:
+    """The registered set, checked to hold this rank; counts the call."""
+    st = _require_init()
+    ps = get_process_set(process_set)
+    if not ps.included(st.rank):
+        raise ValueError(
+            f"{op}: rank {st.rank} is not a member of process set "
+            f"{ps.name!r} (ranks {ps.ranks}); non-members do not call "
+            f"the set's collectives")
+    nbytes = 0 if tensor is None else tensor.numel() * tensor.element_size()
+    note_collective(op, ps.name, nbytes)
+    return ps
 
 
 def _divide_in_dtype(y: torch.Tensor, n: int) -> torch.Tensor:
@@ -73,124 +136,440 @@ def _divide_in_dtype(y: torch.Tensor, n: int) -> torch.Tensor:
     return y.copy_(torch.div(y, n, rounding_mode="trunc"))
 
 
-def allreduce_async_(tensor: torch.Tensor, op: ReduceOp = Average, *,
+def _resolve_op(average, op) -> ReduceOp:
+    """Horovod's ``(average, op)`` pair as one op (module docstring)."""
+    if isinstance(average, ReduceOp):
+        if op is not None:
+            raise ValueError(f"op given twice: {average} and {op}")
+        return average
+    if average is not None and op is not None:
+        raise ValueError("specify either op or average, not both")
+    if op is not None:
+        return op
+    return Sum if average is False else Average
+
+
+def _check_compression(compression):
+    compression = parse_compression(
+        Compression.none if compression is None else compression)
+    if is_error_feedback(compression):
+        raise ValueError(
+            f"{compression.__name__} is an exchange codec: use "
+            f"powersgd_allreduce, or the DistributedOptimizer")
+    return compression
+
+
+# ---------------------------------------------------------------------------
+# allreduce
+# ---------------------------------------------------------------------------
+
+
+def allreduce_async_(tensor: torch.Tensor, average=None,
+                     name: Optional[str] = None,
+                     op: Optional[ReduceOp] = None, *,
                      prescale_factor: float = 1.0,
-                     postscale_factor: float = 1.0) -> Handle:
+                     postscale_factor: float = 1.0,
+                     process_set=None) -> Handle:
     """Allreduce ``tensor`` IN PLACE; the handle returns ``tensor``."""
+    op = _resolve_op(average, op)
     if op not in _TORCH_OPS and op is not Adasum:
         raise NotImplementedError(f"reduce op {op} is not ported")
-    n = _require_init().size
+    ps = _member_set(process_set, "allreduce", tensor)
     if prescale_factor != 1.0:
         tensor.mul_(prescale_factor)
     if op is Adasum:
-        def adasum():
-            y = adasum_allreduce(tensor)
-            if y is not tensor:
-                tensor.copy_(y)
-            if postscale_factor != 1.0:
-                tensor.mul_(postscale_factor)
-            return tensor
-
-        return Handle(None, adasum)
-    work = dist.all_reduce(tensor, op=_TORCH_OPS[op], async_op=True)
+        y = adasum_allreduce(
+            tensor, group=ps.group,
+            members=None if ps.is_global() else ps.ranks)
+        if y is not tensor:
+            tensor.copy_(y)
+        if postscale_factor != 1.0:
+            tensor.mul_(postscale_factor)
+        return Handle.completed(tensor)
+    work = dist.all_reduce(tensor, op=_TORCH_OPS[op], group=ps.group,
+                           async_op=True)
 
     def finish():
         if op is Average:
-            _divide_in_dtype(tensor, n)
+            _divide_in_dtype(tensor, ps.size())
         if postscale_factor != 1.0:
             tensor.mul_(postscale_factor)
         return tensor
 
-    return Handle(work, finish)
+    return Handle(work, finish, name=name)
 
 
-def allreduce_async(tensor: torch.Tensor, op: ReduceOp = Average, *,
+def allreduce_async(tensor: torch.Tensor, average=None,
+                    name: Optional[str] = None,
+                    op: Optional[ReduceOp] = None, *,
                     prescale_factor: float = 1.0,
-                    postscale_factor: float = 1.0) -> Handle:
+                    postscale_factor: float = 1.0,
+                    process_set=None) -> Handle:
     """Allreduce a copy of ``tensor``; the input is left as it is."""
-    return allreduce_async_(tensor.clone(), op,
+    return allreduce_async_(tensor.clone(), average, name, op,
                             prescale_factor=prescale_factor,
-                            postscale_factor=postscale_factor)
+                            postscale_factor=postscale_factor,
+                            process_set=process_set)
 
 
-def allreduce(tensor: torch.Tensor, op: ReduceOp = Average, *,
-              prescale_factor: float = 1.0,
-              postscale_factor: float = 1.0) -> torch.Tensor:
-    """Reduce ``tensor`` across every rank (NCCLAllreduce analogue)."""
-    return allreduce_async(tensor, op, prescale_factor=prescale_factor,
-                           postscale_factor=postscale_factor).wait()
+def allreduce(tensor: torch.Tensor, average=None,
+              name: Optional[str] = None, compression=None,
+              op: Optional[ReduceOp] = None,
+              prescale_factor: float = 1.0, postscale_factor: float = 1.0,
+              process_set=None) -> torch.Tensor:
+    """Reduce ``tensor`` over the set's ranks (NCCLAllreduce analogue);
+    ``compression`` (a cast codec) narrows the wire and widens the
+    result back."""
+    compression = _check_compression(compression)
+    wire, ctx = compression.compress(tensor)
+    if wire is tensor:
+        wire = tensor.clone()
+    out = allreduce_async_(wire, average, name, op,
+                           prescale_factor=prescale_factor,
+                           postscale_factor=postscale_factor,
+                           process_set=process_set).wait()
+    return compression.decompress(out, ctx)
 
 
-def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
-                            op: ReduceOp = Average, *,
+def allreduce_(tensor: torch.Tensor, average=None,
+               name: Optional[str] = None, op: Optional[ReduceOp] = None,
+               prescale_factor: float = 1.0, postscale_factor: float = 1.0,
+               process_set=None) -> torch.Tensor:
+    """Allreduce ``tensor`` in place and return it."""
+    return allreduce_async_(tensor, average, name, op,
+                            prescale_factor=prescale_factor,
+                            postscale_factor=postscale_factor,
+                            process_set=process_set).wait()
+
+
+def grouped_allreduce_async_(tensors: Sequence[torch.Tensor], average=None,
+                             name: Optional[str] = None,
+                             op: Optional[ReduceOp] = None, *,
+                             prescale_factor: float = 1.0,
+                             postscale_factor: float = 1.0,
+                             process_set=None) -> Handle:
+    """Allreduce a list as one fused unit, writing each result back into
+    its tensor; the handle returns the list."""
+    tensors = list(tensors)
+    inner = grouped_allreduce_async(
+        tensors, average, name, op, prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor, process_set=process_set)
+
+    def finish():
+        for t, y in zip(tensors, inner.wait()):
+            t.copy_(y)
+        return tensors
+
+    return Handle(None, finish, parts=(inner,), name=name)
+
+
+def grouped_allreduce_async(tensors: Sequence[torch.Tensor], average=None,
+                            name: Optional[str] = None,
+                            op: Optional[ReduceOp] = None, *,
                             prescale_factor: float = 1.0,
-                            postscale_factor: float = 1.0) -> Handle:
+                            postscale_factor: float = 1.0,
+                            process_set=None) -> Handle:
     """Allreduce a list as one fused unit: packed into per-dtype buffers
     by the fusion planner, one collective per buffer, split back out."""
     from ..controller.fusion import pack, plan_buckets, unpack
     tensors = list(tensors)
     spec = plan_buckets(tensors)
-    handles = [allreduce_async_(buf, op, prescale_factor=prescale_factor,
-                                postscale_factor=postscale_factor)
+    handles = [allreduce_async_(buf, average, name, op,
+                                prescale_factor=prescale_factor,
+                                postscale_factor=postscale_factor,
+                                process_set=process_set)
                for buf in pack(tensors, spec)]
-    return Handle(None, lambda: unpack([h.wait() for h in handles], spec))
+    return Handle(None, lambda: unpack([h.wait() for h in handles], spec),
+                  parts=handles, name=name)
 
 
-def grouped_allreduce(tensors: Sequence[torch.Tensor],
-                      op: ReduceOp = Average, *,
+def grouped_allreduce(tensors: Sequence[torch.Tensor], average=None,
+                      name: Optional[str] = None, compression=None,
+                      op: Optional[ReduceOp] = None,
                       prescale_factor: float = 1.0,
-                      postscale_factor: float = 1.0) -> List[torch.Tensor]:
-    return grouped_allreduce_async(
-        tensors, op, prescale_factor=prescale_factor,
-        postscale_factor=postscale_factor).wait()
+                      postscale_factor: float = 1.0,
+                      process_set=None) -> List[torch.Tensor]:
+    compression = _check_compression(compression)
+    wires, ctxs = zip(*[compression.compress(t) for t in tensors]) \
+        if tensors else ((), ())
+    outs = grouped_allreduce_async(
+        wires, average, name, op, prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor, process_set=process_set).wait()
+    return [compression.decompress(y, c) for y, c in zip(outs, ctxs)]
 
 
-def allgather_async(tensor: torch.Tensor) -> Handle:
-    """Concatenate every rank's tensor along dim 0; ranks may differ in
-    dim 0 only (Horovod's allgather).  The first dims are exchanged
-    first, so the handle is returned after that small exchange."""
-    n = _require_init().size
-    x = tensor.contiguous()
+def grouped_allreduce_(tensors: Sequence[torch.Tensor], average=None,
+                       name: Optional[str] = None,
+                       op: Optional[ReduceOp] = None,
+                       prescale_factor: float = 1.0,
+                       postscale_factor: float = 1.0,
+                       process_set=None) -> List[torch.Tensor]:
+    return grouped_allreduce_async_(
+        tensors, average, name, op, prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor, process_set=process_set).wait()
+
+
+# ---------------------------------------------------------------------------
+# allgather and broadcast
+# ---------------------------------------------------------------------------
+
+
+def _allgatherv(x: torch.Tensor, ps: ProcessSet):
+    """Start gathering every member's ``x`` (first dims may differ):
+    ``(work, padded outputs, first dims)``.  The first dims are exchanged
+    first, so this returns after that small exchange."""
     if x.dim() == 0:
         x = x.reshape(1)
+    x = x.contiguous()
+    n = ps.size()
     dims = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
     all_dims = [torch.empty_like(dims) for _ in range(n)]
-    dist.all_gather(all_dims, dims)
+    dist.all_gather(all_dims, dims, group=ps.group)
     lens = [int(d.item()) for d in all_dims]
     width = max(lens)
     padded = x.new_zeros((width,) + tuple(x.shape[1:]))
     padded[:x.shape[0]] = x
     out = [torch.empty_like(padded) for _ in range(n)]
-    work = dist.all_gather(out, padded, async_op=True)
+    work = dist.all_gather(out, padded, group=ps.group, async_op=True)
+    return work, out, lens
+
+
+def allgather_async(tensor: torch.Tensor, name: Optional[str] = None,
+                    process_set=None) -> Handle:
+    """Concatenate every member's tensor along dim 0, in rank order;
+    members may differ in dim 0 only (Horovod's allgather)."""
+    ps = _member_set(process_set, "allgather", tensor)
+    work, out, lens = _allgatherv(tensor, ps)
     return Handle(work, lambda: torch.cat(
-        [o[:m] for o, m in zip(out, lens)], dim=0))
+        [o[:m] for o, m in zip(out, lens)], dim=0), name=name)
 
 
-def allgather(tensor: torch.Tensor) -> torch.Tensor:
-    return allgather_async(tensor).wait()
+def allgather(tensor: torch.Tensor, name: Optional[str] = None,
+              process_set=None) -> torch.Tensor:
+    return allgather_async(tensor, name, process_set).wait()
 
 
-def broadcast_async_(tensor: torch.Tensor, root_rank: int = 0) -> Handle:
-    """Every rank's ``tensor`` receives root's value, in place."""
-    n = _require_init().size
-    if not 0 <= root_rank < n:
-        raise ValueError(f"broadcast root_rank {root_rank} not in "
-                         f"[0, {n})")
-    work = dist.broadcast(tensor, src=root_rank, async_op=True)
-    return Handle(work, lambda: tensor)
+def grouped_allgather_async(tensors: Sequence[torch.Tensor],
+                            name: Optional[str] = None,
+                            process_set=None) -> Handle:
+    """:func:`allgather` of each tensor; the handle returns the list."""
+    handles = [allgather_async(t, name, process_set) for t in tensors]
+    return Handle(None, lambda: [h.wait() for h in handles],
+                  parts=handles, name=name)
 
 
-def broadcast_async(tensor: torch.Tensor, root_rank: int = 0) -> Handle:
-    return broadcast_async_(tensor.clone(), root_rank)
+def grouped_allgather(tensors: Sequence[torch.Tensor],
+                      name: Optional[str] = None,
+                      process_set=None) -> List[torch.Tensor]:
+    return grouped_allgather_async(tensors, name, process_set).wait()
 
 
-def broadcast(tensor: torch.Tensor, root_rank: int = 0) -> torch.Tensor:
-    """Root's value, on every rank (the input is left as it is)."""
-    return broadcast_async(tensor, root_rank).wait()
+def broadcast_async_(tensor: torch.Tensor, root_rank: int = 0,
+                     name: Optional[str] = None,
+                     process_set=None) -> Handle:
+    """Every member's ``tensor`` receives root's value, in place;
+    ``root_rank`` is a global rank and must be a member."""
+    ps = _member_set(process_set, "broadcast", tensor)
+    if root_rank not in ps.ranks:
+        raise ValueError(f"broadcast root_rank {root_rank} is not a member "
+                         f"of process set {ps.name!r} (ranks {ps.ranks})")
+    work = dist.broadcast(tensor, src=root_rank, group=ps.group,
+                          async_op=True)
+    return Handle(work, lambda: tensor, name=name)
 
 
-def broadcast_(tensor: torch.Tensor, root_rank: int = 0) -> torch.Tensor:
-    return broadcast_async_(tensor, root_rank).wait()
+def broadcast_async(tensor: torch.Tensor, root_rank: int = 0,
+                    name: Optional[str] = None,
+                    process_set=None) -> Handle:
+    return broadcast_async_(tensor.clone(), root_rank, name, process_set)
+
+
+def broadcast(tensor: torch.Tensor, root_rank: int = 0,
+              name: Optional[str] = None,
+              process_set=None) -> torch.Tensor:
+    """Root's value, on every member (the input is left as it is)."""
+    return broadcast_async(tensor, root_rank, name, process_set).wait()
+
+
+def broadcast_(tensor: torch.Tensor, root_rank: int = 0,
+               name: Optional[str] = None,
+               process_set=None) -> torch.Tensor:
+    return broadcast_async_(tensor, root_rank, name, process_set).wait()
+
+
+# ---------------------------------------------------------------------------
+# reducescatter and alltoall
+# ---------------------------------------------------------------------------
+
+
+def reducescatter_async(tensor: torch.Tensor, op: ReduceOp = Average,
+                        name: Optional[str] = None, process_set=None, *,
+                        scatter_axis: int = 0) -> Handle:
+    """Reduce over the set, then keep this member's shard of
+    ``scatter_axis`` (NCCLReducescatter): the shard at its position in
+    the set, ``tensor.shape[scatter_axis] / size`` long."""
+    if op is Adasum:
+        raise NotImplementedError(
+            "reducescatter does not support Adasum (the reference's Adasum "
+            "is an allreduce-shaped op); use allreduce(op=Adasum)")
+    if op not in _TORCH_OPS:
+        raise ValueError(f"unknown reduce op {op}")
+    ps = _member_set(process_set, "reducescatter", tensor)
+    if tensor.dim() == 0:
+        raise ValueError("reducescatter needs a tensor of at least one dim")
+    m = ps.size()
+    axis = scatter_axis % tensor.dim()
+    d = tensor.shape[axis]
+    if d % m:
+        raise ValueError(
+            f"reducescatter over a {m}-member process set needs dim "
+            f"{axis} divisible by {m}, got {d}")
+    shard = d // m
+    pos = ps.position()
+    if op in (Sum, Average):
+        x = tensor.movedim(axis, 0).contiguous()
+        out = x.new_empty((shard,) + tuple(x.shape[1:]))
+        work = dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
+                                          group=ps.group, async_op=True)
+    else:
+        # No min/max/product scatter on every backend: reduce the whole
+        # tensor and keep this member's shard, as the JAX op does.
+        x = tensor.movedim(axis, 0).clone(
+            memory_format=torch.contiguous_format)
+        work = dist.all_reduce(x, op=_TORCH_OPS[op], group=ps.group,
+                               async_op=True)
+        out = None
+
+    def finish():
+        y = x[pos * shard:(pos + 1) * shard] if out is None else out
+        if op is Average:
+            _divide_in_dtype(y, m)
+        return y.movedim(0, axis).contiguous()
+
+    return Handle(work, finish, name=name)
+
+
+def reducescatter(tensor: torch.Tensor, op: ReduceOp = Average,
+                  name: Optional[str] = None, process_set=None, *,
+                  scatter_axis: int = 0) -> torch.Tensor:
+    return reducescatter_async(tensor, op, name, process_set,
+                               scatter_axis=scatter_axis).wait()
+
+
+def grouped_reducescatter_async(tensors: Sequence[torch.Tensor],
+                                op: ReduceOp = Average,
+                                name: Optional[str] = None,
+                                process_set=None) -> Handle:
+    """:func:`reducescatter` of each tensor; the handle returns the
+    list."""
+    handles = [reducescatter_async(t, op, name, process_set)
+               for t in tensors]
+    return Handle(None, lambda: [h.wait() for h in handles],
+                  parts=handles, name=name)
+
+
+def grouped_reducescatter(tensors: Sequence[torch.Tensor],
+                          op: ReduceOp = Average,
+                          name: Optional[str] = None,
+                          process_set=None) -> List[torch.Tensor]:
+    return grouped_reducescatter_async(tensors, op, name,
+                                       process_set).wait()
+
+
+def alltoall_async(tensor: torch.Tensor, splits=None,
+                   name: Optional[str] = None,
+                   process_set=None) -> Handle:
+    """Exchange rows of dim 0 with every member (NCCLAlltoall).
+
+    Without ``splits`` the rows split evenly, block ``i`` to member ``i``
+    (dim 0 must divide by the set's size), and the handle returns the
+    received blocks concatenated in member order.  With ``splits`` (one
+    count per member, in set order, summing to dim 0) ``splits[i]`` rows
+    go to member ``i``: the counts are exchanged first (a small
+    ``all_to_all`` that this call waits for), then the rows in one
+    ``all_to_all_single`` with explicit split lists; the handle returns
+    ``(received, received_splits)``, the splits an int64 CPU tensor."""
+    ps = _member_set(process_set, "alltoall", tensor)
+    m = ps.size()
+    x = tensor.contiguous()
+    if x.dim() == 0:
+        raise ValueError("alltoall needs a tensor of at least one dim")
+    if splits is None:
+        if x.shape[0] % m:
+            raise ValueError(
+                f"alltoall over a {m}-member process set needs dim 0 "
+                f"divisible by {m}, got {x.shape[0]}")
+        out = torch.empty_like(x)
+        work = dist.all_to_all_single(out, x, group=ps.group, async_op=True)
+        return Handle(work, lambda: out, name=name)
+    send = [int(s) for s in (splits.tolist() if torch.is_tensor(splits)
+                             else splits)]
+    if len(send) != m or min(send) < 0 or sum(send) != x.shape[0]:
+        raise ValueError(
+            f"alltoall splits {send} must hold {m} non-negative counts "
+            f"summing to dim 0 ({x.shape[0]})")
+    counts = torch.tensor(send, dtype=torch.int64, device=x.device)
+    recv_counts = torch.empty_like(counts)
+    dist.all_to_all_single(recv_counts, counts, group=ps.group)
+    recv = recv_counts.tolist()
+    out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+    work = dist.all_to_all_single(out, x, output_split_sizes=recv,
+                                  input_split_sizes=send, group=ps.group,
+                                  async_op=True)
+    received = torch.tensor(recv, dtype=torch.int64)
+    return Handle(work, lambda: (out, received), name=name)
+
+
+def alltoall(tensor: torch.Tensor, splits=None, name: Optional[str] = None,
+             process_set=None):
+    """The received tensor, or ``(received, received_splits)`` when
+    ``splits`` is given (see :func:`alltoall_async`)."""
+    return alltoall_async(tensor, splits, name, process_set).wait()
+
+
+# ---------------------------------------------------------------------------
+# sparse allreduce
+# ---------------------------------------------------------------------------
+
+
+def sparse_allreduce_async(tensor: torch.Tensor, name: Optional[str] = None,
+                           op: ReduceOp = Average,
+                           process_set=None) -> Handle:
+    """Allreduce a ``torch.sparse_coo`` tensor without densifying it
+    (``horovod/torch/mpi_ops.py::sparse_allreduce_async``): one ragged
+    allgather of this rank's ``[indices ‖ values]`` rows, float64 on the
+    tensor's device (NCCL carries no sparse tensors; float64 holds int32
+    indices and float32 values exactly), then a ``coalesce()`` that sums
+    duplicate coordinates.  ``Average`` divides that sum by the set's
+    size and the cast back to the input's dtype comes last.  The handle
+    returns the coalesced sparse result."""
+    if not tensor.is_sparse:
+        raise ValueError("sparse_allreduce_async expects a sparse tensor; "
+                         "use allreduce for dense tensors")
+    if op not in (Average, Sum):
+        raise ValueError("sparse allreduce supports Average/Sum only")
+    t = tensor.detach().coalesce()
+    sd, tail = t.sparse_dim(), tuple(t.values().shape[1:])
+    width = math.prod(tail)
+    rows = torch.cat([t.indices().t().to(torch.float64),
+                      t.values().reshape(t._nnz(), width).to(torch.float64)],
+                     dim=1)
+    ps = _member_set(process_set, "sparse_allreduce", rows)
+    work, out, lens = _allgatherv(rows, ps)
+
+    def finish():
+        g = torch.cat([o[:n] for o, n in zip(out, lens)], dim=0)
+        summed = torch.sparse_coo_tensor(
+            g[:, :sd].t().long(), g[:, sd:].reshape((len(g),) + tail),
+            tensor.shape).coalesce()
+        values = summed.values()
+        if op is Average:
+            values = values / ps.size()
+        return torch.sparse_coo_tensor(summed.indices(),
+                                       values.to(tensor.dtype),
+                                       tensor.shape).coalesce()
+
+    return Handle(work, finish, name=name)
 
 
 _SEED_MATRICES: Dict[Tuple[int, int, str], torch.Tensor] = {}
@@ -228,7 +607,8 @@ def powersgd_allreduce_async(x: torch.Tensor, op: ReduceOp = Average, *,
                              residual: Optional[torch.Tensor] = None,
                              prescale_factor: float = 1.0,
                              postscale_factor: float = 1.0,
-                             force_reference: bool = False) -> Handle:
+                             force_reference: bool = False,
+                             process_set=None) -> Handle:
     """Start a rank-``rank`` PowerSGD allreduce of ``x`` (Vogels et al.,
     2019): stage 1 (:func:`~horovod_tpu_torch.ops.fused_update.
     matricize_p`) and the async allreduce of the ``[m, r]`` left factor P.
@@ -239,7 +619,8 @@ def powersgd_allreduce_async(x: torch.Tensor, op: ReduceOp = Average, *,
 
     Counterpart of ``horovod_tpu/collectives/ops.py::powersgd_allreduce``
     with the JAX package's operation order: the factor allreduces are
-    ``SUM`` followed by a division by the world size.  ``residual`` of
+    ``SUM`` followed by a division by the world size (the set's size,
+    over its group, with ``process_set=``).  ``residual`` of
     ``None`` means zeros (stateless use).  Floating inputs, Sum/Average.
     Wire bytes: ``4 * r * (m + c)`` against ``4 * m * c`` uncompressed.
     ``force_reference=True`` runs the three stages' plain versions on any
@@ -250,7 +631,8 @@ def powersgd_allreduce_async(x: torch.Tensor, op: ReduceOp = Average, *,
     if not x.dtype.is_floating_point:
         raise ValueError(
             f"powersgd wire needs a floating dtype, got {x.dtype}")
-    n = _require_init().size
+    ps = _member_set(process_set, "powersgd_allreduce", x)
+    n = ps.size()
     size = x.numel()
     m, c = powersgd_matrix_shape(size)
     r = powersgd_effective_rank(size, rank)
@@ -258,13 +640,14 @@ def powersgd_allreduce_async(x: torch.Tensor, op: ReduceOp = Average, *,
     acc, p = fu.matricize_p(x, residual, _powersgd_seed_matrix(c, r,
                                                                 x.device),
                             rows=m, prescale=prescale_factor, **plain)
-    work = dist.all_reduce(p, op=dist.ReduceOp.SUM, async_op=True)
+    work = dist.all_reduce(p, op=dist.ReduceOp.SUM, group=ps.group,
+                           async_op=True)
 
     def finish():
         p.div_(n)
         p_orth, q_local = fu.orthonormalize_q(acc, p, **plain)
         q = q_local.clone()
-        dist.all_reduce(q, op=dist.ReduceOp.SUM)
+        dist.all_reduce(q, op=dist.ReduceOp.SUM, group=ps.group)
         q.div_(n)
         out, new_residual = fu.reconstruct_residual(
             acc, p_orth, q, q_local, size=size,
@@ -279,24 +662,29 @@ def powersgd_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
                        rank: int, residual: Optional[torch.Tensor] = None,
                        prescale_factor: float = 1.0,
                        postscale_factor: float = 1.0,
-                       force_reference: bool = False
+                       force_reference: bool = False, process_set=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, new_residual)`` of a rank-``rank`` PowerSGD allreduce (see
     :func:`powersgd_allreduce_async`)."""
     return powersgd_allreduce_async(
         x, op, rank=rank, residual=residual, prescale_factor=prescale_factor,
         postscale_factor=postscale_factor,
-        force_reference=force_reference).wait()
+        force_reference=force_reference, process_set=process_set).wait()
 
 
-def barrier() -> None:
-    """Block until every rank has reached this point."""
-    _require_init()
-    dist.barrier()
+def barrier(process_set=None) -> None:
+    """Block until every member of the set has reached this point."""
+    ps = _member_set(process_set, "barrier")
+    dist.barrier(group=ps.group)
 
 
-__all__ = ["Handle", "allreduce", "allreduce_async", "allreduce_async_",
-           "grouped_allreduce", "grouped_allreduce_async", "allgather",
-           "allgather_async", "broadcast", "broadcast_", "broadcast_async",
-           "broadcast_async_", "barrier", "powersgd_allreduce",
-           "powersgd_allreduce_async"]
+__all__ = ["Handle", "allreduce", "allreduce_", "allreduce_async",
+           "allreduce_async_", "grouped_allreduce", "grouped_allreduce_",
+           "grouped_allreduce_async", "grouped_allreduce_async_",
+           "allgather", "allgather_async", "grouped_allgather",
+           "grouped_allgather_async", "broadcast", "broadcast_",
+           "broadcast_async", "broadcast_async_", "reducescatter",
+           "reducescatter_async", "grouped_reducescatter",
+           "grouped_reducescatter_async", "alltoall", "alltoall_async",
+           "sparse_allreduce_async", "barrier",
+           "powersgd_allreduce", "powersgd_allreduce_async"]

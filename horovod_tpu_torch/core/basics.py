@@ -25,6 +25,7 @@ import torch.distributed as dist
 from .config import load_config
 from .device import resolve_device
 from .exceptions import NotInitializedError
+from .process_sets import _drop_all, _install_global_set
 from .state import global_state
 
 
@@ -91,16 +92,25 @@ def init(*, device: Optional[Union[str, torch.device]] = None,
                                -(-n // max(st.local_size, 1)))
         st.owns_group = owns
         st.initialized = True
+        _install_global_set()
 
 
 def shutdown() -> None:
-    """Tear down framework state (``hvd.shutdown()`` parity); destroys
-    the process group if ``init()`` created it."""
+    """Tear down framework state (``hvd.shutdown()`` parity): forgets
+    every process set and destroys the process group if ``init()``
+    created it (which destroys the sets' groups with it); otherwise it
+    destroys the groups of the sets it registered."""
     st = global_state()
     with st.lock:
         if not st.initialized:
             return
         owns = st.owns_group
+        _drop_all(destroy=not owns and dist.is_initialized())
+        if not owns and dist.is_initialized():
+            for node, cross in st.hierarchy.values():
+                for g in (node, cross):
+                    if g not in (None, dist.GroupMember.NON_GROUP_MEMBER):
+                        dist.destroy_process_group(g)
         st.reset()
     if owns and dist.is_initialized():
         dist.destroy_process_group()
@@ -148,3 +158,56 @@ def nccl_built() -> bool:
 
 def cuda_built() -> bool:
     return torch.version.cuda is not None
+
+
+def is_homogeneous() -> bool:
+    """True when every node runs the same number of ranks:
+    ``local_size`` divides the world."""
+    st = _require_init()
+    return st.size % max(st.local_size, 1) == 0
+
+
+def gloo_built() -> bool:
+    return bool(dist.is_available() and dist.is_gloo_available())
+
+
+def mpi_built() -> bool:
+    """The port has no MPI controller: always False."""
+    return False
+
+
+def rocm_built() -> bool:
+    return torch.version.hip is not None
+
+
+def tpu_built() -> bool:
+    """The port runs on GPUs and CPUs: always False."""
+    return False
+
+
+def mpi_threads_supported() -> bool:
+    """No MPI, so no multithreaded MPI: always False."""
+    return False
+
+
+def join(device=None) -> int:
+    """Not ported: Horovod's join (ROADMAP item 1.8)."""
+    raise NotImplementedError("hvd.join is not ported (ROADMAP item 1.8)")
+
+
+def start_timeline(file_path: str, mark_cycles: bool = False) -> None:
+    """Not ported: the timeline writer (ROADMAP item 1.11)."""
+    raise NotImplementedError(
+        "hvd.start_timeline is not ported (ROADMAP item 1.11)")
+
+
+def stop_timeline() -> None:
+    """Not ported: the timeline writer (ROADMAP item 1.11)."""
+    raise NotImplementedError(
+        "hvd.stop_timeline is not ported (ROADMAP item 1.11)")
+
+
+def steps_per_execution(default: int = 1) -> int:
+    """Not ported: the autotuned inner-loop length (ROADMAP item 1.11)."""
+    raise NotImplementedError(
+        "hvd.steps_per_execution is not ported (ROADMAP item 1.11)")

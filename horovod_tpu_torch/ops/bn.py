@@ -239,11 +239,18 @@ def fused_bn_backward(x: torch.Tensor, scale: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def normalize(x, mean, inv, scale, bias, dtype):
+def normalize(x, mean, inv, scale, bias, dtype, out=None):
     """``(x - mean) * inv * scale + bias`` in f32 (in place on the one
-    full-size temporary), cast to ``dtype``."""
-    y = _wide(x) - mean
-    return y.mul_(inv).mul_(_wide(scale)).add_(_wide(bias)).to(dtype)
+    full-size temporary), cast to ``dtype``; written into ``out`` (and
+    ``out`` returned) when given -- an f32 ``out`` is the temporary."""
+    if out is not None and out.dtype == torch.float32:
+        y = torch.sub(_wide(x), mean, out=out)
+    else:
+        y = _wide(x) - mean
+    y = y.mul_(inv).mul_(_wide(scale)).add_(_wide(bias))
+    if out is None:
+        return y.to(dtype)
+    return y if y is out else out.copy_(y)
 
 
 class _BNTrain(torch.autograd.Function):

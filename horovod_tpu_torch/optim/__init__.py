@@ -2,5 +2,5 @@
 
 from .distributed import (DistributedAdasumOptimizer,  # noqa: F401
                           DistributedOptimizer, allreduce_gradients)
-from .functions import (broadcast_object,  # noqa: F401
+from .functions import (allgather_object, broadcast_object,  # noqa: F401
                         broadcast_optimizer_state, broadcast_parameters)

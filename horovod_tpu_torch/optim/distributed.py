@@ -49,6 +49,14 @@ exchange's point-to-point and gather calls in the same order, so Adasum
 gives up the overlap with the backward pass.  As in the JAX package,
 Adasum is applied to the gradients, not (as upstream Horovod's
 ``DistributedAdasumOptimizer`` does) to the optimizer's update.
+
+``process_set=`` exchanges every bucket over the set's group (members
+only; ``Average`` divides by the set's size), and ``sparse_as_dense=True``
+densifies a sparse gradient (``nn.Embedding(sparse=True)``) before it is
+packed, as ``horovod_tpu/torch_api/optimizer.py`` does; without it a
+sparse gradient raises ``ValueError``.  ``num_groups`` is accepted for
+Horovod's signature and has no effect: buckets follow the fusion
+threshold.
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ from ..collectives.ops import (Handle, allreduce_async_,
 from ..collectives.reduce_op import Adasum, Average, ReduceOp, Sum
 from ..controller.fusion import (FusionSpec, pack_bucket, plan_buckets,
                                  unpack, unpack_bucket)
+from ..core.process_sets import get_process_set
 from ..core.state import global_state
 from ..models.convert import (flax_leaf_order, from_flax_layout,
                               to_flax_layout)
@@ -94,7 +103,7 @@ def _ef_enabled() -> bool:
 
 def _launch_bucket(grads, lspecs, op: ReduceOp, compression,
                    prescale_factor: float, postscale_factor: float,
-                   divisor: int = 1) -> Tuple[Any, Any]:
+                   divisor: int = 1, process_set=None) -> Tuple[Any, Any]:
     """Pack one bucket's gradients (``grads[s.index]`` for each leaf spec)
     into a new flat buffer, divide it by ``divisor`` (the accumulated
     passes), compress it and launch its async allreduce.  Returns
@@ -105,7 +114,8 @@ def _launch_bucket(grads, lspecs, op: ReduceOp, compression,
         buf.div_(divisor)
     wire, ctx = compression.compress(buf)
     handle = allreduce_async_(wire, op, prescale_factor=prescale_factor,
-                              postscale_factor=postscale_factor)
+                              postscale_factor=postscale_factor,
+                              process_set=process_set)
     m = exchange_counters()
     m["buckets"].inc()
     m["handles"].inc()
@@ -116,7 +126,7 @@ def _launch_bucket(grads, lspecs, op: ReduceOp, compression,
 def _launch_ef_bucket(grads, lspecs, op: ReduceOp, compression,
                       residual: Optional[torch.Tensor],
                       prescale_factor: float,
-                      postscale_factor: float) -> Handle:
+                      postscale_factor: float, process_set=None) -> Handle:
     """Pack one bucket into a new flat buffer and start its PowerSGD
     exchange (stage 1 and the async P allreduce) with ``residual`` fed in
     (``None``: zeros).  ``handle.wait()`` returns ``(reduced bucket,
@@ -127,13 +137,15 @@ def _launch_ef_bucket(grads, lspecs, op: ReduceOp, compression,
     m["buckets"].inc()
     if not buf.dtype.is_floating_point:
         inner = allreduce_async_(buf, op, prescale_factor=prescale_factor,
-                                 postscale_factor=postscale_factor)
+                                 postscale_factor=postscale_factor,
+                                 process_set=process_set)
         m["handles"].inc()
         m["wire_bytes"].inc(buf.numel() * buf.element_size())
         return Handle(None, lambda: (inner.wait(), residual))
     handle = powersgd_allreduce_async(
         buf, op, rank=compression.rank, residual=residual,
-        prescale_factor=prescale_factor, postscale_factor=postscale_factor)
+        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
+        process_set=process_set)
     m["handles"].inc(2)
     m["wire_bytes"].inc(wire_payload_bytes(compression, buf.numel()))
     return handle
@@ -266,7 +278,11 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def _init_distributed(self, named_parameters, compression, op,
                           backward_passes_per_step: int,
                           gradient_predivide_factor: float,
-                          fusion_threshold: Optional[int]) -> None:
+                          fusion_threshold: Optional[int],
+                          process_set=None,
+                          sparse_as_dense: bool = False) -> None:
+        self._process_set = process_set
+        self._sparse_as_dense = sparse_as_dense
         f = float(gradient_predivide_factor)
         self._prescale, self._postscale = 1.0 / f, f
         if named_parameters is not None:
@@ -371,6 +387,14 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         grads = {}
         for s in lspecs:
             p = self._trainable[s.index]
+            if p.grad is not None and p.grad.is_sparse:
+                if not self._sparse_as_dense:
+                    raise ValueError(
+                        "sparse gradient encountered (e.g. Embedding("
+                        "sparse=True)); pass sparse_as_dense=True to "
+                        "DistributedOptimizer to densify it before the "
+                        "exchange")
+                p.grad = p.grad.to_dense()
             grads[s.index] = self._flax_view(
                 s.index, p.grad if p.grad is not None else torch.zeros_like(p))
         if self._ef:
@@ -378,11 +402,12 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             self._handles[b] = (_launch_ef_bucket(
                 grads, lspecs, self._op, self._compression,
                 self._residuals[b] if feed else None, self._prescale,
-                self._postscale), feed)
+                self._postscale, self._process_set), feed)
             return
         self._handles[b] = _launch_bucket(
             grads, lspecs, self._op, self._compression, self._prescale,
-            self._postscale, divisor=self.backward_passes_per_step)
+            self._postscale, divisor=self.backward_passes_per_step,
+            process_set=self._process_set)
 
     @property
     def residuals(self) -> Tuple[torch.Tensor, ...]:
@@ -438,8 +463,15 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         if first_error is not None:
             raise first_error
 
+    def skip_synchronize(self):
+        """A context in which ``step()`` does not synchronize: for a
+        caller that already called ``synchronize()`` (to clip the
+        reduced gradients, say), as upstream Horovod's."""
+        return _SkipSynchronize(self)
+
     def step(self, closure=None):
-        self.synchronize()
+        if getattr(self, "_should_synchronize", True):
+            self.synchronize()
         return super().step(closure)
 
     def zero_grad(self, *args, **kwargs):
@@ -450,12 +482,26 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         return super().zero_grad(*args, **kwargs)
 
 
+class _SkipSynchronize:
+    def __init__(self, opt) -> None:
+        self._opt = opt
+
+    def __enter__(self):
+        self._opt._should_synchronize = False
+
+    def __exit__(self, *exc) -> None:
+        self._opt._should_synchronize = True
+
+
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          named_parameters: Optional[Iterable] = None,
                          compression=None,
                          backward_passes_per_step: int = 1,
                          op: ReduceOp = Average,
                          gradient_predivide_factor: float = 1.0,
+                         num_groups: int = 0,
+                         process_set=None,
+                         sparse_as_dense: bool = False,
                          fusion_threshold: Optional[int] = None
                          ) -> torch.optim.Optimizer:
     """Wrap ``optimizer`` so ``step()`` sees gradients reduced over every
@@ -468,7 +514,10 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     The error-feedback codec ``Compression.powersgd(r)`` carries one
     residual per bucket (``optimizer.residuals``; ``HOROVOD_EF_RESIDUAL``)
     and supports Sum/Average with one backward pass per step.
-    ``op=Adasum`` needs a power-of-two world (see the module docstring)."""
+    ``op=Adasum`` needs a power-of-two world (see the module docstring).
+    ``process_set``, ``sparse_as_dense`` and ``num_groups``: see the
+    module docstring.  Every argument is checked before the optimizer's
+    class is rebound, so a refused wrap leaves it as it was."""
     if backward_passes_per_step < 1:
         raise ValueError("backward_passes_per_step must be >= 1")
     compression = _resolve_compression(compression)
@@ -486,13 +535,20 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     if gradient_predivide_factor <= 0.0:
         raise ValueError("gradient_predivide_factor must be positive, got "
                          f"{gradient_predivide_factor}")
+    if process_set is not None:
+        process_set = get_process_set(process_set)
+        if not process_set.included():
+            raise ValueError(
+                f"this rank is not a member of process set "
+                f"{process_set.name!r} (ranks {process_set.ranks})")
     named = list(named_parameters) if named_parameters is not None else None
     optimizer.__class__ = type(
         "Distributed" + optimizer.__class__.__name__,
         (_DistributedOptimizer, optimizer.__class__), {})
     optimizer._init_distributed(named, compression, op,
                                 backward_passes_per_step,
-                                gradient_predivide_factor, fusion_threshold)
+                                gradient_predivide_factor, fusion_threshold,
+                                process_set, sparse_as_dense)
     return optimizer
 
 

@@ -11,7 +11,8 @@ backward kernels.
   values) and runs pass 2 with the sums and the global row count, this
   rank's rows times the world size -- the gradient of the global batch,
   as autodiff through flax's ``pmean`` gives it.
-* :class:`SyncBatchNorm` -- ``hvd.SyncBatchNorm``, below.
+* :class:`SyncBatchNorm` -- ``hvd.SyncBatchNorm``, below, over every rank
+  or over the members of a process set (``process_set=``).
 
 Both layers' parameters get the LOCAL sums, which the
 DistributedOptimizer averages like every other gradient.  Their
@@ -26,7 +27,8 @@ channels at dim 1, torch's ``momentum`` (``None`` for a cumulative
 average), the UNBIASED running variance (with the global count), and
 ``weight`` / ``bias``.
 
-In training mode:
+In training mode, over the process set's group (every rank by default;
+its ``count`` is the set's global row count):
 
 * forward -- one ``Sum`` allreduce of the local f32 ``(sum, sum of
   squares, count)`` (``2C + 1`` values) gives the global mean and biased
@@ -57,23 +59,25 @@ from .collectives.ops import allreduce_async_
 from .collectives.reduce_op import Average, Sum
 from .core.basics import size
 from .core.device import resolve_device
+from .core.process_sets import get_process_set
 from .ops.bn import bn_train_with_stats, fused_bn_backward, normalize
 from .timeline.metrics import note_sync_bn_allreduce, sync_bn_counters
 
 
-def _allreduce(rows: torch.Tensor, op) -> torch.Tensor:
-    """``rows`` (f32, per channel) allreduced in place over every rank,
-    counted by the sync-BN exchange counters."""
+def _allreduce(rows: torch.Tensor, op, process_set=None) -> torch.Tensor:
+    """``rows`` (f32, per channel) allreduced in place over the set's
+    ranks (every rank by default), counted by the sync-BN exchange
+    counters."""
     note_sync_bn_allreduce(rows.numel() * rows.element_size())
-    return allreduce_async_(rows, op).wait()
+    return allreduce_async_(rows, op, process_set=process_set).wait()
 
 
 def _average(rows: torch.Tensor) -> torch.Tensor:
     return _allreduce(rows, Average)
 
 
-def _sum(rows: torch.Tensor) -> torch.Tensor:
-    return _allreduce(rows, Sum)
+def _sum(rows: torch.Tensor, process_set=None) -> torch.Tensor:
+    return _allreduce(rows, Sum, process_set)
 
 
 def sync_bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -104,57 +108,71 @@ def _from_rows(rows: torch.Tensor, shape: torch.Size) -> torch.Tensor:
     return v.permute(0, v.dim() - 1, *range(1, v.dim() - 1))
 
 
+def _empty_channels_last(shape: torch.Size, dtype, device) -> torch.Tensor:
+    """A new tensor of ``shape`` laid out channels-last (channels at dim
+    1, stride 1), which is not a view: the forward's output may be
+    modified in place (an ``nn.ReLU(inplace=True)`` after it), which
+    autograd forbids on a view made inside a custom Function."""
+    strides, acc = [0] * len(shape), shape[1]
+    strides[1] = 1
+    for d in range(len(shape) - 1, 1, -1):
+        strides[d] = acc
+        acc *= shape[d]
+    strides[0] = acc
+    return torch.empty_strided(tuple(shape), tuple(strides), dtype=dtype,
+                               device=device)
+
+
 class _SyncBatchNormFn(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, process_set):
         c = x.shape[1]
         rows = _rows(x)
         xf = rows.float()
         stats = torch.cat([xf.sum(0), xf.square().sum(0),
                            xf.new_full((1,), float(rows.shape[0]))])
-        stats = _sum(stats)
+        stats = _sum(stats, process_set)
         count = stats[-1].item()
         mean = stats[:c] / count
         var = torch.clamp_min(stats[c:2 * c] / count - mean.square(), 0.0)
         scale = weight.float() if weight is not None else \
             torch.ones_like(mean)
         shift = bias.float() if bias is not None else torch.zeros_like(mean)
-        y = normalize(xf, mean, torch.rsqrt(var + eps), scale, shift,
-                      x.dtype)
+        out = _empty_channels_last(x.shape, x.dtype, x.device)
+        normalize(xf, mean, torch.rsqrt(var + eps), scale, shift, x.dtype,
+                  out=_rows(out))
         ctx.save_for_backward(rows, scale, mean, var)
         ctx.count, ctx.eps, ctx.shape = count, eps, x.shape
+        ctx.process_set = process_set
         ctx.param_dtype = weight.dtype if weight is not None else None
         ctx.mark_non_differentiable(mean, var)
-        return _from_rows(y, x.shape), mean, var, count
+        return out, mean, var, count
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar, _dcount):
         rows, scale, mean, var = ctx.saved_tensors
         dx, dgamma, dbeta = fused_bn_backward(
             rows, scale, mean, var, _rows(dy), eps=ctx.eps, count=ctx.count,
-            allreduce=_sum)
+            allreduce=lambda sums: _sum(sums, ctx.process_set))
         grads = (None, None) if ctx.param_dtype is None else (
             dgamma.to(ctx.param_dtype), dbeta.to(ctx.param_dtype))
-        return _from_rows(dx, ctx.shape), *grads, None
+        return _from_rows(dx, ctx.shape), *grads, None, None
 
 
 class SyncBatchNorm(_BatchNorm):
     """Drop-in ``hvd.SyncBatchNorm(num_features, eps=1e-5, momentum=0.1,
-    affine=True, track_running_stats=True)`` over every rank.
-
-    ``process_set`` other than ``None`` (the global set) is not ported.
-    Parameters live on ``device`` (``cuda`` unless the caller asks for the
-    CPU)."""
+    affine=True, track_running_stats=True, process_set=None)`` over every
+    rank, or over the members of ``process_set`` (a non-member raises in
+    training mode).  Parameters live on ``device`` (``cuda`` unless the
+    caller asks for the CPU)."""
 
     def __init__(self, num_features: int, *args, process_set=None,
                  device=None, **kwargs):
-        if process_set is not None:
-            raise NotImplementedError(
-                "SyncBatchNorm(process_set=...) is not ported: process "
-                "sets are ROADMAP item 1.2")
         super().__init__(num_features, *args, device=resolve_device(device),
                          **kwargs)
+        self.process_set = None if process_set is None else \
+            get_process_set(process_set)
 
     def _check_input_dim(self, input: torch.Tensor) -> None:
         if input.dim() < 2:
@@ -166,7 +184,7 @@ class SyncBatchNorm(_BatchNorm):
         if not self.training:
             return super().forward(input)
         out, mean, var, count = _SyncBatchNormFn.apply(
-            input, self.weight, self.bias, float(self.eps))
+            input, self.weight, self.bias, float(self.eps), self.process_set)
         if self.track_running_stats:
             with torch.no_grad():
                 self.num_batches_tracked += 1

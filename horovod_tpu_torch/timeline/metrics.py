@@ -317,6 +317,65 @@ def note_sync_bn_allreduce(nbytes: int) -> None:
     m["wire_bytes"].inc(nbytes)
 
 
+_COLLECTIVE = {
+    "calls": ("horovod_collective_calls_total",
+              "collective ops called, by op kind and process set"),
+    "bytes": ("horovod_collective_bytes_total",
+              "bytes of the tensors one rank handed to collective ops"),
+    "handles": ("horovod_collective_handles_total",
+                "integer handles issued by the *_async surface"),
+}
+_COLLECTIVE_LABELS = ("op", "process_set")
+
+
+# The labelled children of the registry they were made in: every
+# collective call counts itself, so the family and label lookups are made
+# once per (op, process set), not once per call.
+_collective_children: Dict[Tuple[str, str], Dict[str, object]] = {}
+_collective_children_of: Optional[MetricsRegistry] = None
+
+
+def collective_counters(op: str, process_set: str) -> Dict[str, object]:
+    """The counters of one op kind (``allreduce``, ``reducescatter``,
+    ...) on one process set (by name): calls, input bytes and integer
+    handles.  They sit beside :func:`exchange_counters`, which count the
+    DistributedOptimizer's buckets whatever op carries them."""
+    global _collective_children_of
+    reg = registry()
+    if not reg.enabled:
+        return dict.fromkeys(_COLLECTIVE, NULL_METRIC)
+    if reg is not _collective_children_of:
+        _collective_children.clear()
+        _collective_children_of = reg
+    m = _collective_children.get((op, process_set))
+    if m is None:
+        m = _collective_children[(op, process_set)] = {
+            k: reg.counter(name, help, _COLLECTIVE_LABELS).labels(
+                op=op, process_set=process_set)
+            for k, (name, help) in _COLLECTIVE.items()}
+    return m
+
+
+def collective_totals() -> Dict[Tuple[str, str], Dict[str, float]]:
+    """``{(op, process set): {"calls", "bytes", "handles"}}`` so far (empty
+    when ``HOROVOD_METRICS=0``)."""
+    out: Dict[Tuple[str, str], Dict[str, float]] = {}
+    snap = registry().snapshot()
+    for key, (name, _) in _COLLECTIVE.items():
+        for sample in snap.get(name, {}).get("samples", ()):
+            lab = sample["labels"]
+            row = out.setdefault((lab["op"], lab["process_set"]),
+                                 dict.fromkeys(_COLLECTIVE, 0.0))
+            row[key] = sample["value"]
+    return out
+
+
+def note_collective(op: str, process_set: str, nbytes: int) -> None:
+    m = collective_counters(op, process_set)
+    m["calls"].inc()
+    m["bytes"].inc(nbytes)
+
+
 def note_compression_ratio(uncompressed: int, wire: int) -> None:
     """Set the compression gauges of one optimizer step's exchange (the
     JAX package's ``_note_compression_ratio``): wire and uncompressed

@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100::
     python3 profile_torch_training.py --model resnet50 --compression powersgd:4
     python3 profile_torch_training.py --model bert-large  # BERT-Large Adasum
     python3 profile_torch_training.py --model inception_v3  # or vgg16
+    python3 profile_torch_training.py --model torch_resnet50
 
 ``llama`` (the default) builds the trainer of ``chip_smoke.py``'s train
 phase -- Llama-3 8B at full width and depth, random bf16 base from seed
@@ -26,11 +27,17 @@ and ``vgg16`` build the synthetic benchmark's own setup
 ``inception_train`` and ``vgg_train`` phases do: 32 images of 299 x 299
 (224 x 224) from a seed, bf16 compute, 1000 classes, random weights from
 seed 0, ``DistributedOptimizer(SGD(0.01, momentum 0.9))``, dropout 0,
-``make_flax_train_step``.  ``--compression``
+``make_flax_train_step``.  ``torch_resnet50`` builds the stock Horovod
+script ``horovod_tpu_torch.examples.torch_resnet50``'s setup, as
+``chip_smoke.py``'s ``torch_resnet50`` phase does: the torch-idiom
+ResNet-50 at full width, 256 images of 224 x 224, channels_last, bf16
+autocast, 53 ``hvd.SyncBatchNorm(process_set=ps)`` sites,
+``DistributedOptimizer(SGD(0.1, momentum 0.9), compression=fp16,
+process_set=ps)``.  ``--compression``
 gives the optimizer another
 codec spec (``none``, ``fp16``, ``bf16`` or ``powersgd:<r>``; by default
-each model's own: bf16 for the LoRA adapters, fp16 for BERT-Large, none
-for ResNet-50 and the other CNNs);
+each model's own: bf16 for the LoRA adapters, fp16 for BERT-Large and
+the torch-idiom ResNet-50, none for ResNet-50 and the other CNNs);
 ``powersgd:4`` is the PowerSGD cell of ``chip_smoke.py``'s
 ``resnet_powersgd`` phase, whose three exchange stages are grouped as
 ``fused_update``.  Either takes one warm-up step, then profiles
@@ -79,6 +86,7 @@ GROUPS = {
 }
 GROUPS["bert-large"] = GROUPS["llama"]
 GROUPS["inception_v3"] = GROUPS["vgg16"] = GROUPS["resnet50"]
+GROUPS["torch_resnet50"] = GROUPS["resnet50"]
 
 
 def llama_step(dev, hvd, compression):
@@ -160,6 +168,15 @@ def cnn_step(name):
     return build
 
 
+def torch_resnet50_step(dev, hvd, compression):
+    from horovod_tpu_torch.examples import torch_resnet50 as ex
+    args = ex.parse_args(["--compression", compression or "fp16"])
+    bench = ex.setup(args)
+    info = {"batch": list(bench.batch[0].shape),
+            "process_set": bench.process_set.name}
+    return bench.step, bench.optimizer, info
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--model", choices=sorted(GROUPS), default="llama")
@@ -181,7 +198,8 @@ def main() -> int:
     hvd.init()
     build = {"llama": llama_step, "resnet50": resnet_step,
              "bert-large": bert_step, "inception_v3": cnn_step(args.model),
-             "vgg16": cnn_step(args.model)}[args.model]
+             "vgg16": cnn_step(args.model),
+             "torch_resnet50": torch_resnet50_step}[args.model]
     step, opt, info = build(dev, hvd, args.compression)
     warm = step().item()
     torch.cuda.reset_peak_memory_stats()

@@ -354,12 +354,13 @@ def test_adasum_world_of_one_returns_the_input(world1):
         thvd.allreduce(half, thvd.Adasum, prescale_factor=0.5,
                        postscale_factor=3.0).numpy(),
         (half * 0.5 * 3.0).numpy())
-    with pytest.raises(NotImplementedError, match="1.2"):
-        adasum_allreduce(x, members=(0,))
+    # The process-set and hierarchical variants over one rank: the input.
+    assert adasum_allreduce(x, members=(0,)) is x
+    assert adasum_allreduce_hierarchical(x) is x
     with pytest.raises(NotImplementedError, match="1.9"):
         adasum_allreduce(x, wire_codec="fp8")
-    with pytest.raises(NotImplementedError, match="1.2"):
-        adasum_allreduce_hierarchical(x)
+    with pytest.raises(NotImplementedError, match="1.9"):
+        adasum_allreduce_hierarchical(x, wire_codec="fp8")
 
 
 def test_adasum_optimizer_rejects_what_jax_rejects(world1):

@@ -63,7 +63,7 @@ def _worker(rank: int, store_path: str, out: str) -> None:
     res["min"] = hvd.allreduce(x, hvd.Min)
     res["max"] = hvd.allreduce(x, hvd.Max)
     res["prod"] = hvd.allreduce(x, hvd.Product)
-    res["async"] = hvd.allreduce_async(x, hvd.Sum).wait()
+    res["async"] = hvd.synchronize(hvd.allreduce_async(x, hvd.Sum))
     res["x_untouched"] = torch.equal(x, x_copy)
     res["grouped"] = hvd.grouped_allreduce(
         [torch.from_numpy(inp["g32"]),

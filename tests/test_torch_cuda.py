@@ -937,3 +937,95 @@ def test_cuda_flash_forward_writes_o_residual_for_the_backward(cuda, d,
         q, k, v, None, None, scale=d ** -0.5, causal=False)[0])
     assert tattn._flash_forward(q, k, v, None, None, scale=d ** -0.5,
                                 causal=False)[2] is None
+
+
+# ---------------------------------------------------------------------------
+# The horovod.torch surface on NCCL (world 1)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("set_kind", ["global", "one_member"])
+def test_cuda_torch_api_ops_on_nccl(world1_cuda, set_kind):
+    """Every op of the surface on NCCL at world 1, on the global set and
+    on ``add_process_set([0])``: each an identity or a slice, exactly."""
+    hvd = world1_cuda
+    ps = None if set_kind == "global" else hvd.add_process_set([0])
+    rng = np.random.RandomState(80)
+    x = _randn(rng, 8, 6).to("cuda")
+    kw = dict(process_set=ps)
+    for op in (hvd.Sum, hvd.Average, hvd.Min, hvd.Max, hvd.Product):
+        assert torch.equal(hvd.allreduce(x, op=op, **kw), x)
+        assert torch.equal(hvd.reducescatter(x, op=op, **kw), x)
+        assert torch.equal(hvd.reducescatter(x, op=op, scatter_axis=1, **kw),
+                           x)
+    assert torch.equal(hvd.allreduce(x, op=hvd.Adasum, **kw), x)
+    assert torch.equal(hvd.alltoall(x, **kw), x)
+    got, splits = hvd.alltoall(x, splits=torch.tensor([8]), **kw)
+    assert torch.equal(got, x) and splits.tolist() == [8]
+    ys = hvd.grouped_allgather([x, x[:3]], **kw)
+    assert torch.equal(ys[0], x) and torch.equal(ys[1], x[:3])
+    ys = hvd.grouped_reducescatter([x, x[:2]], op=hvd.Sum, **kw)
+    assert torch.equal(ys[0], x) and torch.equal(ys[1], x[:2])
+    assert torch.equal(hvd.broadcast(x, 0, **kw), x)
+    sp = x.to_sparse()
+    got = hvd.synchronize(hvd.sparse_allreduce_async(sp, op=hvd.Sum, **kw))
+    assert got.is_sparse and torch.equal(got.to_dense(), x)
+    assert hvd.allgather_object({"a": [1, 2]}, **kw) == [{"a": [1, 2]}]
+    h = hvd.allreduce_async(x, op=hvd.Sum, **kw)
+    out = hvd.synchronize(h)
+    assert torch.equal(out, x)
+    with pytest.raises(ValueError):
+        hvd.poll(h)
+    hvd.barrier(**kw)
+    from horovod_tpu_torch.adasum.vhdd import adasum_allreduce_hierarchical
+    assert torch.equal(adasum_allreduce_hierarchical(x, local_size=1), x)
+
+
+@pytest.mark.cuda
+def test_cuda_sync_batch_norm_process_set_at_resnet_width(world1_cuda):
+    """``SyncBatchNorm(process_set={0})`` at ResNet-50's ``[256, 256, 56,
+    56]`` channels-last bf16 (NHWC ``[256, 56, 56, 256]``) against
+    autograd of the f32 formula: one launch of each BN kernel, two
+    allreduces, no layout copy; the output takes an in-place ReLU."""
+    from horovod_tpu_torch.timeline.metrics import sync_bn_totals
+    hvd = world1_cuda
+    ps = hvd.add_process_set([0])
+    rng = np.random.RandomState(81)
+    cl = dict(memory_format=torch.channels_last)
+    shape = (256, 256, 56, 56)
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    x = (2.0 * torch.randn(*shape, generator=gen, device="cuda") + 0.5).to(
+        torch.bfloat16).contiguous(**cl)
+    dy = torch.randn(*shape, generator=gen, device="cuda").to(
+        torch.bfloat16).contiguous(**cl)
+    m = hvd.SyncBatchNorm(256, process_set=ps)
+    with torch.no_grad():
+        m.weight.copy_(1.0 + 0.1 * _randn(rng, 256))
+        m.bias.copy_(0.1 * _randn(rng, 256))
+    before = sync_bn_totals()
+    registry.reset_launch_counts()
+    xt = x.detach().requires_grad_(True)
+    y = m(xt)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert registry.launches("bn_bwd_reduce") == 1
+    assert registry.launches("bn_bwd_dx") == 1
+    moved = {k: v - before[k] for k, v in sync_bn_totals().items()}
+    assert moved["allreduces"] == 2 and moved["layout_copies"] == 0
+    xf = x.detach().float().requires_grad_(True)
+    w = m.weight.detach().clone().requires_grad_(True)
+    b = m.bias.detach().clone().requires_grad_(True)
+    mean = xf.mean((0, 2, 3), keepdim=True)
+    var = (xf.square().mean((0, 2, 3), keepdim=True) - mean.square())
+    want = ((xf - mean) * torch.rsqrt(var + m.eps) * w.view(1, -1, 1, 1)
+            + b.view(1, -1, 1, 1))
+    want.backward(dy.float())
+    for got, ref, rel in ((y, want, BF16_REL), (xt.grad, xf.grad, BF16_REL),
+                          (m.weight.grad, w.grad, BN_SUM_REL),
+                          (m.bias.grad, b.grad, BN_SUM_REL)):
+        assert (got.float() - ref.detach()).abs().max().item() <= \
+            rel * ref.detach().abs().max().item()
+    z = m(x[:4].detach().requires_grad_(True))
+    torch.relu_(z)                       # not a view: in place is allowed
+    z.sum().backward()

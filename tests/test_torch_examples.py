@@ -1,0 +1,200 @@
+"""PyTorch/CUDA port: the Horovod PyTorch examples in the package
+(``horovod_tpu_torch/examples``), against one process and the JAX
+package's shim.
+
+* ``pytorch_mnist``'s training loop (``train``, eight steps) in a gloo
+  world of 2 (this file, run as a script, is each rank; a ``FileStore``
+  under pytest's temporary directory) with ``--compression none``: the
+  loss curve and the final weights equal one
+  process training the same ``Net`` with plain ``SGD(0.05, momentum
+  0.9)`` on the two ranks' batches concatenated (the Average of two
+  equal halves' mean gradients is the whole batch's), losses within
+  1e-5 relative, weights within 1e-5 absolute.
+* ``pytorch_mnist`` at world 1 with fp16 compression (the example's
+  default) against the JAX repository's shim (``horovod_tpu.torch_api``
+  on a one-device mesh) running the JAX example's ``Net`` from the same
+  seed through the same loop: the same five losses and final weights
+  within 1e-6 (ROADMAP item 1.4's parity point).
+* The script's ``main()`` at world 1 with its defaults (30 steps, fp16)
+  passes its final-loss check; two steps fail it.
+* ``torch_resnet50`` runs two steps on the CPU at 64 x 64, batch 4,
+  through the sync-BN layer's plain path: 53 ``SyncBatchNorm`` sites,
+  25,557,032 parameters in 161 tensors, finite losses.
+"""
+
+import importlib.util
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import horovod_tpu_torch as thvd
+from horovod_tpu_torch.examples import pytorch_mnist, torch_resnet50
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "HOROVOD_RANK",
+                 "HOROVOD_SIZE", "HVD_TPU_RANK", "HVD_TPU_SIZE")
+WORLD2_STEPS = 8
+SHIM_STEPS = 5
+LOSS_RTOL = 1e-5
+PARAM_ATOL = 1e-5
+SHIM_TOL = 1e-6
+
+
+def _worker(rank: int, world: int, store_path: str, out: str) -> None:
+    import torch.distributed as dist
+    thvd.init(device="cpu", store=dist.FileStore(store_path, world),
+              rank=rank, size=world)
+    run = pytorch_mnist.train(pytorch_mnist.parse_args(
+        ["--device", "cpu", "--compression", "none",
+         "--steps", str(WORLD2_STEPS)]))
+    torch.save({"losses": run.losses,
+                "params": {k: v.detach().clone()
+                           for k, v in run.model.state_dict().items()}},
+               out)
+    thvd.shutdown()
+
+
+def _run_world(tmp, world):
+    store = str(tmp / "store")
+    env = {k: v for k, v in os.environ.items() if k not in _LAUNCHER_ENV}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, str(r), str(world), store,
+         str(tmp / f"r{r}.pt")], env=env, cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log
+    return {r: torch.load(tmp / f"r{r}.pt", weights_only=False)
+            for r in range(world)}
+
+
+@pytest.fixture
+def world1():
+    env = {k: os.environ.pop(k) for k in _LAUNCHER_ENV if k in os.environ}
+    yield thvd
+    thvd.shutdown()
+    os.environ.update(env)
+
+
+def _one_process_on_both_batches(steps, batch_size=64):
+    torch.manual_seed(42)
+    model = pytorch_mnist.Net()
+    sgd = torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9)
+    centers = pytorch_mnist.class_centers()
+    losses = []
+    for step in range(steps):
+        parts = [pytorch_mnist.synthetic_batch(centers, step, r, batch_size)
+                 for r in range(2)]
+        x, y = (torch.from_numpy(np.concatenate(p)) for p in zip(*parts))
+        sgd.zero_grad()
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        sgd.step()
+        losses.append(loss.item())
+    return losses, model.state_dict()
+
+
+def test_pytorch_mnist_world_of_two_equals_one_process(tmp_path):
+    got = _run_world(tmp_path, 2)
+    want_losses, want_params = _one_process_on_both_batches(WORLD2_STEPS)
+    for r in range(2):
+        np.testing.assert_allclose(got[r]["losses"], want_losses,
+                                   rtol=LOSS_RTOL)
+        for k, v in want_params.items():
+            np.testing.assert_allclose(got[r]["params"][k].numpy(),
+                                       v.numpy(), rtol=0, atol=PARAM_ATOL,
+                                       err_msg=k)
+
+
+def _jax_example_net():
+    """The JAX repository's ``examples/pytorch_mnist.py`` ``Net``."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_pytorch_mnist", os.path.join(REPO, "examples",
+                                          "pytorch_mnist.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.Net
+
+
+def _shim_run(steps):
+    """The example's loop through ``horovod_tpu.torch_api`` on one
+    device: ``(losses, final state_dict)``."""
+    import horovod_tpu as jhvd
+    import horovod_tpu.torch_api as shvd
+    jhvd.shutdown()
+    jhvd.init(devices=jax.devices()[:1])
+    try:
+        torch.manual_seed(42)
+        model = _jax_example_net()()
+        opt = shvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9),
+            named_parameters=model.named_parameters(),
+            compression=shvd.Compression.fp16)
+        shvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        shvd.broadcast_optimizer_state(opt, root_rank=0)
+        centers = pytorch_mnist.class_centers()
+        losses = []
+        for step in range(steps):
+            opt.zero_grad()
+            x, y = (torch.from_numpy(a) for a in pytorch_mnist
+                    .synthetic_batch(centers, step, 0, 64))
+            loss = F.cross_entropy(model(x), y)
+            loss.backward()
+            opt.step()
+            losses.append(float(shvd.allreduce(loss.detach(), name="loss")))
+        return losses, {k: v.detach().clone()
+                        for k, v in model.state_dict().items()}
+    finally:
+        jhvd.shutdown()
+
+
+def test_pytorch_mnist_world_of_one_matches_the_jax_shim(world1):
+    want_losses, want_params = _shim_run(SHIM_STEPS)
+    run = pytorch_mnist.train(pytorch_mnist.parse_args(
+        ["--device", "cpu", "--steps", str(SHIM_STEPS)]))
+    np.testing.assert_allclose(run.losses, want_losses, rtol=SHIM_TOL)
+    got = run.model.state_dict()
+    assert set(got) == set(want_params)
+    for k, v in want_params.items():
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=0,
+                                   atol=SHIM_TOL, err_msg=k)
+
+
+def test_pytorch_mnist_checks_its_final_loss(world1):
+    with pytest.raises(AssertionError, match="did not fall"):
+        pytorch_mnist.main(["--device", "cpu", "--steps", "2"])
+
+
+def test_pytorch_mnist_script_passes_its_check(world1):
+    """The script as a user runs it: 30 steps, fp16, the final-loss
+    check."""
+    run = pytorch_mnist.main(["--device", "cpu"])
+    assert len(run.losses) == 30 and run.losses[-1] < 0.7 * run.losses[0]
+
+
+def test_torch_resnet50_runs_on_the_cpu(world1):
+    run = torch_resnet50.main(["--device", "cpu", "--image-size", "64",
+                               "--batch-size", "4", "--steps", "2"])
+    assert len(run["losses"]) == 2 and np.isfinite(run["losses"]).all()
+
+
+def test_torch_resnet50_full_width_counts():
+    model = torch_resnet50.ResNet50(
+        1000, lambda c: thvd.SyncBatchNorm(c, device="meta"))
+    params = list(model.parameters())
+    assert sum(p.numel() for p in params) == 25_557_032
+    assert len(params) == 161
+    assert sum(isinstance(m, thvd.SyncBatchNorm)
+               for m in model.modules()) == torch_resnet50.RESNET50_BN_SITES
+
+
+if __name__ == "__main__":
+    _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])

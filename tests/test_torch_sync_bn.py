@@ -396,7 +396,7 @@ def test_hvd_sync_batch_norm_matches_the_jax_shim_at_world_one(world1):
 def test_hvd_sync_batch_norm_layouts_and_refusals(world1):
     """A channels-last input goes to the kernels as a view; any other
     layout is copied once, and counted.  No affine parameters, 2-D and
-    1-D inputs, and process sets."""
+    1-D inputs, and a process set (unregistered: refused)."""
     rng = np.random.RandomState(21)
     x = torch.from_numpy(rng.randn(4, C, 5, 3).astype(np.float32))
     m = thvd.SyncBatchNorm(C, device="cpu")
@@ -420,8 +420,17 @@ def test_hvd_sync_batch_norm_layouts_and_refusals(world1):
     assert plain.weight is None
     with pytest.raises(ValueError, match="2D"):
         m(torch.randn(C))
-    with pytest.raises(NotImplementedError, match="1.2"):
+    # A process set must be registered; over {0} at world 1 the layer is
+    # the global one.
+    with pytest.raises(thvd.ProcessSetError):
         thvd.SyncBatchNorm(C, process_set=object(), device="cpu")
+    ps = thvd.add_process_set([0])
+    one = thvd.SyncBatchNorm(C, process_set=ps, device="cpu")
+    one.load_state_dict(m.state_dict())
+    xs = x.detach().to(memory_format=torch.channels_last)
+    np.testing.assert_array_equal(one(xs).detach().numpy(),
+                                  m(xs).detach().numpy())
+    thvd.remove_process_set(ps)
 
 
 # ---------------------------------------------------------------------------
