@@ -139,6 +139,25 @@ Phases, each printing its own line; any failure exits non-zero:
    parameter changed, 53 launches of each BN kernel and 106 sync-BN
    allreduces a step, the planned buckets with 51,114,064 wire bytes a
    step, and the layout copies a step (expected 0).
+20. resnet_exchange -- phase 8's ResNet-50 (256 x 224 x 224, bf16, seed
+   0) through three exchanges, one warm-up and five timed steps each,
+   the model reset and only the optimizer rebuilt between them: (a)
+   ``zero_stage=1`` with the bare ``SGD(0.1, momentum 0.9)`` (``bench.py``'s
+   ``batch256_s2d_bf16_zero1``): ZeRO-1 bytes a step equal to
+   ``zero_report``'s, and parameters within 1e-6 of max |param| of plain
+   SGD's after six steps from the same weights on the same batch
+   (deterministic cuDNN in both runs; bitwise equality recorded); (b)
+   ``DistributedOptimizer(SGD, compression=Compression.fp8)``: the first
+   step's every bucket bitwise its fp8 round trip, one wire byte a value;
+   (c) ``topk:0.25`` with error feedback: ``own + new_residual == acc``
+   bitwise for every bucket on every step, the residual zero at the k
+   sent indices and ``acc`` at the rest, ``8k / 2`` wire bytes a bucket.
+   Each: step ms, images/s, peak memory, buckets, handles and wire bytes a
+   step, 53 launches of each BN kernel a step, five finite losses.
+
+Phase 17 also holds ``chunked_allreduce`` (equal to ``allreduce`` at
+world 1) and ``fp8_allreduce`` (bitwise its round trip) on its 64 MiB
+buffer and times them.
 
 Then one JSON line of per-kernel numbers, the card line, and last the
 ``{"ok": true, "device": ...}`` line.  Without a GPU, or without the rest
@@ -2248,6 +2267,20 @@ def check_torch_api(dev, card: str) -> None:
 
     big = torch.randn(TORCH_API_BYTES // 4, generator=gen, device=dev)
     rows = big.view(-1, 1024)
+    # The exchanges of the compressed paths on the same 64 MiB: at world
+    # 1 the chunked allreduce is the allreduce (as in the reference), the
+    # fp8 one the round trip quantize, dequantize, quantize, dequantize.
+    chunk = TORCH_API_BYTES // 16
+    _exact(fails, "chunked_allreduce",
+           hvd.collective_ops.chunked_allreduce(big, hvd.Sum,
+                                                chunk_bytes=chunk),
+           hvd.allreduce(big, op=hvd.Sum))
+    _exact(fails, "fp8_allreduce", hvd.collective_ops.fp8_allreduce(big),
+           _fp8_round_trip(big))
+    _exact(fails, "allreduce(compression=fp8)",
+           hvd.allreduce(big, op=hvd.Sum, compression=hvd.Compression.fp8),
+           _fp8_round_trip(big))
+    ops_checked += 3
     timed = {
         "allreduce": lambda: hvd.allreduce(big, op=hvd.Sum),
         "allreduce_one_member_set": lambda: hvd.allreduce(
@@ -2261,6 +2294,9 @@ def check_torch_api(dev, card: str) -> None:
         "allgather": lambda: hvd.allgather(rows),
         "broadcast": lambda: hvd.broadcast(big, 0),
         "grouped_allgather": lambda: hvd.grouped_allgather([rows]),
+        "chunked_allreduce": lambda: hvd.collective_ops.chunked_allreduce(
+            big, hvd.Sum, chunk_bytes=chunk),
+        "fp8_allreduce": lambda: hvd.collective_ops.fp8_allreduce(big),
         # Yardsticks, not the port: one torch.distributed call, and the
         # copy an out-of-place op makes.
         "torch_distributed_all_reduce": lambda: torch.distributed.all_reduce(
@@ -2393,6 +2429,272 @@ def train_torch_resnet50(dev, card: str) -> dict:
     return counts
 
 
+EXCHANGE_TOPK = 0.25          # bench.py:272's fraction for topk:<f>
+EXCHANGE_ZERO_TOL = 1e-6      # ZeRO-1 vs plain SGD: of max |param|
+
+
+def _fp8_round_trip(buf: torch.Tensor) -> torch.Tensor:
+    """``fp8_allreduce`` of one rank, by hand: quantize, dequantize, the
+    f32 reduce of one row, quantize, dequantize."""
+    from horovod_tpu_torch.collectives.compression import fp8_quantize
+    q, s = fp8_quantize(buf.float().reshape(1, -1), axis=0)
+    acc = (q.float() * s[:, None]).sum(0) / 1
+    q2, s2 = fp8_quantize(acc)
+    return (q2.float() * s2).view(buf.shape).to(buf.dtype)
+
+
+def _timed_steps(step, batch, steps: int, after=None) -> tuple:
+    """One warm-up and ``steps`` timed steps, ``after()`` (a check)
+    outside the timing after each: (losses, ms each, launch counts,
+    exchange and ZeRO counters moved a step, peak bytes)."""
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.timeline.metrics import (exchange_totals,
+                                                    zero_totals)
+    after = after or (lambda: None)
+    losses = [step(batch).item()]
+    after()
+    before, zbefore = exchange_totals(legs=True), zero_totals()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(step(batch).item())
+        times.append(time.perf_counter() - t)
+        after()
+    counts = registry.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: (v - before[k]) / steps
+                for k, v in exchange_totals(legs=True).items()}
+    zero_step = {k: (v - zbefore[k]) / steps
+                 for k, v in zero_totals().items() if k != "opt_state_bytes"}
+    return losses, [1e3 * t for t in times], counts, per_step, zero_step, peak
+
+
+def train_resnet_exchange(dev, card: str) -> dict:
+    """``resnet_train``'s ResNet-50 (s2d, bf16, 256 x 224 x 224, weights
+    from seed 0) through three exchanges, the model reset to its initial
+    weights and only the optimizer rebuilt between them, each one warm-up
+    and five timed steps:
+
+    (a) ``zero_stage=1`` with the bare ``SGD(0.1, momentum 0.9)``
+        (``bench.py``'s ``batch256_s2d_bf16_zero1``): the ZeRO-1 bytes a
+        step equal ``zero_report``'s, and -- in two further runs of six
+        steps from the initial weights with deterministic cuDNN
+        algorithms, so that only the optimizer differs -- the parameters
+        within 1e-6 of max |param| of plain SGD's (bitwise equality
+        recorded);
+    (b) ``DistributedOptimizer(SGD, compression=Compression.fp8)`` (the
+        codec of ``bench_scaling.py``'s ``rn50-fp8``): on the first step
+        each bucket's result is bitwise the fp8 round trip of its packed
+        gradient, and the wire bytes a step are ``wire_payload_bytes``;
+    (c) ``compression="topk:0.25"`` with error feedback: on every step
+        ``own + new_residual == acc`` bitwise for every bucket, the
+        residual zero exactly at the k sent indices and ``acc`` at the
+        ``size - k`` others, and ``8k / 2`` wire bytes a bucket.
+
+    Each prints its step ms, images/s, peak memory, buckets, handles and
+    wire bytes a step, 53 + 53 BN launches a step and five finite losses.
+    Returns the BN kernels' launches over the fifteen timed steps."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.collectives import ops as cops
+    from horovod_tpu_torch.collectives.compression import (
+        parse_compression, topk_count, wire_payload_bytes)
+    from horovod_tpu_torch.optim import distributed
+    from horovod_tpu_torch.optim import zero
+    from horovod_tpu_torch.training import make_flax_train_step
+
+    batch_size, steps = 256, 5
+    hvd.init()
+    model, _ = resnet50(dev, seed=0)
+    named = list(model.named_parameters())
+    params = [p for _, p in named]
+    init_state = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = images(torch.Generator(device=dev).manual_seed(0), dev,
+                   batch_size, 1000)
+    bn_total = {"bn_bwd_reduce": 0, "bn_bwd_dx": 0}
+    fails = []
+
+    def reset():
+        model.load_state_dict(init_state)
+        gc.collect()
+
+    def sgd():
+        return torch.optim.SGD(params, lr=0.1, momentum=0.9)
+
+    def record(config, losses, ms, counts, per_step, zero_step, peak,
+               **extra):
+        step_ms = sum(ms) / len(ms)
+        bn = {k: counts[k] / steps for k in bn_total}
+        for k in bn_total:
+            bn_total[k] += counts[k]
+        log({"phase": "resnet_exchange", "config": config, "card": card,
+             "batch": list(batch[0].shape), "steps": steps,
+             "step_ms": step_ms, "step_ms_each": ms,
+             "images_per_s": batch_size / (step_ms / 1e3),
+             "peak_mem_bytes": peak, "exchange_per_step": per_step,
+             "zero_per_step": zero_step, "bn_launches_per_step": bn,
+             "losses": losses, **extra})
+        if not all(np.isfinite(losses)):
+            fails.append(f"{config}: a loss is not finite: {losses}")
+        if bn != {k: RESNET50_BN_SITES for k in bn_total}:
+            fails.append(f"{config}: BN launches a step {bn}")
+
+    # (a) ZeRO-1, timed as the other phases (cuDNN's own algorithms).
+    reset()
+    step = make_flax_train_step(model, sgd(), zero_stage=1)
+    report = zero.zero_report(sgd(), params, hvd.size())
+    out = _timed_steps(step, batch, steps)
+    state_bytes = step.zero_state.state_bytes()
+    zero_step = out[4]
+    bytes_ok = (zero_step["steps"] == 1 and
+                zero_step["reducescatter_bytes"]
+                + zero_step["allgather_bytes"]
+                == report["zero1_exchanged_bytes_per_chip"]
+                and state_bytes == report["opt_state_bytes_per_chip_zero1"])
+    del step
+    # ZeRO-1 against plain SGD: six steps each from the initial weights,
+    # deterministic cuDNN algorithms in both runs.
+    finals = {}
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        for name, stage in (("plain", 0), ("zero1", 1)):
+            reset()
+            s = make_flax_train_step(model, sgd(), zero_stage=stage)
+            for _ in range(steps + 1):
+                s(batch)
+            torch.cuda.synchronize()
+            finals[name] = [p.detach().clone() for p in params]
+            del s
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = cudnn
+    scale = max(p.abs().max().item() for p in finals["plain"])
+    zero_err = max((a - b).abs().max().item()
+                   for a, b in zip(finals["zero1"], finals["plain"]))
+    bitwise = all(torch.equal(a, b)
+                  for a, b in zip(finals["zero1"], finals["plain"]))
+    del finals
+    record("zero1", *out, report=report, opt_state_bytes=state_bytes,
+           zero_report_bytes_equal=bytes_ok,
+           vs_plain_sgd_max_abs_err=zero_err, vs_plain_sgd_tol=
+           EXCHANGE_ZERO_TOL * scale, vs_plain_sgd_bitwise=bitwise)
+    if not bytes_ok:
+        fails.append(f"zero1: bytes {zero_step}, state {state_bytes} "
+                     f"against zero_report {report}")
+    if not zero_err <= EXCHANGE_ZERO_TOL * scale:
+        fails.append(f"zero1: parameters {zero_err} from plain SGD's")
+    free_device()
+
+    # (b) fp8: the first step's buckets against the round trip.
+    reset()
+    opt = hvd.DistributedOptimizer(sgd(), named_parameters=named,
+                                   compression=hvd.Compression.fp8)
+    step = make_flax_train_step(model, opt)
+    sizes = [sum(s.size for s in lspecs)
+             for _, lspecs in opt.bucket_plan.buffers]
+    wire = sum(wire_payload_bytes(hvd.Compression.fp8, n) for n in sizes)
+    packed, reduced = [], []
+    real_pack, real_unpack = distributed.pack_bucket, \
+        distributed.unpack_bucket
+
+    def pack_bucket(leaves, lspecs):
+        buf = real_pack(leaves, lspecs)
+        packed.append(buf.clone())
+        return buf
+
+    def unpack_bucket(buf, lspecs):
+        reduced.append(buf)
+        return real_unpack(buf, lspecs)
+
+    distributed.pack_bucket, distributed.unpack_bucket = (pack_bucket,
+                                                          unpack_bucket)
+    try:
+        step(batch)
+    finally:
+        distributed.pack_bucket, distributed.unpack_bucket = (real_pack,
+                                                              real_unpack)
+    round_trip = len(packed) == len(reduced) == len(sizes) and all(
+        torch.equal(r, _fp8_round_trip(p)) for p, r in zip(packed, reduced))
+    fp8_err = [(r - p).abs().max().item() / max(p.abs().max().item(), 1e-30)
+               for p, r in zip(packed, reduced)]
+    del packed, reduced
+    out = _timed_steps(step, batch, steps)
+    per_step = out[3]
+    record("fp8", *out, bucket_values=sizes, wire_payload_bytes=wire,
+           first_step_round_trip_bitwise=round_trip,
+           first_step_rel_err_vs_f32=fp8_err)
+    nb = len(sizes)
+    if not round_trip:
+        fails.append("fp8: a bucket is not its round trip")
+    if (per_step["buckets"], per_step["handles"], per_step["wire_bytes"]) \
+            != (nb, 2 * nb, wire):
+        fails.append(f"fp8: exchange a step {per_step}, {nb} buckets, "
+                     f"{wire} wire bytes")
+    del opt, step
+    free_device()
+
+    # (c) top-k with error feedback: own + residual == acc, every step.
+    reset()
+    comp = parse_compression(f"topk:{EXCHANGE_TOPK}")
+    opt = hvd.DistributedOptimizer(sgd(), named_parameters=named,
+                                   compression=comp)
+    step = make_flax_train_step(model, opt)
+    sizes = [sum(s.size for s in lspecs)
+             for _, lspecs in opt.bucket_plan.buffers]
+    wire = sum(wire_payload_bytes(comp, n) for n in sizes)
+    seen, checks = [], []
+    real_select = cops._topk_select
+
+    def select(acc, k):
+        idx = real_select(acc, k)
+        seen.append((acc, idx))
+        return idx
+
+    def check_step():
+        for acc, idx in seen:
+            res = next(r for r in opt.residuals if r.numel() == acc.numel())
+            own = torch.zeros_like(acc).index_put_((idx,), acc[idx])
+            unsent = torch.ones_like(acc, dtype=torch.bool)
+            unsent[idx] = False
+            checks.append(
+                bool(torch.equal(own + res, acc))
+                and not res[idx].any().item()
+                and bool(torch.equal(res[unsent], acc[unsent]))
+                and int(unsent.sum()) == acc.numel() - topk_count(
+                    acc.numel(), EXCHANGE_TOPK))
+        seen.clear()
+
+    cops._topk_select = select
+    try:
+        out = _timed_steps(step, batch, steps, after=check_step)
+    finally:
+        cops._topk_select = real_select
+    per_step = out[3]
+    residuals = [{"values": r.numel(), "nonzero": int((r != 0).sum()),
+                  "finite": bool(torch.isfinite(r).all())}
+                 for r in opt.residuals]
+    record(f"topk:{EXCHANGE_TOPK}", *out, bucket_values=sizes,
+           wire_payload_bytes=wire, ef_checks=len(checks),
+           own_plus_residual_is_acc=all(checks), residuals=residuals)
+    nb = len(sizes)
+    if len(checks) != nb * (steps + 1) or not all(checks):
+        fails.append(f"topk: own + residual == acc failed: {checks}")
+    if (per_step["buckets"], per_step["handles"], per_step["wire_bytes"]) \
+            != (nb, 2 * nb, wire):
+        fails.append(f"topk: exchange a step {per_step}, {nb} buckets, "
+                     f"{wire} wire bytes")
+    if fails:
+        raise AssertionError("resnet_exchange: " + "; ".join(fails))
+    hvd.shutdown()
+    del model, named, params, opt, step, batch, init_state
+    return bn_total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2457,6 +2759,8 @@ def main() -> int:
     free_device()
     torch_rn50 = train_torch_resnet50(dev, card)
     free_device()
+    exchange = train_resnet_exchange(dev, card)
+    free_device()
     # The attention and BN kernels run on several paths: their launches
     # are the sums.
     flash["launches"] = serve["flash"] + train["flash"] + bert["flash"]
@@ -2464,9 +2768,10 @@ def main() -> int:
     dq["launches"] = train["flash_bwd_dq"] + bert["flash_bwd_dq"]
     dkv["launches"] = train["flash_bwd_dkv"] + bert["flash_bwd_dkv"]
     bn_red["launches"] = (resnet["bn_bwd_reduce"] + inception["bn_bwd_reduce"]
-                          + torch_rn50["bn_bwd_reduce"])
+                          + torch_rn50["bn_bwd_reduce"]
+                          + exchange["bn_bwd_reduce"])
     bn_dx["launches"] = (resnet["bn_bwd_dx"] + inception["bn_bwd_dx"]
-                         + torch_rn50["bn_bwd_dx"])
+                         + torch_rn50["bn_bwd_dx"] + exchange["bn_bwd_dx"])
     for e in fused:
         e["launches"] = powersgd[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -36,7 +36,14 @@ ported so far:
   with the ``pytorch_mnist`` and torch-idiom ResNet-50 examples
   (``python -m horovod_tpu_torch.examples.pytorch_mnist``).  ``join``
   (ROADMAP item 1.8) and the timeline (item 1.11) raise
-  ``NotImplementedError``.
+  ``NotImplementedError``;
+* the compressed and sharded exchanges: ``Compression.fp8`` (e4m3 wire,
+  f32 accumulation), ``topk:<f>`` error feedback, the two-level
+  ``hierarchical_allreduce`` with per-leg ``ici:<c>,dcn:<c>`` codecs
+  (``HOROVOD_HIERARCHICAL``), ``chunked_allreduce``
+  (``HOROVOD_EXCHANGE_CHUNK_MB``), all in :data:`collective_ops`, and
+  ZeRO-1 (``make_flax_train_step(..., zero_stage=1)``,
+  :func:`zero_init`, :func:`zero_report`).
 
 Kernels hand-written in CUDA C++ for ``sm_90a`` (``ops/csrc``) carry
 attention -- the flash forward and decode kernels, the flash backward's
@@ -54,6 +61,7 @@ back.  Kernels build with ``nvcc`` on first use, never at import.
 """
 
 from .collectives import Compression  # noqa: F401
+from .collectives import ops as collective_ops  # noqa: F401
 from .collectives.handles import (allgather_async,  # noqa: F401
                                   allreduce_async, allreduce_async_,
                                   alltoall_async, broadcast_async,
@@ -85,6 +93,7 @@ from .optim import (DistributedAdasumOptimizer,  # noqa: F401
                     DistributedOptimizer, allgather_object,
                     broadcast_object, broadcast_optimizer_state,
                     broadcast_parameters)
+from .optim.zero import zero_init, zero_report  # noqa: F401
 from .sync_batch_norm import SyncBatchNorm  # noqa: F401
 from .training import bert_pretrain_loss  # noqa: F401
 

@@ -19,8 +19,9 @@ The process-set variant (``members=``, or a set's ``group``) runs the
 same schedule among the members, paired by their position in the set;
 :func:`adasum_allreduce_hierarchical` is the two-level variant (a mean
 reduce-scatter within each node, Adasum across the nodes on each shard,
-an allgather within the node).  Not ported: the fp8 wire codec (ROADMAP
-item 1.9).
+an allgather within the node).  ``wire_codec="fp8"`` sends the
+exchanged pieces as e4m3 with a scale each (the cross-node exchanges
+only, in the two-level variant).
 """
 
 from __future__ import annotations
@@ -31,7 +32,9 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..collectives.compression import fp8_dequantize, fp8_quantize
 from ..core.state import global_state
+from ..core.topology import hier_groups
 
 _TOL = 1e-30
 
@@ -66,17 +69,37 @@ def adasum_local_tree(vectors):
                        adasum_local_tree(vectors[half:]))
 
 
-def _exchange(send: torch.Tensor, peer: int, group=None) -> torch.Tensor:
+def _exchange(send: torch.Tensor, peer: int, group=None,
+              wire_codec=None) -> torch.Tensor:
     """Swap ``send`` with global rank ``peer``'s tensor of the same shape.
     The send and the receive are posted together: a blocking send on
-    both partners deadlocks on gloo."""
-    recv = torch.empty_like(send)
-    reqs = dist.batch_isend_irecv(
-        [dist.P2POp(dist.isend, send, peer, group=group),
-         dist.P2POp(dist.irecv, recv, peer, group=group)])
-    for r in reqs:
+    both partners deadlocks on gloo.
+
+    ``wire_codec="fp8"`` (``horovod_tpu/adasum/xla.py::_codec_permute``)
+    quantizes ``send`` to e4m3 with its own max-abs scale, swaps the
+    codes (as ``uint8``) and the f32 scale, and dequantizes what arrives
+    to ``send``'s dtype; the mixing stays in the working dtype and f32.
+    """
+    if wire_codec is None:
+        recv = torch.empty_like(send)
+        ops = [dist.P2POp(dist.isend, send, peer, group=group),
+               dist.P2POp(dist.irecv, recv, peer, group=group)]
+    elif wire_codec == "fp8":
+        q, scale = fp8_quantize(send)
+        q, scale = q.view(torch.uint8), scale.reshape(1)
+        recv, recv_s = torch.empty_like(q), torch.empty_like(scale)
+        ops = [dist.P2POp(dist.isend, q, peer, group=group),
+               dist.P2POp(dist.isend, scale, peer, group=group),
+               dist.P2POp(dist.irecv, recv, peer, group=group),
+               dist.P2POp(dist.irecv, recv_s, peer, group=group)]
+    else:
+        raise ValueError(f"unknown adasum wire codec {wire_codec!r}")
+    for r in dist.batch_isend_irecv(ops):
         r.wait()
-    return recv
+    if wire_codec is None:
+        return recv
+    return fp8_dequantize(recv.view(torch.float8_e4m3fn), recv_s[0],
+                          send.dtype)
 
 
 def _members_group(members: Sequence[int]):
@@ -103,12 +126,12 @@ def adasum_allreduce(x: torch.Tensor, group=None,
     every member (``all_gather`` of an ``[n, 3]`` tensor) that the merged
     group sums.
 
-    ``wire_codec="fp8"`` is not ported and raises ``NotImplementedError``.
+    ``wire_codec="fp8"`` sends every exchanged piece -- the halves of the
+    reduce levels and the pieces of the rebuild -- as e4m3 with its own
+    scale (see :func:`_exchange`); a rank's own piece is never quantized.
     """
-    if wire_codec is not None:
-        raise NotImplementedError(
-            f"the {wire_codec!r} Adasum wire codec is not ported (ROADMAP "
-            f"item 1.9)")
+    if wire_codec not in (None, "fp8"):
+        raise ValueError(f"unknown adasum wire codec {wire_codec!r}")
     if members is not None:
         members = tuple(sorted(int(r) for r in members))
         if len(members) & (len(members) - 1) != 0:
@@ -144,7 +167,8 @@ def adasum_allreduce(x: torch.Tensor, group=None,
         # The lower position keeps the first half, its partner the
         # second: retained pieces cover the same index range.
         mine, give = (y[:half], y[half:]) if is_lo else (y[half:], y[:half])
-        recv = _exchange(give.contiguous(), peer(pos ^ bit), group)
+        recv = _exchange(give.contiguous(), peer(pos ^ bit), group,
+                         wire_codec)
         a, b = (mine, recv) if is_lo else (recv, mine)
         a32, b32 = a.float(), b.float()
         partial = torch.stack([a32 @ b32, a32 @ a32, b32 @ b32])
@@ -159,35 +183,11 @@ def adasum_allreduce(x: torch.Tensor, group=None,
     # Distance-halving allgather, inverting the split order.
     for k in reversed(range(levels)):
         bit = 1 << k
-        recv = _exchange(y, peer(pos ^ bit), group)
+        recv = _exchange(y, peer(pos ^ bit), group, wire_codec)
         y = torch.cat([y, recv] if (pos & bit) == 0 else [recv, y])
     if pad:
         y = y[:-pad]
     return y.view(x.shape)
-
-
-def _hierarchy(local: int):
-    """This rank's ``(node group, cross group)`` for nodes of ``local``
-    consecutive ranks, made once per ``local`` and cached in the global
-    state.  ``new_group`` is collective over the world, so every rank
-    makes every node group and every cross group, in the same order (a
-    rank's first hierarchical Adasum call does it)."""
-    st = global_state()
-    with st.lock:
-        got = st.hierarchy.get(local)
-        if got is None:
-            n, me = dist.get_world_size(), dist.get_rank()
-            node = cross = None
-            for c in range(n // local):
-                g = dist.new_group(list(range(c * local, (c + 1) * local)))
-                if me // local == c:
-                    node = g
-            for lr in range(local):
-                g = dist.new_group(list(range(lr, n, local)))
-                if me % local == lr:
-                    cross = g
-            got = st.hierarchy[local] = (node, cross)
-        return got
 
 
 def adasum_allreduce_hierarchical(x: torch.Tensor,
@@ -204,19 +204,17 @@ def adasum_allreduce_hierarchical(x: torch.Tensor,
     ranks of one local rank form a cross group; the coefficients are per
     shard, as in the reference), and an allgather within the node
     rebuilds the vector.  With one rank a node this is
-    :func:`adasum_allreduce` over the world; with one node, the mean."""
-    if wire_codec is not None:
-        raise NotImplementedError(
-            f"the {wire_codec!r} Adasum wire codec is not ported (ROADMAP "
-            f"item 1.9)")
+    :func:`adasum_allreduce` over the world; with one node, the mean.
+    ``wire_codec="fp8"`` quantizes only the cross-node Adasum exchanges;
+    the node's reduce-scatter and allgather stay in the working dtype."""
     local = int(local_size or global_state().local_size or 1)
     n = dist.get_world_size()
     if local < 1 or n % local:
         raise ValueError(f"local_size {local} does not divide the world "
                          f"size {n}")
     if local == 1:
-        return adasum_allreduce(x)
-    node, cross = _hierarchy(local)
+        return adasum_allreduce(x, wire_codec=wire_codec)
+    node, cross = hier_groups(local)
     flat = x.reshape(-1)
     pad = (-flat.numel()) % local
     if pad:
@@ -228,7 +226,8 @@ def adasum_allreduce_hierarchical(x: torch.Tensor,
         shard.div_(local)
     else:
         shard.copy_(torch.div(shard, local, rounding_mode="trunc"))
-    mixed = adasum_allreduce(shard, group=cross).contiguous()
+    mixed = adasum_allreduce(shard, group=cross,
+                             wire_codec=wire_codec).contiguous()
     out = flat.new_empty(flat.numel())
     dist.all_gather_into_tensor(out, mixed, group=node)
     if pad:

@@ -7,8 +7,13 @@ Average, Min, Max, Product, Adasum) with ``prescale_factor`` /
 :func:`allgather` (ragged first dims), :func:`grouped_allgather`,
 :func:`broadcast`, :func:`reducescatter`, :func:`grouped_reducescatter`,
 :func:`alltoall` (even, or uneven with ``splits``),
-:func:`sparse_allreduce_async`, :func:`barrier`, and the PowerSGD
-exchange :func:`powersgd_allreduce`.  Each op has an ``*_async`` twin
+:func:`sparse_allreduce_async`, :func:`barrier`, and the exchanges of
+the compressed and sharded paths: :func:`powersgd_allreduce`,
+:func:`topk_allreduce`, :func:`fp8_allreduce`,
+:func:`hierarchical_allreduce` (two-level, codecs per leg),
+:func:`chunked_allreduce` and the ZeRO building blocks
+:func:`psum_scatter_bucket` / :func:`allgather_bucket`.  Each op but the
+last four has an ``*_async`` twin
 that returns a :class:`Handle` around the ``torch.distributed`` work
 object; the result is ready after ``handle.wait()``, and
 ``handle.poll()`` says whether the work is done.  (The package's top
@@ -59,8 +64,10 @@ from ..core.exceptions import HorovodInternalError
 from ..core.process_sets import ProcessSet, get_process_set
 from ..ops import fused_update as fu
 from ..timeline.metrics import note_collective
-from .compression import (Compression, is_error_feedback, parse_compression,
-                          powersgd_effective_rank, powersgd_matrix_shape)
+from .compression import (Compression, fp8_quantize, is_error_feedback,
+                          is_fp8, is_powersgd, parse_compression,
+                          powersgd_effective_rank, powersgd_matrix_shape,
+                          topk_count)
 from .reduce_op import Adasum, Average, Max, Min, Product, ReduceOp, Sum
 
 _TORCH_OPS = {
@@ -149,13 +156,18 @@ def _resolve_op(average, op) -> ReduceOp:
     return Sum if average is False else Average
 
 
-def _check_compression(compression):
+def _check_compression(compression, fp8_ok: bool = False):
+    """The codec of an allreduce: a cast codec, or (``fp8_ok``)
+    ``Compression.fp8``; the other exchange-level codecs need their own
+    op."""
     compression = parse_compression(
         Compression.none if compression is None else compression)
-    if is_error_feedback(compression):
+    if getattr(compression, "wire_format", "") and \
+            not (fp8_ok and is_fp8(compression)):
         raise ValueError(
             f"{compression.__name__} is an exchange codec: use "
-            f"powersgd_allreduce, or the DistributedOptimizer")
+            f"powersgd_allreduce, topk_allreduce, fp8_allreduce or "
+            f"hierarchical_allreduce, or the DistributedOptimizer")
     return compression
 
 
@@ -169,18 +181,24 @@ def allreduce_async_(tensor: torch.Tensor, average=None,
                      op: Optional[ReduceOp] = None, *,
                      prescale_factor: float = 1.0,
                      postscale_factor: float = 1.0,
-                     process_set=None) -> Handle:
-    """Allreduce ``tensor`` IN PLACE; the handle returns ``tensor``."""
+                     process_set=None, wire_codec=None) -> Handle:
+    """Allreduce ``tensor`` IN PLACE; the handle returns ``tensor``.
+    ``wire_codec="fp8"`` (Adasum only) sends Adasum's exchanged pieces
+    as e4m3."""
     op = _resolve_op(average, op)
     if op not in _TORCH_OPS and op is not Adasum:
         raise NotImplementedError(f"reduce op {op} is not ported")
+    if wire_codec is not None and op is not Adasum:
+        raise ValueError("wire_codec applies to op=Adasum only; use "
+                         "fp8_allreduce for Sum/Average")
     ps = _member_set(process_set, "allreduce", tensor)
     if prescale_factor != 1.0:
         tensor.mul_(prescale_factor)
     if op is Adasum:
         y = adasum_allreduce(
             tensor, group=ps.group,
-            members=None if ps.is_global() else ps.ranks)
+            members=None if ps.is_global() else ps.ranks,
+            wire_codec=wire_codec)
         if y is not tensor:
             tensor.copy_(y)
         if postscale_factor != 1.0:
@@ -219,8 +237,20 @@ def allreduce(tensor: torch.Tensor, average=None,
               process_set=None) -> torch.Tensor:
     """Reduce ``tensor`` over the set's ranks (NCCLAllreduce analogue);
     ``compression`` (a cast codec) narrows the wire and widens the
-    result back."""
-    compression = _check_compression(compression)
+    result back.  ``Compression.fp8`` runs :func:`fp8_allreduce` for
+    Sum/Average and Adasum's e4m3 wire for Adasum."""
+    compression = _check_compression(compression, fp8_ok=True)
+    if is_fp8(compression):
+        op = _resolve_op(average, op)
+        if op is Adasum:
+            return allreduce_async_(
+                tensor.clone(), op=op, name=name,
+                prescale_factor=prescale_factor,
+                postscale_factor=postscale_factor, process_set=process_set,
+                wire_codec="fp8").wait()
+        return fp8_allreduce(tensor, op, prescale_factor=prescale_factor,
+                             postscale_factor=postscale_factor,
+                             process_set=process_set)
     wire, ctx = compression.compress(tensor)
     if wire is tensor:
         wire = tensor.clone()
@@ -632,6 +662,14 @@ def powersgd_allreduce_async(x: torch.Tensor, op: ReduceOp = Average, *,
         raise ValueError(
             f"powersgd wire needs a floating dtype, got {x.dtype}")
     ps = _member_set(process_set, "powersgd_allreduce", x)
+    return _powersgd_start(x, op, rank, residual, prescale_factor,
+                           postscale_factor, force_reference, ps)
+
+
+def _powersgd_start(x, op, rank, residual, prescale_factor,
+                    postscale_factor, force_reference, ps) -> Handle:
+    """:func:`powersgd_allreduce_async` over ``ps`` (a registered set or
+    one of the two-level layout's groups), checks done."""
     n = ps.size()
     size = x.numel()
     m, c = powersgd_matrix_shape(size)
@@ -672,6 +710,389 @@ def powersgd_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
         force_reference=force_reference, process_set=process_set).wait()
 
 
+# ---------------------------------------------------------------------------
+# fp8 and top-k exchanges
+# ---------------------------------------------------------------------------
+
+
+def _global_only(process_set, what: str) -> None:
+    if process_set is not None and \
+            not get_process_set(process_set).is_global():
+        raise NotImplementedError(
+            f"{what} does not support process sets; use fp16/bf16 "
+            f"compression for subset reductions")
+
+
+def _fp8_start(x: torch.Tensor, op: ReduceOp, prescale_factor: float,
+               postscale_factor: float, ps) -> Handle:
+    """:func:`fp8_allreduce_async` over ``ps``, checks done."""
+    n, pos = ps.size(), ps.position()
+    shape, dtype = x.shape, x.dtype
+    x32 = x.float()
+    if prescale_factor != 1.0:
+        x32 = x32 * prescale_factor
+    flat = x32.reshape(-1)
+    pad = (-flat.numel()) % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    q, scales = fp8_quantize(flat.view(n, -1), axis=0)  # row j -> rank j
+    send = q.view(torch.uint8)
+    recv = torch.empty_like(send)
+    # S[src, dst]: the scale each sender used for the row now in
+    # recv[src] is column ``pos``.
+    smat = scales.new_empty(n * n)
+    dist.all_gather_into_tensor(smat, scales, group=ps.group)
+    work = dist.all_to_all_single(recv, send, group=ps.group, async_op=True)
+
+    def finish():
+        mine = smat.view(n, n)[:, pos]
+        acc = (recv.view(torch.float8_e4m3fn).float()
+               * mine[:, None]).sum(0)
+        if op is Average:
+            acc = acc / n
+        if postscale_factor != 1.0:
+            acc = acc * postscale_factor
+        qr, s2 = fp8_quantize(acc)
+        gathered = torch.empty(n * acc.numel(), dtype=torch.uint8,
+                               device=acc.device)
+        dist.all_gather_into_tensor(gathered, qr.view(torch.uint8),
+                                    group=ps.group)
+        s2_all = s2.new_empty(n)
+        dist.all_gather_into_tensor(s2_all, s2.reshape(1), group=ps.group)
+        out = (gathered.view(torch.float8_e4m3fn).float().view(n, -1)
+               * s2_all[:, None]).reshape(-1)
+        if pad:
+            out = out[:-pad]
+        return out.view(shape).to(dtype)
+
+    return Handle(work, finish)
+
+
+def fp8_allreduce_async(x: torch.Tensor, op: ReduceOp = Average, *,
+                        prescale_factor: float = 1.0,
+                        postscale_factor: float = 1.0,
+                        process_set=None) -> Handle:
+    """Start an allreduce of ``x`` with an e4m3 wire and f32
+    accumulation (``horovod_tpu/collectives/ops.py::fp8_allreduce``):
+
+    1. pad the flat f32 bucket to a multiple of ``n`` and quantize row
+       ``j`` (the shard rank ``j`` reduces) with its own max-abs scale;
+    2. ``all_to_all`` the e4m3 rows (as ``uint8``), the ``[n, n]`` scale
+       matrix on an ``all_gather``;
+    3. dequantize and reduce this rank's shard in f32 (``/ n`` for
+       Average, then the postscale);
+    4. re-quantize it, ``all_gather`` the e4m3 shards and their scales,
+       dequantize every shard -- this rank's own included -- from the
+       wire bytes.
+
+    ``handle.wait()`` returns the result in x's shape and dtype.  Two
+    e4m3 roundings end to end; the reduction is exact f32.  Floating
+    inputs, Sum/Average, the global set only (as the reference)."""
+    _global_only(process_set, "fp8_allreduce")
+    if op not in (Sum, Average):
+        raise ValueError(f"fp8_allreduce supports Sum/Average, got {op}")
+    if not x.dtype.is_floating_point:
+        raise ValueError(f"fp8 wire needs a floating dtype, got {x.dtype}")
+    return _fp8_start(x, op, prescale_factor, postscale_factor,
+                      _member_set(None, "fp8_allreduce", x))
+
+
+def fp8_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
+                  prescale_factor: float = 1.0,
+                  postscale_factor: float = 1.0,
+                  process_set=None) -> torch.Tensor:
+    """The result of :func:`fp8_allreduce_async`."""
+    return fp8_allreduce_async(
+        x, op, prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor, process_set=process_set).wait()
+
+
+def _topk_select(acc: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest ``|acc|``, largest first and the
+    lower index first among equals -- ``lax.top_k``'s choice, which
+    ``torch.topk`` does not make on ties: a stable descending sort."""
+    return torch.sort(acc.abs(), descending=True, stable=True).indices[:k]
+
+
+def _topk_start(x: torch.Tensor, op: ReduceOp, fraction: float,
+                residual: Optional[torch.Tensor], prescale_factor: float,
+                postscale_factor: float, ps) -> Handle:
+    """:func:`topk_allreduce_async` over ``ps``, checks done."""
+    n = ps.size()
+    shape, dtype = x.shape, x.dtype
+    acc = x.float().reshape(-1)
+    if prescale_factor != 1.0:
+        acc = acc * prescale_factor
+    if residual is not None:
+        acc = acc + residual.float().reshape(-1)
+    size = acc.numel()
+    k = min(topk_count(size, fraction), size)
+    idx = _topk_select(acc, k)
+    vals = acc[idx]
+    gv = vals.new_empty(n * k)
+    gi = torch.empty(n * k, dtype=torch.int32, device=acc.device)
+    w_vals = dist.all_gather_into_tensor(gv, vals, group=ps.group,
+                                         async_op=True)
+    work = dist.all_gather_into_tensor(gi, idx.to(torch.int32),
+                                       group=ps.group, async_op=True)
+
+    def finish():
+        w_vals.wait()
+        dense = acc.new_zeros(size).index_add_(0, gi.long(), gv)
+        if op is Average:
+            dense = dense / n
+        if postscale_factor != 1.0:
+            dense = dense * postscale_factor
+        own = acc.new_zeros(size).index_put_((idx,), vals)
+        return dense.view(shape).to(dtype), acc - own
+
+    return Handle(work, finish)
+
+
+def topk_allreduce_async(x: torch.Tensor, op: ReduceOp = Average, *,
+                         fraction: float,
+                         residual: Optional[torch.Tensor] = None,
+                         prescale_factor: float = 1.0,
+                         postscale_factor: float = 1.0,
+                         process_set=None) -> Handle:
+    """Start a top-``fraction`` sparsified allreduce (DGC-style, Lin et
+    al., 2018; ``horovod_tpu/collectives/ops.py::topk_allreduce``): each
+    rank adds ``residual`` to its f32 ``x * prescale`` (``acc``), keeps
+    the ``k = ceil(fraction * size)`` largest magnitudes (ties to the
+    lower index, see :func:`_topk_select`) and allgathers its ``(value
+    f32, index int32)`` pairs; every rank scatter-adds all ``n * k``
+    pairs into a dense f32 bucket (duplicate indices across ranks add
+    up).  ``handle.wait()`` returns ``(out, new_residual)``: ``out`` in
+    x's shape and dtype, ``new_residual = acc - own`` flat f32, ``own``
+    this rank's sent pairs densified -- the elements it did not send.
+    Floating inputs, Sum/Average, the global set only."""
+    _global_only(process_set, "topk_allreduce")
+    if op not in (Sum, Average):
+        raise ValueError(f"topk_allreduce supports Sum/Average, got {op}")
+    if not x.dtype.is_floating_point:
+        raise ValueError(f"topk wire needs a floating dtype, got {x.dtype}")
+    return _topk_start(x, op, fraction, residual, prescale_factor,
+                       postscale_factor,
+                       _member_set(None, "topk_allreduce", x))
+
+
+def topk_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
+                   fraction: float, residual: Optional[torch.Tensor] = None,
+                   prescale_factor: float = 1.0,
+                   postscale_factor: float = 1.0, process_set=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, new_residual)`` of :func:`topk_allreduce_async`."""
+    return topk_allreduce_async(
+        x, op, fraction=fraction, residual=residual,
+        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
+        process_set=process_set).wait()
+
+
+# ---------------------------------------------------------------------------
+# The two-level and chunked allreduce, and the ZeRO building blocks
+# ---------------------------------------------------------------------------
+
+
+def microbatch_pad_quantum(n: int, base: int = 256) -> int:
+    """``lcm(n, base)``: the two-level exchange pads each bucket to a
+    multiple of it, so its per-leg payload is the same for every ``n``
+    dividing 256 (the JAX package's quantum)."""
+    return base * n // math.gcd(base, n)
+
+
+def hierarchical_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
+                           dcn_codec=None, ici_codec=None,
+                           dcn_residual: Optional[torch.Tensor] = None,
+                           prescale_factor: float = 1.0,
+                           postscale_factor: float = 1.0,
+                           topology: Optional[Tuple[int, int]] = None):
+    """Two-level allreduce (``HOROVOD_HIERARCHICAL_ALLREDUCE``,
+    ``horovod_tpu/collectives/ops.py::hierarchical_allreduce``) over
+    ``n_dcn`` nodes of ``n_ici`` ranks (``topology``; default
+    :func:`~horovod_tpu_torch.core.topology.hier_mesh_shape`):
+
+    1. reduce-scatter (Sum) within the node of the flat bucket,
+       zero-padded to a multiple of :func:`microbatch_pad_quantum`;
+    2. the cross-node exchange of this rank's ``padded / n_ici`` shard
+       only, under ``dcn_codec``: a (cast) allreduce; fp8 (an allgather
+       of e4m3 shards and their scales, summed in f32); or an
+       error-feedback codec (powersgd/topk over the DCN group, fed
+       ``dcn_residual``);
+    3. ``/ n`` for Average, then an allgather within the node.
+
+    ``ici_codec`` (none/fp16/bf16) sets the wire dtype of both
+    intra-node legs.  With an error-feedback ``dcn_codec`` the return is
+    ``(out, new_dcn_residual)``, the residual flat f32 of the shard's
+    length.  With one node the op is the flat :func:`allreduce`,
+    statically, as in the reference.  Sum/Average; non-floating buckets
+    ride uncompressed."""
+    from ..core.topology import hier_mesh_shape, hier_sets
+    if op not in (Sum, Average):
+        raise ValueError(
+            f"hierarchical_allreduce supports Sum/Average, got {op}")
+    ici_codec = parse_compression(ici_codec)
+    dcn_codec = parse_compression(dcn_codec)
+    if getattr(ici_codec, "wire_format", ""):
+        raise ValueError(
+            f"ICI leg codec must be psum-compatible (none|fp16|bf16), "
+            f"got {ici_codec.__name__}")
+    if topology is None:
+        topology = hier_mesh_shape()
+    if topology is None:
+        raise ValueError("hierarchical_allreduce needs a two-level layout: "
+                         "set HOROVOD_HIERARCHICAL or pass topology=")
+    n_dcn, n_ici = (int(t) for t in topology)
+    ps = _member_set(None, "hierarchical_allreduce", x)
+    if n_dcn * n_ici != ps.size():
+        raise ValueError(f"topology {n_dcn}x{n_ici} does not cover the "
+                         f"world of {ps.size()}")
+    n = ps.size()
+    ef = is_error_feedback(dcn_codec)
+    floating = x.dtype.is_floating_point
+    if not floating:
+        ici_codec = dcn_codec = Compression.none
+    quantum = microbatch_pad_quantum(n_ici)
+    size = x.numel()
+    shard_len = (size + (-size) % quantum) // n_ici
+
+    if n_dcn == 1:
+        y = allreduce_async_(x.clone(), op=op,
+                             prescale_factor=prescale_factor,
+                             postscale_factor=postscale_factor).wait()
+        if ef:
+            return y, (dcn_residual if dcn_residual is not None else
+                       torch.zeros(shard_len, device=x.device))
+        return y
+
+    ici, dcn = hier_sets(n_ici)
+    if prescale_factor != 1.0:
+        x = x * prescale_factor
+    shape, dtype = x.shape, x.dtype
+    flat = x.reshape(-1)
+    pad = (-size) % quantum
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    ici_wire, ici_ctx = ici_codec.compress(flat.contiguous())
+    shard = ici_wire.new_empty(shard_len)
+    dist.reduce_scatter_tensor(shard, ici_wire, op=dist.ReduceOp.SUM,
+                               group=ici.group)
+    shard = ici_codec.decompress(shard, ici_ctx)
+
+    new_residual = None
+    if ef and floating:
+        if is_powersgd(dcn_codec):
+            shard, new_residual = _powersgd_start(
+                shard, Sum, dcn_codec.rank, dcn_residual, 1.0, 1.0, False,
+                dcn).wait()
+        else:
+            shard, new_residual = _topk_start(
+                shard, Sum, dcn_codec.fraction, dcn_residual, 1.0, 1.0,
+                dcn).wait()
+    elif is_fp8(dcn_codec):
+        q, scale = fp8_quantize(shard)
+        gq = torch.empty(n_dcn * shard_len, dtype=torch.uint8,
+                         device=shard.device)
+        dist.all_gather_into_tensor(gq, q.view(torch.uint8), group=dcn.group)
+        gs = scale.new_empty(n_dcn)
+        dist.all_gather_into_tensor(gs, scale.reshape(1), group=dcn.group)
+        shard = (gq.view(torch.float8_e4m3fn).float().view(n_dcn, -1)
+                 * gs[:, None]).sum(0).to(dtype)
+    else:
+        dcn_wire, dcn_ctx = dcn_codec.compress(shard)
+        dist.all_reduce(dcn_wire, op=dist.ReduceOp.SUM, group=dcn.group)
+        shard = dcn_codec.decompress(dcn_wire, dcn_ctx)
+    if op is Average:
+        _divide_in_dtype(shard, n)
+    ag_wire, ag_ctx = ici_codec.compress(shard)
+    y = ag_wire.new_empty(n_ici * shard_len)
+    dist.all_gather_into_tensor(y, ag_wire.contiguous(), group=ici.group)
+    y = ici_codec.decompress(y, ag_ctx)
+    if pad:
+        y = y[:-pad]
+    y = y.reshape(shape)
+    if postscale_factor != 1.0:
+        y = y * postscale_factor
+    if ef:
+        if new_residual is None:  # a non-floating bucket sent everything
+            new_residual = dcn_residual if dcn_residual is not None else \
+                torch.zeros(shard_len, device=x.device)
+        return y, new_residual
+    return y
+
+
+def chunked_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
+                      chunk_bytes: int, prescale_factor: float = 1.0,
+                      postscale_factor: float = 1.0) -> torch.Tensor:
+    """Allreduce as chunk-sized reduce-scatter + allgather pairs
+    (``HOROVOD_EXCHANGE_CHUNK_MB``; ``horovod_tpu/collectives/ops.py::
+    chunked_allreduce``): the flat bucket is cut into chunks of
+    ``chunk_bytes`` rounded up to a multiple of ``n`` elements, each
+    zero-padded to a multiple of ``n``, reduce-scattered (Sum; ``/ n``
+    in the dtype for Average) and allgathered.  The same link bytes as
+    one allreduce, in independent pieces; the summation order differs
+    from :func:`allreduce`'s.  Sum/Average over the global set; at world
+    1, or with ``chunk_bytes <= 0``, it is :func:`allreduce`, as in the
+    reference."""
+    if op not in (Sum, Average):
+        raise ValueError(f"chunked_allreduce supports Sum/Average, got {op}")
+    ps = _member_set(None, "chunked_allreduce", x)
+    n = ps.size()
+    if n == 1 or int(chunk_bytes) <= 0:
+        return allreduce_async_(x.clone(), op=op,
+                                prescale_factor=prescale_factor,
+                                postscale_factor=postscale_factor).wait()
+    if prescale_factor != 1.0:
+        x = x * prescale_factor
+    shape = x.shape
+    flat = x.reshape(-1)
+    chunk_elems = max(1, int(chunk_bytes) // x.element_size())
+    chunk_elems += (-chunk_elems) % n
+    pieces = []
+    for off in range(0, flat.numel(), chunk_elems):
+        piece = flat[off:off + chunk_elems]
+        pad = (-piece.numel()) % n
+        piece = torch.cat([piece, piece.new_zeros(pad)]) if pad else \
+            piece.contiguous()
+        shard = piece.new_empty(piece.numel() // n)
+        dist.reduce_scatter_tensor(shard, piece, op=dist.ReduceOp.SUM,
+                                   group=ps.group)
+        if op is Average:
+            _divide_in_dtype(shard, n)
+        full = torch.empty_like(piece)
+        dist.all_gather_into_tensor(full, shard, group=ps.group)
+        pieces.append(full[:-pad] if pad else full)
+    y = (pieces[0] if len(pieces) == 1 else torch.cat(pieces)).view(shape)
+    if postscale_factor != 1.0:
+        y = y * postscale_factor
+    return y
+
+
+def psum_scatter_bucket(flat: torch.Tensor, *, quantum: int,
+                        process_set=None) -> torch.Tensor:
+    """Zero-pad ``flat`` to a multiple of ``quantum`` and reduce-scatter
+    it (Sum) over the set; returns this member's ``padded / n`` shard
+    (``horovod_tpu/collectives/ops.py::psum_scatter_bucket``)."""
+    ps = _member_set(process_set, "reducescatter", flat)
+    pad = (-flat.numel()) % quantum
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    flat = flat.contiguous()
+    shard = flat.new_empty(flat.numel() // ps.size())
+    dist.reduce_scatter_tensor(shard, flat, op=dist.ReduceOp.SUM,
+                               group=ps.group)
+    return shard
+
+
+def allgather_bucket(shard: torch.Tensor, size: int, *,
+                     process_set=None) -> torch.Tensor:
+    """Allgather :func:`psum_scatter_bucket` shards back into the whole
+    bucket and strip the padding down to ``size`` elements."""
+    ps = _member_set(process_set, "allgather", shard)
+    full = shard.new_empty(ps.size() * shard.numel())
+    dist.all_gather_into_tensor(full, shard.contiguous(), group=ps.group)
+    return full[:size] if full.numel() != size else full
+
+
 def barrier(process_set=None) -> None:
     """Block until every member of the set has reached this point."""
     ps = _member_set(process_set, "barrier")
@@ -687,4 +1108,8 @@ __all__ = ["Handle", "allreduce", "allreduce_", "allreduce_async",
            "reducescatter_async", "grouped_reducescatter",
            "grouped_reducescatter_async", "alltoall", "alltoall_async",
            "sparse_allreduce_async", "barrier",
-           "powersgd_allreduce", "powersgd_allreduce_async"]
+           "powersgd_allreduce", "powersgd_allreduce_async",
+           "fp8_allreduce", "fp8_allreduce_async", "topk_allreduce",
+           "topk_allreduce_async", "hierarchical_allreduce",
+           "chunked_allreduce", "microbatch_pad_quantum",
+           "psum_scatter_bucket", "allgather_bucket"]

@@ -10,6 +10,13 @@ than the threshold gets a bucket of its own.  The plan depends only on
 shapes, dtypes and the threshold, and is memoized in a bounded LRU.  For
 the same leaves it is the same layout as the JAX planner's, bucket for
 bucket, and :func:`plan_key` is the same key.
+
+The exchange variants' knobs and accounting live here too, as in the
+JAX module: :func:`exchange_chunk_bytes` (``HOROVOD_EXCHANGE_CHUNK_MB``),
+:func:`hier_requested` (whether the two-level exchange is in effect)
+and :func:`plan_hier_legs`, the closed-form leg rows of one bucket of
+``hierarchical_allreduce`` (the JAX ``plan_exchange("hier")`` rows;
+the ``ExchangeLeg`` / ``plan_exchange`` plan IR itself is not ported).
 """
 
 from __future__ import annotations
@@ -55,6 +62,121 @@ def fusion_threshold() -> int:
     cfg = global_state().config
     return cfg.fusion_threshold if cfg is not None else \
         DEFAULT_FUSION_THRESHOLD
+
+
+def exchange_chunk_bytes() -> int:
+    """The chunked exchange's chunk size in bytes
+    (``HOROVOD_EXCHANGE_CHUNK_MB``; 0, the default, is off)."""
+    cfg = global_state().config
+    return cfg.exchange_chunk_bytes if cfg is not None else 0
+
+
+def hier_requested(compression=None) -> bool:
+    """Whether the two-level exchange is in effect for the gradient
+    path: a per-leg codec always asks for it; otherwise
+    ``HOROVOD_HIERARCHICAL_ALLREDUCE`` or a ``HOROVOD_HIERARCHICAL``
+    topology spec does."""
+    from ..collectives.compression import is_hier_legs
+    from ..core.topology import parse_topology_spec
+    if compression is not None and is_hier_legs(compression):
+        return True
+    cfg = global_state().config
+    if cfg is None:
+        return False
+    if cfg.hierarchical_allreduce:
+        return True
+    if cfg.hierarchical:
+        try:
+            return parse_topology_spec(cfg.hierarchical)[0]
+        except ValueError:
+            pass
+    return False
+
+
+@dataclasses.dataclass(frozen=True)
+class HierLeg:
+    """One leg of the two-level exchange of one bucket: the JAX
+    ``ExchangeLeg``'s ``tag``, ``collective``, ``codec``, ``wire_dtype``,
+    ``elements`` and ``nbytes`` (the wire bytes the leg is priced at)."""
+    tag: str
+    collective: str
+    codec: str
+    wire_dtype: str
+    elements: int
+    nbytes: int
+
+
+def plan_hier_legs(size: int, dtype, *, n_dcn: int, n_ici: int,
+                   compression=None, ici_codec=None,
+                   dcn_codec=None) -> List[HierLeg]:
+    """Closed-form leg rows of ``hierarchical_allreduce`` on one
+    ``size``-element bucket of ``dtype`` over ``n_dcn`` nodes of
+    ``n_ici`` ranks (``horovod_tpu/controller/fusion.py::
+    plan_hier_legs``).
+
+    ``compression`` is ``None``, a cast codec (the bucket is cast before
+    the exchange, so every leg rides its wire dtype) or a per-leg codec;
+    or pass ``ici_codec``/``dcn_codec`` directly.  With one node the op
+    is the flat allreduce: one ``flat_ar`` row.  Otherwise three rows:
+    the ICI reduce-scatter and allgather each priced at the whole padded
+    bucket at the ICI wire width, the DCN hop at its codec's
+    ``wire_payload_bytes`` of the ``padded / n_ici`` shard.
+    """
+    from ..collectives.compression import (Compression, is_error_feedback,
+                                           is_fp8, is_hier_legs,
+                                           is_powersgd, parse_compression,
+                                           wire_payload_bytes)
+    from ..collectives.ops import microbatch_pad_quantum
+    dt = dtype if isinstance(dtype, torch.dtype) else \
+        getattr(torch, str(dtype))
+    floating = dt.is_floating_point
+    if ici_codec is None and dcn_codec is None:
+        comp = parse_compression(compression)
+        if is_hier_legs(comp):
+            ici_codec, dcn_codec = comp.ici, comp.dcn
+        elif getattr(comp, "wire_format", ""):
+            raise ValueError(
+                f"{comp.__name__} is an exchange-level codec; the "
+                f"two-level path takes it per leg (ici:...,dcn:...)")
+        else:
+            wd = getattr(comp, "wire_dtype", None)
+            if floating and wd is not None and wd.itemsize < dt.itemsize:
+                dt = wd
+            ici_codec = dcn_codec = Compression.none
+    ici_codec = ici_codec or Compression.none
+    dcn_codec = dcn_codec or Compression.none
+    if not floating:
+        ici_codec = dcn_codec = Compression.none
+    size, n_dcn, n_ici = int(size), int(n_dcn), int(n_ici)
+    if n_dcn <= 1:
+        return [HierLeg("flat_ar", "psum", "none", dtype_name(dt), size,
+                        size * dt.itemsize)]
+    quantum = microbatch_pad_quantum(n_ici)
+    padded = size + (-size) % quantum
+    shard = padded // n_ici
+    ici_dt = dt
+    wd = getattr(ici_codec, "wire_dtype", None)
+    if floating and wd is not None and wd.itemsize < dt.itemsize:
+        ici_dt = wd
+    if floating and is_powersgd(dcn_codec):
+        dcn_coll, dcn_dt = "powersgd", "float32"
+    elif floating and is_error_feedback(dcn_codec):
+        dcn_coll, dcn_dt = "topk", "float32"
+    elif floating and is_fp8(dcn_codec):
+        dcn_coll, dcn_dt = "fp8_gather", "float8_e4m3fn"
+    else:
+        dcn_coll = "psum"
+        dwd = getattr(dcn_codec, "wire_dtype", None)
+        dcn_dt = dtype_name(dwd if floating and dwd is not None
+                            and dwd.itemsize < dt.itemsize else dt)
+    return [
+        HierLeg("hier/ici_rs", "reduce_scatter", ici_codec.__name__,
+                dtype_name(ici_dt), padded, padded * ici_dt.itemsize),
+        HierLeg("hier/dcn_ar", dcn_coll, dcn_codec.__name__, dcn_dt, shard,
+                wire_payload_bytes(dcn_codec, shard, dt.itemsize)),
+        HierLeg("hier/ici_ag", "all_gather", ici_codec.__name__,
+                dtype_name(ici_dt), shard, padded * ici_dt.itemsize),
+    ]
 
 
 PLAN_CACHE_CAPACITY = 1024

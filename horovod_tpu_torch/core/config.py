@@ -49,15 +49,31 @@ class Config:
     fusion_threshold: int = 64 * _MiB
     # Default gradient-exchange codec (HOROVOD_COMPRESSION): a spec string
     # parsed by ``collectives.compression.parse_compression`` --
-    # none|fp16|bf16|powersgd:<rank>.  Applies to DistributedOptimizer
-    # wraps built without an explicit ``compression`` argument; None = no
-    # compression.
+    # none|fp16|bf16|fp8|powersgd:<rank>|topk:<f>|ici:<c>,dcn:<c>.
+    # Applies to DistributedOptimizer wraps built without an explicit
+    # ``compression`` argument; None = no compression.
     compression: Optional[str] = None
-    # Error-feedback residual carry for the powersgd codec
+    # Error-feedback residual carry for the powersgd and topk codecs
     # (HOROVOD_EF_RESIDUAL, default on).  Off drops each step's
     # compression error instead of feeding it back -- ablation only, it
     # biases convergence.
     ef_residual: bool = True
+    # Two-level DCN x ICI reduction (HOROVOD_HIERARCHICAL_ALLREDUCE): the
+    # gradient exchange becomes collectives.ops.hierarchical_allreduce
+    # over nodes of local_size() ranks.
+    hierarchical_allreduce: bool = False
+    # Two-level topology spec (HOROVOD_HIERARCHICAL): ``auto`` takes
+    # nodes of local_size() ranks, ``rows,cols`` pins ``rows`` nodes of
+    # ``cols`` ranks; setting it implies hierarchical_allreduce.  Parsed
+    # by core.topology.parse_topology_spec.
+    hierarchical: Optional[str] = None
+    # ZeRO-1 sharded optimizer state (HOROVOD_ZERO=1): the default
+    # zero_stage of steps built without one (optim/zero.py).
+    zero_stage: int = 0
+    # Chunked gradient exchange (HOROVOD_EXCHANGE_CHUNK_MB, megabytes; 0
+    # off): each bucket's allreduce becomes chunk-sized reduce-scatter +
+    # allgather pairs (collectives.ops.chunked_allreduce).
+    exchange_chunk_bytes: int = 0
     # Launcher-provided identity (HOROVOD_RANK / _SIZE / _LOCAL_RANK /
     # _LOCAL_SIZE / _CROSS_RANK / _CROSS_SIZE); -1 = not set.
     env_rank: int = -1
@@ -74,6 +90,10 @@ def load_config() -> Config:
         fusion_threshold=_env_int("FUSION_THRESHOLD", 64 * _MiB),
         compression=_env("COMPRESSION"),
         ef_residual=_env_bool("EF_RESIDUAL", True),
+        hierarchical_allreduce=_env_bool("HIERARCHICAL_ALLREDUCE"),
+        hierarchical=_env("HIERARCHICAL"),
+        zero_stage=_env_int("ZERO", 0),
+        exchange_chunk_bytes=_env_int("EXCHANGE_CHUNK_MB", 0) * _MiB,
         env_rank=_env_int("RANK", -1),
         env_size=_env_int("SIZE", -1),
         env_local_rank=_env_int("LOCAL_RANK", -1),

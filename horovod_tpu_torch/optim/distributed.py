@@ -27,15 +27,22 @@ Counterpart of ``horovod_tpu/optim/distributed.py`` (the flat branch of
   ``f/size`` after it.
 
 ``compression=None`` (the default) follows ``HOROVOD_COMPRESSION``, as
-the JAX wrap does.  The error-feedback codec ``powersgd:<r>`` makes the
-optimizer stateful: it plans its buckets as the JAX package's
-``ef_bucket_plan`` does (forward, and -- given ``named_parameters`` -- in
-the order and layout ``jax.tree.leaves`` sees the flax parameters, since
-the matricized bucket is the matrix PowerSGD approximates), holds one
-flat f32 residual per bucket (zero at wrap time), launches each bucket's
-stage 1 and P allreduce from the hook of its last gradient, and finishes
-the exchange in ``synchronize()``; the residual is replaced only once its
-whole bucket has been exchanged and written back.
+the JAX wrap does.  The exchange a bucket takes follows the JAX
+``allreduce_gradients`` (see :func:`_launch_bucket`): ``fp8`` through
+``fp8_allreduce``, a per-leg ``ici:<c>,dcn:<c>`` codec or
+``HOROVOD_HIERARCHICAL`` through ``hierarchical_allreduce``,
+``HOROVOD_EXCHANGE_CHUNK_MB`` through ``chunked_allreduce``.  The
+error-feedback codecs ``powersgd:<r>`` and ``topk:<f>`` (and a per-leg
+codec whose DCN leg is one) make the optimizer stateful: it plans its
+buckets as the JAX package's ``ef_bucket_plan`` does (forward, and --
+given ``named_parameters`` -- in the order and layout ``jax.tree.leaves``
+sees the flax parameters, since the matricized bucket is the matrix
+PowerSGD approximates), holds one f32 residual per bucket (zero at wrap
+time; ``ef_residual_shape``), launches each bucket's exchange
+(PowerSGD's stage 1 and P allreduce, top-k's gathers) from the hook of
+its last gradient, and finishes it in ``synchronize()``; the residual
+is replaced only once its whole bucket has been exchanged and written
+back.
 
 ``op=Adasum`` (:func:`DistributedAdasumOptimizer`) mixes each fusion
 bucket with its own Adasum coefficients, so which leaves share a bucket
@@ -62,23 +69,30 @@ threshold.
 from __future__ import annotations
 
 import weakref
-from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..collectives.compression import (Compression, is_error_feedback,
-                                       parse_compression,
+                                       is_fp8, is_hier_legs, is_powersgd,
+                                       is_topk, parse_compression,
                                        wire_payload_bytes)
-from ..collectives.ops import (Handle, allreduce_async_,
-                               powersgd_allreduce_async)
+from ..collectives.ops import (Handle, allreduce_async_, chunked_allreduce,
+                               fp8_allreduce_async, hierarchical_allreduce,
+                               microbatch_pad_quantum,
+                               powersgd_allreduce_async,
+                               topk_allreduce_async)
 from ..collectives.reduce_op import Adasum, Average, ReduceOp, Sum
-from ..controller.fusion import (FusionSpec, pack_bucket, plan_buckets,
-                                 unpack, unpack_bucket)
+from ..controller.fusion import (FusionSpec, exchange_chunk_bytes,
+                                 hier_requested, pack_bucket, plan_buckets,
+                                 plan_hier_legs, unpack, unpack_bucket)
 from ..core.process_sets import get_process_set
 from ..core.state import global_state
+from ..core.topology import hier_groups, hier_mesh_shape
 from ..models.convert import (flax_leaf_order, from_flax_layout,
                               to_flax_layout)
-from ..timeline.metrics import exchange_counters, note_compression_ratio
+from ..timeline.metrics import (exchange_counters, note_compression_ratio,
+                                note_hier_legs)
 
 
 def _resolve_compression(compression):
@@ -101,51 +115,140 @@ def _ef_enabled() -> bool:
     return cfg.ef_residual if cfg is not None else True
 
 
+def _hier_wire_bytes(compression, size: int, dtype,
+                     note: bool = False) -> int:
+    """One bucket's two-level wire bytes, summed over
+    :func:`plan_hier_legs`' rows (``note``: and counted by leg)."""
+    n_dcn, n_ici = hier_mesh_shape()
+    legs = plan_hier_legs(size, dtype, n_dcn=n_dcn, n_ici=n_ici,
+                          compression=compression)
+    if note:
+        note_hier_legs(legs)
+    return sum(leg.nbytes for leg in legs)
+
+
+def _chunk_count(size: int, itemsize: int, chunk_bytes: int, n: int) -> int:
+    elems = max(1, chunk_bytes // itemsize)
+    elems += (-elems) % n
+    return -(-size // elems)
+
+
 def _launch_bucket(grads, lspecs, op: ReduceOp, compression,
                    prescale_factor: float, postscale_factor: float,
-                   divisor: int = 1, process_set=None) -> Tuple[Any, Any]:
+                   divisor: int = 1, process_set=None) -> Handle:
     """Pack one bucket's gradients (``grads[s.index]`` for each leaf spec)
     into a new flat buffer, divide it by ``divisor`` (the accumulated
-    passes), compress it and launch its async allreduce.  Returns
-    ``(handle, ctx)``; ``compression.decompress(handle.wait(), ctx)`` is
-    the reduced bucket.  Feeds the exchange counters."""
+    passes) and start its exchange; ``handle.wait()`` returns the reduced
+    bucket, decompressed.  The exchange follows the JAX package's
+    ``allreduce_gradients`` routing:
+
+    * ``Compression.fp8``: :func:`fp8_allreduce_async`, or Adasum's e4m3
+      wire for ``op=Adasum``;
+    * a per-leg codec, or ``HOROVOD_HIERARCHICAL`` /
+      ``HOROVOD_HIERARCHICAL_ALLREDUCE`` with a cast codec:
+      :func:`hierarchical_allreduce` (Sum/Average, the global set; a
+      per-leg codec without the two-level layout rides its ICI codec on
+      the flat allreduce);
+    * ``HOROVOD_EXCHANGE_CHUNK_MB``: :func:`chunked_allreduce` of the
+      compressed buffer (Sum/Average, the global set);
+    * else the cast codec and one async allreduce.
+
+    Feeds the exchange counters: one bucket, the collectives it issues
+    (``handles``) and its wire bytes."""
     buf = pack_bucket(grads, lspecs)
     if divisor > 1:
         buf.div_(divisor)
-    wire, ctx = compression.compress(buf)
-    handle = allreduce_async_(wire, op, prescale_factor=prescale_factor,
-                              postscale_factor=postscale_factor,
-                              process_set=process_set)
     m = exchange_counters()
     m["buckets"].inc()
+    size, itemsize = buf.numel(), buf.element_size()
+    kw = dict(prescale_factor=prescale_factor,
+              postscale_factor=postscale_factor)
+    if is_fp8(compression):
+        if op is Adasum:
+            handle = allreduce_async_(buf, op=op, process_set=process_set,
+                                      wire_codec="fp8", **kw)
+            m["handles"].inc()
+        else:
+            handle = fp8_allreduce_async(buf, op, process_set=process_set,
+                                         **kw)
+            m["handles"].inc(2)
+        m["wire_bytes"].inc(wire_payload_bytes(compression, size, itemsize))
+        return handle
+    global_sum = process_set is None and op in (Sum, Average)
+    shape = hier_mesh_shape() if global_sum and hier_requested(
+        compression) else None
+    if is_hier_legs(compression) and shape is None:
+        compression = compression.ici     # the flat exchange, ICI codec
+    wire, ctx = compression.compress(buf)
+    if shape is not None:
+        y = hierarchical_allreduce(
+            wire, op, dcn_codec=getattr(compression, "dcn", None),
+            ici_codec=getattr(compression, "ici", None), topology=shape,
+            **kw)
+        m["handles"].inc(3 if shape[0] > 1 else 1)
+        m["wire_bytes"].inc(_hier_wire_bytes(compression, size, buf.dtype,
+                                             note=True))
+        return Handle.completed(compression.decompress(y, ctx))
+    chunk = exchange_chunk_bytes()
+    nbytes = wire.numel() * wire.element_size()
+    m["wire_bytes"].inc(nbytes)
+    if chunk > 0 and global_sum:
+        y = chunked_allreduce(wire, op, chunk_bytes=chunk, **kw)
+        n = global_state().size
+        m["handles"].inc(1 if n == 1 else 2 * _chunk_count(
+            wire.numel(), wire.element_size(), chunk, n))
+        return Handle.completed(compression.decompress(y, ctx))
+    inner = allreduce_async_(wire, op, process_set=process_set, **kw)
     m["handles"].inc()
-    m["wire_bytes"].inc(wire.numel() * wire.element_size())
-    return handle, ctx
+    return Handle(None, lambda: compression.decompress(inner.wait(), ctx),
+                  parts=(inner,))
 
 
 def _launch_ef_bucket(grads, lspecs, op: ReduceOp, compression,
                       residual: Optional[torch.Tensor],
                       prescale_factor: float,
                       postscale_factor: float, process_set=None) -> Handle:
-    """Pack one bucket into a new flat buffer and start its PowerSGD
-    exchange (stage 1 and the async P allreduce) with ``residual`` fed in
-    (``None``: zeros).  ``handle.wait()`` returns ``(reduced bucket,
+    """Pack one bucket into a new flat buffer and start its error-feedback
+    exchange with ``residual`` fed in (``None``: zeros): PowerSGD's stage
+    1 and async P allreduce, top-k's async gathers, or the two-level
+    exchange of a per-leg codec (its residual ``[2, shard]``, the DCN
+    leg's in row 1).  ``handle.wait()`` returns ``(reduced bucket,
     new_residual)``; a non-floating bucket takes the plain allreduce and
     hands ``residual`` back unchanged.  Feeds the exchange counters."""
     buf = pack_bucket(grads, lspecs)
     m = exchange_counters()
     m["buckets"].inc()
+    kw = dict(prescale_factor=prescale_factor,
+              postscale_factor=postscale_factor)
     if not buf.dtype.is_floating_point:
-        inner = allreduce_async_(buf, op, prescale_factor=prescale_factor,
-                                 postscale_factor=postscale_factor,
-                                 process_set=process_set)
+        inner = allreduce_async_(buf, op, process_set=process_set, **kw)
         m["handles"].inc()
         m["wire_bytes"].inc(buf.numel() * buf.element_size())
         return Handle(None, lambda: (inner.wait(), residual))
-    handle = powersgd_allreduce_async(
-        buf, op, rank=compression.rank, residual=residual,
-        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
-        process_set=process_set)
+    if is_hier_legs(compression):
+        shape = hier_mesh_shape()
+        if shape is None:
+            raise NotImplementedError(
+                "per-leg error-feedback compression (ici:...,dcn:powersgd/"
+                "topk) needs the two-level layout; set HOROVOD_HIERARCHICAL"
+                " or use the flat codec spec instead")
+        out, r_out = hierarchical_allreduce(
+            buf, op, dcn_codec=compression.dcn, ici_codec=compression.ici,
+            dcn_residual=None if residual is None else residual[1],
+            topology=shape, **kw)
+        m["handles"].inc(3 if shape[0] > 1 else 1)
+        m["wire_bytes"].inc(_hier_wire_bytes(compression, buf.numel(),
+                                             buf.dtype, note=True))
+        return Handle.completed(
+            (out, torch.stack([torch.zeros_like(r_out), r_out])))
+    if is_powersgd(compression):
+        handle = powersgd_allreduce_async(
+            buf, op, rank=compression.rank, residual=residual,
+            process_set=process_set, **kw)
+    else:
+        handle = topk_allreduce_async(
+            buf, op, fraction=compression.fraction, residual=residual,
+            process_set=process_set, **kw)
     m["handles"].inc(2)
     m["wire_bytes"].inc(wire_payload_bytes(compression, buf.numel()))
     return handle
@@ -168,6 +271,10 @@ def allreduce_gradients(grads: Sequence[torch.Tensor],
     its own coefficients, the buckets exchanged in order."""
     grads = list(grads)
     compression = parse_compression(compression)
+    if is_hier_legs(compression) and is_error_feedback(compression) and \
+            hier_mesh_shape() is None:
+        # One level: the DCN hop is the whole world.
+        compression = compression.dcn
     spec = plan_buckets(grads, fusion_threshold,
                         extra=(compression.__name__,))
     if is_error_feedback(compression):
@@ -175,11 +282,10 @@ def allreduce_gradients(grads: Sequence[torch.Tensor],
                                      prescale_factor, postscale_factor)
                    for _, lspecs in spec.buffers]
         return unpack([h.wait()[0] for h in handles], spec)
-    pending = [_launch_bucket(grads, lspecs, op, compression,
+    handles = [_launch_bucket(grads, lspecs, op, compression,
                               prescale_factor, postscale_factor)
                for _, lspecs in spec.buffers]
-    return unpack([compression.decompress(h.wait(), ctx)
-                   for h, ctx in pending], spec)
+    return unpack([h.wait() for h in handles], spec)
 
 
 # ---------------------------------------------------------------------------
@@ -199,9 +305,17 @@ def ef_bucket_plan(leaves, fusion_threshold: Optional[int],
 
 def ef_residual_shape(size: int, compression) -> tuple:
     """Per-bucket residual shape: ``(size,)``, the whole bucket's unsent
-    error (the flat codecs; the per-leg codecs are not ported)."""
+    error, for the flat codecs; ``(2, padded / n_ici)`` for a per-leg
+    codec -- one row a leg of the two-level exchange, the ICI row
+    identically zero (its legs are exact), the DCN row the DCN codec's
+    unsent shard-domain error (the JAX package's layout)."""
     if not is_error_feedback(compression):
         raise ValueError(f"{compression.__name__} carries no residual")
+    if is_hier_legs(compression):
+        shape = hier_mesh_shape()
+        n_ici = shape[1] if shape is not None else 1
+        padded = size + (-size) % microbatch_pad_quantum(n_ici)
+        return (2, padded // n_ici)
     return (int(size),)
 
 
@@ -220,11 +334,16 @@ def ef_init_residuals(params, fusion_threshold: Optional[int],
 
 
 def _note_plan_bytes(spec: FusionSpec, compression) -> None:
+    """The compression gauges of one step over ``spec``'s buckets: the
+    per-leg codecs priced leg by leg (:func:`plan_hier_legs`) on the
+    two-level layout, the others by :func:`wire_payload_bytes`."""
+    hier = is_hier_legs(compression) and hier_mesh_shape() is not None
     raw = wire = 0
     for dt, lspecs in spec.buffers:
         size = sum(s.size for s in lspecs)
         raw += size * dt.itemsize
-        wire += wire_payload_bytes(compression, size, dt.itemsize)
+        wire += _hier_wire_bytes(compression, size, dt) if hier else \
+            wire_payload_bytes(compression, size, dt.itemsize)
     note_compression_ratio(raw, wire)
 
 
@@ -326,7 +445,6 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                                               compression)
             self._residuals = list(ef_init_residuals(
                 leaves, fusion_threshold, compression))
-            _note_plan_bytes(self.bucket_plan, compression)
         elif self._adasum:
             # The JAX flat exchange's plan: forward over the leaves.
             self.bucket_plan = plan_buckets(
@@ -337,6 +455,12 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             # optimizer order, first bucket first to be ready.
             self.bucket_plan = plan_buckets(self._trainable,
                                             fusion_threshold, reverse=True)
+        _note_plan_bytes(self.bucket_plan, compression)
+        shape = hier_mesh_shape()
+        if shape is not None and shape[0] > 1:
+            # The two-level groups are made collectively, so here, where
+            # every rank wraps, not in a hook.
+            hier_groups(shape[1])
         self._bucket_of: Dict[int, int] = {}
         for b, (_, lspecs) in enumerate(self.bucket_plan.buffers):
             for s in lspecs:
@@ -404,10 +528,10 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 self._residuals[b] if feed else None, self._prescale,
                 self._postscale, self._process_set), feed)
             return
-        self._handles[b] = _launch_bucket(
+        self._handles[b] = (_launch_bucket(
             grads, lspecs, self._op, self._compression, self._prescale,
             self._postscale, divisor=self.backward_passes_per_step,
-            process_set=self._process_set)
+            process_set=self._process_set), None)
 
     @property
     def residuals(self) -> Tuple[torch.Tensor, ...]:
@@ -441,7 +565,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 if self._ef:
                     out, new_residual = handle.wait()
                 else:
-                    out = self._compression.decompress(handle.wait(), ctx)
+                    out = handle.wait()
                 for i, view in unpack_bucket(
                         out, self.bucket_plan.buffers[b][1]):
                     p = self._trainable[i]
@@ -510,10 +634,13 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     rebound to a subclass of both).
 
     ``compression`` accepts a codec class, a spec string (``"bf16"``,
-    ``"powersgd:4"``, ...) or ``None`` to follow ``HOROVOD_COMPRESSION``.
-    The error-feedback codec ``Compression.powersgd(r)`` carries one
-    residual per bucket (``optimizer.residuals``; ``HOROVOD_EF_RESIDUAL``)
-    and supports Sum/Average with one backward pass per step.
+    ``"fp8"``, ``"powersgd:4"``, ``"topk:0.25"``, ``"ici:none,dcn:fp8"``,
+    ...) or ``None`` to follow ``HOROVOD_COMPRESSION``.  The
+    error-feedback codecs carry one residual per bucket
+    (``optimizer.residuals``; ``HOROVOD_EF_RESIDUAL``) and support
+    Sum/Average with one backward pass per step.  fp8 (but for Adasum),
+    top-k and the per-leg codecs refuse a process set smaller than the
+    world, as in the JAX package.
     ``op=Adasum`` needs a power-of-two world (see the module docstring).
     ``process_set``, ``sparse_as_dense`` and ``num_groups``: see the
     module docstring.  Every argument is checked before the optimizer's
@@ -521,6 +648,14 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     if backward_passes_per_step < 1:
         raise ValueError("backward_passes_per_step must be >= 1")
     compression = _resolve_compression(compression)
+    if process_set is not None and \
+            not get_process_set(process_set).is_global() and (
+                is_topk(compression) or is_hier_legs(compression)
+                or (is_fp8(compression) and op is not Adasum)):
+        raise NotImplementedError(
+            f"{compression.__name__} does not support process-set "
+            f"reductions (no masked identity for a quantized, sparse or "
+            f"two-level exchange); use fp16/bf16 there")
     if is_error_feedback(compression):
         if op not in (Sum, Average):
             raise NotImplementedError(

@@ -17,8 +17,7 @@ The defaults are the JAX script's: a per-chip batch of 32, 3 warm-up and
 10 timed iterations, bf16, 1000 classes, dropout 0.  ``--device cpu``
 runs on the CPU (a gloo world); the default is the GPU, and with no GPU
 it raises.  Differences from the JAX script: ``--cpu-devices`` (a virtual
-XLA mesh) is ``--device cpu``; ``--compression fp8`` is not ported
-(ROADMAP item 1.9) and raises; LeNet's labels are drawn from its own 10
+XLA mesh) is ``--device cpu``; LeNet's labels are drawn from its own 10
 classes (the JAX script draws them from ``--num-classes``, which
 ``optax`` takes as all-zero targets past the logits and torch refuses).
 """
@@ -124,10 +123,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = ap.parse_args(argv)
     if args.num_iters < 1:
         ap.error("--num-iters must be at least 1")
-    if args.compression == "fp8":
-        raise NotImplementedError(
-            "--compression fp8 is not ported to horovod_tpu_torch yet "
-            "(ROADMAP item 1.9)")
 
     from . import init, rank, size
     init(device=args.device)

@@ -266,21 +266,94 @@ _EXCHANGE = {
 }
 
 
+_HIER_LEGS = ("hier/ici_rs", "hier/dcn_ar", "hier/ici_ag")
+
+
 def exchange_counters() -> Dict[str, object]:
     """The gradient-exchange counters the DistributedOptimizer feeds:
     fused buckets sent, bytes on the wire (after compression, one rank's
-    payload) and async allreduce handles issued.  A PowerSGD bucket counts
-    one bucket, two handles (its P and Q factor allreduces) and ``4 * r *
-    (m + c)`` wire bytes."""
+    payload, priced by ``wire_payload_bytes`` / ``plan_hier_legs``) and
+    the collectives issued for the buckets' payloads (``handles``): one
+    for a plain or Adasum bucket, two for PowerSGD (its P and Q factor
+    allreduces), fp8 (the all-to-all and the allgather) and top-k (the
+    value and index gathers), three for a two-level bucket, two a chunk
+    for a chunked one.  A PowerSGD bucket puts ``4 * r * (m + c)`` bytes
+    on the wire, fp8 one a value, top-k ``8k / 2``."""
     reg = registry()
     return {k: reg.counter(name, help) for k, (name, help)
             in _EXCHANGE.items()}
 
 
-def exchange_totals() -> Dict[str, float]:
+def hier_leg_counters() -> Dict[str, object]:
+    """Wire bytes of the two-level exchange by leg (``hier/ici_rs``,
+    ``hier/dcn_ar``, ``hier/ici_ag``, each priced as ``plan_hier_legs``
+    prices it)."""
+    reg = registry()
+    fam = reg.counter("horovod_exchange_hier_leg_bytes_total",
+                      "two-level exchange wire bytes by leg", ("leg",))
+    return {leg: fam.labels(leg=leg) for leg in _HIER_LEGS}
+
+
+def note_hier_legs(legs) -> None:
+    """Count one bucket's :class:`~horovod_tpu_torch.controller.fusion.
+    HierLeg` rows (a one-node ``flat_ar`` row counts nowhere)."""
+    m = hier_leg_counters()
+    for leg in legs:
+        if leg.tag in m:
+            m[leg.tag].inc(leg.nbytes)
+
+
+def exchange_totals(legs: bool = False) -> Dict[str, float]:
     """The exchange counters' values (0 when ``HOROVOD_METRICS=0``); a
-    caller takes differences around the steps it wants to read."""
-    return {k: c.value for k, c in exchange_counters().items()}
+    caller takes differences around the steps it wants to read.
+    ``legs=True`` adds the two-level exchange's bytes by leg
+    (:func:`hier_leg_counters`)."""
+    out = {k: c.value for k, c in exchange_counters().items()}
+    if legs:
+        out.update((k, c.value) for k, c in hier_leg_counters().items())
+    return out
+
+
+_ZERO = {
+    "steps": ("horovod_zero1_steps_total", "ZeRO-1 optimizer steps"),
+    "reducescatter_bytes": ("horovod_zero1_reducescatter_bytes_total",
+                            "per-rank link bytes of ZeRO-1's gradient "
+                            "reduce-scatters"),
+    "allgather_bytes": ("horovod_zero1_allgather_bytes_total",
+                        "per-rank link bytes of ZeRO-1's (compressed) "
+                        "parameter allgathers"),
+}
+
+
+def zero_counters() -> Dict[str, object]:
+    """The ZeRO-1 counters ``optim.zero.zero_apply`` feeds, each step:
+    the steps, and the link bytes of its reduce-scatters and allgathers
+    priced as ``zero_report`` prices them (so a step's sum is its
+    ``zero1_exchanged_bytes_per_chip``)."""
+    reg = registry()
+    return {k: reg.counter(name, help) for k, (name, help)
+            in _ZERO.items()}
+
+
+def zero_totals() -> Dict[str, float]:
+    """The ZeRO-1 counters' values and the optimizer-state bytes a rank
+    holds (``opt_state_bytes``, a gauge)."""
+    out = {k: c.value for k, c in zero_counters().items()}
+    out["opt_state_bytes"] = registry().gauge(
+        "horovod_zero1_opt_state_bytes",
+        "optimizer-state bytes this rank holds under ZeRO-1").value
+    return out
+
+
+def note_zero_step(reducescatter_bytes: int, allgather_bytes: int,
+                   opt_state_bytes: int) -> None:
+    m = zero_counters()
+    m["steps"].inc()
+    m["reducescatter_bytes"].inc(reducescatter_bytes)
+    m["allgather_bytes"].inc(allgather_bytes)
+    registry().gauge("horovod_zero1_opt_state_bytes",
+                     "optimizer-state bytes this rank holds under ZeRO-1"
+                     ).set(opt_state_bytes)
 
 
 _SYNC_BN = {

@@ -23,18 +23,28 @@ on ``(x, y)`` batches: :func:`make_train_step` with :func:`softmax_xent`
 in train mode, then the BatchNorm running statistics averaged over the
 ranks.  :func:`make_eval_step` averages a metric over the ranks.
 :func:`sync_batch_norm` is the JAX package's cross-replica BatchNorm.
+
+``zero_stage=1`` on either step builder (default ``HOROVOD_ZERO``) runs
+the optimizer as ZeRO-1 (:mod:`~horovod_tpu_torch.optim.zero`): pass the
+BARE optimizer; the step reduce-scatters the gradients, updates this
+rank's arena shard with an inner optimizer of the same class, and
+allgathers the parameters (``zero_compression``: none, fp16, bf16, fp8,
+or an error-feedback codec whose residuals stay on the shard owner).  The
+step's ``zero_state`` attribute holds the sharded state.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
 from .collectives.ops import allreduce, grouped_allreduce
 from .collectives.reduce_op import Average
+from .core.state import global_state
 from .ops.bn import BatchNorm
+from .optim import zero as _zero
 
 
 def next_token_loss(logits: torch.Tensor,
@@ -73,27 +83,54 @@ def bert_pretrain_loss(model: torch.nn.Module, batch) -> torch.Tensor:
     return mlm_nsp_loss(*model(tokens), tokens, nsp_labels)
 
 
+def _resolve_zero_stage(zero_stage: Optional[int]) -> int:
+    """``None`` defers to the configured default (``HOROVOD_ZERO``)."""
+    if zero_stage is None:
+        cfg = global_state().config
+        zero_stage = cfg.zero_stage if cfg is not None else 0
+    if zero_stage not in (0, 1):
+        raise ValueError(f"zero_stage must be 0 or 1, got {zero_stage!r}")
+    return zero_stage
+
+
 def make_train_step(model: torch.nn.Module,
                     loss_fn: Callable[[torch.nn.Module, Any], torch.Tensor],
-                    optimizer: torch.optim.Optimizer
-                    ) -> Callable[[Any], torch.Tensor]:
+                    optimizer: torch.optim.Optimizer,
+                    zero_stage: Optional[int] = None,
+                    zero_compression=None) -> Callable[[Any], torch.Tensor]:
     """Build ``step(batch) -> loss``.
 
     ``loss_fn(model, local_batch)`` runs on this rank's batch; the
     optimizer should be a ``DistributedOptimizer`` (a plain one trains
-    each rank on its own).  The returned 0-dim tensor is the mean of the
-    ranks' losses; reading it synchronizes with the device.
+    each rank on its own), or with ``zero_stage=1`` the bare optimizer,
+    whose trainable parameters ZeRO-1 shards (module docstring; a
+    ``DistributedOptimizer`` is refused with ``ValueError``).  The
+    returned 0-dim tensor is the mean of the ranks' losses; reading it
+    synchronizes with the device.
     """
+    zero_stage = _resolve_zero_stage(zero_stage)
+    params = state = None
+    if zero_stage:
+        _zero._reject_distributed(optimizer)
+        params = [p for g in optimizer.param_groups for p in g["params"]
+                  if p.requires_grad]
+        state = _zero.zero_init(optimizer, params,
+                                compression=zero_compression)
 
     def step(batch) -> torch.Tensor:
         loss = loss_fn(model, batch)
         loss.backward()
+        if zero_stage:
+            _zero.zero_apply(optimizer, [p.grad for p in params], state,
+                             params, compression=zero_compression)
+            optimizer.zero_grad(set_to_none=True)
         # The optimizer counts the passes; a plain one steps every call.
-        if getattr(optimizer, "exchange_ready", True):
+        elif getattr(optimizer, "exchange_ready", True):
             optimizer.step()
             optimizer.zero_grad(set_to_none=True)
         return allreduce(loss.detach(), Average)
 
+    step.zero_state = state
     return step
 
 
@@ -106,7 +143,9 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def make_flax_train_step(model: torch.nn.Module,
-                         optimizer: torch.optim.Optimizer
+                         optimizer: torch.optim.Optimizer,
+                         zero_stage: Optional[int] = None,
+                         zero_compression=None
                          ) -> Callable[[Any], torch.Tensor]:
     """Build ``step((x, y)) -> loss`` for a model with batch statistics.
 
@@ -117,13 +156,17 @@ def make_flax_train_step(model: torch.nn.Module,
     once its accumulation is complete -- then averages the running
     statistics over the ranks (one grouped allreduce of the model's
     floating-point buffers), as the JAX step does.  Returns the loss
-    averaged over the ranks.
+    averaged over the ranks.  ``zero_stage`` / ``zero_compression``: see
+    :func:`make_train_step` (the order is the JAX step's: gradients, the
+    ZeRO-1 update, the running statistics' average, the loss's).
     """
     def model_loss(m: torch.nn.Module, batch) -> torch.Tensor:
         x, y = batch
         return softmax_xent(m(x), y)
 
-    inner = make_train_step(model, model_loss, optimizer)
+    inner = make_train_step(model, model_loss, optimizer,
+                            zero_stage=zero_stage,
+                            zero_compression=zero_compression)
     stats = [b for b in model.buffers() if b.is_floating_point()]
 
     def step(batch) -> torch.Tensor:
@@ -135,6 +178,7 @@ def make_flax_train_step(model: torch.nn.Module,
                                      grouped_allreduce(stats, Average))
         return loss
 
+    step.zero_state = inner.zero_state
     return step
 
 

@@ -1029,3 +1029,87 @@ def test_cuda_sync_batch_norm_process_set_at_resnet_width(world1_cuda):
     z = m(x[:4].detach().requires_grad_(True))
     torch.relu_(z)                       # not a view: in place is allowed
     z.sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# The compressed and sharded exchanges on the card (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [None, 0])
+def test_cuda_fp8_codes_equal_the_cpu_codes(cuda, axis):
+    """``fp8_quantize`` on the card: the same e4m3 codes and f32 scales
+    as on the CPU, bitwise (values from 1e-6 to 1e2, an all-zero row)."""
+    from horovod_tpu_torch.collectives.compression import fp8_quantize
+    rng = np.random.RandomState(91)
+    x = (rng.choice([-1.0, 1.0], (8, 4096))
+         * 10.0 ** rng.uniform(-6, 2, (8, 4096))).astype(np.float32)
+    x[3] = 0.0
+    xc = torch.from_numpy(x)
+    q, s = fp8_quantize(xc, axis=axis)
+    qg, sg = fp8_quantize(xc.to(cuda), axis=axis)
+    assert torch.equal(qg.view(torch.uint8).cpu(), q.view(torch.uint8))
+    assert torch.equal(sg.cpu(), s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,k", [(100_000, 25_000), (4099, 1025)])
+def test_cuda_topk_selection_equals_the_cpu_on_ties(cuda, size, k):
+    """The stable descending sort on the card picks the CPU's indices on
+    integer-valued (heavily tied) magnitudes."""
+    from horovod_tpu_torch.collectives.ops import _topk_select
+    x = torch.from_numpy(np.random.RandomState(size).randint(
+        -3, 4, size).astype(np.float32))
+    assert torch.equal(_topk_select(x.to(cuda), k).cpu(), _topk_select(x, k))
+
+
+@pytest.mark.cuda
+def test_cuda_fp8_and_topk_allreduce_at_world_one(world1_cuda):
+    """At world 1 on NCCL: ``fp8_allreduce`` is the round trip quantize,
+    dequantize, quantize, dequantize; ``topk_allreduce`` sends its k
+    largest and keeps the rest as the residual, ``own + residual ==
+    acc`` bitwise."""
+    from horovod_tpu_torch.collectives import ops
+    from horovod_tpu_torch.collectives.compression import fp8_quantize
+    hvd = world1_cuda
+    x = torch.from_numpy(np.random.RandomState(92).randn(10_007).astype(
+        np.float32)).cuda()
+    q, s = fp8_quantize(x.view(1, -1), axis=0)
+    q2, s2 = fp8_quantize((q.float() * s[:, None]).sum(0))
+    assert torch.equal(ops.fp8_allreduce(x), q2.float() * s2)
+    r = torch.randn(10_007, device="cuda")
+    out, res = ops.topk_allreduce(x, hvd.Sum, fraction=0.25, residual=r)
+    acc = x + r
+    assert torch.equal(out + res, acc)
+    assert int((out != 0).sum()) == 2502 and not res[out != 0].any()
+
+
+@pytest.mark.cuda
+def test_cuda_zero1_step_equals_the_plain_step(world1_cuda):
+    """One ZeRO-1 step (SGD with momentum) of a small MLP on the card at
+    world 1 against the bare optimizer's step: within 1e-6 of max
+    |parameter| (the arena's flat update and the per-tensor update may
+    contract their multiply-adds otherwise)."""
+    from horovod_tpu_torch.optim import zero
+    torch.manual_seed(93)
+    make = lambda: torch.nn.Sequential(torch.nn.Linear(37, 64),  # noqa
+                                       torch.nn.Tanh(),
+                                       torch.nn.Linear(64, 5)).cuda()
+    a, b = make(), make()
+    b.load_state_dict(a.state_dict())
+    oa = torch.optim.SGD(a.parameters(), lr=0.1, momentum=0.9)
+    ob = torch.optim.SGD(b.parameters(), lr=0.1, momentum=0.9)
+    state = zero.zero_init(oa, list(a.parameters()))
+    x = torch.randn(16, 37, device="cuda")
+    for _ in range(2):
+        a(x).square().mean().backward()
+        zero.zero_apply(oa, [p.grad for p in a.parameters()], state,
+                        list(a.parameters()))
+        oa.zero_grad()
+        b(x).square().mean().backward()
+        ob.step()
+        ob.zero_grad()
+    for pa, pb in zip(a.parameters(), b.parameters()):
+        assert (pa - pb).abs().max().item() <= \
+            1e-6 * pb.abs().max().item()

@@ -133,9 +133,14 @@ def test_parse_compression_matches_jax(spec):
 
 
 @pytest.mark.parametrize("spec", ["fp8", "topk:0.1", "ici:none,dcn:fp8"])
-def test_unported_codecs_raise_naming_the_roadmap_item(spec):
-    with pytest.raises(NotImplementedError, match="1.9"):
-        tcomp.parse_compression(spec)
+def test_fp8_topk_and_per_leg_specs_parse_to_the_jax_codec(spec):
+    from horovod_tpu.collectives import compression as jcomp
+    got, want = tcomp.parse_compression(spec), jcomp.parse_compression(spec)
+    assert got.__name__ == want.__name__
+    assert getattr(got, "wire_format", "") == getattr(want, "wire_format",
+                                                      "")
+    assert tcomp.is_error_feedback(got) == jcomp.is_error_feedback(want)
+    assert tcomp.resolve_compressor_name(got.__name__) is got
 
 
 @pytest.mark.parametrize("spec", ["powersgd:0", "powersgd:x", "gzip"])
