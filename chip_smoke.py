@@ -154,6 +154,21 @@ Phases, each printing its own line; any failure exits non-zero:
    sent indices and ``acc`` at the rest, ``8k / 2`` wire bytes a bucket.
    Each: step ms, images/s, peak memory, buckets, handles and wire bytes a
    step, 53 launches of each BN kernel a step, five finite losses.
+21. resnet_loop -- phase 8's ResNet-50 with deterministic cuDNN through
+   (a) ``make_flax_train_loop(steps_per_execution=4)`` fed by
+   ``DevicePrefetcher(depth=2, stack_steps=4)``: three windows (eager,
+   captured as one CUDA graph and replayed, replayed) bitwise equal to
+   twelve ``make_flax_train_step`` calls (parameters, BN statistics,
+   momentum buffers, losses), 53 + 53 BN launches and phase 8's exchange
+   a step counted over replays; (b) ``make_flax_train_step(
+   microbatches=4)``: 4 x 53 launches of each BN kernel, four ``mb_rs``
+   rows and one ``mb_ag`` row a bucket as ``plan_exchange("microbatch")``
+   gives them, losses finite and falling; (c) the loop of (b)'s step,
+   bitwise (b)'s twelve steps; (d) Inception-v3 (phase 14's cell, dropout
+   0.5 from a generator registered with the graph) through the loop,
+   bitwise its eager steps.  Each: step ms, images/s, peak memory and the
+   host ms to dispatch a window beside the eager steps', and the
+   ResNet-50 buckets' ``render_plan``.
 
 Phase 17 also holds ``chunked_allreduce`` (equal to ``allreduce`` at
 world 1) and ``fp8_allreduce`` (bitwise its round trip) on its 64 MiB
@@ -1480,7 +1495,10 @@ def train_resnet_powersgd(dev, card: str) -> dict:
 
     def matricize_p(x, residual, q0, **kw):
         acc, p = real_mp(x, residual, q0, **kw)
-        seen.append({"acc": acc, "x": x, "residual": residual})
+        # The residual is updated in place after the exchange: keep the
+        # one this exchange read.
+        kept = None if residual is None else residual.clone()
+        seen.append({"acc": acc, "x": x, "residual": kept})
         return acc, p
 
     def reconstruct_residual(acc, *args, **kw):
@@ -2695,6 +2713,389 @@ def train_resnet_exchange(dev, card: str) -> dict:
     return bn_total
 
 
+LOOP_K = 4                    # steps_per_execution of phase 21
+LOOP_MICRO = 4                # microbatches of phase 21 (b) and (c)
+LOOP_WINDOWS = 3              # eager, captured + replayed, replayed
+LOOP_TIMED_WINDOWS = 3        # replayed windows timed after the checks
+
+
+class _WithDropout(torch.nn.Module):
+    """A model whose forward draws its dropout mask from ``gen``."""
+
+    def __init__(self, inner, gen):
+        super().__init__()
+        self.inner, self.gen = inner, gen
+
+    def forward(self, x):
+        return self.inner(x, self.gen)
+
+
+def _snapshot(model, opt) -> dict:
+    out = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    out.update({f"momentum/{i}": st["momentum_buffer"].clone()
+                for i, st in enumerate(opt.state.values())})
+    return out
+
+
+def _counters() -> tuple:
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.timeline import metrics, spans
+    return (registry.launch_counts(), metrics.exchange_totals(),
+            spans.recorder().leg_registry())
+
+
+def _reset_counters() -> None:
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.timeline import metrics, spans
+    registry.reset_launch_counts()
+    metrics.reset_metrics()
+    spans.recorder().reset()
+
+
+def _per_step(counts: tuple, steps: int) -> dict:
+    launches, exchange, legs = counts
+    return {"bn_launches": {f: launches[f] / steps
+                            for f in ("bn_bwd_reduce", "bn_bwd_dx")},
+            "exchange": {k: v / steps for k, v in exchange.items()},
+            "legs": {t: {k: n / steps for k, n in v.items()}
+                     for t, v in legs.items()}}
+
+
+def _eager_run(step, batches) -> tuple:
+    """``step`` on each batch: (losses, wall ms each, host dispatch ms
+    each -- the time until the call returns, before any sync)."""
+    losses, wall, dispatch = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step(b)
+        dispatch.append(1e3 * (time.perf_counter() - t))
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t))
+        losses.append(loss.clone())
+    return torch.stack(losses), wall, dispatch
+
+
+def _loop_run(loop, windows) -> tuple:
+    """``loop`` on each stacked window: (losses, wall ms a step, host
+    dispatch ms a window)."""
+    losses, wall, dispatch = [], [], []
+    for w in windows:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = loop(w)
+        dispatch.append(1e3 * (time.perf_counter() - t))
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t) / LOOP_K)
+        losses.append(out.clone())
+    return torch.cat(losses), wall, dispatch
+
+
+def _bitwise(a: dict, b: dict) -> list:
+    return sorted(k for k in a if not torch.equal(a[k], b[k]))
+
+
+def train_resnet_loop(dev, card: str) -> dict:
+    """Phase 21: phase 8's ResNet-50 (s2d, bf16, 256 x 224 x 224, seed 0,
+    ``DistributedOptimizer(SGD(0.1, momentum 0.9))``) with deterministic
+    cuDNN, through
+
+    (a) ``make_flax_train_loop(steps_per_execution=4)`` fed by
+        ``DevicePrefetcher(depth=2, stack_steps=4)`` over a pool of two
+        host batches from seed 0: three windows (eager, captured and
+        replayed, replayed) bitwise equal -- parameters, BN statistics,
+        momentum buffers, the twelve losses -- to twelve
+        ``make_flax_train_step`` calls from the same start on the same
+        batches; 53 + 53 BN launches and phase 8's exchange a step,
+        counted over replays;
+    (b) ``make_flax_train_step(microbatches=4)``: 4 x 53 launches of
+        each BN kernel a step, four ``mb_rs`` rows and one ``mb_ag`` row
+        a bucket in the leg registry as ``plan_exchange("microbatch")``
+        gives them, the exchange counters priced from them, losses
+        finite and falling;
+    (c) the loop with ``steps_per_execution=4, microbatches=4``, bitwise
+        equal to twelve calls of (b)'s step;
+    (d) Inception-v3 (phase 14's cell: 32 x 299 x 299, SGD(0.01, momentum
+        0.9), 94 BN sites) with dropout 0.5 drawn from an explicit
+        generator registered with the graph, through the loop, bitwise
+        equal to its eager steps.
+
+    Each prints step ms (each), images/s, peak GB and the host ms to
+    dispatch a window, against the eager steps in the same call, and
+    the ResNet-50 buckets' ``render_plan``.  Returns the BN launches of
+    the slice's entry points: every window of the loops, the checked and
+    the timed ones, and (b)'s microbatched steps (not the single-shot
+    eager references)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.controller import fusion
+    from horovod_tpu_torch.data import DevicePrefetcher
+    from horovod_tpu_torch.models import InceptionV3, init_params
+    from horovod_tpu_torch.models.convert import flax_leaf_order
+    from horovod_tpu_torch.training import (make_flax_train_loop,
+                                            make_flax_train_step,
+                                            stack_steps)
+
+    batch_size = 256
+    steps = LOOP_K * LOOP_WINDOWS
+    hvd.init()
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    bn_total = {"bn_bwd_reduce": 0, "bn_bwd_dx": 0}
+    fails = []
+    try:
+        model, _ = resnet50(dev, seed=0)
+        named = list(model.named_parameters())
+        init_state = {k: v.clone() for k, v in model.state_dict().items()}
+        gen = torch.Generator().manual_seed(0)
+        pool = [(torch.randn(batch_size, 224, 224, 3, generator=gen)
+                 .to(torch.bfloat16),
+                 torch.randint(0, 1000, (batch_size,), generator=gen))
+                for _ in range(2)]
+        host = [pool[i % 2] for i in range(steps)]
+        on_dev = [tuple(t.to(dev) for t in b) for b in host]
+
+        def fresh():
+            model.load_state_dict(init_state)
+            gc.collect()
+            return hvd.DistributedOptimizer(
+                torch.optim.SGD([p for _, p in named], lr=0.1, momentum=0.9),
+                named_parameters=named)
+
+        def record(config, losses, wall, dispatch, skip, peak, counts, ref,
+                   **extra):
+            step_ms = sum(wall[skip:]) / len(wall[skip:])
+            log({"phase": "resnet_loop", "config": config, "card": card,
+                 "batch": [batch_size, 224, 224, 3], "steps": len(losses),
+                 "step_ms": step_ms, "step_ms_each": wall,
+                 "images_per_s": batch_size / (step_ms / 1e3),
+                 "dispatch_ms_each": dispatch, "peak_mem_bytes": peak,
+                 "per_step": counts, "losses": losses.tolist(),
+                 "eager": ref, **extra})
+            if not bool(torch.isfinite(losses).all()):
+                fails.append(f"{config}: a loss is not finite")
+
+        # The eager reference: twelve make_flax_train_step calls.
+        opt = fresh()
+        step = make_flax_train_step(model, opt)
+        _reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        e_losses, e_wall, e_disp = _eager_run(step, on_dev)
+        e_peak = torch.cuda.max_memory_allocated()
+        e_counts = _per_step(_counters(), steps)
+        e_state = _snapshot(model, opt)
+        plan = fusion.explain_plan(opt._trainable, reverse=True)
+        log({"phase": "resnet_loop_plan", "render_plan":
+             fusion.render_plan(plan)})
+        eager_a = {"step_ms": sum(e_wall[1:]) / (steps - 1),
+                   "step_ms_each": e_wall, "dispatch_ms_each": e_disp,
+                   "dispatch_ms_a_window": sum(e_disp[1:]) / (steps - 1)
+                   * LOOP_K,
+                   "images_per_s": batch_size * (steps - 1) / sum(e_wall[1:])
+                   * 1e3, "peak_mem_bytes": e_peak}
+        del step, opt
+
+        # (a) The loop, fed by the prefetcher.
+        opt = fresh()
+        loop = make_flax_train_loop(model, opt, steps_per_execution=LOOP_K)
+        _reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        with DevicePrefetcher(host, depth=2, device=dev,
+                              stack_steps=LOOP_K) as pf:
+            l_losses, l_wall, l_disp = _loop_run(loop, pf)
+        counts = _counters()
+        l_counts = _per_step(counts, steps)
+        diff = _bitwise(e_state, _snapshot(model, opt))
+        bitwise = not diff and torch.equal(l_losses, e_losses)
+        timed = [stack_steps(on_dev[:LOOP_K])] * LOOP_TIMED_WINDOWS
+        _, t_wall, t_disp = _loop_run(loop, timed)
+        peak = torch.cuda.max_memory_allocated()
+        launched = _counters()[0]       # the checked and the timed windows
+        for f in bn_total:
+            bn_total[f] += launched[f]
+        record("loop_k4", l_losses, l_wall + t_wall, l_disp + t_disp, 2,
+               peak, l_counts, eager_a, bitwise_vs_eager=bitwise,
+               differing=diff[:8], prefetched_windows=len(l_wall))
+        if not bitwise:
+            fails.append(f"loop_k4: not bitwise the eager steps: {diff[:8]}")
+        if l_counts["bn_launches"] != {f: RESNET50_BN_SITES
+                                       for f in bn_total}:
+            fails.append(f"loop_k4: BN launches a step "
+                         f"{l_counts['bn_launches']}")
+        if l_counts["exchange"] != e_counts["exchange"] or \
+                l_counts["legs"] != e_counts["legs"]:
+            fails.append(f"loop_k4: exchange a step {l_counts} != eager "
+                         f"{e_counts}")
+        del loop, opt
+        free_device()
+
+        # (b) Microbatches, eager: also (c)'s reference.
+        opt = fresh()
+        step = make_flax_train_step(model, opt, microbatches=LOOP_MICRO)
+        _reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        b_losses, b_wall, b_disp = _eager_run(step, on_dev)
+        b_peak = torch.cuda.max_memory_allocated()
+        counts = _counters()
+        b_counts = _per_step(counts, steps)
+        b_state = _snapshot(model, opt)
+        for f in bn_total:
+            bn_total[f] += counts[0][f]
+        leaves = [opt._trainable[i] for i in flax_leaf_order(
+            [opt._name_of[id(p)] for p in opt._trainable])]
+        spec = fusion.plan_buckets(leaves, reverse=True)
+        legs = fusion.plan_exchange(
+            "microbatch", buffers=tuple((dt, sum(x.size for x in ls))
+                                        for dt, ls in spec.buffers),
+            k=LOOP_MICRO, world=hvd.size()).legs
+        nb = len(spec.buffers)
+        want_legs = {
+            "microbatch_rs": {"nbytes": LOOP_MICRO * sum(
+                leg.nbytes for leg in legs[:nb]), "buckets": LOOP_MICRO * nb},
+            "microbatch_ag": {"nbytes": sum(leg.nbytes for leg in legs[nb:]),
+                              "buckets": nb}}
+        want_exchange = {"buckets": nb, "handles": nb * (LOOP_MICRO + 1),
+                         "wire_bytes": want_legs["microbatch_rs"]["nbytes"]
+                         + want_legs["microbatch_ag"]["nbytes"]}
+        eager_b = {"step_ms": sum(b_wall[1:]) / (steps - 1),
+                   "dispatch_ms_a_window": sum(b_disp[1:]) / (steps - 1)
+                   * LOOP_K, "peak_mem_bytes": b_peak}
+        record("microbatches4", b_losses, b_wall, b_disp, 1, b_peak,
+               b_counts, eager_a, planned_legs=want_legs)
+        if b_counts["bn_launches"] != {f: LOOP_MICRO * RESNET50_BN_SITES
+                                       for f in bn_total}:
+            fails.append(f"microbatches4: BN launches a step "
+                         f"{b_counts['bn_launches']}")
+        if b_counts["legs"] != {t: {k: float(v) for k, v in w.items()}
+                                for t, w in want_legs.items()} or \
+                b_counts["exchange"] != want_exchange:
+            fails.append(f"microbatches4: legs/exchange a step "
+                         f"{b_counts} != planned {want_legs}, "
+                         f"{want_exchange}")
+        if not b_losses[-2] < b_losses[0]:      # both on the pool's batch 0
+            fails.append(f"microbatches4: loss did not fall {b_losses}")
+        del step, opt
+        free_device()
+
+        # (c) Both: the loop of (b)'s step.
+        opt = fresh()
+        loop = make_flax_train_loop(model, opt, steps_per_execution=LOOP_K,
+                                    microbatches=LOOP_MICRO)
+        _reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        c_windows = [stack_steps(on_dev[i * LOOP_K:(i + 1) * LOOP_K])
+                     for i in range(LOOP_WINDOWS)]
+        c_losses, c_wall, c_disp = _loop_run(loop, c_windows)
+        counts = _counters()
+        c_counts = _per_step(counts, steps)
+        diff = _bitwise(b_state, _snapshot(model, opt))
+        bitwise = not diff and torch.equal(c_losses, b_losses)
+        _, t_wall, t_disp = _loop_run(loop, c_windows[:1]
+                                      * LOOP_TIMED_WINDOWS)
+        peak = torch.cuda.max_memory_allocated()
+        launched = _counters()[0]       # the checked and the timed windows
+        for f in bn_total:
+            bn_total[f] += launched[f]
+        record("loop_k4_microbatches4", c_losses, c_wall + t_wall,
+               c_disp + t_disp, 2, peak, c_counts, eager_b,
+               bitwise_vs_eager=bitwise, differing=diff[:8])
+        if not bitwise:
+            fails.append(f"loop_k4_microbatches4: not bitwise: {diff[:8]}")
+        if c_counts != b_counts:
+            fails.append(f"loop_k4_microbatches4: a step {c_counts} != "
+                         f"eager {b_counts}")
+        del loop, opt, c_windows, on_dev, host, pool, model, named
+        del init_state
+        free_device()
+
+        # (d) Inception-v3 with dropout from a registered generator.
+        inc_batch = 32
+        gen = torch.Generator(device=dev).manual_seed(0)
+        inner = InceptionV3(num_classes=1000, dtype=torch.bfloat16,
+                            image_size=299, device=dev)
+        inner.load_state_dict(init_params(inner, generator=gen))
+        drop = torch.Generator(device=dev)
+        model = _WithDropout(inner, drop)
+        inc_named = list(model.named_parameters())
+        inc_init = {k: v.clone() for k, v in model.state_dict().items()}
+        gen.manual_seed(1)
+        data = [(torch.randn(inc_batch, 299, 299, 3, generator=gen,
+                             device=dev).to(torch.bfloat16),
+                 torch.randint(0, 1000, (inc_batch,), generator=gen,
+                               device=dev)) for _ in range(2)]
+        inc_data = [data[i % 2] for i in range(steps)]
+
+        def inc_fresh():
+            model.load_state_dict(inc_init)
+            drop.manual_seed(7)
+            gc.collect()
+            return hvd.DistributedOptimizer(
+                torch.optim.SGD([p for _, p in inc_named], lr=0.01,
+                                momentum=0.9), named_parameters=inc_named)
+
+        opt = inc_fresh()
+        step = make_flax_train_step(model, opt)
+        _reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        d_losses, d_wall, d_disp = _eager_run(step, inc_data)
+        d_peak = torch.cuda.max_memory_allocated()
+        d_counts = _per_step(_counters(), steps)
+        d_state = _snapshot(model, opt)
+        eager_d = {"step_ms": sum(d_wall[1:]) / (steps - 1),
+                   "step_ms_each": d_wall, "dispatch_ms_each": d_disp,
+                   "dispatch_ms_a_window": sum(d_disp[1:]) / (steps - 1)
+                   * LOOP_K,
+                   "images_per_s": inc_batch * (steps - 1) / sum(d_wall[1:])
+                   * 1e3, "peak_mem_bytes": d_peak}
+        del step
+        opt = inc_fresh()
+        loop = make_flax_train_loop(model, opt, steps_per_execution=LOOP_K,
+                                    generators=(drop,))
+        _reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        i_windows = [stack_steps(inc_data[i * LOOP_K:(i + 1) * LOOP_K])
+                     for i in range(LOOP_WINDOWS)]
+        i_losses, i_wall, i_disp = _loop_run(loop, i_windows)
+        counts = _counters()
+        i_counts = _per_step(counts, steps)
+        diff = _bitwise(d_state, _snapshot(model, opt))
+        bitwise = not diff and torch.equal(i_losses, d_losses)
+        _, t_wall, t_disp = _loop_run(loop, i_windows[:1]
+                                      * LOOP_TIMED_WINDOWS)
+        peak = torch.cuda.max_memory_allocated()
+        launched = _counters()[0]       # the checked and the timed windows
+        for f in bn_total:
+            bn_total[f] += launched[f]
+        step_ms = sum(i_wall[LOOP_K:] + t_wall) / len(i_wall[LOOP_K:]
+                                                      + t_wall)
+        log({"phase": "resnet_loop", "config": "inception_v3_loop_k4",
+             "card": card, "batch": [inc_batch, 299, 299, 3],
+             "steps": steps, "step_ms": step_ms,
+             "step_ms_each": i_wall + t_wall,
+             "images_per_s": inc_batch / (step_ms / 1e3),
+             "dispatch_ms_each": i_disp + t_disp, "peak_mem_bytes": peak,
+             "per_step": i_counts, "losses": i_losses.tolist(),
+             "eager": eager_d, "bitwise_vs_eager": bitwise,
+             "differing": diff[:8], "dropout_rate": inner.Dropout_0.rate})
+        if not bitwise:
+            fails.append(f"inception_v3_loop_k4: not bitwise: {diff[:8]}")
+        if i_counts != d_counts or i_counts["bn_launches"] != {
+                f: INCEPTION_BN_SITES for f in bn_total}:
+            fails.append(f"inception_v3_loop_k4: a step {i_counts} != "
+                         f"eager {d_counts}")
+        if not bool(torch.isfinite(i_losses).all()):
+            fails.append("inception_v3_loop_k4: a loss is not finite")
+        del loop, opt, model, inner, i_windows, inc_data, data, inc_init
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = cudnn
+    if fails:
+        raise AssertionError("resnet_loop: " + "; ".join(fails))
+    hvd.shutdown()
+    return bn_total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2761,6 +3162,8 @@ def main() -> int:
     free_device()
     exchange = train_resnet_exchange(dev, card)
     free_device()
+    loop = train_resnet_loop(dev, card)
+    free_device()
     # The attention and BN kernels run on several paths: their launches
     # are the sums.
     flash["launches"] = serve["flash"] + train["flash"] + bert["flash"]
@@ -2769,9 +3172,11 @@ def main() -> int:
     dkv["launches"] = train["flash_bwd_dkv"] + bert["flash_bwd_dkv"]
     bn_red["launches"] = (resnet["bn_bwd_reduce"] + inception["bn_bwd_reduce"]
                           + torch_rn50["bn_bwd_reduce"]
-                          + exchange["bn_bwd_reduce"])
+                          + exchange["bn_bwd_reduce"]
+                          + loop["bn_bwd_reduce"])
     bn_dx["launches"] = (resnet["bn_bwd_dx"] + inception["bn_bwd_dx"]
-                         + torch_rn50["bn_bwd_dx"] + exchange["bn_bwd_dx"])
+                         + torch_rn50["bn_bwd_dx"] + exchange["bn_bwd_dx"]
+                         + loop["bn_bwd_dx"])
     for e in fused:
         e["launches"] = powersgd[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -43,15 +43,21 @@ ported so far:
   (``HOROVOD_HIERARCHICAL``), ``chunked_allreduce``
   (``HOROVOD_EXCHANGE_CHUNK_MB``), all in :data:`collective_ops`, and
   ZeRO-1 (``make_flax_train_step(..., zero_stage=1)``,
-  :func:`zero_init`, :func:`zero_report`).
+  :func:`zero_init`, :func:`zero_report`);
+* the microbatched backward-overlap exchange
+  (``make_flax_train_step(..., microbatches=k)``), the
+  steps-per-execution loop (:func:`make_flax_train_loop`, one CUDA graph
+  a window on the GPU), the device prefetcher (:class:`DevicePrefetcher`,
+  ``stack_steps=k``) and the exchange-plan IR every exchange notes its
+  rows from (``controller.fusion.plan_exchange``).
 
 Kernels hand-written in CUDA C++ for ``sm_90a`` (``ops/csrc``) carry
 attention -- the flash forward and decode kernels, the flash backward's
 dq and dk/dv kernels -- the train-mode BatchNorm backward's two
 passes, and the three stages of the PowerSGD exchange.  The layout
 mirrors ``horovod_tpu`` (``core/``, ``adasum/``, ``collectives/``,
-``controller/``, ``optim/``, ``timeline/``, ``models/``, ``ops/``,
-``serving/``, ``training.py``) so each module's
+``controller/``, ``data/``, ``optim/``, ``timeline/``, ``models/``,
+``ops/``, ``serving/``, ``training.py``) so each module's
 counterpart is easy to find.
 
 The package imports ``torch`` and ``numpy`` only -- nothing of JAX and
@@ -78,6 +84,7 @@ from .collectives.ops import (allgather, allreduce,  # noqa: F401
                               grouped_reducescatter, reducescatter)
 from .collectives.reduce_op import (Adasum, Average, Max,  # noqa: F401
                                     Min, Product, ReduceOp, Sum)
+from .data import DevicePrefetcher, prefetch_to_device  # noqa: F401
 from .core import (HorovodInternalError,  # noqa: F401
                    HostsUpdatedInterrupt, ProcessSet, ProcessSetError,
                    add_process_set, cross_rank, cross_size, cuda_built,
@@ -95,6 +102,9 @@ from .optim import (DistributedAdasumOptimizer,  # noqa: F401
                     broadcast_parameters)
 from .optim.zero import zero_init, zero_report  # noqa: F401
 from .sync_batch_norm import SyncBatchNorm  # noqa: F401
-from .training import bert_pretrain_loss  # noqa: F401
+from .training import (bert_pretrain_loss,  # noqa: F401
+                       make_flax_train_loop, make_flax_train_step,
+                       make_train_loop, make_train_step, microbatches,
+                       stack_steps)
 
 __version__ = "0.3.0"

@@ -12,8 +12,8 @@ the compressed and sharded paths: :func:`powersgd_allreduce`,
 :func:`topk_allreduce`, :func:`fp8_allreduce`,
 :func:`hierarchical_allreduce` (two-level, codecs per leg),
 :func:`chunked_allreduce` and the ZeRO building blocks
-:func:`psum_scatter_bucket` / :func:`allgather_bucket`.  Each op but the
-last four has an ``*_async`` twin
+:func:`psum_scatter_bucket` (and its ``_async`` twin) /
+:func:`allgather_bucket`.  Each op but the last four has an ``*_async`` twin
 that returns a :class:`Handle` around the ``torch.distributed`` work
 object; the result is ready after ``handle.wait()``, and
 ``handle.poll()`` says whether the work is done.  (The package's top
@@ -121,8 +121,10 @@ class Handle:
 
 
 def _member_set(process_set, op: str,
-                tensor: Optional[torch.Tensor] = None) -> ProcessSet:
-    """The registered set, checked to hold this rank; counts the call."""
+                tensor: Optional[torch.Tensor] = None,
+                nbytes: Optional[int] = None) -> ProcessSet:
+    """The registered set, checked to hold this rank; counts the call
+    with ``tensor``'s bytes, or ``nbytes`` (an exchange's plan rows)."""
     st = _require_init()
     ps = get_process_set(process_set)
     if not ps.included(st.rank):
@@ -130,9 +132,18 @@ def _member_set(process_set, op: str,
             f"{op}: rank {st.rank} is not a member of process set "
             f"{ps.name!r} (ranks {ps.ranks}); non-members do not call "
             f"the set's collectives")
-    nbytes = 0 if tensor is None else tensor.numel() * tensor.element_size()
+    if nbytes is None:
+        nbytes = 0 if tensor is None else \
+            tensor.numel() * tensor.element_size()
     note_collective(op, ps.name, nbytes)
     return ps
+
+
+def _note_rows(legs) -> None:
+    """Note an exchange's plan rows in the span registry."""
+    from ..timeline.spans import note_leg
+    for leg in legs:
+        note_leg(leg)
 
 
 def _divide_in_dtype(y: torch.Tensor, n: int) -> torch.Tensor:
@@ -654,14 +665,20 @@ def powersgd_allreduce_async(x: torch.Tensor, op: ReduceOp = Average, *,
     ``None`` means zeros (stateless use).  Floating inputs, Sum/Average.
     Wire bytes: ``4 * r * (m + c)`` against ``4 * m * c`` uncompressed.
     ``force_reference=True`` runs the three stages' plain versions on any
-    device (the check of the kernels on the card).
+    device (the check of the kernels on the card).  Notes its
+    ``powersgd`` row and the ``fused_update`` kernel's ``kernel`` row;
+    the call is counted at the ``powersgd`` row's bytes.
     """
+    from ..controller.fusion import plan_exchange
     if op not in (Sum, Average):
         raise ValueError(f"powersgd_allreduce supports Sum/Average, got {op}")
     if not x.dtype.is_floating_point:
         raise ValueError(
             f"powersgd wire needs a floating dtype, got {x.dtype}")
-    ps = _member_set(process_set, "powersgd_allreduce", x)
+    leg = plan_exchange("powersgd", size=x.numel(), rank=rank).legs[0]
+    ps = _member_set(process_set, "powersgd_allreduce", nbytes=leg.nbytes)
+    _note_rows((leg, plan_exchange("kernel", kernel="fused_update",
+                                   nbytes=4 * x.numel()).legs[0]))
     return _powersgd_start(x, op, rank, residual, prescale_factor,
                            postscale_factor, force_reference, ps)
 
@@ -787,14 +804,19 @@ def fp8_allreduce_async(x: torch.Tensor, op: ReduceOp = Average, *,
 
     ``handle.wait()`` returns the result in x's shape and dtype.  Two
     e4m3 roundings end to end; the reduction is exact f32.  Floating
-    inputs, Sum/Average, the global set only (as the reference)."""
+    inputs, Sum/Average, the global set only (as the reference).  Notes
+    its ``fp8`` row and is counted at its bytes."""
+    from ..controller.fusion import plan_exchange
     _global_only(process_set, "fp8_allreduce")
     if op not in (Sum, Average):
         raise ValueError(f"fp8_allreduce supports Sum/Average, got {op}")
     if not x.dtype.is_floating_point:
         raise ValueError(f"fp8 wire needs a floating dtype, got {x.dtype}")
-    return _fp8_start(x, op, prescale_factor, postscale_factor,
-                      _member_set(None, "fp8_allreduce", x))
+    leg = plan_exchange("fp8", size=x.numel(),
+                        world=get_process_set(None).size()).legs[0]
+    ps = _member_set(None, "fp8_allreduce", nbytes=leg.nbytes)
+    _note_rows((leg,))
+    return _fp8_start(x, op, prescale_factor, postscale_factor, ps)
 
 
 def fp8_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
@@ -865,15 +887,19 @@ def topk_allreduce_async(x: torch.Tensor, op: ReduceOp = Average, *,
     up).  ``handle.wait()`` returns ``(out, new_residual)``: ``out`` in
     x's shape and dtype, ``new_residual = acc - own`` flat f32, ``own``
     this rank's sent pairs densified -- the elements it did not send.
-    Floating inputs, Sum/Average, the global set only."""
+    Floating inputs, Sum/Average, the global set only.  Notes its
+    ``topk`` row and is counted at its bytes."""
+    from ..controller.fusion import plan_exchange
     _global_only(process_set, "topk_allreduce")
     if op not in (Sum, Average):
         raise ValueError(f"topk_allreduce supports Sum/Average, got {op}")
     if not x.dtype.is_floating_point:
         raise ValueError(f"topk wire needs a floating dtype, got {x.dtype}")
+    leg = plan_exchange("topk", size=x.numel(), fraction=fraction).legs[0]
+    ps = _member_set(None, "topk_allreduce", nbytes=leg.nbytes)
+    _note_rows((leg,))
     return _topk_start(x, op, fraction, residual, prescale_factor,
-                       postscale_factor,
-                       _member_set(None, "topk_allreduce", x))
+                       postscale_factor, ps)
 
 
 def topk_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
@@ -925,7 +951,8 @@ def hierarchical_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
     ``(out, new_dcn_residual)``, the residual flat f32 of the shard's
     length.  With one node the op is the flat :func:`allreduce`,
     statically, as in the reference.  Sum/Average; non-floating buckets
-    ride uncompressed."""
+    ride uncompressed.  Over more than one node it notes its
+    ``hier`` rows and is counted at their bytes."""
     from ..core.topology import hier_mesh_shape, hier_sets
     if op not in (Sum, Average):
         raise ValueError(
@@ -942,7 +969,14 @@ def hierarchical_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
         raise ValueError("hierarchical_allreduce needs a two-level layout: "
                          "set HOROVOD_HIERARCHICAL or pass topology=")
     n_dcn, n_ici = (int(t) for t in topology)
-    ps = _member_set(None, "hierarchical_allreduce", x)
+    legs = ()
+    if n_dcn > 1:
+        from ..controller.fusion import plan_hier_legs
+        legs = plan_hier_legs(x.numel(), x.dtype, n_dcn=n_dcn, n_ici=n_ici,
+                              ici_codec=ici_codec, dcn_codec=dcn_codec)
+    # With one node the flat allreduce below counts itself.
+    ps = _member_set(None, "hierarchical_allreduce",
+                     nbytes=sum(leg.nbytes for leg in legs))
     if n_dcn * n_ici != ps.size():
         raise ValueError(f"topology {n_dcn}x{n_ici} does not cover the "
                          f"world of {ps.size()}")
@@ -965,6 +999,7 @@ def hierarchical_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
         return y
 
     ici, dcn = hier_sets(n_ici)
+    _note_rows(legs)
     if prescale_factor != 1.0:
         x = x * prescale_factor
     shape, dtype = x.shape, x.dtype
@@ -1032,7 +1067,8 @@ def chunked_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
     one allreduce, in independent pieces; the summation order differs
     from :func:`allreduce`'s.  Sum/Average over the global set; at world
     1, or with ``chunk_bytes <= 0``, it is :func:`allreduce`, as in the
-    reference."""
+    reference.  The chunked sweep notes its ``chunked`` row."""
+    from ..controller.fusion import plan_exchange
     if op not in (Sum, Average):
         raise ValueError(f"chunked_allreduce supports Sum/Average, got {op}")
     ps = _member_set(None, "chunked_allreduce", x)
@@ -1041,6 +1077,8 @@ def chunked_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
         return allreduce_async_(x.clone(), op=op,
                                 prescale_factor=prescale_factor,
                                 postscale_factor=postscale_factor).wait()
+    _note_rows(plan_exchange("chunked", size=x.numel(), dtype=x.dtype,
+                             chunk_bytes=int(chunk_bytes), world=n).legs)
     if prescale_factor != 1.0:
         x = x * prescale_factor
     shape = x.shape
@@ -1067,20 +1105,29 @@ def chunked_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
     return y
 
 
-def psum_scatter_bucket(flat: torch.Tensor, *, quantum: int,
-                        process_set=None) -> torch.Tensor:
-    """Zero-pad ``flat`` to a multiple of ``quantum`` and reduce-scatter
-    it (Sum) over the set; returns this member's ``padded / n`` shard
-    (``horovod_tpu/collectives/ops.py::psum_scatter_bucket``)."""
+def psum_scatter_bucket_async(flat: torch.Tensor, *, quantum: int,
+                              process_set=None) -> Handle:
+    """Start :func:`psum_scatter_bucket`; ``handle.wait()`` returns the
+    shard.  On NCCL the reduce-scatter runs on the process group's own
+    stream, so work enqueued before the wait overlaps it."""
     ps = _member_set(process_set, "reducescatter", flat)
     pad = (-flat.numel()) % quantum
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
     flat = flat.contiguous()
     shard = flat.new_empty(flat.numel() // ps.size())
-    dist.reduce_scatter_tensor(shard, flat, op=dist.ReduceOp.SUM,
-                               group=ps.group)
-    return shard
+    work = dist.reduce_scatter_tensor(shard, flat, op=dist.ReduceOp.SUM,
+                                      group=ps.group, async_op=True)
+    return Handle(work, lambda: shard)
+
+
+def psum_scatter_bucket(flat: torch.Tensor, *, quantum: int,
+                        process_set=None) -> torch.Tensor:
+    """Zero-pad ``flat`` to a multiple of ``quantum`` and reduce-scatter
+    it (Sum) over the set; returns this member's ``padded / n`` shard
+    (``horovod_tpu/collectives/ops.py::psum_scatter_bucket``)."""
+    return psum_scatter_bucket_async(flat, quantum=quantum,
+                                     process_set=process_set).wait()
 
 
 def allgather_bucket(shard: torch.Tensor, size: int, *,
@@ -1112,4 +1159,5 @@ __all__ = ["Handle", "allreduce", "allreduce_", "allreduce_async",
            "fp8_allreduce", "fp8_allreduce_async", "topk_allreduce",
            "topk_allreduce_async", "hierarchical_allreduce",
            "chunked_allreduce", "microbatch_pad_quantum",
-           "psum_scatter_bucket", "allgather_bucket"]
+           "psum_scatter_bucket", "psum_scatter_bucket_async",
+           "allgather_bucket"]

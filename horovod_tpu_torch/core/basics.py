@@ -208,6 +208,8 @@ def stop_timeline() -> None:
 
 
 def steps_per_execution(default: int = 1) -> int:
-    """Not ported: the autotuned inner-loop length (ROADMAP item 1.11)."""
-    raise NotImplementedError(
-        "hvd.steps_per_execution is not ported (ROADMAP item 1.11)")
+    """The resolved steps-per-execution k (``HOROVOD_STEPS_PER_EXEC``,
+    else ``default``): the length of
+    :func:`~horovod_tpu_torch.training.make_train_loop`'s window."""
+    from ..training import steps_per_execution as resolved
+    return resolved(default)

@@ -74,6 +74,15 @@ class Config:
     # off): each bucket's allreduce becomes chunk-sized reduce-scatter +
     # allgather pairs (collectives.ops.chunked_allreduce).
     exchange_chunk_bytes: int = 0
+    # Steps-per-execution loop (HOROVOD_STEPS_PER_EXEC): default k of
+    # make_train_loop / make_flax_train_loop built without an explicit
+    # steps_per_execution; on the GPU the k steps are one CUDA graph.
+    steps_per_exec: int = 1
+    # Microbatched backward-overlap exchange (HOROVOD_MICROBATCHES):
+    # default k of train steps built without an explicit ``microbatches``;
+    # each sub-batch's buckets reduce-scatter while the next sub-batch's
+    # backward runs.
+    microbatches: int = 1
     # Launcher-provided identity (HOROVOD_RANK / _SIZE / _LOCAL_RANK /
     # _LOCAL_SIZE / _CROSS_RANK / _CROSS_SIZE); -1 = not set.
     env_rank: int = -1
@@ -94,6 +103,8 @@ def load_config() -> Config:
         hierarchical=_env("HIERARCHICAL"),
         zero_stage=_env_int("ZERO", 0),
         exchange_chunk_bytes=_env_int("EXCHANGE_CHUNK_MB", 0) * _MiB,
+        steps_per_exec=_env_int("STEPS_PER_EXEC", 1),
+        microbatches=_env_int("MICROBATCHES", 1),
         env_rank=_env_int("RANK", -1),
         env_size=_env_int("SIZE", -1),
         env_local_rank=_env_int("LOCAL_RANK", -1),

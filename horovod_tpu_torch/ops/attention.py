@@ -514,6 +514,14 @@ def _decode_cuda(q, k, v, lengths, page_table, *, scale: float,
         float(scale), stream(q))
     check_launch("flash_decode", err)
     registry.note_launch("flash_decode")
+    # The kernel's contract row: the K and V views it reads, as the JAX
+    # decode kernel notes it.
+    from ..controller.fusion import plan_exchange
+    from ..timeline.spans import note_leg
+    note_leg(plan_exchange(
+        "kernel", kernel="flash_decode",
+        nbytes=2 * b * h_kv * pps * page_size * d * q.element_size()
+    ).legs[0])
     return o
 
 

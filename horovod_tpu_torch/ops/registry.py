@@ -91,9 +91,10 @@ KERNEL_CONTRACTS = {
 _launches: Dict[str, int] = {name: 0 for name in KERNEL_CONTRACTS}
 
 
-def note_launch(family: str) -> None:
-    """Count one kernel launch of ``family`` (called by its wrapper)."""
-    _launches[family] += 1
+def note_launch(family: str, count: int = 1) -> None:
+    """Count one kernel launch of ``family`` (called by its wrapper), or
+    ``count`` of them (a replayed CUDA graph's launches)."""
+    _launches[family] += count
 
 
 def launches(family: str) -> int:

@@ -85,7 +85,8 @@ from ..collectives.ops import (Handle, allreduce_async_, chunked_allreduce,
 from ..collectives.reduce_op import Adasum, Average, ReduceOp, Sum
 from ..controller.fusion import (FusionSpec, exchange_chunk_bytes,
                                  hier_requested, pack_bucket, plan_buckets,
-                                 plan_hier_legs, unpack, unpack_bucket)
+                                 plan_exchange, plan_hier_legs, unpack,
+                                 unpack_bucket)
 from ..core.process_sets import get_process_set
 from ..core.state import global_state
 from ..core.topology import hier_groups, hier_mesh_shape
@@ -93,6 +94,7 @@ from ..models.convert import (flax_leaf_order, from_flax_layout,
                               to_flax_layout)
 from ..timeline.metrics import (exchange_counters, note_compression_ratio,
                                 note_hier_legs)
+from ..timeline.spans import note_leg
 
 
 def _resolve_compression(compression):
@@ -115,22 +117,12 @@ def _ef_enabled() -> bool:
     return cfg.ef_residual if cfg is not None else True
 
 
-def _hier_wire_bytes(compression, size: int, dtype,
-                     note: bool = False) -> int:
-    """One bucket's two-level wire bytes, summed over
-    :func:`plan_hier_legs`' rows (``note``: and counted by leg)."""
+def _hier_legs(compression, size: int, dtype):
+    """One bucket's rows of the two-level exchange on the configured
+    layout (:func:`plan_hier_legs`)."""
     n_dcn, n_ici = hier_mesh_shape()
-    legs = plan_hier_legs(size, dtype, n_dcn=n_dcn, n_ici=n_ici,
+    return plan_hier_legs(size, dtype, n_dcn=n_dcn, n_ici=n_ici,
                           compression=compression)
-    if note:
-        note_hier_legs(legs)
-    return sum(leg.nbytes for leg in legs)
-
-
-def _chunk_count(size: int, itemsize: int, chunk_bytes: int, n: int) -> int:
-    elems = max(1, chunk_bytes // itemsize)
-    elems += (-elems) % n
-    return -(-size // elems)
 
 
 def _launch_bucket(grads, lspecs, op: ReduceOp, compression,
@@ -154,7 +146,11 @@ def _launch_bucket(grads, lspecs, op: ReduceOp, compression,
     * else the cast codec and one async allreduce.
 
     Feeds the exchange counters: one bucket, the collectives it issues
-    (``handles``) and its wire bytes."""
+    (``handles``) and its wire bytes, priced from the exchange's plan
+    rows (fp8: ``wire_payload_bytes``, one byte a value; its row prices
+    both directions of the padded bucket).  The flat exchange notes its
+    ``flat`` row here; the other exchanges note theirs inside their
+    ops."""
     buf = pack_bucket(grads, lspecs)
     if divisor > 1:
         buf.div_(divisor)
@@ -185,19 +181,23 @@ def _launch_bucket(grads, lspecs, op: ReduceOp, compression,
             wire, op, dcn_codec=getattr(compression, "dcn", None),
             ici_codec=getattr(compression, "ici", None), topology=shape,
             **kw)
+        legs = _hier_legs(compression, size, buf.dtype)
+        note_hier_legs(legs)
         m["handles"].inc(3 if shape[0] > 1 else 1)
-        m["wire_bytes"].inc(_hier_wire_bytes(compression, size, buf.dtype,
-                                             note=True))
+        m["wire_bytes"].inc(sum(leg.nbytes for leg in legs))
         return Handle.completed(compression.decompress(y, ctx))
     chunk = exchange_chunk_bytes()
-    nbytes = wire.numel() * wire.element_size()
-    m["wire_bytes"].inc(nbytes)
     if chunk > 0 and global_sum:
         y = chunked_allreduce(wire, op, chunk_bytes=chunk, **kw)
         n = global_state().size
-        m["handles"].inc(1 if n == 1 else 2 * _chunk_count(
-            wire.numel(), wire.element_size(), chunk, n))
+        leg = plan_exchange("chunked", size=wire.numel(), dtype=wire.dtype,
+                            chunk_bytes=chunk, world=n).legs[0]
+        m["handles"].inc(1 if n == 1 else len(leg.audit))
+        m["wire_bytes"].inc(leg.nbytes)
         return Handle.completed(compression.decompress(y, ctx))
+    leg = plan_exchange("flat", size=wire.numel(), dtype=wire.dtype).legs[0]
+    note_leg(leg)
+    m["wire_bytes"].inc(leg.nbytes)
     inner = allreduce_async_(wire, op, process_set=process_set, **kw)
     m["handles"].inc()
     return Handle(None, lambda: compression.decompress(inner.wait(), ctx),
@@ -214,12 +214,19 @@ def _launch_ef_bucket(grads, lspecs, op: ReduceOp, compression,
     exchange of a per-leg codec (its residual ``[2, shard]``, the DCN
     leg's in row 1).  ``handle.wait()`` returns ``(reduced bucket,
     new_residual)``; a non-floating bucket takes the plain allreduce and
-    hands ``residual`` back unchanged.  Feeds the exchange counters."""
+    hands ``residual`` back unchanged.  Notes the bucket's ``ef`` ledger
+    row (the nested PowerSGD / top-k row is noted by its op; the
+    two-level exchange notes its own rows) and feeds the exchange
+    counters from the rows."""
     buf = pack_bucket(grads, lspecs)
     m = exchange_counters()
     m["buckets"].inc()
     kw = dict(prescale_factor=prescale_factor,
               postscale_factor=postscale_factor)
+    if not is_hier_legs(compression):
+        ledger = plan_exchange("ef", size=buf.numel(), dtype=buf.dtype,
+                               compression=compression).legs[0]
+        note_leg(ledger)
     if not buf.dtype.is_floating_point:
         inner = allreduce_async_(buf, op, process_set=process_set, **kw)
         m["handles"].inc()
@@ -236,9 +243,10 @@ def _launch_ef_bucket(grads, lspecs, op: ReduceOp, compression,
             buf, op, dcn_codec=compression.dcn, ici_codec=compression.ici,
             dcn_residual=None if residual is None else residual[1],
             topology=shape, **kw)
+        legs = _hier_legs(compression, buf.numel(), buf.dtype)
+        note_hier_legs(legs)
         m["handles"].inc(3 if shape[0] > 1 else 1)
-        m["wire_bytes"].inc(_hier_wire_bytes(compression, buf.numel(),
-                                             buf.dtype, note=True))
+        m["wire_bytes"].inc(sum(leg.nbytes for leg in legs))
         return Handle.completed(
             (out, torch.stack([torch.zeros_like(r_out), r_out])))
     if is_powersgd(compression):
@@ -250,7 +258,7 @@ def _launch_ef_bucket(grads, lspecs, op: ReduceOp, compression,
             buf, op, fraction=compression.fraction, residual=residual,
             process_set=process_set, **kw)
     m["handles"].inc(2)
-    m["wire_bytes"].inc(wire_payload_bytes(compression, buf.numel()))
+    m["wire_bytes"].inc(ledger.nbytes)
     return handle
 
 
@@ -335,14 +343,15 @@ def ef_init_residuals(params, fusion_threshold: Optional[int],
 
 def _note_plan_bytes(spec: FusionSpec, compression) -> None:
     """The compression gauges of one step over ``spec``'s buckets: the
-    per-leg codecs priced leg by leg (:func:`plan_hier_legs`) on the
+    per-leg codecs priced by their rows (:func:`plan_hier_legs`) on the
     two-level layout, the others by :func:`wire_payload_bytes`."""
     hier = is_hier_legs(compression) and hier_mesh_shape() is not None
     raw = wire = 0
     for dt, lspecs in spec.buffers:
         size = sum(s.size for s in lspecs)
         raw += size * dt.itemsize
-        wire += _hier_wire_bytes(compression, size, dt) if hier else \
+        wire += sum(leg.nbytes for leg in _hier_legs(compression, size,
+                                                     dt)) if hier else \
             wire_payload_bytes(compression, size, dt.itemsize)
     note_compression_ratio(raw, wire)
 
@@ -423,15 +432,20 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._ef = is_error_feedback(compression)
         self._adasum = op is Adasum
         self.backward_passes_per_step = backward_passes_per_step
+        self._fusion_threshold = fusion_threshold
         self._trainable = [p for group in self.param_groups
                            for p in group["params"] if p.requires_grad]
+        # Each parameter's given name (the microbatched step plans its
+        # buckets in their flax leaf order).
+        self._name_of: Optional[Dict[int, str]] = None
+        if named_parameters is not None:
+            self._name_of = {id(p): k for k, p in named_parameters}
         # The flax names of the trainable parameters, in _trainable's
         # order: only an EF or Adasum wrap with names uses them (its
         # buckets follow the JAX package's leaf order and layout).
         self._names: Optional[List[str]] = None
         if (self._ef or self._adasum) and named_parameters is not None:
-            name_of = {id(p): k for k, p in named_parameters}
-            names = [name_of[id(p)] for p in self._trainable]
+            names = [self._name_of[id(p)] for p in self._trainable]
             order = flax_leaf_order(names)
             self._trainable = [self._trainable[i] for i in order]
             self._names = [names[i] for i in order]
@@ -577,7 +591,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                     else:
                         p.grad.copy_(view)
                 if self._ef and ctx:     # ctx: the residual was fed in
-                    self._residuals[b] = new_residual
+                    # In place: a captured train loop replays this copy.
+                    self._residuals[b].copy_(new_residual)
             except Exception as e:  # drained below; first one re-raised
                 if first_error is None:
                     first_error = e

@@ -56,10 +56,11 @@ from ..collectives.compression import (Compression, fp8_quantize, is_fp8,
                                        powersgd_matrix_shape, topk_count)
 from ..collectives.ops import (_divide_in_dtype, _powersgd_seed_matrix,
                                _topk_select, psum_scatter_bucket)
-from ..controller.fusion import _LeafSpec
+from ..controller.fusion import _LeafSpec, dtype_name, plan_exchange
 from ..core.basics import _require_init
 from ..core.topology import hier_mesh_shape, hier_sets
-from ..timeline.metrics import note_zero_step
+from ..timeline.metrics import note_collective, note_zero_step
+from ..timeline.spans import note_leg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -318,13 +319,30 @@ def zero_init(optimizer: torch.optim.Optimizer, params,
                      residuals)
 
 
+def zero_plan(spec: ZeroSpec, compression=None, shape=None):
+    """The ``zero`` plan of one step over ``spec``'s arenas:
+    ``(reduce-scatter rows, allgather rows)``, one of each an arena
+    (``plan_exchange("zero")``; ``shape`` is the two-level layout a
+    per-leg codec runs on, else ``None``)."""
+    legs = plan_exchange(
+        "zero", buffers=tuple((dtype_name(b.dtype), b.size, b.padded,
+                               b.shard) for b in spec.buffers),
+        world=spec.world, compression=compression, axes_shape=shape,
+        axes=("dcn", "ici") if shape is not None else (),
+        use_rs=True).legs
+    k = len(spec.buffers)
+    return legs[:k], legs[k:]
+
+
 def _reduce_scatter_mean(g: torch.Tensor, buf: _ArenaBuffer, n: int,
-                         shape) -> torch.Tensor:
+                         shape, leg) -> torch.Tensor:
     """This rank's shard of the mean of ``g`` over the world: one
-    reduce-scatter, or within the node and then across nodes."""
+    reduce-scatter, or within the node and then across nodes (counted at
+    its row's bytes)."""
     if shape is None:
         out = psum_scatter_bucket(g, quantum=n)
     else:
+        note_collective("reducescatter", "global", leg.nbytes)
         ici, dcn = hier_sets(shape[1])
         piece = g.new_empty(buf.padded // shape[1])
         dist.reduce_scatter_tensor(piece, g, op=dist.ReduceOp.SUM,
@@ -348,9 +366,10 @@ def zero_apply(optimizer: torch.optim.Optimizer,
     With an error-feedback ``compression`` the allgather moves each
     owner's compressed delta (:func:`ef_delta_allgather`) and the
     residuals of ``zero_state`` (from ``zero_init(...,
-    compression=...)``) carry what was not sent.  Feeds the ZeRO-1
-    counters (``timeline.metrics.zero_totals``) with the link bytes
-    :func:`zero_report` prices."""
+    compression=...)``) carry what was not sent.  Notes the step's
+    ``zero`` rows (:func:`zero_plan`) and feeds the ZeRO-1 counters
+    (``timeline.metrics.zero_totals``) with the link bytes
+    :func:`zero_report` prices, from the rows."""
     from .distributed import _ef_enabled
     _reject_distributed(optimizer)
     params = list(params)
@@ -369,16 +388,16 @@ def zero_apply(optimizer: torch.optim.Optimizer,
         raise ValueError("zero_state was planned for other parameters or "
                          "another world size")
     idx, shape = _shard_index(comp)
+    rs_legs, ag_legs = zero_plan(spec, comp, shape)
     grads = [g if g is not None else torch.zeros_like(p)
              for g, p in zip(grads, params)]
     with torch.no_grad():
         g_arenas = arena_pack(grads, spec)
         p_arenas = arena_pack([p.detach() for p in params], spec)
-        rs = 0
-        for g, p, buf, shard in zip(g_arenas, p_arenas, spec.buffers,
-                                    zero_state.shards):
-            rs += g.numel() * g.element_size()
-            shard.grad = _reduce_scatter_mean(g, buf, n, shape)
+        for g, p, buf, shard, leg in zip(g_arenas, p_arenas, spec.buffers,
+                                         zero_state.shards, rs_legs):
+            note_leg(leg)
+            shard.grad = _reduce_scatter_mean(g, buf, n, shape, leg)
             shard.copy_(p[idx * buf.shard:(idx + 1) * buf.shard])
         old = [s.clone() for s in zero_state.shards] if ef else None
         zero_state.inner.step()
@@ -391,6 +410,8 @@ def zero_apply(optimizer: torch.optim.Optimizer,
             order = _owner_order(shape, n)
             for i, (o, new, arena, buf) in enumerate(zip(
                     old, zero_state.shards, p_arenas, spec.buffers)):
+                note_leg(ag_legs[i])
+                note_collective("allgather", "global", ag_legs[i].nbytes)
                 if not buf.dtype.is_floating_point or buf.shard < 1:
                     g = _allgather(new).view(n, -1)[order].reshape(-1)
                     full.append(g)
@@ -406,9 +427,11 @@ def zero_apply(optimizer: torch.optim.Optimizer,
                             .to(buf.dtype))
                 ag_extra += _ef_wire(dcomp, buf) * n * (n - 1) // n
                 if feed:
-                    zero_state.residuals[i] = delta - own
+                    res.copy_(delta - own)      # in place, replayable
         else:
-            for s, buf in zip(zero_state.shards, spec.buffers):
+            for s, buf, leg in zip(zero_state.shards, spec.buffers, ag_legs):
+                note_leg(leg)
+                note_collective("allgather", "global", leg.nbytes)
                 if shape is not None:
                     ici, dcn = hier_sets(shape[1])
                     block = compressed_allgather(s, compression=comp.dcn,
@@ -418,11 +441,13 @@ def zero_apply(optimizer: torch.optim.Optimizer,
                 else:
                     g = compressed_allgather(s, compression=comp)
                 full.append(g)
-                ag_payload += buf.padded * _wire_itemsize(comp, buf.dtype)
+                ag_payload += n * leg.elements * _wire_itemsize(comp,
+                                                                buf.dtype)
                 if is_fp8(comp):
                     ag_extra += 4 * n         # one f32 scale a shard
         for p, v in zip(params, arena_unpack(full, spec)):
             p.copy_(v)
+    rs = sum(leg.nbytes for leg in rs_legs)
     note_zero_step(rs * (n - 1) // n, ag_payload * (n - 1) // n + ag_extra,
                    zero_state.state_bytes())
     return params, zero_state

@@ -222,7 +222,10 @@ class MetricsRegistry:
         return self._family("histogram", name, help, labelnames, buckets)
 
     def snapshot(self) -> dict:
-        """``{family: {"type", "samples": [{"labels", value|histogram}]}}``."""
+        """``{family: {"type", "samples": [{"labels", value|histogram}]}}``
+        (the plan-cache gauges refreshed first)."""
+        if self.enabled:
+            _collect_plan_cache(self)
         with self._lock:
             families = dict(self._families)
         out = {}
@@ -234,6 +237,37 @@ class MetricsRegistry:
                     else {"value": m.value})}
                 for key, m in fam.samples()]}
         return out
+
+
+def _collect_plan_cache(reg: "MetricsRegistry") -> None:
+    """The ``horovod_plan_cache_*`` gauges: the exchange-plan cache's
+    hits, misses, evictions and entries (``controller.fusion.
+    plan_cache_stats``)."""
+    from ..controller.fusion import plan_cache_stats
+    for key, value in plan_cache_stats().items():
+        reg.gauge(f"horovod_plan_cache_{key}",
+                  f"exchange-plan cache {key}").set(value)
+
+
+def counter_values() -> Dict[Tuple, float]:
+    """Every counter's value, keyed by ``(family, label names, label
+    values)``."""
+    reg = registry()
+    with reg._lock:
+        fams = [f for f in reg._families.values() if f.kind == "counter"]
+    return {(f.name, f.labelnames, key): m.value
+            for f in fams for key, m in f.samples()}
+
+
+def add_counter_values(deltas: Dict[Tuple, float]) -> None:
+    """Add ``deltas`` (keyed as :func:`counter_values` keys them) to the
+    counters of the current registry: a replayed CUDA graph's
+    increments."""
+    reg = registry()
+    for (name, labelnames, key), v in deltas.items():
+        if v > 0:
+            reg.counter(name, labelnames=labelnames).labels(
+                **dict(zip(labelnames, key))).inc(v)
 
 
 _registry_lock = threading.Lock()
@@ -270,15 +304,20 @@ _HIER_LEGS = ("hier/ici_rs", "hier/dcn_ar", "hier/ici_ag")
 
 
 def exchange_counters() -> Dict[str, object]:
-    """The gradient-exchange counters the DistributedOptimizer feeds:
-    fused buckets sent, bytes on the wire (after compression, one rank's
-    payload, priced by ``wire_payload_bytes`` / ``plan_hier_legs``) and
-    the collectives issued for the buckets' payloads (``handles``): one
-    for a plain or Adasum bucket, two for PowerSGD (its P and Q factor
-    allreduces), fp8 (the all-to-all and the allgather) and top-k (the
-    value and index gathers), three for a two-level bucket, two a chunk
-    for a chunked one.  A PowerSGD bucket puts ``4 * r * (m + c)`` bytes
-    on the wire, fp8 one a value, top-k ``8k / 2``."""
+    """The gradient-exchange counters the DistributedOptimizer and the
+    microbatch pipe feed: fused buckets sent, bytes on the wire (after
+    compression, one rank's payload, priced from the exchange's plan
+    rows -- ``controller.fusion.plan_exchange``: the ``flat``,
+    ``chunked`` and ``hier`` rows, the ``ef`` ledger row, the
+    microbatch pipe's ``mb_rs`` and ``mb_ag`` rows; fp8 by
+    ``wire_payload_bytes``) and the collectives issued for the buckets'
+    payloads (``handles``): one for a plain or Adasum bucket, two for
+    PowerSGD (its P and Q factor allreduces), fp8 (the all-to-all and the
+    allgather) and top-k (the value and index gathers), three for a
+    two-level bucket, two a chunk for a chunked one (its row's audit
+    rows), ``k + 1`` for a microbatched one.  A PowerSGD bucket puts
+    ``4 * r * (m + c)`` bytes on the wire, fp8 one a value, top-k
+    ``8k / 2``."""
     reg = registry()
     return {k: reg.counter(name, help) for k, (name, help)
             in _EXCHANGE.items()}
@@ -296,7 +335,8 @@ def hier_leg_counters() -> Dict[str, object]:
 
 def note_hier_legs(legs) -> None:
     """Count one bucket's :class:`~horovod_tpu_torch.controller.fusion.
-    HierLeg` rows (a one-node ``flat_ar`` row counts nowhere)."""
+    ExchangeLeg` rows of the ``hier`` family (a one-node ``flat_ar`` row
+    counts nowhere)."""
     m = hier_leg_counters()
     for leg in legs:
         if leg.tag in m:

@@ -1113,3 +1113,260 @@ def test_cuda_zero1_step_equals_the_plain_step(world1_cuda):
     for pa, pb in zip(a.parameters(), b.parameters()):
         assert (pa - pb).abs().max().item() <= \
             1e-6 * pb.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# The steps-per-execution loop as a CUDA graph, the prefetcher and the
+# asynchronous reduce-scatter
+# ---------------------------------------------------------------------------
+
+
+LOOP_K = 3
+
+
+def _tiny_resnet_cuda(seed):
+    from horovod_tpu_torch.models import BottleneckBlock, ResNet, init_params
+    model = ResNet(stage_sizes=[1, 1], block_cls=BottleneckBlock,
+                   num_classes=10, num_filters=8, dtype=torch.float32,
+                   space_to_depth=True, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model.load_state_dict(init_params(model, generator=gen))
+    return model
+
+
+def _loop_batches(n, seed=5):
+    rng = np.random.RandomState(seed)
+    return [(_randn(rng, 8, 32, 32, 3).cuda(),
+             torch.from_numpy(rng.randint(0, 10, 8)).cuda())
+            for _ in range(n)]
+
+
+@pytest.fixture
+def deterministic():
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    yield
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        saved
+
+
+#: case: (steps_per_execution, builder kwargs, DistributedOptimizer
+#: kwargs or None for the bare optimizer).
+LOOP_CASES = {
+    "wrapped": (LOOP_K, {}, {}),
+    "microbatches2": (LOOP_K, {"microbatches": 2}, {}),
+    "fp16": (LOOP_K, {}, {"compression": "fp16"}),
+    "topk_ef": (LOOP_K, {}, {"compression": "topk:0.25"}),
+    "bpps2": (4, {}, {"backward_passes_per_step": 2}),
+    "lr_schedule": (LOOP_K, {}, {}),
+    "bare": (LOOP_K, {}, None),
+    "zero1": (LOOP_K, {"zero_stage": 1}, None),
+}
+
+
+def _set_lr(opt, lr):
+    for g in opt.param_groups:
+        g["lr"] = lr
+
+
+def _loop_state(model, opts, wrap):
+    """Parameters, BN statistics, every optimizer state tensor and the
+    error-feedback residuals, cloned."""
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    for j, o in enumerate(opts):
+        for i, st in enumerate(o.state.values()):
+            state.update({f"opt{j}/{i}/{key}": v.clone()
+                          for key, v in st.items() if torch.is_tensor(v)})
+    state.update({f"residual{i}": r.clone()
+                  for i, r in enumerate(getattr(wrap, "residuals", ()))})
+    return state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(LOOP_CASES))
+def test_cuda_graph_loop_equals_eager_steps(world1_cuda, deterministic,
+                                            case):
+    """Three windows of a tiny ResNet's ``make_flax_train_loop`` (eager,
+    captured, replayed) bitwise equal to as many ``make_flax_train_step``
+    calls from the same weights on the same batches: losses, parameters,
+    BN statistics, optimizer state and residuals.  The cases: a wrapped
+    SGD alone, with ``microbatches=2``, fp16 compression, top-k with
+    error feedback, ``backward_passes_per_step=2`` over a window of 4,
+    and an lr changed before the third window (the loop captures again);
+    a bare SGD; ZeRO-1."""
+    from horovod_tpu_torch.training import (make_flax_train_loop,
+                                            make_flax_train_step,
+                                            stack_steps)
+    hvd = world1_cuda
+    k, build, wrap = LOOP_CASES[case]
+    data = _loop_batches(3 * k)
+    runs = []
+    for use_loop in (False, True):
+        model = _tiny_resnet_cuda(seed=1)
+        named = list(model.named_parameters())
+        opt = torch.optim.SGD([p for _, p in named], lr=0.1, momentum=0.9)
+        if wrap is not None:
+            opt = hvd.DistributedOptimizer(opt, named_parameters=named,
+                                           **wrap)
+        if use_loop:
+            loop = make_flax_train_loop(model, opt, steps_per_execution=k,
+                                        **build)
+            out = []
+            for i in range(3):
+                if case == "lr_schedule" and i == 2:
+                    _set_lr(opt, 0.05)
+                out.append(loop(stack_steps(data[i * k:(i + 1) * k]))
+                           .clone())
+            losses = torch.cat(out)
+            assert loop._graph is not None
+            if case == "lr_schedule":              # captured again
+                assert loop._hyper[0][0]["lr"] == 0.05
+            opts = loop._optimizers
+        else:
+            step = make_flax_train_step(model, opt, **build)
+            out = []
+            for i, b in enumerate(data):
+                if case == "lr_schedule" and i == 2 * k:
+                    _set_lr(opt, 0.05)
+                out.append(step(b))
+            losses = torch.stack(out)
+            opts = [opt] + ([step.zero_state.inner]
+                            if step.zero_state is not None else [])
+        torch.cuda.synchronize()
+        runs.append((losses, _loop_state(model, opts, opt)))
+    (l1, s1), (l2, s2) = runs
+    assert torch.equal(l1, l2), (l1, l2)
+    assert s1.keys() == s2.keys()
+    assert any(key.startswith("opt") for key in s1)
+    if case == "topk_ef":
+        assert any(key.startswith("residual") for key in s1)
+    for key in s1:
+        assert torch.equal(s1[key], s2[key]), key
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replays_count_launches_and_exchanges(world1_cuda,
+                                                         deterministic):
+    """The BN launch counters, the exchange and collective counters and
+    the span leg registry count every replayed step: three windows count
+    as nine steps' worth."""
+    from horovod_tpu_torch.timeline import metrics, spans
+    from horovod_tpu_torch.training import (make_flax_train_loop,
+                                            make_flax_train_step,
+                                            stack_steps)
+    hvd = world1_cuda
+    data = _loop_batches(LOOP_K)
+
+    def counts():
+        return (registry.launch_counts(), metrics.exchange_totals(),
+                metrics.collective_totals()[("allreduce", "global")],
+                spans.recorder().leg_registry().get("flat_ar"))
+
+    model = _tiny_resnet_cuda(seed=2)
+    named = list(model.named_parameters())
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD([p for _, p in named], lr=0.1, momentum=0.9),
+        named_parameters=named)
+    step = make_flax_train_step(model, opt)
+    step(data[0])
+    torch.cuda.synchronize()
+    registry.reset_launch_counts()
+    metrics.reset_metrics()
+    spans.recorder().reset()
+    step(data[0])
+    one = counts()
+    loop = make_flax_train_loop(model, opt, steps_per_execution=LOOP_K)
+    registry.reset_launch_counts()
+    metrics.reset_metrics()
+    spans.recorder().reset()
+    for _ in range(3):
+        loop(stack_steps(data))
+    torch.cuda.synchronize()
+    got = counts()
+    n = 3 * LOOP_K
+    assert got[0] == {f: n * c for f, c in one[0].items()}
+    assert one[0]["bn_bwd_reduce"] > 0
+    assert got[1] == {k: n * v for k, v in one[1].items()}
+    assert got[2] == {k: n * v for k, v in one[2].items()}
+    assert got[3] == {k: n * v for k, v in one[3].items()}
+
+
+@pytest.mark.cuda
+def test_cuda_graph_loop_refuses_what_it_cannot_capture(world1_cuda):
+    """No fallback to eager steps: AdamW without ``capturable``, a
+    torch-style ``SyncBatchNorm`` (a host read of its row count) and a
+    ``backward_passes_per_step`` that does not divide the window raise
+    ``ValueError`` naming the cause before the first window runs."""
+    from horovod_tpu_torch.training import make_train_loop, stack_steps
+    hvd = world1_cuda
+    batches = stack_steps([(torch.randn(4, 6, device="cuda"),)] * 2)
+    lin = torch.nn.Linear(6, 3).cuda()
+    adamw = hvd.DistributedOptimizer(torch.optim.AdamW(lin.parameters()),
+                                     named_parameters=lin.named_parameters())
+    loop = make_train_loop(lin, lambda m, b: m(b[0]).square().mean(), adamw,
+                           steps_per_execution=2)
+    before = lin.weight.detach().clone()
+    with pytest.raises(ValueError, match="capturable"):
+        loop(batches)
+    assert torch.equal(lin.weight, before)
+    net = torch.nn.Sequential(torch.nn.Conv2d(3, 4, 1),
+                              hvd.SyncBatchNorm(4)).cuda()
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(net.parameters(), lr=0.1),
+                                   named_parameters=net.named_parameters())
+    loop = make_train_loop(net, lambda m, b: m(b[0]).square().mean(), opt,
+                           steps_per_execution=2)
+    images = stack_steps([(torch.randn(2, 3, 5, 5, device="cuda"),)] * 2)
+    with pytest.raises(ValueError, match="SyncBatchNorm"):
+        loop(images)
+    # A window of 4 replayed over an accumulation of 3 passes a step
+    # would start each replay partway through one: refused before the
+    # first window runs.
+    lin = torch.nn.Linear(6, 3).cuda()
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(lin.parameters(), lr=0.1),
+                                   named_parameters=lin.named_parameters(),
+                                   backward_passes_per_step=3)
+    loop = make_train_loop(lin, lambda m, b: m(b[0]).square().mean(), opt,
+                           steps_per_execution=4)
+    before = lin.weight.detach().clone()
+    with pytest.raises(ValueError, match="backward_passes_per_step=3"):
+        loop(stack_steps([(torch.randn(4, 6, device="cuda"),)] * 4))
+    assert torch.equal(lin.weight, before)
+
+
+@pytest.mark.cuda
+def test_cuda_prefetcher_hands_over_through_a_stream_event(cuda):
+    """Host batches come out on the card equal to the host's, stacked
+    ``[k, ...]`` with ``stack_steps``, usable on the consumer's stream
+    without a device-wide sync."""
+    from horovod_tpu_torch.data import DevicePrefetcher
+    rng = np.random.RandomState(71)
+    host = [{"x": rng.randn(64, 1024).astype(np.float32),
+             "y": rng.randint(0, 9, 64)} for _ in range(6)]
+    with DevicePrefetcher(host, depth=2, device="cuda",
+                          stack_steps=2) as pf:
+        out = [(b["x"] * 2.0, b["y"]) for b in pf]
+    assert pf.dropped_remainder == 0 and len(out) == 3
+    for g, (x2, y) in enumerate(out):
+        assert x2.device.type == "cuda" and tuple(x2.shape) == (2, 64, 1024)
+        np.testing.assert_array_equal(
+            x2.cpu().numpy(), 2.0 * np.stack([host[2 * g]["x"],
+                                              host[2 * g + 1]["x"]]))
+        np.testing.assert_array_equal(y[1].cpu().numpy(),
+                                      host[2 * g + 1]["y"])
+
+
+@pytest.mark.cuda
+def test_cuda_async_psum_scatter_bucket_at_world_one(world1_cuda):
+    """``psum_scatter_bucket_async`` on NCCL at world 1: the handle's
+    shard is the bucket zero-padded to the quantum, and it equals the
+    synchronous op's."""
+    from horovod_tpu_torch.collectives import ops
+    x = torch.randn(1000, device="cuda")
+    h = ops.psum_scatter_bucket_async(x, quantum=256)
+    shard = h.wait()
+    assert h.poll()
+    assert shard.shape == (1024,)
+    assert torch.equal(shard[:1000], x) and not shard[1000:].any()
+    assert torch.equal(ops.psum_scatter_bucket(x, quantum=256), shard)

@@ -3,8 +3,9 @@ package's shim ``horovod_tpu.torch_api``.
 
 * The shim's public names are a subset of the port's top level, apart
   from those later ROADMAP items own (``elastic``, item 1.11); ``join``,
-  ``start_timeline``, ``stop_timeline`` and ``steps_per_execution`` raise
-  ``NotImplementedError`` naming their items.
+  ``start_timeline`` and ``stop_timeline`` raise ``NotImplementedError``
+  naming their items (``steps_per_execution`` returns the resolved value:
+  ``tests/test_torch_train_loop.py``).
 * Horovod's keywords and the second positional parameter of
   ``allreduce`` (Horovod's ``average``; a ReduceOp there is ``op``),
   ``name=``, ``compression=``, the build probes.
@@ -49,8 +50,7 @@ _LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "HOROVOD_RANK",
 OPT_ATOL = 1e-6
 BN_REL = 1e-5
 LATER_ITEMS = {"elastic"}                      # ROADMAP item 1.11
-RAISING = {"join": "1.8", "start_timeline": "1.11", "stop_timeline": "1.11",
-           "steps_per_execution": "1.11"}
+RAISING = {"join": "1.8", "start_timeline": "1.11", "stop_timeline": "1.11"}
 VOCAB, DIM, CLASSES, STEPS = 12, 4, 3, 3
 SHIM_OPS = ("Sum", "Average")
 BN_C = 5
