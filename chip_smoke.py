@@ -169,6 +169,28 @@ Phases, each printing its own line; any failure exits non-zero:
    bitwise its eager steps.  Each: step ms, images/s, peak memory and the
    host ms to dispatch a window beside the eager steps', and the
    ResNet-50 buckets' ``render_plan``.
+22. elastic_resnet -- Elastic Horovod (BASELINE's fifth configuration)
+   on the card: (a) the launcher, ``python -m horovod_tpu_torch.run
+   --host-discovery-script <one host, one slot> --min-np 1 --max-np 1``
+   running ``horovod_tpu_torch.examples.elastic_train`` with
+   ``ELASTIC_MODEL=resnet50`` at 224 x 224 for 8 batches, once over the
+   assignment file and once with ``--network-rendezvous`` under
+   ``HOROVOD_CHAOS`` (a 2 s KV blackout, a 1 s heartbeat drop, a 30 s
+   heartbeat timeout): each exits 0 at "final size 1"; the wall seconds,
+   the worker's step ms after the first and the KV retries the blackout
+   cost; (b) phase 8's ResNet-50 (256 x 224 x 224, bf16, deterministic
+   cuDNN) in ``@hvd.elastic.run`` with a ``TorchState`` committing every
+   2 steps, 12 steps uninterrupted and again with
+   ``chaos.install("seed=7;comm@step=5,rank=0")``: the fault rolls back
+   a commit, ``hvd.shutdown()`` / ``hvd.init()`` build a new NCCL
+   communicator in the process and the step is rebuilt; parameters, BN
+   statistics, momentum and the last 8 losses bitwise the uninterrupted
+   run's; then the same through ``make_flax_train_loop(
+   steps_per_execution=4)`` (one loop object across the re-init: it
+   drops its graph and captures again), bitwise the eager run.  Logged:
+   ``horovod_elastic_steps_to_recover``, the restore, re-init and first
+   step after it (ms), commit ms (median), step ms beside phase 8's,
+   peak GB and the BN launches.
 
 Phase 17 also holds ``chunked_allreduce`` (equal to ``allreduce`` at
 world 1) and ``fp8_allreduce`` (bitwise its round trip) on its 64 MiB
@@ -1441,6 +1463,7 @@ def train_resnet(dev, card: str) -> dict:
         raise AssertionError("resnet_train: " + "; ".join(fails))
     hvd.shutdown()
     del model, named, opt, step, batch, before_p, before_s, stats
+    counts = dict(counts, step_ms=step_ms)
     return counts
 
 
@@ -3096,6 +3119,285 @@ def train_resnet_loop(dev, card: str) -> dict:
     return bn_total
 
 
+ELASTIC_STEPS = 12            # phase 22 (b): steps of each run
+ELASTIC_COMMIT_EVERY = 2      # commits every 2 steps
+ELASTIC_CHAOS = "seed=7;comm@step=5,rank=0"
+ELASTIC_LOOP_CHAOS = "seed=7;comm@step=3,rank=0"   # a commit a window
+ELASTIC_LAUNCH_BATCHES = 8    # phase 22 (a): ELASTIC_TARGET_BATCHES
+ELASTIC_LAUNCH_BATCH = 64     # each rank's batch in (a)
+ELASTIC_LAUNCH_TIMEOUT = 300
+
+
+def _launch_elastic(tmp: str, network: bool) -> dict:
+    """Phase 22 (a): one ``python -m horovod_tpu_torch.run`` elastic run of
+    the example at full ResNet-50 width; its wall seconds, the worker's
+    step ms and its elastic metrics line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    disc = os.path.join(tmp, "discover.sh")
+    with open(disc, "w") as f:
+        f.write("#!/bin/sh\necho localhost:1\n")
+    os.chmod(disc, 0o755)
+    env = dict(os.environ, PYTHONPATH=here,
+               ELASTIC_MODEL="resnet50", ELASTIC_IMAGE_SIZE="224",
+               ELASTIC_TARGET_BATCHES=str(ELASTIC_LAUNCH_BATCHES),
+               ELASTIC_BATCH_DELAY_S="0",
+               ELASTIC_BATCH=str(ELASTIC_LAUNCH_BATCH))
+    for k in ("HVD_TPU_FORCE_CPU", "HOROVOD_CHAOS", "HVD_TPU_CHAOS",
+              "HOROVOD_RANK", "HOROVOD_SIZE", "HVD_TPU_RENDEZVOUS_FILE"):
+        env.pop(k, None)
+    args = [sys.executable, "-m", "horovod_tpu_torch.run",
+            "--host-discovery-script", disc, "--min-np", "1",
+            "--max-np", "1"]
+    if network:
+        env["HOROVOD_CHAOS"] = "seed=3;kv_blackout@step=3,secs=2;" \
+                               "hb_drop@step=5,secs=1"
+        args += ["--network-rendezvous", "--heartbeat-timeout", "30"]
+    args += [sys.executable, "-m",
+             "horovod_tpu_torch.examples.elastic_train"]
+    t = time.perf_counter()
+    try:
+        out = subprocess.run(args, env=env, cwd=here, capture_output=True,
+                             text=True, timeout=ELASTIC_LAUNCH_TIMEOUT)
+        code, text = out.returncode, out.stdout + out.stderr
+    except subprocess.TimeoutExpired as e:
+        code, text = "timeout", f"{e.stdout or ''}{e.stderr or ''}"
+    wall = time.perf_counter() - t
+    steps = [float(m.group(1)) for m in
+             re.finditer(r"rank 0/1 batch \d+ loss \S+ step_ms (\S+)", text)]
+    metrics = re.search(r"elastic metrics (\{.*\})", text)
+    return {"network_rendezvous": network, "exit": code,
+            "wall_s": wall, "final_size_1": "final size 1" in text,
+            "batches": len(steps), "step_ms_each": steps,
+            "step_ms_after_first": (sum(steps[1:]) / len(steps[1:])
+                                    if len(steps) > 1 else None),
+            "worker_metrics": json.loads(metrics.group(1)) if metrics
+            else None, "chaos": env.get("HOROVOD_CHAOS"),
+            "tail": text[-1500:]}
+
+
+class _TimedState:
+    """Wraps a TorchState's ``commit``/``restore`` with wall timers (the
+    device is synchronized first, so a commit's time is its own)."""
+
+    def __init__(self, state):
+        self.commit_ms, self.restore_ms, self.restore_end = [], [], []
+        for name, out in (("commit", self.commit_ms),
+                          ("restore", self.restore_ms)):
+            inner = getattr(state, name)
+
+            def timed(inner=inner, out=out, name=name):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                try:
+                    return inner()
+                finally:
+                    torch.cuda.synchronize()
+                    out.append(1e3 * (time.perf_counter() - t))
+                    if name == "restore":
+                        self.restore_end.append(time.perf_counter())
+
+            setattr(state, name, timed)
+
+
+def _elastic_train(hvd, model, opt, data, spec, loop=None):
+    """Phase 22 (b): ``len(data)`` steps of ``make_flax_train_step`` (or
+    the windows of ``loop``) under ``@hvd.elastic.run`` with a
+    ``TorchState`` committing every 2 steps (every window), ``spec``
+    chaos installed after its constructor.  The step is rebuilt at every
+    entry; the loop object is kept, so a re-init makes it capture again.
+    Returns the losses by step and the timings."""
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.elastic import chaos
+    from horovod_tpu_torch.training import make_flax_train_step, stack_steps
+
+    chaos.reset()
+    state = elastic.TorchState(model=model, optimizer=opt, batch=0)
+    timers = _TimedState(state)
+    if spec:
+        chaos.install(spec, rank=0, size=1)
+    losses, entries, step_ms = {}, [], []
+
+    @elastic.run
+    def train(state):
+        entries.append((state.batch, time.perf_counter(),
+                        hvd.core.state.global_state().generation,
+                        len(step_ms)))
+        step = None if loop is not None else make_flax_train_step(model, opt)
+        while state.batch < len(data):
+            b = state.batch
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if loop is not None:
+                out = loop(stack_steps(data[b:b + LOOP_K])).clone()
+                n = LOOP_K
+            else:
+                out = step(data[b]).reshape(1).clone()
+                n = 1
+            torch.cuda.synchronize()
+            step_ms.append((b, n, 1e3 * (time.perf_counter() - t)))
+            for i in range(n):
+                losses[b + 1 + i] = out[i]
+            state.batch += n
+            if loop is not None or state.batch % ELASTIC_COMMIT_EVERY == 0:
+                state.commit()
+        return state.batch
+
+    done = train(state)
+    chaos.reset()
+    return {"done": done, "losses": losses, "entries": entries,
+            "step_ms": step_ms, "commit_ms": timers.commit_ms,
+            "restore_ms": timers.restore_ms,
+            "restore_end": timers.restore_end}
+
+
+def elastic_resnet(dev, card: str, phase8_step_ms: float) -> dict:
+    """Phase 22 (see the module docstring).  Returns the BN launches of
+    (b)'s runs: the eager and loop runs with their replayed steps."""
+    import tempfile
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.timeline import metrics
+    from horovod_tpu_torch.training import make_flax_train_loop
+
+    fails = []
+    # (a) The launcher and the elastic driver on the card.
+    with tempfile.TemporaryDirectory(prefix="hvd_elastic_smoke_") as tmp:
+        for network in (False, True):
+            run = _launch_elastic(tmp, network)
+            log({"phase": "elastic_launch", "card": card, **run})
+            if run["exit"] != 0 or not run["final_size_1"] or \
+                    run["batches"] < ELASTIC_LAUNCH_BATCHES:
+                fails.append(f"launcher run (network={network}) exit "
+                             f"{run['exit']}: {run['tail'][-600:]}")
+    if fails:
+        raise AssertionError("elastic_resnet: " + "; ".join(fails))
+
+    # (b) Checkpointless recovery at full width, in process.
+    batch_size = 256
+    hvd.init()
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    bn_total = {"bn_bwd_reduce": 0, "bn_bwd_dx": 0}
+    try:
+        model, _ = resnet50(dev, seed=0)
+        named = list(model.named_parameters())
+        init_state = {k: v.clone() for k, v in model.state_dict().items()}
+        gen = torch.Generator(device=dev).manual_seed(0)
+        pool = [images(gen, dev, batch_size, 1000) for _ in range(2)]
+        data = [pool[i % 2] for i in range(ELASTIC_STEPS)]
+
+        def fresh():
+            model.load_state_dict(init_state)
+            gc.collect()
+            return hvd.DistributedOptimizer(
+                torch.optim.SGD([p for _, p in named], lr=0.1, momentum=0.9),
+                named_parameters=named, compression=hvd.Compression.none)
+
+        runs = {}
+        for name, spec, use_loop in (
+                ("eager", None, False), ("eager_chaos", ELASTIC_CHAOS, False),
+                ("loop_chaos", ELASTIC_LOOP_CHAOS, True)):
+            opt = fresh()
+            loop = make_flax_train_loop(model, opt,
+                                        steps_per_execution=LOOP_K) \
+                if use_loop else None
+            _reset_counters()
+            torch.cuda.reset_peak_memory_stats()
+            r = _elastic_train(hvd, model, opt, data, spec, loop)
+            launches = registry.launch_counts()
+            for f in bn_total:
+                bn_total[f] += launches[f]
+            r["state"] = _snapshot(model, opt)
+            r["peak"] = torch.cuda.max_memory_allocated()
+            r["launches"] = {f: launches[f] for f in bn_total}
+            r["steps_to_recover"] = metrics.registry().gauge(
+                "horovod_elastic_steps_to_recover").value
+            if loop is not None:
+                r["loop_generation"] = loop._generation
+                r["loop_captured"] = loop._graph is not None
+            runs[name] = r
+            del opt, loop
+        ref = runs["eager"]
+        last = list(range(ELASTIC_STEPS - 7, ELASTIC_STEPS + 1))
+        for name in ("eager_chaos", "loop_chaos"):
+            r = runs[name]
+            diff = _bitwise(ref["state"], r["state"])
+            losses_equal = sorted(r["losses"]) == list(
+                range(1, ELASTIC_STEPS + 1)) and all(
+                torch.equal(ref["losses"][k], r["losses"][k]) for k in last)
+            entries = r["entries"]
+            recovered = len(entries) == 2
+            first_after = r["step_ms"][entries[1][3]][2] if recovered \
+                else None
+            # The re-init: from the restore's end to the re-entry (the
+            # shutdown, init, resize and sync in between).
+            reinit_ms = 1e3 * (entries[1][1] - r["restore_end"][0]) \
+                if recovered and r["restore_end"] else None
+            steady = sorted(ms / n for b, n, ms in ref["step_ms"][1:])
+            step_ms = steady[len(steady) // 2]
+            commits = sorted(r["commit_ms"])
+            # Every step run, the replayed ones included.
+            expected = RESNET50_BN_SITES * sum(n for _, n, _ in r["step_ms"])
+            entry = {
+                "phase": "elastic_resnet", "config": name, "card": card,
+                "batch": [batch_size, 224, 224, 3], "chaos": ELASTIC_CHAOS
+                if name == "eager_chaos" else ELASTIC_LOOP_CHAOS,
+                "steps": ELASTIC_STEPS, "recovered": recovered,
+                "rolled_back_to_step": entries[1][0] if recovered else None,
+                "generations": [e[2] for e in entries],
+                "horovod_elastic_steps_to_recover": r["steps_to_recover"],
+                "restore_ms": r["restore_ms"], "reinit_ms": reinit_ms,
+                "first_step_after_ms": first_after,   # a window for the loop
+                "recovery_ms": (r["restore_ms"][0] + reinit_ms + first_after
+                                if recovered and first_after is not None
+                                and reinit_ms is not None else None),
+                "commit_ms_median": commits[len(commits) // 2],
+                "commit_ms_each": r["commit_ms"],
+                "step_ms_uninterrupted": step_ms,
+                "phase8_step_ms": phase8_step_ms,
+                "step_ms_each": [(b, n, ms) for b, n, ms in r["step_ms"]],
+                "peak_mem_bytes": r["peak"],
+                "peak_mem_bytes_uninterrupted": ref["peak"],
+                "bn_launches": r["launches"],
+                "bitwise_vs_uninterrupted": not diff and losses_equal,
+                "differing": diff[:8],
+                "losses": [ref["losses"][k].item() for k in last]}
+            if name == "loop_chaos":
+                entry["loop_captured_again"] = r["loop_captured"] and \
+                    r["loop_generation"] == entries[-1][2]
+            log(entry)
+            if not recovered:
+                fails.append(f"{name}: the fault never fired ({entries})")
+            if diff or not losses_equal:
+                fails.append(f"{name}: not bitwise the uninterrupted run: "
+                             f"{diff[:8]}, losses equal {losses_equal}")
+            if r["steps_to_recover"] < 1:
+                fails.append(f"{name}: no step was rolled back")
+            if r["launches"] != {f: expected for f in bn_total}:
+                fails.append(f"{name}: BN launches {r['launches']} != "
+                             f"{expected} each")
+            if name == "loop_chaos" and not entry["loop_captured_again"]:
+                fails.append("loop_chaos: the loop did not capture again "
+                             "after the re-init")
+        if ref["launches"] != {f: RESNET50_BN_SITES * ELASTIC_STEPS
+                               for f in bn_total}:
+            fails.append(f"eager: BN launches {ref['launches']}")
+        if not all(bool(torch.isfinite(v).all())
+                   for v in ref["losses"].values()):
+            fails.append("eager: a loss is not finite")
+        del model, named, init_state, pool, data, runs
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = cudnn
+    if fails:
+        raise AssertionError("elastic_resnet: " + "; ".join(fails))
+    hvd.shutdown()
+    return bn_total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3164,6 +3466,8 @@ def main() -> int:
     free_device()
     loop = train_resnet_loop(dev, card)
     free_device()
+    elastic_bn = elastic_resnet(dev, card, resnet["step_ms"])
+    free_device()
     # The attention and BN kernels run on several paths: their launches
     # are the sums.
     flash["launches"] = serve["flash"] + train["flash"] + bert["flash"]
@@ -3173,10 +3477,11 @@ def main() -> int:
     bn_red["launches"] = (resnet["bn_bwd_reduce"] + inception["bn_bwd_reduce"]
                           + torch_rn50["bn_bwd_reduce"]
                           + exchange["bn_bwd_reduce"]
-                          + loop["bn_bwd_reduce"])
+                          + loop["bn_bwd_reduce"]
+                          + elastic_bn["bn_bwd_reduce"])
     bn_dx["launches"] = (resnet["bn_bwd_dx"] + inception["bn_bwd_dx"]
                          + torch_rn50["bn_bwd_dx"] + exchange["bn_bwd_dx"]
-                         + loop["bn_bwd_dx"])
+                         + loop["bn_bwd_dx"] + elastic_bn["bn_bwd_dx"])
     for e in fused:
         e["launches"] = powersgd[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -49,16 +49,23 @@ ported so far:
   steps-per-execution loop (:func:`make_flax_train_loop`, one CUDA graph
   a window on the GPU), the device prefetcher (:class:`DevicePrefetcher`,
   ``stack_steps=k``) and the exchange-plan IR every exchange notes its
-  rows from (``controller.fusion.plan_exchange``).
+  rows from (``controller.fusion.plan_exchange``);
+* elastic training (``hvd.elastic``): :class:`~horovod_tpu_torch.elastic.
+  TorchState` commit / restore / sync / resize, the ``@hvd.elastic.run``
+  rollback loop with an in-process re-init (a new NCCL communicator),
+  the launcher and its elastic driver (``python -m horovod_tpu_torch.run``,
+  host discovery, heartbeats, the HMAC-signed KV rendezvous), seeded
+  chaos injection (``HOROVOD_CHAOS``), the stall inspector, and rank-0
+  npz checkpoints (:func:`save_checkpoint`) in the JAX package's format.
 
 Kernels hand-written in CUDA C++ for ``sm_90a`` (``ops/csrc``) carry
 attention -- the flash forward and decode kernels, the flash backward's
 dq and dk/dv kernels -- the train-mode BatchNorm backward's two
 passes, and the three stages of the PowerSGD exchange.  The layout
 mirrors ``horovod_tpu`` (``core/``, ``adasum/``, ``collectives/``,
-``controller/``, ``data/``, ``optim/``, ``timeline/``, ``models/``,
-``ops/``, ``serving/``, ``training.py``) so each module's
-counterpart is easy to find.
+``controller/``, ``data/``, ``elastic/``, ``optim/``, ``run/``,
+``timeline/``, ``models/``, ``ops/``, ``serving/``, ``utils/``,
+``training.py``) so each module's counterpart is easy to find.
 
 The package imports ``torch`` and ``numpy`` only -- nothing of JAX and
 nothing of ``horovod_tpu``.  Entry points run on ``cuda`` unless the
@@ -85,6 +92,7 @@ from .collectives.ops import (allgather, allreduce,  # noqa: F401
 from .collectives.reduce_op import (Adasum, Average, Max,  # noqa: F401
                                     Min, Product, ReduceOp, Sum)
 from .data import DevicePrefetcher, prefetch_to_device  # noqa: F401
+from . import elastic  # noqa: F401
 from .core import (HorovodInternalError,  # noqa: F401
                    HostsUpdatedInterrupt, ProcessSet, ProcessSetError,
                    add_process_set, cross_rank, cross_size, cuda_built,
@@ -102,6 +110,9 @@ from .optim import (DistributedAdasumOptimizer,  # noqa: F401
                     broadcast_parameters)
 from .optim.zero import zero_init, zero_report  # noqa: F401
 from .sync_batch_norm import SyncBatchNorm  # noqa: F401
+from .utils.checkpoint import (checkpoint_path,  # noqa: F401
+                               latest_checkpoint, restore_checkpoint,
+                               save_checkpoint)
 from .training import (bert_pretrain_loss,  # noqa: F401
                        make_flax_train_loop, make_flax_train_step,
                        make_train_loop, make_train_step, microbatches,

@@ -53,8 +53,12 @@ _table = _HandleTable()
 
 
 def synchronize(handle: int):
-    """Wait for the op behind ``handle`` and return its result."""
-    return _table.get(handle, pop=True).wait()
+    """Wait for the op behind ``handle`` and return its result (an
+    injected ``at=sync`` chaos comm fault is raised here)."""
+    h = _table.get(handle, pop=True)
+    from ..elastic import chaos
+    chaos.raise_if_armed()
+    return h.wait()
 
 
 def poll(handle: int) -> bool:

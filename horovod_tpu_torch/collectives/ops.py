@@ -59,6 +59,7 @@ import torch
 import torch.distributed as dist
 
 from ..adasum.vhdd import adasum_allreduce
+from ..core import stall
 from ..core.basics import _require_init
 from ..core.exceptions import HorovodInternalError
 from ..core.process_sets import ProcessSet, get_process_set
@@ -110,7 +111,8 @@ class Handle:
         if not self._done:
             if self._work is not None:
                 try:
-                    self._work.wait()
+                    with stall.watched(self._name or "collective"):
+                        self._work.wait()
                 except Exception as e:
                     label = f" {self._name!r}" if self._name else ""
                     raise HorovodInternalError(
@@ -1143,7 +1145,10 @@ def allgather_bucket(shard: torch.Tensor, size: int, *,
 def barrier(process_set=None) -> None:
     """Block until every member of the set has reached this point."""
     ps = _member_set(process_set, "barrier")
-    dist.barrier(group=ps.group)
+    with stall.watched("barrier"):
+        from ..elastic import chaos
+        chaos.raise_if_armed()      # an injected at=sync comm fault
+        dist.barrier(group=ps.group)
 
 
 __all__ = ["Handle", "allreduce", "allreduce_", "allreduce_async",

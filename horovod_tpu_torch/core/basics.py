@@ -8,21 +8,31 @@ when the caller asks for the CPU.
 ``init()`` takes its world from, in order: a process group the caller
 already initialized; an explicit ``store`` (e.g. a ``FileStore``) with
 ``rank`` and ``size``; the launcher's environment (``HOROVOD_RANK`` /
-``HOROVOD_SIZE``, else torchrun's ``RANK`` / ``WORLD_SIZE``, meeting at
-``MASTER_ADDR``/``MASTER_PORT``).  With none of these it is a world of
-size 1, as Horovod's is, rendezvousing through an in-process
-``HashStore`` (no port is opened).
+``HOROVOD_SIZE``, else torchrun's ``RANK`` / ``WORLD_SIZE``, meeting in
+the ``FileStore`` at ``HVD_TPU_RENDEZVOUS_FILE`` when the launcher names
+one, else at ``MASTER_ADDR``/``MASTER_PORT``).  With none of these it is
+a world of size 1, as Horovod's is, rendezvousing through an in-process
+``HashStore`` (no port is opened).  The process group's timeout is
+``HOROVOD_ELASTIC_TIMEOUT`` (default 600 s), so a lost NCCL peer
+surfaces as an error the elastic loop can recover from.
+
+``shutdown()`` then ``init()`` rebuilds the world in the same process
+(the elastic loop's re-init): the process group and every process set's
+group are destroyed, the exchange-plan cache is cleared, and
+``global_state().generation`` advances, which the optimizer wrap and the
+train loop check before they touch what the old group left behind.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Optional, Union
 
 import torch
 import torch.distributed as dist
 
-from .config import load_config
+from .config import _env, load_config, refuse_unported
 from .device import resolve_device
 from .exceptions import NotInitializedError
 from .process_sets import _drop_all, _install_global_set
@@ -58,6 +68,7 @@ def init(*, device: Optional[Union[str, torch.device]] = None,
         if st.initialized:
             return
         cfg = load_config()
+        refuse_unported(cfg)
         dev = resolve_device(device)
         backend = "nccl" if dev.type == "cuda" else "gloo"
         local_rank = _first(cfg.env_local_rank, _os_int("LOCAL_RANK"), 0)
@@ -76,9 +87,15 @@ def init(*, device: Optional[Union[str, torch.device]] = None,
                 r, n, store = 0, 1, dist.HashStore()
             if r < 0 or n < 1:
                 raise ValueError(f"init: rank {r} / size {n} not given")
+            path = _env("RENDEZVOUS_FILE")
+            if store is None and path:
+                store = dist.FileStore(path, n)
             kw = {"store": store} if store is not None else \
                 {"init_method": "env://"}
-            dist.init_process_group(backend, rank=r, world_size=n, **kw)
+            dist.init_process_group(
+                backend, rank=r, world_size=n,
+                timeout=datetime.timedelta(seconds=cfg.elastic_timeout),
+                **kw)
             owns = True
         st.config = cfg
         st.device = dev
@@ -91,15 +108,24 @@ def init(*, device: Optional[Union[str, torch.device]] = None,
         st.cross_size = _first(cfg.env_cross_size,
                                -(-n // max(st.local_size, 1)))
         st.owns_group = owns
+        st.generation += 1
         st.initialized = True
         _install_global_set()
+        from . import stall
+        stall.configure(cfg)
+        # Deterministic fault injection (HOROVOD_CHAOS): installed once a
+        # process, keyed to the rank; no-op without the variable.
+        from ..elastic import chaos
+        chaos.maybe_install(rank=r, size=n)
 
 
 def shutdown() -> None:
     """Tear down framework state (``hvd.shutdown()`` parity): forgets
     every process set and destroys the process group if ``init()``
     created it (which destroys the sets' groups with it); otherwise it
-    destroys the groups of the sets it registered."""
+    destroys the groups of the sets it registered.  Stops the stall
+    inspector and clears the exchange-plan cache, so a later ``init()``
+    (an elastic re-init, at another world size perhaps) starts clean."""
     st = global_state()
     with st.lock:
         if not st.initialized:
@@ -112,6 +138,10 @@ def shutdown() -> None:
                     if g not in (None, dist.GroupMember.NON_GROUP_MEMBER):
                         dist.destroy_process_group(g)
         st.reset()
+        from . import stall
+        stall.teardown()
+    from ..controller.fusion import clear_plan_cache
+    clear_plan_cache()
     if owns and dist.is_initialized():
         dist.destroy_process_group()
 

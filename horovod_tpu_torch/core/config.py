@@ -1,7 +1,7 @@
 """Environment-driven configuration knobs.
 
 Counterpart of ``horovod_tpu/core/config.py`` (``_env``/``_env_int``/
-``_env_bool``): both the historical ``HOROVOD_*`` names and the
+``_env_float``/``_env_bool``): both the historical ``HOROVOD_*`` names and the
 ``HVD_TPU_*`` overrides are honoured, the latter winning when both are
 set, so one environment drives either package identically.
 :class:`Config` is the subset of the JAX package's ``Config`` that the
@@ -27,6 +27,11 @@ def _env(name: str, default: Optional[str] = None) -> Optional[str]:
 def _env_int(name: str, default: int) -> int:
     v = _env(name)
     return int(v) if v not in (None, "") else default
+
+
+def _env_float(name: str, default: float) -> float:
+    v = _env(name)
+    return float(v) if v not in (None, "") else default
 
 
 def _env_bool(name: str, default: bool = False) -> bool:
@@ -83,6 +88,36 @@ class Config:
     # each sub-batch's buckets reduce-scatter while the next sub-batch's
     # backward runs.
     microbatches: int = 1
+    # Stall inspector (core/stall.py): warn about a blocking wait older
+    # than stall_check_time seconds (HOROVOD_STALL_CHECK_TIME, default
+    # 60; HOROVOD_STALL_CHECK_DISABLE=1 turns it off), abort the process
+    # past stall_shutdown_time (0 = never), and latch the elastic
+    # preemption notice past stall_reset_time (0 = never), so a wedged
+    # collective becomes an elastic reset instead of a hang.
+    stall_check_disable: bool = False
+    stall_check_time: float = 60.0
+    stall_shutdown_time: float = 0.0
+    stall_reset_time: float = 0.0
+    # Elastic (HOROVOD_ELASTIC_TIMEOUT, seconds): the driver's wait for
+    # min-np hosts, and the process group's collective timeout, so a
+    # peer lost under NCCL surfaces as an error instead of a hang.
+    elastic_timeout: float = 600.0
+    # Consecutive restore + sync attempts before a persistent desync or
+    # sustained anomaly aborts the elastic loop
+    # (HOROVOD_DESYNC_MAX_RETRIES).
+    desync_max_retries: int = 3
+    # Snapshot/rollback ledger cadence in committed steps
+    # (HOROVOD_SNAPSHOT_STEPS); 0 disables the ring.
+    snapshot_steps: int = 0
+    # The silent-data-corruption plane (HOROVOD_CHECK_DESYNC,
+    # HOROVOD_DESYNC_CHECK_STEPS, HOROVOD_GUARD) is not ported (ROADMAP
+    # item 1.11): init() refuses the settings that turn it on.
+    check_desync: bool = False
+    desync_check_steps: int = 0
+    guard: str = "auto"
+    # Driver-side heartbeat eviction in seconds (HOROVOD_HEARTBEAT_TIMEOUT;
+    # 0 disables).
+    heartbeat_timeout: float = 0.0
     # Launcher-provided identity (HOROVOD_RANK / _SIZE / _LOCAL_RANK /
     # _LOCAL_SIZE / _CROSS_RANK / _CROSS_SIZE); -1 = not set.
     env_rank: int = -1
@@ -105,6 +140,22 @@ def load_config() -> Config:
         exchange_chunk_bytes=_env_int("EXCHANGE_CHUNK_MB", 0) * _MiB,
         steps_per_exec=_env_int("STEPS_PER_EXEC", 1),
         microbatches=_env_int("MICROBATCHES", 1),
+        stall_check_disable=_env_bool("STALL_CHECK_DISABLE"),
+        # Upstream spells these *_TIME_SECONDS; both are accepted.
+        stall_check_time=_env_float(
+            "STALL_CHECK_TIME_SECONDS", _env_float("STALL_CHECK_TIME", 60.0)),
+        stall_shutdown_time=_env_float(
+            "STALL_SHUTDOWN_TIME_SECONDS",
+            _env_float("STALL_SHUTDOWN_TIME", 0.0)),
+        stall_reset_time=_env_float(
+            "STALL_RESET_TIME_SECONDS", _env_float("STALL_RESET_TIME", 0.0)),
+        elastic_timeout=_env_float("ELASTIC_TIMEOUT", 600.0),
+        desync_max_retries=_env_int("DESYNC_MAX_RETRIES", 3),
+        snapshot_steps=_env_int("SNAPSHOT_STEPS", 0),
+        check_desync=_env_bool("CHECK_DESYNC"),
+        desync_check_steps=_env_int("DESYNC_CHECK_STEPS", 0),
+        guard=(_env("GUARD", "auto") or "auto").strip().lower(),
+        heartbeat_timeout=_env_float("HEARTBEAT_TIMEOUT", 0.0),
         env_rank=_env_int("RANK", -1),
         env_size=_env_int("SIZE", -1),
         env_local_rank=_env_int("LOCAL_RANK", -1),
@@ -112,3 +163,18 @@ def load_config() -> Config:
         env_cross_rank=_env_int("CROSS_RANK", -1),
         env_cross_size=_env_int("CROSS_SIZE", -1),
     )
+
+
+def refuse_unported(cfg: Config) -> None:
+    """``NotImplementedError`` for a setting that turns on the
+    silent-data-corruption plane (``core/guard.py``, ``core/desync.py``),
+    which is not ported (ROADMAP item 1.11)."""
+    for on, knob in ((cfg.check_desync, "HOROVOD_CHECK_DESYNC"),
+                     (cfg.desync_check_steps > 0,
+                      "HOROVOD_DESYNC_CHECK_STEPS"),
+                     (cfg.guard in ("1", "on", "true", "yes"),
+                      "HOROVOD_GUARD")):
+        if on:
+            raise NotImplementedError(
+                f"{knob} turns on the silent-data-corruption plane, which "
+                f"is not ported (ROADMAP item 1.11)")

@@ -7,7 +7,11 @@ whether ``init()`` created it (and ``shutdown()`` must destroy it).
 ``process_sets`` maps each registered set's name to its
 :class:`~horovod_tpu_torch.core.process_sets.ProcessSet` (the global set
 included), and ``hierarchy`` caches the node and cross groups of
-hierarchical Adasum per ``local_size``.
+hierarchical Adasum per ``local_size``.  ``generation`` counts the
+``init()`` calls of the process and survives ``reset()``: what binds the
+process group when it is built (a ``DistributedOptimizer``'s in-flight
+handles and two-level groups, a captured ``TrainLoop`` graph) records it
+and rebuilds or refuses itself after an elastic re-init.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ class GlobalState:
 
     def __init__(self) -> None:
         self.lock = threading.RLock()
+        self.generation = 0
         self.reset()
 
     def reset(self) -> None:
@@ -37,6 +42,13 @@ class GlobalState:
         self.owns_group: bool = False
         self.process_sets: Dict[str, object] = {}
         self.hierarchy: Dict[int, tuple] = {}
+        # A shutdown (elastic re-init included) stops the preemption
+        # module's metadata poll; a latched notice survives it.
+        import sys
+        preemption = sys.modules.get(
+            "horovod_tpu_torch.elastic.preemption")
+        if preemption is not None:
+            preemption.on_runtime_reset()
 
 
 _state = GlobalState()

@@ -57,6 +57,14 @@ gives up the overlap with the backward pass.  As in the JAX package,
 Adasum is applied to the gradients, not (as upstream Horovod's
 ``DistributedAdasumOptimizer`` does) to the optimizer's update.
 
+After an elastic re-init (``shutdown()`` then ``init()``) the wrap finds
+``global_state().generation`` moved on its next hook, ``synchronize()``
+or ``zero_grad()``: it drops the handles still in flight from the old
+process group (never waiting on them), rebuilds the two-level groups on
+the new world, and refuses (``ValueError``) a process set, whose group
+the re-init destroyed.  :func:`ef_resize_residuals` re-buckets the
+error-feedback residuals for a new world size.
+
 ``process_set=`` exchanges every bucket over the set's group (members
 only; ``Average`` divides by the set's size), and ``sparse_as_dense=True``
 densifies a sparse gradient (``nn.Embedding(sparse=True)``) before it is
@@ -87,6 +95,7 @@ from ..controller.fusion import (FusionSpec, exchange_chunk_bytes,
                                  hier_requested, pack_bucket, plan_buckets,
                                  plan_exchange, plan_hier_legs, unpack,
                                  unpack_bucket)
+from ..core import stall
 from ..core.process_sets import get_process_set
 from ..core.state import global_state
 from ..core.topology import hier_groups, hier_mesh_shape
@@ -482,6 +491,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._counter = [0] * len(self._trainable)
         self._ready: List[set] = [set() for _ in self.bucket_plan.buffers]
         self._handles: Dict[int, tuple] = {}
+        self._generation = global_state().generation
         # The hook holds the optimizer weakly: torch's garbage collector
         # does not follow a parameter's post-accumulate-grad hooks, so a
         # bound method there would keep the optimizer, its state and its
@@ -496,8 +506,34 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         for p in self._trainable:
             p.register_post_accumulate_grad_hook(hook)
 
+    # -- re-init ----------------------------------------------------------
+    def _check_generation(self) -> None:
+        """After an elastic re-init: drop the old group's in-flight
+        handles and partial accumulation (their collectives died with
+        it), refuse a process set (its group was destroyed), and make the
+        two-level groups on the new world (collectively: every rank
+        reaches its first hook, ``synchronize()`` or ``zero_grad()`` of
+        the new world in the same order)."""
+        gen = global_state().generation
+        if gen == self._generation:
+            return
+        self._handles.clear()
+        self._ready = [set() for _ in self.bucket_plan.buffers]
+        self._counter = [0] * len(self._trainable)
+        if self._process_set is not None and \
+                not self._process_set.is_global():
+            raise ValueError(
+                f"DistributedOptimizer(process_set={self._process_set.name!r})"
+                f" was wrapped before a re-init, which destroyed the set's "
+                f"group; wrap the optimizer again after registering the set")
+        shape = hier_mesh_shape()
+        if shape is not None and shape[0] > 1:
+            hier_groups(shape[1])
+        self._generation = gen
+
     # -- hooks ------------------------------------------------------------
     def _hook(self, p: torch.Tensor) -> None:
+        self._check_generation()
         i = self._index[p]
         b = self._bucket_of[i]
         if b in self._handles or i in self._ready[b]:
@@ -567,8 +603,17 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
         Drains EVERY handle even when one fails, then re-raises the first
         error: stopping at the first would leave later handles pending and
-        the next ``step()`` would trip over them instead.
+        the next ``step()`` would trip over them instead.  The wait runs
+        under the stall inspector, and an injected ``at=sync`` chaos
+        fault is raised here.
         """
+        self._check_generation()
+        with stall.watched("DistributedOptimizer.synchronize"):
+            from ..elastic import chaos
+            chaos.raise_if_armed()
+            self._synchronize()
+
+    def _synchronize(self) -> None:
         for b in range(len(self.bucket_plan.buffers)):
             if b not in self._handles:
                 self._launch(b)
@@ -614,6 +659,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         return super().step(closure)
 
     def zero_grad(self, *args, **kwargs):
+        self._check_generation()
         if self._handles:
             raise AssertionError(
                 "zero_grad() called with pending allreduce handles; call "
@@ -711,3 +757,84 @@ def DistributedAdasumOptimizer(optimizer: torch.optim.Optimizer,
     result."""
     kwargs["op"] = Adasum
     return DistributedOptimizer(optimizer, named_parameters, **kwargs)
+
+
+# --- elastic resize -------------------------------------------------------
+
+def ef_resize_residuals(residuals, params, old_world: int, new_world: int,
+                        *, fusion_threshold: Optional[int] = None,
+                        compression=None):
+    """Re-bucket stacked error-feedback residuals for a new world size
+    (the JAX package's ``ef_resize_residuals``, on the same numbers).
+
+    ``residuals`` holds one ``[old_world, *row]`` tensor a bucket -- every
+    rank's residual, row ``r`` rank ``r``'s (``elastic.TorchState``
+    gathers them at commit); ``params`` the leaves the buckets were
+    planned over (``None``: keep each bucket's row shape).  The bucket
+    shapes depend only on the fusion threshold, so a rank change only
+    changes the leading axis, and the dropped ranks' unsent mass is
+    carried: with the exchange averaging over the world, the carried
+    quantity is ``sum(residuals) / world``, so the kept rows are scaled
+    by ``new/old`` and each dropped row's mass is spread uniformly::
+
+        res'_i = (new/old) * res_i + sum(dropped) / old
+
+    which preserves ``sum(res') / new == sum(res) / old`` (the same
+    algebra when growing: new rows start at zero).  A bucket is zeroed,
+    and counted in ``horovod_ef_residual_zeroed_total``, only when the
+    plan itself is irreconcilable (a different bucket count or row
+    shape).  The arithmetic is the JAX function's, in numpy float32, so
+    both packages agree bitwise.
+
+    Returns ``(new_residuals, report)`` with ``report = {"carried_bytes",
+    "zeroed_buckets"}``; the new residuals are f32 CPU tensors."""
+    import logging
+
+    import numpy as np
+    logger = logging.getLogger("horovod_tpu_torch.optim")
+    old_world, new_world = int(old_world), int(new_world)
+    report = {"carried_bytes": 0, "zeroed_buckets": 0}
+    expected = None
+    if params is not None:
+        comp = parse_compression(compression) if compression is not None \
+            else _resolve_compression(None)
+        spec = ef_bucket_plan(list(params), fusion_threshold, comp)
+        expected = [ef_residual_shape(sum(s.size for s in lspecs), comp)
+                    for _dt, lspecs in spec.buffers]
+
+    def _zeroed(shape):
+        from .zero import _count_zeroed_residual
+        _count_zeroed_residual()
+        report["zeroed_buckets"] += 1
+        return torch.zeros((new_world,) + tuple(shape), dtype=torch.float32)
+
+    res_list = list(residuals)
+    if expected is not None and len(res_list) != len(expected):
+        logger.warning(
+            "ef_resize_residuals: carry has %d bucket(s) but the plan "
+            "for the new world has %d -- zeroing all residuals",
+            len(res_list), len(expected))
+        return tuple(_zeroed(s) for s in expected), report
+
+    out = []
+    for i, r in enumerate(res_list):
+        arr = (r.detach().cpu().float().numpy() if torch.is_tensor(r)
+               else np.asarray(r, dtype=np.float32))
+        shape = tuple(expected[i]) if expected is not None else (
+            arr.shape[1:] if arr.ndim >= 2 else None)
+        if arr.ndim < 2 or shape is None or arr.shape[1:] != shape:
+            logger.warning(
+                "ef_resize_residuals: bucket %d shape %s irreconcilable "
+                "with planned row shape %s -- zeroing it", i,
+                getattr(arr, "shape", None), shape)
+            out.append(_zeroed(shape if shape is not None else (0,)))
+            continue
+        rows = arr.shape[0]
+        keep = min(rows, new_world)
+        newr = np.zeros((new_world,) + shape, np.float32)
+        newr[:keep] = arr[:keep] * (new_world / rows)
+        if rows > new_world:
+            newr += arr[new_world:].sum(axis=0) / rows
+        out.append(torch.from_numpy(newr))
+        report["carried_bytes"] += int(arr.nbytes)
+    return tuple(out), report

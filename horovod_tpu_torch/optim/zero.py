@@ -33,10 +33,14 @@ the allgather in the inverse order, so only the 1/n_ici slice crosses
 nodes; shard ``j = ici * n_dcn + dcn`` belongs to the rank at those
 indices, the JAX package's order.
 
-Not here: ``zero_resize`` (the elastic re-layout, ROADMAP item 1.11), and
-``zero_sharding`` / ``shard_zero_state``, which place state on a JAX
-mesh: each rank's state lives on its own device here, so they have no
-counterpart.
+Elastic resizes (:func:`zero_resize`) work on the state of every rank at
+once, as the JAX package's arenas hold it: :func:`zero_stack` gathers each
+rank's inner optimizer state and residuals into ``[world, ...]`` host
+tensors (a :class:`StackedZeroState`), :func:`zero_resize` re-lays them
+for another world size, and :func:`zero_load` copies this rank's row back
+into a live :class:`ZeroState` in place.  Not here: ``zero_sharding`` /
+``shard_zero_state``, which place state on a JAX mesh: each rank's state
+lives on its own device here, so they have no counterpart.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ from __future__ import annotations
 import dataclasses
 import inspect
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -526,3 +530,194 @@ def zero_report(optimizer: torch.optim.Optimizer, params, world: int,
         "opt_state_bytes_per_chip_zero1": int(shard_state),
         "opt_state_bytes_per_chip_replicated": int(full_state),
     }
+
+
+# --- elastic resize -------------------------------------------------------
+
+class StackedZeroState(NamedTuple):
+    """Every rank's ZeRO-1 state at once (the JAX package's layout):
+    ``inner`` one dict an arena, each optimizer state entry a
+    ``[world, ...]`` tensor (row ``r`` rank ``r``'s shard; a 0-dim entry
+    such as Adam's ``step`` becomes ``[world]``, a host value stays as it
+    is), and ``residuals`` one ``[world, shard]`` f32 tensor an arena for
+    an error-feedback codec (the JAX ``_ZeroEFState``), else ``None``."""
+    residuals: Optional[Tuple[torch.Tensor, ...]]
+    inner: Any
+
+
+def zero_stack(zero_state: ZeroState) -> StackedZeroState:
+    """Gather every rank's shard-local state into a
+    :class:`StackedZeroState` of CPU tensors (collective: every rank
+    calls it at the same point).  Device tensors travel by allgather,
+    host tensors (Adam's ``step`` without ``capturable``) as objects."""
+    from .functions import allgather_object
+    st = _require_init()
+    n = st.size
+
+    def gather(v: torch.Tensor) -> torch.Tensor:
+        if v.device == st.device:
+            flat = _allgather(v.detach().reshape(-1).contiguous())
+            return flat.view((n,) + tuple(v.shape)).cpu()
+        return torch.stack([t.reshape(v.shape) for t in
+                            allgather_object(v.detach().cpu())])
+
+    inner = []
+    for shard in zero_state.shards:
+        entry = zero_state.inner.state.get(shard, {})
+        inner.append({k: gather(v) if torch.is_tensor(v) else v
+                      for k, v in sorted(entry.items())})
+    residuals = None
+    if zero_state.residuals is not None:
+        residuals = tuple(gather(r) for r in zero_state.residuals)
+    return StackedZeroState(residuals, inner)
+
+
+def zero_load(zero_state: ZeroState, stacked: StackedZeroState,
+              row: Optional[int] = None) -> ZeroState:
+    """Copy row ``row`` (this rank's shard index when ``None``) of
+    ``stacked`` into ``zero_state`` in place: the inner optimizer's state
+    tensors and the residuals keep their identities (a captured train
+    loop replays them), entries the live state lacks are created, and
+    entries ``stacked`` lacks are dropped."""
+    if row is None:
+        row, _ = _shard_index(Compression.none)
+    if len(stacked.inner) != len(zero_state.shards):
+        raise ValueError(
+            f"stacked ZeRO state has {len(stacked.inner)} arena(s), the "
+            f"live state {len(zero_state.shards)}")
+    with torch.no_grad():
+        for shard, entry in zip(zero_state.shards, stacked.inner):
+            live = zero_state.inner.state[shard]
+            for k in [k for k in live if k not in entry]:
+                del live[k]
+            for k, v in entry.items():
+                if not torch.is_tensor(v):
+                    live[k] = v
+                    continue
+                src = v[row]
+                cur = live.get(k)
+                if torch.is_tensor(cur) and cur.shape == src.shape and \
+                        cur.dtype == src.dtype:
+                    cur.copy_(src)
+                else:
+                    dev = cur.device if torch.is_tensor(cur) else \
+                        (shard.device if src.dim() else src.device)
+                    live[k] = src.to(dev).clone()
+        if stacked.residuals is not None and zero_state.residuals is not None:
+            for r, s in zip(zero_state.residuals, stacked.residuals):
+                r.copy_(s[row])
+    return zero_state
+
+
+def zero_resize(state, params, old_world: int, new_world: int):
+    """Re-lay ZeRO-1 state out for a new world size (the JAX package's
+    ``zero_resize``, on the same numbers).
+
+    ``state`` is a :class:`StackedZeroState`, or any tree (dicts, lists,
+    tuples) of ``[old_world, ...]`` tensors.  The flat arenas are planned
+    again for ``new_world`` over ``params`` and every sharded leaf
+    (leading ``[old_world, shard]``) is re-sliced so each new rank owns
+    the right 1/``new_world`` of the SAME flat content -- nothing is
+    derived again, the bytes move.  The residuals index flat arena
+    positions, so re-slicing carries the unsent compression mass exactly
+    (only the arena padding changes).  ``[old_world]`` leaves (Adam's
+    step count) are broadcast from row 0.
+
+    Returns ``(new_state, report)`` with ``report = {"carried_bytes",
+    "zeroed_buckets", "resharded", "replicated"}``.  Raises
+    ``ValueError`` when ``params`` is ``None`` or a sharded leaf matches
+    no arena."""
+    import logging
+    logger = logging.getLogger("horovod_tpu_torch.optim")
+    if params is None:
+        raise ValueError("zero_resize needs the params tree to re-plan "
+                         "the flat arenas")
+    from ..data.tree import tree_map
+    old_world, new_world = int(old_world), int(new_world)
+    leaves = list(params)
+    old_spec = plan_arena(leaves, old_world)
+    new_spec = plan_arena(leaves, new_world)
+    report = {"carried_bytes": 0, "zeroed_buckets": 0, "resharded": 0,
+              "replicated": 0}
+
+    def relayout(arr: torch.Tensor, ob: _ArenaBuffer, nb: _ArenaBuffer
+                 ) -> torch.Tensor:
+        flat = arr.reshape(-1)[:ob.size]
+        pad = nb.padded - ob.size
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        return flat.reshape(new_world, nb.shard).clone()
+
+    def match_buffer(arr: torch.Tensor) -> Optional[int]:
+        cands = [i for i, b in enumerate(old_spec.buffers)
+                 if b.shard == arr.shape[1]]
+        if len(cands) > 1:
+            same_dt = [i for i in cands
+                       if old_spec.buffers[i].dtype == arr.dtype]
+            cands = same_dt or cands
+        return cands[0] if len(cands) == 1 else None
+
+    residuals = None
+    inner = state
+    if isinstance(state, StackedZeroState):
+        inner = state.inner
+        if state.residuals is not None:
+            res_out = []
+            for r, ob, nb in zip(state.residuals, old_spec.buffers,
+                                 new_spec.buffers):
+                arr = torch.as_tensor(r).detach().cpu().float()
+                if arr.dim() == 2 and tuple(arr.shape) == (old_world,
+                                                           ob.shard):
+                    res_out.append(relayout(arr, ob, nb))
+                    report["carried_bytes"] += int(ob.size * 4)
+                else:
+                    logger.warning(
+                        "zero_resize: residual carry of shape %s is "
+                        "irreconcilable with arena %s/%s -- zeroing it",
+                        tuple(arr.shape), ob, nb)
+                    _count_zeroed_residual()
+                    res_out.append(torch.zeros(new_world, nb.shard))
+                    report["zeroed_buckets"] += 1
+            for nb in new_spec.buffers[len(res_out):]:
+                _count_zeroed_residual()
+                res_out.append(torch.zeros(new_world, nb.shard))
+                report["zeroed_buckets"] += 1
+            residuals = tuple(res_out)
+
+    def fix_leaf(x):
+        if not torch.is_tensor(x):
+            return x
+        arr = x.detach().cpu()
+        if arr.dim() >= 1 and arr.shape[0] == old_world:
+            if arr.dim() >= 2:
+                i = match_buffer(arr)
+                if i is not None:
+                    report["resharded"] += 1
+                    report["carried_bytes"] += int(
+                        old_spec.buffers[i].size * arr.element_size())
+                    return relayout(arr, old_spec.buffers[i],
+                                    new_spec.buffers[i])
+                raise ValueError(
+                    f"zero_resize: sharded leaf of shape "
+                    f"{tuple(arr.shape)} dtype {arr.dtype} matches no "
+                    f"arena of the old plan")
+            if not bool((arr == arr[0]).all()):
+                logger.warning(
+                    "zero_resize: per-shard scalar rows disagree (%s); "
+                    "adopting shard 0's value", arr)
+            report["replicated"] += 1
+            return arr[:1].repeat_interleave(new_world, dim=0)
+        return x
+
+    new_inner = tree_map(fix_leaf, inner)
+    if isinstance(state, StackedZeroState):
+        return StackedZeroState(residuals, new_inner), report
+    return new_inner, report
+
+
+def _count_zeroed_residual() -> None:
+    from ..timeline import metrics as _metrics
+    _metrics.registry().counter(
+        "horovod_ef_residual_zeroed_total",
+        "EF residual buckets dropped (zeroed) during an elastic "
+        "resize because shapes were irreconcilable").inc()

@@ -625,7 +625,11 @@ class TrainLoop:
       replay.  The returned losses are the graph's static output: read
       them before the next call.  A call that finds a param group's
       host value changed since the capture (an lr schedule) captures
-      the window again, since the graph holds the captured values.
+      the window again, since the graph holds the captured values;
+    * a call after an elastic re-init (``global_state().generation``
+      moved) never replays the old graph, which holds the old
+      communicator: it drops it and starts over -- an eager window, then
+      a capture on the new process group.
 
     What the capture records on the host -- the kernels' launch
     counters, the metrics registry's counters (exchange, collective,
@@ -652,6 +656,7 @@ class TrainLoop:
         self._stream = None
         self._deltas = None
         self._hyper = None
+        self._generation = global_state().generation
 
     def _window(self, batches) -> torch.Tensor:
         return torch.stack([self.step(tree_map(lambda x, i=i: x[i],
@@ -669,6 +674,10 @@ class TrainLoop:
                     f"{tuple(x.shape)}")
         if not leaves or leaves[0].device.type != "cuda":
             return self._window(batches)
+        gen = global_state().generation
+        if gen != self._generation:
+            self._graph = self._static_out = self._static_in = None
+            self._calls, self._generation = 0, gen
         caller = torch.cuda.current_stream()
         if self._stream is None:
             self._stream = torch.cuda.Stream()

@@ -1370,3 +1370,190 @@ def test_cuda_async_psum_scatter_bucket_at_world_one(world1_cuda):
     assert shard.shape == (1024,)
     assert torch.equal(shard[:1000], x) and not shard[1000:].any()
     assert torch.equal(ops.psum_scatter_bucket(x, quantum=256), shard)
+
+
+# ---------------------------------------------------------------------------
+# Elastic (ROADMAP item 1.11): re-init on NCCL, in-place restore, rollback
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_reinit_in_one_process(world1_cuda):
+    """``shutdown()`` then ``init()`` builds a new NCCL communicator in the
+    same process: collectives work on it, the generation moves, and the
+    exchange-plan cache starts empty."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.controller import fusion
+    from horovod_tpu_torch.core.state import global_state
+    hvd = world1_cuda
+    x = torch.arange(8.0, device="cuda")
+    assert torch.equal(hvd.allreduce(x, op=hvd.Sum), x)
+    fusion.plan_buckets([x])
+    gen, old = global_state().generation, dist.group.WORLD
+    hvd.shutdown()
+    assert not dist.is_initialized()
+    hvd.init()
+    assert global_state().generation == gen + 1
+    assert dist.group.WORLD is not old
+    assert dist.get_backend() == "nccl"
+    assert fusion.plan_cache_stats()["size"] == 0
+    assert torch.equal(hvd.allreduce(x, op=hvd.Sum), x)
+    hvd.barrier()
+
+
+def _elastic_run(hvd, model, opt, data, spec, loop_k=None):
+    """Twelve steps under ``@hvd.elastic.run`` with a TorchState commit
+    every 2 steps (and ``spec`` chaos installed after the constructor);
+    the step, or the loop of ``loop_k``, rebuilt at every entry.  Returns
+    ``(losses by step, entries)``."""
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.elastic import chaos
+    from horovod_tpu_torch.training import (make_flax_train_loop,
+                                            make_flax_train_step,
+                                            stack_steps)
+    chaos.reset()
+    state = elastic.TorchState(model=model, optimizer=opt, batch=0)
+    if spec:
+        chaos.install(spec, rank=0, size=1)
+    losses, entries = {}, []
+
+    @elastic.run
+    def train(state):
+        entries.append(state.batch)
+        if loop_k:
+            loop = make_flax_train_loop(model, opt, steps_per_execution=loop_k)
+        else:
+            step = make_flax_train_step(model, opt)
+        while state.batch < len(data):
+            b = state.batch
+            if loop_k:
+                out = loop(stack_steps(data[b:b + loop_k])).clone()
+                for i in range(loop_k):
+                    losses[b + 1 + i] = out[i]
+                state.batch += loop_k
+            else:
+                losses[b + 1] = step(data[b])
+                state.batch += 1
+            if state.batch % 2 == 0:
+                state.commit()
+        return state.batch
+
+    train(state)
+    chaos.reset()
+    return losses, entries
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop_k", [None, 2])
+def test_cuda_elastic_rollback_is_bitwise(world1_cuda, deterministic,
+                                          monkeypatch, loop_k):
+    """A tiny ResNet on the card through ``@hvd.elastic.run``: a comm
+    fault at the fourth commit rolls back a commit, ``shutdown()`` /
+    ``init()`` rebuild NCCL, the step (or the CUDA-graph loop, which must
+    capture again and never replay its old graph) is rebuilt, and the
+    run ends bitwise equal to an uninterrupted one: parameters, BN
+    statistics, momentum, every loss.  ``TorchState.restore`` keeps the
+    tensors the optimizer holds."""
+    monkeypatch.setenv("HOROVOD_ELASTIC_NO_SIGTERM", "1")
+    hvd = world1_cuda
+    data = _loop_batches(12, seed=9)
+    runs = []
+    for spec in (None, "seed=7;comm@step=4,rank=0"):
+        model = _tiny_resnet_cuda(seed=3)
+        named = list(model.named_parameters())
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD([p for _, p in named], lr=0.1, momentum=0.9),
+            named_parameters=named)
+        losses, entries = _elastic_run(hvd, model, opt, data, spec, loop_k)
+        torch.cuda.synchronize()
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        state.update({f"m{i}": s["momentum_buffer"].clone()
+                      for i, s in enumerate(opt.state.values())})
+        runs.append((losses, state, entries))
+    (l1, s1, e1), (l2, s2, e2) = runs
+    assert e1 == [0] and len(e2) == 2 and e2[1] < 12
+    assert sorted(l1) == sorted(l2) == list(range(1, 13))
+    for k in l1:
+        assert torch.equal(l1[k], l2[k]), k
+    assert s1.keys() == s2.keys()
+    for k in s1:
+        assert torch.equal(s1[k], s2[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_torch_state_restore_keeps_tensor_objects(world1_cuda):
+    from horovod_tpu_torch import elastic
+    hvd = world1_cuda
+    model = _tiny_resnet_cuda(seed=4)
+    named = list(model.named_parameters())
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD([p for _, p in named], lr=0.1, momentum=0.9),
+        named_parameters=named)
+    from horovod_tpu_torch.training import make_flax_train_step
+    step = make_flax_train_step(model, opt)
+    data = _loop_batches(3, seed=2)
+    step(data[0])
+    state = elastic.TorchState(model=model, optimizer=opt, batch=1)
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    ptrs = [t.data_ptr() for t in list(model.parameters())
+            + list(model.buffers())]
+    bufs = [s["momentum_buffer"] for s in opt.state.values()]
+    mom = [b.clone() for b in bufs]
+    step(data[1])
+    step(data[2])
+    state.restore()
+    assert [t.data_ptr() for t in list(model.parameters())
+            + list(model.buffers())] == ptrs
+    assert all(a is b for a, b in zip(
+        [s["momentum_buffer"] for s in opt.state.values()], bufs))
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, saved[k]), k
+    for b, m in zip(bufs, mom):
+        assert torch.equal(b, m) and b.device.type == "cuda"
+    assert all(v.device.type == "cpu" for v in state._saved["model"].values())
+
+
+@pytest.mark.cuda
+def test_cuda_graph_loop_captures_again_after_a_reinit(world1_cuda,
+                                                       deterministic):
+    """The same ``TrainLoop`` object across ``shutdown()`` / ``init()``:
+    its next call drops the graph that holds the old communicator (eager
+    window, then a new capture) and stays bitwise equal to eager steps."""
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.training import (make_flax_train_loop,
+                                            make_flax_train_step,
+                                            stack_steps)
+    hvd = world1_cuda
+    data = _loop_batches(8, seed=6)
+    out = []
+    for use_loop in (False, True):
+        model = _tiny_resnet_cuda(seed=5)
+        named = list(model.named_parameters())
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD([p for _, p in named], lr=0.1, momentum=0.9),
+            named_parameters=named)
+        if use_loop:
+            loop = make_flax_train_loop(model, opt, steps_per_execution=2)
+            losses = [loop(stack_steps(data[0:2])).clone(),
+                      loop(stack_steps(data[2:4])).clone()]
+            old = loop._graph
+            assert old is not None
+            hvd.shutdown()
+            hvd.init()
+            losses.append(loop(stack_steps(data[4:6])).clone())
+            assert loop._graph is None and loop._calls == 1
+            assert loop._generation == global_state().generation
+            losses.append(loop(stack_steps(data[6:8])).clone())
+            assert loop._graph is not None and loop._graph is not old
+            losses = torch.cat(losses)
+        else:
+            step = make_flax_train_step(model, opt)
+            losses = torch.stack([step(b) for b in data])
+        torch.cuda.synchronize()
+        out.append((losses, {k: v.clone()
+                             for k, v in model.state_dict().items()}))
+    (l1, s1), (l2, s2) = out
+    assert torch.equal(l1, l2)
+    for k in s1:
+        assert torch.equal(s1[k], s2[k]), k

@@ -1,8 +1,8 @@
 """PyTorch/CUDA port: the ``horovod.torch`` call surface, against the JAX
 package's shim ``horovod_tpu.torch_api``.
 
-* The shim's public names are a subset of the port's top level, apart
-  from those later ROADMAP items own (``elastic``, item 1.11); ``join``,
+* The shim's public names are a subset of the port's top level, and the
+  names of its ``elastic`` module a subset of ``hvd.elastic``'s; ``join``,
   ``start_timeline`` and ``stop_timeline`` raise ``NotImplementedError``
   naming their items (``steps_per_execution`` returns the resolved value:
   ``tests/test_torch_train_loop.py``).
@@ -49,7 +49,7 @@ _LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "HOROVOD_RANK",
                  "HOROVOD_SIZE", "HVD_TPU_RANK", "HVD_TPU_SIZE")
 OPT_ATOL = 1e-6
 BN_REL = 1e-5
-LATER_ITEMS = {"elastic"}                      # ROADMAP item 1.11
+LATER_ITEMS = set()                 # names later ROADMAP items own
 RAISING = {"join": "1.8", "start_timeline": "1.11", "stop_timeline": "1.11"}
 VOCAB, DIM, CLASSES, STEPS = 12, 4, 3, 3
 SHIM_OPS = ("Sum", "Average")
@@ -73,6 +73,18 @@ def test_shim_names_are_a_subset_of_the_port():
     import horovod_tpu.torch_api as shim
     missing = _public_api(shim) - set(dir(thvd)) - LATER_ITEMS
     assert not missing, sorted(missing)
+
+
+def test_shim_elastic_names_are_a_subset_of_the_port():
+    import horovod_tpu.torch_api as shim
+    assert inspect.ismodule(thvd.elastic)
+    missing = _public_api(shim.elastic) - set(dir(thvd.elastic))
+    assert not missing, sorted(missing)
+    assert {"run", "State", "ObjectState", "TorchState", "ElasticSampler",
+            "HostDiscoveryScript", "chaos", "ChaosCommError",
+            "ChaosInjector"} <= set(dir(thvd.elastic))
+    assert thvd.HostsUpdatedInterrupt is \
+        thvd.core.exceptions.HostsUpdatedInterrupt
 
 
 @pytest.mark.parametrize("name", sorted(RAISING))
