@@ -191,6 +191,29 @@ Phases, each printing its own line; any failure exits non-zero:
    ``horovod_elastic_steps_to_recover``, the restore, re-init and first
    step after it (ms), commit ms (median), step ms beside phase 8's,
    peak GB and the BN launches.
+23. sdc_resnet -- the silent-data-corruption and observability planes on
+   phase 8's cell (deterministic cuDNN) under ``HOROVOD_GUARD=1``,
+   ``HOROVOD_GUARD_STREAK=3``, ``HOROVOD_SNAPSHOT_STEPS=2``,
+   ``HOROVOD_CHECK_DESYNC=1``, ``HOROVOD_DESYNC_CHECK_STEPS=2``, a
+   ``HOROVOD_TIMELINE`` file and ``HOROVOD_METRICS_PORT=0``: (a) 12
+   guarded ``make_flax_train_step`` steps bitwise 12 unguarded ones
+   (parameters, momentum, BN statistics, losses), no skip, the ms a step
+   of each; (b) under ``@hvd.elastic.run`` (a commit every 2 steps) a
+   ``nan@`` chaos fault wedges the input from step 7: steps 7, 8 and 9
+   are skipped with the state bitwise that before each, the third skip
+   raises ``SustainedAnomalyError``, the ledger rolls back to step 6 and
+   the replay ends bitwise the uninterrupted run; (c) the same through
+   ``make_flax_train_loop(steps_per_execution=4)``: the guard inside the
+   CUDA graph, the windows' ``[4, 3]`` rows to the policy, six skips, a
+   rollback to step 4, the graph replayed after it, bitwise (b); (d) the
+   timeline file as JSON with a dispatch event a step call and the
+   ``host_dispatch_gap`` track, the merge CLI on it, ``/metrics`` from
+   the ``MetricsServer`` holding the guard, tripwire, step and straggler
+   families, and the ms of a commit with and without the desync check
+   and tripwire, of one ``check_desync`` and of one tripwire check (at
+   world 1 the tripwire sees one value and can name no rank).  Logged:
+   ``horovod_guard_skipped_total``, ``horovod_guard_rollbacks_total``,
+   the steps to recover and the recovery ms, the BN launches.
 
 Phase 17 also holds ``chunked_allreduce`` (equal to ``allreduce`` at
 world 1) and ``fp8_allreduce`` (bitwise its round trip) on its 64 MiB
@@ -3250,9 +3273,10 @@ def _elastic_train(hvd, model, opt, data, spec, loop=None):
             "restore_end": timers.restore_end}
 
 
-def elastic_resnet(dev, card: str, phase8_step_ms: float) -> dict:
+def elastic_resnet(dev, card: str, phase8_step_ms: float) -> tuple:
     """Phase 22 (see the module docstring).  Returns the BN launches of
-    (b)'s runs: the eager and loop runs with their replayed steps."""
+    (b)'s runs (the eager and loop runs with their replayed steps) and
+    the eager run's median commit ms."""
     import tempfile
 
     import horovod_tpu_torch as hvd
@@ -3369,6 +3393,8 @@ def elastic_resnet(dev, card: str, phase8_step_ms: float) -> dict:
                 entry["loop_captured_again"] = r["loop_captured"] and \
                     r["loop_generation"] == entries[-1][2]
             log(entry)
+            if name == "eager_chaos":
+                commit_median = entry["commit_ms_median"]
             if not recovered:
                 fails.append(f"{name}: the fault never fired ({entries})")
             if diff or not losses_equal:
@@ -3395,6 +3421,410 @@ def elastic_resnet(dev, card: str, phase8_step_ms: float) -> dict:
     if fails:
         raise AssertionError("elastic_resnet: " + "; ".join(fails))
     hvd.shutdown()
+    return bn_total, commit_median
+
+
+SDC_STEPS = 12                # phase 23: steps of each run
+SDC_POISON_FROM = 7           # the nan wedge poisons steps >= 7
+SDC_CHAOS = "seed=7;nan@step=4,rank=0"        # fires at the commit after 6
+SDC_LOOP_CHAOS = "seed=7;nan@step=2,rank=0"   # fires after window 1
+SDC_ENV = {"HOROVOD_GUARD": "1", "HOROVOD_GUARD_STREAK": "3",
+           "HOROVOD_SNAPSHOT_STEPS": "2", "HOROVOD_CHECK_DESYNC": "1",
+           "HOROVOD_DESYNC_CHECK_STEPS": "2", "HOROVOD_METRICS_PORT": "0"}
+SDC_FAMILIES = ("horovod_guard_steps_total", "horovod_guard_skipped_total",
+                "horovod_guard_rollbacks_total",
+                "horovod_guard_tripwire_checks_total",
+                "horovod_step_total", "horovod_step_time_seconds",
+                "horovod_straggler_rank",
+                "horovod_straggler_rank_wall_seconds")
+
+
+def _sdc_train(hvd, model, opt, data, spec, loop=None, watch=None):
+    """Phase 23 (b) and (c): ``len(data)`` guarded steps of
+    ``make_flax_train_step`` (or the windows of ``loop``) under
+    ``@hvd.elastic.run`` with a ``TorchState`` committing every 2 steps
+    (every window).  Once the ``spec`` chaos fault's ``nan`` latch is
+    consumed, every batch of step ``SDC_POISON_FROM`` on is NaN-poisoned
+    until the run loop rolls back (the replay reads healed data).  With
+    ``watch``, each poisoned eager step's state is compared with the
+    state before it (``watch`` collects the differing names)."""
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.elastic import chaos
+    from horovod_tpu_torch.training import make_flax_train_step, stack_steps
+
+    chaos.reset()
+    state = elastic.TorchState(model=model, optimizer=opt, batch=0)
+    timers = _TimedState(state)
+    chaos.install(spec, rank=0, size=1)
+    losses, entries, step_ms, wedged = {}, [], [], [False]
+    tried, graphs = [0], []
+
+    def batch_of(b):
+        if wedged[0] and b + 1 >= SDC_POISON_FROM:
+            return chaos.poison_batch(data[b])
+        return data[b]
+
+    @elastic.run
+    def train(state):
+        entries.append((state.batch, time.perf_counter(), len(step_ms)))
+        wedged[0] = False
+        step = None if loop is not None else make_flax_train_step(model, opt)
+        while state.batch < len(data):
+            b = state.batch
+            if chaos.consume_nan_poison() is not None:
+                wedged[0] = True
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if loop is not None:
+                tried[0] += LOOP_K
+                try:
+                    out = loop(stack_steps([batch_of(i) for i in
+                                            range(b, b + LOOP_K)])).clone()
+                finally:
+                    graphs.append(id(loop._graph))
+                n = LOOP_K
+            else:
+                use = batch_of(b)
+                before = _snapshot(model, opt) if watch is not None and \
+                    use is not data[b] else None
+                tried[0] += 1
+                try:
+                    out = step(use).reshape(1).clone()
+                finally:
+                    if before is not None:
+                        watch.append((b + 1, _bitwise(
+                            before, _snapshot(model, opt))))
+                n = 1
+            torch.cuda.synchronize()
+            step_ms.append((b, n, 1e3 * (time.perf_counter() - t)))
+            for i in range(n):
+                losses[b + 1 + i] = out[i]
+            state.batch += n
+            if loop is not None or state.batch % ELASTIC_COMMIT_EVERY == 0:
+                state.commit()
+        return state.batch
+
+    done = train(state)
+    chaos.reset()
+    return {"done": done, "losses": losses, "entries": entries,
+            "step_ms": step_ms, "commit_ms": timers.commit_ms,
+            "restore_ms": timers.restore_ms,
+            "restore_end": timers.restore_end, "tried": tried[0],
+            "graphs": graphs}
+
+
+def _commit_costs(hvd, model, opt, reps: int = 3) -> dict:
+    """Phase 23 (d): the median ms of a commit with the desync check and
+    the tripwire on and with both off, of one ``check_desync`` and of
+    one tripwire check, on ResNet-50's state."""
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.core import desync
+    from horovod_tpu_torch.core.state import global_state
+
+    st = global_state()
+    on = st.config
+    state = elastic.TorchState(model=model, optimizer=opt, batch=0)
+    timers = _TimedState(state)
+    out = {}
+    try:
+        # Checked: the CRC desync check and the tripwire at every commit.
+        for name, cfg in (
+                ("commit_checked", dataclasses.replace(
+                    on, check_desync=True, desync_check_steps=1)),
+                ("commit_unchecked", dataclasses.replace(
+                    on, check_desync=False, desync_check_steps=0))):
+            st.config = cfg
+            timers.commit_ms.clear()
+            for _ in range(reps):
+                state.commit()
+            out[name] = sorted(timers.commit_ms)[reps // 2]
+    finally:
+        st.config = on
+    tree = desync.module_tree(model)
+    for name, fn in (("check_desync", lambda: desync.check_desync(tree)),
+                     ("tripwire", lambda: desync.tripwire_check(tree))):
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+        out[name + "_ms"] = sorted(ms)[reps // 2]
+        out[name + "_found"] = res
+    out["tripwire_value"] = desync.local_checksum(tree)
+    return out
+
+
+def sdc_resnet(dev, card: str, phase8_step_ms: float,
+               phase22_commit_ms: float) -> dict:
+    """Phase 23 (see the module docstring).  Returns the BN launches of
+    its runs, replayed and skipped steps included."""
+    import tempfile
+    import urllib.request
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core import guard
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.timeline import DispatchGapMonitor
+    from horovod_tpu_torch.timeline import __main__ as merge_cli
+    from horovod_tpu_torch.timeline import metrics
+    from horovod_tpu_torch.training import (make_flax_train_loop,
+                                            make_flax_train_step)
+
+    fails = []
+    bn_total = {"bn_bwd_reduce": 0, "bn_bwd_dx": 0}
+    tmp = tempfile.mkdtemp(prefix="hvd_sdc_smoke_")
+    tl_path = os.path.join(tmp, "timeline.json")
+    saved_env = {k: os.environ.get(k) for k in
+                 list(SDC_ENV) + ["HOROVOD_TIMELINE"]}
+    os.environ.update(SDC_ENV, HOROVOD_TIMELINE=tl_path)
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    _reset_counters()
+    hvd.init()
+    st = global_state()
+    try:
+        model, _ = resnet50(dev, seed=0)
+        named = list(model.named_parameters())
+        init_state = {k: v.clone() for k, v in model.state_dict().items()}
+        gen = torch.Generator(device=dev).manual_seed(0)
+        pool = [images(gen, dev, 256, 1000) for _ in range(2)]
+        data = [pool[i % 2] for i in range(SDC_STEPS)]
+
+        def fresh():
+            model.load_state_dict(init_state)
+            gc.collect()
+            return hvd.DistributedOptimizer(
+                torch.optim.SGD([p for _, p in named], lr=0.1, momentum=0.9),
+                named_parameters=named, compression=hvd.Compression.none)
+
+        def launches_into(total):
+            got = registry.launch_counts()
+            for f in total:
+                total[f] += got[f]
+            registry.reset_launch_counts()
+            return {f: got[f] for f in total}
+
+        # (a) The clean guarded run against the unguarded one.
+        runs = {}
+        registry.reset_launch_counts()
+        for name, mode in (("unguarded", "0"), ("guarded", "1")):
+            opt = fresh()
+            cfg = st.config
+            st.config = dataclasses.replace(cfg, guard=mode)
+            step = make_flax_train_step(model, opt)
+            st.config = cfg
+            guard.reset()
+            gap = DispatchGapMonitor(timeline=st.timeline) \
+                if mode == "1" else None
+            losses, ms = [], []
+            for b in data:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if gap is not None:
+                    gap.begin_window()
+                    with gap.dispatch():
+                        loss = step(b)
+                    gap.end_window()
+                else:
+                    loss = step(b)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t))
+                losses.append(loss.clone())
+            pol = guard.policy()
+            runs[name] = {"state": _snapshot(model, opt),
+                          "losses": torch.stack(losses), "ms": ms,
+                          "guard": (pol.steps, pol.skipped),
+                          "launches": launches_into(bn_total),
+                          "guarded_step": type(step._fn).__name__,
+                          "gap": gap.gap_fraction if gap else None}
+            del opt, step
+        ref, grd = runs["unguarded"], runs["guarded"]
+        diff = _bitwise(ref["state"], grd["state"])
+        med = {k: sorted(r["ms"][1:])[len(r["ms"][1:]) // 2]
+               for k, r in runs.items()}
+        entry_a = {
+            "phase": "sdc_resnet", "part": "a_clean", "card": card,
+            "batch": [256, 224, 224, 3], "steps": SDC_STEPS,
+            "step_ms_guarded": med["guarded"],
+            "step_ms_unguarded": med["unguarded"],
+            "guard_overhead_pct": 100.0 * (med["guarded"] / med["unguarded"]
+                                           - 1.0),
+            "phase8_step_ms": phase8_step_ms,
+            "guard_steps_skipped": grd["guard"],
+            "guarded_step": grd["guarded_step"],
+            "dispatch_gap_fraction": grd["gap"],
+            "bitwise_vs_unguarded": not diff and torch.equal(
+                ref["losses"], grd["losses"]),
+            "differing": diff[:8],
+            "bn_launches": grd["launches"]}
+        log(entry_a)
+        if not entry_a["bitwise_vs_unguarded"]:
+            fails.append(f"(a) guarded run not bitwise the unguarded: "
+                         f"{diff[:8]}")
+        if grd["guard"] != (SDC_STEPS, 0) or \
+                grd["guarded_step"] != "_GuardedStep":
+            fails.append(f"(a) guard steps/skips {grd['guard']}, step "
+                         f"{grd['guarded_step']}")
+        clean = grd["state"]
+        clean_losses = grd["losses"]
+        del runs, ref, grd
+
+        # (b) Poisoned input, eager, and (c) through the loop.
+        out = {}
+        for name, spec, use_loop in (("b_eager", SDC_CHAOS, False),
+                                     ("c_loop", SDC_LOOP_CHAOS, True)):
+            opt = fresh()
+            guard.reset()
+            loop = make_flax_train_loop(model, opt,
+                                        steps_per_execution=LOOP_K) \
+                if use_loop else None
+            before = metrics.registry().snapshot()
+            watch = [] if not use_loop else None
+            torch.cuda.reset_peak_memory_stats()
+            r = _sdc_train(hvd, model, opt, data, spec, loop, watch)
+            r["launches"] = launches_into(bn_total)
+            r["state"] = _snapshot(model, opt)
+            r["peak"] = torch.cuda.max_memory_allocated()
+            snap = metrics.registry().snapshot()
+
+            def delta(fam):
+                return snap.get(fam, {}).get("value", 0.0) - \
+                    before.get(fam, {}).get("value", 0.0)
+
+            entries = r["entries"]
+            recovered = len(entries) == 2
+            first_after = r["step_ms"][entries[1][2]][2] if recovered \
+                else None
+            rb_ms = r["restore_ms"][0] if r["restore_ms"] else None
+            diff = _bitwise(clean, r["state"])
+            losses_equal = sorted(r["losses"]) == list(
+                range(1, SDC_STEPS + 1)) and all(
+                torch.equal(clean_losses[k - 1], r["losses"][k])
+                for k in range(1, SDC_STEPS + 1))
+            expected = RESNET50_BN_SITES * r["tried"]
+            entry = {
+                "phase": "sdc_resnet", "part": name, "card": card,
+                "chaos": spec, "poison_from_step": SDC_POISON_FROM,
+                "recovered": recovered,
+                "rolled_back_to_step": entries[1][0] if recovered else None,
+                "horovod_guard_skipped_total": delta(
+                    "horovod_guard_skipped_total"),
+                "horovod_guard_rollbacks_total": delta(
+                    "horovod_guard_rollbacks_total"),
+                "horovod_guard_tripwire_checks_total": delta(
+                    "horovod_guard_tripwire_checks_total"),
+                "steps_to_recover": metrics.registry().gauge(
+                    "horovod_elastic_steps_to_recover").value,
+                "rollback_restore_ms": rb_ms,
+                "first_step_after_ms": first_after,
+                "recovery_ms": rb_ms + first_after
+                if rb_ms is not None and first_after is not None else None,
+                "commit_ms_median": sorted(r["commit_ms"])[
+                    len(r["commit_ms"]) // 2],
+                "phase22_commit_ms": phase22_commit_ms,
+                "step_ms_each": r["step_ms"], "peak_mem_bytes": r["peak"],
+                "bn_launches": r["launches"],
+                "bitwise_vs_uninterrupted": not diff and losses_equal,
+                "differing": diff[:8]}
+            if watch is not None:
+                entry["poisoned_steps_kept_state"] = [
+                    (s, not d) for s, d in watch]
+            else:
+                # One capture: the rollback restores in place, so the
+                # graph the loop holds stays valid and is replayed.
+                entry["graph_ids_by_window"] = r["graphs"]
+                entry["captures"] = len(set(r["graphs"][1:]))
+            log(entry)
+            if watch is not None and ([s for s, _ in watch] != [7, 8, 9]
+                                      or any(d for _, d in watch)):
+                fails.append(f"{name}: poisoned steps {watch}")
+            want_back = 4 if use_loop else 6
+            if not recovered or entry["rolled_back_to_step"] != want_back:
+                fails.append(f"{name}: rollback {entries}, expected the "
+                             f"ledger entry of step {want_back}")
+            if diff or not losses_equal:
+                fails.append(f"{name}: not bitwise the uninterrupted run: "
+                             f"{diff[:8]}, losses equal {losses_equal}")
+            if entry["horovod_guard_skipped_total"] != \
+                    (3 if watch is not None else 6) or \
+                    entry["horovod_guard_rollbacks_total"] != 1:
+                fails.append(f"{name}: skipped "
+                             f"{entry['horovod_guard_skipped_total']}, "
+                             f"rollbacks "
+                             f"{entry['horovod_guard_rollbacks_total']}")
+            if r["launches"] != {f: expected for f in bn_total}:
+                fails.append(f"{name}: BN launches {r['launches']} != "
+                             f"{expected} each")
+            out[name] = r
+            del opt, loop
+        if not torch.equal(torch.stack([out["b_eager"]["losses"][k]
+                                        for k in range(1, 13)]),
+                           torch.stack([out["c_loop"]["losses"][k]
+                                        for k in range(1, 13)])):
+            fails.append("(c) losses not bitwise (b)'s")
+
+        # (d) The observability plane.
+        costs = _commit_costs(hvd, model, fresh())
+        url = f"http://127.0.0.1:{st.metrics_server.port}/metrics"
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            text = resp.read().decode()
+        missing = [f for f in SDC_FAMILIES if f"# TYPE {f} " not in text]
+        launches_into(bn_total)
+        del model, named, init_state, pool, data, out, clean
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = cudnn
+        hvd.shutdown()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    with open(tl_path) as f:
+        events = json.load(f)
+    dispatch = [e for e in events if e.get("name") == "dispatch"
+                and e.get("ph") == "B"]
+    gap_track = [e for e in events if e.get("ph") == "C"
+                 and e.get("name") == "host_dispatch_gap"]
+    cli = subprocess.run([sys.executable, "-m", "horovod_tpu_torch.timeline",
+                          "--merge", tmp], capture_output=True, text=True,
+                         timeout=120, cwd=os.path.dirname(
+                             os.path.abspath(__file__)))
+    rep = merge_cli.merge(tmp, os.path.join(tmp, "merged_check.json"))
+    entry_d = {
+        "phase": "sdc_resnet", "part": "d_observability", "card": card,
+        "timeline_events": len(events), "dispatch_events": len(dispatch),
+        "host_dispatch_gap_samples": len(gap_track),
+        "merge_cli_exit": cli.returncode,
+        "merge_cli_head": cli.stdout[:400],
+        "merged_steps": rep["per_rank"].get(0, {}).get("steps"),
+        "metrics_families_missing": missing,
+        "metrics_bytes": len(text), **costs,
+        "commit_extra_ms": costs["commit_checked"]
+        - costs["commit_unchecked"],
+        "phase22_commit_ms": phase22_commit_ms,
+        "note": "world 1: the tripwire sees one value and can name no rank"}
+    log(entry_d)
+    # Every step call of the eager runs is one dispatch event: 24 in (a),
+    # each of (b)'s calls, and one a window of (c).
+    if len(dispatch) < 2 * SDC_STEPS or len(gap_track) != SDC_STEPS:
+        fails.append(f"(d) timeline: {len(dispatch)} dispatch events, "
+                     f"{len(gap_track)} gap samples")
+    if cli.returncode != 0 or "merged 1 rank trace(s)" not in cli.stdout \
+            or not entry_d["merged_steps"]:
+        fails.append(f"(d) merge CLI: {cli.returncode} {cli.stdout[-400:]}"
+                     f"{cli.stderr[-400:]}")
+    if missing:
+        fails.append(f"(d) /metrics lacks {missing}")
+    if costs["tripwire_found"] != [] or costs["check_desync_found"] != []:
+        fails.append(f"(d) world-1 checks found {costs}")
+    if fails:
+        raise AssertionError("sdc_resnet: " + "; ".join(fails))
     return bn_total
 
 
@@ -3466,7 +3896,9 @@ def main() -> int:
     free_device()
     loop = train_resnet_loop(dev, card)
     free_device()
-    elastic_bn = elastic_resnet(dev, card, resnet["step_ms"])
+    elastic_bn, commit_ms = elastic_resnet(dev, card, resnet["step_ms"])
+    free_device()
+    sdc_bn = sdc_resnet(dev, card, resnet["step_ms"], commit_ms)
     free_device()
     # The attention and BN kernels run on several paths: their launches
     # are the sums.
@@ -3478,10 +3910,12 @@ def main() -> int:
                           + torch_rn50["bn_bwd_reduce"]
                           + exchange["bn_bwd_reduce"]
                           + loop["bn_bwd_reduce"]
-                          + elastic_bn["bn_bwd_reduce"])
+                          + elastic_bn["bn_bwd_reduce"]
+                          + sdc_bn["bn_bwd_reduce"])
     bn_dx["launches"] = (resnet["bn_bwd_dx"] + inception["bn_bwd_dx"]
                          + torch_rn50["bn_bwd_dx"] + exchange["bn_bwd_dx"]
-                         + loop["bn_bwd_dx"] + elastic_bn["bn_bwd_dx"])
+                         + loop["bn_bwd_dx"] + elastic_bn["bn_bwd_dx"]
+                         + sdc_bn["bn_bwd_dx"])
     for e in fused:
         e["launches"] = powersgd[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

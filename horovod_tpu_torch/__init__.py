@@ -35,8 +35,7 @@ ported so far:
   integer handles (``*_async`` -> :func:`synchronize` / :func:`poll`),
   with the ``pytorch_mnist`` and torch-idiom ResNet-50 examples
   (``python -m horovod_tpu_torch.examples.pytorch_mnist``).  ``join``
-  (ROADMAP item 1.8) and the timeline (item 1.11) raise
-  ``NotImplementedError``;
+  (ROADMAP item 1.8) raises ``NotImplementedError``;
 * the compressed and sharded exchanges: ``Compression.fp8`` (e4m3 wire,
   f32 accumulation), ``topk:<f>`` error feedback, the two-level
   ``hierarchical_allreduce`` with per-leg ``ici:<c>,dcn:<c>`` codecs
@@ -56,7 +55,20 @@ ported so far:
   the launcher and its elastic driver (``python -m horovod_tpu_torch.run``,
   host discovery, heartbeats, the HMAC-signed KV rendezvous), seeded
   chaos injection (``HOROVOD_CHAOS``), the stall inspector, and rank-0
-  npz checkpoints (:func:`save_checkpoint`) in the JAX package's format.
+  npz checkpoints (:func:`save_checkpoint`) in the JAX package's format;
+* the silent-data-corruption plane: the in-step guard
+  (``HOROVOD_GUARD``: a poisoned step is skipped bit for bit, a streak
+  rolls the snapshot ledger back), the commit-boundary desync checksums
+  (``HOROVOD_CHECK_DESYNC``) and the cross-rank corruption tripwire
+  (``HOROVOD_DESYNC_CHECK_STEPS``), which names a corrupt rank for
+  quarantine;
+* the observability plane: the Chrome-trace timeline
+  (``HOROVOD_TIMELINE``, :func:`start_timeline`, ``--timeline-filename``)
+  and its merge CLI (``python -m horovod_tpu_torch.timeline --merge
+  DIR``), a ``StepReport`` and span summary a step, the straggler
+  monitor, the dispatch-gap and overlap monitors, the cross-rank trace
+  plane (``HOROVOD_TRACE_SYNC``) and Prometheus ``/metrics``
+  (``HOROVOD_METRICS_PORT``).
 
 Kernels hand-written in CUDA C++ for ``sm_90a`` (``ops/csrc``) carry
 attention -- the flash forward and decode kernels, the flash backward's

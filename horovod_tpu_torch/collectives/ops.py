@@ -7,7 +7,8 @@ Average, Min, Max, Product, Adasum) with ``prescale_factor`` /
 :func:`allgather` (ragged first dims), :func:`grouped_allgather`,
 :func:`broadcast`, :func:`reducescatter`, :func:`grouped_reducescatter`,
 :func:`alltoall` (even, or uneven with ``splits``),
-:func:`sparse_allreduce_async`, :func:`barrier`, and the exchanges of
+:func:`sparse_allreduce_async`, :func:`barrier`, :func:`desync_check`
+(the in-step replica probe), and the exchanges of
 the compressed and sharded paths: :func:`powersgd_allreduce`,
 :func:`topk_allreduce`, :func:`fp8_allreduce`,
 :func:`hierarchical_allreduce` (two-level, codecs per leg),
@@ -1142,6 +1143,19 @@ def allgather_bucket(shard: torch.Tensor, size: int, *,
     return full[:size] if full.numel() != size else full
 
 
+def desync_check(x: torch.Tensor, process_set=None) -> torch.Tensor:
+    """In-step desync probe: a 0-dim bool tensor, True when ``x`` is NOT
+    bit-identical on every member of the set.  The position-weighted
+    uint32 bit sum of ``x`` (``core.desync._traced_bit_checksum``) goes
+    through a MAX and a MIN allreduce (the JAX op's pmax / pmin): two
+    8-byte collectives, no data moved."""
+    from ..core.desync import _traced_bit_checksum
+    c = _traced_bit_checksum(x)
+    hi = allreduce(c, op=Max, process_set=process_set)
+    lo = allreduce(c, op=Min, process_set=process_set)
+    return hi != lo
+
+
 def barrier(process_set=None) -> None:
     """Block until every member of the set has reached this point."""
     ps = _member_set(process_set, "barrier")
@@ -1159,7 +1173,7 @@ __all__ = ["Handle", "allreduce", "allreduce_", "allreduce_async",
            "broadcast_async", "broadcast_async_", "reducescatter",
            "reducescatter_async", "grouped_reducescatter",
            "grouped_reducescatter_async", "alltoall", "alltoall_async",
-           "sparse_allreduce_async", "barrier",
+           "sparse_allreduce_async", "barrier", "desync_check",
            "powersgd_allreduce", "powersgd_allreduce_async",
            "fp8_allreduce", "fp8_allreduce_async", "topk_allreduce",
            "topk_allreduce_async", "hierarchical_allreduce",

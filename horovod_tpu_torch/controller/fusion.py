@@ -18,7 +18,8 @@ The exchange-plan IR: every exchange the package runs asks
 (:class:`ExchangeLeg`), notes each row into the span registry
 (``timeline.spans.note_leg``) and prices its counters from them.  The
 families are ``flat``, ``hier``, ``chunked``, ``powersgd``, ``topk``,
-``fp8``, ``ef``, ``zero``, ``microbatch`` and ``kernel``; a new one
+``fp8``, ``ef``, ``zero``, ``microbatch``, ``guard`` (the SDC screen's
+8-byte allreduce) and ``kernel``; a new one
 needs :func:`register_leg_kind` and :func:`register_plan_family` and no
 consumer code.  :func:`schedule_legs`, :func:`overlap_phases` and
 :func:`simulate_issue` order and price legs on a two-link model whose
@@ -291,6 +292,7 @@ for _kind, _bw, _doc in (
         ("fp8", "ici", "quantized fp8 all-to-all + allgather allreduce"),
         ("mb_rs", "ici", "microbatch pipe: per-microbatch reduce-scatter"),
         ("mb_ag", "ici", "microbatch pipe: closing allgather"),
+        ("guard", "ici", "SDC guard screen vector psum"),
         ("kernel", "local", "kernel contract: no wire traffic")):
     register_leg_kind(_kind, bandwidth=_bw, doc=_doc)
 
@@ -713,6 +715,14 @@ def _canon_kernel(spec: dict) -> dict:
     return {"kernel": str(spec["kernel"]), "nbytes": int(spec["nbytes"])}
 
 
+def _build_guard(spec: dict) -> List[ExchangeLeg]:
+    # The 2-wide screen vector the SDC guard sums over the ranks a step.
+    return [ExchangeLeg(
+        tag="guard/screen", axis="", collective="psum", codec="none",
+        wire_dtype="float32", elements=2, nbytes=8, kind="guard",
+        audit=(("psum", "float32", 2, "guard/screen"),))]
+
+
 def _build_kernel(spec: dict) -> List[ExchangeLeg]:
     # A kernel contract: its HBM bytes, no wire collective.  The tag is
     # the JAX package's, so the rows compare equal.
@@ -731,6 +741,7 @@ register_plan_family("fp8", _build_fp8, _canon_fp8)
 register_plan_family("ef", _build_ef, _canon_ef)
 register_plan_family("zero", _build_zero, _canon_zero)
 register_plan_family("microbatch", _build_microbatch, _canon_microbatch)
+register_plan_family("guard", _build_guard)
 register_plan_family("kernel", _build_kernel, _canon_kernel)
 
 

@@ -21,22 +21,34 @@ surfaces as an error the elastic loop can recover from.
 group are destroyed, the exchange-plan cache is cleared, and
 ``global_state().generation`` advances, which the optimizer wrap and the
 train loop check before they touch what the old group left behind.
+
+``init()`` also arms the observability plane, as the JAX ``init()``
+does: the Chrome-trace timeline (``HOROVOD_TIMELINE``, cycle marks with
+``HOROVOD_TIMELINE_MARK_CYCLES``; :func:`start_timeline` /
+:func:`stop_timeline` at run time), the default metric families and,
+under ``HOROVOD_METRICS_PORT``, the ``/metrics`` server, the straggler
+monitor on the span recorder's step boundary (metrics on), and the
+cross-rank trace plane (``HOROVOD_TRACE_SYNC=1``, over the launcher's
+HTTP KV store; without one it only warns).  ``shutdown()`` stops each.
 """
 
 from __future__ import annotations
 
 import datetime
+import logging
 import os
 from typing import Optional, Union
 
 import torch
 import torch.distributed as dist
 
-from .config import _env, load_config, refuse_unported
+from .config import Config, _env, load_config
 from .device import resolve_device
 from .exceptions import NotInitializedError
 from .process_sets import _drop_all, _install_global_set
 from .state import global_state
+
+logger = logging.getLogger("horovod_tpu_torch")
 
 
 def _first(*vals: int) -> int:
@@ -68,7 +80,6 @@ def init(*, device: Optional[Union[str, torch.device]] = None,
         if st.initialized:
             return
         cfg = load_config()
-        refuse_unported(cfg)
         dev = resolve_device(device)
         backend = "nccl" if dev.type == "cuda" else "gloo"
         local_rank = _first(cfg.env_local_rank, _os_int("LOCAL_RANK"), 0)
@@ -111,12 +122,77 @@ def init(*, device: Optional[Union[str, torch.device]] = None,
         st.generation += 1
         st.initialized = True
         _install_global_set()
+        _install_observability(st, cfg)
         from . import stall
         stall.configure(cfg)
         # Deterministic fault injection (HOROVOD_CHAOS): installed once a
         # process, keyed to the rank; no-op without the variable.
         from ..elastic import chaos
         chaos.maybe_install(rank=r, size=n)
+        # A new world starts a new guard streak (HOROVOD_GUARD_STREAK is
+        # read again).
+        from . import guard
+        guard.reset()
+
+
+def _install_observability(st, cfg: Config) -> None:
+    """The timeline, the default metric families and the ``/metrics``
+    server, the span recorder's rank and timeline, the straggler monitor
+    on its step boundary and the trace plane (the JAX ``init()``'s
+    wiring, ``horovod_tpu/core/basics.py:139-171``)."""
+    if cfg.timeline:
+        from ..timeline import Timeline
+        st.timeline = Timeline(cfg.timeline,
+                               mark_cycles=cfg.timeline_mark_cycles,
+                               rank=st.rank)
+    if cfg.metrics_enabled:
+        from ..timeline import metrics as _metrics
+        _metrics.install_default_metrics()
+        if cfg.metrics_port >= 0:
+            from ..run.metrics_server import MetricsServer
+            st.metrics_server = MetricsServer(port=cfg.metrics_port)
+            logger.info("Prometheus /metrics on port %d",
+                        st.metrics_server.port)
+    elif cfg.metrics_port >= 0:
+        logger.warning("HOROVOD_METRICS_PORT set but HOROVOD_METRICS=0; "
+                       "not starting the metrics endpoint")
+    from ..timeline import spans as _spans
+    rec = _spans.recorder().configure(rank=st.rank, timeline=st.timeline)
+    if cfg.metrics_enabled:
+        from ..timeline.straggler import StragglerMonitor
+        st.straggler = StragglerMonitor(
+            world=st.size, stall_check_time=cfg.stall_check_time)
+        rec.add_listener(st.straggler.observe)
+    if cfg.trace_sync:
+        _install_trace_plane(st, cfg, rec)
+
+
+def _install_trace_plane(st, cfg: Config, rec) -> None:
+    """Arm the cross-rank trace plane (``HOROVOD_TRACE_SYNC=1``): the
+    clock offset to the rendezvous KV server and the step summaries'
+    publication.  The KV endpoint is the elastic assignment URL
+    (``HVD_TPU_ELASTIC_ASSIGNMENT=http://...``) with the job's secret;
+    without one this is a warning, never an init failure."""
+    from ..elastic.notify import ASSIGNMENT_ENV
+    from ..run.secret import SECRET_ENV
+    url = os.environ.get(ASSIGNMENT_ENV, "")
+    secret = os.environ.get(SECRET_ENV)
+    if not url.startswith("http://") or not secret:
+        logger.warning(
+            "HOROVOD_TRACE_SYNC=1 but no HTTP KV rendezvous is "
+            "configured (%s/%s); skipping clock alignment",
+            ASSIGNMENT_ENV, SECRET_ENV)
+        return
+    try:
+        from ..run.http_kv import KVClient
+        from ..timeline.sync import TracePlane
+        kv = KVClient.from_url(url, secret, timeout_s=5.0)
+        st.trace_plane = TracePlane(
+            kv, rank=st.rank, size=st.size,
+            publish_steps=cfg.trace_publish_steps, monitor=st.straggler)
+        rec.add_listener(st.trace_plane.on_summary)
+    except Exception as e:  # ConnectionError, auth, ... -- telemetry only
+        logger.warning("trace plane disabled: %s", e)
 
 
 def shutdown() -> None:
@@ -226,15 +302,32 @@ def join(device=None) -> int:
 
 
 def start_timeline(file_path: str, mark_cycles: bool = False) -> None:
-    """Not ported: the timeline writer (ROADMAP item 1.11)."""
-    raise NotImplementedError(
-        "hvd.start_timeline is not ported (ROADMAP item 1.11)")
+    """Start (or restart) timeline capture into ``file_path``
+    (``hvd.start_timeline``; ``HOROVOD_TIMELINE`` is the environment's
+    way at ``init()``).  Requires ``init()`` first, as the reference
+    does: ``init()`` would otherwise replace a timeline opened before
+    it.  An open timeline is closed first."""
+    from ..timeline import Timeline
+    from ..timeline import spans as _spans
+    st = _require_init()
+    with st.lock:
+        if st.timeline is not None:
+            st.timeline.close()
+        st.timeline = Timeline(file_path, mark_cycles=mark_cycles,
+                               rank=st.rank)
+        _spans.recorder().configure(timeline=st.timeline)
 
 
 def stop_timeline() -> None:
-    """Not ported: the timeline writer (ROADMAP item 1.11)."""
-    raise NotImplementedError(
-        "hvd.stop_timeline is not ported (ROADMAP item 1.11)")
+    """Stop timeline capture and finalize the trace file
+    (``hvd.stop_timeline``); a no-op without an open timeline."""
+    from ..timeline import spans as _spans
+    st = global_state()
+    with st.lock:
+        if st.timeline is not None:
+            st.timeline.close()
+            st.timeline = None
+            _spans.recorder().timeline = None
 
 
 def steps_per_execution(default: int = 1) -> int:

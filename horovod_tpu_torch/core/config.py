@@ -109,12 +109,41 @@ class Config:
     # Snapshot/rollback ledger cadence in committed steps
     # (HOROVOD_SNAPSHOT_STEPS); 0 disables the ring.
     snapshot_steps: int = 0
-    # The silent-data-corruption plane (HOROVOD_CHECK_DESYNC,
-    # HOROVOD_DESYNC_CHECK_STEPS, HOROVOD_GUARD) is not ported (ROADMAP
-    # item 1.11): init() refuses the settings that turn it on.
+    # The silent-data-corruption plane.  Commit-boundary checksums of
+    # the replicated state across ranks (HOROVOD_CHECK_DESYNC,
+    # core/desync.py::check_desync).
     check_desync: bool = False
+    # The cross-rank corruption tripwire's cadence in commits
+    # (HOROVOD_DESYNC_CHECK_STEPS; 0 off): a bit checksum a rank,
+    # majority-voted, attributes a corrupt replica for quarantine.
     desync_check_steps: int = 0
+    # The in-step numeric screen (HOROVOD_GUARD=auto|1|0, core/guard.py):
+    # a nonfinite count and squared norm of the gradients, one extra
+    # 8-byte allreduce a step, and the old state kept on a poisoned
+    # step.  "auto" arms it when a corruption chaos kind, the desync
+    # checks or the snapshot ledger is on.
     guard: str = "auto"
+    # Skip a step whose global gradient norm exceeds this bound even
+    # when finite (HOROVOD_GUARD_NORM_LIMIT); 0 = nonfinite screen only.
+    guard_norm_limit: float = 0.0
+    # Consecutive guard-skipped steps before the anomaly counts as
+    # sustained and the rollback ledger engages (HOROVOD_GUARD_STREAK).
+    guard_streak: int = 3
+    # Chrome-trace timeline path (HOROVOD_TIMELINE) and its cycle marks
+    # (HOROVOD_TIMELINE_MARK_CYCLES).
+    timeline: Optional[str] = None
+    timeline_mark_cycles: bool = False
+    # Metrics plane (timeline/metrics.py): HOROVOD_METRICS=0 turns every
+    # family into a no-op and unwraps the step sampler;
+    # HOROVOD_METRICS_PORT >= 0 serves Prometheus text on that port at
+    # init() (0 = ephemeral; global_state().metrics_server.port), -1 none.
+    metrics_enabled: bool = True
+    metrics_port: int = -1
+    # Cross-rank trace plane (timeline/sync.py, HOROVOD_TRACE_SYNC=1):
+    # the clock offset to the rendezvous KV server at init(), and a step
+    # summary published every HOROVOD_TRACE_PUBLISH_STEPS steps.
+    trace_sync: bool = False
+    trace_publish_steps: int = 10
     # Driver-side heartbeat eviction in seconds (HOROVOD_HEARTBEAT_TIMEOUT;
     # 0 disables).
     heartbeat_timeout: float = 0.0
@@ -155,6 +184,14 @@ def load_config() -> Config:
         check_desync=_env_bool("CHECK_DESYNC"),
         desync_check_steps=_env_int("DESYNC_CHECK_STEPS", 0),
         guard=(_env("GUARD", "auto") or "auto").strip().lower(),
+        guard_norm_limit=_env_float("GUARD_NORM_LIMIT", 0.0),
+        guard_streak=_env_int("GUARD_STREAK", 3),
+        timeline=_env("TIMELINE"),
+        timeline_mark_cycles=_env_bool("TIMELINE_MARK_CYCLES"),
+        metrics_enabled=_env_bool("METRICS", True),
+        metrics_port=_env_int("METRICS_PORT", -1),
+        trace_sync=_env_bool("TRACE_SYNC"),
+        trace_publish_steps=_env_int("TRACE_PUBLISH_STEPS", 10),
         heartbeat_timeout=_env_float("HEARTBEAT_TIMEOUT", 0.0),
         env_rank=_env_int("RANK", -1),
         env_size=_env_int("SIZE", -1),
@@ -164,17 +201,3 @@ def load_config() -> Config:
         env_cross_size=_env_int("CROSS_SIZE", -1),
     )
 
-
-def refuse_unported(cfg: Config) -> None:
-    """``NotImplementedError`` for a setting that turns on the
-    silent-data-corruption plane (``core/guard.py``, ``core/desync.py``),
-    which is not ported (ROADMAP item 1.11)."""
-    for on, knob in ((cfg.check_desync, "HOROVOD_CHECK_DESYNC"),
-                     (cfg.desync_check_steps > 0,
-                      "HOROVOD_DESYNC_CHECK_STEPS"),
-                     (cfg.guard in ("1", "on", "true", "yes"),
-                      "HOROVOD_GUARD")):
-        if on:
-            raise NotImplementedError(
-                f"{knob} turns on the silent-data-corruption plane, which "
-                f"is not ported (ROADMAP item 1.11)")

@@ -7,9 +7,9 @@ last commit); a membership change pushed by the elastic driver is a
 called before ``init()`` raises :class:`NotInitializedError`; a bad
 process-set registration raises :class:`ProcessSetError`.
 :class:`DesyncError`, :class:`SustainedAnomalyError` and
-:class:`CorruptRankError` are the silent-data-corruption plane's signals:
-nothing in the port raises them yet (ROADMAP item 1.11), but the elastic
-loop's ``except`` clauses are the JAX loop's, so they are here.
+:class:`CorruptRankError` are the silent-data-corruption plane's signals
+(``core/desync.py``, ``core/guard.py``), which the elastic loop turns
+into a restore, a ledger rollback and a quarantine.
 """
 
 from __future__ import annotations

@@ -12,6 +12,14 @@ hierarchical Adasum per ``local_size``.  ``generation`` counts the
 process group when it is built (a ``DistributedOptimizer``'s in-flight
 handles and two-level groups, a captured ``TrainLoop`` graph) records it
 and rebuilds or refuses itself after an elastic re-init.
+
+The observability plane ``init()`` arms lives here too, and ``reset()``
+(``shutdown()``, the elastic re-init) stops it: the ``timeline`` writer
+(``HOROVOD_TIMELINE`` / ``start_timeline``), the ``metrics_server``
+(``HOROVOD_METRICS_PORT``), the ``straggler`` monitor and the
+``trace_plane`` (``HOROVOD_TRACE_SYNC``), and the span recorder's
+wiring.  Each owns a thread or a socket, so none outlives the world it
+was made for.
 """
 
 from __future__ import annotations
@@ -30,9 +38,19 @@ class GlobalState:
     def __init__(self) -> None:
         self.lock = threading.RLock()
         self.generation = 0
+        self.timeline = None
+        self.metrics_server = None
         self.reset()
 
     def reset(self) -> None:
+        if self.timeline is not None:
+            self.timeline.close()
+        if self.metrics_server is not None:
+            self.metrics_server.stop()
+        self.timeline = None
+        self.metrics_server = None
+        self.trace_plane = None
+        self.straggler = None
         self.initialized: bool = False
         self.config: Optional[Config] = None
         self.device: Optional[torch.device] = None
@@ -42,9 +60,12 @@ class GlobalState:
         self.owns_group: bool = False
         self.process_sets: Dict[str, object] = {}
         self.hierarchy: Dict[int, tuple] = {}
+        import sys
+        spans = sys.modules.get("horovod_tpu_torch.timeline.spans")
+        if spans is not None:
+            spans.recorder().reset()
         # A shutdown (elastic re-init included) stops the preemption
         # module's metadata poll; a latched notice survives it.
-        import sys
         preemption = sys.modules.get(
             "horovod_tpu_torch.elastic.preemption")
         if preemption is not None:

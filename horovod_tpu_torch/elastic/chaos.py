@@ -1,13 +1,10 @@
 """Seeded, deterministic fault injection for elastic training.
 
 The port's copy of ``horovod_tpu/elastic/chaos.py``: the same grammar, the
-same seeded victims, the same latches.  Two differences: the chaos clock
+same seeded victims, the same latches.  One difference: the chaos clock
 ticks at the START of ``State.commit()`` (before the snapshot), so a
 ``comm`` fault at commit ``k`` rolls back to commit ``k - 1`` and the
-drill replays the steps between; and consuming a ``bitflip`` raises
-``NotImplementedError`` -- flipping a replica's bit is
-``core/desync.corrupt_replica``, part of the silent-data-corruption plane
-that is not ported (ROADMAP item 1.11).
+drill replays the steps between.
 
 ``HOROVOD_CHAOS=<spec>`` arms a process-local injector that fires faults
 at commit boundaries (every ``State.commit()`` advances the chaos step
@@ -42,9 +39,10 @@ Each fault clause is ``<kind>@step=<k>[,rank=<r>|rank=any][,secs=<t>]
   :func:`poison_batch` and NaNs one element of the next batch.  The
   in-step SDC guard (``HOROVOD_GUARD``) must detect and skip that step.
 - ``bitflip``: latches a one-shot replica-corruption notice carrying
-  the victim rank; the driver consumes it via :func:`consume_bitflip`
-  (which raises here: the flip and the cross-rank tripwire that catches
-  it are the silent-data-corruption plane, not ported).
+  the victim rank; the driver consumes it via :func:`consume_bitflip` and
+  flips one bit of that rank's replica
+  (:func:`horovod_tpu_torch.core.desync.corrupt_replica`), which only
+  the cross-rank tripwire (``HOROVOD_DESYNC_CHECK_STEPS``) can see.
 
 ``rank=any`` picks a victim with the seeded RNG -- identical on every
 process because the choice depends only on (seed, fault index, size).
@@ -288,18 +286,12 @@ def consume_nan_poison() -> Optional[int]:
 
 
 def consume_bitflip() -> Optional[int]:
-    """One-shot: None when no ``bitflip`` is pending.  A pending one is
-    dropped and raises ``NotImplementedError``: its consumer flips a bit
-    of the victim's parameter replica (``core/desync.corrupt_replica``),
-    part of the silent-data-corruption plane, which is not ported
-    (ROADMAP item 1.11)."""
+    """One-shot: the pending ``bitflip`` victim rank, or None.
+
+    The consumer flips one bit of that rank's parameter replica
+    (:func:`horovod_tpu_torch.core.desync.corrupt_replica`)."""
     global _bitflip_pending
     rank, _bitflip_pending = _bitflip_pending, None
-    if rank is not None:
-        raise NotImplementedError(
-            f"chaos bitflip (victim rank {rank}) needs "
-            f"core/desync.corrupt_replica, part of the silent-data-"
-            f"corruption plane, which is not ported (ROADMAP item 1.11)")
     return rank
 
 

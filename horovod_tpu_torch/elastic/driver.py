@@ -24,7 +24,7 @@ import time
 from typing import Dict, List, Optional
 
 from ..run.exec_util import TaggedProcess
-from ..run.launch import free_port, worker_env
+from ..run.launch import apply_timeline_env, free_port, worker_env
 from .discovery import HostDiscoveryScript
 from .notify import (ASSIGNMENT_ENV, EPOCH_ENV, WORKER_ID_ENV,
                      write_assignment)
@@ -41,7 +41,8 @@ class ElasticDriver:
                  heartbeat_timeout_s: float = 0.0,
                  rendezvous: bool = False,
                  extra_env: Optional[Dict[str, str]] = None,
-                 discovery_timeout_s: float = 10.0):
+                 discovery_timeout_s: float = 10.0,
+                 timeline: Optional[str] = None):
         self.command = list(command)
         self.discovery = HostDiscoveryScript(discovery_script,
                                              default_slots=slots,
@@ -58,6 +59,9 @@ class ElasticDriver:
         # terminated and blacklisted like any failed worker.
         self.heartbeat_timeout_s = heartbeat_timeout_s
         self.extra_env = dict(extra_env or {})
+        # --timeline-filename: each worker's own file, suffixed by its
+        # stable worker id (ranks are reassigned at a re-rendezvous).
+        self.timeline = timeline
         self.epoch = -1
         self.blacklist: set = set()
         self._preempted_seen: set = set()
@@ -166,6 +170,7 @@ class ElasticDriver:
                               port=port, cpu=self.cpu, slots=1,
                               local_rank=rank, local_size=size,
                               store=self._store()))
+        apply_timeline_env(env, wid.replace(":", "-"), self.timeline)
         if self._rdv is not None:
             from ..run.secret import SECRET_ENV
             env[ASSIGNMENT_ENV] = f"http://127.0.0.1:{self._rdv.port}"

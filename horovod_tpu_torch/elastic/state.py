@@ -16,11 +16,21 @@ state, and kwargs that are tensor trees (nested dicts, lists and tuples:
 flax-style params, BN statistics), a ZeRO-1 :class:`~horovod_tpu_torch.
 optim.zero.ZeroState` (``step.zero_state``), or scalars.
 
-* ``commit()`` ticks the chaos clock, snapshots everything to host
-  memory (``.cpu()`` copies: the snapshot survives the loss of device
-  state), pushes the snapshot ledger (``HOROVOD_SNAPSHOT_STEPS``), then
-  checks for a new membership epoch -- so a ``HostsUpdatedInterrupt``
-  comes after the snapshot, and an injected fault before it.  State
+* ``commit()`` ticks the chaos clock, checks the replicated state
+  across the ranks -- the CRC32 desync check (``HOROVOD_CHECK_DESYNC``)
+  and, every ``HOROVOD_DESYNC_CHECK_STEPS`` commits, the corruption
+  tripwire (``core/desync.py``), both before the snapshot they guard --
+  snapshots everything to host memory (``.cpu()`` copies: the snapshot
+  survives the loss of device state), pushes the snapshot ledger
+  (``HOROVOD_SNAPSHOT_STEPS``), then checks for a new membership epoch
+  -- so a ``HostsUpdatedInterrupt`` comes after the snapshot, and an
+  injected fault before it.  The checks see the model as flax variables
+  (``desync.module_tree``), the optimizer state by parameter name and
+  the tensor trees; per-rank state (ZeRO-1 shards, error-feedback
+  residuals) differs across ranks by construction and is left out.
+  The ledger does not record a commit taken while the SDC guard is
+  skipping steps: that snapshot's counters have moved past updates that
+  never happened, so a rollback to it would not replay them.  State
   that is sharded or per rank -- a ZeRO-1 state, the error-feedback
   residuals of a ``DistributedOptimizer`` -- is gathered from every rank
   (collective) so a resize can carry the lost ranks' part; the commit of
@@ -65,6 +75,12 @@ def _snapshot_steps() -> int:
     """HOROVOD_SNAPSHOT_STEPS from the live config (0 = ledger off)."""
     cfg = _config()
     return max(0, int(cfg.snapshot_steps)) if cfg is not None else 0
+
+
+def _desync_check_steps() -> int:
+    """HOROVOD_DESYNC_CHECK_STEPS from the live config (0 = off)."""
+    cfg = _config()
+    return max(0, int(cfg.desync_check_steps)) if cfg is not None else 0
 
 
 def _is_scalar(v) -> bool:
@@ -177,6 +193,15 @@ class State:
         from . import chaos
         chaos.on_commit()
 
+    def _check_desync(self, values) -> None:
+        """Under ``HOROVOD_CHECK_DESYNC=1``, verify the values about to
+        be committed are identical on every rank -- BEFORE they overwrite
+        the last good snapshot, so ``restore()`` still holds a converged
+        copy and the run loop recovers with restore + rank-0 ``sync()``
+        (:class:`~horovod_tpu_torch.core.exceptions.DesyncError`)."""
+        from ..core.desync import maybe_check
+        maybe_check(values, name="elastic_commit")
+
     def _check_host_updates(self) -> None:
         """Raise HostsUpdatedInterrupt at the commit boundary if the
         driver advanced the membership epoch; the snapshot is already
@@ -206,10 +231,14 @@ class ObjectState(State):
         for k, v in kwargs.items():
             setattr(self, k, v)
         self._known = list(kwargs)
+        self._checked = False
         self.commit()
+        self._checked = True
 
     def commit(self) -> None:
         self._tick_chaos()
+        if self._checked:
+            self._check_desync({k: getattr(self, k) for k in self._known})
         self._saved = {k: copy.deepcopy(getattr(self, k))
                        for k in self._known}
         self._check_host_updates()
@@ -224,7 +253,11 @@ class ObjectState(State):
         values = broadcast_object(values, root_rank=0)
         for k, v in values.items():
             setattr(self, k, v)
-        self.commit()
+        checked, self._checked = self._checked, False
+        try:
+            self.commit()
+        finally:
+            self._checked = checked
 
 
 class TorchState(State):
@@ -349,19 +382,62 @@ class TorchState(State):
     # -- commit / restore -------------------------------------------------
     def commit(self) -> None:
         self._tick_chaos()
+        # The cross-rank checks are collectives: like the per-rank
+        # gather, they run in the loop's commits only, never in the
+        # constructor's or sync()'s, where a newly joined worker and the
+        # survivors are not at the same call.
+        if self._gather:
+            trees = self._replicated_trees()
+            self._check_desync({
+                "trees": trees,
+                "scalars": {k: getattr(self, k)
+                            for k in self._scalar_keys}})
+            self._maybe_tripwire(trees)
         # Built whole before it replaces the last snapshot: a gather that
         # fails (a peer died) leaves the last commit intact.
         self._saved = self._snapshot()
         self._ledger_push()
         self._check_host_updates()
 
+    def _replicated_trees(self) -> Dict[str, Any]:
+        """What every rank holds a replica of: the model as flax
+        variables, the optimizer state by parameter name, the tensor
+        trees."""
+        from ..core.desync import module_tree, optimizer_tree
+        trees: Dict[str, Any] = {}
+        if self.model is not None:
+            trees["model"] = module_tree(self.model)
+        if self.optimizer is not None:
+            trees["optimizer"] = optimizer_tree(self.optimizer, self.model)
+        for k in self._tree_keys:
+            trees[k] = getattr(self, k)
+        return trees
+
+    def _maybe_tripwire(self, trees: Dict[str, Any]) -> None:
+        """The corruption tripwire every ``HOROVOD_DESYNC_CHECK_STEPS``
+        commits (the JAX ``JaxState._maybe_tripwire``): each replicated
+        tree's bit checksum on every rank, majority-voted
+        (:class:`~horovod_tpu_torch.core.exceptions.CorruptRankError`),
+        before the snapshot refresh, so the last commit is still the
+        converged copy when the error propagates."""
+        from ..core.desync import tripwire_check
+        n = _desync_check_steps()
+        if n <= 0 or self._commit_count % n:
+            return
+        for k, tree in trees.items():
+            tripwire_check(tree, name=k)
+
     def _ledger_push(self) -> None:
         """Ring-buffer the snapshot just taken, every
         ``HOROVOD_SNAPSHOT_STEPS`` commits (entry 0 is the constructor's
-        commit, so a rollback floor always exists).  Snapshots are never
-        mutated in place, so an entry aliases its tensors."""
+        commit, so a rollback floor always exists), unless the SDC guard
+        is in a streak of skipped steps (module docstring).  Snapshots
+        are never mutated in place, so an entry aliases its tensors."""
         n = _snapshot_steps()
         if n <= 0 or self._commit_count % n:
+            return
+        from ..core import guard
+        if guard.policy().streak > 0:
             return
         self._ledger.append({"commit": self._commit_count,
                              "saved": dict(self._saved)})

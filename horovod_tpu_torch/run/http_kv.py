@@ -95,8 +95,7 @@ class RendezvousServer:
                     return self._reply(403)
                 if self.path == "/time":
                     # NTP-style clock reference for the trace plane
-                    # (the JAX package's timeline/sync.py; not ported,
-                    # ROADMAP item 1.11): the instant the reply is built
+                    # (timeline/sync.py): the instant the reply is built
                     # is the server-clock sample; signed like every
                     # other KV request.
                     import time

@@ -20,9 +20,12 @@ Usage::
     python -m horovod_tpu_torch.run --host-discovery-script d.sh \\
         --min-np 1 python -m horovod_tpu_torch.examples.elastic_train
 
-``--timeline-filename``, ``--autotune``, ``--probe`` and an LSF
-allocation without ``-np`` raise ``NotImplementedError`` (ROADMAP item
-1.11).
+``--timeline-filename PATH`` gives each worker a Chrome-trace timeline
+of its own (``HOROVOD_TIMELINE=PATH.<rank>``; under the elastic driver
+``PATH.<worker id>``, since ranks change across a re-rendezvous), which
+``python -m horovod_tpu_torch.timeline --merge DIR`` merges.
+``--autotune``, ``--probe`` and an LSF allocation without ``-np`` raise
+``NotImplementedError`` (ROADMAP item 1.11, slice 15).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from typing import List, Optional
 
 from .exec_util import TaggedProcess, wait_all
 
-_SLICE_14 = "is not ported (ROADMAP item 1.11)"
+_SLICE_15 = "is not ported (ROADMAP item 1.11, slice 15)"
 
 
 def free_port() -> int:
@@ -71,11 +74,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--coordinator-port", type=int, default=0,
                    help="MASTER_PORT handed to the workers (0 = a free one)")
     p.add_argument("--timeline-filename", default=None,
-                   help=f"the timeline writer {_SLICE_14}")
+                   help="write a Chrome-trace timeline per rank "
+                        "(PATH.<rank>; HOROVOD_TIMELINE)")
     p.add_argument("--timeline-mark-cycles", action="store_true",
-                   help=f"the timeline writer {_SLICE_14}")
+                   help="mark cycles in the timeline "
+                        "(HOROVOD_TIMELINE_MARK_CYCLES)")
     p.add_argument("--autotune", action="store_true",
-                   help=f"autotuning {_SLICE_14}")
+                   help=f"autotuning {_SLICE_15}")
     p.add_argument("--fusion-threshold-mb", type=int, default=None,
                    help="override HOROVOD_FUSION_THRESHOLD (MiB)")
     p.add_argument("--verbose", "-v", action="count", default=0)
@@ -94,7 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-tag-output", action="store_true",
                    help="do not prefix worker output with [rank]<stream>")
     p.add_argument("--probe", action="store_true",
-                   help=f"the pre-launch version probe {_SLICE_14}")
+                   help=f"the pre-launch version probe {_SLICE_15}")
     p.add_argument("--min-np", type=int, default=None)
     p.add_argument("--max-np", type=int, default=None)
     p.add_argument("--host-discovery-script", default=None,
@@ -151,7 +156,9 @@ def check_build() -> str:
         "    [X] ZeRO-1, hierarchical and chunked allreduce",
         "    [X] elastic (commit/restore/resize, chaos injection)",
         "    [X] checkpointing (rank-0 npz)",
-        "    [ ] timeline, autotune, probe (ROADMAP item 1.11)",
+        "    [X] timeline (Chrome trace, runtime start/stop, merge CLI),",
+        "        /metrics, straggler monitor, SDC guard and tripwire",
+        "    [ ] autotune, probe (ROADMAP item 1.11, slice 15)",
         f"Kernels (sm_90a, nvcc {'at ' + nvcc if os.path.exists(nvcc) else 'not found'}):",
     ]
     lines += [f"    {name}.cu" for name in _build.SOURCES]
@@ -181,12 +188,28 @@ def explain_plan_cli() -> str:
 
 
 def _refuse_unported(opts) -> None:
-    for on, what in ((opts.timeline_filename or opts.timeline_mark_cycles,
-                      "--timeline-filename: the timeline writer"),
-                     (opts.autotune, "--autotune: autotuning"),
+    for on, what in ((opts.autotune, "--autotune: autotuning"),
                      (opts.probe, "--probe: the pre-launch version probe")):
         if on:
-            raise NotImplementedError(f"{what} {_SLICE_14}")
+            raise NotImplementedError(f"{what} {_SLICE_15}")
+
+
+def apply_timeline_env(env: dict, suffix,
+                       cli_filename: Optional[str] = None) -> None:
+    """Point this worker's timeline at a file of its own: every worker
+    opening one shared path would truncate and interleave the others'
+    traces.  The CLI flag wins (and clears an inherited
+    ``HVD_TPU_TIMELINE``, which the config reads first); otherwise an
+    inherited ``HOROVOD_TIMELINE`` / ``HVD_TPU_TIMELINE`` gets the
+    suffix.  The static launch suffixes by rank, the elastic driver by
+    the stable worker id (the JAX launcher's function)."""
+    if cli_filename:
+        env.pop("HVD_TPU_TIMELINE", None)
+        env["HOROVOD_TIMELINE"] = f"{cli_filename}.{suffix}"
+        return
+    for var in ("HOROVOD_TIMELINE", "HVD_TPU_TIMELINE"):
+        if env.get(var):
+            env[var] = f"{env[var]}.{suffix}"
 
 
 def _using_lsf() -> bool:
@@ -195,6 +218,8 @@ def _using_lsf() -> bool:
 
 def _log_env(opts) -> dict:
     env = {}
+    if opts.timeline_mark_cycles:
+        env["HOROVOD_TIMELINE_MARK_CYCLES"] = "1"
     if opts.fusion_threshold_mb is not None:
         env["HOROVOD_FUSION_THRESHOLD"] = str(opts.fusion_threshold_mb << 20)
     if opts.log_level:
@@ -214,6 +239,11 @@ def run_command(args: Optional[List[str]] = None) -> int:
         print(explain_plan_cli())
         return 0
     _refuse_unported(opts)
+    if opts.timeline_mark_cycles and not (
+            opts.timeline_filename or os.environ.get("HOROVOD_TIMELINE")
+            or os.environ.get("HVD_TPU_TIMELINE")):
+        print("# warning: --timeline-mark-cycles has no effect without "
+              "--timeline-filename (or HOROVOD_TIMELINE)", file=sys.stderr)
 
     cmd = list(opts.command)
     if cmd and cmd[0] == "--":
@@ -244,7 +274,7 @@ def run_command(args: Optional[List[str]] = None) -> int:
             np_ = total_slots(hosts)
     elif np_ is None and not opts.host_discovery_script and _using_lsf():
         raise NotImplementedError(
-            f"deriving -np from an LSF allocation {_SLICE_14}; pass -np")
+            f"deriving -np from an LSF allocation {_SLICE_15}; pass -np")
     if np_ is None:
         np_ = 1
     if opts.host_discovery_script:
@@ -264,6 +294,7 @@ def run_command(args: Optional[List[str]] = None) -> int:
             heartbeat_timeout_s=heartbeat,
             rendezvous=opts.network_rendezvous,
             extra_env=_log_env(opts),
+            timeline=opts.timeline_filename,
         )
         return driver.run()
 
@@ -279,6 +310,7 @@ def run_command(args: Optional[List[str]] = None) -> int:
                 rank=rank, size=np_, coordinator=opts.coordinator,
                 port=port, cpu=opts.cpu, store=store))
             env.update(_log_env(opts))
+            apply_timeline_env(env, rank, opts.timeline_filename)
             procs.append(TaggedProcess(rank, cmd, env, lock=lock,
                                        tag=not opts.no_tag_output))
         return wait_all(procs)

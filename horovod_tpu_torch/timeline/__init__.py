@@ -1,4 +1,380 @@
-"""Host-side spans and the metrics registry the serving path feeds."""
+"""Chrome-tracing timeline (``HOROVOD_TIMELINE``), the host-dispatch-gap
+and exchange-overlap monitors, and a device profiler trace.
+
+Counterpart of ``horovod_tpu/timeline/__init__.py`` (reference:
+``horovod/common/timeline.cc``): :class:`Timeline` writes
+``chrome://tracing`` / Perfetto-loadable JSON with a background writer
+thread, so the hot path only appends to a deque.  The file opens with a
+``clock_anchor`` metadata event (``epoch_unix_us``, ``rank``,
+``hostname``) that the merge CLI (``python -m
+horovod_tpu_torch.timeline --merge DIR``) aligns ranks by.
+:func:`device_trace` is a ``torch.profiler`` Chrome trace of the card
+where the JAX package's is a ``jax.profiler`` one.
+"""
+
+from __future__ import annotations
+
+import atexit
+import contextlib
+import json
+import os
+import threading
+import time
+from collections import deque
+from typing import Deque, Dict, Optional
 
 from .metrics import registry, reset_metrics  # noqa: F401
 from .spans import recorder  # noqa: F401
+
+
+class Timeline:
+    """Append-only Chrome-trace event stream with a background writer."""
+
+    def __init__(self, path: str, mark_cycles: bool = False,
+                 flush_interval: float = 1.0, rank: Optional[int] = None,
+                 hostname: Optional[str] = None):
+        self.path = path
+        self.mark_cycles = mark_cycles
+        self._events: Deque[dict] = deque()
+        self._pids: Dict[str, int] = {}
+        self._next_pid = 1
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._close_lock = threading.Lock()
+        self._closed = False
+        self._t0 = time.perf_counter()
+        # Wall-clock anchor captured at the SAME instant as the
+        # perf_counter epoch: offline merge aligns files via
+        # wall_us = epoch_unix_us + ts, so n ranks' traces become
+        # mergeable without the live KV offset handshake.  rank falls
+        # back to the launcher-provided env identity (the timeline may
+        # open before init()).
+        self.epoch_unix_us = time.time() * 1e6
+        if rank is None:
+            for var in ("HVD_TPU_RANK", "HOROVOD_RANK"):
+                v = os.environ.get(var, "")
+                if v.lstrip("-").isdigit():
+                    rank = int(v)
+                    break
+        self.rank = int(rank) if rank is not None else 0
+        if hostname is None:
+            import socket
+            try:
+                hostname = socket.gethostname()
+            except OSError:
+                hostname = "unknown"
+        self.hostname = hostname
+        self._events.append({
+            "name": "clock_anchor", "ph": "M", "pid": 0,
+            "args": {"epoch_unix_us": self.epoch_unix_us,
+                     "rank": self.rank, "hostname": self.hostname}})
+        self._file = open(path, "w")
+        self._file.write("[\n")
+        self._wrote_any = False
+        self._flush_interval = flush_interval
+        self._writer = threading.Thread(target=self._writer_loop,
+                                        name="hvd-torch-timeline", daemon=True)
+        self._writer.start()
+        atexit.register(self.close)
+
+    # -- event emission ---------------------------------------------------
+    def _us(self) -> float:
+        return (time.perf_counter() - self._t0) * 1e6
+
+    def _pid(self, track: str) -> int:
+        pid = self._pids.get(track)
+        if pid is None:
+            pid = self._next_pid
+            self._next_pid += 1
+            self._pids[track] = pid
+            self._events.append({
+                "name": "process_name", "ph": "M", "pid": pid,
+                "args": {"name": track}})
+        return pid
+
+    def begin(self, tensor: str, phase: str,
+              args: Optional[dict] = None) -> None:
+        with self._lock:
+            ev = {"name": phase, "ph": "B",
+                  "pid": self._pid(tensor), "tid": 0,
+                  "ts": self._us()}
+            if args:
+                ev["args"] = args
+            self._events.append(ev)
+
+    def end(self, tensor: str, phase: str,
+            args: Optional[dict] = None) -> None:
+        with self._lock:
+            ev = {"name": phase, "ph": "E",
+                  "pid": self._pid(tensor), "tid": 0,
+                  "ts": self._us()}
+            if args:
+                ev["args"] = args
+            self._events.append(ev)
+
+    def complete(self, tensor: str, phase: str, dur_s: float,
+                 args: Optional[dict] = None) -> None:
+        """Retroactive Chrome "X" complete event spanning the PAST
+        ``dur_s`` seconds and ending now -- for regions only measurable
+        after the fact (the inter-dispatch gap: its start is known only
+        once the next dispatch begins)."""
+        with self._lock:
+            ev = {"name": phase, "ph": "X",
+                  "pid": self._pid(tensor), "tid": 0,
+                  # Clamp to the trace epoch: a gap can predate open()
+                  # (the first window of a freshly attached timeline).
+                  "ts": max(0.0, self._us() - float(dur_s) * 1e6),
+                  "dur": float(dur_s) * 1e6}
+            if args:
+                ev["args"] = args
+            self._events.append(ev)
+
+    def instant(self, name: str, track: str = "cycle") -> None:
+        with self._lock:
+            self._events.append({"name": name, "ph": "i", "s": "g",
+                                 "pid": self._pid(track), "tid": 0,
+                                 "ts": self._us()})
+
+    def counter(self, name: str, value: float,
+                track: str = "counters") -> None:
+        """Chrome-trace counter sample ("C" event) -- renders as a
+        stacked-area track (the reference plots tensor bytes this way)."""
+        with self._lock:
+            self._events.append({"name": name, "ph": "C",
+                                 "pid": self._pid(track), "tid": 0,
+                                 "ts": self._us(),
+                                 "args": {name: float(value)}})
+
+    def counters(self, values: Dict[str, float],
+                 track: str = "counters") -> None:
+        """Several counter samples at ONE timestamp (a single "C" event
+        with multiple args renders as one stacked area).  Used by the
+        fused deferred flush to emit its ``deferred_fused_buckets`` /
+        fused-vs-singleton op counts as an atomic snapshot -- separate
+        :meth:`counter` calls would get distinct timestamps and make the
+        per-flush ratios unreadable in the trace viewer."""
+        with self._lock:
+            self._events.append({"name": "|".join(sorted(values)),
+                                 "ph": "C",
+                                 "pid": self._pid(track), "tid": 0,
+                                 "ts": self._us(),
+                                 "args": {k: float(v)
+                                          for k, v in values.items()}})
+
+    def mark_cycle(self) -> None:
+        if self.mark_cycles:
+            self.instant("CYCLE")
+
+    @contextlib.contextmanager
+    def range(self, tensor: str, phase: str, args: Optional[dict] = None):
+        self.begin(tensor, phase, args=args)
+        try:
+            yield
+        finally:
+            self.end(tensor, phase)
+
+    # -- writer thread ----------------------------------------------------
+    def _drain(self) -> None:
+        batch = []
+        with self._lock:
+            while self._events:
+                batch.append(self._events.popleft())
+        if not batch or self._file.closed:
+            return
+        chunks = []
+        for ev in batch:
+            prefix = ",\n" if self._wrote_any else ""
+            self._wrote_any = True
+            chunks.append(prefix + json.dumps(ev))
+        self._file.write("".join(chunks))
+        self._file.flush()
+
+    def _writer_loop(self) -> None:
+        while not self._stop.wait(self._flush_interval):
+            try:
+                self._drain()
+            except ValueError:  # file closed under us at exit
+                return
+
+    def close(self) -> None:
+        """Idempotent and exception-safe: ``hvd.shutdown()`` closes the
+        timeline AND atexit fires the registration made in ``__init__``,
+        so the double-close path is the normal path.  The writer thread
+        is joined exactly once and the file closed exactly once, even if
+        draining or the closing ``]`` write raises (e.g. a full disk) --
+        a failed close must never wedge interpreter shutdown."""
+        with self._close_lock:
+            if self._closed:
+                return
+            self._closed = True
+        self._stop.set()
+        self._writer.join(timeout=5)
+        try:
+            if not self._file.closed:
+                self._drain()
+                self._file.write("\n]\n")
+        finally:
+            try:
+                self._file.close()
+            except OSError:
+                pass
+            atexit.unregister(self.close)
+
+
+class DispatchGapMonitor:
+    """Per-window host-dispatch-gap fraction.
+
+    The steps-per-execution loop exists to shrink host time that is NOT
+    spent inside device dispatch/fetch calls -- Python glue, input
+    handling, the per-step fence.  This monitor measures it directly:
+    wrap every dispatch (step/loop call, final value fetch) in
+    :meth:`dispatch`; per window, ``gap_fraction = 1 - dispatched_time /
+    wall_time`` -- the fraction of wall-clock the device could have been
+    starved by the host.  A k-step loop drives it toward zero because
+    one dispatch (a CUDA graph replay) covers k steps.
+
+    When a :class:`Timeline` is active it also writes a
+    ``host_dispatch_gap`` counter track.
+    """
+
+    def __init__(self, timeline: Optional[Timeline] = None):
+        self.timeline = timeline
+        self.windows: list = []
+        self._t0: Optional[float] = None
+        self._dispatched = 0.0
+
+    def begin_window(self) -> None:
+        self._t0 = time.perf_counter()
+        self._dispatched = 0.0
+
+    @contextlib.contextmanager
+    def dispatch(self):
+        """Time one host->device dispatch (or device->host fetch)."""
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._dispatched += time.perf_counter() - t
+
+    def end_window(self) -> float:
+        """Close the window; returns (and records) its gap fraction."""
+        if self._t0 is None:
+            raise RuntimeError("end_window() without begin_window()")
+        wall = time.perf_counter() - self._t0
+        # Clamp dispatched time into [0, wall]: a clock stepping
+        # backwards mid-window (mocked clocks, NTP slews) must yield a
+        # fraction in [0, 1], never a negative gap or one above 1.
+        dispatched = max(self._dispatched, 0.0)
+        gap = 1.0 - min(dispatched / wall, 1.0) if wall > 0 else 0.0
+        gap = min(max(gap, 0.0), 1.0)
+        self.windows.append(gap)
+        self._t0 = None
+        if self.timeline is not None:
+            self.timeline.counter("host_dispatch_gap", gap)
+        from . import metrics as _metrics
+        _metrics.registry().gauge(
+            "horovod_dispatch_gap_fraction",
+            "Last DispatchGapMonitor window: host time NOT spent "
+            "dispatching (0 = devices never starved)").set(gap)
+        return gap
+
+    @property
+    def gap_fraction(self) -> float:
+        """Mean gap fraction over all closed windows (0.0 if none)."""
+        if not self.windows:
+            return 0.0
+        return float(sum(self.windows) / len(self.windows))
+
+
+class OverlapMonitor:
+    """Per-window exchange-overlap fraction (the backward-overlap metric).
+
+    The microbatched exchange (``training.py``, ``microbatches=k``) exists
+    to hide gradient wire time behind backward compute.  This monitor
+    reports how much of a known communication budget was actually hidden:
+    give it the window's pure-compute time per step (``compute_s``, e.g.
+    measured at n=1 or with the exchange disabled) and the predicted
+    exchange time per step (``comm_s``, e.g. payload bytes / link
+    bandwidth); per window of ``steps`` steps,
+
+        exposed  = max(0, wall/steps - compute_s)   # comm NOT hidden
+        hidden   = max(0, comm_s - exposed)
+        fraction = hidden / comm_s                  # in [0, 1]
+
+    1.0 means the exchange vanished behind compute (perfect overlap);
+    0.0 means every wire second extended the step (no overlap -- the
+    monolithic post-backward exchange).  ``comm_s <= 0`` (single chip, no
+    exchange) records 0.0 by convention: there is nothing to hide.
+
+    When a :class:`Timeline` is active it also writes an
+    ``exchange_overlap`` counter track -- the overlap analogue of
+    :class:`DispatchGapMonitor`.
+    """
+
+    def __init__(self, compute_s: float, comm_s: float,
+                 timeline: Optional[Timeline] = None):
+        if compute_s < 0 or comm_s < 0:
+            raise ValueError("compute_s and comm_s must be >= 0")
+        self.compute_s = compute_s
+        self.comm_s = comm_s
+        self.timeline = timeline
+        self.windows: list = []
+        self._t0: Optional[float] = None
+
+    def begin_window(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def end_window(self, steps: int) -> float:
+        """Close a window of ``steps`` steps; returns (and records) its
+        overlap fraction."""
+        if self._t0 is None:
+            raise RuntimeError("end_window() without begin_window()")
+        if steps < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
+        wall = time.perf_counter() - self._t0
+        self._t0 = None
+        if self.comm_s <= 0.0:
+            frac = 0.0
+        else:
+            exposed = max(0.0, wall / steps - self.compute_s)
+            hidden = max(0.0, self.comm_s - exposed)
+            frac = min(hidden / self.comm_s, 1.0)
+        self.windows.append(frac)
+        if self.timeline is not None:
+            self.timeline.counter("exchange_overlap", frac)
+        from . import metrics as _metrics
+        _metrics.registry().gauge(
+            "horovod_exchange_overlap_fraction",
+            "Last OverlapMonitor window: fraction of the exchange "
+            "hidden behind backward compute").set(frac)
+        return frac
+
+    @property
+    def overlap_fraction(self) -> float:
+        """Mean overlap fraction over all closed windows (0.0 if none)."""
+        if not self.windows:
+            return 0.0
+        return float(sum(self.windows) / len(self.windows))
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """Capture a device-side profiler trace beside the semantic timeline:
+    ``torch.profiler`` over the CPU and, when present, CUDA activities,
+    written as a Chrome trace ``<logdir>/device_trace.json`` on exit::
+
+        with horovod_tpu_torch.timeline.device_trace("/tmp/prof"):
+            for _ in range(10):
+                loss = step(batch)
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(logdir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "device_trace.json"))
+

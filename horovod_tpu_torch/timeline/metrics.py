@@ -1,16 +1,30 @@
 """Process-wide metrics registry.
 
-Counterpart of ``horovod_tpu/timeline/metrics.py``, cut to what the
-serving scheduler and the gradient exchange use: labelled counter, gauge
-and fixed-bucket histogram families in one thread-safe registry.  ``HOROVOD_METRICS=0``
-turns every family into a shared no-op object, as in the reference.
+Counterpart of ``horovod_tpu/timeline/metrics.py``: labelled counter,
+gauge and fixed-bucket histogram families in one thread-safe registry
+that every telemetry source of the port feeds -- the serving scheduler,
+the gradient exchange, ZeRO-1, sync BN, the collectives, the elastic
+plane, the SDC guard (``core/guard.py``), the tripwire
+(``core/desync.py``), the straggler monitor and the per-step
+:class:`StepReport` the train-step sampler records (``training.py``).
+Rendered as Prometheus text (:func:`render_prometheus`, served by
+``run/metrics_server.py`` on ``HOROVOD_METRICS_PORT``) and as a plain
+dict (:func:`metrics_snapshot`).  ``HOROVOD_METRICS=0`` turns every
+family into a shared no-op object, and the step sampler unwraps.
+
+The port's snapshot keeps a ``samples`` list for every family (labelled
+or not) beside the JAX package's ``value`` / histogram fields of an
+unlabelled one.  The pull collectors are the ones the port has (the
+exchange-plan cache); the JAX package's eager and deferred-fuse
+collectors belong to its eager control plane, which is not ported.
 """
 
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..core.config import _env_bool
 
@@ -18,9 +32,29 @@ DEFAULT_TIME_BUCKETS: Tuple[float, ...] = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
     0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
 
+CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+
+def _escape_help(s: str) -> str:
+    return s.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _escape_label_value(s: str) -> str:
+    return (s.replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _fmt(v: float) -> str:
+    """Prometheus sample value: integral floats render without the dot."""
+    f = float(v)
+    if f == int(f) and abs(f) < 1e15:
+        return str(int(f))
+    return repr(f)
+
 
 class Counter:
-    """Monotonic counter."""
+    """Monotonic counter.  ``set_cumulative`` is for a collector whose
+    source keeps its own running total (the plan cache)."""
 
     __slots__ = ("_lock", "_value")
 
@@ -33,6 +67,10 @@ class Counter:
             raise ValueError(f"counter increment must be >= 0, got {v}")
         with self._lock:
             self._value += v
+
+    def set_cumulative(self, v: float) -> None:
+        with self._lock:
+            self._value = float(v)
 
     @property
     def value(self) -> float:
@@ -56,6 +94,9 @@ class Gauge:
     def inc(self, v: float = 1.0) -> None:
         with self._lock:
             self._value += v
+
+    def dec(self, v: float = 1.0) -> None:
+        self.inc(-v)
 
     @property
     def value(self) -> float:
@@ -96,7 +137,7 @@ class Histogram:
         cum, acc = {}, 0
         for bound, c in zip(self.bounds, raw):
             acc += c
-            cum[repr(bound)] = acc
+            cum[_fmt(bound)] = acc
         cum["+Inf"] = total
         return {"buckets": cum, "sum": s, "count": total}
 
@@ -109,7 +150,13 @@ class _NullMetric:
     def inc(self, v: float = 1.0) -> None:
         pass
 
+    def dec(self, v: float = 1.0) -> None:
+        pass
+
     def set(self, v: float) -> None:
+        pass
+
+    def set_cumulative(self, v: float) -> None:
         pass
 
     def observe(self, v: float) -> None:
@@ -166,11 +213,20 @@ class _Family:
     def inc(self, v: float = 1.0) -> None:
         self._solo().inc(v)
 
+    def dec(self, v: float = 1.0) -> None:
+        self._solo().dec(v)
+
     def set(self, v: float) -> None:
         self._solo().set(v)
 
+    def set_cumulative(self, v: float) -> None:
+        self._solo().set_cumulative(v)
+
     def observe(self, v: float) -> None:
         self._solo().observe(v)
+
+    def snapshot(self) -> dict:
+        return self._solo().snapshot()
 
     @property
     def value(self) -> float:
@@ -182,11 +238,15 @@ class _Family:
 
 
 class MetricsRegistry:
-    """Thread-safe family store."""
+    """Thread-safe family store, pull collectors, the last step report
+    and the renderers.  Enabled-ness is ``HOROVOD_METRICS``, read at
+    family-access time."""
 
     def __init__(self):
         self._lock = threading.RLock()
         self._families: Dict[str, _Family] = {}
+        self._collectors: List[Callable[[], None]] = []
+        self._last_report: Optional["StepReport"] = None
 
     @property
     def enabled(self) -> bool:
@@ -221,32 +281,83 @@ class MetricsRegistry:
                   labelnames: Sequence[str] = ()):
         return self._family("histogram", name, help, labelnames, buckets)
 
+    def add_collector(self, fn: Callable[[], None]) -> None:
+        """Register a pull callback run before every render and snapshot
+        (idempotent by identity)."""
+        with self._lock:
+            if fn not in self._collectors:
+                self._collectors.append(fn)
+
+    def collect(self) -> None:
+        with self._lock:
+            collectors = list(self._collectors)
+        for fn in collectors:
+            try:
+                fn()
+            except Exception:  # a broken collector must not kill a scrape
+                pass
+
+    def record_step_report(self, report: "StepReport") -> None:
+        with self._lock:
+            self._last_report = report
+
+    @property
+    def last_step_report(self) -> Optional["StepReport"]:
+        with self._lock:
+            return self._last_report
+
+    def render(self) -> str:
+        """Prometheus text exposition format 0.0.4."""
+        self.collect()
+        with self._lock:
+            families = [self._families[n] for n in sorted(self._families)]
+        out: List[str] = []
+        for fam in families:
+            out.append(f"# HELP {fam.name} {_escape_help(fam.help)}")
+            out.append(f"# TYPE {fam.name} {fam.kind}")
+            for key, metric in fam.samples():
+                base = "".join(
+                    f'{n}="{_escape_label_value(v)}",'
+                    for n, v in zip(fam.labelnames, key))[:-1]
+                suffix = f"{{{base}}}" if base else ""
+                if fam.kind == "histogram":
+                    snap = metric.snapshot()
+                    for le, c in snap["buckets"].items():
+                        lbl = (base + "," if base else "") + \
+                            f'le="{_escape_label_value(le)}"'
+                        out.append(f"{fam.name}_bucket{{{lbl}}} {c}")
+                    out.append(f"{fam.name}_sum{suffix} "
+                               f"{_fmt(snap['sum'])}")
+                    out.append(f"{fam.name}_count{suffix} {snap['count']}")
+                else:
+                    out.append(f"{fam.name}{suffix} {_fmt(metric.value)}")
+        return "\n".join(out) + "\n" if out else ""
+
     def snapshot(self) -> dict:
-        """``{family: {"type", "samples": [{"labels", value|histogram}]}}``
-        (the plan-cache gauges refreshed first)."""
-        if self.enabled:
-            _collect_plan_cache(self)
+        """``{family: {"type", "samples": [{"labels", value|histogram}]}}``,
+        and for an unlabelled family also the JAX package's ``value``
+        (0.0 before any sample) or ``count`` / ``sum`` / ``buckets``."""
+        self.collect()
         with self._lock:
             families = dict(self._families)
         out = {}
         for name in sorted(families):
             fam = families[name]
-            out[name] = {"type": fam.kind, "samples": [
+            kids = fam.samples()
+            entry = {"type": fam.kind, "samples": [
                 {"labels": dict(zip(fam.labelnames, key)),
                  **(m.snapshot() if fam.kind == "histogram"
                     else {"value": m.value})}
-                for key, m in fam.samples()]}
+                for key, m in kids]}
+            if not fam.labelnames:
+                if not kids:
+                    entry["value"] = 0.0
+                elif fam.kind == "histogram":
+                    entry.update(kids[0][1].snapshot())
+                else:
+                    entry["value"] = kids[0][1].value
+            out[name] = entry
         return out
-
-
-def _collect_plan_cache(reg: "MetricsRegistry") -> None:
-    """The ``horovod_plan_cache_*`` gauges: the exchange-plan cache's
-    hits, misses, evictions and entries (``controller.fusion.
-    plan_cache_stats``)."""
-    from ..controller.fusion import plan_cache_stats
-    for key, value in plan_cache_stats().items():
-        reg.gauge(f"horovod_plan_cache_{key}",
-                  f"exchange-plan cache {key}").set(value)
 
 
 def counter_values() -> Dict[Tuple, float]:
@@ -284,10 +395,221 @@ def registry() -> MetricsRegistry:
 
 
 def reset_metrics() -> None:
-    """Drop every family (tests)."""
+    """Drop every family, collector and step report (tests)."""
     global _registry
     with _registry_lock:
         _registry = None
+
+
+def metrics_snapshot() -> dict:
+    """The registry as a plain dict (:meth:`MetricsRegistry.snapshot`)."""
+    return registry().snapshot()
+
+
+def render_prometheus() -> str:
+    """The registry as Prometheus text."""
+    return registry().render()
+
+
+@dataclasses.dataclass(frozen=True)
+class StepReport:
+    """Host-side sample of ONE step-builder call (``training.py``'s
+    sampler): its wall time (a steps-per-execution loop's call covers
+    ``steps_per_exec`` optimizer steps), and the exchange a step puts on
+    the wire per rank (``exchanged_bytes``) against the same gradients
+    uncompressed -- a ZeRO-1 step priced by ``zero_report``, a wrap by
+    ``wire_payload_bytes`` over its bucket plan."""
+
+    step: int
+    wall_time_s: float
+    steps_per_exec: int = 1
+    microbatches: int = 1
+    zero_stage: int = 0
+    codec: str = "none"
+    exchanged_bytes: int = 0
+    uncompressed_bytes: int = 0
+
+
+def last_step_report() -> Optional[StepReport]:
+    """The most recent :class:`StepReport` (None before the first step)."""
+    return registry().last_step_report
+
+
+def record_step_report(report: StepReport) -> None:
+    """Store ``report`` and feed the step-level families."""
+    reg = registry()
+    if not reg.enabled:
+        return
+    reg.record_step_report(report)
+    k = max(int(report.steps_per_exec), 1)
+    reg.counter("horovod_step_total",
+                "Optimizer steps completed").inc(k)
+    reg.histogram("horovod_step_time_seconds",
+                  "Per-step dispatch wall time (scan loops amortize "
+                  "one dispatch over k steps)").observe(
+                      report.wall_time_s / k)
+    reg.counter("horovod_wire_bytes_total",
+                "Cumulative per-chip gradient-exchange wire bytes"
+                ).inc(report.exchanged_bytes * k)
+    reg.gauge("horovod_wire_bytes_per_step",
+              "Per-chip exchange wire bytes per optimizer step"
+              ).set(report.exchanged_bytes)
+    reg.gauge("horovod_uncompressed_bytes_per_step",
+              "Equivalent uncompressed exchange bytes per optimizer step"
+              ).set(report.uncompressed_bytes)
+    if report.exchanged_bytes > 0 and report.uncompressed_bytes > 0:
+        reg.gauge("horovod_compression_ratio",
+                  "uncompressed / wire bytes of the gradient exchange"
+                  ).set(report.uncompressed_bytes / report.exchanged_bytes)
+
+
+def _collect_plan_cache() -> None:
+    """The exchange-plan cache's totals (``controller.fusion.
+    plan_cache_stats``) as the JAX package names them."""
+    from ..controller.fusion import plan_cache_stats
+    reg = registry()
+    stats = plan_cache_stats()
+    reg.counter("horovod_plan_cache_hits_total",
+                "Fusion bucket-plan cache hits"
+                ).set_cumulative(stats["hits"])
+    reg.counter("horovod_plan_cache_misses_total",
+                "Fusion bucket-plan cache misses"
+                ).set_cumulative(stats["misses"])
+    reg.counter("horovod_plan_cache_evictions_total",
+                "Fusion bucket-plan cache evictions"
+                ).set_cumulative(stats["evictions"])
+    reg.gauge("horovod_plan_cache_size",
+              "Fusion bucket-plan cache entries").set(stats["size"])
+
+
+# (name, help) of the families install_default_metrics creates, by kind:
+# the JAX package's, less those of modules the port does not have (the
+# serving control plane, the autotuner).
+_DEFAULT_FAMILIES = {
+    "counter": (
+        ("horovod_step_total", "Optimizer steps completed"),
+        ("horovod_wire_bytes_total",
+         "Cumulative per-chip gradient-exchange wire bytes"),
+        ("horovod_elastic_reset_total",
+         "Elastic state resets (rank-change recoveries)"),
+        ("horovod_elastic_host_updates_total",
+         "Elastic host-set update notifications"),
+        ("horovod_elastic_ranks_lost",
+         "Ranks lost across elastic recoveries"),
+        ("horovod_ef_residual_recovered_bytes",
+         "Bytes of optimizer/EF carry state reconstructed "
+         "checkpointlessly across elastic resizes"),
+        ("horovod_ef_residual_zeroed_total",
+         "EF residual buckets dropped (zeroed) during an elastic "
+         "resize because shapes were irreconcilable"),
+        ("horovod_chaos_faults_total", "Faults fired by the chaos injector"),
+        ("horovod_kv_retries_total",
+         "Control-plane requests retried after a transport failure"),
+    ),
+    "gauge": (
+        ("horovod_wire_bytes_per_step",
+         "Per-chip exchange wire bytes per optimizer step"),
+        ("horovod_uncompressed_bytes_per_step",
+         "Equivalent uncompressed exchange bytes per optimizer step"),
+        ("horovod_compression_ratio",
+         "uncompressed / wire bytes of the gradient exchange"),
+        ("horovod_dispatch_gap_fraction",
+         "Last DispatchGapMonitor window: host time NOT spent "
+         "dispatching (0 = devices never starved)"),
+        ("horovod_exchange_overlap_fraction",
+         "Last OverlapMonitor window: fraction of the exchange "
+         "hidden behind backward compute"),
+        ("horovod_plan_buckets",
+         "Bucket count of the most recently explained exchange plan"),
+        ("horovod_elastic_steps_to_recover",
+         "Steps rolled back to the last commit during the most "
+         "recent elastic recovery"),
+    ),
+}
+
+
+def install_default_metrics() -> None:
+    """Create the default families and wire the pull collectors, so a
+    scrape during a plain train loop shows the full family set before
+    every source has fired.  Idempotent; called from ``init()`` and by
+    the metrics server."""
+    reg = registry()
+    if not reg.enabled:
+        return
+    reg.histogram("horovod_step_time_seconds",
+                  "Per-step dispatch wall time (scan loops amortize "
+                  "one dispatch over k steps)")
+    for kind, families in _DEFAULT_FAMILIES.items():
+        for name, help in families:
+            getattr(reg, kind)(name, help)
+    reg.add_collector(_collect_plan_cache)
+
+
+def histogram_window(curr: dict, base: Optional[dict]) -> dict:
+    """``curr`` minus an older cumulative ``Histogram.snapshot()``
+    ``base``: the observations made between them (PromQL's
+    ``increase()``)."""
+    if not base:
+        return curr
+    base_buckets = base.get("buckets", {})
+    return {
+        "buckets": {le: int(c) - int(base_buckets.get(le, 0))
+                    for le, c in curr["buckets"].items()},
+        "sum": float(curr.get("sum", 0.0)) - float(base.get("sum", 0.0)),
+        "count": int(curr.get("count", 0)) - int(base.get("count", 0)),
+    }
+
+
+def histogram_quantile(snap: dict, q: float) -> Optional[float]:
+    """Prometheus ``histogram_quantile`` over a cumulative snapshot: the
+    first bucket covering rank ``q * count``, interpolated linearly;
+    the ``+Inf`` overflow clamps to the highest finite bound; None when
+    empty."""
+    total = int(snap.get("count", 0))
+    if total <= 0:
+        return None
+    items = sorted(
+        (float("inf") if le == "+Inf" else float(le), int(c))
+        for le, c in snap.get("buckets", {}).items())
+    rank = max(0.0, min(1.0, float(q))) * total
+    prev_bound, prev_count = 0.0, 0
+    for bound, count in items:
+        if count >= rank and count > prev_count:
+            if bound == float("inf"):
+                return prev_bound
+            frac = (rank - prev_count) / (count - prev_count)
+            return prev_bound + (bound - prev_bound) * frac
+        prev_count = count
+        if bound != float("inf"):
+            prev_bound = bound
+    return None
+
+
+def bench_block(snap: Optional[dict] = None) -> dict:
+    """The compact snapshot block the JAX package's ``bench.py`` records
+    (the same keys), from :func:`metrics_snapshot` unless given."""
+    if snap is None:
+        snap = metrics_snapshot()
+
+    def val(name: str, default: float = 0.0) -> float:
+        fam = snap.get(name) or {}
+        return float(fam.get("value", default))
+
+    hist = snap.get("horovod_step_time_seconds") or {}
+    ratio = val("horovod_compression_ratio")
+    return {
+        "families": len(snap),
+        "step_total": int(val("horovod_step_total")),
+        "step_time_count": int(hist.get("count", 0)),
+        "step_time_sum_s": round(float(hist.get("sum", 0.0)), 6),
+        "wire_bytes_total": int(val("horovod_wire_bytes_total")),
+        "wire_bytes_per_step": int(val("horovod_wire_bytes_per_step")),
+        "uncompressed_bytes_per_step": int(
+            val("horovod_uncompressed_bytes_per_step")),
+        "compression_ratio": round(ratio, 4) if ratio > 0 else None,
+        "plan_cache_hits": int(val("horovod_plan_cache_hits_total")),
+        "plan_cache_misses": int(val("horovod_plan_cache_misses_total")),
+    }
 
 
 _EXCHANGE = {

@@ -49,6 +49,26 @@ call on batches stacked ``[k, batch, ...]`` (:func:`stack_steps`,
 ``data.DevicePrefetcher(stack_steps=k)``) and return the ``[k]`` losses.
 On the GPU the window is one CUDA graph (see :class:`TrainLoop`).  The
 JAX builders' ``donate`` has no counterpart: torch updates in place.
+
+The SDC guard (``HOROVOD_GUARD``, :mod:`~horovod_tpu_torch.core.guard`),
+when a step is built with it armed: the step screens its gradients --
+``[nonfinite count, sum of squares]`` in f32, summed over the ranks in
+one 8-byte allreduce (the plan IR's ``guard`` row) -- the raw local
+gradients of the single-shot step, the merged gradient of the
+microbatched one (before its error-feedback exchange).  A step whose
+screen shows a nonfinite value (or a norm past
+``HOROVOD_GUARD_NORM_LIMIT``) keeps the parameters, the optimizer state,
+the error-feedback residuals, the ZeRO-1 shards and (flax step) the
+BatchNorm statistics it started from, bit for bit; the host feeds each
+step's ``[nonfinite, grad_norm, skipped]`` row (a loop window's ``[k,
+3]`` rows) to the guard policy, which raises ``SustainedAnomalyError``
+after ``HOROVOD_GUARD_STREAK`` skips in a row.  The step returns the
+loss alone, as an unguarded one does.
+
+With metrics on (``HOROVOD_METRICS``, the default) every step and loop
+comes back wrapped in a sampler that records a ``StepReport`` and a
+span summary per call (:class:`_InstrumentedStep`); other attributes
+are the wrapped object's.
 """
 
 from __future__ import annotations
@@ -335,15 +355,18 @@ def _ef_reduce(optimizer, grads: List[torch.Tensor]) -> List[torch.Tensor]:
     return reduced  # type: ignore[return-value]
 
 
-def _make_microbatch_step(model: torch.nn.Module, loss_fn,
-                          optimizer: torch.optim.Optimizer, k: int):
-    """``step(batch) -> loss`` of ``microbatches=k > 1`` (the JAX
-    ``_build_microbatch_local_step``): k forwards and
+def _microbatch_core(model: torch.nn.Module, loss_fn,
+                     optimizer: torch.optim.Optimizer, k: int,
+                     screen: bool):
+    """``core(batch) -> (loss, screen)`` of ``microbatches=k > 1`` (the
+    JAX ``_build_microbatch_local_step``): k forwards and
     ``torch.autograd.grad`` backwards through
     :class:`_MicrobatchGradPipe`, one optimizer step on the merged
     gradients, the loss the mean over the microbatches averaged over the
     ranks.  With a per-example-mean loss the merged gradient is the
-    full batch's up to the f32 accumulation order."""
+    full batch's up to the f32 accumulation order.  With ``screen`` the
+    guard screens the MERGED gradient (already summed over the ranks for
+    a wrapped exchange) before the error-feedback exchange."""
     optimizer, exchange = _microbatch_unwrap(optimizer)
     params = [p for g in optimizer.param_groups for p in g["params"]
               if p.requires_grad]
@@ -355,7 +378,7 @@ def _make_microbatch_step(model: torch.nn.Module, loss_fn,
     ef = _is_ef_exchange(exchange)
     pipe = _MicrobatchGradPipe(params, None if ef else exchange, k, order)
 
-    def step(batch) -> torch.Tensor:
+    def core(batch):
         losses, state, pending = [], None, None
         for mb in _split_microbatches(batch, k):
             loss = loss_fn(model, mb)
@@ -369,6 +392,7 @@ def _make_microbatch_step(model: torch.nn.Module, loss_fn,
                 state = pipe.collect(pending, state)
             pending = pipe.launch(grads)
         reduced = pipe.finalize(pipe.collect(pending, state))
+        gvec = _guard_screen(reduced) if screen else None
         if ef:
             reduced = _ef_reduce(optimizer, reduced)
         for p, g in zip(params, reduced):
@@ -379,10 +403,237 @@ def _make_microbatch_step(model: torch.nn.Module, loss_fn,
         else:
             optimizer.step()
         optimizer.zero_grad(set_to_none=True)
-        return allreduce(torch.stack(losses).mean(), Average)
+        return allreduce(torch.stack(losses).mean(), Average), gvec
 
-    step.zero_state = None
-    return step
+    return core
+
+
+def _step_core(model: torch.nn.Module, loss_fn,
+               optimizer: torch.optim.Optimizer, zero_stage: int,
+               zero_compression, screen: bool):
+    """``(core(batch) -> (loss, screen), zero_state)`` of the single-shot
+    step: forward, backward (the wrap's hooks launch its buckets), the
+    optimizer step or the ZeRO-1 update, the loss averaged over the
+    ranks.  With ``screen`` the guard screens the raw LOCAL gradients
+    (``p.grad`` after the backward, before the exchange writes the
+    reduced ones back), as the JAX ``make_train_step`` does."""
+    params = [p for g in optimizer.param_groups for p in g["params"]
+              if p.requires_grad]
+    state = None
+    if zero_stage:
+        _zero._reject_distributed(optimizer)
+        state = _zero.zero_init(optimizer, params,
+                                compression=zero_compression)
+
+    def core(batch):
+        loss = loss_fn(model, batch)
+        loss.backward()
+        gvec = _guard_screen([p.grad for p in params]) if screen else None
+        if zero_stage:
+            _zero.zero_apply(optimizer, [p.grad for p in params], state,
+                             params, compression=zero_compression)
+            optimizer.zero_grad(set_to_none=True)
+        # The optimizer counts the passes; a plain one steps every call.
+        elif getattr(optimizer, "exchange_ready", True):
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+        return allreduce(loss.detach(), Average), gvec
+
+    return core, state
+
+
+# ---------------------------------------------------------------------------
+# The SDC guard (core/guard.py): the in-step screen, verdict and select
+# ---------------------------------------------------------------------------
+
+
+def _guard_screen_vec(grads) -> torch.Tensor:
+    """Local half of the SDC screen: ``[nonfinite_count, sum of
+    squares]`` in f32 over the floating gradients (the JAX function of
+    that name).  The norm half is a magnitude SCREEN: it saturates to
+    inf past ~1e19, which the verdict treats as poisoned."""
+    flat = [g.detach().reshape(-1).float() for g in grads
+            if g is not None and g.is_floating_point()]
+    if not flat:
+        return torch.zeros(2, dtype=torch.float32)
+    x = torch.cat(flat)
+    nonfinite = torch.isfinite(x).logical_not().sum().to(torch.float32)
+    return torch.stack([nonfinite, torch.dot(x, x)])
+
+
+def _guard_screen(grads) -> torch.Tensor:
+    """The screen summed over the ranks: one 8-byte allreduce, noted as
+    the plan IR's ``guard/screen`` row."""
+    note_leg(plan_exchange("guard").legs[0])
+    return allreduce(_guard_screen_vec(grads), op=Sum)
+
+
+def _guard_verdict(gvec: torch.Tensor, norm_limit: float):
+    """``(nonfinite, norm, bad)`` from the summed screen vector."""
+    nonfinite = gvec[0]
+    norm = torch.sqrt(gvec[1])
+    bad = (nonfinite > 0) | ~torch.isfinite(norm)
+    if norm_limit and norm_limit > 0:
+        bad = bad | (norm > norm_limit)
+    return nonfinite, norm, bad
+
+
+def _guard_select(bad: torch.Tensor, old: Sequence[torch.Tensor],
+                  new: Sequence[torch.Tensor]) -> None:
+    """A poisoned step keeps the OLD tensors, written into ``new`` in
+    place: ``torch.where`` returns ``old`` exactly where ``bad`` holds,
+    a NaN in ``new`` included (an arithmetic mask would carry it)."""
+    for o, n in zip(old, new):
+        torch.where(bad.to(n.device), o, n, out=n)
+
+
+class _GuardState:
+    """The tensors a poisoned step must leave bit for bit: the trainable
+    parameters, the model's buffers (BatchNorm statistics, for the flax
+    step), every optimizer state tensor, a wrap's error-feedback
+    residuals (updated in place by the exchange, so copied before it)
+    and a ZeRO-1 state's shards and residuals.  :meth:`save` copies them
+    into buffers kept from step to step; :meth:`select` puts them back
+    on a poisoned step with no host branch, so the step is the same
+    eagerly and inside a CUDA graph.  State an optimizer creates on its
+    first step has no earlier value: on a poisoned step it is dropped
+    (a host read of the verdict, on that step only)."""
+
+    def __init__(self, model: torch.nn.Module, optimizers, zero_state,
+                 buffers: bool):
+        self._fixed = [p for p in model.parameters() if p.requires_grad]
+        if buffers:
+            self._fixed += list(model.buffers())
+        if zero_state is not None:
+            self._fixed += list(zero_state.shards) + \
+                list(zero_state.residuals or ())
+        self._optimizers = list(optimizers)
+        self._key = None
+        self._live: List[torch.Tensor] = []
+        self._old: List[torch.Tensor] = []
+
+    def _collect(self) -> List[torch.Tensor]:
+        out = list(self._fixed)
+        for opt in self._optimizers:
+            for st in opt.state.values():
+                out += [v for _, v in sorted(st.items())
+                        if torch.is_tensor(v)]
+            out += list(getattr(opt, "_residuals", None) or ())
+        return out
+
+    @torch.no_grad()
+    def save(self) -> None:
+        live = self._collect()
+        key = tuple(id(t) for t in live)
+        if key != self._key:
+            self._key, self._live = key, live
+            self._old = [torch.empty_like(t) for t in live]
+        if live:
+            torch._foreach_copy_(self._old, live)
+
+    @torch.no_grad()
+    def select(self, bad: torch.Tensor) -> None:
+        _guard_select(bad, self._old, self._live)
+        saved = set(self._key)
+        fresh = [(st, k) for opt in self._optimizers
+                 for st in opt.state.values() for k, v in st.items()
+                 if torch.is_tensor(v) and id(v) not in saved]
+        if fresh and bool(bad):
+            for st, k in fresh:
+                del st[k]
+
+
+class _Step:
+    """``step(batch) -> loss`` of a step builder: ``body(batch) ->
+    (loss, screen)`` with the screen dropped (``zero_state``: the ZeRO-1
+    state, or None; ``microbatches``: its k)."""
+
+    def __init__(self, body, zero_state, microbatches: int = 1):
+        self._body = body
+        self.zero_state = zero_state
+        self.microbatches = microbatches
+
+    def __call__(self, batch) -> torch.Tensor:
+        return self._body(batch)[0]
+
+
+class _GuardedStep(_Step):
+    """The host side of a guarded step (the JAX ``_GuardedStep``):
+    :meth:`guarded` runs the step between :class:`_GuardState`'s save
+    and select and returns ``(loss, [nonfinite, grad_norm, skipped])``;
+    a call feeds that row to :func:`~horovod_tpu_torch.core.guard.policy`
+    -- the guard's one host read a step, which may raise
+    :class:`~horovod_tpu_torch.core.exceptions.SustainedAnomalyError` --
+    and returns the loss alone, as an unguarded step does.  A
+    :class:`TrainLoop` runs :meth:`guarded` and reads a window's ``[k,
+    3]`` rows once."""
+
+    def __init__(self, body, zero_state, microbatches: int,
+                 state: _GuardState, norm_limit: float):
+        super().__init__(body, zero_state, microbatches)
+        self._state = state
+        self._norm_limit = norm_limit
+
+    def guarded(self, batch):
+        self._state.save()
+        loss, gvec = self._body(batch)
+        nonfinite, norm, bad = _guard_verdict(gvec, self._norm_limit)
+        self._state.select(bad)
+        return loss, torch.stack([nonfinite, norm, bad.to(torch.float32)])
+
+    def __call__(self, batch) -> torch.Tensor:
+        loss, row = self.guarded(batch)
+        _observe_guard_rows(row)
+        return loss
+
+
+def _observe_guard_rows(rows: torch.Tensor) -> None:
+    from .core import guard
+    guard.policy().observe(rows.detach().cpu().numpy())
+
+
+def _build_step(model: torch.nn.Module, loss_fn,
+                optimizer: torch.optim.Optimizer, zero_stage, zero_compression,
+                microbatches, flax: bool) -> _Step:
+    """The step both builders return (before the sampler wraps it):
+    the single-shot or microbatched core, then -- for the flax step --
+    the BatchNorm running statistics averaged over the ranks, under the
+    guard when ``HOROVOD_GUARD`` arms it."""
+    zero_stage = _resolve_zero_stage(zero_stage)
+    k_micro = _resolve_microbatches(microbatches)
+    if zero_stage and k_micro > 1:
+        raise ValueError(
+            "microbatches > 1 is incompatible with zero_stage=1 (the "
+            "ZeRO-1 arena reduce-scatter is already shard-based; overlap "
+            "it via HOROVOD_EXCHANGE_CHUNK_MB instead)")
+    from .core import guard
+    guard_on, norm_limit = guard.step_guard(global_state().config)
+    if k_micro > 1:
+        core = _microbatch_core(model, loss_fn, optimizer, k_micro, guard_on)
+        zero_state = None
+    else:
+        core, zero_state = _step_core(model, loss_fn, optimizer, zero_stage,
+                                      zero_compression, guard_on)
+    stats = [b for b in model.buffers() if b.is_floating_point()] \
+        if flax else []
+
+    def body(batch):
+        if flax:
+            model.train()
+        loss, gvec = core(batch)
+        if stats:
+            with torch.no_grad():
+                torch._foreach_copy_(stats,
+                                     grouped_allreduce(stats, Average))
+        return loss, gvec
+
+    if not guard_on:
+        return _Step(body, zero_state, k_micro)
+    optimizers = [optimizer] + ([zero_state.inner] if zero_state is not None
+                                else [])
+    return _GuardedStep(body, zero_state, k_micro,
+                        _GuardState(model, optimizers, zero_state,
+                                    buffers=flax), norm_limit)
 
 
 def make_train_step(model: torch.nn.Module,
@@ -403,39 +654,11 @@ def make_train_step(model: torch.nn.Module,
     synchronizes with the device.  ``microbatches=k > 1`` (default
     ``HOROVOD_MICROBATCHES``) runs the backward-overlap exchange (module
     docstring; not with ``zero_stage=1``); ``k = 1`` is this step.
+    Under the SDC guard (module docstring) a poisoned step is skipped.
     """
-    zero_stage = _resolve_zero_stage(zero_stage)
-    k_micro = _resolve_microbatches(microbatches)
-    if zero_stage and k_micro > 1:
-        raise ValueError(
-            "microbatches > 1 is incompatible with zero_stage=1 (the "
-            "ZeRO-1 arena reduce-scatter is already shard-based; overlap "
-            "it via HOROVOD_EXCHANGE_CHUNK_MB instead)")
-    if k_micro > 1:
-        return _make_microbatch_step(model, loss_fn, optimizer, k_micro)
-    params = state = None
-    if zero_stage:
-        _zero._reject_distributed(optimizer)
-        params = [p for g in optimizer.param_groups for p in g["params"]
-                  if p.requires_grad]
-        state = _zero.zero_init(optimizer, params,
-                                compression=zero_compression)
-
-    def step(batch) -> torch.Tensor:
-        loss = loss_fn(model, batch)
-        loss.backward()
-        if zero_stage:
-            _zero.zero_apply(optimizer, [p.grad for p in params], state,
-                             params, compression=zero_compression)
-            optimizer.zero_grad(set_to_none=True)
-        # The optimizer counts the passes; a plain one steps every call.
-        elif getattr(optimizer, "exchange_ready", True):
-            optimizer.step()
-            optimizer.zero_grad(set_to_none=True)
-        return allreduce(loss.detach(), Average)
-
-    step.zero_state = state
-    return step
+    step = _build_step(model, loss_fn, optimizer, zero_stage,
+                       zero_compression, microbatches, flax=False)
+    return _instrument(step, 1, optimizer, model, zero_compression)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -446,6 +669,11 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return F.cross_entropy(logits, labels.long())
 
 
+def _flax_loss(m: torch.nn.Module, batch) -> torch.Tensor:
+    x, y = batch
+    return softmax_xent(m(x), y)
+
+
 def make_flax_train_step(model: torch.nn.Module,
                          optimizer: torch.optim.Optimizer,
                          zero_stage: Optional[int] = None,
@@ -454,8 +682,8 @@ def make_flax_train_step(model: torch.nn.Module,
                          ) -> Callable[[Any], torch.Tensor]:
     """Build ``step((x, y)) -> loss`` for a model with batch statistics.
 
-    Each step puts ``model`` in train mode, runs :func:`make_train_step`
-    on ``softmax_xent(model(x), y)`` -- the forward updates every
+    Each step puts ``model`` in train mode, runs :func:`make_train_step`'s
+    step on ``softmax_xent(model(x), y)`` -- the forward updates every
     BatchNorm's running statistics from this rank's batch, the backward
     launches the optimizer's bucketed allreduces, the optimizer steps
     once its accumulation is complete -- then averages the running
@@ -467,29 +695,12 @@ def make_flax_train_step(model: torch.nn.Module,
     ``microbatches=k > 1``: the backward-overlap exchange; the BatchNorm
     statistics chain through the k sub-batches and the running averages
     advance k times a step, as in the JAX step -- so it is not the
-    single-shot step.
+    single-shot step.  A step the SDC guard skips keeps the running
+    statistics too.
     """
-    def model_loss(m: torch.nn.Module, batch) -> torch.Tensor:
-        x, y = batch
-        return softmax_xent(m(x), y)
-
-    inner = make_train_step(model, model_loss, optimizer,
-                            zero_stage=zero_stage,
-                            zero_compression=zero_compression,
-                            microbatches=microbatches)
-    stats = [b for b in model.buffers() if b.is_floating_point()]
-
-    def step(batch) -> torch.Tensor:
-        model.train()
-        loss = inner(batch)
-        if stats:
-            with torch.no_grad():
-                torch._foreach_copy_(stats,
-                                     grouped_allreduce(stats, Average))
-        return loss
-
-    step.zero_state = inner.zero_state
-    return step
+    step = _build_step(model, _flax_loss, optimizer, zero_stage,
+                       zero_compression, microbatches, flax=True)
+    return _instrument(step, 1, optimizer, model, zero_compression)
 
 
 def sync_batch_norm(axes=None, **kwargs) -> BatchNorm:
@@ -634,7 +845,10 @@ class TrainLoop:
     What the capture records on the host -- the kernels' launch
     counters, the metrics registry's counters (exchange, collective,
     ZeRO-1, sync BN) and the span leg registry -- it adds again at every
-    later replay, so they count the steps the card runs.  Nothing falls
+    later replay, so they count the steps the card runs.  Under the SDC
+    guard the window runs each step's screen, verdict and select (inside
+    the graph on the GPU) and the host reads the window's ``[k, 3]``
+    guard rows once, after it, for the guard policy.  Nothing falls
     back to eager steps: a step the graph cannot capture (a host read
     such as ``.item()``, a non-capturable optimizer, a
     ``backward_passes_per_step`` that does not divide k) raises
@@ -658,10 +872,16 @@ class TrainLoop:
         self._hyper = None
         self._generation = global_state().generation
 
-    def _window(self, batches) -> torch.Tensor:
-        return torch.stack([self.step(tree_map(lambda x, i=i: x[i],
-                                               batches))
-                            for i in range(self.steps_per_execution)])
+    def _window(self, batches):
+        """``(losses [k], guard rows [k, 3] or None)`` of k steps."""
+        guarded = getattr(self.step, "guarded", None)
+        outs = [guarded(b) if guarded is not None else (self.step(b), None)
+                for b in (tree_map(lambda x, i=i: x[i], batches)
+                          for i in range(self.steps_per_execution))]
+        losses = torch.stack([loss for loss, _ in outs])
+        if guarded is None:
+            return losses, None
+        return losses, torch.stack([row for _, row in outs])
 
     def __call__(self, batches) -> torch.Tensor:
         leaves = tree_leaves(batches)
@@ -673,7 +893,7 @@ class TrainLoop:
                     f"batch, ...] (stack_steps); got a leaf of shape "
                     f"{tuple(x.shape)}")
         if not leaves or leaves[0].device.type != "cuda":
-            return self._window(batches)
+            return self._observed(self._window(batches))
         gen = global_state().generation
         if gen != self._generation:
             self._graph = self._static_out = self._static_in = None
@@ -699,9 +919,19 @@ class TrainLoop:
                 self._graph.replay()
                 out = self._static_out
         caller.wait_stream(side)
-        out.record_stream(caller)
+        for t in out:
+            if t is not None:
+                t.record_stream(caller)
         self._calls += 1
-        return out
+        return self._observed(out)
+
+    @staticmethod
+    def _observed(out) -> torch.Tensor:
+        """The window's losses, its guard rows fed to the policy first."""
+        losses, rows = out
+        if rows is not None:
+            _observe_guard_rows(rows)
+        return losses
 
     def _capture(self, batches) -> torch.Tensor:
         from .ops import registry
@@ -770,8 +1000,7 @@ def make_train_loop(model: torch.nn.Module,
                     zero_stage: Optional[int] = None,
                     zero_compression=None,
                     microbatches: Optional[int] = None,
-                    generators: Sequence[torch.Generator] = ()
-                    ) -> TrainLoop:
+                    generators: Sequence[torch.Generator] = ()):
     """Build ``loop(batches) -> losses`` (the JAX ``make_train_loop``):
     ``steps_per_execution`` (default ``HOROVOD_STEPS_PER_EXEC``) steps
     of :func:`make_train_step` a call, on ``[k, batch, ...]`` stacked
@@ -782,11 +1011,12 @@ def make_train_loop(model: torch.nn.Module,
     the step draws from (dropout), registered with the graph.  k steps
     of the loop equal k step calls bitwise."""
     k = _resolve_steps(steps_per_execution)
-    step = make_train_step(model, loss_fn, optimizer, zero_stage=zero_stage,
-                           zero_compression=zero_compression,
-                           microbatches=microbatches)
-    return TrainLoop(step, k, model, _loop_optimizers(optimizer, step),
-                     generators)
+    step = _build_step(model, loss_fn, optimizer, zero_stage,
+                       zero_compression, microbatches, flax=False)
+    return _instrument(TrainLoop(step, k, model,
+                                 _loop_optimizers(optimizer, step),
+                                 generators), k, optimizer, model,
+                       zero_compression)
 
 
 def make_flax_train_loop(model: torch.nn.Module,
@@ -795,14 +1025,135 @@ def make_flax_train_loop(model: torch.nn.Module,
                          zero_stage: Optional[int] = None,
                          zero_compression=None,
                          microbatches: Optional[int] = None,
-                         generators: Sequence[torch.Generator] = ()
-                         ) -> TrainLoop:
+                         generators: Sequence[torch.Generator] = ()):
     """:func:`make_train_loop` of :func:`make_flax_train_step` (the JAX
     ``make_flax_train_loop``): ``loop(batches)`` on ``(x, y)`` pairs
     stacked ``[k, batch, ...]``, returning the ``[k]`` losses."""
     k = _resolve_steps(steps_per_execution)
-    step = make_flax_train_step(model, optimizer, zero_stage=zero_stage,
-                                zero_compression=zero_compression,
-                                microbatches=microbatches)
-    return TrainLoop(step, k, model, _loop_optimizers(optimizer, step),
-                     generators)
+    step = _build_step(model, _flax_loss, optimizer, zero_stage,
+                       zero_compression, microbatches, flax=True)
+    return _instrument(TrainLoop(step, k, model,
+                                 _loop_optimizers(optimizer, step),
+                                 generators), k, optimizer, model,
+                       zero_compression)
+
+
+# ---------------------------------------------------------------------------
+# The step sampler: a StepReport and a span summary per call
+# ---------------------------------------------------------------------------
+
+
+def _instrument(fn, steps: int, optimizer, model: torch.nn.Module,
+                zero_compression):
+    """``fn`` wrapped in :class:`_InstrumentedStep` (``steps`` optimizer
+    steps a call), or ``fn`` itself when ``HOROVOD_METRICS=0``."""
+    from .timeline import metrics as _metrics
+    if not _metrics.registry().enabled:
+        return fn
+    inner = getattr(fn, "step", fn)          # a TrainLoop's step
+    return _InstrumentedStep(fn, steps, {
+        "optimizer": optimizer, "model": model,
+        "zero_compression": zero_compression,
+        "microbatches": getattr(inner, "microbatches", 1)})
+
+
+class _InstrumentedStep:
+    """Host-side sampler around a step or a loop (the JAX
+    ``_InstrumentedStep``): each call's wall time -- the dispatch, which
+    ends when the call returns (the loss is read later) -- becomes a
+    :class:`~horovod_tpu_torch.timeline.metrics.StepReport`, and the
+    span recorder books the call as ``dispatch`` and the host time since
+    the previous call's return as ``dispatch_gap`` (mirrored into an
+    open timeline), then closes the step with ``step_boundary``, which
+    feeds the straggler monitor and the trace plane.  Every other
+    attribute is the wrapped object's.  The exchange accounting is
+    computed once, from shapes, and degrades to zeros on failure: it
+    must never break training."""
+
+    def __init__(self, fn, steps: int, meta: dict):
+        self._fn = fn
+        self._steps = max(int(steps), 1)
+        self._meta = meta
+        self._accounting = None
+        self._step_count = 0
+        self._last_end: Optional[float] = None
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def _account(self):
+        if self._accounting is None:
+            try:
+                self._accounting = _step_exchange_accounting(
+                    self._meta, getattr(self._fn, "zero_state", None))
+            except Exception:
+                self._accounting = ("unknown", 0, 0)
+        return self._accounting
+
+    def __call__(self, *args):
+        import time as _time
+
+        from .timeline import metrics as _metrics
+        from .timeline import spans as _spans
+        reg = _metrics.registry()
+        if not reg.enabled:
+            return self._fn(*args)
+        codec, wire, raw = self._account()
+        rec = _spans.recorder()
+        step = self._step_count + self._steps
+        rec.set_step(step)
+        t0 = _time.perf_counter()
+        t0_unix_us = _time.time() * 1e6
+        gap = (t0 - self._last_end) if self._last_end is not None else 0.0
+        if gap > 0:
+            rec.add("dispatch_gap", gap, emit=True)
+        with rec.span("dispatch", name="step"):
+            out = self._fn(*args)
+        t1 = _time.perf_counter()
+        wall = t1 - t0
+        self._last_end = t1
+        self._step_count += self._steps
+        try:
+            _metrics.record_step_report(_metrics.StepReport(
+                step=self._step_count, wall_time_s=wall,
+                steps_per_exec=self._steps,
+                microbatches=self._meta["microbatches"],
+                zero_stage=int(getattr(self._fn, "zero_state", None)
+                               is not None),
+                codec=codec, exchanged_bytes=wire,
+                uncompressed_bytes=raw))
+            # The step's wall includes the dispatch gap (a late host is
+            # a late rank); its wall-clock anchor backs up to the gap's
+            # start.
+            rec.step_boundary(step, wall + gap,
+                              t0_unix_us=t0_unix_us - gap * 1e6)
+        except Exception:
+            pass
+        return out
+
+
+def _step_exchange_accounting(meta: dict, zero_state):
+    """``(codec, wire_bytes, uncompressed_bytes)`` of one optimizer
+    step's exchange a rank: ZeRO-1 as ``zero_report`` prices it, a
+    ``DistributedOptimizer`` wrap by ``wire_payload_bytes`` over its
+    bucket plan, a bare optimizer no wire at all."""
+    from .collectives.compression import parse_compression, \
+        wire_payload_bytes
+    optimizer = meta["optimizer"]
+    params = [p for p in meta["model"].parameters() if p.requires_grad]
+    raw = sum(p.numel() * p.element_size() for p in params)
+    if zero_state is not None:
+        comp = meta["zero_compression"]
+        rep = _zero.zero_report(optimizer, params,
+                                global_state().size, compression=comp)
+        codec = getattr(parse_compression(comp), "__name__", "none") \
+            if comp else "none"
+        return (codec, int(rep["zero1_exchanged_bytes_per_chip"]),
+                int(rep["replicated_allreduce_bytes_per_chip"]))
+    if not isinstance(optimizer, _dist._DistributedOptimizer):
+        return ("none", 0, raw)
+    comp = optimizer._compression
+    wire = sum(wire_payload_bytes(comp, sum(s.size for s in lspecs),
+                                  dt.itemsize)
+               for dt, lspecs in optimizer.bucket_plan.buffers)
+    return (getattr(comp, "__name__", type(comp).__name__), int(wire), raw)

@@ -5,9 +5,14 @@ package (``tests/test_chaos.py``'s cases on ``horovod_tpu_torch``).
   packages; ``rank=any`` victims equal to the JAX injector's for the same
   ``(seed, fault index, size)``;
 * the injector's firing rules and latches (``comm``, ``at=sync``,
-  ``kill``, ``sigterm``, ``kv_blackout``, ``hb_drop``, ``slow``, ``nan``;
-  consuming a ``bitflip`` raises: the silent-data-corruption plane is not
-  ported), ``poison_batch`` on tensor trees against the JAX one;
+  ``kill``, ``sigterm``, ``kv_blackout``, ``hb_drop``, ``slow``, ``nan``,
+  ``bitflip``, whose consumer gets its victim rank as the JAX one does),
+  ``poison_batch`` on tensor trees against the JAX one;
+* the silent-data-corruption and observability knobs
+  (``HOROVOD_CHECK_DESYNC``, ``HOROVOD_DESYNC_CHECK_STEPS``,
+  ``HOROVOD_GUARD*``, ``HOROVOD_TIMELINE*``, ``HOROVOD_METRICS*``,
+  ``HOROVOD_TRACE_*``) parsed as the JAX config parses them, and
+  ``init()`` accepting each SDC knob with the guard armed;
 * the commit boundary as the chaos clock: the port ticks it BEFORE the
   snapshot, so an injected fault rolls back to the commit before (the JAX
   package ticks after it);
@@ -297,8 +302,9 @@ def test_heartbeat_writer_skips_beats_during_hb_drop(tmp_path):
 
 def test_corruption_faults_fire_on_every_process():
     """nan/bitflip fire on every process (the victim rides in the latch);
-    consuming a pending bitflip raises -- its consumer is the
-    silent-data-corruption plane, not ported."""
+    consuming a pending bitflip returns its victim once, as the JAX
+    package's does (``core/desync.corrupt_replica`` applies it)."""
+    from horovod_tpu.elastic import chaos as jchaos
     for rank in range(3):
         chaos.reset()
         inj = chaos.ChaosInjector(
@@ -309,8 +315,10 @@ def test_corruption_faults_fire_on_every_process():
         assert chaos.consume_nan_poison() is None
         assert chaos.consume_bitflip() is None
         inj.on_step(4)
-        with pytest.raises(NotImplementedError, match="1.11"):
-            chaos.consume_bitflip()
+        jchaos.reset()
+        jchaos.ChaosInjector("bitflip@step=4,rank=2", rank=rank,
+                             size=3).on_step(4)
+        assert chaos.consume_bitflip() == jchaos.consume_bitflip() == 2
         assert chaos.consume_bitflip() is None    # one-shot
         inj.on_step(4)
         assert chaos.consume_bitflip() is None
@@ -465,6 +473,17 @@ KNOBS = {
     "HOROVOD_ELASTIC_TIMEOUT": ("elastic_timeout", "120"),
     "HOROVOD_HEARTBEAT_TIMEOUT": ("heartbeat_timeout", "30"),
     "HOROVOD_STALL_CHECK_DISABLE": ("stall_check_disable", "1"),
+    "HOROVOD_CHECK_DESYNC": ("check_desync", "1"),
+    "HOROVOD_DESYNC_CHECK_STEPS": ("desync_check_steps", "4"),
+    "HOROVOD_GUARD": ("guard", " On "),
+    "HOROVOD_GUARD_NORM_LIMIT": ("guard_norm_limit", "1e6"),
+    "HOROVOD_GUARD_STREAK": ("guard_streak", "5"),
+    "HOROVOD_TIMELINE": ("timeline", "/tmp/tl.json"),
+    "HOROVOD_TIMELINE_MARK_CYCLES": ("timeline_mark_cycles", "yes"),
+    "HOROVOD_METRICS": ("metrics_enabled", "0"),
+    "HOROVOD_METRICS_PORT": ("metrics_port", "0"),
+    "HOROVOD_TRACE_SYNC": ("trace_sync", "1"),
+    "HOROVOD_TRACE_PUBLISH_STEPS": ("trace_publish_steps", "3"),
 }
 
 
@@ -482,11 +501,23 @@ def test_knobs_parse_like_jax(monkeypatch, env):
                                        ("HOROVOD_GUARD", "1"),
                                        ("HOROVOD_CHECK_DESYNC", "1")])
 def test_sdc_plane_is_refused(monkeypatch, env, value):
+    """Each knob that turns the silent-data-corruption plane on: init()
+    accepts it, and the guard arms (``auto`` on the desync knobs), as in
+    the JAX package."""
     import horovod_tpu_torch as hvd
+    from horovod_tpu.core import guard as jguard
+    from horovod_tpu.core.config import load_config as jax_config
+    from horovod_tpu_torch.core import guard
+    from horovod_tpu_torch.core.state import global_state
     monkeypatch.setenv(env, value)
-    with pytest.raises(NotImplementedError, match="1.11"):
-        hvd.init(device="cpu")
-    assert not hvd.is_initialized()
+    hvd.init(device="cpu")
+    try:
+        assert hvd.is_initialized()
+        cfg = global_state().config
+        assert guard.resolve_mode(cfg) is True
+        assert guard.resolve_mode(cfg) == jguard.resolve_mode(jax_config())
+    finally:
+        hvd.shutdown()
 
 
 def test_init_configures_and_shutdown_stops_the_stall_inspector(

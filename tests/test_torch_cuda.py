@@ -34,6 +34,8 @@ from horovod_tpu_torch.ops import registry
 
 ATOL = 1e-5
 F32_GRAD_REL = 1e-5
+MODEL_F32_GRAD_REL = 1e-3   # a whole model's f32 backward: the sums'
+                            # order compounds through the BN sites
 BF16_REL = 2e-2
 
 
@@ -1557,3 +1559,133 @@ def test_cuda_graph_loop_captures_again_after_a_reinit(world1_cuda,
     assert torch.equal(l1, l2)
     for k in s1:
         assert torch.equal(s1[k], s2[k]), k
+
+
+# ---------------------------------------------------------------------------
+# The silent-data-corruption plane on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16", "int32",
+                                   "int8", "bool"])
+def test_cuda_tripwire_checksum_equals_the_cpu(cuda, dtype):
+    """The tripwire's bit checksum of a tensor on the card equals that of
+    the same tensor on the CPU, past 2**16 elements; and a model's."""
+    from horovod_tpu_torch.core import desync
+    rng = np.random.RandomState(71)
+    n = 300_001
+    if dtype == "bool":
+        t = torch.from_numpy(rng.rand(n) < 0.5)
+    elif dtype in ("int32", "int8"):
+        t = torch.from_numpy(rng.randint(-100, 100, n).astype(dtype))
+    else:
+        t = _randn(rng, n).to(getattr(torch, dtype))
+    assert int(desync._traced_bit_checksum(t.to(cuda))) == \
+        int(desync._traced_bit_checksum(t))
+    model = _tiny_resnet_cuda(seed=7)
+    tree = desync.module_tree(model)
+    cpu = {k: v.cpu() for k, v in model.state_dict().items()}
+    model_cpu = _tiny_resnet_cuda(seed=7).cpu()
+    model_cpu.load_state_dict(cpu)
+    assert desync.local_checksum(tree) == \
+        desync.local_checksum(desync.module_tree(model_cpu))
+
+
+def _guarded(hvd):
+    """Turn the guard on for steps built from now (the config is read
+    when a step is built)."""
+    import dataclasses
+
+    from horovod_tpu_torch.core import guard
+    from horovod_tpu_torch.core.state import global_state
+    st = global_state()
+    st.config = dataclasses.replace(st.config, guard="1")
+    guard.reset()
+    return guard
+
+
+def _nan_bytes(t):
+    return t.detach().cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_cuda_guarded_graph_loop_equals_guarded_eager_steps(world1_cuda,
+                                                            deterministic):
+    """Guarded ``make_flax_train_loop(steps_per_execution=2)`` on the
+    card -- eager window, capture, replays -- bitwise eight guarded
+    eager steps, with step 6's batch poisoned inside a replayed window:
+    skipped in the graph (parameters, momentum and BN statistics kept),
+    the windows' rows fed to the policy."""
+    from horovod_tpu_torch.elastic import chaos
+    from horovod_tpu_torch.training import (make_flax_train_loop,
+                                            make_flax_train_step,
+                                            stack_steps)
+    hvd = world1_cuda
+    guard = _guarded(hvd)
+    data = _loop_batches(8, seed=7)
+    data[5] = chaos.poison_batch(data[5])
+    out = []
+    for use_loop in (False, True):
+        guard.reset()
+        model = _tiny_resnet_cuda(seed=6)
+        named = list(model.named_parameters())
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD([p for _, p in named], lr=0.1, momentum=0.9),
+            named_parameters=named)
+        if use_loop:
+            loop = make_flax_train_loop(model, opt, steps_per_execution=2)
+            losses = torch.cat([loop(stack_steps(data[i:i + 2])).clone()
+                                for i in range(0, 8, 2)])
+            assert loop._graph is not None
+        else:
+            step = make_flax_train_step(model, opt)
+            losses = torch.stack([step(b).clone() for b in data])
+        torch.cuda.synchronize()
+        pol = guard.policy()
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        state.update({f"m{i}": s["momentum_buffer"].clone()
+                      for i, s in enumerate(opt.state.values())})
+        out.append((losses, state, pol.steps, pol.skipped))
+    (l1, s1, n1, k1), (l2, s2, n2, k2) = out
+    assert (n1, k1) == (n2, k2) == (8, 1)
+    assert _nan_bytes(l1) == _nan_bytes(l2)
+    assert not torch.isfinite(l2[5])
+    for k in s1:
+        assert torch.equal(s1[k], s2[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_bn_kernels_equal_plain_under_the_guard(world1_cuda):
+    """After guarded steps on the card, one loss and backward through the
+    BN kernels equals the plain versions' (f32, through every BN site of
+    the model: ``MODEL_F32_GRAD_REL`` of max |grad|, as ``chip_smoke.py``
+    phase 7 holds ResNet-50), and the guarded steps launched both kernels
+    at every BN site."""
+    from horovod_tpu_torch.ops.bn import BatchNorm
+    from horovod_tpu_torch.training import make_flax_train_step, softmax_xent
+    hvd = world1_cuda
+    _guarded(hvd)
+    model = _tiny_resnet_cuda(seed=8)
+    sites = sum(isinstance(m, BatchNorm) for m in model.modules())
+    named = list(model.named_parameters())
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD([p for _, p in named], lr=0.1, momentum=0.9),
+        named_parameters=named)
+    step = make_flax_train_step(model, opt)
+    data = _loop_batches(2, seed=8)
+    registry.reset_launch_counts()
+    for b in data:
+        step(b)
+    assert registry.launches("bn_bwd_reduce") == 2 * sites
+    assert registry.launches("bn_bwd_dx") == 2 * sites
+    # torch.autograd.grad: the wrap's gradient hooks do not fire.
+    params = list(model.parameters())
+    grads = []
+    for ref in (False, True):
+        x, y = data[0]
+        grads.append(torch.autograd.grad(
+            softmax_xent(model(x, force_reference=ref), y), params))
+    for g, w in zip(*grads):
+        assert (g - w).abs().max().item() <= \
+            MODEL_F32_GRAD_REL * max(w.abs().max().item(), 1e-30)

@@ -156,6 +156,8 @@ def _grid(family):
                                         ("float16", 25_557_032)),
                                k=k, world=world, compression=c), \
                         dict(compression=_jcomp(c))
+    elif family == "guard":
+        yield {}, None
     elif family == "kernel":
         for kernel, nbytes in (("flash_decode", 1 << 20),
                                ("fused_update", 4 * 300)):
@@ -163,7 +165,7 @@ def _grid(family):
 
 
 FAMILIES = ("flat", "hier", "chunked", "powersgd", "topk", "fp8", "ef",
-            "zero", "microbatch", "kernel")
+            "zero", "microbatch", "guard", "kernel")
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -203,9 +205,9 @@ def test_plan_exchange_memoizes_one_object_per_spec(monkeypatch):
     assert a is b
     assert after["hits"] == before["hits"] + 1
     assert after["misses"] == before["misses"]
+    tmetrics.install_default_metrics()       # init()'s collectors
     snap = tmetrics.registry().snapshot()
-    assert snap["horovod_plan_cache_hits"]["samples"][0]["value"] == \
-        after["hits"]
+    assert snap["horovod_plan_cache_hits_total"]["value"] == after["hits"]
     monkeypatch.setenv("HOROVOD_PLAN_CACHE", "0")
     c = tfusion.plan_exchange("flat", size=300, dtype="float32")
     assert c == a and c is not a

@@ -10,7 +10,8 @@ errors), the tagged output and first-failure supervision
 the per-job secret, the clock-skew window, a server blackout, a chaos
 blackout on the client, chunked objects) -- with each package's client
 talking to the other's server.  Then the launcher's CLI (``launch.py``):
-the worker environment, the refusals of what is not ported, the build
+the worker environment, the refusals of what is not ported,
+``--timeline-filename``'s per-rank timelines, the build
 report, ``--explain-plan`` beside the JAX one, and real runs of
 ``python -m horovod_tpu_torch.run -np 2 --cpu`` (gloo): an allreduce, a
 failing worker's exit code, ``-H localhost:2``, and a peer killed in the
@@ -19,6 +20,7 @@ classifier must call a recoverable comm failure.
 """
 
 import io
+import json
 import os
 import random
 import subprocess
@@ -404,9 +406,30 @@ def test_cli_usage_errors():
 
 @pytest.mark.parametrize("flag", [["--timeline-filename", "t.json"],
                                   ["--autotune"], ["--probe"]])
-def test_cli_refuses_what_is_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="1.11"):
-        tlaunch.run_command(["-np", "1", *flag, "true"])
+def test_cli_refuses_what_is_not_ported(flag, tmp_path, monkeypatch):
+    """``--autotune`` and ``--probe`` raise naming their slice;
+    ``--timeline-filename`` gives each rank ``HOROVOD_TIMELINE=PATH.<rank>``
+    (what the JAX launcher exports) and the workers write their traces."""
+    if flag[0] != "--timeline-filename":
+        with pytest.raises(NotImplementedError, match="1.11, slice 15"):
+            tlaunch.run_command(["-np", "1", *flag, "true"])
+        return
+    for k in _LAUNCHER_ENV:
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("PYTHONPATH", REPO)
+    base = str(tmp_path / "t.json")
+    code = ("import os, horovod_tpu_torch as hvd; hvd.init(); "
+            "print('TL', os.environ['HOROVOD_TIMELINE']); hvd.shutdown()")
+    assert tlaunch.run_command(["-np", "2", "--cpu", "--timeline-filename",
+                                base, sys.executable, "-c", code]) == 0
+    from horovod_tpu.run.launch import apply_timeline_env as japply
+    for r in range(2):
+        env, jenv = {}, {}
+        tlaunch.apply_timeline_env(env, r, base)
+        japply(jenv, r, base)
+        assert env == jenv == {"HOROVOD_TIMELINE": f"{base}.{r}"}
+        with open(f"{base}.{r}") as f:
+            assert json.load(f)[0]["args"]["rank"] == r
 
 
 def test_cli_refuses_lsf_without_np(monkeypatch):

@@ -2,10 +2,10 @@
 package's shim ``horovod_tpu.torch_api``.
 
 * The shim's public names are a subset of the port's top level, and the
-  names of its ``elastic`` module a subset of ``hvd.elastic``'s; ``join``,
-  ``start_timeline`` and ``stop_timeline`` raise ``NotImplementedError``
-  naming their items (``steps_per_execution`` returns the resolved value:
-  ``tests/test_torch_train_loop.py``).
+  names of its ``elastic`` module a subset of ``hvd.elastic``'s; ``join``
+  raises ``NotImplementedError`` naming its item; ``start_timeline`` /
+  ``stop_timeline`` write and close a timeline (``steps_per_execution``
+  returns the resolved value: ``tests/test_torch_train_loop.py``).
 * Horovod's keywords and the second positional parameter of
   ``allreduce`` (Horovod's ``average``; a ReduceOp there is ``op``),
   ``name=``, ``compression=``, the build probes.
@@ -34,6 +34,7 @@ package's shim ``horovod_tpu.torch_api``.
 """
 
 import inspect
+import json
 import os
 import subprocess
 import sys
@@ -50,7 +51,8 @@ _LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "HOROVOD_RANK",
 OPT_ATOL = 1e-6
 BN_REL = 1e-5
 LATER_ITEMS = set()                 # names later ROADMAP items own
-RAISING = {"join": "1.8", "start_timeline": "1.11", "stop_timeline": "1.11"}
+RAISING = {"join": "1.8"}
+TIMELINE_CALLS = ("start_timeline", "stop_timeline")
 VOCAB, DIM, CLASSES, STEPS = 12, 4, 3, 3
 SHIM_OPS = ("Sum", "Average")
 BN_C = 5
@@ -87,11 +89,30 @@ def test_shim_elastic_names_are_a_subset_of_the_port():
         thvd.core.exceptions.HostsUpdatedInterrupt
 
 
-@pytest.mark.parametrize("name", sorted(RAISING))
-def test_later_items_raise_naming_their_item(name):
-    with pytest.raises(NotImplementedError, match=RAISING[name]):
-        getattr(thvd, name)("x") if name == "start_timeline" else \
+@pytest.mark.parametrize("name", sorted(RAISING) + list(TIMELINE_CALLS))
+def test_later_items_raise_naming_their_item(name, tmp_path):
+    """``join`` raises naming its item.  ``start_timeline`` needs
+    ``init()`` first (as the reference's), then writes a Chrome trace;
+    ``stop_timeline`` closes it (twice is a no-op)."""
+    if name in RAISING:
+        with pytest.raises(NotImplementedError, match=RAISING[name]):
             getattr(thvd, name)()
+        return
+    path = tmp_path / "timeline.json"
+    if name == "start_timeline":
+        with pytest.raises(thvd.core.exceptions.NotInitializedError):
+            thvd.start_timeline(str(path))
+    thvd.init(device="cpu")
+    try:
+        thvd.start_timeline(str(path))
+        if name == "stop_timeline":
+            thvd.stop_timeline()
+            thvd.stop_timeline()
+    finally:
+        thvd.shutdown()
+    with open(path) as f:
+        events = json.load(f)
+    assert events[0]["name"] == "clock_anchor"
 
 
 def test_no_module_imports_jax():
