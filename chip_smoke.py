@@ -214,6 +214,32 @@ Phases, each printing its own line; any failure exits non-zero:
    world 1 the tripwire sees one value and can name no rank).  Logged:
    ``horovod_guard_skipped_total``, ``horovod_guard_rollbacks_total``,
    the steps to recover and the recovery ms, the BN launches.
+24. autotune_resnet -- the autotuner, the launcher's probe and LSF
+   ``-np``, and the sharded checkpoints on phase 8's cell (deterministic
+   cuDNN) under ``HOROVOD_AUTOTUNE=1``, ``HOROVOD_AUTOTUNE_CHUNK=1`` and
+   a ``HOROVOD_AUTOTUNE_LOG`` file; ``init()`` must build the tuner,
+   which the phase replaces with ``Autotuner(cfg, steps_per_sample=3,
+   max_samples=6)``.  (a) ``make_flax_train_step`` until the tuner locks
+   (a sample: one unscored step and three scored), then three steps at
+   the chosen threshold and chunk: every step's buckets as
+   ``plan_buckets`` plans them at its sample's threshold, the run
+   bitwise as many untuned steps (parameters, momentum, BN statistics,
+   losses), six samples in the log and its ``# best`` row; (b) the same
+   through ``make_flax_train_loop(steps_per_execution=4)`` with four
+   samples: each sample one eager window, one capture and three scored
+   replays, so one capture a trace key and no eager or capture window
+   scored, bitwise as many untuned windows; (c) a second tuner over
+   (a)'s log is done at construction with (a)'s best; (d)
+   ``save_checkpoint_sharded`` / ``restore_checkpoint_sharded`` of the
+   parameters, BN statistics and momentum (205 MB) bitwise, on the card,
+   beside ``save_checkpoint`` / ``restore_checkpoint``; (e) ``python -m
+   horovod_tpu_torch.run --probe --autotune`` under ``LSB_JOBID`` and
+   ``LSB_MCPU_HOSTS="<this host> 1"`` with no ``-np``: exit 0, the probe
+   report, a worker on ``cuda`` at size 1 with a tuner.  Logged: the
+   samples' scores (bytes/s) by threshold and chunk, the chosen pair,
+   the step ms at it beside the default 64 MiB, the tuning steps' ms,
+   ``horovod_autotune_samples_total``, the captures of (b), each
+   checkpoint call's ms, the BN launches.
 
 Phase 17 also holds ``chunked_allreduce`` (equal to ``allreduce`` at
 world 1) and ``fp8_allreduce`` (bitwise its round trip) on its 64 MiB
@@ -232,6 +258,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -3810,6 +3837,7 @@ def sdc_resnet(dev, card: str, phase8_step_ms: float,
         "phase22_commit_ms": phase22_commit_ms,
         "note": "world 1: the tripwire sees one value and can name no rank"}
     log(entry_d)
+    shutil.rmtree(tmp, ignore_errors=True)
     # Every step call of the eager runs is one dispatch event: 24 in (a),
     # each of (b)'s calls, and one a window of (c).
     if len(dispatch) < 2 * SDC_STEPS or len(gap_track) != SDC_STEPS:
@@ -3825,6 +3853,369 @@ def sdc_resnet(dev, card: str, phase8_step_ms: float,
         fails.append(f"(d) world-1 checks found {costs}")
     if fails:
         raise AssertionError("sdc_resnet: " + "; ".join(fails))
+    return bn_total
+
+
+AUTOTUNE_STEPS_PER_SAMPLE = 3  # phase 24: scored steps a sample
+AUTOTUNE_SAMPLES = 6           # phase 24 (a): samples before the tuner locks
+AUTOTUNE_LOOP_SAMPLES = 4      # phase 24 (b): five windows a sample
+AUTOTUNE_AFTER = 3             # (a): timed steps once the tuner is locked
+AUTOTUNE_AFTER_WINDOWS = 3     # (b): eager, capture and a replay at the best
+AUTOTUNE_ENV = {"HOROVOD_AUTOTUNE": "1", "HOROVOD_AUTOTUNE_CHUNK": "1"}
+AUTOTUNE_LAUNCH_TIMEOUT = 300
+AUTOTUNE_WORKER = (
+    "import horovod_tpu_torch as hvd\n"
+    "from horovod_tpu_torch.core.state import global_state\n"
+    "hvd.init()\n"
+    "st = global_state()\n"
+    "print(f'autotune worker rank {hvd.rank()} size {hvd.size()} device "
+    "{st.device.type} tuner {type(st.autotuner).__name__}', flush=True)\n"
+    "hvd.shutdown()\n")
+
+
+def _median(xs) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def _autotune_run(model, opt, pool, tuner, n: int = 0,
+                  loop_k: int = 0) -> dict:
+    """Phase 24: phase 8's step (or the loop of ``loop_k`` over windows
+    of the pool) under ``tuner`` until it locks and then ``AUTOTUNE_AFTER``
+    steps (``AUTOTUNE_AFTER_WINDOWS`` windows) more; or, with ``tuner``
+    None, ``n`` untuned calls.  A call's ms (host clock, synchronized),
+    its trace key, the buckets the exchange counted and the optimizer
+    planned, and the BN launches."""
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.timeline import metrics
+    from horovod_tpu_torch.training import (make_flax_train_loop,
+                                            make_flax_train_step,
+                                            stack_steps)
+    st = global_state()
+    st.autotuner = tuner
+    registry.reset_launch_counts()
+    out = {"losses": [], "ms": [], "keys": [], "buckets": [], "planned": []}
+    try:
+        if loop_k:
+            fn = make_flax_train_loop(model, opt, steps_per_execution=loop_k)
+            batch = stack_steps([pool[i % len(pool)] for i in range(loop_k)])
+            after = AUTOTUNE_AFTER_WINDOWS
+        else:
+            fn = make_flax_train_step(model, opt)
+            after = AUTOTUNE_AFTER
+        i = left = 0
+        while True:
+            if tuner is None:
+                if i == n:
+                    break
+            elif tuner.done:
+                if left == after:
+                    break
+                left += 1
+            key = tuner.trace_key() if tuner is not None else None
+            before = metrics.exchange_totals()["buckets"]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = fn(batch if loop_k else pool[i % len(pool)])
+            torch.cuda.synchronize()
+            out["ms"].append(1e3 * (time.perf_counter() - t))
+            out["losses"].append(loss.clone().reshape(-1))
+            out["keys"].append(key)
+            out["buckets"].append(metrics.exchange_totals()["buckets"]
+                                  - before)
+            out["planned"].append(len(opt.bucket_plan.buffers))
+            i += 1
+        out["calls"] = i
+        out["trail"] = list(getattr(fn, "trail", ()))
+        out["launches"] = {f: registry.launch_counts()[f]
+                           for f in ("bn_bwd_reduce", "bn_bwd_dx")}
+        out["losses"] = torch.cat(out["losses"])
+        del fn
+    finally:
+        st.autotuner = None
+    return out
+
+
+def _launch_autotune(here: str) -> dict:
+    """Phase 24 (e): ``python -m horovod_tpu_torch.run --probe --autotune``
+    inside an LSF allocation of this host's one slot, with no ``-np``."""
+    import socket
+    env = dict(os.environ, PYTHONPATH=here, LSB_JOBID="24",
+               LSB_MCPU_HOSTS=f"{socket.gethostname()} 1")
+    for k in list(env):
+        if k.startswith(("HOROVOD_AUTOTUNE", "HVD_TPU_AUTOTUNE")) or k in (
+                "HVD_TPU_FORCE_CPU", "HOROVOD_RANK", "HOROVOD_SIZE",
+                "HVD_TPU_RENDEZVOUS_FILE", "LSB_DJOB_RANKFILE"):
+            env.pop(k)
+    args = [sys.executable, "-m", "horovod_tpu_torch.run", "--probe",
+            "--autotune", "-v", sys.executable, "-c", AUTOTUNE_WORKER]
+    t = time.perf_counter()
+    try:
+        res = subprocess.run(args, env=env, cwd=here, capture_output=True,
+                             text=True, timeout=AUTOTUNE_LAUNCH_TIMEOUT)
+        code, text = res.returncode, res.stdout + res.stderr
+    except subprocess.TimeoutExpired as e:
+        code, text = "timeout", f"{e.stdout or ''}{e.stderr or ''}"
+    return {"exit": code, "wall_s": time.perf_counter() - t,
+            "worker_ok": "autotune worker rank 0 size 1 device cuda tuner "
+                         "Autotuner" in text,
+            "probe_ok": "# probe slot0: " in text, "tail": text[-1200:]}
+
+
+def autotune_resnet(dev, card: str, phase8_step_ms: float) -> dict:
+    """Phase 24 (see the module docstring).  Returns the BN launches of
+    its runs."""
+    import tempfile
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.autotune import Autotuner
+    from horovod_tpu_torch.controller.fusion import plan_buckets
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.timeline import metrics
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    fails = []
+    bn_total = {"bn_bwd_reduce": 0, "bn_bwd_dx": 0}
+    tmp = tempfile.mkdtemp(prefix="hvd_autotune_smoke_")
+    log_path = os.path.join(tmp, "autotune.csv")
+    saved_env = {k: os.environ.get(k) for k in
+                 list(AUTOTUNE_ENV) + ["HOROVOD_AUTOTUNE_LOG"]}
+    os.environ.update(AUTOTUNE_ENV, HOROVOD_AUTOTUNE_LOG=log_path)
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    _reset_counters()
+    hvd.init()
+    st = global_state()
+    try:
+        built_by_init = type(st.autotuner).__name__
+        cfg = st.config
+        model, _ = resnet50(dev, seed=0)
+        named = list(model.named_parameters())
+        trainable = [p for _, p in named]
+        init_state = {k: v.clone() for k, v in model.state_dict().items()}
+        gen = torch.Generator(device=dev).manual_seed(0)
+        pool = [images(gen, dev, 256, 1000) for _ in range(2)]
+
+        def fresh():
+            gc.collect()
+            model.load_state_dict(init_state)
+            return hvd.DistributedOptimizer(
+                torch.optim.SGD(trainable, lr=0.1, momentum=0.9),
+                named_parameters=named, compression=hvd.Compression.none)
+
+        def count(run):
+            for f in bn_total:
+                bn_total[f] += run["launches"][f]
+
+        def expected_buckets(key):
+            return len(plan_buckets(trainable, key[0], reverse=True).buffers)
+
+        # (a) The eager tuned run against as many untuned steps.
+        samples_before = metrics.registry().counter(
+            "horovod_autotune_samples_total").value
+        tuner = Autotuner(cfg, steps_per_sample=AUTOTUNE_STEPS_PER_SAMPLE,
+                          max_samples=AUTOTUNE_SAMPLES)
+        opt = fresh()
+        tuned = _autotune_run(model, opt, pool, tuner)
+        tuned["state"] = _snapshot(model, opt)
+        del opt
+        opt = fresh()
+        plain = _autotune_run(model, opt, pool, None, n=tuned["calls"])
+        plain["state"] = _snapshot(model, opt)
+        del opt
+        count(tuned)
+        count(plain)
+        samples_total = metrics.registry().counter(
+            "horovod_autotune_samples_total").value - samples_before
+        diff = _bitwise(plain["state"], tuned["state"])
+        losses_equal = torch.equal(plain["losses"], tuned["losses"])
+        wrong_buckets = [(k[0], got, exch) for k, got, exch in zip(
+            tuned["keys"], tuned["planned"], tuned["buckets"])
+            if not got == exch == expected_buckets(k)]
+        with open(log_path) as f:
+            log_text = f.read()
+        log_rows = [ln for ln in log_text.splitlines()
+                    if ln and not ln.startswith(("fusion", "#"))]
+        best = tuner._best
+        scored = [t for t in tuned["trail"] if t[2]]
+        entry_a = {
+            "phase": "autotune_resnet", "part": "a_eager", "card": card,
+            "batch": [256, 224, 224, 3], "built_by_init": built_by_init,
+            "steps": tuned["calls"],
+            "samples": [{"threshold": s[0], "chunk": s[5],
+                         "score_bytes_per_s": s[-1]}
+                        for s in tuner._samples],
+            "chosen": {"threshold": best[0], "chunk": best[5]},
+            "step_ms_chosen": _median(tuned["ms"][-AUTOTUNE_AFTER:]),
+            "step_ms_default_64MiB": _median(plain["ms"][-AUTOTUNE_AFTER:]),
+            "step_ms_tuning_median": _median(tuned["ms"][:-AUTOTUNE_AFTER]),
+            "phase8_step_ms": phase8_step_ms,
+            "buckets_by_threshold": sorted({(k[0], b) for k, b in zip(
+                tuned["keys"], tuned["planned"])}),
+            "scored_steps": len(scored), "unscored_steps": len(
+                tuned["trail"]) - len(scored),
+            "horovod_autotune_samples_total": samples_total,
+            "log_rows": len(log_rows), "log_best": "# best," in log_text,
+            "bitwise_vs_untuned": not diff and losses_equal,
+            "differing": diff[:8], "wrong_buckets": wrong_buckets[:8],
+            "bn_launches": tuned["launches"]}
+        log(entry_a)
+        if built_by_init != "Autotuner":
+            fails.append(f"(a) init() built {built_by_init}")
+        if diff or not losses_equal:
+            fails.append(f"(a) not bitwise untuned: {diff[:8]}, losses "
+                         f"equal {losses_equal}")
+        if wrong_buckets:
+            fails.append(f"(a) buckets not as planned: {wrong_buckets[:8]}")
+        if len(tuner._samples) != AUTOTUNE_SAMPLES or \
+                len(log_rows) != AUTOTUNE_SAMPLES or "# best," not in \
+                log_text or samples_total != AUTOTUNE_SAMPLES:
+            fails.append(f"(a) {len(tuner._samples)} samples, "
+                         f"{len(log_rows)} log rows, counter "
+                         f"{samples_total}")
+        if len(scored) != AUTOTUNE_SAMPLES * AUTOTUNE_STEPS_PER_SAMPLE:
+            fails.append(f"(a) {len(scored)} scored steps")
+        for run in (tuned, plain):
+            want = RESNET50_BN_SITES * run["calls"]
+            if run["launches"] != {f: want for f in bn_total}:
+                fails.append(f"(a) BN launches {run['launches']} != {want}")
+        best_a = best
+        del tuned, plain
+
+        # (b) The loop tuned run against as many untuned windows.
+        tuner_b = Autotuner(dataclasses.replace(cfg, autotune_log=None),
+                            steps_per_sample=AUTOTUNE_STEPS_PER_SAMPLE,
+                            max_samples=AUTOTUNE_LOOP_SAMPLES)
+        opt = fresh()
+        tuned = _autotune_run(model, opt, pool, tuner_b, loop_k=LOOP_K)
+        tuned["state"] = _snapshot(model, opt)
+        del opt
+        opt = fresh()
+        plain = _autotune_run(model, opt, pool, None, n=tuned["calls"],
+                              loop_k=LOOP_K)
+        plain["state"] = _snapshot(model, opt)
+        count(tuned)
+        count(plain)
+        diff = _bitwise(plain["state"], tuned["state"])
+        losses_equal = torch.equal(plain["losses"], tuned["losses"])
+        trail = tuned["trail"]
+        keys = sorted({k for k, _, _ in trail})
+        captures = {str(k): [kind for kk, kind, _ in trail if kk == k]
+                    .count("capture") for k in keys}
+        warm_scored = [t for t in trail if t[1] != "replay" and t[2]]
+        entry_b = {
+            "phase": "autotune_resnet", "part": "b_loop", "card": card,
+            "steps_per_execution": LOOP_K, "windows": tuned["calls"],
+            "samples": [{"threshold": s[0], "chunk": s[5],
+                         "score_bytes_per_s": s[-1]}
+                        for s in tuner_b._samples],
+            "chosen": {"threshold": tuner_b._best[0],
+                       "chunk": tuner_b._best[5]},
+            "captures_by_key": captures,
+            "kinds": [kind for _, kind, _ in trail],
+            "scored_windows": sum(1 for t in trail if t[2]),
+            "eager_or_capture_scored": len(warm_scored),
+            "step_ms_chosen_replay": tuned["ms"][-1] / LOOP_K,
+            "step_ms_untuned_replay": plain["ms"][-1] / LOOP_K,
+            "bitwise_vs_untuned_loop": not diff and losses_equal,
+            "differing": diff[:8], "bn_launches": tuned["launches"]}
+        log(entry_b)
+        if diff or not losses_equal:
+            fails.append(f"(b) not bitwise the untuned loop: {diff[:8]}, "
+                         f"losses equal {losses_equal}")
+        if len(keys) != AUTOTUNE_LOOP_SAMPLES or \
+                set(captures.values()) != {1} or warm_scored:
+            fails.append(f"(b) captures {captures}, scored warm windows "
+                         f"{warm_scored}")
+        for run in (tuned, plain):
+            want = RESNET50_BN_SITES * LOOP_K * run["calls"]
+            if run["launches"] != {f: want for f in bn_total}:
+                fails.append(f"(b) BN launches {run['launches']} != {want}")
+        del tuned, plain
+
+        # (c) A warm start over (a)'s log.
+        warm = Autotuner(cfg, steps_per_sample=AUTOTUNE_STEPS_PER_SAMPLE,
+                         max_samples=AUTOTUNE_SAMPLES)
+        entry_c = {"phase": "autotune_resnet", "part": "c_warm_start",
+                   "done_at_construction": warm.done,
+                   "same_best": warm._best == best_a,
+                   "warm_rows": len(warm._samples)}
+        log(entry_c)
+        if not warm.done or warm._best != best_a:
+            fails.append(f"(c) warm start {entry_c}")
+
+        # (d) Sharded checkpoint of the state (a) and (b) trained.
+        tree = {"model": model.state_dict(),
+                "momentum": [s["momentum_buffer"]
+                             for s in opt.state.values()]}
+        like = {"model": {k: torch.zeros_like(v)
+                          for k, v in tree["model"].items()},
+                "momentum": [torch.zeros_like(m) for m in tree["momentum"]]}
+        nbytes = sum(v.numel() * v.element_size() for v in
+                     list(tree["model"].values()) + tree["momentum"])
+        ck_ms = {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            ck_ms[name] = 1e3 * (time.perf_counter() - t)
+            return r
+
+        sdir = os.path.join(tmp, "sharded")
+        timed("save_sharded", lambda: hvd.save_checkpoint_sharded(
+            sdir, tree, step=24))
+        got_s, step_s = timed("restore_sharded",
+                              lambda: hvd.restore_checkpoint_sharded(
+                                  sdir, like))
+        npz = hvd.checkpoint_path(tmp, 24)
+        timed("save_npz", lambda: hvd.save_checkpoint(npz, tree, step=24))
+        got_n, step_n = timed("restore_npz",
+                              lambda: hvd.restore_checkpoint(npz, like))
+
+        def same(got):
+            return all(torch.equal(got["model"][k], v)
+                       for k, v in tree["model"].items()) and all(
+                torch.equal(g, w) for g, w in zip(got["momentum"],
+                                                  tree["momentum"]))
+
+        entry_d = {"phase": "autotune_resnet", "part": "d_checkpoint",
+                   "card": card, "bytes": nbytes,
+                   "tensors": len(tree["model"]) + len(tree["momentum"]),
+                   "ms": ck_ms, "sharded_bitwise": same(got_s),
+                   "npz_bitwise": same(got_n),
+                   "steps": [step_s, step_n],
+                   "on_device": all(v.device.type == "cuda" for v in
+                                    got_s["model"].values())}
+        log(entry_d)
+        if not (entry_d["sharded_bitwise"] and entry_d["npz_bitwise"]
+                and entry_d["on_device"] and step_s == step_n == 24):
+            fails.append(f"(d) checkpoints {entry_d}")
+        del opt, model, named, trainable, init_state, pool, tree, like, \
+            got_s, got_n
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = cudnn
+        hvd.shutdown()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (e) The launcher: --probe --autotune, -np from LSF.
+    entry_e = {"phase": "autotune_resnet", "part": "e_launcher",
+               **_launch_autotune(here)}
+    log(entry_e)
+    if entry_e["exit"] != 0 or not entry_e["worker_ok"] or \
+            not entry_e["probe_ok"]:
+        fails.append(f"(e) launcher: {entry_e}")
+    if fails:
+        raise AssertionError("autotune_resnet: " + "; ".join(fails))
     return bn_total
 
 
@@ -3900,6 +4291,8 @@ def main() -> int:
     free_device()
     sdc_bn = sdc_resnet(dev, card, resnet["step_ms"], commit_ms)
     free_device()
+    autotune_bn = autotune_resnet(dev, card, resnet["step_ms"])
+    free_device()
     # The attention and BN kernels run on several paths: their launches
     # are the sums.
     flash["launches"] = serve["flash"] + train["flash"] + bert["flash"]
@@ -3911,11 +4304,12 @@ def main() -> int:
                           + exchange["bn_bwd_reduce"]
                           + loop["bn_bwd_reduce"]
                           + elastic_bn["bn_bwd_reduce"]
-                          + sdc_bn["bn_bwd_reduce"])
+                          + sdc_bn["bn_bwd_reduce"]
+                          + autotune_bn["bn_bwd_reduce"])
     bn_dx["launches"] = (resnet["bn_bwd_dx"] + inception["bn_bwd_dx"]
                          + torch_rn50["bn_bwd_dx"] + exchange["bn_bwd_dx"]
                          + loop["bn_bwd_dx"] + elastic_bn["bn_bwd_dx"]
-                         + sdc_bn["bn_bwd_dx"])
+                         + sdc_bn["bn_bwd_dx"] + autotune_bn["bn_bwd_dx"])
     for e in fused:
         e["launches"] = powersgd[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

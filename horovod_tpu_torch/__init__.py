@@ -68,16 +68,22 @@ ported so far:
   DIR``), a ``StepReport`` and span summary a step, the straggler
   monitor, the dispatch-gap and overlap monitors, the cross-rank trace
   plane (``HOROVOD_TRACE_SYNC``) and Prometheus ``/metrics``
-  (``HOROVOD_METRICS_PORT``).
+  (``HOROVOD_METRICS_PORT``);
+* the autotuner (``HOROVOD_AUTOTUNE``, ``--autotune``): GP Bayesian
+  search over the fusion threshold and the opt-in chunk, codec, ZeRO,
+  steps-per-execution and microbatch axes, rank 0 deciding, with a CSV
+  log that warm-starts the next run; the launcher's pre-launch probe
+  (``--probe``) and ``-np`` from an LSF allocation; and sharded
+  checkpoints (:func:`save_checkpoint_sharded`), one npz a rank.
 
 Kernels hand-written in CUDA C++ for ``sm_90a`` (``ops/csrc``) carry
 attention -- the flash forward and decode kernels, the flash backward's
 dq and dk/dv kernels -- the train-mode BatchNorm backward's two
 passes, and the three stages of the PowerSGD exchange.  The layout
 mirrors ``horovod_tpu`` (``core/``, ``adasum/``, ``collectives/``,
-``controller/``, ``data/``, ``elastic/``, ``optim/``, ``run/``,
-``timeline/``, ``models/``, ``ops/``, ``serving/``, ``utils/``,
-``training.py``) so each module's counterpart is easy to find.
+``autotune/``, ``controller/``, ``data/``, ``elastic/``, ``optim/``,
+``run/``, ``timeline/``, ``models/``, ``ops/``, ``serving/``,
+``utils/``, ``training.py``) so each module's counterpart is easy to find.
 
 The package imports ``torch`` and ``numpy`` only -- nothing of JAX and
 nothing of ``horovod_tpu``.  Entry points run on ``cuda`` unless the
@@ -124,7 +130,8 @@ from .optim.zero import zero_init, zero_report  # noqa: F401
 from .sync_batch_norm import SyncBatchNorm  # noqa: F401
 from .utils.checkpoint import (checkpoint_path,  # noqa: F401
                                latest_checkpoint, restore_checkpoint,
-                               save_checkpoint)
+                               restore_checkpoint_sharded, save_checkpoint,
+                               save_checkpoint_sharded)
 from .training import (bert_pretrain_loss,  # noqa: F401
                        make_flax_train_loop, make_flax_train_step,
                        make_train_loop, make_train_step, microbatches,

@@ -1,0 +1,125 @@
+"""Gaussian-process Bayesian optimization for the autotuner.
+
+The port's copy of ``horovod_tpu/autotune/gp.py``, numpy only, the same
+arithmetic in the same order, so for the same observations both pick
+the same grid index.  Reference: ``horovod/common/optim/
+gaussian_process.cc`` (RBF-kernel GP regression) +
+``bayesian_optimization.cc`` (expected-improvement acquisition over the
+tuning space).  Small-n: the tuner takes tens of samples, so exact
+Cholesky solves are free.
+
+The search space is normalized to the unit hypercube; callers hand in a
+discrete candidate grid (each distinct fusion threshold re-plans the
+optimizer's buckets, so the tuner proposes no continuum of values).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+
+class GaussianProcess:
+    """Exact GP regression with an RBF kernel (fixed hyperparameters)."""
+
+    def __init__(self, length_scale: float = 0.25, noise: float = 1e-4):
+        self.length_scale = length_scale
+        self.noise = noise
+        self._X: Optional[np.ndarray] = None
+        self._L: Optional[np.ndarray] = None
+        self._alpha: Optional[np.ndarray] = None
+        self._y_mean = 0.0
+        self._y_std = 1.0
+
+    def _kernel(self, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+        d2 = ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)
+        return np.exp(-0.5 * d2 / self.length_scale**2)
+
+    def fit(self, X: np.ndarray, y: np.ndarray) -> None:
+        X = np.atleast_2d(np.asarray(X, np.float64))
+        y = np.asarray(y, np.float64)
+        self._y_mean = float(y.mean())
+        self._y_std = float(y.std()) or 1.0
+        yn = (y - self._y_mean) / self._y_std
+        K = self._kernel(X, X) + self.noise * np.eye(len(X))
+        self._L = np.linalg.cholesky(K)
+        self._alpha = np.linalg.solve(
+            self._L.T, np.linalg.solve(self._L, yn))
+        self._X = X
+
+    def predict(self, Xs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(mean, std) at query points, de-normalized."""
+        Xs = np.atleast_2d(np.asarray(Xs, np.float64))
+        Ks = self._kernel(Xs, self._X)
+        mu = Ks @ self._alpha
+        v = np.linalg.solve(self._L, Ks.T)
+        var = np.clip(1.0 - (v**2).sum(0), 1e-12, None)
+        return (mu * self._y_std + self._y_mean,
+                np.sqrt(var) * self._y_std)
+
+
+def _norm_cdf(z: np.ndarray) -> np.ndarray:
+    return 0.5 * (1.0 + np.vectorize(math.erf)(z / math.sqrt(2.0)))
+
+
+def _norm_pdf(z: np.ndarray) -> np.ndarray:
+    return np.exp(-0.5 * z**2) / math.sqrt(2.0 * math.pi)
+
+
+def expected_improvement(mu: np.ndarray, sigma: np.ndarray,
+                         best: float, xi: float = 0.01) -> np.ndarray:
+    """EI for MAXIMIZATION of the objective."""
+    imp = mu - best - xi
+    z = imp / sigma
+    return imp * _norm_cdf(z) + sigma * _norm_pdf(z)
+
+
+class BayesianOptimizer:
+    """EI-driven search over a discrete candidate grid (maximization).
+
+    ``grid``: array [n, d] of candidate points in ORIGINAL units.
+    Normalization to [0, 1]^d happens internally.
+    """
+
+    def __init__(self, grid: Sequence[Sequence[float]],
+                 warmup: int = 4):
+        self.grid = np.atleast_2d(np.asarray(grid, np.float64))
+        lo = self.grid.min(0)
+        span = self.grid.max(0) - lo
+        span[span == 0] = 1.0
+        self._norm = (self.grid - lo) / span
+        self.warmup = warmup
+        self._X: List[int] = []    # sampled grid indices
+        self._y: List[float] = []
+
+    def observe(self, index: int, score: float) -> None:
+        self._X.append(index)
+        self._y.append(float(score))
+
+    def suggest(self) -> Optional[int]:
+        """Next grid index to try; None when the grid is exhausted."""
+        remaining = [i for i in range(len(self.grid)) if i not in self._X]
+        if not remaining:
+            return None
+        if len(self._y) < self.warmup:
+            # Deterministic spread over the grid for warmup (SPMD ranks
+            # must agree): evenly-strided unsampled points.
+            return remaining[(len(self._y) * len(remaining)) //
+                             max(1, self.warmup)]
+        gp = GaussianProcess()
+        gp.fit(self._norm[self._X], np.asarray(self._y))
+        mu, sigma = gp.predict(self._norm[remaining])
+        ei = expected_improvement(mu, sigma, max(self._y))
+        return remaining[int(np.argmax(ei))]
+
+    @property
+    def n_observed(self) -> int:
+        return len(self._y)
+
+    @property
+    def best_index(self) -> Optional[int]:
+        if not self._y:
+            return None
+        return self._X[int(np.argmax(self._y))]

@@ -69,31 +69,47 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 
 def fusion_threshold() -> int:
-    """The configured threshold once ``init()`` has run, else 64 MiB."""
-    cfg = global_state().config
-    return cfg.fusion_threshold if cfg is not None else \
-        DEFAULT_FUSION_THRESHOLD
+    """The threshold once ``init()`` has run (the autotuner's current
+    sample while one is active, else ``HOROVOD_FUSION_THRESHOLD``), else
+    64 MiB."""
+    st = global_state()
+    if st.config is None:
+        return DEFAULT_FUSION_THRESHOLD
+    if st.autotuner is not None:
+        return st.autotuner.fusion_threshold()
+    return st.config.fusion_threshold
 
 
 def exchange_chunk_bytes() -> int:
-    """The chunked exchange's chunk size in bytes
-    (``HOROVOD_EXCHANGE_CHUNK_MB``; 0, the default, is off)."""
-    cfg = global_state().config
-    return cfg.exchange_chunk_bytes if cfg is not None else 0
+    """The chunked exchange's chunk size in bytes (the autotuner's chunk
+    axis while one is active, else ``HOROVOD_EXCHANGE_CHUNK_MB``; 0, the
+    default, is off)."""
+    st = global_state()
+    if st.config is None:
+        return 0
+    if st.autotuner is not None:
+        return st.autotuner.exchange_chunk_bytes()
+    return st.config.exchange_chunk_bytes
 
 
 def hier_requested(compression=None) -> bool:
     """Whether the two-level exchange is in effect for the gradient
-    path: a per-leg codec always asks for it; otherwise
+    path: a per-leg codec always asks for it; while the autotuner's
+    hierarchical axis is open (a two-level layout), its sample decides,
+    as in the JAX ``allreduce_gradients``; otherwise
     ``HOROVOD_HIERARCHICAL_ALLREDUCE`` or a ``HOROVOD_HIERARCHICAL``
     topology spec does."""
     from ..collectives.compression import is_hier_legs
     from ..core.topology import parse_topology_spec
     if compression is not None and is_hier_legs(compression):
         return True
-    cfg = global_state().config
+    st = global_state()
+    cfg = st.config
     if cfg is None:
         return False
+    tuner = st.autotuner
+    if tuner is not None and tuner.tunes_hier:
+        return tuner.hierarchical_explicit()
     if cfg.hierarchical_allreduce:
         return True
     if cfg.hierarchical:

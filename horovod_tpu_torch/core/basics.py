@@ -30,6 +30,9 @@ under ``HOROVOD_METRICS_PORT``, the ``/metrics`` server, the straggler
 monitor on the span recorder's step boundary (metrics on), and the
 cross-rank trace plane (``HOROVOD_TRACE_SYNC=1``, over the launcher's
 HTTP KV store; without one it only warns).  ``shutdown()`` stops each.
+Under ``HOROVOD_AUTOTUNE=1`` it builds the online tuner
+(``global_state().autotuner``), whose current sample the exchange knobs
+read.
 """
 
 from __future__ import annotations
@@ -123,6 +126,9 @@ def init(*, device: Optional[Union[str, torch.device]] = None,
         st.initialized = True
         _install_global_set()
         _install_observability(st, cfg)
+        if cfg.autotune:
+            from ..autotune import Autotuner
+            st.autotuner = Autotuner(cfg)
         from . import stall
         stall.configure(cfg)
         # Deterministic fault injection (HOROVOD_CHAOS): installed once a

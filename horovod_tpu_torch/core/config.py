@@ -52,6 +52,17 @@ class Config:
     # Gradient bucketing threshold in bytes (HOROVOD_FUSION_THRESHOLD,
     # default 64 MiB, as in the reference).
     fusion_threshold: int = 64 * _MiB
+    # Eager-path micro-batch window in milliseconds (HOROVOD_CYCLE_TIME).
+    # The autotuner's cycle axis stays pinned to it: the native cycle
+    # scheduler it would drive is ROADMAP item 1.8, not ported.
+    cycle_time: float = 1.0
+    # Online autotuning (HOROVOD_AUTOTUNE; autotune/): init() builds an
+    # Autotuner whose current sample wins over the knobs it tunes.
+    # HOROVOD_AUTOTUNE_LOG persists the samples as CSV and warm-starts
+    # the next run from them.  The HOROVOD_AUTOTUNE_<AXIS> switches are
+    # read by the tuner itself.
+    autotune: bool = False
+    autotune_log: Optional[str] = None
     # Default gradient-exchange codec (HOROVOD_COMPRESSION): a spec string
     # parsed by ``collectives.compression.parse_compression`` --
     # none|fp16|bf16|fp8|powersgd:<rank>|topk:<f>|ici:<c>,dcn:<c>.
@@ -161,6 +172,9 @@ def load_config() -> Config:
     """A :class:`Config` from the environment."""
     return Config(
         fusion_threshold=_env_int("FUSION_THRESHOLD", 64 * _MiB),
+        cycle_time=_env_float("CYCLE_TIME", 1.0),
+        autotune=_env_bool("AUTOTUNE"),
+        autotune_log=_env("AUTOTUNE_LOG"),
         compression=_env("COMPRESSION"),
         ef_residual=_env_bool("EF_RESIDUAL", True),
         hierarchical_allreduce=_env_bool("HIERARCHICAL_ALLREDUCE"),

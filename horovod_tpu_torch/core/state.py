@@ -20,6 +20,11 @@ The observability plane ``init()`` arms lives here too, and ``reset()``
 ``trace_plane`` (``HOROVOD_TRACE_SYNC``), and the span recorder's
 wiring.  Each owns a thread or a socket, so none outlives the world it
 was made for.
+
+``autotuner`` is the online tuner ``init()`` builds under
+``HOROVOD_AUTOTUNE=1`` (``autotune.Autotuner``); ``reset()`` drops it,
+and the next ``init()`` builds a new one, which warm-starts from
+``HOROVOD_AUTOTUNE_LOG``.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ class GlobalState:
         self.metrics_server = None
         self.trace_plane = None
         self.straggler = None
+        self.autotuner = None
         self.initialized: bool = False
         self.config: Optional[Config] = None
         self.device: Optional[torch.device] = None

@@ -9,9 +9,12 @@ Counterpart of ``horovod_tpu/optim/distributed.py`` (the flat branch of
 
 * only parameters with ``requires_grad`` are exchanged (a LoRA fine-tune
   with a frozen base sends its adapters and nothing else);
-* at wrap time they are planned into fusion buckets once
+* at wrap time they are planned into fusion buckets
   (``plan_buckets(..., reverse=True)``: per dtype, at most the fusion
-  threshold each, in the order the backward pass produces them);
+  threshold each, in the order the backward pass produces them); under
+  the autotuner (``HOROVOD_AUTOTUNE=1``) the tuned train step plans them
+  again (:meth:`~_DistributedOptimizer.replan`) whenever the tuner's
+  sample changes the threshold or the codec;
 * a post-accumulate-grad hook on every parameter marks its gradient
   ready; when the last gradient of a bucket arrives, the bucket is packed
   into one flat buffer, compressed (``Compression.none/fp16/bf16``) and
@@ -91,7 +94,8 @@ from ..collectives.ops import (Handle, allreduce_async_, chunked_allreduce,
                                powersgd_allreduce_async,
                                topk_allreduce_async)
 from ..collectives.reduce_op import Adasum, Average, ReduceOp, Sum
-from ..controller.fusion import (FusionSpec, exchange_chunk_bytes,
+from ..controller.fusion import (DEFAULT_FUSION_THRESHOLD, FusionSpec,
+                                 exchange_chunk_bytes,
                                  hier_requested, pack_bucket, plan_buckets,
                                  plan_exchange, plan_hier_legs, unpack,
                                  unpack_bucket)
@@ -106,7 +110,7 @@ from ..timeline.metrics import (exchange_counters, note_compression_ratio,
 from ..timeline.spans import note_leg
 
 
-def _resolve_compression(compression):
+def _configured_compression(compression):
     """``None`` defers to ``HOROVOD_COMPRESSION`` (a spec string resolved
     through :func:`parse_compression`); an explicit codec or spec string
     is taken as it is.  Passing ``Compression.none`` explicitly disables
@@ -116,6 +120,20 @@ def _resolve_compression(compression):
         return parse_compression(cfg.compression if cfg is not None
                                  else None)
     return parse_compression(compression)
+
+
+def _resolve_compression(compression, op: ReduceOp = Average,
+                         process_set=None):
+    """The codec an exchange runs with: :func:`_configured_compression`,
+    then -- while the autotuner is active -- its compression axis as the
+    wrap's exchange can run it (``Autotuner.codec_for``)."""
+    comp = _configured_compression(compression)
+    tuner = global_state().autotuner
+    if tuner is None:
+        return comp
+    subset = process_set is not None and \
+        not get_process_set(process_set).is_global()
+    return tuner.codec_for(comp, "wrap", op=op, subset=subset)
 
 
 def _ef_enabled() -> bool:
@@ -287,7 +305,7 @@ def allreduce_gradients(grads: Sequence[torch.Tensor],
     compression error is dropped.  ``op=Adasum`` mixes each bucket with
     its own coefficients, the buckets exchanged in order."""
     grads = list(grads)
-    compression = parse_compression(compression)
+    compression = _resolve_compression(compression, op)
     if is_hier_legs(compression) and is_error_feedback(compression) and \
             hier_mesh_shape() is None:
         # One level: the DCN hop is the whole world.
@@ -310,13 +328,23 @@ def allreduce_gradients(grads: Sequence[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
+def _ef_threshold(fusion_threshold: Optional[int]) -> int:
+    """The EF plans' threshold (the JAX ``_ef_threshold``): ``None``
+    takes the configured one, never the autotuner's -- the residuals'
+    shapes follow the plan, so it is pinned."""
+    if fusion_threshold is not None:
+        return int(fusion_threshold)
+    cfg = global_state().config
+    return cfg.fusion_threshold if cfg is not None else \
+        DEFAULT_FUSION_THRESHOLD
+
+
 def ef_bucket_plan(leaves, fusion_threshold: Optional[int],
                    compression) -> FusionSpec:
     """The EF exchange's buckets: forward over ``leaves``, keyed by the
-    codec (the JAX package's ``ef_bucket_plan``).  ``None`` takes the
-    configured threshold, never a tuned one: the residuals' shapes follow
-    the plan."""
-    return plan_buckets(leaves, fusion_threshold,
+    codec (the JAX package's ``ef_bucket_plan``), at
+    :func:`_ef_threshold`."""
+    return plan_buckets(leaves, _ef_threshold(fusion_threshold),
                         extra=("ef", compression.__name__))
 
 
@@ -404,8 +432,7 @@ def ef_exchange(grads: Sequence[torch.Tensor],
 def is_ef_optimizer(optimizer) -> bool:
     """True when ``optimizer`` is a ``DistributedOptimizer`` wrap whose
     codec carries error-feedback residuals."""
-    return isinstance(optimizer, _DistributedOptimizer) and \
-        is_error_feedback(optimizer._compression)
+    return isinstance(optimizer, _DistributedOptimizer) and optimizer._ef
 
 
 class _DistributedOptimizer(torch.optim.Optimizer):
@@ -436,7 +463,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 raise ValueError(
                     f"named_parameters was given, but {unnamed} "
                     f"optimizer parameter(s) are not named in it")
-        self._compression = compression
+        self._configured = self._compression = compression
         self._op = op
         self._ef = is_error_feedback(compression)
         self._adasum = op is Adasum
@@ -468,29 +495,13 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                                               compression)
             self._residuals = list(ef_init_residuals(
                 leaves, fusion_threshold, compression))
-        elif self._adasum:
-            # The JAX flat exchange's plan: forward over the leaves.
-            self.bucket_plan = plan_buckets(
-                [self._flax_view(i, p) for i, p in enumerate(self._trainable)],
-                fusion_threshold, extra=(compression.__name__,))
-        else:
-            # The fusion buckets of the trainable parameters, indexed in
-            # optimizer order, first bucket first to be ready.
-            self.bucket_plan = plan_buckets(self._trainable,
-                                            fusion_threshold, reverse=True)
-        _note_plan_bytes(self.bucket_plan, compression)
+        self._handles: Dict[int, tuple] = {}
+        self._plan()
         shape = hier_mesh_shape()
         if shape is not None and shape[0] > 1:
             # The two-level groups are made collectively, so here, where
             # every rank wraps, not in a hook.
             hier_groups(shape[1])
-        self._bucket_of: Dict[int, int] = {}
-        for b, (_, lspecs) in enumerate(self.bucket_plan.buffers):
-            for s in lspecs:
-                self._bucket_of[s.index] = b
-        self._counter = [0] * len(self._trainable)
-        self._ready: List[set] = [set() for _ in self.bucket_plan.buffers]
-        self._handles: Dict[int, tuple] = {}
         self._generation = global_state().generation
         # The hook holds the optimizer weakly: torch's garbage collector
         # does not follow a parameter's post-accumulate-grad hooks, so a
@@ -505,6 +516,51 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
         for p in self._trainable:
             p.register_post_accumulate_grad_hook(hook)
+
+    # -- the plan ---------------------------------------------------------
+    def _plan(self) -> None:
+        """The buckets and the hooks' bookkeeping: an EF wrap's pinned
+        plan (built with its residuals), else the buckets under the
+        current fusion threshold and codec (the autotuner's sample while
+        one is active) -- Adasum's forward over the leaves, as the JAX
+        flat exchange plans them; the others over the trainable
+        parameters in optimizer order, first bucket first to be ready."""
+        tuner = global_state().autotuner
+        if self._ef and tuner is not None:
+            tuner.check_exchange(self._configured, "ef")
+        if not self._ef:
+            self._compression = _resolve_compression(
+                self._configured, self._op, self._process_set)
+            if self._adasum:
+                self.bucket_plan = plan_buckets(
+                    [self._flax_view(i, p)
+                     for i, p in enumerate(self._trainable)],
+                    self._fusion_threshold,
+                    extra=(self._compression.__name__,))
+            else:
+                self.bucket_plan = plan_buckets(
+                    self._trainable, self._fusion_threshold, reverse=True)
+        _note_plan_bytes(self.bucket_plan, self._compression)
+        self._bucket_of: Dict[int, int] = {}
+        for b, (_, lspecs) in enumerate(self.bucket_plan.buffers):
+            for s in lspecs:
+                self._bucket_of[s.index] = b
+        self._counter = [0] * len(self._trainable)
+        self._ready: List[set] = [set() for _ in self.bucket_plan.buffers]
+
+    def replan(self) -> None:
+        """Plan the buckets again under the current fusion threshold and
+        codec: the tuned train step calls it at a step boundary whenever
+        the autotuner's ``trace_key()`` changed (the JAX step traces
+        again).  An error-feedback wrap keeps its plan, pinned to the
+        configured threshold with its residuals.  Refused
+        (``RuntimeError``) with a handle outstanding or partway through
+        a ``backward_passes_per_step`` accumulation."""
+        if self._handles or any(self._counter):
+            raise RuntimeError(
+                "DistributedOptimizer.replan() needs a step boundary: no "
+                "handle outstanding and no accumulation partway through")
+        self._plan()
 
     # -- re-init ----------------------------------------------------------
     def _check_generation(self) -> None:
@@ -577,6 +633,17 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 grads, lspecs, self._op, self._compression,
                 self._residuals[b] if feed else None, self._prescale,
                 self._postscale, self._process_set), feed)
+            return
+        if is_error_feedback(self._compression):
+            # The autotuner's error-feedback axis on a wrap configured
+            # without one: the codec's stateless form (no residual), the
+            # accumulated passes averaged through the prescale.
+            inner = _launch_ef_bucket(
+                grads, lspecs, self._op, self._compression, None,
+                self._prescale / self.backward_passes_per_step,
+                self._postscale, self._process_set)
+            self._handles[b] = (Handle(None, lambda: inner.wait()[0],
+                                       parts=(inner,)), None)
             return
         self._handles[b] = (_launch_bucket(
             grads, lspecs, self._op, self._compression, self._prescale,
@@ -708,7 +775,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     class is rebound, so a refused wrap leaves it as it was."""
     if backward_passes_per_step < 1:
         raise ValueError("backward_passes_per_step must be >= 1")
-    compression = _resolve_compression(compression)
+    compression = _configured_compression(compression)
     if process_set is not None and \
             not get_process_set(process_set).is_global() and (
                 is_topk(compression) or is_hier_legs(compression)
@@ -797,7 +864,7 @@ def ef_resize_residuals(residuals, params, old_world: int, new_world: int,
     expected = None
     if params is not None:
         comp = parse_compression(compression) if compression is not None \
-            else _resolve_compression(None)
+            else _configured_compression(None)
         spec = ef_bucket_plan(list(params), fusion_threshold, comp)
         expected = [ef_residual_shape(sum(s.size for s in lspecs), comp)
                     for _dt, lspecs in spec.buffers]

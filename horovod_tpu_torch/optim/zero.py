@@ -7,7 +7,9 @@ ZeRO stage 1 splits that work over the world:
 * the gradients are packed into flat per-dtype **arenas** (leaf order,
   each zero-padded to a multiple of the world) and exchanged with one
   ``reduce_scatter`` an arena: each rank receives the mean of its own
-  1/n slice only;
+  1/n slice only (the autotuner's zero axis, ``HOROVOD_AUTOTUNE_ZERO=1``,
+  also samples an allreduce of the whole arena, of which each rank keeps
+  its slice: :func:`_use_reducescatter`);
 * each rank runs the optimizer on its slice of the parameter arena, so
   the optimizer's work and state shrink by the world size;
 * the updated shards come back with one ``all_gather`` an arena,
@@ -59,9 +61,12 @@ from ..collectives.compression import (Compression, fp8_quantize, is_fp8,
                                        powersgd_factor_widths,
                                        powersgd_matrix_shape, topk_count)
 from ..collectives.ops import (_divide_in_dtype, _powersgd_seed_matrix,
-                               _topk_select, psum_scatter_bucket)
+                               _topk_select, allreduce_,
+                               psum_scatter_bucket)
+from ..collectives.reduce_op import Sum
 from ..controller.fusion import _LeafSpec, dtype_name, plan_exchange
 from ..core.basics import _require_init
+from ..core.state import global_state
 from ..core.topology import hier_mesh_shape, hier_sets
 from ..timeline.metrics import note_collective, note_zero_step
 from ..timeline.spans import note_leg
@@ -323,27 +328,55 @@ def zero_init(optimizer: torch.optim.Optimizer, params,
                      residuals)
 
 
-def zero_plan(spec: ZeroSpec, compression=None, shape=None):
+def zero_plan(spec: ZeroSpec, compression=None, shape=None,
+              use_rs: bool = True):
     """The ``zero`` plan of one step over ``spec``'s arenas:
-    ``(reduce-scatter rows, allgather rows)``, one of each an arena
+    ``(gradient rows, allgather rows)``, one of each an arena
     (``plan_exchange("zero")``; ``shape`` is the two-level layout a
-    per-leg codec runs on, else ``None``)."""
+    per-leg codec runs on, else ``None``; ``use_rs`` False prices the
+    allreduce exchange's rows)."""
     legs = plan_exchange(
         "zero", buffers=tuple((dtype_name(b.dtype), b.size, b.padded,
                                b.shard) for b in spec.buffers),
         world=spec.world, compression=compression, axes_shape=shape,
         axes=("dcn", "ici") if shape is not None else (),
-        use_rs=True).legs
+        use_rs=use_rs).legs
     k = len(spec.buffers)
     return legs[:k], legs[k:]
 
 
+def _use_reducescatter() -> bool:
+    """The gradient exchange over the arena (the JAX function): the
+    reduce-scatter, unless the autotuner's zero axis is being searched
+    (``HOROVOD_AUTOTUNE_ZERO=1`` on a zero run), whose sample picks the
+    reduce-scatter (1) or the allreduce exchange (0)."""
+    tuner = global_state().autotuner
+    if tuner is not None and tuner.tunes_zero:
+        return bool(tuner.zero_stage())
+    return True
+
+
+def _resolve_compression(compression):
+    """The allgather's codec: ``compression`` (none when not given), or
+    the autotuner's compression axis while one is active, as ZeRO-1's
+    exchange can run it (``Autotuner.codec_for``)."""
+    comp = parse_compression(compression) if compression else \
+        Compression.none
+    tuner = global_state().autotuner
+    return comp if tuner is None else tuner.codec_for(comp, "zero")
+
+
 def _reduce_scatter_mean(g: torch.Tensor, buf: _ArenaBuffer, n: int,
-                         shape, leg) -> torch.Tensor:
-    """This rank's shard of the mean of ``g`` over the world: one
-    reduce-scatter, or within the node and then across nodes (counted at
-    its row's bytes)."""
-    if shape is None:
+                         shape, leg, use_rs: bool = True,
+                         idx: int = 0) -> torch.Tensor:
+    """This rank's shard (index ``idx``) of the mean of ``g`` over the
+    world: one reduce-scatter, or within the node and then across nodes
+    (counted at its row's bytes); with ``use_rs`` False, an allreduce of
+    the whole arena, of which this rank keeps its shard."""
+    if not use_rs:
+        full = allreduce_(g, op=Sum)
+        out = full[idx * buf.shard:(idx + 1) * buf.shard].clone()
+    elif shape is None:
         out = psum_scatter_bucket(g, quantum=n)
     else:
         note_collective("reducescatter", "global", leg.nbytes)
@@ -379,8 +412,7 @@ def zero_apply(optimizer: torch.optim.Optimizer,
     params = list(params)
     if not params:
         return params, zero_state
-    comp = parse_compression(compression) if compression else \
-        Compression.none
+    comp = _resolve_compression(compression)
     ef = is_error_feedback(comp)
     if ef and zero_state.residuals is None:
         raise ValueError(
@@ -392,7 +424,8 @@ def zero_apply(optimizer: torch.optim.Optimizer,
         raise ValueError("zero_state was planned for other parameters or "
                          "another world size")
     idx, shape = _shard_index(comp)
-    rs_legs, ag_legs = zero_plan(spec, comp, shape)
+    use_rs = _use_reducescatter()
+    rs_legs, ag_legs = zero_plan(spec, comp, shape, use_rs)
     grads = [g if g is not None else torch.zeros_like(p)
              for g, p in zip(grads, params)]
     with torch.no_grad():
@@ -401,7 +434,8 @@ def zero_apply(optimizer: torch.optim.Optimizer,
         for g, p, buf, shard, leg in zip(g_arenas, p_arenas, spec.buffers,
                                          zero_state.shards, rs_legs):
             note_leg(leg)
-            shard.grad = _reduce_scatter_mean(g, buf, n, shape, leg)
+            shard.grad = _reduce_scatter_mean(g, buf, n, shape, leg,
+                                              use_rs, idx)
             shard.copy_(p[idx * buf.shard:(idx + 1) * buf.shard])
         old = [s.clone() for s in zero_state.shards] if ef else None
         zero_state.inner.step()

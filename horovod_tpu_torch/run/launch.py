@@ -24,8 +24,14 @@ Usage::
 of its own (``HOROVOD_TIMELINE=PATH.<rank>``; under the elastic driver
 ``PATH.<worker id>``, since ranks change across a re-rendezvous), which
 ``python -m horovod_tpu_torch.timeline --merge DIR`` merges.
-``--autotune``, ``--probe`` and an LSF allocation without ``-np`` raise
-``NotImplementedError`` (ROADMAP item 1.11, slice 15).
+
+``--autotune`` exports ``HOROVOD_AUTOTUNE=1`` to every worker (the
+elastic driver's included).  ``--probe`` runs the pre-launch handshake
+first (``run/probe.py``): one task probe a slot, whose reports must agree
+on the port's, torch's, CUDA's and Python's versions.  Inside an LSF job
+(``LSB_JOBID``) with neither ``-np`` nor ``-H``/``--hostfile``, ``-np``
+is the allocation's slot count (``run/lsf.py``); an allocation that spans
+several hosts is a usage error, as in the JAX launcher.
 """
 
 from __future__ import annotations
@@ -34,14 +40,13 @@ import argparse
 import os
 import shutil
 import socket
+import subprocess
 import sys
 import tempfile
 import threading
 from typing import List, Optional
 
 from .exec_util import TaggedProcess, wait_all
-
-_SLICE_15 = "is not ported (ROADMAP item 1.11, slice 15)"
 
 
 def free_port() -> int:
@@ -80,7 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mark cycles in the timeline "
                         "(HOROVOD_TIMELINE_MARK_CYCLES)")
     p.add_argument("--autotune", action="store_true",
-                   help=f"autotuning {_SLICE_15}")
+                   help="online autotuning of the exchange knobs in every "
+                        "worker (HOROVOD_AUTOTUNE=1)")
     p.add_argument("--fusion-threshold-mb", type=int, default=None,
                    help="override HOROVOD_FUSION_THRESHOLD (MiB)")
     p.add_argument("--verbose", "-v", action="count", default=0)
@@ -99,7 +105,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-tag-output", action="store_true",
                    help="do not prefix worker output with [rank]<stream>")
     p.add_argument("--probe", action="store_true",
-                   help=f"the pre-launch version probe {_SLICE_15}")
+                   help="before launching, run one task probe a slot and "
+                        "fail on version skew across them")
     p.add_argument("--min-np", type=int, default=None)
     p.add_argument("--max-np", type=int, default=None)
     p.add_argument("--host-discovery-script", default=None,
@@ -155,10 +162,10 @@ def check_build() -> str:
         "    [X] Adasum, fp16/bf16/fp8, PowerSGD and top-k error feedback",
         "    [X] ZeRO-1, hierarchical and chunked allreduce",
         "    [X] elastic (commit/restore/resize, chaos injection)",
-        "    [X] checkpointing (rank-0 npz)",
+        "    [X] checkpointing (rank-0 npz, sharded npz a rank)",
         "    [X] timeline (Chrome trace, runtime start/stop, merge CLI),",
         "        /metrics, straggler monitor, SDC guard and tripwire",
-        "    [ ] autotune, probe (ROADMAP item 1.11, slice 15)",
+        "    [X] autotune (GP Bayesian search), pre-launch probe, LSF",
         f"Kernels (sm_90a, nvcc {'at ' + nvcc if os.path.exists(nvcc) else 'not found'}):",
     ]
     lines += [f"    {name}.cu" for name in _build.SOURCES]
@@ -187,13 +194,6 @@ def explain_plan_cli() -> str:
     return header + "\n" + fusion.render_plan(rows)
 
 
-def _refuse_unported(opts) -> None:
-    for on, what in ((opts.autotune, "--autotune: autotuning"),
-                     (opts.probe, "--probe: the pre-launch version probe")):
-        if on:
-            raise NotImplementedError(f"{what} {_SLICE_15}")
-
-
 def apply_timeline_env(env: dict, suffix,
                        cli_filename: Optional[str] = None) -> None:
     """Point this worker's timeline at a file of its own: every worker
@@ -212,12 +212,12 @@ def apply_timeline_env(env: dict, suffix,
             env[var] = f"{env[var]}.{suffix}"
 
 
-def _using_lsf() -> bool:
-    return "LSB_JOBID" in os.environ
-
-
 def _log_env(opts) -> dict:
+    """The worker environment the CLI's flags set (the static spawn's
+    and the elastic driver's ``extra_env``)."""
     env = {}
+    if opts.autotune:
+        env["HOROVOD_AUTOTUNE"] = "1"
     if opts.timeline_mark_cycles:
         env["HOROVOD_TIMELINE_MARK_CYCLES"] = "1"
     if opts.fusion_threshold_mb is not None:
@@ -238,7 +238,6 @@ def run_command(args: Optional[List[str]] = None) -> int:
     if opts.explain_plan:
         print(explain_plan_cli())
         return 0
-    _refuse_unported(opts)
     if opts.timeline_mark_cycles and not (
             opts.timeline_filename or os.environ.get("HOROVOD_TIMELINE")
             or os.environ.get("HVD_TPU_TIMELINE")):
@@ -272,9 +271,24 @@ def run_command(args: Optional[List[str]] = None) -> int:
                 f"Got: {', '.join(h for h, _ in hosts)}")
         if np_ is None:
             np_ = total_slots(hosts)
-    elif np_ is None and not opts.host_discovery_script and _using_lsf():
-        raise NotImplementedError(
-            f"deriving -np from an LSF allocation {_SLICE_15}; pass -np")
+    elif np_ is None and not opts.host_discovery_script:
+        # Inside an LSF allocation, the process count is the scheduler's
+        # (as the reference's horovodrun derives it); an explicit -np
+        # always wins, so per-host launches stay possible.
+        from .lsf import get_compute_hosts, using_lsf
+        if using_lsf():
+            from .hosts import all_local, total_slots
+            try:
+                hosts = get_compute_hosts()
+            except ValueError as e:
+                parser.error(str(e))
+            if not all_local(hosts):
+                parser.error(
+                    "LSF allocation spans multiple hosts: run the launcher "
+                    "on each host with -np <local slots> and a shared "
+                    "--coordinator. Hosts: "
+                    f"{', '.join(h for h, _ in hosts)}")
+            np_ = total_slots(hosts)
     if np_ is None:
         np_ = 1
     if opts.host_discovery_script:
@@ -298,6 +312,8 @@ def run_command(args: Optional[List[str]] = None) -> int:
         )
         return driver.run()
 
+    if opts.probe:
+        _run_probe(np_, opts.verbose)
     port = opts.coordinator_port or free_port()
     job_dir = tempfile.mkdtemp(prefix="hvd_torch_run_")
     store = os.path.join(job_dir, "store")
@@ -318,6 +334,35 @@ def run_command(args: Optional[List[str]] = None) -> int:
         for p in procs:
             p.kill()
         shutil.rmtree(job_dir, ignore_errors=True)
+
+
+def _run_probe(np_: int, verbose: int) -> None:
+    """The pre-launch handshake: one local task probe a slot, their
+    reports collected and validated (raises on skew or a missing
+    report); the probes are reaped and the KV server stopped either
+    way."""
+    from .probe import DriverProbe
+    probe = DriverProbe()
+    wids = [f"slot{r}" for r in range(np_)]
+    children = []
+    try:
+        for w in wids:
+            children.append(probe.spawn_local_probe(w))
+        reports = probe.collect(wids)
+        probe.validate(reports)
+        if verbose:
+            for w, r in reports.items():
+                print(f"# probe {w}: {r['hostname']} "
+                      f"hvd={r['framework_version']} "
+                      f"torch={r['torch_version']} cuda={r['cuda']}")
+    finally:
+        for child in children:
+            try:
+                child.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
+        probe.stop()
 
 
 def worker_env(rank: int, size: int, coordinator: str, port: int,

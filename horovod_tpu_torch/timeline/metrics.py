@@ -483,8 +483,8 @@ def _collect_plan_cache() -> None:
 
 
 # (name, help) of the families install_default_metrics creates, by kind:
-# the JAX package's, less those of modules the port does not have (the
-# serving control plane, the autotuner).
+# the JAX package's, less those of the serving control plane, which the
+# port does not have.
 _DEFAULT_FAMILIES = {
     "counter": (
         ("horovod_step_total", "Optimizer steps completed"),
@@ -505,6 +505,8 @@ _DEFAULT_FAMILIES = {
         ("horovod_chaos_faults_total", "Faults fired by the chaos injector"),
         ("horovod_kv_retries_total",
          "Control-plane requests retried after a transport failure"),
+        ("horovod_autotune_samples_total",
+         "Autotuner samples scored (one per sample window)"),
     ),
     "gauge": (
         ("horovod_wire_bytes_per_step",

@@ -140,11 +140,17 @@ def _resolve_zero_stage(zero_stage: Optional[int]) -> int:
 
 
 def steps_per_execution(default: int = 1) -> int:
-    """The resolved steps-per-execution k (``HOROVOD_STEPS_PER_EXEC``
-    once ``init()`` has run, else ``default``): the window of
-    :func:`make_train_loop` built without ``steps_per_execution``."""
-    cfg = global_state().config
-    return max(1, cfg.steps_per_exec if cfg is not None else default)
+    """The resolved steps-per-execution k: the autotuner's current sample
+    while one is active (its opt-in steps axis), else
+    ``HOROVOD_STEPS_PER_EXEC`` once ``init()`` has run, else ``default``
+    -- the window of :func:`make_train_loop` built without
+    ``steps_per_execution``."""
+    st = global_state()
+    if st.autotuner is not None:
+        return max(1, st.autotuner.steps_per_exec())
+    if st.config is not None:
+        return max(1, st.config.steps_per_exec)
+    return max(1, default)
 
 
 def _resolve_steps(k: Optional[int]) -> int:
@@ -156,10 +162,16 @@ def _resolve_steps(k: Optional[int]) -> int:
 
 
 def microbatches(default: int = 1) -> int:
-    """The resolved microbatch count k (``HOROVOD_MICROBATCHES`` once
-    ``init()`` has run, else ``default``): the step builders' default."""
-    cfg = global_state().config
-    return max(1, cfg.microbatches if cfg is not None else default)
+    """The resolved microbatch count k: the autotuner's current sample
+    while one is active (its opt-in microbatch axis), else
+    ``HOROVOD_MICROBATCHES`` once ``init()`` has run, else ``default``
+    -- the step builders' default."""
+    st = global_state()
+    if st.autotuner is not None:
+        return max(1, st.autotuner.microbatches())
+    if st.config is not None:
+        return max(1, st.config.microbatches)
+    return max(1, default)
 
 
 def _resolve_microbatches(k: Optional[int]) -> int:
@@ -194,10 +206,14 @@ def _microbatch_unwrap(optimizer):
     package: ``backward_passes_per_step > 1``, a process set, an op
     other than Sum/Average (Adasum) and fp8.  The error-feedback codecs
     compose: the step accumulates locally and runs one ``ef_exchange``
-    a step."""
+    a step.  Under the autotuner, so is a compression axis holding a
+    codec this exchange cannot run (``Autotuner.check_exchange``)."""
     from .collectives.compression import is_fp8
     if not isinstance(optimizer, _dist._DistributedOptimizer):
         return optimizer, None
+    tuner = global_state().autotuner
+    if tuner is not None and not optimizer._ef:
+        tuner.check_exchange(optimizer._configured, "microbatch")
     if optimizer.backward_passes_per_step > 1:
         raise ValueError(
             "microbatches > 1 cannot combine with "
@@ -256,19 +272,33 @@ class _MicrobatchGradPipe:
         self._k = k
         self._order = list(range(len(self._params))) if order is None \
             else list(order)
-        if exchange is None:
-            return
+        if exchange is not None:
+            self._plan()
+
+    def _plan(self) -> None:
+        ex = self._exchange
         self._world = global_state().size
         self._spec = plan_buckets([self._params[i] for i in self._order],
-                                  exchange["fusion_threshold"], reverse=True)
+                                  ex["fusion_threshold"], reverse=True)
         legs = plan_exchange(
             "microbatch", buffers=tuple(
                 (dt, sum(s.size for s in lspecs))
                 for dt, lspecs in self._spec.buffers),
-            k=k, world=self._world, compression=exchange["compression"]
+            k=self._k, world=self._world, compression=ex["compression"]
         ).legs
         nb = len(self._spec.buffers)
         self.rs_legs, self.ag_legs = legs[:nb], legs[nb:]
+
+    def replan(self, optimizer) -> None:
+        """Plan the buckets again under the current fusion threshold with
+        the sample's codec (the tuned step, at a step boundary, after the
+        wrap's own re-plan)."""
+        tuner = global_state().autotuner
+        if self._exchange is None or tuner is None:
+            return
+        comp = tuner.codec_for(optimizer._configured, "microbatch")
+        self._exchange = dict(self._exchange, compression=comp)
+        self._plan()
 
     def launch(self, grads: Sequence[torch.Tensor]):
         if self._exchange is None:
@@ -358,7 +388,8 @@ def _ef_reduce(optimizer, grads: List[torch.Tensor]) -> List[torch.Tensor]:
 def _microbatch_core(model: torch.nn.Module, loss_fn,
                      optimizer: torch.optim.Optimizer, k: int,
                      screen: bool):
-    """``core(batch) -> (loss, screen)`` of ``microbatches=k > 1`` (the
+    """``(core, pipe)``: ``core(batch) -> (loss, screen)`` of
+    ``microbatches=k > 1`` (the
     JAX ``_build_microbatch_local_step``): k forwards and
     ``torch.autograd.grad`` backwards through
     :class:`_MicrobatchGradPipe`, one optimizer step on the merged
@@ -405,7 +436,7 @@ def _microbatch_core(model: torch.nn.Module, loss_fn,
         optimizer.zero_grad(set_to_none=True)
         return allreduce(torch.stack(losses).mean(), Average), gvec
 
-    return core
+    return core, pipe
 
 
 def _step_core(model: torch.nn.Module, loss_fn,
@@ -546,12 +577,16 @@ class _GuardState:
 class _Step:
     """``step(batch) -> loss`` of a step builder: ``body(batch) ->
     (loss, screen)`` with the screen dropped (``zero_state``: the ZeRO-1
-    state, or None; ``microbatches``: its k)."""
+    state, or None; ``microbatches``: its k; ``replan()``: plan the
+    exchange's buckets again, False while an accumulation is partway
+    through)."""
 
-    def __init__(self, body, zero_state, microbatches: int = 1):
+    def __init__(self, body, zero_state, microbatches: int = 1,
+                 replan: Callable[[], bool] = lambda: True):
         self._body = body
         self.zero_state = zero_state
         self.microbatches = microbatches
+        self.replan = replan
 
     def __call__(self, batch) -> torch.Tensor:
         return self._body(batch)[0]
@@ -569,8 +604,9 @@ class _GuardedStep(_Step):
     3]`` rows once."""
 
     def __init__(self, body, zero_state, microbatches: int,
-                 state: _GuardState, norm_limit: float):
-        super().__init__(body, zero_state, microbatches)
+                 replan: Callable[[], bool], state: _GuardState,
+                 norm_limit: float):
+        super().__init__(body, zero_state, microbatches, replan)
         self._state = state
         self._norm_limit = norm_limit
 
@@ -608,12 +644,29 @@ def _build_step(model: torch.nn.Module, loss_fn,
             "it via HOROVOD_EXCHANGE_CHUNK_MB instead)")
     from .core import guard
     guard_on, norm_limit = guard.step_guard(global_state().config)
+    pipe = None
     if k_micro > 1:
-        core = _microbatch_core(model, loss_fn, optimizer, k_micro, guard_on)
+        core, pipe = _microbatch_core(model, loss_fn, optimizer, k_micro,
+                                      guard_on)
         zero_state = None
     else:
         core, zero_state = _step_core(model, loss_fn, optimizer, zero_stage,
                                       zero_compression, guard_on)
+    wrap = optimizer if isinstance(optimizer, _dist._DistributedOptimizer) \
+        else None
+
+    def replan() -> bool:
+        # ZeRO-1 and a bare optimizer read the tuner per call: nothing to
+        # plan again.  Partway through a backward_passes_per_step
+        # accumulation the wrap's buckets stay until its end.
+        if wrap is None:
+            return True
+        if any(wrap._counter):
+            return False
+        wrap.replan()
+        if pipe is not None:
+            pipe.replan(wrap)
+        return True
     stats = [b for b in model.buffers() if b.is_floating_point()] \
         if flax else []
 
@@ -628,10 +681,10 @@ def _build_step(model: torch.nn.Module, loss_fn,
         return loss, gvec
 
     if not guard_on:
-        return _Step(body, zero_state, k_micro)
+        return _Step(body, zero_state, k_micro, replan)
     optimizers = [optimizer] + ([zero_state.inner] if zero_state is not None
                                 else [])
-    return _GuardedStep(body, zero_state, k_micro,
+    return _GuardedStep(body, zero_state, k_micro, replan,
                         _GuardState(model, optimizers, zero_state,
                                     buffers=flax), norm_limit)
 
@@ -658,7 +711,8 @@ def make_train_step(model: torch.nn.Module,
     """
     step = _build_step(model, loss_fn, optimizer, zero_stage,
                        zero_compression, microbatches, flax=False)
-    return _instrument(step, 1, optimizer, model, zero_compression)
+    return _instrument(_maybe_tuned(step, step.replan, 1, optimizer),
+                       1, optimizer, model, zero_compression)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -700,7 +754,8 @@ def make_flax_train_step(model: torch.nn.Module,
     """
     step = _build_step(model, _flax_loss, optimizer, zero_stage,
                        zero_compression, microbatches, flax=True)
-    return _instrument(step, 1, optimizer, model, zero_compression)
+    return _instrument(_maybe_tuned(step, step.replan, 1, optimizer),
+                       1, optimizer, model, zero_compression)
 
 
 def sync_batch_norm(axes=None, **kwargs) -> BatchNorm:
@@ -840,7 +895,11 @@ class TrainLoop:
     * a call after an elastic re-init (``global_state().generation``
       moved) never replays the old graph, which holds the old
       communicator: it drops it and starts over -- an eager window, then
-      a capture on the new process group.
+      a capture on the new process group;
+    * under the autotuner, a changed ``trace_key()`` re-plans the buckets
+      the graph holds: the tuned loop drops the graph the same way
+      (:meth:`restart`), so each sample runs an eager window, a capture
+      and then replays, and neither of the first two is scored.
 
     What the capture records on the host -- the kernels' launch
     counters, the metrics registry's counters (exchange, collective,
@@ -871,6 +930,16 @@ class TrainLoop:
         self._deltas = None
         self._hyper = None
         self._generation = global_state().generation
+        # What the last call ran: "cpu" (k eager steps on the CPU),
+        # "eager", "capture" or "replay" (the GPU's three kinds).
+        self.last_kind: Optional[str] = None
+
+    def restart(self) -> None:
+        """Drop the captured graph: the next call runs an eager window and
+        the one after it captures again (the tuned loop, after the
+        autotuner's sample changed the buckets the graph holds)."""
+        self._graph = self._static_out = self._static_in = None
+        self._calls = 0
 
     def _window(self, batches):
         """``(losses [k], guard rows [k, 3] or None)`` of k steps."""
@@ -893,11 +962,12 @@ class TrainLoop:
                     f"batch, ...] (stack_steps); got a leaf of shape "
                     f"{tuple(x.shape)}")
         if not leaves or leaves[0].device.type != "cuda":
+            self.last_kind = "cpu"
             return self._observed(self._window(batches))
         gen = global_state().generation
         if gen != self._generation:
-            self._graph = self._static_out = self._static_in = None
-            self._calls, self._generation = 0, gen
+            self.restart()
+            self._generation = gen
         caller = torch.cuda.current_stream()
         if self._stream is None:
             self._stream = torch.cuda.Stream()
@@ -908,15 +978,18 @@ class TrainLoop:
         with torch.cuda.stream(side):
             if self._calls == 0:
                 _refuse_uncapturable(self._model, self._optimizers, k)
+                self.last_kind = "eager"
                 out = self._window(batches)
             elif self._graph is None or \
                     self._hyper != _hyperparameters(self._optimizers):
+                self.last_kind = "capture"
                 out = self._capture(batches)
             else:
                 tree_map(lambda d, x: d.copy_(x, non_blocking=True),
                          self._static_in, batches)
                 self._replay_counters()
                 self._graph.replay()
+                self.last_kind = "replay"
                 out = self._static_out
         caller.wait_stream(side)
         for t in out:
@@ -1013,10 +1086,10 @@ def make_train_loop(model: torch.nn.Module,
     k = _resolve_steps(steps_per_execution)
     step = _build_step(model, loss_fn, optimizer, zero_stage,
                        zero_compression, microbatches, flax=False)
-    return _instrument(TrainLoop(step, k, model,
-                                 _loop_optimizers(optimizer, step),
-                                 generators), k, optimizer, model,
-                       zero_compression)
+    loop = TrainLoop(step, k, model, _loop_optimizers(optimizer, step),
+                     generators)
+    return _instrument(_maybe_tuned(loop, step.replan, k, optimizer),
+                       k, optimizer, model, zero_compression)
 
 
 def make_flax_train_loop(model: torch.nn.Module,
@@ -1032,10 +1105,80 @@ def make_flax_train_loop(model: torch.nn.Module,
     k = _resolve_steps(steps_per_execution)
     step = _build_step(model, _flax_loss, optimizer, zero_stage,
                        zero_compression, microbatches, flax=True)
-    return _instrument(TrainLoop(step, k, model,
-                                 _loop_optimizers(optimizer, step),
-                                 generators), k, optimizer, model,
-                       zero_compression)
+    loop = TrainLoop(step, k, model, _loop_optimizers(optimizer, step),
+                     generators)
+    return _instrument(_maybe_tuned(loop, step.replan, k, optimizer),
+                       k, optimizer, model, zero_compression)
+
+
+# ---------------------------------------------------------------------------
+# The autotuner's score loop (the JAX ``_maybe_tuned``)
+# ---------------------------------------------------------------------------
+
+
+def _maybe_tuned(fn, replan: Callable[[], bool], steps: int, optimizer):
+    """``fn`` (a step, or a :class:`TrainLoop` of ``steps`` steps; its
+    step's ``replan``) in :class:`_TunedStep` while the autotuner is
+    active (``HOROVOD_AUTOTUNE=1``), else ``fn`` itself."""
+    tuner = global_state().autotuner
+    if tuner is None:
+        return fn
+    return _TunedStep(fn, tuner, replan, steps, optimizer)
+
+
+class _TunedStep:
+    """The autotuner's score loop around a step or a loop.  While the
+    tuner is not ``done``, each call:
+
+    * re-plans the exchange's buckets (``replan``) when the tuner's
+      ``trace_key()`` changed since the last call -- at a step boundary,
+      with no handle outstanding; partway through a
+      ``backward_passes_per_step`` accumulation, at its end -- and makes
+      a loop capture its graph again (:meth:`TrainLoop.restart`);
+    * times the call, fenced by reading the loss as a float (a loop's
+      last), and feeds ``record_step(seconds, trainable bytes x steps)``;
+      a loop's eager and capture windows are not scored.
+
+    Once the tuner is ``done`` a call is the wrapped one's, but for the
+    one re-plan to the best configuration: no fence, no timing.
+    ``trail`` lists ``(trace_key, kind, scored)`` a call while tuning
+    (``kind``: ``"step"``, or the loop's ``last_kind``).  Every other
+    attribute is the wrapped object's."""
+
+    def __init__(self, fn, tuner, replan, steps: int, optimizer):
+        self._fn = fn
+        self._tuner = tuner
+        self._replan = replan
+        self._loop = fn if isinstance(fn, TrainLoop) else None
+        # The step was built under the tuner's current sample.
+        self._key = tuner.trace_key()
+        self._nbytes = steps * sum(
+            p.numel() * p.element_size() for g in optimizer.param_groups
+            for p in g["params"] if p.requires_grad)
+        self.trail: List[tuple] = []
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __call__(self, batch):
+        import time as _time
+        tuner = self._tuner
+        key = tuner.trace_key()
+        if key != self._key and self._replan():
+            if self._loop is not None:
+                self._loop.restart()
+            self._key = key
+        if tuner.done:
+            return self._fn(batch)
+        t0 = _time.perf_counter()
+        out = self._fn(batch)
+        float(out.reshape(-1)[-1])          # the fence: read the loss
+        seconds = _time.perf_counter() - t0
+        kind = "step" if self._loop is None else self._loop.last_kind
+        scored = tuner.record_step(seconds, self._nbytes,
+                                   warmup=kind in ("eager", "capture"))
+        self.trail.append((key, kind, scored))
+        return out
 
 
 # ---------------------------------------------------------------------------

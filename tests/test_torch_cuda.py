@@ -1689,3 +1689,133 @@ def test_cuda_bn_kernels_equal_plain_under_the_guard(world1_cuda):
     for g, w in zip(*grads):
         assert (g - w).abs().max().item() <= \
             MODEL_F32_GRAD_REL * max(w.abs().max().item(), 1e-30)
+
+
+def _tuned_run(hvd, n, tuner, loop_k=None):
+    """``n`` steps of the tiny ResNet on the card (the step, or the loop
+    of ``loop_k``) with ``tuner`` installed while it is built and run."""
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.training import (make_flax_train_loop,
+                                            make_flax_train_step,
+                                            stack_steps)
+    st = global_state()
+    st.autotuner = tuner
+    try:
+        model = _tiny_resnet_cuda(seed=4)
+        named = list(model.named_parameters())
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD([p for _, p in named], lr=0.1, momentum=0.9),
+            named_parameters=named)
+        data = _loop_batches(n, seed=12)
+        if loop_k:
+            fn = make_flax_train_loop(model, opt, steps_per_execution=loop_k)
+            losses = torch.cat([fn(stack_steps(data[i:i + loop_k])).clone()
+                                for i in range(0, n, loop_k)])
+        else:
+            fn = make_flax_train_step(model, opt)
+            losses = torch.stack([fn(b) for b in data])
+        torch.cuda.synchronize()
+        return losses, _loop_state(model, [opt], opt), fn
+    finally:
+        st.autotuner = None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop_k", [None, 2])
+def test_cuda_tuned_step_and_loop_are_bitwise_untuned(world1_cuda,
+                                                      deterministic, loop_k):
+    """A tuned flax step and a tuned CUDA-graph loop on the card re-plan
+    their buckets at every sampled threshold and end bitwise an untuned
+    run: parameters, BN statistics, momentum, every loss.  The loop
+    captures once a trace key, and no eager or capture window is
+    scored."""
+    from horovod_tpu_torch.autotune import Autotuner
+    from horovod_tpu_torch.core.config import Config
+    # A sample: one unscored step and two scored; through the loop an
+    # eager window, a capture and two scored replays.
+    n = 36 if loop_k else 14
+    base = _tuned_run(world1_cuda, n, None, loop_k)
+    tuner = Autotuner(Config(autotune=True), steps_per_sample=2,
+                      candidates=[4096, 16384, 65536], max_samples=4)
+    got = _tuned_run(world1_cuda, n, tuner, loop_k)
+    assert tuner.done
+    assert torch.equal(base[0], got[0])
+    assert base[1].keys() == got[1].keys()
+    for k in base[1]:
+        assert torch.equal(base[1][k], got[1][k]), k
+    trail = got[2].trail
+    assert len({key for key, _, _ in trail}) == 4
+    if loop_k:
+        assert not [t for t in trail if t[1] != "replay" and t[2]]
+        for key in {key for key, _, _ in trail}:
+            kinds = [kind for k, kind, _ in trail if k == key]
+            assert kinds[:2] == ["eager", "capture"] and \
+                kinds.count("capture") == 1, (key, kinds)
+            assert set(kinds[2:]) == {"replay"}
+
+
+@pytest.mark.cuda
+def test_cuda_replan_happens_with_no_handle_outstanding(world1_cuda):
+    """The wrap refuses a re-plan with NCCL handles in flight (mid
+    backward); the tuned step re-plans only between steps, when none
+    is."""
+    from horovod_tpu_torch.autotune import Autotuner
+    from horovod_tpu_torch.core.config import Config
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.training import make_flax_train_step
+    hvd = world1_cuda
+    model = _tiny_resnet_cuda(seed=5)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1),
+        named_parameters=model.named_parameters(),
+        fusion_threshold=4096)
+    x, y = _loop_batches(1, seed=3)[0]
+    torch.nn.functional.cross_entropy(model(x), y.long()).backward()
+    assert opt._handles
+    with pytest.raises(RuntimeError, match="step boundary"):
+        opt.replan()
+    opt.step()
+    opt.zero_grad()
+    opt.replan()
+    seen = []
+    original = type(opt).replan
+
+    def watched(self):
+        seen.append(len(self._handles))
+        return original(self)
+
+    st = global_state()
+    st.autotuner = Autotuner(Config(autotune=True), steps_per_sample=1,
+                             candidates=[4096, 16384], max_samples=3)
+    try:
+        model2 = _tiny_resnet_cuda(seed=5)
+        opt2 = hvd.DistributedOptimizer(
+            torch.optim.SGD(model2.parameters(), lr=0.1),
+            named_parameters=model2.named_parameters())
+        opt2.replan = watched.__get__(opt2)
+        step = make_flax_train_step(model2, opt2)
+        for b in _loop_batches(8, seed=4):
+            step(b)
+    finally:
+        st.autotuner = None
+    assert seen and set(seen) == {0}
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_checkpoint_restores_onto_the_card(world1_cuda,
+                                                        tmp_path):
+    """``save_checkpoint_sharded`` of CUDA tensors (f32, bf16, int64) and
+    ``restore_checkpoint_sharded`` onto CUDA ``like`` leaves: bitwise, on
+    the card, in ``like``'s dtypes."""
+    hvd = world1_cuda
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tree = {"w": torch.randn(64, 32, device="cuda", generator=g),
+            "h": torch.randn(100, device="cuda", generator=g).bfloat16(),
+            "n": torch.arange(5, device="cuda")}
+    hvd.save_checkpoint_sharded(str(tmp_path), tree, step=3)
+    like = {k: torch.zeros_like(v) for k, v in tree.items()}
+    got, step = hvd.restore_checkpoint_sharded(str(tmp_path), like)
+    assert step == 3
+    for k, v in tree.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
+        assert torch.equal(got[k], v), k

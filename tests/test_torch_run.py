@@ -9,10 +9,15 @@ errors), the tagged output and first-failure supervision
 (``exec_util.py``), and the KV rendezvous (``http_kv.py``: round trips,
 the per-job secret, the clock-skew window, a server blackout, a chaos
 blackout on the client, chunked objects) -- with each package's client
-talking to the other's server.  Then the launcher's CLI (``launch.py``):
-the worker environment, the refusals of what is not ported,
-``--timeline-filename``'s per-rank timelines, the build
-report, ``--explain-plan`` beside the JAX one, and real runs of
+talking to the other's server.  The LSF parser (``lsf.py``) on every
+case of ``tests/test_run.py`` and more, equal to the JAX one; the
+pre-launch probe (``probe.py``): the report's fields, ``validate`` on
+skew in each matched field, two local probes end to end.  Then the
+launcher's CLI (``launch.py``): the worker environment,
+``--timeline-filename``'s per-rank timelines, ``--autotune`` reaching a
+gloo worker's config and tuner, ``--probe`` before the spawn, ``-np``
+from ``LSB_MCPU_HOSTS`` (a multi-host allocation a usage error), the
+build report, ``--explain-plan`` beside the JAX one, and real runs of
 ``python -m horovod_tpu_torch.run -np 2 --cpu`` (gloo): an allreduce, a
 failing worker's exit code, ``-H localhost:2``, and a peer killed in the
 middle of a collective, whose survivor's torch exception the elastic
@@ -404,16 +409,11 @@ def test_cli_usage_errors():
             tlaunch.run_command(argv)
 
 
-@pytest.mark.parametrize("flag", [["--timeline-filename", "t.json"],
-                                  ["--autotune"], ["--probe"]])
+@pytest.mark.parametrize("flag", [["--timeline-filename", "t.json"]])
 def test_cli_refuses_what_is_not_ported(flag, tmp_path, monkeypatch):
-    """``--autotune`` and ``--probe`` raise naming their slice;
-    ``--timeline-filename`` gives each rank ``HOROVOD_TIMELINE=PATH.<rank>``
-    (what the JAX launcher exports) and the workers write their traces."""
-    if flag[0] != "--timeline-filename":
-        with pytest.raises(NotImplementedError, match="1.11, slice 15"):
-            tlaunch.run_command(["-np", "1", *flag, "true"])
-        return
+    """``--timeline-filename`` gives each rank
+    ``HOROVOD_TIMELINE=PATH.<rank>`` (what the JAX launcher exports) and
+    the workers write their traces."""
     for k in _LAUNCHER_ENV:
         monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("PYTHONPATH", REPO)
@@ -432,17 +432,209 @@ def test_cli_refuses_what_is_not_ported(flag, tmp_path, monkeypatch):
             assert json.load(f)[0]["args"]["rank"] == r
 
 
-def test_cli_refuses_lsf_without_np(monkeypatch):
+# ---------------------------------------------------------------------------
+# lsf.py, probe.py, and the launcher's --autotune, --probe and LSF -np
+# ---------------------------------------------------------------------------
+
+_LSF_VARS = ("LSB_JOBID", "LSB_DJOB_RANKFILE", "LSB_MCPU_HOSTS",
+             "LSB_SUB_HOST")
+# (environment, rank-file text or None): every case of tests/test_run.py
+# (:466-560) and the fallbacks and errors around them.
+LSF_CASES = {
+    "mcpu": ({"LSB_MCPU_HOSTS": "nodeA 4 nodeB 4 nodeA 2"}, None),
+    "rankfile_preferred_csm": ({"LSB_SUB_HOST": "batch01",
+                                "LSB_MCPU_HOSTS": "ignored 9"},
+                               "batch01\nh1\nh1\nh2\n"),
+    "rankfile_plain_single_host": ({"LSB_SUB_HOST": "hostA"},
+                                   "hostA\nhostA\nhostA\nhostA\n"),
+    "rankfile_one_slot_per_host": ({}, "h1\nh2\nh3\n"),
+    "malformed_odd_tokens": ({"LSB_MCPU_HOSTS": "nodeA 4 nodeB"}, None),
+    "csm_without_subhost": ({}, "batch01\nh1\nh1\nh2\n"),
+    "uneven_plain_with_subhost": ({"LSB_SUB_HOST": "login01"},
+                                  "nodeA\nnodeB\nnodeB\n"),
+    "fqdn_subhost": ({"LSB_SUB_HOST": "launch01"},
+                     "launch01.cluster.com\nh1\nh1\n"),
+    "bad_slot_count": ({"LSB_MCPU_HOSTS": "nodeA four"}, None),
+    "zero_slots_dropped": ({"LSB_MCPU_HOSTS": "a 0 b 2"}, None),
+    "missing_rankfile_falls_back": ({"LSB_MCPU_HOSTS": "m 3",
+                                     "LSB_DJOB_RANKFILE": "/nonexistent"},
+                                    None),
+    "empty_rankfile_falls_back": ({"LSB_MCPU_HOSTS": "m 2"}, "\n\n"),
+    "nothing_usable": ({}, None),
+    "blank_lines_in_rankfile": ({}, "h1\n\nh1\n  \nh2\n"),
+}
+
+
+def _lsf_outcome(mod):
+    try:
+        return ("ok", mod.using_lsf(), mod.get_compute_hosts())
+    except ValueError as e:
+        return ("ValueError", str(e))
+
+
+@pytest.mark.parametrize("case", sorted(LSF_CASES))
+def test_lsf_equals_jax(case, monkeypatch, tmp_path):
+    from horovod_tpu.run import lsf as jlsf
+    from horovod_tpu_torch.run import lsf as tlsf
+    env, rankfile = LSF_CASES[case]
+    for k in _LSF_VARS:
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("LSB_JOBID", "123")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    if rankfile is not None:
+        rf = tmp_path / "rankfile"
+        rf.write_text(rankfile)
+        monkeypatch.setenv("LSB_DJOB_RANKFILE", str(rf))
+    got, want = _lsf_outcome(tlsf), _lsf_outcome(jlsf)
+    assert got == want
+    if case == "mcpu":
+        assert got == ("ok", True, [("nodeA", 6), ("nodeB", 4)])
+    monkeypatch.delenv("LSB_JOBID")
+    assert tlsf.using_lsf() is jlsf.using_lsf() is False
+
+
+def test_probe_report_fields():
+    import socket
+
+    import torch
+
+    import horovod_tpu_torch
+    from horovod_tpu_torch.run import probe
+    rep = probe.probe_report()
+    assert set(rep) == {"hostname", "framework_version", "torch_version",
+                        "cuda", "python", "addresses"}
+    assert rep["hostname"] == socket.gethostname()
+    assert rep["framework_version"] == horovod_tpu_torch.__version__
+    assert rep["torch_version"] == torch.__version__
+    assert rep["cuda"] == torch.version.cuda
+    assert rep["python"] == "%d.%d" % sys.version_info[:2]
+    assert "127.0.0.1" in rep["addresses"]
+    json.dumps(rep)
+
+
+@pytest.mark.parametrize("field", ["framework_version", "torch_version",
+                                   "cuda", "python"])
+def test_probe_validate_fails_on_skew(field):
+    from horovod_tpu_torch.run import probe
+    rep = probe.probe_report()
+    driver = probe.DriverProbe()
+    try:
+        driver.validate({"a": rep, "b": dict(rep)})
+        with pytest.raises(RuntimeError, match=field):
+            driver.validate({"a": rep, "b": dict(rep, **{field: "other"})})
+        # The hostname and addresses may differ across hosts.
+        driver.validate({"a": rep, "b": dict(rep, hostname="elsewhere",
+                                             addresses=["10.0.0.2"])})
+    finally:
+        driver.stop()
+
+
+def test_two_local_probes_end_to_end(monkeypatch):
+    from horovod_tpu_torch.run import probe
+    monkeypatch.setenv("PYTHONPATH", REPO)
+    driver = probe.DriverProbe()
+    children = []
+    try:
+        children = [driver.spawn_local_probe(w) for w in ("w0", "w1")]
+        reports = driver.collect(["w0", "w1"], timeout_s=120)
+        driver.validate(reports)
+        for child in children:
+            assert child.wait(timeout=60) == 0
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+        driver.stop()
+    assert set(reports) == {"w0", "w1"}
+    assert reports["w0"] == reports["w1"] == json.loads(json.dumps(
+        probe.probe_report()))
+    with pytest.raises(TimeoutError, match="w9"):
+        d2 = probe.DriverProbe()
+        try:
+            d2.collect(["w9"], timeout_s=0.3)
+        finally:
+            d2.stop()
+
+
+_TUNED_WORKER = """
+import os
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.core.state import global_state
+hvd.init()
+st = global_state()
+print(f"rank {hvd.rank()}/{hvd.size()} on {st.device}: autotune="
+      f"{st.config.autotune} tuner={type(st.autotuner).__name__} "
+      f"env={os.environ.get('HOROVOD_AUTOTUNE')}", flush=True)
+hvd.shutdown()
+"""
+
+
+def _cli_env(monkeypatch):
+    for k in _LAUNCHER_ENV + _LSF_VARS + ("HOROVOD_AUTOTUNE",
+                                          "HVD_TPU_AUTOTUNE"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("PYTHONPATH", REPO)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+
+
+@pytest.mark.integration
+def test_cli_autotune_and_probe_reach_the_workers(tmp_path, monkeypatch,
+                                                   capfd):
+    """``--probe --autotune -np 2 --cpu``: the probes agree, then both
+    workers see ``HOROVOD_AUTOTUNE=1``, a config with autotune on and an
+    ``Autotuner`` built by ``init()``."""
+    _cli_env(monkeypatch)
+    script = tmp_path / "tuned.py"
+    script.write_text(_TUNED_WORKER)
+    assert tlaunch.run_command(["-np", "2", "--cpu", "--probe",
+                                "--autotune", "-v", sys.executable,
+                                str(script)]) == 0
+    out = capfd.readouterr().out
+    for r in range(2):
+        assert (f"rank {r}/2 on cpu: autotune=True tuner=Autotuner env=1"
+                in out), out
+        assert f"# probe slot{r}: " in out
+
+
+@pytest.mark.integration
+def test_cli_lsf_derives_np(tmp_path, monkeypatch, capfd):
+    """Inside an LSF job with no ``-np``: the allocation's slots on this
+    host (``LSB_MCPU_HOSTS``) are the world; an allocation that spans
+    another host is a usage error."""
+    import socket
+    _cli_env(monkeypatch)
+    script = tmp_path / "tuned.py"
+    script.write_text(_TUNED_WORKER)
     monkeypatch.setenv("LSB_JOBID", "42")
-    with pytest.raises(NotImplementedError, match="LSF"):
-        tlaunch.run_command(["true"])
+    monkeypatch.setenv("LSB_MCPU_HOSTS", f"{socket.gethostname()} 2")
+    assert tlaunch.run_command(["--cpu", sys.executable, str(script)]) == 0
+    out = capfd.readouterr().out
+    assert "rank 0/2 on cpu" in out and "rank 1/2 on cpu" in out
+    assert "tuner=NoneType" in out
+    monkeypatch.setenv("LSB_MCPU_HOSTS", f"{socket.gethostname()} 1 far 4")
+    with pytest.raises(SystemExit):
+        tlaunch.run_command(["--cpu", "true"])
+    assert "spans multiple hosts" in capfd.readouterr().err
+    monkeypatch.setenv("LSB_MCPU_HOSTS", "odd")
+    with pytest.raises(SystemExit):
+        tlaunch.run_command(["--cpu", "true"])
+
+
+def test_log_env_exports_autotune_to_elastic_workers():
+    opts = tlaunch.build_parser().parse_args(["--autotune", "true"])
+    assert tlaunch._log_env(opts)["HOROVOD_AUTOTUNE"] == "1"
+    opts = tlaunch.build_parser().parse_args(["true"])
+    assert "HOROVOD_AUTOTUNE" not in tlaunch._log_env(opts)
 
 
 def test_check_build_lists_the_port():
     text = tlaunch.check_build()
     for want in ("horovod_tpu_torch", "torch ", "gloo", "NCCL", "elastic",
-                 "bn_bwd.cu", "fused_update.cu", "flash_fwd.cu"):
+                 "bn_bwd.cu", "fused_update.cu", "flash_fwd.cu",
+                 "[X] autotune", "sharded"):
         assert want in text
+    assert "[ ] autotune" not in text
 
 
 @pytest.mark.parametrize("comp", [None, "fp16", "topk:0.25"])
