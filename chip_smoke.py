@@ -240,6 +240,29 @@ Phases, each printing its own line; any failure exits non-zero:
    the step ms at it beside the default 64 MiB, the tuning steps' ms,
    ``horovod_autotune_samples_total``, the captures of (b), each
    checkpoint call's ms, the BN launches.
+25. eager_join -- the eager control plane on phase 19's cell (the
+   torch-idiom ResNet-50, deterministic cuDNN).  (a) The batched
+   ``DistributedOptimizer`` (``HVD_TPU_NATIVE_CORE=1``: the hooks hand
+   each gradient to the native cycle scheduler, 1 ms, deterministic, one
+   ``grouped_allreduce`` a cut batch): one warm-up and five timed steps,
+   then three more; the same six steps from the same weights on the
+   planned buckets.  Losses and parameters bitwise equal (at world 1 an
+   allreduce is a copy and the fp16 cast is per element), 53 launches
+   of each BN kernel a step; both step times and the native batches cut
+   a step are logged.  (b) The eager ops on the card at world 1:
+   ``allreduce_async`` over the model's 161 gradient shapes and
+   ``synchronize`` on each, immediate and -- through the tests'
+   ``_defer_applies`` seam -- as one fused deferred flush; ``allgatherv``;
+   ``alltoallv`` with splits; ``local_result``; ``local_rank_count() ==
+   1``; ``join() == -1``; each held exactly, with
+   ``deferred_fuse_stats()``.  (c) ``HOROVOD_AUTOTUNE=1`` on the batched
+   path: three samples of 1 + 2 steps; the batcher is deterministic, so
+   the cycle axis stays pinned to the configured 1 ms; the batcher holds
+   each sample's threshold and that cycle time, and the nine tuned
+   steps are bitwise (a)'s nine untuned ones.  (d) ``python -m
+   horovod_tpu_torch.run -np 2 --cpu python -m
+   horovod_tpu_torch.examples.join_check`` (gloo on this host): exit 0
+   and ``join OK last=1`` from each rank.  Logged: the BN launches.
 
 Phase 17 also holds ``chunked_allreduce`` (equal to ``allreduce`` at
 world 1) and ``fp8_allreduce`` (bitwise its round trip) on its 64 MiB
@@ -4219,6 +4242,255 @@ def autotune_resnet(dev, card: str, phase8_step_ms: float) -> dict:
     return bn_total
 
 
+JOIN_LAUNCH_TIMEOUT = 240
+EAGER_JOIN_STEPS = 5            # timed steps of (a), after one warm-up
+EAGER_JOIN_EXTRA = 3            # (a)'s batched run continues for (c):
+#                                 its nine steps are (c)'s three samples
+#                                 of 1 + 2 steps
+
+
+def _join_launch(here: str) -> dict:
+    """Phase 25 (d): the port's ``join_check.py`` at ``-np 2 --cpu``."""
+    env = dict(os.environ, PYTHONPATH=here)
+    for k in list(env):
+        if k.startswith(("HOROVOD_AUTOTUNE", "HVD_TPU_AUTOTUNE")) or k in (
+                "HVD_TPU_NATIVE_CORE", "HOROVOD_RANK", "HOROVOD_SIZE",
+                "HVD_TPU_RENDEZVOUS_FILE", "HOROVOD_CHAOS"):
+            env.pop(k)
+    args = [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2",
+            "--cpu", sys.executable, "-m",
+            "horovod_tpu_torch.examples.join_check"]
+    t = time.perf_counter()
+    try:
+        res = subprocess.run(args, env=env, cwd=here, capture_output=True,
+                             text=True, timeout=JOIN_LAUNCH_TIMEOUT)
+        code, text = res.returncode, res.stdout + res.stderr
+    except subprocess.TimeoutExpired as e:
+        code, text = "timeout", f"{e.stdout or ''}{e.stderr or ''}"
+    return {"exit": code, "wall_s": time.perf_counter() - t,
+            "join_ok": [f"rank {r}: join OK last=1" in text
+                        for r in range(2)],
+            "join2_ok": [f"rank {r}: join2 OK last=1" in text
+                         for r in range(2)], "tail": text[-1500:]}
+
+
+def _torch_steps(bench, steps: int, snap_at: int = 0, tuner=None,
+               batcher=None, nbytes: int = 0) -> dict:
+    """``steps`` steps of the torch-idiom bench: each step's loss and ms,
+    the host ms in the optimizer's ``synchronize()`` (the batched path:
+    the flush, the native thread's callback and the waits), the
+    parameters at the end and after step ``snap_at``, and under
+    ``tuner`` each step's record and the batcher's knobs after it."""
+    losses, times, knobs, snap, sync_s = [], [], [], None, []
+    opt = bench.optimizer
+    inner = opt.synchronize
+
+    def timed_sync():            # host time in the exchange's wait
+        t0 = time.perf_counter()
+        try:
+            return inner()
+        finally:
+            sync_s.append(time.perf_counter() - t0)
+    opt.synchronize = timed_sync
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(bench.step().item())
+        times.append(time.perf_counter() - t)
+        if tuner is not None:
+            tuner.record_step(times[-1], nbytes)
+            knobs.append((tuner.cycle_time_ms(), tuner.fusion_threshold(),
+                          batcher.cycle_ms, batcher.fusion_bytes,
+                          batcher.batches()))
+        if i + 1 == snap_at:
+            snap = {n: p.detach().clone()
+                    for n, p in bench.model.named_parameters()}
+    del opt.synchronize
+    return {"losses": losses, "step_ms_each": [1e3 * t for t in times],
+            "sync_ms_each": [1e3 * t for t in sync_s],
+            "knobs": knobs, "snap": snap,
+            "params": {n: p.detach().clone()
+                       for n, p in bench.model.named_parameters()}}
+
+
+def _differ(a: dict, b: dict) -> list:
+    return [n for n, t in a.items() if not torch.equal(t, b[n])]
+
+
+def _eager_ops(dev, shapes, fails: list) -> dict:
+    """Phase 25 (b): the eager ops at world 1, each held exactly."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.collectives import eager
+    g = torch.Generator(device=dev).manual_seed(25)
+    xs = [torch.randn(s, generator=g, device=dev) for s in shapes]
+    out = {}
+    for forced in (False, True):
+        saved = eager._defer_applies
+        if forced:        # the fused deferred flush, as the tests force it
+            eager._defer_applies = lambda ps: True
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            hs = [hvd.allreduce_async(x, op=hvd.Average) for x in xs]
+            got = [hvd.synchronize(h) for h in hs]
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t)
+        finally:
+            eager._defer_applies = saved
+        bad = sum(not torch.equal(a, b) for a, b in zip(got, xs))
+        if bad:
+            fails.append(f"{bad} allreduce_async results differ "
+                         f"(deferred={forced})")
+        out["deferred" if forced else "immediate"] = {
+            "ms": ms, "fuse_stats": eager.deferred_fuse_stats()}
+    x = torch.randn(37, 5, generator=g, device=dev)
+    _exact(fails, "allgatherv", hvd.allgatherv(x), x)
+    datas, recv = hvd.alltoallv([x], [[37]])
+    _exact(fails, "alltoallv", datas[0], x)
+    if recv[0].tolist() != [37]:
+        fails.append(f"alltoallv received splits {recv[0].tolist()}")
+    row, row_splits = hvd.alltoallv_row(x, [37])
+    _exact(fails, "alltoallv_row", row, x)
+    _exact(fails, "local_result", hvd.local_result(x), x[None])
+    if hvd.local_rank_count() != 1:
+        fails.append(f"local_rank_count {hvd.local_rank_count()}")
+    last = hvd.join()
+    if last != -1:
+        fails.append(f"join() returned {last} at world 1")
+    out.update(ops=len(xs), join=last, local_rank_count=1,
+               eager_op_stats=eager.eager_op_stats())
+    return out
+
+
+def eager_join(dev, card: str) -> dict:
+    """Phase 25 (module docstring).  Returns the BN launch counts of
+    (a)'s nine batched steps."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.autotune import Autotuner
+    from horovod_tpu_torch.collectives import batching
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.examples import torch_resnet50 as ex
+    from horovod_tpu_torch.ops import registry
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    fails = []
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    args = ex.parse_args([])
+    hvd.init()
+    st = global_state()
+    base = st.config
+
+    def bench(native: bool):
+        st.config = dataclasses.replace(base, native_core=native,
+                                        cycle_time=1.0)
+        return ex.setup(args)
+
+    # (a) batched, then planned, from the same weights (setup's seed).
+    n_a = 1 + EAGER_JOIN_STEPS
+    n_all = n_a + EAGER_JOIN_EXTRA
+    b = bench(True)
+    batcher = batching.batcher()
+    shapes = [tuple(p.shape) for p in b.model.parameters()]
+    nbytes = 4 * sum(p.numel() for p in b.model.parameters())
+    torch.cuda.synchronize()
+    registry.reset_launch_counts()
+    cut0 = batcher.batches()
+    batched = _torch_steps(b, n_all, snap_at=n_a)
+    counts = registry.launch_counts()
+    cuts = (batcher.batches() - cut0) / n_all
+    del b
+    gc.collect()
+    p = bench(False)
+    planned = _torch_steps(p, n_a)
+    del p
+    gc.collect()
+    b_ms, p_ms = batched["step_ms_each"][1:n_a], planned["step_ms_each"][1:]
+    log({"phase": "eager_join_a", "card": card, "steps": EAGER_JOIN_STEPS,
+         "batched_step_ms": sum(b_ms) / len(b_ms),
+         "batched_step_ms_each": b_ms,
+         "planned_step_ms": sum(p_ms) / len(p_ms),
+         "planned_step_ms_each": p_ms,
+         "batched_sync_ms_each": batched["sync_ms_each"][1:n_a],
+         "planned_sync_ms_each": planned["sync_ms_each"][1:],
+         "native_batches_per_step": cuts,
+         "deterministic": batcher.deterministic,
+         "cycle_ms": batcher.cycle_ms, "fusion_bytes": batcher.fusion_bytes,
+         "losses_batched": batched["losses"],
+         "losses_planned": planned["losses"],
+         "bn_launches_per_step": {k: counts[k] / n_all
+                                  for k in ("bn_bwd_reduce", "bn_bwd_dx")}})
+    if batched["losses"][:n_a] != planned["losses"]:
+        fails.append(f"batched losses {batched['losses'][:n_a]} != "
+                     f"planned {planned['losses']}")
+    moved = _differ(planned["params"], batched["snap"])
+    if moved:
+        fails.append(f"{len(moved)} parameters differ batched vs planned")
+    for f in ("bn_bwd_reduce", "bn_bwd_dx"):
+        if counts[f] != RESNET50_BN_SITES * n_all:
+            fails.append(f"{f} launches {counts[f]} != "
+                         f"{RESNET50_BN_SITES * n_all}")
+    if not batcher.deterministic:
+        fails.append("the batcher is not deterministic on the GPU")
+    if not all(np.isfinite(batched["losses"])):
+        fails.append("a loss is not finite")
+
+    # (b) the eager ops.
+    ops = _eager_ops(dev, shapes, fails)
+    log({"phase": "eager_join_b", "card": card, **ops})
+
+    # (c) the autotuner on the batched path; the batcher is deterministic
+    # on the GPU, so the cycle axis stays pinned.
+    tuner = Autotuner(dataclasses.replace(base, autotune=True,
+                                          autotune_log=None,
+                                          native_core=True, cycle_time=1.0),
+                      steps_per_sample=2)
+    st.autotuner = tuner
+    try:
+        tb = bench(True)
+        tuned = _torch_steps(tb, n_all, tuner=tuner, batcher=batcher,
+                           nbytes=nbytes)
+        del tb
+        gc.collect()
+    finally:
+        st.autotuner = None
+    reached = all(k[0] == k[2] == 1.0 and k[1] == k[3]
+                  for k in tuned["knobs"])
+    if tuned["losses"] != batched["losses"]:
+        fails.append(f"tuned losses {tuned['losses']} != untuned "
+                     f"{batched['losses']}")
+    diff = _differ(tuned["params"], batched["params"])
+    if diff:
+        fails.append(f"{len(diff)} parameters differ tuned vs untuned")
+    if tuner.tunes_cycle or not reached:
+        fails.append(f"cycle axis open {tuner.tunes_cycle} on a "
+                     f"deterministic batcher, batcher followed the samples "
+                     f"{reached}: {tuned['knobs']}")
+    log({"phase": "eager_join_c", "card": card,
+         "cycle_axis": sorted({c for _, c, *_ in tuner.grid}),
+         "samples_threshold_cycle_score": [
+             (smp[0], smp[1], smp[-1]) for smp in tuner._samples],
+         "knobs_each_step": tuned["knobs"],
+         "tuned_step_ms_each": tuned["step_ms_each"]})
+
+    # (d) the launcher's two-rank join drill.
+    launch = _join_launch(here)
+    log({"phase": "eager_join_d", **launch})
+    if launch["exit"] != 0 or not all(launch["join_ok"]) or \
+            not all(launch["join2_ok"]):
+        fails.append(f"join_check -np 2: exit {launch['exit']}, "
+                     f"{launch['join_ok']} {launch['join2_ok']}")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        cudnn
+    st.config = base
+    if fails:
+        raise AssertionError("eager_join: " + "; ".join(fails))
+    hvd.shutdown()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4293,6 +4565,8 @@ def main() -> int:
     free_device()
     autotune_bn = autotune_resnet(dev, card, resnet["step_ms"])
     free_device()
+    join_bn = eager_join(dev, card)
+    free_device()
     # The attention and BN kernels run on several paths: their launches
     # are the sums.
     flash["launches"] = serve["flash"] + train["flash"] + bert["flash"]
@@ -4305,11 +4579,13 @@ def main() -> int:
                           + loop["bn_bwd_reduce"]
                           + elastic_bn["bn_bwd_reduce"]
                           + sdc_bn["bn_bwd_reduce"]
-                          + autotune_bn["bn_bwd_reduce"])
+                          + autotune_bn["bn_bwd_reduce"]
+                          + join_bn["bn_bwd_reduce"])
     bn_dx["launches"] = (resnet["bn_bwd_dx"] + inception["bn_bwd_dx"]
                          + torch_rn50["bn_bwd_dx"] + exchange["bn_bwd_dx"]
                          + loop["bn_bwd_dx"] + elastic_bn["bn_bwd_dx"]
-                         + sdc_bn["bn_bwd_dx"] + autotune_bn["bn_bwd_dx"])
+                         + sdc_bn["bn_bwd_dx"] + autotune_bn["bn_bwd_dx"]
+                         + join_bn["bn_bwd_dx"])
     for e in fused:
         e["launches"] = powersgd[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -34,8 +34,7 @@ ported so far:
   collectives, Horovod's keywords (``average=``, ``name=``, ...) and its
   integer handles (``*_async`` -> :func:`synchronize` / :func:`poll`),
   with the ``pytorch_mnist`` and torch-idiom ResNet-50 examples
-  (``python -m horovod_tpu_torch.examples.pytorch_mnist``).  ``join``
-  (ROADMAP item 1.8) raises ``NotImplementedError``;
+  (``python -m horovod_tpu_torch.examples.pytorch_mnist``);
 * the compressed and sharded exchanges: ``Compression.fp8`` (e4m3 wire,
   f32 accumulation), ``topk:<f>`` error feedback, the two-level
   ``hierarchical_allreduce`` with per-leg ``ici:<c>,dcn:<c>`` codecs
@@ -74,7 +73,17 @@ ported so far:
   steps-per-execution and microbatch axes, rank 0 deciding, with a CSV
   log that warm-starts the next run; the launcher's pre-launch probe
   (``--probe``) and ``-np`` from an LSF allocation; and sharded
-  checkpoints (:func:`save_checkpoint_sharded`), one npz a rank.
+  checkpoints (:func:`save_checkpoint_sharded`), one npz a rank;
+* the eager control plane: :func:`join` (a rank out of data drains --
+  it takes part in the others' collectives with identity payloads until
+  every rank has joined, then every rank gets the last rank to join; -1
+  at world 1), the fused deferred flush of ``allreduce_async`` while the
+  join protocol applies, :func:`allgatherv` / :func:`alltoallv` /
+  :func:`local_result` / :func:`local_rank_count`, and the native cycle
+  batcher (``HVD_TPU_NATIVE_CORE=1``: the ``DistributedOptimizer``'s
+  hooks hand each gradient to a C++ scheduler that cuts fused batches,
+  one ``grouped_allreduce`` each; ``HOROVOD_CYCLE_TIME``, tuned by the
+  autotuner's cycle axis).
 
 Kernels hand-written in CUDA C++ for ``sm_90a`` (``ops/csrc``) carry
 attention -- the flash forward and decode kernels, the flash backward's
@@ -107,6 +116,10 @@ from .collectives.ops import (allgather, allreduce,  # noqa: F401
                               broadcast_, grouped_allgather,
                               grouped_allreduce, grouped_allreduce_,
                               grouped_reducescatter, reducescatter)
+from .collectives.eager import (allgatherv, alltoallv,  # noqa: F401
+                                alltoallv_row, deferred_fuse_stats,
+                                local_rank_count, local_result, one_row,
+                                replicated_stack)
 from .collectives.reduce_op import (Adasum, Average, Max,  # noqa: F401
                                     Min, Product, ReduceOp, Sum)
 from .data import DevicePrefetcher, prefetch_to_device  # noqa: F401

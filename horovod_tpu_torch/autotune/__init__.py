@@ -23,9 +23,18 @@ The grid has the JAX tuner's ten members, in its order (``_grid``):
 * **fusion threshold**: always open (2, 8, 32, 64, 128 MiB and the
   configured one); read by ``controller.fusion.fusion_threshold`` and
   applied by the train step's re-plan of the optimizer's buckets;
-* **cycle time**: pinned to ``HOROVOD_CYCLE_TIME`` (the member keeps
-  the log's columns): the native cycle scheduler it drives is ROADMAP
-  item 1.8, not ported, so no axis is opened that nothing reads;
+* **cycle time**: the native gradient batcher's cycle (0.5, 1 and 5 ms
+  and ``HOROVOD_CYCLE_TIME``), open when the batched path is on
+  (``HVD_TPU_NATIVE_CORE=1``, or the batcher running) and the batcher
+  cuts by the clock -- the CPU at world 1 unless
+  ``HOROVOD_DETERMINISTIC`` says otherwise; the JAX tuner keys it on its
+  torch shim being imported.  A deterministic batcher (every world > 1,
+  the GPU) cuts at ``synchronize()`` alone, so there the member is
+  pinned to the configured value (it keeps the log's columns) and
+  ``cycle_candidates=`` with more than one value raises ``ValueError``.
+  Each sample's fusion threshold, and its cycle time while the axis is
+  open, are pushed into the running batcher
+  (:meth:`Autotuner._apply_to_batcher`);
 * **hierarchical**: open only on a two-level layout
   (``core.topology.hier_mesh_shape`` with both extents above 1);
 * **compression**: opt-in (``HOROVOD_AUTOTUNE_COMPRESSION=1``: the
@@ -60,6 +69,7 @@ from .gp import BayesianOptimizer
 
 _MiB = 1024 * 1024
 _THRESHOLDS = [2 * _MiB, 8 * _MiB, 32 * _MiB, 64 * _MiB, 128 * _MiB]
+_CYCLES_MS = [0.5, 1.0, 5.0]
 MAX_SAMPLES = 12
 # Compression axis encoding (grid value -> codec); 0 keeps whatever the
 # optimizer was configured with.  Codes >= COMP_CODEC_BASE are
@@ -94,6 +104,18 @@ def _layout_is_two_level() -> bool:
     return shape is not None and all(s > 1 for s in shape)
 
 
+def _batcher_deterministic(config) -> bool:
+    """The native batcher's mode for this process: the running one's,
+    else the one it would start in (``batching.resolve_deterministic``)."""
+    from ..collectives import batching
+    from ..core.state import global_state
+    b = batching.current()
+    if b is not None:
+        return b.deterministic
+    st = global_state()
+    return batching.resolve_deterministic(config, st.size, st.device)
+
+
 class Autotuner:
     """Feed ``record_step(seconds, nbytes)`` a training step; read the
     current knobs (``fusion_threshold()``, ``exchange_chunk_bytes()``,
@@ -101,7 +123,8 @@ class Autotuner:
 
     def __init__(self, config, steps_per_sample: int = 10,
                  candidates: Optional[List[int]] = None,
-                 max_samples: int = MAX_SAMPLES):
+                 max_samples: int = MAX_SAMPLES,
+                 cycle_candidates: Optional[List[float]] = None):
         from ..core.config import _env, _env_bool
         if _env_bool("AUTOTUNE_MOE"):
             raise NotImplementedError(
@@ -110,9 +133,27 @@ class Autotuner:
         self.candidates = list(candidates or _THRESHOLDS)
         if config.fusion_threshold not in self.candidates:
             self.candidates.append(config.fusion_threshold)
-        # The cycle axis stays pinned: nothing in the port reads it
-        # (ROADMAP item 1.8).
-        cycles = [config.cycle_time]
+        # The cycle time is read only by a native batcher that cuts its
+        # batches by the clock.  A deterministic one (every world > 1,
+        # the GPU at world 1) cuts at flush() alone, so there the axis
+        # stays pinned: tuning it would re-measure identical
+        # configurations under noise.
+        from ..collectives import batching
+        clocked = not _batcher_deterministic(config)
+        if cycle_candidates is not None:
+            if not clocked and len(set(cycle_candidates)) > 1:
+                raise ValueError(
+                    "cycle_candidates: the native batcher is deterministic "
+                    "here (world > 1, or the GPU) and cuts batches at "
+                    "synchronize() only, so no cycle time changes a step")
+            cycles = list(cycle_candidates)
+        else:
+            batched = batching.current() is not None or \
+                getattr(config, "native_core", False)
+            cycles = list(_CYCLES_MS) if batched and clocked else []
+        if config.cycle_time not in cycles:
+            cycles.append(config.cycle_time)
+        self.tunes_cycle = len(cycles) > 1
         self.tunes_hier = _layout_is_two_level()
         hiers = [0, 1] if self.tunes_hier else \
             [1 if config.hierarchical_allreduce else 0]
@@ -183,6 +224,7 @@ class Autotuner:
         self._skip_next = True
         self._warm_start()
         self._idx = self._next_index()
+        self._apply_to_batcher()     # the first sample, to a running one
 
     # -- current knobs ----------------------------------------------------
     def _current(self) -> tuple:
@@ -190,6 +232,10 @@ class Autotuner:
 
     def fusion_threshold(self) -> int:
         return self._current()[0]
+
+    def cycle_time_ms(self) -> float:
+        """The native batcher's cycle time of the current sample."""
+        return self._current()[1]
 
     def hierarchical_explicit(self) -> bool:
         """Use the two-level allreduce schedule."""
@@ -373,6 +419,7 @@ class Autotuner:
         self._accum_bytes = 0
         self._idx = self._next_index()
         self._skip_next = True
+        self._apply_to_batcher()
         return True
 
     def _next_index(self) -> int:
@@ -403,6 +450,17 @@ class Autotuner:
         best = self._sync(self._opt.best_index)
         self._best = self.grid[best if best is not None else 0]
         self._write_log()
+        self._apply_to_batcher()
+
+    def _apply_to_batcher(self) -> None:
+        """Push the current fusion threshold, and the cycle time while its
+        axis is open, into the running native batcher (the
+        ParameterManager owning the C++ knobs); nothing without one."""
+        from ..collectives import batching
+        b = batching.current()
+        if b is not None:
+            b.update_tuning(self.cycle_time_ms() if self.tunes_cycle
+                            else -1.0, self.fusion_threshold())
 
     # -- warm start / log -------------------------------------------------
     def _warm_start(self) -> None:

@@ -2,14 +2,20 @@
 top level, ``synchronize`` and ``poll``.
 
 Counterpart of the handle table of ``horovod_tpu/torch_api/__init__.py``
-(upstream ``horovod/torch/handle_manager.cc``).  Each ``*_async``
-function here starts the op of :mod:`~horovod_tpu_torch.collectives.ops`
-of the same name, keeps its :class:`~horovod_tpu_torch.collectives.ops.
-Handle` under a new integer and returns the integer.
-:func:`synchronize` waits and returns the result (a grouped handle's is
-the list of results) and forgets the handle; :func:`poll` reads whether
-its work has completed (``work.is_completed()``).  An unknown or
-already synchronized handle raises ``ValueError``, as upstream's does.
+(upstream ``horovod/torch/handle_manager.cc``), kept in
+:mod:`~horovod_tpu_torch.collectives.eager` with the JAX package's
+sentinels.  Each ``*_async`` function here starts the op of
+:mod:`~horovod_tpu_torch.collectives.ops` of the same name, keeps its
+:class:`~horovod_tpu_torch.collectives.ops.Handle` under a new integer
+and returns the integer -- but ``allreduce_async`` /
+``allreduce_async_``, while ``hvd.join``'s protocol applies (world > 1,
+the global set), queue the op for the fused deferred flush instead.
+:func:`synchronize` flushes, waits and returns the result (a grouped
+handle's is the list of results) and forgets the handle; :func:`poll`
+flushes a queued op and reads whether its work has completed.  An
+unknown or already synchronized handle raises
+:class:`~horovod_tpu_torch.collectives.eager.UnknownHandleError`, a
+``ValueError`` as upstream's and a ``KeyError`` as the JAX package's.
 The op layer's ``Handle`` objects stay for the DistributedOptimizer's
 internal use.
 """
@@ -18,52 +24,14 @@ from __future__ import annotations
 
 import functools
 import inspect
-import itertools
-import threading
-from typing import Dict
 
 from ..core.process_sets import get_process_set
 from ..timeline.metrics import collective_counters
-from . import ops
+from . import eager, ops
+from .compression import Compression
 
-
-class _HandleTable:
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._next = itertools.count(1)
-        self._handles: Dict[int, ops.Handle] = {}
-
-    def add(self, handle: ops.Handle) -> int:
-        with self._lock:
-            h = next(self._next)
-            self._handles[h] = handle
-            return h
-
-    def get(self, h: int, pop: bool = False) -> ops.Handle:
-        with self._lock:
-            handle = (self._handles.pop if pop else self._handles.get)(h,
-                                                                       None)
-        if handle is None:
-            raise ValueError(f"handle {h} was not created or has been "
-                             f"synchronized")
-        return handle
-
-
-_table = _HandleTable()
-
-
-def synchronize(handle: int):
-    """Wait for the op behind ``handle`` and return its result (an
-    injected ``at=sync`` chaos comm fault is raised here)."""
-    h = _table.get(handle, pop=True)
-    from ..elastic import chaos
-    chaos.raise_if_armed()
-    return h.wait()
-
-
-def poll(handle: int) -> bool:
-    """True once the op behind ``handle`` has completed."""
-    return _table.get(handle).poll()
+synchronize = eager.synchronize
+poll = eager.poll
 
 
 def _int_handle(fn, kind: str):
@@ -77,7 +45,7 @@ def _int_handle(fn, kind: str):
         ps = sig.bind(*args, **kwargs).arguments.get("process_set")
         collective_counters(kind, get_process_set(ps).name)[
             "handles"].inc()
-        return _table.add(handle)
+        return eager._alloc_handle(handle)
 
     wrapper.__doc__ = (f"Horovod's ``{fn.__name__}``: an integer handle "
                        f"for :func:`synchronize` / :func:`poll`.\n\n"
@@ -85,8 +53,38 @@ def _int_handle(fn, kind: str):
     return wrapper
 
 
-allreduce_async = _int_handle(ops.allreduce_async, "allreduce")
-allreduce_async_ = _int_handle(ops.allreduce_async_, "allreduce")
+def _deferring(fn, inplace: bool):
+    """:func:`_int_handle` of an allreduce that queues for the fused
+    deferred flush while the join protocol applies (JAX
+    ``allreduce_async``): the copying op snapshots its input, the
+    in-place op writes its result back into it at the flush."""
+    start = _int_handle(fn, "allreduce")
+    sig = inspect.signature(fn)
+
+    @functools.wraps(start)
+    def wrapper(*args, **kwargs) -> int:
+        a = sig.bind(*args, **kwargs).arguments
+        ps = get_process_set(a.get("process_set"))
+        if a.get("wire_codec") is not None or eager._in_flush() or \
+                not eager._defer_applies(ps):
+            return start(*args, **kwargs)
+        op = ops._resolve_op(a.get("average"), a.get("op"))
+        ops._check_allreduce_op(op, None)
+        tensor = a["tensor"]
+        collective_counters("allreduce", ps.name)["handles"].inc()
+        return eager.defer(eager._DeferredAllreduce(
+            x=tensor if inplace else tensor.clone(), op=op,
+            name=a.get("name"), process_set=ps,
+            prescale=float(a.get("prescale_factor", 1.0)),
+            postscale=float(a.get("postscale_factor", 1.0)),
+            compression=Compression.none,
+            target=tensor if inplace else None))
+
+    return wrapper
+
+
+allreduce_async = _deferring(ops.allreduce_async, inplace=False)
+allreduce_async_ = _deferring(ops.allreduce_async_, inplace=True)
 grouped_allreduce_async = _int_handle(ops.grouped_allreduce_async,
                                       "allreduce")
 grouped_allreduce_async_ = _int_handle(ops.grouped_allreduce_async_,

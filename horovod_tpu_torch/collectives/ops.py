@@ -66,6 +66,7 @@ from ..core.exceptions import HorovodInternalError
 from ..core.process_sets import ProcessSet, get_process_set
 from ..ops import fused_update as fu
 from ..timeline.metrics import note_collective
+from . import eager, joinop
 from .compression import (Compression, fp8_quantize, is_error_feedback,
                           is_fp8, is_powersgd, parse_compression,
                           powersgd_effective_rank, powersgd_matrix_shape,
@@ -190,6 +191,19 @@ def _check_compression(compression, fp8_ok: bool = False):
 # ---------------------------------------------------------------------------
 
 
+def _join_postscale(slot, op: ReduceOp, dtype: torch.dtype,
+                    postscale_factor: float, n: int) -> float:
+    """While ranks are drained, ``Average`` is the mean over the active
+    ranks: the postscale gains ``n / n_active``.  An integer ``Average``
+    is refused then (a truncating rescale is ill-defined)."""
+    if not slot.draining or op is not Average:
+        return postscale_factor
+    if not (dtype.is_floating_point or dtype.is_complex):
+        slot.abort("integer-dtype Average while ranks are joined is "
+                   "unsupported (truncating rescale is ill-defined)")
+    return postscale_factor * n / slot.k
+
+
 def allreduce_async_(tensor: torch.Tensor, average=None,
                      name: Optional[str] = None,
                      op: Optional[ReduceOp] = None, *,
@@ -198,14 +212,90 @@ def allreduce_async_(tensor: torch.Tensor, average=None,
                      process_set=None, wire_codec=None) -> Handle:
     """Allreduce ``tensor`` IN PLACE; the handle returns ``tensor``.
     ``wire_codec="fp8"`` (Adasum only) sends Adasum's exchanged pieces
-    as e4m3."""
+    as e4m3.  Takes its slot in ``hvd.join``'s drain protocol (see
+    :mod:`.joinop`)."""
     op = _resolve_op(average, op)
+    _check_allreduce_op(op, wire_codec)
+    ps = _member_set(process_set, "allreduce", tensor)
+    with eager.join_op(ps) as slot:
+        postscale_factor = _join_postscale(slot, op, tensor.dtype,
+                                           postscale_factor, ps.size())
+        slot.publish(eager.join_header(
+            "allreduce", tensor, op=op.value, pre=prescale_factor,
+            post=postscale_factor,
+            codec="adasum_fp8" if wire_codec else "none"))
+        return _allreduce_start(tensor, op, ps, prescale_factor,
+                                postscale_factor, wire_codec, name)
+
+
+def _check_allreduce_op(op: ReduceOp, wire_codec) -> None:
     if op not in _TORCH_OPS and op is not Adasum:
         raise NotImplementedError(f"reduce op {op} is not ported")
     if wire_codec is not None and op is not Adasum:
         raise ValueError("wire_codec applies to op=Adasum only; use "
                          "fp8_allreduce for Sum/Average")
+
+
+def exchange_allreduce_async_(tensor: torch.Tensor, op: ReduceOp, *,
+                              prescale_factor: float = 1.0,
+                              postscale_factor: float = 1.0,
+                              process_set=None, wire_codec=None,
+                              name: Optional[str] = None) -> Handle:
+    """:func:`allreduce_async_` for the exchanges inside a train step
+    (the optimizer's planned buckets, the two-level and chunked
+    exchanges): no join slot, as the JAX package's in-step collectives
+    take none."""
+    _check_allreduce_op(op, wire_codec)
     ps = _member_set(process_set, "allreduce", tensor)
+    return _allreduce_start(tensor, op, ps, prescale_factor,
+                            postscale_factor, wire_codec, name)
+
+
+def _step_joins() -> bool:
+    """Whether a train step's own collectives take a join slot: only
+    while the native batcher runs.  Its gradient batches are the one
+    exchange that takes part in ``hvd.join``'s drain, so the step's
+    other collectives must as well; beside the planned buckets (no slot,
+    as the JAX traced step's collectives) a slot would only add a
+    host-synced presence round, which a captured graph cannot run."""
+    from . import batching
+    return batching.current() is not None
+
+
+def step_allreduce_(tensor: torch.Tensor, op: ReduceOp, *,
+                    process_set=None) -> torch.Tensor:
+    """A train step's own allreduce of ``tensor``, in place (the loss
+    average, the guard screen, the sync-BN sums, the eval metrics): a
+    join slot only under :func:`_step_joins`."""
+    if _step_joins():
+        return allreduce_(tensor, op=op, process_set=process_set)
+    return exchange_allreduce_async_(tensor, op,
+                                     process_set=process_set).wait()
+
+
+def step_allreduce(tensor: torch.Tensor, op: ReduceOp, *,
+                   process_set=None) -> torch.Tensor:
+    """:func:`step_allreduce_` of a copy of ``tensor``."""
+    return step_allreduce_(tensor.clone(), op, process_set=process_set)
+
+
+def step_grouped_allreduce(tensors: Sequence[torch.Tensor],
+                           op: ReduceOp) -> List[torch.Tensor]:
+    """:func:`grouped_allreduce` for a train step's own list (flax BN's
+    running statistics): a join slot only under :func:`_step_joins`."""
+    from ..controller.fusion import pack, plan_buckets, unpack
+    if _step_joins():
+        return grouped_allreduce(tensors, op=op)
+    tensors = list(tensors)
+    spec = plan_buckets(tensors)
+    handles = [exchange_allreduce_async_(buf, op)
+               for buf in pack(tensors, spec)]
+    return unpack([h.wait() for h in handles], spec)
+
+
+def _allreduce_start(tensor: torch.Tensor, op: ReduceOp, ps: ProcessSet,
+                     prescale_factor: float, postscale_factor: float,
+                     wire_codec, name: Optional[str]) -> Handle:
     if prescale_factor != 1.0:
         tensor.mul_(prescale_factor)
     if op is Adasum:
@@ -262,9 +352,17 @@ def allreduce(tensor: torch.Tensor, average=None,
                 prescale_factor=prescale_factor,
                 postscale_factor=postscale_factor, process_set=process_set,
                 wire_codec="fp8").wait()
-        return fp8_allreduce(tensor, op, prescale_factor=prescale_factor,
-                             postscale_factor=postscale_factor,
-                             process_set=process_set)
+        ps = get_process_set(process_set)
+        with eager.join_op(ps) as slot:
+            postscale_factor = _join_postscale(slot, op, tensor.dtype,
+                                               postscale_factor, ps.size())
+            slot.publish(eager.join_header(
+                "allreduce", tensor, op=op.value, pre=prescale_factor,
+                post=postscale_factor, codec="fp8"))
+            return fp8_allreduce(tensor, op,
+                                 prescale_factor=prescale_factor,
+                                 postscale_factor=postscale_factor,
+                                 process_set=process_set)
     wire, ctx = compression.compress(tensor)
     if wire is tensor:
         wire = tensor.clone()
@@ -318,11 +416,12 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor], average=None,
     from ..controller.fusion import pack, plan_buckets, unpack
     tensors = list(tensors)
     spec = plan_buckets(tensors)
-    handles = [allreduce_async_(buf, average, name, op,
-                                prescale_factor=prescale_factor,
-                                postscale_factor=postscale_factor,
-                                process_set=process_set)
-               for buf in pack(tensors, spec)]
+    with joinop.flush(process_set, len(spec.buffers)):
+        handles = [allreduce_async_(buf, average, name, op,
+                                    prescale_factor=prescale_factor,
+                                    postscale_factor=postscale_factor,
+                                    process_set=process_set)
+                   for buf in pack(tensors, spec)]
     return Handle(None, lambda: unpack([h.wait() for h in handles], spec),
                   parts=handles, name=name)
 
@@ -359,12 +458,22 @@ def grouped_allreduce_(tensors: Sequence[torch.Tensor], average=None,
 
 
 def _allgatherv(x: torch.Tensor, ps: ProcessSet):
-    """Start gathering every member's ``x`` (first dims may differ):
-    ``(work, padded outputs, first dims)``.  The first dims are exchanged
-    first, so this returns after that small exchange."""
+    """The one ragged exchange (the body of :func:`allgather`,
+    :func:`~horovod_tpu_torch.collectives.eager.allgatherv` and the
+    sparse allreduce): start gathering every member's ``x`` (first dims
+    may differ): ``(work, padded outputs, first dims)``.  The first dims
+    are exchanged first, so this returns after that small exchange.
+    Takes ``x``'s slot in the join protocol (a drained rank contributes
+    zero rows)."""
     if x.dim() == 0:
         x = x.reshape(1)
     x = x.contiguous()
+    with eager.join_op(ps) as slot:
+        slot.publish(eager.join_header("allgather", x))
+        return _allgatherv_start(x, ps)
+
+
+def _allgatherv_start(x: torch.Tensor, ps: ProcessSet):
     n = ps.size()
     dims = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
     all_dims = [torch.empty_like(dims) for _ in range(n)]
@@ -396,8 +505,11 @@ def allgather(tensor: torch.Tensor, name: Optional[str] = None,
 def grouped_allgather_async(tensors: Sequence[torch.Tensor],
                             name: Optional[str] = None,
                             process_set=None) -> Handle:
-    """:func:`allgather` of each tensor; the handle returns the list."""
-    handles = [allgather_async(t, name, process_set) for t in tensors]
+    """:func:`allgather` of each tensor, behind one join presence round;
+    the handle returns the list."""
+    tensors = list(tensors)
+    with joinop.flush(process_set, len(tensors)):
+        handles = [allgather_async(t, name, process_set) for t in tensors]
     return Handle(None, lambda: [h.wait() for h in handles],
                   parts=handles, name=name)
 
@@ -417,8 +529,15 @@ def broadcast_async_(tensor: torch.Tensor, root_rank: int = 0,
     if root_rank not in ps.ranks:
         raise ValueError(f"broadcast root_rank {root_rank} is not a member "
                          f"of process set {ps.name!r} (ranks {ps.ranks})")
-    work = dist.broadcast(tensor, src=root_rank, group=ps.group,
-                          async_op=True)
+    with eager.join_op(ps) as slot:
+        if slot.draining and not slot.mask[root_rank]:
+            # A joined rank cannot source new data (upstream's error).
+            slot.abort(f"broadcast root_rank {root_rank} has joined and "
+                       f"cannot source a broadcast")
+        slot.publish(eager.join_header("broadcast", tensor,
+                                       root=root_rank))
+        work = dist.broadcast(tensor, src=root_rank, group=ps.group,
+                              async_op=True)
     return Handle(work, lambda: tensor, name=name)
 
 
@@ -470,24 +589,36 @@ def reducescatter_async(tensor: torch.Tensor, op: ReduceOp = Average,
             f"{axis} divisible by {m}, got {d}")
     shard = d // m
     pos = ps.position()
-    if op in (Sum, Average):
-        x = tensor.movedim(axis, 0).contiguous()
-        out = x.new_empty((shard,) + tuple(x.shape[1:]))
-        work = dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
-                                          group=ps.group, async_op=True)
-    else:
-        # No min/max/product scatter on every backend: reduce the whole
-        # tensor and keep this member's shard, as the JAX op does.
-        x = tensor.movedim(axis, 0).clone(
-            memory_format=torch.contiguous_format)
-        work = dist.all_reduce(x, op=_TORCH_OPS[op], group=ps.group,
-                               async_op=True)
-        out = None
+    with eager.join_op(ps) as slot:
+        # While ranks are drained, Average divides by the active ranks.
+        divisor = m
+        if slot.draining and op is Average:
+            if not tensor.dtype.is_floating_point:
+                slot.abort("integer-dtype Average while ranks are joined "
+                           "is unsupported")
+            divisor = slot.k
+        slot.publish(eager.join_header("reducescatter", tensor,
+                                       op=op.value, axis=axis,
+                                       jk=divisor))
+        if op in (Sum, Average):
+            x = tensor.movedim(axis, 0).contiguous()
+            out = x.new_empty((shard,) + tuple(x.shape[1:]))
+            work = dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
+                                              group=ps.group, async_op=True)
+        else:
+            # No min/max/product scatter on every backend: reduce the
+            # whole tensor and keep this member's shard, as the JAX op
+            # does.
+            x = tensor.movedim(axis, 0).clone(
+                memory_format=torch.contiguous_format)
+            work = dist.all_reduce(x, op=_TORCH_OPS[op], group=ps.group,
+                                   async_op=True)
+            out = None
 
     def finish():
         y = x[pos * shard:(pos + 1) * shard] if out is None else out
         if op is Average:
-            _divide_in_dtype(y, m)
+            _divide_in_dtype(y, divisor)
         return y.movedim(0, axis).contiguous()
 
     return Handle(work, finish, name=name)
@@ -504,10 +635,12 @@ def grouped_reducescatter_async(tensors: Sequence[torch.Tensor],
                                 op: ReduceOp = Average,
                                 name: Optional[str] = None,
                                 process_set=None) -> Handle:
-    """:func:`reducescatter` of each tensor; the handle returns the
-    list."""
-    handles = [reducescatter_async(t, op, name, process_set)
-               for t in tensors]
+    """:func:`reducescatter` of each tensor, behind one join presence
+    round; the handle returns the list."""
+    tensors = list(tensors)
+    with joinop.flush(process_set, len(tensors)):
+        handles = [reducescatter_async(t, op, name, process_set)
+                   for t in tensors]
     return Handle(None, lambda: [h.wait() for h in handles],
                   parts=handles, name=name)
 
@@ -543,8 +676,11 @@ def alltoall_async(tensor: torch.Tensor, splits=None,
             raise ValueError(
                 f"alltoall over a {m}-member process set needs dim 0 "
                 f"divisible by {m}, got {x.shape[0]}")
-        out = torch.empty_like(x)
-        work = dist.all_to_all_single(out, x, group=ps.group, async_op=True)
+        with eager.join_op(ps) as slot:
+            slot.publish(eager.join_header("alltoall", x))
+            out = torch.empty_like(x)
+            work = dist.all_to_all_single(out, x, group=ps.group,
+                                          async_op=True)
         return Handle(work, lambda: out, name=name)
     send = [int(s) for s in (splits.tolist() if torch.is_tensor(splits)
                              else splits)]
@@ -552,6 +688,19 @@ def alltoall_async(tensor: torch.Tensor, splits=None,
         raise ValueError(
             f"alltoall splits {send} must hold {m} non-negative counts "
             f"summing to dim 0 ({x.shape[0]})")
+    with eager.join_op(ps) as slot:
+        # A drained rank replays zero rows and zero splits: the others
+        # take nothing from it.
+        slot.publish(eager.join_header("alltoallv", x))
+        return _alltoallv_start(x, send, ps, name)
+
+
+def _alltoallv_start(x: torch.Tensor, send: List[int], ps: ProcessSet,
+                     name: Optional[str]) -> Handle:
+    """The ragged alltoall (the body of ``alltoall(splits=)`` and
+    :func:`~horovod_tpu_torch.collectives.eager.alltoallv`): the counts
+    first (a small ``all_to_all`` this call waits for), then the rows in
+    one ``all_to_all_single``."""
     counts = torch.tensor(send, dtype=torch.int64, device=x.device)
     recv_counts = torch.empty_like(counts)
     dist.all_to_all_single(recv_counts, counts, group=ps.group)
@@ -993,9 +1142,9 @@ def hierarchical_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
     shard_len = (size + (-size) % quantum) // n_ici
 
     if n_dcn == 1:
-        y = allreduce_async_(x.clone(), op=op,
-                             prescale_factor=prescale_factor,
-                             postscale_factor=postscale_factor).wait()
+        y = exchange_allreduce_async_(
+            x.clone(), op, prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor).wait()
         if ef:
             return y, (dcn_residual if dcn_residual is not None else
                        torch.zeros(shard_len, device=x.device))
@@ -1077,9 +1226,9 @@ def chunked_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
     ps = _member_set(None, "chunked_allreduce", x)
     n = ps.size()
     if n == 1 or int(chunk_bytes) <= 0:
-        return allreduce_async_(x.clone(), op=op,
-                                prescale_factor=prescale_factor,
-                                postscale_factor=postscale_factor).wait()
+        return exchange_allreduce_async_(
+            x.clone(), op, prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor).wait()
     _note_rows(plan_exchange("chunked", size=x.numel(), dtype=x.dtype,
                              chunk_bytes=int(chunk_bytes), world=n).legs)
     if prescale_factor != 1.0:
@@ -1159,6 +1308,8 @@ def desync_check(x: torch.Tensor, process_set=None) -> torch.Tensor:
 def barrier(process_set=None) -> None:
     """Block until every member of the set has reached this point."""
     ps = _member_set(process_set, "barrier")
+    with eager.join_op(ps) as slot:
+        slot.publish({"kind": "barrier"})
     with stall.watched("barrier"):
         from ..elastic import chaos
         chaos.raise_if_armed()      # an injected at=sync comm fault

@@ -25,13 +25,21 @@ consumer code.  :func:`schedule_legs`, :func:`overlap_phases` and
 :func:`simulate_issue` order and price legs on a two-link model whose
 rates the caller passes (``links``: the port holds no link rates);
 :func:`explain_plan` / :func:`render_plan` show a model's buckets.
-The rows equal the JAX package's field by field but ``fence``, which is
-``""`` here (the eager fence policy is not ported).
+The rows equal the JAX package's field by field but ``fence``, which
+carries the port's eager fence policy (:func:`_fence_policy`: NCCL's
+stream order or gloo's blocking wait, ``""`` before ``init()``).
+
+The eager flush: :func:`plan_eager_flush` packs the compatible deferred
+async allreduces of one flush (per-rank rows, the same greedy packing),
+:func:`exchange_schedule_mode` (``HOROVOD_EXCHANGE_SCHEDULE``) orders
+its units, and :func:`plan_executable` memoizes its packing and
+unpacking closures by plan fingerprint.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -215,6 +223,63 @@ def _plan_buckets_uncached(leaves: Sequence[Any], threshold_bytes: int,
     return FusionSpec(buffers=tuple(buffers), num_leaves=len(leaves))
 
 
+class _Row:
+    """A flat per-rank row standing for a leaf (shape and dtype only)."""
+
+    def __init__(self, size: int, dtype: torch.dtype):
+        self.shape = (int(size),)
+        self.dtype = dtype
+
+
+def plan_eager_flush(leaves: Sequence[Any], k: int,
+                     threshold_bytes: Optional[int] = None,
+                     extra: Tuple = ()) -> FusionSpec:
+    """Bucket plan for the fused deferred-async flush (the JAX
+    ``plan_eager_flush``).
+
+    The same greedy per-dtype packing as :func:`plan_buckets`, counted
+    over each op's per-rank row -- ``k`` local ranks, so a row is
+    ``numel // k``; the port runs one rank a process, ``k = 1``.  Each
+    leaf spec's shape and size describe that flat row; ``index``
+    addresses the caller's leaf list.  Memoized under an
+    eager-flush-scoped key (``extra`` carries the caller's context, such
+    as the process set's name)."""
+    if threshold_bytes is None:
+        threshold_bytes = fusion_threshold()
+    k = max(int(k), 1)
+    key = plan_key(leaves, threshold_bytes,
+                   extra=("eager_flush", k) + tuple(extra))
+
+    def build():
+        rows = [_Row(math.prod(x.shape) // k, x.dtype) for x in leaves]
+        return _plan_buckets_uncached(rows, threshold_bytes)
+
+    return _memo(key, build)
+
+
+def exchange_schedule_mode() -> str:
+    """Issue-order policy of the eager flush's units
+    (``HOROVOD_EXCHANGE_SCHEDULE``): ``bandwidth`` (the default) issues
+    the fused units first, by wire bytes descending; ``program`` keeps
+    issue order.  Anything else reads as ``bandwidth``."""
+    mode = os.environ.get("HOROVOD_EXCHANGE_SCHEDULE", "bandwidth")
+    mode = mode.strip().lower()
+    return mode if mode in ("bandwidth", "program") else "bandwidth"
+
+
+def _fence_policy() -> str:
+    """The fence the eager plane applies to a collective issued now, in
+    torch terms: ``stream-ordered(nccl)`` (the collective is ordered on
+    the device stream; the host does not wait) or ``blocking(gloo)``
+    (the host waits for each collective), ``""`` before ``init()``."""
+    st = global_state()
+    if not st.initialized or st.device is None:
+        return ""
+    if st.device.type == "cuda":
+        return "stream-ordered(nccl)"
+    return "blocking(gloo)"
+
+
 def pack_bucket(leaves: Sequence[torch.Tensor], lspecs) -> torch.Tensor:
     """One bucket's leaves raveled and concatenated into a NEW flat buffer
     (never a view of a leaf, so an in-place collective cannot touch the
@@ -263,7 +328,7 @@ class ExchangeLeg:
     ``wire_dtype`` name, the first operand's ``elements``, the wire
     ``nbytes`` the leg is priced at, its ``kind`` (a :data:`LEG_KINDS`
     key), its ``bucket`` / arena index, the ``leaves`` packed into it,
-    the ``fence`` policy (``""``: not ported), the ``audit`` rows
+    the ``fence`` policy (:func:`_fence_policy`), the ``audit`` rows
     ``(collective, dtype, elements, label)`` the leg stands for, and the
     ``kernel`` family of a ``kind="kernel"`` row."""
     tag: str
@@ -315,9 +380,17 @@ for _kind, _bw, _doc in (
 
 @dataclasses.dataclass(frozen=True)
 class ExchangePlan:
-    """An ordered tuple of legs, memoized by :func:`plan_exchange`."""
+    """An ordered tuple of legs, memoized by :func:`plan_exchange`;
+    ``fingerprint`` keys whole-plan memoization
+    (:func:`plan_executable`)."""
     family: str
     legs: Tuple[ExchangeLeg, ...]
+
+    @property
+    def fingerprint(self) -> str:
+        digest = hashlib.sha1(
+            repr((self.family, self.legs)).encode()).hexdigest()[:16]
+        return f"{self.family}:{len(self.legs)}:{digest}"
 
 
 def ops_from_legs(legs: Sequence[ExchangeLeg],
@@ -381,9 +454,23 @@ def plan_exchange(family: str, **spec) -> ExchangePlan:
     canon = _XPLAN_CANON.get(family)
     cspec = canon(spec) if canon is not None \
         else {k: spec[k] for k in sorted(spec)}
-    key = ("xplan", family) + tuple(sorted(cspec.items()))
-    return _memo(key, lambda: ExchangePlan(
-        family=family, legs=tuple(_XPLAN_BUILDERS[family](cspec))))
+    fence = _fence_policy()
+    key = ("xplan", family, fence) + tuple(sorted(cspec.items()))
+
+    def build() -> ExchangePlan:
+        legs = tuple(dataclasses.replace(leg, fence=fence)
+                     for leg in _XPLAN_BUILDERS[family](cspec))
+        return ExchangePlan(family=family, legs=legs)
+
+    return _memo(key, build)
+
+
+def plan_executable(plan: ExchangePlan, build, extra: Tuple = ()):
+    """``build()`` memoized by ``plan``'s fingerprint and ``extra`` in the
+    plan cache (the JAX ``plan_executable``): the eager flush keeps its
+    packing and unpacking closures here, built once per distinct fused
+    layout."""
+    return _memo(("plan_exec", plan.fingerprint) + tuple(extra), build)
 
 
 def _parse_comp(comp):

@@ -206,12 +206,21 @@ def shutdown() -> None:
     every process set and destroys the process group if ``init()``
     created it (which destroys the sets' groups with it); otherwise it
     destroys the groups of the sets it registered.  Stops the stall
-    inspector and clears the exchange-plan cache, so a later ``init()``
-    (an elastic re-init, at another world size perhaps) starts clean."""
+    inspector, the native gradient batcher and the join state, drops
+    queued async ops and clears the exchange-plan cache, so a later
+    ``init()`` (an elastic re-init, at another world size perhaps) starts
+    clean."""
     st = global_state()
     with st.lock:
         if not st.initialized:
             return
+        # The eager control plane first: queued async ops are dropped
+        # (flushing could hang on peers that already left), the join
+        # state forgotten and the native batcher's thread stopped.
+        from ..collectives import batching, eager, joinop
+        batching.shutdown_batcher()
+        eager.reset_deferred()
+        joinop.reset()
         owns = st.owns_group
         _drop_all(destroy=not owns and dist.is_initialized())
         if not owns and dist.is_initialized():
@@ -303,8 +312,11 @@ def mpi_threads_supported() -> bool:
 
 
 def join(device=None) -> int:
-    """Not ported: Horovod's join (ROADMAP item 1.8)."""
-    raise NotImplementedError("hvd.join is not ported (ROADMAP item 1.8)")
+    """``hvd.join()``: drain until every rank has joined, then return the
+    last rank to join (-1 at world 1); see
+    :func:`horovod_tpu_torch.collectives.eager.join`."""
+    from ..collectives import eager
+    return eager.join(device)
 
 
 def start_timeline(file_path: str, mark_cycles: bool = False) -> None:

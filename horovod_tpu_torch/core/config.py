@@ -52,10 +52,32 @@ class Config:
     # Gradient bucketing threshold in bytes (HOROVOD_FUSION_THRESHOLD,
     # default 64 MiB, as in the reference).
     fusion_threshold: int = 64 * _MiB
-    # Eager-path micro-batch window in milliseconds (HOROVOD_CYCLE_TIME).
-    # The autotuner's cycle axis stays pinned to it: the native cycle
-    # scheduler it would drive is ROADMAP item 1.8, not ported.
+    # Cycle window of the native gradient batcher in milliseconds
+    # (HOROVOD_CYCLE_TIME; collectives/batching.py).  The autotuner's
+    # cycle axis opens while the batcher runs and pushes each sample's
+    # value into it.
     cycle_time: float = 1.0
+    # The batched DistributedOptimizer (HVD_TPU_NATIVE_CORE=1, opt-in):
+    # gradient hooks hand each gradient to the native cycle scheduler
+    # (_core/), which cuts fused batches, one grouped_allreduce each.  Off,
+    # the planned buckets run; =0 also turns the native library off.
+    native_core: bool = False
+    # Cut the batcher's batches only at synchronize(), in name order
+    # (HOROVOD_DETERMINISTIC); None = the default rule: always at world >
+    # 1, on the GPU at world 1, not on the CPU at world 1.
+    deterministic: Optional[bool] = None
+    # Fuse compatible deferred async allreduces at a flush
+    # (HOROVOD_DEFERRED_FUSE, default on) into per-rank buckets of at most
+    # deferred_fuse_threshold bytes (HOROVOD_DEFERRED_FUSE_THRESHOLD; 0 =
+    # the fusion threshold, autotuner included).
+    deferred_fuse: bool = True
+    deferred_fuse_threshold: int = 0
+    # hvd.join's drain protocol: a drained rank's wait for the active
+    # ranks' next collective, in seconds (HOROVOD_JOIN_TIMEOUT), and the
+    # opt-out of the per-op presence round (HOROVOD_JOIN_DISABLE=1; join()
+    # then raises at world > 1).
+    join_timeout: float = 60.0
+    join_disable: bool = False
     # Online autotuning (HOROVOD_AUTOTUNE; autotune/): init() builds an
     # Autotuner whose current sample wins over the knobs it tunes.
     # HOROVOD_AUTOTUNE_LOG persists the samples as CSV and warm-starts
@@ -173,6 +195,14 @@ def load_config() -> Config:
     return Config(
         fusion_threshold=_env_int("FUSION_THRESHOLD", 64 * _MiB),
         cycle_time=_env_float("CYCLE_TIME", 1.0),
+        native_core=_env_bool("NATIVE_CORE"),
+        deterministic=(_env_bool("DETERMINISTIC")
+                       if _env("DETERMINISTIC") not in (None, "")
+                       else None),
+        deferred_fuse=_env_bool("DEFERRED_FUSE", True),
+        deferred_fuse_threshold=_env_int("DEFERRED_FUSE_THRESHOLD", 0),
+        join_timeout=_env_float("JOIN_TIMEOUT", 60.0),
+        join_disable=_env_bool("JOIN_DISABLE"),
         autotune=_env_bool("AUTOTUNE"),
         autotune_log=_env("AUTOTUNE_LOG"),
         compression=_env("COMPRESSION"),

@@ -68,6 +68,21 @@ the new world, and refuses (``ValueError``) a process set, whose group
 the re-init destroyed.  :func:`ef_resize_residuals` re-buckets the
 error-feedback residuals for a new world size.
 
+``HVD_TPU_NATIVE_CORE=1`` (opt-in) puts a wrap on the native cycle
+batcher instead (``collectives/batching.py``, the JAX shim's hot path):
+each hook hands its accumulated gradient to the C++ scheduler, which
+cuts fused batches -- deterministic (at ``synchronize()``, in name
+order) at world > 1 and on the GPU -- and runs one ``grouped_allreduce``
+a batch on its own thread; ``synchronize()`` waits on the native
+handles.  It serves Sum/Average with no codec, fp16 or bf16 and refuses
+at construction (``ValueError``) what it cannot run: the error-feedback
+codecs, fp8, per-leg codecs, Adasum, ZeRO-1, the two-level layout and
+the chunked exchange.  Its collectives take part in ``hvd.join``'s
+drain, and while it runs so do a step's own (the loss average, the
+guard screen, the BN statistics, ``hvd.SyncBatchNorm``'s sums): an
+uneven-data loop joins through it.  The planned buckets, like the JAX
+traced step's collectives, take no join slot, nor then do the step's.
+
 ``process_set=`` exchanges every bucket over the set's group (members
 only; ``Average`` divides by the set's size), and ``sparse_as_dense=True``
 densifies a sparse gradient (``nn.Embedding(sparse=True)``) before it is
@@ -88,7 +103,8 @@ from ..collectives.compression import (Compression, is_error_feedback,
                                        is_fp8, is_hier_legs, is_powersgd,
                                        is_topk, parse_compression,
                                        wire_payload_bytes)
-from ..collectives.ops import (Handle, allreduce_async_, chunked_allreduce,
+from ..collectives.ops import (Handle, chunked_allreduce,
+                               exchange_allreduce_async_,
                                fp8_allreduce_async, hierarchical_allreduce,
                                microbatch_pad_quantum,
                                powersgd_allreduce_async,
@@ -188,8 +204,8 @@ def _launch_bucket(grads, lspecs, op: ReduceOp, compression,
               postscale_factor=postscale_factor)
     if is_fp8(compression):
         if op is Adasum:
-            handle = allreduce_async_(buf, op=op, process_set=process_set,
-                                      wire_codec="fp8", **kw)
+            handle = exchange_allreduce_async_(
+                buf, op, process_set=process_set, wire_codec="fp8", **kw)
             m["handles"].inc()
         else:
             handle = fp8_allreduce_async(buf, op, process_set=process_set,
@@ -225,7 +241,8 @@ def _launch_bucket(grads, lspecs, op: ReduceOp, compression,
     leg = plan_exchange("flat", size=wire.numel(), dtype=wire.dtype).legs[0]
     note_leg(leg)
     m["wire_bytes"].inc(leg.nbytes)
-    inner = allreduce_async_(wire, op, process_set=process_set, **kw)
+    inner = exchange_allreduce_async_(wire, op, process_set=process_set,
+                                      **kw)
     m["handles"].inc()
     return Handle(None, lambda: compression.decompress(inner.wait(), ctx),
                   parts=(inner,))
@@ -255,7 +272,8 @@ def _launch_ef_bucket(grads, lspecs, op: ReduceOp, compression,
                                compression=compression).legs[0]
         note_leg(ledger)
     if not buf.dtype.is_floating_point:
-        inner = allreduce_async_(buf, op, process_set=process_set, **kw)
+        inner = exchange_allreduce_async_(buf, op,
+                                          process_set=process_set, **kw)
         m["handles"].inc()
         m["wire_bytes"].inc(buf.numel() * buf.element_size())
         return Handle(None, lambda: (inner.wait(), residual))
@@ -444,8 +462,11 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                           gradient_predivide_factor: float,
                           fusion_threshold: Optional[int],
                           process_set=None,
-                          sparse_as_dense: bool = False) -> None:
+                          sparse_as_dense: bool = False,
+                          batched: bool = False) -> None:
         self._process_set = process_set
+        self._batched = batched
+        self._native: Dict[int, int] = {}
         self._sparse_as_dense = sparse_as_dense
         f = float(gradient_predivide_factor)
         self._prescale, self._postscale = 1.0 / f, f
@@ -486,6 +507,13 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             self._trainable = [self._trainable[i] for i in order]
             self._names = [names[i] for i in order]
         self._index = {p: i for i, p in enumerate(self._trainable)}
+        if batched:
+            # The batcher cuts deterministic batches in name order: every
+            # rank must give a parameter the same unique name.
+            self._batch_names = [
+                self._name_of[id(p)] if self._name_of is not None
+                else f"allreduce.noname.{i}"
+                for i, p in enumerate(self._trainable)]
         if self._ef:
             # Forward over the (flax-ordered, flax-laid-out) leaves, as
             # the JAX ef_bucket_plan; one zero residual per bucket.
@@ -556,7 +584,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         configured threshold with its residuals.  Refused
         (``RuntimeError``) with a handle outstanding or partway through
         a ``backward_passes_per_step`` accumulation."""
-        if self._handles or any(self._counter):
+        if self._handles or self._native or any(self._counter):
             raise RuntimeError(
                 "DistributedOptimizer.replan() needs a step boundary: no "
                 "handle outstanding and no accumulation partway through")
@@ -574,6 +602,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         if gen == self._generation:
             return
         self._handles.clear()
+        self._native.clear()
         self._ready = [set() for _ in self.bucket_plan.buffers]
         self._counter = [0] * len(self._trainable)
         if self._process_set is not None and \
@@ -590,6 +619,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     # -- hooks ------------------------------------------------------------
     def _hook(self, p: torch.Tensor) -> None:
         self._check_generation()
+        if self._batched:
+            self._batched_hook(p)
+            return
         i = self._index[p]
         b = self._bucket_of[i]
         if b in self._handles or i in self._ready[b]:
@@ -605,6 +637,34 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         if len(self._ready[b]) == len(self.bucket_plan.buffers[b][1]) \
                 and not self._adasum:
             self._launch(b)
+
+    def _batched_hook(self, p: torch.Tensor) -> None:
+        """The batched path's hook (JAX ``torch_api/optimizer.py``): the
+        accumulated gradient goes to the native batcher, reduced in
+        place; ``synchronize`` waits on its handle."""
+        from ..collectives import batching
+        i = self._index[p]
+        if i in self._native:
+            raise AssertionError(
+                "gradient produced twice without synchronize(); call "
+                "optimizer.synchronize() (or step()) every "
+                "backward_passes_per_step backwards")
+        self._counter[i] += 1
+        if self._counter[i] < self.backward_passes_per_step:
+            return  # local accumulation pass: no communication
+        if p.grad.is_sparse:
+            if not self._sparse_as_dense:
+                raise ValueError(
+                    "sparse gradient encountered (e.g. Embedding("
+                    "sparse=True)); pass sparse_as_dense=True to "
+                    "DistributedOptimizer to densify it before the "
+                    "exchange")
+            p.grad = p.grad.to_dense()
+        if self.backward_passes_per_step > 1:
+            p.grad.div_(self.backward_passes_per_step)
+        self._native[i] = batching.batcher().enqueue(
+            p.grad, self._batch_names[i], self._op, self._compression,
+            self._process_set, self._prescale, self._postscale)
 
     def _flax_view(self, i: int, t: torch.Tensor) -> torch.Tensor:
         """Leaf ``i``'s tensor ``t`` as its bucket holds it (flax's
@@ -680,7 +740,30 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             chaos.raise_if_armed()
             self._synchronize()
 
+    def _synchronize_batched(self) -> None:
+        """Wait on every native handle (the batcher flushes at the first),
+        then re-raise the first error."""
+        from ..collectives import batching
+        first_error = None
+        b = batching.current()
+        for i in sorted(self._native):
+            try:
+                if b is None:
+                    raise RuntimeError(
+                        "the native batcher stopped with gradients in it")
+                b.wait(self._native[i])
+            except Exception as e:  # drained below; first one re-raised
+                if first_error is None:
+                    first_error = e
+        self._native.clear()
+        self._counter = [0] * len(self._trainable)
+        if first_error is not None:
+            raise first_error
+
     def _synchronize(self) -> None:
+        if self._batched:
+            self._synchronize_batched()
+            return
         for b in range(len(self.bucket_plan.buffers)):
             if b not in self._handles:
                 self._launch(b)
@@ -727,7 +810,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     def zero_grad(self, *args, **kwargs):
         self._check_generation()
-        if self._handles:
+        if self._handles or self._native:
             raise AssertionError(
                 "zero_grad() called with pending allreduce handles; call "
                 "synchronize() or step() first")
@@ -804,6 +887,9 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
             raise ValueError(
                 f"this rank is not a member of process set "
                 f"{process_set.name!r} (ranks {process_set.ranks})")
+    batched = _batched_requested()
+    if batched:
+        _check_batched(compression, op)
     named = list(named_parameters) if named_parameters is not None else None
     optimizer.__class__ = type(
         "Distributed" + optimizer.__class__.__name__,
@@ -811,8 +897,54 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     optimizer._init_distributed(named, compression, op,
                                 backward_passes_per_step,
                                 gradient_predivide_factor, fusion_threshold,
-                                process_set, sparse_as_dense)
+                                process_set, sparse_as_dense,
+                                batched=batched)
     return optimizer
+
+
+def _batched_requested() -> bool:
+    """The batched path is opt-in: ``HVD_TPU_NATIVE_CORE=1``."""
+    cfg = global_state().config
+    if cfg is not None:
+        return cfg.native_core
+    from ..core.config import _env_bool
+    return _env_bool("NATIVE_CORE")
+
+
+def _check_batched(compression, op: ReduceOp) -> None:
+    """``ValueError`` for a wrap the native batcher cannot serve: it runs
+    plain ``Average`` / ``Sum`` with no codec, fp16 or bf16 through one
+    ``grouped_allreduce`` a batch.  Refused: the error-feedback codecs
+    (PowerSGD, top-k), fp8, Adasum, ZeRO-1, a two-level layout and the
+    chunked exchange; the native core must build (its failure raises,
+    never a quiet fallback to the planned buckets)."""
+    why = "HVD_TPU_NATIVE_CORE=1 (the native batcher) serves "
+    if op not in (Sum, Average):
+        raise ValueError(f"{why}Sum/Average only, not {op}; unset it for "
+                         f"Adasum")
+    if getattr(compression, "wire_format", ""):
+        raise ValueError(
+            f"{why}the fp16/bf16 casts only, not {compression.__name__} "
+            f"(error feedback, fp8 and per-leg codecs run on the planned "
+            f"buckets); unset HVD_TPU_NATIVE_CORE")
+    cfg = global_state().config
+    if cfg is not None and cfg.zero_stage == 1:
+        raise ValueError(f"{why}no ZeRO-1 (HOROVOD_ZERO=1 shards the "
+                         f"optimizer over a reduce-scatter arena)")
+    if hier_requested(compression):
+        raise ValueError(f"{why}the flat exchange only, not the two-level "
+                         f"layout (HOROVOD_HIERARCHICAL)")
+    if exchange_chunk_bytes() > 0:
+        raise ValueError(f"{why}the flat exchange only, not the chunked "
+                         f"one (HOROVOD_EXCHANGE_CHUNK_MB)")
+    from .. import _core
+    _core.require_lib()
+
+
+def is_batched(optimizer) -> bool:
+    """True for a ``DistributedOptimizer`` wrap on the native batcher."""
+    return isinstance(optimizer, _DistributedOptimizer) and \
+        optimizer._batched
 
 
 def DistributedAdasumOptimizer(optimizer: torch.optim.Optimizer,

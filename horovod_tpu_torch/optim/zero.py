@@ -61,8 +61,8 @@ from ..collectives.compression import (Compression, fp8_quantize, is_fp8,
                                        powersgd_factor_widths,
                                        powersgd_matrix_shape, topk_count)
 from ..collectives.ops import (_divide_in_dtype, _powersgd_seed_matrix,
-                               _topk_select, allreduce_,
-                               psum_scatter_bucket)
+                               _topk_select, psum_scatter_bucket,
+                               step_allreduce_)
 from ..collectives.reduce_op import Sum
 from ..controller.fusion import _LeafSpec, dtype_name, plan_exchange
 from ..core.basics import _require_init
@@ -374,7 +374,7 @@ def _reduce_scatter_mean(g: torch.Tensor, buf: _ArenaBuffer, n: int,
     (counted at its row's bytes); with ``use_rs`` False, an allreduce of
     the whole arena, of which this rank keeps its shard."""
     if not use_rs:
-        full = allreduce_(g, op=Sum)
+        full = step_allreduce_(g, Sum)
         out = full[idx * buf.shard:(idx + 1) * buf.shard].clone()
     elif shape is None:
         out = psum_scatter_bucket(g, quantum=n)

@@ -55,7 +55,7 @@ from __future__ import annotations
 import torch
 from torch.nn.modules.batchnorm import _BatchNorm
 
-from .collectives.ops import allreduce_async_
+from .collectives.ops import step_allreduce_
 from .collectives.reduce_op import Average, Sum
 from .core.basics import size
 from .core.device import resolve_device
@@ -67,9 +67,9 @@ from .timeline.metrics import note_sync_bn_allreduce, sync_bn_counters
 def _allreduce(rows: torch.Tensor, op, process_set=None) -> torch.Tensor:
     """``rows`` (f32, per channel) allreduced in place over the set's
     ranks (every rank by default), counted by the sync-BN exchange
-    counters."""
+    counters; a step's own collective (``step_allreduce_``)."""
     note_sync_bn_allreduce(rows.numel() * rows.element_size())
-    return allreduce_async_(rows, op, process_set=process_set).wait()
+    return step_allreduce_(rows, op, process_set=process_set)
 
 
 def _average(rows: torch.Tensor) -> torch.Tensor:

@@ -530,6 +530,36 @@ _DEFAULT_FAMILIES = {
 }
 
 
+def _collect_deferred_fuse() -> None:
+    from ..collectives.eager import deferred_fuse_stats
+    reg = registry()
+    stats = deferred_fuse_stats()
+    reg.counter("horovod_deferred_flushes_total",
+                "Deferred-async flush rounds"
+                ).set_cumulative(stats["flushes"])
+    reg.counter("horovod_deferred_fused_buckets_total",
+                "Fusion-planner buckets dispatched by the deferred flush"
+                ).set_cumulative(stats["fused_buckets"])
+    reg.counter("horovod_deferred_fused_ops_total",
+                "Deferred ops serviced through a fused bucket"
+                ).set_cumulative(stats["fused_ops"])
+    reg.counter("horovod_deferred_singleton_ops_total",
+                "Deferred ops dispatched individually"
+                ).set_cumulative(stats["singleton_ops"])
+
+
+def _collect_eager() -> None:
+    from ..collectives.eager import eager_op_stats
+    reg = registry()
+    stats = eager_op_stats()
+    reg.counter("horovod_eager_ops_total",
+                "Eager collective dispatches"
+                ).set_cumulative(stats["ops"])
+    reg.counter("horovod_eager_fences_total",
+                "Eager coordination fences (join presence rounds)"
+                ).set_cumulative(stats["fences"])
+
+
 def install_default_metrics() -> None:
     """Create the default families and wire the pull collectors, so a
     scrape during a plain train loop shows the full family set before
@@ -545,6 +575,8 @@ def install_default_metrics() -> None:
         for name, help in families:
             getattr(reg, kind)(name, help)
     reg.add_collector(_collect_plan_cache)
+    reg.add_collector(_collect_deferred_fuse)
+    reg.add_collector(_collect_eager)
 
 
 def histogram_window(curr: dict, base: Optional[dict]) -> dict:

@@ -78,9 +78,9 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from .collectives.ops import (allgather_bucket, allreduce,
-                              grouped_allreduce, microbatch_pad_quantum,
-                              psum_scatter_bucket_async)
+from .collectives.ops import (allgather_bucket, microbatch_pad_quantum,
+                              psum_scatter_bucket_async, step_allreduce,
+                              step_grouped_allreduce)
 from .collectives.reduce_op import Average, Sum
 from .controller.fusion import (pack_bucket, plan_buckets, plan_exchange,
                                 unpack)
@@ -211,6 +211,10 @@ def _microbatch_unwrap(optimizer):
     from .collectives.compression import is_fp8
     if not isinstance(optimizer, _dist._DistributedOptimizer):
         return optimizer, None
+    if optimizer._batched:
+        raise ValueError(
+            "microbatches > 1 runs the exchange inside the step; the "
+            "native batcher (HVD_TPU_NATIVE_CORE=1) does not serve it")
     tuner = global_state().autotuner
     if tuner is not None and not optimizer._ef:
         tuner.check_exchange(optimizer._configured, "microbatch")
@@ -434,7 +438,7 @@ def _microbatch_core(model: torch.nn.Module, loss_fn,
         else:
             optimizer.step()
         optimizer.zero_grad(set_to_none=True)
-        return allreduce(torch.stack(losses).mean(), Average), gvec
+        return step_allreduce(torch.stack(losses).mean(), Average), gvec
 
     return core, pipe
 
@@ -468,7 +472,7 @@ def _step_core(model: torch.nn.Module, loss_fn,
         elif getattr(optimizer, "exchange_ready", True):
             optimizer.step()
             optimizer.zero_grad(set_to_none=True)
-        return allreduce(loss.detach(), Average), gvec
+        return step_allreduce(loss.detach(), Average), gvec
 
     return core, state
 
@@ -496,7 +500,7 @@ def _guard_screen(grads) -> torch.Tensor:
     """The screen summed over the ranks: one 8-byte allreduce, noted as
     the plan IR's ``guard/screen`` row."""
     note_leg(plan_exchange("guard").legs[0])
-    return allreduce(_guard_screen_vec(grads), op=Sum)
+    return step_allreduce(_guard_screen_vec(grads), Sum)
 
 
 def _guard_verdict(gvec: torch.Tensor, norm_limit: float):
@@ -677,7 +681,7 @@ def _build_step(model: torch.nn.Module, loss_fn,
         if stats:
             with torch.no_grad():
                 torch._foreach_copy_(stats,
-                                     grouped_allreduce(stats, Average))
+                                     step_grouped_allreduce(stats, Average))
         return loss, gvec
 
     if not guard_on:
@@ -789,13 +793,23 @@ def make_eval_step(metric_fn: Callable[[torch.nn.Module, Any], Any]
             return {k: average(x) for k, x in v.items()}
         if isinstance(v, (list, tuple)):
             return type(v)(average(x) for x in v)
-        return allreduce(v, Average)
+        return step_allreduce(v, Average)
 
     def eval_step(model: torch.nn.Module, batch):
         with torch.no_grad():
             return average(metric_fn(model, batch))
 
     return eval_step
+
+
+def _refuse_batched(optimizer) -> None:
+    """The loops refuse a wrap on the native batcher (``ValueError``):
+    its background thread cannot dispatch inside a graph capture."""
+    if _dist.is_batched(optimizer):
+        raise ValueError(
+            "make_train_loop / make_flax_train_loop capture the window as "
+            "a CUDA graph, where the native batcher's background thread "
+            "cannot dispatch; unset HVD_TPU_NATIVE_CORE for the loop")
 
 
 def _refuse_uncapturable(model: torch.nn.Module, optimizers, k: int,
@@ -1083,6 +1097,7 @@ def make_train_loop(model: torch.nn.Module,
     step of the window); ``generators`` are the ``torch.Generator``\\ s
     the step draws from (dropout), registered with the graph.  k steps
     of the loop equal k step calls bitwise."""
+    _refuse_batched(optimizer)
     k = _resolve_steps(steps_per_execution)
     step = _build_step(model, loss_fn, optimizer, zero_stage,
                        zero_compression, microbatches, flax=False)
@@ -1102,6 +1117,7 @@ def make_flax_train_loop(model: torch.nn.Module,
     """:func:`make_train_loop` of :func:`make_flax_train_step` (the JAX
     ``make_flax_train_loop``): ``loop(batches)`` on ``(x, y)`` pairs
     stacked ``[k, batch, ...]``, returning the ``[k]`` losses."""
+    _refuse_batched(optimizer)
     k = _resolve_steps(steps_per_execution)
     step = _build_step(model, _flax_loss, optimizer, zero_stage,
                        zero_compression, microbatches, flax=True)

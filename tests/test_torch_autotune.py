@@ -224,9 +224,13 @@ def test_cycle_axis_pinned_to_the_configured_cycle_time():
     j = JTuner(JConfig(autotune=True, cycle_time=5.0), steps_per_sample=1,
                cycle_candidates=[])
     assert t.grid == j.grid and {c for _, c, *_ in t.grid} == {5.0}
-    # No axis that nothing reads (the cycle scheduler is ROADMAP 1.8).
-    with pytest.raises(TypeError, match="cycle_candidates"):
-        Autotuner(Config(autotune=True), cycle_candidates=[0.5, 1.0])
+    # Without the native batcher nothing reads the axis; given
+    # candidates, it opens as the JAX tuner's where the batcher would cut
+    # by the clock (the CPU at world 1; pinned where it is deterministic:
+    # tests/test_torch_join.py).
+    t2 = Autotuner(Config(autotune=True), cycle_candidates=[0.5, 1.0])
+    j2 = JTuner(JConfig(autotune=True), cycle_candidates=[0.5, 1.0])
+    assert t2.grid == j2.grid and {c for _, c, *_ in t2.grid} == {0.5, 1.0}
 
 
 def test_compression_axis_is_opt_in(monkeypatch):

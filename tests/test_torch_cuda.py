@@ -1819,3 +1819,126 @@ def test_cuda_sharded_checkpoint_restores_onto_the_card(world1_cuda,
     for k, v in tree.items():
         assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
         assert torch.equal(got[k], v), k
+
+
+def _cuda_bn_resnet(native: bool, steps: int = 3):
+    """A small torch-idiom ResNet (the example's ``Bottleneck`` blocks,
+    ``hvd.SyncBatchNorm``) on the card, deterministic cuDNN, through a
+    batched (``native``) or planned ``DistributedOptimizer`` with fp16:
+    the losses, the parameters and the BN launches of ``steps`` steps."""
+    import dataclasses
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.examples.torch_resnet50 import Bottleneck
+    st = global_state()
+    st.config = dataclasses.replace(st.config, native_core=native)
+    torch.manual_seed(5)
+
+    def norm(c):
+        return hvd.SyncBatchNorm(c, device="cuda")
+    model = torch.nn.Sequential(
+        torch.nn.Conv2d(3, 16, 3, 1, 1, bias=False), norm(16),
+        Bottleneck(16, 8, 2, norm), Bottleneck(32, 8, 1, norm),
+        torch.nn.AdaptiveAvgPool2d(1), torch.nn.Flatten(),
+        torch.nn.Linear(32, 10)).to("cuda", memory_format=torch.channels_last)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=model.named_parameters(),
+        compression=hvd.Compression.fp16)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(16, 3, 32, 32, device="cuda", generator=g).contiguous(
+        memory_format=torch.channels_last)
+    y = torch.randint(0, 10, (16,), device="cuda", generator=g)
+    registry.reset_launch_counts()
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss = torch.nn.functional.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    counts = registry.launch_counts()
+    return losses, [p.detach().clone() for p in model.parameters()], counts
+
+
+@pytest.mark.cuda
+def test_cuda_batched_optimizer_bitwise_planned(world1_cuda):
+    """Phase 25 (a) small: the native batcher (deterministic on the GPU)
+    on a sync-BN ResNet with fp16 is bitwise the planned buckets, the BN
+    kernels launched at every site a step on both."""
+    from horovod_tpu_torch.collectives import batching
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        bl, bp, bc = _cuda_bn_resnet(True)
+        b = batching.current()
+        assert b is not None and b.deterministic and b.batches() == 3
+        pl, pp, pc = _cuda_bn_resnet(False)
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = det
+    assert bl == pl and all(np.isfinite(bl))
+    assert all(torch.equal(a, c) for a, c in zip(bp, pp))
+    for f in ("bn_bwd_reduce", "bn_bwd_dx"):
+        assert bc[f] == pc[f] == 8 * 3     # 8 sync-BN sites, 3 steps
+
+
+@pytest.mark.cuda
+def test_cuda_autotuner_cycle_axis_pinned(world1_cuda):
+    """Phase 25 (c) small: the GPU's batcher is deterministic, so the
+    tuner's cycle member stays the configured one and each sample's
+    threshold (with that cycle time) reaches the batcher."""
+    import dataclasses
+
+    from horovod_tpu_torch.autotune import Autotuner
+    from horovod_tpu_torch.collectives import batching
+    from horovod_tpu_torch.core.state import global_state
+    st = global_state()
+    st.config = dataclasses.replace(st.config, native_core=True)
+    cfg = dataclasses.replace(st.config, autotune=True, autotune_log=None)
+    tuner = Autotuner(cfg, steps_per_sample=1)
+    assert not tuner.tunes_cycle
+    st.autotuner = tuner
+    try:
+        b = batching.batcher()
+        assert b.deterministic
+        for _ in range(4):
+            tuner.record_step(0.01, 1 << 20)
+            assert (b.cycle_ms, b.fusion_bytes) == \
+                (cfg.cycle_time, tuner.fusion_threshold())
+    finally:
+        st.autotuner = None
+
+
+@pytest.mark.cuda
+def test_cuda_eager_ops_exact_at_world_one(world1_cuda, monkeypatch):
+    """Phase 25 (b) small: ``allreduce_async`` immediate and as a fused
+    deferred flush (forced through ``_defer_applies``), ``allgatherv``,
+    ``alltoallv``, ``local_result``, ``local_rank_count`` and ``join`` on
+    CUDA tensors, each exactly its definition."""
+    hvd = world1_cuda
+    from horovod_tpu_torch.collectives import eager
+    g = torch.Generator(device="cuda").manual_seed(8)
+    xs = [torch.randn(s, device="cuda", generator=g)
+          for s in ((64, 3, 3, 3), (64,), (10, 64), (7,))]
+    xs.append(torch.randn(5, device="cuda", generator=g).bfloat16())
+    for forced in (False, True):
+        if forced:
+            monkeypatch.setattr(eager, "_defer_applies", lambda ps: True)
+        hs = [hvd.allreduce_async(x, op=hvd.Average) for x in xs]
+        assert eager.deferred_count() == (len(xs) if forced else 0)
+        for h, x in zip(hs, xs):
+            got = hvd.synchronize(h)
+            assert got.device.type == "cuda" and torch.equal(got, x)
+    assert eager.deferred_fuse_stats() == {
+        "flushes": 1, "fused_buckets": 1, "fused_ops": 4,
+        "singleton_ops": 1}
+    x = torch.randn(9, 4, device="cuda", generator=g)
+    assert torch.equal(hvd.allgatherv(x), x)
+    datas, recv = hvd.alltoallv([x], [[9]])
+    assert torch.equal(datas[0], x) and recv[0].tolist() == [9]
+    assert torch.equal(hvd.local_result(x), x[None])
+    assert hvd.local_rank_count() == 1 and hvd.join() == -1

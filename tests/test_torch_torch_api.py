@@ -3,7 +3,8 @@ package's shim ``horovod_tpu.torch_api``.
 
 * The shim's public names are a subset of the port's top level, and the
   names of its ``elastic`` module a subset of ``hvd.elastic``'s; ``join``
-  raises ``NotImplementedError`` naming its item; ``start_timeline`` /
+  returns -1 at world 1 (the drain: ``tests/test_torch_join.py``);
+  ``start_timeline`` /
   ``stop_timeline`` write and close a timeline (``steps_per_execution``
   returns the resolved value: ``tests/test_torch_train_loop.py``).
 * Horovod's keywords and the second positional parameter of
@@ -51,7 +52,7 @@ _LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "HOROVOD_RANK",
 OPT_ATOL = 1e-6
 BN_REL = 1e-5
 LATER_ITEMS = set()                 # names later ROADMAP items own
-RAISING = {"join": "1.8"}
+RAISING = {}                        # names that raise naming their item
 TIMELINE_CALLS = ("start_timeline", "stop_timeline")
 VOCAB, DIM, CLASSES, STEPS = 12, 4, 3, 3
 SHIM_OPS = ("Sum", "Average")
@@ -89,14 +90,25 @@ def test_shim_elastic_names_are_a_subset_of_the_port():
         thvd.core.exceptions.HostsUpdatedInterrupt
 
 
-@pytest.mark.parametrize("name", sorted(RAISING) + list(TIMELINE_CALLS))
+@pytest.mark.parametrize("name", ["join"] + sorted(RAISING)
+                         + list(TIMELINE_CALLS))
 def test_later_items_raise_naming_their_item(name, tmp_path):
-    """``join`` raises naming its item.  ``start_timeline`` needs
-    ``init()`` first (as the reference's), then writes a Chrome trace;
+    """``join`` (ROADMAP item 1.8, ported) is a barrier returning -1 at
+    world 1, after ``init()``.  ``start_timeline`` needs ``init()``
+    first (as the reference's), then writes a Chrome trace;
     ``stop_timeline`` closes it (twice is a no-op)."""
     if name in RAISING:
         with pytest.raises(NotImplementedError, match=RAISING[name]):
             getattr(thvd, name)()
+        return
+    if name == "join":
+        with pytest.raises(thvd.core.exceptions.NotInitializedError):
+            thvd.join()
+        thvd.init(device="cpu")
+        try:
+            assert thvd.join() == -1
+        finally:
+            thvd.shutdown()
         return
     path = tmp_path / "timeline.json"
     if name == "start_timeline":
