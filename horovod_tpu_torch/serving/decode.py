@@ -50,10 +50,47 @@ def _layer(p: Params, li: int, name: str) -> torch.Tensor:
     return p[f"layer_{li}.{name}"]
 
 
+def _dense_lora_only(x, lora_select, dtype, lora_alpha):
+    """The adapter half of :func:`_dense`: ``(x @ a @ b) * alpha/r`` in
+    the compute dtype.  ``lora_select`` is one adapter's ``[d_in, r]`` /
+    ``[r, d_out]`` pair, or per-slot ``[s, d_in, r]`` / ``[s, r, d_out]``
+    banks (slot ``s`` multiplies its own pair)."""
+    a, b = lora_select
+    scale = lora_alpha / a.shape[-1]
+    xd = x.to(dtype)
+    if a.dim() == 2:
+        return (xd @ a.to(dtype) @ b.to(dtype)) * scale
+    return torch.bmm(torch.bmm(xd, a.to(dtype)), b.to(dtype)) * scale
+
+
+def _dense(x, p: Params, prefix: str, dtype, lora_select=None,
+           lora_alpha: float = 16.0):
+    """``Dense.__call__`` replayed over the flat param dict: ``x @
+    <prefix>.kernel`` in ``dtype``, plus the adapter term when
+    ``lora_select`` holds a pair (:func:`_node_lora`)."""
+    y = dense(x, p[f"{prefix}.kernel"], dtype)
+    if lora_select is not None:
+        y = y + _dense_lora_only(x, lora_select, dtype, lora_alpha)
+    return y
+
+
+def _node_lora(p: Params, prefix: str, adapters=None, select=None):
+    """The adapter pair of one ``Dense`` node: banked adapters
+    (``adapters``, gathered by ``select``) first, else the in-tree
+    ``<prefix>.lora_a`` / ``.lora_b`` leaves, else ``None``."""
+    a_name, b_name = f"{prefix}.lora_a", f"{prefix}.lora_b"
+    if adapters is not None and a_name in adapters:
+        return select(adapters[a_name], adapters[b_name])
+    if a_name in p:
+        return p[a_name], p[b_name]
+    return None
+
+
 @torch.no_grad()
 def prefill_forward(params: Params, config: LlamaConfig, tokens,
                     positions=None, *, segment_ids=None,
                     dtype=torch.float32, past=None,
+                    lora_alpha: float = 16.0,
                     force_reference: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Forward a prompt batch, returning ``(logits, k_layers, v_layers)``.
@@ -81,10 +118,15 @@ def prefill_forward(params: Params, config: LlamaConfig, tokens,
     x = emb[tokens].to(dtype)
     ks, vs = [], []
     for li in range(cfg.num_layers):
+        def proj(h, name, _li=li):
+            prefix = f"layer_{_li}.{name}"
+            return _dense(h, p, prefix, dtype, _node_lora(p, prefix),
+                          lora_alpha)
+
         h = rmsnorm(x, _layer(p, li, "attn_norm.scale"), dtype)
-        q = dense(h, _layer(p, li, "attn.wq.kernel"), dtype)
-        k = dense(h, _layer(p, li, "attn.wk.kernel"), dtype)
-        v = dense(h, _layer(p, li, "attn.wv.kernel"), dtype)
+        q = proj(h, "attn.wq")
+        k = proj(h, "attn.wk")
+        v = proj(h, "attn.wv")
         q = q.view(b, t, cfg.num_heads, cfg.head_dim).transpose(1, 2)
         k = k.view(b, t, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
         v = v.view(b, t, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
@@ -99,15 +141,14 @@ def prefill_forward(params: Params, config: LlamaConfig, tokens,
                             causal=True, segment_ids=segment_ids,
                             force_reference=force_reference)
         o = o.transpose(1, 2).reshape(b, t, -1)
-        x = x + dense(o, _layer(p, li, "attn.wo.kernel"), dtype)
+        x = x + proj(o, "attn.wo")
         ks.append(k.transpose(1, 2))
         vs.append(v.transpose(1, 2))
 
         h = rmsnorm(x, _layer(p, li, "mlp_norm.scale"), dtype)
-        gate = dense(h, _layer(p, li, "mlp.w_gate.kernel"), dtype)
-        up = dense(h, _layer(p, li, "mlp.w_up.kernel"), dtype)
-        x = x + dense(F.silu(gate) * up, _layer(p, li, "mlp.w_down.kernel"),
-                      dtype)
+        gate = proj(h, "mlp.w_gate")
+        up = proj(h, "mlp.w_up")
+        x = x + proj(F.silu(gate) * up, "mlp.w_down")
 
     logits = tied_readout(rmsnorm(x, p["final_norm.scale"], dtype), emb)
     return logits, torch.stack(ks), torch.stack(vs)
@@ -128,8 +169,9 @@ class ServingDecodeStep:
     """
 
     def __init__(self, config: LlamaConfig, *, slots: int, page_size: int,
-                 pages_per_slot: int, dtype):
+                 pages_per_slot: int, dtype, lora_alpha: float = 16.0):
         self.config = config
+        self.lora_alpha = float(lora_alpha)
         self.slots = int(slots)
         self.page_size = int(page_size)
         self.pages_per_slot = int(pages_per_slot)
@@ -158,10 +200,15 @@ class ServingDecodeStep:
         off = (positions % self.page_size).long()
         lengths = torch.where(active, positions + 1, 0).to(torch.int32)
         for li in range(cfg.num_layers):
+            def proj(h, name, _li=li):
+                prefix = f"layer_{_li}.{name}"
+                return _dense(h, p, prefix, dtype, _node_lora(p, prefix),
+                              self.lora_alpha)
+
             h = rmsnorm(x, _layer(p, li, "attn_norm.scale"), dtype)
-            q = dense(h, _layer(p, li, "attn.wq.kernel"), dtype)
-            k = dense(h, _layer(p, li, "attn.wk.kernel"), dtype)
-            v = dense(h, _layer(p, li, "attn.wv.kernel"), dtype)
+            q = proj(h, "attn.wq")
+            k = proj(h, "attn.wk")
+            v = proj(h, "attn.wv")
             q = q.view(s, 1, cfg.num_heads, cfg.head_dim).transpose(1, 2)
             k = k.view(s, 1, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
             v = v.view(s, 1, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
@@ -174,13 +221,13 @@ class ServingDecodeStep:
                 q.to(dtype).contiguous(), k_pool[li], v_pool[li],
                 page_table, lengths)
             o = o.transpose(1, 2).reshape(s, 1, -1)
-            x = x + dense(o, _layer(p, li, "attn.wo.kernel"), dtype)
+            x = x + proj(o, "attn.wo")
 
             h = rmsnorm(x, _layer(p, li, "mlp_norm.scale"), dtype)
-            gate = dense(h, _layer(p, li, "mlp.w_gate.kernel"), dtype)
-            up = dense(h, _layer(p, li, "mlp.w_up.kernel"), dtype)
+            gate = proj(h, "mlp.w_gate")
+            up = proj(h, "mlp.w_up")
             act = (F.silu(gate) * up).to(dtype)
-            x = x + dense(act, _layer(p, li, "mlp.w_down.kernel"), dtype)
+            x = x + proj(act, "mlp.w_down")
 
         x = rmsnorm(x, p["final_norm.scale"], dtype)
         logits = tied_readout(x, emb)[:, 0, :]              # [S, vocab]
@@ -190,7 +237,8 @@ class ServingDecodeStep:
 def build_decode_step(config: LlamaConfig, *, slots: int, page_size: int,
                       pages_per_slot: int, dtype=torch.float32,
                       tp: int = 1, with_lora: bool = False, width: int = 1,
-                      compress: bool = False) -> ServingDecodeStep:
+                      compress: bool = False,
+                      lora_alpha: float = 16.0) -> ServingDecodeStep:
     """The single-device, width-1 decode step (see
     :class:`ServingDecodeStep`).  ``tp > 1``, ``with_lora``, ``width >
     1`` (speculative verify) and ``compress`` (fp8 KV) are later
@@ -207,7 +255,8 @@ def build_decode_step(config: LlamaConfig, *, slots: int, page_size: int,
     if compress:
         raise NotImplementedError("fp8 KV pages are not ported yet")
     return ServingDecodeStep(config, slots=slots, page_size=page_size,
-                             pages_per_slot=pages_per_slot, dtype=dtype)
+                             pages_per_slot=pages_per_slot, dtype=dtype,
+                             lora_alpha=lora_alpha)
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
