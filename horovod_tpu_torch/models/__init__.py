@@ -15,6 +15,7 @@ from .transformer import (BERT_BASE, BERT_LARGE, BERT_TINY,  # noqa: F401
                           LLAMA3_8B, LLAMA_1B, LLAMA_SERVE, LLAMA_TINY, Bert,
                           BertConfig, EncoderBlock, LayerNorm, LlamaConfig,
                           LlamaLM, RMSNorm, freeze_base, init_bert_params,
-                          init_llama_params, lora_parameters,
+                          init_llama_params, lora_parameters, merge_lora,
+                          quantize_frozen_base, quantize_int8,
                           rotary_embedding)
 from .vgg import VGG, VGG16, VGG19  # noqa: F401

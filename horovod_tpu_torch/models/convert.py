@@ -6,7 +6,10 @@ given as numpy arrays, becomes the port's flat ``{dotted name: tensor}``
 dict.  Both sides keep ``Dense`` kernels ``[in, out]``, so the
 conversion is a rename: no transpose, no reshape.  A LoRA model's
 ``lora_a`` ``[in, r]`` / ``lora_b`` ``[r, out]`` leaves carry across the
-same way, under ``...wq.lora_a`` etc., and stay f32.  A flax ``Bert``
+same way, under ``...wq.lora_a`` etc., and stay f32.  An int8 base
+(``base_dtype="int8"``) carries its ``kernel_q8`` / ``tok_embed_q8``
+nodes across as ``...wq.kernel_q8.q`` (int8) and ``...wq.kernel_q8.scale``
+(f32), untouched by ``dtype``.  A flax ``Bert``
 tree (``layer_{i}.wq.kernel`` / ``.bias``, the LayerNorms' ``scale`` /
 ``bias``, ``tok_embed``, ``pos_embed``, ``type_embed``) goes through
 :func:`params_from_jax` the same way, into ``Bert.from_params``.

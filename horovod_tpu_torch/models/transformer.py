@@ -24,7 +24,13 @@ LoRA), RMSNorm normalizes in f32, RoPE rotates in f32, and the
 tied-embedding readout runs in f32.  The frozen base may be stored in the
 compute dtype (bf16 on the GPU): the flax ``Dense`` casts its f32 kernel to
 the compute dtype before every product, so a bf16-stored base computes the
-same function and halves its memory.
+same function and halves its memory.  ``base_dtype="int8"`` stores each
+frozen kernel and the tied embedding at int8 with one f32 scale per
+output channel (:func:`quantize_int8`, the flax ``kernel_q8`` /
+``tok_embed_q8`` nodes), a quarter of the f32 base; ``remat=True``
+recomputes each block in the backward (``torch.utils.checkpoint``, as
+``nn.remat``).  :func:`quantize_frozen_base` and :func:`merge_lora`
+convert a trained flat dict, as their JAX namesakes convert a tree.
 
 BERT trains every tensor: its dense layers are flax's ``Dense`` with a
 bias (:class:`horovod_tpu_torch.models.layers.Dense`), ``LayerNorm``
@@ -39,6 +45,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from ..ops.attention import flash_attention
@@ -140,9 +147,69 @@ def default_positions(tokens: torch.Tensor,
     return idx - seg_start
 
 
+def quantize_int8(w: torch.Tensor, axis: int = 0) -> Dict[str, torch.Tensor]:
+    """Per-channel symmetric int8 quantization of a 2-D kernel.
+
+    ``axis`` is the reduction axis (one scale per entry of the other
+    axis: per output channel for ``axis=0``).  Returns ``{"q": int8,
+    "scale": f32}`` with ``w ~= q * scale``; ``scale`` is clamped at
+    1e-12 and the rounding is half-to-even, as ``jnp.round``."""
+    w32 = w.float()
+    scale = torch.clamp(w32.abs().amax(dim=axis) / 127.0, min=1e-12)
+    q = torch.round(w32 / scale.unsqueeze(axis)).to(torch.int8)
+    return {"q": q, "scale": scale}
+
+
+class _Q8Matmul(torch.autograd.Function):
+    """``(x @ q.to(dtype)) * scale.to(dtype)``, or with ``transpose``
+    ``x @ q.to(dtype).T`` (no scale), saving the int8 ``q`` for the
+    backward.  A plain ``x @ q.to(dtype)`` under autograd would keep the
+    compute-dtype copy of every base kernel alive until the backward,
+    the memory the int8 base exists to save; here the copy is made again
+    in the backward.  Plain PyTorch around ``torch.matmul``: the JAX
+    package leaves this product to XLA, which fuses the convert."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale, dtype, transpose: bool):
+        ctx.save_for_backward(q, scale)
+        ctx.dtype, ctx.x_dtype, ctx.transpose = dtype, x.dtype, transpose
+        w = q.to(dtype)
+        y = x.to(dtype) @ (w.T if transpose else w)
+        return y if scale is None else y * scale.to(dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None
+        q, scale = ctx.saved_tensors
+        dz = dy if scale is None else dy * scale.to(ctx.dtype)
+        w = q.to(ctx.dtype)
+        dx = dz @ (w if ctx.transpose else w.T)
+        return dx.to(ctx.x_dtype), None, None, None, None
+
+
+def q8_dense(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+             dtype) -> torch.Tensor:
+    """The int8 ``Dense``: ``(x.astype(dtype) @ q.astype(dtype)) *
+    scale.astype(dtype)`` (:class:`_Q8Matmul`)."""
+    return _Q8Matmul.apply(x, q, scale, dtype, False)
+
+
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
+
+
+class _Q8(nn.Module):
+    """A frozen int8 tensor ``q`` and its f32 per-channel ``scale``: the
+    flax ``kernel_q8`` / ``tok_embed_q8`` node."""
+
+    def __init__(self, shape: Tuple[int, int], channels: int, device=None):
+        super().__init__()
+        self.q = nn.Parameter(torch.empty(shape, dtype=torch.int8,
+                                          device=device), requires_grad=False)
+        self.scale = nn.Parameter(torch.empty(channels, device=device),
+                                  requires_grad=False)
 
 
 class Dense(nn.Module):
@@ -152,18 +219,25 @@ class Dense(nn.Module):
     alpha/r`` in the compute dtype, as the flax ``Dense`` does.  Tensors
     are allocated here and filled by :func:`init_llama_params` (``lora_a``
     from normal(0.02), ``lora_b`` zero, so the adapter starts as the
-    identity) or by a loaded state dict."""
+    identity) or by a loaded state dict.  ``base_dtype="int8"`` holds the
+    frozen kernel as ``kernel_q8`` (``q`` int8 ``[in, out]``, ``scale``
+    f32 ``[out]``) and computes :func:`q8_dense`."""
 
     def __init__(self, in_features: int, out_features: int, dtype,
                  param_dtype=torch.float32, device=None, lora_rank: int = 0,
-                 lora_alpha: float = 16.0):
+                 lora_alpha: float = 16.0, base_dtype: Optional[str] = None):
         super().__init__()
         self.dtype = dtype
         self.lora_rank = lora_rank
         self.lora_alpha = lora_alpha
-        self.kernel = nn.Parameter(torch.empty(
-            in_features, out_features, dtype=param_dtype, device=device),
-            requires_grad=False)
+        self.base_dtype = _check_base_dtype(base_dtype)
+        if base_dtype == "int8":
+            self.kernel_q8 = _Q8((in_features, out_features), out_features,
+                                 device)
+        else:
+            self.kernel = nn.Parameter(torch.empty(
+                in_features, out_features, dtype=param_dtype,
+                device=device), requires_grad=False)
         if lora_rank > 0:
             self.lora_a = nn.Parameter(torch.empty(
                 in_features, lora_rank, device=device))
@@ -171,12 +245,22 @@ class Dense(nn.Module):
                 lora_rank, out_features, device=device))
 
     def forward(self, x):
-        y = dense(x, self.kernel, self.dtype)
+        if self.base_dtype == "int8":
+            y = q8_dense(x, self.kernel_q8.q, self.kernel_q8.scale,
+                         self.dtype)
+        else:
+            y = dense(x, self.kernel, self.dtype)
         if self.lora_rank > 0:
             xd = x.to(self.dtype)
             lora = xd @ self.lora_a.to(self.dtype) @ self.lora_b.to(self.dtype)
             y = y + lora * (self.lora_alpha / self.lora_rank)
         return y
+
+
+def _check_base_dtype(base_dtype: Optional[str]) -> Optional[str]:
+    if base_dtype not in (None, "int8"):
+        raise ValueError(f"unsupported base_dtype {base_dtype!r}")
+    return base_dtype
 
 
 class RMSNorm(nn.Module):
@@ -196,18 +280,18 @@ class CausalSelfAttention(nn.Module):
     """GQA causal attention with RoPE over the flash forward kernel."""
 
     def __init__(self, cfg: LlamaConfig, dtype, param_dtype, device=None,
-                 **lora):
+                 **dense_kw):
         super().__init__()
         self.cfg = cfg
         d, hd = cfg.d_model, cfg.head_dim
         self.wq = Dense(d, cfg.num_heads * hd, dtype, param_dtype, device,
-                        **lora)
+                        **dense_kw)
         self.wk = Dense(d, cfg.num_kv_heads * hd, dtype, param_dtype, device,
-                        **lora)
+                        **dense_kw)
         self.wv = Dense(d, cfg.num_kv_heads * hd, dtype, param_dtype, device,
-                        **lora)
+                        **dense_kw)
         self.wo = Dense(cfg.num_heads * hd, d, dtype, param_dtype, device,
-                        **lora)
+                        **dense_kw)
 
     def forward(self, x, positions, segment_ids=None,
                 force_reference: bool = False):
@@ -227,11 +311,11 @@ class CausalSelfAttention(nn.Module):
 
 class SwiGLU(nn.Module):
     def __init__(self, d: int, hidden: int, dtype, param_dtype,
-                 device=None, **lora):
+                 device=None, **dense_kw):
         super().__init__()
-        self.w_gate = Dense(d, hidden, dtype, param_dtype, device, **lora)
-        self.w_up = Dense(d, hidden, dtype, param_dtype, device, **lora)
-        self.w_down = Dense(hidden, d, dtype, param_dtype, device, **lora)
+        self.w_gate = Dense(d, hidden, dtype, param_dtype, device, **dense_kw)
+        self.w_up = Dense(d, hidden, dtype, param_dtype, device, **dense_kw)
+        self.w_down = Dense(hidden, d, dtype, param_dtype, device, **dense_kw)
 
     def forward(self, x):
         return self.w_down(nn.functional.silu(self.w_gate(x)) * self.w_up(x))
@@ -239,14 +323,14 @@ class SwiGLU(nn.Module):
 
 class DecoderBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype, param_dtype, device=None,
-                 **lora):
+                 **dense_kw):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.d_model, dtype, device=device)
         self.attn = CausalSelfAttention(cfg, dtype, param_dtype, device,
-                                        **lora)
+                                        **dense_kw)
         self.mlp_norm = RMSNorm(cfg.d_model, dtype, device=device)
         self.mlp = SwiGLU(cfg.d_model, cfg.ffn_hidden, dtype, param_dtype,
-                          device, **lora)
+                          device, **dense_kw)
 
     def forward(self, x, positions, segment_ids=None,
                 force_reference: bool = False):
@@ -267,36 +351,55 @@ class LlamaLM(nn.Module):
     norms, embedding) is built frozen and the adapters trainable, which
     :func:`freeze_base` re-asserts on any model.  Returns f32 logits
     ``[b, t, vocab]``.
+
+    ``base_dtype="int8"``: every kernel is ``kernel_q8`` and the tied
+    embedding ``tok_embed_q8`` (int8, one f32 scale per ``d_model``
+    channel).  The gather dequantizes per row; the readout folds the
+    scales into the activations and runs in the COMPUTE dtype, cast up
+    to f32 after (the flax model's int8 readout), unlike the f32 readout
+    of the f32 base.  ``remat=True`` recomputes each ``DecoderBlock`` in
+    the backward (``torch.utils.checkpoint``, non-reentrant), as
+    ``nn.remat``.
     """
 
     def __init__(self, config: LlamaConfig, dtype=torch.float32,
                  param_dtype=torch.float32, device=None, *,
-                 lora_rank: int = 0, lora_alpha: float = 16.0):
+                 lora_rank: int = 0, lora_alpha: float = 16.0,
+                 remat: bool = False, base_dtype: Optional[str] = None):
         super().__init__()
         self.config = config
         self.dtype = dtype
         self.lora_rank = lora_rank
+        self.remat = remat
+        self.base_dtype = _check_base_dtype(base_dtype)
         dev = device if str(device) == "meta" else resolve_device(device)
-        lora = dict(lora_rank=lora_rank, lora_alpha=lora_alpha)
-        self.tok_embed = nn.Parameter(torch.empty(
-            config.vocab_size, config.d_model, device=dev),
-            requires_grad=False)
+        dense_kw = dict(lora_rank=lora_rank, lora_alpha=lora_alpha,
+                        base_dtype=base_dtype)
+        if base_dtype == "int8":
+            self.tok_embed_q8 = _Q8((config.vocab_size, config.d_model),
+                                    config.d_model, dev)
+        else:
+            self.tok_embed = nn.Parameter(torch.empty(
+                config.vocab_size, config.d_model, device=dev),
+                requires_grad=False)
         for i in range(config.num_layers):
             self.add_module(f"layer_{i}",
                             DecoderBlock(config, dtype, param_dtype, dev,
-                                         **lora))
+                                         **dense_kw))
         self.final_norm = RMSNorm(config.d_model, dtype, device=dev)
 
     @classmethod
     def from_params(cls, config: LlamaConfig, params: Dict[str, torch.Tensor],
                     dtype=torch.float32, *, lora_rank: int = 0,
-                    lora_alpha: float = 16.0) -> "LlamaLM":
+                    lora_alpha: float = 16.0, remat: bool = False,
+                    base_dtype: Optional[str] = None) -> "LlamaLM":
         """A model that holds ``params`` (a flat dict, e.g. from
         :func:`init_llama_params`) as its parameters, without a copy:
         built on the meta device and assigned, so an 8B model never
         exists twice in device memory.  Keeps each tensor's dtype."""
         model = cls(config, dtype, device="meta", lora_rank=lora_rank,
-                    lora_alpha=lora_alpha)
+                    lora_alpha=lora_alpha, remat=remat,
+                    base_dtype=base_dtype)
         model.load_state_dict(params, strict=True, assign=True)
         return model
 
@@ -306,11 +409,24 @@ class LlamaLM(nn.Module):
         plain version under autograd instead of the kernels."""
         if positions is None:
             positions = default_positions(tokens, segment_ids)
-        x = self.tok_embed[tokens].to(self.dtype)
+        if self.base_dtype == "int8":
+            emb = self.tok_embed_q8
+            x = emb.q[tokens].to(self.dtype) * emb.scale.to(self.dtype)
+        else:
+            x = self.tok_embed[tokens].to(self.dtype)
         for i in range(self.config.num_layers):
-            x = getattr(self, f"layer_{i}")(x, positions, segment_ids,
-                                            force_reference)
-        return tied_readout(self.final_norm(x), self.tok_embed)
+            block = getattr(self, f"layer_{i}")
+            if self.remat:
+                x = checkpoint(block, x, positions, segment_ids,
+                               force_reference, use_reentrant=False)
+            else:
+                x = block(x, positions, segment_ids, force_reference)
+        h = self.final_norm(x)
+        if self.base_dtype == "int8":
+            hs = (h.float() * emb.scale).to(self.dtype)
+            return _Q8Matmul.apply(hs, emb.q, None, self.dtype,
+                                   True).float()
+        return tied_readout(h, self.tok_embed)
 
 
 # ---------------------------------------------------------------------------
@@ -318,17 +434,27 @@ class LlamaLM(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def param_shapes(config: LlamaConfig,
-                 lora_rank: int = 0) -> Dict[str, tuple]:
+def param_shapes(config: LlamaConfig, lora_rank: int = 0,
+                 base_dtype: Optional[str] = None) -> Dict[str, tuple]:
     """Flat ``{dotted name: shape}`` of a ``LlamaLM``'s parameters; with
     ``lora_rank > 0`` each projection's ``lora_a``/``lora_b`` follow its
-    kernel."""
+    kernel.  ``base_dtype="int8"``: ``<p>.kernel`` is ``<p>.kernel_q8.q``
+    and ``.scale``, ``tok_embed`` is ``tok_embed_q8.q`` and ``.scale``."""
     c = config
     hd = c.head_dim
-    shapes = {"tok_embed": (c.vocab_size, c.d_model)}
+    int8 = _check_base_dtype(base_dtype) == "int8"
+    if int8:
+        shapes = {"tok_embed_q8.q": (c.vocab_size, c.d_model),
+                  "tok_embed_q8.scale": (c.d_model,)}
+    else:
+        shapes = {"tok_embed": (c.vocab_size, c.d_model)}
 
     def dense(name, fan_in, fan_out):
-        shapes[f"{name}.kernel"] = (fan_in, fan_out)
+        if int8:
+            shapes[f"{name}.kernel_q8.q"] = (fan_in, fan_out)
+            shapes[f"{name}.kernel_q8.scale"] = (fan_out,)
+        else:
+            shapes[f"{name}.kernel"] = (fan_in, fan_out)
         if lora_rank > 0:
             shapes[f"{name}.lora_a"] = (fan_in, lora_rank)
             shapes[f"{name}.lora_b"] = (lora_rank, fan_out)
@@ -351,19 +477,24 @@ def param_shapes(config: LlamaConfig,
 def init_llama_params(config: LlamaConfig, *, generator: torch.Generator,
                       dtype=torch.float32,
                       device: Optional[Union[str, torch.device]] = None,
-                      lora_rank: int = 0) -> Dict[str, torch.Tensor]:
+                      lora_rank: int = 0, base_dtype: Optional[str] = None
+                      ) -> Dict[str, torch.Tensor]:
     """Random weights from ``generator``, mirroring flax's initialisers:
     ``normal(0.02)`` for the embedding, ``lecun_normal`` for the ``Dense``
     kernels, ones for the norm scales; with ``lora_rank > 0``,
     ``normal(0.02)`` for ``lora_a`` and zeros for ``lora_b``, both f32.
 
     Kernels are drawn in f32 and stored in ``dtype`` (the serving dtype);
-    the embedding and norm scales stay f32.  ``generator`` must live on
+    the embedding and norm scales stay f32.  ``base_dtype="int8"`` (the
+    counterpart of ``_q8_init``) draws the same f32 values and stores the
+    kernels and the embedding as :func:`quantize_int8` of them, under
+    the names of :func:`param_shapes`.  ``generator`` must live on
     ``device`` (``torch.Generator(device="cuda")`` for the GPU).  The
     numbers differ from flax's for the same seed: the tests feed both
     packages the same converted weights instead.
     """
     dev = resolve_device(device)
+    int8 = _check_base_dtype(base_dtype) == "int8"
     out: Dict[str, torch.Tensor] = {}
     for name, shape in param_shapes(config, lora_rank).items():
         if name == "tok_embed" or name.endswith(".lora_a"):
@@ -376,8 +507,14 @@ def init_llama_params(config: LlamaConfig, *, generator: torch.Generator,
         else:
             t = torch.empty(shape, device=dev)
             _lecun_normal_(t, generator)
-            t = t.to(dtype)
-        out[name] = t
+            if not int8:
+                t = t.to(dtype)
+        if int8 and (name == "tok_embed" or name.endswith(".kernel")):
+            q8 = quantize_int8(t)
+            out[f"{name}_q8.q"], out[f"{name}_q8.scale"] = q8["q"], \
+                q8["scale"]
+        else:
+            out[name] = t
     return out
 
 
@@ -408,6 +545,50 @@ def freeze_base(model: nn.Module) -> List[Tuple[str, nn.Parameter]]:
     for name, p in model.named_parameters():
         p.requires_grad_(is_lora_name(name))
     return lora_parameters(model)
+
+
+def quantize_frozen_base(params: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """A trained f32-base flat dict in the ``base_dtype="int8"`` layout:
+    every ``<p>.kernel`` becomes ``<p>.kernel_q8.q`` / ``.scale``
+    (:func:`quantize_int8`, one scale per output channel) and
+    ``tok_embed`` becomes ``tok_embed_q8.q`` / ``.scale``, each in the
+    place of the name it replaces.  Norm scales, biases and the LoRA
+    adapters pass through.  The result loads into
+    ``LlamaLM(base_dtype="int8")``."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in params.items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("kernel", "tok_embed"):
+            q8 = quantize_int8(t)
+            out[f"{name}_q8.q"], out[f"{name}_q8.scale"] = q8["q"], \
+                q8["scale"]
+        else:
+            out[name] = t
+    return out
+
+
+def merge_lora(params: Dict[str, torch.Tensor],
+               alpha: float = 16.0) -> Dict[str, torch.Tensor]:
+    """Fold trained adapters into the base kernels (inference export).
+
+    Every ``<p>.kernel`` with a ``<p>.lora_a``/``.lora_b`` pair becomes
+    ``kernel + a @ b * alpha/r``, added in f32 and returned in the
+    kernel's own dtype, and the pair is dropped.  An int8 node
+    (``kernel_q8``, no ``kernel``) keeps its node and its adapters, as
+    the JAX function does.  ``alpha`` must be the model's
+    ``lora_alpha``: the dict does not carry it."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in params.items():
+        head, _, leaf = name.rpartition(".")
+        if leaf in _LORA and f"{head}.kernel" in params:
+            continue
+        if leaf == "kernel" and f"{head}.lora_a" in params:
+            a, b = params[f"{head}.lora_a"], params[f"{head}.lora_b"]
+            delta = (a.float() @ b.float()) * (alpha / a.shape[1])
+            t = (t.float() + delta).to(t.dtype)
+        out[name] = t
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -504,13 +685,16 @@ class Bert(nn.Module):
     ``dtype`` is the compute dtype; every parameter is f32.  Returns
     ``(mlm_logits [b, t, vocab], nsp_logits [b, 2])``, both f32: the MLM
     readout is ``mlm_norm(gelu(mlm_transform(x))) @ tok_embed.T`` in f32,
-    NSP reads ``tanh(pooler(x[:, 0]))``.
+    NSP reads ``tanh(pooler(x[:, 0]))``.  ``remat=True`` recomputes each
+    ``EncoderBlock`` in the backward, as :class:`LlamaLM`'s.
     """
 
-    def __init__(self, config: BertConfig, dtype=torch.float32, device=None):
+    def __init__(self, config: BertConfig, dtype=torch.float32, device=None,
+                 *, remat: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        self.remat = remat
         c = config
         dev = device if str(device) == "meta" else resolve_device(device)
         self.tok_embed = nn.Parameter(torch.empty(c.vocab_size, c.d_model,
@@ -532,10 +716,10 @@ class Bert(nn.Module):
 
     @classmethod
     def from_params(cls, config: BertConfig, params: Dict[str, torch.Tensor],
-                    dtype=torch.float32) -> "Bert":
+                    dtype=torch.float32, *, remat: bool = False) -> "Bert":
         """A model holding ``params`` (a flat dict, e.g. from
         :func:`init_bert_params`) as its parameters, without a copy."""
-        model = cls(config, dtype, device="meta")
+        model = cls(config, dtype, device="meta", remat=remat)
         model.load_state_dict(params, strict=True, assign=True)
         return model
 
@@ -552,8 +736,12 @@ class Bert(nn.Module):
              + self.type_embed[token_types]).to(self.dtype)
         x = self.embed_norm(x)
         for i in range(self.config.num_layers):
-            x = getattr(self, f"layer_{i}")(x, pack_segment_ids,
-                                            force_reference)
+            block = getattr(self, f"layer_{i}")
+            if self.remat:
+                x = checkpoint(block, x, pack_segment_ids, force_reference,
+                               use_reentrant=False)
+            else:
+                x = block(x, pack_segment_ids, force_reference)
         x = self.final_norm(x)
         h = nn.functional.gelu(self.mlm_transform(x), approximate="tanh")
         mlm_logits = tied_readout(self.mlm_norm(h), self.tok_embed)

@@ -33,7 +33,8 @@ Kernels (``ops/csrc``):
   :func:`flash_attention_backward_reference` on CPU tensors.
 * ``flash_decode.cu`` -- :func:`paged_decode_attention` (reads K/V
   through the page table) and :func:`decode_attention` (contiguous
-  cache view), replacing ``_flash_decode``.
+  cache view), replacing ``_flash_decode``; :func:`verify_attention`
+  (the speculative verify step) calls it once a draft row.
 """
 
 from __future__ import annotations
@@ -608,6 +609,41 @@ def paged_decode_attention(q, k_pool_l, v_pool_l, page_table, lengths, *,
                         strides=(ps * h_kv * d, h_kv * d, d))
 
 
+def verify_attention(q, k_pool_l, v_pool_l, page_table, lengths, *,
+                     scale: Optional[float] = None,
+                     force_reference: bool = False):
+    """Width-``w`` verify attention over the page pool: speculative
+    decoding's generalisation of :func:`paged_decode_attention` to ``w``
+    draft positions a slot.
+
+    ``q``: ``(b, h, w, d)``, row ``i`` the token verified at absolute
+    position ``lengths - 1 + i``; the pools already hold the ``w`` keys
+    written this step.  ``lengths``: ``(b,)``, the live keys row 0 sees;
+    row ``i`` sees ``lengths + i`` (capped at the table's capacity), so
+    the length mask is the causal mask across the draft window, and
+    ``lengths == 0`` stays 0.
+
+    One :func:`paged_decode_attention` call a row, as the reference
+    builds it: each row runs the exact shapes of the plain decode step,
+    so speculative streams are bitwise plain decode.  On the card that
+    is ``w`` launches of the decode kernel; ``force_reference=True`` (or
+    CPU tensors) runs each row through the plain version.
+    """
+    if q.dim() != 4:
+        raise ValueError(f"verify_attention expects (b, h, w, d), got "
+                         f"{tuple(q.shape)}")
+    capacity = page_table.shape[1] * k_pool_l.shape[1]
+    outs = []
+    for i in range(q.shape[2]):
+        li = torch.where(lengths > 0,
+                         torch.clamp(lengths + i, max=capacity),
+                         torch.zeros_like(lengths))
+        outs.append(paged_decode_attention(
+            q[:, :, i:i + 1, :].contiguous(), k_pool_l, v_pool_l,
+            page_table, li, scale=scale, force_reference=force_reference))
+    return torch.cat(outs, 2)
+
+
 def attention_flops(b: int, h: int, tq: int, tk: int, d: int,
                     causal: bool, products: int = 2) -> float:
     """Multiply-add work over the pairs the mask keeps, counted as 2 FLOP
@@ -626,5 +662,6 @@ def attention_flops(b: int, h: int, tq: int, tk: int, d: int,
 __all__ = ["attention_reference", "flash_attention", "flash_backward_dq",
            "flash_backward_dkv", "flash_attention_backward",
            "flash_attention_backward_reference", "decode_attention",
-           "paged_decode_attention", "gather_pages", "decode_splits",
+           "paged_decode_attention", "verify_attention", "gather_pages",
+           "decode_splits",
            "attention_flops"]

@@ -12,12 +12,19 @@ Counterpart of ``horovod_tpu/serving/decode.py``:
   it writes the new token's K/V into its page, then attends over each
   slot's pages through the paged decode kernel
   (``ops/csrc/flash_decode.cu``), which reads the pool through the page
-  table instead of gathering a per-slot view.
+  table instead of gathering a per-slot view.  ``with_lora=True`` takes
+  banked adapters and a per-slot ``adapter_ids`` operand.
+* :func:`build_verify_step` -- speculative decoding's width-``k + 1``
+  step, attention through :func:`verify_attention` (one decode-kernel
+  call a draft row).
+* :func:`stack_adapters` -- N adapters as one banked dict.
 
-Every projection, the RoPE rotation and the in-step K/V write stay plain
-PyTorch (``torch.matmul`` and indexing), as the JAX package leaves them
-to XLA.  This slice serves on one device: tensor parallelism, LoRA
-banks, the speculative verify width and fp8 KV pages raise
+Every projection (LoRA terms included), the RoPE rotation and the
+in-step K/V write stay plain PyTorch (``torch.matmul``, ``torch.bmm``
+and indexing), as the JAX package leaves them to XLA.  In-tree
+``lora_a``/``lora_b`` leaves apply in prefill and decode, as the JAX
+``_dense`` / ``_node_lora`` apply them.  This package serves on one
+device: tensor parallelism and fp8 KV pages raise
 ``NotImplementedError``.
 
 Dtypes.  The JAX package keeps f32 master kernels and casts them to the
@@ -33,14 +40,15 @@ that product even where the caller turned
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 from torch.nn import functional as F
 
 from ..models.transformer import (LlamaConfig, default_positions, dense,
                                   rmsnorm, rotary_embedding, tied_readout)
-from ..ops.attention import flash_attention, paged_decode_attention
+from ..ops.attention import (flash_attention, paged_decode_attention,
+                             verify_attention)
 from ..timeline import spans as _spans
 
 Params = Dict[str, torch.Tensor]
@@ -89,8 +97,8 @@ def _node_lora(p: Params, prefix: str, adapters=None, select=None):
 @torch.no_grad()
 def prefill_forward(params: Params, config: LlamaConfig, tokens,
                     positions=None, *, segment_ids=None,
-                    dtype=torch.float32, past=None,
-                    lora_alpha: float = 16.0,
+                    dtype=torch.float32, past=None, adapters=None,
+                    adapter_id=None, lora_alpha: float = 16.0,
                     force_reference: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Forward a prompt batch, returning ``(logits, k_layers, v_layers)``.
@@ -101,8 +109,13 @@ def prefill_forward(params: Params, config: LlamaConfig, tokens,
     scatters.  ``past``: a ``(k_layers, v_layers)`` pair from earlier
     chunks; ``tokens`` is then the current chunk, ``positions`` default
     to its absolute offsets, and the returned K/V cover the full
-    context.  ``force_reference=True`` runs attention through the plain
-    version instead of the kernel.
+    context.  ``adapters``/``adapter_id``: banked LoRA leaves
+    (:func:`stack_adapters`) and the ONE adapter this prompt uses
+    (prefill admits one request at a time); without them the in-tree
+    ``lora_a``/``lora_b`` leaves apply, if any.  ``lora_alpha`` is the
+    adapters' alpha (the dict does not carry it).
+    ``force_reference=True`` runs attention through the plain version
+    instead of the kernel.
     """
     cfg = config
     p = params
@@ -116,11 +129,16 @@ def prefill_forward(params: Params, config: LlamaConfig, tokens,
         positions = default_positions(tokens) + t_past
     emb = p["tok_embed"]
     x = emb[tokens].to(dtype)
+
+    def select(a, bnk):
+        return a[adapter_id], bnk[adapter_id]
+
     ks, vs = [], []
     for li in range(cfg.num_layers):
         def proj(h, name, _li=li):
             prefix = f"layer_{_li}.{name}"
-            return _dense(h, p, prefix, dtype, _node_lora(p, prefix),
+            return _dense(h, p, prefix, dtype,
+                          _node_lora(p, prefix, adapters, select),
                           lora_alpha)
 
         h = rmsnorm(x, _layer(p, li, "attn_norm.scale"), dtype)
@@ -155,83 +173,150 @@ def prefill_forward(params: Params, config: LlamaConfig, tokens,
 
 
 class ServingDecodeStep:
-    """The batched single-token decode step.
+    """The batched decode step, or the speculative verify step.
 
     ``logits, k_pool, v_pool = step(params, k_pool, v_pool, tokens,
-    positions, page_table, active)``: ``tokens``/``positions``/
-    ``active`` are ``[slots]`` (current token, its absolute position ==
-    the live length before this step, slot liveness), ``page_table`` is
-    ``[slots, pages_per_slot]`` int32.  The pools are updated IN PLACE
-    (and returned, for the reference's call shape).  Idle slots write
-    their K/V to the scratch page and attend over zero keys, so their
-    attention output is exactly zero; the engine discards their logits.
-    Each call is timed into the span recorder under ``serving_decode``.
+    positions, page_table, active[, adapters, adapter_ids])``:
+    ``positions``/``active`` are ``[slots]`` (the absolute position of
+    the step's first token == the live length before this step, slot
+    liveness), ``page_table`` is ``[slots, pages_per_slot]`` int32.  The
+    pools are updated IN PLACE (and returned, for the reference's call
+    shape).  Idle slots write their K/V to the scratch page and attend
+    over zero keys, so their attention output is exactly zero; the
+    engine discards their logits.
+
+    ``width == 1``: ``tokens`` is ``[slots]`` and ``logits`` f32
+    ``[slots, vocab]``.  ``width > 1`` (:func:`build_verify_step`):
+    ``tokens`` is ``[slots, width]`` (the last sampled token, then
+    ``width - 1`` drafts), every column's K/V lands at its own (page,
+    offset) -- columns past ``max_len`` go to the scratch page -- and
+    attention runs :func:`verify_attention`; ``logits`` are ``[slots,
+    width, vocab]``.  Each column runs the width-1 step's arithmetic on
+    ``[slots, 1, d]`` rows, one projection a column: a matmul over
+    ``slots * width`` rows may take another algorithm than one over
+    ``slots`` (cuBLAS and oneDNN choose by shape), and a row's bits --
+    hence a greedy stream at a near-tie -- would then depend on the
+    width.  So a column's logits are bitwise those of the plain step.
+
+    ``with_lora``: ``adapters`` is a banked dict
+    (:func:`stack_adapters`) and ``adapter_ids`` ``[slots]`` picks each
+    slot's adapter, gathered inside the step and applied as a batched
+    product (``bmm``: slot ``s`` multiplies its own pair).  In-tree
+    ``lora_a``/``lora_b`` leaves (no banks) take the same per-slot
+    product, so a slot's arithmetic is the same whether its adapter
+    comes from the tree or from a bank.  Each call is timed into the
+    span recorder under ``serving_decode`` (``serving_verify`` when
+    wide).
     """
 
     def __init__(self, config: LlamaConfig, *, slots: int, page_size: int,
-                 pages_per_slot: int, dtype, lora_alpha: float = 16.0):
+                 pages_per_slot: int, dtype, with_lora: bool = False,
+                 lora_alpha: float = 16.0, width: int = 1):
         self.config = config
-        self.lora_alpha = float(lora_alpha)
         self.slots = int(slots)
         self.page_size = int(page_size)
         self.pages_per_slot = int(pages_per_slot)
         self.dtype = dtype
+        self.with_lora = bool(with_lora)
+        self.lora_alpha = float(lora_alpha)
+        self.width = int(width)
         self.scratch = self.slots * self.pages_per_slot
+        self.leg = "serving_decode" if width == 1 else "serving_verify"
 
     def __call__(self, params, k_pool, v_pool, tokens, positions,
-                 page_table, active):
+                 page_table, active, adapters=None, adapter_ids=None):
+        if (adapters is not None) != self.with_lora:
+            raise ValueError(
+                "adapters/adapter_ids are the operands of a step built "
+                "with_lora=True, and it needs them")
         with _spans.recorder().span("dispatch", name="serving",
-                                    leg="serving_decode"):
+                                    leg=self.leg):
             return self._step(params, k_pool, v_pool, tokens, positions,
-                              page_table, active)
+                              page_table, active, adapters, adapter_ids)
 
     @torch.no_grad()
     def _step(self, p: Params, k_pool, v_pool, tokens, positions,
-              page_table, active):
-        cfg, dtype = self.config, self.dtype
+              page_table, active, adapters, adapter_ids):
+        cfg, dtype, w = self.config, self.dtype, self.width
+        ps = self.page_size
         s = tokens.shape[0]
+        tokens = tokens.view(s, w)
         emb = p["tok_embed"]
-        x = emb[tokens].to(dtype)[:, None, :]               # [S, 1, d]
-        pos2 = positions[:, None]                           # [S, 1]
-        rows = torch.arange(s, device=tokens.device)
-        page = torch.where(active,
-                           page_table[rows, positions // self.page_size],
+        pos2 = positions[:, None] + torch.arange(w, device=tokens.device)
+        # The step writes EVERY slot's K/V (fixed batch shape): idle
+        # slots, and columns past max_len, go to the scratch page.
+        writable = active[:, None] & (pos2 < self.pages_per_slot * ps)
+        idx = torch.clamp(pos2 // ps, max=self.pages_per_slot - 1)
+        page = torch.where(writable,
+                           torch.gather(page_table, 1, idx.long()),
                            self.scratch).long()
-        off = (positions % self.page_size).long()
+        off = (pos2 % ps).long()
         lengths = torch.where(active, positions + 1, 0).to(torch.int32)
+        if adapter_ids is not None:
+            ids = adapter_ids.long()
+
+            def select(a, b):
+                return a[ids], b[ids]
+        else:
+            zeros = torch.zeros(s, dtype=torch.long, device=tokens.device)
+
+            def select(a, b):
+                return a[None][zeros], b[None][zeros]
+
+        def lora(prefix):
+            pair = _node_lora(p, prefix, adapters, select)
+            if pair is not None and pair[0].dim() == 2:
+                pair = select(*pair)        # in-tree: the per-slot product
+            return pair
+
+        xs = [emb[tokens[:, j]].to(dtype)[:, None, :] for j in range(w)]
         for li in range(cfg.num_layers):
             def proj(h, name, _li=li):
                 prefix = f"layer_{_li}.{name}"
-                return _dense(h, p, prefix, dtype, _node_lora(p, prefix),
+                return _dense(h, p, prefix, dtype, lora(prefix),
                               self.lora_alpha)
 
-            h = rmsnorm(x, _layer(p, li, "attn_norm.scale"), dtype)
-            q = proj(h, "attn.wq")
-            k = proj(h, "attn.wk")
-            v = proj(h, "attn.wv")
-            q = q.view(s, 1, cfg.num_heads, cfg.head_dim).transpose(1, 2)
-            k = k.view(s, 1, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
-            v = v.view(s, 1, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
-            q = rotary_embedding(q, pos2, cfg.rope_theta)
-            k = rotary_embedding(k, pos2, cfg.rope_theta)
-            # In-step cache write: each slot's K/V lands at (page, off).
-            k_pool[li, page, off] = k[:, :, 0, :].to(k_pool.dtype)
-            v_pool[li, page, off] = v[:, :, 0, :].to(v_pool.dtype)
-            o = paged_decode_attention(
-                q.to(dtype).contiguous(), k_pool[li], v_pool[li],
-                page_table, lengths)
-            o = o.transpose(1, 2).reshape(s, 1, -1)
-            x = x + proj(o, "attn.wo")
+            qs = []
+            for j in range(w):
+                h = rmsnorm(xs[j], _layer(p, li, "attn_norm.scale"), dtype)
+                q = proj(h, "attn.wq")
+                k = proj(h, "attn.wk")
+                v = proj(h, "attn.wv")
+                q = q.view(s, 1, cfg.num_heads, cfg.head_dim).transpose(1, 2)
+                k = k.view(s, 1, cfg.num_kv_heads,
+                           cfg.head_dim).transpose(1, 2)
+                v = v.view(s, 1, cfg.num_kv_heads,
+                           cfg.head_dim).transpose(1, 2)
+                q = rotary_embedding(q, pos2[:, j:j + 1], cfg.rope_theta)
+                k = rotary_embedding(k, pos2[:, j:j + 1], cfg.rope_theta)
+                # In-step cache write: the column's K/V lands at (page,
+                # off) before any row attends.
+                k_pool[li, page[:, j], off[:, j]] = \
+                    k[:, :, 0, :].to(k_pool.dtype)
+                v_pool[li, page[:, j], off[:, j]] = \
+                    v[:, :, 0, :].to(v_pool.dtype)
+                qs.append(q.to(dtype))
+            if w == 1:
+                os_ = [paged_decode_attention(
+                    qs[0].contiguous(), k_pool[li], v_pool[li], page_table,
+                    lengths)]
+            else:
+                o = verify_attention(torch.cat(qs, 2), k_pool[li],
+                                     v_pool[li], page_table, lengths)
+                os_ = [o[:, :, j:j + 1, :] for j in range(w)]
+            for j in range(w):
+                o = os_[j].transpose(1, 2).reshape(s, 1, -1)
+                x = xs[j] + proj(o, "attn.wo")
+                h = rmsnorm(x, _layer(p, li, "mlp_norm.scale"), dtype)
+                gate = proj(h, "mlp.w_gate")
+                up = proj(h, "mlp.w_up")
+                act = (F.silu(gate) * up).to(dtype)
+                xs[j] = x + proj(act, "mlp.w_down")
 
-            h = rmsnorm(x, _layer(p, li, "mlp_norm.scale"), dtype)
-            gate = proj(h, "mlp.w_gate")
-            up = proj(h, "mlp.w_up")
-            act = (F.silu(gate) * up).to(dtype)
-            x = x + proj(act, "mlp.w_down")
-
-        x = rmsnorm(x, p["final_norm.scale"], dtype)
-        logits = tied_readout(x, emb)[:, 0, :]              # [S, vocab]
-        return logits, k_pool, v_pool
+        logits = [tied_readout(rmsnorm(x, p["final_norm.scale"], dtype),
+                               emb)[:, 0, :] for x in xs]   # [S, vocab]
+        out = logits[0] if w == 1 else torch.stack(logits, 1)
+        return out, k_pool, v_pool
 
 
 def build_decode_step(config: LlamaConfig, *, slots: int, page_size: int,
@@ -239,24 +324,44 @@ def build_decode_step(config: LlamaConfig, *, slots: int, page_size: int,
                       tp: int = 1, with_lora: bool = False, width: int = 1,
                       compress: bool = False,
                       lora_alpha: float = 16.0) -> ServingDecodeStep:
-    """The single-device, width-1 decode step (see
-    :class:`ServingDecodeStep`).  ``tp > 1``, ``with_lora``, ``width >
-    1`` (speculative verify) and ``compress`` (fp8 KV) are later
-    slices and raise."""
+    """The single-device decode step (see :class:`ServingDecodeStep`),
+    width 1, or the verify step at ``width > 1``
+    (:func:`build_verify_step`).  ``tp > 1`` and ``compress`` (fp8 KV)
+    are later slices and raise; so do LoRA banks with ``width > 1``, as
+    in the reference."""
     if tp != 1:
         raise NotImplementedError(
             "tensor-parallel decode (tp > 1) is not ported yet")
-    if with_lora:
-        raise NotImplementedError("per-slot LoRA banks are not ported yet")
-    if width != 1:
+    if width < 1:
+        raise ValueError(f"width must be >= 1, got {width}")
+    if with_lora and width > 1:
         raise NotImplementedError(
-            "the speculative verify step (width > 1, verify_attention) is "
-            "not ported yet")
+            "speculative verify with per-slot LoRA banks is not wired; "
+            "serve adapters with plain decode")
     if compress:
         raise NotImplementedError("fp8 KV pages are not ported yet")
     return ServingDecodeStep(config, slots=slots, page_size=page_size,
                              pages_per_slot=pages_per_slot, dtype=dtype,
-                             lora_alpha=lora_alpha)
+                             with_lora=with_lora, lora_alpha=lora_alpha,
+                             width=width)
+
+
+def build_verify_step(config: LlamaConfig, *, slots: int, width: int,
+                      page_size: int, pages_per_slot: int,
+                      dtype=torch.float32, tp: int = 1,
+                      compress: bool = False) -> ServingDecodeStep:
+    """The speculative-decoding verify step: one call scoring ``width``
+    tokens a slot (the last sampled token plus ``width - 1`` drafter
+    proposals), logits ``[slots, width, vocab]``.  The engine accepts
+    each slot's longest draft prefix agreeing with the returned argmaxes,
+    plus the target's own token at the first disagreement."""
+    if width < 2:
+        raise ValueError(
+            f"verify step needs width >= 2 (got {width}); width 1 is "
+            "plain decode -- use build_decode_step")
+    return build_decode_step(config, slots=slots, page_size=page_size,
+                             pages_per_slot=pages_per_slot, dtype=dtype,
+                             tp=tp, width=width, compress=compress)
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
@@ -265,5 +370,20 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-__all__ = ["prefill_forward", "build_decode_step", "ServingDecodeStep",
-           "greedy_sample"]
+def stack_adapters(param_dicts: Sequence[Params]) -> Params:
+    """Pack N adapters into one banked dict: the ``lora_a``/``lora_b``
+    entries of each flat dict (full model params or adapters only),
+    stacked on a new leading ``n_adapters`` dim under their own names --
+    the layout the decode step's per-slot ``adapter_ids`` gather and
+    :func:`prefill_forward`'s ``adapter_id`` read."""
+    if not param_dicts:
+        raise ValueError("need at least one adapter dict")
+    names = [n for n in param_dicts[0] if n.rsplit(".", 1)[-1] in
+             ("lora_a", "lora_b")]
+    if not names:
+        raise ValueError("adapter dicts hold no lora_a/lora_b entries")
+    return {n: torch.stack([d[n] for d in param_dicts]) for n in names}
+
+
+__all__ = ["prefill_forward", "build_decode_step", "build_verify_step",
+           "ServingDecodeStep", "greedy_sample", "stack_adapters"]

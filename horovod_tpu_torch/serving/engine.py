@@ -13,12 +13,23 @@ Knobs (constructor argument, else environment, as in the reference):
 * ``HOROVOD_SERVING_PAGE_SIZE`` -- KV page length in tokens (default 16)
 * ``HOROVOD_SERVING_MAX_LEN`` -- per-sequence cap (default: model max)
 * ``HOROVOD_SERVING_PREFETCH`` -- request prefetch depth (default 2)
+* ``HOROVOD_SPEC_DECODE`` -- speculative decoding on/off (default off)
+* ``HOROVOD_SPEC_K`` -- draft tokens a speculative round (default 4)
 * ``HOROVOD_TENANT_CLASSES`` -- per-tenant SLO classes
 
+LoRA banks (``adapters=``, :func:`~.decode.stack_adapters`): each
+request's ``adapter_id`` picks its adapter, gathered per slot inside the
+decode step, so requests of different adapters share one decode batch
+over one base.  Speculative decoding (:meth:`ServingEngine.spec_round`):
+a drafter (:mod:`.spec`, default :class:`~.spec.NgramDrafter`) proposes
+``spec_k`` tokens a slot and one verify step of width ``spec_k + 1``
+scores them; the stream is plain greedy decode's.
+
 Not ported yet, and refused with ``NotImplementedError`` when asked for
-(by argument or by ``HOROVOD_SPEC_DECODE`` / ``HOROVOD_PREFILL_CHUNK`` /
-``HOROVOD_KV_COMPRESS`` / ``HOROVOD_PREFIX_CACHE``): speculative
-decoding, chunked prefill, fp8 KV pages, the prefix cache, LoRA banks.
+(by argument or by ``HOROVOD_PREFILL_CHUNK`` / ``HOROVOD_KV_COMPRESS`` /
+``HOROVOD_PREFIX_CACHE``): chunked prefill, fp8 KV pages, the prefix
+cache.  As in the reference, LoRA banks refuse speculation, fp8 pages
+and the prefix cache.
 
 Two clocks, as in the reference: a VIRTUAL clock that fast-forwards
 idle gaps in the open-loop arrival schedule (TTFT is measured against
@@ -42,10 +53,12 @@ from ..core.config import _env, _env_bool, _env_int
 from ..core.device import resolve_device
 from ..timeline import metrics as _metrics
 from ..timeline import spans as _spans
-from .decode import build_decode_step, greedy_sample, prefill_forward
+from .decode import (build_decode_step, build_verify_step, greedy_sample,
+                     prefill_forward)
 from .kvcache import CacheConfig, PagedKVCache
 from .scheduler import (ContinuousBatchScheduler, Request,
                         parse_tenant_classes)
+from .spec import NgramDrafter
 
 
 class _Stop:
@@ -129,6 +142,11 @@ class ServingReport:
     token_latency_p50_s: float
     token_latency_p99_s: float
     mean_occupancy: float
+    # Speculative decoding (zero when it is off).
+    spec_rounds: int = 0
+    proposed_tokens: int = 0
+    accepted_tokens: int = 0
+    acceptance_rate: float = 0.0
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -152,28 +170,50 @@ class ServingEngine:
     device.  ``params`` is the flat param dict
     (:func:`~horovod_tpu_torch.models.init_llama_params` or
     :func:`~horovod_tpu_torch.models.params_from_jax`) already on
-    ``device``; ``device`` defaults to ``cuda``."""
+    ``device``; ``device`` defaults to ``cuda``.  ``adapters``: banked
+    LoRA leaves (:func:`~.decode.stack_adapters`) on ``device``, each
+    request's ``Request.adapter_id`` choosing its adapter
+    (``adapter_ids`` is accepted for the reference's signature and not
+    read); ``lora_alpha`` is the adapters' alpha, which also applies to
+    in-tree ``lora_a``/``lora_b`` leaves.  ``spec_decode`` / ``spec_k`` /
+    ``drafter``: see the module docstring."""
 
     def __init__(self, config, params, *, device=None, slots: int = 0,
                  page_size: int = 0, max_len: int = 0,
-                 dtype=torch.float32, adapters=None,
-                 prefetch_depth: int = 0,
-                 spec_decode: Optional[bool] = None,
-                 prefill_chunk: int = -1,
+                 dtype=torch.float32, adapters=None, adapter_ids=None,
+                 lora_alpha: float = 16.0, prefetch_depth: int = 0,
+                 spec_decode: Optional[bool] = None, spec_k: int = 0,
+                 drafter=None, prefill_chunk: int = -1,
                  kv_compress: Optional[bool] = None,
                  prefix_cache: Optional[bool] = None, tenants=None):
         self.device = resolve_device(device)
         self.config = config
         self.params = params
-        _refuse(adapters is not None, "serving LoRA banks")
-        _refuse(_env_bool("SPEC_DECODE") if spec_decode is None
-                else bool(spec_decode), "speculative decoding")
+        self.spec_decode = (_env_bool("SPEC_DECODE") if spec_decode is None
+                            else bool(spec_decode))
+        self.spec_k = spec_k or _env_int("SPEC_K", 4)
+        kv_compress = (_env_bool("KV_COMPRESS") if kv_compress is None
+                       else bool(kv_compress))
+        prefix_cache = (_env_bool("PREFIX_CACHE") if prefix_cache is None
+                        else bool(prefix_cache))
+        if self.spec_decode and self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
+        if adapters is not None and self.spec_decode:
+            raise NotImplementedError(
+                "speculative decoding with LoRA banks is not wired; "
+                "run adapters through plain decode")
+        if adapters is not None and kv_compress:
+            raise NotImplementedError(
+                "fp8 KV compression with LoRA banks is not wired")
+        if adapters is not None and prefix_cache:
+            raise NotImplementedError(
+                "prefix cache with LoRA banks is not wired: cached K/V "
+                "is keyed by tokens only, but LoRA'd wk/wv make K/V "
+                "adapter-dependent")
         _refuse((_env_int("PREFILL_CHUNK", 0) if prefill_chunk < 0
                  else prefill_chunk) > 0, "chunked prefill")
-        _refuse(_env_bool("KV_COMPRESS") if kv_compress is None
-                else bool(kv_compress), "fp8 KV-cache compression")
-        _refuse(_env_bool("PREFIX_CACHE") if prefix_cache is None
-                else bool(prefix_cache), "the prefix cache")
+        _refuse(kv_compress, "fp8 KV-cache compression")
+        _refuse(prefix_cache, "the prefix cache")
         self.slots = slots or _env_int("SERVING_SLOTS", 8)
         self.page_size = page_size or _env_int("SERVING_PAGE_SIZE", 16)
         self.max_len = max_len or _env_int("SERVING_MAX_LEN",
@@ -184,6 +224,8 @@ class ServingEngine:
             spec = _env("TENANT_CLASSES")
             tenants = parse_tenant_classes(spec) if spec else None
         self.dtype = dtype
+        self.adapters = adapters
+        self.lora_alpha = lora_alpha
         self.cache_config = CacheConfig(
             num_layers=config.num_layers,
             num_kv_heads=config.num_kv_heads, head_dim=config.head_dim,
@@ -191,21 +233,36 @@ class ServingEngine:
             max_len=self.max_len,
             dtype=str(dtype).replace("torch.", ""))
         self.cache = PagedKVCache(self.cache_config, self.device)
+        # Admission prices the widest step a slot can take: k drafts +
+        # the target's bonus token under speculation, else 1.
+        budget = self.spec_k + 1 if self.spec_decode else 1
         self.scheduler = ContinuousBatchScheduler(
-            self.slots, self.cache, token_budget=1, tenants=tenants)
+            self.slots, self.cache, token_budget=budget, tenants=tenants)
+        pps = self.cache_config.pages_per_slot
         self.step = build_decode_step(
             config, slots=self.slots, page_size=self.page_size,
-            pages_per_slot=self.cache_config.pages_per_slot, dtype=dtype)
+            pages_per_slot=pps, dtype=dtype,
+            with_lora=adapters is not None, lora_alpha=lora_alpha)
+        self.verify_step = None
+        self.drafter = None
+        if self.spec_decode:
+            self.verify_step = build_verify_step(
+                config, slots=self.slots, width=self.spec_k + 1,
+                page_size=self.page_size, pages_per_slot=pps, dtype=dtype)
+            self.drafter = drafter if drafter is not None \
+                else NgramDrafter()
 
-    def _prefill(self, tokens):
+    def _prefill(self, tokens, req: Optional[Request] = None):
+        aid = req.adapter_id if self.adapters is not None else None
         return prefill_forward(self.params, self.config, tokens,
-                               dtype=self.dtype)
+                               dtype=self.dtype, adapters=self.adapters,
+                               adapter_id=aid, lora_alpha=self.lora_alpha)
 
     # -- one-request helpers ----------------------------------------------
     def _do_prefill(self, slot: int, req: Request, prompt_dev) -> int:
         with _spans.recorder().span("dispatch", name="prefill",
                                     leg="serving_prefill"):
-            logits, kl, vl = self._prefill(prompt_dev[None])
+            logits, kl, vl = self._prefill(prompt_dev[None], req)
             self.cache.write_prefill(slot, kl[:, 0], vl[:, 0])
             first = int(greedy_sample(logits[:, -1, :])[0])
         return first
@@ -215,10 +272,15 @@ class ServingEngine:
         req.tokens.append(first)
         self.scheduler.note_prefill(req, now())
         st["last_tokens"][slot] = first
+        st["adapter_ids"][slot] = req.adapter_id
+        if self.drafter is not None:
+            self.drafter.on_admit(slot, req)
         if req.finished:
             self._release(st, slot, now)
 
     def _release(self, st: Dict[str, Any], slot: int, now) -> None:
+        if self.drafter is not None:
+            self.drafter.on_release(slot)
         st["completed"].append(self.scheduler.release(slot, now()))
 
     def _decode_slots(self) -> List[int]:
@@ -249,11 +311,14 @@ class ServingEngine:
         tokens = torch.tensor(st["last_tokens"], dtype=torch.long,
                               device=self.device)
         positions = cache.lengths_device().long()
+        extra = () if self.adapters is None else (
+            self.adapters, torch.tensor(st["adapter_ids"],
+                                        device=self.device))
         t0 = time.monotonic()
         logits, cache.k, cache.v = self.step(
             self.params, cache.k, cache.v, tokens, positions,
             cache.table_device(),
-            torch.tensor(active, device=self.device))
+            torch.tensor(active, device=self.device), *extra)
         sampled = greedy_sample(logits).cpu().numpy()  # sync point
         # Per-slot screen: one reduced scalar per row (a sum propagates
         # any NaN/Inf in the vocab axis), fetched with the sample.
@@ -275,6 +340,73 @@ class ServingEngine:
                 self._release(st, slot, now)
         return step_s
 
+    def spec_round(self, st: Dict[str, Any], now) -> float:
+        """One speculative round: draft k, verify k + 1 wide, accept the
+        longest agreeing prefix per slot.
+
+        Every emitted token is the TARGET's argmax (column j's logits
+        condition on the accepted prefix only), so the stream is plain
+        decode's; the drafter changes only how many tokens a round
+        emits.  Rejected draft K/V stays above the rolled-back length:
+        masked, as on a recycled page.
+        """
+        sched = self.scheduler
+        cache = self.cache
+        k = self.spec_k
+        width = k + 1
+        slots = self._decode_slots()
+        reqs = {s: sched.active[s] for s in slots}
+        base = {s: int(cache.lengths[s]) for s in slots}
+        for s in slots:
+            # Room for the round's widest write, capped at the slot's
+            # allotment (columns past max_len go to the scratch page).
+            cache.reserve(s, min(base[s] + width, self.max_len))
+        drafts = self.drafter.propose(reqs, k, np.array(st["last_tokens"]))
+        tokens_in = np.zeros((self.slots, width), np.int64)
+        tokens_in[:, 0] = st["last_tokens"]
+        tokens_in[:, 1:] = drafts
+        active = np.zeros((self.slots,), bool)
+        active[slots] = True
+        t0 = time.monotonic()
+        logits, cache.k, cache.v = self.verify_step(
+            self.params, cache.k, cache.v,
+            torch.tensor(tokens_in, device=self.device),
+            cache.lengths_device().long(), cache.table_device(),
+            torch.tensor(active, device=self.device))
+        sampled = greedy_sample(logits).cpu().numpy()   # [slots, width]
+        # A nonfinite column anywhere in the window disqualifies the
+        # slot's round (the agreeing-prefix walk would condition on it).
+        finite = torch.isfinite(logits.sum((-2, -1))).cpu().numpy()
+        step_s = time.monotonic() - t0
+        st["decode_steps"] += 1
+        st["spec_rounds"] += 1
+        st["occ_samples"].append(sched.occupancy)
+        for s in slots:
+            req = reqs[s]
+            if not finite[s]:
+                self._quarantine_logits(st, s, req)
+                continue
+            # Draft j survives iff every earlier draft did and it equals
+            # the target's argmax at its position.
+            m = 0
+            while m < k and drafts[s, m] == sampled[s, m]:
+                m += 1
+            emit = min(m + 1, req.max_new_tokens - len(req.tokens),
+                       self.max_len - base[s])
+            accepted = max(emit - 1, 0)
+            st["proposed"] += k
+            st["accepted"] += accepted
+            sched.note_spec(k, accepted)
+            for j in range(emit):
+                req.tokens.append(int(sampled[s, j]))
+                sched.note_decode_token(req, step_s / max(emit, 1))
+            cache.lengths[s] = base[s] + emit
+            st["last_tokens"][s] = req.tokens[-1]
+            self.drafter.observe(s, req, accepted)
+            if req.finished or int(cache.lengths[s]) >= self.max_len:
+                self._release(st, s, now)
+        return step_s
+
     def re_prefill(self, slot: int, req: Request) -> int:
         """Rebuild a request's KV from its prompt + emitted tokens (all
         but the last, which the next decode step consumes); returns that
@@ -286,8 +418,10 @@ class ServingEngine:
         with _spans.recorder().span("dispatch", name="reprefill",
                                     leg="serving_reprefill"):
             _, kl, vl = self._prefill(
-                torch.tensor(full, device=self.device)[None])
+                torch.tensor(full, device=self.device)[None], req)
             self.cache.write_prefill(slot, kl[:, 0], vl[:, 0])
+        if self.drafter is not None:
+            self.drafter.re_prefill(slot, req)
         return int(req.tokens[-1])
 
     # -- the serve loop ----------------------------------------------------
@@ -313,8 +447,9 @@ class ServingEngine:
 
         st: Dict[str, Any] = {
             "completed": [], "occ_samples": [], "decode_steps": 0,
-            "prefills": 0,
-            "last_tokens": np.zeros((self.slots,), np.int64)}
+            "prefills": 0, "spec_rounds": 0, "proposed": 0, "accepted": 0,
+            "last_tokens": np.zeros((self.slots,), np.int64),
+            "adapter_ids": np.zeros((self.slots,), np.int64)}
         completed: List[Request] = st["completed"]
         prompts_dev: Dict[int, Any] = {}
 
@@ -347,12 +482,18 @@ class ServingEngine:
 
                 if not self._decode_slots():
                     continue
-                self.decode_once(st, now)
+                # One round over the decode batch: a k-draft verify when
+                # speculating, else one plain single-token step.
+                if self.spec_decode:
+                    self.spec_round(st, now)
+                else:
+                    self.decode_once(st, now)
 
         wall_s = max(time.monotonic() - start, 1e-9)
         new_tokens = sum(len(r.tokens) for r in completed)
         ttfts = [r.ttft_s for r in completed if r.ttft_s is not None]
         lats = [lat for r in completed for lat in r.token_latencies]
+        proposed, accepted = int(st["proposed"]), int(st["accepted"])
         return ServingReport(
             num_requests=len(requests), completed=len(completed),
             rejected=rejected,
@@ -365,4 +506,7 @@ class ServingEngine:
             token_latency_p50_s=_pct(lats, 50),
             token_latency_p99_s=_pct(lats, 99),
             mean_occupancy=(float(np.mean(st["occ_samples"]))
-                            if st["occ_samples"] else 0.0))
+                            if st["occ_samples"] else 0.0),
+            spec_rounds=int(st["spec_rounds"]), proposed_tokens=proposed,
+            accepted_tokens=accepted,
+            acceptance_rate=(accepted / proposed if proposed else 0.0))

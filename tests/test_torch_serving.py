@@ -240,11 +240,19 @@ def test_decode_step_and_pools_match_jax(serve_params):
 
 
 def test_decode_step_refuses_later_slices():
-    for kw in (dict(tp=2), dict(with_lora=True), dict(width=3),
-               dict(compress=True)):
+    # LoRA banks and the verify width are ported; tp > 1, fp8 pages and
+    # banks at width > 1 (refused by the reference too) still raise.
+    for kw in (dict(tp=2), dict(compress=True),
+               dict(with_lora=True, width=3)):
         with pytest.raises(NotImplementedError):
             build_decode_step(LLAMA_SERVE, slots=2, page_size=4,
                               pages_per_slot=2, **kw)
+    with pytest.raises(ValueError, match="width"):
+        build_decode_step(LLAMA_SERVE, slots=2, page_size=4,
+                          pages_per_slot=2, width=0)
+    for kw in (dict(with_lora=True), dict(width=3)):
+        build_decode_step(LLAMA_SERVE, slots=2, page_size=4,
+                          pages_per_slot=2, **kw)
 
 
 def test_kvcache_accounting_and_explicit_copies():
@@ -319,15 +327,18 @@ def test_engine_rejects_oversize_and_refuses_later_slices(serve_params,
     reqs[1].prompt = np.arange(14, dtype=np.int32)   # 14 + 3 > 16
     rep = eng.serve(reqs)
     assert rep.completed == 1 and rep.rejected == 1
-    for kw in (dict(spec_decode=True), dict(prefill_chunk=8),
-               dict(kv_compress=True), dict(prefix_cache=True),
-               dict(adapters={})):
+    # Speculative decoding and LoRA banks are ported (their own test
+    # files); chunked prefill, fp8 pages and the prefix cache still
+    # raise, and banks refuse speculation as the reference does.
+    for kw in (dict(prefill_chunk=8), dict(kv_compress=True),
+               dict(prefix_cache=True),
+               dict(adapters={}, spec_decode=True)):
         with pytest.raises(NotImplementedError):
             ServingEngine(LLAMA_SERVE, tparams, device="cpu", **kw)
-    monkeypatch.setenv("HOROVOD_SPEC_DECODE", "1")
+    monkeypatch.setenv("HOROVOD_PREFILL_CHUNK", "8")
     with pytest.raises(NotImplementedError):
         ServingEngine(LLAMA_SERVE, tparams, device="cpu")
-    monkeypatch.delenv("HOROVOD_SPEC_DECODE")
+    monkeypatch.delenv("HOROVOD_PREFILL_CHUNK")
     monkeypatch.setenv("HVD_TPU_SERVING_SLOTS", "3")
     monkeypatch.setenv("HOROVOD_SERVING_SLOTS", "5")
     monkeypatch.setenv("HOROVOD_SERVING_PAGE_SIZE", "4")
