@@ -264,6 +264,32 @@ Phases, each printing its own line; any failure exits non-zero:
    horovod_tpu_torch.examples.join_check`` (gloo on this host): exit 0
    and ``join OK last=1`` from each rank.  Logged: the BN launches.
 
+26. lora_int8_serve -- the int8 frozen base, remat, LoRA banks and
+   speculative decoding at Llama-3 8B width (``examples/llama_lora.py``'s
+   two modes).  (a) 2 layers, int8 base, rank-8 adapters with non-zero
+   ``lora_b``: loss and LoRA gradients through the kernels against the
+   plain attention within phase 5's bounds, and the same step with
+   ``remat=True`` bitwise the step without (2 flash forwards more).
+   (b) Full depth, int8 base + remat: phase 6's ``init`` ->
+   ``broadcast_parameters`` (int8 tensors included) ->
+   ``DistributedOptimizer(AdamW, bf16)`` -> ``make_train_step``, one
+   warm-up and five timed steps at 2 x 2048, with phase 6's checks (every
+   int8 ``q``/``scale`` bitwise unchanged) and 64 flash forwards and 32
+   of each backward kernel a step; then the same from the same weights
+   without remat (32 forwards); step ms and peak memory beside phase 6's
+   bf16 base.  (c) Full depth, bf16 base, three adapters from seeds
+   stacked with ``stack_adapters``: one engine serves six requests, the
+   adapter ids cycling; each stream bitwise the stream of an engine
+   serving that adapter from the tree (as many slots), the first-token
+   logits within 2e-2 of max |logit| of the ``merge_lora`` weights'
+   prefill in f32 compute (the bf16 pair logged), 32 flash launches a
+   prefill and 32 decode launches a step.  (d) Phase 4's cell twice more,
+   speculating (``spec_k=4``) with the n-gram drafter and with a
+   ``ModelDrafter`` over the target's own weights: both streams equal
+   phase 4's token for token, 32 decode launches a plain step, 5 x 32 a
+   verify round and 32 a drafter step, the model drafter's every draft
+   accepted; acceptance, tokens/s and token latency beside phase 4's.
+
 Phase 17 also holds ``chunked_allreduce`` (equal to ``allreduce`` at
 world 1) and ``fp8_allreduce`` (bitwise its round trip) on its 64 MiB
 buffer and times them.
@@ -1117,7 +1143,14 @@ def time_fused_update(fu, x, res, q0, m, size, got, want, q) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def serve_llama(dev, card: str) -> dict:
+SERVE_LOAD = dict(num_requests=8, prompt_lens=(37, 512, 2048),
+                  output_lens=(32, 64), seed=0)
+SERVE_GEOM = dict(slots=8, page_size=16, max_len=4096)
+
+
+def serve_llama(dev, card: str) -> tuple:
+    """Phase 4; returns the kernels' launch counts and the run (its
+    report and every request's token stream, for phase 26)."""
     from horovod_tpu_torch.models import LLAMA3_8B, init_llama_params
     from horovod_tpu_torch.ops import registry
     from horovod_tpu_torch.serving import (LoadSpec, Request, ServingEngine,
@@ -1133,15 +1166,14 @@ def serve_llama(dev, card: str) -> dict:
          "dtype": "bfloat16", "seconds": time.perf_counter() - t0,
          "param_bytes": sum(t.numel() * t.element_size()
                             for t in params.values())})
-    eng = ServingEngine(cfg, params, device=dev, slots=8, page_size=16,
-                        max_len=4096, dtype=torch.bfloat16)
+    eng = ServingEngine(cfg, params, device=dev, dtype=torch.bfloat16,
+                        **SERVE_GEOM)
     # Warm-up: one short request (cuBLAS handles, allocator, kernels).
     warm = Request(rid=-1, prompt=np.arange(16, dtype=np.int32),
                    max_new_tokens=2)
     eng.serve([warm])
 
-    spec = LoadSpec(num_requests=8, prompt_lens=(37, 512, 2048),
-                    output_lens=(32, 64), vocab_size=cfg.vocab_size, seed=0)
+    spec = LoadSpec(vocab_size=cfg.vocab_size, **SERVE_LOAD)
     reqs = generate(spec)
     registry.reset_launch_counts()
     report = eng.serve(reqs)
@@ -1176,7 +1208,8 @@ def serve_llama(dev, card: str) -> dict:
     if not (err <= tol and bool(torch.isfinite(got).all())):
         raise AssertionError("first-token logits disagree with the plain "
                              "prefill")
-    return counts
+    return counts, {"report": rep,
+                    "streams": {r.rid: list(r.tokens) for r in reqs}}
 
 
 # ---------------------------------------------------------------------------
@@ -1253,32 +1286,21 @@ def check_grad(dev) -> None:
     del model, named, g_k, g_r
 
 
-def train_llama(dev, card: str) -> dict:
-    """Full-depth Llama-3 8B LoRA fine-tune through the port's Horovod
-    path; returns the kernels' launch counts over the timed steps."""
-    import horovod_tpu_torch as hvd
+def lora_steps(hvd, cfg, dev, model, named, steps: int = 5) -> dict:
+    """``broadcast_parameters`` -> ``DistributedOptimizer(AdamW,
+    compression=bf16)`` -> ``make_train_step``, one warm-up and ``steps``
+    timed steps on the 2 x 2048 batch of seed 0.  Returns the losses, the
+    step times, the kernels' launches and the exchange over the timed
+    steps, the peak memory from the warm-up's end, the planned buckets,
+    and how many adapters changed and base tensors stayed bitwise."""
     from horovod_tpu_torch.controller.fusion import plan_buckets
-    from horovod_tpu_torch.models import LLAMA3_8B
     from horovod_tpu_torch.ops import registry
     from horovod_tpu_torch.timeline.metrics import exchange_totals
     from horovod_tpu_torch.training import causal_lm_loss, make_train_step
 
-    cfg, steps = LLAMA3_8B, 5
-    hvd.init()
-    t0 = time.perf_counter()
-    model, named = lora_model(cfg, dev, seed=0, nonzero_b=False)
-    torch.cuda.synchronize()
     base = {n: p for n, p in model.named_parameters() if not p.requires_grad}
     base_host = {n: p.detach().to("cpu") for n, p in base.items()}
     lora_before = {n: p.detach().clone() for n, p in named}
-    log({"phase": "train_init", "config": "LLAMA3_8B",
-         "layers": cfg.num_layers, "seconds": time.perf_counter() - t0,
-         "world": hvd.size(),
-         "backend": torch.distributed.get_backend(),
-         "base_bytes": sum(p.numel() * p.element_size()
-                           for p in base.values()),
-         "trainable_tensors": len(named),
-         "trainable_values": sum(p.numel() for _, p in named)})
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW([p for _, p in named], lr=1e-3,
@@ -1301,42 +1323,83 @@ def train_llama(dev, card: str) -> dict:
         losses.append(step(tokens).item())
         times.append(time.perf_counter() - t)
     counts = registry.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    per_step = {k: (v - before[k]) / steps
-                for k, v in exchange_totals().items()}
-    step_ms = 1e3 * sum(times) / steps
-    changed = sum(not torch.equal(p, lora_before[n]) for n, p in named)
-    base_same = sum(torch.equal(p.detach().cpu(), base_host[n])
-                    for n, p in base.items())
-    log({"phase": "train", "card": card, "steps": steps, "batch": [2, 2048],
-         "losses": losses, "step_ms": step_ms,
-         "step_ms_each": [1e3 * x for x in times],
-         "tokens_per_s": 2 * 2048 / (step_ms / 1e3),
-         "peak_mem_bytes": peak, "exchange_per_step": per_step,
-         "plan_buckets": planned, "launches": counts,
-         "lora_changed": changed, "lora_tensors": len(named),
-         "base_unchanged": base_same, "base_tensors": len(base)})
-    want = cfg.num_layers * steps
-    fails = []
+    out = {"losses": losses, "step_ms": 1e3 * sum(times) / steps,
+           "step_ms_each": [1e3 * x for x in times],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "exchange_per_step": {k: (v - before[k]) / steps
+                                 for k, v in exchange_totals().items()},
+           "plan_buckets": planned, "launches": counts,
+           "lora_changed": sum(not torch.equal(p, lora_before[n])
+                               for n, p in named),
+           "lora_tensors": len(named),
+           "base_unchanged": sum(torch.equal(p.detach().cpu(),
+                                             base_host[n])
+                                 for n, p in base.items()),
+           "base_tensors": len(base)}
+    out["tokens_per_s"] = 2 * 2048 / (out["step_ms"] / 1e3)
+    del opt, step, base, base_host, lora_before
+    return out
+
+
+def lora_run_fails(run: dict, forwards: int, backwards: int) -> list:
+    """Phase 6's checks on a :func:`lora_steps` run: finite, falling
+    losses; every adapter changed, every base tensor bitwise the same;
+    the attention kernels' launches a step; buckets and handles as
+    planned."""
+    fails, steps = [], len(run["step_ms_each"])
+    losses, per_step = run["losses"], run["exchange_per_step"]
     if not all(np.isfinite(losses)):
         fails.append("a loss is not finite")
     if not losses[-1] < losses[0]:
         fails.append(f"loss did not fall: {losses}")
-    if changed != len(named):
-        fails.append(f"{len(named) - changed} LoRA tensors unchanged")
-    if base_same != len(base):
-        fails.append(f"{len(base) - base_same} base tensors changed")
-    for f in ("flash", "flash_bwd_dq", "flash_bwd_dkv"):
-        if counts[f] != want:
-            fails.append(f"{f} launches {counts[f]} != {want}")
+    if run["lora_changed"] != run["lora_tensors"]:
+        fails.append(f"{run['lora_tensors'] - run['lora_changed']} LoRA "
+                     "tensors unchanged")
+    if run["base_unchanged"] != run["base_tensors"]:
+        fails.append(f"{run['base_tensors'] - run['base_unchanged']} base "
+                     "tensors changed")
+    for f, n in (("flash", forwards), ("flash_bwd_dq", backwards),
+                 ("flash_bwd_dkv", backwards)):
+        if run["launches"][f] != n * steps:
+            fails.append(f"{f} launches {run['launches'][f]} != "
+                         f"{n} x {steps}")
+    planned = run["plan_buckets"]
     if per_step["buckets"] != planned or per_step["handles"] != planned:
         fails.append(f"buckets/handles per step {per_step} != planned "
                      f"{planned}")
+    return fails
+
+
+def train_llama(dev, card: str) -> tuple:
+    """Full-depth Llama-3 8B LoRA fine-tune through the port's Horovod
+    path; returns the kernels' launch counts over the timed steps and
+    the run's figures."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import LLAMA3_8B
+
+    cfg, steps = LLAMA3_8B, 5
+    hvd.init()
+    t0 = time.perf_counter()
+    model, named = lora_model(cfg, dev, seed=0, nonzero_b=False)
+    torch.cuda.synchronize()
+    log({"phase": "train_init", "config": "LLAMA3_8B",
+         "layers": cfg.num_layers, "seconds": time.perf_counter() - t0,
+         "world": hvd.size(),
+         "backend": torch.distributed.get_backend(),
+         "base_bytes": sum(p.numel() * p.element_size()
+                           for p in model.parameters()
+                           if not p.requires_grad),
+         "trainable_tensors": len(named),
+         "trainable_values": sum(p.numel() for _, p in named)})
+    run = lora_steps(hvd, cfg, dev, model, named, steps)
+    log({"phase": "train", "card": card, "steps": steps,
+         "batch": [2, 2048], **run})
+    fails = lora_run_fails(run, cfg.num_layers, cfg.num_layers)
     if fails:
         raise AssertionError("train: " + "; ".join(fails))
     hvd.shutdown()
-    del model, named, opt, step, base, base_host, lora_before
-    return counts
+    del model, named
+    return run["launches"], run
 
 
 # ---------------------------------------------------------------------------
@@ -4491,6 +4554,305 @@ def eager_join(dev, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the int8 frozen base, remat, LoRA banks and speculation
+# ---------------------------------------------------------------------------
+
+
+LORA_ADAPTERS = 3      # (c): adapters in the bank
+LORA_REQUESTS = 6      # (c): requests, the adapter ids cycling
+LORA_STD = 0.02        # (c): every adapter leaf from N(0, 0.02)
+SPEC_K = 4             # (d): drafts a round; the verify width is 5
+
+
+def lora_int8_model(cfg, dev, seed: int, nonzero_b: bool,
+                    remat: bool = False):
+    """:func:`lora_model` with the frozen base at int8 (the f32 draw of
+    ``seed``, quantized per output channel)."""
+    from horovod_tpu_torch.models import (LlamaLM, freeze_base,
+                                          init_llama_params)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_llama_params(cfg, generator=gen, device=dev, lora_rank=8,
+                               base_dtype="int8")
+    if nonzero_b:
+        for name, t in params.items():
+            if name.endswith(".lora_b"):
+                t.normal_(0.0, 0.02, generator=gen)
+    model = LlamaLM.from_params(cfg, params, dtype=torch.bfloat16,
+                                lora_rank=8, remat=remat, base_dtype="int8")
+    return model, freeze_base(model)
+
+
+def _add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def check_int8_grad(dev, fails: list) -> None:
+    """(a): one loss and backward at full width, 2 layers, int8 base,
+    through the kernels, through the plain attention, and through the
+    kernels under remat."""
+    from horovod_tpu_torch.models import LLAMA3_8B
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.training import next_token_loss
+
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=2)
+    model, named = lora_int8_model(cfg, dev, seed=4, nonzero_b=True)
+    tokens = batch(cfg, dev, seed=1)
+    runs = {}
+    for key, ref, remat in (("kernels", False, False),
+                            ("plain", True, False), ("remat", False, True)):
+        model.remat = remat
+        model.zero_grad(set_to_none=True)
+        registry.reset_launch_counts()
+        loss = next_token_loss(model(tokens, force_reference=ref), tokens)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[key] = (loss.item(), {n: p.grad.clone() for n, p in named},
+                     registry.launch_counts())
+    (loss_k, g_k, c_k), (loss_r, g_r, c_r), (loss_m, g_m, c_m) = (
+        runs["kernels"], runs["plain"], runs["remat"])
+    worst = max(((g_k[n] - g_r[n]).abs().max().item()
+                 / max(g_r[n].abs().max().item(), 1e-30), n) for n in g_r)
+    loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+    remat_bitwise = loss_m == loss_k and all(torch.equal(g_m[n], g_k[n])
+                                             for n in g_k)
+    log({"phase": "lora_int8_grad", "layers": cfg.num_layers,
+         "lora_rank": 8, "base": "int8", "tensors": len(g_r),
+         "loss": loss_k, "loss_plain": loss_r, "loss_remat": loss_m,
+         "loss_rel_err": loss_rel, "worst_grad_rel_err": worst[0],
+         "worst_grad": worst[1], "tol": BF16_TOL,
+         "remat_bitwise": remat_bitwise, "launches": c_k,
+         "launches_plain": c_r, "launches_remat": c_m})
+    if not (loss_rel <= 1e-2 and worst[0] <= BF16_TOL
+            and all(torch.isfinite(g).all() for g in g_k.values())):
+        fails.append("(a) int8 LoRA gradients through the kernels "
+                     "disagree with the plain attention")
+    if not remat_bitwise:
+        fails.append("(a) the remat step is not bitwise the plain step")
+    for c, fwd in ((c_k, 1), (c_m, 2)):
+        if (c["flash"], c["flash_bwd_dq"], c["flash_bwd_dkv"]) != (
+                fwd * cfg.num_layers, cfg.num_layers, cfg.num_layers):
+            fails.append(f"(a) launches {c}")
+    if any(c_r.values()):
+        fails.append(f"(a) the plain run launched {c_r}")
+    del model, named, runs, g_k, g_r, g_m
+
+
+def train_int8(dev, card: str, bf16_run: dict, fails: list,
+               total: dict) -> None:
+    """(b): the full-depth int8 + remat LoRA fine-tune, then the same
+    from the same weights without remat, beside phase 6's bf16 base."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import LLAMA3_8B
+
+    cfg = LLAMA3_8B
+    hvd.init()
+    for remat in (True, False):
+        t0 = time.perf_counter()
+        model, named = lora_int8_model(cfg, dev, seed=0, nonzero_b=False,
+                                       remat=remat)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        base_bytes = sum(p.numel() * p.element_size()
+                         for p in model.parameters() if not p.requires_grad)
+        run = lora_steps(hvd, cfg, dev, model, named)
+        log({"phase": "lora_int8_train", "card": card, "remat": remat,
+             "init_seconds": init_s, "base_bytes": base_bytes,
+             "batch": [2, 2048], **run,
+             "bf16_base_step_ms": bf16_run["step_ms"],
+             "bf16_base_peak_mem_bytes": bf16_run["peak_mem_bytes"]})
+        fails += [f"(b) remat={remat}: {f}" for f in lora_run_fails(
+            run, (2 if remat else 1) * cfg.num_layers, cfg.num_layers)]
+        _add_counts(total, run["launches"])
+        del model, named, run
+        free_device()
+    hvd.shutdown()
+
+
+def serve_banks(dev, card: str, fails: list, total: dict) -> None:
+    """(c): three adapters in one bank over the bf16 base, six requests,
+    against single-adapter engines and the merge_lora weights."""
+    from horovod_tpu_torch.examples.llama_lora import random_adapters
+    from horovod_tpu_torch.models import (LLAMA3_8B, init_llama_params,
+                                          merge_lora)
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.serving import (LoadSpec, Request, ServingEngine,
+                                           generate, prefill_forward,
+                                           stack_adapters)
+
+    cfg, bf16 = LLAMA3_8B, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_llama_params(cfg, generator=gen, dtype=bf16, device=dev,
+                               lora_rank=8)
+    adapters = random_adapters(params, LORA_ADAPTERS, seed=100,
+                               std=LORA_STD)
+    banks = stack_adapters(adapters)
+    geom = dict(slots=8, page_size=16, max_len=1024, dtype=bf16, device=dev)
+    load = dict(num_requests=LORA_REQUESTS, prompt_lens=(37, 512),
+                output_lens=(32,), vocab_size=cfg.vocab_size,
+                num_adapters=LORA_ADAPTERS, seed=1)
+    eng = ServingEngine(cfg, params, adapters=banks, **geom)
+    eng.serve([Request(rid=-1, prompt=np.arange(16), max_new_tokens=2)])
+    reqs = generate(LoadSpec(**load))
+    registry.reset_launch_counts()
+    rep = eng.serve(reqs).as_dict()
+    counts = registry.launch_counts()
+    _add_counts(total, counts)
+    del eng
+    streams = {r.rid: list(r.tokens) for r in reqs}
+    if rep["completed"] != LORA_REQUESTS:
+        fails.append(f"(c) completed {rep['completed']}")
+    if counts["flash"] != cfg.num_layers * rep["prefills"] or \
+            counts["flash_decode"] != cfg.num_layers * rep["decode_steps"]:
+        fails.append(f"(c) launches {counts} for {rep['prefills']} "
+                     f"prefills and {rep['decode_steps']} decode steps")
+    per_adapter = []
+    for j, adapter in enumerate(adapters):
+        ref = [r for r in generate(LoadSpec(**load)) if r.adapter_id == j]
+        for r in ref:
+            r.adapter_id = 0
+        tree = {**params, **adapter}
+        ServingEngine(cfg, tree, **geom).serve(ref)
+        same = all(r.tokens == streams[r.rid] for r in ref)
+        # The first request's first-token logits: the banked prefill
+        # against the merge_lora weights' prefill.  Checked in f32
+        # compute over the same bf16-stored base (the merged kernels
+        # f32), where the two differ by f32 roundoff alone; two bf16
+        # computations 32 layers deep differ by bf16 noise near the
+        # tolerance (phase 4's kernel-vs-plain pair reads ~1.7 % of max
+        # |logit|), and the merge rounds every kernel to bf16 once
+        # more, so the bf16 pair is logged beside it.
+        prompt = torch.tensor(ref[0].prompt, device=dev)[None]
+        errs = {}
+        for dt in (torch.float32, bf16):
+            got = prefill_forward(params, cfg, prompt, dtype=dt,
+                                  adapters=banks, adapter_id=j)[0][0, -1]
+            merged = merge_lora({n: (t.to(dt) if n.endswith(".kernel")
+                                     else t) for n, t in tree.items()})
+            want = prefill_forward(merged, cfg, prompt, dtype=dt)[0][0, -1]
+            del merged
+            errs[str(dt)[6:]] = {
+                "err": (got - want).abs().max().item(),
+                "tol": BF16_TOL * want.abs().max().item(),
+                "finite": bool(torch.isfinite(got).all()),
+                "argmax_agrees": int(got.argmax()) == int(want.argmax())}
+            free_device()
+        err, tol = errs["float32"]["err"], errs["float32"]["tol"]
+        per_adapter.append({"adapter": j, "requests": len(ref),
+                            "streams_equal": same,
+                            "first_logits_vs_merge_lora": errs})
+        if not same:
+            fails.append(f"(c) adapter {j}: banked streams differ from the "
+                         "single-adapter engine's")
+        if not (err <= tol and errs["float32"]["finite"]):
+            fails.append(f"(c) adapter {j}: first-token logits {err} from "
+                         f"merge_lora's (tol {tol})")
+        free_device()
+    log({"phase": "lora_banks_serve", "card": card, **rep,
+         "launches": counts, "adapters": per_adapter,
+         "distinct_streams": len({tuple(t) for t in streams.values()})})
+    del params, adapters, banks
+
+
+def _all_accepted(reqs, k: int) -> tuple:
+    """Spec rounds a slot and accepted drafts if every draft agrees: a
+    round emits ``min(k + 1, tokens left)``, the first token came from
+    the prefill."""
+    rounds = accepted = 0
+    for r in reqs:
+        left = r.max_new_tokens - 1
+        while left > 0:
+            emit = min(k + 1, left)
+            rounds, accepted, left = rounds + 1, accepted + emit - 1, \
+                left - emit
+    return rounds, accepted
+
+
+def serve_spec(dev, card: str, plain: dict, fails: list,
+               total: dict) -> None:
+    """(d): phase 4's cell again, speculating with the n-gram drafter and
+    with a model drafter over the target's own weights."""
+    from horovod_tpu_torch.models import LLAMA3_8B, init_llama_params
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.serving import (LoadSpec, ModelDrafter,
+                                           NgramDrafter, Request,
+                                           ServingEngine, generate)
+
+    cfg, bf16, width = LLAMA3_8B, torch.bfloat16, SPEC_K + 1
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_llama_params(cfg, generator=gen, dtype=bf16, device=dev)
+    base = plain["report"]
+    out = {"plain": {k: base[k] for k in (
+        "tokens_per_s", "token_latency_p50_s", "token_latency_p99_s",
+        "ttft_p50_s", "decode_steps")}}
+    for name in ("ngram", "model"):
+        drafter = NgramDrafter() if name == "ngram" else ModelDrafter(
+            cfg, params, dtype=bf16, device=dev, **SERVE_GEOM)
+        eng = ServingEngine(cfg, params, device=dev, dtype=bf16,
+                            spec_decode=True, spec_k=SPEC_K,
+                            drafter=drafter, **SERVE_GEOM)
+        eng.serve([Request(rid=-1, prompt=np.arange(16, dtype=np.int32),
+                           max_new_tokens=2)])
+        reqs = generate(LoadSpec(vocab_size=cfg.vocab_size, **SERVE_LOAD))
+        d_steps = getattr(drafter, "steps", 0)
+        d_prefills = getattr(drafter, "prefills", 0)
+        registry.reset_launch_counts()
+        rep = eng.serve(reqs).as_dict()
+        counts = registry.launch_counts()
+        _add_counts(total, counts)
+        d_steps = getattr(drafter, "steps", 0) - d_steps
+        d_prefills = getattr(drafter, "prefills", 0) - d_prefills
+        del eng, drafter
+        free_device()
+        rounds = rep["spec_rounds"]
+        want_decode = cfg.num_layers * (rep["decode_steps"] - rounds
+                                        + width * rounds + d_steps)
+        want_flash = cfg.num_layers * (rep["prefills"] + d_prefills)
+        same = all(r.tokens == plain["streams"][r.rid] for r in reqs)
+        out[name] = {**{k: rep[k] for k in (
+            "tokens_per_s", "token_latency_p50_s", "token_latency_p99_s",
+            "ttft_p50_s", "decode_steps", "spec_rounds", "proposed_tokens",
+            "accepted_tokens", "acceptance_rate", "wall_s", "completed")},
+            "drafter_steps": d_steps, "drafter_prefills": d_prefills,
+            "streams_equal_plain": same, "launches": counts}
+        if rep["completed"] != len(reqs) or not same:
+            fails.append(f"(d) {name}: streams differ from phase 4's plain "
+                         "decode")
+        if counts["flash_decode"] != want_decode or \
+                counts["flash"] != want_flash:
+            fails.append(f"(d) {name}: launches {counts}, want "
+                         f"flash_decode {want_decode}, flash {want_flash}")
+        if name == "model":
+            slot_rounds, accepted = _all_accepted(reqs, SPEC_K)
+            if (rep["proposed_tokens"], rep["accepted_tokens"]) != (
+                    SPEC_K * slot_rounds, accepted):
+                fails.append(
+                    f"(d) model drafter: {rep['accepted_tokens']} of "
+                    f"{rep['proposed_tokens']} accepted, every draft "
+                    f"agreeing gives {accepted} of {SPEC_K * slot_rounds}")
+    log({"phase": "spec_serve", "card": card, "spec_k": SPEC_K, **out})
+    del params
+
+
+def lora_int8_serve(dev, card: str, train_run: dict,
+                    serve_run: dict) -> dict:
+    """Phase 26 (module docstring).  Returns the attention kernels'
+    launches on (b)-(d)'s runs."""
+    fails: list = []
+    total: dict = {}
+    check_int8_grad(dev, fails)
+    free_device()
+    train_int8(dev, card, train_run, fails, total)
+    free_device()
+    serve_banks(dev, card, fails, total)
+    free_device()
+    serve_spec(dev, card, serve_run, fails, total)
+    if fails:
+        raise AssertionError("lora_int8_serve: " + "; ".join(fails))
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4522,11 +4884,11 @@ def main() -> int:
     free_device()
     fused = check_fused_update(dev)
     free_device()
-    serve = serve_llama(dev, card)
+    serve, serve_run = serve_llama(dev, card)
     free_device()
     check_grad(dev)
     free_device()
-    train = train_llama(dev, card)
+    train, train_run = train_llama(dev, card)
     free_device()
     check_resnet_grad(dev)
     free_device()
@@ -4567,12 +4929,17 @@ def main() -> int:
     free_device()
     join_bn = eager_join(dev, card)
     free_device()
+    lora26 = lora_int8_serve(dev, card, train_run, serve_run)
+    free_device()
     # The attention and BN kernels run on several paths: their launches
     # are the sums.
-    flash["launches"] = serve["flash"] + train["flash"] + bert["flash"]
-    decode["launches"] = serve["flash_decode"]
-    dq["launches"] = train["flash_bwd_dq"] + bert["flash_bwd_dq"]
-    dkv["launches"] = train["flash_bwd_dkv"] + bert["flash_bwd_dkv"]
+    flash["launches"] = (serve["flash"] + train["flash"] + bert["flash"]
+                         + lora26["flash"])
+    decode["launches"] = serve["flash_decode"] + lora26["flash_decode"]
+    dq["launches"] = (train["flash_bwd_dq"] + bert["flash_bwd_dq"]
+                      + lora26["flash_bwd_dq"])
+    dkv["launches"] = (train["flash_bwd_dkv"] + bert["flash_bwd_dkv"]
+                       + lora26["flash_bwd_dkv"])
     bn_red["launches"] = (resnet["bn_bwd_reduce"] + inception["bn_bwd_reduce"]
                           + torch_rn50["bn_bwd_reduce"]
                           + exchange["bn_bwd_reduce"]

@@ -155,7 +155,10 @@ def quantize_int8(w: torch.Tensor, axis: int = 0) -> Dict[str, torch.Tensor]:
     "scale": f32}`` with ``w ~= q * scale``; ``scale`` is clamped at
     1e-12 and the rounding is half-to-even, as ``jnp.round``."""
     w32 = w.float()
-    scale = torch.clamp(w32.abs().amax(dim=axis) / 127.0, min=1e-12)
+    # A 0-dim divisor: CUDA turns division by a Python float into a
+    # multiply by its reciprocal, an ulp off now and then.
+    scale = torch.clamp(w32.abs().amax(dim=axis)
+                        / torch.tensor(127.0, device=w32.device), min=1e-12)
     q = torch.round(w32 / scale.unsqueeze(axis)).to(torch.int8)
     return {"q": q, "scale": scale}
 

@@ -252,7 +252,7 @@ class ServingEngine:
             self.drafter = drafter if drafter is not None \
                 else NgramDrafter()
 
-    def _prefill(self, tokens, req: Optional[Request] = None):
+    def _prefill(self, tokens, req: Request):
         aid = req.adapter_id if self.adapters is not None else None
         return prefill_forward(self.params, self.config, tokens,
                                dtype=self.dtype, adapters=self.adapters,

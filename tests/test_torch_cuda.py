@@ -448,6 +448,70 @@ def test_cuda_decode_kernel_repeats_bitwise(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_verify_attention_matches_plain(cuda, dtype):
+    """The speculative verify attention, width 5: one decode-kernel
+    launch a row, each row bitwise a plain decode launch at its length
+    and within the decode tolerance of the plain version; rows past a
+    slot's capacity stay capped, an idle slot gives exactly 0."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(28)
+    ps, max_len, width = 16, 4096, 5
+    lens = [0, 1, 15, 511, 2048, 4094]
+    slots, pps = len(lens), max_len // ps
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    table = torch.from_numpy(rng.permutation(slots * pps).astype(np.int32)
+                             ).view(slots, pps).to(cuda)
+    kp, vp = _decode_pool(rng, [min(n + width, max_len) for n in lens],
+                          table, ps, 8, 128, dt, cuda)
+    q = _randn(rng, slots, 32, width, 128).to(cuda, dt)
+    registry.reset_launch_counts()
+    got = tattn.verify_attention(q, kp, vp, table, lengths)
+    assert registry.launches("flash_decode") == width
+    want = tattn.verify_attention(q, kp, vp, table, lengths,
+                                  force_reference=True)
+    assert registry.launches("flash_decode") == width
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want, dt)
+    assert got[0].abs().max().item() == 0.0
+    for i in range(width):
+        li = torch.where(lengths > 0, torch.clamp(lengths + i, max=max_len),
+                         0).to(torch.int32)
+        row = tattn.paged_decode_attention(
+            q[:, :, i:i + 1].contiguous(), kp, vp, table, li)
+        assert torch.equal(got[:, :, i:i + 1], row), i
+
+
+@pytest.mark.cuda
+def test_cuda_int8_dense_forward_and_backward_match_f32(cuda):
+    """The int8 base's product on the card in bf16: forward and the
+    input gradient against the same product in f32 from the dequantized
+    kernel, within the bf16 tolerance; the backward saves int8."""
+    from horovod_tpu_torch.models.transformer import (q8_dense,
+                                                      quantize_int8)
+    rng = np.random.RandomState(29)
+    w = _randn(rng, 4096, 1024).to(cuda) * 0.02
+    q8 = quantize_int8(w)
+    x = _randn(rng, 2, 64, 4096).to(cuda)
+    dy = _randn(rng, 2, 64, 1024).to(cuda)
+    xb = x.to(torch.bfloat16).requires_grad_()
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append(t) or t, lambda t: t):
+        y = q8_dense(xb, q8["q"], q8["scale"], torch.bfloat16)
+    y.backward(dy.to(torch.bfloat16))
+    assert y.dtype == torch.bfloat16
+    assert {t.dtype for t in saved if t.shape == (4096, 1024)} == \
+        {torch.int8}
+    deq = q8["q"].float() * q8["scale"]
+    x32 = x.clone().requires_grad_()
+    want = x32 @ deq
+    want.backward(dy)
+    assert (y.float() - want).abs().max().item() <= _tol(want, torch.bfloat16)
+    assert (xb.grad.float() - x32.grad).abs().max().item() <= \
+        _grad_tol(x32.grad, torch.bfloat16)
+
+
+@pytest.mark.cuda
 def test_cuda_decode_kernels_do_not_spill(cuda):
     """Every decode instantiation (two dtypes x two head dims x four group
     sizes, and the merges) keeps everything in registers."""

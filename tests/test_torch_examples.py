@@ -20,6 +20,9 @@ package's shim.
 * ``torch_resnet50`` runs two steps on the CPU at 64 x 64, batch 4,
   through the sync-BN layer's plain path: 53 ``SyncBatchNorm`` sites,
   25,557,032 parameters in 161 tensors, finite losses.
+* ``llama_lora`` on the CPU: two steps on ``LLAMA_TINY``, the same with
+  ``--8b``'s layout (the int8 frozen base and remat) on the tiny config,
+  and ``--serve-adapters 3``; each prints the JAX example's messages.
 """
 
 import importlib.util
@@ -34,7 +37,8 @@ import torch
 import torch.nn.functional as F
 
 import horovod_tpu_torch as thvd
-from horovod_tpu_torch.examples import pytorch_mnist, torch_resnet50
+from horovod_tpu_torch.examples import (llama_lora, pytorch_mnist,
+                                        torch_resnet50)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "HOROVOD_RANK",
@@ -194,6 +198,31 @@ def test_torch_resnet50_full_width_counts():
     assert len(params) == 161
     assert sum(isinstance(m, thvd.SyncBatchNorm)
                for m in model.modules()) == torch_resnet50.RESNET50_BN_SITES
+
+
+@pytest.mark.parametrize("layout", [[], ["--int8", "--remat"]],
+                         ids=["base", "int8_remat"])
+def test_llama_lora_trains_on_the_cpu(world1, capsys, layout):
+    run = llama_lora.main(["--device", "cpu", "--steps", "2", *layout])
+    out = capsys.readouterr().out
+    base = "int8" if layout else "float32"
+    assert f"trainable(LoRA)=16.4K batch=2 seq=128 base={base}" in out
+    assert "step    2 loss" in out and "sequences/s" in out
+    assert "final loss" in out
+    assert len(run.losses) == 2 and np.isfinite(run.losses).all()
+    assert len(run.named) == 2 * 7 * 2
+    if layout:
+        assert run.model.remat
+        assert run.model.layer_0.attn.wq.kernel_q8.q.dtype == torch.int8
+
+
+def test_llama_lora_serves_three_adapters_on_the_cpu(capsys):
+    run = llama_lora.main(["--device", "cpu", "--serve-adapters", "3"])
+    out = capsys.readouterr().out
+    for j in range(3):
+        assert f"adapter {j}: 10 tokens match" in out
+    assert "multi-LoRA serve OK: 3 adapters shared one base" in out
+    assert run.report.completed == 3
 
 
 if __name__ == "__main__":
