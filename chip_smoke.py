@@ -281,8 +281,8 @@ Phases, each printing its own line; any failure exits non-zero:
    stacked with ``stack_adapters``: one engine serves six requests, the
    adapter ids cycling; each stream bitwise the stream of an engine
    serving that adapter from the tree (as many slots), the first-token
-   logits within 2e-2 of max |logit| of the ``merge_lora`` weights'
-   prefill in f32 compute (the bf16 pair logged), 32 flash launches a
+   logits within 1e-4 of max |logit| of the ``merge_lora`` weights'
+   prefill in f32 compute (the bf16 pair logged against 2e-2), 32 flash launches a
    prefill and 32 decode launches a step.  (d) Phase 4's cell twice more,
    speculating (``spec_k=4``) with the n-gram drafter and with a
    ``ModelDrafter`` over the target's own weights: both streams equal
@@ -4562,6 +4562,7 @@ def eager_join(dev, card: str) -> dict:
 LORA_ADAPTERS = 3      # (c): adapters in the bank
 LORA_REQUESTS = 6      # (c): requests, the adapter ids cycling
 LORA_STD = 0.02        # (c): every adapter leaf from N(0, 0.02)
+MERGE_TOL = 1e-4       # (c): f32 banked vs merge_lora, of max |logit|
 SPEC_K = 4             # (d): drafts a round; the verify width is 5
 
 
@@ -4718,9 +4719,9 @@ def serve_banks(dev, card: str, fails: list, total: dict) -> None:
         # The first request's first-token logits: the banked prefill
         # against the merge_lora weights' prefill.  Checked in f32
         # compute over the same bf16-stored base (the merged kernels
-        # f32), where the two differ by f32 roundoff alone; two bf16
-        # computations 32 layers deep differ by bf16 noise near the
-        # tolerance (phase 4's kernel-vs-plain pair reads ~1.7 % of max
+        # f32), where the two differ by f32 roundoff alone (MERGE_TOL);
+        # two bf16 computations 32 layers deep differ by bf16 noise near
+        # BF16_TOL (phase 4's kernel-vs-plain pair reads ~1.7 % of max
         # |logit|), and the merge rounds every kernel to bf16 once
         # more, so the bf16 pair is logged beside it.
         prompt = torch.tensor(ref[0].prompt, device=dev)[None]
@@ -4734,7 +4735,8 @@ def serve_banks(dev, card: str, fails: list, total: dict) -> None:
             del merged
             errs[str(dt)[6:]] = {
                 "err": (got - want).abs().max().item(),
-                "tol": BF16_TOL * want.abs().max().item(),
+                "tol": (MERGE_TOL if dt == torch.float32 else BF16_TOL)
+                * want.abs().max().item(),
                 "finite": bool(torch.isfinite(got).all()),
                 "argmax_agrees": int(got.argmax()) == int(want.argmax())}
             free_device()

@@ -8,9 +8,8 @@ across every projection -- ride the fused allreduce of
 ``hvd.DistributedOptimizer(AdamW, compression=bf16)``.  ``--8b`` is the
 real Llama-3 8B with the frozen base at int8 (one f32 scale per output
 channel) and remat: no base gradients or master weights, about 7.5 GB of
-int8 base.  ``--int8`` and ``--remat`` select either on their own.  The
-other sizes keep the base in the compute dtype (bf16 on the card, f32 on
-the CPU).
+int8 base.  The other sizes keep the base in the compute dtype (bf16 on
+the card, f32 on the CPU); ``--remat`` selects remat on its own.
 
 ``--serve-adapters N`` serves instead of training: N adapters, stacked
 into banks (``stack_adapters``), over ONE base in one continuous decode
@@ -62,8 +61,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                       help="~0.9B config")
     size.add_argument("--8b", dest="full", action="store_true",
                       help="real Llama-3 8B, int8 frozen base + remat")
-    p.add_argument("--int8", action="store_true",
-                   help="frozen base at int8 (implied by --8b)")
     p.add_argument("--remat", action="store_true",
                    help="recompute each block in the backward")
     p.add_argument("--serve-adapters", type=int, default=0, metavar="N",
@@ -152,7 +149,7 @@ def train(args: argparse.Namespace) -> SimpleNamespace:
         torch.device("cuda", torch.cuda.current_device())
     cfg = _config(args, LLAMA_TINY)
     dtype = _dtype(args.device)
-    base_dtype = "int8" if (args.full or args.int8) else None
+    base_dtype = "int8" if args.full else None
     remat = args.remat or args.full
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_llama_params(cfg, generator=gen, dtype=dtype, device=dev,

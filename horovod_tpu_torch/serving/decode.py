@@ -15,8 +15,9 @@ Counterpart of ``horovod_tpu/serving/decode.py``:
   table instead of gathering a per-slot view.  ``with_lora=True`` takes
   banked adapters and a per-slot ``adapter_ids`` operand.
 * :func:`build_verify_step` -- speculative decoding's width-``k + 1``
-  step, attention through :func:`verify_attention` (one decode-kernel
-  call a draft row).
+  step: the decode step once a column, column ``j`` attending as row
+  ``j`` of :func:`~horovod_tpu_torch.ops.attention.verify_attention`
+  (one decode-kernel call a row).
 * :func:`stack_adapters` -- N adapters as one banked dict.
 
 Every projection (LoRA terms included), the RoPE rotation and the
@@ -47,8 +48,7 @@ from torch.nn import functional as F
 
 from ..models.transformer import (LlamaConfig, default_positions, dense,
                                   rmsnorm, rotary_embedding, tied_readout)
-from ..ops.attention import (flash_attention, paged_decode_attention,
-                             verify_attention)
+from ..ops.attention import flash_attention, paged_decode_attention
 from ..timeline import spans as _spans
 
 Params = Dict[str, torch.Tensor]
@@ -71,12 +71,11 @@ def _dense_lora_only(x, lora_select, dtype, lora_alpha):
     return torch.bmm(torch.bmm(xd, a.to(dtype)), b.to(dtype)) * scale
 
 
-def _dense(x, p: Params, prefix: str, dtype, lora_select=None,
-           lora_alpha: float = 16.0):
-    """``Dense.__call__`` replayed over the flat param dict: ``x @
-    <prefix>.kernel`` in ``dtype``, plus the adapter term when
+def _dense(x, kernel, dtype, lora_select=None, lora_alpha: float = 16.0):
+    """``Dense.__call__`` replayed on one node of the flat param dict:
+    ``x @ kernel`` in ``dtype``, plus the adapter term when
     ``lora_select`` holds a pair (:func:`_node_lora`)."""
-    y = dense(x, p[f"{prefix}.kernel"], dtype)
+    y = dense(x, kernel, dtype)
     if lora_select is not None:
         y = y + _dense_lora_only(x, lora_select, dtype, lora_alpha)
     return y
@@ -137,7 +136,7 @@ def prefill_forward(params: Params, config: LlamaConfig, tokens,
     for li in range(cfg.num_layers):
         def proj(h, name, _li=li):
             prefix = f"layer_{_li}.{name}"
-            return _dense(h, p, prefix, dtype,
+            return _dense(h, p[f"{prefix}.kernel"], dtype,
                           _node_lora(p, prefix, adapters, select),
                           lora_alpha)
 
@@ -172,31 +171,22 @@ def prefill_forward(params: Params, config: LlamaConfig, tokens,
     return logits, torch.stack(ks), torch.stack(vs)
 
 
+_PROJS = ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.w_gate",
+          "mlp.w_up", "mlp.w_down")
+
+
 class ServingDecodeStep:
-    """The batched decode step, or the speculative verify step.
+    """The batched single-token decode step.
 
     ``logits, k_pool, v_pool = step(params, k_pool, v_pool, tokens,
     positions, page_table, active[, adapters, adapter_ids])``:
-    ``positions``/``active`` are ``[slots]`` (the absolute position of
-    the step's first token == the live length before this step, slot
+    ``tokens``/``positions``/``active`` are ``[slots]`` (current token,
+    its absolute position == the live length before this step, slot
     liveness), ``page_table`` is ``[slots, pages_per_slot]`` int32.  The
     pools are updated IN PLACE (and returned, for the reference's call
     shape).  Idle slots write their K/V to the scratch page and attend
     over zero keys, so their attention output is exactly zero; the
-    engine discards their logits.
-
-    ``width == 1``: ``tokens`` is ``[slots]`` and ``logits`` f32
-    ``[slots, vocab]``.  ``width > 1`` (:func:`build_verify_step`):
-    ``tokens`` is ``[slots, width]`` (the last sampled token, then
-    ``width - 1`` drafts), every column's K/V lands at its own (page,
-    offset) -- columns past ``max_len`` go to the scratch page -- and
-    attention runs :func:`verify_attention`; ``logits`` are ``[slots,
-    width, vocab]``.  Each column runs the width-1 step's arithmetic on
-    ``[slots, 1, d]`` rows, one projection a column: a matmul over
-    ``slots * width`` rows may take another algorithm than one over
-    ``slots`` (cuBLAS and oneDNN choose by shape), and a row's bits --
-    hence a greedy stream at a near-tie -- would then depend on the
-    width.  So a column's logits are bitwise those of the plain step.
+    engine discards their logits.  ``logits``: f32 ``[slots, vocab]``.
 
     ``with_lora``: ``adapters`` is a banked dict
     (:func:`stack_adapters`) and ``adapter_ids`` ``[slots]`` picks each
@@ -205,13 +195,12 @@ class ServingDecodeStep:
     ``lora_a``/``lora_b`` leaves (no banks) take the same per-slot
     product, so a slot's arithmetic is the same whether its adapter
     comes from the tree or from a bank.  Each call is timed into the
-    span recorder under ``serving_decode`` (``serving_verify`` when
-    wide).
+    span recorder under ``serving_decode``.
     """
 
     def __init__(self, config: LlamaConfig, *, slots: int, page_size: int,
                  pages_per_slot: int, dtype, with_lora: bool = False,
-                 lora_alpha: float = 16.0, width: int = 1):
+                 lora_alpha: float = 16.0):
         self.config = config
         self.slots = int(slots)
         self.page_size = int(page_size)
@@ -219,9 +208,12 @@ class ServingDecodeStep:
         self.dtype = dtype
         self.with_lora = bool(with_lora)
         self.lora_alpha = float(lora_alpha)
-        self.width = int(width)
         self.scratch = self.slots * self.pages_per_slot
-        self.leg = "serving_decode" if width == 1 else "serving_verify"
+        # Each layer's (kernel, lora_a, lora_b) names a projection, built
+        # once rather than in every step.
+        self.names = [[tuple(f"layer_{li}.{n}.{leaf}"
+                             for leaf in ("kernel", "lora_a", "lora_b"))
+                       for n in _PROJS] for li in range(config.num_layers)]
 
     def __call__(self, params, k_pool, v_pool, tokens, positions,
                  page_table, active, adapters=None, adapter_ids=None):
@@ -230,105 +222,124 @@ class ServingDecodeStep:
                 "adapters/adapter_ids are the operands of a step built "
                 "with_lora=True, and it needs them")
         with _spans.recorder().span("dispatch", name="serving",
-                                    leg=self.leg):
+                                    leg="serving_decode"):
             return self._step(params, k_pool, v_pool, tokens, positions,
                               page_table, active, adapters, adapter_ids)
 
+    def _weights(self, p: Params, li: int, adapters, ids, s: int):
+        """Layer ``li``'s projections as ``(kernel, adapter pair or
+        None)``: a banked pair gathered by ``ids``, else the in-tree
+        leaves repeated over the ``s`` slots (the same per-slot
+        product)."""
+        out = []
+        for kn, an, bn in self.names[li]:
+            pair = None
+            if adapters is not None and an in adapters:
+                pair = adapters[an][ids], adapters[bn][ids]
+            elif an in p:
+                pair = tuple(p[n][None].expand(s, -1, -1).contiguous()
+                             for n in (an, bn))
+            out.append((p[kn], pair))
+        return out
+
     @torch.no_grad()
     def _step(self, p: Params, k_pool, v_pool, tokens, positions,
-              page_table, active, adapters, adapter_ids):
-        cfg, dtype, w = self.config, self.dtype, self.width
-        ps = self.page_size
+              page_table, active, adapters=None, adapter_ids=None):
+        cfg, dtype, alpha = self.config, self.dtype, self.lora_alpha
         s = tokens.shape[0]
-        tokens = tokens.view(s, w)
         emb = p["tok_embed"]
-        pos2 = positions[:, None] + torch.arange(w, device=tokens.device)
-        # The step writes EVERY slot's K/V (fixed batch shape): idle
-        # slots, and columns past max_len, go to the scratch page.
-        writable = active[:, None] & (pos2 < self.pages_per_slot * ps)
-        idx = torch.clamp(pos2 // ps, max=self.pages_per_slot - 1)
-        page = torch.where(writable,
-                           torch.gather(page_table, 1, idx.long()),
+        x = emb[tokens].to(dtype)[:, None, :]               # [S, 1, d]
+        pos2 = positions[:, None]                           # [S, 1]
+        rows = torch.arange(s, device=tokens.device)
+        page = torch.where(active,
+                           page_table[rows, positions // self.page_size],
                            self.scratch).long()
-        off = (pos2 % ps).long()
+        off = (positions % self.page_size).long()
         lengths = torch.where(active, positions + 1, 0).to(torch.int32)
-        if adapter_ids is not None:
-            ids = adapter_ids.long()
+        ids = None if adapter_ids is None else adapter_ids.long()
 
-            def select(a, b):
-                return a[ids], b[ids]
-        else:
-            zeros = torch.zeros(s, dtype=torch.long, device=tokens.device)
+        def proj(h, w):
+            return _dense(h, w[0], dtype, w[1], alpha)
 
-            def select(a, b):
-                return a[None][zeros], b[None][zeros]
-
-        def lora(prefix):
-            pair = _node_lora(p, prefix, adapters, select)
-            if pair is not None and pair[0].dim() == 2:
-                pair = select(*pair)        # in-tree: the per-slot product
-            return pair
-
-        xs = [emb[tokens[:, j]].to(dtype)[:, None, :] for j in range(w)]
         for li in range(cfg.num_layers):
-            def proj(h, name, _li=li):
-                prefix = f"layer_{_li}.{name}"
-                return _dense(h, p, prefix, dtype, lora(prefix),
-                              self.lora_alpha)
+            wq, wk, wv, wo, wg, wu, wd = self._weights(
+                p, li, adapters, ids, s)
+            h = rmsnorm(x, _layer(p, li, "attn_norm.scale"), dtype)
+            q = proj(h, wq)
+            k = proj(h, wk)
+            v = proj(h, wv)
+            q = q.view(s, 1, cfg.num_heads, cfg.head_dim).transpose(1, 2)
+            k = k.view(s, 1, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+            v = v.view(s, 1, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+            q = rotary_embedding(q, pos2, cfg.rope_theta)
+            k = rotary_embedding(k, pos2, cfg.rope_theta)
+            # In-step cache write: each slot's K/V lands at (page, off).
+            k_pool[li, page, off] = k[:, :, 0, :].to(k_pool.dtype)
+            v_pool[li, page, off] = v[:, :, 0, :].to(v_pool.dtype)
+            o = paged_decode_attention(
+                q.to(dtype).contiguous(), k_pool[li], v_pool[li],
+                page_table, lengths)
+            o = o.transpose(1, 2).reshape(s, 1, -1)
+            x = x + proj(o, wo)
 
-            qs = []
-            for j in range(w):
-                h = rmsnorm(xs[j], _layer(p, li, "attn_norm.scale"), dtype)
-                q = proj(h, "attn.wq")
-                k = proj(h, "attn.wk")
-                v = proj(h, "attn.wv")
-                q = q.view(s, 1, cfg.num_heads, cfg.head_dim).transpose(1, 2)
-                k = k.view(s, 1, cfg.num_kv_heads,
-                           cfg.head_dim).transpose(1, 2)
-                v = v.view(s, 1, cfg.num_kv_heads,
-                           cfg.head_dim).transpose(1, 2)
-                q = rotary_embedding(q, pos2[:, j:j + 1], cfg.rope_theta)
-                k = rotary_embedding(k, pos2[:, j:j + 1], cfg.rope_theta)
-                # In-step cache write: the column's K/V lands at (page,
-                # off) before any row attends.
-                k_pool[li, page[:, j], off[:, j]] = \
-                    k[:, :, 0, :].to(k_pool.dtype)
-                v_pool[li, page[:, j], off[:, j]] = \
-                    v[:, :, 0, :].to(v_pool.dtype)
-                qs.append(q.to(dtype))
-            if w == 1:
-                os_ = [paged_decode_attention(
-                    qs[0].contiguous(), k_pool[li], v_pool[li], page_table,
-                    lengths)]
-            else:
-                o = verify_attention(torch.cat(qs, 2), k_pool[li],
-                                     v_pool[li], page_table, lengths)
-                os_ = [o[:, :, j:j + 1, :] for j in range(w)]
-            for j in range(w):
-                o = os_[j].transpose(1, 2).reshape(s, 1, -1)
-                x = xs[j] + proj(o, "attn.wo")
-                h = rmsnorm(x, _layer(p, li, "mlp_norm.scale"), dtype)
-                gate = proj(h, "mlp.w_gate")
-                up = proj(h, "mlp.w_up")
-                act = (F.silu(gate) * up).to(dtype)
-                xs[j] = x + proj(act, "mlp.w_down")
+            h = rmsnorm(x, _layer(p, li, "mlp_norm.scale"), dtype)
+            gate = proj(h, wg)
+            up = proj(h, wu)
+            act = (F.silu(gate) * up).to(dtype)
+            x = x + proj(act, wd)
 
-        logits = [tied_readout(rmsnorm(x, p["final_norm.scale"], dtype),
-                               emb)[:, 0, :] for x in xs]   # [S, vocab]
-        out = logits[0] if w == 1 else torch.stack(logits, 1)
-        return out, k_pool, v_pool
+        x = rmsnorm(x, p["final_norm.scale"], dtype)
+        logits = tied_readout(x, emb)[:, 0, :]              # [S, vocab]
+        return logits, k_pool, v_pool
+
+
+class ServingVerifyStep:
+    """Speculative decoding's verify step: ``width`` tokens a slot (the
+    last sampled token, then ``width - 1`` drafts), scored as ``width``
+    calls of the width-1 decode step, column ``j`` at ``positions + j``.
+
+    ``logits, k_pool, v_pool = verify(params, k_pool, v_pool, tokens,
+    positions, page_table, active)`` with ``tokens`` ``[slots, width]``
+    and ``logits`` f32 ``[slots, width, vocab]``.  Column ``j``'s
+    attention reads ``lengths + j`` keys, row ``j`` of
+    :func:`~horovod_tpu_torch.ops.attention.verify_attention`, and runs
+    the plain step's shapes: a matmul over ``slots * width`` rows may take
+    another algorithm than one over ``slots`` (cuBLAS and oneDNN choose by
+    shape), so a wider product could flip a greedy stream at a near-tie.
+    Here each column's logits are bitwise the plain step's.  Columns past
+    the slot's ``max_len`` are idle (scratch page, zero keys); the engine
+    never emits them.  Timed under ``serving_verify``.
+    """
+
+    def __init__(self, step: ServingDecodeStep, width: int):
+        self.step = step
+        self.width = int(width)
+        self.max_len = step.pages_per_slot * step.page_size
+
+    def __call__(self, params, k_pool, v_pool, tokens, positions,
+                 page_table, active):
+        logits = []
+        with _spans.recorder().span("dispatch", name="serving",
+                                    leg="serving_verify"):
+            for j in range(self.width):
+                pos = positions + j
+                live = active & (pos < self.max_len)
+                out, k_pool, v_pool = self.step._step(
+                    params, k_pool, v_pool, tokens[:, j],
+                    torch.clamp(pos, max=self.max_len - 1), page_table,
+                    live)
+                logits.append(out)
+        return torch.stack(logits, 1), k_pool, v_pool
 
 
 def build_decode_step(config: LlamaConfig, *, slots: int, page_size: int,
                       pages_per_slot: int, dtype=torch.float32,
                       tp: int = 1, with_lora: bool = False, width: int = 1,
-                      compress: bool = False,
-                      lora_alpha: float = 16.0) -> ServingDecodeStep:
-    """The single-device decode step (see :class:`ServingDecodeStep`),
-    width 1, or the verify step at ``width > 1``
-    (:func:`build_verify_step`).  ``tp > 1`` and ``compress`` (fp8 KV)
-    are later slices and raise; so do LoRA banks with ``width > 1``, as
-    in the reference."""
+                      compress: bool = False, lora_alpha: float = 16.0):
+    """The single-device decode step (:class:`ServingDecodeStep`), or at
+    ``width > 1`` the verify step (:class:`ServingVerifyStep`).  ``tp >
+    1`` and ``compress`` (fp8 KV) are later slices and raise; so do LoRA
+    banks with ``width > 1``, as in the reference."""
     if tp != 1:
         raise NotImplementedError(
             "tensor-parallel decode (tp > 1) is not ported yet")
@@ -340,16 +351,16 @@ def build_decode_step(config: LlamaConfig, *, slots: int, page_size: int,
             "serve adapters with plain decode")
     if compress:
         raise NotImplementedError("fp8 KV pages are not ported yet")
-    return ServingDecodeStep(config, slots=slots, page_size=page_size,
+    step = ServingDecodeStep(config, slots=slots, page_size=page_size,
                              pages_per_slot=pages_per_slot, dtype=dtype,
-                             with_lora=with_lora, lora_alpha=lora_alpha,
-                             width=width)
+                             with_lora=with_lora, lora_alpha=lora_alpha)
+    return step if width == 1 else ServingVerifyStep(step, width)
 
 
 def build_verify_step(config: LlamaConfig, *, slots: int, width: int,
                       page_size: int, pages_per_slot: int,
                       dtype=torch.float32, tp: int = 1,
-                      compress: bool = False) -> ServingDecodeStep:
+                      compress: bool = False) -> ServingVerifyStep:
     """The speculative-decoding verify step: one call scoring ``width``
     tokens a slot (the last sampled token plus ``width - 1`` drafter
     proposals), logits ``[slots, width, vocab]``.  The engine accepts
@@ -386,4 +397,5 @@ def stack_adapters(param_dicts: Sequence[Params]) -> Params:
 
 
 __all__ = ["prefill_forward", "build_decode_step", "build_verify_step",
-           "ServingDecodeStep", "greedy_sample", "stack_adapters"]
+           "ServingDecodeStep", "ServingVerifyStep", "greedy_sample",
+           "stack_adapters"]

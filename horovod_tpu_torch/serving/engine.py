@@ -172,15 +172,15 @@ class ServingEngine:
     :func:`~horovod_tpu_torch.models.params_from_jax`) already on
     ``device``; ``device`` defaults to ``cuda``.  ``adapters``: banked
     LoRA leaves (:func:`~.decode.stack_adapters`) on ``device``, each
-    request's ``Request.adapter_id`` choosing its adapter
-    (``adapter_ids`` is accepted for the reference's signature and not
-    read); ``lora_alpha`` is the adapters' alpha, which also applies to
+    request's ``Request.adapter_id`` choosing its adapter (the
+    reference's ``adapter_ids=`` argument, which it never reads, is not
+    taken); ``lora_alpha`` is the adapters' alpha, which also applies to
     in-tree ``lora_a``/``lora_b`` leaves.  ``spec_decode`` / ``spec_k`` /
     ``drafter``: see the module docstring."""
 
     def __init__(self, config, params, *, device=None, slots: int = 0,
                  page_size: int = 0, max_len: int = 0,
-                 dtype=torch.float32, adapters=None, adapter_ids=None,
+                 dtype=torch.float32, adapters=None,
                  lora_alpha: float = 16.0, prefetch_depth: int = 0,
                  spec_decode: Optional[bool] = None, spec_k: int = 0,
                  drafter=None, prefill_chunk: int = -1,

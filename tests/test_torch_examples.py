@@ -39,6 +39,7 @@ import torch.nn.functional as F
 import horovod_tpu_torch as thvd
 from horovod_tpu_torch.examples import (llama_lora, pytorch_mnist,
                                         torch_resnet50)
+from horovod_tpu_torch.models import LLAMA_TINY
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "HOROVOD_RANK",
@@ -200,9 +201,11 @@ def test_torch_resnet50_full_width_counts():
                for m in model.modules()) == torch_resnet50.RESNET50_BN_SITES
 
 
-@pytest.mark.parametrize("layout", [[], ["--int8", "--remat"]],
+@pytest.mark.parametrize("layout", [[], ["--8b"]],
                          ids=["base", "int8_remat"])
-def test_llama_lora_trains_on_the_cpu(world1, capsys, layout):
+def test_llama_lora_trains_on_the_cpu(world1, capsys, monkeypatch, layout):
+    # --8b's layout (int8 base + remat) on the tiny config.
+    monkeypatch.setattr(llama_lora, "LLAMA3_8B", LLAMA_TINY)
     run = llama_lora.main(["--device", "cpu", "--steps", "2", *layout])
     out = capsys.readouterr().out
     base = "int8" if layout else "float32"

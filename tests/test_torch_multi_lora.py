@@ -25,6 +25,7 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
+from horovod_tpu.controller import fusion as j_fusion
 from horovod_tpu.models.transformer import LLAMA_SERVE as J_SERVE
 from horovod_tpu.models.transformer import LLAMA_TINY as J_TINY
 from horovod_tpu.models.transformer import LlamaLM as JLlamaLM
@@ -186,6 +187,16 @@ def _flatten(tree, prefix=""):
 
 def _torch(adapter):
     return {k: torch.from_numpy(v.copy()) for k, v in adapter.items()}
+
+
+@pytest.fixture(autouse=True)
+def _fresh_jax_plan_cache():
+    """The JAX package memoizes a serving step's executable by exchange
+    plan and page geometry, not by the params' or adapters' tree, in a
+    cache that lives as long as the process: a step another test file
+    cached at the same geometry would take this file's trees with its
+    own ``in_specs``.  Start each test from an empty cache."""
+    j_fusion.clear_plan_cache()
 
 
 @pytest.fixture(scope="module")

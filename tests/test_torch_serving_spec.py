@@ -24,6 +24,7 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
+from horovod_tpu.controller import fusion as j_fusion
 from horovod_tpu.models.transformer import LLAMA_SERVE as J_SERVE
 from horovod_tpu.models.transformer import LlamaLM as JLlamaLM
 from horovod_tpu.ops.attention import verify_attention as j_verify_attention
@@ -54,6 +55,16 @@ LOAD = dict(num_requests=8, rate_rps=200.0, prompt_lens=(4, 9, 16),
 def mesh_1d():
     return Mesh(np.asarray(jax.devices()[:1], dtype=object).reshape(1),
                 ("tp",))
+
+
+@pytest.fixture(autouse=True)
+def _fresh_jax_plan_cache():
+    """The JAX package memoizes a serving step's executable by exchange
+    plan and page geometry, not by the params' or adapters' tree, in a
+    cache that lives as long as the process: a step another test file
+    cached at the same geometry would take this file's trees with its
+    own ``in_specs``.  Start each test from an empty cache."""
+    j_fusion.clear_plan_cache()
 
 
 @pytest.fixture(scope="module")
