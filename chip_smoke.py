@@ -289,6 +289,26 @@ Phases, each printing its own line; any failure exits non-zero:
    phase 4's token for token, 32 decode launches a plain step, 5 x 32 a
    verify round and 32 a drafter step, the model drafter's every draft
    accepted; acceptance, tokens/s and token latency beside phase 4's.
+27. serving_rest -- the rest of the serving plane at Llama-3 8B width
+   and depth (phase 4's weights).  (a) ``long_prompt_spec(8, seed=1)``
+   (512 to 4096 tokens) whole and with ``prefill_chunk=512``: the last
+   chunk's logits within ``BF16_TOL`` of the whole 4096-token prompt's;
+   flash launches 32 x prefill forwards, decode 32 x steps; streams,
+   TTFT p50/p99 and tokens/s of both.  (b) One decode step over phase 4's
+   prompts with every cold page compressed, bitwise the plain step over
+   a pool holding the dequantised rows; then phase 4's load on a
+   ``kv_compress`` engine that compresses cold pages before each step
+   (32 launches of the e4m3 variant a step, the pool clean after).
+   (c) ``prefix_spec`` (2 prefixes of 1024, 16 requests) with the cache
+   on and off at ``prefill_chunk=512``: hits, FLOPs avoided, no page left
+   after ``drop_all()``.  (d) One ``PrefillWorker`` and one
+   ``DecodeWorker`` over a loopback ``RendezvousServer`` against a
+   colocated engine: the f32 wire's streams bitwise, every handoff
+   streamed, bytes in equal bytes out, no page leaked; the fp8 wire on a
+   ``kv_compress`` engine, its pages bitwise ``demote_page``'s.
+   Phase 3 holds the flash forward at tq 512 x tk 4096 and the decode
+   kernel's e4m3 variant at 8 slots x 2048 keys (half the pages
+   compressed) bitwise the plain kernel over the dequantised pool.
 
 Phase 17 also holds ``chunked_allreduce`` (equal to ``allreduce`` at
 world 1) and ``fp8_allreduce`` (bitwise its round trip) on its 64 MiB
@@ -474,6 +494,7 @@ def check_flash(attn, dev) -> dict:
     b, h, hkv = 1, 32, 8
     cases = [dict(tq=t, tk=t) for t in (37, 512, 1000, 2048)]
     cases.append(dict(tq=256, tk=1280))
+    cases.append(dict(tq=512, tk=4096))      # a 512-token prefill chunk
     cases.append(dict(tq=512, tk=512, seg=True))
     cases.append(dict(tq=1000, tk=1000, d=64))
     head = None
@@ -632,6 +653,97 @@ def check_decode(attn, dev) -> dict:
     return head
 
 
+def check_decode_fp8(attn, dev) -> dict:
+    """The decode kernel's e4m3 variant at 8 slots x 2048 live keys,
+    every other full page compressed as ``PagedKVCache.compress_cold``
+    moves it (one scale a row; its table entry pointed at the garbage
+    scratch page): bitwise the plain decode kernel over a pool holding
+    the dequantised rows at the old pages, within the bf16 tolerance of
+    its plain version, bitwise repeatable.  Returns the JSON entry."""
+    from horovod_tpu_torch.serving.kvcache import _quantize_pages
+    gen = torch.Generator(device=dev).manual_seed(5)
+    slots, ps, max_len, h, hkv, d, n = 8, 16, 4096, 32, 8, 128, 2048
+    pps = max_len // ps
+    npages = slots * pps
+    table = torch.randperm(npages, generator=gen, device=dev).view(
+        slots, pps).to(torch.int32).contiguous()
+    lengths = torch.full((slots,), n, dtype=torch.int32, device=dev)
+    kp = torch.full((npages + 1, ps, hkv, d), 3e4, device=dev)
+    vp = torch.full_like(kp, -3e4)
+    live = table[:, :n // ps].reshape(-1).long()
+    kp[live] = torch.randn(live.numel(), ps, hkv, d, generator=gen,
+                           device=dev)
+    vp[live] = torch.randn(live.numel(), ps, hkv, d, generator=gen,
+                           device=dev)
+    kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    cmask = torch.zeros((slots, pps), dtype=torch.bool, device=dev)
+    cmask[:, :n // ps:2] = True
+    ctable = torch.randperm(npages, generator=gen, device=dev).view(
+        slots, pps).to(torch.int32).contiguous()
+    pids, cp = table[cmask].long(), ctable[cmask].long()
+    kq = torch.zeros(kp.shape, dtype=torch.float8_e4m3fn, device=dev)
+    vq = torch.zeros_like(kq)
+    ksc = torch.ones(kp.shape[:2], dtype=torch.float32, device=dev)
+    vsc = torch.ones_like(ksc)
+    deq_k, deq_v = kp.clone(), vp.clone()
+    for pool, qpool, sc, deq in ((kp, kq, ksc, deq_k), (vp, vq, vsc, deq_v)):
+        q8, scale = _quantize_pages(pool[None], pids)
+        qpool.view(torch.uint8)[cp] = q8[0].view(torch.uint8)
+        sc[cp] = scale[0]
+        deq[pids] = (q8[0].float() * scale[0][..., None, None]).to(
+            pool.dtype)
+    read = table.clone()
+    read[cmask] = npages                     # the scratch page: garbage
+    fp8 = (kq, vq, ksc, vsc, ctable, cmask)
+    q = torch.randn(slots, h, 1, d, generator=gen, device=dev).to(
+        torch.bfloat16)
+
+    def run():
+        return attn.paged_decode_attention_fp8(q, kp, vp, read, lengths,
+                                               *fp8)
+
+    o = run()
+    plain_kernel = attn.paged_decode_attention(q, deq_k, deq_v, table,
+                                               lengths)
+    o_ref = attn.paged_decode_attention_fp8(q, kp, vp, read, lengths, *fp8,
+                                            force_reference=True)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(o, plain_kernel)
+    repeat = torch.equal(o, run())
+    err = (o.float() - o_ref.float()).abs().max().item()
+    tol = BF16_TOL * o_ref.float().abs().max().item()
+    ok = bitwise and repeat and err <= tol and bool(
+        torch.isfinite(o.float()).all())
+    # Bytes read once: e4m3 rows and a 4-byte scale each, bf16 rows, q
+    # and o, the two tables (int32), the mask (a byte) and the lengths.
+    cold = int(cmask.sum()) * ps
+    hot = slots * n - cold
+    nbytes = (2 * cold * (hkv * d + 4) + 2 * hot * hkv * d * 2
+              + 2 * q.numel() * 2 + slots * (9 * pps + 4))
+    bms, by = bound_ms(4.0 * h * slots * n * d, nbytes)
+    ms = graph_ms(run)
+    off_ms = graph_ms(lambda: attn.paged_decode_attention(
+        q, deq_k, deq_v, table, lengths))
+    plain = time_ms(lambda: attn.paged_decode_attention_fp8(
+        q, kp, vp, read, lengths, *fp8, force_reference=True), reps=5)
+    rec = {"phase": "kernel", "kernel": "flash_decode_fp8",
+           "dtype": "bfloat16", "slots": slots, "keys": n,
+           "compressed_pages": int(cmask.sum()), "max_abs_err": err,
+           "tol": tol, "bitwise_plain_kernel_on_dequantised_pool": bitwise,
+           "bitwise_repeat": repeat, "ms": ms,
+           "uncompressed_kernel_ms": off_ms, "plain_ms": plain,
+           "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ok": ok}
+    log(rec)
+    if not ok:
+        raise AssertionError(f"flash_decode_fp8 disagrees: {rec}")
+    return {"name": "flash_decode_fp8", "route": "cuda",
+            "source": "horovod_tpu_torch/ops/csrc/flash_decode.cu",
+            "replaces": "horovod_tpu/ops/attention.py:312 with the e4m3 "
+                        "gather blend at horovod_tpu/serving/decode.py:397",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
 def check_flash_bwd(attn, dev) -> tuple:
     """The backward's dq and dk/dv kernels at the training shapes (b=2,
     h=32, h_kv=8, d=128, causal); returns the JSON entries of both at the
@@ -640,6 +752,7 @@ def check_flash_bwd(attn, dev) -> tuple:
     b, h, hkv = 2, 32, 8
     cases = [dict(tq=t, tk=t) for t in (37, 512, 1000, 2048)]
     cases.append(dict(tq=256, tk=1280))
+    cases.append(dict(tq=512, tk=4096))      # a 512-token prefill chunk
     cases.append(dict(tq=512, tk=512, seg=True))
     cases.append(dict(tq=1000, tk=1000, d=64))
     cases.append(dict(tq=512, tk=512, f32=True))
@@ -4855,6 +4968,409 @@ def lora_int8_serve(dev, card: str, train_run: dict,
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the serving rest -- chunked prefill, fp8 pages, the prefix
+# cache, the KV wire and the disaggregated fleet
+# ---------------------------------------------------------------------------
+
+
+REST_CHUNK = 512          # (a), (c): the prefill chunk
+# (a): seed 1 is the first seed whose eight draws hold all three buckets
+# (3 x 512, 3 x 2048, 2 x 4096 tokens); seed 0 draws no 4096.
+REST_LONG = dict(num_requests=8, seed=1)
+REST_PREFIX = dict(prefix_lens=(1024,), num_prefixes=2, prompt_lens=(16, 64),
+                   output_lens=(16,), num_requests=16)
+REST_FLEET = dict(num_requests=8, prompt_lens=(37, 512), output_lens=(16, 32),
+                  seed=2)
+
+
+def _rest_max_len(reqs, page: int = 16) -> int:
+    need = max(r.prompt_len + r.max_new_tokens for r in reqs)
+    return -(-need // page) * page
+
+
+def _streams(reqs) -> dict:
+    return {r.rid: list(r.tokens) for r in reqs}
+
+
+def _agreement(reqs, streams: dict) -> float:
+    return sum(list(r.tokens) == streams[r.rid] for r in reqs) / len(reqs)
+
+
+def _warm(eng) -> None:
+    """One short request (cuBLAS handles, the allocator, the kernels)."""
+    from horovod_tpu_torch.serving import Request
+    eng.serve([Request(rid=-1, prompt=np.arange(16, dtype=np.int32),
+                       max_new_tokens=2)])
+
+
+def _rest_serve(eng, reqs) -> tuple:
+    """A warm-up request, then one run with the launch counters set to 0
+    just before; returns (report dict, launch counts)."""
+    from horovod_tpu_torch.ops import registry
+    _warm(eng)
+    registry.reset_launch_counts()
+    rep = eng.serve(reqs).as_dict()
+    return rep, registry.launch_counts()
+
+
+def _rest_launch_fails(what: str, rep: dict, counts: dict, layers: int,
+                       decode: str = "flash_decode") -> list:
+    """The kernels a serve run must have launched: the flash forward once
+    a layer a prefill forward (whole, prefix tail or chunk), the decode
+    kernel (or its e4m3 variant) once a layer a step."""
+    out = []
+    if counts["flash"] != layers * rep["prefill_forwards"]:
+        out.append(f"{what}: flash {counts['flash']} != {layers} x "
+                   f"{rep['prefill_forwards']} prefill forwards")
+    if counts[decode] != layers * rep["decode_steps"]:
+        out.append(f"{what}: {decode} {counts[decode]} != {layers} x "
+                   f"{rep['decode_steps']} steps")
+    other = "flash_decode_fp8" if decode == "flash_decode" else \
+        "flash_decode"
+    if counts[other]:
+        out.append(f"{what}: {other} launched {counts[other]} times")
+    return out
+
+
+def rest_chunked(cfg, params, dev, card: str, fails: list,
+                 total: dict) -> None:
+    """(a): ``long_prompt_spec`` whole and with ``prefill_chunk=512``;
+    the last chunk's logits against the whole prompt's."""
+    from horovod_tpu_torch.serving import (ServingEngine, generate,
+                                           long_prompt_spec,
+                                           prefill_forward)
+    bf16 = torch.bfloat16
+    spec = long_prompt_spec(vocab_size=cfg.vocab_size, **REST_LONG)
+    first = generate(spec)
+    geom = dict(slots=8, page_size=16, max_len=_rest_max_len(first),
+                dtype=bf16, device=dev)
+    runs = {}
+    for name, chunk in (("whole", 0), ("chunked", REST_CHUNK)):
+        reqs = generate(spec)
+        eng = ServingEngine(cfg, params, prefill_chunk=chunk, **geom)
+        rep, counts = _rest_serve(eng, reqs)
+        leaked = eng.cache.release_all()
+        balanced = eng.cache.refcounts_balanced()
+        del eng
+        free_device()
+        _add_counts(total, counts)
+        runs[name] = (rep, reqs)
+        fails += _rest_launch_fails(f"(a) {name}", rep, counts,
+                                    cfg.num_layers)
+        if rep["completed"] != len(reqs) or leaked or not balanced:
+            fails.append(f"(a) {name}: completed {rep['completed']}, "
+                         f"leaked {leaked}, balanced {balanced}")
+        log({"phase": "rest_chunked", "run": name, "card": card,
+             "prefill_chunk": chunk, "max_len": geom["max_len"],
+             "prompt_lens": [r.prompt_len for r in reqs], **rep,
+             "launches": counts})
+    (wrep, wreqs), (crep, creqs) = runs["whole"], runs["chunked"]
+    if not crep["prefill_chunks"]:
+        fails.append("(a) no prompt was chunked")
+    # The longest prompt's last logits, chunked against whole.
+    longest = max(first, key=lambda r: r.prompt_len)
+    prompt = torch.tensor(longest.prompt, dtype=torch.long, device=dev)[None]
+    want = prefill_forward(params, cfg, prompt, dtype=bf16)[0][0, -1]
+    past = got = None
+    for lo in range(0, prompt.shape[1], REST_CHUNK):
+        logits, kl, vl = prefill_forward(
+            params, cfg, prompt[:, lo:lo + REST_CHUNK], dtype=bf16,
+            past=past)
+        past, got = (kl, vl), logits[0, -1].clone()
+        del logits
+    del past
+    err = (got - want).abs().max().item()
+    tol = BF16_TOL * want.abs().max().item()
+    agree = _agreement(creqs, _streams(wreqs))
+    log({"phase": "rest_chunked_logits", "card": card,
+         "prompt_len": int(prompt.shape[1]), "chunk": REST_CHUNK,
+         "max_abs_err": err, "tol": tol,
+         "argmax_agrees": int(got.argmax()) == int(want.argmax()),
+         "stream_agreement": agree,
+         "ttft_p50_s": [wrep["ttft_p50_s"], crep["ttft_p50_s"]],
+         "ttft_p99_s": [wrep["ttft_p99_s"], crep["ttft_p99_s"]],
+         "tokens_per_s": [wrep["tokens_per_s"], crep["tokens_per_s"]]})
+    if not (err <= tol and bool(torch.isfinite(got).all())):
+        fails.append(f"(a) last-chunk logits {err} from the whole "
+                     f"prompt's (tol {tol})")
+
+
+def rest_fp8(cfg, params, dev, card: str, plain: dict, fails: list,
+             total: dict) -> None:
+    """(b): one decode step over compressed cold pages against the plain
+    step over the dequantised pool, bitwise; then phase 4's load on a
+    ``kv_compress`` engine whose cold pages are compressed before every
+    step."""
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.serving import (CacheConfig, LoadSpec,
+                                           PagedKVCache, ServingEngine,
+                                           build_decode_step, generate,
+                                           prefill_forward)
+    bf16, layers = torch.bfloat16, cfg.num_layers
+    reqs = generate(LoadSpec(vocab_size=cfg.vocab_size, **SERVE_LOAD))
+    slots, ps, max_len = (SERVE_GEOM["slots"], SERVE_GEOM["page_size"],
+                          SERVE_GEOM["max_len"])
+    pps = max_len // ps
+    cache = PagedKVCache(CacheConfig(
+        num_layers=layers, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, slots=slots, page_size=ps, max_len=max_len,
+        dtype="bfloat16", compress=True), device=dev)
+    for slot, r in enumerate(reqs):
+        _, kl, vl = prefill_forward(
+            params, cfg, torch.tensor(r.prompt, device=dev)[None],
+            dtype=bf16)
+        cache.write_prefill(slot, kl[:, 0], vl[:, 0])
+        del kl, vl
+    # Room for the step's write first: the pages compress_cold frees
+    # then stay free, and the plain pool below can hold their
+    # dequantised rows.
+    lens = cache.lengths.copy()
+    for s in range(slots):
+        cache.reserve(s, int(lens[s]) + 1, writable_from=int(lens[s]))
+    old = cache.page_table.copy()
+    moved = sum(cache.compress_cold(s) for s in range(slots))
+    cm = cache.comp_mask.copy()
+    plain_table = cache.page_table.copy()
+    plain_table[cm] = old[cm]
+    pids = torch.tensor(old[cm], dtype=torch.long, device=dev)
+    cps = torch.tensor(cache.cpage_table[cm], dtype=torch.long, device=dev)
+    deq_k, deq_v = cache.k.clone(), cache.v.clone()
+    deq_k[:, pids] = cache.dequantized("k", cps)
+    deq_v[:, pids] = cache.dequantized("v", cps)
+    tok = torch.tensor([int(r.prompt[-1]) for r in reqs], device=dev)
+    pos = cache.lengths_device().long()
+    active = torch.ones(slots, dtype=torch.bool, device=dev)
+    registry.reset_launch_counts()
+    got, _, _ = build_decode_step(
+        cfg, slots=slots, page_size=ps, pages_per_slot=pps, dtype=bf16,
+        compress=True)(params, cache.k, cache.v, tok, pos,
+                       cache.table_device(), active,
+                       *cache.compress_operands())
+    want, _, _ = build_decode_step(
+        cfg, slots=slots, page_size=ps, pages_per_slot=pps, dtype=bf16)(
+        params, deq_k, deq_v, tok, pos,
+        torch.tensor(plain_table, dtype=torch.int32, device=dev), active)
+    torch.cuda.synchronize()
+    step_counts = registry.launch_counts()
+    bitwise = torch.equal(got, want)
+    log({"phase": "rest_fp8_step", "card": card, "slots": slots,
+         "lengths": [int(n) for n in lens], "compressed_pages": moved,
+         "resident_bytes": cache.resident_bytes,
+         "bitwise_plain_step_on_dequantised_pool": bitwise,
+         "launches": step_counts})
+    if not bitwise or not moved:
+        fails.append(f"(b) the compressed step is not bitwise the plain "
+                     f"step over the dequantised pool ({moved} pages)")
+    if (step_counts["flash_decode_fp8"], step_counts["flash_decode"]) != (
+            layers, layers):
+        fails.append(f"(b) step launches {step_counts}")
+    del cache, deq_k, deq_v, got, want
+    free_device()
+
+    class ColdSweep(ServingEngine):
+        """Compresses every decode slot's cold pages before each step:
+        the page pressure of a full pool, on demand."""
+        peak = 0
+
+        def decode_once(self, st, now):
+            for slot in self._decode_slots():
+                self.cache.compress_cold(slot)
+            self.peak = max(self.peak, self.cache.compressed_pages)
+            return super().decode_once(st, now)
+
+    eng = ColdSweep(cfg, params, device=dev, dtype=bf16, kv_compress=True,
+                    **SERVE_GEOM)
+    reqs = generate(LoadSpec(vocab_size=cfg.vocab_size, **SERVE_LOAD))
+    rep, counts = _rest_serve(eng, reqs)
+    _add_counts(total, counts)
+    leaked = eng.cache.release_all()
+    ok_pool = (leaked == 0 and eng.cache.live_pages == 0
+               and eng.cache.compressed_pages == 0
+               and eng.cache.refcounts_balanced())
+    agree = _agreement(reqs, plain["streams"])
+    log({"phase": "rest_fp8_serve", "card": card, **rep,
+         "peak_compressed_pages": eng.peak, "released_clean": ok_pool,
+         "stream_agreement_with_phase4": agree, "launches": counts,
+         "phase4_tokens_per_s": plain["report"]["tokens_per_s"]})
+    fails += _rest_launch_fails("(b) serve", rep, counts, layers,
+                                decode="flash_decode_fp8")
+    if rep["completed"] != len(reqs) or not eng.peak or not ok_pool:
+        fails.append(f"(b) serve: completed {rep['completed']}, peak "
+                     f"compressed pages {eng.peak}, clean {ok_pool}")
+    del eng
+
+
+def rest_prefix(cfg, params, dev, card: str, fails: list,
+                total: dict) -> None:
+    """(c): a prefix-shared load with the prefix cache on and off, both
+    chunking at 512."""
+    from horovod_tpu_torch.serving import (ServingEngine, generate,
+                                           prefix_spec)
+    spec = prefix_spec(vocab_size=cfg.vocab_size, **REST_PREFIX)
+    geom = dict(slots=8, page_size=16, dtype=torch.bfloat16, device=dev,
+                max_len=_rest_max_len(generate(spec)),
+                prefill_chunk=REST_CHUNK)
+    runs = {}
+    for name, on in (("on", True), ("off", False)):
+        reqs = generate(spec)
+        eng = ServingEngine(cfg, params, prefix_cache=on, **geom)
+        rep, counts = _rest_serve(eng, reqs)
+        _add_counts(total, counts)
+        if on:
+            eng._prefix.drop_all()
+        leaked = eng.cache.release_all()
+        clean = (leaked == 0 and eng.cache.live_pages == 0
+                 and eng.cache.refcounts_balanced())
+        del eng
+        free_device()
+        runs[name] = (rep, reqs)
+        log({"phase": "rest_prefix", "run": name, "card": card,
+             "max_len": geom["max_len"], **rep, "released_clean": clean,
+             "launches": counts})
+        fails += _rest_launch_fails(f"(c) {name}", rep, counts,
+                                    cfg.num_layers)
+        if rep["completed"] != len(reqs) or not clean:
+            fails.append(f"(c) {name}: completed {rep['completed']}, "
+                         f"clean {clean}")
+    (on, on_reqs), (off, off_reqs) = runs["on"], runs["off"]
+    log({"phase": "rest_prefix_summary", "card": card,
+         "prefix_hit_rate": on["prefix_hit_rate"],
+         "prefill_tokens_cached": on["prefill_tokens_cached"],
+         "prefill_flops_avoided": on["prefill_flops_avoided"],
+         "tail_prefills": on["prefix_hits"],
+         "ttft_p50_s": [on["ttft_p50_s"], off["ttft_p50_s"]],
+         "ttft_p99_s": [on["ttft_p99_s"], off["ttft_p99_s"]],
+         "stream_agreement": _agreement(on_reqs, _streams(off_reqs))})
+    if not (on["prefix_hits"] > 0 and on["prefill_flops_avoided"] > 0):
+        fails.append(f"(c) no prefix hit: {on['prefix_hits']} hits")
+
+
+def rest_fleet(cfg, params, dev, card: str, fails: list,
+               total: dict) -> None:
+    """(d): one prefill and one decode worker on the card over a loopback
+    KV plane against a colocated engine, on the f32 and the fp8 wire;
+    the fp8 wire's pages bitwise ``demote_page`` of the same pages."""
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.run.http_kv import KVClient, RendezvousServer
+    from horovod_tpu_torch.run.secret import make_secret_key
+    from horovod_tpu_torch.serving import (CacheConfig, DecodeWorker,
+                                           LoadSpec, PagedKVCache,
+                                           PrefillWorker, ServingEngine,
+                                           ServingFleet, decode_kv,
+                                           encode_kv, generate,
+                                           import_pages, prefill_forward)
+    bf16, layers = torch.bfloat16, cfg.num_layers
+    spec = LoadSpec(vocab_size=cfg.vocab_size, **REST_FLEET)
+    geom = dict(slots=8, page_size=16, dtype=bf16, device=dev,
+                max_len=_rest_max_len(generate(spec)))
+    colo_reqs = generate(spec)
+    eng = ServingEngine(cfg, params, **geom)
+    colo, counts = _rest_serve(eng, colo_reqs)
+    _add_counts(total, counts)
+    del eng
+    free_device()
+    colo_streams = _streams(colo_reqs)
+    secret = make_secret_key()
+    srv = RendezvousServer(secret, host="127.0.0.1")
+    try:
+        kv = KVClient("127.0.0.1", srv.port, secret)
+        wire = {}
+        for tier in ("f32", "fp8"):
+            dec = ServingEngine(cfg, params, kv_compress=(tier == "fp8"),
+                                **geom)
+            _warm(dec)
+            fleet = ServingFleet(
+                [PrefillWorker("p0", cfg, params, kv, page_size=16,
+                               dtype=bf16, tier=tier, device=dev)],
+                [DecodeWorker("decode0", dec, kv)], kv)
+            reqs = generate(spec)
+            registry.reset_launch_counts()
+            frep = fleet.serve(reqs).as_dict()
+            counts = registry.launch_counts()
+            _add_counts(total, counts)
+            del fleet, dec
+            free_device()
+            same = _streams(reqs) == colo_streams
+            wire[tier] = frep["kv_bytes_out"]
+            log({"phase": "rest_fleet", "tier": tier, "card": card,
+                 **frep, "streams_bitwise_colocated": same,
+                 "stream_agreement": _agreement(reqs, colo_streams),
+                 "colocated_tokens_per_s": colo["tokens_per_s"],
+                 "colocated_ttft_p50_s": colo["ttft_p50_s"],
+                 "launches": counts})
+            decode = "flash_decode_fp8" if tier == "fp8" else "flash_decode"
+            rep = {"prefill_forwards": frep["handoffs_streamed"]
+                   + frep["handoffs_local"],
+                   "decode_steps": frep["decode_steps"]}
+            fails += _rest_launch_fails(f"(d) {tier}", rep, counts, layers,
+                                        decode=decode)
+            if not (frep["completed"] == len(reqs)
+                    and frep["handoffs_streamed"] == len(reqs)
+                    and frep["kv_bytes_in"] == frep["kv_bytes_out"] > 0
+                    and not any(frep["leaked_pages"].values())
+                    and frep["refcounts_balanced"]):
+                fails.append(f"(d) {tier}: {frep}")
+            if tier == "f32" and not same:
+                fails.append("(d) the f32 fleet's streams are not bitwise "
+                             "the colocated engine's")
+    finally:
+        srv.stop()
+    # The fp8 wire against demote_page of the same resident pages.
+    r = max(colo_reqs, key=lambda q: q.prompt_len)
+    _, kl, vl = prefill_forward(params, cfg,
+                                torch.tensor(r.prompt, device=dev)[None],
+                                dtype=bf16)
+    ccfg = CacheConfig(num_layers=layers, num_kv_heads=cfg.num_kv_heads,
+                       head_dim=cfg.head_dim, slots=1, page_size=16,
+                       max_len=geom["max_len"], dtype="bfloat16",
+                       compress=True)
+    local, remote = PagedKVCache(ccfg, dev), PagedKVCache(ccfg, dev)
+    local.write_prefill(0, kl[:, 0], vl[:, 0])
+    full = r.prompt_len // 16
+    cpids = [local.demote_page(int(local.page_table[0, i]))
+             for i in range(full)]
+    import_pages(remote, 0, decode_kv(encode_kv(kl[:, 0], vl[:, 0],
+                                                page_size=16, tier="fp8")))
+    rc = [int(remote.cpage_table[0, i]) for i in range(full)]
+    same = all(torch.equal(getattr(local, n)[:, cpids].view(torch.uint8),
+                           getattr(remote, n)[:, rc].view(torch.uint8))
+               for n in ("kq", "vq", "kscale", "vscale"))
+    log({"phase": "rest_fleet_fp8_pages", "card": card,
+         "prompt_len": r.prompt_len, "pages": full,
+         "bitwise_demote_page": same, "wire_bytes": wire,
+         "fp8_over_f32": wire["fp8"] / wire["f32"]})
+    if not same:
+        fails.append("(d) fp8 wire pages are not bitwise demote_page's")
+    del local, remote, kl, vl
+
+
+def serving_rest(dev, card: str, serve_run: dict) -> dict:
+    """Phase 27 (module docstring).  Returns the kernels' launches over
+    its serve and fleet runs."""
+    from horovod_tpu_torch.models import LLAMA3_8B, init_llama_params
+    cfg = LLAMA3_8B
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_llama_params(cfg, generator=gen, dtype=torch.bfloat16,
+                               device=dev)
+    fails: list = []
+    total: dict = {}
+    for part in (lambda: rest_chunked(cfg, params, dev, card, fails, total),
+                 lambda: rest_fp8(cfg, params, dev, card, serve_run, fails,
+                                  total),
+                 lambda: rest_prefix(cfg, params, dev, card, fails, total),
+                 lambda: rest_fleet(cfg, params, dev, card, fails, total)):
+        t0 = time.perf_counter()
+        part()
+        free_device()
+        log({"phase": "rest_part_seconds",
+             "seconds": time.perf_counter() - t0})
+    del params
+    if fails:
+        raise AssertionError("serving_rest: " + "; ".join(fails))
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4878,6 +5394,8 @@ def main() -> int:
 
     flash = check_flash(attn, dev)
     decode = check_decode(attn, dev)
+    decode_fp8 = check_decode_fp8(attn, dev)
+    free_device()
     dq, dkv = check_flash_bwd(attn, dev)
     free_device()
     check_bert_attention(attn, dev, card)
@@ -4933,11 +5451,15 @@ def main() -> int:
     free_device()
     lora26 = lora_int8_serve(dev, card, train_run, serve_run)
     free_device()
+    rest27 = serving_rest(dev, card, serve_run)
+    free_device()
     # The attention and BN kernels run on several paths: their launches
     # are the sums.
     flash["launches"] = (serve["flash"] + train["flash"] + bert["flash"]
-                         + lora26["flash"])
-    decode["launches"] = serve["flash_decode"] + lora26["flash_decode"]
+                         + lora26["flash"] + rest27["flash"])
+    decode["launches"] = (serve["flash_decode"] + lora26["flash_decode"]
+                          + rest27["flash_decode"])
+    decode_fp8["launches"] = rest27["flash_decode_fp8"]
     dq["launches"] = (train["flash_bwd_dq"] + bert["flash_bwd_dq"]
                       + lora26["flash_bwd_dq"])
     dkv["launches"] = (train["flash_bwd_dkv"] + bert["flash_bwd_dkv"]
@@ -4961,8 +5483,8 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     log({"kernels": [{k: e[k] for k in keys}
-                     for e in (flash, decode, dq, dkv, bn_red, bn_dx,
-                               *fused)]})
+                     for e in (flash, decode, decode_fp8, dq, dkv, bn_red,
+                               bn_dx, *fused)]})
     print(card, flush=True)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                 "count": torch.cuda.device_count()}})

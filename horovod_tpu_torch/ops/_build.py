@@ -38,7 +38,9 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 
 # C entry points: name -> (source, symbol, argtypes).  A source may
-# export several entry points (``flash_bwd.cu``: dq and dk/dv;
+# export several entry points (``flash_decode.cu``: the paged decode
+# over one pool and over a pool with e4m3 cold pages; ``flash_bwd.cu``:
+# dq and dk/dv;
 # ``bn_bwd.cu``: the BatchNorm backward's two passes; ``fused_update.cu``:
 # the three PowerSGD stages).  Every
 # pointer and the stream are c_void_p (ctypes would cut a Python int to
@@ -55,6 +57,19 @@ ENTRIES = {
     "flash_decode": ("flash_decode", "hvd_flash_decode", [
         _P, _P, _P,          # q, k, v
         _P, _P,              # page_table (int32) or NULL, lengths (int32)
+        _P, _P, _P, _P,      # o, m/l/acc partials (f32 scratch)
+        _I, _I, _I, _I,      # slots, h, h_kv, d
+        _I, _I,              # page_size, pages_per_slot
+        _L, _L, _L,          # element strides: page, offset, head
+        _I, _I,              # splits, keys per split
+        _I, _F,              # dtype, scale
+        _P]),                # stream
+    "flash_decode_fp8": ("flash_decode", "hvd_flash_decode_fp8", [
+        _P, _P, _P,          # q, k, v
+        _P, _P,              # page_table, lengths (int32)
+        _P, _P,              # kq, vq (e4m3 pools)
+        _P, _P,              # kscale, vscale (f32, [pages, page_size])
+        _P, _P,              # ctable (int32), cmask (bool) [slots, pps]
         _P, _P, _P, _P,      # o, m/l/acc partials (f32 scratch)
         _I, _I, _I, _I,      # slots, h, h_kv, d
         _I, _I,              # page_size, pages_per_slot

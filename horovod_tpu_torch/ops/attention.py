@@ -35,6 +35,10 @@ Kernels (``ops/csrc``):
   through the page table) and :func:`decode_attention` (contiguous
   cache view), replacing ``_flash_decode``; :func:`verify_attention`
   (the speculative verify step) calls it once a draft row.
+  :func:`paged_decode_attention_fp8` is its variant for a cache with
+  e4m3 cold pages: rows of the pages ``cmask`` marks are read from the
+  e4m3 pool and dequantised in the load, where the JAX decode step
+  blends a dequantised gather before it calls the kernel.
 """
 
 from __future__ import annotations
@@ -481,9 +485,11 @@ def decode_splits(capacity: int) -> tuple:
 
 
 def _decode_cuda(q, k, v, lengths, page_table, *, scale: float,
-                 page_size: int, pps: int, strides: tuple):
+                 page_size: int, pps: int, strides: tuple, fp8=None):
     """Kernel B on CUDA tensors; ``page_table=None`` reads a contiguous
-    ``(b, h_kv, s, d)`` view as one page per slot."""
+    ``(b, h_kv, s, d)`` view as one page per slot.  ``fp8``: the six
+    compressed-pool operands of one layer (``kq, vq, kscale, vscale,
+    ctable, cmask``) for the e4m3 variant."""
     _check_cuda("decode_attention", q.device, q.dtype, q, k, v)
     # A contiguous view is batched by slot; a page pool is not.
     _check_kv("decode_attention", q, k, v,
@@ -506,15 +512,39 @@ def _decode_cuda(q, k, v, lengths, page_table, *, scale: float,
     l_part = torch.empty_like(m_part)
     acc_part = torch.empty((b, h, splits, d), dtype=torch.float32,
                            device=q.device)
-    err = entry("flash_decode")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if page_table is None else page_table.data_ptr(),
-        lengths.data_ptr(), o.data_ptr(), m_part.data_ptr(),
-        l_part.data_ptr(), acc_part.data_ptr(), b, h, h_kv, d,
-        page_size, pps, *strides, splits, per, _DTYPES[q.dtype],
-        float(scale), stream(q))
-    check_launch("flash_decode", err)
-    registry.note_launch("flash_decode")
+    tail = (o.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+            acc_part.data_ptr(), b, h, h_kv, d, page_size, pps, *strides,
+            splits, per, _DTYPES[q.dtype], float(scale), stream(q))
+    if fp8 is None:
+        err = entry("flash_decode")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if page_table is None else page_table.data_ptr(),
+            lengths.data_ptr(), *tail)
+        check_launch("flash_decode", err)
+        registry.note_launch("flash_decode")
+    else:
+        kq, vq, ksc, vsc, ctable, cmask = fp8
+        for name, t, dt, shape in (
+                ("kq", kq, torch.float8_e4m3fn, k.shape),
+                ("vq", vq, torch.float8_e4m3fn, k.shape),
+                ("kscale", ksc, torch.float32, k.shape[:2]),
+                ("vscale", vsc, torch.float32, k.shape[:2]),
+                ("ctable", ctable, torch.int32, (b, pps)),
+                ("cmask", cmask, torch.bool, (b, pps))):
+            if (t.device != q.device or t.dtype != dt
+                    or tuple(t.shape) != tuple(shape)
+                    or not t.is_contiguous()):
+                raise ValueError(
+                    f"paged_decode_attention_fp8: {name} must be a "
+                    f"contiguous {dt} {tuple(shape)} on {q.device}, got "
+                    f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        err = entry("flash_decode_fp8")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), page_table.data_ptr(),
+            lengths.data_ptr(), kq.data_ptr(), vq.data_ptr(),
+            ksc.data_ptr(), vsc.data_ptr(), ctable.data_ptr(),
+            cmask.data_ptr(), *tail)
+        check_launch("flash_decode_fp8", err)
+        registry.note_launch("flash_decode_fp8")
     # The kernel's contract row: the K and V views it reads, as the JAX
     # decode kernel notes it.
     from ..controller.fusion import plan_exchange
@@ -609,9 +639,61 @@ def paged_decode_attention(q, k_pool_l, v_pool_l, page_table, lengths, *,
                         strides=(ps * h_kv * d, h_kv * d, d))
 
 
+def blend_pages(pool_l, page_table, qpool_l, scale_l, ctable, cmask):
+    """:func:`gather_pages` of a cache with e4m3 cold pages: where
+    ``cmask[s, i]`` is set, page ``i`` of slot ``s`` comes from
+    ``qpool_l[ctable[s, i]]`` as ``f32(e4m3) * scale`` rounded to the
+    pool's dtype -- the JAX decode step's blend
+    (``horovod_tpu/serving/decode.py:397-404``)."""
+    slots, pps = page_table.shape
+    _, ps, h_kv, d = pool_l.shape
+    view = pool_l[page_table.long()]          # [S, pps, ps, h_kv, d]
+    ct = ctable.long()
+    deq = (qpool_l[ct].float() * scale_l[ct][..., None, None]).to(
+        view.dtype)
+    view = torch.where(cmask[..., None, None, None], deq, view)
+    return view.reshape(slots, pps * ps, h_kv, d).transpose(1, 2)
+
+
+def paged_decode_attention_fp8(q, k_pool_l, v_pool_l, page_table, lengths,
+                               kq_l, vq_l, kscale_l, vscale_l, ctable,
+                               cmask, *, scale: Optional[float] = None,
+                               force_reference: bool = False):
+    """:func:`paged_decode_attention` over a cache with e4m3 cold pages.
+
+    ``kq_l``/``vq_l``: one layer's e4m3 pools (the pool's shape);
+    ``kscale_l``/``vscale_l``: their f32 scales ``[num_pages + 1,
+    page_size]``; ``ctable``/``cmask``: ``[slots, pps]`` int32 / bool.
+    A page with ``cmask`` set is read from ``kq_l[ctable]`` (its
+    ``page_table`` entry is never read).  The same function as
+    :func:`decode_attention` on :func:`blend_pages` of the pools; the
+    kernel dequantises in its load, rounding ``f32(e4m3) * scale`` to the
+    pool dtype as the blend does, so it is bitwise the plain decode
+    kernel over a pool that holds the dequantised rows.
+    """
+    _check_decode_args(q, k_pool_l.shape[2], lengths)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if force_reference or q.device.type == "cpu":
+        return _decode_reference(
+            q, blend_pages(k_pool_l, page_table, kq_l, kscale_l, ctable,
+                           cmask),
+            blend_pages(v_pool_l, page_table, vq_l, vscale_l, ctable,
+                        cmask), lengths, scale)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"paged_decode_attention_fp8: unsupported device {q.device}")
+    _, ps, h_kv, d = k_pool_l.shape
+    return _decode_cuda(q, k_pool_l, v_pool_l, lengths, page_table,
+                        scale=float(scale), page_size=ps,
+                        pps=page_table.shape[1],
+                        strides=(ps * h_kv * d, h_kv * d, d),
+                        fp8=(kq_l, vq_l, kscale_l, vscale_l, ctable, cmask))
+
+
 def verify_attention(q, k_pool_l, v_pool_l, page_table, lengths, *,
                      scale: Optional[float] = None,
-                     force_reference: bool = False):
+                     force_reference: bool = False, fp8=None):
     """Width-``w`` verify attention over the page pool: speculative
     decoding's generalisation of :func:`paged_decode_attention` to ``w``
     draft positions a slot.
@@ -627,7 +709,8 @@ def verify_attention(q, k_pool_l, v_pool_l, page_table, lengths, *,
     builds it: each row runs the exact shapes of the plain decode step,
     so speculative streams are bitwise plain decode.  On the card that
     is ``w`` launches of the decode kernel; ``force_reference=True`` (or
-    CPU tensors) runs each row through the plain version.
+    CPU tensors) runs each row through the plain version.  ``fp8``: the
+    six e4m3 operands of one layer (:func:`paged_decode_attention_fp8`).
     """
     if q.dim() != 4:
         raise ValueError(f"verify_attention expects (b, h, w, d), got "
@@ -638,9 +721,15 @@ def verify_attention(q, k_pool_l, v_pool_l, page_table, lengths, *,
         li = torch.where(lengths > 0,
                          torch.clamp(lengths + i, max=capacity),
                          torch.zeros_like(lengths))
-        outs.append(paged_decode_attention(
-            q[:, :, i:i + 1, :].contiguous(), k_pool_l, v_pool_l,
-            page_table, li, scale=scale, force_reference=force_reference))
+        qi = q[:, :, i:i + 1, :].contiguous()
+        if fp8 is None:
+            outs.append(paged_decode_attention(
+                qi, k_pool_l, v_pool_l, page_table, li, scale=scale,
+                force_reference=force_reference))
+        else:
+            outs.append(paged_decode_attention_fp8(
+                qi, k_pool_l, v_pool_l, page_table, li, *fp8, scale=scale,
+                force_reference=force_reference))
     return torch.cat(outs, 2)
 
 
@@ -662,6 +751,7 @@ def attention_flops(b: int, h: int, tq: int, tk: int, d: int,
 __all__ = ["attention_reference", "flash_attention", "flash_backward_dq",
            "flash_backward_dkv", "flash_attention_backward",
            "flash_attention_backward_reference", "decode_attention",
-           "paged_decode_attention", "verify_attention", "gather_pages",
+           "paged_decode_attention", "paged_decode_attention_fp8",
+           "verify_attention", "gather_pages", "blend_pages",
            "decode_splits",
            "attention_flops"]

@@ -48,7 +48,22 @@
 // probability 0, so recycled-page garbage never contributes.  Both
 // launches allocate nothing: the partials are scratch the caller passes
 // in.
+//
+// fp8 cold pages (hvd_flash_decode_fp8; replaces the same TPU kernel fed
+// by horovod_tpu/serving/decode.py's gather blend, :397-404).  A page
+// whose cmask[slot, i] is set lives in the e4m3 pool at ctable[slot, i],
+// one f32 scale per (page, offset) row; its page_table entry is the
+// scratch page and is never read.  load_tile reads such a row's e4m3
+// bytes with plain loads, forms f32(e4m3) * scale, rounds it to the pool
+// type T (the reference's .astype(view.dtype)) and stores it into the
+// same swizzled tile slot the cp.async of a T row fills.  From there on
+// the two variants run the same code, so a step over compressed pages is
+// bitwise the uncompressed kernel over a pool holding the dequantised
+// rows.  The uncompressed instantiations (FP8 = false) compile the same
+// instructions as before: every fp8 branch is `if constexpr`.
 
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -60,6 +75,18 @@ constexpr int NW = 4;          // warps per CTA
 constexpr int NT = 32 * NW;
 constexpr int TK = 16;         // keys per warp tile
 constexpr int STAGES = 3;      // ring depth per warp
+
+// The e4m3 pool of one layer of a compress=True cache (unused when FP8 is
+// false).  kq/vq have the pool's element layout; the scales are
+// [pages, page_size]; ctable and cmask are [slots, pps].
+struct Fp8Pages {
+  const uint8_t* kq;
+  const uint8_t* vq;
+  const float* kscale;
+  const float* vscale;
+  const int* ctable;
+  const uint8_t* cmask;
+};
 
 template <typename T, int D>
 __host__ __device__ constexpr int row_bytes() { return D * (int)sizeof(T); }
@@ -100,6 +127,45 @@ __device__ __forceinline__ void widen(const uint4& raw, float* f,
   widen2(raw.w, f + 6);
 }
 
+// Two e4m3 codes (low byte first) as f32: exact, via half.
+__device__ __forceinline__ float2 e4m3x2(uint32_t pair) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(pair), __NV_E4M3);
+  return __half22float2(*reinterpret_cast<const __half2*>(&h));
+}
+
+// The 16/sizeof(T) e4m3 codes at `src` times `s`, each product rounded to
+// T, stored as one 16-byte chunk at shared address `dst`.
+__device__ __forceinline__ void store_dequant(unsigned char* dst,
+                                              const uint8_t* src, float s,
+                                              const float*) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(src);
+  const float2 a = e4m3x2(w & 0xffffu), b = e4m3x2(w >> 16);
+  *reinterpret_cast<float4*>(dst) = make_float4(
+      __fmul_rn(a.x, s), __fmul_rn(a.y, s), __fmul_rn(b.x, s),
+      __fmul_rn(b.y, s));
+}
+
+__device__ __forceinline__ void store_dequant(unsigned char* dst,
+                                              const uint8_t* src, float s,
+                                              const __nv_bfloat16*) {
+  const uint2 w = *reinterpret_cast<const uint2*>(src);
+  const uint32_t words[2] = {w.x, w.y};
+  uint4 raw;
+  uint32_t* out = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float2 a = e4m3x2(words[i] & 0xffffu), b = e4m3x2(words[i] >> 16);
+    const __nv_bfloat162 lo =
+        __floats2bfloat162_rn(__fmul_rn(a.x, s), __fmul_rn(a.y, s));
+    const __nv_bfloat162 hi =
+        __floats2bfloat162_rn(__fmul_rn(b.x, s), __fmul_rn(b.y, s));
+    out[2 * i] = *reinterpret_cast<const uint32_t*>(&lo);
+    out[2 * i + 1] = *reinterpret_cast<const uint32_t*>(&hi);
+  }
+  *reinterpret_cast<uint4*>(dst) = raw;
+}
+
 // N (2 or 4) consecutive elements at a shared address, as f32.
 template <typename T, int N>
 __device__ __forceinline__ void load_elems(const unsigned char* p, float* f) {
@@ -122,22 +188,41 @@ __device__ __forceinline__ void load_elems(const unsigned char* p, float* f) {
 }
 
 // One warp's K and V tile of keys [k0, k0 + TK) into the ring stage at
-// shared address `dst` (K, then V TILE bytes later): 16-byte cp.async
-// copies, zero-filled at and past `end`.  Lane l looks up the page of key
-// l % 16 once (one page per slot when there is no table); the lanes that
-// copy a row's chunks take its offset by shuffle.
-template <typename T, int D>
+// shared address `dst` (K, then V TILE bytes later; `dst_p` the same
+// stage as a generic pointer): 16-byte cp.async copies, zero-filled at
+// and past `end`.  Lane l looks up the page of key l % 16 once (one page
+// per slot when there is no table); the lanes that copy a row's chunks
+// take its offset by shuffle.  With FP8, a row on a compressed page is
+// dequantised into its chunks instead (store_dequant).
+template <typename T, int D, bool FP8>
 __device__ __forceinline__ void load_tile(
     const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ slot_pages, int slot, int page_size,
     int64_t stride_page, int64_t stride_off, size_t head_off, int k0,
-    int end, uint32_t dst, int lane) {
+    int end, uint32_t dst, unsigned char* dst_p, int lane,
+    const Fp8Pages& f8, const int* __restrict__ slot_cpages,
+    const uint8_t* __restrict__ slot_cmask) {
   constexpr int CH = row_bytes<T, D>() / 16;
+  constexpr int EPC = 16 / sizeof(T);
   constexpr uint32_t TILE = TK * row_bytes<T, D>();
   const int pos = k0 + (lane & (TK - 1));
   unsigned long long mine = 0;
+  int comp = 0;
+  float ks = 0.f, vs = 0.f;
   if (pos < end) {
-    const int page = slot_pages ? slot_pages[pos / page_size] : slot;
+    int page;
+    if constexpr (FP8) {
+      const int pi = pos / page_size;
+      comp = slot_cmask[pi];
+      page = comp ? slot_cpages[pi] : slot_pages[pi];
+      if (comp) {
+        const size_t row = (size_t)page * page_size + pos % page_size;
+        ks = f8.kscale[row];
+        vs = f8.vscale[row];
+      }
+    } else {
+      page = slot_pages ? slot_pages[pos / page_size] : slot;
+    }
     mine = (size_t)page * stride_page +
            (size_t)(pos % page_size) * stride_off + head_off;
   }
@@ -148,6 +233,19 @@ __device__ __forceinline__ void load_tile(
     const size_t off = __shfl_sync(0xffffffffu, mine, r);
     const bool ok = k0 + r < end;
     const uint32_t at = dst + chunk_at<T, D>(r, c);
+    if constexpr (FP8) {
+      const int rc = __shfl_sync(0xffffffffu, comp, r);
+      const float rks = __shfl_sync(0xffffffffu, ks, r);
+      const float rvs = __shfl_sync(0xffffffffu, vs, r);
+      if (rc) {   // set on live rows only
+        unsigned char* p = dst_p + chunk_at<T, D>(r, c);
+        store_dequant(p, f8.kq + off + EPC * c, rks,
+                      static_cast<const T*>(nullptr));
+        store_dequant(p + TILE, f8.vq + off + EPC * c, rvs,
+                      static_cast<const T*>(nullptr));
+        continue;
+      }
+    }
     hvd::mma::cp_async16(
         at, reinterpret_cast<const unsigned char*>(k + off) + 16 * c, ok);
     hvd::mma::cp_async16(
@@ -156,7 +254,7 @@ __device__ __forceinline__ void load_tile(
   }
 }
 
-template <typename T, int D, int REP>
+template <typename T, int D, int REP, bool FP8>
 __global__ void __launch_bounds__(NT, 2)
     decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
@@ -167,7 +265,7 @@ __global__ void __launch_bounds__(NT, 2)
                         float* __restrict__ acc_part, int h, int page_size,
                         int pps, int64_t stride_page, int64_t stride_off,
                         int64_t stride_head, int splits, int split_len,
-                        float scale) {
+                        float scale, Fp8Pages f8) {
   using namespace hvd::mma;
   constexpr int RB = row_bytes<T, D>();   // bytes of one key row
   constexpr int CH = RB / 16;             // 16-byte chunks per row
@@ -199,17 +297,20 @@ __global__ void __launch_bounds__(NT, 2)
   const int n_all = (end - start + TK - 1) / TK;
   const int n_mine = warp < n_all ? (n_all - warp + NW - 1) / NW : 0;
   const uint32_t ring = smem_addr(dec_smem) + warp * STAGES * 2 * TILE;
-  const unsigned char* ring_p = dec_smem + warp * STAGES * 2 * TILE;
+  unsigned char* ring_p = dec_smem + warp * STAGES * 2 * TILE;
   const size_t head_off = (size_t)kvh * stride_head;
   const int* slot_pages = page_table ? page_table + (size_t)slot * pps
                                      : nullptr;
+  const int* slot_cpages = FP8 ? f8.ctable + (size_t)slot * pps : nullptr;
+  const uint8_t* slot_cmask = FP8 ? f8.cmask + (size_t)slot * pps : nullptr;
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (i < n_mine)
-      load_tile<T, D>(k, v, slot_pages, slot, page_size, stride_page,
-                      stride_off, head_off,
-                      start + (warp + i * NW) * TK, end,
-                      ring + i * 2 * TILE, lane);
+      load_tile<T, D, FP8>(k, v, slot_pages, slot, page_size, stride_page,
+                           stride_off, head_off,
+                           start + (warp + i * NW) * TK, end,
+                           ring + i * 2 * TILE, ring_p + i * 2 * TILE,
+                           lane, f8, slot_cpages, slot_cmask);
     cp_async_commit();
   }
   __syncthreads();  // q visible
@@ -232,10 +333,12 @@ __global__ void __launch_bounds__(NT, 2)
 
   for (int i = 0; i < n_mine; ++i) {
     if (i + STAGES - 1 < n_mine)
-      load_tile<T, D>(k, v, slot_pages, slot, page_size, stride_page,
-                      stride_off, head_off,
-                      start + (warp + (i + STAGES - 1) * NW) * TK, end,
-                      ring + (i + STAGES - 1) % STAGES * 2 * TILE, lane);
+      load_tile<T, D, FP8>(k, v, slot_pages, slot, page_size, stride_page,
+                           stride_off, head_off,
+                           start + (warp + (i + STAGES - 1) * NW) * TK, end,
+                           ring + (i + STAGES - 1) % STAGES * 2 * TILE,
+                           ring_p + (i + STAGES - 1) % STAGES * 2 * TILE,
+                           lane, f8, slot_cpages, slot_cmask);
     cp_async_commit();
     cp_async_wait<STAGES - 1>();
     __syncwarp();  // tile i has landed for every lane of the warp
@@ -392,31 +495,31 @@ __global__ void __launch_bounds__(D)
   o[((size_t)slot * h + hh) * D + d] = hvd::from_float<T>(out);
 }
 
-template <typename T, int D, int REP>
+template <typename T, int D, int REP, bool FP8>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* page_table, const void* lengths, void* o,
                    void* m_part, void* l_part, void* acc_part, int slots,
                    int h, int h_kv, int page_size, int pps,
                    int64_t stride_page, int64_t stride_off,
                    int64_t stride_head, int splits, int split_len,
-                   float scale, cudaStream_t stream) {
+                   float scale, const Fp8Pages& f8, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D, REP>();
   static bool configured = false;  // one opt-in per instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        decode_split_kernel<T, D, REP>,
+        decode_split_kernel<T, D, REP, FP8>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  decode_split_kernel<T, D, REP><<<splits * slots * h_kv, NT, smem,
-                                   stream>>>(
+  decode_split_kernel<T, D, REP, FP8><<<splits * slots * h_kv, NT, smem,
+                                        stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(page_table),
       static_cast<const int*>(lengths), static_cast<float*>(m_part),
       static_cast<float*>(l_part), static_cast<float*>(acc_part), h,
       page_size, pps, stride_page, stride_off, stride_head, splits,
-      split_len, scale);
+      split_len, scale, f8);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_merge_kernel<T, D><<<dim3(h, slots), D, 0, stream>>>(
@@ -426,31 +529,51 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t by_rep(int rep, const void* q, const void* k, const void* v,
-                   const void* pt, const void* len, void* o, void* mp,
-                   void* lp, void* ap, int slots, int h, int h_kv, int ps,
-                   int pps, int64_t sp, int64_t so, int64_t sh, int splits,
-                   int split_len, float scale, cudaStream_t s) {
-  switch (rep) {
+// The arguments every entry point passes through to launch().
+struct Args {
+  const void *q, *k, *v, *page_table, *lengths;
+  void *o, *m_part, *l_part, *acc_part;
+  int slots, h, h_kv, page_size, pps;
+  int64_t stride_page, stride_off, stride_head;
+  int splits, split_len;
+  float scale;
+  Fp8Pages f8;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, int REP, bool FP8>
+cudaError_t launch_args(const Args& a) {
+  return launch<T, D, REP, FP8>(
+      a.q, a.k, a.v, a.page_table, a.lengths, a.o, a.m_part, a.l_part,
+      a.acc_part, a.slots, a.h, a.h_kv, a.page_size, a.pps, a.stride_page,
+      a.stride_off, a.stride_head, a.splits, a.split_len, a.scale, a.f8,
+      a.stream);
+}
+
+template <typename T, int D, bool FP8>
+cudaError_t by_rep(const Args& a) {
+  switch (a.h / a.h_kv) {
     case 1:
-      return launch<T, D, 1>(q, k, v, pt, len, o, mp, lp, ap, slots, h,
-                             h_kv, ps, pps, sp, so, sh, splits, split_len,
-                             scale, s);
+      return launch_args<T, D, 1, FP8>(a);
     case 2:
-      return launch<T, D, 2>(q, k, v, pt, len, o, mp, lp, ap, slots, h,
-                             h_kv, ps, pps, sp, so, sh, splits, split_len,
-                             scale, s);
+      return launch_args<T, D, 2, FP8>(a);
     case 4:
-      return launch<T, D, 4>(q, k, v, pt, len, o, mp, lp, ap, slots, h,
-                             h_kv, ps, pps, sp, so, sh, splits, split_len,
-                             scale, s);
+      return launch_args<T, D, 4, FP8>(a);
     case 8:
-      return launch<T, D, 8>(q, k, v, pt, len, o, mp, lp, ap, slots, h,
-                             h_kv, ps, pps, sp, so, sh, splits, split_len,
-                             scale, s);
+      return launch_args<T, D, 8, FP8>(a);
   }
   return cudaErrorInvalidValue;
+}
+
+template <bool FP8>
+int by_type(const Args& a, int d, int dtype) {
+  if (dtype == hvd::kBF16 && d == 128)
+    return (int)by_rep<__nv_bfloat16, 128, FP8>(a);
+  if (dtype == hvd::kBF16 && d == 64)
+    return (int)by_rep<__nv_bfloat16, 64, FP8>(a);
+  if (dtype == hvd::kF32 && d == 128) return (int)by_rep<float, 128, FP8>(a);
+  if (dtype == hvd::kF32 && d == 64) return (int)by_rep<float, 64, FP8>(a);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -464,29 +587,34 @@ extern "C" int hvd_flash_decode(const void* q, const void* k, const void* v,
                                 int64_t stride_head, int splits,
                                 int split_len, int dtype, float scale,
                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rep = h / h_kv;
-  if (dtype == hvd::kBF16 && d == 128)
-    return by_rep<__nv_bfloat16, 128>(rep, q, k, v, page_table, lengths, o,
-                                      m_part, l_part, acc_part, slots, h,
-                                      h_kv, page_size, pps, stride_page,
-                                      stride_off, stride_head, splits,
-                                      split_len, scale, s);
-  if (dtype == hvd::kBF16 && d == 64)
-    return by_rep<__nv_bfloat16, 64>(rep, q, k, v, page_table, lengths, o,
-                                     m_part, l_part, acc_part, slots, h,
-                                     h_kv, page_size, pps, stride_page,
-                                     stride_off, stride_head, splits,
-                                     split_len, scale, s);
-  if (dtype == hvd::kF32 && d == 128)
-    return by_rep<float, 128>(rep, q, k, v, page_table, lengths, o, m_part,
-                              l_part, acc_part, slots, h, h_kv, page_size,
-                              pps, stride_page, stride_off, stride_head,
-                              splits, split_len, scale, s);
-  if (dtype == hvd::kF32 && d == 64)
-    return by_rep<float, 64>(rep, q, k, v, page_table, lengths, o, m_part,
-                             l_part, acc_part, slots, h, h_kv, page_size,
-                             pps, stride_page, stride_off, stride_head,
-                             splits, split_len, scale, s);
-  return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, page_table, lengths, o, m_part, l_part, acc_part,
+               slots, h, h_kv, page_size, pps, stride_page, stride_off,
+               stride_head, splits, split_len, scale, Fp8Pages{},
+               static_cast<cudaStream_t>(stream)};
+  return by_type<false>(a, d, dtype);
+}
+
+// The same over a paged pool of which the pages cmask marks live in the
+// e4m3 pool kq/vq at ctable's page, with one f32 scale a row (kscale,
+// vscale: [pages, page_size]).  cmask is one byte per [slot, page].
+extern "C" int hvd_flash_decode_fp8(
+    const void* q, const void* k, const void* v, const void* page_table,
+    const void* lengths, const void* kq, const void* vq, const void* kscale,
+    const void* vscale, const void* ctable, const void* cmask, void* o,
+    void* m_part, void* l_part, void* acc_part, int slots, int h, int h_kv,
+    int d, int page_size, int pps, int64_t stride_page, int64_t stride_off,
+    int64_t stride_head, int splits, int split_len, int dtype, float scale,
+    void* stream) {
+  if (page_table == nullptr) return (int)cudaErrorInvalidValue;
+  const Fp8Pages f8{static_cast<const uint8_t*>(kq),
+                    static_cast<const uint8_t*>(vq),
+                    static_cast<const float*>(kscale),
+                    static_cast<const float*>(vscale),
+                    static_cast<const int*>(ctable),
+                    static_cast<const uint8_t*>(cmask)};
+  const Args a{q, k, v, page_table, lengths, o, m_part, l_part, acc_part,
+               slots, h, h_kv, page_size, pps, stride_page, stride_off,
+               stride_head, splits, split_len, scale, f8,
+               static_cast<cudaStream_t>(stream)};
+  return by_type<true>(a, d, dtype);
 }

@@ -46,6 +46,17 @@ KERNEL_CONTRACTS = {
         "note": "split-KV single-token attention read through the page "
                 "table, plus a log-sum-exp merge pass",
     },
+    "flash_decode_fp8": {
+        "source": "horovod_tpu_torch/ops/csrc/flash_decode.cu",
+        "site": "ops.attention.paged_decode_attention_fp8 (the decode "
+                "step of a compress=True cache)",
+        "replaces": "horovod_tpu/ops/attention.py::_flash_decode fed by "
+                    "horovod_tpu/serving/decode.py's e4m3 gather blend",
+        "note": "the paged decode, rows of pages cmask marks read from "
+                "the e4m3 pool at ctable's page and dequantised "
+                "(f32(e4m3) * scale, rounded to the pool type) in the "
+                "load",
+    },
     "bn_bwd_reduce": {
         "source": "horovod_tpu_torch/ops/csrc/bn_bwd.cu",
         "site": "ops.bn.bn_backward_reduce (bn_train's backward, every "

@@ -1,14 +1,29 @@
-"""Serving data plane on one GPU: paged KV cache, prefill, paged decode,
-LoRA banks, speculative decoding (drafters and the verify step),
-continuous-batching scheduler, open-loop load generator, engine."""
+"""Serving data plane on one GPU: paged KV cache (refcounted pages, fp8
+cold pages, the radix prefix cache), chunked prefill, paged decode, LoRA
+banks, speculative decoding, continuous-batching scheduler, open-loop
+load generator, engine; the KV-page wire codec, the fleet router, the
+scale policies, the fleet scaler and the disaggregated fleet.
 
+Not here (ROADMAP item 1.12, tp > 1): ``cache_sharding``,
+``decode_param_specs``; ``ServingControlPlane`` raises."""
+
+from .controlplane import FleetScaler, ServingControlPlane  # noqa: F401
 from .decode import (ServingDecodeStep, build_decode_step,  # noqa: F401
                      build_verify_step, greedy_sample, prefill_forward,
                      stack_adapters)
 from .engine import (RequestPrefetcher, ServingEngine,  # noqa: F401
                      ServingReport)
-from .kvcache import CacheConfig, PagedKVCache  # noqa: F401
-from .loadgen import LoadSpec, generate  # noqa: F401
+from .fleet import (DecodeWorker, FleetReport,  # noqa: F401
+                    HandoffTicket, PrefillWorker, ServingFleet)
+from .kvcache import CacheConfig, PagedKVCache, PrefixCache  # noqa: F401
+from .kvwire import (WirePages, decode_kv, encode_kv,  # noqa: F401
+                     import_pages, wire_tier)
+from .loadgen import (LoadSpec, fleet_spec, generate,  # noqa: F401
+                      long_prompt_spec, prefix_spec)
+from .policy import (Decision, FleetPolicy,  # noqa: F401
+                     FleetPolicyConfig, FleetSample, PolicyConfig,
+                     ScalePolicy, SLOSample, valid_tp_sizes)
+from .router import FleetRouter  # noqa: F401
 from .scheduler import (ContinuousBatchScheduler, Request,  # noqa: F401
                         TenantClass, parse_tenant_classes)
 from .spec import ModelDrafter, NgramDrafter  # noqa: F401

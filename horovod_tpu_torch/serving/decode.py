@@ -13,7 +13,10 @@ Counterpart of ``horovod_tpu/serving/decode.py``:
   slot's pages through the paged decode kernel
   (``ops/csrc/flash_decode.cu``), which reads the pool through the page
   table instead of gathering a per-slot view.  ``with_lora=True`` takes
-  banked adapters and a per-slot ``adapter_ids`` operand.
+  banked adapters and a per-slot ``adapter_ids`` operand;
+  ``compress=True`` takes the six e4m3 operands of a cache with fp8
+  cold pages and attends through the kernel's e4m3 variant
+  (:func:`~horovod_tpu_torch.ops.attention.paged_decode_attention_fp8`).
 * :func:`build_verify_step` -- speculative decoding's width-``k + 1``
   step: the decode step once a column, column ``j`` attending as row
   ``j`` of :func:`~horovod_tpu_torch.ops.attention.verify_attention`
@@ -25,8 +28,8 @@ in-step K/V write stay plain PyTorch (``torch.matmul``, ``torch.bmm``
 and indexing), as the JAX package leaves them to XLA.  In-tree
 ``lora_a``/``lora_b`` leaves apply in prefill and decode, as the JAX
 ``_dense`` / ``_node_lora`` apply them.  This package serves on one
-device: tensor parallelism and fp8 KV pages raise
-``NotImplementedError``.
+device: tensor parallelism raises ``NotImplementedError`` (ROADMAP item
+1.12).
 
 Dtypes.  The JAX package keeps f32 master kernels and casts them to the
 compute dtype inside every ``_dense`` call.  This port stores the
@@ -48,7 +51,8 @@ from torch.nn import functional as F
 
 from ..models.transformer import (LlamaConfig, default_positions, dense,
                                   rmsnorm, rotary_embedding, tied_readout)
-from ..ops.attention import flash_attention, paged_decode_attention
+from ..ops.attention import (flash_attention, paged_decode_attention,
+                             paged_decode_attention_fp8)
 from ..timeline import spans as _spans
 
 Params = Dict[str, torch.Tensor]
@@ -179,7 +183,8 @@ class ServingDecodeStep:
     """The batched single-token decode step.
 
     ``logits, k_pool, v_pool = step(params, k_pool, v_pool, tokens,
-    positions, page_table, active[, adapters, adapter_ids])``:
+    positions, page_table, active[, kq, vq, kscale, vscale, ctable,
+    cmask][, adapters, adapter_ids])``:
     ``tokens``/``positions``/``active`` are ``[slots]`` (current token,
     its absolute position == the live length before this step, slot
     liveness), ``page_table`` is ``[slots, pages_per_slot]`` int32.  The
@@ -194,13 +199,18 @@ class ServingDecodeStep:
     product (``bmm``: slot ``s`` multiplies its own pair).  In-tree
     ``lora_a``/``lora_b`` leaves (no banks) take the same per-slot
     product, so a slot's arithmetic is the same whether its adapter
-    comes from the tree or from a bank.  Each call is timed into the
-    span recorder under ``serving_decode``.
+    comes from the tree or from a bank.
+
+    ``compress``: the six operands of
+    :meth:`~.kvcache.PagedKVCache.compress_operands` follow ``active``
+    (the reference's order); a slot's pages that ``cmask`` marks are
+    read from the e4m3 pool.  Each call is timed into the span recorder
+    under ``serving_decode``.
     """
 
     def __init__(self, config: LlamaConfig, *, slots: int, page_size: int,
                  pages_per_slot: int, dtype, with_lora: bool = False,
-                 lora_alpha: float = 16.0):
+                 lora_alpha: float = 16.0, compress: bool = False):
         self.config = config
         self.slots = int(slots)
         self.page_size = int(page_size)
@@ -208,6 +218,7 @@ class ServingDecodeStep:
         self.dtype = dtype
         self.with_lora = bool(with_lora)
         self.lora_alpha = float(lora_alpha)
+        self.compress = bool(compress)
         self.scratch = self.slots * self.pages_per_slot
         # Each layer's (kernel, lora_a, lora_b) names a projection, built
         # once rather than in every step.
@@ -215,16 +226,32 @@ class ServingDecodeStep:
                              for leaf in ("kernel", "lora_a", "lora_b"))
                        for n in _PROJS] for li in range(config.num_layers)]
 
-    def __call__(self, params, k_pool, v_pool, tokens, positions,
-                 page_table, active, adapters=None, adapter_ids=None):
-        if (adapters is not None) != self.with_lora:
+    def split_extra(self, extra: tuple) -> tuple:
+        """The operands after ``active`` -> ``(fp8, adapters,
+        adapter_ids)``, refusing a set that does not match the build."""
+        fp8 = None
+        if self.compress:
+            if len(extra) < 6:
+                raise ValueError(
+                    "a step built with compress=True takes the six "
+                    "operands of PagedKVCache.compress_operands() after "
+                    "active")
+            fp8, extra = tuple(extra[:6]), extra[6:]
+        if len(extra) not in (0, 2) or bool(extra) != self.with_lora:
             raise ValueError(
                 "adapters/adapter_ids are the operands of a step built "
                 "with_lora=True, and it needs them")
+        adapters, ids = extra if extra else (None, None)
+        return fp8, adapters, ids
+
+    def __call__(self, params, k_pool, v_pool, tokens, positions,
+                 page_table, active, *extra):
+        fp8, adapters, adapter_ids = self.split_extra(extra)
         with _spans.recorder().span("dispatch", name="serving",
                                     leg="serving_decode"):
             return self._step(params, k_pool, v_pool, tokens, positions,
-                              page_table, active, adapters, adapter_ids)
+                              page_table, active, adapters, adapter_ids,
+                              fp8)
 
     def _weights(self, p: Params, li: int, adapters, ids, s: int):
         """Layer ``li``'s projections as ``(kernel, adapter pair or
@@ -244,7 +271,8 @@ class ServingDecodeStep:
 
     @torch.no_grad()
     def _step(self, p: Params, k_pool, v_pool, tokens, positions,
-              page_table, active, adapters=None, adapter_ids=None):
+              page_table, active, adapters=None, adapter_ids=None,
+              fp8=None):
         cfg, dtype, alpha = self.config, self.dtype, self.lora_alpha
         s = tokens.shape[0]
         emb = p["tok_embed"]
@@ -276,9 +304,16 @@ class ServingDecodeStep:
             # In-step cache write: each slot's K/V lands at (page, off).
             k_pool[li, page, off] = k[:, :, 0, :].to(k_pool.dtype)
             v_pool[li, page, off] = v[:, :, 0, :].to(v_pool.dtype)
-            o = paged_decode_attention(
-                q.to(dtype).contiguous(), k_pool[li], v_pool[li],
-                page_table, lengths)
+            if fp8 is None:
+                o = paged_decode_attention(
+                    q.to(dtype).contiguous(), k_pool[li], v_pool[li],
+                    page_table, lengths)
+            else:
+                kq, vq, ksc, vsc, ctable, cmask = fp8
+                o = paged_decode_attention_fp8(
+                    q.to(dtype).contiguous(), k_pool[li], v_pool[li],
+                    page_table, lengths, kq[li], vq[li], ksc[li], vsc[li],
+                    ctable, cmask)
             o = o.transpose(1, 2).reshape(s, 1, -1)
             x = x + proj(o, wo)
 
@@ -299,8 +334,10 @@ class ServingVerifyStep:
     calls of the width-1 decode step, column ``j`` at ``positions + j``.
 
     ``logits, k_pool, v_pool = verify(params, k_pool, v_pool, tokens,
-    positions, page_table, active)`` with ``tokens`` ``[slots, width]``
-    and ``logits`` f32 ``[slots, width, vocab]``.  Column ``j``'s
+    positions, page_table, active[, kq, vq, kscale, vscale, ctable,
+    cmask])`` with ``tokens`` ``[slots, width]`` and ``logits`` f32
+    ``[slots, width, vocab]``; the e4m3 operands (a ``compress=True``
+    build) go to every column.  Column ``j``'s
     attention reads ``lengths + j`` keys, row ``j`` of
     :func:`~horovod_tpu_torch.ops.attention.verify_attention`, and runs
     the plain step's shapes: a matmul over ``slots * width`` rows may take
@@ -317,7 +354,8 @@ class ServingVerifyStep:
         self.max_len = step.pages_per_slot * step.page_size
 
     def __call__(self, params, k_pool, v_pool, tokens, positions,
-                 page_table, active):
+                 page_table, active, *fp8):
+        fp8, _, _ = self.step.split_extra(fp8)
         logits = []
         with _spans.recorder().span("dispatch", name="serving",
                                     leg="serving_verify"):
@@ -327,7 +365,7 @@ class ServingVerifyStep:
                 out, k_pool, v_pool = self.step._step(
                     params, k_pool, v_pool, tokens[:, j],
                     torch.clamp(pos, max=self.max_len - 1), page_table,
-                    live)
+                    live, fp8=fp8)
                 logits.append(out)
         return torch.stack(logits, 1), k_pool, v_pool
 
@@ -337,23 +375,24 @@ def build_decode_step(config: LlamaConfig, *, slots: int, page_size: int,
                       tp: int = 1, with_lora: bool = False, width: int = 1,
                       compress: bool = False, lora_alpha: float = 16.0):
     """The single-device decode step (:class:`ServingDecodeStep`), or at
-    ``width > 1`` the verify step (:class:`ServingVerifyStep`).  ``tp >
-    1`` and ``compress`` (fp8 KV) are later slices and raise; so do LoRA
-    banks with ``width > 1``, as in the reference."""
+    ``width > 1`` the verify step (:class:`ServingVerifyStep`);
+    ``compress`` takes the e4m3 operands of a cache with fp8 cold pages.
+    ``tp > 1`` raises (ROADMAP item 1.12); so do LoRA banks with ``width
+    > 1``, as in the reference."""
     if tp != 1:
         raise NotImplementedError(
-            "tensor-parallel decode (tp > 1) is not ported yet")
+            "tensor-parallel decode (tp > 1) is not ported yet: it needs "
+            "parallel/tp.py (ROADMAP item 1.12)")
     if width < 1:
         raise ValueError(f"width must be >= 1, got {width}")
     if with_lora and width > 1:
         raise NotImplementedError(
             "speculative verify with per-slot LoRA banks is not wired; "
             "serve adapters with plain decode")
-    if compress:
-        raise NotImplementedError("fp8 KV pages are not ported yet")
     step = ServingDecodeStep(config, slots=slots, page_size=page_size,
                              pages_per_slot=pages_per_slot, dtype=dtype,
-                             with_lora=with_lora, lora_alpha=lora_alpha)
+                             with_lora=with_lora, lora_alpha=lora_alpha,
+                             compress=compress)
     return step if width == 1 else ServingVerifyStep(step, width)
 
 

@@ -15,6 +15,14 @@ Knobs (constructor argument, else environment, as in the reference):
 * ``HOROVOD_SERVING_PREFETCH`` -- request prefetch depth (default 2)
 * ``HOROVOD_SPEC_DECODE`` -- speculative decoding on/off (default off)
 * ``HOROVOD_SPEC_K`` -- draft tokens a speculative round (default 4)
+* ``HOROVOD_PREFILL_CHUNK`` -- chunked-prefill chunk length in tokens
+  (default 0: whole-prompt prefill)
+* ``HOROVOD_KV_COMPRESS`` -- fp8 cold KV pages (default off)
+* ``HOROVOD_PREFIX_CACHE`` -- the radix prefix cache over the page pool
+  (default off): a prompt that hits a cached prefix attaches the matched
+  pages (refcounted, copy-on-write) and prefills only its tail
+* ``HOROVOD_SESSION_TTL_STEPS`` -- engine steps a session's warm context
+  stays pinned without reuse (default 512)
 * ``HOROVOD_TENANT_CLASSES`` -- per-tenant SLO classes
 
 LoRA banks (``adapters=``, :func:`~.decode.stack_adapters`): each
@@ -25,11 +33,23 @@ a drafter (:mod:`.spec`, default :class:`~.spec.NgramDrafter`) proposes
 ``spec_k`` tokens a slot and one verify step of width ``spec_k + 1``
 scores them; the stream is plain greedy decode's.
 
-Not ported yet, and refused with ``NotImplementedError`` when asked for
-(by argument or by ``HOROVOD_PREFILL_CHUNK`` / ``HOROVOD_KV_COMPRESS`` /
-``HOROVOD_PREFIX_CACHE``): chunked prefill, fp8 KV pages, the prefix
-cache.  As in the reference, LoRA banks refuse speculation, fp8 pages
-and the prefix cache.
+Chunked prefill (``prefill_chunk``): a prompt longer than a chunk is
+prefilled one chunk a loop iteration (:meth:`ServingEngine._advance_chunks`,
+leg ``serving_prefill_chunk``), each chunk attending over the K/V of the
+ones before it, so the decode batch keeps stepping while a long prompt
+fills in.  fp8 KV pages (``kv_compress``): the cache compresses cold
+pages on demand and the decode and verify steps read them through the
+e4m3 variant of the decode kernel.  The prefix cache (``prefix_cache``):
+:class:`~.kvcache.PrefixCache` over the pool, with sessions pinned at
+``session_ttl_steps``.
+
+As in the reference, LoRA banks refuse speculation, fp8 pages and the
+prefix cache.  Unlike it, they also refuse chunked prefill, and a chunk
+gets the engine's ``lora_alpha``: the reference's chunk path calls
+``prefill_forward`` without the banks and without ``lora_alpha``
+(``horovod_tpu/serving/engine.py:266-269``), so a banked engine would
+prefill long prompts on the bare base, and in-tree adapters would get
+alpha 16 whatever the engine was given (ROADMAP §3).
 
 Two clocks, as in the reference: a VIRTUAL clock that fast-forwards
 idle gaps in the open-loop arrival schedule (TTFT is measured against
@@ -55,7 +75,7 @@ from ..timeline import metrics as _metrics
 from ..timeline import spans as _spans
 from .decode import (build_decode_step, build_verify_step, greedy_sample,
                      prefill_forward)
-from .kvcache import CacheConfig, PagedKVCache
+from .kvcache import CacheConfig, PagedKVCache, PrefixCache
 from .scheduler import (ContinuousBatchScheduler, Request,
                         parse_tenant_classes)
 from .spec import NgramDrafter
@@ -147,6 +167,19 @@ class ServingReport:
     proposed_tokens: int = 0
     accepted_tokens: int = 0
     acceptance_rate: float = 0.0
+    # Prefix cache (zero when it is off).
+    prefix_queries: int = 0
+    prefix_hits: int = 0
+    prefix_hit_rate: float = 0.0
+    prefill_tokens_cached: int = 0
+    # Fraction of prompt tokens whose prefill was skipped (matched pages
+    # attached instead of computed).
+    prefill_flops_avoided: float = 0.0
+    session_resumes: int = 0
+    # Prefill forward passes (whole prompts, prefix tails, chunks and
+    # re-prefills): each runs the flash forward once a layer.
+    prefill_forwards: int = 0
+    prefill_chunks: int = 0
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -156,13 +189,6 @@ def _pct(values: List[float], q: float) -> float:
     if not values:
         return 0.0
     return float(np.percentile(np.asarray(values, np.float64), q))
-
-
-def _refuse(flag: bool, what: str) -> None:
-    if flag:
-        raise NotImplementedError(
-            f"{what} is not ported to the PyTorch/CUDA package yet (see "
-            "ROADMAP: serving features left out of slice 1)")
 
 
 class ServingEngine:
@@ -175,8 +201,8 @@ class ServingEngine:
     request's ``Request.adapter_id`` choosing its adapter (the
     reference's ``adapter_ids=`` argument, which it never reads, is not
     taken); ``lora_alpha`` is the adapters' alpha, which also applies to
-    in-tree ``lora_a``/``lora_b`` leaves.  ``spec_decode`` / ``spec_k`` /
-    ``drafter``: see the module docstring."""
+    in-tree ``lora_a``/``lora_b`` leaves, in chunks too.  The other
+    knobs: see the module docstring."""
 
     def __init__(self, config, params, *, device=None, slots: int = 0,
                  page_size: int = 0, max_len: int = 0,
@@ -185,35 +211,41 @@ class ServingEngine:
                  spec_decode: Optional[bool] = None, spec_k: int = 0,
                  drafter=None, prefill_chunk: int = -1,
                  kv_compress: Optional[bool] = None,
-                 prefix_cache: Optional[bool] = None, tenants=None):
+                 prefix_cache: Optional[bool] = None,
+                 session_ttl_steps: int = 0, tenants=None):
         self.device = resolve_device(device)
         self.config = config
         self.params = params
         self.spec_decode = (_env_bool("SPEC_DECODE") if spec_decode is None
                             else bool(spec_decode))
         self.spec_k = spec_k or _env_int("SPEC_K", 4)
-        kv_compress = (_env_bool("KV_COMPRESS") if kv_compress is None
-                       else bool(kv_compress))
-        prefix_cache = (_env_bool("PREFIX_CACHE") if prefix_cache is None
-                        else bool(prefix_cache))
+        self.prefill_chunk = (_env_int("PREFILL_CHUNK", 0)
+                              if prefill_chunk < 0 else prefill_chunk)
+        self.kv_compress = (_env_bool("KV_COMPRESS") if kv_compress is None
+                            else bool(kv_compress))
+        self.prefix_cache = (_env_bool("PREFIX_CACHE")
+                             if prefix_cache is None else bool(prefix_cache))
+        self.session_ttl_steps = session_ttl_steps or _env_int(
+            "SESSION_TTL_STEPS", 512)
         if self.spec_decode and self.spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
         if adapters is not None and self.spec_decode:
             raise NotImplementedError(
                 "speculative decoding with LoRA banks is not wired; "
                 "run adapters through plain decode")
-        if adapters is not None and kv_compress:
+        if adapters is not None and self.kv_compress:
             raise NotImplementedError(
                 "fp8 KV compression with LoRA banks is not wired")
-        if adapters is not None and prefix_cache:
+        if adapters is not None and self.prefix_cache:
             raise NotImplementedError(
                 "prefix cache with LoRA banks is not wired: cached K/V "
                 "is keyed by tokens only, but LoRA'd wk/wv make K/V "
                 "adapter-dependent")
-        _refuse((_env_int("PREFILL_CHUNK", 0) if prefill_chunk < 0
-                 else prefill_chunk) > 0, "chunked prefill")
-        _refuse(kv_compress, "fp8 KV-cache compression")
-        _refuse(prefix_cache, "the prefix cache")
+        if adapters is not None and self.prefill_chunk > 0:
+            raise NotImplementedError(
+                "chunked prefill with LoRA banks is not wired: a chunk "
+                "would prefill on the bare base (the reference's chunk "
+                "path drops the banks); prefill adapters whole")
         self.slots = slots or _env_int("SERVING_SLOTS", 8)
         self.page_size = page_size or _env_int("SERVING_PAGE_SIZE", 16)
         self.max_len = max_len or _env_int("SERVING_MAX_LEN",
@@ -231,48 +263,141 @@ class ServingEngine:
             num_kv_heads=config.num_kv_heads, head_dim=config.head_dim,
             slots=self.slots, page_size=self.page_size,
             max_len=self.max_len,
-            dtype=str(dtype).replace("torch.", ""))
+            dtype=str(dtype).replace("torch.", ""),
+            compress=self.kv_compress)
         self.cache = PagedKVCache(self.cache_config, self.device)
         # Admission prices the widest step a slot can take: k drafts +
         # the target's bonus token under speculation, else 1.
         budget = self.spec_k + 1 if self.spec_decode else 1
         self.scheduler = ContinuousBatchScheduler(
             self.slots, self.cache, token_budget=budget, tenants=tenants)
+        # The radix prefix cache installs itself as the cache's reclaim
+        # callback: page pressure demotes or evicts cached prefixes
+        # before admission fails.
+        self._prefix: Optional[PrefixCache] = None
+        if self.prefix_cache:
+            self._prefix = PrefixCache(
+                self.cache, session_ttl_steps=self.session_ttl_steps)
         pps = self.cache_config.pages_per_slot
         self.step = build_decode_step(
             config, slots=self.slots, page_size=self.page_size,
             pages_per_slot=pps, dtype=dtype,
-            with_lora=adapters is not None, lora_alpha=lora_alpha)
+            with_lora=adapters is not None, lora_alpha=lora_alpha,
+            compress=self.kv_compress)
         self.verify_step = None
         self.drafter = None
         if self.spec_decode:
             self.verify_step = build_verify_step(
                 config, slots=self.slots, width=self.spec_k + 1,
-                page_size=self.page_size, pages_per_slot=pps, dtype=dtype)
+                page_size=self.page_size, pages_per_slot=pps, dtype=dtype,
+                compress=self.kv_compress)
             self.drafter = drafter if drafter is not None \
                 else NgramDrafter()
+        # In-progress chunked prefills: slot -> {req, dev, pos, start,
+        # past}.  Their slots stay in state "prefill", out of the decode
+        # batch, until the last chunk lands.
+        self._chunking: Dict[int, Dict[str, Any]] = {}
+        self._forwards = 0
 
-    def _prefill(self, tokens, req: Request):
+    def _prefill(self, tokens, req: Request, past=None):
+        """One prefill forward: the whole prompt with the request's
+        adapter, or (``past``) a chunk or prefix tail continuing cached
+        K/V, with the engine's ``lora_alpha`` for in-tree adapters."""
+        self._forwards += 1
+        if past is not None:
+            return prefill_forward(self.params, self.config, tokens,
+                                   dtype=self.dtype, past=past,
+                                   lora_alpha=self.lora_alpha)
         aid = req.adapter_id if self.adapters is not None else None
         return prefill_forward(self.params, self.config, tokens,
                                dtype=self.dtype, adapters=self.adapters,
                                adapter_id=aid, lora_alpha=self.lora_alpha)
 
     # -- one-request helpers ----------------------------------------------
-    def _do_prefill(self, slot: int, req: Request, prompt_dev) -> int:
+    def _begin_prefill(self, st: Dict[str, Any], slot: int, req: Request,
+                       dev, now) -> None:
+        """Admit one request into its slot: match the prompt against the
+        prefix cache (attach the matched pages, no compute), then prefill
+        the rest -- in chunks when it is longer than one."""
+        matched, entries = 0, ()
+        if self._prefix is not None:
+            matched, entries = self._prefix.match(req.prompt)
+            st["prefix_queries"] += 1
+            if matched:
+                st["prefix_hits"] += 1
+                st["prefill_cached"] += matched
+                self.cache.attach_pages(slot, entries, matched)
+            st["prefill_computed"] += req.prompt_len - matched
+            if req.session_id is not None and \
+                    self._prefix.touch_session(req.session_id) and matched:
+                st["session_resumes"] += 1
+        st["prefills"] += 1
+        if 0 < self.prefill_chunk < req.prompt_len - matched:
+            # A long tail: one chunk a loop iteration, decode between; a
+            # matched prefix seeds the running past from its pages.
+            past = self.cache.gather_pages(entries) if matched else None
+            self._chunking[slot] = {"req": req, "dev": dev, "pos": matched,
+                                    "start": matched, "past": past}
+        else:
+            first = self._do_prefill(slot, req, dev, matched=matched,
+                                     entries=entries)
+            self._join_decode(st, slot, req, first, now)
+
+    def _do_prefill(self, slot: int, req: Request, prompt_dev,
+                    matched: int = 0, entries: Sequence = ()) -> int:
         with _spans.recorder().span("dispatch", name="prefill",
                                     leg="serving_prefill"):
-            logits, kl, vl = self._prefill(prompt_dev[None], req)
-            self.cache.write_prefill(slot, kl[:, 0], vl[:, 0])
+            if matched:
+                # A prefix hit: only the tail runs, over the cached
+                # pages as past K/V.
+                past = self.cache.gather_pages(entries)
+                logits, kl, vl = self._prefill(prompt_dev[matched:][None],
+                                               req, past=past)
+                self.cache.write_prefill(slot, kl[:, 0, matched:],
+                                         vl[:, 0, matched:], start=matched)
+            else:
+                logits, kl, vl = self._prefill(prompt_dev[None], req)
+                self.cache.write_prefill(slot, kl[:, 0], vl[:, 0])
             first = int(greedy_sample(logits[:, -1, :])[0])
         return first
 
+    def _advance_chunks(self, st: Dict[str, Any], now) -> None:
+        """Push each chunked prefill on by one chunk.  The last chunk's
+        full-context K/V is scattered once, so chunked and whole prefill
+        leave the same cache layout."""
+        for slot in list(self._chunking):
+            c = self._chunking[slot]
+            req: Request = c["req"]
+            chunk = c["dev"][c["pos"]:c["pos"] + self.prefill_chunk]
+            with _spans.recorder().span("dispatch", name="prefill_chunk",
+                                        leg="serving_prefill_chunk"):
+                logits, kl, vl = self._prefill(chunk[None], req,
+                                               past=c["past"])
+            st["prefill_chunks"] += 1
+            c["past"] = (kl, vl)
+            c["pos"] += int(chunk.shape[0])
+            if c["pos"] < req.prompt_len:
+                continue
+            del self._chunking[slot]
+            start = c["start"]
+            self.cache.write_prefill(slot, kl[:, 0, start:],
+                                     vl[:, 0, start:], start=start)
+            first = int(greedy_sample(logits[:, -1, :])[0])
+            self._join_decode(st, slot, req, first, now)
+
     def _join_decode(self, st: Dict[str, Any], slot: int, req: Request,
                      first: int, now) -> None:
+        """Prefill done (whole or last chunk): the first token is
+        sampled and the request joins the decode batch; its full prompt
+        pages go into the prefix tree and its session is pinned."""
         req.tokens.append(first)
         self.scheduler.note_prefill(req, now())
         st["last_tokens"][slot] = first
         st["adapter_ids"][slot] = req.adapter_id
+        if self._prefix is not None:
+            self._prefix.insert(req.prompt, slot)
+            if req.session_id is not None:
+                self._prefix.pin_session(req.session_id, req.prompt)
         if self.drafter is not None:
             self.drafter.on_admit(slot, req)
         if req.finished:
@@ -284,6 +409,8 @@ class ServingEngine:
         st["completed"].append(self.scheduler.release(slot, now()))
 
     def _decode_slots(self) -> List[int]:
+        """Live slots minus chunking prefills and in-flight handoffs
+        (neither has its context resident yet)."""
         return [s for s, r in self.scheduler.active.items()
                 if r.state not in ("prefill", "handoff")]
 
@@ -305,15 +432,17 @@ class ServingEngine:
         cache = self.cache
         slots = self._decode_slots()
         for slot in slots:
-            cache.reserve(slot, int(cache.lengths[slot]) + 1)
+            length = int(cache.lengths[slot])
+            cache.reserve(slot, length + 1, writable_from=length)
         active = np.zeros((self.slots,), bool)
         active[slots] = True
         tokens = torch.tensor(st["last_tokens"], dtype=torch.long,
                               device=self.device)
         positions = cache.lengths_device().long()
-        extra = () if self.adapters is None else (
-            self.adapters, torch.tensor(st["adapter_ids"],
-                                        device=self.device))
+        extra = cache.compress_operands() if self.kv_compress else ()
+        if self.adapters is not None:
+            extra += (self.adapters, torch.tensor(st["adapter_ids"],
+                                                  device=self.device))
         t0 = time.monotonic()
         logits, cache.k, cache.v = self.step(
             self.params, cache.k, cache.v, tokens, positions,
@@ -360,19 +489,21 @@ class ServingEngine:
         for s in slots:
             # Room for the round's widest write, capped at the slot's
             # allotment (columns past max_len go to the scratch page).
-            cache.reserve(s, min(base[s] + width, self.max_len))
+            cache.reserve(s, min(base[s] + width, self.max_len),
+                          writable_from=base[s])
         drafts = self.drafter.propose(reqs, k, np.array(st["last_tokens"]))
         tokens_in = np.zeros((self.slots, width), np.int64)
         tokens_in[:, 0] = st["last_tokens"]
         tokens_in[:, 1:] = drafts
         active = np.zeros((self.slots,), bool)
         active[slots] = True
+        extra = cache.compress_operands() if self.kv_compress else ()
         t0 = time.monotonic()
         logits, cache.k, cache.v = self.verify_step(
             self.params, cache.k, cache.v,
             torch.tensor(tokens_in, device=self.device),
             cache.lengths_device().long(), cache.table_device(),
-            torch.tensor(active, device=self.device))
+            torch.tensor(active, device=self.device), *extra)
         sampled = greedy_sample(logits).cpu().numpy()   # [slots, width]
         # A nonfinite column anywhere in the window disqualifies the
         # slot's round (the agreeing-prefix walk would condition on it).
@@ -445,18 +576,20 @@ class ServingEngine:
         def now() -> float:
             return time.monotonic() - start + skip
 
-        st: Dict[str, Any] = {
-            "completed": [], "occ_samples": [], "decode_steps": 0,
-            "prefills": 0, "spec_rounds": 0, "proposed": 0, "accepted": 0,
-            "last_tokens": np.zeros((self.slots,), np.int64),
-            "adapter_ids": np.zeros((self.slots,), np.int64)}
+        st = self.new_state()
         completed: List[Request] = st["completed"]
         prompts_dev: Dict[int, Any] = {}
+        self._chunking.clear()
+        forwards0 = self._forwards
 
         with RequestPrefetcher(admissible, self.prefetch_depth,
                                self.device) as feed:
             fetched = next(feed, None)
             while True:
+                if self._prefix is not None:
+                    # The session-TTL clock ticks every iteration, idle
+                    # ones included, so pins always expire.
+                    self._prefix.tick()
                 # Pull every request whose arrival time has passed.
                 while fetched is not None and \
                         fetched[0].arrival_s <= now():
@@ -475,11 +608,10 @@ class ServingEngine:
                     continue
 
                 for slot, req in sched.admit(now()):
-                    dev = prompts_dev.pop(req.rid)
-                    first = self._do_prefill(slot, req, dev)
-                    st["prefills"] += 1
-                    self._join_decode(st, slot, req, first, now)
-
+                    self._begin_prefill(st, slot, req,
+                                        prompts_dev.pop(req.rid), now)
+                if self._chunking:
+                    self._advance_chunks(st, now)
                 if not self._decode_slots():
                     continue
                 # One round over the decode batch: a k-draft verify when
@@ -494,6 +626,9 @@ class ServingEngine:
         ttfts = [r.ttft_s for r in completed if r.ttft_s is not None]
         lats = [lat for r in completed for lat in r.token_latencies]
         proposed, accepted = int(st["proposed"]), int(st["accepted"])
+        pq, ph = int(st["prefix_queries"]), int(st["prefix_hits"])
+        cached, computed = int(st["prefill_cached"]), \
+            int(st["prefill_computed"])
         return ServingReport(
             num_requests=len(requests), completed=len(completed),
             rejected=rejected,
@@ -509,4 +644,24 @@ class ServingEngine:
                             if st["occ_samples"] else 0.0),
             spec_rounds=int(st["spec_rounds"]), proposed_tokens=proposed,
             accepted_tokens=accepted,
-            acceptance_rate=(accepted / proposed if proposed else 0.0))
+            acceptance_rate=(accepted / proposed if proposed else 0.0),
+            prefix_queries=pq, prefix_hits=ph,
+            prefix_hit_rate=(ph / pq if pq else 0.0),
+            prefill_tokens_cached=cached,
+            prefill_flops_avoided=(cached / (cached + computed)
+                                   if cached + computed else 0.0),
+            session_resumes=int(st["session_resumes"]),
+            prefill_forwards=self._forwards - forwards0,
+            prefill_chunks=int(st["prefill_chunks"]))
+
+    def new_state(self) -> Dict[str, Any]:
+        """A fresh per-run state dict for :meth:`decode_once` and the
+        prefill helpers (``serve`` and the fleet's decode workers)."""
+        return {
+            "completed": [], "occ_samples": [], "decode_steps": 0,
+            "prefills": 0, "prefill_chunks": 0, "spec_rounds": 0,
+            "proposed": 0, "accepted": 0, "prefix_queries": 0,
+            "prefix_hits": 0, "prefill_cached": 0, "prefill_computed": 0,
+            "session_resumes": 0,
+            "last_tokens": np.zeros((self.slots,), np.int64),
+            "adapter_ids": np.zeros((self.slots,), np.int64)}

@@ -255,7 +255,16 @@ def test_cpu_path_never_counts_a_launch():
         ).backward()
     qd, kd, vd, lengths = _decode_inputs(9)
     tattn.decode_attention(_t(qd), _t(kd), _t(vd), lengths=_t(lengths))
-    families = {"flash", "flash_decode", "flash_bwd_dq", "flash_bwd_dkv",
+    pool = torch.zeros(5, 4, 2, 8)
+    table = torch.arange(4, dtype=torch.int32).view(2, 2)
+    tattn.paged_decode_attention_fp8(
+        torch.ones(2, 4, 1, 8), pool, pool, table,
+        torch.tensor([3, 8], dtype=torch.int32),
+        pool.to(torch.float8_e4m3fn), pool.to(torch.float8_e4m3fn),
+        torch.ones(5, 4), torch.ones(5, 4), table,
+        torch.tensor([[True, False], [False, True]]))
+    families = {"flash", "flash_decode", "flash_decode_fp8",
+                "flash_bwd_dq", "flash_bwd_dkv",
                 "bn_bwd_reduce", "bn_bwd_dx", "fused_update_matricize_p",
                 "fused_update_orthonormalize_q", "fused_update_reconstruct"}
     assert registry.launch_counts() == dict.fromkeys(families, 0)

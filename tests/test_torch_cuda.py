@@ -511,14 +511,88 @@ def test_cuda_int8_dense_forward_and_backward_match_f32(cuda):
         _grad_tol(x32.grad, torch.bfloat16)
 
 
+def _fp8_pages(rng, kp, vp, table, lengths, ps, cuda):
+    """Half the full pages below each slot's length (every other one)
+    moved to e4m3 pools as ``PagedKVCache.compress_cold`` moves them: one
+    scale a (page, offset) row, the page's table entry pointed at the
+    scratch page.  Returns the fp8 operands, the table the kernel reads
+    and the pools with the dequantised rows written back at the old
+    pages."""
+    from horovod_tpu_torch.serving.kvcache import _quantize_pages
+    npages = kp.shape[0]
+    slots, pps = table.shape
+    cmask = torch.zeros((slots, pps), dtype=torch.bool)
+    for s, n in enumerate(lengths):
+        cmask[s, :n // ps:2] = True
+    ctable = torch.from_numpy(rng.permutation(slots * pps).astype(np.int32)
+                              ).view(slots, pps)
+    pids = table.cpu()[cmask].long().to(cuda)
+    cp = ctable[cmask].long().to(cuda)
+    kq = torch.zeros(kp.shape, dtype=torch.float8_e4m3fn, device=cuda)
+    vq = torch.zeros_like(kq)
+    ksc = torch.ones(kp.shape[:2], dtype=torch.float32, device=cuda)
+    vsc = torch.ones_like(ksc)
+    deq_k, deq_v = kp.clone(), vp.clone()
+    for pool, qpool, sc, deq in ((kp, kq, ksc, deq_k), (vp, vq, vsc, deq_v)):
+        q, scale = _quantize_pages(pool[None], pids)
+        qpool.view(torch.uint8)[cp] = q[0].view(torch.uint8)
+        sc[cp] = scale[0]
+        deq[pids] = (q[0].float() * scale[0][..., None, None]).to(pool.dtype)
+    read_table = table.clone()
+    read_table[cmask.to(cuda)] = npages - 1      # the scratch page
+    fp8 = (kq, vq, ksc, vsc, ctable.to(cuda), cmask.to(cuda))
+    return fp8, read_table, deq_k, deq_v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,h,h_kv", [(128, 32, 8), (64, 8, 1)])
+def test_cuda_fp8_decode_bitwise_plain_kernel_on_dequantised_pool(
+        cuda, dtype, d, h, h_kv):
+    """The e4m3 variant at the edge lengths, half the live pages
+    compressed and their old pages full of garbage: bitwise the plain
+    decode kernel over a pool holding the dequantised rows at the old
+    pages, within the decode tolerance of its plain version, exactly 0
+    at length 0, and one fp8 launch a call."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(30)
+    ps, max_len = 16, 4096
+    slots, pps = len(DECODE_LENGTHS), max_len // ps
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=cuda)
+    table = torch.from_numpy(rng.permutation(slots * pps).astype(np.int32)
+                             ).view(slots, pps).to(cuda)
+    kp, vp = _decode_pool(rng, DECODE_LENGTHS, table, ps, h_kv, d, dt, cuda)
+    fp8, read_table, deq_k, deq_v = _fp8_pages(rng, kp, vp, table,
+                                               DECODE_LENGTHS, ps, cuda)
+    q = _randn(rng, slots, h, 1, d).to(cuda, dt)
+    registry.reset_launch_counts()
+    got = tattn.paged_decode_attention_fp8(q, kp, vp, read_table, lengths,
+                                           *fp8)
+    assert registry.launches("flash_decode_fp8") == 1
+    assert registry.launches("flash_decode") == 0
+    plain = tattn.paged_decode_attention(q, deq_k, deq_v, table, lengths)
+    assert torch.equal(got, plain)
+    want = tattn.paged_decode_attention_fp8(q, kp, vp, read_table, lengths,
+                                            *fp8, force_reference=True)
+    assert registry.launches("flash_decode_fp8") == 1
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want, dt)
+    assert got[0].abs().max().item() == 0.0
+    # No page compressed: bitwise the plain kernel on the same pool.
+    none = (*fp8[:5], torch.zeros_like(fp8[5]))
+    assert torch.equal(
+        tattn.paged_decode_attention_fp8(q, kp, vp, table, lengths, *none),
+        tattn.paged_decode_attention(q, kp, vp, table, lengths))
+
+
 @pytest.mark.cuda
 def test_cuda_decode_kernels_do_not_spill(cuda):
     """Every decode instantiation (two dtypes x two head dims x four group
-    sizes, and the merges) keeps everything in registers."""
+    sizes, over one pool and with e4m3 pages, and the merges) keeps
+    everything in registers."""
     usage = _build.resource_usage("flash_decode")
     split = [n for n in usage if "decode_split_kernel" in n]
     merge = [n for n in usage if "decode_merge_kernel" in n]
-    assert len(split) == 16 and len(merge) == 4, sorted(usage)
+    assert len(split) == 32 and len(merge) == 4, sorted(usage)
     for name, u in usage.items():
         assert u.get("STACK", 0) == 0 and u.get("LOCAL", 0) == 0, (name, u)
 

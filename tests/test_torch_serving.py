@@ -240,17 +240,18 @@ def test_decode_step_and_pools_match_jax(serve_params):
 
 
 def test_decode_step_refuses_later_slices():
-    # LoRA banks and the verify width are ported; tp > 1, fp8 pages and
-    # banks at width > 1 (refused by the reference too) still raise.
-    for kw in (dict(tp=2), dict(compress=True),
-               dict(with_lora=True, width=3)):
+    # LoRA banks, the verify width and fp8 pages are ported; tp > 1
+    # (item 1.12) and banks at width > 1 (refused by the reference too)
+    # still raise.
+    for kw in (dict(tp=2), dict(with_lora=True, width=3)):
         with pytest.raises(NotImplementedError):
             build_decode_step(LLAMA_SERVE, slots=2, page_size=4,
                               pages_per_slot=2, **kw)
     with pytest.raises(ValueError, match="width"):
         build_decode_step(LLAMA_SERVE, slots=2, page_size=4,
                           pages_per_slot=2, width=0)
-    for kw in (dict(with_lora=True), dict(width=3)):
+    for kw in (dict(with_lora=True), dict(width=3), dict(compress=True),
+               dict(compress=True, width=3)):
         build_decode_step(LLAMA_SERVE, slots=2, page_size=4,
                           pages_per_slot=2, **kw)
 
@@ -273,9 +274,12 @@ def test_kvcache_accounting_and_explicit_copies():
     cache.free_slot(0)
     assert cache.free_pages == 2 and cache.lengths[0] == 0
     assert cache.refcounts_balanced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CacheConfig(num_layers=1, num_kv_heads=1, head_dim=4, slots=1,
-                    page_size=4, max_len=8, compress=True)
+    # fp8 cold pages are ported: the e4m3 pools sit beside the pools.
+    fp8 = PagedKVCache(CacheConfig(num_layers=1, num_kv_heads=1, head_dim=4,
+                                   slots=1, page_size=4, max_len=8,
+                                   compress=True), device="cpu")
+    assert fp8.kq.dtype == torch.float8_e4m3fn
+    assert fp8.kq.shape == fp8.k.shape and fp8.compressed_pages == 0
 
 
 # ---------------------------------------------------------------------------
@@ -327,17 +331,23 @@ def test_engine_rejects_oversize_and_refuses_later_slices(serve_params,
     reqs[1].prompt = np.arange(14, dtype=np.int32)   # 14 + 3 > 16
     rep = eng.serve(reqs)
     assert rep.completed == 1 and rep.rejected == 1
-    # Speculative decoding and LoRA banks are ported (their own test
-    # files); chunked prefill, fp8 pages and the prefix cache still
-    # raise, and banks refuse speculation as the reference does.
+    # Speculative decoding, LoRA banks, chunked prefill, fp8 pages and
+    # the prefix cache are ported (their own test files); banks refuse
+    # speculation, fp8 pages and the prefix cache as the reference does,
+    # and chunked prefill besides.
     for kw in (dict(prefill_chunk=8), dict(kv_compress=True),
-               dict(prefix_cache=True),
-               dict(adapters={}, spec_decode=True)):
+               dict(prefix_cache=True)):
+        ServingEngine(LLAMA_SERVE, tparams, device="cpu", **kw)
+    for kw in (dict(spec_decode=True), dict(kv_compress=True),
+               dict(prefix_cache=True), dict(prefill_chunk=8)):
         with pytest.raises(NotImplementedError):
-            ServingEngine(LLAMA_SERVE, tparams, device="cpu", **kw)
+            ServingEngine(LLAMA_SERVE, tparams, device="cpu", adapters={},
+                          **kw)
     monkeypatch.setenv("HOROVOD_PREFILL_CHUNK", "8")
     with pytest.raises(NotImplementedError):
-        ServingEngine(LLAMA_SERVE, tparams, device="cpu")
+        ServingEngine(LLAMA_SERVE, tparams, device="cpu", adapters={})
+    assert ServingEngine(LLAMA_SERVE, tparams, device="cpu"
+                         ).prefill_chunk == 8
     monkeypatch.delenv("HOROVOD_PREFILL_CHUNK")
     monkeypatch.setenv("HVD_TPU_SERVING_SLOTS", "3")
     monkeypatch.setenv("HOROVOD_SERVING_SLOTS", "5")
