@@ -308,7 +308,10 @@ Phases, each printing its own line; any failure exits non-zero:
    ``kv_compress`` engine, its pages bitwise ``demote_page``'s.
    Phase 3 holds the flash forward at tq 512 x tk 4096 and the decode
    kernel's e4m3 variant at 8 slots x 2048 keys (half the pages
-   compressed) bitwise the plain kernel over the dequantised pool.
+   compressed) bitwise the plain kernel over the dequantised pool, at
+   page 16 (timed) and at page 8 (every 16-key tile mixing e4m3 and
+   bf16 rows), with the split kernel's registers, shared memory and
+   CTAs an SM beside its uncompressed twin's.
 
 Phase 17 also holds ``chunked_allreduce`` (equal to ``allreduce`` at
 world 1) and ``fp8_allreduce`` (bitwise its round trip) on its 64 MiB
@@ -653,16 +656,17 @@ def check_decode(attn, dev) -> dict:
     return head
 
 
-def check_decode_fp8(attn, dev) -> dict:
-    """The decode kernel's e4m3 variant at 8 slots x 2048 live keys,
-    every other full page compressed as ``PagedKVCache.compress_cold``
-    moves it (one scale a row; its table entry pointed at the garbage
-    scratch page): bitwise the plain decode kernel over a pool holding
-    the dequantised rows at the old pages, within the bf16 tolerance of
-    its plain version, bitwise repeatable.  Returns the JSON entry."""
+def fp8_decode_case(dev, ps: int, seed: int, every: int = 2) -> tuple:
+    """8 slots x 2048 live keys of 4096, Llama-3 8B heads, bf16, at page
+    size ``ps``; every ``every``-th full page (none at 0) compressed as
+    ``PagedKVCache.compress_cold`` moves it (one scale a row; its table
+    entry pointed at the garbage scratch page).  Returns ``(q, kp, vp,
+    read, lengths, fp8, deq_k, deq_v, table)``: the pools and the table
+    the e4m3 variant reads, and the pools holding the dequantised rows at
+    the old pages with the table the plain kernel reads."""
     from horovod_tpu_torch.serving.kvcache import _quantize_pages
-    gen = torch.Generator(device=dev).manual_seed(5)
-    slots, ps, max_len, h, hkv, d, n = 8, 16, 4096, 32, 8, 128, 2048
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    slots, max_len, h, hkv, d, n = 8, 4096, 32, 8, 128, 2048
     pps = max_len // ps
     npages = slots * pps
     table = torch.randperm(npages, generator=gen, device=dev).view(
@@ -677,7 +681,8 @@ def check_decode_fp8(attn, dev) -> dict:
                            device=dev)
     kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
     cmask = torch.zeros((slots, pps), dtype=torch.bool, device=dev)
-    cmask[:, :n // ps:2] = True
+    if every:
+        cmask[:, :n // ps:every] = True
     ctable = torch.randperm(npages, generator=gen, device=dev).view(
         slots, pps).to(torch.int32).contiguous()
     pids, cp = table[cmask].long(), ctable[cmask].long()
@@ -686,7 +691,8 @@ def check_decode_fp8(attn, dev) -> dict:
     ksc = torch.ones(kp.shape[:2], dtype=torch.float32, device=dev)
     vsc = torch.ones_like(ksc)
     deq_k, deq_v = kp.clone(), vp.clone()
-    for pool, qpool, sc, deq in ((kp, kq, ksc, deq_k), (vp, vq, vsc, deq_v)):
+    pools = ((kp, kq, ksc, deq_k), (vp, vq, vsc, deq_v)) if every else ()
+    for pool, qpool, sc, deq in pools:
         q8, scale = _quantize_pages(pool[None], pids)
         qpool.view(torch.uint8)[cp] = q8[0].view(torch.uint8)
         sc[cp] = scale[0]
@@ -694,54 +700,89 @@ def check_decode_fp8(attn, dev) -> dict:
             pool.dtype)
     read = table.clone()
     read[cmask] = npages                     # the scratch page: garbage
-    fp8 = (kq, vq, ksc, vsc, ctable, cmask)
     q = torch.randn(slots, h, 1, d, generator=gen, device=dev).to(
         torch.bfloat16)
+    return (q, kp, vp, read, lengths, (kq, vq, ksc, vsc, ctable, cmask),
+            deq_k, deq_v, table)
 
-    def run():
-        return attn.paged_decode_attention_fp8(q, kp, vp, read, lengths,
-                                               *fp8)
 
-    o = run()
-    plain_kernel = attn.paged_decode_attention(q, deq_k, deq_v, table,
-                                               lengths)
-    o_ref = attn.paged_decode_attention_fp8(q, kp, vp, read, lengths, *fp8,
-                                            force_reference=True)
-    torch.cuda.synchronize()
-    bitwise = torch.equal(o, plain_kernel)
-    repeat = torch.equal(o, run())
-    err = (o.float() - o_ref.float()).abs().max().item()
-    tol = BF16_TOL * o_ref.float().abs().max().item()
-    ok = bitwise and repeat and err <= tol and bool(
-        torch.isfinite(o.float()).all())
-    # Bytes read once: e4m3 rows and a 4-byte scale each, bf16 rows, q
-    # and o, the two tables (int32), the mask (a byte) and the lengths.
-    cold = int(cmask.sum()) * ps
-    hot = slots * n - cold
-    nbytes = (2 * cold * (hkv * d + 4) + 2 * hot * hkv * d * 2
-              + 2 * q.numel() * 2 + slots * (9 * pps + 4))
-    bms, by = bound_ms(4.0 * h * slots * n * d, nbytes)
-    ms = graph_ms(run)
-    off_ms = graph_ms(lambda: attn.paged_decode_attention(
-        q, deq_k, deq_v, table, lengths))
-    plain = time_ms(lambda: attn.paged_decode_attention_fp8(
-        q, kp, vp, read, lengths, *fp8, force_reference=True), reps=5)
-    rec = {"phase": "kernel", "kernel": "flash_decode_fp8",
-           "dtype": "bfloat16", "slots": slots, "keys": n,
-           "compressed_pages": int(cmask.sum()), "max_abs_err": err,
-           "tol": tol, "bitwise_plain_kernel_on_dequantised_pool": bitwise,
-           "bitwise_repeat": repeat, "ms": ms,
-           "uncompressed_kernel_ms": off_ms, "plain_ms": plain,
-           "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ok": ok}
-    log(rec)
-    if not ok:
-        raise AssertionError(f"flash_decode_fp8 disagrees: {rec}")
-    return {"name": "flash_decode_fp8", "route": "cuda",
-            "source": "horovod_tpu_torch/ops/csrc/flash_decode.cu",
-            "replaces": "horovod_tpu/ops/attention.py:312 with the e4m3 "
-                        "gather blend at horovod_tpu/serving/decode.py:397",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+def check_decode_fp8(attn, dev) -> dict:
+    """The decode kernel's e4m3 variant at 8 slots x 2048 live keys, every
+    other full page compressed: at page 16 (a 16-key tile is one page,
+    all e4m3 or all bf16) and at page 8 (every tile mixes compressed and
+    plain rows).  Each is bitwise the plain decode kernel over a pool
+    holding the dequantised rows at the old pages, within the bf16
+    tolerance of its plain version, and bitwise repeatable; both records
+    carry the split kernel's registers, shared memory a CTA and CTAs an
+    SM beside its uncompressed twin's.  Returns the page-16 JSON entry,
+    timed from a replayed graph beside the uncompressed kernel on the
+    dequantised pool in the same call."""
+    rep = 32 // 8
+    resources = {
+        "fp8": attn.decode_resources(torch.bfloat16, 128, rep, fp8=True),
+        "plain": attn.decode_resources(torch.bfloat16, 128, rep)}
+    head = None
+    for ps, seed in ((16, 5), (8, 6)):
+        q, kp, vp, read, lengths, fp8, deq_k, deq_v, table = \
+            fp8_decode_case(dev, ps, seed)
+
+        def run():
+            return attn.paged_decode_attention_fp8(q, kp, vp, read,
+                                                   lengths, *fp8)
+
+        o = run()
+        plain_kernel = attn.paged_decode_attention(q, deq_k, deq_v, table,
+                                                   lengths)
+        o_ref = attn.paged_decode_attention_fp8(
+            q, kp, vp, read, lengths, *fp8, force_reference=True)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(o, plain_kernel)
+        repeat = torch.equal(o, run())
+        err = (o.float() - o_ref.float()).abs().max().item()
+        tol = BF16_TOL * o_ref.float().abs().max().item()
+        ok = bitwise and repeat and err <= tol and bool(
+            torch.isfinite(o.float()).all())
+        cmask = fp8[5]
+        rec = {"phase": "kernel", "kernel": "flash_decode_fp8",
+               "dtype": "bfloat16", "page_size": ps,
+               "slots": q.shape[0], "keys": int(lengths[0]),
+               "compressed_pages": int(cmask.sum()), "max_abs_err": err,
+               "tol": tol,
+               "bitwise_plain_kernel_on_dequantised_pool": bitwise,
+               "bitwise_repeat": repeat, "split_kernel": resources}
+        if ps == 16:
+            # Bytes read once: e4m3 rows and a 4-byte scale each, bf16
+            # rows, q and o, the two tables (int32), the mask (a byte)
+            # and the lengths.
+            slots, pps = cmask.shape
+            hkv, d, n = kp.shape[2], kp.shape[3], int(lengths[0])
+            cold = int(cmask.sum()) * ps
+            hot = slots * n - cold
+            nbytes = (2 * cold * (hkv * d + 4) + 2 * hot * hkv * d * 2
+                      + 2 * q.numel() * 2 + slots * (9 * pps + 4))
+            bms, by = bound_ms(4.0 * q.shape[1] * slots * n * d, nbytes)
+            ms = graph_ms(run)
+            off_ms = graph_ms(lambda: attn.paged_decode_attention(
+                q, deq_k, deq_v, table, lengths))
+            plain = time_ms(lambda: attn.paged_decode_attention_fp8(
+                q, kp, vp, read, lengths, *fp8, force_reference=True),
+                reps=5)
+            rec.update(ms=ms, uncompressed_kernel_ms=off_ms,
+                       plain_ms=plain, bound_ms=bms, bound_by=by,
+                       bytes=nbytes, bound_share=bms / ms)
+            head = {"name": "flash_decode_fp8", "route": "cuda",
+                    "source": "horovod_tpu_torch/ops/csrc/flash_decode.cu",
+                    "replaces": "horovod_tpu/ops/attention.py:312 with the "
+                                "e4m3 gather blend at "
+                                "horovod_tpu/serving/decode.py:397",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                    "bound_ms": bms, "bound_by": by, "library_ms": None}
+        rec["ok"] = ok
+        log(rec)
+        if not ok:
+            raise AssertionError(f"flash_decode_fp8 disagrees: {rec}")
+        del kp, vp, deq_k, deq_v, fp8
+    return head
 
 
 def check_flash_bwd(attn, dev) -> tuple:

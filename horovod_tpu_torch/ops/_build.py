@@ -39,7 +39,8 @@ _F = ctypes.c_float
 
 # C entry points: name -> (source, symbol, argtypes).  A source may
 # export several entry points (``flash_decode.cu``: the paged decode
-# over one pool and over a pool with e4m3 cold pages; ``flash_bwd.cu``:
+# over one pool and over a pool with e4m3 cold pages, and the split
+# kernel's resources; ``flash_bwd.cu``:
 # dq and dk/dv;
 # ``bn_bwd.cu``: the BatchNorm backward's two passes; ``fused_update.cu``:
 # the three PowerSGD stages).  Every
@@ -77,6 +78,9 @@ ENTRIES = {
         _I, _I,              # splits, keys per split
         _I, _F,              # dtype, scale
         _P]),                # stream
+    "flash_decode_resources": ("flash_decode", "hvd_flash_decode_resources", [
+        _I, _I, _I, _I,      # d, dtype, group size, fp8
+        _P]),                # int[3]: registers, shared bytes, CTAs an SM
     "flash_bwd_dq": ("flash_bwd", "hvd_flash_bwd_dq", [
         _P, _P, _P, _P,      # q, k, v, dO
         _P, _P,              # lse, delta (f32)

@@ -43,6 +43,7 @@ Kernels (``ops/csrc``):
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -556,6 +557,19 @@ def _decode_cuda(q, k, v, lengths, page_table, *, scale: float,
     return o
 
 
+def decode_resources(dtype, d: int, rep: int, fp8: bool = False) -> dict:
+    """The decode split kernel's registers a thread, dynamic shared memory
+    a CTA (bytes) and CTAs an SM (the occupancy API) for ``dtype``, head
+    dim ``d`` and group size ``rep``, over one pool or (``fp8``) with
+    e4m3 pages, as the card's runtime reports them."""
+    out = (ctypes.c_int * 3)()
+    err = entry("flash_decode_resources")(d, _DTYPES[dtype], rep, int(fp8),
+                                          ctypes.addressof(out))
+    check_launch("flash_decode_resources", err)
+    return {"registers": out[0], "smem_bytes": out[1],
+            "ctas_per_sm": out[2]}
+
+
 def _check_decode_args(q, h_kv, lengths):
     if q.dim() != 4 or q.shape[2] != 1:
         raise ValueError(f"decode attention expects a single-token query "
@@ -753,5 +767,5 @@ __all__ = ["attention_reference", "flash_attention", "flash_backward_dq",
            "flash_attention_backward_reference", "decode_attention",
            "paged_decode_attention", "paged_decode_attention_fp8",
            "verify_attention", "gather_pages", "blend_pages",
-           "decode_splits",
+           "decode_splits", "decode_resources",
            "attention_flops"]

@@ -53,14 +53,42 @@
 // by horovod_tpu/serving/decode.py's gather blend, :397-404).  A page
 // whose cmask[slot, i] is set lives in the e4m3 pool at ctable[slot, i],
 // one f32 scale per (page, offset) row; its page_table entry is the
-// scratch page and is never read.  load_tile reads such a row's e4m3
-// bytes with plain loads, forms f32(e4m3) * scale, rounds it to the pool
-// type T (the reference's .astype(view.dtype)) and stores it into the
-// same swizzled tile slot the cp.async of a T row fills.  From there on
-// the two variants run the same code, so a step over compressed pages is
-// bitwise the uncompressed kernel over a pool holding the dequantised
-// rows.  The uncompressed instantiations (FP8 = false) compile the same
-// instructions as before: every fp8 branch is `if constexpr`.
+// scratch page and is never read.  A compressed row moves half the bytes
+// of a bf16 row and keeps every copy in flight, as a plain row does:
+//   * the loader (load_tile_fp8) copies a compressed row's D raw e4m3
+//     bytes with 16-byte cp.async into the first D / 16 chunks of the
+//     row's tile slot (the T row's XOR swizzle, so both passes below read
+//     without bank conflicts), and its K and V scales with 4-byte
+//     cp.async into a [2][TK] f32 array beside each stage; it converts
+//     nothing and never waits on its own copies.  Its page-table, ctable
+//     and cmask lookups are loaded a tile ahead;
+//   * a tile's rows are a 16-bit mask kept in registers (a ballot at
+//     load): all e4m3 (every live row compressed; rows past the length
+//     then read as zero bytes with scale 0), all T, or mixed.  At page 16
+//     a tile is one page, so the choice is warp-uniform; at a page size
+//     that splits a tile (4, 8, 24, ...) a mixed tile's e4m3 rows are
+//     widened in place into T rows (widen_rows) and it reads as all T;
+//   * the score and P V passes widen an e4m3 row at use: f32(e4m3) *
+//     scale (__fmul_rn), rounded to T (the reference's .astype(view.dtype))
+//     and widened back to f32, then the same products and sums in the same
+//     order as for a T row.  So a step over compressed pages is bitwise the
+//     uncompressed kernel over a pool holding the dequantised rows.
+// What bounds it is not the bytes.  A tile of e4m3 rows moves half a bf16
+// tile's bytes but costs its warp about 3.5 more instructions a value (the
+// e4m3x2 -> f16x2 conversion, f16 -> f32, the scale product, the rounding
+// to bf16) on top of the FMAs, and such a warp's loop runs as long with
+// every copy an L2 hit as from HBM (profile_torch_decode.py): at two CTAs
+// (eight warps) an SM it waits on its own instructions.  A split's CTA
+// ends with its slowest warp; with every other page compressed, warps 0
+// and 2 take every e4m3 tile, so their widening is the critical path.
+// Code a tile does not run still slows it, so mixed tiles have no compute
+// path of their own and the e4m3 score loop is unrolled by two.  The e4m3
+// row fits in half (bf16) or a quarter (f32) of its slot; the scales add
+// 1.5 KB a CTA, and every FP8 instantiation keeps as many CTAs an SM as
+// its FP8 = false twin.  The uncompressed instantiations compile the same
+// instructions as before: every fp8 branch is `if constexpr`, and their
+// score and P V loops stay inline in the kernel (compiled through
+// tile_dot and tile_pv, they allocate registers differently).
 
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -75,6 +103,7 @@ constexpr int NW = 4;          // warps per CTA
 constexpr int NT = 32 * NW;
 constexpr int TK = 16;         // keys per warp tile
 constexpr int STAGES = 3;      // ring depth per warp
+constexpr uint32_t ALL_ROWS = (1u << TK) - 1;   // a tile's rows as bits
 
 // The e4m3 pool of one layer of a compress=True cache (unused when FP8 is
 // false).  kq/vq have the pool's element layout; the scales are
@@ -91,10 +120,12 @@ struct Fp8Pages {
 template <typename T, int D>
 __host__ __device__ constexpr int row_bytes() { return D * (int)sizeof(T); }
 
-template <typename T, int D, int REP>
+// The rings, q, P, and with FP8 each stage's [2][TK] K and V scales.
+template <typename T, int D, int REP, bool FP8>
 constexpr size_t smem_bytes() {
   return (size_t)NW * STAGES * 2 * TK * row_bytes<T, D>() +
-         sizeof(float) * (REP * D + NW * TK * REP);
+         sizeof(float) * (REP * D + NW * TK * REP) +
+         (FP8 ? sizeof(float) * NW * STAGES * 2 * TK : 0);
 }
 
 // Byte offset of 16-byte chunk `chunk` of key row `row` in a tile:
@@ -134,36 +165,30 @@ __device__ __forceinline__ float2 e4m3x2(uint32_t pair) {
   return __half22float2(*reinterpret_cast<const __half2*>(&h));
 }
 
-// The 16/sizeof(T) e4m3 codes at `src` times `s`, each product rounded to
-// T, stored as one 16-byte chunk at shared address `dst`.
-__device__ __forceinline__ void store_dequant(unsigned char* dst,
-                                              const uint8_t* src, float s,
-                                              const float*) {
-  const uint32_t w = *reinterpret_cast<const uint32_t*>(src);
-  const float2 a = e4m3x2(w & 0xffffu), b = e4m3x2(w >> 16);
-  *reinterpret_cast<float4*>(dst) = make_float4(
-      __fmul_rn(a.x, s), __fmul_rn(a.y, s), __fmul_rn(b.x, s),
-      __fmul_rn(b.y, s));
+// Two e4m3 codes times `s`, each product rounded to T and widened back:
+// the values a T pool holding the dequantised row gives.
+__device__ __forceinline__ void dequant2(uint32_t pair, float s, float* f,
+                                         const float*) {
+  const float2 x = e4m3x2(pair);
+  f[0] = __fmul_rn(x.x, s);
+  f[1] = __fmul_rn(x.y, s);
 }
 
-__device__ __forceinline__ void store_dequant(unsigned char* dst,
-                                              const uint8_t* src, float s,
-                                              const __nv_bfloat16*) {
-  const uint2 w = *reinterpret_cast<const uint2*>(src);
-  const uint32_t words[2] = {w.x, w.y};
-  uint4 raw;
-  uint32_t* out = reinterpret_cast<uint32_t*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float2 a = e4m3x2(words[i] & 0xffffu), b = e4m3x2(words[i] >> 16);
-    const __nv_bfloat162 lo =
-        __floats2bfloat162_rn(__fmul_rn(a.x, s), __fmul_rn(a.y, s));
-    const __nv_bfloat162 hi =
-        __floats2bfloat162_rn(__fmul_rn(b.x, s), __fmul_rn(b.y, s));
-    out[2 * i] = *reinterpret_cast<const uint32_t*>(&lo);
-    out[2 * i + 1] = *reinterpret_cast<const uint32_t*>(&hi);
-  }
-  *reinterpret_cast<uint4*>(dst) = raw;
+// bf16: each product is rounded into the high half of a word whose low
+// half is zero, which is that bf16 value as f32: one conversion a value
+// and no unpacking.
+__device__ __forceinline__ void dequant2(uint32_t pair, float s, float* f,
+                                         const __nv_bfloat16*) {
+  const float2 x = e4m3x2(pair);
+  f[0] = __uint_as_float(hvd::mma::pack_bf16(0.f, __fmul_rn(x.x, s)));
+  f[1] = __uint_as_float(hvd::mma::pack_bf16(0.f, __fmul_rn(x.y, s)));
+}
+
+// The four codes of a word (low byte first), dequantised.
+template <typename T>
+__device__ __forceinline__ void dequant4(uint32_t w, float s, float* f) {
+  dequant2(w & 0xffffu, s, f, static_cast<const T*>(nullptr));
+  dequant2(w >> 16, s, f + 2, static_cast<const T*>(nullptr));
 }
 
 // N (2 or 4) consecutive elements at a shared address, as f32.
@@ -187,45 +212,29 @@ __device__ __forceinline__ void load_elems(const unsigned char* p, float* f) {
   }
 }
 
-// One warp's K and V tile of keys [k0, k0 + TK) into the ring stage at
-// shared address `dst` (K, then V TILE bytes later; `dst_p` the same
-// stage as a generic pointer): 16-byte cp.async copies, zero-filled at
-// and past `end`.  Lane l looks up the page of key l % 16 once (one page
-// per slot when there is no table); the lanes that copy a row's chunks
-// take its offset by shuffle.  With FP8, a row on a compressed page is
-// dequantised into its chunks instead (store_dequant).
-template <typename T, int D, bool FP8>
-__device__ __forceinline__ void load_tile(
-    const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ slot_pages, int slot, int page_size,
-    int64_t stride_page, int64_t stride_off, size_t head_off, int k0,
-    int end, uint32_t dst, unsigned char* dst_p, int lane,
-    const Fp8Pages& f8, const int* __restrict__ slot_cpages,
-    const uint8_t* __restrict__ slot_cmask) {
+// The same N columns of an e4m3 row with scale `s`, dequantised.
+template <typename T, int N>
+__device__ __forceinline__ void load_e4m3(const unsigned char* p, float s,
+                                          float* f) {
+  static_assert(N == 2 || N == 4, "2 or 4 columns a lane");
+  if constexpr (N == 4)
+    dequant4<T>(*reinterpret_cast<const uint32_t*>(p), s, f);
+  else
+    dequant2(*reinterpret_cast<const uint16_t*>(p), s, f,
+             static_cast<const T*>(nullptr));
+}
+
+// Copies a warp's K and V tile of T rows into the ring stage at shared
+// address `dst` (K, then V TILE bytes later): 16-byte cp.async copies,
+// zero-filled at and past `end`; `mine` is the element offset of key
+// k0 + lane % TK's row, which the lanes that copy a row take by shuffle.
+template <typename T, int D>
+__device__ __forceinline__ void copy_rows(const T* __restrict__ k,
+                                          const T* __restrict__ v,
+                                          unsigned long long mine, int k0,
+                                          int end, uint32_t dst, int lane) {
   constexpr int CH = row_bytes<T, D>() / 16;
-  constexpr int EPC = 16 / sizeof(T);
   constexpr uint32_t TILE = TK * row_bytes<T, D>();
-  const int pos = k0 + (lane & (TK - 1));
-  unsigned long long mine = 0;
-  int comp = 0;
-  float ks = 0.f, vs = 0.f;
-  if (pos < end) {
-    int page;
-    if constexpr (FP8) {
-      const int pi = pos / page_size;
-      comp = slot_cmask[pi];
-      page = comp ? slot_cpages[pi] : slot_pages[pi];
-      if (comp) {
-        const size_t row = (size_t)page * page_size + pos % page_size;
-        ks = f8.kscale[row];
-        vs = f8.vscale[row];
-      }
-    } else {
-      page = slot_pages ? slot_pages[pos / page_size] : slot;
-    }
-    mine = (size_t)page * stride_page +
-           (size_t)(pos % page_size) * stride_off + head_off;
-  }
 #pragma unroll
   for (int it = 0; it < TK * CH / 32; ++it) {
     const int idx = it * 32 + lane;
@@ -233,19 +242,6 @@ __device__ __forceinline__ void load_tile(
     const size_t off = __shfl_sync(0xffffffffu, mine, r);
     const bool ok = k0 + r < end;
     const uint32_t at = dst + chunk_at<T, D>(r, c);
-    if constexpr (FP8) {
-      const int rc = __shfl_sync(0xffffffffu, comp, r);
-      const float rks = __shfl_sync(0xffffffffu, ks, r);
-      const float rvs = __shfl_sync(0xffffffffu, vs, r);
-      if (rc) {   // set on live rows only
-        unsigned char* p = dst_p + chunk_at<T, D>(r, c);
-        store_dequant(p, f8.kq + off + EPC * c, rks,
-                      static_cast<const T*>(nullptr));
-        store_dequant(p + TILE, f8.vq + off + EPC * c, rvs,
-                      static_cast<const T*>(nullptr));
-        continue;
-      }
-    }
     hvd::mma::cp_async16(
         at, reinterpret_cast<const unsigned char*>(k + off) + 16 * c, ok);
     hvd::mma::cp_async16(
@@ -254,8 +250,289 @@ __device__ __forceinline__ void load_tile(
   }
 }
 
+// One warp's K and V tile of keys [k0, k0 + TK): lane l looks up the page
+// of key l % 16 once (one page per slot when there is no table).
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(
+    const T* __restrict__ k, const T* __restrict__ v,
+    const int* __restrict__ slot_pages, int slot, int page_size,
+    int64_t stride_page, int64_t stride_off, size_t head_off, int k0,
+    int end, uint32_t dst, int lane) {
+  const int pos = k0 + (lane & (TK - 1));
+  unsigned long long mine = 0;
+  if (pos < end) {
+    const int page = slot_pages ? slot_pages[pos / page_size] : slot;
+    mine = (size_t)page * stride_page +
+           (size_t)(pos % page_size) * stride_off + head_off;
+  }
+  copy_rows<T, D>(k, v, mine, k0, end, dst, lane);
+}
+
+// One lane's lookups for key k0 + lane % TK of a tile (FP8): its page in
+// the T pool, its page in the e4m3 pool and whether that one holds it.
+// Loaded a tile before the tile's copies are issued, so the loads land
+// while the warp reduces.
+struct RowPages {
+  int page, cpage, comp;
+};
+
+__device__ __forceinline__ RowPages look_up(
+    const int* __restrict__ slot_pages, const int* __restrict__ slot_cpages,
+    const uint8_t* __restrict__ slot_cmask, int page_size, int k0, int end,
+    int lane) {
+  RowPages p{0, 0, 0};
+  const int pos = k0 + (lane & (TK - 1));
+  if (pos < end) {
+    const int pi = pos / page_size;
+    p.page = slot_pages[pi];
+    p.cpage = slot_cpages[pi];
+    p.comp = slot_cmask[pi];
+  }
+  return p;
+}
+
+// load_tile for a pool with e4m3 pages: a compressed row's D e4m3 bytes go
+// to chunks 0 .. D/16 - 1 of its slot (the T row's swizzle) and its K and
+// V scales to the stage's [2][TK] f32 array at shared address `sc` (lane l
+// copies row l % TK's K scale below TK, its V scale above), all with
+// cp.async.  Returns the tile's e4m3 rows as bits: ALL_ROWS when every
+// live row is compressed (the rows past `end` are then zero bytes with
+// scale 0, which widen to the +0 a zero-filled T row holds), else the
+// live compressed rows.
+template <typename T, int D>
+__device__ __forceinline__ uint32_t load_tile_fp8(
+    const T* __restrict__ k, const T* __restrict__ v, const Fp8Pages& f8,
+    const RowPages& rp, int page_size, int64_t stride_page,
+    int64_t stride_off, size_t head_off, int k0, int end, uint32_t dst,
+    uint32_t sc, int lane) {
+  using namespace hvd::mma;
+  constexpr int CH = row_bytes<T, D>() / 16;
+  constexpr int FCH = D / 16;              // 16-byte chunks of an e4m3 row
+  constexpr uint32_t TILE = TK * row_bytes<T, D>();
+  const int pos = k0 + (lane & (TK - 1));
+  const bool live = pos < end;
+  const bool comp = live && rp.comp;
+  const int at_page = pos % page_size;
+  const unsigned long long mine =
+      live ? (size_t)(comp ? rp.cpage : rp.page) * stride_page +
+                 (size_t)at_page * stride_off + head_off
+           : 0;
+  const uint32_t cm = __ballot_sync(0xffffffffu, comp) & ALL_ROWS;
+  const uint32_t lm = __ballot_sync(0xffffffffu, live) & ALL_ROWS;
+  const uint32_t rows = (cm | (~lm & ALL_ROWS)) == ALL_ROWS ? ALL_ROWS : cm;
+  if (rows)
+    cp_async4(sc + 4 * lane,
+              (lane < TK ? f8.kscale : f8.vscale) +
+                  (comp ? (size_t)rp.cpage * page_size + at_page : 0),
+              comp);
+  if (rows == 0) {
+    copy_rows<T, D>(k, v, mine, k0, end, dst, lane);
+  } else if (rows == ALL_ROWS) {
+#pragma unroll
+    for (int it = 0; it < TK * FCH / 32; ++it) {
+      const int idx = it * 32 + lane;
+      const int r = idx / FCH, c = idx % FCH;
+      const size_t off = __shfl_sync(0xffffffffu, mine, r);
+      const bool ok = k0 + r < end;
+      const uint32_t at = dst + chunk_at<T, D>(r, c);
+      cp_async16(at, f8.kq + off + 16 * c, ok);
+      cp_async16(at + TILE, f8.vq + off + 16 * c, ok);
+    }
+  } else {   // mixed: each row as its page is stored (a rolled loop)
+#pragma unroll 1
+    for (int it = 0; it < TK * CH / 32; ++it) {
+      const int idx = it * 32 + lane;
+      const int r = idx / CH, c = idx % CH;
+      const size_t off = __shfl_sync(0xffffffffu, mine, r);
+      const bool ok = k0 + r < end;
+      const uint32_t at = dst + chunk_at<T, D>(r, c);
+      if ((rows >> r) & 1) {   // live and compressed
+        if (c < FCH) {
+          cp_async16(at, f8.kq + off + 16 * c, true);
+          cp_async16(at + TILE, f8.vq + off + 16 * c, true);
+        }
+      } else {
+        cp_async16(at, reinterpret_cast<const unsigned char*>(k + off) +
+                           16 * c, ok);
+        cp_async16(at + TILE,
+                   reinterpret_cast<const unsigned char*>(v + off) + 16 * c,
+                   ok);
+      }
+    }
+  }
+  return rows;
+}
+
+// A 16-byte chunk of EPC values (exactly representable in T) stored as T.
+__device__ __forceinline__ void store_chunk(unsigned char* p, const float* f,
+                                            const float*) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+}
+
+__device__ __forceinline__ void store_chunk(unsigned char* p, const float* f,
+                                            const __nv_bfloat16*) {
+  // Each f holds a bf16 value in its high half: keep the high halves.
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = __byte_perm(__float_as_uint(f[2 * i]),
+                       __float_as_uint(f[2 * i + 1]), 0x7632);
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// A mixed tile's e4m3 rows (the bits of `rows`) widened in place into T
+// rows, after which the tile reads as all T.  Lane l owns row l % TK of
+// the K tile (l < TK) or of the V tile and goes chunk by chunk from the
+// last, so the T chunks it writes for e4m3 chunk c (logical indices
+// c * 16 / EPC and up) never overwrite an e4m3 chunk it has still to
+// read.  A rolled loop, and mixed tiles have no compute path of their
+// own: pages that split a tile are not the served case, and code the
+// common tiles never run still slows their loop.
+template <typename T, int D>
+__device__ __forceinline__ void widen_rows(unsigned char* kt, const float* sc,
+                                           uint32_t rows, int lane) {
+  constexpr int EPC = 16 / sizeof(T);
+  const int r = lane % TK;
+  if ((rows >> r) & 1) {
+    unsigned char* tile = kt + (lane / TK) * TK * row_bytes<T, D>();
+    const float s = sc[lane];   // K scales below TK, V scales above
+#pragma unroll 1
+    for (int c = D / 16 - 1; c >= 0; --c) {
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(tile + chunk_at<T, D>(r, c));
+      float f[16];
+      dequant4<T>(raw.x, s, f);
+      dequant4<T>(raw.y, s, f + 4);
+      dequant4<T>(raw.z, s, f + 8);
+      dequant4<T>(raw.w, s, f + 12);
+#pragma unroll
+      for (int t = 0; t < 16 / EPC; ++t)
+        store_chunk(tile + chunk_at<T, D>(r, c * (16 / EPC) + t),
+                    f + t * EPC, static_cast<const T*>(nullptr));
+    }
+  }
+  __syncwarp();   // every row widened before any lane reads the tile
+}
+
+// The FP8 instantiations' score pass: dot[r] = q_r . k over this lane's
+// part of its key's row (lane = key lane % TK, part lane / TK).  In an
+// e4m3 tile each row is read 16 codes a chunk and widened to the
+// dequantised T row's values; a T tile runs a copy of the uncompressed
+// kernel's inline loop; the products are summed in the same order either
+// way.
+template <typename T, int D, int REP, bool E4M3>
+__device__ __forceinline__ void tile_dot(const unsigned char* kt,
+                                         const float* sc, const float* sQ,
+                                         int key, int part,
+                                         float (&dot)[REP]) {
+  constexpr int CH = row_bytes<T, D>() / 16;  // 16-byte chunks per row
+  constexpr int EPC = 16 / sizeof(T);         // elements per chunk
+  constexpr int PARTS = 32 / TK, CP = CH / PARTS;
+  constexpr int FCP = D / 16 / PARTS;         // e4m3 chunks per part
+  if constexpr (E4M3) {
+    const float s = sc[key];
+#pragma unroll 2   // fully unrolled, this loop slows both kinds of tile
+    for (int jj = 0; jj < FCP; ++jj) {
+      const int j = part * FCP + jj;
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          kt + chunk_at<T, D>(key, j));
+      float kf[16];
+      dequant4<T>(raw.x, s, kf);
+      dequant4<T>(raw.y, s, kf + 4);
+      dequant4<T>(raw.z, s, kf + 8);
+      dequant4<T>(raw.w, s, kf + 12);
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        const float* qr = sQ + r * D + j * 16;
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qr + 4 * e4);
+          dot[r] = fmaf(qv.x, kf[4 * e4], dot[r]);
+          dot[r] = fmaf(qv.y, kf[4 * e4 + 1], dot[r]);
+          dot[r] = fmaf(qv.z, kf[4 * e4 + 2], dot[r]);
+          dot[r] = fmaf(qv.w, kf[4 * e4 + 3], dot[r]);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int cc = 0; cc < CP; ++cc) {
+      const int c = part * CP + cc;
+      float kf[EPC];
+      widen(*reinterpret_cast<const uint4*>(kt + chunk_at<T, D>(key, c)), kf,
+            static_cast<const T*>(nullptr));
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        const float* qr = sQ + r * D + c * EPC;
+#pragma unroll
+        for (int e4 = 0; e4 < EPC / 4; ++e4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qr + 4 * e4);
+          dot[r] = fmaf(qv.x, kf[4 * e4], dot[r]);
+          dot[r] = fmaf(qv.y, kf[4 * e4 + 1], dot[r]);
+          dot[r] = fmaf(qv.z, kf[4 * e4 + 2], dot[r]);
+          dot[r] = fmaf(qv.w, kf[4 * e4 + 3], dot[r]);
+        }
+      }
+    }
+  }
+}
+
+// The FP8 instantiations' P V pass: acc += P V over the tile's keys (past
+// the length: p = 0, V = 0); lane = columns lane * NE .. + NE of every
+// key.  An e4m3 tile's NE codes a row are widened as in tile_dot; a T
+// tile runs a copy of the uncompressed kernel's inline loop.
+template <typename T, int D, int REP, bool E4M3>
+__device__ __forceinline__ void tile_pv(const unsigned char* vt,
+                                        const float* sc, const float* sPw,
+                                        int lane,
+                                        float (&acc)[REP][D / 32]) {
+  constexpr int RB = row_bytes<T, D>();
+  constexpr int NE = D / 32;
+  const int col_byte = lane * NE * (int)sizeof(T);
+  const int col8 = lane * NE;              // the same column in e4m3 bytes
+#pragma unroll
+  for (int j = 0; j < TK; ++j) {
+    float vf[NE];
+    if constexpr (E4M3)
+      load_e4m3<T, NE>(vt + chunk_at<T, D>(j, col8 >> 4) + (col8 & 15),
+                       sc[TK + j], vf);
+    else
+      load_elems<T, NE>(
+          vt + j * RB + (((col_byte >> 4) ^ (j & 7)) << 4) + (col_byte & 15),
+          vf);
+    float pj[REP];
+    if constexpr (REP % 4 == 0) {
+#pragma unroll
+      for (int r4 = 0; r4 < REP / 4; ++r4) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(sPw + j * REP + 4 * r4);
+        pj[4 * r4] = x.x;
+        pj[4 * r4 + 1] = x.y;
+        pj[4 * r4 + 2] = x.z;
+        pj[4 * r4 + 3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < REP; ++r) pj[r] = sPw[j * REP + r];
+    }
+#pragma unroll
+    for (int r = 0; r < REP; ++r)
+#pragma unroll
+      for (int e = 0; e < NE; ++e) acc[r][e] = fmaf(pj[r], vf[e], acc[r][e]);
+  }
+}
+
+// CTAs an SM the split kernel is compiled to fit: two, and for the e4m3
+// variant at bf16 and d 64 as many as its uncompressed twin's registers
+// and shared memory fit there (four at a group of at most 2, else three).
 template <typename T, int D, int REP, bool FP8>
-__global__ void __launch_bounds__(NT, 2)
+constexpr int min_ctas() {
+  if (FP8 && sizeof(T) == 2 && D == 64) return REP <= 2 ? 4 : 3;
+  return 2;
+}
+
+template <typename T, int D, int REP, bool FP8>
+__global__ void __launch_bounds__(NT, (min_ctas<T, D, REP, FP8>()))
     decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ page_table,
@@ -303,15 +580,41 @@ __global__ void __launch_bounds__(NT, 2)
                                      : nullptr;
   const int* slot_cpages = FP8 ? f8.ctable + (size_t)slot * pps : nullptr;
   const uint8_t* slot_cmask = FP8 ? f8.cmask + (size_t)slot * pps : nullptr;
+  // FP8: this warp's [STAGES][2][TK] scales after sP, the row bits of
+  // tiles i and i + 1, and the lookups of tile i + STAGES - 1.
+  const float* sSc = sP + NW * TK * REP + warp * STAGES * 2 * TK;
+  uint32_t rows_a = 0, rows_b = 0;
+  RowPages ahead{0, 0, 0};
+  if constexpr (FP8) {
+    static_assert(STAGES == 3, "the FP8 ring rotates two row masks");
+    RowPages rp = look_up(slot_pages, slot_cpages, slot_cmask, page_size,
+                          start + warp * TK, end, lane);
+#pragma unroll 1   // one copy of the loader's code: it is fetched cold
+    for (int i = 0; i < STAGES - 1; ++i) {
+      const RowPages nx =
+          look_up(slot_pages, slot_cpages, slot_cmask, page_size,
+                  start + (warp + (i + 1) * NW) * TK, end, lane);
+      uint32_t rows = 0;
+      if (i < n_mine)
+        rows = load_tile_fp8<T, D>(
+            k, v, f8, rp, page_size, stride_page, stride_off, head_off,
+            start + (warp + i * NW) * TK, end, ring + i * 2 * TILE,
+            smem_addr(sSc + i * 2 * TK), lane);
+      cp_async_commit();
+      rows_a = rows_b;
+      rows_b = rows;
+      rp = nx;
+    }
+    ahead = rp;
+  } else {
 #pragma unroll
-  for (int i = 0; i < STAGES - 1; ++i) {
-    if (i < n_mine)
-      load_tile<T, D, FP8>(k, v, slot_pages, slot, page_size, stride_page,
-                           stride_off, head_off,
-                           start + (warp + i * NW) * TK, end,
-                           ring + i * 2 * TILE, ring_p + i * 2 * TILE,
-                           lane, f8, slot_cpages, slot_cmask);
-    cp_async_commit();
+    for (int i = 0; i < STAGES - 1; ++i) {
+      if (i < n_mine)
+        load_tile<T, D>(k, v, slot_pages, slot, page_size, stride_page,
+                        stride_off, head_off, start + (warp + i * NW) * TK,
+                        end, ring + i * 2 * TILE, lane);
+      cp_async_commit();
+    }
   }
   __syncthreads();  // q visible
 
@@ -332,39 +635,64 @@ __global__ void __launch_bounds__(NT, 2)
   float* sPw = sP + warp * TK * REP;
 
   for (int i = 0; i < n_mine; ++i) {
-    if (i + STAGES - 1 < n_mine)
-      load_tile<T, D, FP8>(k, v, slot_pages, slot, page_size, stride_page,
-                           stride_off, head_off,
-                           start + (warp + (i + STAGES - 1) * NW) * TK, end,
-                           ring + (i + STAGES - 1) % STAGES * 2 * TILE,
-                           ring_p + (i + STAGES - 1) % STAGES * 2 * TILE,
-                           lane, f8, slot_cpages, slot_cmask);
+    uint32_t rows_c = 0;
+    if constexpr (FP8) {
+      const int t = i + STAGES - 1;
+      if (t < n_mine)
+        rows_c = load_tile_fp8<T, D>(
+            k, v, f8, ahead, page_size, stride_page, stride_off, head_off,
+            start + (warp + t * NW) * TK, end,
+            ring + t % STAGES * 2 * TILE,
+            smem_addr(sSc + t % STAGES * 2 * TK), lane);
+      ahead = look_up(slot_pages, slot_cpages, slot_cmask, page_size,
+                      start + (warp + (t + 1) * NW) * TK, end, lane);
+    } else {
+      if (i + STAGES - 1 < n_mine)
+        load_tile<T, D>(k, v, slot_pages, slot, page_size, stride_page,
+                        stride_off, head_off,
+                        start + (warp + (i + STAGES - 1) * NW) * TK, end,
+                        ring + (i + STAGES - 1) % STAGES * 2 * TILE, lane);
+    }
     cp_async_commit();
     cp_async_wait<STAGES - 1>();
     __syncwarp();  // tile i has landed for every lane of the warp
     const unsigned char* kt = ring_p + (i % STAGES) * 2 * TILE;
     const unsigned char* vt = kt + TILE;
     const int k0 = start + (warp + i * NW) * TK;
+    const float* sc = sSc + (i % STAGES) * 2 * TK;
+    if constexpr (FP8) {
+      if (rows_a != 0 && rows_a != ALL_ROWS) {
+        widen_rows<T, D>(ring_p + (i % STAGES) * 2 * TILE, sc, rows_a, lane);
+        rows_a = 0;
+      }
+    }
 
     float dot[REP];
 #pragma unroll
     for (int r = 0; r < REP; ++r) dot[r] = 0.f;
+    if constexpr (FP8) {
+      if (rows_a == ALL_ROWS)
+        tile_dot<T, D, REP, true>(kt, sc, sQ, key, part, dot);
+      else
+        tile_dot<T, D, REP, false>(kt, sc, sQ, key, part, dot);
+    } else {
 #pragma unroll
-    for (int cc = 0; cc < CP; ++cc) {
-      const int c = part * CP + cc;
-      float kf[EPC];
-      widen(*reinterpret_cast<const uint4*>(kt + chunk_at<T, D>(key, c)), kf,
-            static_cast<const T*>(nullptr));
+      for (int cc = 0; cc < CP; ++cc) {
+        const int c = part * CP + cc;
+        float kf[EPC];
+        widen(*reinterpret_cast<const uint4*>(kt + chunk_at<T, D>(key, c)),
+              kf, static_cast<const T*>(nullptr));
 #pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        const float* qr = sQ + r * D + c * EPC;
+        for (int r = 0; r < REP; ++r) {
+          const float* qr = sQ + r * D + c * EPC;
 #pragma unroll
-        for (int e4 = 0; e4 < EPC / 4; ++e4) {
-          const float4 qv = *reinterpret_cast<const float4*>(qr + 4 * e4);
-          dot[r] = fmaf(qv.x, kf[4 * e4], dot[r]);
-          dot[r] = fmaf(qv.y, kf[4 * e4 + 1], dot[r]);
-          dot[r] = fmaf(qv.z, kf[4 * e4 + 2], dot[r]);
-          dot[r] = fmaf(qv.w, kf[4 * e4 + 3], dot[r]);
+          for (int e4 = 0; e4 < EPC / 4; ++e4) {
+            const float4 qv = *reinterpret_cast<const float4*>(qr + 4 * e4);
+            dot[r] = fmaf(qv.x, kf[4 * e4], dot[r]);
+            dot[r] = fmaf(qv.y, kf[4 * e4 + 1], dot[r]);
+            dot[r] = fmaf(qv.z, kf[4 * e4 + 2], dot[r]);
+            dot[r] = fmaf(qv.w, kf[4 * e4 + 3], dot[r]);
+          }
         }
       }
     }
@@ -397,31 +725,41 @@ __global__ void __launch_bounds__(NT, 2)
     __syncwarp();  // the tile's P is in shared memory
 
     // acc += P V over the tile's keys (past the length: p = 0, V = 0).
+    if constexpr (FP8) {
+      if (rows_a == ALL_ROWS)
+        tile_pv<T, D, REP, true>(vt, sc, sPw, lane, acc);
+      else
+        tile_pv<T, D, REP, false>(vt, sc, sPw, lane, acc);
+      rows_a = rows_b;
+      rows_b = rows_c;
+    } else {
 #pragma unroll
-    for (int j = 0; j < TK; ++j) {
-      float vf[NE];
-      load_elems<T, NE>(
-          vt + j * RB + (((col_byte >> 4) ^ (j & 7)) << 4) + (col_byte & 15),
-          vf);
-      float pj[REP];
-      if constexpr (REP % 4 == 0) {
+      for (int j = 0; j < TK; ++j) {
+        float vf[NE];
+        load_elems<T, NE>(
+            vt + j * RB + (((col_byte >> 4) ^ (j & 7)) << 4) + (col_byte & 15),
+            vf);
+        float pj[REP];
+        if constexpr (REP % 4 == 0) {
 #pragma unroll
-        for (int r4 = 0; r4 < REP / 4; ++r4) {
-          const float4 x =
-              *reinterpret_cast<const float4*>(sPw + j * REP + 4 * r4);
-          pj[4 * r4] = x.x;
-          pj[4 * r4 + 1] = x.y;
-          pj[4 * r4 + 2] = x.z;
-          pj[4 * r4 + 3] = x.w;
+          for (int r4 = 0; r4 < REP / 4; ++r4) {
+            const float4 x =
+                *reinterpret_cast<const float4*>(sPw + j * REP + 4 * r4);
+            pj[4 * r4] = x.x;
+            pj[4 * r4 + 1] = x.y;
+            pj[4 * r4 + 2] = x.z;
+            pj[4 * r4 + 3] = x.w;
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < REP; ++r) pj[r] = sPw[j * REP + r];
         }
-      } else {
 #pragma unroll
-        for (int r = 0; r < REP; ++r) pj[r] = sPw[j * REP + r];
+        for (int r = 0; r < REP; ++r)
+#pragma unroll
+          for (int e = 0; e < NE; ++e)
+            acc[r][e] = fmaf(pj[r], vf[e], acc[r][e]);
       }
-#pragma unroll
-      for (int r = 0; r < REP; ++r)
-#pragma unroll
-        for (int e = 0; e < NE; ++e) acc[r][e] = fmaf(pj[r], vf[e], acc[r][e]);
     }
     __syncwarp();  // every lane is done with this stage and with sPw
   }
@@ -495,38 +833,19 @@ __global__ void __launch_bounds__(D)
   o[((size_t)slot * h + hh) * D + d] = hvd::from_float<T>(out);
 }
 
+// The split kernel's dynamic shared memory opt-in, once per instantiation.
 template <typename T, int D, int REP, bool FP8>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* page_table, const void* lengths, void* o,
-                   void* m_part, void* l_part, void* acc_part, int slots,
-                   int h, int h_kv, int page_size, int pps,
-                   int64_t stride_page, int64_t stride_off,
-                   int64_t stride_head, int splits, int split_len,
-                   float scale, const Fp8Pages& f8, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, D, REP>();
-  static bool configured = false;  // one opt-in per instantiation
+cudaError_t configure() {
+  static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
         decode_split_kernel<T, D, REP, FP8>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes<T, D, REP, FP8>());
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  decode_split_kernel<T, D, REP, FP8><<<splits * slots * h_kv, NT, smem,
-                                        stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(page_table),
-      static_cast<const int*>(lengths), static_cast<float*>(m_part),
-      static_cast<float*>(l_part), static_cast<float*>(acc_part), h,
-      page_size, pps, stride_page, stride_off, stride_head, splits,
-      split_len, scale, f8);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_merge_kernel<T, D><<<dim3(h, slots), D, 0, stream>>>(
-      static_cast<const float*>(m_part), static_cast<const float*>(l_part),
-      static_cast<const float*>(acc_part), static_cast<const int*>(lengths),
-      static_cast<T*>(o), h, splits, split_len, pps * page_size);
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
 // The arguments every entry point passes through to launch().
@@ -542,37 +861,82 @@ struct Args {
 };
 
 template <typename T, int D, int REP, bool FP8>
-cudaError_t launch_args(const Args& a) {
-  return launch<T, D, REP, FP8>(
-      a.q, a.k, a.v, a.page_table, a.lengths, a.o, a.m_part, a.l_part,
-      a.acc_part, a.slots, a.h, a.h_kv, a.page_size, a.pps, a.stride_page,
-      a.stride_off, a.stride_head, a.splits, a.split_len, a.scale, a.f8,
-      a.stream);
+cudaError_t launch(const Args& a) {
+  cudaError_t err = configure<T, D, REP, FP8>();
+  if (err != cudaSuccess) return err;
+  decode_split_kernel<T, D, REP, FP8><<<a.splits * a.slots * a.h_kv, NT,
+                                        smem_bytes<T, D, REP, FP8>(),
+                                        a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const int*>(a.page_table),
+      static_cast<const int*>(a.lengths), static_cast<float*>(a.m_part),
+      static_cast<float*>(a.l_part), static_cast<float*>(a.acc_part), a.h,
+      a.page_size, a.pps, a.stride_page, a.stride_off, a.stride_head,
+      a.splits, a.split_len, a.scale, a.f8);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_merge_kernel<T, D><<<dim3(a.h, a.slots), D, 0, a.stream>>>(
+      static_cast<const float*>(a.m_part),
+      static_cast<const float*>(a.l_part),
+      static_cast<const float*>(a.acc_part),
+      static_cast<const int*>(a.lengths), static_cast<T*>(a.o), a.h,
+      a.splits, a.split_len, a.pps * a.page_size);
+  return cudaGetLastError();
 }
 
-template <typename T, int D, bool FP8>
-cudaError_t by_rep(const Args& a) {
-  switch (a.h / a.h_kv) {
+struct Launch {
+  const Args& a;
+  template <typename T, int D, int REP, bool FP8>
+  cudaError_t run() const {
+    return launch<T, D, REP, FP8>(a);
+  }
+};
+
+// The split kernel's registers a thread, dynamic shared memory a CTA and
+// CTAs an SM, as the runtime reports them.
+struct Resources {
+  int* out;
+  template <typename T, int D, int REP, bool FP8>
+  cudaError_t run() const {
+    cudaError_t err = configure<T, D, REP, FP8>();
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, decode_split_kernel<T, D, REP, FP8>);
+    if (err != cudaSuccess) return err;
+    out[0] = attr.numRegs;
+    out[1] = (int)smem_bytes<T, D, REP, FP8>();
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[2], decode_split_kernel<T, D, REP, FP8>, NT, out[1]);
+  }
+};
+
+template <typename T, int D, bool FP8, typename Op>
+cudaError_t by_rep(const Op& op, int rep) {
+  switch (rep) {
     case 1:
-      return launch_args<T, D, 1, FP8>(a);
+      return op.template run<T, D, 1, FP8>();
     case 2:
-      return launch_args<T, D, 2, FP8>(a);
+      return op.template run<T, D, 2, FP8>();
     case 4:
-      return launch_args<T, D, 4, FP8>(a);
+      return op.template run<T, D, 4, FP8>();
     case 8:
-      return launch_args<T, D, 8, FP8>(a);
+      return op.template run<T, D, 8, FP8>();
   }
   return cudaErrorInvalidValue;
 }
 
-template <bool FP8>
-int by_type(const Args& a, int d, int dtype) {
+// op.run<T, D, REP, FP8>() for the instantiation that serves (d, dtype,
+// rep).
+template <bool FP8, typename Op>
+int by_type(const Op& op, int d, int dtype, int rep) {
   if (dtype == hvd::kBF16 && d == 128)
-    return (int)by_rep<__nv_bfloat16, 128, FP8>(a);
+    return (int)by_rep<__nv_bfloat16, 128, FP8>(op, rep);
   if (dtype == hvd::kBF16 && d == 64)
-    return (int)by_rep<__nv_bfloat16, 64, FP8>(a);
-  if (dtype == hvd::kF32 && d == 128) return (int)by_rep<float, 128, FP8>(a);
-  if (dtype == hvd::kF32 && d == 64) return (int)by_rep<float, 64, FP8>(a);
+    return (int)by_rep<__nv_bfloat16, 64, FP8>(op, rep);
+  if (dtype == hvd::kF32 && d == 128)
+    return (int)by_rep<float, 128, FP8>(op, rep);
+  if (dtype == hvd::kF32 && d == 64)
+    return (int)by_rep<float, 64, FP8>(op, rep);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -591,7 +955,7 @@ extern "C" int hvd_flash_decode(const void* q, const void* k, const void* v,
                slots, h, h_kv, page_size, pps, stride_page, stride_off,
                stride_head, splits, split_len, scale, Fp8Pages{},
                static_cast<cudaStream_t>(stream)};
-  return by_type<false>(a, d, dtype);
+  return by_type<false>(Launch{a}, d, dtype, h / h_kv);
 }
 
 // The same over a paged pool of which the pages cmask marks live in the
@@ -616,5 +980,15 @@ extern "C" int hvd_flash_decode_fp8(
                slots, h, h_kv, page_size, pps, stride_page, stride_off,
                stride_head, splits, split_len, scale, f8,
                static_cast<cudaStream_t>(stream)};
-  return by_type<true>(a, d, dtype);
+  return by_type<true>(Launch{a}, d, dtype, h / h_kv);
+}
+
+// out[0..2]: the split kernel's registers a thread, dynamic shared memory
+// a CTA (bytes) and CTAs an SM for (d, dtype, rep), over one pool (fp8 =
+// 0) or with e4m3 pages (fp8 = 1).
+extern "C" int hvd_flash_decode_resources(int d, int dtype, int rep,
+                                          int fp8, int* out) {
+  const Resources op{out};
+  return fp8 ? by_type<true>(op, d, dtype, rep)
+             : by_type<false>(op, d, dtype, rep);
 }

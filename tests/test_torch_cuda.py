@@ -547,16 +547,19 @@ def _fp8_pages(rng, kp, vp, table, lengths, ps, cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d,h,h_kv", [(128, 32, 8), (64, 8, 1)])
+@pytest.mark.parametrize("ps", [16, 8, 24])
 def test_cuda_fp8_decode_bitwise_plain_kernel_on_dequantised_pool(
-        cuda, dtype, d, h, h_kv):
+        cuda, dtype, d, h, h_kv, ps):
     """The e4m3 variant at the edge lengths, half the live pages
     compressed and their old pages full of garbage: bitwise the plain
     decode kernel over a pool holding the dequantised rows at the old
     pages, within the decode tolerance of its plain version, exactly 0
-    at length 0, and one fp8 launch a call."""
+    at length 0, and one fp8 launch a call.  At page 16 a 16-key tile is
+    one page (all e4m3 or all plain); pages of 8 and 24 make tiles that
+    mix compressed and plain rows."""
     dt = getattr(torch, dtype)
     rng = np.random.RandomState(30)
-    ps, max_len = 16, 4096
+    max_len = -(-4096 // ps) * ps
     slots, pps = len(DECODE_LENGTHS), max_len // ps
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=cuda)
     table = torch.from_numpy(rng.permutation(slots * pps).astype(np.int32)
@@ -577,11 +580,31 @@ def test_cuda_fp8_decode_bitwise_plain_kernel_on_dequantised_pool(
     assert registry.launches("flash_decode_fp8") == 1
     assert (got.float() - want.float()).abs().max().item() <= _tol(want, dt)
     assert got[0].abs().max().item() == 0.0
+    # No atomics: a second launch repeats the bits.
+    assert torch.equal(got, tattn.paged_decode_attention_fp8(
+        q, kp, vp, read_table, lengths, *fp8))
     # No page compressed: bitwise the plain kernel on the same pool.
     none = (*fp8[:5], torch.zeros_like(fp8[5]))
     assert torch.equal(
         tattn.paged_decode_attention_fp8(q, kp, vp, table, lengths, *none),
         tattn.paged_decode_attention(q, kp, vp, table, lengths))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [128, 64])
+def test_cuda_fp8_decode_keeps_its_twins_ctas_per_sm(cuda, dtype, d):
+    """Each e4m3 split instantiation fits as many CTAs an SM as its
+    uncompressed twin (two for bf16 at d 128), by the occupancy API."""
+    dt = getattr(torch, dtype)
+    for rep in (1, 2, 4, 8):
+        fp8 = tattn.decode_resources(dt, d, rep, fp8=True)
+        twin = tattn.decode_resources(dt, d, rep)
+        assert fp8["ctas_per_sm"] == twin["ctas_per_sm"] >= 1, \
+            (rep, fp8, twin)
+        assert 0 < fp8["smem_bytes"] - twin["smem_bytes"] <= 2048
+        if dt == torch.bfloat16 and d == 128:
+            assert fp8["ctas_per_sm"] == 2, (rep, fp8)
 
 
 @pytest.mark.cuda

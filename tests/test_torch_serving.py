@@ -371,7 +371,7 @@ def test_greedy_sample_first_index_on_ties():
 
 # The port's root scripts: run on the GPU machine, which has no JAX.
 ROOT_SCRIPTS = ("chip_smoke", "profile_torch_serving",
-                "profile_torch_training")
+                "profile_torch_training", "profile_torch_decode")
 
 
 def _package_modules():

@@ -442,31 +442,37 @@ def test_fp8_decode_plain_version_is_decode_on_the_blended_pool():
     assert c.comp_mask.any()
 
 
-def _compressed_step_case(jp, tp):
-    """Both caches hold the JAX prefill's K/V of one 12-token prompt in
-    slot 0 with its 2 cold pages compressed; the next token's operands."""
-    jc, tc = _caches(compress=True, slots=2, page_size=4, max_len=32)
-    prompt = _tokens(2, 12)
+def _compressed_step_case(jp, tp, ps=4, max_len=32, prompt_len=12):
+    """Both caches hold the JAX prefill's K/V of one ``prompt_len``-token
+    prompt in slot 0 with its 2 cold pages compressed; the next token's
+    operands."""
+    jc, tc = _caches(compress=True, slots=2, page_size=ps, max_len=max_len)
+    prompt = _tokens(2, prompt_len)
     _, kl, vl = j_prefill_forward(jp, J_SERVE, jnp.asarray(prompt))
     jc.write_prefill(0, kl[:, 0], vl[:, 0])
     tc.write_prefill(0, _t(kl[:, 0]), _t(vl[:, 0]))
     assert tc.compress_cold(0) == jc.compress_cold(0) == 2
     assert (tc.page_table[0, :2] == tc.config.scratch_page).all()
-    jc.reserve(0, 13)
-    tc.reserve(0, 13)
+    jc.reserve(0, prompt_len + 1)
+    tc.reserve(0, prompt_len + 1)
     tok = np.zeros(2, np.int32)
     tok[0] = prompt[0, -1]
     active = np.array([True, False])
     return jc, tc, tok, active
 
 
-def test_compressed_decode_step_matches_jax_and_survives_poisoning(params):
-    jp, tp = params
-    jc, tc, tok, active = _compressed_step_case(jp, tp)
-    jstep = j_build_decode_step(J_SERVE, mesh_1d(), slots=2, page_size=4,
-                                pages_per_slot=8, compress=True)
-    tstep = build_decode_step(CFG, slots=2, page_size=4, pages_per_slot=8,
-                              compress=True)
+def _check_compressed_step(jp, tp, ps=4, max_len=32, prompt_len=12):
+    """The port's compressed decode step against the JAX step on
+    :func:`_compressed_step_case`, then bitwise itself with every free
+    page and the scratch page poisoned.  Returns the port's step and its
+    operands."""
+    jc, tc, tok, active = _compressed_step_case(jp, tp, ps, max_len,
+                                                prompt_len)
+    pps = max_len // ps
+    jstep = j_build_decode_step(J_SERVE, mesh_1d(), slots=2, page_size=ps,
+                                pages_per_slot=pps, compress=True)
+    tstep = build_decode_step(CFG, slots=2, page_size=ps,
+                              pages_per_slot=pps, compress=True)
     jl, jk, jv = jstep(jp, jc.k, jc.v, jnp.asarray(tok),
                        jc.lengths_device(), jc.table_device(),
                        jnp.asarray(active), *jc.compress_operands())
@@ -484,8 +490,25 @@ def test_compressed_decode_step_matches_jax_and_survives_poisoning(params):
     pk[:, bad], pv[:, bad] = 1e9, 1e9
     dirty, _, _ = tstep(tp, pk, pv, *args)
     assert torch.equal(dirty[0], clean[0])
+    return tstep, tc, args
+
+
+def test_compressed_decode_step_matches_jax_and_survives_poisoning(params):
+    jp, tp = params
+    tstep, tc, args = _check_compressed_step(jp, tp)
     with pytest.raises(ValueError, match="compress_operands"):
         tstep(tp, tc.k, tc.v, *args[:4])
+
+
+@pytest.mark.parametrize("ps,max_len", [(4, 32), (8, 64), (24, 96)])
+def test_compressed_decode_step_matches_jax_at_page_size(params, ps,
+                                                         max_len):
+    """The same at page sizes that cut the decode kernel's 16-key tile
+    differently: 4 and 8 (four and two pages a tile, compressed and plain
+    mixed) and 24 (pages straddling tiles).  Three full pages, the last
+    one hot, so two are compressed."""
+    jp, tp = params
+    _check_compressed_step(jp, tp, ps, max_len, prompt_len=3 * ps + 1)
 
 
 def test_compressed_verify_step_columns_are_compressed_decode_steps(params):
