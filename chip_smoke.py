@@ -313,6 +313,52 @@ Phases, each printing its own line; any failure exits non-zero:
    bf16 rows), with the split kernel's registers, shared memory and
    CTAs an SM beside its uncompressed twin's.
 
+28. parallel_3d -- the 3-D step (``examples/bert_pretrain.py --tp``) and
+   sequence parallelism (``examples/long_context.py``).  (a) Phase 12's
+   BERT-Large cell (64 x 128 tokens, bf16, 24 layers, 16 heads of 64)
+   at world 1 on NCCL through ``build_3d_mesh(data=1, model=1)``,
+   ``models.BertTP`` (``bert_tp_apply``), ``make_train_step(tp=1,
+   param_specs=tp_param_specs(...))`` and ``DistributedOptimizer(AdamW,
+   process_set=<data set>)``: one loss and backward against the port's
+   ``Bert`` on the same weights and batch, in f32 (loss and every
+   gradient within ``PAR_F32_GRAD_TOL`` of its max |value|: roundoff)
+   and in bf16 (loss within 1e-2 relative; each gradient within
+   ``BF16_TOL`` of the f32 reference's max, or -- as phase 7 reasons for
+   a deep bf16 backward -- within twice ``Bert``'s own bf16 distance
+   from f32 where that is larger; ``wk.bias`` at its layer's
+   ``wk.kernel``'s scale; the bf16-against-bf16 distance is logged),
+   24 launches of each attention kernel a pass; a warm-up and five
+   timed bf16 steps (24 launches each a step), the step ms beside phase
+   12's.
+   (b) tp = 2 on the one card: this script run twice with
+   ``--tp-worker`` -- two ranks on ``cuda:0`` that open a gloo group
+   themselves (NCCL refuses two ranks on one GPU) before ``hvd.init(
+   device="cuda:0")``, which keeps it -- one loss and backward of the
+   same cell on ``build_3d_mesh(data=1, model=2)`` (8 local heads, 2,048
+   FFN columns a rank), in f32 and in bf16, the gradients gathered over
+   the model set into the full tree within (a)'s bounds of (a)'s, the
+   bf16 ones against (a)'s floor, 24 launches of each
+   attention kernel a rank, half of (a)'s bytes of split leaves a rank,
+   then one step with 96 tensor-parallel allreduces (two forward and two
+   backward a layer); the backend and the step ms logged.  Two faults
+   the bf16 gate must reject, scored beside it: a third bf16 backward
+   with Megatron's "f" (``copy_to_tp``) an identity, so the norm and
+   embedding gradients stay each rank's partial, and the gathered bf16
+   gradients with rank 1's half of every split leaf zeroed (a dropped
+   shard).  (c) At world 1: ``long_context`` at sp 1, 4,096 tokens,
+   head dim 64, five steps in ``--mode ulysses`` (5 launches of each
+   attention kernel) and in ``--mode ring`` (plain PyTorch), each with
+   ``--compare-single-device`` (its first loss within 5e-4 of
+   ``attention_reference``'s), both falling, the first losses within
+   2e-2; ``ulysses_attention`` (the flash kernels) and ``ring_attention``
+   against ``attention_reference`` on the same f32 q/k/v at that shape
+   (2 x 4 heads x 4,096 x 64, causal, without and with two packed
+   segments): outputs within ``F32_TOL`` and dq/dk/dv within
+   ``F32_GRAD_TOL`` of the reference's max |value| (the loss alone
+   cannot see attention: the next token is random);
+   ``sync_batch_norm(axes=("data",))`` at phase 13's first shape bitwise
+   the plain layer, one launch of each BN kernel.
+
 Phase 17 also holds ``chunked_allreduce`` (equal to ``allreduce`` at
 world 1) and ``fp8_allreduce`` (bitwise its round trip) on its 64 MiB
 buffer and times them.
@@ -2066,7 +2112,8 @@ def train_bert(dev, card: str) -> dict:
     ``BERT_EXTRA_STEPS`` untimed steps follow the timed ones, and the loss
     must end below where it started.  The same ten steps through the
     plain attention, from the same weights, are logged beside them.
-    Returns the kernels' launch counts over the timed steps."""
+    Returns the kernels' launch counts over the timed steps, with the
+    step ms (``step_ms``)."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.controller.fusion import plan_buckets
     from horovod_tpu_torch.models import BERT_LARGE, flax_leaf_order
@@ -2172,7 +2219,7 @@ def train_bert(dev, card: str) -> dict:
     if fails:
         raise AssertionError("bert_train: " + "; ".join(fails))
     hvd.shutdown()
-    return counts
+    return dict(counts, step_ms=step_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -5412,11 +5459,524 @@ def serving_rest(dev, card: str, serve_run: dict) -> dict:
     return total
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phase 28: the 3-D step -- BERT-Large DP x TP, sequence parallelism and a
+# sub-mesh sync BN
+# ---------------------------------------------------------------------------
+
+
+PAR_TP = 2                     # (b): tensor-parallel ranks on the one card
+PAR_STEPS = 5                  # (a): timed steps
+PAR_BATCH = (64, 128)          # phase 12's cell
+PAR_DTYPE = torch.bfloat16     # compute dtype of (a) and (b)
+PAR_LONG = ["--sp", "1", "--seq-len", "4096", "--steps", "5",
+            "--d-model", "256", "--heads", "4",
+            "--compare-single-device"]           # (c): head dim 64
+PAR_SP_SHAPE = (2, 4, 4096, 64)   # (c): PAR_LONG's q/k/v (b, h, t, d)
+PAR_WORKER_TIMEOUT = 240
+PAR_WORKER_DEVICE = "cuda:0"   # (b): both ranks on the one card
+PAR_F32_GRAD_TOL = 1e-3        # f32 gradients: roundoff through 24 layers,
+                               # relative to max |reference grad|
+PAR_BF16_FLOOR_FACTOR = 2.0    # bf16: twice Bert's own rounding distance
+                               # (tp rounds each partial sum as well)
+
+
+def _bert_tp_model(cfg, dev, params, specs, mesh, tp: int):
+    from horovod_tpu_torch.models import BertTP
+    from horovod_tpu_torch.parallel import shard_params
+    local = shard_params({k: v.clone() for k, v in params.items()}, specs,
+                         mesh.axis_index("model"), tp)
+    return BertTP(cfg, local, PAR_DTYPE, axis="model")
+
+
+def _bert_tp_step(model, specs, mesh, tp: int):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import data_axes
+    from horovod_tpu_torch.training import (bert_pretrain_loss,
+                                            make_train_step)
+    named = list(model.named_parameters())
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW([p for _, p in named], lr=1e-3, weight_decay=1e-4),
+        named_parameters=named, compression=hvd.Compression.none,
+        process_set=mesh.group(data_axes(mesh)))
+    return make_train_step(model, bert_pretrain_loss, opt, tp=tp,
+                           param_specs=specs)
+
+
+def _grad_errs(got: dict, want: dict) -> dict:
+    """``{leaf: max |got - want| / max |want|}`` (``wk.bias``, zero in
+    exact arithmetic, over its layer's ``wk.kernel``'s max)."""
+    def scale(n):
+        if n.endswith(".wk.bias"):
+            n = n[:-len("bias")] + "kernel"
+        return max(want[n].abs().max().item(), 1e-30)
+    return {n: (got[n].to(want[n].device).float() - want[n]).abs().max()
+            .item() / scale(n) for n in want}
+
+
+def _grad_gate(errs32: dict, errs16: dict, floor: dict,
+               direct16: dict) -> dict:
+    """The gradient gate of a deep bf16 backward (phase 7's reasoning: at
+    24 layers bf16 rounding alone moves gradients past phase 11's 2e-2).
+    In f32 every gradient within ``PAR_F32_GRAD_TOL`` of the reference's
+    (``errs32``: roundoff).  In bf16 each gradient's distance from the
+    f32 reference (``errs16``) within ``BF16_TOL`` of its max, or within
+    ``PAR_BF16_FLOOR_FACTOR`` times the port's ``Bert``'s own bf16
+    distance from f32 (``floor``) where that is larger.  ``direct16``
+    (the bf16 gradients against the other bf16 path's) is logged beside.
+    Returns the record; ``ok`` says whether it held."""
+    worst32 = max((v, n) for n, v in errs32.items())
+    worst16 = max((v, n) for n, v in errs16.items())
+    direct = max((v, n) for n, v in direct16.items())
+    gate = {n: max(BF16_TOL, PAR_BF16_FLOOR_FACTOR * floor[n])
+            for n in errs16}
+    margin = min((gate[n] / max(v, 1e-30), n) for n, v in errs16.items())
+    return {"worst_grad_rel_err_f32": worst32[0], "worst_grad_f32":
+            worst32[1], "f32_tol": PAR_F32_GRAD_TOL,
+            "worst_grad_rel_err_bf16_vs_f32": worst16[0],
+            "worst_grad_bf16_vs_f32": worst16[1],
+            "worst_grad_rel_err_bf16_vs_bf16": direct[0],
+            "worst_grad_bf16_vs_bf16": direct[1], "bf16_tol": BF16_TOL,
+            "bert_bf16_vs_f32_max": max(floor.values()),
+            "bert_leaves_above_bf16_tol": sum(v > BF16_TOL
+                                              for v in floor.values()),
+            "bf16_margin": margin[0], "bf16_margin_leaf": margin[1],
+            "leaves_over_gate": sum(v > gate[n] for n, v in errs16.items()),
+            "ok": worst32[0] <= PAR_F32_GRAD_TOL and margin[0] >= 1.0}
+
+
+def _drop_shard(grads: dict, specs: dict) -> dict:
+    """``grads`` with the last of ``PAR_TP`` blocks of every split leaf
+    zeroed: the gather of (b) with one rank's shard lost."""
+    from horovod_tpu_torch.parallel.tp import split_dim
+    out = {}
+    for n, g in grads.items():
+        d = split_dim(specs.get(n, ()))
+        if d is not None:
+            w = g.shape[d] // PAR_TP
+            g = g.clone()
+            g.narrow(d, g.shape[d] - w, w).zero_()
+        out[n] = g
+    return out
+
+
+def tp_worker(rank: int, world: int, store: str, out: str) -> int:
+    """One rank of phase 28 (b): gloo opened here (NCCL refuses two ranks
+    on one GPU), then ``hvd.init(device="cuda:0")``, which keeps it."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import BERT_LARGE, init_bert_params
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.parallel import (build_3d_mesh, gather_tp_params,
+                                            tp_param_specs)
+    from horovod_tpu_torch.parallel.tp import split_bytes
+    from horovod_tpu_torch.timeline.metrics import collective_totals
+    from horovod_tpu_torch.training import bert_pretrain_loss
+    hvd.init(device=PAR_WORKER_DEVICE)
+    dev = torch.device(PAR_WORKER_DEVICE)
+    cfg = BERT_LARGE
+    mesh = build_3d_mesh(data=1, model=world)
+    params = init_bert_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    specs = tp_param_specs(params, axis="model")
+    full_split = split_bytes(params, specs)
+    model = _bert_tp_model(cfg, dev, params, specs, mesh, world)
+    del params
+    local = dict(model.named_parameters())
+    batch = bert_batch(cfg, dev, *PAR_BATCH, seed=0)
+    losses, counts = {}, {}
+    for dtype, suffix in ((torch.float32, ".grads32"), (PAR_DTYPE, ".grads")):
+        model.dtype = dtype
+        torch.cuda.synchronize()
+        registry.reset_launch_counts()
+        loss = bert_pretrain_loss(model, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts[str(dtype)] = registry.launch_counts()
+        losses[str(dtype)] = loss.item()
+        grads = gather_tp_params({n: p.grad for n, p in local.items()},
+                                 specs, axis="model")
+        if rank == 0:
+            torch.save({n: g.detach().cpu() for n, g in grads.items()},
+                       out + suffix)
+        del grads, loss
+        model.zero_grad(set_to_none=True)
+    # The negative control: Megatron's "f" as an identity, so the
+    # backward leaves each rank's partial gradient above every
+    # column-parallel layer (bert_tp_apply imports it at each call).
+    from horovod_tpu_torch.parallel import tp as tp_mod
+    copy_to_tp = tp_mod.copy_to_tp
+    tp_mod.copy_to_tp = lambda x, **_: x
+    try:
+        bert_pretrain_loss(model, batch).backward()
+    finally:
+        tp_mod.copy_to_tp = copy_to_tp
+    grads = gather_tp_params({n: p.grad for n, p in local.items()},
+                             specs, axis="model")
+    if rank == 0:
+        torch.save({n: g.detach().cpu() for n, g in grads.items()},
+                   out + ".grads_fault")
+    del grads
+    model.zero_grad(set_to_none=True)
+    step = _bert_tp_step(model, specs, mesh, world)
+    model_set = mesh.group("model").name
+    before = collective_totals().get(("allreduce", model_set),
+                                     {"calls": 0})["calls"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_loss = step(batch).item()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    after = collective_totals()[("allreduce", model_set)]["calls"]
+    torch.save({"loss": losses[str(PAR_DTYPE)],
+                "loss_f32": losses["torch.float32"], "step_loss": step_loss,
+                "step_ms": step_ms, "launches": counts[str(PAR_DTYPE)],
+                "launches_f32": counts["torch.float32"],
+                "tp_allreduces": after - before,
+                "split_bytes": split_bytes(local, specs),
+                "full_split_bytes": full_split,
+                "backend": dist.get_backend(),
+                "peak_mem_bytes": torch.cuda.max_memory_allocated()}, out)
+    hvd.shutdown()
+    dist.destroy_process_group()
+    return 0
+
+
+def _par_tp_world(here: str, tmp: str) -> list:
+    """Phase 28 (b): two worker processes of :func:`tp_worker`."""
+    store = os.path.join(tmp, "store")
+    env = dict(os.environ, PYTHONPATH=here)
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--tp-worker",
+         str(r), str(PAR_TP), store, os.path.join(tmp, f"r{r}.pt")],
+        env=env, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(PAR_TP)]
+    try:
+        logs = [p.communicate(timeout=PAR_WORKER_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel_3d (b): rank {r} exited "
+                                 f"{p.returncode}:\n{log[-4000:]}")
+    return [torch.load(os.path.join(tmp, f"r{r}.pt"), weights_only=False)
+            for r in range(PAR_TP)]
+
+
+def _par_sp_attention(dev) -> tuple:
+    """Phase 28 (c): ``ulysses_attention`` (the flash kernels) and
+    ``ring_attention`` (plain PyTorch) over the current mesh's ``sp`` set
+    against ``attention_reference`` on the same f32 q/k/v and output
+    gradient at ``PAR_SP_SHAPE``, causal, without and with two packed
+    segments: outputs within ``F32_TOL`` and dq/dk/dv within
+    ``F32_GRAD_TOL``, each of the reference's max |value|.  Returns
+    ``(record, failures)``; its launches are a comparison's and count
+    for nothing."""
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.ops.attention import attention_reference
+    from horovod_tpu_torch.parallel import ring_attention, ulysses_attention
+    b, h, t, d = PAR_SP_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(28)
+    q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device=dev)
+                   for _ in range(4))
+    seg = torch.zeros(b, t, dtype=torch.int32, device=dev)
+    seg[:, t // 2:] = 1
+    rec, fails = {}, []
+    for case, s in (("causal", None), ("causal_packed", seg)):
+        fns = (("reference", lambda *a: attention_reference(
+                   *a, causal=True, segment_ids=s)),
+               ("ulysses", lambda *a: ulysses_attention(
+                   *a, causal=True, axis="sp", segment_ids=s)),
+               ("ring", lambda *a: ring_attention(
+                   *a, causal=True, axis="sp", segment_ids=s)))
+        res = {}
+        for name, fn in fns:
+            xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            registry.reset_launch_counts()
+            o = fn(*xs)
+            res[name] = (o.detach(), *torch.autograd.grad(o, xs, do))
+            torch.cuda.synchronize()
+            if name == "ulysses":
+                launches = {f: registry.launch_counts()[f] for f in
+                            ("flash", "flash_bwd_dq", "flash_bwd_dkv")}
+            del xs, o
+        want = res.pop("reference")
+        tols = [(F32_TOL if j == 0 else F32_GRAD_TOL)
+                * w.abs().max().item() for j, w in enumerate(want)]
+        rec[case] = {"ulysses_launches": launches}
+        for name, got in res.items():
+            errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+            rec[case][name] = dict(zip(("out", "dq", "dk", "dv"), errs))
+            if not all(e <= tol for e, tol in zip(errs, tols)):
+                fails.append(f"(c) {name} {case} vs attention_reference: "
+                             f"{errs} over {tols}")
+        rec[case]["tols"] = tols
+        if launches != {f: 1 for f in launches}:
+            fails.append(f"(c) ulysses {case} launches {launches}")
+        del res, want
+    return rec, fails
+
+
+def parallel_3d(dev, card: str, bert_step_ms) -> dict:
+    """Phase 28 (module docstring): (a) BERT-Large through the 3-D step
+    at world 1 on NCCL, against the port's ``Bert``; (b) tp = 2 as two
+    gloo ranks on the one card, against (a); (c) ``long_context`` at sp 1
+    (Ulysses and ring) and ``sync_batch_norm(axes=("data",))`` against
+    phase 13's layer.  Returns the kernels' launches of the phase."""
+    import tempfile
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import long_context
+    from horovod_tpu_torch.models import BERT_LARGE, Bert, init_bert_params
+    from horovod_tpu_torch.ops import bn, registry
+    from horovod_tpu_torch.parallel import build_3d_mesh, tp_param_specs
+    from horovod_tpu_torch.parallel.tp import split_bytes
+    from horovod_tpu_torch.training import (bert_pretrain_loss,
+                                            mlm_nsp_loss, sync_batch_norm)
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    fails, total = [], {}
+    cfg, (b, t) = BERT_LARGE, PAR_BATCH
+    # (a) world 1 on NCCL.
+    torch.cuda.reset_peak_memory_stats()
+    hvd.init()
+    mesh = build_3d_mesh(data=1, model=1)
+    params = init_bert_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    specs = tp_param_specs(params, axis="model")
+    batch = bert_batch(cfg, dev, b, t, seed=0)
+    g_ref, loss_ref = {}, {}
+    for dtype in (torch.float32, PAR_DTYPE):
+        ref = Bert.from_params(cfg, {k: v.clone() for k, v in
+                                     params.items()}, dtype=dtype)
+        loss = mlm_nsp_loss(*ref(batch[0]), *batch)
+        loss.backward()
+        g_ref[dtype] = {n: p.grad.float() for n, p in ref.named_parameters()}
+        loss_ref[dtype] = loss.item()
+        del ref, loss
+    # bf16's own distance from f32 in the port's Bert: the noise floor.
+    floor = _grad_errs(g_ref[PAR_DTYPE], g_ref[torch.float32])
+    model = _bert_tp_model(cfg, dev, params, specs, mesh, 1)
+    split_a = split_bytes(params, specs)
+    del params
+    g_a, loss_a = {}, {}
+    for dtype in (torch.float32, PAR_DTYPE):
+        model.dtype = dtype
+        torch.cuda.synchronize()
+        registry.reset_launch_counts()
+        loss = bert_pretrain_loss(model, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        grad_counts = registry.launch_counts()
+        g_a[dtype] = {n: p.grad.float().clone()
+                      for n, p in model.named_parameters()}
+        loss_a[dtype] = loss.item()
+        model.zero_grad(set_to_none=True)
+        del loss
+    gate_a = _grad_gate(_grad_errs(g_a[torch.float32],
+                                   g_ref[torch.float32]),
+                        _grad_errs(g_a[PAR_DTYPE], g_ref[torch.float32]),
+                        floor, _grad_errs(g_a[PAR_DTYPE], g_ref[PAR_DTYPE]))
+    loss_rel = abs(loss_a[PAR_DTYPE] - loss_ref[PAR_DTYPE]) \
+        / abs(loss_ref[PAR_DTYPE])
+    loss_rel32 = abs(loss_a[torch.float32] - loss_ref[torch.float32]) \
+        / abs(loss_ref[torch.float32])
+    del g_ref
+    step = _bert_tp_step(model, specs, mesh, 1)
+    losses = [step(batch).item()]                       # warm-up
+    registry.reset_launch_counts()
+    times = []
+    for _ in range(PAR_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(batch).item())
+        times.append(time.perf_counter() - t0)
+    counts_a = registry.launch_counts()
+    _add_counts(total, counts_a)
+    step_ms = 1e3 * sum(times) / PAR_STEPS
+    peak_a = torch.cuda.max_memory_allocated()
+    del model, step
+    backend_a = torch.distributed.get_backend()
+    hvd.shutdown()
+    free_device()
+    rec_a = {"world": 1, "backend": backend_a, "mesh": dict(mesh.shape),
+             "batch": [b, t], "dtype": str(PAR_DTYPE),
+             "loss": loss_a[PAR_DTYPE], "loss_bert": loss_ref[PAR_DTYPE],
+             "loss_rel_err": loss_rel, "loss_f32": loss_a[torch.float32],
+             "loss_rel_err_f32": loss_rel32, "grads": gate_a,
+             "grad_launches": grad_counts, "losses": losses,
+             "step_ms": step_ms, "step_ms_each": [1e3 * x for x in times],
+             "phase12_step_ms": bert_step_ms, "launches": counts_a,
+             "peak_mem_bytes": peak_a, "split_bytes": split_a}
+    if loss_rel > 1e-2 or loss_rel32 > PAR_F32_GRAD_TOL or \
+            not gate_a["ok"]:
+        fails.append(f"(a) vs Bert: loss {loss_rel} ({loss_rel32} in "
+                     f"f32), grads {gate_a}")
+    if not all(np.isfinite(losses)):
+        fails.append(f"(a) losses {losses}")
+    for f in ("flash", "flash_bwd_dq", "flash_bwd_dkv"):
+        if grad_counts[f] != cfg.num_layers or \
+                counts_a[f] != cfg.num_layers * PAR_STEPS:
+            fails.append(f"(a) {f} launches {grad_counts[f]}, "
+                         f"{counts_a[f]}")
+    # (b) tp = 2 on the one card, two gloo ranks.
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _par_tp_world(here, tmp)
+        def grads(suffix):
+            return torch.load(os.path.join(tmp, "r0.pt" + suffix),
+                              weights_only=False, mmap=True)
+
+        def gate(g, errs32):
+            return _grad_gate(errs32, _grad_errs(g, g_a[torch.float32]),
+                              floor, _grad_errs(g, g_a[PAR_DTYPE]))
+
+        errs32 = _grad_errs(grads(".grads32"), g_a[torch.float32])
+        g_b = grads(".grads")
+        gate_b = gate(g_b, errs32)
+        # The two faults, each under the same gate: it must reject both.
+        faults = {"no_copy_to_tp": gate(grads(".grads_fault"), errs32),
+                  "dropped_shard": gate(_drop_shard(g_b, specs), errs32)}
+        del g_b
+    del g_a
+    free_device()
+    loss_rel_b = abs(ranks[0]["loss"] - loss_a[PAR_DTYPE]) \
+        / abs(loss_a[PAR_DTYPE])
+    loss_rel_b32 = abs(ranks[0]["loss_f32"] - loss_a[torch.float32]) \
+        / abs(loss_a[torch.float32])
+    rec_b = {"world": PAR_TP, "mesh": {"data": 1, "model": PAR_TP},
+             "backend": [r["backend"] for r in ranks],
+             "loss": [r["loss"] for r in ranks],
+             "loss_a": loss_a[PAR_DTYPE], "loss_rel_err": loss_rel_b,
+             "loss_f32": [r["loss_f32"] for r in ranks],
+             "loss_rel_err_f32": loss_rel_b32, "grads": gate_b,
+             "faults": faults,
+             "step_loss": [r["step_loss"] for r in ranks],
+             "step_ms": [r["step_ms"] for r in ranks],
+             "launches": [r["launches"] for r in ranks],
+             "launches_f32": [r["launches_f32"] for r in ranks],
+             "tp_allreduces_a_step": [r["tp_allreduces"] for r in ranks],
+             "split_bytes": [r["split_bytes"] for r in ranks],
+             "split_bytes_a": split_a,
+             "peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks]}
+    for r in ranks:
+        _add_counts(total, r["launches"])
+        _add_counts(total, r["launches_f32"])
+    if loss_rel_b > 1e-2 or loss_rel_b32 > PAR_F32_GRAD_TOL or \
+            not gate_b["ok"]:
+        fails.append(f"(b) vs (a): loss {loss_rel_b} ({loss_rel_b32} in "
+                     f"f32), grads {gate_b}")
+    for name, rec in faults.items():
+        if rec["bf16_margin"] >= 1.0:
+            fails.append(f"(b) the bf16 gate passes the fault {name}: {rec}")
+    for r, res in enumerate(ranks):
+        if any(res["launches"][f] != cfg.num_layers for f in
+               ("flash", "flash_bwd_dq", "flash_bwd_dkv")):
+            fails.append(f"(b) rank {r} launches {res['launches']}")
+        if 2 * res["split_bytes"] != split_a or \
+                res["full_split_bytes"] != split_a:
+            fails.append(f"(b) rank {r} holds {res['split_bytes']} of "
+                         f"{split_a} split bytes")
+        if res["tp_allreduces"] != 4 * cfg.num_layers:
+            fails.append(f"(b) rank {r}: {res['tp_allreduces']} tp "
+                         f"allreduces a step")
+        if res["backend"] != "gloo" or not np.isfinite(res["step_loss"]):
+            fails.append(f"(b) rank {r}: {res['backend']}, "
+                         f"{res['step_loss']}")
+    # (c) long context at sp 1, then the sub-mesh sync BN.
+    hvd.init()
+    runs = {}
+    for mode in ("ulysses", "ring"):
+        registry.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = long_context.main(PAR_LONG + ["--mode", mode])
+        torch.cuda.synchronize()
+        runs[mode] = {"losses": run["losses"], "ref_loss": run["ref_loss"],
+                      "seconds": time.perf_counter() - t0,
+                      "launches": registry.launch_counts()}
+        _add_counts(total, runs[mode]["launches"])
+        free_device()
+    first = {m: r["losses"][0] for m, r in runs.items()}
+    for mode, r in runs.items():
+        ls = r["losses"]
+        if not (np.isfinite(ls).all() and ls[-1] < ls[0]):
+            fails.append(f"(c) {mode} losses {ls}")
+    if abs(first["ulysses"] - first["ring"]) > 2e-2:
+        fails.append(f"(c) first losses {first}")
+    want = {f: 5 for f in ("flash", "flash_bwd_dq", "flash_bwd_dkv")}
+    if {f: runs["ulysses"]["launches"][f] for f in want} != want or \
+            any(runs["ring"]["launches"].values()):
+        fails.append(f"(c) launches {runs}")
+    sp_attention, sp_fails = _par_sp_attention(dev)
+    fails += sp_fails
+    free_device()
+    build_3d_mesh(data=1)
+    shape = BN_SYNC_CASES[0]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    c = shape[-1]
+    x = (2.0 * torch.randn(*shape, generator=gen, device=dev)
+         + 0.5).to(torch.bfloat16)
+    dy = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+    state = {"scale": 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev),
+             "bias": 0.1 * torch.randn(c, generator=gen, device=dev),
+             "mean": torch.zeros(c, device=dev),
+             "var": torch.ones(c, device=dev)}
+    bn_runs = {}
+    for name, m in (("sub_mesh", sync_batch_norm(
+            axes=("data",), features=c, momentum=0.9,
+            dtype=torch.bfloat16, device=dev)),
+                    ("plain", bn.BatchNorm(c, momentum=0.9,
+                                           dtype=torch.bfloat16,
+                                           device=dev))):
+        m.load_state_dict(state)
+        registry.reset_launch_counts()
+        out = _bn_step(m, x, dy)
+        torch.cuda.synchronize()
+        bn_runs[name] = (out + (m.mean.clone(), m.var.clone()),
+                         registry.launch_counts())
+    _add_counts(total, bn_runs["sub_mesh"][1])
+    bn_bitwise = all(torch.equal(p, q) for p, q in
+                     zip(bn_runs["sub_mesh"][0], bn_runs["plain"][0]))
+    bn_launches = {k: bn_runs["sub_mesh"][1][k]
+                   for k in ("bn_bwd_reduce", "bn_bwd_dx")}
+    if not bn_bitwise:
+        fails.append("(c) sync_batch_norm(axes=('data',)) differs from "
+                     "the plain layer")
+    if bn_launches != {"bn_bwd_reduce": 1, "bn_bwd_dx": 1}:
+        fails.append(f"(c) BN launches {bn_launches}")
+    del x, dy, bn_runs
+    hvd.shutdown()
+    free_device()
+    seconds = time.perf_counter() - t_phase
+    log({"phase": "parallel_3d", "card": card, "a": rec_a, "b": rec_b,
+         "c": {"long_context": runs, "first_losses": first,
+               "sp_attention_vs_reference": sp_attention,
+               "sync_bn_shape": list(shape),
+               "sync_bn_bitwise_phase13_layer": bn_bitwise,
+               "sync_bn_launches": bn_launches},
+         "launches": total, "seconds": seconds, "ok": not fails})
+    if fails:
+        raise AssertionError("parallel_3d: " + "; ".join(fails))
+    return total
+
+
+def main(argv=None) -> int:
+    """Every phase (``--tp-worker``: one rank of phase 28 (b))."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if argv[:1] == ["--tp-worker"]:
+        return tp_worker(int(argv[1]), int(argv[2]), argv[3], argv[4])
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import attention as attn
     from horovod_tpu_torch.ops import bn
@@ -5462,6 +6022,7 @@ def main() -> int:
     check_bert_grad(dev)
     free_device()
     bert = train_bert(dev, card)
+    bert_step_ms = bert.pop("step_ms")
     free_device()
     check_bn_sync(dev, card)
     free_device()
@@ -5494,17 +6055,20 @@ def main() -> int:
     free_device()
     rest27 = serving_rest(dev, card, serve_run)
     free_device()
+    par28 = parallel_3d(dev, card, bert_step_ms)
+    free_device()
     # The attention and BN kernels run on several paths: their launches
     # are the sums.
     flash["launches"] = (serve["flash"] + train["flash"] + bert["flash"]
-                         + lora26["flash"] + rest27["flash"])
+                         + lora26["flash"] + rest27["flash"]
+                         + par28["flash"])
     decode["launches"] = (serve["flash_decode"] + lora26["flash_decode"]
                           + rest27["flash_decode"])
     decode_fp8["launches"] = rest27["flash_decode_fp8"]
     dq["launches"] = (train["flash_bwd_dq"] + bert["flash_bwd_dq"]
-                      + lora26["flash_bwd_dq"])
+                      + lora26["flash_bwd_dq"] + par28["flash_bwd_dq"])
     dkv["launches"] = (train["flash_bwd_dkv"] + bert["flash_bwd_dkv"]
-                       + lora26["flash_bwd_dkv"])
+                       + lora26["flash_bwd_dkv"] + par28["flash_bwd_dkv"])
     bn_red["launches"] = (resnet["bn_bwd_reduce"] + inception["bn_bwd_reduce"]
                           + torch_rn50["bn_bwd_reduce"]
                           + exchange["bn_bwd_reduce"]
@@ -5512,12 +6076,13 @@ def main() -> int:
                           + elastic_bn["bn_bwd_reduce"]
                           + sdc_bn["bn_bwd_reduce"]
                           + autotune_bn["bn_bwd_reduce"]
-                          + join_bn["bn_bwd_reduce"])
+                          + join_bn["bn_bwd_reduce"]
+                          + par28["bn_bwd_reduce"])
     bn_dx["launches"] = (resnet["bn_bwd_dx"] + inception["bn_bwd_dx"]
                          + torch_rn50["bn_bwd_dx"] + exchange["bn_bwd_dx"]
                          + loop["bn_bwd_dx"] + elastic_bn["bn_bwd_dx"]
                          + sdc_bn["bn_bwd_dx"] + autotune_bn["bn_bwd_dx"]
-                         + join_bn["bn_bwd_dx"])
+                         + join_bn["bn_bwd_dx"] + par28["bn_bwd_dx"])
     for e in fused:
         e["launches"] = powersgd[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

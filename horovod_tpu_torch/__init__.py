@@ -83,7 +83,14 @@ ported so far:
   batcher (``HVD_TPU_NATIVE_CORE=1``: the ``DistributedOptimizer``'s
   hooks hand each gradient to a C++ scheduler that cuts fused batches,
   one ``grouped_allreduce`` each; ``HOROVOD_CYCLE_TIME``, tuned by the
-  autotuner's cycle axis).
+  autotuner's cycle axis);
+* model parallelism (:mod:`horovod_tpu_torch.parallel`): the rank mesh
+  (``build_3d_mesh``, ``build_parallel_mesh``: one process set a line
+  of each named axis), Megatron tensor parallelism and BERT's tp
+  forward (``models.BertTP``), ring and Ulysses sequence parallelism,
+  the GPipe pipeline and the Switch MoE layer, and the 3-D step
+  (``make_train_step(..., tp=, pipeline_stages=, param_specs=)``), whose
+  own collectives run over the mesh's data axes only.
 
 Kernels hand-written in CUDA C++ for ``sm_90a`` (``ops/csrc``) carry
 attention -- the flash forward and decode kernels, the flash backward's
@@ -91,7 +98,7 @@ dq and dk/dv kernels -- the train-mode BatchNorm backward's two
 passes, and the three stages of the PowerSGD exchange.  The layout
 mirrors ``horovod_tpu`` (``core/``, ``adasum/``, ``collectives/``,
 ``autotune/``, ``controller/``, ``data/``, ``elastic/``, ``optim/``,
-``run/``, ``timeline/``, ``models/``, ``ops/``, ``serving/``,
+``parallel/``, ``run/``, ``timeline/``, ``models/``, ``ops/``, ``serving/``,
 ``utils/``, ``training.py``) so each module's counterpart is easy to find.
 
 The package imports ``torch`` and ``numpy`` only -- nothing of JAX and

@@ -54,8 +54,11 @@ The grid has the JAX tuner's ten members, in its order (``_grid``):
   step or loop is built, so not members of :meth:`Autotuner.trace_key`;
 * **DCN-leg codec**: opt-in (``HOROVOD_AUTOTUNE_HIER=1``) on a two-level
   layout;
-* **MoE codec**: pinned to ``none``.  ``HOROVOD_AUTOTUNE_MOE=1`` raises
-  ``NotImplementedError``: the MoE layer it tunes is ROADMAP item 1.12.
+* **MoE codec**: opt-in (``HOROVOD_AUTOTUNE_MOE=1``: none, bf16, fp16),
+  the wire dtype of ``parallel.moe.moe_ffn``'s dispatch/combine
+  all_to_all pair (:meth:`Autotuner.moe_codec`, read by
+  ``resolve_moe_compression``); without it pinned to
+  ``HOROVOD_MOE_COMPRESSION``.
 """
 
 from __future__ import annotations
@@ -80,8 +83,10 @@ COMP_CODEC_BASE = 4
 # DCN-leg codec axis encoding (grid member 8); 0 keeps the sample's
 # plain codec on every leg.
 HIER_DCN_NONE, HIER_DCN_BF16, HIER_DCN_FP16, HIER_DCN_FP8 = 0, 1, 2, 3
-# MoE all_to_all codec axis encoding (grid member 9), pinned to none.
-MOE_NONE = 0
+# MoE all_to_all codec axis encoding (grid member 9): the wire dtype of
+# the dispatch/combine shuffle in ``parallel.moe.moe_ffn``.
+MOE_NONE, MOE_BF16, MOE_FP16 = 0, 1, 2
+_MOE_CODES = {MOE_NONE: "none", MOE_BF16: "bf16", MOE_FP16: "fp16"}
 
 
 def _grid(thresholds, cycles, hiers, comps, zeros, chunks, steps, micros,
@@ -126,10 +131,6 @@ class Autotuner:
                  max_samples: int = MAX_SAMPLES,
                  cycle_candidates: Optional[List[float]] = None):
         from ..core.config import _env, _env_bool
-        if _env_bool("AUTOTUNE_MOE"):
-            raise NotImplementedError(
-                "HOROVOD_AUTOTUNE_MOE: the MoE all_to_all codec axis tunes "
-                "parallel/moe, which is not ported (ROADMAP item 1.12)")
         self.candidates = list(candidates or _THRESHOLDS)
         if config.fusion_threshold not in self.candidates:
             self.candidates.append(config.fusion_threshold)
@@ -202,10 +203,18 @@ class Autotuner:
         hcodecs = [HIER_DCN_NONE, HIER_DCN_BF16, HIER_DCN_FP16,
                    HIER_DCN_FP8] if self.tunes_hier_codec \
             else [HIER_DCN_NONE]
-        self.tunes_moe = False
+        # The MoE codec axis (opt-in: it narrows the expert shuffle's
+        # numerics); without the opt-in it pins to the configured
+        # HOROVOD_MOE_COMPRESSION.
+        configured_moe = {v: k for k, v in _MOE_CODES.items()}.get(
+            str(getattr(config, "moe_compression", None) or "none").lower(),
+            MOE_NONE)
+        self.tunes_moe = bool(_env_bool("AUTOTUNE_MOE"))
+        moes = [MOE_NONE, MOE_BF16, MOE_FP16] if self.tunes_moe \
+            else [configured_moe]
         self.grid = _grid(sorted(self.candidates), sorted(cycles), hiers,
                           comps, zeros, chunks, steps, micros, hcodecs,
-                          [MOE_NONE])
+                          moes)
         self.steps_per_sample = steps_per_sample
         self.max_samples = min(max_samples, len(self.grid))
         self.log_path = config.autotune_log
@@ -371,6 +380,11 @@ class Autotuner:
         """Microbatch count of the current sample, read when a step is
         built (not a :meth:`trace_key` member)."""
         return int(self._current()[7])
+
+    def moe_codec(self) -> str:
+        """The MoE all_to_all wire codec of the current sample
+        (``"none"``, ``"bf16"`` or ``"fp16"``; ``parallel.moe.moe_ffn``)."""
+        return _MOE_CODES[int(self._current()[9])]
 
     def trace_key(self) -> tuple:
         """The knobs a built step applies per call (the JAX step's trace

@@ -6,7 +6,8 @@ Average, Min, Max, Product, Adasum) with ``prescale_factor`` /
 ``postscale_factor`` and ``compression``, :func:`grouped_allreduce`,
 :func:`allgather` (ragged first dims), :func:`grouped_allgather`,
 :func:`broadcast`, :func:`reducescatter`, :func:`grouped_reducescatter`,
-:func:`alltoall` (even, or uneven with ``splits``),
+:func:`alltoall` (even, or uneven with ``splits``, or the JAX op's
+``split_axis`` / ``concat_axis`` form), :func:`ppermute`,
 :func:`sparse_allreduce_async`, :func:`barrier`, :func:`desync_check`
 (the in-step replica probe), and the exchanges of
 the compressed and sharded paths: :func:`powersgd_allreduce`,
@@ -280,15 +281,16 @@ def step_allreduce(tensor: torch.Tensor, op: ReduceOp, *,
 
 
 def step_grouped_allreduce(tensors: Sequence[torch.Tensor],
-                           op: ReduceOp) -> List[torch.Tensor]:
+                           op: ReduceOp, *,
+                           process_set=None) -> List[torch.Tensor]:
     """:func:`grouped_allreduce` for a train step's own list (flax BN's
     running statistics): a join slot only under :func:`_step_joins`."""
     from ..controller.fusion import pack, plan_buckets, unpack
     if _step_joins():
-        return grouped_allreduce(tensors, op=op)
+        return grouped_allreduce(tensors, op=op, process_set=process_set)
     tensors = list(tensors)
     spec = plan_buckets(tensors)
-    handles = [exchange_allreduce_async_(buf, op)
+    handles = [exchange_allreduce_async_(buf, op, process_set=process_set)
                for buf in pack(tensors, spec)]
     return unpack([h.wait() for h in handles], spec)
 
@@ -714,10 +716,136 @@ def _alltoallv_start(x: torch.Tensor, send: List[int], ps: ProcessSet,
 
 
 def alltoall(tensor: torch.Tensor, splits=None, name: Optional[str] = None,
-             process_set=None):
+             process_set=None, *, split_axis: Optional[int] = None,
+             concat_axis: Optional[int] = None):
     """The received tensor, or ``(received, received_splits)`` when
-    ``splits`` is given (see :func:`alltoall_async`)."""
-    return alltoall_async(tensor, splits, name, process_set).wait()
+    ``splits`` is given (see :func:`alltoall_async`).
+
+    ``split_axis`` / ``concat_axis`` take the JAX op's even form (the
+    tiled ``lax.all_to_all``): ``tensor`` splits along ``split_axis``
+    into one block a member, block ``i`` goes to member ``i``, and the
+    blocks received concatenate along ``concat_axis`` in member order.
+    That form is differentiable (its backward is the exchange with the
+    two axes swapped) and, as the JAX op inside a step, takes no join
+    slot; a set of one member returns ``tensor`` itself."""
+    if split_axis is None and concat_axis is None:
+        return alltoall_async(tensor, splits, name, process_set).wait()
+    if splits is not None:
+        raise ValueError("alltoall: splits and split_axis / concat_axis "
+                         "exclude each other")
+    ps = get_process_set(process_set)
+    return _AllToAll.apply(tensor, ps, 0 if split_axis is None
+                           else split_axis,
+                           0 if concat_axis is None else concat_axis)
+
+
+def _alltoall_axes(x: torch.Tensor, ps: ProcessSet, split_axis: int,
+                   concat_axis: int) -> torch.Tensor:
+    """The even all_to_all of ``x`` over ``ps`` in the axis form."""
+    m = ps.size()
+    split_axis %= x.dim()
+    concat_axis %= x.dim()
+    if x.shape[split_axis] % m:
+        raise ValueError(
+            f"alltoall over a {m}-member process set needs dim "
+            f"{split_axis} divisible by {m}, got {x.shape[split_axis]}")
+    _member_set(ps, "alltoall", x)
+    if m == 1:
+        return x
+    chunk = x.shape[split_axis] // m
+    send = x.movedim(split_axis, 0).reshape((m, chunk) + tuple(
+        x.movedim(split_axis, 0).shape[1:])).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=ps.group)
+    pieces = [recv[i].movedim(0, split_axis) for i in range(m)]
+    return torch.cat(pieces, dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`alltoall`'s axis form; the backward swaps the axes."""
+
+    @staticmethod
+    def forward(ctx, x, ps, split_axis, concat_axis):
+        ctx.ps, ctx.axes = ps, (split_axis, concat_axis)
+        return _alltoall_axes(x, ps, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return (_alltoall_axes(g.contiguous(), ctx.ps, concat_axis,
+                               split_axis), None, None, None)
+
+
+def step_allgather(x: torch.Tensor, *, dim: int = 0,
+                   process_set=None) -> torch.Tensor:
+    """Every member's ``x`` (equal shapes) concatenated along ``dim`` in
+    member order: the JAX ``allgather(..., axis=dim, tiled=True)`` inside
+    a step (no join slot, not differentiable)."""
+    ps = _member_set(process_set, "allgather", x)
+    if ps.size() == 1:
+        return x
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((ps.size() * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=ps.group)
+    return out.movedim(0, dim)
+
+
+# ---------------------------------------------------------------------------
+# ppermute
+# ---------------------------------------------------------------------------
+
+
+def _ppermute(x: torch.Tensor, perm, ps: ProcessSet) -> torch.Tensor:
+    me = ps.position()
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    for src, dst in perm:
+        if src == me and dst == me:
+            out.copy_(x)
+        elif src == me:
+            ops.append(dist.P2POp(dist.isend, x, ps.ranks[dst],
+                                  group=ps.group))
+        elif dst == me:
+            ops.append(dist.P2POp(dist.irecv, out, ps.ranks[src],
+                                  group=ps.group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, perm, ps):
+        ctx.perm, ctx.ps = perm, ps
+        return _ppermute(x, perm, ps)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = tuple((dst, src) for src, dst in ctx.perm)
+        return _ppermute(g, inverse, ctx.ps), None, None
+
+
+def ppermute(x: torch.Tensor, perm, *, process_set=None) -> torch.Tensor:
+    """Point-to-point permutation over a set (``lax.ppermute``): ``perm``
+    holds ``(source, destination)`` pairs of set positions, each position
+    at most once as a source and once as a destination; a member that is
+    no destination receives zeros.  The sends and receives go out
+    together (``batch_isend_irecv``).  Differentiable: the backward sends
+    the gradient along the inverse permutation, so a pipeline or a ring
+    gets its backward from autograd.  Every member must run the same
+    ppermutes, forward and backward, in the same order."""
+    ps = _member_set(process_set, "ppermute", x)
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    n = ps.size()
+    for pos in (0, 1):
+        col = [p[pos] for p in perm]
+        if len(set(col)) != len(col) or any(not 0 <= c < n for c in col):
+            raise ValueError(f"ppermute: bad permutation {perm} over a "
+                             f"{n}-member set")
+    return _PPermute.apply(x, perm, ps)
 
 
 # ---------------------------------------------------------------------------
@@ -1330,4 +1458,4 @@ __all__ = ["Handle", "allreduce", "allreduce_", "allreduce_async",
            "topk_allreduce_async", "hierarchical_allreduce",
            "chunked_allreduce", "microbatch_pad_quantum",
            "psum_scatter_bucket", "psum_scatter_bucket_async",
-           "allgather_bucket"]
+           "allgather_bucket", "ppermute", "step_allgather"]

@@ -19,7 +19,8 @@ The exchange-plan IR: every exchange the package runs asks
 (``timeline.spans.note_leg``) and prices its counters from them.  The
 families are ``flat``, ``hier``, ``chunked``, ``powersgd``, ``topk``,
 ``fp8``, ``ef``, ``zero``, ``microbatch``, ``guard`` (the SDC screen's
-8-byte allreduce) and ``kernel``; a new one
+8-byte allreduce), ``moe`` (the MoE layer's all_to_all pair,
+:func:`plan_moe_alltoall`) and ``kernel``; a new one
 needs :func:`register_leg_kind` and :func:`register_plan_family` and no
 consumer code.  :func:`schedule_legs`, :func:`overlap_phases` and
 :func:`simulate_issue` order and price legs on a two-link model whose
@@ -374,6 +375,7 @@ for _kind, _bw, _doc in (
         ("mb_rs", "ici", "microbatch pipe: per-microbatch reduce-scatter"),
         ("mb_ag", "ici", "microbatch pipe: closing allgather"),
         ("guard", "ici", "SDC guard screen vector psum"),
+        ("moe_a2a", "ici", "MoE dispatch/combine all_to_all"),
         ("kernel", "local", "kernel contract: no wire traffic")):
     register_leg_kind(_kind, bandwidth=_bw, doc=_doc)
 
@@ -826,6 +828,47 @@ def _build_guard(spec: dict) -> List[ExchangeLeg]:
         audit=(("psum", "float32", 2, "guard/screen"),))]
 
 
+def _canon_moe(spec: dict) -> dict:
+    from ..parallel.moe import resolve_moe_compression
+    return {"n_experts": int(spec["n_experts"]),
+            "capacity": int(spec["capacity"]),
+            "d_model": int(spec["d_model"]),
+            "dtype": dtype_name(_dtype(spec.get("dtype", "float32"))),
+            "codec": resolve_moe_compression(spec.get("compression")),
+            "axis": str(spec.get("axis", "model"))}
+
+
+def _build_moe(spec: dict) -> List[ExchangeLeg]:
+    # The dispatch and combine all_to_all of one MoE layer: the (E, C, d)
+    # slot tensor each way, at the codec's wire dtype.
+    from ..parallel.moe import _MOE_CODECS
+    wire = _MOE_CODECS[spec["codec"]]
+    wire_dt = dtype_name(wire if wire is not None else _dtype(spec["dtype"]))
+    elements = spec["n_experts"] * spec["capacity"] * spec["d_model"]
+    nbytes = elements * _dtype(wire_dt).itemsize
+    return [ExchangeLeg(
+        tag=f"moe/a2a_{name}", axis=spec["axis"],
+        collective="all_to_all", codec=spec["codec"],
+        wire_dtype=wire_dt, elements=elements, nbytes=nbytes,
+        kind="moe_a2a",
+        audit=(("all_to_all", wire_dt, elements, f"a2a-{name}"),))
+        for name in ("dispatch", "combine")]
+
+
+def plan_moe_alltoall(n_experts: int, capacity: int, d_model: int, *,
+                      dtype=torch.float32, compression=None,
+                      axis: str = "model") -> List[ExchangeLeg]:
+    """The rows of one MoE layer's all_to_all pair (the JAX function;
+    ``plan_exchange("moe")``): the dispatch leg moves the f32 ``(E, C,
+    d)`` slot tensor, the combine leg the same back, both at the wire
+    dtype of ``compression`` (``parallel.moe.resolve_moe_compression``).
+    ``nbytes`` is what ``moe_ffn`` notes a leg."""
+    return list(plan_exchange(
+        "moe", n_experts=int(n_experts), capacity=int(capacity),
+        d_model=int(d_model), dtype=dtype, compression=compression,
+        axis=axis).legs)
+
+
 def _build_kernel(spec: dict) -> List[ExchangeLeg]:
     # A kernel contract: its HBM bytes, no wire collective.  The tag is
     # the JAX package's, so the rows compare equal.
@@ -845,6 +888,7 @@ register_plan_family("ef", _build_ef, _canon_ef)
 register_plan_family("zero", _build_zero, _canon_zero)
 register_plan_family("microbatch", _build_microbatch, _canon_microbatch)
 register_plan_family("guard", _build_guard)
+register_plan_family("moe", _build_moe, _canon_moe)
 register_plan_family("kernel", _build_kernel, _canon_kernel)
 
 
@@ -979,7 +1023,8 @@ def simulate_issue(legs: Sequence[ExchangeLeg], links=None) -> dict:
 def explain_plan(leaves: Sequence[Any],
                  threshold_bytes: Optional[int] = None, compression=None,
                  reverse: bool = False,
-                 register: bool = True) -> List[dict]:
+                 register: bool = True,
+                 moe: Optional[dict] = None) -> List[dict]:
     """The planner's buckets for ``leaves`` (anything with ``.shape`` and
     ``.dtype``, in the JAX package's leaf order to get its rows) as one
     dict a bucket: ``bucket``, ``dtype``, ``leaves``, ``elements``, raw
@@ -989,7 +1034,11 @@ def explain_plan(leaves: Sequence[Any],
     buckets come from the same :func:`plan_buckets` call the exchange
     makes (an error-feedback codec folds ``("ef", codec)`` into its key,
     as ``ef_bucket_plan`` does).  ``register`` publishes them as the
-    ``horovod_plan_*`` gauges."""
+    ``horovod_plan_*`` gauges.  ``moe`` (``n_experts``, ``capacity``,
+    ``d_model``; optional ``layers``, ``dtype``, ``compression``,
+    ``axis``) prices a model's MoE all_to_all traffic beside the
+    buckets: one more row, its legs :func:`plan_moe_alltoall`'s pair a
+    layer."""
     from ..collectives.compression import (is_error_feedback,
                                            parse_compression,
                                            wire_payload_bytes)
@@ -1032,6 +1081,27 @@ def explain_plan(leaves: Sequence[Any],
                                   codec] + (["rev"] if reverse else [])),
             "legs": [dataclasses.asdict(leg) for leg in legs]
             if legs is not None else None,
+        })
+    if moe is not None:
+        layers = int(moe.get("layers", 1))
+        mdt = _dtype(moe.get("dtype", "float32"))
+        pair = plan_moe_alltoall(
+            moe["n_experts"], moe["capacity"], moe["d_model"], dtype=mdt,
+            compression=moe.get("compression"),
+            axis=moe.get("axis", "model"))
+        moe_legs = pair * layers
+        elements = sum(leg.elements for leg in moe_legs)
+        rows.append({
+            "bucket": len(rows), "dtype": pair[0].wire_dtype,
+            "leaves": 0, "elements": int(elements),
+            "bytes": int(elements * mdt.itemsize),
+            "wire_bytes": int(sum(leg.nbytes for leg in moe_legs)),
+            "codec": pair[0].codec, "fence": "",
+            "fuse_key": "|".join(
+                ["moe", f"E={int(moe['n_experts'])}",
+                 f"C={int(moe['capacity'])}", f"d={int(moe['d_model'])}",
+                 f"L={layers}", pair[0].codec]),
+            "legs": [dataclasses.asdict(leg) for leg in moe_legs],
         })
     if register:
         register_plan_gauges(rows)

@@ -121,6 +121,16 @@ class Config:
     # each sub-batch's buckets reduce-scatter while the next sub-batch's
     # backward runs.
     microbatches: int = 1
+    # The 3-D step's defaults for steps built without explicit arguments
+    # (training.py): HOROVOD_TP, the tensor-parallel extent of the mesh's
+    # "model" axis, and HOROVOD_PIPELINE_STAGES, the "pipe" axis's; 1 is
+    # off (the data-parallel step).
+    tp: int = 1
+    pipeline_stages: int = 1
+    # The MoE all_to_all wire codec (HOROVOD_MOE_COMPRESSION:
+    # none|bf16|fp16; parallel/moe.py), which the autotuner's MoE axis
+    # (HOROVOD_AUTOTUNE_MOE=1) overrides per sample.
+    moe_compression: Optional[str] = None
     # Stall inspector (core/stall.py): warn about a blocking wait older
     # than stall_check_time seconds (HOROVOD_STALL_CHECK_TIME, default
     # 60; HOROVOD_STALL_CHECK_DISABLE=1 turns it off), abort the process
@@ -213,6 +223,9 @@ def load_config() -> Config:
         exchange_chunk_bytes=_env_int("EXCHANGE_CHUNK_MB", 0) * _MiB,
         steps_per_exec=_env_int("STEPS_PER_EXEC", 1),
         microbatches=_env_int("MICROBATCHES", 1),
+        tp=_env_int("TP", 1),
+        pipeline_stages=_env_int("PIPELINE_STAGES", 1),
+        moe_compression=_env("MOE_COMPRESSION"),
         stall_check_disable=_env_bool("STALL_CHECK_DISABLE"),
         # Upstream spells these *_TIME_SECONDS; both are accepted.
         stall_check_time=_env_float(

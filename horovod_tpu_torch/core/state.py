@@ -6,8 +6,10 @@ world's identity, set by ``init()``.  The communicator is
 whether ``init()`` created it (and ``shutdown()`` must destroy it).
 ``process_sets`` maps each registered set's name to its
 :class:`~horovod_tpu_torch.core.process_sets.ProcessSet` (the global set
-included), and ``hierarchy`` caches the node and cross groups of
-hierarchical Adasum per ``local_size``.  ``generation`` counts the
+included), ``hierarchy`` caches the node and cross groups of
+hierarchical Adasum per ``local_size``, and ``mesh`` is the rank mesh
+of :mod:`~horovod_tpu_torch.parallel.mesh` that named axes resolve
+against.  ``generation`` counts the
 ``init()`` calls of the process and survives ``reset()``: what binds the
 process group when it is built (a ``DistributedOptimizer``'s in-flight
 handles and two-level groups, a captured ``TrainLoop`` graph) records it
@@ -66,6 +68,9 @@ class GlobalState:
         self.owns_group: bool = False
         self.process_sets: Dict[str, object] = {}
         self.hierarchy: Dict[int, tuple] = {}
+        # The rank mesh the last build_parallel_mesh / build_3d_mesh made
+        # (parallel/mesh.py): what a named axis resolves against.
+        self.mesh = None
         import sys
         spans = sys.modules.get("horovod_tpu_torch.timeline.spans")
         if spans is not None:

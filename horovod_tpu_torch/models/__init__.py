@@ -13,7 +13,8 @@ from .resnet import (BasicBlock, BottleneckBlock, ResNet,  # noqa: F401
                      space_to_depth)
 from .transformer import (BERT_BASE, BERT_LARGE, BERT_TINY,  # noqa: F401
                           LLAMA3_8B, LLAMA_1B, LLAMA_SERVE, LLAMA_TINY, Bert,
-                          BertConfig, EncoderBlock, LayerNorm, LlamaConfig,
+                          BertConfig, BertTP, EncoderBlock, LayerNorm,
+                          LlamaConfig, ParamTree, bert_tp_apply,
                           LlamaLM, RMSNorm, freeze_base, init_bert_params,
                           init_llama_params, lora_parameters, merge_lora,
                           quantize_frozen_base, quantize_int8,

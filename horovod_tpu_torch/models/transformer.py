@@ -808,3 +808,125 @@ def init_bert_params(config: BertConfig, *, generator: torch.Generator,
             t.normal_(0.0, 0.02, generator=generator)
         out[name] = t
     return out
+
+
+# ---------------------------------------------------------------------------
+# BERT under tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+def _tp_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  dtype) -> torch.Tensor:
+    """``bert_tp_apply``'s layer norm (the JAX function's own): f32 mean
+    and two-pass variance, ``(x - mean) * rsqrt(var + 1e-12) * scale +
+    bias``, cast to ``dtype``."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + 1e-12)
+    return (y * scale + bias).to(dtype)
+
+
+def bert_tp_apply(params: Dict[str, torch.Tensor], config: BertConfig,
+                  tokens: torch.Tensor, token_types=None, *,
+                  axis="model", dtype=torch.float32, mesh=None,
+                  force_reference: bool = False):
+    """Tensor-parallel :class:`Bert` forward over this rank's shards (the
+    JAX ``bert_tp_apply``): ``(mlm_logits, nsp_logits)``, both f32.
+
+    ``params`` is the flat dict of :func:`init_bert_params` cut by
+    :func:`~horovod_tpu_torch.parallel.tp.shard_params` with
+    :func:`~horovod_tpu_torch.parallel.tp.tp_param_specs`: per block,
+    ``wq`` / ``wk`` / ``wv`` / ``w_in`` column shards (heads and FFN
+    columns split over the set of ``axis``, their biases with them),
+    ``wo`` / ``w_out`` row shards closing in one allreduce each, the rest
+    whole.  Two allreduces a block forward (``reduce_from_tp``) and two
+    backward (``copy_to_tp``), each of the full ``(b, t, d_model)``
+    activation; attention runs the port's ``flash_attention`` on the
+    ``heads / tp`` local heads (the local head count comes off the
+    sliced kernel).  ``force_reference`` runs attention through the
+    plain version under autograd."""
+    from ..parallel.tp import copy_to_tp, row_parallel
+    p = params
+    b, t = tokens.shape
+    if token_types is None:
+        token_types = torch.zeros_like(tokens)
+
+    def ln(x, node):
+        return _tp_layernorm(x, p[f"{node}.scale"], p[f"{node}.bias"], dtype)
+
+    def dense(x, node):
+        return x @ p[f"{node}.kernel"].to(dtype) + p[f"{node}.bias"].to(dtype)
+
+    emb = p["tok_embed"]
+    x = (emb[tokens] + p["pos_embed"][None, :t]
+         + p["type_embed"][token_types]).to(dtype)
+    x = ln(x, "embed_norm")
+    head_dim = config.d_model // config.num_heads
+    for i in range(config.num_layers):
+        blk = f"layer_{i}"
+        h = copy_to_tp(ln(x, f"{blk}.attn_norm"), axis=axis, mesh=mesh)
+        d_local = p[f"{blk}.wq.kernel"].shape[-1]
+        shape = (b, t, d_local // head_dim, head_dim)
+        q, k, v = (dense(h, f"{blk}.{w}").view(shape).transpose(1, 2)
+                   .contiguous() for w in ("wq", "wk", "wv"))
+        o = flash_attention(q, k, v, causal=False,
+                            force_reference=force_reference)
+        o = o.transpose(1, 2).reshape(b, t, d_local)
+        x = x + row_parallel(o, p[f"{blk}.wo.kernel"].to(dtype),
+                             p[f"{blk}.wo.bias"].to(dtype), axis=axis,
+                             mesh=mesh)
+        h = copy_to_tp(ln(x, f"{blk}.mlp_norm"), axis=axis, mesh=mesh)
+        h = nn.functional.gelu(dense(h, f"{blk}.w_in"), approximate="tanh")
+        x = x + row_parallel(h, p[f"{blk}.w_out.kernel"].to(dtype),
+                             p[f"{blk}.w_out.bias"].to(dtype), axis=axis,
+                             mesh=mesh)
+    x = ln(x, "final_norm")
+    h = nn.functional.gelu(dense(x, "mlm_transform"), approximate="tanh")
+    h = ln(h, "mlm_norm")
+    mlm_logits = tied_readout(h, emb)
+    cls = torch.tanh(dense(x[:, 0], "pooler"))
+    return mlm_logits, dense(cls, "nsp").float()
+
+
+class ParamTree(nn.Module):
+    """A module holding a flat ``{dotted name: tensor}`` dict as its
+    parameters under those names (nested container modules, registered
+    in the dict's order), without a copy: what an optimizer, a
+    ``DistributedOptimizer`` and the train step see of a model computed
+    by a function of the dict, as :class:`BertTP` is."""
+
+    def __init__(self, params: Dict[str, torch.Tensor]):
+        super().__init__()
+        for name, t in params.items():
+            *path, leaf = name.split(".")
+            mod: nn.Module = self
+            for part in path:
+                if not hasattr(mod, part):
+                    mod.add_module(part, nn.Module())
+                mod = getattr(mod, part)
+            mod.register_parameter(
+                leaf, t if isinstance(t, nn.Parameter) else nn.Parameter(t))
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.named_parameters())
+
+
+class BertTP(ParamTree):
+    """This rank's tensor-parallel shard of a :class:`Bert`: the sharded
+    flat dict as parameters (Bert's names, local shapes) and
+    :func:`bert_tp_apply` as the forward, so ``make_train_step(...,
+    tp=...)`` trains it.  ``axis`` is the tensor-parallel mesh axis."""
+
+    def __init__(self, config: BertConfig, params: Dict[str, torch.Tensor],
+                 dtype=torch.float32, *, axis="model", mesh=None):
+        super().__init__(params)
+        self.config, self.dtype = config, dtype
+        self.axis, self.mesh = axis, mesh
+
+    def forward(self, tokens, token_types=None, *,
+                force_reference: bool = False):
+        return bert_tp_apply(self.params(), self.config, tokens, token_types,
+                             axis=self.axis, dtype=self.dtype,
+                             mesh=self.mesh,
+                             force_reference=force_reference)

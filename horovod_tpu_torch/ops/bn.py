@@ -334,17 +334,20 @@ class BatchNorm(nn.Module):
     round and keeps the unbiased variance).  In eval mode it normalizes
     with the running statistics.  The output is in ``dtype`` (x's dtype
     when ``None``).  ``sync=True`` takes the batch statistics over every
-    rank's batch (:func:`~horovod_tpu_torch.training.sync_batch_norm`);
-    it needs ``hvd.init()``.
+    rank's batch (:func:`~horovod_tpu_torch.training.sync_batch_norm`),
+    or with ``process_set`` over its members only; it needs
+    ``hvd.init()``.
     """
 
     def __init__(self, features: int, *, momentum: float = 0.99,
                  epsilon: float = 1e-5, dtype: Optional[torch.dtype] = None,
-                 scale_init: float = 1.0, sync: bool = False, device=None):
+                 scale_init: float = 1.0, sync: bool = False,
+                 process_set=None, device=None):
         super().__init__()
         dev = resolve_device(device)
         self.momentum, self.epsilon, self.dtype = momentum, epsilon, dtype
         self.sync = bool(sync)
+        self.process_set = process_set
         self.scale_init = float(scale_init)
         self.scale = nn.Parameter(torch.full((features,), self.scale_init,
                                              device=dev))
@@ -365,7 +368,8 @@ class BatchNorm(nn.Module):
             from ..sync_batch_norm import sync_bn_train
             y, mean, var = sync_bn_train(x, self.scale, self.bias,
                                          self.epsilon,
-                                         force_reference=force_reference)
+                                         force_reference=force_reference,
+                                         process_set=self.process_set)
         else:
             y, mean, var = bn_train_with_stats(
                 x, self.scale, self.bias, self.epsilon,

@@ -198,7 +198,8 @@ def _orthonormalize_columns(p: torch.Tensor) -> torch.Tensor:
 
 
 def ef_delta_allgather(delta: torch.Tensor, *, compression,
-                       order: Optional[Sequence[int]] = None
+                       order: Optional[Sequence[int]] = None,
+                       process_set=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Compressed allgather of each shard owner's parameter DELTA (flat
     f32, the fed-back residual included).
@@ -212,8 +213,11 @@ def ef_delta_allgather(delta: torch.Tensor, *, compression,
     Returns ``(full, own)``: the ``[n, shard]`` f32 rebuild, row ``j``
     shard ``j`` (``order[j]`` is the world rank that owns shard ``j``;
     default rank ``j``), and this rank's own row (what the world applied
-    for it -- the EF residual is ``delta - own``)."""
-    n, me = dist.get_world_size(), dist.get_rank()
+    for it -- the EF residual is ``delta - own``).  Over the members of
+    ``process_set`` (a set view; every rank when ``None``), ``order``
+    and the rows then indexed by set position."""
+    _, n = _comm(process_set)
+    me = dist.get_rank() if process_set is None else process_set.position()
     perm = list(order) if order is not None else list(range(n))
     shard = delta.numel()
     if is_powersgd(compression):
@@ -226,15 +230,15 @@ def ef_delta_allgather(delta: torch.Tensor, *, compression,
             mat @ _powersgd_seed_matrix(c, r, delta.device))
         q = mat.T @ p                                     # [c, r]
         wire = torch.cat([p.reshape(-1), q.reshape(-1)])  # [r * (m + c)]
-        gw = _allgather(wire).view(n, -1)[perm]
+        gw = _allgather(wire, process_set).view(n, -1)[perm]
         ps = gw[:, :r * m].reshape(n, m, r)
         qs = gw[:, r * m:].reshape(n, c, r)
         full = torch.einsum("nmr,ncr->nmc", ps, qs).reshape(n, -1)[:, :shard]
     else:
         k = min(topk_count(shard, compression.fraction), shard)
         idx = _topk_select(delta, k)
-        gv = _allgather(delta[idx]).view(n, k)[perm]
-        gi = _allgather(idx.to(torch.int32)).view(n, k)[perm]
+        gv = _allgather(delta[idx], process_set).view(n, k)[perm]
+        gi = _allgather(idx.to(torch.int32), process_set).view(n, k)[perm]
         pos = gi.long() + (torch.arange(n, device=delta.device)
                            * shard)[:, None]
         full = delta.new_zeros(n * shard).index_put_(
@@ -253,6 +257,9 @@ class ZeroState:
     shards: List[torch.Tensor]
     inner: torch.optim.Optimizer
     residuals: Optional[List[torch.Tensor]] = None
+    # The set the arenas are sharded over (the 3-D step's data set);
+    # None: every rank.
+    process_set: Any = None
 
     def state_bytes(self) -> int:
         """Bytes of the inner optimizer's state tensors on this rank."""
@@ -304,20 +311,37 @@ def _owner_order(shape: Optional[Tuple[int, int]], n: int) -> List[int]:
     return [(j % n_dcn) * n_ici + j // n_dcn for j in range(n)]
 
 
+def _zero_set(process_set):
+    """A set view for the arenas (``None``: every rank)."""
+    if process_set is None:
+        return None
+    from ..core.process_sets import get_process_set
+    ps = get_process_set(process_set)
+    return None if ps.is_global() else ps
+
+
 def zero_init(optimizer: torch.optim.Optimizer, params,
-              compression=None) -> ZeroState:
+              compression=None, process_set=None) -> ZeroState:
     """The sharded state for ``zero_stage=1`` over ``params`` (the
     model's trainable tensors, in the order :func:`zero_apply` gets
     them): this rank's arena shards, an inner optimizer over them, and
     -- when ``compression`` is an error-feedback codec -- zero f32
-    residuals, one a shard.  Collective-free."""
+    residuals, one a shard.  Collective-free.  ``process_set`` shards
+    the arenas over its members only (the 3-D step's data set, the JAX
+    ``zero_init(param_specs=...)``: each model-parallel group owns the
+    arenas of its own shards); the two-level per-leg codecs need every
+    rank."""
     _reject_distributed(optimizer)
     comp = parse_compression(compression) if compression else \
         Compression.none
     params = [p.detach() for p in params]
     st = _require_init()
-    spec = plan_arena(params, st.size)
-    idx, _ = _shard_index(comp)
+    ps = _zero_set(process_set)
+    if ps is not None and is_hier_legs(comp):
+        raise ValueError("zero_compression per leg (ici:...,dcn:...) runs "
+                         "over every rank, not a process set")
+    spec = plan_arena(params, st.size if ps is None else ps.size())
+    idx = _shard_index(comp)[0] if ps is None else ps.position()
     shards = [a[idx * b.shard:(idx + 1) * b.shard].clone()
               for a, b in zip(arena_pack(params, spec), spec.buffers)]
     residuals = None
@@ -325,7 +349,7 @@ def zero_init(optimizer: torch.optim.Optimizer, params,
         residuals = [torch.zeros(b.shard, device=a.device)
                      for a, b in zip(shards, spec.buffers)]
     return ZeroState(spec, shards, _inner_optimizer(optimizer, shards),
-                     residuals)
+                     residuals, ps)
 
 
 def zero_plan(spec: ZeroSpec, compression=None, shape=None,
@@ -368,16 +392,16 @@ def _resolve_compression(compression):
 
 def _reduce_scatter_mean(g: torch.Tensor, buf: _ArenaBuffer, n: int,
                          shape, leg, use_rs: bool = True,
-                         idx: int = 0) -> torch.Tensor:
+                         idx: int = 0, ps=None) -> torch.Tensor:
     """This rank's shard (index ``idx``) of the mean of ``g`` over the
     world: one reduce-scatter, or within the node and then across nodes
     (counted at its row's bytes); with ``use_rs`` False, an allreduce of
     the whole arena, of which this rank keeps its shard."""
     if not use_rs:
-        full = step_allreduce_(g, Sum)
+        full = step_allreduce_(g, Sum, process_set=ps)
         out = full[idx * buf.shard:(idx + 1) * buf.shard].clone()
     elif shape is None:
-        out = psum_scatter_bucket(g, quantum=n)
+        out = psum_scatter_bucket(g, quantum=n, process_set=ps)
     else:
         note_collective("reducescatter", "global", leg.nbytes)
         ici, dcn = hier_sets(shape[1])
@@ -418,12 +442,20 @@ def zero_apply(optimizer: torch.optim.Optimizer,
         raise ValueError(
             "zero_compression=powersgd/topk needs the residual-carrying "
             "state from zero_init(..., compression=...)")
-    n = dist.get_world_size()
+    ps = zero_state.process_set
+    _, n = _comm(ps)
     spec = zero_state.spec
     if spec != plan_arena(params, n):
         raise ValueError("zero_state was planned for other parameters or "
                          "another world size")
-    idx, shape = _shard_index(comp)
+    if ps is None:
+        idx, shape = _shard_index(comp)
+    elif is_hier_legs(comp):
+        raise ValueError("zero_compression per leg (ici:...,dcn:...) runs "
+                         "over every rank, not a process set")
+    else:
+        idx, shape = ps.position(), None
+    set_name = "global" if ps is None else ps.name
     use_rs = _use_reducescatter()
     rs_legs, ag_legs = zero_plan(spec, comp, shape, use_rs)
     grads = [g if g is not None else torch.zeros_like(p)
@@ -435,7 +467,7 @@ def zero_apply(optimizer: torch.optim.Optimizer,
                                          zero_state.shards, rs_legs):
             note_leg(leg)
             shard.grad = _reduce_scatter_mean(g, buf, n, shape, leg,
-                                              use_rs, idx)
+                                              use_rs, idx, ps)
             shard.copy_(p[idx * buf.shard:(idx + 1) * buf.shard])
         old = [s.clone() for s in zero_state.shards] if ef else None
         zero_state.inner.step()
@@ -449,9 +481,9 @@ def zero_apply(optimizer: torch.optim.Optimizer,
             for i, (o, new, arena, buf) in enumerate(zip(
                     old, zero_state.shards, p_arenas, spec.buffers)):
                 note_leg(ag_legs[i])
-                note_collective("allgather", "global", ag_legs[i].nbytes)
+                note_collective("allgather", set_name, ag_legs[i].nbytes)
                 if not buf.dtype.is_floating_point or buf.shard < 1:
-                    g = _allgather(new).view(n, -1)[order].reshape(-1)
+                    g = _allgather(new, ps).view(n, -1)[order].reshape(-1)
                     full.append(g)
                     ag_extra += g.numel() * g.element_size() * (n - 1) // n
                     continue
@@ -460,7 +492,7 @@ def zero_apply(optimizer: torch.optim.Optimizer,
                 if feed:
                     delta = delta + res
                 recon, own = ef_delta_allgather(delta, compression=dcomp,
-                                                order=order)
+                                                order=order, process_set=ps)
                 full.append((arena.float() + recon.reshape(-1))
                             .to(buf.dtype))
                 ag_extra += _ef_wire(dcomp, buf) * n * (n - 1) // n
@@ -469,7 +501,7 @@ def zero_apply(optimizer: torch.optim.Optimizer,
         else:
             for s, buf, leg in zip(zero_state.shards, spec.buffers, ag_legs):
                 note_leg(leg)
-                note_collective("allgather", "global", leg.nbytes)
+                note_collective("allgather", set_name, leg.nbytes)
                 if shape is not None:
                     ici, dcn = hier_sets(shape[1])
                     block = compressed_allgather(s, compression=comp.dcn,
@@ -477,7 +509,8 @@ def zero_apply(optimizer: torch.optim.Optimizer,
                     g = compressed_allgather(block, compression=comp.ici,
                                              process_set=ici)
                 else:
-                    g = compressed_allgather(s, compression=comp)
+                    g = compressed_allgather(s, compression=comp,
+                                             process_set=ps)
                 full.append(g)
                 ag_payload += n * leg.elements * _wire_itemsize(comp,
                                                                 buf.dtype)

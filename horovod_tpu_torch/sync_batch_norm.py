@@ -72,24 +72,24 @@ def _allreduce(rows: torch.Tensor, op, process_set=None) -> torch.Tensor:
     return step_allreduce_(rows, op, process_set=process_set)
 
 
-def _average(rows: torch.Tensor) -> torch.Tensor:
-    return _allreduce(rows, Average)
-
-
 def _sum(rows: torch.Tensor, process_set=None) -> torch.Tensor:
     return _allreduce(rows, Sum, process_set)
 
 
 def sync_bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                  eps: float, *, force_reference: bool = False):
-    """flax's ``BatchNorm(axis_name=...)`` in train mode over every rank,
-    channels last: ``(y, mean, var)``, the statistics global (see the
-    module docstring).  Every rank must hold an equal batch, as under
-    flax's ``pmean``."""
-    return bn_train_with_stats(x, scale, bias, eps,
-                               force_reference=force_reference,
-                               average=_average, allreduce=_sum,
-                               ranks=size())
+                  eps: float, *, force_reference: bool = False,
+                  process_set=None):
+    """flax's ``BatchNorm(axis_name=...)`` in train mode over every rank
+    (or the members of ``process_set``, a sub-mesh's set), channels
+    last: ``(y, mean, var)``, the statistics over the set (see the module
+    docstring).  Every member must hold an equal batch, as under flax's
+    ``pmean``."""
+    ranks = size() if process_set is None else \
+        get_process_set(process_set).size()
+    return bn_train_with_stats(
+        x, scale, bias, eps, force_reference=force_reference,
+        average=lambda rows: _allreduce(rows, Average, process_set),
+        allreduce=lambda rows: _sum(rows, process_set), ranks=ranks)
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:

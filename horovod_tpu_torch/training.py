@@ -22,7 +22,21 @@ name) is the step of a model with batch statistics -- ResNet, LeNet --
 on ``(x, y)`` batches: :func:`make_train_step` with :func:`softmax_xent`
 in train mode, then the BatchNorm running statistics averaged over the
 ranks.  :func:`make_eval_step` averages a metric over the ranks.
-:func:`sync_batch_norm` is the JAX package's cross-replica BatchNorm.
+:func:`sync_batch_norm` is the JAX package's cross-replica BatchNorm
+(over a sub-mesh with ``axes=``).
+
+The 3-D step (``tp=`` / ``pipeline_stages=`` on the step functions, defaults
+``HOROVOD_TP`` / ``HOROVOD_PIPELINE_STAGES``): on a
+:mod:`~horovod_tpu_torch.parallel.mesh` mesh (``build_3d_mesh``), the
+model holds this rank's tensor-parallel shards or pipeline stage and the
+loss computes with the collectives of :mod:`horovod_tpu_torch.parallel`
+on the model axes, while everything the step reduces on its own behalf
+-- the gradient exchange, the ZeRO-1 arena, the microbatch overlap, the
+BatchNorm statistics and the loss average -- runs over the set of the
+mesh's data axes (:func:`batch_sharding` gives a rank its rows).  On a
+mesh with model axes the ``DistributedOptimizer`` must exchange over that
+set and an error-feedback codec is refused
+(:func:`_check_model_parallel_exchange`).
 
 ``zero_stage=1`` on either step builder (default ``HOROVOD_ZERO``) runs
 the optimizer as ZeRO-1 (:mod:`~horovod_tpu_torch.optim.zero`): pass the
@@ -197,7 +211,7 @@ def _split_microbatches(batch, k: int) -> List[Any]:
             for i in range(k)]
 
 
-def _microbatch_unwrap(optimizer):
+def _microbatch_unwrap(optimizer, data_set=None):
     """``(optimizer, exchange)`` for the microbatched step: the exchange
     a ``DistributedOptimizer`` wrap would have run (``None`` for a bare
     optimizer -- local accumulation, no collective, as the bare
@@ -224,7 +238,8 @@ def _microbatch_unwrap(optimizer):
             "backward_passes_per_step > 1 (both are gradient-accumulation "
             "schemes; pick one)")
     ps = optimizer._process_set
-    if ps is not None and not ps.is_global():
+    if ps is not None and not ps.is_global() and (
+            data_set is None or ps.ranks != data_set.ranks):
         raise NotImplementedError(
             "microbatches > 1 does not support process-set reductions "
             "(the scatter-based exchange has no masked identity)")
@@ -270,8 +285,9 @@ class _MicrobatchGradPipe:
     come from ``plan_exchange("microbatch")``."""
 
     def __init__(self, params: Sequence[torch.Tensor], exchange, k: int,
-                 order: Optional[Sequence[int]] = None):
+                 order: Optional[Sequence[int]] = None, process_set=None):
         self._params = list(params)
+        self._ps = process_set
         self._exchange = exchange
         self._k = k
         self._order = list(range(len(self._params))) if order is None \
@@ -281,7 +297,8 @@ class _MicrobatchGradPipe:
 
     def _plan(self) -> None:
         ex = self._exchange
-        self._world = global_state().size
+        self._world = global_state().size if self._ps is None \
+            else self._ps.size()
         self._spec = plan_buckets([self._params[i] for i in self._order],
                                   ex["fusion_threshold"], reverse=True)
         legs = plan_exchange(
@@ -317,8 +334,8 @@ class _MicrobatchGradPipe:
             if pre != 1.0:
                 c = c * pre
             note_leg(leg)
-            pending.append((psum_scatter_bucket_async(c, quantum=quantum),
-                            ctx))
+            pending.append((psum_scatter_bucket_async(
+                c, quantum=quantum, process_set=self._ps), ctx))
         return pending
 
     def collect(self, pending, state):
@@ -349,7 +366,8 @@ class _MicrobatchGradPipe:
             c, ctx = comp.compress(shard.to(dt))
             note_leg(leg)
             out.append(comp.decompress(
-                allgather_bucket(c, sum(s.size for s in lspecs)), ctx))
+                allgather_bucket(c, sum(s.size for s in lspecs),
+                                 process_set=self._ps), ctx))
         m = exchange_counters()
         m["buckets"].inc(len(out))
         m["handles"].inc(len(out) * (k + 1))
@@ -391,7 +409,7 @@ def _ef_reduce(optimizer, grads: List[torch.Tensor]) -> List[torch.Tensor]:
 
 def _microbatch_core(model: torch.nn.Module, loss_fn,
                      optimizer: torch.optim.Optimizer, k: int,
-                     screen: bool):
+                     screen: bool, data_set=None):
     """``(core, pipe)``: ``core(batch) -> (loss, screen)`` of
     ``microbatches=k > 1`` (the
     JAX ``_build_microbatch_local_step``): k forwards and
@@ -401,8 +419,10 @@ def _microbatch_core(model: torch.nn.Module, loss_fn,
     ranks.  With a per-example-mean loss the merged gradient is the
     full batch's up to the f32 accumulation order.  With ``screen`` the
     guard screens the MERGED gradient (already summed over the ranks for
-    a wrapped exchange) before the error-feedback exchange."""
-    optimizer, exchange = _microbatch_unwrap(optimizer)
+    a wrapped exchange) before the error-feedback exchange.  ``data_set``
+    (the 3-D step's data set, ``None`` for every rank) is where the
+    exchange and the loss average run."""
+    optimizer, exchange = _microbatch_unwrap(optimizer, data_set)
     params = [p for g in optimizer.param_groups for p in g["params"]
               if p.requires_grad]
     order = None
@@ -411,7 +431,8 @@ def _microbatch_core(model: torch.nn.Module, loss_fn,
         from .models.convert import flax_leaf_order
         order = flax_leaf_order([name_of[id(p)] for p in params])
     ef = _is_ef_exchange(exchange)
-    pipe = _MicrobatchGradPipe(params, None if ef else exchange, k, order)
+    pipe = _MicrobatchGradPipe(params, None if ef else exchange, k, order,
+                               data_set)
 
     def core(batch):
         losses, state, pending = [], None, None
@@ -438,27 +459,31 @@ def _microbatch_core(model: torch.nn.Module, loss_fn,
         else:
             optimizer.step()
         optimizer.zero_grad(set_to_none=True)
-        return step_allreduce(torch.stack(losses).mean(), Average), gvec
+        return step_allreduce(torch.stack(losses).mean(), Average,
+                              process_set=data_set), gvec
 
     return core, pipe
 
 
 def _step_core(model: torch.nn.Module, loss_fn,
                optimizer: torch.optim.Optimizer, zero_stage: int,
-               zero_compression, screen: bool):
+               zero_compression, screen: bool, data_set=None):
     """``(core(batch) -> (loss, screen), zero_state)`` of the single-shot
     step: forward, backward (the wrap's hooks launch its buckets), the
     optimizer step or the ZeRO-1 update, the loss averaged over the
     ranks.  With ``screen`` the guard screens the raw LOCAL gradients
     (``p.grad`` after the backward, before the exchange writes the
-    reduced ones back), as the JAX ``make_train_step`` does."""
+    reduced ones back), as the JAX ``make_train_step`` does.  The ZeRO-1
+    arena and the loss average run over ``data_set`` (every rank when
+    ``None``)."""
     params = [p for g in optimizer.param_groups for p in g["params"]
               if p.requires_grad]
     state = None
     if zero_stage:
         _zero._reject_distributed(optimizer)
         state = _zero.zero_init(optimizer, params,
-                                compression=zero_compression)
+                                compression=zero_compression,
+                                process_set=data_set)
 
     def core(batch):
         loss = loss_fn(model, batch)
@@ -472,7 +497,8 @@ def _step_core(model: torch.nn.Module, loss_fn,
         elif getattr(optimizer, "exchange_ready", True):
             optimizer.step()
             optimizer.zero_grad(set_to_none=True)
-        return step_allreduce(loss.detach(), Average), gvec
+        return step_allreduce(loss.detach(), Average,
+                              process_set=data_set), gvec
 
     return core, state
 
@@ -632,13 +658,117 @@ def _observe_guard_rows(rows: torch.Tensor) -> None:
     guard.policy().observe(rows.detach().cpu().numpy())
 
 
+def _resolve_tp(tp: Optional[int]) -> int:
+    """``None`` defers to the configured default (``HOROVOD_TP``)."""
+    if tp is None:
+        cfg = global_state().config
+        tp = cfg.tp if cfg is not None else 1
+    tp = int(tp)
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    return tp
+
+
+def _resolve_pipeline_stages(pipeline_stages: Optional[int]) -> int:
+    """``None`` defers to the configured default
+    (``HOROVOD_PIPELINE_STAGES``)."""
+    if pipeline_stages is None:
+        cfg = global_state().config
+        pipeline_stages = cfg.pipeline_stages if cfg is not None else 1
+    pipeline_stages = int(pipeline_stages)
+    if pipeline_stages < 1:
+        raise ValueError(
+            f"pipeline_stages must be >= 1, got {pipeline_stages}")
+    return pipeline_stages
+
+
+def _resolve_model_axes(mesh, tp: int, pipeline_stages: int):
+    """``(data_axes, model_axes)`` of ``mesh`` (a
+    :class:`~horovod_tpu_torch.parallel.mesh.RankMesh`) for a step built
+    with ``tp`` / ``pipeline_stages``, the declared extents checked
+    against the mesh's (the JAX function).  The data axes are the
+    gradient-exchange domain: every collective the step emits on its own
+    behalf runs over their set only."""
+    from .parallel import mesh as _pmesh
+    names = tuple(mesh.axis_names)
+
+    def check(extent: int, axis: str, knob: str) -> None:
+        have = int(mesh.shape[axis]) if axis in names else 1
+        if extent > 1 and have != extent:
+            raise ValueError(
+                f"{knob}={extent} needs a mesh {axis!r} axis of extent "
+                f"{extent} (build_3d_mesh); mesh axes are "
+                f"{dict(mesh.shape)}")
+        if extent == 1 and have > 1:
+            raise ValueError(
+                f"mesh has a {axis!r} axis of extent {have} but the step "
+                f"was built with {knob}={extent}; pass {knob}={have}")
+
+    check(tp, _pmesh.MODEL_AXIS, "tp")
+    check(pipeline_stages, _pmesh.PIPE_AXIS, "pipeline_stages")
+    d_ax = _pmesh.data_axes(mesh)
+    m_ax = tuple(a for a in names if a not in d_ax)
+    return d_ax, m_ax
+
+
+def _check_model_parallel_exchange(optimizer, d_ax, m_ax, data_set) -> None:
+    """Refuse a wrap whose gradient exchange would reduce over the model
+    axes (the JAX function): on a model-parallel mesh a
+    ``DistributedOptimizer`` must exchange over the data axes' set
+    (``process_set=mesh.group(data_axes(mesh))``) -- over every rank it
+    would sum gradients of DIFFERENT parameter shards -- and an
+    error-feedback codec is refused (its residuals are planned from the
+    whole model's shapes, not a rank's shards)."""
+    if not m_ax or not isinstance(optimizer, _dist._DistributedOptimizer):
+        return
+    if optimizer._ef:
+        raise NotImplementedError(
+            "error-feedback codecs (powersgd/topk) do not yet compose "
+            "with tp/pipeline_stages: the residual carry is planned from "
+            "the global parameter shapes, not the TP-local shards.  Use "
+            "fp16/bf16 compression on the DP leg instead")
+    ps = optimizer._process_set
+    ranks = ps.ranks if ps is not None else \
+        tuple(range(global_state().size))
+    if ranks != data_set.ranks:
+        raise ValueError(
+            f"DistributedOptimizer on a model-parallel mesh must be built "
+            f"with process_set=mesh.group({tuple(d_ax)}) (the data axes' "
+            f"set, ranks {data_set.ranks}) so the gradient exchange never "
+            f"reduces over the model axes {tuple(m_ax)}; got ranks "
+            f"{ranks}")
+
+
+def _data_set(tp, pipeline_stages, mesh, optimizer):
+    """``(tp, pipeline_stages, data set)`` of a step: the data axes' set
+    of ``mesh`` (the current mesh when ``None``), checked, or ``None``
+    -- every rank -- without a mesh."""
+    from .parallel.mesh import current_mesh
+    tp = _resolve_tp(tp)
+    pipeline_stages = _resolve_pipeline_stages(pipeline_stages)
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        if tp > 1 or pipeline_stages > 1:
+            raise ValueError(
+                f"tp={tp} / pipeline_stages={pipeline_stages} need a mesh "
+                f"with 'model' / 'pipe' axes (build_3d_mesh)")
+        return tp, pipeline_stages, None
+    d_ax, m_ax = _resolve_model_axes(mesh, tp, pipeline_stages)
+    data_set = mesh.group(d_ax)
+    _check_model_parallel_exchange(optimizer, d_ax, m_ax, data_set)
+    return tp, pipeline_stages, data_set
+
+
 def _build_step(model: torch.nn.Module, loss_fn,
                 optimizer: torch.optim.Optimizer, zero_stage, zero_compression,
-                microbatches, flax: bool) -> _Step:
+                microbatches, flax: bool, tp=None, pipeline_stages=None,
+                param_specs=None, mesh=None) -> _Step:
     """The step both builders return (before the sampler wraps it):
     the single-shot or microbatched core, then -- for the flax step --
     the BatchNorm running statistics averaged over the ranks, under the
-    guard when ``HOROVOD_GUARD`` arms it."""
+    guard when ``HOROVOD_GUARD`` arms it.  On a mesh, everything the step
+    reduces on its own behalf runs over the data axes' set."""
+    tp, stages, data_set = _data_set(tp, pipeline_stages, mesh, optimizer)
     zero_stage = _resolve_zero_stage(zero_stage)
     k_micro = _resolve_microbatches(microbatches)
     if zero_stage and k_micro > 1:
@@ -651,11 +781,11 @@ def _build_step(model: torch.nn.Module, loss_fn,
     pipe = None
     if k_micro > 1:
         core, pipe = _microbatch_core(model, loss_fn, optimizer, k_micro,
-                                      guard_on)
+                                      guard_on, data_set)
         zero_state = None
     else:
         core, zero_state = _step_core(model, loss_fn, optimizer, zero_stage,
-                                      zero_compression, guard_on)
+                                      zero_compression, guard_on, data_set)
     wrap = optimizer if isinstance(optimizer, _dist._DistributedOptimizer) \
         else None
 
@@ -680,17 +810,21 @@ def _build_step(model: torch.nn.Module, loss_fn,
         loss, gvec = core(batch)
         if stats:
             with torch.no_grad():
-                torch._foreach_copy_(stats,
-                                     step_grouped_allreduce(stats, Average))
+                torch._foreach_copy_(stats, step_grouped_allreduce(
+                    stats, Average, process_set=data_set))
         return loss, gvec
 
     if not guard_on:
-        return _Step(body, zero_state, k_micro, replan)
-    optimizers = [optimizer] + ([zero_state.inner] if zero_state is not None
-                                else [])
-    return _GuardedStep(body, zero_state, k_micro, replan,
-                        _GuardState(model, optimizers, zero_state,
-                                    buffers=flax), norm_limit)
+        step = _Step(body, zero_state, k_micro, replan)
+    else:
+        optimizers = [optimizer] + ([zero_state.inner]
+                                    if zero_state is not None else [])
+        step = _GuardedStep(body, zero_state, k_micro, replan,
+                            _GuardState(model, optimizers, zero_state,
+                                        buffers=flax), norm_limit)
+    step.tp, step.pipeline_stages = tp, stages
+    step.param_specs, step.data_set = param_specs, data_set
+    return step
 
 
 def make_train_step(model: torch.nn.Module,
@@ -698,7 +832,10 @@ def make_train_step(model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
                     zero_stage: Optional[int] = None,
                     zero_compression=None,
-                    microbatches: Optional[int] = None
+                    microbatches: Optional[int] = None,
+                    tp: Optional[int] = None,
+                    pipeline_stages: Optional[int] = None,
+                    param_specs=None, mesh=None
                     ) -> Callable[[Any], torch.Tensor]:
     """Build ``step(batch) -> loss``.
 
@@ -712,9 +849,25 @@ def make_train_step(model: torch.nn.Module,
     ``HOROVOD_MICROBATCHES``) runs the backward-overlap exchange (module
     docstring; not with ``zero_stage=1``); ``k = 1`` is this step.
     Under the SDC guard (module docstring) a poisoned step is skipped.
+
+    ``tp`` / ``pipeline_stages`` (defaults ``HOROVOD_TP`` /
+    ``HOROVOD_PIPELINE_STAGES``) build the 3-D step over ``mesh`` (the
+    current :mod:`~horovod_tpu_torch.parallel.mesh` mesh when ``None``;
+    module docstring): ``model`` holds this rank's shards (e.g.
+    ``models.BertTP``), ``loss_fn`` computes with the tensor-parallel
+    collectives, and the gradient exchange, the ZeRO-1 arena, the
+    microbatch overlap and the loss average run over the data axes' set
+    only.  A ``DistributedOptimizer`` must then exchange over that set
+    (``process_set=mesh.group(data_axes(mesh))``); an error-feedback
+    codec is refused.  ``param_specs`` (``parallel.tp_param_specs``)
+    says which leaves are split; the step keeps it (``step.param_specs``,
+    beside ``step.data_set``) for ``parallel.gather_tp_params``, which
+    reassembles the full tree a checkpoint saves.
     """
     step = _build_step(model, loss_fn, optimizer, zero_stage,
-                       zero_compression, microbatches, flax=False)
+                       zero_compression, microbatches, flax=False, tp=tp,
+                       pipeline_stages=pipeline_stages,
+                       param_specs=param_specs, mesh=mesh)
     return _instrument(_maybe_tuned(step, step.replan, 1, optimizer),
                        1, optimizer, model, zero_compression)
 
@@ -736,7 +889,10 @@ def make_flax_train_step(model: torch.nn.Module,
                          optimizer: torch.optim.Optimizer,
                          zero_stage: Optional[int] = None,
                          zero_compression=None,
-                         microbatches: Optional[int] = None
+                         microbatches: Optional[int] = None,
+                         tp: Optional[int] = None,
+                         pipeline_stages: Optional[int] = None,
+                         param_specs=None, mesh=None
                          ) -> Callable[[Any], torch.Tensor]:
     """Build ``step((x, y)) -> loss`` for a model with batch statistics.
 
@@ -754,17 +910,21 @@ def make_flax_train_step(model: torch.nn.Module,
     statistics chain through the k sub-batches and the running averages
     advance k times a step, as in the JAX step -- so it is not the
     single-shot step.  A step the SDC guard skips keeps the running
-    statistics too.
+    statistics too.  ``tp``, ``pipeline_stages``, ``param_specs`` and
+    ``mesh``: see :func:`make_train_step` (the statistics average over
+    the data axes' set).
     """
     step = _build_step(model, _flax_loss, optimizer, zero_stage,
-                       zero_compression, microbatches, flax=True)
+                       zero_compression, microbatches, flax=True, tp=tp,
+                       pipeline_stages=pipeline_stages,
+                       param_specs=param_specs, mesh=mesh)
     return _instrument(_maybe_tuned(step, step.replan, 1, optimizer),
                        1, optimizer, model, zero_compression)
 
 
 def sync_batch_norm(axes=None, **kwargs) -> BatchNorm:
     """A :class:`~horovod_tpu_torch.ops.bn.BatchNorm` whose batch
-    statistics span every rank: the counterpart of the JAX package's
+    statistics span the ranks: the counterpart of the JAX package's
     ``sync_batch_norm`` (flax's ``BatchNorm(axis_name=...)``, a ``pmean``
     of the statistics over the mesh).  ``kwargs`` are the module's
     (``features``, ``momentum``, ``epsilon``, ``dtype``, ...), and its
@@ -773,13 +933,69 @@ def sync_batch_norm(axes=None, **kwargs) -> BatchNorm:
     ``(mean, mean of squares)`` over the ranks; the backward sums the two
     gradient statistics between the BN kernels' passes; ``scale`` and
     ``bias`` get local sums, which the DistributedOptimizer averages.
-    ``axes`` (a sub-mesh of named axes) is not ported: the statistics
-    always span every rank."""
+    ``axes`` (a name or tuple of named mesh axes,
+    :mod:`~horovod_tpu_torch.parallel.mesh`) spans the statistics over
+    that sub-mesh's set only -- flax's ``axis_name=axes`` -- resolved here
+    against the current mesh, so build the mesh first; ``None`` spans
+    every rank (the JAX default: every axis of the mesh)."""
+    ps = None
     if axes is not None:
-        raise NotImplementedError(
-            "sync_batch_norm(axes=...) over a sub-mesh is not ported: it "
-            "needs the named mesh axes of ROADMAP item 1.12")
-    return BatchNorm(sync=True, **kwargs)
+        from .parallel.mesh import axis_set
+        ps = axis_set(axes)
+    return BatchNorm(sync=True, process_set=ps, **kwargs)
+
+
+def mirror_opt_state_specs(optimizer: torch.optim.Optimizer,
+                           model: torch.nn.Module, param_specs
+                           ) -> dict:
+    """``{parameter name: {state key: spec}}`` mirroring ``param_specs``
+    onto the optimizer's state (the JAX function): each state tensor of
+    its parameter's shape (Adam's moments, SGD's momentum) takes the
+    parameter's spec, every other entry (a step count) ``()``.  A torch
+    optimizer keeps state per parameter, so on a rank the moments are
+    already this rank's shards; the specs say how to gather them
+    (``parallel.gather_tp_params``).  Reads the state the optimizer has
+    (it is created at the first step)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    out = {}
+    for p, st in optimizer.state.items():
+        name = names.get(id(p))
+        if name is None:
+            continue
+        spec = tuple(param_specs.get(name, ()))
+        out[name] = {k: spec if torch.is_tensor(v) and v.shape == p.shape
+                     else () for k, v in st.items()}
+    return out
+
+
+def batch_sharding(mesh=None) -> tuple:
+    """``(index, count)``: this rank's shard of the batch on ``mesh`` (the
+    current mesh when ``None``; ``(rank, size)`` without one) -- dim 0
+    splits over the data axes only, so every tensor-parallel rank and
+    pipeline stage of a data shard sees the same rows (the JAX
+    ``batch_sharding``'s ``P(data_axes)``)."""
+    from .parallel.mesh import current_mesh, data_axes
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        st = global_state()
+        return st.rank, st.size
+    axes = data_axes(mesh)
+    return mesh.axis_index(axes), mesh.axis_size(axes)
+
+
+def shard_batch(batch, mesh=None):
+    """This rank's rows of a global ``batch`` (every leaf split on dim 0
+    by :func:`batch_sharding`)."""
+    index, count = batch_sharding(mesh)
+
+    def rows(x):
+        if x.shape[0] % count:
+            raise ValueError(f"batch of {x.shape[0]} rows does not split "
+                             f"over {count} data shards")
+        n = x.shape[0] // count
+        return x[index * n:(index + 1) * n]
+
+    return tree_map(rows, batch)
 
 
 def make_eval_step(metric_fn: Callable[[torch.nn.Module, Any], Any]
@@ -1087,7 +1303,10 @@ def make_train_loop(model: torch.nn.Module,
                     zero_stage: Optional[int] = None,
                     zero_compression=None,
                     microbatches: Optional[int] = None,
-                    generators: Sequence[torch.Generator] = ()):
+                    generators: Sequence[torch.Generator] = (),
+                    tp: Optional[int] = None,
+                    pipeline_stages: Optional[int] = None,
+                    param_specs=None, mesh=None):
     """Build ``loop(batches) -> losses`` (the JAX ``make_train_loop``):
     ``steps_per_execution`` (default ``HOROVOD_STEPS_PER_EXEC``) steps
     of :func:`make_train_step` a call, on ``[k, batch, ...]`` stacked
@@ -1100,7 +1319,9 @@ def make_train_loop(model: torch.nn.Module,
     _refuse_batched(optimizer)
     k = _resolve_steps(steps_per_execution)
     step = _build_step(model, loss_fn, optimizer, zero_stage,
-                       zero_compression, microbatches, flax=False)
+                       zero_compression, microbatches, flax=False, tp=tp,
+                       pipeline_stages=pipeline_stages,
+                       param_specs=param_specs, mesh=mesh)
     loop = TrainLoop(step, k, model, _loop_optimizers(optimizer, step),
                      generators)
     return _instrument(_maybe_tuned(loop, step.replan, k, optimizer),
@@ -1113,14 +1334,19 @@ def make_flax_train_loop(model: torch.nn.Module,
                          zero_stage: Optional[int] = None,
                          zero_compression=None,
                          microbatches: Optional[int] = None,
-                         generators: Sequence[torch.Generator] = ()):
+                         generators: Sequence[torch.Generator] = (),
+                         tp: Optional[int] = None,
+                         pipeline_stages: Optional[int] = None,
+                         param_specs=None, mesh=None):
     """:func:`make_train_loop` of :func:`make_flax_train_step` (the JAX
     ``make_flax_train_loop``): ``loop(batches)`` on ``(x, y)`` pairs
     stacked ``[k, batch, ...]``, returning the ``[k]`` losses."""
     _refuse_batched(optimizer)
     k = _resolve_steps(steps_per_execution)
     step = _build_step(model, _flax_loss, optimizer, zero_stage,
-                       zero_compression, microbatches, flax=True)
+                       zero_compression, microbatches, flax=True, tp=tp,
+                       pipeline_stages=pipeline_stages,
+                       param_specs=param_specs, mesh=mesh)
     loop = TrainLoop(step, k, model, _loop_optimizers(optimizer, step),
                      generators)
     return _instrument(_maybe_tuned(loop, step.replan, k, optimizer),

@@ -13,8 +13,9 @@ resident torch-shim module opens their cycle axis):
 * ``tests/test_autotune.py``'s cases against the port: each opt-in axis
   and its accessors, warm starts from every historical log format (3, 5,
   6, 8, 9, 10 and 11 columns), unusable rows skipped with one warning,
-  a warm start covering the budget, ``HOROVOD_AUTOTUNE_MOE`` refused
-  naming item 1.12, the cycle axis pinned;
+  a warm start covering the budget, the MoE codec axis
+  (``HOROVOD_AUTOTUNE_MOE``; pinned to ``HOROVOD_MOE_COMPRESSION``
+  without it), the cycle axis pinned;
 * the config fields against the JAX ``load_config``; ``init()`` building
   the tuner under ``HOROVOD_AUTOTUNE=1`` and a re-init a new one that
   warm-starts; the resolvers (threshold, chunk, hierarchical, steps,
@@ -165,6 +166,7 @@ AXES = {
     "steps": ({"HOROVOD_AUTOTUNE_STEPS_PER_EXEC": "1"},
               {"steps_per_exec": 8}),
     "microbatch": ({"HOROVOD_AUTOTUNE_MICROBATCH": "1"}, {}),
+    "moe": ({"HOROVOD_AUTOTUNE_MOE": "1"}, {}),
     "all": ({"HOROVOD_AUTOTUNE_CHUNK": "1",
              "HOROVOD_AUTOTUNE_COMPRESSION": "1",
              "HOROVOD_AUTOTUNE_STEPS_PER_EXEC": "1",
@@ -291,12 +293,37 @@ def test_chunk_steps_and_microbatch_axes(monkeypatch):
 
 
 def test_moe_axis_refused_naming_its_item(monkeypatch):
-    t = Autotuner(Config(autotune=True), steps_per_sample=1)
-    assert {c[9] for c in t.grid} == {0}
-    assert not t.tunes_moe
+    """The MoE codec axis against the JAX tuner's (the refusal this test
+    once pinned is gone with ``parallel/moe``): pinned to the configured
+    ``HOROVOD_MOE_COMPRESSION`` without the opt-in, the three codecs with
+    ``HOROVOD_AUTOTUNE_MOE=1``, each sample's ``moe_codec()`` the JAX
+    tuner's and a member of ``trace_key()``; ``resolve_moe_compression``
+    follows the tuner while it tunes the axis."""
+    from horovod_tpu_torch.parallel import resolve_moe_compression
+    for codec, code in ((None, 0), ("bf16", 1), ("fp16", 2)):
+        t = Autotuner(Config(autotune=True, moe_compression=codec),
+                      steps_per_sample=1)
+        j = JTuner(JConfig(autotune=True, moe_compression=codec),
+                   steps_per_sample=1, cycle_candidates=[])
+        assert t.grid == j.grid and {c[9] for c in t.grid} == {code}
+        assert not t.tunes_moe and t.moe_codec() == j.moe_codec()
     monkeypatch.setenv("HOROVOD_AUTOTUNE_MOE", "1")
-    with pytest.raises(NotImplementedError, match="1.12"):
-        Autotuner(Config(autotune=True), steps_per_sample=1)
+    t = Autotuner(Config(autotune=True), steps_per_sample=1)
+    j = JTuner(JConfig(autotune=True), steps_per_sample=1,
+               cycle_candidates=[])
+    assert t.tunes_moe and j.tunes_moe
+    assert t.grid == j.grid and {c[9] for c in t.grid} == {0, 1, 2}
+    st = global_state()
+    for want in (0, 1, 2):
+        t._idx = j._idx = next(i for i, c in enumerate(t.grid)
+                               if c[9] == want)
+        assert t.moe_codec() == j.moe_codec()
+        assert t.trace_key() == j.trace_key() and t.trace_key()[6] == want
+        st.autotuner = t
+        try:
+            assert resolve_moe_compression() == t.moe_codec()
+        finally:
+            st.autotuner = None
 
 
 def test_hier_axes_shut_without_a_two_level_layout(monkeypatch):
@@ -384,6 +411,18 @@ def test_config_fields_equal_jax(monkeypatch, tmp_path):
         j, t = jload(), tload()
         assert (t.autotune, t.autotune_log, t.cycle_time) == \
             (j.autotune, j.autotune_log, j.cycle_time)
+
+
+def test_3d_config_fields_equal_jax(monkeypatch):
+    from horovod_tpu.core.config import load_config as jload
+    from horovod_tpu_torch.core.config import load_config as tload
+    for env in ({}, {"HOROVOD_TP": "2", "HOROVOD_PIPELINE_STAGES": "4",
+                     "HOROVOD_MOE_COMPRESSION": "bf16"}):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        j, t = jload(), tload()
+        assert (t.tp, t.pipeline_stages, t.moe_compression) == \
+            (j.tp, j.pipeline_stages, j.moe_compression)
 
 
 def test_init_builds_the_tuner_and_a_reinit_warm_starts(monkeypatch,

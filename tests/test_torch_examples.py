@@ -23,6 +23,10 @@ package's shim.
 * ``llama_lora`` on the CPU: two steps on ``LLAMA_TINY``, the same with
   ``--8b``'s layout (the int8 frozen base and remat) on the tiny config,
   and ``--serve-adapters 3``; each prints the JAX example's messages.
+* ``bert_pretrain --tp 2`` and ``long_context --sp 2`` (ring; Ulysses
+  packed) through ``python -m horovod_tpu_torch.run -np 2 --cpu`` at tiny
+  sizes: a falling loss, the full-tree checkpoint, the first step's
+  parity with one process.
 """
 
 import importlib.util
@@ -226,6 +230,53 @@ def test_llama_lora_serves_three_adapters_on_the_cpu(capsys):
         assert f"adapter {j}: 10 tokens match" in out
     assert "multi-LoRA serve OK: 3 adapters shared one base" in out
     assert run.report.completed == 3
+
+
+def _launch_two(module, args, tmp_path):
+    """``python -m horovod_tpu_torch.run -np 2 --cpu python -m module
+    args``: (return code, output)."""
+    env = {k: v for k, v in os.environ.items() if k not in _LAUNCHER_ENV}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2", "--cpu",
+         sys.executable, "-m", module, *args], env=env, cwd=str(tmp_path),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=300)
+    return out.returncode, out.stdout
+
+
+def test_bert_pretrain_tp_runs_at_world_two(tmp_path):
+    """``bert_pretrain --tp 2`` on BERT_TINY through the launcher: the HBM
+    report, a falling loss, and a checkpoint of the FULL tree (the
+    shards gathered over the model set)."""
+    ck = tmp_path / "bert.npz"
+    rc, log = _launch_two("horovod_tpu_torch.examples.bert_pretrain",
+                          ["--tp", "2", "--steps", "4",
+                           "--save-checkpoint", str(ck)], tmp_path)
+    assert rc == 0, log
+    assert "mesh=dcn1 x (data1, model2)" in log and "HBM/device" in log
+    first = float(log.split("step    0  loss ")[1].split()[0])
+    last = float(log.split("final loss ")[1].split()[0])
+    assert last < first, log
+    with np.load(ck) as z:
+        shapes = {k: z[k].shape for k in z.files}
+    wq = [v for k, v in shapes.items() if "layer_0" in k and "wq" in k
+          and "kernel" in k]
+    assert wq == [(64, 64)], shapes
+
+
+@pytest.mark.parametrize("mode,extra", [("ring", []),
+                                        ("ulysses", ["--packed"])],
+                         ids=["ring", "ulysses_packed"])
+def test_long_context_runs_at_world_two(tmp_path, mode, extra):
+    """``long_context`` at sp 2 through the launcher: the first step's
+    loss equal to one process's full attention and a falling loss."""
+    rc, log = _launch_two("horovod_tpu_torch.examples.long_context",
+                          ["--sp", "2", "--seq-len", "64", "--steps", "5",
+                           "--mode", mode, "--compare-single-device",
+                           *extra], tmp_path)
+    assert rc == 0, log
+    assert "PARITY OK" in log and f"mode={mode}, seq=64, sp=2" in log
 
 
 if __name__ == "__main__":

@@ -10,7 +10,8 @@ concatenated batch and vs the JAX package.
   ``BatchNorm(axis_name=...)``) under ``jax.shard_map`` on 2 and 4 of
   the conftest's 8 CPU devices (its parameter cotangents per device).
   Two allreduces a step, at every world size.
-* At world 1 the sync layer is the plain one, bit for bit.
+* At world 1 the sync layer is the plain one, bit for bit, over every
+  rank and over the ``data`` axis of a rank mesh (``axes=``).
 * ``hvd.SyncBatchNorm`` (torch-style) at worlds 1 and 2 against
   ``torch.nn.BatchNorm2d`` on the concatenated batch, two steps at
   ``momentum=None`` (a cumulative average, the unbiased variance with the
@@ -296,9 +297,37 @@ def test_sync_batch_norm_at_world_one_is_the_plain_layer(world1):
     assert set(m.state_dict()) == {"scale", "bias", "mean", "var"}
 
 
-def test_sync_batch_norm_refuses_sub_mesh_axes():
-    with pytest.raises(NotImplementedError, match="1.12"):
-        sync_batch_norm(axes=("data",), features=4, device="cpu")
+def test_sync_batch_norm_refuses_sub_mesh_axes(world1):
+    """``axes=`` over a sub-mesh (the refusal this test once pinned is
+    gone with ``parallel/mesh``): at world 1 on ``build_3d_mesh()`` the
+    layer over ``("data",)`` is the plain layer bit for bit (its
+    allreduces run over the data set, one rank), and over the ``model``
+    axis the mesh dropped as well; an axis no mesh has raises when the
+    layer is built (the JAX layer at its trace).  The sub-mesh of a world
+    of 4 is ``tests/test_torch_parallel.py``'s."""
+    from horovod_tpu_torch.parallel import axis_set, build_3d_mesh
+    build_3d_mesh()
+    x, dy, p = _data(1, seed=6)
+    outs = []
+    for kw in ({"sync": False},
+               {"sync": True, "process_set": axis_set(("data",))},
+               {"sync": True, "process_set": axis_set("model")}):
+        m = tbn.BatchNorm(C, momentum=0.9, epsilon=EPS, device="cpu", **kw)
+        m.load_state_dict({k: torch.from_numpy(v) for k, v in p.items()})
+        xt = torch.from_numpy(x).requires_grad_(True)
+        before = sync_bn_totals()["allreduces"]
+        y = m(xt)
+        y.backward(torch.from_numpy(dy))
+        outs.append((y, xt.grad, m.scale.grad, m.bias.grad, m.mean, m.var,
+                     sync_bn_totals()["allreduces"] - before))
+    for got in outs[1:]:
+        for a, b in zip(outs[0][:6], got[:6]):
+            assert torch.equal(a, b)
+        assert got[6] == 2
+    m = sync_batch_norm(axes=("data",), features=C, device="cpu")
+    assert m.process_set is axis_set(("data",)) and m.sync
+    with pytest.raises(ValueError, match="unknown mesh axis"):
+        sync_batch_norm(axes=("rows",), features=C, device="cpu")
 
 
 # ---------------------------------------------------------------------------
