@@ -359,6 +359,38 @@ Phases, each printing its own line; any failure exits non-zero:
    ``sync_batch_norm(axes=("data",))`` at phase 13's first shape bitwise
    the plain layer, one launch of each BN kernel.
 
+29. serving_tp -- Llama-3 8B (full width and depth, bf16, seed 0) at
+   tp 2: this script run twice with ``--tp-worker serving_tp`` as two
+   ranks on ``cuda:0`` over gloo, as phase 28 (b), each holding the full
+   params (prefill) and its shard (16 query and 4 kv heads, half of
+   every ``wq``/``wk``/``wv``/``w_gate``/``w_up`` column and
+   ``wo``/``w_down`` row).  (a) Phase 4's prompts prefilled into each
+   rank's kv-head shard of the pool and rank 0's tp 1 pool, then
+   ``SERVE_TP_STEPS`` teacher-forced steps (the same seeded tokens): the
+   tp 2 logits within ``BF16_TOL`` of tp 1's max |logit| at every step,
+   32 launches of the decode kernel a step a rank; a fault scored beside
+   the gate and required to fail it (layer ``SERVE_TP_FAULT_LAYER``'s
+   ``w_down`` sum skipped, each rank keeping its partial); the same at 2
+   layers in f32 (TF32 off) with every step's greedy tokens equal to tp
+   1's; half of each slot's cold pages compressed in both pools, the
+   e4m3 shards and scales bitwise rank 0's tp 1 pool's heads (the tp
+   ``Max`` of the scales), and one compressed tp step (32 launches of
+   the e4m3 variant a rank) bitwise the plain tp step over each rank's
+   pool holding the dequantised rows.  (b) ``ServingEngine(mesh=)``
+   serves phase 4's load: every request completes, no page left, both
+   ranks' streams and reports identical (lock-step), 64 row-parallel
+   allreduces a step and their bytes from ``collective_totals()``, 32
+   decode launches a step and 32 flash launches a prefill a rank; token
+   latency, TTFT and tokens/s beside phase 4's, and the streams' agreement
+   with phase 4's tp 1 streams (logged: bf16 logits differ by the split).
+   (c) ``ServingControlPlane(initial_tp=2)`` on the same load, a scripted
+   shrink to 1 at decide-call 2 with ``drain_steps=0``: every request
+   completes, nothing lost or leaked, one resize to tp 1, the tokens
+   emitted before the shrink equal (b)'s, both ranks' reports identical,
+   and the ``horovod_ctl_*`` families against the report
+   (``examples.autoscale_probe.check_ctl_metrics``).  Phase 3 holds rows
+   2 and 2b at the tp-local heads (16/4 and 8/2, ``check_decode_tp``).
+
 Phase 17 also holds ``chunked_allreduce`` (equal to ``allreduce`` at
 world 1) and ``fp8_allreduce`` (bitwise its round trip) on its 64 MiB
 buffer and times them.
@@ -702,9 +734,11 @@ def check_decode(attn, dev) -> dict:
     return head
 
 
-def fp8_decode_case(dev, ps: int, seed: int, every: int = 2) -> tuple:
-    """8 slots x 2048 live keys of 4096, Llama-3 8B heads, bf16, at page
-    size ``ps``; every ``every``-th full page (none at 0) compressed as
+def fp8_decode_case(dev, ps: int, seed: int, every: int = 2, h: int = 32,
+                    hkv: int = 8) -> tuple:
+    """8 slots x 2048 live keys of 4096, Llama-3 8B heads (or ``h`` query
+    over ``hkv`` kv heads), bf16, at page size ``ps``; every ``every``-th
+    full page (none at 0) compressed as
     ``PagedKVCache.compress_cold`` moves it (one scale a row; its table
     entry pointed at the garbage scratch page).  Returns ``(q, kp, vp,
     read, lengths, fp8, deq_k, deq_v, table)``: the pools and the table
@@ -712,7 +746,7 @@ def fp8_decode_case(dev, ps: int, seed: int, every: int = 2) -> tuple:
     the old pages with the table the plain kernel reads."""
     from horovod_tpu_torch.serving.kvcache import _quantize_pages
     gen = torch.Generator(device=dev).manual_seed(seed)
-    slots, max_len, h, hkv, d, n = 8, 4096, 32, 8, 128, 2048
+    slots, max_len, d, n = 8, 4096, 128, 2048
     pps = max_len // ps
     npages = slots * pps
     table = torch.randperm(npages, generator=gen, device=dev).view(
@@ -829,6 +863,86 @@ def check_decode_fp8(attn, dev) -> dict:
             raise AssertionError(f"flash_decode_fp8 disagrees: {rec}")
         del kp, vp, deq_k, deq_v, fp8
     return head
+
+
+DECODE_TP_HEADS = ((2, 16, 4), (4, 8, 2))   # (tp, q heads, kv heads) a
+                                             # rank of Llama-3 8B's step
+
+
+def check_decode_tp(attn, dev) -> list:
+    """Rows 2 and 2b at the heads a rank of phase 29's tensor-parallel
+    decode step holds (``DECODE_TP_HEADS``), 8 slots x 2048 keys of 4096,
+    bf16, page 16: each within the bf16 tolerance of its plain version,
+    the e4m3 variant (every other full page compressed) bitwise the plain
+    kernel on the dequantised pool, both bitwise repeatable; each timed
+    from a replayed graph beside its bound, its plain version and (row 2)
+    SDPA on the gathered view.  Returns the records (the kernel table's
+    sub-rows)."""
+    out = []
+    for tp, h, hkv in DECODE_TP_HEADS:
+        q, kp, vp, read, lengths, fp8, deq_k, deq_v, table = \
+            fp8_decode_case(dev, 16, 40 + tp, h=h, hkv=hkv)
+        slots, pps = table.shape
+        d, n, ps = kp.shape[3], int(lengths[0]), kp.shape[1]
+        cmask = fp8[5]
+        flops = 4.0 * h * slots * n * d
+        runs = {
+            "flash_decode": (
+                lambda: attn.paged_decode_attention(q, deq_k, deq_v, table,
+                                                    lengths),
+                lambda: attn.paged_decode_attention(
+                    q, deq_k, deq_v, table, lengths, force_reference=True),
+                (2 * slots * n * hkv * d + 2 * q.numel()) * 2
+                + 4 * slots * (pps + 1)),
+            "flash_decode_fp8": (
+                lambda: attn.paged_decode_attention_fp8(q, kp, vp, read,
+                                                        lengths, *fp8),
+                lambda: attn.paged_decode_attention_fp8(
+                    q, kp, vp, read, lengths, *fp8, force_reference=True),
+                2 * int(cmask.sum()) * ps * (hkv * d + 4)
+                + 2 * (slots * n - int(cmask.sum()) * ps) * hkv * d * 2
+                + 2 * q.numel() * 2 + slots * (9 * pps + 4))}
+        first = None
+        for name, (run, plain_fn, nbytes) in runs.items():
+            o = run()
+            o_ref = plain_fn()
+            torch.cuda.synchronize()
+            err = (o.float() - o_ref.float()).abs().max().item()
+            tol = BF16_TOL * o_ref.float().abs().max().item()
+            repeat = torch.equal(o, run())
+            ok = err <= tol and repeat and bool(
+                torch.isfinite(o.float()).all())
+            rec = {"phase": "kernel", "kernel": name, "tp": tp,
+                   "heads": h, "kv_heads": hkv, "dtype": "bfloat16",
+                   "slots": slots, "keys": n, "page_size": ps,
+                   "max_abs_err": err, "tol": tol, "bitwise_repeat": repeat}
+            if name == "flash_decode":
+                first = o
+                kc = attn.gather_pages(deq_k, table).contiguous()
+                vc = attn.gather_pages(deq_v, table).contiguous()
+                pos = torch.arange(pps * ps, device=dev)
+                mask = pos[None, None, None, :] < lengths[:, None, None,
+                                                          None]
+                lib = graph_ms(lambda: F.scaled_dot_product_attention(
+                    q, kc, vc, attn_mask=mask, enable_gqa=True))
+                del kc, vc
+            else:
+                rec["compressed_pages"] = int(cmask.sum())
+                rec["bitwise_plain_kernel_on_dequantised_pool"] = \
+                    torch.equal(o, first)
+                ok = ok and rec["bitwise_plain_kernel_on_dequantised_pool"]
+                lib = None
+            bms, by = bound_ms(flops, nbytes)
+            ms = graph_ms(run)
+            rec.update(ms=ms, plain_ms=time_ms(plain_fn, reps=5),
+                       library_ms=lib, bound_ms=bms, bound_by=by,
+                       bound_share=bms / ms, ok=ok)
+            log(rec)
+            out.append(rec)
+            if not ok:
+                raise AssertionError(f"{name} at tp {tp} disagrees: {rec}")
+        del q, kp, vp, fp8, deq_k, deq_v
+    return out
 
 
 def check_flash_bwd(attn, dev) -> tuple:
@@ -5643,8 +5757,11 @@ def tp_worker(rank: int, world: int, store: str, out: str) -> int:
     return 0
 
 
-def _par_tp_world(here: str, tmp: str) -> list:
-    """Phase 28 (b): two worker processes of :func:`tp_worker`."""
+def _par_tp_world(here: str, tmp: str, job: str = "parallel_3d",
+                  world: int = PAR_TP,
+                  timeout: float = PAR_WORKER_TIMEOUT) -> list:
+    """``world`` worker processes of ``TP_JOBS[job]`` (``--tp-worker
+    <job>``): phase 28 (b) or phase 29.  Returns each rank's record."""
     store = os.path.join(tmp, "store")
     env = dict(os.environ, PYTHONPATH=here)
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
@@ -5652,11 +5769,11 @@ def _par_tp_world(here: str, tmp: str) -> list:
         env.pop(k, None)
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(here, "chip_smoke.py"), "--tp-worker",
-         str(r), str(PAR_TP), store, os.path.join(tmp, f"r{r}.pt")],
+         job, str(r), str(world), store, os.path.join(tmp, f"r{r}.pt")],
         env=env, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(PAR_TP)]
+        text=True) for r in range(world)]
     try:
-        logs = [p.communicate(timeout=PAR_WORKER_TIMEOUT)[0] for p in procs]
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -5664,10 +5781,10 @@ def _par_tp_world(here: str, tmp: str) -> list:
                 p.wait()
     for r, (p, log) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
-            raise AssertionError(f"parallel_3d (b): rank {r} exited "
+            raise AssertionError(f"{job}: rank {r} exited "
                                  f"{p.returncode}:\n{log[-4000:]}")
     return [torch.load(os.path.join(tmp, f"r{r}.pt"), weights_only=False)
-            for r in range(PAR_TP)]
+            for r in range(world)]
 
 
 def _par_sp_attention(dev) -> tuple:
@@ -5968,15 +6085,475 @@ def parallel_3d(dev, card: str, bert_step_ms) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: tensor-parallel serving -- Llama-3 8B at tp 2, the engine's
+# mesh and the control plane
+# ---------------------------------------------------------------------------
+
+
+SERVE_TP = 2                   # ranks on the one card (gloo, as phase 28 (b))
+SERVE_TP_STEPS = 8             # (a): teacher-forced steps
+SERVE_TP_FAULT_LAYER = 16      # (a): the layer whose w_down sum the fault skips
+SERVE_TP_F32_LAYERS = 2        # (a): the f32 repeat's depth (full width)
+SERVE_TP_TIMEOUT = 300
+
+
+class _ScriptedPolicy:
+    """``script``: decide-call index -> Decision; every other call holds."""
+
+    def __init__(self, script):
+        self.script = dict(script)
+        self.calls = 0
+
+    def decide(self, sample):
+        from horovod_tpu_torch.serving import Decision
+        d = self.script.pop(self.calls, None)
+        self.calls += 1
+        return d if d is not None else Decision("hold", "scripted")
+
+    def mark_applied(self, decision, now_s):
+        pass
+
+
+def _skip_sum(decode_mod, layer: int):
+    """A ``row_parallel`` that returns its rank's partial, without the
+    sum, at ``layer``'s ``w_down`` product (the step's ``2 * layer + 1``-th
+    call) and sums the others: the fault (a) scores."""
+    real = decode_mod.row_parallel
+    calls = [0]
+
+    def fake(x, kernel, bias=None, *, axis=None, mesh=None):
+        i = calls[0]
+        calls[0] += 1
+        if i == 2 * layer + 1:
+            return x @ kernel
+        return real(x, kernel, bias, axis=axis, mesh=mesh)
+    return fake
+
+
+def _tp_steps(cfg, params, dtype, mesh, dev, rank: int, steps: int,
+              fault_layer=None, compress: bool = False) -> dict:
+    """Phase 29 (a) on one rank: phase 4's prompts prefilled (on the full
+    params) into this rank's tp pool and, on rank 0, a tp 1 pool; then
+    ``steps`` teacher-forced steps of the tp step on this rank's shard
+    and, on rank 0, of the tp 1 step on the full params, fed the same
+    tokens.  Per step: rank 0's logit distance from tp 1 over tp 1's max
+    |logit|, greedy agreement, and this rank's decode launches.  Then
+    (``fault_layer``) one more step with that layer's ``w_down`` sum
+    skipped on every rank, scored the same way, and (``compress``) half
+    of each slot's cold pages compressed in both pools -- their e4m3
+    shards and scales against rank 0's tp 1 pool's heads -- and one
+    compressed tp step against the plain tp step over this rank's pool
+    holding the dequantised rows (bitwise, as phase 27 (b) at tp 1)."""
+    import torch.distributed as dist
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.parallel import shard_params
+    from horovod_tpu_torch.serving import (CacheConfig, LoadSpec,
+                                           PagedKVCache, build_decode_step,
+                                           cache_sharding,
+                                           decode_param_specs, generate,
+                                           prefill_forward)
+    from horovod_tpu_torch.serving import decode as decode_mod
+    from horovod_tpu_torch.serving.kvcache import dtype_name
+    local = shard_params(params, decode_param_specs(params),
+                         mesh.axis_index("tp"), mesh.size)
+    ccfg = CacheConfig(num_layers=cfg.num_layers,
+                       num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                       dtype=dtype_name(dtype), compress=compress,
+                       **SERVE_GEOM)
+    kw = dict(slots=ccfg.slots, page_size=ccfg.page_size,
+              pages_per_slot=ccfg.pages_per_slot, dtype=dtype)
+    run = {"tp": (PagedKVCache(ccfg, cache_sharding(mesh, device=dev)),
+                  build_decode_step(cfg, mesh, **kw), local)}
+    if rank == 0:
+        run["one"] = (PagedKVCache(ccfg, dev), build_decode_step(cfg, **kw),
+                      params)
+    reqs = generate(LoadSpec(vocab_size=cfg.vocab_size, **SERVE_LOAD))
+    for slot, r in enumerate(reqs):
+        _, kl, vl = prefill_forward(params, cfg, torch.tensor(
+            r.prompt, dtype=torch.long, device=dev)[None], dtype=dtype)
+        for cache, *_ in run.values():
+            cache.write_prefill(slot, kl[:, 0], vl[:, 0])
+        del kl, vl
+    slots = ccfg.slots
+    active = torch.ones(slots, dtype=torch.bool, device=dev)
+    toks = np.random.RandomState(29).randint(
+        0, cfg.vocab_size, (steps + 1, slots))
+
+    def one_step(j):
+        out = {}
+        for name, (cache, step, p) in run.items():
+            for s in range(slots):
+                cache.reserve(s, int(cache.lengths[s]) + 1)
+            torch.cuda.synchronize()
+            registry.reset_launch_counts()
+            logits, cache.k, cache.v = step(
+                p, cache.k, cache.v,
+                torch.tensor(toks[j], dtype=torch.long, device=dev),
+                cache.lengths_device().long(), cache.table_device(),
+                active)
+            torch.cuda.synchronize()
+            out[name] = (logits.float(), registry.launch_counts())
+            for s in range(slots):
+                cache.lengths[s] += 1
+        rec = {"launches": out["tp"][1]}
+        if rank == 0:
+            got, want = out["tp"][0], out["one"][0]
+            rec.update(
+                rel_err=(got - want).abs().max().item()
+                / max(want.abs().max().item(), 1e-30),
+                greedy_equal=bool(torch.equal(got.argmax(-1),
+                                              want.argmax(-1))),
+                finite=bool(torch.isfinite(got).all()))
+        return rec
+
+    res = {"steps": [one_step(j) for j in range(steps)]}
+    if fault_layer is not None:
+        real = decode_mod.row_parallel
+        decode_mod.row_parallel = _skip_sum(decode_mod, fault_layer)
+        try:
+            res["fault"] = one_step(steps)
+        finally:
+            decode_mod.row_parallel = real
+    if compress:
+        cache_tp, cache_one = run["tp"][0], run.get("one", (None,))[0]
+        # Room for the step's write first: the pages compress_cold frees
+        # then stay free, and the plain pool below holds their rows.
+        for cache, *_ in run.values():
+            for s in range(slots):
+                n = int(cache.lengths[s])
+                cache.reserve(s, n + 1, writable_from=n)
+        old = cache_tp.page_table.copy()
+        n = 0
+        for s in range(slots):
+            half = len(cache_tp._cold_indices(s)) // 2
+            got = cache_tp.compress_cold(s, max_pages=half)
+            if cache_one is not None:
+                assert cache_one.compress_cold(s, max_pages=half) == got
+            n += got
+        cp = torch.tensor(cache_tp.cpage_table[cache_tp.comp_mask],
+                          dtype=torch.long, device=dev)
+        shards = [cache_tp.kq[:, cp].view(torch.uint8).contiguous(),
+                  cache_tp.vq[:, cp].view(torch.uint8).contiguous()]
+        equal = True
+        for r in range(mesh.size):
+            for i, name in enumerate(("kq", "vq")):
+                t = shards[i].clone() if rank == r else \
+                    torch.empty_like(shards[i])
+                dist.broadcast(t, src=r)
+                if rank == 0:
+                    h0 = r * cache_tp.local_heads
+                    want = getattr(cache_one, name)[:, cp][
+                        ..., h0:h0 + cache_tp.local_heads, :]
+                    equal = equal and torch.equal(
+                        t, want.contiguous().view(torch.uint8))
+        if rank == 0:
+            equal = equal and all(torch.equal(
+                getattr(cache_tp, sc)[:, cp], getattr(cache_one, sc)[:, cp])
+                for sc in ("kscale", "vscale"))
+            equal = equal and np.array_equal(cache_tp.cpage_table,
+                                              cache_one.cpage_table)
+        res["compressed_pages"] = n
+        res["e4m3_shards_equal"] = equal
+        cm = cache_tp.comp_mask.copy()
+        plain_table = cache_tp.page_table.copy()
+        plain_table[cm] = old[cm]
+        pids = torch.tensor(old[cm], dtype=torch.long, device=dev)
+        cps = torch.tensor(cache_tp.cpage_table[cm], dtype=torch.long,
+                           device=dev)
+        deq_k, deq_v = cache_tp.k.clone(), cache_tp.v.clone()
+        deq_k[:, pids] = cache_tp.dequantized("k", cps)
+        deq_v[:, pids] = cache_tp.dequantized("v", cps)
+        args = (torch.tensor(toks[steps], dtype=torch.long, device=dev),
+                cache_tp.lengths_device().long())
+        torch.cuda.synchronize()
+        registry.reset_launch_counts()
+        got, _, _ = build_decode_step(cfg, mesh, compress=True, **kw)(
+            local, cache_tp.k, cache_tp.v, *args, cache_tp.table_device(),
+            active, *cache_tp.compress_operands())
+        torch.cuda.synchronize()
+        counts = registry.launch_counts()
+        want, _, _ = run["tp"][1](local, deq_k, deq_v, *args, torch.tensor(
+            plain_table, dtype=torch.int32, device=dev), active)
+        res["compressed_step"] = {
+            "launches": counts,
+            "bitwise_plain_step_on_dequantised_pool": bool(
+                torch.equal(got, want)),
+            "finite": bool(torch.isfinite(got).all())}
+        del deq_k, deq_v, got, want
+    del run, local
+    return res
+
+
+def serving_tp_worker(rank: int, world: int, store: str, out: str) -> int:
+    """One rank of phase 29: gloo opened here (NCCL refuses two ranks on
+    one GPU), then ``hvd.init(device="cuda:0")``; Llama-3 8B's bf16
+    weights from seed 0 on the card, the same tree on each rank."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples.autoscale_probe import check_ctl_metrics
+    from horovod_tpu_torch.models import LLAMA3_8B, init_llama_params
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.parallel import build_parallel_mesh
+    from horovod_tpu_torch.serving import (Decision, LoadSpec, PolicyConfig,
+                                           Request, ServingControlPlane,
+                                           ServingEngine, generate)
+    from horovod_tpu_torch.timeline.metrics import (collective_totals,
+                                                    render_prometheus)
+    hvd.init(device=PAR_WORKER_DEVICE)
+    dev = torch.device(PAR_WORKER_DEVICE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = build_parallel_mesh(tp=world)
+    res = {"backend": dist.get_backend()}
+
+    # (a') f32 at 2 layers, full width: greedy tokens equal tp 1's.
+    cfg2 = dc.replace(LLAMA3_8B, num_layers=SERVE_TP_F32_LAYERS)
+    params = init_llama_params(cfg2, generator=torch.Generator(
+        device=dev).manual_seed(0), dtype=torch.float32, device=dev)
+    res["a_f32"] = _tp_steps(cfg2, params, torch.float32, mesh, dev, rank,
+                             SERVE_TP_STEPS)
+    del params
+    free_device()
+    # (a) bf16 at full depth, the fault, the e4m3 pool.
+    cfg = LLAMA3_8B
+    params = init_llama_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), dtype=torch.bfloat16, device=dev)
+    res["a"] = _tp_steps(cfg, params, torch.bfloat16, mesh, dev, rank,
+                         SERVE_TP_STEPS, fault_layer=SERVE_TP_FAULT_LAYER,
+                         compress=True)
+    free_device()
+    res["a_seconds"] = time.perf_counter() - t0
+
+    # (b) ServingEngine(mesh=) serves phase 4's load.
+    eng = ServingEngine(cfg, params, mesh=mesh, device=dev,
+                        dtype=torch.bfloat16, **SERVE_GEOM)
+    eng.serve([Request(rid=-1, prompt=np.arange(16, dtype=np.int32),
+                       max_new_tokens=2)])
+    reqs = generate(LoadSpec(vocab_size=cfg.vocab_size, **SERVE_LOAD))
+    tp_set = mesh.group("tp").name
+    before = dict(collective_totals().get(("allreduce", tp_set),
+                                          {"calls": 0.0, "bytes": 0.0}))
+    torch.cuda.synchronize()
+    registry.reset_launch_counts()
+    rep = eng.serve(reqs)
+    torch.cuda.synchronize()
+    counts = registry.launch_counts()
+    after = collective_totals()[("allreduce", tp_set)]
+    res["b"] = {"report": rep.as_dict(), "launches": counts,
+                "streams": {r.rid: list(r.tokens) for r in reqs},
+                "tp_allreduces": after["calls"] - before["calls"],
+                "tp_allreduce_bytes": after["bytes"] - before["bytes"],
+                "leaked": eng.cache.allocated_pages,
+                "balanced": eng.cache.refcounts_balanced(),
+                "headers": eng._ls.headers,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    del eng
+    free_device()
+
+    # (c) ServingControlPlane(initial_tp=2), a scripted shrink to 1.
+    plane = ServingControlPlane(
+        cfg, params, initial_tp=world,
+        policy=_ScriptedPolicy({2: Decision("shrink", "scripted",
+                                            target_size=1)}),
+        policy_config=PolicyConfig(interval_s=0.0, drain_steps=0),
+        device=dev, dtype=torch.bfloat16, **SERVE_GEOM)
+    reqs = generate(LoadSpec(vocab_size=cfg.vocab_size, **SERVE_LOAD))
+    emitted = {}
+    transition = plane._transition
+
+    def snapshot(*a, **k):
+        emitted.update({r.rid: len(r.tokens) for r in reqs})
+        return transition(*a, **k)
+    plane._transition = snapshot
+    registry.reset_launch_counts()
+    rep = plane.serve(reqs)
+    torch.cuda.synchronize()
+    report = rep.as_dict()
+    res["c"] = {"report": report, "launches": registry.launch_counts(),
+                "streams": {r.rid: list(r.tokens) for r in reqs},
+                "emitted_before_shrink": emitted,
+                "pages": plane.engine.cache.allocated_pages,
+                "in_mesh": plane.engine.in_mesh,
+                "metrics_fails": check_ctl_metrics(
+                    render_prometheus(), report, len(plane.healthy))}
+    del plane, params
+    free_device()
+    res["seconds"] = time.perf_counter() - t0
+    torch.save(res, out)
+    hvd.shutdown()
+    dist.destroy_process_group()
+    return 0
+
+
+TP_JOBS = {"parallel_3d": tp_worker, "serving_tp": serving_tp_worker}
+
+
+def serving_tp(dev, card: str, serve_run: dict) -> dict:
+    """Phase 29 (module docstring): Llama-3 8B at tp 2 as two gloo ranks
+    on the one card -- (a) the teacher-forced step against tp 1, the
+    skipped-sum fault, f32 greedy agreement and the e4m3 pool; (b)
+    ``ServingEngine(mesh=)`` on phase 4's load; (c) the control plane's
+    scripted shrink.  Returns the main path's launches ((b) and (c), both
+    ranks)."""
+    import tempfile
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    free_device()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _par_tp_world(here, tmp, "serving_tp", SERVE_TP,
+                              SERVE_TP_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    from horovod_tpu_torch.models import LLAMA3_8B
+    fails, total = [], {}
+    layers = LLAMA3_8B.num_layers
+    r0 = ranks[0]
+    # (a)
+    a = r0["a"]
+    worst = max(s["rel_err"] for s in a["steps"])
+    rec_a = {"phase": "serving_tp", "part": "a", "card": card,
+             "tp": SERVE_TP, "backend": [r["backend"] for r in ranks],
+             "steps": len(a["steps"]),
+             "rel_err_each": [s["rel_err"] for s in a["steps"]],
+             "worst_rel_err": worst, "tol": BF16_TOL,
+             "greedy_equal_bf16": [s["greedy_equal"] for s in a["steps"]],
+             "fault_layer": SERVE_TP_FAULT_LAYER,
+             "fault_rel_err": a["fault"]["rel_err"],
+             "f32_layers": SERVE_TP_F32_LAYERS,
+             "f32_rel_err_each": [s["rel_err"]
+                                  for s in r0["a_f32"]["steps"]],
+             "f32_greedy_equal": [s["greedy_equal"]
+                                  for s in r0["a_f32"]["steps"]],
+             "compressed_pages": a["compressed_pages"],
+             "e4m3_shards_equal": a["e4m3_shards_equal"],
+             "compressed_step_bitwise_plain_step_on_dequantised_pool": [
+                 r["a"]["compressed_step"][
+                     "bitwise_plain_step_on_dequantised_pool"]
+                 for r in ranks],
+             "launches_a_step": [[s["launches"]["flash_decode"]
+                                  for s in r["a"]["steps"]] for r in ranks],
+             "fp8_launches": [r["a"]["compressed_step"]["launches"][
+                 "flash_decode_fp8"] for r in ranks],
+             "seconds": r0["a_seconds"]}
+    rec_a["ok"] = (worst <= BF16_TOL
+                   and a["fault"]["rel_err"] > BF16_TOL
+                   and all(s["finite"] for s in a["steps"])
+                   and all(rec_a["f32_greedy_equal"])
+                   and a["e4m3_shards_equal"] and a["compressed_pages"] > 0
+                   and all(rec_a["compressed_step_bitwise_plain_step_on_"
+                                 "dequantised_pool"])
+                   and all(n == layers for r in rec_a["launches_a_step"]
+                           for n in r)
+                   and rec_a["fp8_launches"] == [layers] * SERVE_TP)
+    log(rec_a)
+    if not rec_a["ok"]:
+        fails.append("(a)")
+    # (b)
+    b = [r["b"] for r in ranks]
+    rep = b[0]["report"]
+    steps = rep["decode_steps"]
+    plain = serve_run["streams"]
+    agree = sum(plain.get(rid) == s for rid, s in b[0]["streams"].items())
+    rec_b = {"phase": "serving_tp", "part": "b", "card": card,
+             "completed": rep["completed"], "decode_steps": steps,
+             "prefills": rep["prefills"],
+             "token_latency_p50_s": rep["token_latency_p50_s"],
+             "token_latency_p99_s": rep["token_latency_p99_s"],
+             "ttft_p50_s": rep["ttft_p50_s"], "ttft_p99_s": rep["ttft_p99_s"],
+             "tokens_per_s": rep["tokens_per_s"],
+             "wall_s": rep["wall_s"],
+             "phase4": {k: serve_run["report"][k] for k in (
+                 "token_latency_p50_s", "token_latency_p99_s",
+                 "ttft_p50_s", "ttft_p99_s", "tokens_per_s")},
+             "streams_equal_across_ranks": b[1]["streams"] ==
+             b[0]["streams"],
+             "reports_equal_across_ranks": b[1]["report"] == rep,
+             "streams_equal_phase4": agree,
+             "tp_allreduces_a_step": [x["tp_allreduces"] / max(steps, 1)
+                                      for x in b],
+             "tp_allreduce_bytes_a_step": [x["tp_allreduce_bytes"]
+                                           / max(steps, 1) for x in b],
+             "launches": [x["launches"] for x in b],
+             "leaked_pages": [x["leaked"] for x in b],
+             "headers": [x["headers"] for x in b],
+             "peak_mem_bytes": [x["peak_mem_bytes"] for x in b]}
+    rec_b["ok"] = (rep["completed"] == SERVE_LOAD["num_requests"]
+                   and rec_b["streams_equal_across_ranks"]
+                   and rec_b["reports_equal_across_ranks"]
+                   and all(x["leaked"] == 0 and x["balanced"] for x in b)
+                   and all(n == 2 * layers
+                           for n in rec_b["tp_allreduces_a_step"])
+                   and all(x["launches"]["flash_decode"] == layers * steps
+                           and x["launches"]["flash"]
+                           == layers * rep["prefills"] for x in b))
+    log(rec_b)
+    if not rec_b["ok"]:
+        fails.append("(b)")
+    # (c)
+    c = [r["c"] for r in ranks]
+    rep_c = c[0]["report"]
+    before = c[0]["emitted_before_shrink"]
+    undisturbed = b[0]["streams"]
+    prefix_equal = all(c[0]["streams"][rid][:n] == undisturbed[rid][:n]
+                       for rid, n in before.items())
+    rec_c = {"phase": "serving_tp", "part": "c", "card": card,
+             "completed": rep_c["serving"]["completed"],
+             "lost_requests": rep_c["lost_requests"],
+             "drain_leaked_pages": rep_c["drain_leaked_pages"],
+             "resizes": rep_c["resizes"],
+             "mesh_size_final": rep_c["mesh_size_final"],
+             "drained_reprefilled": rep_c["drained_reprefilled"],
+             "decision_counts": rep_c["decision_counts"],
+             "tokens_before_shrink": sum(before.values()),
+             "prefix_equal_undisturbed": prefix_equal,
+             "streams_equal_undisturbed": sum(
+                 undisturbed.get(rid) == s
+                 for rid, s in c[0]["streams"].items()),
+             "reports_equal_across_ranks": c[1]["report"] == rep_c,
+             "in_mesh_after": [x["in_mesh"] for x in c],
+             "metrics_fails": c[0]["metrics_fails"],
+             "launches": [x["launches"] for x in c],
+             "pages": [x["pages"] for x in c]}
+    rec_c["ok"] = (rep_c["serving"]["completed"]
+                   == SERVE_LOAD["num_requests"]
+                   and rep_c["lost_requests"] == 0
+                   and rep_c["drain_leaked_pages"] == 0
+                   and rep_c["resizes"] == 1
+                   and rep_c["mesh_size_final"] == 1 and prefix_equal
+                   and rec_c["reports_equal_across_ranks"]
+                   and not c[0]["metrics_fails"]
+                   and rec_c["pages"] == [0] * SERVE_TP)
+    log(rec_c)
+    if not rec_c["ok"]:
+        fails.append("(c)")
+    for r in ranks:
+        _add_counts(total, r["b"]["launches"])
+        _add_counts(total, r["c"]["launches"])
+    log({"phase": "serving_tp", "card": card, "seconds": seconds,
+         "worker_seconds": [r["seconds"] for r in ranks],
+         "launches": total, "ok": not fails})
+    if fails:
+        raise AssertionError("serving_tp: parts " + ", ".join(fails)
+                             + " failed")
+    return total
+
+
 def main(argv=None) -> int:
-    """Every phase (``--tp-worker``: one rank of phase 28 (b))."""
+    """Every phase (``--tp-worker <job>``: one rank of phase 28 (b) or of
+    phase 29)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if argv[:1] == ["--tp-worker"]:
-        return tp_worker(int(argv[1]), int(argv[2]), argv[3], argv[4])
+        return TP_JOBS[argv[1]](int(argv[2]), int(argv[3]), argv[4],
+                                argv[5])
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import attention as attn
     from horovod_tpu_torch.ops import bn
@@ -5996,6 +6573,8 @@ def main(argv=None) -> int:
     flash = check_flash(attn, dev)
     decode = check_decode(attn, dev)
     decode_fp8 = check_decode_fp8(attn, dev)
+    free_device()
+    check_decode_tp(attn, dev)
     free_device()
     dq, dkv = check_flash_bwd(attn, dev)
     free_device()
@@ -6057,13 +6636,15 @@ def main(argv=None) -> int:
     free_device()
     par28 = parallel_3d(dev, card, bert_step_ms)
     free_device()
+    tp29 = serving_tp(dev, card, serve_run)
+    free_device()
     # The attention and BN kernels run on several paths: their launches
     # are the sums.
     flash["launches"] = (serve["flash"] + train["flash"] + bert["flash"]
                          + lora26["flash"] + rest27["flash"]
-                         + par28["flash"])
+                         + par28["flash"] + tp29["flash"])
     decode["launches"] = (serve["flash_decode"] + lora26["flash_decode"]
-                          + rest27["flash_decode"])
+                          + rest27["flash_decode"] + tp29["flash_decode"])
     decode_fp8["launches"] = rest27["flash_decode_fp8"]
     dq["launches"] = (train["flash_bwd_dq"] + bert["flash_bwd_dq"]
                       + lora26["flash_bwd_dq"] + par28["flash_bwd_dq"])

@@ -46,7 +46,19 @@ E4M3_MAX = 448.0
 _SCALE_FLOOR = 1e-30
 
 
-def fp8_quantize(x: torch.Tensor, axis=None):
+def fp8_absmax(x: torch.Tensor, axis=None) -> torch.Tensor:
+    """The f32 max-abs :func:`fp8_quantize` scales by: of the whole
+    tensor, or per index of ``axis`` (0 where there is nothing)."""
+    x32 = x.float()
+    if axis is None:
+        return x32.abs().amax() if x32.numel() else x32.new_zeros(())
+    axis = axis % x32.dim()
+    red = tuple(i for i in range(x32.dim()) if i != axis)
+    return x32.abs().amax(dim=red) if x32.numel() else \
+        x32.new_zeros(x32.shape[axis])
+
+
+def fp8_quantize(x: torch.Tensor, axis=None, absmax=None):
     """Quantize to e4m3 with a max-abs scale: one for the whole tensor,
     or one per index of ``axis`` (a row each for ``axis=0``).
 
@@ -54,16 +66,15 @@ def fp8_quantize(x: torch.Tensor, axis=None):
     max(absmax / 448, 1e-30)`` in f32, and 1 for an all-zero or empty
     row, so that it comes back exact; ``q = (x / scale)`` in f32, cast
     to ``float8_e4m3fn`` (round to nearest even) -- the JAX package's
-    codes, bit for bit.
+    codes, bit for bit.  ``absmax``: the f32 max-abs to scale by in
+    place of :func:`fp8_absmax` of ``x`` (the max over a row that ranks
+    hold in parts: the kv-head-sharded page pool).
     """
     x32 = x.float()
-    if axis is None:
-        absmax = x32.abs().amax() if x32.numel() else x32.new_zeros(())
-    else:
+    if absmax is None:
+        absmax = fp8_absmax(x32, axis)
+    if axis is not None:
         axis = axis % x32.dim()
-        red = tuple(i for i in range(x32.dim()) if i != axis)
-        absmax = x32.abs().amax(dim=red) if x32.numel() else \
-            x32.new_zeros(x32.shape[axis])
     # A tensor divisor, not a Python float: on the card torch divides by
     # a host scalar as a multiply by its reciprocal, one ulp off now and
     # then.

@@ -19,7 +19,8 @@ The exchange-plan IR: every exchange the package runs asks
 (``timeline.spans.note_leg``) and prices its counters from them.  The
 families are ``flat``, ``hier``, ``chunked``, ``powersgd``, ``topk``,
 ``fp8``, ``ef``, ``zero``, ``microbatch``, ``guard`` (the SDC screen's
-8-byte allreduce), ``moe`` (the MoE layer's all_to_all pair,
+8-byte allreduce), ``serving`` (the tensor-parallel decode and verify
+steps' row-parallel sums), ``moe`` (the MoE layer's all_to_all pair,
 :func:`plan_moe_alltoall`) and ``kernel``; a new one
 needs :func:`register_leg_kind` and :func:`register_plan_family` and no
 consumer code.  :func:`schedule_legs`, :func:`overlap_phases` and
@@ -375,6 +376,10 @@ for _kind, _bw, _doc in (
         ("mb_rs", "ici", "microbatch pipe: per-microbatch reduce-scatter"),
         ("mb_ag", "ici", "microbatch pipe: closing allgather"),
         ("guard", "ici", "SDC guard screen vector psum"),
+        ("serving_psum", "ici", "serving TP decode row-parallel activation "
+                                "psum"),
+        ("serving_verify", "ici", "speculative-verify row-parallel "
+                                  "activation psum"),
         ("moe_a2a", "ici", "MoE dispatch/combine all_to_all"),
         ("kernel", "local", "kernel contract: no wire traffic")):
     register_leg_kind(_kind, bandwidth=_bw, doc=_doc)
@@ -828,6 +833,44 @@ def _build_guard(spec: dict) -> List[ExchangeLeg]:
         audit=(("psum", "float32", 2, "guard/screen"),))]
 
 
+def _canon_serving(spec: dict) -> dict:
+    return {"kind": str(spec.get("kind", "serving_decode")),
+            "layers": int(spec["layers"]), "slots": int(spec["slots"]),
+            "width": int(spec.get("width", 1)),
+            "d_model": int(spec["d_model"]),
+            "dtype": dtype_name(_dtype(spec.get("dtype", "float32"))),
+            "axis": str(spec.get("axis", "tp"))}
+
+
+def _build_serving(spec: dict) -> List[ExchangeLeg]:
+    # The rows of what the port's step runs: two row-parallel sums a
+    # layer (``attn_wo``, ``mlp_down``) of ``slots x d_model``.  The
+    # verify step is ``width`` calls of the decode step's shapes, so its
+    # rows are ``width x 2`` a layer of the same size, column by column
+    # (the JAX verify step sums ``slots x width x d_model`` twice a
+    # layer: a deliberate difference, ROADMAP section 3).
+    kind = spec["kind"]
+    leg_kind = "serving_verify" if kind == "serving_verify" \
+        else "serving_psum"
+    dt = spec["dtype"]
+    elements = spec["slots"] * spec["d_model"]
+    nbytes = elements * _dtype(dt).itemsize
+    cols = [""] if kind != "serving_verify" else \
+        [f"col{j}/" for j in range(spec["width"])]
+    legs = []
+    for col in cols:
+        for li in range(spec["layers"]):
+            for part in ("attn_wo", "mlp_down"):
+                legs.append(ExchangeLeg(
+                    tag=f"{kind}/{col}layer{li}/{part}", axis=spec["axis"],
+                    collective="psum", codec="none", wire_dtype=dt,
+                    elements=elements, nbytes=nbytes, kind=leg_kind,
+                    bucket=li,
+                    audit=(("psum", dt, elements,
+                            f"{col}layer{li}/{part}/allreduce"),)))
+    return legs
+
+
 def _canon_moe(spec: dict) -> dict:
     from ..parallel.moe import resolve_moe_compression
     return {"n_experts": int(spec["n_experts"]),
@@ -887,6 +930,7 @@ register_plan_family("fp8", _build_fp8, _canon_fp8)
 register_plan_family("ef", _build_ef, _canon_ef)
 register_plan_family("zero", _build_zero, _canon_zero)
 register_plan_family("microbatch", _build_microbatch, _canon_microbatch)
+register_plan_family("serving", _build_serving, _canon_serving)
 register_plan_family("guard", _build_guard)
 register_plan_family("moe", _build_moe, _canon_moe)
 register_plan_family("kernel", _build_kernel, _canon_kernel)

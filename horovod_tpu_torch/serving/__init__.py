@@ -1,21 +1,25 @@
-"""Serving data plane on one GPU: paged KV cache (refcounted pages, fp8
-cold pages, the radix prefix cache), chunked prefill, paged decode, LoRA
-banks, speculative decoding, continuous-batching scheduler, open-loop
-load generator, engine; the KV-page wire codec, the fleet router, the
-scale policies, the fleet scaler and the disaggregated fleet.
+"""Serving data plane: paged KV cache (refcounted pages, fp8 cold pages,
+the radix prefix cache), chunked prefill, paged decode, LoRA banks,
+speculative decoding, continuous-batching scheduler, open-loop load
+generator, engine; tensor-parallel decode and verify steps over a rank
+mesh (``decode_param_specs``, the kv-head-sharded pool of
+``cache_sharding``, ``ServingEngine(mesh=)`` and ``rebuild_mesh``, run
+in lock-step across the world's ranks), the SLO-driven control plane
+that resizes that mesh (``ServingControlPlane``); the KV-page wire
+codec, the fleet router, the scale policies, the fleet scaler and the
+disaggregated fleet."""
 
-Not here (ROADMAP item 1.12, tp > 1): ``cache_sharding``,
-``decode_param_specs``; ``ServingControlPlane`` raises."""
-
-from .controlplane import FleetScaler, ServingControlPlane  # noqa: F401
+from .controlplane import (ControlPlaneReport, FleetScaler,  # noqa: F401
+                           ServingControlPlane)
 from .decode import (ServingDecodeStep, build_decode_step,  # noqa: F401
-                     build_verify_step, greedy_sample, prefill_forward,
-                     stack_adapters)
+                     build_verify_step, decode_param_specs, greedy_sample,
+                     prefill_forward, stack_adapters)
 from .engine import (RequestPrefetcher, ServingEngine,  # noqa: F401
                      ServingReport)
 from .fleet import (DecodeWorker, FleetReport,  # noqa: F401
                     HandoffTicket, PrefillWorker, ServingFleet)
-from .kvcache import CacheConfig, PagedKVCache, PrefixCache  # noqa: F401
+from .kvcache import (CacheConfig, CacheShard, PagedKVCache,  # noqa: F401
+                      PrefixCache, cache_sharding)
 from .kvwire import (WirePages, decode_kv, encode_kv,  # noqa: F401
                      import_pages, wire_tier)
 from .loadgen import (LoadSpec, fleet_spec, generate,  # noqa: F401

@@ -12,7 +12,13 @@ Counterpart of ``horovod_tpu/serving/decode.py``:
   it writes the new token's K/V into its page, then attends over each
   slot's pages through the paged decode kernel
   (``ops/csrc/flash_decode.cu``), which reads the pool through the page
-  table instead of gathering a per-slot view.  ``with_lora=True`` takes
+  table instead of gathering a per-slot view.  On a tp mesh
+  (:func:`decode_param_specs`) each rank runs ``num_heads / tp`` query
+  heads over its ``num_kv_heads / tp`` kv heads of the pool, and the
+  ``wo`` and ``w_down`` products are row-parallel: two ``Sum``
+  allreduces a layer over the tp set
+  (:func:`~horovod_tpu_torch.parallel.tp.row_parallel`), as the
+  reference's ``shard_map`` body runs them.  ``with_lora=True`` takes
   banked adapters and a per-slot ``adapter_ids`` operand;
   ``compress=True`` takes the six e4m3 operands of a cache with fp8
   cold pages and attends through the kernel's e4m3 variant
@@ -27,9 +33,8 @@ Every projection (LoRA terms included), the RoPE rotation and the
 in-step K/V write stay plain PyTorch (``torch.matmul``, ``torch.bmm``
 and indexing), as the JAX package leaves them to XLA.  In-tree
 ``lora_a``/``lora_b`` leaves apply in prefill and decode, as the JAX
-``_dense`` / ``_node_lora`` apply them.  This package serves on one
-device: tensor parallelism raises ``NotImplementedError`` (ROADMAP item
-1.12).
+``_dense`` / ``_node_lora`` apply them.  As in the reference, LoRA
+(banks or in-tree leaves) is served at tp = 1 only.
 
 Dtypes.  The JAX package keeps f32 master kernels and casts them to the
 compute dtype inside every ``_dense`` call.  This port stores the
@@ -44,7 +49,7 @@ that product even where the caller turned
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.nn import functional as F
@@ -53,9 +58,12 @@ from ..models.transformer import (LlamaConfig, default_positions, dense,
                                   rmsnorm, rotary_embedding, tied_readout)
 from ..ops.attention import (flash_attention, paged_decode_attention,
                              paged_decode_attention_fp8)
+from ..parallel.tp import row_parallel, tp_param_specs
 from ..timeline import spans as _spans
 
 Params = Dict[str, torch.Tensor]
+
+TP_AXIS = "tp"
 
 
 def _layer(p: Params, li: int, name: str) -> torch.Tensor:
@@ -179,6 +187,18 @@ _PROJS = ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.w_gate",
           "mlp.w_up", "mlp.w_down")
 
 
+def decode_param_specs(params, tp_axis: str = TP_AXIS) -> Dict[str, tuple]:
+    """``{name: spec}`` of the decode step's params over a tp mesh, the
+    reference's ``PartitionSpec`` tree as tuples: the column kernels
+    (``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``) split on the output
+    dim ``(None, tp_axis)``, the row kernels (``wo``, ``w_down``) on the
+    input dim ``(tp_axis, None)``, everything else ``()`` --
+    :func:`~horovod_tpu_torch.parallel.tp.tp_param_specs` with biases
+    replicated, as the reference's decode specs keep them."""
+    return {n: () if n.endswith(".bias") else spec
+            for n, spec in tp_param_specs(params, axis=tp_axis).items()}
+
+
 class ServingDecodeStep:
     """The batched single-token decode step.
 
@@ -206,12 +226,29 @@ class ServingDecodeStep:
     (the reference's order); a slot's pages that ``cmask`` marks are
     read from the e4m3 pool.  Each call is timed into the span recorder
     under ``serving_decode``.
+
+    At ``tp > 1`` (``process_set``: this rank's tp set) ``params`` is
+    this rank's shard (:func:`decode_param_specs`, cut by the engine
+    once a mesh) and the pools hold its kv heads; a full dict raises on
+    its shapes.  Each executed row-parallel sum notes its plan row
+    (``plan``: :func:`~horovod_tpu_torch.controller.fusion.
+    plan_exchange` ``("serving")``) in the span registry.  ``_meta``
+    holds the reference's step description (``kind``, ``world``,
+    ``tp``, ..., and ``resized_from`` after an engine's resize).
     """
 
     def __init__(self, config: LlamaConfig, *, slots: int, page_size: int,
                  pages_per_slot: int, dtype, with_lora: bool = False,
-                 lora_alpha: float = 16.0, compress: bool = False):
+                 lora_alpha: float = 16.0, compress: bool = False,
+                 tp: int = 1, process_set=None, plan=None,
+                 meta: Optional[dict] = None):
         self.config = config
+        self.tp = int(tp)
+        self.process_set = process_set
+        self.heads = config.num_heads // self.tp
+        self.kv_heads = config.num_kv_heads // self.tp
+        self.legs = tuple(plan.legs) if plan is not None else ()
+        self._meta = dict(meta or {})
         self.slots = int(slots)
         self.page_size = int(page_size)
         self.pages_per_slot = int(pages_per_slot)
@@ -253,6 +290,30 @@ class ServingDecodeStep:
                               page_table, active, adapters, adapter_ids,
                               fp8)
 
+    def check_shard(self, p: Params) -> None:
+        """Refuse params that are not this rank's shard at ``tp > 1`` (a
+        full dict would be multiplied wrongly), and LoRA leaves there."""
+        if self.tp == 1:
+            return
+        if self.process_set is None:
+            raise RuntimeError("this rank is not in the decode step's mesh")
+        cfg = self.config
+        want = {"attn.wq": (cfg.d_model, self.heads * cfg.head_dim),
+                "attn.wo": (self.heads * cfg.head_dim, cfg.d_model),
+                "mlp.w_down": (cfg.ffn_hidden // self.tp, cfg.d_model)}
+        for name, shape in want.items():
+            got = tuple(p[f"layer_0.{name}.kernel"].shape)
+            if got != shape:
+                raise ValueError(
+                    f"a tp={self.tp} decode step takes this rank's shard "
+                    f"of the params (decode_param_specs): layer_0.{name}."
+                    f"kernel is {got}, want {shape}")
+        if any(n.endswith(".lora_a") for n in p):
+            raise NotImplementedError(
+                "LoRA leaves are served at tp=1 only (a row-parallel "
+                "adapter would need its own sum); shard requests, not "
+                "adapters")
+
     def _weights(self, p: Params, li: int, adapters, ids, s: int):
         """Layer ``li``'s projections as ``(kernel, adapter pair or
         None)``: a banked pair gathered by ``ids``, else the in-tree
@@ -272,8 +333,11 @@ class ServingDecodeStep:
     @torch.no_grad()
     def _step(self, p: Params, k_pool, v_pool, tokens, positions,
               page_table, active, adapters=None, adapter_ids=None,
-              fp8=None):
+              fp8=None, legs=None):
         cfg, dtype, alpha = self.config, self.dtype, self.lora_alpha
+        self.check_shard(p)
+        legs = self.legs if legs is None else legs
+        hd = cfg.head_dim
         s = tokens.shape[0]
         emb = p["tok_embed"]
         x = emb[tokens].to(dtype)[:, None, :]               # [S, 1, d]
@@ -289,6 +353,16 @@ class ServingDecodeStep:
         def proj(h, w):
             return _dense(h, w[0], dtype, w[1], alpha)
 
+        def out_proj(x_in, w, leg):
+            # The row-parallel closures: a Sum over the tp set, its plan
+            # row noted once it ran.
+            if self.tp == 1:
+                return proj(x_in, w)
+            y = row_parallel(x_in.to(dtype), w[0].to(dtype),
+                             axis=self.process_set)
+            _spans.note_leg(legs[leg])
+            return y
+
         for li in range(cfg.num_layers):
             wq, wk, wv, wo, wg, wu, wd = self._weights(
                 p, li, adapters, ids, s)
@@ -296,9 +370,9 @@ class ServingDecodeStep:
             q = proj(h, wq)
             k = proj(h, wk)
             v = proj(h, wv)
-            q = q.view(s, 1, cfg.num_heads, cfg.head_dim).transpose(1, 2)
-            k = k.view(s, 1, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
-            v = v.view(s, 1, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+            q = q.view(s, 1, self.heads, hd).transpose(1, 2)
+            k = k.view(s, 1, self.kv_heads, hd).transpose(1, 2)
+            v = v.view(s, 1, self.kv_heads, hd).transpose(1, 2)
             q = rotary_embedding(q, pos2, cfg.rope_theta)
             k = rotary_embedding(k, pos2, cfg.rope_theta)
             # In-step cache write: each slot's K/V lands at (page, off).
@@ -315,13 +389,13 @@ class ServingDecodeStep:
                     page_table, lengths, kq[li], vq[li], ksc[li], vsc[li],
                     ctable, cmask)
             o = o.transpose(1, 2).reshape(s, 1, -1)
-            x = x + proj(o, wo)
+            x = x + out_proj(o, wo, 2 * li)
 
             h = rmsnorm(x, _layer(p, li, "mlp_norm.scale"), dtype)
             gate = proj(h, wg)
             up = proj(h, wu)
             act = (F.silu(gate) * up).to(dtype)
-            x = x + proj(act, wd)
+            x = x + out_proj(act, wd, 2 * li + 1)
 
         x = rmsnorm(x, p["final_norm.scale"], dtype)
         logits = tied_readout(x, emb)[:, 0, :]              # [S, vocab]
@@ -348,14 +422,18 @@ class ServingVerifyStep:
     never emits them.  Timed under ``serving_verify``.
     """
 
-    def __init__(self, step: ServingDecodeStep, width: int):
+    def __init__(self, step: ServingDecodeStep, width: int, plan=None,
+                 meta: Optional[dict] = None):
         self.step = step
         self.width = int(width)
         self.max_len = step.pages_per_slot * step.page_size
+        self.legs = tuple(plan.legs) if plan is not None else ()
+        self._meta = dict(meta or {})
 
     def __call__(self, params, k_pool, v_pool, tokens, positions,
                  page_table, active, *fp8):
         fp8, _, _ = self.step.split_extra(fp8)
+        n = 2 * self.step.config.num_layers
         logits = []
         with _spans.recorder().span("dispatch", name="serving",
                                     leg="serving_verify"):
@@ -365,40 +443,73 @@ class ServingVerifyStep:
                 out, k_pool, v_pool = self.step._step(
                     params, k_pool, v_pool, tokens[:, j],
                     torch.clamp(pos, max=self.max_len - 1), page_table,
-                    live, fp8=fp8)
+                    live, fp8=fp8, legs=self.legs[j * n:(j + 1) * n])
                 logits.append(out)
         return torch.stack(logits, 1), k_pool, v_pool
 
 
-def build_decode_step(config: LlamaConfig, *, slots: int, page_size: int,
-                      pages_per_slot: int, dtype=torch.float32,
-                      tp: int = 1, with_lora: bool = False, width: int = 1,
-                      compress: bool = False, lora_alpha: float = 16.0):
-    """The single-device decode step (:class:`ServingDecodeStep`), or at
-    ``width > 1`` the verify step (:class:`ServingVerifyStep`);
-    ``compress`` takes the e4m3 operands of a cache with fp8 cold pages.
-    ``tp > 1`` raises (ROADMAP item 1.12); so do LoRA banks with ``width
-    > 1``, as in the reference."""
-    if tp != 1:
+def build_decode_step(config: LlamaConfig, mesh=None, *, slots: int,
+                      page_size: int, pages_per_slot: int,
+                      dtype=torch.float32, with_lora: bool = False,
+                      lora_alpha: float = 16.0, tp_axis: str = TP_AXIS,
+                      width: int = 1, compress: bool = False):
+    """The decode step (:class:`ServingDecodeStep`), or at ``width > 1``
+    the verify step (:class:`ServingVerifyStep`), on one device
+    (``mesh=None``) or over ``mesh``'s ``tp_axis`` (a
+    :class:`~horovod_tpu_torch.parallel.mesh.RankMesh`; this rank's tp
+    set runs the row-parallel sums).  ``compress`` takes the e4m3
+    operands of a cache with fp8 cold pages.  As in the reference, LoRA
+    banks raise at ``tp > 1`` and at ``width > 1``, and every head count
+    and ``ffn_hidden`` must divide by tp."""
+    from ..controller import fusion as _fusion
+    from ..core.state import global_state
+    from .kvcache import dtype_name
+    cfg = config
+    if mesh is not None and tp_axis not in mesh.axis_names:
+        raise ValueError(f"mesh has no {tp_axis!r} axis: {mesh.axis_names}")
+    tp = 1 if mesh is None else int(mesh.shape[tp_axis])
+    for what, n in (("num_heads", cfg.num_heads),
+                    ("num_kv_heads", cfg.num_kv_heads),
+                    ("ffn_hidden", cfg.ffn_hidden)):
+        if n % tp:
+            raise ValueError(f"{what}={n} not divisible by tp={tp}")
+    if with_lora and tp > 1:
         raise NotImplementedError(
-            "tensor-parallel decode (tp > 1) is not ported yet: it needs "
-            "parallel/tp.py (ROADMAP item 1.12)")
+            "per-slot LoRA banks are tp=1 only (a row-parallel adapter "
+            "would need its own sum); shard requests, not adapters")
     if width < 1:
         raise ValueError(f"width must be >= 1, got {width}")
     if with_lora and width > 1:
         raise NotImplementedError(
             "speculative verify with per-slot LoRA banks is not wired; "
             "serve adapters with plain decode")
+    ps = None
+    if tp > 1 and bool((mesh.ranks == global_state().rank).any()):
+        ps = mesh.group(tp_axis)
+    kind = "serving_decode" if width == 1 else "serving_verify"
+    dt = dtype_name(dtype)
+    plan = _fusion.plan_exchange(
+        "serving", kind=kind, layers=cfg.num_layers, slots=slots,
+        width=width, d_model=cfg.d_model, dtype=dt, axis=tp_axis)
+    meta = {"kind": kind, "world": tp, "tp": tp,
+            "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+            "slots": int(slots), "dtype": dt, "lora": bool(with_lora),
+            "compress": bool(compress)}
     step = ServingDecodeStep(config, slots=slots, page_size=page_size,
                              pages_per_slot=pages_per_slot, dtype=dtype,
                              with_lora=with_lora, lora_alpha=lora_alpha,
-                             compress=compress)
-    return step if width == 1 else ServingVerifyStep(step, width)
+                             compress=compress, tp=tp, process_set=ps,
+                             plan=plan if width == 1 else None,
+                             meta=meta)
+    if width == 1:
+        return step
+    return ServingVerifyStep(step, width, plan=plan,
+                             meta=dict(meta, width=int(width)))
 
 
-def build_verify_step(config: LlamaConfig, *, slots: int, width: int,
-                      page_size: int, pages_per_slot: int,
-                      dtype=torch.float32, tp: int = 1,
+def build_verify_step(config: LlamaConfig, mesh=None, *, slots: int,
+                      width: int, page_size: int, pages_per_slot: int,
+                      dtype=torch.float32, tp_axis: str = TP_AXIS,
                       compress: bool = False) -> ServingVerifyStep:
     """The speculative-decoding verify step: one call scoring ``width``
     tokens a slot (the last sampled token plus ``width - 1`` drafter
@@ -409,9 +520,11 @@ def build_verify_step(config: LlamaConfig, *, slots: int, width: int,
         raise ValueError(
             f"verify step needs width >= 2 (got {width}); width 1 is "
             "plain decode -- use build_decode_step")
-    return build_decode_step(config, slots=slots, page_size=page_size,
+    return build_decode_step(config, mesh, slots=slots,
+                             page_size=page_size,
                              pages_per_slot=pages_per_slot, dtype=dtype,
-                             tp=tp, width=width, compress=compress)
+                             tp_axis=tp_axis, width=width,
+                             compress=compress)
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
@@ -436,5 +549,5 @@ def stack_adapters(param_dicts: Sequence[Params]) -> Params:
 
 
 __all__ = ["prefill_forward", "build_decode_step", "build_verify_step",
-           "ServingDecodeStep", "ServingVerifyStep", "greedy_sample",
-           "stack_adapters"]
+           "decode_param_specs", "ServingDecodeStep", "ServingVerifyStep",
+           "greedy_sample", "stack_adapters"]

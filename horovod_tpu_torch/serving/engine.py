@@ -1,11 +1,22 @@
 """Serving engine front-end: prefetch -> prefill -> continuous decode.
 
 Counterpart of ``horovod_tpu/serving/engine.py``.  One object owns the
-data plane on one device: the paged KV cache, the continuous-batching
-scheduler, prefill (flash forward kernel) and the decode step (paged
-decode kernel).  A producer thread stages each upcoming prompt onto the
-device while the engine is still decoding, so admission never waits on
-a host-to-device copy.
+data plane: the paged KV cache, the continuous-batching scheduler,
+prefill (flash forward kernel) and the decode step (paged decode
+kernel), on one device or over a tensor-parallel mesh (``mesh=``, a
+:class:`~horovod_tpu_torch.parallel.mesh.RankMesh` with a ``tp`` axis).
+A producer thread stages each upcoming prompt onto the device while the
+engine is still decoding, so admission never waits on a host-to-device
+copy.
+
+On a mesh each rank holds its kv heads of the pool
+(:func:`~.kvcache.cache_sharding`) and its shard of the decode params
+(:func:`~.decode.decode_param_specs`, cut once a mesh); the full param
+dict stays on every rank for prefill, which runs replicated as in the
+reference.  :meth:`ServingEngine.rebuild_mesh` moves the decode plane to
+another mesh (a fresh pool, the same scheduler).  At world > 1 the ranks
+run in lock-step (:mod:`.lockstep`): rank 0 reads the clock and every
+loop turn ends in one header from it.
 
 Knobs (constructor argument, else environment, as in the reference):
 
@@ -71,11 +82,15 @@ import torch
 
 from ..core.config import _env, _env_bool, _env_int
 from ..core.device import resolve_device
+from ..core.state import global_state
+from ..parallel.tp import shard_params
 from ..timeline import metrics as _metrics
 from ..timeline import spans as _spans
-from .decode import (build_decode_step, build_verify_step, greedy_sample,
-                     prefill_forward)
-from .kvcache import CacheConfig, PagedKVCache, PrefixCache
+from .decode import (TP_AXIS, build_decode_step, build_verify_step,
+                     decode_param_specs, greedy_sample, prefill_forward)
+from .kvcache import (CacheConfig, PagedKVCache, PrefixCache,
+                      cache_sharding)
+from .lockstep import LockStep
 from .scheduler import (ContinuousBatchScheduler, Request,
                         parse_tenant_classes)
 from .spec import NgramDrafter
@@ -192,11 +207,14 @@ def _pct(values: List[float], q: float) -> float:
 
 
 class ServingEngine:
-    """Continuous-batching inference over one Llama-family model on one
-    device.  ``params`` is the flat param dict
+    """Continuous-batching inference over one Llama-family model.
+    ``params`` is the flat param dict
     (:func:`~horovod_tpu_torch.models.init_llama_params` or
     :func:`~horovod_tpu_torch.models.params_from_jax`) already on
-    ``device``; ``device`` defaults to ``cuda``.  ``adapters``: banked
+    ``device``; ``device`` defaults to ``init()``'s on a mesh, else to
+    ``cuda``.  ``mesh``: ``None`` for one device, else a rank mesh whose
+    ``tp`` axis splits the decode step (every rank of the world builds
+    the engine and calls :meth:`serve`).  ``adapters``: banked
     LoRA leaves (:func:`~.decode.stack_adapters`) on ``device``, each
     request's ``Request.adapter_id`` choosing its adapter (the
     reference's ``adapter_ids=`` argument, which it never reads, is not
@@ -204,8 +222,8 @@ class ServingEngine:
     in-tree ``lora_a``/``lora_b`` leaves, in chunks too.  The other
     knobs: see the module docstring."""
 
-    def __init__(self, config, params, *, device=None, slots: int = 0,
-                 page_size: int = 0, max_len: int = 0,
+    def __init__(self, config, params, *, mesh=None, device=None,
+                 slots: int = 0, page_size: int = 0, max_len: int = 0,
                  dtype=torch.float32, adapters=None,
                  lora_alpha: float = 16.0, prefetch_depth: int = 0,
                  spec_decode: Optional[bool] = None, spec_k: int = 0,
@@ -213,6 +231,8 @@ class ServingEngine:
                  kv_compress: Optional[bool] = None,
                  prefix_cache: Optional[bool] = None,
                  session_ttl_steps: int = 0, tenants=None):
+        if device is None and mesh is not None:
+            device = global_state().device
         self.device = resolve_device(device)
         self.config = config
         self.params = params
@@ -265,7 +285,8 @@ class ServingEngine:
             max_len=self.max_len,
             dtype=str(dtype).replace("torch.", ""),
             compress=self.kv_compress)
-        self.cache = PagedKVCache(self.cache_config, self.device)
+        self.verify_step = None
+        self._place(mesh)
         # Admission prices the widest step a slot can take: k drafts +
         # the target's bonus token under speculation, else 1.
         budget = self.spec_k + 1 if self.spec_decode else 1
@@ -278,26 +299,81 @@ class ServingEngine:
         if self.prefix_cache:
             self._prefix = PrefixCache(
                 self.cache, session_ttl_steps=self.session_ttl_steps)
-        pps = self.cache_config.pages_per_slot
-        self.step = build_decode_step(
-            config, slots=self.slots, page_size=self.page_size,
-            pages_per_slot=pps, dtype=dtype,
-            with_lora=adapters is not None, lora_alpha=lora_alpha,
-            compress=self.kv_compress)
-        self.verify_step = None
         self.drafter = None
         if self.spec_decode:
-            self.verify_step = build_verify_step(
-                config, slots=self.slots, width=self.spec_k + 1,
-                page_size=self.page_size, pages_per_slot=pps, dtype=dtype,
-                compress=self.kv_compress)
             self.drafter = drafter if drafter is not None \
                 else NgramDrafter()
+        # Lock-step over the world (module docstring): one header a
+        # loop turn from rank 0.
+        self._ls: Optional[LockStep] = None
+        if mesh is not None and global_state().size > 1:
+            self._ls = LockStep(self.slots, budget)
         # In-progress chunked prefills: slot -> {req, dev, pos, start,
         # past}.  Their slots stay in state "prefill", out of the decode
         # batch, until the last chunk lands.
         self._chunking: Dict[int, Dict[str, Any]] = {}
         self._forwards = 0
+        # Slots whose nonfinite logits wait for the turn's header before
+        # their re-prefill (lock-step: every rank re-prefills together).
+        self._quarantined: List[tuple] = []
+
+    # -- the decode plane on a mesh -----------------------------------------
+    @property
+    def tp(self) -> int:
+        return 1 if self.mesh is None else int(self.mesh.shape[TP_AXIS])
+
+    def _place(self, mesh) -> None:
+        """Build the decode plane on ``mesh``: this rank's share of the
+        pool, its shard of the decode params (the full dict itself at tp
+        1) and the decode and verify steps."""
+        self.mesh = mesh
+        self.in_mesh = mesh is None or bool(
+            (mesh.ranks == global_state().rank).any())
+        self.mesh_root = 0 if mesh is None else int(mesh.ranks.min())
+        self.cache = PagedKVCache(
+            self.cache_config, self.device if mesh is None
+            else cache_sharding(mesh, TP_AXIS, self.device))
+        tp = self.tp
+        if tp == 1:
+            self.decode_params = self.params
+        elif self.in_mesh:
+            self.decode_params = shard_params(
+                self.params, decode_param_specs(self.params, TP_AXIS),
+                mesh.axis_index(TP_AXIS), tp)
+        else:
+            self.decode_params = None
+        kw = dict(slots=self.slots, page_size=self.page_size,
+                  pages_per_slot=self.cache_config.pages_per_slot,
+                  dtype=self.dtype, compress=self.kv_compress)
+        self.step = build_decode_step(
+            self.config, mesh, with_lora=self.adapters is not None,
+            lora_alpha=self.lora_alpha, **kw)
+        if self.spec_decode:
+            self.verify_step = build_verify_step(
+                self.config, mesh, width=self.spec_k + 1, **kw)
+
+    def rebuild_mesh(self, mesh) -> None:
+        """Move the decode plane onto another tp mesh.
+
+        The cache layout is mesh-size invariant (``CacheConfig.layout``),
+        so a resize is a fresh pool with the new kv-head split, the same
+        scheduler (the queue and the requests in flight survive), a
+        fresh prefix cache over the new pool, and rebuilt decode and
+        verify steps whose ``_meta`` records ``resized_from``.  Prefill
+        runs on the full params and carries over; suspended requests are
+        re-prefilled onto the new pool (:meth:`re_prefill`).  Every rank
+        of the world calls it, with the same mesh."""
+        old_tp = self.tp
+        self.cache = None
+        self.decode_params = None
+        self._place(mesh)
+        self.scheduler.cache = self.cache
+        if self._prefix is not None:
+            self._prefix = PrefixCache(
+                self.cache, session_ttl_steps=self.session_ttl_steps)
+        self.step._meta["resized_from"] = old_tp
+        if self.verify_step is not None:
+            self.verify_step._meta["resized_from"] = old_tp
 
     def _prefill(self, tokens, req: Request, past=None):
         """One prefill forward: the whole prompt with the request's
@@ -391,7 +467,7 @@ class ServingEngine:
         sampled and the request joins the decode batch; its full prompt
         pages go into the prefix tree and its session is pinned."""
         req.tokens.append(first)
-        self.scheduler.note_prefill(req, now())
+        self.note_first_token(slot, req, now)
         st["last_tokens"][slot] = first
         st["adapter_ids"][slot] = req.adapter_id
         if self._prefix is not None:
@@ -402,6 +478,20 @@ class ServingEngine:
             self.drafter.on_admit(slot, req)
         if req.finished:
             self._release(st, slot, now)
+
+    def note_first_token(self, slot: int, req: Request, now) -> None:
+        """A request's first token was sampled: it joins the decode
+        batch at ``now()`` (in lock-step, at rank 0's reading, which the
+        other ranks take from the turn's header)."""
+        ls = self._ls
+        if ls is None:
+            self.scheduler.note_prefill(req, now())
+            return
+        t = ls.stamp_first(slot)
+        self.scheduler.note_prefill(req, t)
+        if t is None:
+            ls.defer(lambda hdr: self.scheduler.note_first_token(
+                req, hdr["first"][slot]))
 
     def _release(self, st: Dict[str, Any], slot: int, now) -> None:
         if self.drafter is not None:
@@ -419,11 +509,86 @@ class ServingEngine:
         """A slot produced nonfinite logits: never stream a token sampled
         from them.  Rebuild its context from the request's own tokens and
         retry the same position next round."""
+        if self._ls is not None:
+            # In lock-step the re-prefill waits for the turn's header:
+            # the leader reaches this before it, the others after, and
+            # a re-prefill may sum over the tp set.
+            self._quarantined.append((st, slot, req))
+            return
+        self._reprefill_quarantined(st, slot, req)
+
+    def _reprefill_quarantined(self, st: Dict[str, Any], slot: int,
+                               req: Request) -> None:
         _metrics.registry().counter(
             "horovod_guard_serving_reprefills_total",
             "Decode rounds where a slot's nonfinite logits were "
             "quarantined by re-prefilling its context").inc()
         st["last_tokens"][slot] = self.re_prefill(slot, req)
+
+    def sync(self, tick: Optional[dict] = None) -> Optional[dict]:
+        """End a loop turn: in lock-step, the header exchange (rank 0's
+        clock, times, tokens, and ``tick``, the control plane's), then
+        the quarantined re-prefills; ``None`` on one rank."""
+        if self._ls is None:
+            return None
+        hdr = self._ls.exchange(tick)
+        quarantined, self._quarantined = self._quarantined, []
+        for args in quarantined:
+            self._reprefill_quarantined(*args)
+        return hdr
+
+    def _step_out(self, step, tokens, active, width: int,
+                  extra: tuple) -> tuple:
+        """Run ``step`` on this rank (a rank outside the mesh runs none)
+        and return ``(sampled, finite, step_s)``: the tokens from the
+        logits, the mesh's lowest rank's when rank 0 is outside the mesh
+        (lock-step).  ``step_s`` is the wall around both."""
+        cache = self.cache
+        sampled = finite = None
+        t0 = time.monotonic()
+        if self.in_mesh:
+            logits, cache.k, cache.v = step(
+                self.decode_params, cache.k, cache.v,
+                torch.tensor(tokens, device=self.device),
+                cache.lengths_device().long(), cache.table_device(),
+                torch.tensor(active, device=self.device), *extra)
+            sampled = greedy_sample(logits).cpu().numpy()  # sync point
+            # Per-slot screen: one reduced scalar a row (a sum propagates
+            # any NaN/Inf in the vocab axis), fetched with the sample.
+            red = (-1,) if width == 1 else (-2, -1)
+            finite = torch.isfinite(logits.sum(red)).cpu().numpy()
+        ls = self._ls
+        if ls is not None and not (self.mesh.ranks == 0).any():
+            shape = (self.slots,) if width == 1 else (self.slots, width)
+            sampled, finite = ls.tokens_from(self.mesh_root, sampled,
+                                             finite, shape)
+        return sampled, finite, time.monotonic() - t0
+
+    def _after_step(self, fn, sampled, finite, step_s, width: int) -> None:
+        """Handle a step's tokens: ``fn(sampled, finite, step_s)`` now on
+        one rank and on the lock-step leader (which sends them with the
+        header), else when the header arrives, with the leader's
+        ``step_s`` (and its tokens on a rank outside the mesh)."""
+        ls = self._ls
+        if ls is None:
+            fn(sampled, finite, step_s)
+            return
+        if ls.leader:
+            ls.note_step(step_s, sampled, finite)
+            fn(sampled, finite, step_s)
+            return
+        shape = (self.slots,) if width == 1 else (self.slots, width)
+
+        def later(hdr):
+            toks = hdr["tokens"][:int(np.prod(shape))].reshape(shape)
+            if sampled is not None and self.mesh_root == 0 and \
+                    not np.array_equal(toks, sampled):
+                raise RuntimeError(
+                    "lock-step: this rank's sampled tokens differ from "
+                    "rank 0's; the tp logits are not replicated")
+            fn(toks if sampled is None else sampled,
+               hdr["finite"] if finite is None else finite, hdr["step_s"])
+        ls.defer(later)
 
     # -- one decode round --------------------------------------------------
     def decode_once(self, st: Dict[str, Any], now) -> float:
@@ -436,37 +601,31 @@ class ServingEngine:
             cache.reserve(slot, length + 1, writable_from=length)
         active = np.zeros((self.slots,), bool)
         active[slots] = True
-        tokens = torch.tensor(st["last_tokens"], dtype=torch.long,
-                              device=self.device)
-        positions = cache.lengths_device().long()
         extra = cache.compress_operands() if self.kv_compress else ()
         if self.adapters is not None:
             extra += (self.adapters, torch.tensor(st["adapter_ids"],
                                                   device=self.device))
-        t0 = time.monotonic()
-        logits, cache.k, cache.v = self.step(
-            self.params, cache.k, cache.v, tokens, positions,
-            cache.table_device(),
-            torch.tensor(active, device=self.device), *extra)
-        sampled = greedy_sample(logits).cpu().numpy()  # sync point
-        # Per-slot screen: one reduced scalar per row (a sum propagates
-        # any NaN/Inf in the vocab axis), fetched with the sample.
-        finite = torch.isfinite(logits.sum(-1)).cpu().numpy()
-        step_s = time.monotonic() - t0
+        sampled, finite, step_s = self._step_out(
+            self.step, np.asarray(st["last_tokens"], np.int64), active, 1,
+            extra)
         st["decode_steps"] += 1
         st["occ_samples"].append(sched.occupancy)
-        for slot in slots:
-            req = sched.active[slot]
-            if not finite[slot]:
-                self._quarantine_logits(st, slot, req)
-                continue
-            tok = int(sampled[slot])
-            req.tokens.append(tok)
-            cache.lengths[slot] += 1
-            st["last_tokens"][slot] = tok
-            sched.note_decode_token(req, step_s)
-            if req.finished or int(cache.lengths[slot]) >= self.max_len:
-                self._release(st, slot, now)
+
+        def emit(sampled, finite, step_s):
+            for slot in slots:
+                req = sched.active[slot]
+                if not finite[slot]:
+                    self._quarantine_logits(st, slot, req)
+                    continue
+                tok = int(sampled[slot])
+                req.tokens.append(tok)
+                self.cache.lengths[slot] += 1
+                st["last_tokens"][slot] = tok
+                sched.note_decode_token(req, step_s)
+                if req.finished or \
+                        int(self.cache.lengths[slot]) >= self.max_len:
+                    self._release(st, slot, now)
+        self._after_step(emit, sampled, finite, step_s, 1)
         return step_s
 
     def spec_round(self, st: Dict[str, Any], now) -> float:
@@ -498,44 +657,41 @@ class ServingEngine:
         active = np.zeros((self.slots,), bool)
         active[slots] = True
         extra = cache.compress_operands() if self.kv_compress else ()
-        t0 = time.monotonic()
-        logits, cache.k, cache.v = self.verify_step(
-            self.params, cache.k, cache.v,
-            torch.tensor(tokens_in, device=self.device),
-            cache.lengths_device().long(), cache.table_device(),
-            torch.tensor(active, device=self.device), *extra)
-        sampled = greedy_sample(logits).cpu().numpy()   # [slots, width]
         # A nonfinite column anywhere in the window disqualifies the
         # slot's round (the agreeing-prefix walk would condition on it).
-        finite = torch.isfinite(logits.sum((-2, -1))).cpu().numpy()
-        step_s = time.monotonic() - t0
+        sampled, finite, step_s = self._step_out(
+            self.verify_step, tokens_in, active, width, extra)
         st["decode_steps"] += 1
         st["spec_rounds"] += 1
         st["occ_samples"].append(sched.occupancy)
-        for s in slots:
-            req = reqs[s]
-            if not finite[s]:
-                self._quarantine_logits(st, s, req)
-                continue
-            # Draft j survives iff every earlier draft did and it equals
-            # the target's argmax at its position.
-            m = 0
-            while m < k and drafts[s, m] == sampled[s, m]:
-                m += 1
-            emit = min(m + 1, req.max_new_tokens - len(req.tokens),
-                       self.max_len - base[s])
-            accepted = max(emit - 1, 0)
-            st["proposed"] += k
-            st["accepted"] += accepted
-            sched.note_spec(k, accepted)
-            for j in range(emit):
-                req.tokens.append(int(sampled[s, j]))
-                sched.note_decode_token(req, step_s / max(emit, 1))
-            cache.lengths[s] = base[s] + emit
-            st["last_tokens"][s] = req.tokens[-1]
-            self.drafter.observe(s, req, accepted)
-            if req.finished or int(cache.lengths[s]) >= self.max_len:
-                self._release(st, s, now)
+
+        def accept(sampled, finite, step_s):
+            for s in slots:
+                req = reqs[s]
+                if not finite[s]:
+                    self._quarantine_logits(st, s, req)
+                    continue
+                # Draft j survives iff every earlier draft did and it
+                # equals the target's argmax at its position.
+                m = 0
+                while m < k and drafts[s, m] == sampled[s, m]:
+                    m += 1
+                emit = min(m + 1, req.max_new_tokens - len(req.tokens),
+                           self.max_len - base[s])
+                accepted = max(emit - 1, 0)
+                st["proposed"] += k
+                st["accepted"] += accepted
+                sched.note_spec(k, accepted)
+                for j in range(emit):
+                    req.tokens.append(int(sampled[s, j]))
+                    sched.note_decode_token(req, step_s / max(emit, 1))
+                self.cache.lengths[s] = base[s] + emit
+                st["last_tokens"][s] = req.tokens[-1]
+                self.drafter.observe(s, req, accepted)
+                if req.finished or \
+                        int(self.cache.lengths[s]) >= self.max_len:
+                    self._release(st, s, now)
+        self._after_step(accept, sampled, finite, step_s, width)
         return step_s
 
     def re_prefill(self, slot: int, req: Request) -> int:
@@ -558,8 +714,16 @@ class ServingEngine:
     # -- the serve loop ----------------------------------------------------
     @torch.no_grad()
     def serve(self, requests: Sequence[Request]) -> ServingReport:
-        """Run the open-loop request stream to completion."""
+        """Run the open-loop request stream to completion.  At world > 1
+        every rank calls it with the same requests and returns the same
+        report (lock-step: rank 0's clock and times)."""
         sched = self.scheduler
+        ls = self._ls
+        if ls is not None and self.mesh.size != global_state().size:
+            raise ValueError(
+                f"serve() at world > 1 takes a mesh of every rank (it has "
+                f"{self.mesh.size} of {global_state().size}); the control "
+                f"plane keeps ranks outside its mesh in step")
         pending = sorted(requests, key=lambda r: r.arrival_s)
         rejected = 0
         admissible = []
@@ -576,6 +740,9 @@ class ServingEngine:
         def now() -> float:
             return time.monotonic() - start + skip
 
+        if ls is not None:
+            ls.reset()
+            now = ls.now
         st = self.new_state()
         completed: List[Request] = st["completed"]
         prompts_dev: Dict[int, Any] = {}
@@ -602,9 +769,15 @@ class ServingEngine:
                         break
                     # Idle: fast-forward the virtual clock to the next
                     # arrival instead of sleeping.
-                    gap = fetched[0].arrival_s - now()
-                    if gap > 0:
-                        skip += gap
+                    if ls is None:
+                        gap = fetched[0].arrival_s - now()
+                        if gap > 0:
+                            skip += gap
+                    elif ls.leader:
+                        gap = fetched[0].arrival_s - ls.fresh()
+                        if gap > 0:
+                            ls.skip += gap
+                    self.sync()
                     continue
 
                 for slot, req in sched.admit(now()):
@@ -612,16 +785,17 @@ class ServingEngine:
                                         prompts_dev.pop(req.rid), now)
                 if self._chunking:
                     self._advance_chunks(st, now)
-                if not self._decode_slots():
-                    continue
                 # One round over the decode batch: a k-draft verify when
                 # speculating, else one plain single-token step.
-                if self.spec_decode:
-                    self.spec_round(st, now)
-                else:
-                    self.decode_once(st, now)
+                if self._decode_slots():
+                    if self.spec_decode:
+                        self.spec_round(st, now)
+                    else:
+                        self.decode_once(st, now)
+                self.sync()
 
-        wall_s = max(time.monotonic() - start, 1e-9)
+        wall_s = max(time.monotonic() - start if ls is None else ls.wall,
+                     1e-9)
         new_tokens = sum(len(r.tokens) for r in completed)
         ttfts = [r.ttft_s for r in completed if r.ttft_s is not None]
         lats = [lat for r in completed for lat in r.token_latencies]

@@ -45,6 +45,20 @@ The pools are updated in place (the reference's functional
 ``.at[].set`` becomes indexed assignment; the e4m3 pools are written
 through a ``uint8`` view), which keeps one copy of the cache on the
 device.
+
+Tensor parallelism (:func:`cache_sharding`): a tp mesh splits the pool
+on its kv-head dim, as the reference's ``NamedSharding`` does, so a
+rank's pool pairs with its ``wk``/``wv`` shards.  Here each rank holds
+only its own ``num_kv_heads / tp`` heads (a :class:`CacheShard`); the
+host metadata, the layout and the reported sizes stay the whole pool's.
+:meth:`PagedKVCache.write_prefill` takes full-head K/V and keeps the
+rank's heads.  Two operations read a row across heads: the e4m3 scale
+of a (layer, page, offset) row is the max over every rank's heads (one
+``Max`` allreduce over the tp set before quantizing, so the codes equal
+the reference's on its global pool), and :meth:`PagedKVCache.
+gather_pages` returns full heads (each rank's heads summed into zeros
+over the set).  A rank outside the mesh (the control plane keeps such
+ranks in step) holds no heads and runs neither.
 """
 
 from __future__ import annotations
@@ -56,7 +70,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..collectives.compression import fp8_quantize
+from ..collectives.compression import fp8_absmax, fp8_quantize
 from ..core.device import resolve_device
 from ..timeline.metrics import registry as _registry
 
@@ -128,6 +142,48 @@ class CacheConfig:
         }
 
 
+@dataclasses.dataclass(frozen=True)
+class CacheShard:
+    """This rank's share of a page pool split on its kv-head dim over a
+    tp set: its ``device``, its ``index`` on the tp axis and the axis's
+    ``size``, whether the rank is a ``member`` of the mesh (a rank
+    outside it holds no heads), and the tp ``process_set`` (``None`` at
+    size 1 and outside the mesh)."""
+
+    device: torch.device
+    index: int = 0
+    size: int = 1
+    member: bool = True
+    process_set: object = None
+
+    def heads(self, num_kv_heads: int) -> Tuple[int, int]:
+        """``(first, count)`` of this rank's kv heads."""
+        if num_kv_heads % self.size:
+            raise ValueError(f"num_kv_heads={num_kv_heads} not divisible "
+                             f"by tp={self.size}")
+        n = num_kv_heads // self.size if self.member else 0
+        return self.index * n, n
+
+
+def cache_sharding(mesh, tp_axis: str = "tp", device=None):
+    """This rank's :class:`CacheShard` of a pool split over ``mesh``'s
+    ``tp_axis`` (the reference's ``NamedSharding(mesh, P(None, None,
+    None, tp_axis, None))``); ``None`` without a mesh.  ``device``
+    defaults to ``init()``'s."""
+    from ..core.state import global_state
+    if mesh is None:
+        return None
+    st = global_state()
+    if device is None:
+        device = st.device
+    member = bool((mesh.ranks == st.rank).any())
+    size = mesh.axis_size(tp_axis)
+    return CacheShard(
+        device=resolve_device(device), size=size, member=member,
+        index=mesh.axis_index(tp_axis) if member else 0,
+        process_set=mesh.group(tp_axis) if member and size > 1 else None)
+
+
 def _ids(ids, device) -> torch.Tensor:
     """Host page ids -> a long index tensor (always a copy)."""
     return torch.tensor(np.asarray(ids, np.int64), dtype=torch.long,
@@ -142,13 +198,22 @@ def _set_fp8(pool: torch.Tensor, idx: torch.Tensor, q) -> None:
 
 
 class PagedKVCache:
-    """Device page pool + host page table / free list for one model."""
+    """Device page pool + host page table / free list for one model.
 
-    def __init__(self, config: CacheConfig, device=None):
+    ``sharding``: a :class:`CacheShard` (:func:`cache_sharding`) for a
+    tp mesh, else the device of a whole pool (or ``device=``; ``None``:
+    ``cuda``)."""
+
+    def __init__(self, config: CacheConfig, sharding=None, *, device=None):
         self.config = c = config
-        self.device = resolve_device(device)
+        if not isinstance(sharding, CacheShard):
+            sharding = CacheShard(resolve_device(
+                device if sharding is None else sharding))
+        self.sharding = sharding
+        self.device = sharding.device
+        self.head0, self.local_heads = sharding.heads(c.num_kv_heads)
         shape = (c.num_layers, c.num_pages + 1, c.page_size,
-                 c.num_kv_heads, c.head_dim)
+                 self.local_heads, c.head_dim)
         dt = torch_dtype(c.dtype)
         self.k = torch.zeros(shape, dtype=dt, device=self.device)
         self.v = torch.zeros(shape, dtype=dt, device=self.device)
@@ -399,8 +464,8 @@ class PagedKVCache:
         pids = [int(self.page_table[slot, i]) for i in idxs]
         cpids = [self._cfree.pop() for _ in idxs]
         dev = _ids(pids, self.device)
-        kq, ksc = _quantize_pages(self.k, dev)
-        vq, vsc = _quantize_pages(self.v, dev)
+        kq, ksc = self._quantize(self.k, dev)
+        vq, vsc = self._quantize(self.v, dev)
         self._store_fp8(cpids, kq, vq, ksc, vsc)
         for i, cpid, pid in zip(idxs, cpids, pids):
             self.cpage_table[slot, i] = cpid
@@ -410,6 +475,17 @@ class PagedKVCache:
             self.drop_page_ref(pid)
         self._cheld[slot] += len(idxs)
         return len(idxs)
+
+    def _quantize(self, pool: torch.Tensor, pids: torch.Tensor):
+        """:func:`_quantize_pages` over the whole row: at tp > 1 each
+        row's max-abs is the ``Max`` over the tp set's heads."""
+        return _quantize_pages(pool, pids, self.sharding.process_set)
+
+    def _refuse_sharded(self, what: str) -> None:
+        if self.sharding.size > 1 or not self.sharding.member:
+            raise NotImplementedError(
+                f"{what} on a kv-head-sharded pool: a tp > 1 decode worker "
+                f"over the KV wire is not ported (ROADMAP section 1)")
 
     def free_slot(self, slot: int) -> None:
         """Refcount-decrement the slot's pages and mark it idle.  A
@@ -475,6 +551,7 @@ class PagedKVCache:
         own reference.  Written verbatim (a cast to the pool dtype at
         most), so an f32-tier import is bitwise a local
         ``write_prefill``."""
+        self._refuse_sharded("adopt_pages")
         n = int(k_pages.shape[1])
         if n == 0:
             return []
@@ -507,6 +584,7 @@ class PagedKVCache:
         bytes."""
         if not self.compress:
             raise RuntimeError("cache built without compress=True")
+        self._refuse_sharded("adopt_compressed_pages")
         n = int(kq.shape[1])
         if n == 0:
             return []
@@ -532,7 +610,11 @@ class PagedKVCache:
     def gather_pages(self, entries: Sequence[Tuple[str, int]]) -> tuple:
         """Page contents as chunked-prefill ``past``: ``(k, v)`` each
         ``[num_layers, 1, n * page_size, num_kv_heads, head_dim]``,
-        e4m3 pages dequantized through their scales."""
+        e4m3 pages dequantized through their scales; at tp > 1 every
+        rank of the set gets every head (collective over the set)."""
+        if not self.sharding.member:
+            raise RuntimeError("gather_pages on a rank outside the mesh: "
+                               "it holds no heads")
         c = self.config
         fp = _ids([pid if kind == "f" else c.scratch_page
                    for kind, pid in entries], self.device)
@@ -548,8 +630,24 @@ class PagedKVCache:
                 view = torch.where(cmask[None, :, None, None, None],
                                    self.dequantized(name, cp), view)
             l, n, ps, hh, dd = view.shape
-            out.append(view.reshape(l, n * ps, hh, dd)[:, None])
+            out.append(self._all_heads(
+                view.reshape(l, n * ps, hh, dd)[:, None]))
         return tuple(out)
+
+    def _all_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (this rank's heads on dim -2) with every head of the tp
+        set: each rank's block summed into zeros (exact; gloo runs only
+        allreduce and broadcast on CUDA tensors)."""
+        ps = self.sharding.process_set
+        if ps is None:
+            return x
+        from ..collectives.ops import exchange_allreduce_async_
+        from ..collectives.reduce_op import Sum
+        shape = list(x.shape)
+        shape[-2] = self.config.num_kv_heads
+        full = x.new_zeros(shape)
+        full[..., self.head0:self.head0 + self.local_heads, :] = x
+        return exchange_allreduce_async_(full, Sum, process_set=ps).wait()
 
     def demote_page(self, pid: int) -> int:
         """Quantize one tree-held page into the e4m3 pool and return the
@@ -561,8 +659,8 @@ class PagedKVCache:
             raise RuntimeError("e4m3 pool exhausted")
         cpid = int(self._cfree.pop())
         dev = _ids([pid], self.device)
-        kq, ksc = _quantize_pages(self.k, dev)
-        vq, vsc = _quantize_pages(self.v, dev)
+        kq, ksc = self._quantize(self.k, dev)
+        vq, vsc = self._quantize(self.v, dev)
         self._store_fp8([cpid], kq, vq, ksc, vsc)
         self._crefcount[cpid] = 1
         return cpid
@@ -573,12 +671,16 @@ class PagedKVCache:
         """Scatter a prefilled prompt's K/V into the slot's pages.
 
         ``k_layers``/``v_layers``: ``[num_layers, t, num_kv_heads,
-        head_dim]`` post-RoPE.  Reserves pages for ``start + t`` tokens
-        through the copy-on-write guard and sets ``lengths[slot] = start
-        + t``.  ``start`` is where a matched or imported prefix ends:
-        only the tail is written."""
+        head_dim]`` post-RoPE (every head: a rank of a tp mesh keeps its
+        own).  Reserves pages for ``start + t`` tokens through the
+        copy-on-write guard and sets ``lengths[slot] = start + t``.
+        ``start`` is where a matched or imported prefix ends: only the
+        tail is written."""
         c = self.config
         t = int(k_layers.shape[1])
+        if self.local_heads != c.num_kv_heads:
+            hs = slice(self.head0, self.head0 + self.local_heads)
+            k_layers, v_layers = k_layers[..., hs, :], v_layers[..., hs, :]
         self.reserve(slot, start + t, writable_from=start)
         pos = np.arange(start, start + t)
         pages = _ids(self.page_table[slot][pos // c.page_size],
@@ -889,16 +991,27 @@ class PrefixCache:
                 self._drop(nd)
 
 
-def _quantize_pages(pool: torch.Tensor, pids: torch.Tensor):
+def _quantize_pages(pool: torch.Tensor, pids: torch.Tensor,
+                    process_set=None):
     """e4m3-quantize pages ``pids`` of one pool: one max-abs scale per
     (layer, page, offset) row over its ``kv_heads * head_dim`` values --
     the reference's reshape and axis -- so a never-written row comes
-    back as exact zeros with scale 1.  Returns ``(q [L, n, page, H, D]
-    e4m3, scales [L, n, page] f32)``."""
+    back as exact zeros with scale 1.  ``process_set``: the tp set whose
+    ranks hold the row's other heads; the row's max-abs is the ``Max``
+    over it (one allreduce of ``L * n * page`` f32).  Returns ``(q [L,
+    n, page, H, D] e4m3, scales [L, n, page] f32)``."""
     x = pool[:, pids]
     l, n, pg, hh, dd = x.shape
-    q, s = fp8_quantize(x.reshape(l * n * pg, hh * dd), axis=0)
+    rows = x.reshape(l * n * pg, hh * dd)
+    absmax = None
+    if process_set is not None:
+        from ..collectives.ops import exchange_allreduce_async_
+        from ..collectives.reduce_op import Max
+        absmax = exchange_allreduce_async_(
+            fp8_absmax(rows, axis=0), Max, process_set=process_set).wait()
+    q, s = fp8_quantize(rows, axis=0, absmax=absmax)
     return q.reshape(l, n, pg, hh, dd), s.reshape(l, n, pg)
 
 
-__all__ = ["CacheConfig", "PagedKVCache", "PrefixCache", "torch_dtype"]
+__all__ = ["CacheConfig", "CacheShard", "PagedKVCache", "PrefixCache",
+           "cache_sharding", "torch_dtype"]

@@ -1,10 +1,10 @@
 """Hysteresis/cooldown scale policy for the serving control plane.
 
 Counterpart of ``horovod_tpu/serving/policy.py``, whole: plain numbers,
-no mesh.  On one card the tp ladder is ``[1]``; the per-engine control
-plane that moves along it (``ServingControlPlane``) waits for ROADMAP
-item 1.12, and :class:`FleetPolicy` drives the fleet scaler
-(:class:`~.controlplane.FleetScaler`).
+no mesh.  :class:`ScalePolicy` moves the per-engine control plane
+(:class:`~.controlplane.ServingControlPlane`) along the tp ladder of its
+ranks (``valid_tp_sizes``), and :class:`FleetPolicy` drives the fleet
+scaler (:class:`~.controlplane.FleetScaler`).
 
 The policy is the *brain* of the serving control plane: it
 looks at one :class:`SLOSample` at a time (queue depth, windowed TTFT

@@ -317,20 +317,28 @@ class ContinuousBatchScheduler:
         self._m_requests.labels(event="handoff").inc()
         self._update_gauges()
 
-    def note_prefill(self, req: Request, now_s: float) -> None:
+    def note_prefill(self, req: Request, now_s: Optional[float]) -> None:
         """prefill done: the prompt's KV is resident and the first token
-        sampled -- the request joins the decode batch."""
+        sampled -- the request joins the decode batch.  ``now_s=None``:
+        the time comes later, through :meth:`note_first_token` (a
+        lock-step rank other than 0 learns rank 0's at the turn's
+        end)."""
         req.state = "decode"
-        req.first_token_s = now_s
         self._m_tokens.labels(phase="prefill").inc(req.prompt_len)
         self._m_tokens.labels(phase="decode").inc()  # the sampled token
-        self._m_ttft.observe(max(now_s - req.arrival_s, 0.0))
-        self._m_ttft_tenant.labels(tenant=req.tenant).observe(
-            max(now_s - req.arrival_s, 0.0))
+        if now_s is not None:
+            self.note_first_token(req, now_s)
         # The handoff -> decode transition must surface immediately:
         # the router/control plane count handoff slots as
         # not-yet-decodable capacity.
         self._update_gauges()
+
+    def note_first_token(self, req: Request, now_s: float) -> None:
+        """The request's first token at ``now_s``: its TTFT."""
+        req.first_token_s = now_s
+        self._m_ttft.observe(max(now_s - req.arrival_s, 0.0))
+        self._m_ttft_tenant.labels(tenant=req.tenant).observe(
+            max(now_s - req.arrival_s, 0.0))
 
     def note_decode_token(self, req: Request, latency_s: float) -> None:
         self._m_tokens.labels(phase="decode").inc()

@@ -591,6 +591,43 @@ def test_cuda_fp8_decode_bitwise_plain_kernel_on_dequantised_pool(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,h_kv", [(16, 4), (8, 2)])
+def test_cuda_decode_kernels_at_tp_local_heads(cuda, h, h_kv):
+    """Rows 2 and 2b at the heads a rank of Llama-3 8B's tensor-parallel
+    decode step holds (tp 2: 16 query over 4 kv heads; tp 4: 8 over 2),
+    8 slots x 2048 keys of 4096, bf16, page 16: each within the decode
+    tolerance of its plain version, the e4m3 variant (every other full
+    page compressed) bitwise the plain kernel on the dequantised pool."""
+    rng = np.random.RandomState(31)
+    ps, pps, slots, d = 16, 256, 8, 128
+    lens = [2048] * slots
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    table = torch.from_numpy(rng.permutation(slots * pps).astype(np.int32)
+                             ).view(slots, pps).to(cuda)
+    kp, vp = _decode_pool(rng, lens, table, ps, h_kv, d, torch.bfloat16,
+                          cuda)
+    q = _randn(rng, slots, h, 1, d).to(cuda, torch.bfloat16)
+    registry.reset_launch_counts()
+    got = tattn.paged_decode_attention(q, kp, vp, table, lengths)
+    assert registry.launches("flash_decode") == 1
+    want = tattn.paged_decode_attention(q, kp, vp, table, lengths,
+                                        force_reference=True)
+    assert (got.float() - want.float()).abs().max().item() <= \
+        _tol(want, torch.bfloat16)
+    fp8, read_table, deq_k, deq_v = _fp8_pages(rng, kp, vp, table, lens,
+                                               ps, cuda)
+    got8 = tattn.paged_decode_attention_fp8(q, kp, vp, read_table, lengths,
+                                            *fp8)
+    assert registry.launches("flash_decode_fp8") == 1
+    assert torch.equal(got8, tattn.paged_decode_attention(
+        q, deq_k, deq_v, table, lengths))
+    want8 = tattn.paged_decode_attention_fp8(q, kp, vp, read_table, lengths,
+                                             *fp8, force_reference=True)
+    assert (got8.float() - want8.float()).abs().max().item() <= \
+        _tol(want8, torch.bfloat16)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", [128, 64])
 def test_cuda_fp8_decode_keeps_its_twins_ctas_per_sm(cuda, dtype, d):

@@ -279,5 +279,23 @@ def test_long_context_runs_at_world_two(tmp_path, mode, extra):
     assert "PARITY OK" in log and f"mode={mode}, seq=64, sp=2" in log
 
 
+def test_autoscale_probe_runs_at_world_four(tmp_path):
+    """``autoscale_probe`` through the launcher at ``-np 4 --cpu``: the
+    control plane over four gloo ranks under ``kill@`` and ``slow@``,
+    every ``horovod_ctl_*`` family on rank 0's ``/metrics`` endpoint
+    against the drill report, every rank's report equal."""
+    env = {k: v for k, v in os.environ.items() if k not in _LAUNCHER_ENV}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "4", "--cpu",
+         sys.executable, "-m", "horovod_tpu_torch.examples.autoscale_probe",
+         "--device", "cpu"], env=env, cwd=str(tmp_path),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stdout
+    assert "autoscale probe OK (mesh 4 -> 2" in out.stdout, out.stdout
+    assert "dead [3], evicted [1]" in out.stdout, out.stdout
+
+
 if __name__ == "__main__":
     _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])

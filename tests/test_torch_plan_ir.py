@@ -191,7 +191,7 @@ def test_hier_front_end_and_refusals_match_jax():
         == list(tfusion.plan_exchange("hier", size=300, dtype="bfloat16",
                                       n_dcn=2, n_ici=2).legs)
     with pytest.raises(ValueError, match="unknown exchange-plan family"):
-        tfusion.plan_exchange("serving", layers=1)
+        tfusion.plan_exchange("no_such_family", layers=1)
 
 
 def test_plan_exchange_memoizes_one_object_per_spec(monkeypatch):

@@ -11,6 +11,7 @@ import ast
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -240,12 +241,13 @@ def test_decode_step_and_pools_match_jax(serve_params):
 
 
 def test_decode_step_refuses_later_slices():
-    # LoRA banks, the verify width and fp8 pages are ported; tp > 1
-    # (item 1.12) and banks at width > 1 (refused by the reference too)
-    # still raise.
-    for kw in (dict(tp=2), dict(with_lora=True, width=3)):
+    # LoRA banks, the verify width, fp8 pages and tp > 1 are ported; LoRA
+    # banks at tp > 1 and banks at width > 1 raise, as in the reference.
+    tp2 = SimpleNamespace(axis_names=("tp",), shape={"tp": 2})
+    for mesh, kw in ((tp2, dict(with_lora=True)),
+                     (None, dict(with_lora=True, width=3))):
         with pytest.raises(NotImplementedError):
-            build_decode_step(LLAMA_SERVE, slots=2, page_size=4,
+            build_decode_step(LLAMA_SERVE, mesh, slots=2, page_size=4,
                               pages_per_slot=2, **kw)
     with pytest.raises(ValueError, match="width"):
         build_decode_step(LLAMA_SERVE, slots=2, page_size=4,

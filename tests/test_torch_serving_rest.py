@@ -764,8 +764,30 @@ def test_engine_knobs_from_env(params, monkeypatch):
     assert eng._prefix is None and eng.session_ttl_steps == 512
 
 
-def test_tp_and_control_plane_refuse_naming_item_1_12():
-    with pytest.raises(NotImplementedError, match="1.12"):
-        build_decode_step(CFG, slots=2, page_size=4, pages_per_slot=2, tp=2)
-    with pytest.raises(NotImplementedError, match="1.12"):
-        ServingControlPlane()
+def test_tp_and_control_plane_refuse_naming_item_1_12(params):
+    # At world 1: the plane builds over the ladder [1], and the step on a
+    # tp 1 mesh is bitwise the mesh=None step.
+    import horovod_tpu_torch as thvd
+    from horovod_tpu_torch.parallel import build_parallel_mesh
+    jp, tp = params
+    thvd.init(device="cpu")
+    try:
+        plane = ServingControlPlane(CFG, tp, device="cpu", slots=2,
+                                    page_size=8, max_len=64)
+        assert plane.policy.valid_sizes == [1] and plane.mesh_ranks == [0]
+        assert plane.engine.tp == 1 and plane.engine.decode_params is tp
+        assert plane.engine._ls is None
+        mesh = build_parallel_mesh(tp=1)
+    finally:
+        thvd.shutdown()
+    _, tc, tok, active = _compressed_step_case(jp, tp)
+    args = (_t(tok).long(), tc.lengths_device().long(), tc.table_device(),
+            _t(active), *tc.compress_operands())
+    outs = []
+    for m in (None, mesh):
+        step = build_decode_step(CFG, m, slots=2, page_size=4,
+                                 pages_per_slot=8, compress=True)
+        assert step._meta["tp"] == 1 and step.process_set is None
+        outs.append(step(tp, tc.k.clone(), tc.v.clone(), *args))
+    for a, b in zip(*outs):
+        assert _bits(a) == _bits(b)
