@@ -390,6 +390,41 @@ Phases, each printing its own line; any failure exits non-zero:
    and the ``horovod_ctl_*`` families against the report
    (``examples.autoscale_probe.check_ctl_metrics``).  Phase 3 holds rows
    2 and 2b at the tp-local heads (16/4 and 8/2, ``check_decode_tp``).
+30. item_1_12_rest -- (a) the disaggregated fleet with a tp 2 decode
+   worker: this script run twice with ``--tp-worker fleet_tp`` on
+   ``cuda:0`` over gloo, Llama-3 8B (full width and depth, bf16, seed 0)
+   on phase 4's load, one prefill worker on rank 0 (the leader) and one
+   ``ServingEngine(mesh=build_parallel_mesh(tp=2))`` over both ranks, a
+   loopback ``RendezvousServer`` started here.  The f32 wire: every
+   request completes, no page left on either rank, both ranks' streams
+   and fleet reports equal, every stream equal to the colocated tp 2
+   engine's (phase 29 (b)'s) on the same load, 8 handoffs streamed,
+   ``kv_bytes_in == kv_bytes_out``.  The fp8 wire (``kv_compress``
+   pools): every import's e4m3 shard and scales bitwise the rank's heads
+   of the encoder's quantisation, and the streams equal a colocated tp 2
+   ``kv_compress`` engine's that moves every full prompt page to the
+   e4m3 pool as its request joins (it reads the same e4m3 pages); the
+   first decode logits against the f32 wire's are logged.  A dead
+   prefill worker (killed at the ``FLEET_TP_KILL_AFTER``-th import, on
+   both ranks): the rest fall back to local prefill, nothing lost or
+   leaked, the streams the f32 run's.  Launches on both ranks: 32 flash
+   a prefill (the leader's, and the local ones), 32 decode (or e4m3
+   decode) launches a step.  (b) The two-level DP leg: this script run
+   four times with ``--tp-worker parallel_3d_dcn`` under
+   ``HOROVOD_HIERARCHICAL_ALLREDUCE=1``, BERT-Large (phase 12's cell,
+   ``DCN_LAYERS`` deep, bf16, AdamW) through ``make_train_step`` on
+   ``build_3d_mesh(data=2, dcn_size=2)``: a warm-up and a timed step,
+   one step under ``ici:none,dcn:fp16``, each held against the 3-D step
+   at world 1 here (phase 28 (a)'s, 64 x 128 tokens) -- the loss within
+   1e-2 and each parameter's update within ``BF16_TOL`` or twice the
+   world-1 step's own bf16-vs-f32 update distance (L2, relative to the
+   reference update) -- and the bytes by leg equal to
+   ``plan_hier_legs(n_dcn=2, n_ici=2)`` of the step's buckets; the fault
+   (rank 0 joins the DCN allreduce but keeps its partial shard) must
+   fail that gate; on ``build_3d_mesh(model=2, dcn_size=2)`` one ZeRO-1
+   step (its arena from ``zero_init(param_specs=)``) against the same
+   mesh without ZeRO, within the gate.  ``DCN_LAYERS`` flash forward, dq
+   and dk/dv launches a step a rank; (b) within ``DCN_TIMEOUT``.
 
 Phase 17 also holds ``chunked_allreduce`` (equal to ``allreduce`` at
 world 1) and ``fp8_allreduce`` (bitwise its round trip) on its 64 MiB
@@ -5603,7 +5638,7 @@ def _bert_tp_model(cfg, dev, params, specs, mesh, tp: int):
     return BertTP(cfg, local, PAR_DTYPE, axis="model")
 
 
-def _bert_tp_step(model, specs, mesh, tp: int):
+def _bert_tp_step(model, specs, mesh, tp: int, **kw):
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.parallel import data_axes
     from horovod_tpu_torch.training import (bert_pretrain_loss,
@@ -5614,7 +5649,7 @@ def _bert_tp_step(model, specs, mesh, tp: int):
         named_parameters=named, compression=hvd.Compression.none,
         process_set=mesh.group(data_axes(mesh)))
     return make_train_step(model, bert_pretrain_loss, opt, tp=tp,
-                           param_specs=specs)
+                           param_specs=specs, **kw)
 
 
 def _grad_errs(got: dict, want: dict) -> dict:
@@ -5759,11 +5794,13 @@ def tp_worker(rank: int, world: int, store: str, out: str) -> int:
 
 def _par_tp_world(here: str, tmp: str, job: str = "parallel_3d",
                   world: int = PAR_TP,
-                  timeout: float = PAR_WORKER_TIMEOUT) -> list:
+                  timeout: float = PAR_WORKER_TIMEOUT,
+                  env: dict = None) -> list:
     """``world`` worker processes of ``TP_JOBS[job]`` (``--tp-worker
-    <job>``): phase 28 (b) or phase 29.  Returns each rank's record."""
+    <job>``): phase 28 (b), 29 or 30, ``env`` added to their environment.
+    Returns each rank's record."""
     store = os.path.join(tmp, "store")
-    env = dict(os.environ, PYTHONPATH=here)
+    env = dict(os.environ, PYTHONPATH=here, **(env or {}))
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
               "MASTER_PORT"):
         env.pop(k, None)
@@ -6391,7 +6428,610 @@ def serving_tp_worker(rank: int, world: int, store: str, out: str) -> int:
     return 0
 
 
-TP_JOBS = {"parallel_3d": tp_worker, "serving_tp": serving_tp_worker}
+# ---------------------------------------------------------------------------
+# Phase 30: item 1.12's rest -- a tp 2 decode worker in the fleet, and the
+# two-level DP leg of the 3-D step
+# ---------------------------------------------------------------------------
+
+
+FLEET_TP = 2                   # (a): the decode worker's ranks on the card
+FLEET_TP_KILL_AFTER = 3        # (a): handoffs published before the kill
+FLEET_TP_TIMEOUT = 420
+FLEET_TP_PAGE = 16
+DCN_WORLD = 4                  # (b): dcn 2 x data 2 (and dcn 2 x model 2)
+DCN_LAYERS = 24                # (b): BERT-Large's depth, uncut
+DCN_TIMEOUT = 300              # (b): its time budget, workers included
+DCN_CODEC = "ici:none,dcn:fp16"
+DCN_HIER_LEGS = ("hier/ici_rs", "hier/dcn_ar", "hier/ici_ag")
+
+
+def _first_logits(eng, store: dict):
+    """Wrap ``eng``'s decode step: the logits row of every slot taking
+    its first decode step (one token so far), by request id, on the
+    CPU in f32."""
+    step = eng.step
+
+    def spy(*args):
+        out = step(*args)
+        active = args[6]
+        for slot, req in eng.scheduler.active.items():
+            if bool(active[slot]) and len(req.tokens) == 1 and \
+                    req.rid not in store:
+                store[req.rid] = out[0][slot].float().cpu()
+        return out
+    spy._meta = step._meta
+    eng.step = spy
+
+
+def fleet_tp_worker(rank: int, world: int, store: str, out: str) -> int:
+    """One rank of phase 30 (a): Llama-3 8B at full width and depth on
+    ``cuda:0`` over gloo; rank 0 is the fleet's leader and runs its
+    prefill worker, every rank the tp 2 decode worker's shard."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import LLAMA3_8B, init_llama_params
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.parallel import build_parallel_mesh
+    from horovod_tpu_torch.run.http_kv import KVClient
+    from horovod_tpu_torch.serving import (DecodeWorker, LoadSpec,
+                                           PrefillWorker, ServingEngine,
+                                           ServingFleet, generate)
+    from horovod_tpu_torch.serving import fleet as fleet_mod
+    hvd.init(device=PAR_WORKER_DEVICE)
+    dev = torch.device(PAR_WORKER_DEVICE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg, bf16 = LLAMA3_8B, torch.bfloat16
+    mesh = build_parallel_mesh(tp=world)
+    params = init_llama_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), dtype=bf16, device=dev)
+    kv = KVClient("127.0.0.1", int(os.environ["FLEET_TP_KV_PORT"]),
+                  os.environ["FLEET_TP_KV_SECRET"])
+    res = {"backend": dist.get_backend()}
+
+    def engine(**kw):
+        eng = ServingEngine(cfg, params, mesh=mesh, device=dev, dtype=bf16,
+                            **SERVE_GEOM, **kw)
+        _warm(eng)
+        return eng
+
+    def load():
+        return generate(LoadSpec(vocab_size=cfg.vocab_size, **SERVE_LOAD))
+
+    # The colocated tp 2 engine on the same load (phase 29 (b)'s).
+    eng = engine()
+    reqs = load()
+    rep = eng.serve(reqs)
+    res["colocated"] = {"streams": _streams(reqs),
+                        "tokens_per_s": rep.tokens_per_s,
+                        "ttft_p50_s": rep.ttft_p50_s,
+                        "wall_s": rep.wall_s}
+    del eng
+    free_device()
+    # The same engine with kv_compress, every full prompt page moved to
+    # the e4m3 pool as the request joins the decode batch: it reads the
+    # e4m3 pages an fp8-wire import lands (demote_page is bitwise the
+    # wire's quantisation), so the fp8 fleet's streams must equal its.
+    eng = engine(kv_compress=True)
+    eng.cache.config = dataclasses.replace(eng.cache.config, hot_pages=0)
+    join = eng._join_decode
+
+    def join_cold(st, slot, req, first, now):
+        eng.cache.compress_cold(slot)
+        join(st, slot, req, first, now)
+    eng._join_decode = join_cold
+    reqs = load()
+    eng.serve(reqs)
+    res["colocated_fp8"] = _streams(reqs)
+    del eng, join
+    free_device()
+
+    # The fp8 wire's imports, each held against the encoder's
+    # quantisation: this rank's heads of kq / vq, the row scales whole.
+    shard_checks = []
+    imp = fleet_mod.import_pages
+
+    def checked_import(cache, slot, wp):
+        n = imp(cache, slot, wp)
+        if wp.kq is not None and wp.full_pages:
+            cp = [int(cache.cpage_table[slot, i])
+                  for i in range(wp.full_pages)]
+            hs = slice(cache.head0, cache.head0 + cache.local_heads)
+            u8 = torch.uint8
+            shard_checks.append(all(
+                torch.equal(getattr(cache, q)[:, cp].view(u8).cpu(),
+                            getattr(wp, q)[..., hs, :].contiguous()
+                            .view(u8))
+                for q in ("kq", "vq")) and all(
+                torch.equal(getattr(cache, s)[:, cp].cpu(), getattr(wp, s))
+                for s in ("kscale", "vscale")))
+        return n
+    fleet_mod.import_pages = checked_import
+
+    def run(tier: str, kill: bool = False) -> dict:
+        dec = engine(kv_compress=(tier == "fp8"))
+        logits: dict = {}
+        _first_logits(dec, logits)
+        fleet = ServingFleet(
+            [PrefillWorker("p0", cfg, params, kv, page_size=FLEET_TP_PAGE,
+                           dtype=bf16, tier=tier, device=dev)],
+            [DecodeWorker("decode0", dec, kv)], kv)
+        if kill:
+            # The prefill worker dies once FLEET_TP_KILL_AFTER handoffs
+            # are published: at the import of that one, on every rank.
+            worker = fleet.decode["decode0"]
+            complete = worker.complete_handoff
+            seen = [0]
+
+            def complete_or_die(slot, req, ticket, now, delete=True):
+                seen[0] += 1
+                if seen[0] == FLEET_TP_KILL_AFTER:
+                    fleet.kill_prefill("p0")
+                    return None
+                return complete(slot, req, ticket, now, delete=delete)
+            worker.complete_handoff = complete_or_die
+        reqs = load()
+        torch.cuda.synchronize()
+        registry.reset_launch_counts()
+        t1 = time.perf_counter()
+        rep = fleet.serve(reqs)
+        torch.cuda.synchronize()
+        rec = {"report": rep.as_dict(), "launches": registry.launch_counts(),
+               "seconds": time.perf_counter() - t1,
+               "streams": _streams(reqs), "headers": fleet._ls.headers,
+               "pages": dec.cache.allocated_pages,
+               "balanced": dec.cache.refcounts_balanced(),
+               "alive": fleet.prefill_workers[0].alive,
+               "prefills": fleet.prefill_workers[0].prefills}
+        return rec, logits
+
+    res["f32"], f32_logits = run("f32")
+    free_device()
+    res["fp8"], fp8_logits = run("fp8")
+    res["fp8"]["shard_checks"] = shard_checks
+    res["fp8"]["full_page_requests"] = sum(
+        r.prompt_len >= FLEET_TP_PAGE for r in load())
+    if rank == 0:
+        res["fp8"]["first_logits_rel_err"] = {
+            rid: ((fp8_logits[rid] - f32_logits[rid]).abs().max()
+                  / f32_logits[rid].abs().max()).item()
+            for rid in f32_logits if rid in fp8_logits}
+    del f32_logits, fp8_logits
+    free_device()
+    res["dead"], _ = run("f32", kill=True)
+    fleet_mod.import_pages = imp
+    res["seconds"] = time.perf_counter() - t0
+    res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    torch.save(res, out)
+    hvd.shutdown()
+    dist.destroy_process_group()
+    return 0
+
+
+def _update_errs(got: dict, ref: dict, p0: dict) -> dict:
+    """``{leaf: ||got - ref|| / ||ref - p0||}``: the distance of a run's
+    parameter update from the reference update, over the reference
+    update's size (AdamW moves a leaf by about ``lr`` an element whatever
+    its gradient, so a max-abs distance saturates; the L2 one counts how
+    much of the update moved)."""
+    out = {}
+    for n, r in ref.items():
+        dev = p0[n].device
+        r = r.to(dev).float()
+        den = (r - p0[n].float()).norm().item()
+        out[n] = (got[n].to(dev).float() - r).norm().item() / max(den,
+                                                                  1e-30)
+    return out
+
+
+def _update_gate(errs: dict, floor: dict) -> dict:
+    """Phase 28's bf16 gate on the updates: each leaf within ``BF16_TOL``
+    or ``PAR_BF16_FLOOR_FACTOR`` times the world-1 step's own bf16-vs-f32
+    distance (``floor``), whichever is larger."""
+    gate = {n: max(BF16_TOL, PAR_BF16_FLOOR_FACTOR * floor[n]) for n in errs}
+    margin = min((gate[n] / max(v, 1e-30), n) for n, v in errs.items())
+    worst = max((v, n) for n, v in errs.items())
+    return {"worst_update_rel_err": worst[0], "worst_leaf": worst[1],
+            "margin": margin[0], "margin_leaf": margin[1],
+            "leaves_over_gate": sum(v > gate[n] for n, v in errs.items()),
+            "ok": margin[0] >= 1.0}
+
+
+def dcn_worker(rank: int, world: int, store: str, out: str) -> int:
+    """One rank of phase 30 (b): BERT-Large through ``make_train_step`` on
+    ``build_3d_mesh(dcn_size=2, data=2)`` and ``(dcn_size=2, model=2)``
+    over gloo on ``cuda:0``, ``HOROVOD_HIERARCHICAL_ALLREDUCE=1`` (in the
+    environment).  Rank 0 holds each run's parameters against the
+    world-1 reference the parent saved."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.collectives import ops as c_ops
+    from horovod_tpu_torch.controller.fusion import plan_hier_legs
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.models import BERT_LARGE, init_bert_params
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.parallel import (build_3d_mesh, data_axes,
+                                            gather_tp_params, tp_param_specs)
+    from horovod_tpu_torch.timeline.metrics import exchange_totals
+    from horovod_tpu_torch.training import (bert_pretrain_loss,
+                                            make_train_step, shard_batch)
+    hvd.init(device=PAR_WORKER_DEVICE)
+    dev = torch.device(PAR_WORKER_DEVICE)
+    t0 = time.perf_counter()
+    cfg = dc.replace(BERT_LARGE, num_layers=DCN_LAYERS)
+    p0 = init_bert_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    specs = tp_param_specs(p0, axis="model")
+    full_batch = bert_batch(cfg, dev, *PAR_BATCH, seed=0)
+    ref = torch.load(os.environ["DCN_REF"], weights_only=False, mmap=True)
+    res = {"backend": dist.get_backend(), "layers": cfg.num_layers,
+           "hierarchical_allreduce":
+               bool(global_state().config.hierarchical_allreduce)}
+
+    def run(mesh, steps: int, compression=hvd.Compression.none,
+            zero: bool = False, fault: bool = False) -> dict:
+        tp = mesh.axis_size("model")
+        model = _bert_tp_model(cfg, dev, p0, specs, mesh, tp)
+        named = list(model.named_parameters())
+        inner = torch.optim.AdamW([p for _, p in named], lr=1e-3,
+                                  weight_decay=1e-4)
+        if zero:
+            opt = inner
+            step = make_train_step(model, bert_pretrain_loss, opt, tp=tp,
+                                   param_specs=specs, zero_stage=1)
+        else:
+            opt = hvd.DistributedOptimizer(
+                inner, named_parameters=named, compression=compression,
+                process_set=mesh.group(data_axes(mesh)))
+            step = make_train_step(model, bert_pretrain_loss, opt, tp=tp,
+                                   param_specs=specs)
+        batch = shard_batch(full_batch)
+        rec = {"mesh": dict(mesh.shape), "losses": [], "step_ms": []}
+        all_reduce = dist.all_reduce
+        if fault and rank == 0:
+            # The DCN leg skipped on this rank: it joins the collective
+            # (its peer would hang) but keeps its own partial shard.
+            dcn_group = mesh.group("dcn").group
+
+            def skip_dcn(t, *a, group=None, **k):
+                if group is dcn_group:
+                    return all_reduce(t.clone(), *a, group=group, **k)
+                return all_reduce(t, *a, group=group, **k)
+            c_ops.dist.all_reduce = skip_dcn
+        try:
+            before = exchange_totals(legs=True)
+            for i in range(steps):
+                torch.cuda.synchronize()
+                registry.reset_launch_counts()
+                t1 = time.perf_counter()
+                rec["losses"].append(step(batch).item())
+                rec["step_ms"].append(1e3 * (time.perf_counter() - t1))
+            after = exchange_totals(legs=True)
+        finally:
+            c_ops.dist.all_reduce = all_reduce
+        rec["launches"] = registry.launch_counts()     # the last step's
+        rec["legs"] = {k: after[k] - before[k] for k in DCN_HIER_LEGS}
+        if not zero:
+            pair = opt._process_set.hier
+            rec["pair"] = pair.shape
+            plan = dict.fromkeys(DCN_HIER_LEGS, 0)
+            for dt, lspecs in opt.bucket_plan.buffers:
+                for leg in plan_hier_legs(sum(s.size for s in lspecs), dt,
+                                          n_dcn=pair.n_dcn,
+                                          n_ici=pair.n_ici,
+                                          compression=compression):
+                    plan[leg.tag] += leg.nbytes * steps
+            rec["plan_legs"] = plan
+            rec["buckets"] = len(opt.bucket_plan.buffers)
+        params = {n: p.detach() for n, p in named}
+        if tp > 1:
+            params = gather_tp_params(params, specs, axis="model")
+        if rank == 0:
+            rec["params"] = {n: v.float().cpu() for n, v in params.items()}
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        del model, opt, step, inner, named, params
+        free_device()
+        return rec
+
+    mesh = build_3d_mesh(data=2, dcn_size=2)
+    runs = {"hier": run(mesh, 2), "codec": run(mesh, 1, DCN_CODEC),
+            "fault": run(mesh, 2, fault=True)}
+    mesh = build_3d_mesh(model=2, dcn_size=2)
+    runs["zero"] = run(mesh, 1, zero=True)
+    runs["nozero"] = run(mesh, 1)
+    if rank == 0:
+        for name, steps in (("hier", 2), ("codec", 1), ("fault", 2),
+                            ("zero", 1), ("nozero", 1)):
+            r = runs[name]
+            # Against the world-1 step over the batch split as the data
+            # set splits it (dcn 2 x model 2 splits it in two: logged).
+            r["gate"] = _update_gate(_update_errs(
+                r["params"], ref[f"split_{steps}"], p0),
+                ref[f"floor_{steps}"])
+            r["gate_whole_batch"] = _update_gate(_update_errs(
+                r["params"], ref[f"bf16_{steps}"], p0), ref[f"floor_{steps}"])
+            r["loss_rel_err"] = abs(r["losses"][-1] - ref[f"loss_{steps}"]) \
+                / abs(ref[f"loss_{steps}"])
+        runs["zero"]["vs_nozero"] = _update_gate(_update_errs(
+            runs["zero"]["params"], runs["nozero"]["params"], p0),
+            ref["floor_1"])
+        for r in runs.values():
+            r.pop("params", None)
+    res["runs"] = runs
+    res["seconds"] = time.perf_counter() - t0
+    torch.save(res, out)
+    hvd.shutdown()
+    dist.destroy_process_group()
+    return 0
+
+
+def _dcn_reference(dev, path: str) -> dict:
+    """Phase 30 (b)'s reference: the 3-D step at world 1 (NCCL, tp 1,
+    phase 28 (a)'s), one and two AdamW steps from the same init -- in
+    f32 and bf16 over the whole batch, and in bf16 over the batch split
+    in ``DCN_WORLD`` microbatches as the ranks split it
+    (``microbatches=``: the same per-shard gradients, summed in f32);
+    saved to ``path``: the bf16 parameters of both, the losses and each
+    leaf's bf16-vs-f32 update distance (the gate's floor)."""
+    import dataclasses as dc
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import BERT_LARGE, init_bert_params
+    from horovod_tpu_torch.parallel import build_3d_mesh, tp_param_specs
+    hvd.init()
+    cfg = dc.replace(BERT_LARGE, num_layers=DCN_LAYERS)
+    mesh = build_3d_mesh(data=1, model=1)
+    p0 = init_bert_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    specs = tp_param_specs(p0, axis="model")
+    batch = bert_batch(cfg, dev, *PAR_BATCH, seed=0)
+    got, losses = {}, {}
+    for dtype, k in ((torch.float32, 1), (PAR_DTYPE, 1),
+                     (PAR_DTYPE, DCN_WORLD)):
+        model = _bert_tp_model(cfg, dev, p0, specs, mesh, 1)
+        model.dtype = dtype
+        step = _bert_tp_step(model, specs, mesh, 1, microbatches=k)
+        for steps in (1, 2):
+            losses[(dtype, k, steps)] = step(batch).item()
+            got[(dtype, k, steps)] = {n: p.detach().float().clone()
+                                      for n, p in model.named_parameters()}
+        del model, step
+        free_device()
+    out = {}
+    for steps in (1, 2):
+        out[f"bf16_{steps}"] = {n: v.cpu() for n, v in
+                                got[(PAR_DTYPE, 1, steps)].items()}
+        out[f"split_{steps}"] = {n: v.cpu() for n, v in
+                                 got[(PAR_DTYPE, DCN_WORLD, steps)].items()}
+        out[f"loss_{steps}"] = losses[(PAR_DTYPE, DCN_WORLD, steps)]
+        out[f"loss_whole_{steps}"] = losses[(PAR_DTYPE, 1, steps)]
+        out[f"loss_f32_{steps}"] = losses[(torch.float32, 1, steps)]
+        out[f"floor_{steps}"] = _update_errs(
+            got[(torch.float32, 1, steps)], got[(PAR_DTYPE, 1, steps)], p0)
+    torch.save(out, path)
+    hvd.shutdown()
+    del got, p0
+    free_device()
+    return {k: v for k, v in out.items()
+            if not k.startswith(("bf16", "split"))}
+
+
+def _fleet_tp_check(ranks: list, card: str, total: dict) -> list:
+    """Phase 30 (a)'s records, one a fleet run (f32 wire, fp8 wire, dead
+    prefill worker), from the ranks' results; the launches added to
+    ``total``.  Returns the parts that failed."""
+    from horovod_tpu_torch.models import LLAMA3_8B
+    fails = []
+    layers = LLAMA3_8B.num_layers
+    n_req = SERVE_LOAD["num_requests"]
+    r0 = ranks[0]
+    colo = r0["colocated"]["streams"]
+    for part in ("f32", "fp8", "dead"):
+        rs = [r[part] for r in ranks]
+        rep = rs[0]["report"]
+        steps = rep["decode_steps"]
+        # The leader prefills every published handoff (a reaped one
+        # too); every rank runs the local fallbacks.
+        prefills = [r["prefills"] + rep["handoffs_local"] for r in rs]
+        decode = "flash_decode_fp8" if part == "fp8" else "flash_decode"
+        rec = {"phase": "item_1_12_rest", "part": f"a_{part}", "card": card,
+               "tp": FLEET_TP, "backend": [r["backend"] for r in ranks],
+               **{k: rep[k] for k in (
+                   "completed", "handoffs_streamed", "handoffs_local",
+                   "kv_bytes_out", "kv_bytes_in", "decode_steps", "wall_s",
+                   "tokens_per_s", "ttft_p50_s", "ttft_p99_s")},
+               "colocated_tokens_per_s": r0["colocated"]["tokens_per_s"],
+               "colocated_ttft_p50_s": r0["colocated"]["ttft_p50_s"],
+               "streams_equal_across_ranks": all(
+                   r["streams"] == rs[0]["streams"] for r in rs),
+               "reports_equal_across_ranks": all(
+                   r["report"] == rep for r in rs),
+               "streams_equal_colocated": sum(
+                   colo.get(rid) == s
+                   for rid, s in rs[0]["streams"].items()),
+               "leaked_pages": [r["pages"] for r in rs],
+               "headers": [r["headers"] for r in rs],
+               "launches": [r["launches"] for r in rs],
+               "seconds": [r["seconds"] for r in rs]}
+        ok = (rep["completed"] == n_req and rec["streams_equal_across_ranks"]
+              and rec["reports_equal_across_ranks"]
+              and all(r["pages"] == 0 and r["balanced"] for r in rs)
+              and (rep["kv_bytes_in"] == rep["kv_bytes_out"] > 0
+                   or part == "dead")
+              and all(r["launches"][decode] == layers * steps
+                      and r["launches"]["flash"] == layers * n
+                      for r, n in zip(rs, prefills)))
+        if part == "f32":
+            ok = ok and rep["handoffs_streamed"] == n_req and \
+                rec["streams_equal_colocated"] == n_req
+        if part == "fp8":
+            checks = [r["shard_checks"] for r in rs]
+            errs = rs[0]["first_logits_rel_err"]
+            f32_streams = r0["f32"]["streams"]
+            cold = r0["colocated_fp8"]
+            rec.update(
+                imports_checked=[len(c) for c in checks],
+                shards_bitwise_encoder=all(all(c) for c in checks),
+                streams_equal_colocated_same_e4m3_pages=sum(
+                    cold.get(rid) == s
+                    for rid, s in rs[0]["streams"].items()),
+                stream_agreement_f32_wire=sum(
+                    f32_streams.get(rid) == s
+                    for rid, s in rs[0]["streams"].items()),
+                first_logits_rel_err_vs_f32_wire=errs)
+            # Held: the streams against the colocated engine reading the
+            # same e4m3 pages; the first decode logits against the f32
+            # wire's (other pages) are logged beside.
+            ok = ok and rep["handoffs_streamed"] == n_req and \
+                rec["shards_bitwise_encoder"] and \
+                all(len(c) == rs[0]["full_page_requests"] > 0
+                    for c in checks) and \
+                rec["streams_equal_colocated_same_e4m3_pages"] == n_req
+        if part == "dead":
+            rec.update(kill_after=FLEET_TP_KILL_AFTER,
+                       prefill_alive=[r["alive"] for r in rs],
+                       streams_equal_f32=sum(
+                           r0["f32"]["streams"].get(rid) == s
+                           for rid, s in rs[0]["streams"].items()))
+            ok = ok and rep["handoffs_local"] >= 1 and \
+                rep["handoffs_streamed"] + rep["handoffs_local"] == n_req \
+                and rec["streams_equal_f32"] == n_req and \
+                not any(rec["prefill_alive"])
+        rec["ok"] = bool(ok)
+        log(rec)
+        if not ok:
+            fails.append(f"(a) {part}")
+        for r in rs:
+            _add_counts(total, r["launches"])
+    return fails
+
+
+def item_1_12_rest(dev, card: str) -> dict:
+    """Phase 30 (module docstring): (a) the fleet with a tp 2 decode
+    worker over the KV wire, Llama-3 8B, two gloo ranks on the card; (b)
+    the two-level DP leg of the 3-D step, BERT-Large on dcn 2 x data 2
+    (and dcn 2 x model 2), four gloo ranks.  Returns the main path's
+    launches (both parts, every rank)."""
+    import tempfile
+
+    from horovod_tpu_torch.run.http_kv import RendezvousServer
+    from horovod_tpu_torch.run.secret import make_secret_key
+    here = os.path.dirname(os.path.abspath(__file__))
+    fails, total = [], {}
+    # (a)
+    t0 = time.perf_counter()
+    free_device()
+    secret = make_secret_key()
+    srv = RendezvousServer(secret, host="127.0.0.1")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks = _par_tp_world(
+                here, tmp, "fleet_tp", FLEET_TP, FLEET_TP_TIMEOUT,
+                env={"FLEET_TP_KV_PORT": str(srv.port),
+                     "FLEET_TP_KV_SECRET": secret})
+    finally:
+        srv.stop()
+    seconds_a = time.perf_counter() - t0
+    fails += _fleet_tp_check(ranks, card, total)
+    log({"phase": "item_1_12_rest", "part": "a", "card": card,
+         "seconds": seconds_a, "worker_seconds": [r["seconds"]
+                                                   for r in ranks],
+         "peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks]})
+    del ranks
+    free_device()
+    # (b)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "ref.pt")
+        ref = _dcn_reference(dev, ref_path)
+        t_ref = time.perf_counter() - t0
+        ranks = _par_tp_world(here, tmp, "parallel_3d_dcn", DCN_WORLD,
+                              DCN_TIMEOUT,
+                              env={"HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
+                                   "DCN_REF": ref_path})
+    seconds_b = time.perf_counter() - t0
+    rec = _dcn_check(ranks, ref, card, total)
+    rec["reference_seconds"] = t_ref
+    rec["seconds"] = seconds_b
+    rec["worker_seconds"] = [r["seconds"] for r in ranks]
+    log(rec)
+    if not rec["ok"]:
+        fails.append("(b)")
+    if seconds_b > DCN_TIMEOUT:
+        fails.append(f"(b) took {seconds_b:.0f} s of its {DCN_TIMEOUT} s")
+    log({"phase": "item_1_12_rest", "card": card, "launches": total,
+         "ok": not fails})
+    if fails:
+        raise AssertionError("item_1_12_rest: parts " + ", ".join(fails)
+                             + " failed")
+    return total
+
+
+def _dcn_check(ranks: list, ref: dict, card: str, total: dict) -> dict:
+    """Phase 30 (b)'s record from the ranks' runs: each run's gate, the
+    bytes by leg against the plan, the fault rejected, the launches
+    (added to ``total``); ``ok`` says whether it all held."""
+    runs = [r["runs"] for r in ranks]
+    g = runs[0]
+    rec = {"phase": "item_1_12_rest", "part": "b", "card": card,
+           "layers": DCN_LAYERS, "world": DCN_WORLD,
+           "backend": [r["backend"] for r in ranks],
+           "hierarchical_allreduce": [r["hierarchical_allreduce"]
+                                      for r in ranks],
+           "batch": list(PAR_BATCH),
+           "reference_loss": [ref["loss_1"], ref["loss_2"]],
+           "reference_loss_whole_batch": [ref["loss_whole_1"],
+                                          ref["loss_whole_2"]],
+           "floor_max": [max(ref["floor_1"].values()),
+                         max(ref["floor_2"].values())]}
+    for name in ("hier", "codec", "fault", "zero", "nozero"):
+        r = g[name]
+        rec[name] = {"mesh": r["mesh"], "losses": r["losses"],
+                     "loss_rel_err": r["loss_rel_err"], "gate": r["gate"],
+                     "gate_whole_batch": r["gate_whole_batch"],
+                     "step_ms": [x[name]["step_ms"] for x in runs],
+                     "legs": [x[name]["legs"] for x in runs],
+                     "launches": [x[name]["launches"] for x in runs],
+                     "peak_mem_bytes": [x[name]["peak_mem_bytes"]
+                                        for x in runs]}
+        for k in ("pair", "plan_legs", "buckets", "vs_nozero"):
+            if k in r:
+                rec[name][k] = r[k]
+    ok = True
+    for name in ("hier", "codec", "nozero"):
+        r = rec[name]
+        ok = ok and all(legs == g[name]["plan_legs"] for legs in r["legs"]) \
+            and g[name]["plan_legs"]["hier/dcn_ar"] > 0
+    # dcn 2 x data 2 against the world-1 step; dcn 2 x model 2 (ZeRO-1)
+    # against the same mesh without ZeRO (its gate against world 1, which
+    # the tp split's own bf16 ordering moves, is logged beside).
+    for name in ("hier", "codec", "zero", "nozero"):
+        r = rec[name]
+        ok = ok and r["loss_rel_err"] <= 1e-2 and \
+            all(np.isfinite(r["losses"]))
+        if name in ("hier", "codec"):
+            ok = ok and r["gate"]["ok"]
+    ok = ok and rec["hier"]["pair"] == (2, 2) and \
+        rec["nozero"]["pair"] == (2, 1) and rec["zero"]["vs_nozero"]["ok"]
+    ok = ok and not rec["fault"]["gate"]["ok"]
+    for name in ("hier", "codec", "zero", "nozero"):
+        for c in rec[name]["launches"]:
+            for f in ("flash", "flash_bwd_dq", "flash_bwd_dkv"):
+                ok = ok and c[f] == DCN_LAYERS
+            _add_counts(total, c)
+    rec["ok"] = bool(ok)
+    return rec
+
+
+TP_JOBS = {"parallel_3d": tp_worker, "serving_tp": serving_tp_worker,
+           "fleet_tp": fleet_tp_worker, "parallel_3d_dcn": dcn_worker}
 
 
 def serving_tp(dev, card: str, serve_run: dict) -> dict:
@@ -6544,8 +7184,8 @@ def serving_tp(dev, card: str, serve_run: dict) -> dict:
 
 
 def main(argv=None) -> int:
-    """Every phase (``--tp-worker <job>``: one rank of phase 28 (b) or of
-    phase 29)."""
+    """Every phase (``--tp-worker <job>``: one rank of phase 28 (b), 29
+    or 30)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6638,18 +7278,25 @@ def main(argv=None) -> int:
     free_device()
     tp29 = serving_tp(dev, card, serve_run)
     free_device()
+    rest30 = item_1_12_rest(dev, card)
+    free_device()
     # The attention and BN kernels run on several paths: their launches
     # are the sums.
     flash["launches"] = (serve["flash"] + train["flash"] + bert["flash"]
                          + lora26["flash"] + rest27["flash"]
-                         + par28["flash"] + tp29["flash"])
+                         + par28["flash"] + tp29["flash"]
+                         + rest30["flash"])
     decode["launches"] = (serve["flash_decode"] + lora26["flash_decode"]
-                          + rest27["flash_decode"] + tp29["flash_decode"])
-    decode_fp8["launches"] = rest27["flash_decode_fp8"]
+                          + rest27["flash_decode"] + tp29["flash_decode"]
+                          + rest30["flash_decode"])
+    decode_fp8["launches"] = (rest27["flash_decode_fp8"]
+                              + rest30["flash_decode_fp8"])
     dq["launches"] = (train["flash_bwd_dq"] + bert["flash_bwd_dq"]
-                      + lora26["flash_bwd_dq"] + par28["flash_bwd_dq"])
+                      + lora26["flash_bwd_dq"] + par28["flash_bwd_dq"]
+                      + rest30["flash_bwd_dq"])
     dkv["launches"] = (train["flash_bwd_dkv"] + bert["flash_bwd_dkv"]
-                       + lora26["flash_bwd_dkv"] + par28["flash_bwd_dkv"])
+                       + lora26["flash_bwd_dkv"] + par28["flash_bwd_dkv"]
+                       + rest30["flash_bwd_dkv"])
     bn_red["launches"] = (resnet["bn_bwd_reduce"] + inception["bn_bwd_reduce"]
                           + torch_rn50["bn_bwd_reduce"]
                           + exchange["bn_bwd_reduce"]

@@ -1211,11 +1211,17 @@ def hierarchical_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
                            dcn_residual: Optional[torch.Tensor] = None,
                            prescale_factor: float = 1.0,
                            postscale_factor: float = 1.0,
-                           topology: Optional[Tuple[int, int]] = None):
+                           topology: Optional[Tuple[int, int]] = None,
+                           process_set=None):
     """Two-level allreduce (``HOROVOD_HIERARCHICAL_ALLREDUCE``,
     ``horovod_tpu/collectives/ops.py::hierarchical_allreduce``) over
-    ``n_dcn`` nodes of ``n_ici`` ranks (``topology``; default
-    :func:`~horovod_tpu_torch.core.topology.hier_mesh_shape`):
+    ``n_dcn`` nodes of ``n_ici`` ranks: the world laid out by
+    ``topology`` (default
+    :func:`~horovod_tpu_torch.core.topology.hier_mesh_shape`), or -- with
+    ``process_set``, the data set of a mesh whose data axes are the
+    ``(dcn, inner)`` pair (``mesh.group(data_axes(mesh))``) -- that set
+    over its own ICI and DCN lines (``process_set.hier``), as the JAX op
+    runs over its ``(dcn_axis, ici_axis)`` pair:
 
     1. reduce-scatter (Sum) within the node of the flat bucket,
        zero-padded to a multiple of :func:`microbatch_pad_quantum`;
@@ -1233,7 +1239,7 @@ def hierarchical_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
     statically, as in the reference.  Sum/Average; non-floating buckets
     ride uncompressed.  Over more than one node it notes its
     ``hier`` rows and is counted at their bytes."""
-    from ..core.topology import hier_mesh_shape, hier_sets
+    from ..core.topology import HierPair, hier_mesh_shape
     if op not in (Sum, Average):
         raise ValueError(
             f"hierarchical_allreduce supports Sum/Average, got {op}")
@@ -1243,23 +1249,36 @@ def hierarchical_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
         raise ValueError(
             f"ICI leg codec must be psum-compatible (none|fp16|bf16), "
             f"got {ici_codec.__name__}")
-    if topology is None:
-        topology = hier_mesh_shape()
-    if topology is None:
-        raise ValueError("hierarchical_allreduce needs a two-level layout: "
-                         "set HOROVOD_HIERARCHICAL or pass topology=")
-    n_dcn, n_ici = (int(t) for t in topology)
+    if process_set is not None:
+        pair = getattr(process_set, "hier", None)
+        if pair is None:
+            raise ValueError(
+                f"hierarchical_allreduce over process set "
+                f"{process_set.name!r}: only a mesh's two data axes "
+                f"(mesh.group(data_axes(mesh))) carry a two-level layout")
+        if topology is not None and tuple(topology) != pair.shape:
+            raise ValueError(f"topology {tuple(topology)} conflicts with "
+                             f"the set's {pair.shape}")
+    else:
+        if topology is None:
+            topology = hier_mesh_shape()
+        if topology is None:
+            raise ValueError("hierarchical_allreduce needs a two-level "
+                             "layout: set HOROVOD_HIERARCHICAL or pass "
+                             "topology=")
+        pair = HierPair(*(int(t) for t in topology))
+    n_dcn, n_ici = pair.shape
     legs = ()
     if n_dcn > 1:
         from ..controller.fusion import plan_hier_legs
         legs = plan_hier_legs(x.numel(), x.dtype, n_dcn=n_dcn, n_ici=n_ici,
                               ici_codec=ici_codec, dcn_codec=dcn_codec)
     # With one node the flat allreduce below counts itself.
-    ps = _member_set(None, "hierarchical_allreduce",
+    ps = _member_set(process_set, "hierarchical_allreduce",
                      nbytes=sum(leg.nbytes for leg in legs))
     if n_dcn * n_ici != ps.size():
         raise ValueError(f"topology {n_dcn}x{n_ici} does not cover the "
-                         f"world of {ps.size()}")
+                         f"{ps.size()} ranks of set {ps.name!r}")
     n = ps.size()
     ef = is_error_feedback(dcn_codec)
     floating = x.dtype.is_floating_point
@@ -1271,14 +1290,15 @@ def hierarchical_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
 
     if n_dcn == 1:
         y = exchange_allreduce_async_(
-            x.clone(), op, prescale_factor=prescale_factor,
+            x.clone(), op, process_set=process_set,
+            prescale_factor=prescale_factor,
             postscale_factor=postscale_factor).wait()
         if ef:
             return y, (dcn_residual if dcn_residual is not None else
                        torch.zeros(shard_len, device=x.device))
         return y
 
-    ici, dcn = hier_sets(n_ici)
+    ici, dcn = pair.sets()
     _note_rows(legs)
     if prescale_factor != 1.0:
         x = x * prescale_factor
@@ -1337,7 +1357,8 @@ def hierarchical_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
 
 def chunked_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
                       chunk_bytes: int, prescale_factor: float = 1.0,
-                      postscale_factor: float = 1.0) -> torch.Tensor:
+                      postscale_factor: float = 1.0,
+                      process_set=None) -> torch.Tensor:
     """Allreduce as chunk-sized reduce-scatter + allgather pairs
     (``HOROVOD_EXCHANGE_CHUNK_MB``; ``horovod_tpu/collectives/ops.py::
     chunked_allreduce``): the flat bucket is cut into chunks of
@@ -1345,17 +1366,19 @@ def chunked_allreduce(x: torch.Tensor, op: ReduceOp = Average, *,
     zero-padded to a multiple of ``n``, reduce-scattered (Sum; ``/ n``
     in the dtype for Average) and allgathered.  The same link bytes as
     one allreduce, in independent pieces; the summation order differs
-    from :func:`allreduce`'s.  Sum/Average over the global set; at world
-    1, or with ``chunk_bytes <= 0``, it is :func:`allreduce`, as in the
-    reference.  The chunked sweep notes its ``chunked`` row."""
+    from :func:`allreduce`'s.  Sum/Average over the global set, or over
+    ``process_set`` (a mesh's data set: the JAX op over the data axes); at
+    one member, or with ``chunk_bytes <= 0``, it is :func:`allreduce`, as
+    in the reference.  The chunked sweep notes its ``chunked`` row."""
     from ..controller.fusion import plan_exchange
     if op not in (Sum, Average):
         raise ValueError(f"chunked_allreduce supports Sum/Average, got {op}")
-    ps = _member_set(None, "chunked_allreduce", x)
+    ps = _member_set(process_set, "chunked_allreduce", x)
     n = ps.size()
     if n == 1 or int(chunk_bytes) <= 0:
         return exchange_allreduce_async_(
-            x.clone(), op, prescale_factor=prescale_factor,
+            x.clone(), op, process_set=process_set,
+            prescale_factor=prescale_factor,
             postscale_factor=postscale_factor).wait()
     _note_rows(plan_exchange("chunked", size=x.numel(), dtype=x.dtype,
                              chunk_bytes=int(chunk_bytes), world=n).legs)

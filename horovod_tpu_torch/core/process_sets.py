@@ -46,6 +46,11 @@ class ProcessSet:
     name: str
     ranks: Tuple[int, ...]  # global ranks, sorted
     group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    # The two-level (dcn, ici) factorisation of a mesh's two data axes
+    # (a ``core.topology.HierPair``), set on the view
+    # ``RankMesh.group(data_axes(mesh))`` returns; ``None`` on a
+    # registered set, so a user's set stays flat.
+    hier: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def size(self) -> int:
         return len(self.ranks)
@@ -137,7 +142,8 @@ def get_process_set(name_or_set=None) -> ProcessSet:
         if known is None or known.ranks != name_or_set.ranks:
             raise ProcessSetError(
                 f"process set {name_or_set.name!r} is not registered")
-        return known
+        # A mesh's data-set view keeps its two-level pair.
+        return known if name_or_set.hier is None else name_or_set
     try:
         return st.process_sets[name_or_set]
     except KeyError:

@@ -17,10 +17,20 @@ uses; ``rows,cols`` pins ``rows`` nodes of ``cols`` ranks.
 :func:`hier_groups` makes every node group and every cross group on
 every rank, in the same order, once per ``n_ici``, and caches them in
 the global state (``shutdown()`` destroys them).
+
+A :class:`HierPair` is one exchange's two-level layout: ``n_dcn`` x
+``n_ici`` and this rank's ICI and DCN sets.  The world form
+(:func:`world_pair`) lays the world out as above; a rank mesh with two
+data axes (``build_3d_mesh(dcn_size=...)``, ``build_mesh(hierarchical=
+True)``) gives its data set one over its own axes
+(``RankMesh.hier_pair``): the ICI set is this rank's line
+along the inner data axis, the DCN set its line along ``dcn``, so a
+position in the data set is ``dcn * n_ici + ici``, as in the world.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch.distributed as dist
@@ -113,7 +123,8 @@ def hier_groups(n_ici: int):
 def hier_sets(n_ici: int) -> Tuple[ProcessSet, ProcessSet]:
     """:func:`hier_groups` as unregistered :class:`ProcessSet` views
     (``ici``, ``dcn``): members in global ranks, ``position()`` this
-    rank's index in each."""
+    rank's index in each.  A mesh's data set has its own
+    (:meth:`~horovod_tpu_torch.parallel.mesh.RankMesh.hier_pair`)."""
     node, cross = hier_groups(n_ici)
     n, me = dist.get_world_size(), dist.get_rank()
     c, lr = divmod(me, n_ici)
@@ -121,3 +132,52 @@ def hier_sets(n_ici: int) -> Tuple[ProcessSet, ProcessSet]:
                      node)
     dcn = ProcessSet(f"dcn{lr}", tuple(range(lr, n, n_ici)), cross)
     return ici, dcn
+
+
+@dataclasses.dataclass(frozen=True)
+class HierPair:
+    """The two-level layout one exchange runs on: ``n_dcn`` nodes of
+    ``n_ici`` ranks, and this rank's ICI and DCN sets (``None`` for the
+    world form, whose sets :func:`hier_sets` makes on first use)."""
+
+    n_dcn: int
+    n_ici: int
+    ici: Optional[ProcessSet] = None
+    dcn: Optional[ProcessSet] = None
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self.n_dcn, self.n_ici
+
+    def sets(self) -> Tuple[ProcessSet, ProcessSet]:
+        """``(ici, dcn)``."""
+        if self.ici is not None:
+            return self.ici, self.dcn
+        return hier_sets(self.n_ici)
+
+    def index(self) -> Tuple[int, int]:
+        """This rank's ``(dcn, ici)`` positions."""
+        ici, dcn = self.sets()
+        return dcn.position(), ici.position()
+
+
+def world_pair(shape: Optional[Tuple[int, int]] = None
+               ) -> Optional[HierPair]:
+    """The world's :class:`HierPair` for ``shape`` (default
+    :func:`hier_mesh_shape`; ``None`` when the world is one level)."""
+    shape = hier_mesh_shape() if shape is None else shape
+    return None if shape is None else HierPair(int(shape[0]),
+                                               int(shape[1]))
+
+
+def set_pair(process_set) -> Optional[HierPair]:
+    """The two-level layout of an exchange over ``process_set``: the
+    pair a mesh's two data axes put on their set, the world form
+    (:func:`world_pair`) for ``None`` (every rank), and ``None`` -- one
+    level -- for any other set (a user's ``add_process_set`` set, the
+    global set passed by name, stays flat, as a ``process_set=`` does in
+    the JAX package)."""
+    pair = getattr(process_set, "hier", None)
+    if pair is not None:
+        return pair
+    return world_pair() if process_set is None else None

@@ -84,7 +84,11 @@ uneven-data loop joins through it.  The planned buckets, like the JAX
 traced step's collectives, take no join slot, nor then do the step's.
 
 ``process_set=`` exchanges every bucket over the set's group (members
-only; ``Average`` divides by the set's size), and ``sparse_as_dense=True``
+only; ``Average`` divides by the set's size); the set of a mesh's two
+data axes (``mesh.group(data_axes(mesh))`` on ``build_3d_mesh(
+dcn_size=...)``) carries their ``(dcn, inner)`` pair, and over it the
+two-level and chunked exchanges run as the JAX package's run over the
+two axes, while any other set stays one level.  ``sparse_as_dense=True``
 densifies a sparse gradient (``nn.Embedding(sparse=True)``) before it is
 packed, as ``horovod_tpu/torch_api/optimizer.py`` does; without it a
 sparse gradient raises ``ValueError``.  ``num_groups`` is accepted for
@@ -118,7 +122,7 @@ from ..controller.fusion import (DEFAULT_FUSION_THRESHOLD, FusionSpec,
 from ..core import stall
 from ..core.process_sets import get_process_set
 from ..core.state import global_state
-from ..core.topology import hier_groups, hier_mesh_shape
+from ..core.topology import hier_groups, hier_mesh_shape, set_pair
 from ..models.convert import (flax_leaf_order, from_flax_layout,
                               to_flax_layout)
 from ..timeline.metrics import (exchange_counters, note_compression_ratio,
@@ -160,12 +164,26 @@ def _ef_enabled() -> bool:
     return cfg.ef_residual if cfg is not None else True
 
 
-def _hier_legs(compression, size: int, dtype):
-    """One bucket's rows of the two-level exchange on the configured
-    layout (:func:`plan_hier_legs`)."""
-    n_dcn, n_ici = hier_mesh_shape()
-    return plan_hier_legs(size, dtype, n_dcn=n_dcn, n_ici=n_ici,
+def _hier_legs(compression, size: int, dtype, pair):
+    """One bucket's rows of the two-level exchange on ``pair``'s layout
+    (:func:`plan_hier_legs`)."""
+    return plan_hier_legs(size, dtype, n_dcn=pair.n_dcn, n_ici=pair.n_ici,
                           compression=compression)
+
+
+def _mesh_set(process_set) -> bool:
+    """Whether ``process_set`` is a mesh's two-data-axis set (the JAX
+    package's exchange over the data axes, not a ``process_set=``)."""
+    return getattr(process_set, "hier", None) is not None
+
+
+def _two_level(x: torch.Tensor, op: ReduceOp, pair, process_set, **kw):
+    """:func:`hierarchical_allreduce` of ``x`` on ``pair``: over the mesh
+    data set ``process_set`` when it carries the pair, else over the
+    world's layout."""
+    if _mesh_set(process_set):
+        return hierarchical_allreduce(x, op, process_set=process_set, **kw)
+    return hierarchical_allreduce(x, op, topology=pair.shape, **kw)
 
 
 def _launch_bucket(grads, lspecs, op: ReduceOp, compression,
@@ -181,11 +199,14 @@ def _launch_bucket(grads, lspecs, op: ReduceOp, compression,
       wire for ``op=Adasum``;
     * a per-leg codec, or ``HOROVOD_HIERARCHICAL`` /
       ``HOROVOD_HIERARCHICAL_ALLREDUCE`` with a cast codec:
-      :func:`hierarchical_allreduce` (Sum/Average, the global set; a
-      per-leg codec without the two-level layout rides its ICI codec on
-      the flat allreduce);
+      :func:`hierarchical_allreduce` (Sum/Average; every rank on the
+      world's layout, or a mesh's two-data-axis set on its own -- the
+      JAX ``hier_ok``; a per-leg codec without a two-level layout, a
+      user's process set among them, rides its ICI codec on the flat
+      allreduce);
     * ``HOROVOD_EXCHANGE_CHUNK_MB``: :func:`chunked_allreduce` of the
-      compressed buffer (Sum/Average, the global set);
+      compressed buffer (Sum/Average; every rank, or a mesh's
+      two-data-axis set);
     * else the cast codec and one async allreduce.
 
     Feeds the exchange counters: one bucket, the collectives it issues
@@ -213,26 +234,28 @@ def _launch_bucket(grads, lspecs, op: ReduceOp, compression,
             m["handles"].inc(2)
         m["wire_bytes"].inc(wire_payload_bytes(compression, size, itemsize))
         return handle
-    global_sum = process_set is None and op in (Sum, Average)
-    shape = hier_mesh_shape() if global_sum and hier_requested(
+    sum_avg = op in (Sum, Average)
+    pair = set_pair(process_set) if sum_avg and hier_requested(
         compression) else None
-    if is_hier_legs(compression) and shape is None:
+    if is_hier_legs(compression) and pair is None:
         compression = compression.ici     # the flat exchange, ICI codec
     wire, ctx = compression.compress(buf)
-    if shape is not None:
-        y = hierarchical_allreduce(
-            wire, op, dcn_codec=getattr(compression, "dcn", None),
-            ici_codec=getattr(compression, "ici", None), topology=shape,
-            **kw)
-        legs = _hier_legs(compression, size, buf.dtype)
+    if pair is not None:
+        y = _two_level(wire, op, pair, process_set,
+                       dcn_codec=getattr(compression, "dcn", None),
+                       ici_codec=getattr(compression, "ici", None), **kw)
+        legs = _hier_legs(compression, size, buf.dtype, pair)
         note_hier_legs(legs)
-        m["handles"].inc(3 if shape[0] > 1 else 1)
+        m["handles"].inc(3 if pair.n_dcn > 1 else 1)
         m["wire_bytes"].inc(sum(leg.nbytes for leg in legs))
         return Handle.completed(compression.decompress(y, ctx))
     chunk = exchange_chunk_bytes()
-    if chunk > 0 and global_sum:
-        y = chunked_allreduce(wire, op, chunk_bytes=chunk, **kw)
-        n = global_state().size
+    if chunk > 0 and sum_avg and (process_set is None
+                                  or _mesh_set(process_set)):
+        y = chunked_allreduce(wire, op, chunk_bytes=chunk,
+                              process_set=process_set, **kw)
+        n = global_state().size if process_set is None else \
+            process_set.size()
         leg = plan_exchange("chunked", size=wire.numel(), dtype=wire.dtype,
                             chunk_bytes=chunk, world=n).legs[0]
         m["handles"].inc(1 if n == 1 else len(leg.audit))
@@ -278,19 +301,19 @@ def _launch_ef_bucket(grads, lspecs, op: ReduceOp, compression,
         m["wire_bytes"].inc(buf.numel() * buf.element_size())
         return Handle(None, lambda: (inner.wait(), residual))
     if is_hier_legs(compression):
-        shape = hier_mesh_shape()
-        if shape is None:
+        pair = set_pair(process_set)
+        if pair is None:
             raise NotImplementedError(
                 "per-leg error-feedback compression (ici:...,dcn:powersgd/"
                 "topk) needs the two-level layout; set HOROVOD_HIERARCHICAL"
                 " or use the flat codec spec instead")
-        out, r_out = hierarchical_allreduce(
-            buf, op, dcn_codec=compression.dcn, ici_codec=compression.ici,
-            dcn_residual=None if residual is None else residual[1],
-            topology=shape, **kw)
-        legs = _hier_legs(compression, buf.numel(), buf.dtype)
+        out, r_out = _two_level(
+            buf, op, pair, process_set, dcn_codec=compression.dcn,
+            ici_codec=compression.ici,
+            dcn_residual=None if residual is None else residual[1], **kw)
+        legs = _hier_legs(compression, buf.numel(), buf.dtype, pair)
         note_hier_legs(legs)
-        m["handles"].inc(3 if shape[0] > 1 else 1)
+        m["handles"].inc(3 if pair.n_dcn > 1 else 1)
         m["wire_bytes"].inc(sum(leg.nbytes for leg in legs))
         return Handle.completed(
             (out, torch.stack([torch.zeros_like(r_out), r_out])))
@@ -312,31 +335,39 @@ def allreduce_gradients(grads: Sequence[torch.Tensor],
                         compression=Compression.none,
                         fusion_threshold: Optional[int] = None,
                         prescale_factor: float = 1.0,
-                        postscale_factor: float = 1.0
-                        ) -> List[torch.Tensor]:
-    """Fused allreduce of a gradient list (the flat branch): pack per
-    bucket, compress, allreduce, decompress, unpack.  Returns new tensors
-    in the input order; the inputs are left as they are.
+                        postscale_factor: float = 1.0,
+                        process_set=None) -> List[torch.Tensor]:
+    """Fused allreduce of a gradient list: pack per bucket, compress,
+    allreduce, decompress, unpack.  Returns new tensors in the input
+    order; the inputs are left as they are.  ``process_set``: the
+    exchange's set (every rank when ``None``); a mesh's two-data-axis set
+    (``mesh.group(data_axes(mesh))``) runs the two-level exchange over
+    its own ICI and DCN lines where the JAX package's does over the two
+    axes (:func:`_launch_bucket`).
 
     An error-feedback codec runs its exchange here WITHOUT residual state
     (the stateful path is the ``DistributedOptimizer``'s): each bucket's
     compression error is dropped.  ``op=Adasum`` mixes each bucket with
     its own coefficients, the buckets exchanged in order."""
     grads = list(grads)
-    compression = _resolve_compression(compression, op)
+    if process_set is not None:
+        process_set = get_process_set(process_set)
+    compression = _resolve_compression(compression, op, process_set)
     if is_hier_legs(compression) and is_error_feedback(compression) and \
-            hier_mesh_shape() is None:
-        # One level: the DCN hop is the whole world.
+            set_pair(process_set) is None:
+        # One level: the DCN hop is the whole set.
         compression = compression.dcn
     spec = plan_buckets(grads, fusion_threshold,
                         extra=(compression.__name__,))
     if is_error_feedback(compression):
         handles = [_launch_ef_bucket(grads, lspecs, op, compression, None,
-                                     prescale_factor, postscale_factor)
+                                     prescale_factor, postscale_factor,
+                                     process_set)
                    for _, lspecs in spec.buffers]
         return unpack([h.wait()[0] for h in handles], spec)
     handles = [_launch_bucket(grads, lspecs, op, compression,
-                              prescale_factor, postscale_factor)
+                              prescale_factor, postscale_factor,
+                              process_set=process_set)
                for _, lspecs in spec.buffers]
     return unpack([h.wait() for h in handles], spec)
 
@@ -366,24 +397,27 @@ def ef_bucket_plan(leaves, fusion_threshold: Optional[int],
                         extra=("ef", compression.__name__))
 
 
-def ef_residual_shape(size: int, compression) -> tuple:
+def ef_residual_shape(size: int, compression, process_set=None) -> tuple:
     """Per-bucket residual shape: ``(size,)``, the whole bucket's unsent
     error, for the flat codecs; ``(2, padded / n_ici)`` for a per-leg
     codec -- one row a leg of the two-level exchange, the ICI row
     identically zero (its legs are exact), the DCN row the DCN codec's
-    unsent shard-domain error (the JAX package's layout)."""
+    unsent shard-domain error (the JAX package's layout); ``n_ici`` of
+    the exchange's layout over ``process_set``
+    (:func:`~horovod_tpu_torch.core.topology.set_pair`)."""
     if not is_error_feedback(compression):
         raise ValueError(f"{compression.__name__} carries no residual")
     if is_hier_legs(compression):
-        shape = hier_mesh_shape()
-        n_ici = shape[1] if shape is not None else 1
+        pair = set_pair(process_set)
+        n_ici = pair.n_ici if pair is not None else 1
         padded = size + (-size) % microbatch_pad_quantum(n_ici)
         return (2, padded // n_ici)
     return (int(size),)
 
 
 def ef_init_residuals(params, fusion_threshold: Optional[int],
-                      compression) -> Tuple[torch.Tensor, ...]:
+                      compression, process_set=None
+                      ) -> Tuple[torch.Tensor, ...]:
     """Zero residuals matching the EF bucket plan of ``params``-shaped
     gradients: one flat f32 tensor per bucket, on its leaves' device (one
     rank per process, so no leading world axis)."""
@@ -391,22 +425,24 @@ def ef_init_residuals(params, fusion_threshold: Optional[int],
     spec = ef_bucket_plan(params, fusion_threshold, compression)
     return tuple(
         torch.zeros(ef_residual_shape(sum(s.size for s in lspecs),
-                                      compression),
+                                      compression, process_set),
                     dtype=torch.float32, device=params[lspecs[0].index].device)
         for _, lspecs in spec.buffers)
 
 
-def _note_plan_bytes(spec: FusionSpec, compression) -> None:
+def _note_plan_bytes(spec: FusionSpec, compression,
+                     process_set=None) -> None:
     """The compression gauges of one step over ``spec``'s buckets: the
     per-leg codecs priced by their rows (:func:`plan_hier_legs`) on the
-    two-level layout, the others by :func:`wire_payload_bytes`."""
-    hier = is_hier_legs(compression) and hier_mesh_shape() is not None
+    two-level layout over ``process_set``, the others by
+    :func:`wire_payload_bytes`."""
+    pair = set_pair(process_set) if is_hier_legs(compression) else None
     raw = wire = 0
     for dt, lspecs in spec.buffers:
         size = sum(s.size for s in lspecs)
         raw += size * dt.itemsize
-        wire += sum(leg.nbytes for leg in _hier_legs(compression, size,
-                                                     dt)) if hier else \
+        wire += sum(leg.nbytes for leg in _hier_legs(
+            compression, size, dt, pair)) if pair is not None else \
             wire_payload_bytes(compression, size, dt.itemsize)
     note_compression_ratio(raw, wire)
 
@@ -416,7 +452,7 @@ def ef_exchange(grads: Sequence[torch.Tensor],
                 op: ReduceOp = Average,
                 fusion_threshold: Optional[int] = None,
                 prescale_factor: float = 1.0,
-                postscale_factor: float = 1.0
+                postscale_factor: float = 1.0, process_set=None
                 ) -> Tuple[List[torch.Tensor], Tuple[torch.Tensor, ...]]:
     """Error-feedback fused gradient exchange: ``(reduced grads,
     new_residuals)`` from the gradients and the previous step's residuals
@@ -436,14 +472,14 @@ def ef_exchange(grads: Sequence[torch.Tensor],
     feed = _ef_enabled()
     handles = [_launch_ef_bucket(grads, lspecs, op, compression,
                                  res if feed else None, prescale_factor,
-                                 postscale_factor)
+                                 postscale_factor, process_set)
                for (_, lspecs), res in zip(spec.buffers, residuals)]
     outs, new_res = [], []
     for h, res in zip(handles, residuals):
         out, r_out = h.wait()
         outs.append(out)
         new_res.append(r_out if feed else res)
-    _note_plan_bytes(spec, compression)
+    _note_plan_bytes(spec, compression, process_set)
     return unpack(outs, spec), tuple(new_res)
 
 
@@ -522,7 +558,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             self.bucket_plan = ef_bucket_plan(leaves, fusion_threshold,
                                               compression)
             self._residuals = list(ef_init_residuals(
-                leaves, fusion_threshold, compression))
+                leaves, fusion_threshold, compression, process_set))
         self._handles: Dict[int, tuple] = {}
         self._plan()
         shape = hier_mesh_shape()
@@ -568,13 +604,38 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             else:
                 self.bucket_plan = plan_buckets(
                     self._trainable, self._fusion_threshold, reverse=True)
-        _note_plan_bytes(self.bucket_plan, self._compression)
+        _note_plan_bytes(self.bucket_plan, self._compression,
+                         self._process_set)
         self._bucket_of: Dict[int, int] = {}
         for b, (_, lspecs) in enumerate(self.bucket_plan.buffers):
             for s in lspecs:
                 self._bucket_of[s.index] = b
         self._counter = [0] * len(self._trainable)
         self._ready: List[set] = [set() for _ in self.bucket_plan.buffers]
+
+    def bind_data_set(self, data_set) -> None:
+        """Exchange over ``data_set`` from now on: the 3-D step hands a
+        wrap built without a process set the set of its mesh's two data
+        axes (``mesh.group(data_axes(mesh))``), as the JAX step resolves
+        a ``DistributedOptimizer``'s ``axes=None`` to the mesh's axes.
+        An error-feedback wrap plans its residuals again for the set's
+        layout (zeros: refused once a step has run)."""
+        if self._handles or self._native or any(self._counter):
+            raise RuntimeError(
+                "bind_data_set() needs a step boundary: no handle "
+                "outstanding and no accumulation partway through")
+        self._process_set = data_set
+        if self._ef:
+            if any(bool(r.any()) for r in self._residuals):
+                raise RuntimeError(
+                    "bind_data_set() after an error-feedback step: the "
+                    "residuals are planned for the old layout")
+            leaves = [self._flax_view(i, p)
+                      for i, p in enumerate(self._trainable)]
+            self._residuals = list(ef_init_residuals(
+                leaves, self._fusion_threshold, self._compression,
+                data_set))
+        self._plan()
 
     def replan(self) -> None:
         """Plan the buckets again under the current fusion threshold and
@@ -849,9 +910,10 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     ...) or ``None`` to follow ``HOROVOD_COMPRESSION``.  The
     error-feedback codecs carry one residual per bucket
     (``optimizer.residuals``; ``HOROVOD_EF_RESIDUAL``) and support
-    Sum/Average with one backward pass per step.  fp8 (but for Adasum),
-    top-k and the per-leg codecs refuse a process set smaller than the
-    world, as in the JAX package.
+    Sum/Average with one backward pass per step.  fp8 (but for Adasum)
+    and top-k refuse a process set smaller than the world, as in the JAX
+    package, and so do the per-leg codecs but on a mesh's two-data-axis
+    set.
     ``op=Adasum`` needs a power-of-two world (see the module docstring).
     ``process_set``, ``sparse_as_dense`` and ``num_groups``: see the
     module docstring.  Every argument is checked before the optimizer's
@@ -861,7 +923,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     compression = _configured_compression(compression)
     if process_set is not None and \
             not get_process_set(process_set).is_global() and (
-                is_topk(compression) or is_hier_legs(compression)
+                is_topk(compression)
+                or (is_hier_legs(compression) and not _mesh_set(process_set))
                 or (is_fp8(compression) and op is not Adasum)):
         raise NotImplementedError(
             f"{compression.__name__} does not support process-set "

@@ -28,12 +28,15 @@ elementwise, so an update of a flat shard is the per-leaf update.  Pass
 the BARE optimizer: :func:`zero_apply`'s reduce-scatter replaces the
 ``DistributedOptimizer``'s allreduce, and a wrapped one is refused.
 
-With a per-leg codec on the two-level layout
-(:func:`~horovod_tpu_torch.core.topology.hier_mesh_shape`) the
-reduce-scatter runs within the node first and then across nodes, and
-the allgather in the inverse order, so only the 1/n_ici slice crosses
-nodes; shard ``j = ici * n_dcn + dcn`` belongs to the rank at those
-indices, the JAX package's order.
+With a per-leg codec on a two-level layout -- the world's
+(:func:`~horovod_tpu_torch.core.topology.hier_mesh_shape`) or that of a
+mesh's two data axes (``build_3d_mesh(dcn_size=...)``: the arenas are
+sharded over the data set, ``(dcn, inner)``) -- the reduce-scatter runs
+within the node first and then across nodes, and the allgather in the
+inverse order, so only the 1/n_ici slice crosses nodes; shard ``j = ici
+* n_dcn + dcn`` belongs to the rank at those positions, the JAX
+package's ``(ici, dcn)``-major order, in :func:`zero_init` and
+:func:`zero_apply` alike.
 
 Elastic resizes (:func:`zero_resize`) work on the state of every rank at
 once, as the JAX package's arenas hold it: :func:`zero_stack` gathers each
@@ -67,7 +70,7 @@ from ..collectives.reduce_op import Sum
 from ..controller.fusion import _LeafSpec, dtype_name, plan_exchange
 from ..core.basics import _require_init
 from ..core.state import global_state
-from ..core.topology import hier_mesh_shape, hier_sets
+from ..core.topology import set_pair
 from ..timeline.metrics import note_collective, note_zero_step
 from ..timeline.spans import note_leg
 
@@ -260,6 +263,10 @@ class ZeroState:
     # The set the arenas are sharded over (the 3-D step's data set);
     # None: every rank.
     process_set: Any = None
+    # The arena's leaf order as indices into the leaves zero_apply gets
+    # (zero_init's param_specs: the JAX package's leaf order); None: as
+    # given.
+    order: Optional[List[int]] = None
 
     def state_bytes(self) -> int:
         """Bytes of the inner optimizer's state tensors on this rank."""
@@ -291,65 +298,119 @@ def _state_bytes(opt: torch.optim.Optimizer) -> int:
                for v in st.values() if torch.is_tensor(v))
 
 
-def _shard_index(comp) -> Tuple[int, Optional[Tuple[int, int]]]:
-    """This rank's shard index, and the two-level layout when a per-leg
-    codec runs on it (shard ``ici * n_dcn + dcn``)."""
+def _check_legs(comp, ps) -> None:
+    """A per-leg codec needs a two-level layout: every rank's, or a mesh
+    data set's; a user's process set is one level."""
+    if is_hier_legs(comp) and ps is not None and \
+            getattr(ps, "hier", None) is None:
+        raise ValueError("zero_compression per leg (ici:...,dcn:...) runs "
+                         "over every rank or a mesh's two data axes, not a "
+                         "process set")
+
+
+def _shard_index(comp, ps=None) -> Tuple[int, Optional[Any]]:
+    """This rank's shard index among the arena's set ``ps`` (every rank
+    when ``None``), and the two-level layout (a ``HierPair``) when a
+    per-leg codec runs on one: shard ``ici * n_dcn + dcn``."""
     st = _require_init()
-    shape = hier_mesh_shape() if is_hier_legs(comp) else None
-    if shape is None or shape[0] == 1:
-        return st.rank, None
-    n_dcn, n_ici = shape
-    dcn, ici = divmod(st.rank, n_ici)
-    return ici * n_dcn + dcn, shape
+    pair = set_pair(ps) if is_hier_legs(comp) else None
+    if pair is None or pair.n_dcn == 1:
+        return (st.rank if ps is None else ps.position()), None
+    dcn, ici = pair.index()
+    return ici * pair.n_dcn + dcn, pair
 
 
-def _owner_order(shape: Optional[Tuple[int, int]], n: int) -> List[int]:
-    """World rank owning each shard index."""
-    if shape is None:
+def _owner_order(pair, n: int) -> List[int]:
+    """The position in the arena's set owning each shard index (shard
+    ``ici * n_dcn + dcn`` is position ``dcn * n_ici + ici``)."""
+    if pair is None:
         return list(range(n))
-    n_dcn, n_ici = shape
+    n_dcn, n_ici = pair.shape
     return [(j % n_dcn) * n_ici + j // n_dcn for j in range(n)]
 
 
 def _zero_set(process_set):
-    """A set view for the arenas (``None``: every rank)."""
+    """A set view for the arenas (``None``: every rank, the bare global
+    set included; a mesh's data set keeps its two-level pair)."""
     if process_set is None:
         return None
     from ..core.process_sets import get_process_set
     ps = get_process_set(process_set)
-    return None if ps.is_global() else ps
+    return None if ps.is_global() and ps.hier is None else ps
 
 
-def zero_init(optimizer: torch.optim.Optimizer, params,
-              compression=None, process_set=None) -> ZeroState:
-    """The sharded state for ``zero_stage=1`` over ``params`` (the
-    model's trainable tensors, in the order :func:`zero_apply` gets
-    them): this rank's arena shards, an inner optimizer over them, and
-    -- when ``compression`` is an error-feedback codec -- zero f32
-    residuals, one a shard.  Collective-free.  ``process_set`` shards
-    the arenas over its members only (the 3-D step's data set, the JAX
-    ``zero_init(param_specs=...)``: each model-parallel group owns the
-    arenas of its own shards); the two-level per-leg codecs need every
-    rank."""
+def zero_init(optimizer: torch.optim.Optimizer, params, mesh=None,
+              compression=None, param_specs=None,
+              process_set=None) -> ZeroState:
+    """The sharded state for ``zero_stage=1`` (the JAX ``zero_init(
+    optimizer, params, mesh=, compression=, param_specs=)``): this rank's
+    arena shards, an inner optimizer over them, and -- when
+    ``compression`` is an error-feedback codec -- zero f32 residuals, one
+    a shard.  Collective-free.
+
+    ``params`` are the tensors this rank trains, as :func:`zero_apply`
+    gets them: a sequence, or a ``{name: tensor}`` dict (then in its
+    order).  On a model-parallel mesh they are this rank's TP / stage
+    shards (a rank holds no other), and the arenas are sharded over the
+    mesh's data set only: every ``(tp, pipe)`` group owns the arenas of
+    its own shards.  ``mesh`` (the current mesh when ``param_specs`` is
+    given without one) selects that data set
+    (``mesh.group(data_axes(mesh))``); with two data axes, ``(dcn,
+    inner)``, a per-leg codec runs the two-level exchange over them.
+    ``param_specs`` -- the ``{name: spec}`` dict the step was built with
+    -- takes the leaves in the JAX package's leaf order
+    (``models.convert.flax_leaf_order`` of the names), so the arenas and
+    every shard are the JAX ``zero_init``'s on the same mesh; ``params``
+    must then be a dict with the same names.  ``process_set`` shards the
+    arenas over a set of one's own (one level); given beside a mesh it
+    must be the mesh's data set, else ``ValueError``."""
+    from ..core.process_sets import get_process_set
     _reject_distributed(optimizer)
     comp = parse_compression(compression) if compression else \
         Compression.none
-    params = [p.detach() for p in params]
+    order = None
+    if isinstance(params, dict):
+        names, tensors = list(params), list(params.values())
+        if param_specs is not None:
+            if set(param_specs) != set(names):
+                raise ValueError(
+                    f"param_specs names {sorted(set(param_specs) ^ set(names))}"
+                    f" differ from the params'")
+            from ..models.convert import flax_leaf_order
+            order = list(flax_leaf_order(names))
+    else:
+        if param_specs is not None:
+            raise ValueError("param_specs= needs params as a {name: tensor} "
+                             "dict (the names the specs key)")
+        tensors = list(params)
     st = _require_init()
     ps = _zero_set(process_set)
-    if ps is not None and is_hier_legs(comp):
-        raise ValueError("zero_compression per leg (ici:...,dcn:...) runs "
-                         "over every rank, not a process set")
-    spec = plan_arena(params, st.size if ps is None else ps.size())
-    idx = _shard_index(comp)[0] if ps is None else ps.position()
+    if mesh is not None or param_specs is not None:
+        from ..parallel.mesh import current_mesh, data_axes
+        mesh = mesh if mesh is not None else current_mesh()
+        if mesh is None:
+            raise ValueError("zero_init(param_specs=) needs a mesh "
+                             "(build_3d_mesh) or mesh=")
+        data = mesh.group(data_axes(mesh))
+        if process_set is not None and \
+                get_process_set(process_set).ranks != data.ranks:
+            raise ValueError(
+                f"zero_init: process_set {get_process_set(process_set).ranks}"
+                f" conflicts with the mesh's data set {data.ranks}")
+        ps = _zero_set(data)
+    _check_legs(comp, ps)
+    leaves = [tensors[i].detach() for i in order] if order is not None \
+        else [p.detach() for p in tensors]
+    spec = plan_arena(leaves, st.size if ps is None else ps.size())
+    idx = _shard_index(comp, ps)[0]
     shards = [a[idx * b.shard:(idx + 1) * b.shard].clone()
-              for a, b in zip(arena_pack(params, spec), spec.buffers)]
+              for a, b in zip(arena_pack(leaves, spec), spec.buffers)]
     residuals = None
     if is_error_feedback(comp):
         residuals = [torch.zeros(b.shard, device=a.device)
                      for a, b in zip(shards, spec.buffers)]
     return ZeroState(spec, shards, _inner_optimizer(optimizer, shards),
-                     residuals, ps)
+                     residuals, ps, order)
 
 
 def zero_plan(spec: ZeroSpec, compression=None, shape=None,
@@ -391,7 +452,7 @@ def _resolve_compression(compression):
 
 
 def _reduce_scatter_mean(g: torch.Tensor, buf: _ArenaBuffer, n: int,
-                         shape, leg, use_rs: bool = True,
+                         pair, leg, use_rs: bool = True,
                          idx: int = 0, ps=None) -> torch.Tensor:
     """This rank's shard (index ``idx``) of the mean of ``g`` over the
     world: one reduce-scatter, or within the node and then across nodes
@@ -400,12 +461,13 @@ def _reduce_scatter_mean(g: torch.Tensor, buf: _ArenaBuffer, n: int,
     if not use_rs:
         full = step_allreduce_(g, Sum, process_set=ps)
         out = full[idx * buf.shard:(idx + 1) * buf.shard].clone()
-    elif shape is None:
+    elif pair is None:
         out = psum_scatter_bucket(g, quantum=n, process_set=ps)
     else:
-        note_collective("reducescatter", "global", leg.nbytes)
-        ici, dcn = hier_sets(shape[1])
-        piece = g.new_empty(buf.padded // shape[1])
+        note_collective("reducescatter", "global" if ps is None else
+                        ps.name, leg.nbytes)
+        ici, dcn = pair.sets()
+        piece = g.new_empty(buf.padded // pair.n_ici)
         dist.reduce_scatter_tensor(piece, g, op=dist.ReduceOp.SUM,
                                    group=ici.group)
         out = g.new_empty(buf.shard)
@@ -445,16 +507,20 @@ def zero_apply(optimizer: torch.optim.Optimizer,
     ps = zero_state.process_set
     _, n = _comm(ps)
     spec = zero_state.spec
+    grads = list(grads)
+    given = params
+    if zero_state.order is not None:
+        if len(params) != len(zero_state.order) or \
+                len(grads) != len(params):
+            raise ValueError("zero_state was planned for other parameters")
+        params = [params[i] for i in zero_state.order]
+        grads = [grads[i] for i in zero_state.order]
     if spec != plan_arena(params, n):
         raise ValueError("zero_state was planned for other parameters or "
                          "another world size")
-    if ps is None:
-        idx, shape = _shard_index(comp)
-    elif is_hier_legs(comp):
-        raise ValueError("zero_compression per leg (ici:...,dcn:...) runs "
-                         "over every rank, not a process set")
-    else:
-        idx, shape = ps.position(), None
+    _check_legs(comp, ps)
+    idx, pair = _shard_index(comp, ps)
+    shape = pair.shape if pair is not None else None
     set_name = "global" if ps is None else ps.name
     use_rs = _use_reducescatter()
     rs_legs, ag_legs = zero_plan(spec, comp, shape, use_rs)
@@ -466,7 +532,7 @@ def zero_apply(optimizer: torch.optim.Optimizer,
         for g, p, buf, shard, leg in zip(g_arenas, p_arenas, spec.buffers,
                                          zero_state.shards, rs_legs):
             note_leg(leg)
-            shard.grad = _reduce_scatter_mean(g, buf, n, shape, leg,
+            shard.grad = _reduce_scatter_mean(g, buf, n, pair, leg,
                                               use_rs, idx, ps)
             shard.copy_(p[idx * buf.shard:(idx + 1) * buf.shard])
         old = [s.clone() for s in zero_state.shards] if ef else None
@@ -477,7 +543,7 @@ def zero_apply(optimizer: torch.optim.Optimizer,
         if ef:
             feed = _ef_enabled()
             dcomp = comp.dcn if is_hier_legs(comp) else comp
-            order = _owner_order(shape, n)
+            order = _owner_order(pair, n)
             for i, (o, new, arena, buf) in enumerate(zip(
                     old, zero_state.shards, p_arenas, spec.buffers)):
                 note_leg(ag_legs[i])
@@ -502,8 +568,8 @@ def zero_apply(optimizer: torch.optim.Optimizer,
             for s, buf, leg in zip(zero_state.shards, spec.buffers, ag_legs):
                 note_leg(leg)
                 note_collective("allgather", set_name, leg.nbytes)
-                if shape is not None:
-                    ici, dcn = hier_sets(shape[1])
+                if pair is not None:
+                    ici, dcn = pair.sets()
                     block = compressed_allgather(s, compression=comp.dcn,
                                                  process_set=dcn)
                     g = compressed_allgather(block, compression=comp.ici,
@@ -521,7 +587,7 @@ def zero_apply(optimizer: torch.optim.Optimizer,
     rs = sum(leg.nbytes for leg in rs_legs)
     note_zero_step(rs * (n - 1) // n, ag_payload * (n - 1) // n + ag_extra,
                    zero_state.state_bytes())
-    return params, zero_state
+    return given, zero_state
 
 
 def _wire_itemsize(comp, dt: torch.dtype) -> int:
@@ -647,7 +713,7 @@ def zero_load(zero_state: ZeroState, stacked: StackedZeroState,
     loop replays them), entries the live state lacks are created, and
     entries ``stacked`` lacks are dropped."""
     if row is None:
-        row, _ = _shard_index(Compression.none)
+        row, _ = _shard_index(Compression.none, zero_state.process_set)
     if len(stacked.inner) != len(zero_state.shards):
         raise ValueError(
             f"stacked ZeRO state has {len(stacked.inner)} arena(s), the "

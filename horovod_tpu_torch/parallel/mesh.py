@@ -35,6 +35,7 @@ axes of extent above 1) has extent 1 and resolves to this rank alone.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -42,6 +43,7 @@ import numpy as np
 
 from ..core.process_sets import ProcessSet, add_process_set
 from ..core.state import global_state
+from ..core.topology import HierPair
 from ..core.topology import parse_topology_spec  # noqa: F401
 
 # Canonical axis names (the JAX package's).
@@ -171,12 +173,32 @@ class RankMesh:
 
     def group(self, axes: Axes) -> ProcessSet:
         """This rank's set over ``axes`` (a name or a tuple of names);
-        looked up once per axes (the layers resolve it every call)."""
+        looked up once per axes (the layers resolve it every call).  The
+        set of the mesh's data axes, when they are the ``(dcn, inner)``
+        pair, is a view carrying their two-level factorisation
+        (``.hier``, :meth:`hier_pair`): the gradient exchange over it may
+        run the ICI x DCN decomposition, as the JAX package's does over
+        the two axes."""
         key = _as_axes(axes)
         ps = self._groups.get(key)
         if ps is None:
-            ps = self._groups[key] = self._sets[self.members(key)]
+            ps = self._sets[self.members(key)]
+            d_ax = data_axes(self)
+            if len(d_ax) == 2 and set(key) == set(d_ax):
+                ps = dataclasses.replace(ps, hier=self.hier_pair())
+            self._groups[key] = ps
         return ps
+
+    def hier_pair(self) -> Optional[HierPair]:
+        """The two-level layout of the data axes when they are the
+        ``(dcn, inner)`` pair (``n_dcn = shape["dcn"]``, ``n_ici`` the
+        inner axis's extent, this rank's lines along each), else
+        ``None``."""
+        d_ax = data_axes(self)
+        if len(d_ax) != 2 or d_ax[0] != DCN_AXIS:
+            return None
+        return HierPair(self.shape[DCN_AXIS], self.shape[d_ax[1]],
+                        ici=self.group(d_ax[1]), dcn=self.group(DCN_AXIS))
 
     def axis_size(self, axes: Axes) -> int:
         """The product of the extents of ``axes`` (1 for a dropped

@@ -653,6 +653,18 @@ class FleetScaler:
                            engines=self.fleet.num_engines)
 
     def tick(self, now_s: float) -> Decision:
+        """Sample, decide and apply (one process: :meth:`decide` then
+        :meth:`apply`)."""
+        decision = self.decide(now_s)
+        self.apply(decision, now_s)
+        return decision
+
+    def decide(self, now_s: float) -> Decision:
+        """Sample the fleet and decide, recording the decision (but a
+        hold inside the interval) in ``decisions``; the fleet is not
+        changed.  In lock-step only the leader decides: the record rides
+        the turn's header, every other rank takes it (:meth:`adopt`), and
+        every rank carries it out (:meth:`apply`)."""
         cfg = self.policy.config
         if now_s - self._last_tick < cfg.interval_s:
             return Decision("hold", "interval")
@@ -674,11 +686,24 @@ class FleetScaler:
             "target_size": decision.target_size,
             "queue_depth": sample.queue_depth,
             "ttft_p99_s": sample.ttft_p99_s})
+        return decision
+
+    def adopt(self, record: dict, slo_violation_s: float) -> Decision:
+        """A rank other than the leader: take the leader's decision
+        record and violation total from the header; returns the
+        decision to :meth:`apply`."""
+        self.decisions.append(dict(record))
+        self.slo_violation_s = float(slo_violation_s)
+        return Decision(record["action"], record["reason"],
+                        record["target_size"])
+
+    def apply(self, decision: Decision, now_s: float) -> None:
+        """Carry a decision out: commission a decode engine (a hold does
+        nothing)."""
         if decision.is_hold:
-            return decision
+            return
         with _spans.recorder().span(
                 "ctl", name=f"fleet:{decision.action}",
                 leg=f"ctl/{decision.action}/{decision.reason}"):
             self.fleet.add_decode_worker(decision.reason)
         self.policy.mark_applied(decision, now_s)
-        return decision

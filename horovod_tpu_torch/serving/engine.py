@@ -532,10 +532,14 @@ class ServingEngine:
         if self._ls is None:
             return None
         hdr = self._ls.exchange(tick)
+        self._drain_quarantined()
+        return hdr
+
+    def _drain_quarantined(self) -> None:
+        """The re-prefills the turn's header released (lock-step)."""
         quarantined, self._quarantined = self._quarantined, []
         for args in quarantined:
             self._reprefill_quarantined(*args)
-        return hdr
 
     def _step_out(self, step, tokens, active, width: int,
                   extra: tuple) -> tuple:

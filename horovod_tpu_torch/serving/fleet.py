@@ -32,23 +32,43 @@ time.  The loop keeps the engines' virtual clock and rebates the
 serialized rest of each iteration (``skip -= iter_real - max(per-host
 busy)``): tokens/s against modelled concurrent wall, from real kernel
 times.
+
+A tensor-parallel decode worker (``ServingEngine(mesh=)`` at world > 1):
+every rank of the world builds the same fleet and calls :meth:`
+ServingFleet.serve` with the same requests, and the loop runs in
+lock-step (:mod:`.lockstep`).  The world's rank 0, the leader, reads the
+clock, runs the prefill workers and publishes each handoff to the KV
+plane, and (with a scaler) decides.  Every decode engine steps on a lane
+of one header, which ends each loop turn and carries what the other
+ranks cannot compute: the clock, the engines' first-token times and
+tokens, the turn's handoff tickets (first token and byte count; the key
+is ``r{rid}``) and the scaler's decision.  Routing, admissions,
+migration and the fallback of a dead publisher's handoffs follow from
+these on every rank alike.  Every rank GETs each payload and imports it
+into its own kv heads of the pool; the leader deletes an object only
+after the header's ``ack`` count shows that every rank imported it.  A
+decode engine's mesh must cover the world.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from ..core.device import resolve_device
+from ..core.state import global_state
 from ..timeline import spans as _spans
 from ..timeline.metrics import registry as _registry
 from .controlplane import FleetScaler
 from .decode import greedy_sample, prefill_forward
 from .engine import ServingEngine, _pct
 from .kvwire import decode_kv, encode_kv, import_pages, wire_tier
+from .lockstep import LockStep
+from .policy import Decision
 from .router import FleetRouter
 from .scheduler import Request
 
@@ -133,11 +153,14 @@ class DecodeWorker:
         return self.engine.scheduler
 
     def complete_handoff(self, slot: int, req: Request,
-                         ticket: HandoffTicket, now) -> Optional[int]:
+                         ticket: HandoffTicket, now,
+                         delete: bool = True) -> Optional[int]:
         """Import a published payload into ``slot`` and join the request
         into the decode batch.  Returns the bytes imported, or None when
         the object is gone (its publisher died and was reaped): the
-        caller then falls back to :meth:`local_prefill`."""
+        caller then falls back to :meth:`local_prefill`.  ``delete``
+        False leaves the object on the plane (lock-step: the leader
+        deletes it once every rank has imported it)."""
         t0 = time.monotonic()
         with _spans.recorder().span("dispatch", name="handoff_import",
                                     leg="serving_handoff_import"):
@@ -146,7 +169,8 @@ class DecodeWorker:
                 return None
             import_pages(self.engine.cache, slot, decode_kv(buf))
             self.engine._join_decode(self.st, slot, req, ticket.first, now)
-        self.kv.delete_large(_SCOPE, ticket.key)
+        if delete:
+            self.kv.delete_large(_SCOPE, ticket.key)
         self.busy_s += time.monotonic() - t0
         return len(buf)
 
@@ -215,6 +239,22 @@ class ServingFleet:
         self.engine_factory = engine_factory
         self.scaler = (FleetScaler(self, policy=scaler_policy)
                        if scaler_policy is not None else None)
+        # Lock-step over the world (module docstring): one header a loop
+        # turn, a lane for every decode engine the fleet may hold.
+        self._ls: Optional[LockStep] = None
+        engines = [w.engine for w in decode_workers]
+        if any(e._ls is not None for e in engines):
+            lanes = max(len(engines), self.scaler.policy.config.max_engines
+                        if self.scaler is not None else 0)
+            slots = engines[0].slots
+            if any(e.slots != slots or e.spec_decode for e in engines):
+                raise ValueError("a lock-step fleet's decode engines share "
+                                 "one slot count and decode one token a "
+                                 "step (no speculation)")
+            self._ls = LockStep(slots, 1, lanes=lanes,
+                                blob_words=64 + 4 * lanes * slots)
+            for i, e in enumerate(engines):
+                e._ls = self._ls.lane(i)
         self.migrated = 0
         self._rr = 0  # round-robin cursor over the alive prefill workers
         self._in_flight: List[dict] = []
@@ -254,6 +294,8 @@ class ServingFleet:
                 "fleet has no engine_factory; cannot add capacity")
         name = f"decode{len(self.decode)}"
         worker = DecodeWorker(name, self.engine_factory(), self.kv)
+        if self._ls is not None:
+            worker.engine._ls = self._ls.lane(len(self.decode))
         self.decode[name] = worker
         self.router.register(name, worker.scheduler)
         donor = max((w for n, w in self.decode.items() if n != name),
@@ -273,14 +315,19 @@ class ServingFleet:
     def kill_prefill(self, name: str) -> int:
         """Chaos: a prefill host dies.  Its published but unimported
         objects are reaped from the KV plane, so the decode side takes
-        the lost-object fallback.  Returns the tickets reaped."""
+        the lost-object fallback.  Returns the tickets reaped.  In
+        lock-step every rank calls it at the same turn: each marks the
+        handoffs lost, the leader reaps the objects."""
         reaped = 0
+        leader = self._ls is None or self._ls.leader
         for w in self.prefill_workers:
             if w.name == name and w.alive:
                 w.alive = False
                 for h in self._in_flight:
-                    if h["ticket"].worker == name and not h["done"]:
-                        self.kv.delete_large(_SCOPE, h["ticket"].key)
+                    if h["worker"] == name and not h["done"]:
+                        if leader:
+                            self.kv.delete_large(_SCOPE, f"r{h['req'].rid}")
+                        h["reaped"] = True
                         reaped += 1
         return reaped
 
@@ -292,7 +339,21 @@ class ServingFleet:
     def serve(self, requests: Sequence[Request], *,
               kill_prefill_at_step: Optional[int] = None,
               kill_prefill_name: Optional[str] = None) -> FleetReport:
-        """Run the open-loop stream across the fleet to completion."""
+        """Run the open-loop stream across the fleet to completion.  In
+        lock-step (a tp decode worker: module docstring) every rank calls
+        it with the same arguments and returns the same report, its
+        times the leader's."""
+        ls = self._ls
+        if ls is not None:
+            world = global_state().size
+            for name, w in self.decode.items():
+                mesh = w.engine.mesh
+                if mesh is None or mesh.size != world:
+                    raise ValueError(
+                        f"decode worker {name!r}: a lock-step fleet takes "
+                        f"decode engines whose mesh covers the world of "
+                        f"{world} (ServingEngine(mesh=) over every rank)")
+        leader = ls is None or ls.leader
         pending = sorted(requests, key=lambda r: r.arrival_s)
         cap = min(w.engine.max_len for w in self.decode.values())
         feed = [r for r in pending
@@ -314,6 +375,10 @@ class ServingFleet:
         def now() -> float:
             return time.monotonic() - start + skip
 
+        if ls is not None:
+            ls.reset()
+            now = ls.now     # noqa: F811 - the leader's clock, per turn
+
         prompts_dev: Dict[int, Any] = {}
         # Streamed handoffs: dispatched (this iteration) -> imported
         # (the next) -> done.
@@ -321,11 +386,52 @@ class ServingFleet:
         streamed = local = kv_out = kv_in = 0
         overhead = 0.0   # serialized-in-driver time rebated each iteration
         step = 0
+        unacked: List[str] = []    # imported keys the leader may delete
+        leader_overhead = 0.0      # the leader's rebates, from the header
 
         def note_local() -> None:
             nonlocal local
             local += 1
             self._m_handoffs.labels(outcome="local").inc()
+
+        def end_turn(dispatched: List[dict], imported: int,
+                     decided: Optional[dict]) -> None:
+            """Lock-step: the turn's header, then what it carries."""
+            nonlocal kv_out, leader_overhead
+            if ls.leader:
+                ls.attach(json.dumps({
+                    "t": [[d["ticket"].first, d["ticket"].nbytes]
+                          for d in dispatched],
+                    "d": decided, "n": now(), "o": overhead,
+                    "v": self.scaler.slo_violation_s
+                    if self.scaler is not None else 0.0}).encode())
+            hdr = ls.exchange(ack=imported)
+            for w in self.decode.values():
+                w.engine._drain_quarantined()
+            blob = json.loads(hdr["blob"])
+            if hdr["ack"] != imported * global_state().size:
+                raise RuntimeError(
+                    f"lock-step fleet: {hdr['ack']} imports acknowledged, "
+                    f"{imported} on each of {global_state().size} ranks")
+            if ls.leader:
+                for key in unacked:
+                    self.kv.delete_large(_SCOPE, key)
+            unacked.clear()
+            if not ls.leader:
+                for d, (first, nbytes) in zip(dispatched, blob["t"]):
+                    d["ticket"] = HandoffTicket(
+                        rid=d["req"].rid, key=f"r{d['req'].rid}",
+                        first=int(first), nbytes=int(nbytes),
+                        worker=d["worker"], published_s=d["published_s"])
+                    kv_out += int(nbytes)
+            record = blob["d"]
+            if record is not None:
+                decision = Decision(record["action"], record["reason"],
+                                    record["target_size"])
+                if not ls.leader:
+                    decision = self.scaler.adopt(record, blob["v"])
+                self.scaler.apply(decision, blob["n"])
+            leader_overhead = blob["o"]
 
         while True:
             step += 1
@@ -351,22 +457,32 @@ class ServingFleet:
                                   or self.prefill_workers[0].name)
 
             # 3. Import last iteration's pages.
+            imported = 0
             for h in self._in_flight:
                 w = self.decode[h["engine"]]
                 t0 = time.monotonic()
-                got = w.complete_handoff(h["slot"], h["req"], h["ticket"],
-                                         now)
+                got = None if h.get("reaped") else w.complete_handoff(
+                    h["slot"], h["req"], h["ticket"], now,
+                    delete=ls is None)
                 if got is None:
+                    if ls is not None and not h.get("reaped"):
+                        raise RuntimeError(
+                            f"lock-step fleet: handoff {h['ticket'].key} "
+                            f"is gone from the KV plane")
                     w.local_prefill(h["slot"], h["req"],
                                     prompts_dev[h["req"].rid], now)
                     note_local()
                 else:
                     kv_in += got
+                    imported += 1
+                    if ls is not None:
+                        unacked.append(h["ticket"].key)
                     self._m_kv_bytes.labels(direction="in").inc(got)
                     streamed += 1
                     self._m_handoffs.labels(outcome="streamed").inc()
-                    self._m_handoff_lat.observe(
-                        max(now() - h["ticket"].published_s, 0.0))
+                    if leader:
+                        self._m_handoff_lat.observe(
+                            max(now() - h["ticket"].published_s, 0.0))
                 prompts_dev.pop(h["req"].rid, None)
                 h["done"] = True
                 charge(h["engine"], t0)
@@ -388,17 +504,23 @@ class ServingFleet:
                         note_local()
                         charge(name, t0)
 
-            # 5. Prefills, round-robin over the alive workers.
+            # 5. Prefills, round-robin over the alive workers (on the
+            # leader; the other ranks take the tickets from the header).
             for d in dispatch:
                 workers = self._alive_prefill()
                 pw = workers[self._rr % len(workers)]
                 self._rr += 1
-                t0 = time.monotonic()
-                ticket = pw.run(d["req"], prompts_dev[d["req"].rid], now())
-                kv_out += ticket.nbytes
-                self._m_kv_bytes.labels(direction="out").inc(ticket.nbytes)
-                charge(f"prefill:{pw.name}", t0)
-                d["ticket"], d["done"] = ticket, False
+                d["worker"], d["published_s"] = pw.name, now()
+                d["ticket"] = None
+                if leader:
+                    t0 = time.monotonic()
+                    d["ticket"] = pw.run(d["req"], prompts_dev[d["req"].rid],
+                                         now())
+                    kv_out += d["ticket"].nbytes
+                    self._m_kv_bytes.labels(direction="out").inc(
+                        d["ticket"].nbytes)
+                    charge(f"prefill:{pw.name}", t0)
+                d["done"] = False
                 self._in_flight.append(d)
 
             # 6. One decode round per engine with live decode slots.
@@ -406,26 +528,52 @@ class ServingFleet:
                 if w.engine._decode_slots():
                     busy[name] = busy.get(name, 0.0) + w.decode_step(now)
 
-            # 7. The fleet controller.
+            # 7. The fleet controller (in lock-step the leader decides;
+            # every rank applies the decision from the header).
+            decided = None
             if self.scaler is not None:
-                self.scaler.tick(now())
+                if ls is None:
+                    self.scaler.tick(now())
+                elif ls.leader:
+                    n = len(self.scaler.decisions)
+                    self.scaler.decide(now())
+                    if len(self.scaler.decisions) > n:
+                        decided = self.scaler.decisions[-1]
 
             # 8. Clock rebate: the hosts ran concurrently, so the fleet
             # aged by the busiest host's time this iteration.
             iter_real = time.monotonic() - iter_t0
             model = min(max(busy.values(), default=0.0), iter_real)
             overhead += iter_real - model
-            skip -= iter_real - model
+            if ls is None:
+                skip -= iter_real - model
+            elif ls.leader:
+                ls.skip -= iter_real - model
+                end_turn(dispatch, imported, decided)
+            else:
+                end_turn(dispatch, imported, decided)
 
             if not (self._in_flight or any(
                     w.scheduler.has_work() for w in self.decode.values())):
                 if fi >= len(feed):
                     break
-                gap = feed[fi].arrival_s - now()
-                if gap > 0:
-                    skip += gap
+                if ls is None:
+                    gap = feed[fi].arrival_s - now()
+                    if gap > 0:
+                        skip += gap
+                else:
+                    # Idle: the leader fast-forwards its clock to the next
+                    # arrival; one more header brings it to every rank.
+                    if ls.leader:
+                        gap = feed[fi].arrival_s - ls.fresh()
+                        if gap > 0:
+                            ls.skip += gap
+                    ls.exchange()
 
-        wall_s = max(time.monotonic() - start - overhead, 1e-9)
+        if ls is None:
+            wall_s = max(time.monotonic() - start - overhead, 1e-9)
+        else:
+            wall_s = max(ls.wall - leader_overhead, 1e-9)
         # The leak gate, per decode engine: drop the prefix tree's own
         # references, then every page must come back.
         leaked: Dict[str, int] = {}

@@ -481,11 +481,14 @@ class PagedKVCache:
         row's max-abs is the ``Max`` over the tp set's heads."""
         return _quantize_pages(pool, pids, self.sharding.process_set)
 
-    def _refuse_sharded(self, what: str) -> None:
-        if self.sharding.size > 1 or not self.sharding.member:
-            raise NotImplementedError(
-                f"{what} on a kv-head-sharded pool: a tp > 1 decode worker "
-                f"over the KV wire is not ported (ROADMAP section 1)")
+    def _my_heads(self, x):
+        """``x`` (``[..., num_kv_heads, head_dim]``, every head, as the
+        wire carries a page) cut to this rank's heads: all of them at tp
+        1, none on a rank outside the mesh."""
+        if self.local_heads == self.config.num_kv_heads:
+            return x
+        return torch.as_tensor(x)[..., self.head0:self.head0
+                                   + self.local_heads, :]
 
     def free_slot(self, slot: int) -> None:
         """Refcount-decrement the slot's pages and mark it idle.  A
@@ -550,8 +553,11 @@ class PagedKVCache:
         caller, who maps them with :meth:`attach_pages` and drops its
         own reference.  Written verbatim (a cast to the pool dtype at
         most), so an f32-tier import is bitwise a local
-        ``write_prefill``."""
-        self._refuse_sharded("adopt_pages")
+        ``write_prefill``.  On a kv-head-sharded pool the rank keeps its
+        heads of each page, ``[..., head0:head0 + local_heads, :]``, as
+        ``write_prefill`` does; a rank outside the mesh keeps none but
+        takes the pages off its free list all the same, so the ranks'
+        lists stay in step."""
         n = int(k_pages.shape[1])
         if n == 0:
             return []
@@ -569,10 +575,10 @@ class PagedKVCache:
         for pid in pids:
             self._refcount[pid] = 1
         idx = _ids(pids, self.device)
-        self.k[:, idx] = torch.as_tensor(k_pages).to(self.device,
-                                                     self.k.dtype)
-        self.v[:, idx] = torch.as_tensor(v_pages).to(self.device,
-                                                     self.v.dtype)
+        self.k[:, idx] = self._my_heads(k_pages).to(self.device,
+                                                    self.k.dtype)
+        self.v[:, idx] = self._my_heads(v_pages).to(self.device,
+                                                    self.v.dtype)
         return [("f", int(p)) for p in pids]
 
     def adopt_compressed_pages(self, kq, vq, kscale, vscale
@@ -580,11 +586,15 @@ class PagedKVCache:
         """:meth:`adopt_pages` for the e4m3 pool: streamed e4m3 pages and
         their scales (the :mod:`.kvwire` fp8 tier) at refcount 1.  The
         wire quantizes as :func:`_quantize_pages` does, so an imported
-        page is bitwise :meth:`demote_page` of the same resident
-        bytes."""
+        page is bitwise :meth:`demote_page` of the same resident bytes.
+        On a kv-head-sharded pool the rank keeps its heads of ``kq`` /
+        ``vq`` and the sender's whole-row scales unchanged: a sharded
+        pool's row scale is the ``Max`` over the tp set's heads, which is
+        the whole row's max-abs the wire was quantized with, so the
+        imported shard is bitwise this rank's heads of the same
+        quantization."""
         if not self.compress:
             raise RuntimeError("cache built without compress=True")
-        self._refuse_sharded("adopt_compressed_pages")
         n = int(kq.shape[1])
         if n == 0:
             return []
@@ -595,7 +605,7 @@ class PagedKVCache:
         cpids = [self._cfree.pop() for _ in range(n)]
         for cpid in cpids:
             self._crefcount[cpid] = 1
-        self._store_fp8(cpids, torch.as_tensor(kq), torch.as_tensor(vq),
+        self._store_fp8(cpids, self._my_heads(kq), self._my_heads(vq),
                         torch.as_tensor(kscale), torch.as_tensor(vscale))
         return [("c", int(p)) for p in cpids]
 

@@ -467,7 +467,8 @@ def _microbatch_core(model: torch.nn.Module, loss_fn,
 
 def _step_core(model: torch.nn.Module, loss_fn,
                optimizer: torch.optim.Optimizer, zero_stage: int,
-               zero_compression, screen: bool, data_set=None):
+               zero_compression, screen: bool, data_set=None,
+               param_specs=None, mesh=None):
     """``(core(batch) -> (loss, screen), zero_state)`` of the single-shot
     step: forward, backward (the wrap's hooks launch its buckets), the
     optimizer step or the ZeRO-1 update, the loss averaged over the
@@ -475,15 +476,25 @@ def _step_core(model: torch.nn.Module, loss_fn,
     (``p.grad`` after the backward, before the exchange writes the
     reduced ones back), as the JAX ``make_train_step`` does.  The ZeRO-1
     arena and the loss average run over ``data_set`` (every rank when
-    ``None``)."""
+    ``None``); given ``param_specs`` naming every trainable parameter,
+    the arena is ``zero_init(param_specs=)``'s, in the JAX package's
+    leaf order."""
     params = [p for g in optimizer.param_groups for p in g["params"]
               if p.requires_grad]
     state = None
     if zero_stage:
         _zero._reject_distributed(optimizer)
-        state = _zero.zero_init(optimizer, params,
-                                compression=zero_compression,
-                                process_set=data_set)
+        name_of = {id(p): n for n, p in model.named_parameters()}
+        named = {name_of.get(id(p)): p for p in params}
+        if param_specs is not None and set(named) == set(param_specs):
+            state = _zero.zero_init(optimizer, named, mesh=mesh,
+                                    compression=zero_compression,
+                                    param_specs=param_specs,
+                                    process_set=data_set)
+        else:
+            state = _zero.zero_init(optimizer, params,
+                                    compression=zero_compression,
+                                    process_set=data_set)
 
     def core(batch):
         loss = loss_fn(model, batch)
@@ -756,6 +767,12 @@ def _data_set(tp, pipeline_stages, mesh, optimizer):
     d_ax, m_ax = _resolve_model_axes(mesh, tp, pipeline_stages)
     data_set = mesh.group(d_ax)
     _check_model_parallel_exchange(optimizer, d_ax, m_ax, data_set)
+    if data_set.hier is not None and \
+            isinstance(optimizer, _dist._DistributedOptimizer) and \
+            optimizer._process_set is None:
+        # Two data axes (dcn, inner): the wrap exchanges over their set,
+        # two-level where the JAX step's exchange over the axes is.
+        optimizer.bind_data_set(data_set)
     return tp, pipeline_stages, data_set
 
 
@@ -785,7 +802,8 @@ def _build_step(model: torch.nn.Module, loss_fn,
         zero_state = None
     else:
         core, zero_state = _step_core(model, loss_fn, optimizer, zero_stage,
-                                      zero_compression, guard_on, data_set)
+                                      zero_compression, guard_on, data_set,
+                                      param_specs, mesh)
     wrap = optimizer if isinstance(optimizer, _dist._DistributedOptimizer) \
         else None
 

@@ -44,7 +44,20 @@ case says otherwise:
   MoE rows equal to JAX's;
 * ``sync_batch_norm(axes=("data",))`` over the 2-rank data sets of a
   world of 4 against one process on the two members' batches and the
-  JAX ``sync_batch_norm`` on the same sub-mesh.
+  JAX ``sync_batch_norm`` on the same sub-mesh;
+* the two-level DP leg on ``dcn_size=2`` meshes at world 4: the data
+  set's ``(dcn, inner)`` pair against the JAX mesh's lines; two SGD
+  steps of the 3-D step on ``data=2, dcn_size=2`` and ``model=2,
+  dcn_size=2`` under ``HOROVOD_HIERARCHICAL_ALLREDUCE`` (within ``REL``)
+  and under the per-leg codec ``ici:none,dcn:fp16`` (within fp16's
+  ``CODEC_REL``) against the JAX 3-D step on the same 4-device mesh,
+  the exchanged bytes by leg equal to the JAX ``plan_hier_legs`` of the
+  step's buckets; ``zero_init(mesh=, param_specs=)`` on ``model=2,
+  dcn_size=2`` with the per-leg codec: each rank's arena shard the JAX
+  arena's at the ``(ici, dcn)``-major index, and after one ZeRO-1 step
+  (SGD, momentum 0.9) each rank's momentum shard the JAX state's row of
+  its device and the parameters the JAX step's; a user's process set
+  with a per-leg error-feedback codec refused as by the JAX optimizer.
 """
 
 import os
@@ -97,6 +110,22 @@ CODEC_REL = {"none": REL, "bf16": 2.0 ** -8, "fp16": 2.0 ** -11}
 SGD_LR = 0.1
 SGD_STEPS = 3
 ADAM_STEPS = 5
+# The two-level DP leg: name -> (3-D mesh extents, DP codec,
+# HOROVOD_HIERARCHICAL_ALLREDUCE).
+DCN_CASES = {
+    "dp_hier": (dict(data=2, dcn_size=2), "none", True),
+    "tp_hier": (dict(model=2, dcn_size=2), "none", True),
+    "dp_codec": (dict(data=2, dcn_size=2), "ici:none,dcn:fp16", False),
+    "tp_codec": (dict(model=2, dcn_size=2), "ici:none,dcn:fp16", False),
+}
+DCN_STEPS = 2
+# ZeRO-1 under the per-leg codec: name -> (3-D mesh extents, codec);
+# n_ici = 2 on the first, so the (ici, dcn)-major index differs from the
+# row-major one on ranks 1 and 2.
+DCN_ZERO = {"zero_dp": (dict(data=2, dcn_size=2), "ici:none,dcn:fp16"),
+            "zero_tp": (dict(model=2, dcn_size=2), "ici:none,dcn:fp16")}
+DCN_MOMENTUM = 0.9
+HIER_LEGS = ("hier/ici_rs", "hier/dcn_ar", "hier/ici_ag")
 
 
 # ---------------------------------------------------------------------------
@@ -201,10 +230,13 @@ def _mesh_record(kind, ext):
             }[kind](**ext)
     lines = {a: mesh.members(a) for a in mesh.axis_names}
     lines["data_axes"] = mesh.members(tpar.data_axes(mesh))
+    pair = mesh.group(tpar.data_axes(mesh)).hier
     return {"axis_names": mesh.axis_names, "shape": dict(mesh.shape),
             "ranks": mesh.ranks.tolist(), "data_axes": tpar.data_axes(mesh),
             "model_axes": tpar.model_axes(mesh), "lines": lines,
-            "group": mesh.group(tpar.data_axes(mesh)).ranks}
+            "group": mesh.group(tpar.data_axes(mesh)).ranks,
+            "hier": None if pair is None else (
+                pair.n_dcn, pair.n_ici, pair.ici.ranks, pair.dcn.ranks)}
 
 
 def _tp_rank(world):
@@ -397,6 +429,92 @@ def _bert_rank(world, params):
     return out
 
 
+def _dcn_3d(params, mesh_kw, comp, hier, zero=False):
+    """``DCN_STEPS`` (ZeRO-1: one) SGD steps of the 3-D step on a
+    ``dcn_size=2`` mesh: losses, the full tree, the exchange's bytes by
+    leg and its buckets (ZeRO-1: the arena shards before the step and
+    the momentum shards after it)."""
+    import dataclasses
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.models import Bert, BertTP
+    from horovod_tpu_torch.timeline.metrics import exchange_totals
+    from horovod_tpu_torch.training import make_train_step, shard_batch
+    st = global_state()
+    base = st.config
+    st.config = dataclasses.replace(base, hierarchical_allreduce=hier)
+    try:
+        mesh = tpar.build_3d_mesh(**mesh_kw)
+        tp = mesh.axis_size("model")
+        fresh = {k: v.clone() for k, v in params.items()}
+        specs = tpar.tp_param_specs(params, axis="model")
+        if tp > 1:
+            model = BertTP(BERT_TINY, tpar.shard_params(
+                fresh, specs, mesh.axis_index("model"), tp), axis="model")
+        else:
+            model = Bert.from_params(BERT_TINY, fresh)
+        inner = torch.optim.SGD(model.parameters(), lr=SGD_LR,
+                                momentum=DCN_MOMENTUM if zero else 0.0)
+        # ZeRO-1's arena in the JAX leaf order: zero_init(param_specs=).
+        kw = dict(tp=tp, param_specs=specs if tp > 1 or zero else None)
+        if zero:
+            opt = inner
+            kw.update(zero_stage=1, zero_compression=comp)
+        else:
+            opt = thvd.DistributedOptimizer(
+                inner, named_parameters=model.named_parameters(),
+                compression=comp, process_set=(
+                    mesh.group(tpar.data_axes(mesh)) if tp > 1 else None))
+        step = make_train_step(model, _bert_loss, opt, **kw)
+        out = {}
+        if zero:
+            out["shards0"] = [t.clone() for t in step.zero_state.shards]
+        batch = shard_batch(tuple(_t(a) for a in _bert_batch()))
+        before = exchange_totals(legs=True)
+        out["losses"] = [step(batch).item()
+                         for _ in range(1 if zero else DCN_STEPS)]
+        after = exchange_totals(legs=True)
+        out["legs"] = {k: after[k] - before[k] for k in HIER_LEGS}
+        if zero:
+            zs = step.zero_state
+            out["momentum"] = [zs.inner.state[t]["momentum_buffer"].clone()
+                               for t in zs.shards]
+        else:
+            out["buckets"] = [(str(dt).replace("torch.", ""),
+                               sum(x.size for x in lspecs))
+                              for dt, lspecs in opt.bucket_plan.buffers]
+            out["set_pair"] = opt._process_set.hier.shape
+        tree = dict(model.named_parameters())
+        if tp > 1:
+            tree = tpar.gather_tp_params(tree, specs, axis="model")
+        out["full"] = {k: v.detach().clone() for k, v in tree.items()}
+        return out
+    finally:
+        st.config = base
+
+
+def _dcn_refusal():
+    """A user's process set with a per-leg error-feedback codec."""
+    tpar.build_3d_mesh(data=4)
+    user = thvd.add_process_set([0, 1, 2, 3], name="user_dcn")
+    model = torch.nn.Linear(4, 4)
+    try:
+        thvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1),
+            named_parameters=model.named_parameters(),
+            compression="ici:none,dcn:topk:0.5", process_set=user)
+        return None
+    except Exception as e:       # noqa: BLE001 - recorded, checked
+        return type(e).__name__, str(e)
+
+
+def _dcn_rank(params):
+    out = {name: _dcn_3d(params, *case) for name, case in DCN_CASES.items()}
+    for name, case in DCN_ZERO.items():
+        out[name] = _dcn_3d(params, *case, hier=False, zero=True)
+    out["refusal"] = _dcn_refusal()
+    return out
+
+
 def _bn_rank(rank):
     from horovod_tpu_torch.training import sync_batch_norm
     tpar.build_3d_mesh(data=2, model=2)
@@ -425,6 +543,7 @@ def _worker(rank, world, store_path, in_path, out_path):
     res["bert"] = _bert_rank(world, params)
     if world == 4:
         res["bn"] = _bn_rank(rank)
+        res["dcn"] = _dcn_rank(params)
     thvd.barrier()
     torch.save(res, out_path)
     thvd.shutdown()
@@ -1206,3 +1325,203 @@ def test_sync_batch_norm_over_a_sub_mesh(worlds):
 if __name__ == "__main__":
     _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
             sys.argv[5])
+
+
+# ---------------------------------------------------------------------------
+# The two-level DP leg (dcn_size=2)
+# ---------------------------------------------------------------------------
+
+
+def test_dcn_data_set_pair_is_the_mesh_lines(worlds):
+    """A mesh whose data axes are ``(dcn, inner)`` gives its data set the
+    pair: ``n_dcn x n_ici`` and this rank's lines along each (the JAX
+    mesh's, as ``test_meshes_match_jax`` holds the lines); every other
+    mesh's data set is one level."""
+    for world, records in worlds.items():
+        for r, res in enumerate(records):
+            for (kind, ext), rec in zip(MESHES[world], res["meshes"]):
+                d_ax = rec["data_axes"]
+                if len(d_ax) != 2:
+                    assert rec["hier"] is None, (kind, ext)
+                    continue
+                assert d_ax[0] == "dcn"
+                shape = rec["shape"]
+                assert rec["hier"] == (
+                    shape["dcn"], shape[d_ax[1]], rec["lines"][d_ax[1]],
+                    rec["lines"]["dcn"]), (kind, ext, r)
+
+
+def _jax_local(variables, specs, pos):
+    """The JAX 3-D step's local tree at ``model`` index ``pos`` (what
+    ``shard_map`` hands a device: each split leaf's block)."""
+    import jax
+
+    def cut(leaf, spec):
+        d = [i for i, a in enumerate(spec) if a is not None]
+        return _cut(np.asarray(leaf), pos, 2, d[0]) if d else \
+            np.asarray(leaf)
+    return jax.tree.map(cut, variables, specs,
+                        is_leaf=lambda x: not isinstance(x, dict))
+
+
+def _jax_dcn(variables, mesh_kw, comp, hier, zero=False):
+    """The JAX 3-D step on the same 4-device mesh: ``(losses, tree,
+    zero rows)`` (the ZeRO-1 momentum, one row a device)."""
+    import dataclasses
+    import jax
+    import optax
+    import horovod_tpu as hvd
+    from horovod_tpu.core.state import global_state as j_state
+    from horovod_tpu.models.transformer import BERT_TINY as J_BERT_TINY
+    from horovod_tpu.models.transformer import Bert as JBert
+    from horovod_tpu.models.transformer import bert_tp_apply as jbert_tp
+    from horovod_tpu.parallel import build_3d_mesh, data_axes, tp_param_specs
+    hvd.shutdown()
+    hvd.init(mesh=build_3d_mesh(jax.devices()[:4], **mesh_kw))
+    st = j_state()
+    st.config = dataclasses.replace(st.config, hierarchical_allreduce=hier)
+    try:
+        mesh = hvd.mesh()
+        tp = int(mesh.shape.get("model", 1))
+        specs = tp_param_specs(variables, axis="model") if tp > 1 else None
+        import jax.numpy as jnp
+        model = JBert(J_BERT_TINY, dtype=jnp.float32)
+
+        def loss_fn(p, b):
+            toks, y = b
+            if tp > 1:
+                mlm, nsp = jbert_tp(p, J_BERT_TINY, toks, axis="model")
+            else:
+                mlm, nsp = model.apply(p, toks)
+            return (optax.softmax_cross_entropy_with_integer_labels(
+                mlm, toks).mean()
+                + optax.softmax_cross_entropy_with_integer_labels(
+                    nsp, y).mean())
+
+        p = jax.tree.map(np.array, variables)
+        if zero:
+            opt = optax.sgd(SGD_LR, momentum=DCN_MOMENTUM)
+            step = hvd.make_train_step(loss_fn, opt, mesh=mesh, tp=tp,
+                                       param_specs=specs, zero_stage=1,
+                                       zero_compression=comp)
+            state = hvd.zero_init(opt, p, mesh, compression=comp,
+                                  param_specs=specs)
+        else:
+            opt = hvd.DistributedOptimizer(optax.sgd(SGD_LR),
+                                           compression=comp,
+                                           axes=data_axes(mesh))
+            kw = {}
+            if tp > 1:
+                kw = dict(param_specs=specs,
+                          opt_state_specs=hvd.mirror_opt_state_specs(
+                              opt, variables, specs))
+            step = hvd.make_train_step(loss_fn, opt, mesh=mesh, tp=tp,
+                                       **kw)
+            state = opt.init(p)
+        batch = hvd.shard_batch(_bert_batch())
+        losses = []
+        for _ in range(1 if zero else DCN_STEPS):
+            p, state, loss = step(p, state, batch)
+            losses.append(float(loss))
+        rows = None
+        if zero:
+            rows = [np.asarray(leaf) for leaf in jax.tree.leaves(state)]
+        return losses, jax.tree.map(np.asarray, p), rows
+    finally:
+        hvd.shutdown()
+
+
+@pytest.mark.parametrize("name", sorted(DCN_CASES))
+def test_dcn_3d_steps_match_jax(worlds, flax_bert, name):
+    """Two SGD steps of the 3-D step on a ``dcn_size=2`` mesh: the
+    two-level exchange over the data set, against the JAX step on the
+    same mesh, and its bytes by leg against the JAX plan of its
+    buckets."""
+    from horovod_tpu.controller.fusion import plan_hier_legs as j_legs
+    from horovod_tpu_torch.models import params_from_jax
+    mesh_kw, comp, hier = DCN_CASES[name]
+    losses, p, _ = _jax_dcn(flax_bert[1], mesh_kw, comp, hier)
+    want = {k: v.numpy() for k, v in
+            params_from_jax(p, device="cpu").items()}
+    rel = CODEC_REL["fp16"] if "fp16" in comp else REL
+    n_dcn, n_ici = 2, mesh_kw.get("data", 1)
+    for res in worlds[4]:
+        got = res["dcn"][name]
+        assert got["set_pair"] == (n_dcn, n_ici)
+        np.testing.assert_allclose(got["losses"], losses, rtol=rel)
+        assert set(got["full"]) == set(want)
+        for leaf in want:
+            _param_close({k: v.numpy() for k, v in got["full"].items()},
+                         want, leaf, rel=rel)
+        plan = {k: 0 for k in HIER_LEGS}
+        for dtype, size in got["buckets"]:
+            for leg in j_legs(size, dtype, n_dcn=n_dcn, n_ici=n_ici,
+                              compression=comp if "dcn" in comp else None):
+                plan[leg.tag] += leg.nbytes * DCN_STEPS
+        assert got["legs"] == plan and plan["hier/dcn_ar"] > 0, name
+
+
+@pytest.mark.parametrize("name", sorted(DCN_ZERO))
+def test_dcn_zero_init_param_specs_matches_jax(worlds, flax_bert, name):
+    """``zero_init(mesh=, param_specs=)`` (through the 3-D step's ZeRO-1)
+    on ``data=2, dcn_size=2`` and ``model=2, dcn_size=2`` under the
+    per-leg codec: rank ``r``'s arena shard is the JAX arena's at index
+    ``ici * n_dcn + dcn`` of its data set (the ``(ici, dcn)``-major
+    bijection), its momentum after one ZeRO-1 step the JAX state's row of
+    device ``r``, and the parameters the JAX step's."""
+    import jax
+    from horovod_tpu.optim.zero import arena_pack, plan_arena
+    from horovod_tpu.parallel import tp_param_specs as jspecs
+    from horovod_tpu_torch.models import params_from_jax
+    mesh_kw, comp = DCN_ZERO[name]
+    variables = flax_bert[1]
+    losses, p, rows = _jax_dcn(variables, mesh_kw, comp, False, zero=True)
+    want = {k: v.numpy() for k, v in
+            params_from_jax(p, device="cpu").items()}
+    specs = jspecs(variables, axis="model")
+    n_dcn, n_ici = 2, mesh_kw.get("data", 1)
+    for r, res in enumerate(worlds[4]):
+        got = res["dcn"][name]
+        dcn, inner = divmod(r, 2)          # mesh (dcn, data|model)
+        if "model" in mesh_kw:
+            ici = 0
+            local = jax.tree.leaves(_jax_local(variables, specs, inner))
+        else:
+            ici = inner
+            local = jax.tree.leaves(variables)
+        spec = plan_arena(local, n_dcn * n_ici)
+        idx = ici * n_dcn + dcn
+        for arena, buf, shard in zip(arena_pack(local, spec), spec.buffers,
+                                     got["shards0"]):
+            np.testing.assert_array_equal(
+                shard.numpy(),
+                np.asarray(arena)[idx * buf.shard:(idx + 1) * buf.shard])
+        for row, mom in zip(rows, got["momentum"]):
+            _close(mom, row[r], what=f"momentum r{r}")
+        np.testing.assert_allclose(got["losses"], losses, rtol=REL)
+        for leaf in want:
+            _param_close({k: v.numpy() for k, v in got["full"].items()},
+                         want, leaf, rel=CODEC_REL["fp16"])
+
+
+def test_dcn_user_set_per_leg_refusal_matches_jax(worlds):
+    """A user's process set stays one level: a per-leg error-feedback
+    codec on it is refused, as the JAX ``DistributedOptimizer`` refuses
+    it (its first sentence)."""
+    import optax
+    import horovod_tpu as hvd
+    hvd.shutdown()
+    hvd.init()
+    try:
+        with pytest.raises(NotImplementedError) as e:
+            hvd.DistributedOptimizer(optax.sgd(0.1),
+                                     compression="ici:none,dcn:topk:0.5",
+                                     process_set=hvd.add_process_set(
+                                         [0, 1, 2, 3]))
+    finally:
+        hvd.shutdown()
+    for res in worlds[4]:
+        kind, msg = res["dcn"]["refusal"]
+        assert kind == "NotImplementedError"
+        assert "process-set reductions" in msg and \
+            "process-set reductions" in str(e.value)
