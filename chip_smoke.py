@@ -425,6 +425,35 @@ Phases, each printing its own line; any failure exits non-zero:
    step (its arena from ``zero_init(param_specs=)``) against the same
    mesh without ZeRO, within the gate.  ``DCN_LAYERS`` flash forward, dq
    and dk/dv launches a step a rank; (b) within ``DCN_TIMEOUT``.
+31. launchers -- item 1.14's launchers, every worker a process the
+   launcher spawned (the functions it runs are this script's, imported
+   by name).  (a) ``horovod_tpu_torch.run.run(f, np=1)``: ``f`` calls
+   ``hvd.init()`` (NCCL) and takes ``LAUNCH_STEPS`` steps of phase 19's
+   ResNet-50 (torch idiom, 53 ``SyncBatchNorm`` sites,
+   ``DistributedOptimizer(SGD)``) at ``LAUNCH_IMAGES`` images of 224 x
+   224: one result, ``cuda:0`` and ``nccl``, finite losses, 53 launches
+   of each BN kernel a step in that process.  (b) ``run(g, np=2)``, both
+   ranks on ``cuda:0`` over a gloo group ``g`` opens from the
+   ``MASTER_ADDR``/``MASTER_PORT`` ``worker_env`` exported: the allreduce
+   ``Sum`` of ``rank + 1`` is 3 on both, results rank-ordered with
+   ``HOROVOD_RANK``/``HOROVOD_SIZE``; then rank 1 raising ``ValueError``
+   before any collective: a ``RuntimeError`` naming ``worker 1`` and the
+   message (rank 0, blocked in the rendezvous, is cut loose after the
+   executor's grace).  (c) ``TorchEstimator(ResNet-50 torch idiom, 10
+   classes, loss="xent", optimizer="sgd", num_proc=1, batch_size=32,
+   epochs=2, store=LocalStore(<tmp>))`` on 128 f32 images of 3 x 224 x
+   224 from seed 0 (10 mean patterns plus noise); (d) the port's
+   ``JaxEstimator`` on ``models/resnet.py``'s ResNet-50 (bf16, NHWC: the
+   images permuted in) through ``make_flax_train_step``, same data.
+   Each: two finite epoch means, the second below the first; a
+   checkpoint saved from ``cuda``; ``transform`` of 32 rows bitwise the
+   checkpointed model run here in eval mode (deterministic cuDNN); 53
+   launches of each BN kernel a step inside the worker (read from the
+   model's ``launches`` buffer in the checkpoint); and in (d) every
+   running statistic moved.  (e) ``ElasticRayExecutor(host_file=<one
+   host, one slot>, min_workers=1, max_workers=1)``: ``[(0, 1, "cuda",
+   "nccl")]``.  Logged: each part's wall seconds, the shard bytes, the
+   epoch losses and the BN launches; budget ``LAUNCH_BUDGET_S``.
 
 Phase 17 also holds ``chunked_allreduce`` (equal to ``allreduce`` at
 world 1) and ``fp8_allreduce`` (bitwise its round trip) on its 64 MiB
@@ -7183,6 +7212,335 @@ def serving_tp(dev, card: str, serve_run: dict) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: item 1.14's launchers -- run(func, np=), the estimators and the
+# elastic executor, each worker a process the launcher spawned
+# ---------------------------------------------------------------------------
+
+LAUNCH_IMAGES = 64            # (a): ResNet-50 images a step
+LAUNCH_STEPS = 3
+EST_ROWS = 128                # (c), (d): f32 images of 3 x 224 x 224
+EST_CLASSES = 10
+EST_BATCH = 32
+EST_EPOCHS = 2
+EST_SIGNAL = 2.0              # the class patterns' scale over unit noise
+EST_LR = 1e-3                 # SGD, momentum 0.9
+EST_STEPS = EST_EPOCHS * (EST_ROWS // EST_BATCH)
+LAUNCH_BUDGET_S = 150.0
+
+
+def launch_resnet_worker() -> dict:
+    """Phase 31 (a), in the process ``run(np=1)`` spawned: ``hvd.init()``
+    on NCCL, then phase 19's ResNet-50 (``examples/torch_resnet50.py``'s
+    setup: 53 ``SyncBatchNorm`` sites, ``DistributedOptimizer(SGD)``) at
+    ``LAUNCH_IMAGES`` images of 224 x 224, ``LAUNCH_STEPS`` steps.  The
+    launch counters are zeroed just before the steps."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import torch_resnet50 as ex
+    from horovod_tpu_torch.ops import registry
+    hvd.init()
+    backend = torch.distributed.get_backend()
+    bench = ex.setup(ex.parse_args(["--batch-size", str(LAUNCH_IMAGES)]))
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [bench.step().item() for _ in range(LAUNCH_STEPS)]
+    seconds = time.perf_counter() - t0
+    out = {"losses": losses, "launches": registry.launch_counts(),
+           "device": str(bench.device), "backend": backend,
+           "steps_s": seconds, "pid": os.getpid()}
+    hvd.shutdown()
+    return out
+
+
+def launch_gloo_worker(fail_rank: int = -1) -> dict:
+    """Phase 31 (b): one of two ranks on ``cuda:0``.  Gloo is opened here
+    over the ``MASTER_ADDR``/``MASTER_PORT`` that ``worker_env`` exported
+    (NCCL refuses two ranks on one GPU) before ``hvd.init`` adopts it;
+    an allreduce ``Sum`` of ``rank + 1``.  ``fail_rank`` raises before
+    any collective."""
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    rank = int(os.environ["HOROVOD_RANK"])
+    size = int(os.environ["HOROVOD_SIZE"])
+    if rank == fail_rank:
+        raise ValueError(f"rank {rank} fails before any collective")
+    dist.init_process_group("gloo", init_method="env://", rank=rank,
+                            world_size=size)
+    hvd.init(device="cuda:0")
+    out = hvd.allreduce(torch.full((4,), rank + 1.0, device="cuda:0"),
+                        op=hvd.Sum)
+    got = {"sum": out.tolist(), "device": str(out.device),
+           "backend": dist.get_backend(),
+           "env": (os.environ["HOROVOD_RANK"], os.environ["HOROVOD_SIZE"])}
+    hvd.shutdown()
+    dist.destroy_process_group()
+    return got
+
+
+def launch_elastic_worker() -> tuple:
+    """Phase 31 (e), under ``ElasticRayExecutor``: this rank's place."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core.state import global_state
+    hvd.init()
+    got = (hvd.rank(), hvd.size(), global_state().device.type,
+           torch.distributed.get_backend())
+    hvd.shutdown()
+    return got
+
+
+class LaunchCounted(torch.nn.Module):
+    """``net`` for the estimators of phase 31 (c) and (d): its
+    ``launches`` buffer holds the worker's BN kernel launches
+    (``[bn_bwd_reduce, bn_bwd_dx]``) as each backward ends -- when
+    ``first``, the first layer's weight, gets its gradient -- so the
+    rank-0 checkpoint carries what the spawned worker launched.  ``nhwc``
+    feeds an NHWC network (``models/resnet.py``'s) the NCHW images."""
+
+    def __init__(self, net: torch.nn.Module, first: str, nhwc: bool):
+        super().__init__()
+        self.net, self.first, self.nhwc = net, first, nhwc
+        p = dict(net.named_parameters())[first]
+        self.register_buffer("launches", torch.zeros(2, dtype=torch.int64,
+                                                     device=p.device))
+        self._hooked = False
+
+    def _count(self, _param) -> None:
+        from horovod_tpu_torch.ops import registry
+        c = registry.launch_counts()
+        self.launches.copy_(torch.tensor([c["bn_bwd_reduce"],
+                                          c["bn_bwd_dx"]]))
+
+    def forward(self, x):
+        if self.training and not self._hooked:
+            dict(self.net.named_parameters())[
+                self.first].register_post_accumulate_grad_hook(self._count)
+            self._hooked = True
+        return self.net(x.permute(0, 2, 3, 1) if self.nhwc else x)
+
+
+def launch_images(seed: int = 0):
+    """``EST_ROWS`` f32 images ``[3, 224, 224]``: one of ``EST_CLASSES``
+    mean patterns each (``EST_SIGNAL`` times a standard normal draw),
+    plus unit noise, labels from the same seed."""
+    rng = np.random.default_rng(seed)
+    patterns = EST_SIGNAL * rng.standard_normal(
+        (EST_CLASSES, 3, 224, 224), dtype=np.float32)
+    y = rng.integers(0, EST_CLASSES, EST_ROWS)
+    x = patterns[y] + rng.standard_normal((EST_ROWS, 3, 224, 224),
+                                          dtype=np.float32)
+    return x, y.astype(np.int64)
+
+
+def _checkpoint_locations(ckpt: bytes) -> set:
+    """The device each tensor of a ``torch.save`` checkpoint was saved
+    from."""
+    import io
+    locs = set()
+
+    def keep(storage, loc):
+        locs.add(loc)
+        return storage
+
+    torch.load(io.BytesIO(ckpt), map_location=keep, weights_only=False)
+    return locs
+
+
+def launchers(dev, card: str) -> dict:
+    """Phase 31: item 1.14's launchers on the card, each worker a process
+    the launcher spawned.  (a) ``run(f, np=1)``: ``launch_resnet_worker``
+    on NCCL, 53 launches of each BN kernel a step in that process; (b)
+    ``run(g, np=2)`` with both ranks on ``cuda:0`` over gloo: the sum on
+    both, rank-ordered identities; then rank 1 failing, named in the
+    ``RuntimeError``; (c) ``TorchEstimator`` with the torch-idiom
+    ResNet-50 (``SyncBatchNorm`` sites, 10 classes) and (d) the port's
+    ``JaxEstimator`` with ``models/resnet.py``'s ResNet-50 (bf16, NHWC)
+    through ``make_flax_train_step``, each at ``num_proc=1`` on
+    ``launch_images()`` for ``EST_EPOCHS`` epochs: finite falling epoch
+    means, a checkpoint saved from ``cuda``, ``transform`` bitwise the
+    checkpointed model run here in eval mode, 53 launches of each BN
+    kernel a step in the worker, and (d) every running statistic moved;
+    (e) ``ElasticRayExecutor`` over a one-slot host file.  Returns the BN
+    launches the workers made."""
+    import copy
+    import io
+    import tempfile
+
+    import chip_smoke as mod      # the workers import the functions by name
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core.config import _env_bool
+    from horovod_tpu_torch.examples import torch_resnet50 as ex
+    from horovod_tpu_torch.models import ResNet50, init_resnet_params
+    from horovod_tpu_torch.ray import ElasticRayExecutor
+    from horovod_tpu_torch.run import run
+    from horovod_tpu_torch.spark import (JaxEstimator, LocalStore,
+                                         TorchEstimator)
+
+    if _env_bool("FORCE_CPU"):
+        raise AssertionError("launchers: HVD_TPU_FORCE_CPU is set; the "
+                             "workers must run on the card")
+    t_phase = time.perf_counter()
+    fails = []
+    total = {"bn_bwd_reduce": 0, "bn_bwd_dx": 0}
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    work = tempfile.mkdtemp(prefix="hvd_torch_launchers_")
+    try:
+        # (a)
+        t0 = time.perf_counter()
+        res = run(mod.launch_resnet_worker, np=1)
+        rec = {"phase": "launchers", "part": "a", "card": card,
+               "wall_s": time.perf_counter() - t0, "results": len(res)}
+        if len(res) == 1:
+            r = res[0]
+            per_step = {k: r["launches"][k] / LAUNCH_STEPS
+                        for k in total}
+            rec.update(losses=r["losses"], device=r["device"],
+                       backend=r["backend"], steps_s=r["steps_s"],
+                       bn_launches=per_step,
+                       worker_pid_differs=r["pid"] != os.getpid())
+            rec["ok"] = (r["device"] == "cuda:0" and r["backend"] == "nccl"
+                         and bool(np.all(np.isfinite(r["losses"])))
+                         and per_step == {k: RESNET50_BN_SITES
+                                          for k in total}
+                         and rec["worker_pid_differs"])
+            for k in total:
+                total[k] += r["launches"][k]
+        else:
+            rec["ok"] = False
+        log(rec)
+        if not rec["ok"]:
+            fails.append("(a)")
+
+        # (b)
+        t0 = time.perf_counter()
+        res = run(mod.launch_gloo_worker, np=2)
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            run(mod.launch_gloo_worker, kwargs={"fail_rank": 1}, np=2)
+            err = None
+        except RuntimeError as e:
+            err = str(e)
+        rec = {"phase": "launchers", "part": "b", "card": card,
+               "wall_s": wall, "fail_wall_s": time.perf_counter() - t0,
+               "results": res, "error": err}
+        rec["ok"] = (
+            [r["env"] for r in res] == [("0", "2"), ("1", "2")]
+            and all(r["sum"] == [3.0] * 4 and r["device"] == "cuda:0"
+                    and r["backend"] == "gloo" for r in res)
+            and err is not None and "worker 1: ValueError: rank 1 fails "
+            "before any collective" in err)
+        log(rec)
+        if not rec["ok"]:
+            fails.append("(b)")
+
+        # (c) and (d): the estimators on one store layout and data
+        x, y = launch_images()
+        torch.manual_seed(0)
+        torch_net = mod.LaunchCounted(
+            ex.ResNet50(EST_CLASSES, lambda c: hvd.SyncBatchNorm(
+                c, device=dev)).to(dev, memory_format=torch.channels_last),
+            "stem.0.weight", nhwc=False)
+        flax_net = ResNet50(num_classes=EST_CLASSES, device=dev)
+        flax_net.load_state_dict(init_resnet_params(
+            flax_net, generator=torch.Generator(device=dev).manual_seed(0)))
+        flax_net = mod.LaunchCounted(flax_net, "conv_init.kernel",
+                                     nhwc=True)
+        stats0 = {n: b.detach().clone()
+                  for n, b in flax_net.state_dict().items()
+                  if n.endswith((".mean", ".var"))}
+        for part, cls, net in (("c", TorchEstimator, torch_net),
+                               ("d", JaxEstimator, flax_net)):
+            store = LocalStore(os.path.join(work, part))
+            est = cls(model=net, loss="xent", optimizer="sgd", lr=EST_LR,
+                      num_proc=1, batch_size=EST_BATCH, epochs=EST_EPOCHS,
+                      store=store, run_id=f"phase31_{part}")
+            t0 = time.perf_counter()
+            fitted = est.fit({"features": x, "labels": y})
+            wall = time.perf_counter() - t0
+            shard_bytes = sum(
+                os.path.getsize(p) for p in store.list_prefix(
+                    store.get_train_data_path(0)))
+            ckpt = store.read(store.get_checkpoint_path(f"phase31_{part}"))
+            locs = _checkpoint_locations(ckpt)
+            state = torch.load(io.BytesIO(ckpt), map_location=dev,
+                               weights_only=False)
+            if part == "c":
+                ref = state["model"]
+                ref.load_state_dict(state["state_dict"])
+                state = state["state_dict"]
+            else:
+                ref = copy.deepcopy(net).to(dev)
+                ref.load_state_dict(state)
+            ref.eval()
+            rows = x[:EST_BATCH]
+            with torch.no_grad():
+                want = ref(torch.tensor(rows, device=dev)).float().cpu()
+            got = fitted.transform(rows)
+            launches = state["launches"].tolist()
+            hist = fitted.history
+            rec = {"phase": "launchers", "part": part, "card": card,
+                   "estimator": cls.__name__, "wall_s": wall,
+                   "shard_bytes": shard_bytes, "epoch_losses": hist,
+                   "checkpoint_locations": sorted(locs),
+                   "transform_bitwise": bool(np.array_equal(
+                       got, want.numpy())),
+                   "bn_launches_per_step": [v / EST_STEPS
+                                            for v in launches]}
+            ok = (len(hist) == EST_EPOCHS
+                  and bool(np.all(np.isfinite(hist)))
+                  and hist[-1] < hist[0]
+                  and bool(locs) and all(loc.startswith("cuda")
+                                         for loc in locs)
+                  and rec["transform_bitwise"]
+                  and launches == [RESNET50_BN_SITES * EST_STEPS] * 2)
+            if part == "d":
+                moved = sum(not torch.equal(state[n].to(dev), v)
+                            for n, v in stats0.items())
+                rec["running_stats_moved"] = [moved, len(stats0)]
+                ok = ok and moved == len(stats0) and len(stats0) == \
+                    2 * RESNET50_BN_SITES
+            rec["ok"] = ok
+            log(rec)
+            if not ok:
+                fails.append(f"({part})")
+            total["bn_bwd_reduce"] += launches[0]
+            total["bn_bwd_dx"] += launches[1]
+            del fitted, ref, state
+        del torch_net, flax_net, x, y
+
+        # (e)
+        hosts = os.path.join(work, "hosts.txt")
+        with open(hosts, "w") as f:
+            f.write("localhost:1\n")
+        t0 = time.perf_counter()
+        with ElasticRayExecutor(host_file=hosts, min_workers=1,
+                                max_workers=1) as exe:
+            res = exe.run(mod.launch_elastic_worker)
+        rec = {"phase": "launchers", "part": "e", "card": card,
+               "wall_s": time.perf_counter() - t0,
+               "results": [list(r) for r in res]}
+        rec["ok"] = [tuple(r) for r in res] == [(0, 1, "cuda", "nccl")]
+        log(rec)
+        if not rec["ok"]:
+            fails.append("(e)")
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = cudnn
+        shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log({"phase": "launchers", "card": card, "seconds": seconds,
+         "budget_s": LAUNCH_BUDGET_S, "bn_launches": total,
+         "ok": not fails})
+    if fails:
+        raise AssertionError("launchers: parts " + ", ".join(fails)
+                             + " failed")
+    return total
+
+
 def main(argv=None) -> int:
     """Every phase (``--tp-worker <job>``: one rank of phase 28 (b), 29
     or 30)."""
@@ -7280,6 +7638,8 @@ def main(argv=None) -> int:
     free_device()
     rest30 = item_1_12_rest(dev, card)
     free_device()
+    launch31 = launchers(dev, card)
+    free_device()
     # The attention and BN kernels run on several paths: their launches
     # are the sums.
     flash["launches"] = (serve["flash"] + train["flash"] + bert["flash"]
@@ -7305,12 +7665,14 @@ def main(argv=None) -> int:
                           + sdc_bn["bn_bwd_reduce"]
                           + autotune_bn["bn_bwd_reduce"]
                           + join_bn["bn_bwd_reduce"]
-                          + par28["bn_bwd_reduce"])
+                          + par28["bn_bwd_reduce"]
+                          + launch31["bn_bwd_reduce"])
     bn_dx["launches"] = (resnet["bn_bwd_dx"] + inception["bn_bwd_dx"]
                          + torch_rn50["bn_bwd_dx"] + exchange["bn_bwd_dx"]
                          + loop["bn_bwd_dx"] + elastic_bn["bn_bwd_dx"]
                          + sdc_bn["bn_bwd_dx"] + autotune_bn["bn_bwd_dx"]
-                         + join_bn["bn_bwd_dx"] + par28["bn_bwd_dx"])
+                         + join_bn["bn_bwd_dx"] + par28["bn_bwd_dx"]
+                         + launch31["bn_bwd_dx"])
     for e in fused:
         e["launches"] = powersgd[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

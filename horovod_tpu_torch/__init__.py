@@ -90,7 +90,16 @@ ported so far:
   forward (``models.BertTP``), ring and Ulysses sequence parallelism,
   the GPipe pipeline and the Switch MoE layer, and the 3-D step
   (``make_train_step(..., tp=, pipeline_stages=, param_specs=)``), whose
-  own collectives run over the mesh's data axes only.
+  own collectives run over the mesh's data axes only;
+* the launchers and framework shims: :func:`horovod_tpu_torch.run.run`
+  (``run(func, np=)`` on spawned workers, through
+  :class:`~horovod_tpu_torch.ray.RayExecutor`),
+  :class:`~horovod_tpu_torch.ray.ElasticRayExecutor`, ``spark/`` (the
+  Store, Spark's barrier-mode ``run`` and the Torch, Lightning, JAX-named
+  and Keras estimators) and the ``tensorflow``, ``keras`` and ``mxnet``
+  bindings, which bridge their tensors through numpy to the op layer.
+  None of these subpackages is imported here; ``run``, ``ray`` and
+  ``spark`` import no optional dependency.
 
 Kernels hand-written in CUDA C++ for ``sm_90a`` (``ops/csrc``) carry
 attention -- the flash forward and decode kernels, the flash backward's
@@ -99,7 +108,8 @@ passes, and the three stages of the PowerSGD exchange.  The layout
 mirrors ``horovod_tpu`` (``core/``, ``adasum/``, ``collectives/``,
 ``autotune/``, ``controller/``, ``data/``, ``elastic/``, ``optim/``,
 ``parallel/``, ``run/``, ``timeline/``, ``models/``, ``ops/``, ``serving/``,
-``utils/``, ``training.py``) so each module's counterpart is easy to find.
+``utils/``, ``ray/``, ``spark/``, ``tensorflow/``, ``keras/``, ``mxnet/``,
+``training.py``) so each module's counterpart is easy to find.
 
 The package imports ``torch`` and ``numpy`` only -- nothing of JAX and
 nothing of ``horovod_tpu``.  Entry points run on ``cuda`` unless the

@@ -87,6 +87,7 @@ class ElasticDriver:
         # the discovery listing (~a preemptible VM's restart latency).
         self.preempt_exclusion_s = 120.0
         self._assignment_dir = tempfile.mkdtemp(prefix="hvd_torch_elastic_")
+        self.last_assignment: Optional[dict] = None
         self.assignment_path = os.path.join(self._assignment_dir,
                                             "assignment.json")
         self._lock = threading.Lock()
@@ -144,12 +145,16 @@ class ElasticDriver:
         ranks = {wid: i for i, wid in enumerate(sorted(worker_ids))}
         write_assignment(self.assignment_path, self.epoch,
                          len(worker_ids), port, ranks, store=self._store())
+        # The newest epoch's document outlives the assignment directory
+        # (removed when run() returns): ElasticRayExecutor reads its size.
+        self.last_assignment = {"epoch": self.epoch,
+                                "size": len(worker_ids), "port": port,
+                                "ranks": ranks, "store": self._store()}
         if self._kv is not None:
             import json
             from .notify import ASSIGNMENT_KEY
-            doc = {"epoch": self.epoch, "size": len(worker_ids),
-                   "port": port, "ranks": ranks, "store": self._store()}
-            self._kv.put(*ASSIGNMENT_KEY, json.dumps(doc).encode())
+            self._kv.put(*ASSIGNMENT_KEY,
+                         json.dumps(self.last_assignment).encode())
         logger.info("elastic epoch %d: %d worker(s), port %d",
                     self.epoch, len(worker_ids), port)
         return ranks

@@ -898,13 +898,22 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return F.cross_entropy(logits, labels.long())
 
 
-def _flax_loss(m: torch.nn.Module, batch) -> torch.Tensor:
-    x, y = batch
-    return softmax_xent(m(x), y)
+def _flax_loss(loss_fn: Optional[Callable]) -> Callable:
+    """The step's ``loss(model, (x, y))`` for the JAX ``loss_fn(logits,
+    y)`` argument: ``loss_fn(model(x), y)``, :func:`softmax_xent` when
+    ``None``."""
+    fn = loss_fn or softmax_xent
+
+    def loss(m: torch.nn.Module, batch) -> torch.Tensor:
+        x, y = batch
+        return fn(m(x), y)
+
+    return loss
 
 
 def make_flax_train_step(model: torch.nn.Module,
                          optimizer: torch.optim.Optimizer,
+                         loss_fn: Optional[Callable] = None,
                          zero_stage: Optional[int] = None,
                          zero_compression=None,
                          microbatches: Optional[int] = None,
@@ -930,9 +939,10 @@ def make_flax_train_step(model: torch.nn.Module,
     single-shot step.  A step the SDC guard skips keeps the running
     statistics too.  ``tp``, ``pipeline_stages``, ``param_specs`` and
     ``mesh``: see :func:`make_train_step` (the statistics average over
-    the data axes' set).
+    the data axes' set).  ``loss_fn(logits, y)`` (the JAX argument)
+    replaces the default ``softmax_xent(logits, y)``.
     """
-    step = _build_step(model, _flax_loss, optimizer, zero_stage,
+    step = _build_step(model, _flax_loss(loss_fn), optimizer, zero_stage,
                        zero_compression, microbatches, flax=True, tp=tp,
                        pipeline_stages=pipeline_stages,
                        param_specs=param_specs, mesh=mesh)
@@ -1348,6 +1358,7 @@ def make_train_loop(model: torch.nn.Module,
 
 def make_flax_train_loop(model: torch.nn.Module,
                          optimizer: torch.optim.Optimizer,
+                         loss_fn: Optional[Callable] = None,
                          steps_per_execution: Optional[int] = None,
                          zero_stage: Optional[int] = None,
                          zero_compression=None,
@@ -1358,10 +1369,11 @@ def make_flax_train_loop(model: torch.nn.Module,
                          param_specs=None, mesh=None):
     """:func:`make_train_loop` of :func:`make_flax_train_step` (the JAX
     ``make_flax_train_loop``): ``loop(batches)`` on ``(x, y)`` pairs
-    stacked ``[k, batch, ...]``, returning the ``[k]`` losses."""
+    stacked ``[k, batch, ...]``, returning the ``[k]`` losses;
+    ``loss_fn`` as :func:`make_flax_train_step`'s."""
     _refuse_batched(optimizer)
     k = _resolve_steps(steps_per_execution)
-    step = _build_step(model, _flax_loss, optimizer, zero_stage,
+    step = _build_step(model, _flax_loss(loss_fn), optimizer, zero_stage,
                        zero_compression, microbatches, flax=True, tp=tp,
                        pipeline_stages=pipeline_stages,
                        param_specs=param_specs, mesh=mesh)

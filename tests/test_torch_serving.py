@@ -389,21 +389,42 @@ def _package_modules():
     return sorted(mods) + list(ROOT_SCRIPTS)
 
 
+# The shims whose import needs TensorFlow, which itself imports JAX where
+# JAX is installed (``tensorflow/lite/python/util.py``).
+TF_BOUND = ("horovod_tpu_torch.tensorflow", "horovod_tpu_torch.keras")
+
+
 def test_import_leaves_no_jax_and_no_reference_package():
     """Importing every module of the package and every root script of
     the port (their ``main()`` runs only as ``__main__``) loads nothing
-    of JAX and nothing of ``horovod_tpu``."""
+    of JAX and nothing of ``horovod_tpu``.  The TensorFlow and Keras
+    shims come last, after ``tensorflow`` and ``keras`` themselves, and
+    may add nothing of JAX or ``horovod_tpu`` to what those loaded (their
+    source imports neither: ``test_ast_scan_finds_no_jax_or_reference_
+    import``)."""
     assert all(os.path.exists(os.path.join(REPO, f"{m}.py"))
                for m in ROOT_SCRIPTS)
     mods = _package_modules()
     code = (
-        "import importlib, sys\n"
-        f"for m in {mods!r}:\n"
-        "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "import importlib, importlib.util, sys\n"
+        "def bad(names):\n"
+        "    return sorted(m for m in names if m == 'jax' or "
         "m.startswith(('jax.', 'flax', 'horovod_tpu.')) or "
         "m == 'horovod_tpu')\n"
-        "print(len(sys.modules)); assert not bad, bad\n")
+        f"mods, tf_bound = {mods!r}, {TF_BOUND!r}\n"
+        "for m in mods:\n"
+        "    if not m.startswith(tf_bound):\n"
+        "        importlib.import_module(m)\n"
+        "print(len(sys.modules)); assert not bad(sys.modules), "
+        "bad(sys.modules)\n"
+        "if importlib.util.find_spec('tensorflow'):\n"
+        "    import tensorflow, keras\n"
+        "    before = set(sys.modules)\n"
+        "    for m in mods:\n"
+        "        if m.startswith(tf_bound):\n"
+        "            importlib.import_module(m)\n"
+        "    added = bad(set(sys.modules) - before)\n"
+        "    assert not added, added\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)

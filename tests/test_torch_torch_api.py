@@ -129,19 +129,40 @@ def test_later_items_raise_naming_their_item(name, tmp_path):
 
 def test_no_module_imports_jax():
     """Every module of the port, imported in a fresh interpreter, leaves
-    ``jax`` and ``horovod_tpu`` out of ``sys.modules``."""
+    ``jax`` and ``horovod_tpu`` out of ``sys.modules``.  The TensorFlow
+    and Keras shims are imported last, after ``tensorflow`` and
+    ``keras`` (TensorFlow imports JAX where JAX is installed), and may
+    add no module of either to what those loaded."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, os, pkgutil, sys\n"
         "import horovod_tpu_torch as p\n"
-        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
-        "'horovod_tpu_torch.')]\n"
-        "for n in names:\n"
-        "    importlib.import_module(n)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "tf_bound = ('horovod_tpu_torch.tensorflow', "
+        "'horovod_tpu_torch.keras')\n"
+        "def walk(path, prefix):\n"   # walk_packages imports each package
+        "    for m in pkgutil.iter_modules([path], prefix):\n"
+        "        yield m.name\n"
+        "        if m.ispkg:\n"
+        "            yield from walk(os.path.join(path, m.name.rsplit("
+        "'.', 1)[1]), m.name + '.')\n"
+        "def bad(mods):\n"
+        "    return sorted(m for m in mods if m == 'jax' or "
         "m.startswith('jax.') or m == 'horovod_tpu' or "
         "m.startswith('horovod_tpu.'))\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 40 else 0)\n")
+        "every = list(walk(p.__path__[0], 'horovod_tpu_torch.'))\n"
+        "names = [n for n in every if not n.startswith(tf_bound)]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "found = bad(sys.modules)\n"
+        "if importlib.util.find_spec('tensorflow'):\n"
+        "    import tensorflow, keras\n"
+        "    before = set(sys.modules)\n"
+        "    shims = [n for n in every if n.startswith(tf_bound)]\n"
+        "    for n in shims:\n"
+        "        importlib.import_module(n)\n"
+        "    found += bad(set(sys.modules) - before)\n"
+        "    names += shims\n"
+        "print(len(names), found)\n"
+        "sys.exit(1 if found or len(names) < 40 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=300)
