@@ -454,6 +454,31 @@ Phases, each printing its own line; any failure exits non-zero:
    host, one slot>, min_workers=1, max_workers=1)``: ``[(0, 1, "cuda",
    "nccl")]``.  Logged: each part's wall seconds, the shard bytes, the
    epoch losses and the BN launches; budget ``LAUNCH_BUDGET_S``.
+32. static_checker -- item 1.14's static checker
+   (``horovod_tpu_torch.analysis``) on the card.  (a) ``run_lints()``
+   over the checkout under the port's baseline, the count by rule, and
+   ``main(["--lint"])``'s exit code, which must be 0; then ``main([])``,
+   the CLI's default ``--all`` on ``init()``'s device (the card): the 13
+   reference configs' audits ``OK`` (the fence rule read on ``cuda``),
+   exit 0, its launches added to the totals.  Then the step
+   audit, in this one process on ``cuda:0``: every rank of a recording
+   world (``torch.distributed``'s ``fake`` backend: the collectives move
+   nothing) builds and runs its step in turn, and each config's audit
+   must be ``ok()`` with emitted = planned and every rank's collective
+   sequence equal; losses are held to finite only.  (b) ResNet-50
+   (``models/resnet.py``, bf16, s2d) through ``make_flax_train_step`` at
+   ``STATIC_IMAGES`` x 224² a rank, world 4: plain fp16, ``zero_stage=1``,
+   ``powersgd:4`` with EF, ``microbatches=2`` and ``ici:none,dcn:none``
+   on a dcn 2 x inner 2 layout; 53 launches of each BN kernel a
+   rank-step (106 at ``microbatches=2``), 2 of each ``fused_update``
+   stage under ``powersgd:4``.  (c) Llama-3 8B (full width and depth,
+   random bf16 weights from seed 0) decode and width-5 verify steps at
+   tp 2, world 2: 64 (320) row-parallel psums of ``slots x d_model``, 32
+   (160) decode launches a rank.  (d) BERT-Large's 3-D step
+   (``BertTP``, AdamW, bf16) at tp 2 x data 2, world 4: the DP buckets
+   over the local leaves and 96 tensor-parallel sums, 24 launches of the
+   flash forward, dq and dk/dv a rank-step.  Each part's wall seconds;
+   budget ``STATIC_BUDGET_S``.
 
 Phase 17 also holds ``chunked_allreduce`` (equal to ``allreduce`` at
 world 1) and ``fp8_allreduce`` (bitwise its round trip) on its 64 MiB
@@ -467,8 +492,10 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
@@ -7541,6 +7568,294 @@ def launchers(dev, card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: the static checker -- the lints over the port's tree and the
+# step audit of full-width steps under a recording world on the card
+# ---------------------------------------------------------------------------
+
+
+STATIC_WORLD = 4              # (b), (d): ranks of the recording world
+STATIC_IMAGES = 64            # (b): ResNet-50 images a rank, 224 x 224
+STATIC_RESNET = {             # (b): config -> (step kwargs, codec, hier)
+    "plain_fp16": ({}, "fp16", None),
+    "zero1": ({"zero_stage": 1}, None, None),
+    "powersgd4_ef": ({}, "powersgd:4", None),
+    "microbatch2": ({"microbatches": 2}, "fp16", None),
+    "hier_dcn2x2": ({}, "ici:none,dcn:none", (2, 2)),
+}
+STATIC_TP = 2                 # (c), (d): tensor-parallel ranks
+STATIC_VERIFY_WIDTH = 5       # (c): the verify step's tokens a slot
+STATIC_LLAMA_LAYERS = 32      # (c): Llama-3 8B at full depth
+STATIC_BERT_LAYERS = 24       # (d): BERT-Large at full depth
+STATIC_BUDGET_S = 150.0
+
+
+def _static_audit(part: str, config: str, make, world: int, card: str,
+                  fails: list, dev, hier=None) -> tuple:
+    """One config's audit on ``dev`` (every rank in turn), logged:
+    ``(report, launches a rank-step)``."""
+    from horovod_tpu_torch.analysis import audit_step
+    from horovod_tpu_torch.ops import registry
+    free_device()
+    torch.cuda.synchronize()
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = audit_step(make, world=world, name=f"step:{config}",
+                        device=dev, hierarchical=hier)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_rank = {k: v / world for k, v in registry.launch_counts().items()}
+    s = report.summary
+    equal = all([r.rank_sig() for r in recs]
+                == [r.rank_sig() for r in report.ranks[0]]
+                for recs in report.ranks)
+    rec = {"phase": "static_checker", "part": part, "config": config,
+           "card": card, "world": world, "wall_s": wall,
+           "planned": s["expected_ops"], "emitted": s["emitted_ops"],
+           "matched": s["matched_ops"], "scalar_aux": s["aux_ops"],
+           "stats": s["stats_ops"], "ranks_equal": equal,
+           "launches_per_rank_step": {k: v for k, v in per_rank.items()
+                                      if v},
+           "findings": [f.render() for f in report.findings]}
+    rec["ok"] = (report.ok() and report.expected is not None
+                 and report.expected.supported and equal
+                 and s["matched_ops"] == s["expected_ops"] > 0
+                 and s["missing_ops"] == 0 and s["unaccounted_ops"] == 0
+                 and len(report.ranks) == world)
+    log(rec)
+    if not rec["ok"]:
+        fails.append(f"({part}) {config}: {report.render()}")
+    return report, per_rank
+
+
+def _expect_launches(fails: list, what: str, got: dict, want: dict) -> None:
+    for k, n in want.items():
+        if got.get(k, 0) != n:
+            fails.append(f"{what}: {k} {got.get(k, 0)} launches a rank-step "
+                         f"!= {n}")
+
+
+def _finite_losses(fails: list, what: str, losses: list) -> None:
+    if not losses or not all(np.isfinite(losses)):
+        fails.append(f"{what}: losses {losses} not all finite")
+
+
+def static_checker(dev, card: str) -> dict:
+    """Phase 32: ``run_lints()`` and ``python -m
+    horovod_tpu_torch.analysis``'s ``main`` with ``--lint`` and with no
+    argument (``--all`` on the card) on the checkout; then
+    the step audit on ``cuda:0``, every rank of a recording world
+    (``torch.distributed``'s ``fake`` backend: the collectives move
+    nothing) in turn, each config's audit ``ok()`` with emitted = planned
+    and every rank's collective sequence equal.  (b) ResNet-50 through
+    ``make_flax_train_step`` at ``STATIC_IMAGES`` x 224² a rank in a world
+    of 4 under five exchanges; (c) Llama-3 8B's tp 2 decode and verify
+    steps at full width and depth on random bf16 shards; (d) BERT-Large's
+    3-D step at tp 2 x data 2.  The losses are held to finite only (the
+    collectives return each rank's own values).  Returns the kernels'
+    launches."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis.__main__ import main as analysis_main
+    from horovod_tpu_torch.analysis.lints import run_lints
+    from horovod_tpu_torch.models import (BERT_LARGE, LLAMA3_8B,
+                                          init_bert_params,
+                                          init_llama_params)
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.parallel import (build_3d_mesh,
+                                            build_parallel_mesh,
+                                            shard_params, tp_param_specs)
+    from horovod_tpu_torch.serving import (CacheConfig, PagedKVCache,
+                                           build_decode_step,
+                                           cache_sharding,
+                                           decode_param_specs)
+    from horovod_tpu_torch.serving.kvcache import dtype_name
+    from horovod_tpu_torch.training import make_flax_train_step, shard_batch
+    t_phase = time.perf_counter()
+    fails: list = []
+    total = {k: 0 for k in registry.launch_counts()}
+
+    def add(per_rank: dict, world: int) -> None:
+        for k, v in per_rank.items():
+            total[k] += int(round(v * world))
+
+    # (a) the lints; then the CLI's default run (--all on init()'s
+    # device, the card): the 13 reference configs' audits, the fence
+    # rule among them
+    t0 = time.perf_counter()
+    findings = run_lints()
+    by_rule: dict = {}
+    for f in findings:
+        by_rule[f.rule] = by_rule.get(f.rule, 0) + 1
+    rc = analysis_main(["--lint"])
+    lint_s = time.perf_counter() - t0
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc_all = analysis_main([])
+    cli_s = time.perf_counter() - t0
+    add(registry.launch_counts(), 1)
+    out = out.getvalue().strip().splitlines()
+    audits = [ln for ln in out if ln.startswith("audit step:")]
+    rec = {"phase": "static_checker", "part": "a", "card": card,
+           "wall_s": lint_s, "findings_by_rule": by_rule,
+           "lint_exit_code": rc, "cli_all_exit_code": rc_all,
+           "cli_all_wall_s": cli_s, "cli_all_last_line": out[-1],
+           "cli_all_audits_ok": sum(ln.endswith("-- OK") for ln in audits),
+           "cli_all_launches": {k: v for k, v in
+                                registry.launch_counts().items() if v}}
+    rec["ok"] = (rc == 0 and rc_all == 0 and len(audits) == 13
+                 and rec["cli_all_audits_ok"] == 13
+                 and out[-1].startswith("analysis: 0 error(s),"))
+    log(rec)
+    if not rec["ok"]:
+        fails.append(f"(a) --lint exit code {rc}, --all exit code "
+                     f"{rc_all}: " + "\n".join(out[-30:]))
+
+    # (b) ResNet-50 in a world of 4
+    t_part = time.perf_counter()
+    batch = images(torch.Generator(device=dev).manual_seed(0), dev,
+                   STATIC_IMAGES, 1000)
+    for config, (kw, codec, hier) in STATIC_RESNET.items():
+        losses = []
+
+        def make(kw=kw, codec=codec, losses=losses):
+            model, _ = resnet50(dev, seed=0)
+            named = list(model.named_parameters())
+            opt = torch.optim.SGD([p for _, p in named], lr=0.1,
+                                  momentum=0.9)
+            if codec is not None:
+                opt = hvd.DistributedOptimizer(opt, named_parameters=named,
+                                               compression=codec)
+            step = make_flax_train_step(model, opt, **kw)
+
+            def run(b):
+                loss = step(b)
+                losses.append(loss.item())
+                return loss
+
+            run._meta = step._meta
+            return run, (batch,)
+
+        report, per_rank = _static_audit("b", config, make, STATIC_WORLD,
+                                         card, fails, dev, hier)
+        add(per_rank, STATIC_WORLD)
+        _finite_losses(fails, f"(b) {config}", losses)
+        k = kw.get("microbatches", 1)
+        want = {"bn_bwd_reduce": k * RESNET50_BN_SITES,
+                "bn_bwd_dx": k * RESNET50_BN_SITES}
+        if codec == "powersgd:4":
+            want.update({"fused_update_matricize_p": 2,
+                         "fused_update_orthonormalize_q": 2,
+                         "fused_update_reconstruct": 2})
+        _expect_launches(fails, f"(b) {config}", per_rank, want)
+        del report
+    del batch
+    log({"phase": "static_checker", "part": "b", "card": card,
+         "wall_s": time.perf_counter() - t_part})
+
+    # (c) Llama-3 8B decode and verify at tp 2
+    t_part = time.perf_counter()
+    cfg = LLAMA3_8B
+    assert cfg.num_layers == STATIC_LLAMA_LAYERS
+    params = init_llama_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), dtype=torch.bfloat16, device=dev)
+    specs = decode_param_specs(params)
+    ccfg = CacheConfig(num_layers=cfg.num_layers,
+                       num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                       dtype=dtype_name(torch.bfloat16), **SERVE_GEOM)
+    for width in (1, STATIC_VERIFY_WIDTH):
+        config = "llama8b_tp2_decode" if width == 1 else \
+            "llama8b_tp2_verify"
+
+        def make(width=width):
+            mesh = build_parallel_mesh(tp=STATIC_TP)
+            local = shard_params(params, specs, mesh.axis_index("tp"),
+                                 STATIC_TP)
+            cache = PagedKVCache(ccfg, cache_sharding(mesh, device=dev))
+            for slot in range(ccfg.slots):
+                cache.reserve(slot, width)
+            step = build_decode_step(
+                cfg, mesh, slots=ccfg.slots, page_size=ccfg.page_size,
+                pages_per_slot=ccfg.pages_per_slot, dtype=torch.bfloat16,
+                width=width)
+            shape = (ccfg.slots,) if width == 1 else (ccfg.slots, width)
+            tokens = torch.from_numpy(np.random.RandomState(32).randint(
+                0, cfg.vocab_size, shape)).to(dev)
+            return step, (local, cache.k, cache.v, tokens,
+                          cache.lengths_device().long(),
+                          cache.table_device(),
+                          torch.ones(ccfg.slots, dtype=torch.bool,
+                                     device=dev))
+
+        report, per_rank = _static_audit("c", config, make, STATIC_TP, card,
+                                         fails, dev)
+        add(per_rank, STATIC_TP)
+        psums = [op.sig() for op in report.expected.ops]
+        want_psums = [("psum", "bfloat16", ccfg.slots * cfg.d_model)] * (
+            2 * cfg.num_layers * width)
+        if psums != want_psums:
+            fails.append(f"(c) {config}: planned {len(psums)} psums "
+                         f"{set(psums)}, want {len(want_psums)} of "
+                         f"{want_psums[0]}")
+        _expect_launches(fails, f"(c) {config}", per_rank,
+                         {"flash_decode": cfg.num_layers * width})
+        del report
+    del params
+    free_device()
+    log({"phase": "static_checker", "part": "c", "card": card,
+         "wall_s": time.perf_counter() - t_part})
+
+    # (d) BERT-Large's 3-D step at tp 2 x data 2
+    t_part = time.perf_counter()
+    bcfg = BERT_LARGE
+    assert bcfg.num_layers == STATIC_BERT_LAYERS
+    bparams = init_bert_params(bcfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    bspecs = tp_param_specs(bparams, axis="model")
+    full = bert_batch(bcfg, dev, *PAR_BATCH, seed=0)
+    data = STATIC_WORLD // STATIC_TP
+    rows = PAR_BATCH[0] // data * PAR_BATCH[1]
+    losses = []
+
+    def make_bert():
+        mesh = build_3d_mesh(data=data, model=STATIC_TP)
+        model = _bert_tp_model(bcfg, dev, bparams, bspecs, mesh, STATIC_TP)
+        step = _bert_tp_step(model, bspecs, mesh, STATIC_TP)
+        # Two row-parallel sums a layer, each one forward ("g") and one
+        # backward ("f") of this data rank's (rows, d_model) activation.
+        step._meta["model_parallel"] = {
+            "d_model": bcfg.d_model, "act_rows": rows,
+            "dtype": "bfloat16", "tp_pairs": 2 * bcfg.num_layers}
+
+        def run(b):
+            loss = step(b)
+            losses.append(loss.item())
+            return loss
+
+        run._meta = step._meta
+        return run, (shard_batch(full, mesh),)
+
+    report, per_rank = _static_audit("d", "bert_large_tp2_data2", make_bert,
+                                     STATIC_WORLD, card, fails, dev)
+    add(per_rank, STATIC_WORLD)
+    _finite_losses(fails, "(d)", losses)
+    _expect_launches(fails, "(d)", per_rank,
+                     {k: bcfg.num_layers for k in
+                      ("flash", "flash_bwd_dq", "flash_bwd_dkv")})
+    del report, bparams, full
+    free_device()
+    log({"phase": "static_checker", "part": "d", "card": card,
+         "wall_s": time.perf_counter() - t_part})
+
+    seconds = time.perf_counter() - t_phase
+    log({"phase": "static_checker", "card": card, "seconds": seconds,
+         "budget_s": STATIC_BUDGET_S, "launches": total, "ok": not fails})
+    if fails:
+        raise AssertionError("static_checker: " + "; ".join(fails))
+    return total
+
+
 def main(argv=None) -> int:
     """Every phase (``--tp-worker <job>``: one rank of phase 28 (b), 29
     or 30)."""
@@ -7640,23 +7955,27 @@ def main(argv=None) -> int:
     free_device()
     launch31 = launchers(dev, card)
     free_device()
+    static32 = static_checker(dev, card)
+    free_device()
     # The attention and BN kernels run on several paths: their launches
     # are the sums.
     flash["launches"] = (serve["flash"] + train["flash"] + bert["flash"]
                          + lora26["flash"] + rest27["flash"]
                          + par28["flash"] + tp29["flash"]
-                         + rest30["flash"])
+                         + rest30["flash"] + static32["flash"])
     decode["launches"] = (serve["flash_decode"] + lora26["flash_decode"]
                           + rest27["flash_decode"] + tp29["flash_decode"]
-                          + rest30["flash_decode"])
+                          + rest30["flash_decode"]
+                          + static32["flash_decode"])
     decode_fp8["launches"] = (rest27["flash_decode_fp8"]
                               + rest30["flash_decode_fp8"])
     dq["launches"] = (train["flash_bwd_dq"] + bert["flash_bwd_dq"]
                       + lora26["flash_bwd_dq"] + par28["flash_bwd_dq"]
-                      + rest30["flash_bwd_dq"])
+                      + rest30["flash_bwd_dq"] + static32["flash_bwd_dq"])
     dkv["launches"] = (train["flash_bwd_dkv"] + bert["flash_bwd_dkv"]
                        + lora26["flash_bwd_dkv"] + par28["flash_bwd_dkv"]
-                       + rest30["flash_bwd_dkv"])
+                       + rest30["flash_bwd_dkv"]
+                       + static32["flash_bwd_dkv"])
     bn_red["launches"] = (resnet["bn_bwd_reduce"] + inception["bn_bwd_reduce"]
                           + torch_rn50["bn_bwd_reduce"]
                           + exchange["bn_bwd_reduce"]
@@ -7666,15 +7985,16 @@ def main(argv=None) -> int:
                           + autotune_bn["bn_bwd_reduce"]
                           + join_bn["bn_bwd_reduce"]
                           + par28["bn_bwd_reduce"]
-                          + launch31["bn_bwd_reduce"])
+                          + launch31["bn_bwd_reduce"]
+                          + static32["bn_bwd_reduce"])
     bn_dx["launches"] = (resnet["bn_bwd_dx"] + inception["bn_bwd_dx"]
                          + torch_rn50["bn_bwd_dx"] + exchange["bn_bwd_dx"]
                          + loop["bn_bwd_dx"] + elastic_bn["bn_bwd_dx"]
                          + sdc_bn["bn_bwd_dx"] + autotune_bn["bn_bwd_dx"]
                          + join_bn["bn_bwd_dx"] + par28["bn_bwd_dx"]
-                         + launch31["bn_bwd_dx"])
+                         + launch31["bn_bwd_dx"] + static32["bn_bwd_dx"])
     for e in fused:
-        e["launches"] = powersgd[e["name"]]
+        e["launches"] = powersgd[e["name"]] + static32[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

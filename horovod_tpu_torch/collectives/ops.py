@@ -1443,6 +1443,24 @@ def allgather_bucket(shard: torch.Tensor, size: int, *,
     return full[:size] if full.numel() != size else full
 
 
+def _group_allgather(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The ``n`` members' flat ``x`` concatenated in member order: one
+    allgather over ``group`` (``None``: the world), uncounted -- for an
+    exchange that counts its calls at its plan rows (ZeRO-1)."""
+    out = x.new_empty(n * x.numel())
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def _group_reduce_scatter(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """This member's ``x.numel() / n`` shard of the Sum of the flat ``x``
+    over ``group``: one reduce-scatter, uncounted (as
+    :func:`_group_allgather`)."""
+    out = x.new_empty(x.numel() // n)
+    dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
 def desync_check(x: torch.Tensor, process_set=None) -> torch.Tensor:
     """In-step desync probe: a 0-dim bool tensor, True when ``x`` is NOT
     bit-identical on every member of the set.  The position-weighted

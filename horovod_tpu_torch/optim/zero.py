@@ -63,7 +63,8 @@ from ..collectives.compression import (Compression, fp8_quantize, is_fp8,
                                        is_powersgd, parse_compression,
                                        powersgd_factor_widths,
                                        powersgd_matrix_shape, topk_count)
-from ..collectives.ops import (_divide_in_dtype, _powersgd_seed_matrix,
+from ..collectives.ops import (_divide_in_dtype, _group_allgather,
+                               _group_reduce_scatter, _powersgd_seed_matrix,
                                _topk_select, psum_scatter_bucket,
                                step_allreduce_)
 from ..collectives.reduce_op import Sum
@@ -157,10 +158,7 @@ def _comm(ps) -> Tuple[object, int]:
 
 
 def _allgather(x: torch.Tensor, ps=None) -> torch.Tensor:
-    group, n = _comm(ps)
-    out = x.new_empty(n * x.numel())
-    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-    return out
+    return _group_allgather(x, *_comm(ps))
 
 
 def compressed_allgather(x: torch.Tensor, *, compression=None,
@@ -467,12 +465,8 @@ def _reduce_scatter_mean(g: torch.Tensor, buf: _ArenaBuffer, n: int,
         note_collective("reducescatter", "global" if ps is None else
                         ps.name, leg.nbytes)
         ici, dcn = pair.sets()
-        piece = g.new_empty(buf.padded // pair.n_ici)
-        dist.reduce_scatter_tensor(piece, g, op=dist.ReduceOp.SUM,
-                                   group=ici.group)
-        out = g.new_empty(buf.shard)
-        dist.reduce_scatter_tensor(out, piece, op=dist.ReduceOp.SUM,
-                                   group=dcn.group)
+        piece = _group_reduce_scatter(g, ici.group, pair.n_ici)
+        out = _group_reduce_scatter(piece, dcn.group, pair.n_dcn)
     return _divide_in_dtype(out, n)
 
 

@@ -842,7 +842,41 @@ def _build_step(model: torch.nn.Module, loss_fn,
                                         buffers=flax), norm_limit)
     step.tp, step.pipeline_stages = tp, stages
     step.param_specs, step.data_set = param_specs, data_set
+    step._meta = _step_meta(model, optimizer, zero_stage, zero_compression,
+                            k_micro, guard_on, tp, stages, param_specs,
+                            mesh, data_set, zero_state, flax)
     return step
+
+
+def _step_meta(model, optimizer, zero_stage, zero_compression, k_micro,
+               guard_on, tp, stages, param_specs, mesh, data_set,
+               zero_state, flax) -> dict:
+    """The builder's description of its step (the JAX builders' ``meta``
+    keys): what the exchange accounting and the step auditor
+    (``analysis.stepmodel``) price the step's collectives from.  The data
+    axes are the mesh's (``hvd``, or ``dcn``/``ici`` on a two-level
+    world, without one) and ``world`` their set's size."""
+    from .core.topology import hier_mesh_shape
+    from .parallel.mesh import current_mesh, data_axes
+    mesh = mesh if mesh is not None else current_mesh()
+    world = data_set.size() if data_set is not None else \
+        global_state().size
+    if mesh is not None:
+        axes = tuple(data_axes(mesh))
+        shape = tuple((a, int(n)) for a, n in mesh.shape.items())
+    else:
+        hier = hier_mesh_shape()
+        axes = ("dcn", "ici") if hier is not None else ("hvd",)
+        shape = tuple(zip(axes, hier if hier is not None else (world,)))
+    extents = dict(shape)
+    return {"optimizer": optimizer, "model": model,
+            "zero_stage": zero_stage, "zero_compression": zero_compression,
+            "microbatches": k_micro, "guard": guard_on, "tp": tp,
+            "pipeline_stages": stages,
+            "data_mesh": tuple(int(extents[a]) for a in axes),
+            "data_axes": axes, "mesh_shape": shape,
+            "param_specs": param_specs, "world": int(world),
+            "flax": flax, "data_set": data_set, "zero_state": zero_state}
 
 
 def make_train_step(model: torch.nn.Module,
@@ -886,8 +920,8 @@ def make_train_step(model: torch.nn.Module,
                        zero_compression, microbatches, flax=False, tp=tp,
                        pipeline_stages=pipeline_stages,
                        param_specs=param_specs, mesh=mesh)
-    return _instrument(_maybe_tuned(step, step.replan, 1, optimizer),
-                       1, optimizer, model, zero_compression)
+    return _instrument(_maybe_tuned(step, step.replan, 1, optimizer), 1,
+                       step._meta)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -946,8 +980,8 @@ def make_flax_train_step(model: torch.nn.Module,
                        zero_compression, microbatches, flax=True, tp=tp,
                        pipeline_stages=pipeline_stages,
                        param_specs=param_specs, mesh=mesh)
-    return _instrument(_maybe_tuned(step, step.replan, 1, optimizer),
-                       1, optimizer, model, zero_compression)
+    return _instrument(_maybe_tuned(step, step.replan, 1, optimizer), 1,
+                       step._meta)
 
 
 def sync_batch_norm(axes=None, **kwargs) -> BatchNorm:
@@ -1352,8 +1386,9 @@ def make_train_loop(model: torch.nn.Module,
                        param_specs=param_specs, mesh=mesh)
     loop = TrainLoop(step, k, model, _loop_optimizers(optimizer, step),
                      generators)
-    return _instrument(_maybe_tuned(loop, step.replan, k, optimizer),
-                       k, optimizer, model, zero_compression)
+    loop._meta = step._meta
+    return _instrument(_maybe_tuned(loop, step.replan, k, optimizer), k,
+                       step._meta)
 
 
 def make_flax_train_loop(model: torch.nn.Module,
@@ -1379,8 +1414,9 @@ def make_flax_train_loop(model: torch.nn.Module,
                        param_specs=param_specs, mesh=mesh)
     loop = TrainLoop(step, k, model, _loop_optimizers(optimizer, step),
                      generators)
-    return _instrument(_maybe_tuned(loop, step.replan, k, optimizer),
-                       k, optimizer, model, zero_compression)
+    loop._meta = step._meta
+    return _instrument(_maybe_tuned(loop, step.replan, k, optimizer), k,
+                       step._meta)
 
 
 # ---------------------------------------------------------------------------
@@ -1458,18 +1494,14 @@ class _TunedStep:
 # ---------------------------------------------------------------------------
 
 
-def _instrument(fn, steps: int, optimizer, model: torch.nn.Module,
-                zero_compression):
+def _instrument(fn, steps: int, meta: dict):
     """``fn`` wrapped in :class:`_InstrumentedStep` (``steps`` optimizer
-    steps a call), or ``fn`` itself when ``HOROVOD_METRICS=0``."""
+    steps a call), or ``fn`` itself -- which keeps the builder's ``meta``
+    as ``_meta`` -- when ``HOROVOD_METRICS=0``."""
     from .timeline import metrics as _metrics
     if not _metrics.registry().enabled:
         return fn
-    inner = getattr(fn, "step", fn)          # a TrainLoop's step
-    return _InstrumentedStep(fn, steps, {
-        "optimizer": optimizer, "model": model,
-        "zero_compression": zero_compression,
-        "microbatches": getattr(inner, "microbatches", 1)})
+    return _InstrumentedStep(fn, steps, meta)
 
 
 class _InstrumentedStep:

@@ -473,7 +473,11 @@ def test_sampler_unwraps_with_metrics_off(monkeypatch):
     model = torch.nn.Linear(2, 1)
     step = thvd.make_train_step(model, lambda m, b: m(b).sum(),
                                 torch.optim.SGD(model.parameters(), lr=0.1))
-    assert not hasattr(step, "_meta")
+    # No sampler around the step; the builder's meta stays on it (the
+    # step auditor reads it), as on the JAX step with metrics off.
+    from horovod_tpu_torch.training import _InstrumentedStep
+    assert not isinstance(step, _InstrumentedStep)
+    assert step._meta["world"] == 1 and step._meta["model"] is model
     step(torch.ones(3, 2))
     assert tmetrics.last_step_report() is None
 
