@@ -479,6 +479,29 @@ Phases, each printing its own line; any failure exits non-zero:
    over the local leaves and 96 tensor-parallel sums, 24 launches of the
    flash forward, dq and dk/dv a rank-step.  Each part's wall seconds;
    budget ``STATIC_BUDGET_S``.
+33. scaling -- ``horovod_tpu_torch.utils.scaling`` on three models, each
+   built once from seed 0 on the card, its exchange wrapped anew for
+   every world: ResNet-50 (phase 8's cell: 256 x 224², bf16, SGD,
+   ``Compression.none``, f32 wire), VGG-16 (phase 15's: 32 x 224², SGD,
+   f32 wire) and BERT-Large (phase 12's: 64 x 128 tokens, bf16, the
+   plain ``DistributedOptimizer(AdamW, compression=fp16)``).  (a) Rank
+   0's step once in recording worlds of 2, 8, 32 and 256 and on the
+   two-level layouts 2 x 8, 4 x 8 and 32 x 8: the gradient payload
+   (the optimizer's records) equal to the planner's rows
+   (``explain_plan``) byte for byte at every n, each two-level leg the
+   plan's (``plan_hier_legs``) and equal across the three layouts, the
+   sync bytes (loss, BN statistics) printed apart and the same at every
+   n.  (b) ``step_overlap_report`` at world 8: ResNet-50's and VGG-16's
+   planned buckets async with a timed window above 0, the loss average
+   sync in all three; sync and async bytes, window and compute ms.
+   (c) At world 1 (NCCL): ``updates_in_place`` True (two steps), then
+   ``SCALE_STEPS`` timed steps; ``predict_efficiency`` and
+   ``predict_efficiency_scheduled`` on ``H100_SXM`` (published link
+   figures, an assumed NIC) at n = 1, 2, 4, ..., 256, every value in
+   (0, 1], falling with n, full overlap at or above no overlap.  53
+   launches of each BN kernel a ResNet-50 step and 24 of each attention
+   kernel a BERT-Large step, 16 steps a model.  Budget
+   ``SCALE_BUDGET_S``.
 
 Phase 17 also holds ``chunked_allreduce`` (equal to ``allreduce`` at
 world 1) and ``fp8_allreduce`` (bitwise its round trip) on its 64 MiB
@@ -7856,6 +7879,296 @@ def static_checker(dev, card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: scaling evidence (utils/scaling.py)
+# ---------------------------------------------------------------------------
+
+
+SCALE_WORLDS = (2, 8, 32, 256)          # (a): flat recording worlds
+SCALE_HIER = ((2, 8), (4, 8), (32, 8))  # (a): two-level (n_dcn, n_ici)
+SCALE_OVERLAP_WORLD = 8                 # (b)
+SCALE_STEPS = 5                         # (c): timed world-1 steps
+SCALE_NS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+SCALE_BUDGET_S = 90.0
+# Steps a model runs in the phase: one a world of (a), a warm-up and the
+# profiled step of (b), updates_in_place's two and the timed ones of (c).
+SCALE_MODEL_STEPS = (len(SCALE_WORLDS) + len(SCALE_HIER) + 2 + 2
+                     + SCALE_STEPS)
+
+
+def _scale_cases(dev) -> list:
+    """The three models of phase 33: ``name``, ``build() -> (model,
+    batch)``, ``wrap(model)`` (a new ``DistributedOptimizer``),
+    ``step(model, opt)``, the wire ``codec`` the planner prices, and the
+    kernels' launches a step."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import synthetic_benchmark as sb
+    from horovod_tpu_torch.models import BERT_LARGE, init_params
+    from horovod_tpu_torch.training import (bert_pretrain_loss,
+                                            make_flax_train_step,
+                                            make_train_step)
+
+    def named(model):
+        return list(model.named_parameters())
+
+    def sgd(lr):
+        def wrap(model):
+            ps = named(model)
+            return hvd.DistributedOptimizer(
+                torch.optim.SGD([p for _, p in ps], lr=lr, momentum=0.9),
+                named_parameters=ps, compression=hvd.Compression.none)
+        return wrap
+
+    def resnet():
+        model, _ = resnet50(dev, seed=0)
+        return model, images(torch.Generator(device=dev).manual_seed(0),
+                             dev, 256, 1000)
+
+    def vgg():
+        model = sb.build_model("vgg16", 1000, torch.bfloat16, 224, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model.load_state_dict(init_params(model, generator=gen))
+        return model, images(gen, dev, 32, 1000)
+
+    def bert():
+        cfg = BERT_LARGE
+        return bert_model(cfg, dev, seed=0), bert_batch(cfg, dev, 64, 128,
+                                                         seed=0)
+
+    def adamw(model):
+        ps = named(model)
+        return hvd.DistributedOptimizer(
+            torch.optim.AdamW([p for _, p in ps], lr=1e-3,
+                              weight_decay=1e-4),
+            named_parameters=ps, compression=hvd.Compression.fp16)
+
+    flax = make_flax_train_step
+    layers = BERT_LARGE.num_layers
+    return [
+        dict(name="resnet50", build=resnet, wrap=sgd(0.1), step=flax,
+             codec=None, launches={"bn_bwd_reduce": RESNET50_BN_SITES,
+                                   "bn_bwd_dx": RESNET50_BN_SITES}),
+        dict(name="vgg16", build=vgg, wrap=sgd(0.01), step=flax,
+             codec=None, launches={}),
+        dict(name="bert_large", build=bert, wrap=adamw,
+             step=lambda m, o: make_train_step(m, bert_pretrain_loss, o),
+             codec="fp16", launches={"flash": layers,
+                                     "flash_bwd_dq": layers,
+                                     "flash_bwd_dkv": layers}),
+    ]
+
+
+# The model's two bounds sum the same seconds in another order (step +
+# sync + async against step + (sync + async)), so where nothing hides
+# they may differ in the last bit: compared within this relative slack.
+SCALE_ULP = 1e-12
+
+
+def _curve_fails(what: str, pts) -> list:
+    """The projection's mechanics: every value in (0, 1], full overlap
+    at or above no overlap, neither rising with n."""
+    fails = []
+    for p in pts:
+        for v in (p.eff_no_overlap, p.eff_full_overlap):
+            if not 0.0 < v <= 1.0:
+                fails.append(f"{what}: n={p.n} efficiency {v} outside (0, 1]")
+        if p.eff_full_overlap < p.eff_no_overlap * (1 - SCALE_ULP):
+            fails.append(f"{what}: n={p.n} full overlap below no overlap")
+    for a, b in zip(pts, pts[1:]):
+        if b.eff_no_overlap > a.eff_no_overlap * (1 + SCALE_ULP) or \
+                b.eff_full_overlap > a.eff_full_overlap * (1 + SCALE_ULP):
+            fails.append(f"{what}: efficiency rises from n={a.n} to {b.n}")
+    return fails
+
+
+def _scale_world1(case, model, batch, dev) -> tuple:
+    """(c)'s measurement at world 1 (NCCL): ``(updates in place, mean
+    step s, the planner's rows, each timed step's s)``."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.controller.fusion import explain_plan
+    from horovod_tpu_torch.utils.scaling import updates_in_place
+    hvd.init()
+    try:
+        opt = case["wrap"](model)
+        step = case["step"](model, opt)
+        in_place = updates_in_place(step, batch, params=model)
+        rows = explain_plan([p for _, p in model.named_parameters()],
+                            compression=case["codec"], reverse=True,
+                            register=False)
+        if len(rows) != len(opt.bucket_plan.buffers):
+            raise AssertionError(f"{len(rows)} rows, the wrap plans "
+                                 f"{len(opt.bucket_plan.buffers)} buckets")
+        times = []
+        for _ in range(SCALE_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(batch).item()
+            times.append(time.perf_counter() - t)
+        del step, opt
+    finally:
+        hvd.shutdown()
+    return in_place, sum(times) / len(times), rows, times
+
+
+def scaling_evidence(dev, card: str) -> dict:
+    """Phase 33: wire accounting, overlap windows and the 1 -> 256
+    projection of ``horovod_tpu_torch.utils.scaling`` on ResNet-50,
+    VGG-16 and BERT-Large (module docstring).  Returns the kernels'
+    launches."""
+    from horovod_tpu_torch.controller.fusion import plan_hier_legs
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.utils import scaling
+    t_phase = time.perf_counter()
+    fails: list = []
+    free_device()
+    registry.reset_launch_counts()
+    want_launches = {k: 0 for k in registry.launch_counts()}
+    for case in _scale_cases(dev):
+        name = case["name"]
+        t_model = time.perf_counter()
+        model, batch = case["build"]()
+
+        def make(case=case, model=model, batch=batch):
+            gc.collect()        # the last world's wrap and its hooks
+            return case["step"](model, case["wrap"](model)), (batch,)
+
+        # (c) first: world 1, the plan's rows, the timed step
+        in_place, step_s, rows, times = _scale_world1(case, model, batch,
+                                                      dev)
+        planned = sum(r["wire_bytes"] for r in rows)
+        if not in_place:
+            fails.append(f"{name}: updates_in_place is False")
+
+        # (a) flat worlds, then the two-level layouts
+        flat = {}
+        for n in SCALE_WORLDS:
+            t0 = time.perf_counter()
+            stats = scaling.step_collective_stats(make, world=n, device=dev)
+            grads, sync = scaling.split_gradient_stats(stats)
+            flat[n] = stats
+            rec = {"phase": "scaling", "part": "a", "model": name,
+                   "card": card, "world": n,
+                   "wall_s": time.perf_counter() - t0,
+                   "counts": stats.counts, "bytes": stats.bytes,
+                   "grad_counts": grads.counts, "grad_bytes": grads.bytes,
+                   "planned_buckets": len(rows), "planned_bytes": planned,
+                   "sync_counts": sync.counts, "sync_bytes": sync.bytes}
+            rec["ok"] = (grads.counts == {"all-reduce": len(rows)}
+                         and grads.bytes == {"all-reduce": planned})
+            log(rec)
+            if not rec["ok"]:
+                fails.append(f"(a) {name} world {n}: gradient payload "
+                             f"{grads.counts} {grads.bytes} != planned "
+                             f"{len(rows)} buckets, {planned} bytes")
+        first = flat[SCALE_WORLDS[0]]
+        for n, stats in flat.items():
+            if (stats.counts, stats.bytes) != (first.counts, first.bytes):
+                fails.append(f"(a) {name}: world {n}'s stats {stats.bytes} "
+                             f"!= world {SCALE_WORLDS[0]}'s {first.bytes}")
+        legs = {}
+        for n_dcn, n_ici in SCALE_HIER:
+            t0 = time.perf_counter()
+            grads, sync = scaling.split_gradient_stats(
+                scaling.step_collective_stats(
+                    make, world=n_dcn * n_ici, device=dev,
+                    hierarchical=(n_dcn, n_ici)))
+            want = {"reduce-scatter": 0, "all-reduce": 0, "all-gather": 0}
+            for r in rows:
+                rs, ar, ag = plan_hier_legs(r["elements"], r["dtype"],
+                                            n_dcn=n_dcn, n_ici=n_ici,
+                                            compression=case["codec"])
+                want["reduce-scatter"] += rs.nbytes // n_ici  # B/n shard
+                want["all-reduce"] += ar.nbytes
+                want["all-gather"] += ag.nbytes
+            n_legs = {k: len(rows) for k in want}
+            legs[(n_dcn, n_ici)] = grads.bytes
+            rec = {"phase": "scaling", "part": "a_hier", "model": name,
+                   "card": card, "layout": [n_dcn, n_ici],
+                   "wall_s": time.perf_counter() - t0,
+                   "grad_counts": grads.counts, "grad_bytes": grads.bytes,
+                   "planned_leg_bytes": want, "sync_bytes": sync.bytes}
+            rec["ok"] = grads.counts == n_legs and grads.bytes == want
+            log(rec)
+            if not rec["ok"]:
+                fails.append(f"(a) {name} {n_dcn} x {n_ici}: legs "
+                             f"{grads.counts} {grads.bytes} != plan {want}")
+        if len({tuple(sorted(b.items())) for b in legs.values()}) != 1:
+            fails.append(f"(a) {name}: two-level leg bytes move with "
+                         f"n_dcn: {legs}")
+
+        # (b) the overlap report at world 8
+        t0 = time.perf_counter()
+        rep = scaling.step_overlap_report(make, world=SCALE_OVERLAP_WORLD,
+                                          device=dev)
+        loss_sync = any(op == "all-reduce" and b <= 8
+                        for op, b, _ in rep.sync_collectives)
+        rec = {"phase": "scaling", "part": "b", "model": name, "card": card,
+               "world": SCALE_OVERLAP_WORLD,
+               "wall_s": time.perf_counter() - t0,
+               "sync": [[op, b] for op, b, _ in rep.sync_collectives],
+               "async": [[op, b, i, w]
+                         for op, b, i, w in rep.async_collectives],
+               "sync_bytes": rep.sync_bytes, "async_bytes": rep.async_bytes,
+               "async_window_ms": 1e3 * rep.async_window_seconds,
+               "total_compute_ms": 1e3 * rep.total_compute_seconds,
+               "kernels": rep.n_instructions, "loss_sync": loss_sync,
+               # step_overlap_report raises on a kernel it cannot place
+               # at its launch call, so every one of them was placed
+               "kernels_matched_to_launch": rep.n_instructions}
+        log(rec)
+        if not loss_sync or any(b <= 8 for _, b, _, _ in
+                                rep.async_collectives):
+            fails.append(f"(b) {name}: the loss average is not sync")
+        want_async = sorted(r["wire_bytes"] for r in rows)
+        got_async = sorted(b for op, b, _, _ in rep.async_collectives
+                           if op == "all-reduce")
+        if got_async != want_async or rep.async_window_seconds <= 0:
+            fails.append(f"(b) {name}: async buckets {got_async} (want "
+                         f"{want_async}), window "
+                         f"{rep.async_window_seconds} s")
+
+        # (c) the projection
+        payload = flat[SCALE_WORLDS[-1]].total_bytes
+        plain = scaling.predict_efficiency(step_s, payload,
+                                           scaling.H100_SXM, ns=SCALE_NS)
+        sched = scaling.predict_efficiency_scheduled(
+            step_s, rep, scaling.H100_SXM, ns=SCALE_NS)
+        fails += _curve_fails(f"(c) {name} predict_efficiency", plain)
+        fails += _curve_fails(f"(c) {name} predict_efficiency_scheduled",
+                              sched)
+
+        def curve(pts):
+            return [{"n": p.n, "comm_ms": 1e3 * p.comm_seconds,
+                     "no_overlap": p.eff_no_overlap,
+                     "full_overlap": p.eff_full_overlap} for p in pts]
+
+        log({"phase": "scaling", "part": "c", "model": name, "card": card,
+             "chip_model": dataclasses.asdict(scaling.H100_SXM),
+             "links": "published (NVLink 4, HGX board); NIC assumed",
+             "step_ms": 1e3 * step_s, "step_ms_each": [1e3 * t
+                                                       for t in times],
+             "updates_in_place": in_place, "payload_bytes": payload,
+             "predict_efficiency": curve(plain),
+             "predict_efficiency_scheduled": curve(sched)})
+        for k, v in case["launches"].items():
+            want_launches[k] += v * SCALE_MODEL_STEPS
+        log({"phase": "scaling", "model": name, "card": card,
+             "wall_s": time.perf_counter() - t_model})
+        del model, batch, make, rep, flat
+        free_device()
+    counts = registry.launch_counts()
+    for k, n in want_launches.items():
+        if counts.get(k, 0) != n:
+            fails.append(f"{k}: {counts.get(k, 0)} launches in the phase "
+                         f"!= {n}")
+    seconds = time.perf_counter() - t_phase
+    log({"phase": "scaling", "card": card, "seconds": seconds,
+         "budget_s": SCALE_BUDGET_S, "launches": counts, "ok": not fails})
+    if fails:
+        raise AssertionError("scaling: " + "; ".join(fails))
+    return counts
+
+
 def main(argv=None) -> int:
     """Every phase (``--tp-worker <job>``: one rank of phase 28 (b), 29
     or 30)."""
@@ -7957,12 +8270,15 @@ def main(argv=None) -> int:
     free_device()
     static32 = static_checker(dev, card)
     free_device()
+    scale33 = scaling_evidence(dev, card)
+    free_device()
     # The attention and BN kernels run on several paths: their launches
     # are the sums.
     flash["launches"] = (serve["flash"] + train["flash"] + bert["flash"]
                          + lora26["flash"] + rest27["flash"]
                          + par28["flash"] + tp29["flash"]
-                         + rest30["flash"] + static32["flash"])
+                         + rest30["flash"] + static32["flash"]
+                         + scale33["flash"])
     decode["launches"] = (serve["flash_decode"] + lora26["flash_decode"]
                           + rest27["flash_decode"] + tp29["flash_decode"]
                           + rest30["flash_decode"]
@@ -7971,11 +8287,13 @@ def main(argv=None) -> int:
                               + rest30["flash_decode_fp8"])
     dq["launches"] = (train["flash_bwd_dq"] + bert["flash_bwd_dq"]
                       + lora26["flash_bwd_dq"] + par28["flash_bwd_dq"]
-                      + rest30["flash_bwd_dq"] + static32["flash_bwd_dq"])
+                      + rest30["flash_bwd_dq"] + static32["flash_bwd_dq"]
+                      + scale33["flash_bwd_dq"])
     dkv["launches"] = (train["flash_bwd_dkv"] + bert["flash_bwd_dkv"]
                        + lora26["flash_bwd_dkv"] + par28["flash_bwd_dkv"]
                        + rest30["flash_bwd_dkv"]
-                       + static32["flash_bwd_dkv"])
+                       + static32["flash_bwd_dkv"]
+                       + scale33["flash_bwd_dkv"])
     bn_red["launches"] = (resnet["bn_bwd_reduce"] + inception["bn_bwd_reduce"]
                           + torch_rn50["bn_bwd_reduce"]
                           + exchange["bn_bwd_reduce"]
@@ -7986,13 +8304,15 @@ def main(argv=None) -> int:
                           + join_bn["bn_bwd_reduce"]
                           + par28["bn_bwd_reduce"]
                           + launch31["bn_bwd_reduce"]
-                          + static32["bn_bwd_reduce"])
+                          + static32["bn_bwd_reduce"]
+                          + scale33["bn_bwd_reduce"])
     bn_dx["launches"] = (resnet["bn_bwd_dx"] + inception["bn_bwd_dx"]
                          + torch_rn50["bn_bwd_dx"] + exchange["bn_bwd_dx"]
                          + loop["bn_bwd_dx"] + elastic_bn["bn_bwd_dx"]
                          + sdc_bn["bn_bwd_dx"] + autotune_bn["bn_bwd_dx"]
                          + join_bn["bn_bwd_dx"] + par28["bn_bwd_dx"]
-                         + launch31["bn_bwd_dx"] + static32["bn_bwd_dx"])
+                         + launch31["bn_bwd_dx"] + static32["bn_bwd_dx"]
+                         + scale33["bn_bwd_dx"])
     for e in fused:
         e["launches"] = powersgd[e["name"]] + static32[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -82,13 +82,14 @@ class CollectiveRecord:
     rank-invariant name of the process group (``world``, or the member
     offsets from the lowest member, so rank 0's and rank 2's in-node
     groups compare equal), ``in_kernel`` whether a kernel wrapper was on
-    the stack."""
+    the stack, ``group_size`` the group's rank count."""
     kind: str
     dtype: str
     elements: int
     path: str
     group: str
     in_kernel: bool = False
+    group_size: int = 0
 
     def sig(self) -> Tuple[str, str, int]:
         return (self.kind, self.dtype, self.elements)
@@ -223,19 +224,20 @@ def _reduce_kind(args) -> str:
     return names.get(code, "psum")
 
 
-def _group_name(args) -> str:
+def _group(args) -> Tuple[str, int]:
+    """``(rank-invariant name, rank count)`` of the op's process group."""
     groups = _script_objects(args, "ProcessGroup")
     if not groups:
-        return "?"
+        return "?", 0
     try:
         pg = dist.ProcessGroup.unbox(groups[0])
         ranks = dist.get_process_group_ranks(pg)
     except Exception:               # noqa: BLE001 - a torch without unbox
-        return "?"
+        return "?", 0
     if len(ranks) == dist.get_world_size():
-        return "world"
+        return "world", len(ranks)
     base = min(ranks)
-    return "+" + ",".join(str(r - base) for r in sorted(ranks))
+    return "+" + ",".join(str(r - base) for r in sorted(ranks)), len(ranks)
 
 
 class CollectiveRecorder(TorchDispatchMode):
@@ -261,7 +263,9 @@ class CollectiveRecorder(TorchDispatchMode):
                 self._record(name, list(args) + list(kwargs.values()))
         return func(*args, **kwargs)
 
-    def _record(self, name: str, args) -> None:
+    def _record(self, name: str, args) -> Optional[int]:
+        """Record one c10d op; its index in ``records``, or ``None`` for
+        a send or receive folded into its batch's record."""
         kind, index = C10D_OPS[name]
         if kind == "psum":
             kind = _reduce_kind(args)
@@ -272,16 +276,18 @@ class CollectiveRecorder(TorchDispatchMode):
         else:
             elements = int(t.numel()) if t is not None else 0
         where, in_kernel, batch = self._stack()
+        group, group_size = _group(args)
         with self._lock:
             if kind == "ppermute" and batch is not None and \
                     batch == self._batch:
-                return
+                return None
             self._batch = batch if kind == "ppermute" else None
             self.records.append(CollectiveRecord(
                 kind=kind,
                 dtype=_dtype_name(t.dtype) if t is not None else "?",
                 elements=elements, path=f"{where}#{len(self.records)}",
-                group=_group_name(args), in_kernel=in_kernel))
+                group=group, in_kernel=in_kernel, group_size=group_size))
+            return len(self.records) - 1
 
     def _stack(self):
         """``(first port frame, kernel wrapper on the stack, the

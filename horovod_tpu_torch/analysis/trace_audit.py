@@ -161,6 +161,33 @@ def _match_plan(name: str, expected: ExpectedExchange,
     return findings, counts
 
 
+def record_rank(fn: Callable[..., Tuple[Any, Sequence]], *args,
+                world: int, rank: int = 0, device=None,
+                hierarchical: Optional[Tuple[int, int]] = None,
+                recorder: Optional[_walk.CollectiveRecorder] = None,
+                warmup: int = 0,
+                after: Optional[Callable[[Any, list], None]] = None
+                ) -> List[_walk.CollectiveRecord]:
+    """Rank ``rank``'s records: inside its ``world``-rank recording world
+    (``device``, ``hierarchical`` as :func:`audit_step` takes them)
+    ``fn(*args) -> (step, step_args)`` builds the step, which runs
+    ``warmup`` times unrecorded and then once under ``recorder`` (a new
+    :class:`~.collective_walk.CollectiveRecorder` by default);
+    ``after(step, records)`` runs next, the world still open."""
+    rec = recorder if recorder is not None else _walk.CollectiveRecorder()
+    with _walk.recording_world(world, rank, device=device,
+                               hierarchical=hierarchical):
+        step, step_args = fn(*args)
+        for _ in range(int(warmup)):
+            step(*step_args)
+        with rec:
+            step(*step_args)
+        if after is not None:
+            after(step, rec.records)
+        del step, step_args
+    return rec.records
+
+
 def audit_step(fn: Callable[..., Tuple[Any, Sequence]], *args,
                meta: Optional[dict] = None, world: int = 2,
                name: str = "step", device=None,
@@ -180,22 +207,21 @@ def audit_step(fn: Callable[..., Tuple[Any, Sequence]], *args,
     by_rank: List[List[_walk.CollectiveRecord]] = []
     findings: List[Finding] = []
     expected = None
+
+    def plan(step, records) -> None:
+        nonlocal expected
+        m = meta if meta is not None else meta_from_step(step)
+        if m is not None:
+            m = dict(m)
+            params = trainable(m) if m.get("optimizer") is not None \
+                else []
+            expected = expected_exchange(params, m)
+        findings.extend(_fence_findings(name, records))
+
     for rank in range(int(world)):
-        with _walk.recording_world(world, rank, device=device,
-                                   hierarchical=hierarchical):
-            step, step_args = fn(*args)
-            with _walk.CollectiveRecorder() as rec:
-                step(*step_args)
-            by_rank.append(rec.records)
-            if rank == 0:
-                m = meta if meta is not None else meta_from_step(step)
-                if m is not None:
-                    m = dict(m)
-                    params = trainable(m) if m.get("optimizer") is not None \
-                        else []
-                    expected = expected_exchange(params, m)
-                findings += _fence_findings(name, rec.records)
-            del step, step_args
+        by_rank.append(record_rank(
+            fn, *args, world=world, rank=rank, device=device,
+            hierarchical=hierarchical, after=plan if rank == 0 else None))
     records = by_rank[0]
     summary: Dict[str, int] = {
         "emitted_ops": len(records), "planned_buckets": 0,

@@ -100,6 +100,36 @@ def _grid(thresholds, cycles, hiers, comps, zeros, chunks, steps, micros,
             for hc in hcodecs for mo in moes if not (h == 0 and hc != 0)]
 
 
+def modeled_exchange_seconds(payload_bytes: float, *, n_dcn: int,
+                             n_ici: int, hierarchical: bool,
+                             ici_bw: float, dcn_bw: float,
+                             ici_wire_scale: float = 1.0,
+                             dcn_wire_scale: float = 1.0,
+                             quantize_s: float = 0.0,
+                             phase_overhead_s: float = 0.0) -> float:
+    """Analytic per-link ring cost of one gradient exchange (the JAX
+    package's formula; ``utils.scaling.H100_SXM`` gives an H100's rates).
+
+    The candidate scorer for the hierarchical/per-leg-codec axes when no
+    wall clock is trustworthy: a flat ring moves ``2 (n-1)/n * bytes``
+    over the SLOWEST link it crosses, while the two-level schedule moves
+    the full payload over ICI (the NVLink domain) and only the
+    ``1/n_ici`` shard over DCN (the NIC) -- with each leg's wire bytes
+    scaled by that leg's codec (``*_wire_scale``).  ``quantize_s``
+    prices the codec's cast/quantize work, ``phase_overhead_s`` one
+    collective launch (the hierarchical schedule pays two extra phases).
+    """
+    n = n_dcn * n_ici
+    if hierarchical and n_dcn > 1:
+        return (2 * (n_ici - 1) / n_ici * payload_bytes * ici_wire_scale
+                / ici_bw
+                + 2 * (n_dcn - 1) / n_dcn
+                * (payload_bytes * dcn_wire_scale / n_ici) / dcn_bw
+                + 2 * phase_overhead_s + quantize_s)
+    return (2 * (n - 1) / n * payload_bytes * ici_wire_scale
+            / min(ici_bw, dcn_bw) + phase_overhead_s + quantize_s)
+
+
 def _layout_is_two_level() -> bool:
     """True when the world is laid out in two levels with both extents
     above 1 (the JAX ``_mesh_is_two_level``): otherwise the hierarchical

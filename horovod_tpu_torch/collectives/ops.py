@@ -83,6 +83,12 @@ _TORCH_OPS = {
 }
 
 
+# Called with a handle's ``torch.distributed`` work just before
+# ``Handle.wait`` waits on it, while set: the overlap report
+# (``utils.scaling.step_overlap_report``) marks each wait there.
+wait_observer: Optional[Callable[[object], None]] = None
+
+
 class Handle:
     """An in-flight collective: ``wait()`` blocks until it is done and
     returns its result; ``poll()`` is True once its work (and every part
@@ -113,6 +119,8 @@ class Handle:
     def wait(self):
         if not self._done:
             if self._work is not None:
+                if wait_observer is not None:
+                    wait_observer(self._work)
                 try:
                     with stall.watched(self._name or "collective"):
                         self._work.wait()

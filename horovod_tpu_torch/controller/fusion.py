@@ -25,7 +25,8 @@ steps' row-parallel sums), ``moe`` (the MoE layer's all_to_all pair,
 needs :func:`register_leg_kind` and :func:`register_plan_family` and no
 consumer code.  :func:`schedule_legs`, :func:`overlap_phases` and
 :func:`simulate_issue` order and price legs on a two-link model whose
-rates the caller passes (``links``: the port holds no link rates);
+rates the caller passes (``links``), by default the NVLink and NIC rates
+of ``utils.scaling.H100_SXM``;
 :func:`explain_plan` / :func:`render_plan` show a model's buckets.
 The rows equal the JAX package's field by field but ``fence``, which
 carries the port's eager fence policy (:func:`_fence_policy`: NCCL's
@@ -956,16 +957,16 @@ def leg_bandwidth(leg: ExchangeLeg) -> str:
 
 def _link_rate(links, bw: str) -> float:
     if links is None:
-        raise ValueError(
-            "pricing a leg needs links={'ici': bytes/s, 'dcn': bytes/s}: "
-            "the port holds no link rates of its own")
+        from ..utils.scaling import H100_SXM
+        links = H100_SXM.links()
     return float(links[bw])
 
 
 def leg_cost_seconds(leg: ExchangeLeg, links=None) -> float:
     """A leg's modeled issue cost: its wire bytes over its bandwidth
     class's rate in ``links`` (a mapping with ``ici`` and ``dcn`` in
-    bytes/s, from the caller).  A ``local`` leg costs nothing."""
+    bytes/s; ``None``: ``utils.scaling.H100_SXM``'s NVLink and NIC
+    rates).  A ``local`` leg costs nothing."""
     bw = leg_bandwidth(leg)
     if bw == "local":
         return 0.0
@@ -975,8 +976,9 @@ def leg_cost_seconds(leg: ExchangeLeg, links=None) -> float:
 def schedule_legs(legs: Sequence[ExchangeLeg], mode: str = "program",
                   links=None) -> List[ExchangeLeg]:
     """Order legs for issue.  ``program`` mode keeps plan order.
-    ``bandwidth`` mode (needs ``links``) is greedy list scheduling on the
-    two-link model of :func:`simulate_issue`: legs sharing a ``bucket``
+    ``bandwidth`` mode (``links`` as :func:`leg_cost_seconds` takes them)
+    is greedy list scheduling on the two-link model of
+    :func:`simulate_issue`: legs sharing a ``bucket``
     stay a chain in plan order, and across chains the head that can
     start earliest goes first -- ties to the slower class (DCN, ICI,
     local), then the costlier leg, then plan order."""
@@ -986,7 +988,6 @@ def schedule_legs(legs: Sequence[ExchangeLeg], mode: str = "program",
     if mode != "bandwidth":
         raise ValueError(
             f"schedule mode must be 'program' or 'bandwidth', got {mode!r}")
-    _link_rate(links, "ici")
     if len(ordered) <= 1:
         return ordered
     chains: Dict[int, List[int]] = {}

@@ -12,9 +12,9 @@ In one process:
   and ``ici:none,dcn:fp8``;
 * the memo: the same spec gives the same object, counted as a hit;
 * ``schedule_legs``, ``overlap_phases`` and ``simulate_issue`` equal to
-  the JAX ones on the same legs with V5E's two link rates handed to both
-  (the port holds no rates: ``bandwidth`` mode without ``links``
-  raises);
+  the JAX ones on the same legs with V5E's two link rates handed to both;
+  without ``links`` the port prices on ``utils.scaling.H100_SXM``'s
+  rates, as the JAX ones do on a ``ChipSpec`` of the same figures;
 * the registry drill (JAX ``tests/test_plan_ir.py::
   test_new_leg_kind_needs_zero_consumer_code``): a leg kind and a family
   added through the two calls are priced, scheduled and span-recorded
@@ -267,13 +267,34 @@ def test_schedule_overlap_and_simulate_match_jax(mode):
 
 
 def test_bandwidth_mode_needs_links():
-    legs = _mixed_legs(tfusion)
-    for call in (lambda: tfusion.schedule_legs(legs, mode="bandwidth"),
-                 lambda: tfusion.overlap_phases(legs, 2, mode="bandwidth"),
-                 lambda: tfusion.simulate_issue(legs),
-                 lambda: tfusion.leg_cost_seconds(legs[1])):
-        with pytest.raises(ValueError, match="links"):
-            call()
+    from horovod_tpu.utils.scaling import ChipSpec
+
+    from horovod_tpu_torch.utils.scaling import H100_SXM
+    jf = _jfusion()
+    legs, jlegs = _mixed_legs(tfusion), _mixed_legs(jf)
+    h100 = H100_SXM.links()
+    jchip = ChipSpec(**dataclasses.asdict(H100_SXM))
+    # No links: H100_SXM's NVLink and NIC rates, as the JAX functions
+    # price them on a ChipSpec of the same figures.
+    for port, given, want in (
+            (lambda: _key(tfusion.schedule_legs(legs, mode="bandwidth")),
+             lambda: _key(tfusion.schedule_legs(legs, mode="bandwidth",
+                                                links=h100)),
+             lambda: _key(jf.schedule_legs(jlegs, mode="bandwidth",
+                                           chip=jchip))),
+            (lambda: [_key(p) for p in tfusion.overlap_phases(
+                legs, 2, mode="bandwidth")],
+             lambda: [_key(p) for p in tfusion.overlap_phases(
+                 legs, 2, mode="bandwidth", links=h100)],
+             lambda: [_key(p) for p in jf.overlap_phases(
+                 jlegs, 2, mode="bandwidth", chip=jchip)]),
+            (lambda: tfusion.simulate_issue(legs),
+             lambda: tfusion.simulate_issue(legs, links=h100),
+             lambda: jf.simulate_issue(jlegs, chip=jchip)),
+            (lambda: tfusion.leg_cost_seconds(legs[1]),
+             lambda: tfusion.leg_cost_seconds(legs[1], h100),
+             lambda: jf.leg_cost_seconds(jlegs[1], jchip))):
+        assert port() == given() == want()
     # Program order, the default, prices nothing.
     assert tfusion.schedule_legs(legs) == legs
     assert tfusion.schedule_legs(legs, mode="program") == legs
