@@ -411,8 +411,9 @@ Phases, each printing its own line; any failure exits non-zero:
    a prefill (the leader's, and the local ones), 32 decode (or e4m3
    decode) launches a step.  (b) The two-level DP leg: this script run
    four times with ``--tp-worker parallel_3d_dcn`` under
-   ``HOROVOD_HIERARCHICAL_ALLREDUCE=1``, BERT-Large (phase 12's cell,
-   ``DCN_LAYERS`` deep, bf16, AdamW) through ``make_train_step`` on
+   ``HOROVOD_HIERARCHICAL_ALLREDUCE=1``, BERT-Large (phase 12's cell at
+   full width, ``DCN_LAYERS`` = 4 deep -- cut from 24, the reference at
+   the same depth --, bf16, AdamW) through ``make_train_step`` on
    ``build_3d_mesh(data=2, dcn_size=2)``: a warm-up and a timed step,
    one step under ``ici:none,dcn:fp16``, each held against the 3-D step
    at world 1 here (phase 28 (a)'s, 64 x 128 tokens) -- the loss within
@@ -6518,7 +6519,8 @@ FLEET_TP_KILL_AFTER = 3        # (a): handoffs published before the kill
 FLEET_TP_TIMEOUT = 420
 FLEET_TP_PAGE = 16
 DCN_WORLD = 4                  # (b): dcn 2 x data 2 (and dcn 2 x model 2)
-DCN_LAYERS = 24                # (b): BERT-Large's depth, uncut
+DCN_LAYERS = 4                 # (b): BERT-Large at full width, depth cut
+                               # from 24 to keep the script in its limit
 DCN_TIMEOUT = 300              # (b): its time budget, workers included
 DCN_CODEC = "ici:none,dcn:fp16"
 DCN_HIER_LEGS = ("hier/ici_rs", "hier/dcn_ar", "hier/ici_ag")
