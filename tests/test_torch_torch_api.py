@@ -128,16 +128,21 @@ def test_later_items_raise_naming_their_item(name, tmp_path):
 
 
 def test_no_module_imports_jax():
-    """Every module of the port, imported in a fresh interpreter, leaves
+    """Every module of the port, its examples (``horovod_tpu_torch.
+    examples``) included, imported in a fresh interpreter, leaves
     ``jax`` and ``horovod_tpu`` out of ``sys.modules``.  The TensorFlow
-    and Keras shims are imported last, after ``tensorflow`` and
-    ``keras`` (TensorFlow imports JAX where JAX is installed), and may
-    add no module of either to what those loaded."""
+    and Keras shims and the TensorFlow examples are imported last, after
+    ``tensorflow`` and ``keras`` (TensorFlow imports JAX where JAX is
+    installed), and may add no module of either to what those loaded.
+    The examples import most of what they use inside ``main``:
+    :func:`test_no_example_imports_jax_anywhere` reads their sources."""
     code = (
         "import importlib, importlib.util, os, pkgutil, sys\n"
         "import horovod_tpu_torch as p\n"
         "tf_bound = ('horovod_tpu_torch.tensorflow', "
-        "'horovod_tpu_torch.keras')\n"
+        "'horovod_tpu_torch.keras', "
+        "'horovod_tpu_torch.examples.tensorflow2_mnist', "
+        "'horovod_tpu_torch.examples.tf2_resnet50')\n"
         "def walk(path, prefix):\n"   # walk_packages imports each package
         "    for m in pkgutil.iter_modules([path], prefix):\n"
         "        yield m.name\n"
@@ -161,12 +166,49 @@ def test_no_module_imports_jax():
         "        importlib.import_module(n)\n"
         "    found += bad(set(sys.modules) - before)\n"
         "    names += shims\n"
-        "print(len(names), found)\n"
-        "sys.exit(1 if found or len(names) < 40 else 0)\n")
+        "ex = os.path.join(p.__path__[0], 'examples')\n"
+        "missing = sorted('horovod_tpu_torch.examples.' + f[:-3] "
+        "for f in os.listdir(ex) if f.endswith('.py') and "
+        "f != '__init__.py' and 'horovod_tpu_torch.examples.' + f[:-3] "
+        "not in every)\n"
+        "print(len(names), found, missing)\n"
+        "sys.exit(1 if found or missing or len(names) < 40 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _imported_modules(path: str) -> set:
+    """Every module an ``import`` / ``from ... import`` statement names
+    anywhere in the file -- inside functions too."""
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+    return mods
+
+
+def test_no_example_imports_jax_anywhere():
+    """No statement of any example script of the port -- at module level
+    or inside a function, the TensorFlow examples' included -- imports
+    ``jax`` or ``horovod_tpu``: an example's imports run only when it is
+    called, so the import walk above cannot see them all."""
+    ex = os.path.join(REPO, "horovod_tpu_torch", "examples")
+    files = sorted(f for f in os.listdir(ex) if f.endswith(".py"))
+    assert len(files) >= 21, files
+    bad = {}
+    for f in files:
+        hits = sorted(m for m in _imported_modules(os.path.join(ex, f))
+                      if m.split(".")[0] in ("jax", "horovod_tpu"))
+        if hits:
+            bad[f] = hits
+    assert not bad, bad
 
 
 @pytest.fixture
