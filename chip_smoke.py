@@ -392,8 +392,8 @@ Phases, each printing its own line; any failure exits non-zero:
    2 and 2b at the tp-local heads (16/4 and 8/2, ``check_decode_tp``).
 30. item_1_12_rest -- (a) the disaggregated fleet with a tp 2 decode
    worker: this script run twice with ``--tp-worker fleet_tp`` on
-   ``cuda:0`` over gloo, Llama-3 8B (full width and depth, bf16, seed 0)
-   on phase 4's load, one prefill worker on rank 0 (the leader) and one
+   ``cuda:0`` over gloo, Llama-3 8B (full width, ``FLEET_TP_LAYERS`` = 8
+   deep -- cut from 32 --, bf16, seed 0) on phase 4's load, one prefill worker on rank 0 (the leader) and one
    ``ServingEngine(mesh=build_parallel_mesh(tp=2))`` over both ranks, a
    loopback ``RendezvousServer`` started here.  The f32 wire: every
    request completes, no page left on either rank, both ranks' streams
@@ -407,13 +407,12 @@ Phases, each printing its own line; any failure exits non-zero:
    first decode logits against the f32 wire's are logged.  A dead
    prefill worker (killed at the ``FLEET_TP_KILL_AFTER``-th import, on
    both ranks): the rest fall back to local prefill, nothing lost or
-   leaked, the streams the f32 run's.  Launches on both ranks: 32 flash
-   a prefill (the leader's, and the local ones), 32 decode (or e4m3
-   decode) launches a step.  (b) The two-level DP leg: this script run
+   leaked, the streams the f32 run's.  Launches on both ranks: one flash
+   a layer a prefill (the leader's, and the local ones), one decode (or
+   e4m3 decode) a layer a step.  (b) The two-level DP leg: this script run
    four times with ``--tp-worker parallel_3d_dcn`` under
-   ``HOROVOD_HIERARCHICAL_ALLREDUCE=1``, BERT-Large (phase 12's cell at
-   full width, ``DCN_LAYERS`` = 4 deep -- cut from 24, the reference at
-   the same depth --, bf16, AdamW) through ``make_train_step`` on
+   ``HOROVOD_HIERARCHICAL_ALLREDUCE=1``, BERT-Large (phase 12's cell,
+   ``DCN_LAYERS`` deep, bf16, AdamW) through ``make_train_step`` on
    ``build_3d_mesh(data=2, dcn_size=2)``: a warm-up and a timed step,
    one step under ``ici:none,dcn:fp16``, each held against the 3-D step
    at world 1 here (phase 28 (a)'s, 64 x 128 tokens) -- the loss within
@@ -503,6 +502,30 @@ Phases, each printing its own line; any failure exits non-zero:
    launches of each BN kernel a ResNet-50 step and 24 of each attention
    kernel a BERT-Large step, 16 steps a model.  Budget
    ``SCALE_BUDGET_S``.
+34. examples -- the JAX repository's examples that the port carries
+   (``horovod_tpu_torch/examples``), through their module-level
+   functions, with ``HOROVOD_METRICS_PORT=0``.  (c) ``metrics_probe``,
+   ``EX_METRIC_STEPS`` steps on a fresh metrics registry: the scraped
+   ``horovod_step_total 3``, the plan, the step audit ``ok()`` in a
+   recording world on the card.  (a) ``serving_probe.run_probe`` at
+   Llama-3 8B (full width and depth, bf16, random weights from seed 0),
+   8 slots, page 8 (the JAX probe's), ``long_prompt_spec`` with 8
+   requests at 2 a second (512/2048/4096-token prompts) in 512-token
+   chunks: every request completed, every request-lifecycle family on
+   ``/metrics`` and its counts the engine report's, the
+   ``serving_prefill``, ``serving_prefill_chunk`` and ``serving_decode``
+   legs, 32 flash launches a prefill forward and 32 decode launches a
+   step, no call of the plain attention; first, ``LLAMA_SERVE`` (head dim
+   16) refused by the kernels with ``ValueError``.  (b)
+   ``grad_compression``, ``EX_GC_STEPS`` steps of each codec: the wire
+   bytes a step of each equal to the CPU run's (``EX_GC_WIRE``), finite
+   losses, one launch of each ``fused_update`` stage a bucket (the MLP's
+   9,610 f32 values: one) a ``powersgd:4`` step.  (d) ``straggler_probe`` on the JAX test's arguments: rank 3
+   named live and in the merge.  (e) ``allreduce_benchmark`` over 1-256
+   MiB at world 1 on NCCL, every result equal to its input (no bus
+   number: the bus factor is 0).  (f) ``fp8_cost_probe``: the round trip
+   of 80,000,000 f32 values within one e4m3 step, timed beside the card
+   line.  Budget ``EXAMPLES_BUDGET_S``.
 
 Phase 17 also holds ``chunked_allreduce`` (equal to ``allreduce`` at
 world 1) and ``fp8_allreduce`` (bitwise its round trip) on its 64 MiB
@@ -6518,9 +6541,13 @@ FLEET_TP = 2                   # (a): the decode worker's ranks on the card
 FLEET_TP_KILL_AFTER = 3        # (a): handoffs published before the kill
 FLEET_TP_TIMEOUT = 420
 FLEET_TP_PAGE = 16
+# (a): Llama-3 8B at full width, depth cut from 32 to keep the script in
+# its limit (every gate of (a) is exact: streams, bitwise e4m3 shards).
+# At 4 layers (b)'s fp16-wire update fell outside its gate, whose floor
+# is the model's own bf16-vs-f32 distance, which shrinks with depth.
+FLEET_TP_LAYERS = 8
 DCN_WORLD = 4                  # (b): dcn 2 x data 2 (and dcn 2 x model 2)
-DCN_LAYERS = 4                 # (b): BERT-Large at full width, depth cut
-                               # from 24 to keep the script in its limit
+DCN_LAYERS = 24                # (b): BERT-Large's depth, uncut
 DCN_TIMEOUT = 300              # (b): its time budget, workers included
 DCN_CODEC = "ici:none,dcn:fp16"
 DCN_HIER_LEGS = ("hier/ici_rs", "hier/dcn_ar", "hier/ici_ag")
@@ -6545,9 +6572,10 @@ def _first_logits(eng, store: dict):
 
 
 def fleet_tp_worker(rank: int, world: int, store: str, out: str) -> int:
-    """One rank of phase 30 (a): Llama-3 8B at full width and depth on
-    ``cuda:0`` over gloo; rank 0 is the fleet's leader and runs its
-    prefill worker, every rank the tp 2 decode worker's shard."""
+    """One rank of phase 30 (a): Llama-3 8B at full width,
+    ``FLEET_TP_LAYERS`` deep, on ``cuda:0`` over gloo; rank 0 is the
+    fleet's leader and runs its prefill worker, every rank the tp 2
+    decode worker's shard."""
     import torch.distributed as dist
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
@@ -6565,7 +6593,8 @@ def fleet_tp_worker(rank: int, world: int, store: str, out: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    cfg, bf16 = LLAMA3_8B, torch.bfloat16
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=FLEET_TP_LAYERS)
+    bf16 = torch.bfloat16
     mesh = build_parallel_mesh(tp=world)
     params = init_llama_params(cfg, generator=torch.Generator(
         device=dev).manual_seed(0), dtype=bf16, device=dev)
@@ -6908,9 +6937,8 @@ def _fleet_tp_check(ranks: list, card: str, total: dict) -> list:
     """Phase 30 (a)'s records, one a fleet run (f32 wire, fp8 wire, dead
     prefill worker), from the ranks' results; the launches added to
     ``total``.  Returns the parts that failed."""
-    from horovod_tpu_torch.models import LLAMA3_8B
     fails = []
-    layers = LLAMA3_8B.num_layers
+    layers = FLEET_TP_LAYERS
     n_req = SERVE_LOAD["num_requests"]
     r0 = ranks[0]
     colo = r0["colocated"]["streams"]
@@ -8171,6 +8199,219 @@ def scaling_evidence(dev, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 34: the JAX repository's examples that the port carries, run on the
+# card through their module-level functions
+# ---------------------------------------------------------------------------
+
+
+EXAMPLES_BUDGET_S = 60.0
+EX_SERVE_REQUESTS = 8         # (a): long_prompt_spec at 2 requests/s
+EX_SERVE_SLOTS = 8
+EX_SERVE_CHUNK = 512
+EX_GC_STEPS = 10              # (b): steps of each codec
+# (b): a rank's wire bytes a step, each codec, as the CPU run (and the
+# JAX script) computes them from the MLP's shapes at world 1, and its
+# PowerSGD buckets (the MLP's 9,610 f32 values are one).
+EX_GC_WIRE = {"uncompressed": 38440, "powersgd:4": 3152, "topk:0.05": 1924}
+EX_GC_BUCKETS = 1
+EX_METRIC_STEPS = 3           # (c)
+EX_STRAGGLER = ["--steps", "10", "--slow-rank", "3", "--slow-step", "4",
+                "--slow-secs", "0.3"]   # (d): the JAX test's arguments
+EX_SWEEP_MB = "1,4,16,64,256"           # (e)
+EX_FUSED = ("fused_update_matricize_p", "fused_update_orthonormalize_q",
+            "fused_update_reconstruct")
+
+
+@contextlib.contextmanager
+def _plain_attention_counted(calls: dict):
+    """Count calls of the plain attention functions (the prefill's and
+    the decode's) while the block runs: on the card no path may reach
+    them."""
+    from horovod_tpu_torch.ops import attention as attn
+    saved = {n: getattr(attn, n) for n in ("_reference", "_decode_reference")}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return wrapper
+
+    for n, fn in saved.items():
+        setattr(attn, n, counted(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(attn, n, fn)
+
+
+def examples(dev, card: str) -> dict:
+    """Phase 34 (module docstring): the examples on the card.  Returns
+    the main path's launches: the attention kernels' of (a), the
+    ``fused_update`` stages' of (b)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import (allreduce_benchmark,
+                                            fp8_cost_probe, grad_compression,
+                                            metrics_probe, serving_probe,
+                                            straggler_probe)
+    from horovod_tpu_torch.models import (LLAMA3_8B, LLAMA_SERVE,
+                                          init_llama_params)
+    from horovod_tpu_torch.ops import registry
+    from horovod_tpu_torch.timeline.metrics import reset_metrics
+
+    t_phase = time.perf_counter()
+    fails, total = [], {}
+    saved_port = os.environ.get("HOROVOD_METRICS_PORT")
+    os.environ["HOROVOD_METRICS_PORT"] = "0"
+    hvd.shutdown()
+    try:
+        # (c) first, on a fresh metrics registry: the probe reads the
+        # step counter absolutely, as the script alone would.
+        t0 = time.perf_counter()
+        reset_metrics()
+        registry.reset_launch_counts()
+        mp = metrics_probe.main(["--steps", str(EX_METRIC_STEPS)])
+        rec = {"phase": "examples", "part": "c", "card": card,
+               "seconds": time.perf_counter() - t0, "losses": mp["losses"],
+               "lines": mp["lines"], "plan_rows": len(mp["plan"]),
+               "audit": mp["audit"].render(),
+               "launches": registry.launch_counts()}
+        rec["ok"] = (f"horovod_step_total {EX_METRIC_STEPS}" in mp["lines"]
+                     and mp["audit"].ok()
+                     and bool(np.all(np.isfinite(mp["losses"]))))
+        log(rec)
+        if not rec["ok"]:
+            fails.append("(c)")
+        del mp
+
+        # (a) the serving probe at Llama-3 8B, full width and depth.
+        hvd.init()
+        t0 = time.perf_counter()
+        try:
+            small = init_llama_params(LLAMA_SERVE, generator=torch.Generator(
+                device=dev).manual_seed(0), device=dev)
+            serving_probe.run_probe(LLAMA_SERVE, small, device=dev,
+                                    requests=1)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        del small
+        cfg = LLAMA3_8B
+        params = init_llama_params(cfg, generator=torch.Generator(
+            device=dev).manual_seed(0), dtype=torch.bfloat16, device=dev)
+        plain = {}
+        registry.reset_launch_counts()
+        with _plain_attention_counted(plain):
+            out = serving_probe.run_probe(
+                cfg, params, device=dev, slots=EX_SERVE_SLOTS,
+                requests=EX_SERVE_REQUESTS, rate=2.0, long_prompts=True,
+                prefill_chunk=EX_SERVE_CHUNK, dtype=torch.bfloat16)
+        counts = registry.launch_counts()
+        rep = out["report"]
+        legs = out["summary"]["legs"]
+        rec = {"phase": "examples", "part": "a", "card": card,
+               "seconds": time.perf_counter() - t0, **rep.as_dict(),
+               "legs": legs, "launches": counts, "plain_calls": plain,
+               "head_dim_16_refused": refused, "fails": out["fails"],
+               "lines": out.get("lines")}
+        want = {"flash": cfg.num_layers * rep.prefill_forwards,
+                "flash_decode": cfg.num_layers * rep.decode_steps}
+        rec["ok"] = (not out["fails"] and not plain
+                     and rep.completed == EX_SERVE_REQUESTS
+                     and rep.prefill_chunks > 0
+                     and all(counts.get(k, 0) == n and n > 0
+                             for k, n in want.items())
+                     and refused is not None and "head_dim 16" in refused)
+        log(rec)
+        if not rec["ok"]:
+            fails.append("(a)")
+        for k in ("flash", "flash_decode"):
+            total[k] = counts.get(k, 0)
+        del out, params
+        free_device()
+
+        # (b) grad_compression: the three codecs, the MLP's one bucket
+        # through the fused_update kernels under powersgd:4.
+        t0 = time.perf_counter()
+        registry.reset_launch_counts()
+        gc_run = grad_compression.main(["--steps", str(EX_GC_STEPS)])
+        counts = registry.launch_counts()
+        rec = {"phase": "examples", "part": "b", "card": card,
+               "seconds": time.perf_counter() - t0,
+               "wire": {k: v["wire"] for k, v in gc_run.items()},
+               "losses": {k: [v["losses"][0], v["losses"][-1]]
+                          for k, v in gc_run.items()},
+               "launches": counts}
+        # One launch of each stage a bucket a powersgd:4 step.
+        rec["ok"] = (rec["wire"] == EX_GC_WIRE
+                     and all(np.all(np.isfinite(v["losses"]))
+                             for v in gc_run.values())
+                     and all(counts.get(k, 0) == EX_GC_BUCKETS * EX_GC_STEPS
+                             for k in EX_FUSED))
+        log(rec)
+        if not rec["ok"]:
+            fails.append("(b)")
+        for k in EX_FUSED:
+            total[k] = counts.get(k, 0)
+
+        # (d) the straggler drill: the injected rank named.
+        t0 = time.perf_counter()
+        st = straggler_probe.main(EX_STRAGGLER)
+        rec = {"phase": "examples", "part": "d", "card": card,
+               "seconds": time.perf_counter() - t0,
+               "live": {k: st["live"][k] for k in
+                        ("straggler_rank", "lateness_s", "skew_s")},
+               "merged_rank": st["merged"]["straggler"]["straggler_rank"],
+               "stalled_gap_s": st["stalled"]["spans"]["dispatch_gap"],
+               "bound": st["bound"]}
+        rec["ok"] = rec["live"]["straggler_rank"] == rec["merged_rank"] == 3
+        log(rec)
+        if not rec["ok"]:
+            fails.append("(d)")
+        shutil.rmtree(st["trace_dir"], ignore_errors=True)
+
+        # (e) the allreduce sweep at world 1 on NCCL.
+        t0 = time.perf_counter()
+        sweep = allreduce_benchmark.main(["--sizes-mb", EX_SWEEP_MB,
+                                          "--iters", "10"])
+        rec = {"phase": "examples", "part": "e", "card": card,
+               "seconds": time.perf_counter() - t0, "world": hvd.size(),
+               "backend": "nccl", "sweep": sweep}
+        rec["ok"] = (len(sweep) == len(EX_SWEEP_MB.split(","))
+                     and all(r["exact"] and r["bus_gib_s"] is None
+                             for r in sweep))
+        log(rec)
+        if not rec["ok"]:
+            fails.append("(e)")
+
+        # (f) the fp8 codec's round trip on one BERT-bucket payload.
+        t0 = time.perf_counter()
+        fp8 = fp8_cost_probe.main([])
+        rec = {"phase": "examples", "part": "f", "card": card,
+               "seconds": time.perf_counter() - t0, **fp8}
+        rec["ok"] = fp8["within_one_step"] and fp8["card"] == card
+        log(rec)
+        if not rec["ok"]:
+            fails.append("(f)")
+    finally:
+        hvd.shutdown()
+        if saved_port is None:
+            os.environ.pop("HOROVOD_METRICS_PORT", None)
+        else:
+            os.environ["HOROVOD_METRICS_PORT"] = saved_port
+    seconds = time.perf_counter() - t_phase
+    if seconds > EXAMPLES_BUDGET_S:
+        fails.append(f"took {seconds:.1f} s of its {EXAMPLES_BUDGET_S} s")
+    log({"phase": "examples", "card": card, "seconds": seconds,
+         "budget_s": EXAMPLES_BUDGET_S, "launches": total,
+         "ok": not fails})
+    if fails:
+        raise AssertionError("examples: parts " + ", ".join(fails)
+                             + " failed")
+    return total
+
+
 def main(argv=None) -> int:
     """Every phase (``--tp-worker <job>``: one rank of phase 28 (b), 29
     or 30)."""
@@ -8274,17 +8515,19 @@ def main(argv=None) -> int:
     free_device()
     scale33 = scaling_evidence(dev, card)
     free_device()
+    ex34 = examples(dev, card)
+    free_device()
     # The attention and BN kernels run on several paths: their launches
     # are the sums.
     flash["launches"] = (serve["flash"] + train["flash"] + bert["flash"]
                          + lora26["flash"] + rest27["flash"]
                          + par28["flash"] + tp29["flash"]
                          + rest30["flash"] + static32["flash"]
-                         + scale33["flash"])
+                         + scale33["flash"] + ex34["flash"])
     decode["launches"] = (serve["flash_decode"] + lora26["flash_decode"]
                           + rest27["flash_decode"] + tp29["flash_decode"]
                           + rest30["flash_decode"]
-                          + static32["flash_decode"])
+                          + static32["flash_decode"] + ex34["flash_decode"])
     decode_fp8["launches"] = (rest27["flash_decode_fp8"]
                               + rest30["flash_decode_fp8"])
     dq["launches"] = (train["flash_bwd_dq"] + bert["flash_bwd_dq"]
@@ -8316,7 +8559,8 @@ def main(argv=None) -> int:
                          + launch31["bn_bwd_dx"] + static32["bn_bwd_dx"]
                          + scale33["bn_bwd_dx"])
     for e in fused:
-        e["launches"] = powersgd[e["name"]] + static32[e["name"]]
+        e["launches"] = (powersgd[e["name"]] + static32[e["name"]]
+                         + ex34[e["name"]])
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

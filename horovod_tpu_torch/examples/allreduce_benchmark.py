@@ -119,4 +119,6 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
 
 if __name__ == "__main__":
     main()
+    import horovod_tpu_torch as hvd
+    hvd.shutdown()
     sys.exit(0)

@@ -11,10 +11,10 @@ times ``--iters`` round trips of ``--elements`` f32 values (80,000,000
 exchange of BERT-Large moves ~588M elements a step), with CUDA events on
 the card and the host clock on the CPU, beside the memory-traffic floor:
 the quantise reads 4 and writes 1 byte an element, the dequantise reads
-1 and writes 4 -- 10 bytes an element at ``--hbm-gbps`` (3,350 GB/s, an
-H100 SXM's HBM3).  On the card the line carries ``nvidia-smi``'s name
-and power limit.  Every round trip is checked: each value within one
-e4m3 step of its input.
+1 and writes 4 -- 10 bytes an element at :data:`HBM_BYTES_S` (an H100
+SXM's HBM3, NVIDIA's data sheet).  On the card the line carries
+``nvidia-smi``'s name and power limit.  Every round trip is checked:
+each value within one e4m3 step of its input.
 
 Run::
 
@@ -33,6 +33,8 @@ import time
 from typing import Optional, Sequence
 
 import torch
+
+HBM_BYTES_S = 3.35e12
 
 
 def card_line() -> str:
@@ -55,7 +57,7 @@ def round_trip_error_ok(x: torch.Tensor, y: torch.Tensor,
     return bool(((y - x).abs() <= tol).all())
 
 
-def measure(elements: int, iters: int, device, hbm_gbps: float) -> dict:
+def measure(elements: int, iters: int, device) -> dict:
     from horovod_tpu_torch.collectives.compression import (fp8_dequantize,
                                                            fp8_quantize)
     g = torch.Generator(device=device).manual_seed(0)
@@ -79,7 +81,7 @@ def measure(elements: int, iters: int, device, hbm_gbps: float) -> dict:
         ms = start.elapsed_time(end) / iters
     else:
         ms = (time.perf_counter() - t0) / iters * 1e3
-    floor_ms = 10 * elements / (hbm_gbps * 1e9) * 1e3
+    floor_ms = 10 * elements / HBM_BYTES_S * 1e3
     return {"elements": elements, "mib": elements * 4 / 2 ** 20,
             "iters": iters, "ms": ms, "floor_ms": floor_ms,
             "ratio": ms / floor_ms,
@@ -91,8 +93,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--elements", type=int, default=80_000_000)
     p.add_argument("--iters", type=int, default=10)
-    p.add_argument("--hbm-gbps", type=float, default=3350.0,
-                   help="the memory rate of the floor, GB/s")
     p.add_argument("--json", default=None,
                    help="also write the record here")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -103,13 +103,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
     from horovod_tpu_torch.core.device import resolve_device
     dev = resolve_device(args.device)
-    rec = measure(args.elements, args.iters, dev, args.hbm_gbps)
+    rec = measure(args.elements, args.iters, dev)
     if dev.type == "cuda":
         rec["card"] = card_line()
     where = rec.get("card", str(dev))
     print(f"quant+dequant of {rec['mib']:.0f} MiB f32: {rec['ms']:.3f} ms "
-          f"(HBM floor {rec['floor_ms']:.3f} ms at {args.hbm_gbps:.0f} "
-          f"GB/s, {rec['ratio']:.2f}x) on {where}", flush=True)
+          f"(HBM floor {rec['floor_ms']:.3f} ms at "
+          f"{HBM_BYTES_S / 1e9:.0f} GB/s, {rec['ratio']:.2f}x) on {where}",
+          flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(rec, f, indent=1)

@@ -8,8 +8,8 @@ a step beside the first and last loss, so the bandwidth/convergence
 trade is visible in one run.  Both codecs carry an error-feedback
 residual in the optimizer: what a step's compression dropped is
 re-injected into the next step's exchange.  ``powersgd:4`` runs the
-three ``fused_update`` kernels on the card (two launches of each a step:
-the MLP's one f32 bucket of 9,610 values).
+three ``fused_update`` kernels on the card (one launch of each a step:
+the MLP's 9,610 f32 values are one bucket).
 
 The data is the JAX script's (numpy ``RandomState(42)`` class centres,
 ``RandomState(step)`` batches of the global batch, split over the
@@ -200,4 +200,6 @@ def main(argv: Optional[Sequence[str]] = None,
 
 if __name__ == "__main__":
     main()
+    import horovod_tpu_torch as hvd
+    hvd.shutdown()
     sys.exit(0)

@@ -91,9 +91,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--compression", default="fp16",
                    help="exchange codec (none, fp16, powersgd:4, ...)")
-    p.add_argument("--audit-world", type=int, default=0,
-                   help="ranks of the audit's recording world (default: "
-                        "the world's size, at least 2)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -177,8 +174,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             return s, ((torch.from_numpy(rows_here[0]).to(dev),
                         torch.from_numpy(rows_here[1]).to(dev)),)
 
-        report = audit_step(make, world=args.audit_world or max(n, 2),
-                            name="probe:step", device=dev)
+        # At least two ranks, so that the exchange's collectives run.
+        report = audit_step(make, world=max(n, 2), name="probe:step",
+                            device=dev)
         print("\nstatic audit (analysis.audit_step):")
         print(report.render())
         assert report.ok(), "audited step diverged from its exchange plan"

@@ -156,4 +156,6 @@ def main(argv: Optional[Sequence[str]] = None,
 
 if __name__ == "__main__":
     main()
+    import horovod_tpu_torch as hvd
+    hvd.shutdown()
     sys.exit(0)

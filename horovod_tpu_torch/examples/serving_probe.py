@@ -43,6 +43,9 @@ from typing import List, Optional, Sequence
 
 import torch
 
+PAGE_SIZE = 8        # the JAX probe's; the card's decode kernel takes it
+SEED = 11
+
 SERVING_FAMILIES = (
     "horovod_serving_requests_total",
     "horovod_serving_tokens_total",
@@ -134,13 +137,12 @@ def check_spans(summary: dict, legs: dict, report, cfg, tp: int,
 def run_probe(cfg, params, *, mesh=None, device=None, slots: int = 8,
               requests: int = 16, rate: float = 50.0,
               long_prompts: bool = False, prefill_chunk: int = 512,
-              page_size: int = 8, dtype=torch.float32, seed: int = 11,
-              load=None) -> dict:
+              dtype=torch.float32) -> dict:
     """Serve one seeded load on this rank's engine and check it; every
     rank of ``mesh`` calls it.  Returns the ``report``, the step
     ``summary``, the ``legs`` registry and ``fails`` (rank 0 scrapes
     ``/metrics`` and checks the families; the other ranks check the
-    spans only).  ``load`` overrides the :class:`LoadSpec`."""
+    spans only)."""
     from horovod_tpu_torch.core.state import global_state
     from horovod_tpu_torch.serving import (LoadSpec, ServingEngine,
                                            generate, long_prompt_spec)
@@ -153,19 +155,19 @@ def run_probe(cfg, params, *, mesh=None, device=None, slots: int = 8,
         # admissions slice into prefill_chunk forwards interleaved with
         # decode steps, so the live batch keeps emitting.
         engine = ServingEngine(cfg, params, mesh=mesh, device=device,
-                               slots=slots, page_size=page_size,
+                               slots=slots, page_size=PAGE_SIZE,
                                max_len=4608, dtype=dtype,
                                prefill_chunk=prefill_chunk)
-        spec = load or long_prompt_spec(num_requests=requests,
-                                        rate_rps=min(rate, 2.0),
-                                        vocab_size=cfg.vocab_size, seed=seed)
+        spec = long_prompt_spec(num_requests=requests,
+                                rate_rps=min(rate, 2.0),
+                                vocab_size=cfg.vocab_size, seed=SEED)
     else:
         engine = ServingEngine(cfg, params, mesh=mesh, device=device,
-                               slots=slots, page_size=page_size, max_len=64,
+                               slots=slots, page_size=PAGE_SIZE, max_len=64,
                                dtype=dtype, prefill_chunk=0)
-        spec = load or LoadSpec(num_requests=requests, rate_rps=rate,
-                                prompt_lens=(4, 8, 16), output_lens=(4, 8),
-                                vocab_size=cfg.vocab_size, seed=seed)
+        spec = LoadSpec(num_requests=requests, rate_rps=rate,
+                        prompt_lens=(4, 8, 16), output_lens=(4, 8),
+                        vocab_size=cfg.vocab_size, seed=SEED)
     tp = engine.step.tp if hasattr(engine.step, "tp") else 1
     rec = spans.recorder()
     # A step of its own: nothing booked before the serve is counted.

@@ -3,14 +3,19 @@ subprocess on the CPU, as a user would, and hand back what it printed
 and the losses its train steps returned at full precision.
 
 The script runs unmodified (``runpy`` under ``__main__``, after an
-optional prelude, e.g. seeding Keras); the wrapper only wraps ``horovod_tpu.make_train_step`` so that each step it builds
-records ``float(loss)`` of every concrete call (one list a built step, in build
-order) -- the scripts print losses at four decimals only."""
+optional prelude, e.g. seeding Keras); the wrapper only wraps
+``horovod_tpu.make_train_step`` so that each step it builds records
+``float(loss)`` of every concrete call (one list a built step, in build
+order) -- the scripts print losses at four decimals only.  Also the
+``world1`` fixture for an example's ``main`` run in the test's
+process."""
 
 import json
 import os
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "HOROVOD_RANK",
@@ -96,3 +101,19 @@ def run_port(module: str, args, tmp_path, timeout: int = 300,
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True, timeout=timeout)
     return proc.returncode, proc.stdout
+
+
+@pytest.fixture
+def world1(monkeypatch):
+    """A fresh world of one for an example's ``main`` run in the test's
+    process: no launcher identity in the environment, the framework shut
+    down before and after, and the metrics registry reset (its counters
+    outlive ``shutdown()``; a script run alone starts at zero)."""
+    import horovod_tpu_torch as thvd
+    from horovod_tpu_torch.timeline.metrics import reset_metrics
+    for k in LAUNCHER_ENV:
+        monkeypatch.delenv(k, raising=False)
+    thvd.shutdown()
+    reset_metrics()
+    yield
+    thvd.shutdown()

@@ -16,8 +16,7 @@ import re
 
 import pytest
 
-import horovod_tpu_torch as thvd
-from _jax_examples import LAUNCHER_ENV, run_jax_example, run_port
+from _jax_examples import run_jax_example, run_port, world1  # noqa: F401
 from horovod_tpu_torch.examples import allreduce_benchmark
 
 CHECKS = ("allreduce OK", "allgatherv OK", "broadcast_object OK",
@@ -56,15 +55,6 @@ def test_allreduce_check_prints_the_jax_scripts_lines(tmp_path):
     assert rc == 0, out
     assert _ok_lines(out) == _ok_lines(jax_out)
     assert len(_ok_lines(out)) == 2 * len(CHECKS)
-
-
-@pytest.fixture
-def world1(monkeypatch):
-    for k in LAUNCHER_ENV:
-        monkeypatch.delenv(k, raising=False)
-    thvd.shutdown()
-    yield
-    thvd.shutdown()
 
 
 def test_allreduce_benchmark_at_world_one(world1, capsys, tmp_path):

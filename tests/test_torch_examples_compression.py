@@ -13,14 +13,13 @@ codec, ``powersgd:4`` and ``topk:0.05``, and the composed paths
 (``--zero``, ``--microbatches 2``) the same way.
 """
 
-import os
 import re
 
 import numpy as np
 import pytest
 
 import horovod_tpu_torch as thvd
-from _jax_examples import LAUNCHER_ENV, run_jax_example
+from _jax_examples import LAUNCHER_ENV, run_jax_example, world1  # noqa: F401
 from horovod_tpu_torch.examples import grad_compression
 
 STEPS = 10
@@ -51,15 +50,6 @@ def _table(out: str) -> dict:
     return rows
 
 
-@pytest.fixture
-def world1():
-    env = {k: os.environ.pop(k) for k in LAUNCHER_ENV if k in os.environ}
-    thvd.shutdown()
-    yield
-    thvd.shutdown()
-    os.environ.update(env)
-
-
 @pytest.fixture(scope="module")
 def three_way(tmp_path_factory):
     """The JAX script's three-way run and the port's on its arguments."""
@@ -67,7 +57,9 @@ def three_way(tmp_path_factory):
     out, steps = run_jax_example(
         "grad_compression", ["--cpu-devices", "1", "--steps", str(STEPS)],
         tmp)
-    env = {k: os.environ.pop(k) for k in LAUNCHER_ENV if k in os.environ}
+    mp = pytest.MonkeyPatch()
+    for k in LAUNCHER_ENV:
+        mp.delenv(k, raising=False)
     thvd.shutdown()
     try:
         port = grad_compression.main(
@@ -75,7 +67,7 @@ def three_way(tmp_path_factory):
             params=_jax_params())
     finally:
         thvd.shutdown()
-        os.environ.update(env)
+        mp.undo()
     return {"out": out, "steps": dict(zip(CODECS, steps)), "port": port}
 
 

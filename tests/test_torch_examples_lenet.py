@@ -16,10 +16,8 @@ gradients averaged: the same step up to roundoff).
 import re
 
 import numpy as np
-import pytest
 
-import horovod_tpu_torch as thvd
-from _jax_examples import LAUNCHER_ENV, run_jax_example, run_port
+from _jax_examples import run_jax_example, run_port, world1  # noqa: F401
 from horovod_tpu_torch.examples import mnist_lenet
 
 STEPS = 20
@@ -36,15 +34,6 @@ def _jax_params():
     return {name: {"w": np.asarray(he(k[i], w)),
                    "b": np.zeros((b,), np.float32)}
             for i, (name, (w, b)) in enumerate(shapes.items())}
-
-
-@pytest.fixture
-def world1(monkeypatch):
-    for k in LAUNCHER_ENV:
-        monkeypatch.delenv(k, raising=False)
-    thvd.shutdown()
-    yield
-    thvd.shutdown()
 
 
 def test_mnist_lenet_matches_the_jax_script(world1, tmp_path, capsys):
