@@ -392,8 +392,9 @@ Phases, each printing its own line; any failure exits non-zero:
    2 and 2b at the tp-local heads (16/4 and 8/2, ``check_decode_tp``).
 30. item_1_12_rest -- (a) the disaggregated fleet with a tp 2 decode
    worker: this script run twice with ``--tp-worker fleet_tp`` on
-   ``cuda:0`` over gloo, Llama-3 8B (full width, ``FLEET_TP_LAYERS`` = 8
-   deep -- cut from 32 --, bf16, seed 0) on phase 4's load, one prefill worker on rank 0 (the leader) and one
+   ``cuda:0`` over gloo, Llama-3 8B (full width, ``FLEET_TP_LAYERS`` = 4
+   deep -- cut from 32 --, bf16, seed 0) on phase 4's load, one prefill
+   worker on rank 0 (the leader) and one
    ``ServingEngine(mesh=build_parallel_mesh(tp=2))`` over both ranks, a
    loopback ``RendezvousServer`` started here.  The f32 wire: every
    request completes, no page left on either rank, both ranks' streams
@@ -411,8 +412,9 @@ Phases, each printing its own line; any failure exits non-zero:
    a layer a prefill (the leader's, and the local ones), one decode (or
    e4m3 decode) a layer a step.  (b) The two-level DP leg: this script run
    four times with ``--tp-worker parallel_3d_dcn`` under
-   ``HOROVOD_HIERARCHICAL_ALLREDUCE=1``, BERT-Large (phase 12's cell,
-   ``DCN_LAYERS`` deep, bf16, AdamW) through ``make_train_step`` on
+   ``HOROVOD_HIERARCHICAL_ALLREDUCE=1``, BERT-Large (phase 12's cell at
+   full width, ``DCN_LAYERS`` = 12 deep -- cut from 24 --, bf16, AdamW;
+   the world-1 reference at the same depth) through ``make_train_step`` on
    ``build_3d_mesh(data=2, dcn_size=2)``: a warm-up and a timed step,
    one step under ``ici:none,dcn:fp16``, each held against the 3-D step
    at world 1 here (phase 28 (a)'s, 64 x 128 tokens) -- the loss within
@@ -520,8 +522,9 @@ Phases, each printing its own line; any failure exits non-zero:
    ``grad_compression``, ``EX_GC_STEPS`` steps of each codec: the wire
    bytes a step of each equal to the CPU run's (``EX_GC_WIRE``), finite
    losses, one launch of each ``fused_update`` stage a bucket (the MLP's
-   9,610 f32 values: one) a ``powersgd:4`` step.  (d) ``straggler_probe`` on the JAX test's arguments: rank 3
-   named live and in the merge.  (e) ``allreduce_benchmark`` over 1-256
+   9,610 f32 values: one) a ``powersgd:4`` step.  (d)
+   ``straggler_probe`` on the JAX test's arguments: rank 3 named live
+   and in the merge.  (e) ``allreduce_benchmark`` over 1-256
    MiB at world 1 on NCCL, every result equal to its input (no bus
    number: the bus factor is 0).  (f) ``fp8_cost_probe``: the round trip
    of 80,000,000 f32 values within one e4m3 step, timed beside the card
@@ -6543,11 +6546,13 @@ FLEET_TP_TIMEOUT = 420
 FLEET_TP_PAGE = 16
 # (a): Llama-3 8B at full width, depth cut from 32 to keep the script in
 # its limit (every gate of (a) is exact: streams, bitwise e4m3 shards).
-# At 4 layers (b)'s fp16-wire update fell outside its gate, whose floor
-# is the model's own bf16-vs-f32 distance, which shrinks with depth.
-FLEET_TP_LAYERS = 8
+FLEET_TP_LAYERS = 4
 DCN_WORLD = 4                  # (b): dcn 2 x data 2 (and dcn 2 x model 2)
-DCN_LAYERS = 24                # (b): BERT-Large's depth, uncut
+# (b): BERT-Large at full width, depth cut from 24 (the reference runs at
+# the same depth).  Not below 12: at 4 the fp16-wire update fell outside
+# its gate, whose floor -- the model's own bf16-vs-f32 update distance --
+# shrinks with depth.
+DCN_LAYERS = 12
 DCN_TIMEOUT = 300              # (b): its time budget, workers included
 DCN_CODEC = "ici:none,dcn:fp16"
 DCN_HIER_LEGS = ("hier/ici_rs", "hier/dcn_ar", "hier/ici_ag")

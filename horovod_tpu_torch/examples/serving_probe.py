@@ -36,6 +36,7 @@ Rank 0 prints ``serving probe OK`` last.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import urllib.request
@@ -211,6 +212,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="chunk length for --long-prompts (0 = whole "
                         "prompt at once)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--json", default=None,
+                   help="rank 0 also writes the engine's report here")
     return p.parse_args(argv)
 
 
@@ -255,6 +258,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
               f"+ serving_decode ({report.decode_steps} steps) + "
               f"{2 * cfg.num_layers if out['tp'] > 1 else 0} in-step "
               f"collective legs", flush=True)
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump({"world": world, "slots": args.slots,
+                           **report.as_dict()}, f, indent=1)
     assert not out["fails"], out["fails"]
     hvd.barrier()
     hvd.shutdown()

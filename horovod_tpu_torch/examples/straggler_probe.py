@@ -52,7 +52,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--trace-dir", default=None,
                    help="where per-rank timelines land (default: tmp)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
-    return p.parse_args(argv)
+    p.add_argument("--json", default=None,
+                   help="also write the verdicts here")
+    args = p.parse_args(argv)
+    if not 0 <= args.slow_rank < args.ranks:
+        p.error(f"--slow-rank {args.slow_rank} is not one of the "
+                f"{args.ranks} ranks")
+    return args
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -63,7 +69,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     not decide: not checked here)."""
     args = parse_args(argv)
     world = args.ranks
-    assert 0 <= args.slow_rank < world
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.core.state import global_state
     from horovod_tpu_torch.elastic import chaos
@@ -186,6 +191,19 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cats = info["categories"]
         top = max(cats, key=cats.get) if cats else "compute"
         bound[r] = _BOUND.get(top, "compute-bound")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"spec": spec, "world": world,
+                       "injected_rank": args.slow_rank,
+                       "injected_secs": args.slow_secs,
+                       "detected_rank": live["straggler_rank"],
+                       "lateness_s": live["lateness_s"],
+                       "skew_s": live["skew_s"],
+                       "stalled_dispatch_gap_s": gap,
+                       "merged_rank": rep["straggler"]["straggler_rank"],
+                       "merged_ranks": rep["ranks"],
+                       "merged_events": rep["events"], "bound": bound},
+                      f, indent=1)
     print("\nstraggler probe OK", flush=True)
     return {"live": live, "merged": rep, "stalled": stalled,
             "bound": bound, "trace_dir": trace_dir}

@@ -111,8 +111,12 @@ def test_straggler_probe_names_the_injected_rank(world1, tmp_path):
     rep = straggler_probe.main(
         ["--device", "cpu", "--steps", "10", "--slow-rank", "3",
          "--slow-step", str(STALL_AFTER), "--slow-secs", str(STALL_S),
-         "--trace-dir", str(trace)])
+         "--trace-dir", str(trace), "--json", str(tmp_path / "v.json")])
     assert rep["live"]["straggler_rank"] == 3
+    with open(tmp_path / "v.json") as f:
+        verdicts = json.load(f)
+    assert verdicts["detected_rank"] == verdicts["merged_rank"] == 3
+    assert verdicts["injected_secs"] == STALL_S
     assert rep["merged"]["straggler"]["straggler_rank"] == 3
     assert rep["merged"]["ranks"] == 8
     assert rep["stalled"]["spans"]["dispatch_gap"] >= STALL_S
@@ -126,7 +130,7 @@ def test_straggler_probe_names_the_injected_rank(world1, tmp_path):
 
 
 def test_straggler_probe_refuses_a_rank_outside_the_world(world1):
-    with pytest.raises(AssertionError):
+    with pytest.raises(SystemExit):
         straggler_probe.main(["--device", "cpu", "--ranks", "2",
                               "--slow-rank", "2"])
 

@@ -19,6 +19,7 @@ the JAX repository's ``examples/serving_probe.py``.
   that lacks a family or miscounts a request.
 """
 
+import json
 import re
 
 from _jax_examples import run_jax_example, run_port
@@ -65,13 +66,19 @@ def test_serving_probe_matches_the_jax_script(tmp_path):
 def test_serving_probe_long_prompts_at_world_two(tmp_path):
     from horovod_tpu.serving.loadgen import generate, long_prompt_spec
     rc, out = run_port("serving_probe", ["--long-prompts", "--requests",
-                                         "4"], tmp_path, launcher_np=2)
+                                         "4", "--json",
+                                         str(tmp_path / "report.json")],
+                       tmp_path, launcher_np=2)
     assert rc == 0, out
     assert "serving probe OK" in out and "served 4/4 requests" in out
     reqs = generate(long_prompt_spec(num_requests=4, rate_rps=2.0,
                                      vocab_size=256, seed=11))
     want = sum(len(r.prompt) for r in reqs)
     assert f'horovod_serving_tokens_total{{phase="prefill"}} {want}' in out
+    with open(tmp_path / "report.json") as f:
+        report = json.load(f)
+    assert (report["world"], report["completed"]) == (2, 4)
+    assert report["prompt_tokens"] == want and report["prefill_chunks"] > 0
     assert any(len(r.prompt) > 512 for r in reqs)   # a chunked admission
 
 
